@@ -23,7 +23,6 @@ from typing import Sequence
 
 # Options outside this slice: field -> the value that means "off".
 _NOT_IN_SLICE = {
-    "twin_critic": False,
     "distributional": False,
     "sac": False,
     "prioritized": False,
@@ -84,6 +83,17 @@ class DDPGConfig:
     # card, 8 on the CPU (parallel/learner.resolve_learner_chunk).
     learner_chunk: int = 0
 
+    # --- TD3 (arXiv 1802.09477) ---
+    # twin_critic: a 2-critic ensemble (params stacked on a leading axis)
+    # with min-over-ensemble Bellman targets (clipped double-Q).
+    twin_critic: bool = False
+    # Actor + target nets update once per `policy_delay` critic steps.
+    policy_delay: int = 1
+    # Target-policy smoothing: clip(N(0, target_noise), +-clip) added to
+    # the target action inside the critic target (0 = off).
+    target_noise: float = 0.0
+    target_noise_clip: float = 0.5
+
     # --- precision ---
     compute_dtype: str = "float32"
 
@@ -96,7 +106,6 @@ class DDPGConfig:
     device: str = "cuda"
 
     # --- options outside this slice (see _NOT_IN_SLICE) ---
-    twin_critic: bool = False
     distributional: bool = False
     sac: bool = False
     prioritized: bool = False
@@ -110,6 +119,22 @@ class DDPGConfig:
 
     def replace(self, **kwargs) -> "DDPGConfig":
         return dataclasses.replace(self, **kwargs)
+
+    @property
+    def takes_noise(self) -> bool:
+        """TD3 target smoothing is on: the learner step and chunk then take
+        the clipped noise eps as an input (ops/fused_chunk.td3_noise_eps),
+        and only then."""
+        return bool(self.twin_critic) and self.target_noise > 0.0
+
+    def check_noise(self, eps) -> None:
+        """Raises unless eps is given exactly when `takes_noise`."""
+        if self.takes_noise != (eps is not None):
+            raise ValueError(
+                "eps (TD3 smoothing noise) is required exactly when "
+                f"twin_critic and target_noise > 0 (twin_critic={self.twin_critic}, "
+                f"target_noise={self.target_noise})"
+            )
 
     @classmethod
     def from_flags(cls, argv: Sequence[str]) -> "DDPGConfig":
@@ -138,6 +163,35 @@ class DDPGConfig:
         return cls(**vars(parser.parse_args(argv)))
 
     def __post_init__(self):
+        # The JAX package's TD3 gates and messages (its config.py), checked
+        # before the slice's own so a TD3 misconfiguration reads the same.
+        if self.policy_delay < 1:
+            raise ValueError("policy_delay must be >= 1")
+        if self.target_noise < 0 or self.target_noise_clip < 0:
+            raise ValueError("target_noise/target_noise_clip must be >= 0")
+        if not self.twin_critic and (
+            self.policy_delay > 1 or self.target_noise > 0
+        ):
+            raise ValueError(
+                "policy_delay/target_noise are TD3 knobs consumed only by "
+                "the twin-critic step — set twin_critic=True or they would "
+                "silently do nothing"
+            )
+        if self.twin_critic and self.distributional:
+            raise ValueError(
+                "twin_critic (TD3) and distributional (D4PG) are separate "
+                "algorithm families; enable one"
+            )
+        if self.sac and (self.twin_critic or self.distributional):
+            raise ValueError(
+                "sac is its own algorithm family (it builds its twin-critic "
+                "ensemble internally); disable twin_critic/distributional"
+            )
+        if self.twin_critic and self.fused_update:
+            raise ValueError(
+                "twin_critic composes with the stock Adam+Polyak tree update"
+                " (delayed via lax.cond), not the fused_update kernel"
+            )
         for name, off in _NOT_IN_SLICE.items():
             if getattr(self, name) != off:
                 raise ValueError(

@@ -1,17 +1,19 @@
-// K full DDPG learner steps in one launch, for Hopper (sm_90a).
+// K full DDPG or TD3 learner steps in one launch, for Hopper (sm_90a).
 //
 // Replaces: distributed_ddpg_tpu/ops/fused_chunk.py, make_fused_chunk_fn ->
-// run -> pl.pallas_call (the kernel body _make_kernel.kernel), DDPG TD(0)
-// f32 branch. The Python side (ops/fused_chunk.py) plans the per-step work
-// as a table of matrix-product tasks grouped into dependency stages; this
-// file executes that program K times and runs the optimizer pass.
+// run -> pl.pallas_call (the kernel body _make_kernel.kernel), its DDPG
+// TD(0) f32 branch (a) and its TD3 branch (b). The Python side
+// (ops/fused_chunk.py) plans the per-step work as a table of matrix-product
+// tasks grouped into dependency stages; this file executes that program K
+// times and runs the optimizer pass.
 //
 // What bounds it on this card: operations. A step at Pendulum shapes
 // (2x256 nets, batch 64) is ~77 MFLOP of f32 products in ~40 small
 // dependent matrices plus an element-wise Adam/Polyak pass over 134k
 // parameters; the whole state (params, targets, both Adam moments: 2.15 MB)
 // is read and written once per chunk, which is negligible at K = 800. At
-// the f32 CUDA-core peak that is ~1.2 us a step. The steps are a chain of
+// the f32 CUDA-core peak that is ~1.2 us a step (TD3's second critic adds
+// about 40%). The steps are a chain of
 // dependent products far too small to fill the card one at a time, so in
 // practice latency rules: each stage's round of tiles (a chain of
 // dependent L2 reads around ~1 us of products) and each grid barrier
@@ -41,6 +43,25 @@
 // - Metrics: block 0 computes the per-step losses; every block writes its
 //   partial sums of squared gradients; after the loop block 0 reduces them
 //   in a fixed order, so a launch's output does not depend on timing.
+//
+// TD3 (branch b) runs in the same 9 stages as DDPG, with no stage added:
+// - The critic group holds both members (member 0's layers, then member
+//   1's) in each of the 4 state copies; the members' forwards and
+//   backwards are more tasks in the stages DDPG already has.
+// - The target actor's head epilogue adds the streamed noise eps[k] and
+//   clips to the action box (EPI_TANH_NOISE; eps arrives clipped).
+// - The min target needs all four heads (q'0, q'1, q0, q1); the target
+//   heads end stage 4. One element-wise task (EPI_TD3, no product) in
+//   stage 5 -- which the actor's backward already occupies -- writes both
+//   members' cotangents -w * td_m / B, td0, td1 and td = (td0 + td1) / 2.
+//   The critic backward then fills stages 6-8, beside the actor's, so the
+//   step keeps DDPG's 9 stages and 10 barriers.
+// - The delay: on a step with (step0 + k) % delay != 0 each stage runs
+//   only its first stage_tiles_skip tiles (the planner puts the actor's
+//   backward tasks last), and the optimizer pass does the critic's Adam
+//   alone. On update steps it also does the actor's Adam, with
+//   t_a = count_a + f(step0 + k) - f(step0) + 1, f(n) = ceil(n / delay),
+//   and every Polyak update (actor and both critic targets).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -58,7 +79,10 @@ namespace cg = cooperative_groups;
 // Mirrors ops/fused_chunk.py.
 enum { OP_FWD = 0, OP_DW = 1, OP_DX = 2 };
 enum { BASE_STATE = 0, BASE_SCRATCH = 1, BASE_BATCH = 2, BASE_ONES = 3 };
-enum { EPI_NONE = 0, EPI_RELU, EPI_TANH, EPI_TD, EPI_MASK, EPI_TANH_BWD };
+enum {
+  EPI_NONE = 0, EPI_RELU, EPI_TANH, EPI_TD, EPI_MASK, EPI_TANH_BWD, EPI_TANH_NOISE,
+  EPI_TD3
+};
 enum {
   F_OP = 0, F_M = 1, F_N = 2, F_NSEG = 3, F_SEG = 4,
   F_C = 22, F_BIAS = 26, F_EPI = 28, F_AUX = 29, F_AUX2 = 32,
@@ -68,8 +92,9 @@ enum {
   IP_K = 0, IP_B, IP_D, IP_OBS, IP_ACT, IP_NSTAGES, IP_NA, IP_NC,
   IP_OFF_PA, IP_OFF_PC, IP_OFF_TA, IP_OFF_TC, IP_OFF_MUA, IP_OFF_NUA,
   IP_OFF_MUC, IP_OFF_NUC, IP_OFF_GA, IP_OFF_GC, IP_OFF_QPI, IP_OFF_PART,
-  IP_OFF_STEPMET, IP_OFF_STEPNORM, IP_STAGE_START,
-  IP_STAGE_TILES = IP_STAGE_START + MAX_STAGES + 1
+  IP_OFF_STEPMET, IP_OFF_STEPNORM, IP_DELAY, IP_OFF_TD01, IP_STAGE_START,
+  IP_STAGE_TILES = IP_STAGE_START + MAX_STAGES + 1,
+  IP_STAGE_TILES_SKIP = IP_STAGE_TILES + MAX_STAGES
 };
 enum {
   FP_LR_A = 0, FP_LR_C, FP_B1, FP_OMB1, FP_B2, FP_OMB2, FP_EPS, FP_LOG_B1,
@@ -80,11 +105,12 @@ struct Ctx {
   float* state;
   float* scratch;
   const float* batch_k;  // this step's [B, D] packed rows
+  const float* eps_k;    // this step's smoothing noise [B, act] (TD3), or null
   float* td_k;           // this step's td[B]
   const float* scale;
   const float* offset;
   int D, obs, act;
-  float neg2_inv_b;
+  float neg2_inv_b, inv_b;
 };
 
 __device__ __forceinline__ float* resolve(const Ctx& c, int base, int off) {
@@ -174,6 +200,15 @@ __device__ void run_tile(const int* __restrict__ T, int tile, const Ctx& c,
       out = t * __ldg(c.scale + n) + __ldg(c.offset + n);
       break;
     }
+    case EPI_TANH_NOISE: {
+      // The TD3 target action: mu'(s') + eps, clipped to the action box.
+      const float t = tanhf(z);
+      aux[m * aux_sm + n] = t;
+      const float sc = __ldg(c.scale + n), of = __ldg(c.offset + n);
+      const float u = t * sc + of + __ldg(c.eps_k + (size_t)m * c.act + n);
+      out = fminf(fmaxf(u, of - sc), of + sc);
+      break;
+    }
     case EPI_TD: {
       // z = Q'(s', mu'(s')); aux = Q(s, a); td = (r + disc * q_t) - q;
       // the critic's output cotangent dL/dq = -2/B * w * td goes to aux2.
@@ -184,6 +219,26 @@ __device__ void run_tile(const int* __restrict__ T, int tile, const Ctx& c,
       const float td = (r + disc * z) - __ldcg(aux + m);
       c.td_k[m] = td;
       resolve(c, T[F_AUX2], T[F_AUX2 + 1])[m] = (c.neg2_inv_b * w) * td;
+      break;
+    }
+    case EPI_TD3: {
+      // No product. aux rows (aux_sm apart): q'0, q'1, q0, q1; aux2 rows:
+      // dq0, dq1, td0, td1. y = r + disc * min(q'0, q'1), td_m = y - q_m,
+      // dL/dq_m = -w * td_m / B; td = (td0 + td1) / 2.
+      const float* row = c.batch_k + (size_t)m * c.D;
+      const int col = c.obs + c.act;
+      const float r = __ldg(row + col), disc = __ldg(row + col + 1);
+      const float w = __ldg(row + 2 * c.obs + c.act + 2);
+      const float y = r + disc * fminf(__ldcg(aux + m), __ldcg(aux + aux_sm + m));
+      const float td0 = y - __ldcg(aux + 2 * aux_sm + m);
+      const float td1 = y - __ldcg(aux + 3 * aux_sm + m);
+      float* o = resolve(c, T[F_AUX2], T[F_AUX2 + 1]);
+      const float g = -c.inv_b * w;
+      o[m] = g * td0;
+      o[aux_sm + m] = g * td1;
+      o[2 * aux_sm + m] = td0;
+      o[3 * aux_sm + m] = td1;
+      c.td_k[m] = 0.5f * (td0 + td1);
       break;
     }
     case EPI_MASK:
@@ -215,7 +270,8 @@ __device__ float block_sum(float v, float* red) {
 
 __global__ void __launch_bounds__(NT, 1)
 fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch,
-                   float* td_out, float* metrics, const int* __restrict__ counts,
+                   const float* __restrict__ noise, float* td_out, float* metrics,
+                   const int* __restrict__ counts,
                    const float* __restrict__ scale, const float* __restrict__ offset,
                    const int* __restrict__ ip, const float* __restrict__ fp,
                    const int* __restrict__ tasks) {
@@ -233,14 +289,22 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
   float* stepnorm = scratch + ip[IP_OFF_STEPNORM];  // [K][2]
   const float* qpi = scratch + ip[IP_OFF_QPI];
   const float inv_b = fp[FP_INV_B];
-  const int cnt_a = counts[0], cnt_c = counts[1];
+  const int cnt_a = counts[0], cnt_c = counts[1], step0 = counts[2];
+  const int delay = ip[IP_DELAY];
+  const bool twin = ip[IP_OFF_TD01] >= 0;                          // TD3
+  const float* td01 = twin ? scratch + ip[IP_OFF_TD01] : nullptr;  // td0[B], td1[B]
 
   for (int k = 0; k < K; ++k) {
-    const Ctx c{state, scratch, batch + (size_t)k * B * D, td_out + (size_t)k * B,
-                scale, offset, D, obs, act, fp[FP_NEG2_INV_B]};
+    // The delay schedule (DDPG: delay 1, every step updates everything).
+    const int step = step0 + k;
+    const bool upd = step % delay == 0;
+    const int done_a = (step + delay - 1) / delay - (step0 + delay - 1) / delay;
+    const Ctx c{state, scratch, batch + (size_t)k * B * D,
+                noise ? noise + (size_t)k * B * act : nullptr, td_out + (size_t)k * B,
+                scale, offset, D, obs, act, fp[FP_NEG2_INV_B], inv_b};
     for (int s = 0; s < nst; ++s) {
       const int t0 = ip[IP_STAGE_START + s], t1 = ip[IP_STAGE_START + s + 1];
-      const int ntile = ip[IP_STAGE_TILES + s];
+      const int ntile = ip[(upd ? IP_STAGE_TILES : IP_STAGE_TILES_SKIP) + s];
       for (int tile = blockIdx.x; tile < ntile; tile += G) {
         int t = t0;
         while (t + 1 < t1 && tasks[(t + 1) * TASK_INTS + F_TILE0] <= tile) ++t;
@@ -250,8 +314,9 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
       grid.sync();
     }
 
-    // --- optimizer: Adam (critic, then actor) and Polyak, element-wise ---
-    const float t_c = (float)(cnt_c + k + 1), t_a = (float)(cnt_a + k + 1);
+    // --- optimizer: Adam (critic, then actor) and Polyak, element-wise.
+    // A step without an actor update does the critic's Adam alone. ---
+    const float t_c = (float)(cnt_c + k + 1), t_a = (float)(cnt_a + done_a + 1);
     const float bc1_c = 1.f - expf(t_c * fp[FP_LOG_B1]);
     const float bc2_c = 1.f - expf(t_c * fp[FP_LOG_B2]);
     const float bc1_a = 1.f - expf(t_a * fp[FP_LOG_B1]);
@@ -259,7 +324,8 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
     const float b1 = fp[FP_B1], omb1 = fp[FP_OMB1], b2 = fp[FP_B2], omb2 = fp[FP_OMB2];
     const float eps = fp[FP_EPS], tau = fp[FP_TAU], omtau = fp[FP_OMTAU];
     float sq_c = 0.f, sq_a = 0.f;
-    for (int e = blockIdx.x * NT + tid; e < nc + na; e += G * NT) {
+    const int n_opt = upd ? nc + na : nc;
+    for (int e = blockIdx.x * NT + tid; e < n_opt; e += G * NT) {
       const bool is_c = e < nc;
       const int i = is_c ? e : e - nc;
       float* P = state + ip[is_c ? IP_OFF_PC : IP_OFF_PA] + i;
@@ -275,7 +341,7 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
       *MU = m;
       *NU = v;
       *P = p;
-      *Tg = tau * p + omtau * __ldcg(Tg);
+      if (upd) *Tg = tau * p + omtau * __ldcg(Tg);
       if (is_c) sq_c += g * g; else sq_a += g * g;
     }
     const float bsq_c = block_sum(sq_c, red);
@@ -286,11 +352,17 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
     }
     if (blockIdx.x == 0) {
       // Per-step losses from td (all of step k's TD epilogues are done).
+      // TD3: the loss is the mean over both members, 0.5/B * sum w td_m^2.
       float wtd2 = 0.f, atd = 0.f, sq = 0.f;
       for (int m = tid; m < B; m += NT) {
         const float td = __ldcg(c.td_k + m);
         const float w = __ldg(c.batch_k + (size_t)m * D + 2 * obs + act + 2);
-        wtd2 += w * td * td;
+        if (twin) {
+          const float td0 = __ldcg(td01 + m), td1 = __ldcg(td01 + B + m);
+          wtd2 += w * td0 * td0 + w * td1 * td1;
+        } else {
+          wtd2 += w * td * td;
+        }
         atd += fabsf(td);
         sq += __ldcg(qpi + m);
       }
@@ -299,7 +371,7 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
       sq = block_sum(sq, red);
       if (tid == 0) {
         const float aloss = -sq * inv_b;
-        stepmet[k * 4 + 0] = wtd2 * inv_b;
+        stepmet[k * 4 + 0] = wtd2 * (twin ? 0.5f * inv_b : inv_b);
         stepmet[k * 4 + 1] = aloss;
         stepmet[k * 4 + 2] = -aloss;
         stepmet[k * 4 + 3] = atd * inv_b;
@@ -335,11 +407,12 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
 extern "C" {
 
 // Launches the kernel on `stream`; returns the CUDA error code (0 = ok).
-int fused_chunk_launch(float* state, float* scratch, const float* batch, float* td_out,
-                       float* metrics, const int* counts, const float* scale,
+// `noise` (eps[K, B, act]) is null unless the TD3 target action is smoothed.
+int fused_chunk_launch(float* state, float* scratch, const float* batch, const float* noise,
+                       float* td_out, float* metrics, const int* counts, const float* scale,
                        const float* offset, const int* ip, const float* fp,
                        const int* tasks, int grid, void* stream) {
-  void* args[] = {&state, &scratch, &batch, &td_out, &metrics, &counts,
+  void* args[] = {&state, &scratch, &batch, &noise, &td_out, &metrics, &counts,
                   &scale, &offset, &ip, &fp, &tasks};
   cudaError_t e = cudaLaunchCooperativeKernel((const void*)fused_chunk_kernel, dim3(grid),
                                               dim3(NT), args, 0, (cudaStream_t)stream);

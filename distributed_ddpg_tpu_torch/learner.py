@@ -1,13 +1,21 @@
-"""The DDPG learner step, as an eager autograd step — the port's oracle.
+"""The DDPG and TD3 learner step, as an eager autograd step — the port's oracle.
 
-Counterpart of distributed_ddpg_tpu/learner.py (the plain-DDPG branch of
-make_learner_step). One step does:
+Counterpart of distributed_ddpg_tpu/learner.py (the plain-DDPG and TD3
+branches of make_learner_step). One step does:
 
-  1. the critic TD update's gradient,
+  1. the critic TD update's gradient (TD3: both members of the [2, ...]
+     ensemble against the min-over-ensemble target),
   2. the DPG actor gradient through the PRE-update critic (both gradients
-     come from the same state, learner.py:347 of the JAX package),
+     come from the same state, learner.py:347 of the JAX package; TD3:
+     through critic member 0),
   3. Adam for both nets, critic first,
   4. Polyak target updates.
+
+With TD3 and policy_delay > 1 the critic steps every call, while the
+actor's Adam and BOTH Polyak updates run only when the pre-increment
+`state.step % policy_delay == 0` (learner.py:364-416 of the JAX package):
+actor_opt.count advances only then, and actor_grad_norm reads 0 on the
+other steps. The smoothing noise is an input (`eps`), see ops/losses.py.
 
 The training path runs K of these per dispatch inside the CUDA kernel
 (ops/fused_chunk.py); this step is what the kernel and its plain version
@@ -15,8 +23,9 @@ are held against.
 
 `train_state_from_numpy` / `train_state_to_numpy` carry weights across the
 frameworks: the JAX TrainState, passed as numpy (`jax.tree.map(np.asarray,
-s)`), becomes the port's state and back. Parity always starts from a state
-the JAX package made, because the two frameworks' random streams differ.
+s)`), becomes the port's state and back, [2, ...] ensemble leaves
+included. Parity always starts from a state the JAX package made, because
+the two frameworks' random streams differ.
 """
 
 from __future__ import annotations
@@ -60,10 +69,15 @@ def init_train_state(config: DDPGConfig, obs_dim: int, act_dim: int, seed: int,
                      device="cpu") -> TrainState:
     """Params, hard-copied targets and zero Adam state, from a seeded
     torch.Generator. The shapes and init bounds are the JAX package's;
-    the numbers are not (the random streams differ)."""
+    the numbers are not (the random streams differ). With twin_critic
+    two independently drawn critics are stacked on a leading [2, ...]
+    axis of every critic leaf, sharing one critic_opt (one count)."""
     gen = torch.Generator().manual_seed(int(seed))
     actor = actor_init(gen, obs_dim, act_dim, tuple(config.actor_hidden), device)
     critic = critic_init(gen, obs_dim, act_dim, tuple(config.critic_hidden), device)
+    if config.twin_critic:
+        second = critic_init(gen, obs_dim, act_dim, tuple(config.critic_hidden), device)
+        critic = tree_map(lambda a, b: torch.stack([a, b]), critic, second)
     zeros = lambda t: tree_map(torch.zeros_like, t)  # noqa: E731
     count = lambda: torch.zeros((), dtype=torch.int32, device=device)  # noqa: E731
     return TrainState(
@@ -82,41 +96,63 @@ def _as_tensor(x, device) -> torch.Tensor:
 
 
 def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0):
-    """Returns (state, batch) -> StepOutput, one eager autograd step."""
+    """Returns (state, batch, eps=None) -> StepOutput, one eager autograd
+    step. `eps` is TD3's smoothing noise [B, act] (scaled and clipped), and
+    is required exactly when twin_critic and target_noise > 0."""
+    twin = bool(config.twin_critic)
+    delay = int(config.policy_delay)   # 1 unless TD3 (config gate)
 
-    def step(state: TrainState, batch: Batch) -> StepOutput:
+    def step(state: TrainState, batch: Batch, eps=None) -> StepOutput:
+        config.check_noise(eps)
         device = batch.obs.device
         scale = _as_tensor(action_scale, device)
         offset = _as_tensor(action_offset, device)
 
         # --- critic gradient ---
         cp = tree_map(lambda x: x.detach().requires_grad_(True), state.critic_params)
-        closs, td = losses.critic_loss(
-            cp, state.target_actor_params, state.target_critic_params,
-            batch, scale, offset,
-        )
+        if twin:
+            closs, td = losses.td3_critic_loss(
+                cp, state.target_actor_params, state.target_critic_params,
+                batch, scale, eps, offset,
+            )
+            actor_loss = losses.td3_actor_loss
+        else:
+            closs, td = losses.critic_loss(
+                cp, state.target_actor_params, state.target_critic_params,
+                batch, scale, offset,
+            )
+            actor_loss = losses.actor_loss
         cgrads = torch.autograd.grad(closs, tree_leaves(cp))
 
-        # --- actor gradient, through the pre-update critic ---
+        # --- actor loss, through the pre-update critic; its gradient only
+        # on update steps (every step unless TD3 delays it) ---
         ap = tree_map(lambda x: x.detach().requires_grad_(True), state.actor_params)
-        aloss = losses.actor_loss(ap, state.critic_params, batch, scale, offset)
-        agrads = torch.autograd.grad(aloss, tree_leaves(ap))
+        aloss = actor_loss(ap, state.critic_params, batch, scale, offset)
+        update = delay == 1 or int(state.step) % delay == 0
+        agrads = torch.autograd.grad(aloss, tree_leaves(ap)) if update else None
 
         with torch.no_grad():
             cgrads = _untree(cgrads, state.critic_params)
-            agrads = _untree(agrads, state.actor_params)
             new_critic, critic_opt = adam_update(
                 state.critic_params, cgrads, state.critic_opt, config.critic_lr
             )
-            new_actor, actor_opt = adam_update(
-                state.actor_params, agrads, state.actor_opt, config.actor_lr
-            )
-            new_target_actor = polyak_update(
-                new_actor, state.target_actor_params, config.tau
-            )
-            new_target_critic = polyak_update(
-                new_critic, state.target_critic_params, config.tau
-            )
+            if update:
+                agrads = _untree(agrads, state.actor_params)
+                new_actor, actor_opt = adam_update(
+                    state.actor_params, agrads, state.actor_opt, config.actor_lr
+                )
+                new_target_actor = polyak_update(
+                    new_actor, state.target_actor_params, config.tau
+                )
+                new_target_critic = polyak_update(
+                    new_critic, state.target_critic_params, config.tau
+                )
+                actor_grad_norm = optree_norm(agrads)
+            else:
+                new_actor, actor_opt = state.actor_params, state.actor_opt
+                new_target_actor = state.target_actor_params
+                new_target_critic = state.target_critic_params
+                actor_grad_norm = torch.zeros((), dtype=torch.float32, device=device)
             closs, aloss, td = closs.detach(), aloss.detach(), td.detach()
             metrics = dict(
                 zip(
@@ -127,7 +163,7 @@ def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0):
                         -aloss,
                         torch.mean(torch.abs(td)),
                         optree_norm(cgrads),
-                        optree_norm(agrads),
+                        actor_grad_norm,
                     ),
                 )
             )

@@ -9,7 +9,9 @@ Counterpart of distributed_ddpg_tpu/models/mlp.py, same shapes and init:
   ~ U(-FINAL_INIT_SCALE, +FINAL_INIT_SCALE).
 
 Params are a tuple of {"w": [in, out], "b": [out]} dicts, the JAX layout,
-so a state converts across frameworks leaf by leaf (learner.py). The two
+so a state converts across frameworks leaf by leaf (learner.py). A TD3
+critic ensemble has the same tree with every leaf stacked on a leading
+[2, ...] axis (learner.init_train_state), as in the JAX package. The two
 frameworks draw different random numbers from one seed: parity tests start
 from a state the JAX package made.
 """
@@ -88,3 +90,17 @@ def critic_apply(params: Params, obs: torch.Tensor,
         if i < n - 1:
             x = torch.relu(x)
     return x.squeeze(-1)
+
+
+def critic_member(params: Params, m: int) -> Params:
+    """Member m of a [2, ...] critic ensemble, as a plain critic tree."""
+    return tuple({k: layer[k][m] for k in ("w", "b")} for layer in params)
+
+
+def ensemble_critic_apply(params: Params, obs: torch.Tensor,
+                          action: torch.Tensor) -> torch.Tensor:
+    """Q of both members of a [2, ...] critic ensemble -> f32[2, B] (the
+    JAX package vmaps critic_apply over the leading axis)."""
+    return torch.stack(
+        [critic_apply(critic_member(params, m), obs, action) for m in range(2)]
+    )

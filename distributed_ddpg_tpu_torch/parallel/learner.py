@@ -1,11 +1,14 @@
-"""The learner: K DDPG steps per dispatch, sampled on the device.
+"""The learner: K DDPG or TD3 steps per dispatch, sampled on the device.
 
 Counterpart of distributed_ddpg_tpu/parallel/learner.py, single device for
 now (the name is kept; the data-parallel mesh and its launch of the chunk
 kernel are later work). Every chunk is one launch of the hand-written CUDA
 kernel (ops/fused_chunk.py) on the card, or its plain PyTorch version on
 the CPU. There is no fallback from the kernel to the eager step: on the
-card the kernel runs or the dispatch raises.
+card the kernel runs or the dispatch raises. For TD3 with target
+smoothing each chunk also draws its noise [K, B, act] on the device, beside
+the index draw (ops/fused_chunk.td3_noise_eps), keyed by the global step
+the chunk starts at.
 """
 
 from __future__ import annotations
@@ -58,13 +61,25 @@ class ShardedLearner:
             config, obs_dim, act_dim, action_scale, action_offset,
             chunk_size=self.chunk_size, device=self.device,
         )
-        # Index draws on the device, from their own seeded generator.
+        # Index draws on the device, from their own seeded generator; TD3's
+        # smoothing noise from another (td3_noise_eps reseeds it per chunk).
         self._gen = torch.Generator(device=self.device).manual_seed(config.seed)
+        self._noise_gen = (
+            torch.Generator(device=self.device) if config.takes_noise else None
+        )
+        self._step = int(self.state.step)   # host copy of the global step
         self._done: Optional[torch.cuda.Event] = None
 
     def _run(self, packed: torch.Tensor) -> StepOutput:
-        new_state, td, metrics = self._fused(self.state, packed)
+        eps = None
+        if self._noise_gen is not None:
+            eps = fused_chunk.td3_noise_eps(
+                self.config, self._noise_gen, self._step, self.chunk_size,
+                self.config.batch_size, self.act_dim,
+            )
+        new_state, td, metrics = self._fused(self.state, packed, eps)
         self.state = new_state
+        self._step += self.chunk_size
         if self.device.type == "cuda":
             self._done = torch.cuda.Event()
             self._done.record()
@@ -81,7 +96,8 @@ class ShardedLearner:
     def run_sample_chunk(self, device_replay, idx: Optional[torch.Tensor] = None) -> StepOutput:
         """K learner steps on minibatches drawn uniformly from the device
         replay: K*B indices drawn on the device, the rows gathered with
-        one index, one kernel launch. `idx` ([K, B] ints) replaces the draw."""
+        one index, (TD3) the chunk's smoothing noise drawn on the device,
+        one kernel launch. `idx` ([K, B] ints) replaces the index draw."""
         storage, size = device_replay.device_state()
         if idx is None:
             idx = torch.randint(

@@ -188,7 +188,7 @@ def test_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("override", [
-    dict(twin_critic=True), dict(distributional=True), dict(sac=True),
+    dict(policy_delay=2), dict(distributional=True), dict(sac=True),
     dict(prioritized=True), dict(compute_dtype="bfloat16"), dict(guardrails=True),
     dict(data_axis=4), dict(model_axis=2), dict(actor_backend="device"),
     dict(serve_actors=True), dict(transport="shm"), dict(checkpoint_dir="/x"),
@@ -205,5 +205,5 @@ def test_from_flags():
                                  "--device=cpu", "--max_learn_ratio=1.5"])
     assert cfg.actor_hidden == (64, 64) and cfg.batch_size == 32
     assert cfg.device == "cpu" and cfg.max_learn_ratio == 1.5
-    with pytest.raises(ValueError, match="twin_critic"):
-        DDPGConfig.from_flags(["--twin_critic=true"])
+    with pytest.raises(ValueError, match="distributional"):
+        DDPGConfig.from_flags(["--distributional=true"])
