@@ -18,15 +18,25 @@ Phases (any failure raises; nothing is caught and passed over):
    path's chunk), its TD3 branch at K = 16 and 800 with policy_delay=2,
    target_noise=0.2 (one noise stream drawn on the card, given to both)
    and at K = 16 with policy_delay=1, target_noise=0 (no noise input),
-   from an odd step so the delay schedule is offset. One case, TD3 at the
-   bench's shape over K = 800, may instead be refereed by the chunk in
-   float64 (SHARE_RATIO, DRIFT_RATIO).
+   from an odd step so the delay schedule is offset; its D4PG branch
+   (51 atoms on [-10, 10], which the random rewards cross and clip at)
+   at K = 16 and 800, with 256 atoms (the edge of the envelope) at
+   K = 16, one chunk after set_value_bounds moved the support, and at
+   K = 16 and 800 on [-1500, 150] with Pendulum's 5-step returns (the
+   scale the main path trains at). Every K = 16 batch draws its
+   importance weights from [0.5, 1] (WEIGHTED_UP_TO); the K = 800 ones
+   carry weights 1. One case, TD3 at the bench's shape over
+   K = 800, may instead be refereed by the chunk in float64
+   (SHARE_RATIO, DRIFT_RATIO).
 4. Drive the main paths, `distributed_ddpg_tpu_torch.train` (Pendulum-v1,
    2x256, batch 64, f32, one actor process, K = 800): DDPG with the
-   default flags, then TD3 with --twin_critic=true --policy_delay=2
-   --target_noise=0.2. For each, the launch counts are zeroed just before
-   and read just after: every chunk must have been one launch of that
-   branch's kernel, learner_steps = chunks x K, metrics finite.
+   default flags and TD3 with --twin_critic=true --policy_delay=2
+   --target_noise=0.2 for 5000 env steps each, then D4PG with
+   --distributional=true --n_step=5 --v_min=auto --v_max=auto for 20,000
+   (51 atoms; the support resolved from the warmup rewards is
+   printed). For each, the launch counts are zeroed
+   just before and read just after: every chunk must have been one launch
+   of that branch's kernel, learner_steps = chunks x K, metrics finite.
 5. Time each branch of the kernel at the main path's shapes (CUDA events,
    warmed up) beside its plain version and its bound; the eager autograd
    step x K is printed as context only. Then break each branch's time
@@ -40,8 +50,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -64,6 +76,13 @@ STATE_TOL = dict(rtol=1e-4, atol=1e-3)
 TIGHT_TOL = dict(rtol=1e-4, atol=1e-5)
 TIGHT_FRAC = 1e-3
 OUT_TOL = dict(rtol=1e-3, atol=1e-4)
+# C51's td is a difference of two expectations over the support, each a
+# sum of 51 terms up to the support's scale S: two f32 sums in different
+# orders differ by a few rounding units of S (eps * S). On [-1500, 150] an
+# H100 (700 W) measured 3.05e-4 = 1.7 eps * S over K = 800 while the state
+# agreed to 1.0e-6. TD_ULPS is the allowance in those units.
+F32_EPS = float(np.finfo(np.float32).eps)
+TD_ULPS = 16
 # These hold every check but one. TD3 at the bench's shape (obs 17, act 6)
 # over K = 800 steps from step 1001 amplifies rounding: a ReLU mask that
 # flips on a rounding difference changes a gradient by a whole upstream
@@ -85,6 +104,19 @@ OUT_TOL = dict(rtol=1e-3, atol=1e-4)
 # correction one step late, target_critic's share rose to 2.8x.
 SHARE_RATIO = 1.5
 DRIFT_RATIO = 3.0
+# Chunks of up to this many steps draw importance weights from [0.5, 1]:
+# they check one step's math exactly, so a kernel that drops or misplaces
+# a weight fails there, in every branch. Longer chunks check what
+# accumulates over a chunk (counts, bias corrections, Polyak, the delay)
+# with weights 1. With weights (or on other draws of the rows) the DDPG
+# chunk at Pendulum shapes over K = 800 drifts in f32 as TD3 does at the
+# bench's shape. On an H100 (700 W), on two weighted draws, both f32
+# versions ended far from the float64 chunk (in the critic, the plain
+# version 9.8e-3 and 7.0e-3 with 37.8% and 21.5% of its elements beyond
+# TIGHT_TOL, the kernel 5.9e-3 and 6.2e-3 with 39.1% and 23.6%), and the
+# float64 referee passed the kernel on one draw and failed it on the other
+# (actor_mu): whether such a check passes is down to the draw.
+WEIGHTED_UP_TO = 16
 
 
 def log(*args) -> None:
@@ -149,17 +181,31 @@ def random_state_np(cfg, obs: int, act: int, seed: int, step: int = 1000):
                       np.int32(step))
 
 
-def random_batches(seed: int, k: int, b: int, obs: int, act: int) -> torch.Tensor:
+def random_batches(seed: int, k: int, b: int, obs: int, act: int,
+                   rewards=None, weighted: bool = True) -> torch.Tensor:
+    """Random packed rows. Rewards are N(0, 1) with discount 0.99, or with
+    `rewards` = (low, high, discount) uniform in [low, high) at that
+    discount. Importance weights are drawn from [0.5, 1], so a kernel that
+    drops them fails, or are 1 unless `weighted`. The columns are drawn
+    in the order obs, action, reward, next_obs, weight, so the default
+    rows do not depend on `weighted`."""
     from distributed_ddpg_tpu_torch.types import pack_batch_np
 
     rng = np.random.default_rng(seed)
+    o = rng.standard_normal((k, b, obs))
+    a = rng.uniform(-2, 2, (k, b, act))
+    if rewards is None:
+        reward, disc = rng.standard_normal((k, b)), 0.99
+    else:
+        reward, disc = rng.uniform(rewards[0], rewards[1], (k, b)), rewards[2]
     packed = pack_batch_np({
-        "obs": rng.standard_normal((k, b, obs)).astype(np.float32),
-        "action": rng.uniform(-2, 2, (k, b, act)).astype(np.float32),
-        "reward": rng.standard_normal((k, b)).astype(np.float32),
-        "discount": np.full((k, b), 0.99, np.float32),
+        "obs": o.astype(np.float32),
+        "action": a.astype(np.float32),
+        "reward": reward.astype(np.float32),
+        "discount": np.full((k, b), disc, np.float32),
         "next_obs": rng.standard_normal((k, b, obs)).astype(np.float32),
-        "weight": np.ones((k, b), np.float32),
+        "weight": (rng.uniform(0.5, 1.0, (k, b)) if weighted else np.ones((k, b))
+                   ).astype(np.float32),
     })
     return torch.from_numpy(packed).cuda()
 
@@ -198,22 +244,34 @@ def to_double(tree):
 
 
 def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
-                      referee: bool = False) -> float:
+                      referee: bool = False, bounds=None, rewards=None) -> float:
     """Kernel vs plain version on one random state and batch (and noise);
     returns the largest absolute difference over end state, td and
     metrics. Raises where an output is outside the tolerances; with
     `referee` (one drifting case, see SHARE_RATIO) such an output is held
-    against the plain version in float64 instead."""
+    against the plain version in float64 instead. With `bounds` (D4PG)
+    the kernel runs one chunk, then set_value_bounds(*bounds) and the
+    chunk that is checked, against the plain version under those bounds.
+    `rewards` is random_batches'."""
     from distributed_ddpg_tpu_torch.learner import METRIC_KEYS, train_state_from_numpy
     from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
 
     label = (f"fused_chunk_td3 delay={cfg.policy_delay} noise={cfg.target_noise}"
-             if cfg.twin_critic else "fused_chunk")
+             if cfg.twin_critic else
+             f"fused_chunk_d4pg atoms={cfg.num_atoms}" if cfg.distributional else "fused_chunk")
     label += f" obs={obs} act={act} K={k}"
+    if cfg.distributional:
+        label += f" support=[{cfg.v_min:g}, {cfg.v_max:g}]"
     state = train_state_from_numpy(random_state_np(cfg, obs, act, seed=obs, step=step), "cuda")
-    packed = random_batches(seed=100 + obs, k=k, b=cfg.batch_size, obs=obs, act=act)
+    packed = random_batches(seed=100 + obs, k=k, b=cfg.batch_size, obs=obs, act=act,
+                            rewards=rewards, weighted=k <= WEIGHTED_UP_TO)
     eps = noise_for(cfg, k, cfg.batch_size, act, step)
     run = fc.make_fused_chunk_fn(cfg, obs, act, 2.0, 0.0, chunk_size=k, device="cuda")
+    if bounds is not None:
+        run(state, packed, eps)
+        run.set_value_bounds(*bounds)
+        cfg = cfg.replace(v_min=bounds[0], v_max=bounds[1])
+        label += f" after set_value_bounds{tuple(bounds)}"
     new, td, met = run(state, packed, eps)
     ref, rtd, rmet = fc.fused_chunk_reference(cfg, state, packed, 2.0, 0.0, eps)
     torch.cuda.synchronize()
@@ -236,6 +294,13 @@ def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
         err = np.abs(got - want)
         worst = max(worst, float(err.max()))
         tol = STATE_TOL if name == "state" else OUT_TOL
+        if name == "td" and cfg.distributional:
+            # td = E_proj[z] - E_p[z] cancels two sums over the support, so
+            # its rounding floor is that of the support's scale S, not of
+            # td: OUT_TOL's atol, or TD_ULPS rounding units of S if larger
+            # (only at scales past ~52, such as the main path's).
+            scale = max(abs(cfg.v_min), abs(cfg.v_max))
+            tol = dict(OUT_TOL, atol=max(OUT_TOL["atol"], TD_ULPS * F32_EPS * scale))
         ok = bool(np.all(err <= tol["atol"] + tol["rtol"] * np.abs(want)))
         line = f"  {label} {name}: max_abs_err={err.max():.3e}"
         if name == "state":
@@ -361,6 +426,15 @@ def drive_main_path(flags, name: str) -> dict:
     summary = train(cfg, echo=False)
     launches = dict(fc.KERNEL_LAUNCHES)
     log(f"[main path {name}] {time.monotonic() - t0:.1f}s: " + json.dumps(summary))
+    if cfg.distributional:
+        with open(cfg.log_path) as f:
+            support = [r for r in map(json.loads, f) if r["kind"] == "support"]
+        for r in support:
+            log(f"[main path {name}] support ({r['reason']}, env step {r['step']}): "
+                f"[{r['v_min']}, {r['v_max']}]")
+        if not support or support[0]["reason"] != "warmup" or not (
+                math.isfinite(summary["v_min"]) and summary["v_min"] < summary["v_max"]):
+            raise AssertionError(f"main path {name}: no support resolved from warmup")
     if summary["chunks"] < 1 or launches != {name: summary["chunks"]}:
         raise AssertionError(f"kernel launches {launches} != {summary['chunks']} x {name}")
     if summary["learner_steps"] != summary["chunks"] * resolve_learner_chunk(cfg):
@@ -386,7 +460,7 @@ def time_branch(cfg, name: str, k: int, step: int, card: str, eager: bool) -> di
     run = fc.make_fused_chunk_fn(cfg, obs, act, 2.0, 0.0, chunk_size=k, device="cuda")
     kernel_ms = time_ms(lambda: run(state, packed, eps), reps=10)
     plain_ms = time_ms(
-        lambda: fc.fused_chunk_reference(cfg, state, packed, 2.0, 0.0, eps), reps=2)
+        lambda: fc.fused_chunk_reference(cfg, state, packed, 2.0, 0.0, eps), reps=1)
     context = ""
     if eager:
         step_fn, eager_steps = make_learner_step(cfg, 2.0), min(50, k)
@@ -401,9 +475,14 @@ def time_branch(cfg, name: str, k: int, step: int, card: str, eager: bool) -> di
     # the Polyak updates only on the chunk's update steps.
     ops = fc.ops_per_chunk(cfg, obs, act, k, step)
     nbytes = (2 * fc.state_bytes(cfg, obs, act) + packed.numel() * 4
-              + (eps.numel() * 4 if eps is not None else 0) + k * b * 4 + 6 * 4)
+              + (eps.numel() * 4 if eps is not None else 0) + k * b * 4 + 6 * 4
+              + (4 * cfg.num_atoms if cfg.distributional else 0))   # the C51 support
     bound_ops_ms, bound_bytes_ms = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(bound_ops_ms, bound_bytes_ms)
+    if cfg.distributional:   # the kernel's A x A projection, beyond what the bound counts
+        context += (f"; the kernel's triangular projection does "
+                    f"{fc.C51_PAIR_OPS * cfg.num_atoms ** 2 * b * k / 1e9:.2f} GFLOP "
+                    f"a chunk, not in the bound")
     log(f"[timing] {card}: {name} K={k} from step {step}: {kernel_ms:.3f} ms/chunk = "
         f"{kernel_ms * 1e3 / k:.2f} us/step; plain {plain_ms:.3f} ms{context}; bound "
         f"{bound_ms:.4f} ms = {bound_ms * 1e3 / k:.3f} us/step ({ops / 1e9:.2f} GFLOP, "
@@ -447,6 +526,7 @@ def main() -> int:
     cfg = DDPGConfig()                        # 2x256, batch 64, f32, cuda
     td3 = cfg.replace(twin_critic=True, policy_delay=2, target_noise=0.2)
     td3_plain = cfg.replace(twin_critic=True)  # delay 1, no noise input
+    d4pg = cfg.replace(distributional=True, v_min=-10.0, v_max=10.0)   # 51 atoms
     K = resolve_learner_chunk(cfg)            # the main path's chunk (800)
     td3_step = 1001                           # odd: the delay schedule is offset
     log("[parity] fused_chunk kernel vs fused_chunk_reference on the card")
@@ -457,21 +537,42 @@ def main() -> int:
             errs[("fused_chunk_td3", obs, k)] = check_fused_chunk(
                 td3, obs, act, k, td3_step, referee=(obs, k) == (17, K))
         check_fused_chunk(td3_plain, obs, act, 16, td3_step)
+        for k in (16, K):
+            errs[("fused_chunk_d4pg", obs, k)] = check_fused_chunk(d4pg, obs, act, k)
+    check_fused_chunk(d4pg.replace(num_atoms=256), 3, 1, 16)
+    check_fused_chunk(d4pg, 3, 1, 16, bounds=(-25.0, 5.0))
+    # At the scale the main path trains with: a support like the one it
+    # resolves from Pendulum's warmup (about [-1430, 130], dz ~31) and
+    # Pendulum's 5-step returns (5 x [-16.3, 0], discount 0.99^5), so
+    # tz clips at v_min and lands between atoms ~31 apart.
+    for k in (16, K):
+        check_fused_chunk(d4pg.replace(v_min=-1500.0, v_max=150.0), 3, 1, k,
+                          rewards=(-81.5, 0.0, 0.99 ** 5))
 
     # --- 4. the main paths ---
-    # 20k env steps: tens of chunks, so the rates are the steady state's
-    # and not the first chunk's one-time costs.
-    common = ["--num_actors=1", "--replay_min_size=1000", "--total_env_steps=20000",
-              "--eval_every=0", "--eval_episodes=2"]
-    launches = drive_main_path(common, "fused_chunk")
+    # D4PG, this slice's path, runs 20k env steps: tens of chunks, so its
+    # rates are the steady state's and not the first chunk's one-time
+    # costs. The earlier paths run a few chunks each, enough to check
+    # their launches and metrics.
+    common = ["--num_actors=1", "--replay_min_size=1000", "--eval_every=0",
+              "--eval_episodes=2"]
+    launches = drive_main_path(common + ["--total_env_steps=5000"], "fused_chunk")
     launches.update(drive_main_path(
-        common + ["--twin_critic=true", "--policy_delay=2", "--target_noise=0.2"],
+        common + ["--total_env_steps=5000", "--twin_critic=true", "--policy_delay=2",
+                  "--target_noise=0.2"],
         "fused_chunk_td3"))
+    with tempfile.TemporaryDirectory() as tmp:   # the run's JSONL: its support records
+        launches.update(drive_main_path(
+            common + ["--total_env_steps=20000", "--distributional=true", "--n_step=5",
+                      "--v_min=auto", "--v_max=auto",
+                      f"--log_path={os.path.join(tmp, 'd4pg.jsonl')}"],
+            "fused_chunk_d4pg"))
 
     # --- 5. timing at the main path's shapes ---
     timing = {
         "fused_chunk": time_branch(cfg, "fused_chunk", K, 1000, card, eager=True),
         "fused_chunk_td3": time_branch(td3, "fused_chunk_td3", K, td3_step, card, eager=False),
+        "fused_chunk_d4pg": time_branch(d4pg, "fused_chunk_d4pg", K, 1000, card, eager=False),
     }
     log(f"[done] {time.monotonic() - t_start:.1f}s")
 
@@ -484,7 +585,7 @@ def main() -> int:
         "max_abs_err": errs[(name, 3, K)],
         **timing[name],
         "library_ms": None,
-    } for name in ("fused_chunk", "fused_chunk_td3")]}), flush=True)
+    } for name in ("fused_chunk", "fused_chunk_td3", "fused_chunk_d4pg")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

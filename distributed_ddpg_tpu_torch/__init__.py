@@ -5,7 +5,7 @@ module paths (types, config, models/mlp, ops/*, learner, replay/*,
 parallel/learner, envs/*, actors/*, train) and imports nothing of it: where
 it needs a JAX-free module of the old package it keeps its own trimmed copy.
 
-The slice ported so far is the default DDPG training path: plain DDPG,
+The slices ported so far are the DDPG, TD3 and D4PG training paths:
 Pendulum-v1, 2x256 actor and critic, batch 64, f32, one CPU actor process,
 a uniform replay ring in device memory, and K learner steps per dispatch
 carried by one launch of the hand-written CUDA kernel in

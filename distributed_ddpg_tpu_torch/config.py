@@ -18,12 +18,12 @@ of the kernels, as the tests do.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 
 # Options outside this slice: field -> the value that means "off".
 _NOT_IN_SLICE = {
-    "distributional": False,
     "sac": False,
     "prioritized": False,
     "guardrails": False,
@@ -58,6 +58,16 @@ class DDPGConfig:
     critic_l2: float = 0.0
     batch_size: int = 64
     n_step: int = 1
+
+    # --- distributional critic (D4PG) ---
+    distributional: bool = False
+    num_atoms: int = 51
+    # Value-support bounds. nan = auto (CLI: --v_min=auto --v_max=auto,
+    # both together): sized from the warmup replay's reward statistics
+    # before the first chunk, then widened when mean_q nears an edge
+    # (ops/support_auto.py).
+    v_min: float = -150.0
+    v_max: float = 150.0
 
     # --- replay ---
     replay_capacity: int = 1_000_000
@@ -106,7 +116,6 @@ class DDPGConfig:
     device: str = "cuda"
 
     # --- options outside this slice (see _NOT_IN_SLICE) ---
-    distributional: bool = False
     sac: bool = False
     prioritized: bool = False
     guardrails: bool = False
@@ -126,6 +135,13 @@ class DDPGConfig:
         the clipped noise eps as an input (ops/fused_chunk.td3_noise_eps),
         and only then."""
         return bool(self.twin_critic) and self.target_noise > 0.0
+
+    @property
+    def v_support_auto(self) -> bool:
+        """The C51 support is auto-sized (v_min/v_max = nan): concrete
+        bounds must be resolved (ops/support_auto.initial_bounds) before
+        the first learner step."""
+        return math.isnan(self.v_min)
 
     def check_noise(self, eps) -> None:
         """Raises unless eps is given exactly when `takes_noise`."""
@@ -155,6 +171,12 @@ class DDPGConfig:
                     type=lambda s: tuple(int(x) for x in s.split(",")),
                     default=field.default,
                 )
+            elif field.name in ("v_min", "v_max"):
+                parser.add_argument(
+                    f"--{field.name}",
+                    type=lambda s: float("nan") if s == "auto" else float(s),
+                    default=field.default,
+                )
             else:
                 ftype = {"int": int, "float": float, "str": str}.get(
                     str(field.type), str
@@ -176,6 +198,28 @@ class DDPGConfig:
                 "policy_delay/target_noise are TD3 knobs consumed only by "
                 "the twin-critic step — set twin_critic=True or they would "
                 "silently do nothing"
+            )
+        v_min_auto, v_max_auto = math.isnan(self.v_min), math.isnan(self.v_max)
+        if v_min_auto != v_max_auto:
+            raise ValueError(
+                "v_min/v_max auto-sizing derives BOTH bounds from the same "
+                "warmup statistics — set both to 'auto' or neither"
+            )
+        if v_min_auto and not self.distributional:
+            raise ValueError(
+                "v_min/v_max='auto' sizes the distributional critic's "
+                "support; it requires distributional=True"
+            )
+        if v_min_auto and not 0.0 < self.gamma < 1.0:
+            raise ValueError(
+                f"v_min/v_max='auto' needs 0 < gamma < 1 (got {self.gamma}): "
+                "the sizing bound r/(1-gamma^n) blows up at gamma=1, and 51 "
+                "atoms over a near-infinite range cannot resolve real "
+                "returns — pass concrete bounds for undiscounted setups"
+            )
+        if not v_min_auto and self.distributional and self.v_min >= self.v_max:
+            raise ValueError(
+                f"v_min ({self.v_min}) must be < v_max ({self.v_max})"
             )
         if self.twin_critic and self.distributional:
             raise ValueError(
@@ -224,6 +268,11 @@ class DDPGConfig:
             raise ValueError(
                 f"critic_l2={self.critic_l2} is not implemented in the "
                 "PyTorch port yet (only 0)"
+            )
+        if self.distributional and not 2 <= self.num_atoms <= 256:
+            raise ValueError(
+                f"num_atoms={self.num_atoms} is not implemented in the PyTorch "
+                "port yet: the learner chunk kernel takes 2 to 256 atoms"
             )
         if len(self.critic_hidden) < 2 or len(self.actor_hidden) < 1:
             raise ValueError(

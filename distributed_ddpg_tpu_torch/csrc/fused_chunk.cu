@@ -1,8 +1,8 @@
-// K full DDPG or TD3 learner steps in one launch, for Hopper (sm_90a).
+// K full DDPG, TD3 or D4PG learner steps in one launch, for Hopper (sm_90a).
 //
 // Replaces: distributed_ddpg_tpu/ops/fused_chunk.py, make_fused_chunk_fn ->
 // run -> pl.pallas_call (the kernel body _make_kernel.kernel), its DDPG
-// TD(0) f32 branch (a) and its TD3 branch (b). The Python side
+// TD(0) f32 branch (a), its TD3 branch (b) and its C51 branch (c). The Python side
 // (ops/fused_chunk.py) plans the per-step work as a table of matrix-product
 // tasks grouped into dependency stages; this file executes that program K
 // times and runs the optimizer pass.
@@ -62,6 +62,29 @@
 //   alone. On update steps it also does the actor's Adam, with
 //   t_a = count_a + f(step0 + k) - f(step0) + 1, f(n) = ceil(n / delay),
 //   and every Polyak update (actor and both critic targets).
+//
+// D4PG (branch c): the critic's head is [B, A] logits, A = num_atoms <= 256,
+// which spans ceil(A/16) column tiles, while a softmax and the projection
+// need the whole row. So two row tasks (OP_ROWS, no product) follow the
+// heads, one warp a row and ceil(A/32) atoms a lane, max and sums by warp
+// shuffles, in the block's shared tile memory (the products are not
+// running then):
+// - EPI_C51 (critic): the stable softmax p_t of the target head; the
+//   shifted atoms tz_i = clip(r + disc * z_i, v_min, v_max); the
+//   projection proj_j = sum_i p_t[i] * max(0, 1 - |tz_i - z_j| / dz), each
+//   lane summing its own atoms j over all i in ascending order from shared
+//   memory (A^2 a row, deterministic, the JAX kernel's order; no atomics);
+//   log-softmax of the online head, ce = -sum proj * logp, td = E_proj[z]
+//   - E_p[z], and the cotangent dq = (p - proj) * w / B, from which the
+//   critic's backward starts. w * ce goes to a per-row buffer that block 0
+//   sums into the loss, as it sums td.
+// - EPI_C51_PI (actor): p of the actor's head, E[Z] = sum p z, and
+//   dq_pi = -(1/B) * p * (z - E[Z]). Unlike DDPG's constant -1/B this
+//   cotangent needs the head, so the actor's backward starts after it: the
+//   step has 11 stages (DDPG's 9), 12 barriers.
+// The support row z[A] and dz, v_min, v_max (fp) are inputs of the launch;
+// the wrapper rewrites them in place when the bounds change. expf/logf,
+// not the fast intrinsics, while parity holds at f32.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -75,13 +98,19 @@ namespace cg = cooperative_groups;
 #define TASK_INTS 40
 #define MAX_STAGES 64
 #define LOADS (TILE * JC / NT)  // tile slots each thread loads, per operand
+#define ROWS_PER_TILE (NT / 32)  // a row task's tile: one warp a row
+#define MAX_ATOMS 256
+#define APL (MAX_ATOMS / 32)     // atoms a lane holds in a row task
+
+static_assert(ROWS_PER_TILE * 2 * MAX_ATOMS <= TILE * (JC + 1),
+              "a row task's shared scratch must fit in the A-operand tile");
 
 // Mirrors ops/fused_chunk.py.
-enum { OP_FWD = 0, OP_DW = 1, OP_DX = 2 };
+enum { OP_FWD = 0, OP_DW = 1, OP_DX = 2, OP_ROWS = 3 };
 enum { BASE_STATE = 0, BASE_SCRATCH = 1, BASE_BATCH = 2, BASE_ONES = 3 };
 enum {
   EPI_NONE = 0, EPI_RELU, EPI_TANH, EPI_TD, EPI_MASK, EPI_TANH_BWD, EPI_TANH_NOISE,
-  EPI_TD3
+  EPI_TD3, EPI_C51, EPI_C51_PI
 };
 enum {
   F_OP = 0, F_M = 1, F_N = 2, F_NSEG = 3, F_SEG = 4,
@@ -92,13 +121,14 @@ enum {
   IP_K = 0, IP_B, IP_D, IP_OBS, IP_ACT, IP_NSTAGES, IP_NA, IP_NC,
   IP_OFF_PA, IP_OFF_PC, IP_OFF_TA, IP_OFF_TC, IP_OFF_MUA, IP_OFF_NUA,
   IP_OFF_MUC, IP_OFF_NUC, IP_OFF_GA, IP_OFF_GC, IP_OFF_QPI, IP_OFF_PART,
-  IP_OFF_STEPMET, IP_OFF_STEPNORM, IP_DELAY, IP_OFF_TD01, IP_STAGE_START,
+  IP_OFF_STEPMET, IP_OFF_STEPNORM, IP_DELAY, IP_OFF_TD01, IP_OFF_WCE, IP_STAGE_START,
   IP_STAGE_TILES = IP_STAGE_START + MAX_STAGES + 1,
   IP_STAGE_TILES_SKIP = IP_STAGE_TILES + MAX_STAGES
 };
 enum {
   FP_LR_A = 0, FP_LR_C, FP_B1, FP_OMB1, FP_B2, FP_OMB2, FP_EPS, FP_LOG_B1,
-  FP_LOG_B2, FP_TAU, FP_OMTAU, FP_INV_B, FP_INV_K, FP_NEG2_INV_B
+  FP_LOG_B2, FP_TAU, FP_OMTAU, FP_INV_B, FP_INV_K, FP_NEG2_INV_B, FP_VMIN, FP_VMAX,
+  FP_DZ
 };
 
 struct Ctx {
@@ -109,8 +139,10 @@ struct Ctx {
   float* td_k;           // this step's td[B]
   const float* scale;
   const float* offset;
+  const float* z;        // the C51 support [A], or null
   int D, obs, act;
   float neg2_inv_b, inv_b;
+  float vmin, vmax, dz;  // the C51 support's bounds and spacing
 };
 
 __device__ __forceinline__ float* resolve(const Ctx& c, int base, int off) {
@@ -256,6 +288,161 @@ __device__ void run_tile(const int* __restrict__ T, int tile, const Ctx& c,
     resolve(c, T[F_C], T[F_C + 1])[(size_t)m * T[F_C + 2] + (size_t)n * T[F_C + 3]] = out;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// A row task (no product) over [M, A] heads: warp w takes row
+// m = tile * ROWS_PER_TILE + w, lane l the atoms j = l + 32 r. Reads aux
+// (row stride aux_sm; EPI_C51: the target block, then the online block M
+// rows later), writes C (row stride C_sm) and one value a row to aux2. `sh`
+// is the block's shared tile memory, 2 * MAX_ATOMS floats a warp. Every
+// thread of the block calls it; it ends with a block barrier, so the next
+// tile may reuse the shared memory. Kept out of line: inlined, it took
+// the kernel from 234 to 242 registers, and the steps were slower
+// (PERF.md, the A/B runs of the C51 branch).
+__device__ __noinline__ void run_rows(const int* __restrict__ T, int tile, const Ctx& c,
+                                      float* sh) {
+  const int M = T[F_M], A = T[F_N];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m = tile * ROWS_PER_TILE + warp;
+  if (m < M) {
+    const int aux_sm = T[F_AUX + 2];
+    const float* head = resolve(c, T[F_AUX], T[F_AUX + 1]);
+    float* out = resolve(c, T[F_C], T[F_C + 1]) + (size_t)m * T[F_C + 2];
+    float* per_row = resolve(c, T[F_AUX2], T[F_AUX2 + 1]);
+    float zj[APL], v[APL], e[APL];
+#pragma unroll
+    for (int r = 0; r < APL; ++r) {
+      const int j = lane + 32 * r;
+      zj[r] = j < A ? __ldg(c.z + j) : 0.f;
+    }
+    if (T[F_EPI] == EPI_C51) {
+      const float* row = c.batch_k + (size_t)m * c.D;
+      const int col = c.obs + c.act;
+      const float rw = __ldg(row + col), disc = __ldg(row + col + 1);
+      const float w = __ldg(row + 2 * c.obs + c.act + 2);
+      float* sp = sh + warp * 2 * MAX_ATOMS;  // p_t[A], then tz[A]
+      float* st = sp + MAX_ATOMS;
+      // Stable softmax of the target head; the shifted, clipped atoms.
+      const float* qt = head + (size_t)m * aux_sm;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < APL; ++r) {
+        const int j = lane + 32 * r;
+        v[r] = j < A ? __ldcg(qt + j) : -INFINITY;
+        mx = fmaxf(mx, v[r]);
+      }
+      mx = warp_max(mx);
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < APL; ++r) {
+        const int j = lane + 32 * r;
+        e[r] = j < A ? expf(v[r] - mx) : 0.f;
+        s += e[r];
+      }
+      s = warp_sum(s);
+#pragma unroll
+      for (int r = 0; r < APL; ++r) {
+        const int j = lane + 32 * r;
+        if (j < A) {
+          sp[j] = e[r] / s;
+          st[j] = fminf(fmaxf(rw + disc * zj[r], c.vmin), c.vmax);
+        }
+      }
+      __syncwarp();
+      // Projection: each lane its own atoms j, over every i in ascending
+      // order; only the nr slots a lane holds at this A (warp-uniform).
+      const int nr = (A + 31) / 32;
+      float proj[APL];
+#pragma unroll
+      for (int r = 0; r < APL; ++r) proj[r] = 0.f;
+      for (int i = 0; i < A; ++i) {
+        const float ti = st[i], pi = sp[i];
+#pragma unroll
+        for (int r = 0; r < APL; ++r)
+          if (r < nr) proj[r] = proj[r] + pi * fmaxf(0.f, 1.f - fabsf(ti - zj[r]) / c.dz);
+      }
+      // Log-softmax of the online head; cross-entropy, td, the cotangent.
+      const float* q = head + (size_t)(M + m) * aux_sm;
+      mx = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < APL; ++r) {
+        const int j = lane + 32 * r;
+        v[r] = j < A ? __ldcg(q + j) : -INFINITY;
+        mx = fmaxf(mx, v[r]);
+      }
+      mx = warp_max(mx);
+      s = 0.f;
+#pragma unroll
+      for (int r = 0; r < APL; ++r) {
+        const int j = lane + 32 * r;
+        e[r] = j < A ? expf(v[r] - mx) : 0.f;
+        s += e[r];
+      }
+      s = warp_sum(s);
+      const float lse = mx + logf(s), g = w * c.inv_b;
+      float ce = 0.f, e_proj = 0.f, e_p = 0.f;
+#pragma unroll
+      for (int r = 0; r < APL; ++r) {
+        const int j = lane + 32 * r;
+        if (j < A) {
+          const float p = e[r] / s;
+          ce += proj[r] * (v[r] - lse);
+          e_proj += proj[r] * zj[r];
+          e_p += p * zj[r];
+          out[j] = (p - proj[r]) * g;
+        }
+      }
+      ce = -warp_sum(ce);
+      e_proj = warp_sum(e_proj);
+      e_p = warp_sum(e_p);
+      if (lane == 0) {
+        c.td_k[m] = e_proj - e_p;
+        per_row[m] = w * ce;
+      }
+    } else {  // EPI_C51_PI: the actor's cotangent at the critic's head.
+      const float* q = head + (size_t)m * aux_sm;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < APL; ++r) {
+        const int j = lane + 32 * r;
+        v[r] = j < A ? __ldcg(q + j) : -INFINITY;
+        mx = fmaxf(mx, v[r]);
+      }
+      mx = warp_max(mx);
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < APL; ++r) {
+        const int j = lane + 32 * r;
+        e[r] = j < A ? expf(v[r] - mx) : 0.f;
+        s += e[r];
+      }
+      s = warp_sum(s);
+      float q_exp = 0.f;
+#pragma unroll
+      for (int r = 0; r < APL; ++r) {
+        e[r] = e[r] / s;  // p
+        q_exp += e[r] * zj[r];
+      }
+      q_exp = warp_sum(q_exp);
+#pragma unroll
+      for (int r = 0; r < APL; ++r) {
+        const int j = lane + 32 * r;
+        if (j < A) out[j] = (-c.inv_b * e[r]) * (zj[r] - q_exp);
+      }
+      if (lane == 0) per_row[m] = q_exp;
+    }
+  }
+  __syncthreads();
+}
+
 // Sum of v over the block, returned to every thread. `red` holds NT/32.
 __device__ float block_sum(float v, float* red) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -268,9 +455,14 @@ __device__ float block_sum(float v, float* red) {
   return s;
 }
 
+// C51: the program has row tasks (EPI_C51, EPI_C51_PI). The DDPG and TD3
+// programs run the instantiation without them, which tests no task's kind
+// (with the test, those branches were ~1% slower; PERF.md).
+template <bool C51>
 __global__ void __launch_bounds__(NT, 1)
 fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch,
-                   const float* __restrict__ noise, float* td_out, float* metrics,
+                   const float* __restrict__ noise, const float* __restrict__ support,
+                   float* td_out, float* metrics,
                    const int* __restrict__ counts,
                    const float* __restrict__ scale, const float* __restrict__ offset,
                    const int* __restrict__ ip, const float* __restrict__ fp,
@@ -293,6 +485,7 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
   const int delay = ip[IP_DELAY];
   const bool twin = ip[IP_OFF_TD01] >= 0;                          // TD3
   const float* td01 = twin ? scratch + ip[IP_OFF_TD01] : nullptr;  // td0[B], td1[B]
+  const float* wce = C51 ? scratch + ip[IP_OFF_WCE] : nullptr;  // C51: w*ce[B]
 
   for (int k = 0; k < K; ++k) {
     // The delay schedule (DDPG: delay 1, every step updates everything).
@@ -301,7 +494,8 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
     const int done_a = (step + delay - 1) / delay - (step0 + delay - 1) / delay;
     const Ctx c{state, scratch, batch + (size_t)k * B * D,
                 noise ? noise + (size_t)k * B * act : nullptr, td_out + (size_t)k * B,
-                scale, offset, D, obs, act, fp[FP_NEG2_INV_B], inv_b};
+                scale, offset, support, D, obs, act, fp[FP_NEG2_INV_B], inv_b,
+                fp[FP_VMIN], fp[FP_VMAX], fp[FP_DZ]};
     for (int s = 0; s < nst; ++s) {
       const int t0 = ip[IP_STAGE_START + s], t1 = ip[IP_STAGE_START + s + 1];
       const int ntile = ip[(upd ? IP_STAGE_TILES : IP_STAGE_TILES_SKIP) + s];
@@ -309,7 +503,10 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
         int t = t0;
         while (t + 1 < t1 && tasks[(t + 1) * TASK_INTS + F_TILE0] <= tile) ++t;
         const int* T = tasks + t * TASK_INTS;
-        run_tile(T, tile - T[F_TILE0], c, As, Bs);
+        if (C51 && T[F_OP] == OP_ROWS)
+          run_rows(T, tile - T[F_TILE0], c, &As[0][0]);
+        else
+          run_tile(T, tile - T[F_TILE0], c, As, Bs);
       }
       grid.sync();
     }
@@ -352,12 +549,15 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
     }
     if (blockIdx.x == 0) {
       // Per-step losses from td (all of step k's TD epilogues are done).
-      // TD3: the loss is the mean over both members, 0.5/B * sum w td_m^2.
+      // TD3: the loss is the mean over both members, 0.5/B * sum w td_m^2;
+      // C51: 1/B * sum w ce, from the critic row task's per-row w * ce.
       float wtd2 = 0.f, atd = 0.f, sq = 0.f;
       for (int m = tid; m < B; m += NT) {
         const float td = __ldcg(c.td_k + m);
         const float w = __ldg(c.batch_k + (size_t)m * D + 2 * obs + act + 2);
-        if (twin) {
+        if (C51) {
+          wtd2 += __ldcg(wce + m);
+        } else if (twin) {
           const float td0 = __ldcg(td01 + m), td1 = __ldcg(td01 + B + m);
           wtd2 += w * td0 * td0 + w * td1 * td1;
         } else {
@@ -407,28 +607,34 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
 extern "C" {
 
 // Launches the kernel on `stream`; returns the CUDA error code (0 = ok).
-// `noise` (eps[K, B, act]) is null unless the TD3 target action is smoothed.
+// `noise` (eps[K, B, act]) is null unless the TD3 target action is smoothed;
+// `support` (z[A]) is null unless the critic is distributional (C51), and
+// selects the kernel's instantiation.
 int fused_chunk_launch(float* state, float* scratch, const float* batch, const float* noise,
-                       float* td_out, float* metrics, const int* counts, const float* scale,
-                       const float* offset, const int* ip, const float* fp,
+                       const float* support, float* td_out, float* metrics, const int* counts,
+                       const float* scale, const float* offset, const int* ip, const float* fp,
                        const int* tasks, int grid, void* stream) {
-  void* args[] = {&state, &scratch, &batch, &noise, &td_out, &metrics, &counts,
+  void* args[] = {&state, &scratch, &batch, &noise, &support, &td_out, &metrics, &counts,
                   &scale, &offset, &ip, &fp, &tasks};
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)fused_chunk_kernel, dim3(grid),
-                                              dim3(NT), args, 0, (cudaStream_t)stream);
+  const void* kernel = support ? (const void*)fused_chunk_kernel<true>
+                                : (const void*)fused_chunk_kernel<false>;
+  cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(NT), args, 0,
+                                              (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // Blocks of the kernel that can be resident at once on `device` (the
-// upper bound of a cooperative launch's grid).
+// upper bound of a cooperative launch's grid), for either instantiation.
 int fused_chunk_max_grid(int device, int* out) {
-  int sms = 0, per_sm = 0;
+  int sms = 0, plain = 0, c51 = 0;
   cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_chunk_kernel, NT, 0);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&plain, fused_chunk_kernel<false>, NT, 0);
   if (e != cudaSuccess) return (int)e;
-  *out = sms * per_sm;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c51, fused_chunk_kernel<true>, NT, 0);
+  if (e != cudaSuccess) return (int)e;
+  *out = sms * (plain < c51 ? plain : c51);
   return 0;
 }
 

@@ -1,10 +1,12 @@
-"""The DDPG and TD3 learner step, as an eager autograd step — the port's oracle.
+"""The DDPG, TD3 and D4PG learner step, as an eager autograd step — the port's oracle.
 
-Counterpart of distributed_ddpg_tpu/learner.py (the plain-DDPG and TD3
-branches of make_learner_step). One step does:
+Counterpart of distributed_ddpg_tpu/learner.py (the plain-DDPG, TD3 and
+D4PG branches of make_learner_step). One step does:
 
   1. the critic TD update's gradient (TD3: both members of the [2, ...]
-     ensemble against the min-over-ensemble target),
+     ensemble against the min-over-ensemble target; D4PG: the
+     cross-entropy against the projected target distribution, whose td is
+     E[Z_target] - E[Z]),
   2. the DPG actor gradient through the PRE-update critic (both gradients
      come from the same state, learner.py:347 of the JAX package; TD3:
      through critic member 0),
@@ -71,10 +73,12 @@ def init_train_state(config: DDPGConfig, obs_dim: int, act_dim: int, seed: int,
     torch.Generator. The shapes and init bounds are the JAX package's;
     the numbers are not (the random streams differ). With twin_critic
     two independently drawn critics are stacked on a leading [2, ...]
-    axis of every critic leaf, sharing one critic_opt (one count)."""
+    axis of every critic leaf, sharing one critic_opt (one count). Under
+    D4PG the critic's head has num_atoms outputs."""
     gen = torch.Generator().manual_seed(int(seed))
+    heads = config.num_atoms if config.distributional else 1
     actor = actor_init(gen, obs_dim, act_dim, tuple(config.actor_hidden), device)
-    critic = critic_init(gen, obs_dim, act_dim, tuple(config.critic_hidden), device)
+    critic = critic_init(gen, obs_dim, act_dim, tuple(config.critic_hidden), device, heads)
     if config.twin_critic:
         second = critic_init(gen, obs_dim, act_dim, tuple(config.critic_hidden), device)
         critic = tree_map(lambda a, b: torch.stack([a, b]), critic, second)
@@ -110,7 +114,17 @@ def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0):
 
         # --- critic gradient ---
         cp = tree_map(lambda x: x.detach().requires_grad_(True), state.critic_params)
-        if twin:
+        if config.distributional:
+            support = losses.categorical_support(
+                config.v_min, config.v_max, config.num_atoms, device)
+            closs, td = losses.distributional_critic_loss(
+                cp, state.target_actor_params, state.target_critic_params,
+                batch, scale, support, offset,
+            )
+
+            def actor_loss(ap, critic, batch, scale, offset):
+                return losses.distributional_actor_loss(ap, critic, batch, scale, support, offset)
+        elif twin:
             closs, td = losses.td3_critic_loss(
                 cp, state.target_actor_params, state.target_critic_params,
                 batch, scale, eps, offset,

@@ -4,7 +4,8 @@ Counterpart of distributed_ddpg_tpu/models/mlp.py, same shapes and init:
 
 - Actor mu(s): relu hiddens, tanh output mapped onto the action box.
 - Critic Q(s, a): relu MLP whose layer 1 takes [features, action]
-  (classic DDPG; the action enters at the second layer).
+  (classic DDPG; the action enters at the second layer); under D4PG its
+  head has num_atoms logits.
 - Hidden layers ~ U(-1/sqrt(fan_in), +1/sqrt(fan_in)); final layers
   ~ U(-FINAL_INIT_SCALE, +FINAL_INIT_SCALE).
 
@@ -55,9 +56,10 @@ def actor_init(gen: torch.Generator, obs_dim: int, act_dim: int,
 
 
 def critic_init(gen: torch.Generator, obs_dim: int, act_dim: int,
-                hidden: Sequence[int], device="cpu") -> Params:
-    """Critic params; layer 1's input is [hidden[0] features, action]."""
-    dims = [obs_dim, *hidden, 1]
+                hidden: Sequence[int], device="cpu", num_outputs: int = 1) -> Params:
+    """Critic params; layer 1's input is [hidden[0] features, action].
+    `num_outputs > 1` is the D4PG categorical head (one logit per atom)."""
+    dims = [obs_dim, *hidden, num_outputs]
     n = len(dims) - 1
     return tuple(
         _linear_init(
@@ -80,7 +82,8 @@ def actor_apply(params: Params, obs: torch.Tensor, action_scale,
 
 def critic_apply(params: Params, obs: torch.Tensor,
                  action: torch.Tensor) -> torch.Tensor:
-    """Q(s, a) -> f32[B]; the action joins the features at layer 1."""
+    """Q(s, a) -> f32[B] (f32[B, num_atoms] logits for a D4PG head); the
+    action joins the features at layer 1."""
     x = obs
     n = len(params)
     for i, layer in enumerate(params):
@@ -89,7 +92,7 @@ def critic_apply(params: Params, obs: torch.Tensor,
         x = x @ layer["w"] + layer["b"]
         if i < n - 1:
             x = torch.relu(x)
-    return x.squeeze(-1)
+    return x.squeeze(-1) if x.shape[-1] == 1 else x
 
 
 def critic_member(params: Params, m: int) -> Params:

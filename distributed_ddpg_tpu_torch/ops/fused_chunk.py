@@ -1,7 +1,7 @@
-"""K full DDPG or TD3 learner steps in ONE launch of a hand-written CUDA kernel.
+"""K full DDPG, TD3 or D4PG learner steps in ONE launch of a hand-written CUDA kernel.
 
-Replaces the DDPG TD(0) f32 branch (a) and the TD3 branch (b) of the
-Pallas megakernel distributed_ddpg_tpu/ops/fused_chunk.py
+Replaces the DDPG TD(0) f32 branch (a), the TD3 branch (b) and the C51
+branch (c) of the Pallas megakernel distributed_ddpg_tpu/ops/fused_chunk.py
 (make_fused_chunk_fn -> run -> pl.pallas_call, kernel body
 _make_kernel.kernel). Each step computes what that kernel computes, in the
 same order of effects:
@@ -25,14 +25,26 @@ the real updates, a_t = count_a + f(step0 + k) - f(step0) + 1 with
 f(n) = ceil(n / policy_delay). The actor's backward tasks are skipped on
 the other steps (their gradient would be discarded).
 
-The C51, SAC and bf16 branches and the data-parallel mesh launch of the
-JAX kernel are later work (ROADMAP.md).
+D4PG (distributional; JAX kernel :612-644, :661-670): the critic's head
+has A = num_atoms logits. After the target and online heads, a row task
+(no product; one warp per row) takes the stable softmax of the target
+head, projects the Bellman-shifted distribution onto the support z[A]
+with the triangular kernel relu(1 - |tz_i - z_j| / dz) accumulated over
+i in ascending order, and writes the cross-entropy, td = E_proj[z] -
+E_p[z] and the closed-form cotangent dq = (p - proj) * w / B. A second
+row task turns the actor's head into dq_pi = -(1/B) p (z - E[Z]), so the
+actor's backward starts after it. The support row and its spacing dz are
+inputs of the launch; a change of bounds rewrites them in place.
+
+The SAC and bf16 branches and the data-parallel mesh launch of the JAX
+kernel are later work (ROADMAP.md).
 
 Three pieces live here:
 
 - `_plan`: turns the net shapes into a small program for the kernel — a
   table of matrix-product tasks (forward, weight gradient, input
-  gradient, each with a fused epilogue), grouped into stages by their data
+  gradient, each with a fused epilogue) and row tasks (C51's softmaxes
+  and projection), grouped into stages by their data
   dependencies, with every buffer's offset in one flat scratch tensor.
   The kernel (csrc/fused_chunk.cu) loops over k and, per step, over the
   stages; a grid-wide barrier separates the stages. Within a stage the
@@ -57,6 +69,7 @@ import torch
 
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
+from distributed_ddpg_tpu_torch.ops.losses import support_row
 from distributed_ddpg_tpu_torch.ops.optim import B1, B2, EPS
 from distributed_ddpg_tpu_torch.types import OptState, TrainState
 
@@ -69,10 +82,12 @@ KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 TILE = 16                 # output tile is TILE x TILE, one element a thread
 MAX_STAGES = 64
 TASK_INTS = 40
-OP_FWD, OP_DW, OP_DX = 0, 1, 2
+OP_FWD, OP_DW, OP_DX, OP_ROWS = 0, 1, 2, 3   # OP_ROWS: a row task, no product
 BASE_STATE, BASE_SCRATCH, BASE_BATCH, BASE_ONES = 0, 1, 2, 3
 (EPI_NONE, EPI_RELU, EPI_TANH, EPI_TD, EPI_MASK, EPI_TANH_BWD, EPI_TANH_NOISE,
- EPI_TD3) = range(8)
+ EPI_TD3, EPI_C51, EPI_C51_PI) = range(10)
+ROWS_PER_TILE = 8         # a row task's tile: one warp a row, 8 warps a block
+MAX_ATOMS = 256           # the row task keeps ceil(A / 32) <= 8 atoms a lane
 # Task row fields. Segment s (s < 2) occupies F_SEG + 9*s .. + 8 as
 # a_base, a_off, a_sm, a_sj, b_base, b_off, b_sj, b_sn, J:
 #   C[m, n] = epi(sum_s sum_j A_s[m*a_sm + j*a_sj] * B_s[j*b_sj + n*b_sn] + bias[n])
@@ -84,31 +99,61 @@ F_TILE0, F_TILES_M, F_TILES_N = 34, 35, 36
  IP_OFF_PA, IP_OFF_PC, IP_OFF_TA, IP_OFF_TC, IP_OFF_MUA, IP_OFF_NUA,
  IP_OFF_MUC, IP_OFF_NUC, IP_OFF_GA, IP_OFF_GC, IP_OFF_QPI, IP_OFF_PART,
  IP_OFF_STEPMET, IP_OFF_STEPNORM, IP_DELAY, IP_OFF_TD01,   # TD01: -1 unless TD3
- IP_STAGE_START) = range(25)
+ IP_OFF_WCE,                                               # WCE: -1 unless C51
+ IP_STAGE_START) = range(26)
 IP_STAGE_TILES = IP_STAGE_START + MAX_STAGES + 1
 IP_STAGE_TILES_SKIP = IP_STAGE_TILES + MAX_STAGES   # tiles on a no-update step
 IP_COUNT = IP_STAGE_TILES_SKIP + MAX_STAGES
 (FP_LR_A, FP_LR_C, FP_B1, FP_OMB1, FP_B2, FP_OMB2, FP_EPS, FP_LOG_B1,
  FP_LOG_B2, FP_TAU, FP_OMTAU, FP_INV_B, FP_INV_K, FP_NEG2_INV_B,
- FP_COUNT) = range(15)
+ FP_VMIN, FP_VMAX, FP_DZ,                                  # the C51 support
+ FP_COUNT) = range(18)
 # Element-wise operations per parameter and step in the optimizer pass
 # (Adam: moments and the bias-corrected update; Polyak), for the
 # operation count.
 ADAM_OPS_PER_PARAM, POLYAK_OPS_PER_PARAM = 12, 3
+# Operations of C51's row tasks, for the operation count, at the work the
+# function needs: per source atom of the projection in its floor/ceil form
+# (locate it between two neighbours: subtract, divide, floor, ceil; split
+# its mass: two subtracts, two multiplies; add into both); per atom of the
+# critic's row (both softmaxes, the shifted atoms and their clip,
+# log-probabilities, cross-entropy, both expectations, the cotangent) and
+# of the actor's (softmax, expectation, cotangent). The kernel's own
+# triangular projection does more, C51_PAIR_OPS per (i, j) pair (subtract,
+# abs, divide, 1 -, max, multiply, add); that is not counted in the bound.
+C51_PROJ_ATOM_OPS, C51_CRITIC_ATOM_OPS, C51_ACTOR_ATOM_OPS = 10, 23, 10
+C51_PAIR_OPS = 7
 
 
 def supported(config: DDPGConfig) -> bool:
-    """The DDPG TD(0) and TD3 f32 part of the JAX kernel's envelope
-    (fused_chunk.py:167-180). C51, SAC and bf16 are later work."""
+    """The DDPG TD(0), TD3 and C51 f32 part of the JAX kernel's envelope
+    (fused_chunk.py:167-180). SAC and bf16 are later work."""
     return (
         config.action_insert_layer == 1
         and config.critic_l2 == 0.0
         and not config.fused_update
         and config.compute_dtype == "float32"
-        and not (config.distributional or config.sac)
+        and not config.sac
         and len(config.critic_hidden) >= 2
         and len(config.actor_hidden) >= 1
+        and (not config.distributional or config.num_atoms <= MAX_ATOMS)
     )
+
+
+def _atoms(config: DDPGConfig) -> int:
+    """Width of the critic's head: num_atoms under D4PG, else 1."""
+    return int(config.num_atoms) if config.distributional else 1
+
+
+def support_params(config: DDPGConfig):
+    """(z[A] as float32, [v_min, v_max, dz] as float32) for the C51 kernel
+    and its plain version: the row computed in float64 and rounded once,
+    dz = (v_max - v_min) / (A - 1) in float64, as the JAX kernel takes it
+    (a Python float, fused_chunk.py:203)."""
+    A = int(config.num_atoms)
+    dz = (float(config.v_max) - float(config.v_min)) / (A - 1)
+    return (support_row(config.v_min, config.v_max, A),
+            np.asarray([config.v_min, config.v_max, dz], np.float32))
 
 
 # --- layouts ----------------------------------------------------------------
@@ -116,10 +161,10 @@ def supported(config: DDPGConfig) -> bool:
 
 def _net_dims(config: DDPGConfig, obs_dim: int, act_dim: int):
     """[(in, out)] per layer for the actor and the critic (action at
-    critic layer 1)."""
+    critic layer 1; num_atoms outputs under D4PG)."""
     ah, ch = list(config.actor_hidden), list(config.critic_hidden)
     actor = list(zip([obs_dim] + ah, ah + [act_dim]))
-    critic = list(zip([obs_dim, ch[0] + act_dim] + ch[1:], ch + [1]))
+    critic = list(zip([obs_dim, ch[0] + act_dim] + ch[1:], ch + [_atoms(config)]))
     return actor, critic
 
 
@@ -144,6 +189,7 @@ class _Program(NamedTuple):
     n_critic: int              # the critic group: both members under TD3
     matmul_flops: int          # per learner step, run every step
     actor_bwd_flops: int       # per actor update (every step but under TD3's delay)
+    row_ops: int               # per learner step: C51's row tasks (0 otherwise)
 
 
 def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
@@ -151,6 +197,8 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
     B, o, a = int(config.batch_size), int(obs_dim), int(act_dim)
     D = 2 * o + a + 3
     twin = bool(config.twin_critic)
+    c51 = bool(config.distributional)
+    A = _atoms(config)                           # the critic head's width
     adims, cdims = _net_dims(config, o, a)
     aoffs, n_a = _layer_offsets(adims)
     coffs, n_c = _layer_offsets(cdims)           # one critic member
@@ -172,7 +220,9 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
 
     buf("g_a", n_a)
     buf("g_c", ncg)
-    buf("dqpi", B)              # constant -1/B, filled by the wrapper
+    # The actor's cotangent at the critic's head: the constant -1/B, filled
+    # by the wrapper, or under C51 [B, A] from the actor's row task.
+    buf("dqpi", B * A)
     if twin:
         # The TD3 task reads the four heads q'0, q'1, q0, q1 and writes
         # dq0, dq1, td0, td1: two [4, B] blocks, rows B apart.
@@ -181,6 +231,11 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
             scratch[name] = heads + i * B
         for i, name in enumerate(("dq0", "dq1", "td0", "td1")):
             scratch[name] = outs + i * B
+    if c51:
+        # The C51 row task reads the target and the online heads: one
+        # [2, B, A] block, the target first.
+        heads = buf("c51_q", 2 * B * A)
+        scratch["ct_q"], scratch["c_q"] = heads, heads + B * A
     ready: Dict[str, int] = {}  # scratch buffer -> stage that writes it
     skipped: set = set()        # buffers written only on actor-update steps
     rows: List[Tuple[int, bool, np.ndarray]] = []
@@ -214,6 +269,13 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
         r[F_AUX2:F_AUX2 + 2] = aux2 if aux2 is not None else (-1, 0)
         r[F_TILES_M] = -(-M // TILE)
         r[F_TILES_N] = -(-N // TILE)
+        return r
+
+    def row_task(epi, aux, c, aux2):
+        """A task with no product over the B rows of [B, A] heads: reads
+        aux (row stride A), writes c [B, A] and one value a row to aux2."""
+        r = task(OP_ROWS, B, A, [], c=c, epi=epi, aux=aux, aux2=aux2)
+        r[F_TILES_M], r[F_TILES_N] = -(-B // ROWS_PER_TILE), 1
         return r
 
     def act_of(name, cols):     # a scratch activation [B, cols] as an A operand
@@ -299,9 +361,22 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
     else:
         actor_fwd("at", TA, nobs, None)
         critic_fwd("c", PC, obs, action, None)
-        critic_fwd("ct", TC, nobs, act_of("at_u", a), "at_u", head_epi=EPI_TD)
+        critic_fwd("ct", TC, nobs, act_of("at_u", a), "at_u",
+                   head_epi=EPI_NONE if c51 else EPI_TD)
         actor_fwd("a", PA, obs, None)
         critic_fwd("pi", PC, obs, act_of("a_u", a), "a_u", shared_h1="c_h1")
+    if c51:
+        # Once the heads exist: the critic's row task (target softmax,
+        # projection, cross-entropy, td, dq) and the actor's (softmax,
+        # E[Z], dq_pi), one warp a row.
+        add(row_task(EPI_C51, aux=(BASE_SCRATCH, heads, A),
+                     c=(BASE_SCRATCH, buf("dq", B * A), A, 1),
+                     aux2=(BASE_SCRATCH, buf("c51_wce", B))),
+            ["ct_q", "c_q"], ["dq", "c51_wce"])
+        add(row_task(EPI_C51_PI, aux=(BASE_SCRATCH, scratch["pi_q"], A),
+                     c=(BASE_SCRATCH, scratch["dqpi"], A, 1),
+                     aux2=(BASE_SCRATCH, buf("pi_qexp", B))),
+            ["pi_q"], ["dqpi", "pi_qexp"])
 
     # --- backwards --------------------------------------------------------
     def dw(x, x_name, rows, r0, dz_name, dout, g_off, b_goff=None, actor_bwd=False):
@@ -354,7 +429,7 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
     else:
         critic_bwd("c", PC, gc, "dq")
     # Actor pass through the pre-update critic (TD3: member 0, the first
-    # in the group) to the action: dL/dq = -1/B.
+    # in the group) to the action: dL/dq = -1/B (C51: the row task's dq_pi).
     dz = "dqpi"
     for i in range(nc - 1, 1, -1):
         din, dout = cdims[i]
@@ -391,10 +466,13 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
             stage_tiles_skip[s] += tiles
         stage_start[s + 1] = t + 1
     table = np.stack([r for _, _, r in rows])
+    row_ops = B * A * (C51_PROJ_ATOM_OPS + C51_CRITIC_ATOM_OPS + C51_ACTOR_ATOM_OPS
+                       ) if c51 else 0
     return _Program(
         tasks=table, stage_start=stage_start, stage_tiles=stage_tiles,
         stage_tiles_skip=stage_tiles_skip, scratch=scratch, scratch_size=size[0],
         n_actor=n_a, n_critic=ncg, matmul_flops=flops[0], actor_bwd_flops=flops[1],
+        row_ops=row_ops,
     )
 
 
@@ -410,12 +488,12 @@ def actor_updates(config: DDPGConfig, step0, k: int):
 def ops_per_chunk(config: DDPGConfig, obs_dim: int, act_dim: int, chunk: int,
                   step0: int = 0) -> int:
     """Floating-point operations the kernel does for one chunk that starts
-    at global step step0: the program's matrix products and the critic's
-    Adam every step; the actor's backward, its Adam and every Polyak
-    update on the steps that update the actor."""
+    at global step step0: the program's matrix products, C51's row tasks
+    and the critic's Adam every step; the actor's backward, its Adam and
+    every Polyak update on the steps that update the actor."""
     prog = _plan(config, obs_dim, act_dim)
     updates = actor_updates(config, int(step0), chunk)
-    every = prog.matmul_flops + ADAM_OPS_PER_PARAM * prog.n_critic
+    every = prog.matmul_flops + prog.row_ops + ADAM_OPS_PER_PARAM * prog.n_critic
     per_update = (prog.actor_bwd_flops + ADAM_OPS_PER_PARAM * prog.n_actor
                   + POLYAK_OPS_PER_PARAM * (prog.n_actor + prog.n_critic))
     return chunk * every + updates * per_update
@@ -450,17 +528,39 @@ def td3_noise_eps(config: DDPGConfig, generator: torch.Generator, step0: int,
 # --- the plain PyTorch version ----------------------------------------------
 
 
+def c51_projection(p_t, rew, disc, z, v_min: float, v_max: float, dz: float):
+    """The kernel's projection of the shifted target distribution p_t
+    [B, A] onto the support z [A]: proj_j = sum_i p_t[i] * relu(1 -
+    |tz_i - z_j| / dz) with tz = clip(rew + disc * z, v_min, v_max),
+    accumulated over i in ascending order (the JAX kernel's triangular
+    form, fused_chunk.py:626-632). rew and disc are [B, 1]."""
+    tz = torch.clamp(rew + disc * z, v_min, v_max)
+    tri = torch.relu(1.0 - torch.abs(tz[:, :, None] - z) / dz)   # [B, i, j]
+    proj = torch.zeros_like(p_t)
+    for i in range(z.shape[0]):
+        proj = proj + p_t[:, i:i + 1] * tri[:, i]
+    return proj
+
+
 def fused_chunk_reference(config: DDPGConfig, state: TrainState, packed: torch.Tensor,
                           action_scale, action_offset=0.0, eps=None):
     """K learner steps written out by hand, step by step as the kernel
     does them. `packed` is [K, B, 2*obs+act+3]; `eps` is TD3's smoothing
     noise [K, B, act], given exactly when twin_critic and target_noise > 0.
+    Under D4PG the support is config's (v_min, v_max, num_atoms), resolved.
     Returns (new_state, td[K, B], metrics {METRIC_KEYS: 0-d tensors, chunk
     means})."""
     K, B, _ = packed.shape
     dev = packed.device
     twin = bool(config.twin_critic)
+    c51 = bool(config.distributional)
     config.check_noise(eps)
+    if c51:
+        if config.v_support_auto:
+            raise ValueError("the C51 support is still 'auto': resolve v_min/v_max first")
+        z_row, _ = support_params(config)
+        z = torch.as_tensor(z_row, device=dev, dtype=packed.dtype)
+        dz = (config.v_max - config.v_min) / (config.num_atoms - 1)   # a Python float
     delay = int(config.policy_delay)
     step0 = int(state.step)
     o = state.actor_params[0]["w"].shape[0]
@@ -552,6 +652,10 @@ def fused_chunk_reference(config: DDPGConfig, state: TrainState, packed: torch.T
     def sq(grads):
         return sum(torch.sum(g * g) for pair in grads for g in pair)
 
+    def softmax(logits):
+        e = torch.exp(logits - torch.max(logits, -1, keepdim=True).values)
+        return e / torch.sum(e, -1, keepdim=True)
+
     met = torch.zeros(len(METRIC_KEYS), dtype=f32, device=dev)
     tds = []
     with torch.no_grad():
@@ -565,27 +669,53 @@ def fused_chunk_reference(config: DDPGConfig, state: TrainState, packed: torch.T
                 u_t = torch.minimum(torch.maximum(u_t + eps[k], offset - scale),
                                     offset + scale)
             q_t = critic_fwd(TCp[0], nobs, u_t)[0]
-            if twin:
-                q_t = torch.minimum(q_t, critic_fwd(TCp[1], nobs, u_t)[0])
-            y = rew + disc * q_t
-            # Each member's TD error and weight gradients. DDPG: dL/dq =
-            # -2/B * w * td; TD3 (the mean over [2, B]): -1/B * w * td_m.
-            cot = -inv_b if twin else -2.0 * inv_b
-            c_grads, wtd2, td_m = [], [], []
-            for P in C:
-                q, c_acts = critic_fwd(P, obs, act)
-                td = y - q
-                td_m.append(td)
-                wtd2.append(torch.sum(wgt * td * td))
-                c_grads.append(critic_bwd(P, c_acts, act, cot * wgt * td, True)[0])
-            closs = sum(wtd2) * (inv_b / len(C))
-            td = 0.5 * (td_m[0] + td_m[1]) if twin else td_m[0]
+            if c51:
+                # The target distribution projected onto the support with
+                # the triangular kernel, accumulated over i in ascending
+                # order; cross-entropy, td = E_proj[z] - E_p[z] and the
+                # cotangent (p - proj) * w / B at the online head.
+                proj = c51_projection(softmax(q_t), rew, disc, z, config.v_min,
+                                      config.v_max, dz)
+                q, c_acts = critic_fwd(C[0], obs, act)
+                m_q = torch.max(q, -1, keepdim=True).values
+                e_q = torch.exp(q - m_q)
+                sum_q = torch.sum(e_q, -1, keepdim=True)
+                p_q = e_q / sum_q
+                ce = -torch.sum(proj * (q - (m_q + torch.log(sum_q))), -1, keepdim=True)
+                closs = torch.sum(wgt * ce) * inv_b
+                td = torch.sum(proj * z, -1, keepdim=True) - torch.sum(p_q * z, -1, keepdim=True)
+                c_grads = [critic_bwd(C[0], c_acts, act, (p_q - proj) * (wgt * inv_b), True)[0]]
+            else:
+                if twin:
+                    q_t = torch.minimum(q_t, critic_fwd(TCp[1], nobs, u_t)[0])
+                y = rew + disc * q_t
+                # Each member's TD error and weight gradients. DDPG: dL/dq =
+                # -2/B * w * td; TD3 (the mean over [2, B]): -1/B * w * td_m.
+                cot = -inv_b if twin else -2.0 * inv_b
+                c_grads, wtd2, td_m = [], [], []
+                for P in C:
+                    q, c_acts = critic_fwd(P, obs, act)
+                    td = y - q
+                    td_m.append(td)
+                    wtd2.append(torch.sum(wgt * td * td))
+                    c_grads.append(critic_bwd(P, c_acts, act, cot * wgt * td, True)[0])
+                closs = sum(wtd2) * (inv_b / len(C))
+                td = 0.5 * (td_m[0] + td_m[1]) if twin else td_m[0]
             u, a_acts, t_u = actor_fwd(A, obs)
             q_pi, pi_acts = critic_fwd(C[0], obs, u)
-            aloss = -torch.sum(q_pi) * inv_b
+            if c51:
+                # L_a = -mean E[Z]; the softmax's Jacobian in closed form:
+                # dL/dlogit_j = -(1/B) p_j (z_j - E[Z]).
+                p_pi = softmax(q_pi)
+                q_exp = torch.sum(p_pi * z, -1, keepdim=True)
+                dq_pi = ((-inv_b) * p_pi) * (z - q_exp)
+                aloss = -torch.sum(q_exp) * inv_b
+            else:
+                dq_pi = torch.full_like(q_pi, -inv_b)
+                aloss = -torch.sum(q_pi) * inv_b
             update = (step0 + k) % delay == 0
             if update:   # the actor's gradient, through the pre-update critic
-                _, da = critic_bwd(C[0], pi_acts, u, torch.full_like(q_pi, -inv_b), False)
+                _, da = critic_bwd(C[0], pi_acts, u, dq_pi, False)
                 a_grads = actor_bwd(A, a_acts, da * scale * (1.0 - t_u * t_u))
             c_t = state.critic_opt.count + k + 1
             for P, MU, NU, g in zip(C, CMU, CNU, c_grads):
@@ -707,7 +837,7 @@ def _lib():
     lib = _build.load("fused_chunk")
     if not getattr(lib, "_typed", False):
         ptr = ctypes.c_void_p
-        lib.fused_chunk_launch.argtypes = [ptr] * 12 + [ctypes.c_int, ptr]
+        lib.fused_chunk_launch.argtypes = [ptr] * 13 + [ctypes.c_int, ptr]
         lib.fused_chunk_launch.restype = ctypes.c_int
         lib.fused_chunk_max_grid.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.fused_chunk_max_grid.restype = ctypes.c_int
@@ -732,28 +862,52 @@ def make_fused_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
     metrics). `eps` is TD3's smoothing noise [K, B, act] (td3_noise_eps),
     given exactly when twin_critic and target_noise > 0.
 
+    Under D4PG, run.set_value_bounds(v_min, v_max) moves the C51 support:
+    on the card it rewrites the launch's support row and spacing in place,
+    so the next launch reads them and nothing is replanned. With v_min and
+    v_max 'auto', run raises until the bounds are set.
+
     On the CPU, run is the plain version. On the card it launches the
-    kernel once per call (counted in KERNEL_LAUNCHES["fused_chunk"], or
-    ["fused_chunk_td3"] for TD3) or raises; the input state is never
-    modified."""
+    kernel once per call (counted in KERNEL_LAUNCHES["fused_chunk"],
+    ["fused_chunk_td3"] for TD3 or ["fused_chunk_d4pg"] for D4PG) or
+    raises; the input state is never modified."""
     if not supported(config):
         raise ValueError(
-            "fused chunk kernel envelope: DDPG or TD3, float32, "
-            "action_insert_layer=1, critic_l2=0, fused_update=False, "
+            "fused chunk kernel envelope: DDPG, TD3 or D4PG (num_atoms <= 256), "
+            "float32, action_insert_layer=1, critic_l2=0, fused_update=False, "
             ">=2 critic hidden layers, >=1 actor hidden layer"
         )
     K, B = int(chunk_size), int(config.batch_size)
     o, a = int(obs_dim), int(act_dim)
     D = 2 * o + a + 3
-    twin = bool(config.twin_critic)
-    name = "fused_chunk_td3" if twin else "fused_chunk"
+    twin, c51 = bool(config.twin_critic), bool(config.distributional)
+    name = "fused_chunk_d4pg" if c51 else "fused_chunk_td3" if twin else "fused_chunk"
     device = torch.device(device)
+    current = [config]        # set_value_bounds replaces its support bounds
+    write_support = None      # on the card: rewrites the launch's support
+
+    def set_value_bounds(v_min: float, v_max: float) -> None:
+        if not c51:
+            raise ValueError("set_value_bounds needs a distributional (D4PG) chunk")
+        current[0] = current[0].replace(v_min=float(v_min), v_max=float(v_max))
+        if write_support is not None:
+            write_support(current[0])
+
+    def resolved() -> DDPGConfig:
+        if c51 and current[0].v_support_auto:
+            raise ValueError(
+                "the C51 support is still 'auto': set_value_bounds must resolve "
+                "v_min/v_max before the first chunk")
+        return current[0]
+
     if device.type == "cpu":
         def run_cpu(state: TrainState, packed: torch.Tensor, eps=None):
             if packed.shape != (K, B, D):
                 raise ValueError(f"packed batch must be {(K, B, D)}, got {tuple(packed.shape)}")
-            return fused_chunk_reference(config, state, packed, action_scale, action_offset, eps)
+            return fused_chunk_reference(resolved(), state, packed, action_scale,
+                                         action_offset, eps)
 
+        run_cpu.set_value_bounds = set_value_bounds
         return run_cpu
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"fused_chunk kernel needs a CUDA device, got {device}")
@@ -780,15 +934,16 @@ def make_fused_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
         4 * n_a + 2 * n_c, 4 * n_a + 3 * n_c)
     ip[[IP_OFF_GA, IP_OFF_GC, IP_OFF_QPI, IP_OFF_PART, IP_OFF_STEPMET,
         IP_OFF_STEPNORM]] = (
-        prog.scratch["g_a"], prog.scratch["g_c"], prog.scratch["pi_q"],
+        prog.scratch["g_a"], prog.scratch["g_c"], prog.scratch["pi_qexp" if c51 else "pi_q"],
         off_part, off_stepmet, off_stepnorm)
-    ip[[IP_DELAY, IP_OFF_TD01]] = (
-        config.policy_delay, prog.scratch["td0"] if twin else -1)
+    ip[[IP_DELAY, IP_OFF_TD01, IP_OFF_WCE]] = (
+        config.policy_delay, prog.scratch["td0"] if twin else -1,
+        prog.scratch["c51_wce"] if c51 else -1)
     n_stages = len(prog.stage_tiles)
     ip[IP_STAGE_START:IP_STAGE_START + n_stages + 1] = prog.stage_start
     ip[IP_STAGE_TILES:IP_STAGE_TILES + n_stages] = prog.stage_tiles
     ip[IP_STAGE_TILES_SKIP:IP_STAGE_TILES_SKIP + n_stages] = prog.stage_tiles_skip
-    fp = np.zeros(FP_COUNT, np.float32)
+    fp = np.full(FP_COUNT, np.nan, np.float32)   # the support stays nan until resolved
     fp[[FP_LR_A, FP_LR_C, FP_B1, FP_OMB1, FP_B2, FP_OMB2, FP_EPS, FP_LOG_B1,
         FP_LOG_B2, FP_TAU, FP_OMTAU, FP_INV_B, FP_INV_K, FP_NEG2_INV_B]] = (
         config.actor_lr, config.critic_lr, B1, 1.0 - B1, B2, 1.0 - B2, EPS,
@@ -798,12 +953,24 @@ def make_fused_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
     fp_d = torch.from_numpy(fp).to(device)
     tasks_d = torch.from_numpy(np.ascontiguousarray(prog.tasks)).to(device)
     scratch = torch.zeros(off_stepnorm + 2 * K, dtype=torch.float32, device=device)
-    dqpi = prog.scratch["dqpi"]
-    scratch[dqpi:dqpi + B] = -1.0 / B
+    if not c51:
+        dqpi = prog.scratch["dqpi"]
+        scratch[dqpi:dqpi + B] = -1.0 / B
     scale = torch.as_tensor(np.broadcast_to(np.asarray(action_scale, np.float32), (a,)).copy(),
                             device=device)
     offset = torch.as_tensor(np.broadcast_to(np.asarray(action_offset, np.float32), (a,)).copy(),
                              device=device)
+    support = torch.full((_atoms(config),), math.nan, dtype=torch.float32, device=device)
+
+    def write_support(c: DDPGConfig) -> None:
+        # Ordered on the current stream, after any chunk already queued.
+        if not c.v_support_auto:
+            z_row, bounds = support_params(c)
+            support.copy_(torch.from_numpy(z_row))
+            fp_d[FP_VMIN:FP_DZ + 1].copy_(torch.from_numpy(bounds))
+
+    if c51:
+        write_support(config)
 
     def check_input(what, x, shape):
         if x.device != scratch.device or x.dtype != torch.float32:
@@ -818,6 +985,7 @@ def make_fused_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
     def run(state: TrainState, packed: torch.Tensor, eps=None):
         check_input("packed batch", packed, (K, B, D))
         config.check_noise(eps)
+        resolved()
         if eps is not None:
             check_input("eps", eps, (K, B, a))
         flat = flatten_state(state)
@@ -830,7 +998,8 @@ def make_fused_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.fused_chunk_launch(
             flat.data_ptr(), scratch.data_ptr(), packed.data_ptr(),
-            eps.data_ptr() if eps is not None else None, td.data_ptr(),
+            eps.data_ptr() if eps is not None else None,
+            support.data_ptr() if c51 else None, td.data_ptr(),
             metrics.data_ptr(), counts.data_ptr(), scale.data_ptr(),
             offset.data_ptr(), ip_d.data_ptr(), fp_d.data_ptr(),
             tasks_d.data_ptr(), grid, stream,
@@ -843,4 +1012,5 @@ def make_fused_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
     # Launch parameters, for chip_smoke.py's breakdown of where the time
     # goes (it zeroes stage tile counts in `ip` and restores them).
     run.program, run.ip = prog, ip_d
+    run.set_value_bounds = set_value_bounds
     return run

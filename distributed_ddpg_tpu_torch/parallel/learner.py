@@ -1,4 +1,4 @@
-"""The learner: K DDPG or TD3 steps per dispatch, sampled on the device.
+"""The learner: K DDPG, TD3 or D4PG steps per dispatch, sampled on the device.
 
 Counterpart of distributed_ddpg_tpu/parallel/learner.py, single device for
 now (the name is kept; the data-parallel mesh and its launch of the chunk
@@ -8,7 +8,8 @@ the CPU. There is no fallback from the kernel to the eager step: on the
 card the kernel runs or the dispatch raises. For TD3 with target
 smoothing each chunk also draws its noise [K, B, act] on the device, beside
 the index draw (ops/fused_chunk.td3_noise_eps), keyed by the global step
-the chunk starts at.
+the chunk starts at. Under D4PG, set_value_bounds moves the C51 support
+between chunks.
 """
 
 from __future__ import annotations
@@ -84,6 +85,18 @@ class ShardedLearner:
             self._done = torch.cuda.Event()
             self._done.record()
         return StepOutput(state=new_state, td_errors=td, metrics=metrics)
+
+    def set_value_bounds(self, v_min: float, v_max: float) -> None:
+        """Move the C51 support to [v_min, v_max] from the next chunk on.
+        The JAX package rebuilds its chunk programs here (it bakes the
+        support in at trace time); the port's kernel takes the support row
+        and its spacing as launch inputs, so they are rewritten in place
+        and nothing is replanned. State, step and the index generator are
+        untouched: training continues where it was. The auto-support
+        controller (ops/support_auto.py, train.py) calls this once after
+        warmup and on each expansion."""
+        self.config = self.config.replace(v_min=float(v_min), v_max=float(v_max))
+        self._fused.set_value_bounds(v_min, v_max)
 
     def chunk_done(self) -> bool:
         """True once the last dispatched chunk has finished on the device

@@ -88,6 +88,23 @@ class DeviceReplay:
             reps = -(-self.block_size // n)
             self._insert(np.tile(rows, (reps, 1))[: min(self.block_size, self.capacity)])
 
+    def reward_sample(self, max_n: int = 100_000):
+        """(reward, discount) columns of up to max_n filled rows, pulled to
+        the host, then the staged rows not yet shipped (up to max_n more):
+        what the C51 auto support is sized from (ops/support_auto.py;
+        discount == 0 marks the terminal rows). A ring fuller than max_n is
+        read at an even stride over its live rows, not as a stale prefix."""
+        col = self.obs_dim + self.act_dim
+        n = min(self.size, int(max_n))
+        if n == self.size:
+            cols = self.storage[:n, col:col + 2]
+        else:
+            idx = torch.from_numpy(np.linspace(0, self.size - 1, n).astype(np.int64))
+            cols = self.storage[idx.to(self.device), col:col + 2]
+        pend = self._ring.peek(min(len(self._ring), int(max_n)))[:, col:col + 2]
+        cols = np.concatenate([cols.cpu().numpy(), pend])
+        return cols[:, 0], cols[:, 1]
+
     def device_state(self):
         """(storage [capacity, D] on the device, size) for the sampler."""
         return self.storage, self.size

@@ -11,14 +11,21 @@ K learner steps per dispatch). It covers:
 - the param broadcast (param_refresh_every learner steps, with the
   param_refresh_interval_s wall-clock floor);
 - the max_learn_ratio learner-rate cap;
+- D4PG's auto support (--v_min=auto --v_max=auto): sized from the warmup
+  replay's rewards before the first chunk, then widened on the 50-chunk
+  cadence when mean_q nears an edge and the replay's rewards corroborate
+  it (ops/support_auto.py);
 - a numpy eval of the deterministic policy;
 - JSONL records under the JAX trainer's names: the six learner metrics,
-  eval_return, env_steps_per_sec, learner_steps_per_sec, final_return.
+  eval_return, env_steps_per_sec, learner_steps_per_sec, final_return,
+  and under D4PG v_min, v_max and support_refusals.
 
-Checkpoint and resume are later work.
+Checkpoint and resume are later work (so are the checkpointed bounds).
 
 Usage:
     python -m distributed_ddpg_tpu_torch.train --total_env_steps=100000
+    python -m distributed_ddpg_tpu_torch.train --distributional=true --n_step=5 \
+        --v_min=auto --v_max=auto                                  # D4PG
     python -m distributed_ddpg_tpu_torch.train --device=cpu ...   # plain versions
 """
 
@@ -35,6 +42,7 @@ from distributed_ddpg_tpu_torch.actors.policy import NumpyPolicy, param_layout
 from distributed_ddpg_tpu_torch.actors.pool import ActorPool
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.envs import make, spec_of
+from distributed_ddpg_tpu_torch.ops import support_auto
 from distributed_ddpg_tpu_torch.types import pack_batch_np
 
 
@@ -128,6 +136,17 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
     log = JsonlLog(config.log_path, echo=echo)
     env_timer, learn_timer = Timer(), Timer()
     learn_steps = chunks = 0
+    support_controller = support_auto.SupportController()
+
+    def support_fields() -> Dict[str, Any]:
+        if not config.distributional:
+            return {}
+        return dict(v_min=learner.config.v_min, v_max=learner.config.v_max,
+                    support_refusals=support_controller.refusals)
+
+    def data_bounds():
+        return support_auto.replay_data_bounds(replay, config.gamma, config.n_step)
+
     pool = ActorPool(config, spec).start(learner.actor_params_to_host())
 
     def env_steps() -> int:
@@ -161,6 +180,12 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
                 pool.monitor()
             if not moved:
                 time.sleep(0.01)
+
+        if config.distributional and learner.config.v_support_auto:
+            # C51 auto support: [v_min, v_max] from the warmup replay's
+            # (n-step) reward statistics, before the first chunk.
+            learner.set_value_bounds(*data_bounds())
+            log.log("support", env_steps(), reason="warmup", **support_fields())
 
         learn_timer.reset()
         env_timer.reset()
@@ -205,6 +230,19 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
                 next_refresh = learn_steps + config.param_refresh_every
                 last_refresh_t = time.perf_counter()
 
+            if config.distributional and config.v_support_auto and chunks % 50 == 0:
+                # Running expansion: mean_q near an edge of the support, and
+                # the replay's current rewards corroborate a wider one.
+                mean_q = learner.metrics_to_host(out)["mean_q"]
+                grown = support_controller.check(
+                    learner.config.v_min, learner.config.v_max, mean_q, learn_steps,
+                    data_bounds_fn=data_bounds,
+                )
+                if grown is not None:
+                    learner.set_value_bounds(*grown)
+                    log.log("support", env_steps(), reason="expanded", mean_q=mean_q,
+                            **support_fields())
+
             on_cadence = chunks == 1 or chunks % 50 == 0
             if on_cadence and now - last_log_t >= 1.0:
                 last_log_t = now
@@ -220,6 +258,7 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
                         float(np.mean([e[1] for e in episodes])) if episodes else None
                     ),
                     **metrics,
+                    **support_fields(),
                 )
             if config.eval_every and env_steps() - last_eval >= config.eval_every:
                 last_eval = env_steps()
@@ -240,6 +279,7 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         final_return=final_return,
         chunks=chunks,
         **metrics,
+        **support_fields(),
     )
     log.close()
     return {
@@ -251,6 +291,7 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         "env_steps": env_steps(),
         "final_return": final_return,
         **{k: metrics[k] for k in METRIC_KEYS if k in metrics},
+        **support_fields(),
     }
 
 

@@ -188,7 +188,7 @@ def test_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("override", [
-    dict(policy_delay=2), dict(distributional=True), dict(sac=True),
+    dict(policy_delay=2), dict(num_atoms=300, distributional=True), dict(sac=True),
     dict(prioritized=True), dict(compute_dtype="bfloat16"), dict(guardrails=True),
     dict(data_axis=4), dict(model_axis=2), dict(actor_backend="device"),
     dict(serve_actors=True), dict(transport="shm"), dict(checkpoint_dir="/x"),
@@ -206,4 +206,4 @@ def test_from_flags():
     assert cfg.actor_hidden == (64, 64) and cfg.batch_size == 32
     assert cfg.device == "cpu" and cfg.max_learn_ratio == 1.5
     with pytest.raises(ValueError, match="distributional"):
-        DDPGConfig.from_flags(["--distributional=true"])
+        DDPGConfig.from_flags(["--v_min=auto", "--v_max=auto"])

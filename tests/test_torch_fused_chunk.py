@@ -98,20 +98,28 @@ def test_reference_matches_jax_kernel():
 # --- the kernel's program, interpreted ------------------------------------
 
 
+def _softmax(x):
+    e = np.exp(x - np.max(x, -1, keepdims=True))
+    return e, np.sum(e, -1, keepdims=True)
+
+
 def _interpret_program(cfg, state, packed, scale, offset, eps=None, obs=OBS, act=ACT):
     """Executes fc._plan's task table the way csrc/fused_chunk.cu does
-    (same offsets, strides, epilogues, stage order, TD3's skipped tiles
-    on steps without an actor update, optimizer pass and metric
-    reduction), in numpy. Returns (flat state, td, metrics)."""
+    (same offsets, strides, epilogues, C51's row tasks, stage order, TD3's
+    skipped tiles on steps without an actor update, optimizer pass and
+    metric reduction), in numpy. Returns (flat state, td, metrics)."""
     k_steps, b, d = packed.shape
     prog = fc._plan(cfg, obs, act)
     na, nc = prog.n_actor, prog.n_critic
-    twin = cfg.twin_critic
+    twin, c51 = cfg.twin_critic, cfg.distributional
     delay = cfg.policy_delay if twin else 1
     step0 = int(state.step)
     flat = fc.flatten_state(state).numpy().copy()
     scratch = np.zeros(prog.scratch_size, np.float32)
-    scratch[prog.scratch["dqpi"]:prog.scratch["dqpi"] + b] = -1.0 / b
+    if c51:
+        support, (v_min, v_max, dz) = fc.support_params(cfg)
+    else:
+        scratch[prog.scratch["dqpi"]:prog.scratch["dqpi"] + b] = -1.0 / b
     td_out = np.zeros((k_steps, b), np.float32)
     scale = np.broadcast_to(np.float32(scale), (act,))
     offset = np.broadcast_to(np.float32(offset), (act,))
@@ -136,6 +144,10 @@ def _interpret_program(cfg, state, packed, scale, offset, eps=None, obs=OBS, act
                 if row[fc.F_TILE0] >= tiles[s]:
                     continue      # the kernel's tile loop stops before this task
                 M, N = int(row[fc.F_M]), int(row[fc.F_N])
+                if row[fc.F_OP] == fc.OP_ROWS:
+                    _interpret_rows(row, bases, support, v_min, v_max, dz, rew, disc,
+                                    wgt, td_out[k], b)
+                    continue
                 z = np.zeros((M, N), np.float32)
                 for g in range(int(row[fc.F_NSEG])):
                     ab, ao, asm, asj, bb, bo, bsj, bsn, J = (int(v) for v in row[fc.F_SEG + 9 * g:fc.F_SEG + 9 * g + 9])
@@ -201,16 +213,50 @@ def _interpret_program(cfg, state, packed, scale, offset, eps=None, obs=OBS, act
                 flat[t:t + n] = np.float32(cfg.tau) * flat[p:p + n] + np.float32(1.0 - cfg.tau) * flat[t:t + n]
             sums.append(np.sqrt(np.sum(grad * grad)))
         td = td_out[k]
-        if twin:
+        if c51:
+            closs = np.sum(scratch[prog.scratch["c51_wce"]:prog.scratch["c51_wce"] + b]) / b
+        elif twin:
             td0 = scratch[prog.scratch["td0"]:prog.scratch["td0"] + b]
             td1 = scratch[prog.scratch["td1"]:prog.scratch["td1"] + b]
             closs = np.sum(wgt * td0 * td0 + wgt * td1 * td1) * 0.5 / b
         else:
             closs = np.sum(wgt * td * td) / b
-        q_pi = scratch[prog.scratch["pi_q"]:prog.scratch["pi_q"] + b]
+        q_off = prog.scratch["pi_qexp" if c51 else "pi_q"]   # E[Z] under C51
+        q_pi = scratch[q_off:q_off + b]
         aloss = -np.sum(q_pi) / b
         step_vals.append([closs, aloss, -aloss, np.sum(np.abs(td)) / b, sums[0], sums[1]])
     return flat, td_out, np.mean(np.asarray(step_vals, np.float64), axis=0)
+
+
+def _interpret_rows(row, bases, z, v_min, v_max, dz, rew, disc, wgt, td_k, b):
+    """C51's row tasks, as csrc/fused_chunk.cu's run_rows computes them."""
+    M, A = int(row[fc.F_M]), int(row[fc.F_N])
+    aux_b, aux_o, aux_sm = (int(v) for v in row[fc.F_AUX:fc.F_AUX + 3])
+    cb, co, csm, _ = (int(v) for v in row[fc.F_C:fc.F_C + 4])
+    a2b, a2o = int(row[fc.F_AUX2]), int(row[fc.F_AUX2 + 1])
+    rows = np.arange(M)[:, None] * aux_sm + np.arange(A)
+    out_idx = co + np.arange(M)[:, None] * csm + np.arange(A)
+    if row[fc.F_EPI] == fc.EPI_C51:
+        e_t, s_t = _softmax(bases[aux_b][aux_o + rows])
+        p_t = e_t / s_t
+        tz = np.minimum(np.maximum(rew[:, None] + disc[:, None] * z, v_min), v_max)
+        proj = np.zeros((M, A), np.float32)
+        for i in range(A):
+            proj = proj + p_t[:, i:i + 1] * np.maximum(
+                np.float32(0), np.float32(1) - np.abs(tz[:, i:i + 1] - z) / dz)
+        q = bases[aux_b][aux_o + M * aux_sm + rows]
+        e, s = _softmax(q)
+        logp = q - (np.max(q, -1, keepdims=True) + np.log(s))
+        ce = -np.sum(proj * logp, -1)
+        td_k[:] = np.sum(proj * z, -1) - np.sum((e / s) * z, -1)
+        bases[cb][out_idx] = (e / s - proj) * (wgt * np.float32(1.0 / b))[:, None]
+        bases[a2b][a2o:a2o + M] = wgt * ce
+    else:                                   # EPI_C51_PI
+        e, s = _softmax(bases[aux_b][aux_o + rows])
+        p = e / s
+        q_exp = np.sum(p * z, -1, keepdims=True)
+        bases[cb][out_idx] = (np.float32(-1.0 / b) * p) * (z - q_exp)
+        bases[a2b][a2o:a2o + M] = q_exp[:, 0]
 
 
 def test_kernel_program_matches_reference():
@@ -239,6 +285,10 @@ def _assert_stage_dependencies(prog, b, update=True):
             return set()
         return {off + r * sm + c * sn for r in range(rows) for c in range(cols)}
 
+    # DDPG's and TD3's dqpi is a constant the wrapper fills; C51 writes it.
+    c51 = any(row[fc.F_EPI] == fc.EPI_C51_PI for row in prog.tasks)
+    const = set() if c51 else set(range(prog.scratch["dqpi"], prog.scratch["dqpi"] + b))
+
     for s in range(len(prog.stage_tiles)):
         tasks = [row for row in prog.tasks[prog.stage_start[s]:prog.stage_start[s + 1]]
                  if row[fc.F_TILE0] < tiles[s]]
@@ -255,7 +305,10 @@ def _assert_stage_dependencies(prog, b, update=True):
                 reads |= span(aux[0], aux[1], 1, 0, M, 1)
             if row[fc.F_EPI] == fc.EPI_TD3:          # the four heads
                 reads |= span(aux[0], aux[1], 1, aux[2], M, 4)
-            const = set(range(prog.scratch["dqpi"], prog.scratch["dqpi"] + b))
+            if row[fc.F_EPI] == fc.EPI_C51:          # target, then online head
+                reads |= span(aux[0], aux[1], aux[2], 1, 2 * M, N)
+            if row[fc.F_EPI] == fc.EPI_C51_PI:       # the actor's head
+                reads |= span(aux[0], aux[1], aux[2], 1, M, N)
             for addr in reads - const:
                 assert addr in written and written[addr] < s, (s, addr)
         for row in tasks:
@@ -271,6 +324,8 @@ def _assert_stage_dependencies(prog, b, update=True):
                 out |= span(int(row[fc.F_AUX2]), int(row[fc.F_AUX2 + 1]), 1, 0, M, 1)
             if row[fc.F_EPI] == fc.EPI_TD3:        # dq0, dq1, td0, td1
                 out |= span(int(row[fc.F_AUX2]), int(row[fc.F_AUX2 + 1]), 1, aux[2], M, 4)
+            if row[fc.F_OP] == fc.OP_ROWS:         # one value a row: w*ce or E[Z]
+                out |= span(int(row[fc.F_AUX2]), int(row[fc.F_AUX2 + 1]), 1, 0, M, 1)
             assert not (out & set(written)), "a scratch range is written twice"
             written.update({x: s for x in out})
 

@@ -10,7 +10,9 @@ runs as
 One case per branch of the kernel, at a small size (obs 3, act 1, nets
 32x32, batch 8, K 4), from step 5 so TD3's delay schedule is offset:
 DDPG; TD3 at delay 1 without smoothing noise (no eps input); TD3 at
-delay 2 with noise (one eps stream drawn on the card, given to both).
+delay 2 with noise (one eps stream drawn on the card, given to both);
+D4PG with 21 atoms on [-5, 5], then again after the support moved to
+[-8, 3] (set_value_bounds rewrites the launch's support in place).
 Tolerances: rtol 1e-4, atol 1e-5 (f32 with another summation order).
 """
 
@@ -30,6 +32,7 @@ BRANCHES = {
     "ddpg": {},
     "td3-delay1": dict(twin_critic=True),
     "td3-delay2-noise": dict(twin_critic=True, policy_delay=2, target_noise=0.2),
+    "d4pg": dict(distributional=True, num_atoms=21, v_min=-5.0, v_max=5.0),
 }
 
 
@@ -73,3 +76,11 @@ def test_kernel_matches_reference_on_card(branch):
     want = fc.actor_updates(cfg, STEP0, K)
     assert int(new.actor_opt.count) == int(ref.actor_opt.count) == want
     assert int(new.critic_opt.count) == K and int(new.step) == STEP0 + K
+    if cfg.distributional:
+        run.set_value_bounds(-8.0, 3.0)
+        new, td, met = run(state, packed, eps)
+        ref, rtd, rmet = fc.fused_chunk_reference(
+            cfg.replace(v_min=-8.0, v_max=3.0), state, packed, 2.0, 0.0, eps)
+        torch.cuda.synchronize()
+        _close(fc.flatten_state(new).cpu(), fc.flatten_state(ref).cpu())
+        _close(td.cpu(), rtd.cpu())

@@ -5,7 +5,9 @@
   against the JAX package's gather of those indices followed by K calls of
   its make_learner_step (rtol 2e-5, atol 1e-6; chunk-mean metrics 5e-5).
 - A tiny run of `distributed_ddpg_tpu_torch.train` (Pendulum, one actor
-  process, device="cpu") and the keys of its JSONL records.
+  process, device="cpu"), in a subprocess with a timeout so that the actor
+  pool never starts in the test process, and the keys of its JSONL
+  records.
 - The actors' numpy policy, loaded from actor_params_to_host, against the
   JAX actor_apply.
 - The port imports neither jax nor distributed_ddpg_tpu; asking for the
@@ -120,37 +122,51 @@ def test_run_chunk_matches_run_sample_chunk():
     np.testing.assert_array_equal(a.actor_params_to_host(), b.actor_params_to_host())
 
 
-def test_pool_respawns_a_killed_worker():
-    from distributed_ddpg_tpu_torch.actors.pool import ActorPool
-    from distributed_ddpg_tpu_torch.envs import make, spec_of
-    import time
+# The pool's respawn drill, run in a child process (see test_pool_respawns_a_killed_worker).
+POOL_RESPAWN_DRILL = """
+import time
+import numpy as np
+from distributed_ddpg_tpu_torch.actors.pool import ActorPool
+from distributed_ddpg_tpu_torch.config import DDPGConfig
+from distributed_ddpg_tpu_torch.envs import make, spec_of
 
-    cfg = DDPGConfig(device="cpu", actor_hidden=(16, 16), num_actors=1)
-    spec = spec_of(make("Pendulum-v1"))
-    pool = ActorPool(cfg, spec).start(
-        np.zeros(sum(i * o + o for i, o in zip([OBS, 16, 16], [16, 16, ACT])), np.float32)
-    )
-    try:
-        deadline = time.time() + 60
-        while pool.steps_received == 0 and time.time() < deadline:
-            pool.drain_batches()
-            time.sleep(0.01)
-        assert pool.steps_received > 0
-        assert pool.monitor()["respawned"] == 0
-        # Killed outright, the worker may die holding a cross-process lock:
-        # neither the broadcast nor the respawned worker may wedge on it.
-        pool._procs[0].kill()
-        pool._procs[0].join(timeout=10)
-        pool.broadcast(np.ones_like(np.frombuffer(pool._shared, np.float32)))
-        assert pool.monitor()["respawned"] == 1
-        before = pool.steps_received
-        while pool.steps_received == before and time.time() < deadline:
-            pool.drain_batches()
-            time.sleep(0.01)
-        assert pool.steps_received > before
-    finally:
-        pool.stop()
-    assert not any(p.is_alive() for p in pool._procs)
+cfg = DDPGConfig(device="cpu", actor_hidden=(16, 16), num_actors=1)
+spec = spec_of(make("Pendulum-v1"))
+pool = ActorPool(cfg, spec).start(np.zeros(sum(i * o + o for i, o in zip(
+    [spec.obs_dim, 16, 16], [16, 16, spec.act_dim])), np.float32))
+try:
+    deadline = time.time() + 60
+    while pool.steps_received == 0 and time.time() < deadline:
+        pool.drain_batches()
+        time.sleep(0.01)
+    assert pool.steps_received > 0
+    assert pool.monitor()["respawned"] == 0
+    # Killed outright, the worker may die holding a cross-process lock:
+    # neither the broadcast nor the respawned worker may wedge on it.
+    pool._procs[0].kill()
+    pool._procs[0].join(timeout=10)
+    pool.broadcast(np.ones_like(np.frombuffer(pool._shared, np.float32)))
+    assert pool.monitor()["respawned"] == 1
+    before = pool.steps_received
+    while pool.steps_received == before and time.time() < deadline:
+        pool.drain_batches()
+        time.sleep(0.01)
+    assert pool.steps_received > before
+finally:
+    pool.stop()
+assert not any(p.is_alive() for p in pool._procs)
+"""
+
+
+def test_pool_respawns_a_killed_worker():
+    """A worker killed outright is respawned, and neither the broadcast nor
+    the new worker wedges. In a child process with a timeout, so that the
+    actor pool never starts in the test process (its workers exit when
+    their parent does)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", POOL_RESPAWN_DRILL], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stderr[-4000:]
 
 
 def test_actor_params_to_host_drive_numpy_policy():
@@ -164,17 +180,25 @@ def test_actor_params_to_host_drive_numpy_policy():
     _close(policy(obs), jax_actor_apply(jstate.actor_params, obs, 2.0, 0.5), 1e-5, 1e-6)
 
 
-def test_tiny_train_run_writes_the_jax_trainers_records(tmp_path):
-    from distributed_ddpg_tpu_torch.train import train
+def train_in_subprocess(flags, log_path, timeout=240):
+    """`python -m distributed_ddpg_tpu_torch.train --device=cpu <flags>` in
+    a child process with a timeout; returns its JSONL records."""
+    cmd = [sys.executable, "-m", "distributed_ddpg_tpu_torch.train", "--device=cpu",
+           *flags, f"--log_path={log_path}"]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return [json.loads(line) for line in log_path.read_text().splitlines()]
 
-    log_path = tmp_path / "metrics.jsonl"
-    cfg = DDPGConfig(
-        device="cpu", env_id="Pendulum-v1", num_actors=1, actor_hidden=(16, 16),
-        critic_hidden=(16, 16), batch_size=16, learner_chunk=4, replay_min_size=100,
-        total_env_steps=400, eval_every=300, eval_episodes=1, log_path=str(log_path),
-    )
-    summary = train(cfg, echo=False)
-    records = [json.loads(line) for line in log_path.read_text().splitlines()]
+
+def test_tiny_train_run_writes_the_jax_trainers_records(tmp_path):
+    records = train_in_subprocess([
+        "--env_id=Pendulum-v1", "--num_actors=1", "--actor_hidden=16,16",
+        "--critic_hidden=16,16", "--batch_size=16", "--learner_chunk=4",
+        "--replay_min_size=100", "--total_env_steps=400", "--eval_every=300",
+        "--eval_episodes=1",
+    ], tmp_path / "metrics.jsonl")
     kinds = {r["kind"] for r in records}
     assert {"train", "eval", "final"} <= kinds
     train_rec = next(r for r in records if r["kind"] == "train")
@@ -184,10 +208,10 @@ def test_tiny_train_run_writes_the_jax_trainers_records(tmp_path):
     final = records[-1]
     assert final["kind"] == "final"
     assert {"final_return", "env_steps_per_sec", "learner_steps_per_sec", *METRIC_KEYS} <= set(final)
-    assert summary["chunks"] >= 1
-    assert summary["learner_steps"] == summary["chunks"] * 4
-    assert summary["env_steps"] >= 400
-    assert all(np.isfinite(summary[k]) for k in (*METRIC_KEYS, "final_return"))
+    assert final["chunks"] >= 1
+    assert final["learner_steps"] == final["chunks"] * 4
+    assert final["step"] >= 400
+    assert all(np.isfinite(final[k]) for k in (*METRIC_KEYS, "final_return"))
 
 
 def test_cuda_without_a_card_raises():

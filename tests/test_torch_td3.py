@@ -12,7 +12,8 @@
   tests/test_torch_fused_chunk.py (the new epilogues and the skipped
   actor-backward tiles), against the plain chunk, and its stage order;
 - the delay schedule carried across two chunks of odd K;
-- ShardedLearner's TD3 chunk and a tiny TD3 training run;
+- ShardedLearner's TD3 chunk and a tiny TD3 training run (in a
+  subprocess);
 - the plain chunk against the JAX kernel in interpret mode.
 
 The kernel against the plain chunk on a card (marker `cuda`) is in
@@ -50,6 +51,7 @@ from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
 from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
 from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
 from test_torch_fused_chunk import _assert_stage_dependencies, _interpret_program
+from test_torch_slice import train_in_subprocess
 
 OBS, ACT, B, K = 3, 2, 8, 5
 ACTOR, CRITIC = (32, 32), (32, 24, 16)
@@ -403,19 +405,16 @@ def test_sharded_learner_td3_chunk():
     assert int(learner.state.actor_opt.count) == COUNT_A + 5 and int(learner.state.step) == 15
 
 
-def test_tiny_td3_train_run():
-    from distributed_ddpg_tpu_torch.train import train
-
-    cfg = DDPGConfig.from_flags([
-        "--device=cpu", "--twin_critic=true", "--policy_delay=2", "--target_noise=0.2",
+def test_tiny_td3_train_run(tmp_path):
+    final = train_in_subprocess([
+        "--twin_critic=true", "--policy_delay=2", "--target_noise=0.2",
         "--actor_hidden=16,16", "--critic_hidden=16,16", "--batch_size=16",
         "--learner_chunk=3", "--replay_min_size=100", "--total_env_steps=300",
         "--eval_every=0", "--eval_episodes=1",
-    ])
-    summary = train(cfg, echo=False)
-    assert summary["chunks"] >= 1
-    assert summary["learner_steps"] == summary["chunks"] * 3
-    assert all(np.isfinite(summary[k]) for k in (*METRIC_KEYS, "final_return"))
+    ], tmp_path / "metrics.jsonl")[-1]
+    assert final["kind"] == "final" and final["chunks"] >= 1
+    assert final["learner_steps"] == final["chunks"] * 3
+    assert all(np.isfinite(final[k]) for k in (*METRIC_KEYS, "final_return"))
 
 
 # --- the JAX kernel --------------------------------------------------
