@@ -23,18 +23,27 @@ Phases (any failure raises; nothing is caught and passed over):
    at K = 16 and 800, with 256 atoms (the edge of the envelope) at
    K = 16, one chunk after set_value_bounds moved the support, and at
    K = 16 and 800 on [-1500, 150] with Pendulum's 5-step returns (the
-   scale the main path trains at). Every K = 16 batch draws its
+   scale the main path trains at); its SAC branch with the temperature
+   learned (K = 16 and 800) and fixed (K = 16), at K = 16 with both
+   critic members equal, so every row of the min gate ties, and at K = 16
+   with a hot temperature (alpha 4, log_std near the clamp's floor), so
+   that alpha * log pi outweighs the critics (two standard-normal streams
+   drawn on the card, given to both). Every
+   K = 16 batch draws its
    importance weights from [0.5, 1] (WEIGHTED_UP_TO); the K = 800 ones
-   carry weights 1. One case, TD3 at the bench's shape over
-   K = 800, may instead be refereed by the chunk in float64
-   (SHARE_RATIO, DRIFT_RATIO).
+   carry weights 1. The cases that drift in f32 over K = 800 (TD3 and
+   SAC at the bench's shape) may instead be refereed by the chunk in
+   float64 (SHARE_RATIO, DRIFT_RATIO; for SAC the f32 spread from the plain
+   version on the card and on the CPU).
 4. Drive the main paths, `distributed_ddpg_tpu_torch.train` (Pendulum-v1,
    2x256, batch 64, f32, one actor process, K = 800): DDPG with the
    default flags and TD3 with --twin_critic=true --policy_delay=2
    --target_noise=0.2 for 5000 env steps each, then D4PG with
    --distributional=true --n_step=5 --v_min=auto --v_max=auto for 20,000
    (51 atoms; the support resolved from the warmup rewards is
-   printed). For each, the launch counts are zeroed
+   printed), then SAC with --sac=true --actor_lr=3e-4 --critic_lr=3e-4
+   --tau=0.005 for 20,000 (its final alpha is printed). For each, the
+   launch counts are zeroed
    just before and read just after: every chunk must have been one launch
    of that branch's kernel, learner_steps = chunks x K, metrics finite.
 5. Time each branch of the kernel at the main path's shapes (CUDA events,
@@ -104,6 +113,16 @@ TD_ULPS = 16
 # correction one step late, target_critic's share rose to 2.8x.
 SHARE_RATIO = 1.5
 DRIFT_RATIO = 3.0
+# SAC at the bench's shape over K = 800 drifts more: two f32 versions part
+# from step 0 and their gap doubles every ~100 steps (8.5e-6 at K = 50,
+# 5.1e-4 at 400, 4.7e-3 at 800), while the kernel gives the same bits run
+# after run. Against the float64 chunk the kernel and the plain version on
+# the CPU missed by nearly the same amounts (actor 1.3e-3 and 1.2e-3), the
+# plain version on the card by other ones (actor 3.8e-4, critic 4.7e-3
+# against 1.9e-3); on two other draws all three agreed (H100, 700 W). One
+# f32 version is one sample of where rounding takes the chunk, so in that
+# case (`spread_on_cpu`) the f32 spread is the larger miss of the two plain
+# versions, on the card and on the CPU; the ratios stay as they are.
 # Chunks of up to this many steps draw importance weights from [0.5, 1]:
 # they check one step's math exactly, so a kernel that drops or misplaces
 # a weight fails there, in every branch. Longer chunks check what
@@ -131,11 +150,17 @@ def card_line() -> str:
     return out[0]
 
 
-def random_state_np(cfg, obs: int, act: int, seed: int, step: int = 1000):
+def random_state_np(cfg, obs: int, act: int, seed: int, step: int = 1000,
+                    tied: bool = False, hot: bool = False):
     """A TrainState with numpy leaves: random params near the init
-    scale, targets near the params, nonzero Adam moments, both counts
+    scale, targets near the params, nonzero Adam moments, every count
     1000 and the given step — a state in mid-training rather than at
-    init. A TD3 config gets two independent critics on a [2, ...] axis."""
+    init. A TD3 or SAC config gets two independent critics on a [2, ...]
+    axis (with `tied`, two equal ones); SAC a temperature near 0.2 (and its
+    Adam moments when autotuned), or with `hot` a temperature of 4 over a
+    policy whose log_std sits near the clamp's floor, so that alpha * log pi
+    (~3.4 a dim) outweighs the critics in the target, the actor's loss and
+    its cotangent."""
     from distributed_ddpg_tpu_torch.ops.fused_chunk import _net_dims
     from distributed_ddpg_tpu_torch.types import OptState, TrainState
 
@@ -164,9 +189,10 @@ def random_state_np(cfg, obs: int, act: int, seed: int, step: int = 1000):
         )
 
     def critic_net(fn):
-        if not cfg.twin_critic:
+        if not (cfg.twin_critic or cfg.sac):
             return net(cdims, fn)
-        a, b = net(cdims, fn), net(cdims, fn)
+        a = net(cdims, fn)
+        b = a if tied else net(cdims, fn)
         return tuple({k: np.stack([la[k], lb[k]]) for k in la} for la, lb in zip(a, b))
 
     def critic_opt():
@@ -176,9 +202,25 @@ def random_state_np(cfg, obs: int, act: int, seed: int, step: int = 1000):
             count=np.int32(1000),
         )
 
+    def near_critic(tree):
+        if not tied:
+            return near(tree)
+        one = near(tuple({k: v[0] for k, v in layer.items()} for layer in tree))
+        return tuple({k: np.stack([v, v]) for k, v in layer.items()} for layer in one)
+
     actor, critic = net(adims, param), critic_net(param)
-    return TrainState(actor, critic, near(actor), near(critic), opt(adims), critic_opt(),
-                      np.int32(step))
+    state = TrainState(actor, critic, near(actor), near_critic(critic), opt(adims),
+                       critic_opt(), np.int32(step))
+    if cfg.sac:
+        state = state._replace(log_alpha=np.float32(
+            math.log(4.0) if hot else math.log(0.2) + 0.1 * rng.standard_normal()))
+        if hot:   # log_std_raw ~ -3: log_std ~ min + 0.02
+            actor[-1]["b"][act:] = -3.0
+        if cfg.sac_autotune:
+            state = state._replace(alpha_opt=OptState(
+                mu=np.float32(1e-2 * rng.standard_normal()),
+                nu=np.float32(rng.uniform(1e-4, 1e-3)), count=np.int32(1000)))
+    return state
 
 
 def random_batches(seed: int, k: int, b: int, obs: int, act: int,
@@ -223,46 +265,68 @@ def time_ms(fn, reps: int) -> float:
 
 
 def noise_for(cfg, k: int, b: int, act: int, step: int):
-    """TD3's smoothing noise for a chunk, drawn on the card, or None."""
+    """TD3's smoothing noise or SAC's normals (eps_next, eps_cur) for a
+    chunk, drawn on the card, or None."""
     from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
 
+    if cfg.sac:
+        return fc.sac_noise_eps(cfg, torch.Generator(device="cuda"), step, k, b, act)
     if not cfg.takes_noise:
         return None
     return fc.td3_noise_eps(cfg, torch.Generator(device="cuda"), step, k, b, act)
 
 
-def to_double(tree):
-    """A TrainState (or any tuple/dict tree of tensors) in float64."""
+def numel(eps) -> int:
+    """Elements of a noise input: None, a tensor or SAC's pair."""
+    if eps is None:
+        return 0
+    return sum(e.numel() for e in eps) if isinstance(eps, tuple) else eps.numel()
+
+
+def tree_map_tensors(fn, tree):
+    """fn over the tensors of a TrainState (or any tuple/dict tree)."""
     if isinstance(tree, torch.Tensor):
-        return tree.double() if tree.is_floating_point() else tree
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: to_double(v) for k, v in tree.items()}
+        return {k: tree_map_tensors(fn, v) for k, v in tree.items()}
     if isinstance(tree, tuple):
-        items = [to_double(v) for v in tree]
+        items = [tree_map_tensors(fn, v) for v in tree]
         return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
     return tree
 
 
+def to_double(tree):
+    """A TrainState (or any tuple/dict tree of tensors) in float64."""
+    return tree_map_tensors(lambda t: t.double() if t.is_floating_point() else t, tree)
+
+
 def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
-                      referee: bool = False, bounds=None, rewards=None) -> float:
+                      referee: bool = False, bounds=None, rewards=None,
+                      tied: bool = False, hot: bool = False,
+                      spread_on_cpu: bool = False) -> float:
     """Kernel vs plain version on one random state and batch (and noise);
     returns the largest absolute difference over end state, td and
     metrics. Raises where an output is outside the tolerances; with
-    `referee` (one drifting case, see SHARE_RATIO) such an output is held
-    against the plain version in float64 instead. With `bounds` (D4PG)
+    `referee` (a drifting case, see SHARE_RATIO) such an output is held
+    against the plain version in float64 instead, the f32 spread measured
+    by the plain version on the card, and with `spread_on_cpu` by the
+    larger miss of it and the plain version on the CPU. With `bounds` (D4PG)
     the kernel runs one chunk, then set_value_bounds(*bounds) and the
     chunk that is checked, against the plain version under those bounds.
-    `rewards` is random_batches'."""
+    `rewards` is random_batches', `tied` and `hot` random_state_np's."""
     from distributed_ddpg_tpu_torch.learner import METRIC_KEYS, train_state_from_numpy
     from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
 
     label = (f"fused_chunk_td3 delay={cfg.policy_delay} noise={cfg.target_noise}"
              if cfg.twin_critic else
-             f"fused_chunk_d4pg atoms={cfg.num_atoms}" if cfg.distributional else "fused_chunk")
-    label += f" obs={obs} act={act} K={k}"
+             f"fused_chunk_d4pg atoms={cfg.num_atoms}" if cfg.distributional else
+             f"fused_chunk_sac autotune={cfg.sac_autotune}" if cfg.sac else "fused_chunk")
+    label += (f" obs={obs} act={act} K={k}" + (" tied critics" if tied else "")
+              + (" hot temperature" if hot else ""))
     if cfg.distributional:
         label += f" support=[{cfg.v_min:g}, {cfg.v_max:g}]"
-    state = train_state_from_numpy(random_state_np(cfg, obs, act, seed=obs, step=step), "cuda")
+    state = train_state_from_numpy(
+        random_state_np(cfg, obs, act, seed=obs, step=step, tied=tied, hot=hot), "cuda")
     packed = random_batches(seed=100 + obs, k=k, b=cfg.batch_size, obs=obs, act=act,
                             rewards=rewards, weighted=k <= WEIGHTED_UP_TO)
     eps = noise_for(cfg, k, cfg.batch_size, act, step)
@@ -282,9 +346,9 @@ def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
 
     got_all, want_all = outputs(new, td, met), outputs(ref, rtd, rmet)
     groups = ("actor", "critic", "target_actor", "target_critic",
-              "actor_mu", "actor_nu", "critic_mu", "critic_nu")
+              "actor_mu", "actor_nu", "critic_mu", "critic_nu", "alpha")
     prog = fc._plan(cfg, obs, act)
-    cuts = np.cumsum([0] + [prog.n_actor, prog.n_critic] * 4)
+    cuts = np.cumsum([0] + [prog.n_actor, prog.n_critic] * 4 + [fc._alpha_slots(cfg)])
     worst, failed = 0.0, []
     for name in got_all:
         got = got_all[name].double().cpu().numpy()
@@ -306,8 +370,8 @@ def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
         if name == "state":
             loose = err > TIGHT_TOL["atol"] + TIGHT_TOL["rtol"] * np.abs(want)
             frac = float(loose.mean())
-            where = {g: int(n) for g, n in zip(groups, np.add.reduceat(
-                loose.astype(np.int64), cuts[:-1])) if n}
+            where = {g: int(loose[cuts[i]:cuts[i + 1]].sum()) for i, g in enumerate(groups)
+                     if loose[cuts[i]:cuts[i + 1]].any()}
             line += f", outside {TIGHT_TOL}: {frac:.2e} of elements {where}"
             ok = ok and frac <= TIGHT_FRAC
         if not ok:
@@ -317,29 +381,38 @@ def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
         raise AssertionError(f"{label}: {', '.join(failed)} outside the tolerances")
     if failed:
         exact, etd, emet = fc.fused_chunk_reference(
-            cfg, to_double(state), packed.double(), 2.0, 0.0,
-            None if eps is None else eps.double())
+            cfg, to_double(state), packed.double(), 2.0, 0.0, to_double(eps))
         exact_all = outputs(exact, etd, emet)
+        spread = [want_all]
+        if spread_on_cpu:
+            spread.append(outputs(*fc.fused_chunk_reference(
+                cfg, tree_map_tensors(torch.Tensor.cpu, state), packed.cpu(), 2.0, 0.0,
+                tree_map_tensors(torch.Tensor.cpu, eps))))
         bad = []
         for name in failed:
             got = got_all[name].double().cpu().numpy()
-            want = want_all[name].double().cpu().numpy()
+            plains = [p[name].double().cpu().numpy() for p in spread]
             ex = exact_all[name].cpu().numpy()
             if name == "state":
-                pieces = [(g, slice(cuts[i], cuts[i + 1])) for i, g in enumerate(groups)]
+                pieces = [(g, slice(cuts[i], cuts[i + 1])) for i, g in enumerate(groups)
+                          if cuts[i + 1] > cuts[i]]
             elif name == "td":
                 pieces = [("td", slice(None))]
             else:
                 pieces = [(n, slice(i, i + 1)) for i, n in enumerate(METRIC_KEYS)]
             for piece, sl in pieces:
                 tight = TIGHT_TOL["atol"] + TIGHT_TOL["rtol"] * np.abs(ex[sl])
-                e_k, e_p = np.abs(got[sl] - ex[sl]), np.abs(want[sl] - ex[sl])
-                share_k, share_p = float((e_k > tight).mean()), float((e_p > tight).mean())
+                e_k = np.abs(got[sl] - ex[sl])
+                e_ps = [np.abs(p[sl] - ex[sl]) for p in plains]
+                share_k = float((e_k > tight).mean())
+                share_p = max(float((e > tight).mean()) for e in e_ps)
+                max_p = max(float(e.max()) for e in e_ps)
                 ok = (share_k <= SHARE_RATIO * share_p + TIGHT_FRAC
-                      and bool(np.all(e_k <= DRIFT_RATIO * e_p.max() + tight)))
+                      and bool(np.all(e_k <= DRIFT_RATIO * max_p + tight)))
                 log(f"  {label} {piece} against the float64 chunk: kernel max "
                     f"{e_k.max():.3e}, {share_k:.2e} outside TIGHT_TOL; f32 plain max "
-                    f"{e_p.max():.3e}, {share_p:.2e}"
+                    + ", ".join(f"{float(e.max()):.3e} ({float((e > tight).mean()):.2e})"
+                                for e in e_ps)
                     + ("" if ok else " -- fails SHARE_RATIO or DRIFT_RATIO"))
                 if not ok:
                     bad.append(piece)
@@ -348,13 +421,17 @@ def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
                 f"{label}: {', '.join(bad)} farther from the float64 chunk than "
                 f"SHARE_RATIO and DRIFT_RATIO allow")
     # The actor count advances by the chunk's actor updates (all K, or
-    # under TD3's delay f(step0 + K) - f(step0)); the rest by K.
+    # under TD3's delay f(step0 + K) - f(step0)); the rest by K, SAC's
+    # temperature count only when it is learned.
     want_a = 1000 + fc.actor_updates(cfg, step, k)
     if (int(new.actor_opt.count), int(new.critic_opt.count), int(new.step)) != (
             want_a, 1000 + k, step + k) or int(ref.actor_opt.count) != want_a:
         raise AssertionError(
             f"{label}: counts {int(new.actor_opt.count)}, {int(new.critic_opt.count)}, "
             f"{int(new.step)}; expected {want_a}, {1000 + k}, {step + k}")
+    if cfg.sac and (new.alpha_opt is None) != (not cfg.sac_autotune) or (
+            new.alpha_opt is not None and int(new.alpha_opt.count) != 1000 + k):
+        raise AssertionError(f"{label}: the temperature's count did not follow the autotune")
     log(f"  {label}: actor count +{want_a - 1000} from step {step}")
     return worst
 
@@ -439,7 +516,10 @@ def drive_main_path(flags, name: str) -> dict:
         raise AssertionError(f"kernel launches {launches} != {summary['chunks']} x {name}")
     if summary["learner_steps"] != summary["chunks"] * resolve_learner_chunk(cfg):
         raise AssertionError("learner_steps != chunks x K")
-    for key in (*METRIC_KEYS, "final_return"):
+    if cfg.sac:
+        log(f"[main path {name}] final alpha {summary['alpha']}, final return "
+            f"{summary['final_return']}")
+    for key in (*METRIC_KEYS, "final_return") + (("alpha",) if cfg.sac else ()):
         if not math.isfinite(summary[key]):
             raise AssertionError(f"main path {name}: {key} = {summary[key]} is not finite")
     return launches
@@ -475,7 +555,7 @@ def time_branch(cfg, name: str, k: int, step: int, card: str, eager: bool) -> di
     # the Polyak updates only on the chunk's update steps.
     ops = fc.ops_per_chunk(cfg, obs, act, k, step)
     nbytes = (2 * fc.state_bytes(cfg, obs, act) + packed.numel() * 4
-              + (eps.numel() * 4 if eps is not None else 0) + k * b * 4 + 6 * 4
+              + numel(eps) * 4 + k * b * 4 + 6 * 4
               + (4 * cfg.num_atoms if cfg.distributional else 0))   # the C51 support
     bound_ops_ms, bound_bytes_ms = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(bound_ops_ms, bound_bytes_ms)
@@ -527,6 +607,7 @@ def main() -> int:
     td3 = cfg.replace(twin_critic=True, policy_delay=2, target_noise=0.2)
     td3_plain = cfg.replace(twin_critic=True)  # delay 1, no noise input
     d4pg = cfg.replace(distributional=True, v_min=-10.0, v_max=10.0)   # 51 atoms
+    sac = cfg.replace(sac=True, actor_lr=3e-4, critic_lr=3e-4, tau=0.005)
     K = resolve_learner_chunk(cfg)            # the main path's chunk (800)
     td3_step = 1001                           # odd: the delay schedule is offset
     log("[parity] fused_chunk kernel vs fused_chunk_reference on the card")
@@ -548,12 +629,20 @@ def main() -> int:
     for k in (16, K):
         check_fused_chunk(d4pg.replace(v_min=-1500.0, v_max=150.0), 3, 1, k,
                           rewards=(-81.5, 0.0, 0.99 ** 5))
+    # SAC as README's command runs it: the temperature learned, and fixed.
+    for obs, act in ((3, 1), (17, 6)):
+        for k in (16, K):
+            errs[("fused_chunk_sac", obs, k)] = check_fused_chunk(
+                sac, obs, act, k, referee=(obs, k) == (17, K), spread_on_cpu=True)
+        check_fused_chunk(sac.replace(sac_autotune=False), obs, act, 16)
+    check_fused_chunk(sac, 3, 1, 16, tied=True)
+    check_fused_chunk(sac, 17, 6, 16, hot=True)
 
     # --- 4. the main paths ---
-    # D4PG, this slice's path, runs 20k env steps: tens of chunks, so its
-    # rates are the steady state's and not the first chunk's one-time
-    # costs. The earlier paths run a few chunks each, enough to check
-    # their launches and metrics.
+    # D4PG and SAC, this slice's path, run 20k env steps each: tens of
+    # chunks, so their rates are the steady state's and not the first
+    # chunk's one-time costs. The earlier paths run a few chunks each,
+    # enough to check their launches and metrics.
     common = ["--num_actors=1", "--replay_min_size=1000", "--eval_every=0",
               "--eval_episodes=2"]
     launches = drive_main_path(common + ["--total_env_steps=5000"], "fused_chunk")
@@ -567,12 +656,17 @@ def main() -> int:
                       "--v_min=auto", "--v_max=auto",
                       f"--log_path={os.path.join(tmp, 'd4pg.jsonl')}"],
             "fused_chunk_d4pg"))
+    launches.update(drive_main_path(
+        common + ["--total_env_steps=20000", "--sac=true", "--actor_lr=3e-4",
+                  "--critic_lr=3e-4", "--tau=0.005"],
+        "fused_chunk_sac"))
 
     # --- 5. timing at the main path's shapes ---
     timing = {
         "fused_chunk": time_branch(cfg, "fused_chunk", K, 1000, card, eager=True),
         "fused_chunk_td3": time_branch(td3, "fused_chunk_td3", K, td3_step, card, eager=False),
         "fused_chunk_d4pg": time_branch(d4pg, "fused_chunk_d4pg", K, 1000, card, eager=False),
+        "fused_chunk_sac": time_branch(sac, "fused_chunk_sac", K, 1000, card, eager=False),
     }
     log(f"[done] {time.monotonic() - t_start:.1f}s")
 
@@ -585,7 +679,7 @@ def main() -> int:
         "max_abs_err": errs[(name, 3, K)],
         **timing[name],
         "library_ms": None,
-    } for name in ("fused_chunk", "fused_chunk_td3", "fused_chunk_d4pg")]}), flush=True)
+    } for name in timing]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 """Pure-numpy actor policy for rollout workers.
 
-A trimmed copy of distributed_ddpg_tpu/actors/policy.py (the deterministic
-DDPG head; the SAC head is later work). Workers run this numpy mirror of
-the actor MLP and never import torch, so they are cheap to spawn and
-never touch the card.
+A trimmed copy of distributed_ddpg_tpu/actors/policy.py: the deterministic
+head and SAC's Gaussian head. Workers run this numpy mirror of the actor
+MLP and never import torch, so they are cheap to spawn and never touch
+the card.
 
 Params travel learner -> workers as ONE flat f32 array in shared memory
 (pool.py); `param_layout`/`flatten_params`/`NumpyPolicy.load_flat` define
@@ -20,7 +20,13 @@ import numpy as np
 Layout = List[Tuple[Tuple[int, ...], Tuple[int, ...]]]  # [(w_shape, b_shape)]
 
 
+def actor_head_dim(act_dim: int, sac: bool) -> int:
+    """Actor output width: SAC's Gaussian head is [mean | log_std]."""
+    return 2 * act_dim if sac else act_dim
+
+
 def param_layout(obs_dim: int, act_dim: int, hidden: Sequence[int]) -> Layout:
+    """`act_dim` here is the HEAD width: pass actor_head_dim(...) for SAC."""
     dims = [obs_dim, *hidden, act_dim]
     return [((dims[i], dims[i + 1]), (dims[i + 1],)) for i in range(len(dims) - 1)]
 
@@ -61,12 +67,25 @@ def flatten_params(params, out: np.ndarray | None = None) -> np.ndarray:
 
 
 class NumpyPolicy:
-    """mu(s) in numpy: relu hiddens, tanh output onto the action box."""
+    """mu(s) in numpy: relu hiddens, tanh output onto the action box.
 
-    def __init__(self, layout: Layout, action_scale, action_offset=0.0):
+    `gaussian=True` is SAC's head (models/mlp.actor_gaussian_apply): the
+    final layer is [mean | log_std_raw]; the deterministic mode acts on
+    tanh(mean), `stochastic=True` samples the tanh-Gaussian with a numpy
+    RNG of its own (workers explore by sampling the policy, no OU noise)."""
+
+    def __init__(self, layout: Layout, action_scale, action_offset=0.0,
+                 gaussian: bool = False, stochastic: bool = False,
+                 seed: int | None = None, log_std_min: float = -5.0,
+                 log_std_max: float = 2.0):
         self.layout = layout
         self.scale = np.asarray(action_scale, np.float32)
         self.offset = np.asarray(action_offset, np.float32)
+        self.gaussian = gaussian
+        self.stochastic = stochastic
+        self.log_std_min = log_std_min
+        self.log_std_max = log_std_max
+        self._rng = np.random.default_rng(seed) if stochastic else None
         self.layers = [
             {"w": np.zeros(w, np.float32), "b": np.zeros(b, np.float32)}
             for w, b in layout
@@ -87,4 +106,15 @@ class NumpyPolicy:
         for layer in self.layers[:-1]:
             x = np.maximum(x @ layer["w"] + layer["b"], 0.0)
         x = x @ self.layers[-1]["w"] + self.layers[-1]["b"]
+        if self.gaussian:
+            mean, log_std_raw = np.split(x, 2, axis=-1)
+            if not self.stochastic:
+                return np.tanh(mean) * self.scale + self.offset
+            # The learner's soft clamp, so that the workers draw from the
+            # distribution the learner scores.
+            log_std = self.log_std_min + 0.5 * (
+                self.log_std_max - self.log_std_min) * (np.tanh(log_std_raw) + 1.0)
+            u = mean + np.exp(log_std) * self._rng.standard_normal(
+                mean.shape).astype(np.float32)
+            return np.tanh(u) * self.scale + self.offset
         return np.tanh(x) * self.scale + self.offset

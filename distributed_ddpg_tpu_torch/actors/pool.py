@@ -33,7 +33,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from distributed_ddpg_tpu_torch.actors.policy import layout_size, param_layout
+from distributed_ddpg_tpu_torch.actors.policy import actor_head_dim, layout_size, param_layout
 from distributed_ddpg_tpu_torch.actors.worker import run_worker
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.envs.registry import EnvSpec
@@ -51,7 +51,8 @@ class ActorPool:
         self.num_actors = num_actors or config.num_actors
         self.heartbeat_timeout = config.heartbeat_timeout_s
         self._ctx = mp.get_context("spawn")
-        self.layout = param_layout(spec.obs_dim, spec.act_dim, tuple(config.actor_hidden))
+        self.layout = param_layout(spec.obs_dim, actor_head_dim(spec.act_dim, config.sac),
+                                   tuple(config.actor_hidden))
         self._shared = self._ctx.Array("f", layout_size(self.layout), lock=False)
         self._version = self._ctx.Value("l", 0, lock=False)
         self._queues: List = [None] * self.num_actors
@@ -63,6 +64,14 @@ class ActorPool:
         self._steps_received = 0
 
     # --- lifecycle ---
+
+    def warmup_budget_per_worker(self) -> int:
+        """The uniform-warmup budget left at spawn time
+        (config.resolved_warmup_uniform less the env steps already drained,
+        so a respawned worker does not put random actions into a trained
+        run's replay), split evenly (ceil) across the pool."""
+        remaining = max(0, self.config.resolved_warmup_uniform() - self._steps_received)
+        return (remaining + self.num_actors - 1) // self.num_actors
 
     def _spawn(self, worker_id: int) -> None:
         self._queues[worker_id] = self._ctx.Queue(maxsize=_QUEUE_BATCHES)
@@ -88,6 +97,10 @@ class ActorPool:
                 n_step=self.config.n_step,
                 gamma=self.config.gamma,
                 parent_pid=os.getpid(),
+                gaussian_policy=self.config.sac,
+                log_std_min=self.config.sac_log_std_min,
+                log_std_max=self.config.sac_log_std_max,
+                warmup_uniform=self.warmup_budget_per_worker(),
             ),
             daemon=True,
             name=f"actor-{worker_id}",

@@ -3,10 +3,13 @@
 A trimmed copy of distributed_ddpg_tpu/actors/worker.py (queue transport;
 the shm ring, served acting, fault injection and tracing are not in the
 port yet). Each worker owns one env, one OU noise process (reset per
-episode), one n-step accumulator, and a numpy policy refreshed from the
-shared-memory param buffer. It streams n-step transitions back in batches
-over a bounded mp.Queue of its own and stamps a heartbeat every loop so the pool's
-monitor can respawn it if it dies or goes silent.
+episode; zeroed under SAC, whose workers sample the Gaussian policy
+instead), one n-step accumulator, and a numpy policy refreshed from the
+shared-memory param buffer. Its first `warmup_uniform` env steps take
+uniform-random actions from the box (SAC's start_steps). It streams
+n-step transitions back in batches over a bounded mp.Queue of its own and
+stamps a heartbeat every loop so the pool's monitor can respawn it if it
+dies or goes silent.
 
 Workers never import torch (policy.py), so they never touch CUDA.
 """
@@ -41,6 +44,10 @@ def run_worker(
     gamma: float,
     send_every: int = 32,
     parent_pid: int = 0,    # pool process pid, captured at spawn time
+    gaussian_policy: bool = False,   # SAC: sample the policy, no OU noise
+    log_std_min: float = -5.0,
+    log_std_max: float = 2.0,
+    warmup_uniform: int = 0,         # uniform-random actions for the first N steps
 ) -> None:
     from distributed_ddpg_tpu_torch.actors.policy import NumpyPolicy, seqlock_snapshot
     from distributed_ddpg_tpu_torch.envs import make
@@ -49,9 +56,13 @@ def run_worker(
 
     env = make(env_id, seed=seed)
     act_dim = len(np.atleast_1d(action_low))
-    policy = NumpyPolicy(layout, action_scale, action_offset)
-    noise = OUNoise((act_dim,), theta=ou_theta, sigma=ou_sigma, dt=ou_dt, seed=seed)
+    policy = NumpyPolicy(layout, action_scale, action_offset, gaussian=gaussian_policy,
+                         stochastic=gaussian_policy, seed=seed, log_std_min=log_std_min,
+                         log_std_max=log_std_max)
+    noise = OUNoise((act_dim,), theta=ou_theta, sigma=0.0 if gaussian_policy else ou_sigma,
+                    dt=ou_dt, seed=seed)
     nstep = NStepAccumulator(n_step, gamma)
+    warmup_rng = np.random.default_rng(seed + 7919)   # uniform-warmup draws
     flat_scratch = np.empty_like(np.frombuffer(shared_params, dtype=np.float32))
     seen_version = -1
     pending: list = []
@@ -96,7 +107,7 @@ def run_worker(
     maybe_refresh()
     obs, _ = env.reset(seed=seed)
     noise.reset()
-    ep_return, ep_len = 0.0, 0
+    ep_return, ep_len, total_steps = 0.0, 0, 0
     orphaned = False
     while not stop_flag.value:
         if parent_pid and os.getppid() != parent_pid:
@@ -104,8 +115,11 @@ def run_worker(
             break
         heartbeat[worker_id] = time.time()
         maybe_refresh()
-        mu = policy(obs)[0]
-        action = mu + noise() * np.asarray(action_scale, np.float32)
+        if total_steps < warmup_uniform:
+            action = warmup_rng.uniform(action_low, action_high).astype(np.float32)
+        else:
+            mu = policy(obs)[0]
+            action = mu + noise() * np.asarray(action_scale, np.float32)
         action = np.clip(action, action_low, action_high).astype(np.float32)
         next_obs, reward, terminated, truncated, _ = env.step(action)
         pending.extend(
@@ -113,6 +127,7 @@ def run_worker(
         )
         ep_return += reward
         ep_len += 1
+        total_steps += 1
         obs = next_obs
         if terminated or truncated:
             # Truncation bootstraps: flush the partial windows with a

@@ -24,7 +24,6 @@ from typing import Sequence
 
 # Options outside this slice: field -> the value that means "off".
 _NOT_IN_SLICE = {
-    "sac": False,
     "prioritized": False,
     "guardrails": False,
     "fused_update": False,
@@ -104,6 +103,27 @@ class DDPGConfig:
     target_noise: float = 0.0
     target_noise_clip: float = 0.5
 
+    # --- SAC (arXiv 1801.01290/1812.05905) ---
+    # sac: a tanh-Gaussian actor (head [mean | log_std], reparameterized
+    # samples, the tanh log-prob correction), twin critics on a leading
+    # [2, ...] axis as TD3's, and entropy-regularized targets
+    # min_i Q'_i(s', a') - alpha * log pi(a'|s'). Workers explore by
+    # sampling the policy (no OU noise); eval acts on tanh(mean).
+    sac: bool = False
+    # Entropy temperature: with sac_autotune, log(alpha) is learned toward
+    # target_entropy (nan = auto = -act_dim + sum(log action_scale)), and
+    # sac_alpha is only its initial value.
+    sac_alpha: float = 0.2
+    sac_autotune: bool = True
+    target_entropy: float = float("nan")
+    # The Gaussian head's log_std soft clamp.
+    sac_log_std_min: float = -5.0
+    sac_log_std_max: float = 2.0
+    # Uniform-random actions for the first N env steps (SAC's start_steps),
+    # split evenly across the actor processes. -1 = auto (replay_min_size
+    # under SAC, else 0); 0 = off.
+    warmup_uniform_steps: int = -1
+
     # --- precision ---
     compute_dtype: str = "float32"
 
@@ -116,7 +136,6 @@ class DDPGConfig:
     device: str = "cuda"
 
     # --- options outside this slice (see _NOT_IN_SLICE) ---
-    sac: bool = False
     prioritized: bool = False
     guardrails: bool = False
     fused_update: bool = False
@@ -143,8 +162,22 @@ class DDPGConfig:
         the first learner step."""
         return math.isnan(self.v_min)
 
+    def resolved_warmup_uniform(self) -> int:
+        """Global uniform-warmup env-step budget (warmup_uniform_steps: -1 =
+        auto = replay_min_size under SAC, 0 otherwise)."""
+        if self.warmup_uniform_steps >= 0:
+            return self.warmup_uniform_steps
+        return self.replay_min_size if self.sac else 0
+
     def check_noise(self, eps) -> None:
-        """Raises unless eps is given exactly when `takes_noise`."""
+        """Raises unless eps is given exactly when `takes_noise`; under SAC
+        eps must be the pair (eps_next, eps_cur) of standard normals."""
+        if self.sac:
+            if not (isinstance(eps, (tuple, list)) and len(eps) == 2):
+                raise ValueError(
+                    "eps must be the SAC normals (eps_next, eps_cur) under sac=True "
+                    "(ops/fused_chunk.sac_noise_eps)")
+            return
         if self.takes_noise != (eps is not None):
             raise ValueError(
                 "eps (TD3 smoothing noise) is required exactly when "
@@ -231,6 +264,16 @@ class DDPGConfig:
                 "sac is its own algorithm family (it builds its twin-critic "
                 "ensemble internally); disable twin_critic/distributional"
             )
+        if self.sac and self.fused_update:
+            raise ValueError(
+                "sac composes with the stock Adam+Polyak tree update (the "
+                "alpha scalar rides the same path), not the fused_update "
+                "kernel"
+            )
+        if self.sac_alpha <= 0:
+            raise ValueError("sac_alpha must be > 0 (it is exp(log_alpha))")
+        if self.sac_log_std_min >= self.sac_log_std_max:
+            raise ValueError("sac_log_std_min must be < sac_log_std_max")
         if self.twin_critic and self.fused_update:
             raise ValueError(
                 "twin_critic composes with the stock Adam+Polyak tree update"
@@ -291,6 +334,10 @@ class DDPGConfig:
             raise ValueError("learner_chunk must be >= 0 (0 = auto)")
         if self.max_learn_ratio < 0:
             raise ValueError("max_learn_ratio must be >= 0 (0 = unlimited)")
+        if self.warmup_uniform_steps < -1:
+            raise ValueError(
+                "warmup_uniform_steps must be >= -1 (-1 = auto, 0 = off)"
+            )
         if self.param_refresh_interval_s < 0:
             raise ValueError("param_refresh_interval_s must be >= 0")
         if self.heartbeat_timeout_s <= 0:

@@ -1,8 +1,9 @@
-// K full DDPG, TD3 or D4PG learner steps in one launch, for Hopper (sm_90a).
+// K full DDPG, TD3, D4PG or SAC learner steps in one launch, for Hopper (sm_90a).
 //
 // Replaces: distributed_ddpg_tpu/ops/fused_chunk.py, make_fused_chunk_fn ->
 // run -> pl.pallas_call (the kernel body _make_kernel.kernel), its DDPG
-// TD(0) f32 branch (a), its TD3 branch (b) and its C51 branch (c). The Python side
+// TD(0) f32 branch (a), its TD3 branch (b), its C51 branch (c) and its SAC
+// branch (d). The Python side
 // (ops/fused_chunk.py) plans the per-step work as a table of matrix-product
 // tasks grouped into dependency stages; this file executes that program K
 // times and runs the optimizer pass.
@@ -85,6 +86,35 @@
 // The support row z[A] and dz, v_min, v_max (fp) are inputs of the launch;
 // the wrapper rewrites them in place when the bounds change. expf/logf,
 // not the fast intrinsics, while parity holds at f32.
+//
+// SAC (branch d; JAX kernel :424-567): a tanh-Gaussian actor whose head is
+// linear, [mean | log_std_raw] (2 * act), twin critics as TD3's, and two
+// streamed standard-normal inputs, eps_next and eps_cur ([2][K][B][act]).
+// The step has 13 stages (14 barriers); SAC's element-wise work is four row
+// tasks (OP_ROWS, one warp a row, lanes over the action dims), run by
+// run_sac_rows in the kernel's SAC instantiation:
+// - EPI_SAC_SAMPLE, after both Gaussian heads (both through the ONLINE
+//   actor, on next_obs and on obs): log_std = m0 + hw * (tanh(raw) + 1),
+//   u = mean + exp(log_std) * eps, a = tanh(u) * scale + offset, and
+//   lp = sum(-eps^2 / 2 - log_std - log(2 pi) / 2 - log(scale (1 - t^2) +
+//   1e-6)) by a warp sum.
+// - EPI_SAC_TD, after the four heads: y = r + disc * (min(q'0, q'1) -
+//   alpha * lp'), each member's cotangent -w * td_m / B, td0, td1 and td.
+// - EPI_SAC_PI: the min gate over both online critics at the sampled
+//   action; equal heads split the cotangent -1/B 0.5/0.5 (jnp.min's
+//   gradient), and min Q a row for the loss.
+// - EPI_SAC_ACT, after da = da0 + da1 (one product task of two segments,
+//   each member's W1 action rows): the actor's head cotangent, du = da *
+//   scale * (1 - t^2) + (alpha / B) * 2 scale t (1 - t^2) / g and
+//   dlog_std = du * std * eps - alpha / B through the clamp. It recomputes
+//   t, std and tanh(raw) from the head and eps, bit for bit as the sample.
+// The temperature: every block caches alpha = exp(log_alpha) when step k
+// starts (after the barrier that ends step k - 1), and every reader of
+// step k -- the TD task, the actor's cotangent, block 0's losses -- uses
+// that value. Block 0 then takes log_alpha's Adam step (critic_lr, its
+// own count counts[3], only with sac_autotune) in the optimizer pass,
+// after its losses; no block reads log_alpha again before the barrier
+// that ends the step. Both targets take Polyak every step.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -110,26 +140,31 @@ enum { OP_FWD = 0, OP_DW = 1, OP_DX = 2, OP_ROWS = 3 };
 enum { BASE_STATE = 0, BASE_SCRATCH = 1, BASE_BATCH = 2, BASE_ONES = 3 };
 enum {
   EPI_NONE = 0, EPI_RELU, EPI_TANH, EPI_TD, EPI_MASK, EPI_TANH_BWD, EPI_TANH_NOISE,
-  EPI_TD3, EPI_C51, EPI_C51_PI
+  EPI_TD3, EPI_C51, EPI_C51_PI, EPI_SAC_SAMPLE, EPI_SAC_TD, EPI_SAC_PI, EPI_SAC_ACT
 };
 enum {
   F_OP = 0, F_M = 1, F_N = 2, F_NSEG = 3, F_SEG = 4,
   F_C = 22, F_BIAS = 26, F_EPI = 28, F_AUX = 29, F_AUX2 = 32,
-  F_TILE0 = 34, F_TILES_M = 35, F_TILES_N = 36
+  F_TILE0 = 34, F_TILES_M = 35, F_TILES_N = 36, F_ARG = 37
 };
 enum {
   IP_K = 0, IP_B, IP_D, IP_OBS, IP_ACT, IP_NSTAGES, IP_NA, IP_NC,
   IP_OFF_PA, IP_OFF_PC, IP_OFF_TA, IP_OFF_TC, IP_OFF_MUA, IP_OFF_NUA,
   IP_OFF_MUC, IP_OFF_NUC, IP_OFF_GA, IP_OFF_GC, IP_OFF_QPI, IP_OFF_PART,
-  IP_OFF_STEPMET, IP_OFF_STEPNORM, IP_DELAY, IP_OFF_TD01, IP_OFF_WCE, IP_STAGE_START,
+  IP_OFF_STEPMET, IP_OFF_STEPNORM, IP_DELAY, IP_OFF_TD01, IP_OFF_WCE,
+  IP_OFF_ALPHA, IP_ALPHA_AUTOTUNE, IP_OFF_LPC, IP_STAGE_START,
   IP_STAGE_TILES = IP_STAGE_START + MAX_STAGES + 1,
   IP_STAGE_TILES_SKIP = IP_STAGE_TILES + MAX_STAGES
 };
 enum {
   FP_LR_A = 0, FP_LR_C, FP_B1, FP_OMB1, FP_B2, FP_OMB2, FP_EPS, FP_LOG_B1,
   FP_LOG_B2, FP_TAU, FP_OMTAU, FP_INV_B, FP_INV_K, FP_NEG2_INV_B, FP_VMIN, FP_VMAX,
-  FP_DZ
+  FP_DZ, FP_SAC_M0, FP_SAC_HW, FP_SAC_TGT_H
 };
+// The kernel's instantiations: the program's row tasks, if any.
+enum { MODE_PLAIN = 0, MODE_C51 = 1, MODE_SAC = 2 };
+#define SAC_TANH_EPS 1e-6f
+#define SAC_HALF_LOG_2PI 0.91893853320467274f  // log(2 pi) / 2
 
 struct Ctx {
   float* state;
@@ -443,6 +478,93 @@ __device__ __noinline__ void run_rows(const int* __restrict__ T, int tile, const
   __syncthreads();
 }
 
+// SAC's row tasks (no product): warp w takes row m = tile * ROWS_PER_TILE
+// + w; EPI_SAC_SAMPLE and EPI_SAC_ACT spread the action dims j over the
+// lanes, EPI_SAC_TD and EPI_SAC_PI are one value a row (lane 0). Operands:
+// - EPI_SAC_SAMPLE: aux = the Gaussian head [M, 2 act] (row stride aux_sm),
+//   F_ARG = the normal stream (0: eps_next, 1: eps_cur); writes the action
+//   to C (row stride C_sm) and lp to aux2.
+// - EPI_SAC_TD: aux = rows q'0, q'1, q0, q1, lp' (aux_sm apart); writes the
+//   rows dq0, dq1, td0, td1 at aux2 (aux_sm apart) and td.
+// - EPI_SAC_PI: aux = rows q_pi0, q_pi1 (aux_sm apart); writes the gated
+//   cotangents' rows at C (C_sm apart) and min(q_pi0, q_pi1) to aux2.
+// - EPI_SAC_ACT: aux = the actor's head [M, 2 act], aux2 = da [M, act];
+//   writes [du | dlog_std_raw] to C (row stride C_sm).
+// `alpha` is the step's cached temperature. No shared memory, no block
+// barrier: a warp whose row is past M returns at once.
+__device__ __noinline__ void run_sac_rows(const int* __restrict__ T, int tile, const Ctx& c,
+                                          const float* __restrict__ eps_cur, float alpha,
+                                          float m0, float hw) {
+  const int M = T[F_M];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m = tile * ROWS_PER_TILE + warp;
+  if (m >= M) return;
+  const int A = c.act;
+  const int aux_sm = T[F_AUX + 2];
+  const float* aux = resolve(c, T[F_AUX], T[F_AUX + 1]);
+  const int epi = T[F_EPI];
+  if (epi == EPI_SAC_SAMPLE || epi == EPI_SAC_ACT) {
+    const bool sample = epi == EPI_SAC_SAMPLE;
+    const float* head = aux + (size_t)m * aux_sm;
+    const float* eps = (sample && T[F_ARG] == 0 ? c.eps_k : eps_cur) + (size_t)m * A;
+    float* out = resolve(c, T[F_C], T[F_C + 1]) + (size_t)m * T[F_C + 2];
+    const float* da = sample ? nullptr : resolve(c, T[F_AUX2], T[F_AUX2 + 1]) + (size_t)m * A;
+    const float dlp_row = alpha * c.inv_b;
+    float lp = 0.f;
+    for (int j = lane; j < A; j += 32) {
+      const float mean = __ldcg(head + j), tr = tanhf(__ldcg(head + A + j));
+      const float e = __ldg(eps + j), sc = __ldg(c.scale + j);
+      const float log_std = m0 + hw * (tr + 1.f);
+      const float sd = expf(log_std);
+      const float t = tanhf(mean + sd * e);
+      const float g = sc * (1.f - t * t) + SAC_TANH_EPS;
+      if (sample) {
+        out[j] = t * sc + __ldg(c.offset + j);
+        lp += ((-0.5f * (e * e) - log_std) - SAC_HALF_LOG_2PI) - logf(g);
+      } else {
+        const float one_m_t2 = 1.f - t * t;
+        const float du = __ldcg(da + j) * sc * one_m_t2
+                         + dlp_row * (2.f * sc * t * one_m_t2 / g);
+        const float dlog_std = du * sd * e - dlp_row;
+        out[j] = du;
+        out[A + j] = dlog_std * (hw * (1.f - tr * tr));
+      }
+    }
+    if (sample) {
+      lp = warp_sum(lp);
+      if (lane == 0) resolve(c, T[F_AUX2], T[F_AUX2 + 1])[m] = lp;
+    }
+    return;
+  }
+  if (lane != 0) return;
+  if (epi == EPI_SAC_TD) {
+    const float* row = c.batch_k + (size_t)m * c.D;
+    const int col = c.obs + c.act;
+    const float r = __ldg(row + col), disc = __ldg(row + col + 1);
+    const float w = __ldg(row + 2 * c.obs + c.act + 2);
+    const float q_t = fminf(__ldcg(aux + m), __ldcg(aux + aux_sm + m));
+    const float y = r + disc * (q_t - alpha * __ldcg(aux + 4 * aux_sm + m));
+    const float td0 = y - __ldcg(aux + 2 * aux_sm + m);
+    const float td1 = y - __ldcg(aux + 3 * aux_sm + m);
+    float* o = resolve(c, T[F_AUX2], T[F_AUX2 + 1]);
+    const float g = -c.inv_b * w;
+    o[m] = g * td0;
+    o[aux_sm + m] = g * td1;
+    o[2 * aux_sm + m] = td0;
+    o[3 * aux_sm + m] = td1;
+    c.td_k[m] = 0.5f * (td0 + td1);
+  } else {  // EPI_SAC_PI
+    const float q0 = __ldcg(aux + m), q1 = __ldcg(aux + aux_sm + m);
+    const float lt = q0 < q1 ? 1.f : 0.f, gt = q0 > q1 ? 1.f : 0.f;
+    const float gate0 = lt + 0.5f * (1.f - lt - gt);  // gate0 + gate1 = 1 exactly
+    const float gate1 = gt + 0.5f * (1.f - lt - gt);
+    float* o = resolve(c, T[F_C], T[F_C + 1]);
+    o[m] = -c.inv_b * gate0;
+    o[(size_t)T[F_C + 2] + m] = -c.inv_b * gate1;
+    resolve(c, T[F_AUX2], T[F_AUX2 + 1])[m] = fminf(q0, q1);
+  }
+}
+
 // Sum of v over the block, returned to every thread. `red` holds NT/32.
 __device__ float block_sum(float v, float* red) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -455,10 +577,11 @@ __device__ float block_sum(float v, float* red) {
   return s;
 }
 
-// C51: the program has row tasks (EPI_C51, EPI_C51_PI). The DDPG and TD3
-// programs run the instantiation without them, which tests no task's kind
-// (with the test, those branches were ~1% slower; PERF.md).
-template <bool C51>
+// MODE: MODE_C51, the program has C51's row tasks (EPI_C51, EPI_C51_PI);
+// MODE_SAC, SAC's (run_sac_rows) and the temperature. The DDPG and TD3
+// programs run MODE_PLAIN, which tests no task's kind (with the test,
+// those branches were ~1% slower; PERF.md).
+template <int MODE>
 __global__ void __launch_bounds__(NT, 1)
 fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch,
                    const float* __restrict__ noise, const float* __restrict__ support,
@@ -470,6 +593,7 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
   __shared__ float As[TILE][JC + 1];
   __shared__ float Bs[JC][TILE + 1];
   __shared__ float red[NT / 32];
+  constexpr bool C51 = MODE == MODE_C51, SAC = MODE == MODE_SAC;
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int K = ip[IP_K], B = ip[IP_B], D = ip[IP_D], nst = ip[IP_NSTAGES];
@@ -486,6 +610,11 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
   const bool twin = ip[IP_OFF_TD01] >= 0;                          // TD3
   const float* td01 = twin ? scratch + ip[IP_OFF_TD01] : nullptr;  // td0[B], td1[B]
   const float* wce = C51 ? scratch + ip[IP_OFF_WCE] : nullptr;  // C51: w*ce[B]
+  // SAC: log_alpha's slot (then its Adam moments when autotuned), the
+  // actor sample's log-prob a row, the clamp and the target entropy.
+  float* la_slot = SAC ? state + ip[IP_OFF_ALPHA] : nullptr;
+  const float* lp_c = SAC ? scratch + ip[IP_OFF_LPC] : nullptr;
+  const float m0 = SAC ? fp[FP_SAC_M0] : 0.f, hw = SAC ? fp[FP_SAC_HW] : 0.f;
 
   for (int k = 0; k < K; ++k) {
     // The delay schedule (DDPG: delay 1, every step updates everything).
@@ -496,6 +625,12 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
                 noise ? noise + (size_t)k * B * act : nullptr, td_out + (size_t)k * B,
                 scale, offset, support, D, obs, act, fp[FP_NEG2_INV_B], inv_b,
                 fp[FP_VMIN], fp[FP_VMAX], fp[FP_DZ]};
+    // SAC: step k's temperature, read once here, after the barrier that
+    // ended step k - 1 (block 0 writes log_alpha in step k's optimizer
+    // pass); eps_cur[k] follows the K steps of eps_next.
+    const float la = SAC ? __ldcg(la_slot) : 0.f;
+    const float alpha = SAC ? expf(la) : 0.f;
+    const float* eps_cur = SAC ? noise + (size_t)(K + k) * B * act : nullptr;
     for (int s = 0; s < nst; ++s) {
       const int t0 = ip[IP_STAGE_START + s], t1 = ip[IP_STAGE_START + s + 1];
       const int ntile = ip[(upd ? IP_STAGE_TILES : IP_STAGE_TILES_SKIP) + s];
@@ -505,6 +640,8 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
         const int* T = tasks + t * TASK_INTS;
         if (C51 && T[F_OP] == OP_ROWS)
           run_rows(T, tile - T[F_TILE0], c, &As[0][0]);
+        else if (SAC && T[F_OP] == OP_ROWS)
+          run_sac_rows(T, tile - T[F_TILE0], c, eps_cur, alpha, m0, hw);
         else
           run_tile(T, tile - T[F_TILE0], c, As, Bs);
       }
@@ -549,9 +686,10 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
     }
     if (blockIdx.x == 0) {
       // Per-step losses from td (all of step k's TD epilogues are done).
-      // TD3: the loss is the mean over both members, 0.5/B * sum w td_m^2;
-      // C51: 1/B * sum w ce, from the critic row task's per-row w * ce.
-      float wtd2 = 0.f, atd = 0.f, sq = 0.f;
+      // TD3 and SAC: the loss is the mean over both members, 0.5/B * sum
+      // w td_m^2; C51: 1/B * sum w ce, from the critic row task's per-row
+      // w * ce. SAC's actor loss is alpha * mean(lp) - mean(min Q).
+      float wtd2 = 0.f, atd = 0.f, sq = 0.f, slp = 0.f;
       for (int m = tid; m < B; m += NT) {
         const float td = __ldcg(c.td_k + m);
         const float w = __ldg(c.batch_k + (size_t)m * D + 2 * obs + act + 2);
@@ -565,16 +703,43 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
         }
         atd += fabsf(td);
         sq += __ldcg(qpi + m);
+        if (SAC) slp += __ldcg(lp_c + m);
       }
       wtd2 = block_sum(wtd2, red);
       atd = block_sum(atd, red);
       sq = block_sum(sq, red);
+      if (SAC) slp = block_sum(slp, red);
       if (tid == 0) {
-        const float aloss = -sq * inv_b;
-        stepmet[k * 4 + 0] = wtd2 * (twin ? 0.5f * inv_b : inv_b);
-        stepmet[k * 4 + 1] = aloss;
-        stepmet[k * 4 + 2] = -aloss;
-        stepmet[k * 4 + 3] = atd * inv_b;
+        if (SAC) {
+          const float mean_lp = slp * inv_b;
+          if (ip[IP_ALPHA_AUTOTUNE]) {
+            // J(log_alpha) = -log_alpha * (mean_lp + H*): the exact scalar
+            // gradient; Adam at critic_lr on the temperature's own count.
+            const float g = -(mean_lp + fp[FP_SAC_TGT_H]);
+            const float t = (float)(counts[3] + k + 1);
+            const float bc1 = 1.f - expf(t * fp[FP_LOG_B1]);
+            const float bc2 = 1.f - expf(t * fp[FP_LOG_B2]);
+            const float m = fp[FP_B1] * __ldcg(la_slot + 1) + fp[FP_OMB1] * g;
+            const float v = fp[FP_B2] * __ldcg(la_slot + 2) + fp[FP_OMB2] * (g * g);
+            la_slot[1] = m;
+            la_slot[2] = v;
+            la_slot[0] = la - fp[FP_LR_C] * (m / bc1) / (sqrtf(v / bc2) + fp[FP_EPS]);
+          }
+          // The losses read step k's temperature, cached when the step began,
+          // as every other reader does; mean_q = alpha * mean_lp - aloss is
+          // the JAX kernel's form of E[min Q].
+          const float aloss = alpha * mean_lp - sq * inv_b;
+          stepmet[k * 4 + 0] = wtd2 * (0.5f * inv_b);
+          stepmet[k * 4 + 1] = aloss;
+          stepmet[k * 4 + 2] = alpha * mean_lp - aloss;
+          stepmet[k * 4 + 3] = atd * inv_b;
+        } else {
+          const float aloss = -sq * inv_b;
+          stepmet[k * 4 + 0] = wtd2 * (twin ? 0.5f * inv_b : inv_b);
+          stepmet[k * 4 + 1] = aloss;
+          stepmet[k * 4 + 2] = -aloss;
+          stepmet[k * 4 + 3] = atd * inv_b;
+        }
       }
     }
     grid.sync();
@@ -607,17 +772,19 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
 extern "C" {
 
 // Launches the kernel on `stream`; returns the CUDA error code (0 = ok).
-// `noise` (eps[K, B, act]) is null unless the TD3 target action is smoothed;
-// `support` (z[A]) is null unless the critic is distributional (C51), and
-// selects the kernel's instantiation.
+// `noise` is TD3's smoothing eps[K, B, act] when the target action is
+// smoothed, SAC's normals [2, K, B, act] (eps_next, then eps_cur), else
+// null; `support` (z[A]) is null unless the critic is distributional (C51);
+// `mode` (MODE_PLAIN, MODE_C51, MODE_SAC) selects the instantiation.
 int fused_chunk_launch(float* state, float* scratch, const float* batch, const float* noise,
                        const float* support, float* td_out, float* metrics, const int* counts,
                        const float* scale, const float* offset, const int* ip, const float* fp,
-                       const int* tasks, int grid, void* stream) {
+                       const int* tasks, int mode, int grid, void* stream) {
   void* args[] = {&state, &scratch, &batch, &noise, &support, &td_out, &metrics, &counts,
                   &scale, &offset, &ip, &fp, &tasks};
-  const void* kernel = support ? (const void*)fused_chunk_kernel<true>
-                                : (const void*)fused_chunk_kernel<false>;
+  const void* kernel = mode == MODE_C51   ? (const void*)fused_chunk_kernel<MODE_C51>
+                       : mode == MODE_SAC ? (const void*)fused_chunk_kernel<MODE_SAC>
+                                          : (const void*)fused_chunk_kernel<MODE_PLAIN>;
   cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(NT), args, 0,
                                               (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
@@ -625,16 +792,20 @@ int fused_chunk_launch(float* state, float* scratch, const float* batch, const f
 }
 
 // Blocks of the kernel that can be resident at once on `device` (the
-// upper bound of a cooperative launch's grid), for either instantiation.
+// upper bound of a cooperative launch's grid), for every instantiation.
 int fused_chunk_max_grid(int device, int* out) {
-  int sms = 0, plain = 0, c51 = 0;
+  int sms = 0, plain = 0, c51 = 0, sac = 0;
   cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&plain, fused_chunk_kernel<false>, NT, 0);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&plain, fused_chunk_kernel<MODE_PLAIN>, NT,
+                                                    0);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c51, fused_chunk_kernel<true>, NT, 0);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c51, fused_chunk_kernel<MODE_C51>, NT, 0);
   if (e != cudaSuccess) return (int)e;
-  *out = sms * (plain < c51 ? plain : c51);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&sac, fused_chunk_kernel<MODE_SAC>, NT, 0);
+  if (e != cudaSuccess) return (int)e;
+  const int lo = plain < c51 ? plain : c51;
+  *out = sms * (lo < sac ? lo : sac);
   return 0;
 }
 

@@ -1,7 +1,7 @@
-"""The DDPG, TD3 and D4PG learner step, as an eager autograd step — the port's oracle.
+"""The DDPG, TD3, SAC and D4PG learner step, as an eager autograd step — the port's oracle.
 
 Counterpart of distributed_ddpg_tpu/learner.py (the plain-DDPG, TD3 and
-D4PG branches of make_learner_step). One step does:
+D4PG branches of make_learner_step, and its sac_step). One step does:
 
   1. the critic TD update's gradient (TD3: both members of the [2, ...]
      ensemble against the min-over-ensemble target; D4PG: the
@@ -18,6 +18,15 @@ actor's Adam and BOTH Polyak updates run only when the pre-increment
 `state.step % policy_delay == 0` (learner.py:364-416 of the JAX package):
 actor_opt.count advances only then, and actor_grad_norm reads 0 on the
 other steps. The smoothing noise is an input (`eps`), see ops/losses.py.
+
+SAC (`sac_step`, learner.py:181-281 of the JAX package) takes its two
+standard-normal streams as inputs, eps = (normal_next, normal_cur): the
+critic's target draws a' from the ONLINE actor on next_obs with the
+first, the actor's loss draws a on obs with the second, against the
+pre-update critics. Both targets trail by Polyak every step (the target
+actor's slot too, though SAC's math never reads it), and with
+sac_autotune log_alpha takes an Adam step at critic_lr on its own count
+from the exact gradient -(mean log-prob + target entropy).
 
 The training path runs K of these per dispatch inside the CUDA kernel
 (ops/fused_chunk.py); this step is what the kernel and its plain version
@@ -37,8 +46,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from distributed_ddpg_tpu_torch.actors.policy import actor_head_dim
 from distributed_ddpg_tpu_torch.config import DDPGConfig
-from distributed_ddpg_tpu_torch.models.mlp import actor_apply, actor_init, critic_init
+from distributed_ddpg_tpu_torch.models.mlp import (
+    actor_apply,
+    actor_gaussian_apply,
+    actor_init,
+    critic_init,
+)
 from distributed_ddpg_tpu_torch.ops import losses
 from distributed_ddpg_tpu_torch.ops.optim import adam_update, tree_leaves, tree_map
 from distributed_ddpg_tpu_torch.ops.polyak import polyak_update
@@ -71,15 +86,18 @@ def init_train_state(config: DDPGConfig, obs_dim: int, act_dim: int, seed: int,
                      device="cpu") -> TrainState:
     """Params, hard-copied targets and zero Adam state, from a seeded
     torch.Generator. The shapes and init bounds are the JAX package's;
-    the numbers are not (the random streams differ). With twin_critic
-    two independently drawn critics are stacked on a leading [2, ...]
+    the numbers are not (the random streams differ). With twin_critic or
+    sac two independently drawn critics are stacked on a leading [2, ...]
     axis of every critic leaf, sharing one critic_opt (one count). Under
-    D4PG the critic's head has num_atoms outputs."""
+    D4PG the critic's head has num_atoms outputs; under SAC the actor's
+    head is [mean | log_std] (2 * act_dim), log_alpha starts at
+    log(sac_alpha) and alpha_opt (with sac_autotune) at zero."""
     gen = torch.Generator().manual_seed(int(seed))
     heads = config.num_atoms if config.distributional else 1
-    actor = actor_init(gen, obs_dim, act_dim, tuple(config.actor_hidden), device)
+    actor = actor_init(gen, obs_dim, actor_head_dim(act_dim, config.sac),
+                       tuple(config.actor_hidden), device)
     critic = critic_init(gen, obs_dim, act_dim, tuple(config.critic_hidden), device, heads)
-    if config.twin_critic:
+    if config.twin_critic or config.sac:
         second = critic_init(gen, obs_dim, act_dim, tuple(config.critic_hidden), device)
         critic = tree_map(lambda a, b: torch.stack([a, b]), critic, second)
     zeros = lambda t: tree_map(torch.zeros_like, t)  # noqa: E731
@@ -92,6 +110,15 @@ def init_train_state(config: DDPGConfig, obs_dim: int, act_dim: int, seed: int,
         actor_opt=OptState(mu=zeros(actor), nu=zeros(actor), count=count()),
         critic_opt=OptState(mu=zeros(critic), nu=zeros(critic), count=count()),
         step=count(),
+        log_alpha=(
+            torch.log(torch.tensor(config.sac_alpha, dtype=torch.float32, device=device))
+            if config.sac else None
+        ),
+        alpha_opt=(
+            OptState(mu=torch.zeros((), device=device), nu=torch.zeros((), device=device),
+                     count=count())
+            if config.sac and config.sac_autotune else None
+        ),
     )
 
 
@@ -99,10 +126,78 @@ def _as_tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
+def make_sac_step(config: DDPGConfig, action_scale, action_offset=0.0):
+    """Returns (state, batch, eps) -> StepOutput, one eager SAC step;
+    eps = (normal_next, normal_cur), two standard-normal [B, act] draws."""
+    lo, hi = config.sac_log_std_min, config.sac_log_std_max
+
+    def sac_step(state: TrainState, batch: Batch, eps) -> StepOutput:
+        config.check_noise(eps)
+        normal_next, normal_cur = eps
+        device = batch.obs.device
+        scale = _as_tensor(action_scale, device)
+        offset = _as_tensor(action_offset, device)
+        alpha = torch.exp(state.log_alpha)
+
+        cp = tree_map(lambda x: x.detach().requires_grad_(True), state.critic_params)
+        closs, td = losses.sac_critic_loss(
+            cp, state.actor_params, state.target_critic_params, batch, scale,
+            normal_next, alpha, lo, hi, offset)
+        cgrads = _untree(torch.autograd.grad(closs, tree_leaves(cp)), state.critic_params)
+        # The actor's gradient against the pre-update critics.
+        ap = tree_map(lambda x: x.detach().requires_grad_(True), state.actor_params)
+        aloss, mean_lp = losses.sac_actor_loss(
+            ap, state.critic_params, batch, scale, normal_cur, alpha, lo, hi, offset)
+        agrads = _untree(torch.autograd.grad(aloss, tree_leaves(ap)), state.actor_params)
+
+        with torch.no_grad():
+            new_critic, critic_opt = adam_update(
+                state.critic_params, cgrads, state.critic_opt, config.critic_lr)
+            new_actor, actor_opt = adam_update(
+                state.actor_params, agrads, state.actor_opt, config.actor_lr)
+            new_target_critic = polyak_update(new_critic, state.target_critic_params, config.tau)
+            new_target_actor = polyak_update(new_actor, state.target_actor_params, config.tau)
+            closs, aloss, mean_lp, td = (x.detach() for x in (closs, aloss, mean_lp, td))
+            if config.sac_autotune:
+                # J(log_alpha) = -log_alpha * (E[log pi] + target_H): the
+                # exact scalar gradient, Adam at critic_lr.
+                tgt_h = losses.sac_target_entropy(
+                    config.target_entropy, batch.action.shape[-1], action_scale)
+                log_alpha, alpha_opt = adam_update(
+                    state.log_alpha, -(mean_lp + tgt_h), state.alpha_opt, config.critic_lr)
+            else:
+                log_alpha, alpha_opt = state.log_alpha, state.alpha_opt
+            metrics = dict(zip(METRIC_KEYS, (
+                closs,
+                aloss,
+                alpha * mean_lp - aloss,     # = E[min Q], exactly as the JAX step
+                torch.mean(torch.abs(td)),
+                optree_norm(cgrads),
+                optree_norm(agrads),
+            )))
+        new_state = TrainState(
+            actor_params=new_actor,
+            critic_params=new_critic,
+            target_actor_params=new_target_actor,
+            target_critic_params=new_target_critic,
+            actor_opt=actor_opt,
+            critic_opt=critic_opt,
+            step=state.step + 1,
+            log_alpha=log_alpha,
+            alpha_opt=alpha_opt,
+        )
+        return StepOutput(state=new_state, td_errors=td, metrics=metrics)
+
+    return sac_step
+
+
 def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0):
     """Returns (state, batch, eps=None) -> StepOutput, one eager autograd
     step. `eps` is TD3's smoothing noise [B, act] (scaled and clipped), and
-    is required exactly when twin_critic and target_noise > 0."""
+    is required exactly when twin_critic and target_noise > 0; under SAC
+    it is the pair of normals make_sac_step takes."""
+    if config.sac:
+        return make_sac_step(config, action_scale, action_offset)
     twin = bool(config.twin_critic)
     delay = int(config.policy_delay)   # 1 unless TD3 (config gate)
 
@@ -201,15 +296,19 @@ def _untree(leaves, like):
 
 
 def make_act_fn(config: DDPGConfig, action_scale, action_offset=0.0):
-    """Deterministic policy mu(s) on the params' device."""
+    """Deterministic policy mu(s) on the params' device; under SAC the
+    distribution's mode, tanh(mean) onto the box."""
+    sac = config is not None and config.sac
 
     @torch.no_grad()
     def act(actor_params, obs: torch.Tensor) -> torch.Tensor:
-        device = obs.device
-        return actor_apply(
-            actor_params, obs, _as_tensor(action_scale, device),
-            _as_tensor(action_offset, device),
-        )
+        scale = _as_tensor(action_scale, obs.device)
+        offset = _as_tensor(action_offset, obs.device)
+        if sac:
+            mean, _ = actor_gaussian_apply(
+                actor_params, obs, config.sac_log_std_min, config.sac_log_std_max)
+            return torch.tanh(mean) * scale + offset
+        return actor_apply(actor_params, obs, scale, offset)
 
     return act
 
@@ -229,15 +328,23 @@ def _count_from_numpy(x, device):
     return torch.tensor(int(np.asarray(x)), dtype=torch.int32, device=device)
 
 
+def _scalar_from_numpy(x, device):
+    return torch.tensor(np.asarray(x, np.float32).reshape(()), device=device)
+
+
 def train_state_from_numpy(tree, device="cpu") -> TrainState:
     """The JAX package's TrainState with numpy leaves (or any object with
-    the same field names) -> the port's TrainState on `device`."""
+    the same field names) -> the port's TrainState on `device`; SAC's
+    log_alpha and alpha_opt (scalars) come across when present."""
     def opt(o):
         return OptState(
             mu=_params_from_numpy(o.mu, device),
             nu=_params_from_numpy(o.nu, device),
             count=_count_from_numpy(o.count, device),
         )
+
+    log_alpha = getattr(tree, "log_alpha", None)
+    alpha_opt = getattr(tree, "alpha_opt", None)
 
     return TrainState(
         actor_params=_params_from_numpy(tree.actor_params, device),
@@ -247,6 +354,12 @@ def train_state_from_numpy(tree, device="cpu") -> TrainState:
         actor_opt=opt(tree.actor_opt),
         critic_opt=opt(tree.critic_opt),
         step=_count_from_numpy(tree.step, device),
+        log_alpha=None if log_alpha is None else _scalar_from_numpy(log_alpha, device),
+        alpha_opt=None if alpha_opt is None else OptState(
+            mu=_scalar_from_numpy(alpha_opt.mu, device),
+            nu=_scalar_from_numpy(alpha_opt.nu, device),
+            count=_count_from_numpy(alpha_opt.count, device),
+        ),
     )
 
 
@@ -257,6 +370,9 @@ def train_state_to_numpy(state: TrainState) -> TrainState:
         return tuple(
             {k: layer[k].detach().cpu().numpy() for k in ("w", "b")} for layer in t
         )
+
+    def scalar(x):
+        return np.asarray(x.detach().cpu().numpy(), np.float32).reshape(())
 
     def opt(o):
         return OptState(
@@ -272,4 +388,9 @@ def train_state_to_numpy(state: TrainState) -> TrainState:
         actor_opt=opt(state.actor_opt),
         critic_opt=opt(state.critic_opt),
         step=np.asarray(int(state.step), np.int32),
+        log_alpha=None if state.log_alpha is None else scalar(state.log_alpha),
+        alpha_opt=None if state.alpha_opt is None else OptState(
+            mu=scalar(state.alpha_opt.mu), nu=scalar(state.alpha_opt.nu),
+            count=np.asarray(int(state.alpha_opt.count), np.int32),
+        ),
     )

@@ -3,6 +3,8 @@
 Counterpart of distributed_ddpg_tpu/models/mlp.py, same shapes and init:
 
 - Actor mu(s): relu hiddens, tanh output mapped onto the action box.
+- SAC's Gaussian actor: the same MLP with a linear [mean | log_std_raw]
+  head (2*act wide), log_std soft-clamped onto [min, max] with a tanh.
 - Critic Q(s, a): relu MLP whose layer 1 takes [features, action]
   (classic DDPG; the action enters at the second layer); under D4PG its
   head has num_atoms logits.
@@ -78,6 +80,20 @@ def actor_apply(params: Params, obs: torch.Tensor, action_scale,
         x = torch.relu(x @ layer["w"] + layer["b"])
     x = x @ params[-1]["w"] + params[-1]["b"]
     return torch.tanh(x) * action_scale + action_offset
+
+
+def actor_gaussian_apply(params: Params, obs: torch.Tensor, log_std_min: float,
+                         log_std_max: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SAC's head: raw (mean, log_std), each [B, act], with
+    log_std = min + (max - min) / 2 * (tanh(raw) + 1). Sampling, the squash
+    and the log-prob live in ops/losses.py."""
+    x = obs
+    for layer in params[:-1]:
+        x = torch.relu(x @ layer["w"] + layer["b"])
+    x = x @ params[-1]["w"] + params[-1]["b"]
+    mean, log_std_raw = torch.chunk(x, 2, dim=-1)
+    log_std = log_std_min + 0.5 * (log_std_max - log_std_min) * (torch.tanh(log_std_raw) + 1.0)
+    return mean, log_std
 
 
 def critic_apply(params: Params, obs: torch.Tensor,

@@ -1,7 +1,7 @@
-"""K full DDPG, TD3 or D4PG learner steps in ONE launch of a hand-written CUDA kernel.
+"""K full DDPG, TD3, D4PG or SAC learner steps in ONE launch of a hand-written CUDA kernel.
 
-Replaces the DDPG TD(0) f32 branch (a), the TD3 branch (b) and the C51
-branch (c) of the Pallas megakernel distributed_ddpg_tpu/ops/fused_chunk.py
+Replaces the DDPG TD(0) f32 branch (a), the TD3 branch (b), the C51
+branch (c) and the SAC branch (d) of the Pallas megakernel distributed_ddpg_tpu/ops/fused_chunk.py
 (make_fused_chunk_fn -> run -> pl.pallas_call, kernel body
 _make_kernel.kernel). Each step computes what that kernel computes, in the
 same order of effects:
@@ -36,15 +36,30 @@ row task turns the actor's head into dq_pi = -(1/B) p (z - E[Z]), so the
 actor's backward starts after it. The support row and its spacing dz are
 inputs of the launch; a change of bounds rewrites them in place.
 
-The SAC and bf16 branches and the data-parallel mesh launch of the JAX
-kernel are later work (ROADMAP.md).
+SAC (JAX kernel :424-567): the actor's head is linear, [mean | log_std_raw]
+(2*act wide), and both Gaussian forwards, on next_obs for the target and on
+obs for the actor's loss, use the ONLINE actor. Two standard-normal streams
+[K, B, act] are inputs (`sac_noise_eps`). Row tasks (one warp a row, lanes
+over the action dims) sample a = tanh(mean + std*eps)*scale + offset with
+its log-prob through the squash; form the target y = r + disc*(min(q'0,
+q'1) - alpha*lp') with both members' cotangents; the min gate over the two
+online critics at the sampled action (ties split 0.5/0.5, as jnp.min's
+gradient); and the actor's cotangent at its head through the sample, the
+log-prob and the log_std soft clamp. Both targets take Polyak every step;
+with sac_autotune, block 0 takes the temperature's Adam step (critic_lr,
+its own count) after every reader of step k's alpha has cached it at the
+step's start.
+
+The bf16 branch and the data-parallel mesh launch of the JAX kernel are
+later work (ROADMAP.md).
 
 Three pieces live here:
 
 - `_plan`: turns the net shapes into a small program for the kernel — a
   table of matrix-product tasks (forward, weight gradient, input
   gradient, each with a fused epilogue) and row tasks (C51's softmaxes
-  and projection), grouped into stages by their data
+  and projection; SAC's sampling, target, min gate and actor cotangent),
+  grouped into stages by their data
   dependencies, with every buffer's offset in one flat scratch tensor.
   The kernel (csrc/fused_chunk.cu) loops over k and, per step, over the
   stages; a grid-wide barrier separates the stages. Within a stage the
@@ -69,7 +84,7 @@ import torch
 
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
-from distributed_ddpg_tpu_torch.ops.losses import support_row
+from distributed_ddpg_tpu_torch.ops.losses import TANH_EPS, sac_target_entropy, support_row
 from distributed_ddpg_tpu_torch.ops.optim import B1, B2, EPS
 from distributed_ddpg_tpu_torch.types import OptState, TrainState
 
@@ -85,7 +100,8 @@ TASK_INTS = 40
 OP_FWD, OP_DW, OP_DX, OP_ROWS = 0, 1, 2, 3   # OP_ROWS: a row task, no product
 BASE_STATE, BASE_SCRATCH, BASE_BATCH, BASE_ONES = 0, 1, 2, 3
 (EPI_NONE, EPI_RELU, EPI_TANH, EPI_TD, EPI_MASK, EPI_TANH_BWD, EPI_TANH_NOISE,
- EPI_TD3, EPI_C51, EPI_C51_PI) = range(10)
+ EPI_TD3, EPI_C51, EPI_C51_PI,
+ EPI_SAC_SAMPLE, EPI_SAC_TD, EPI_SAC_PI, EPI_SAC_ACT) = range(14)
 ROWS_PER_TILE = 8         # a row task's tile: one warp a row, 8 warps a block
 MAX_ATOMS = 256           # the row task keeps ceil(A / 32) <= 8 atoms a lane
 # Task row fields. Segment s (s < 2) occupies F_SEG + 9*s .. + 8 as
@@ -94,20 +110,25 @@ MAX_ATOMS = 256           # the row task keeps ceil(A / 32) <= 8 atoms a lane
 F_OP, F_M, F_N, F_NSEG, F_SEG = 0, 1, 2, 3, 4
 F_C, F_BIAS, F_EPI, F_AUX, F_AUX2 = 22, 26, 28, 29, 32   # C: base, off, sm, sn
 F_TILE0, F_TILES_M, F_TILES_N = 34, 35, 36
+F_ARG = 37     # EPI_SAC_SAMPLE: which normal stream, 0 = eps_next, 1 = eps_cur
 # Integer parameters (ip) and float parameters (fp) of a launch.
 (IP_K, IP_B, IP_D, IP_OBS, IP_ACT, IP_NSTAGES, IP_NA, IP_NC,
  IP_OFF_PA, IP_OFF_PC, IP_OFF_TA, IP_OFF_TC, IP_OFF_MUA, IP_OFF_NUA,
  IP_OFF_MUC, IP_OFF_NUC, IP_OFF_GA, IP_OFF_GC, IP_OFF_QPI, IP_OFF_PART,
  IP_OFF_STEPMET, IP_OFF_STEPNORM, IP_DELAY, IP_OFF_TD01,   # TD01: -1 unless TD3
  IP_OFF_WCE,                                               # WCE: -1 unless C51
- IP_STAGE_START) = range(26)
+ IP_OFF_ALPHA, IP_ALPHA_AUTOTUNE, IP_OFF_LPC,              # ALPHA, LPC: -1 unless SAC
+ IP_STAGE_START) = range(29)
 IP_STAGE_TILES = IP_STAGE_START + MAX_STAGES + 1
 IP_STAGE_TILES_SKIP = IP_STAGE_TILES + MAX_STAGES   # tiles on a no-update step
 IP_COUNT = IP_STAGE_TILES_SKIP + MAX_STAGES
 (FP_LR_A, FP_LR_C, FP_B1, FP_OMB1, FP_B2, FP_OMB2, FP_EPS, FP_LOG_B1,
  FP_LOG_B2, FP_TAU, FP_OMTAU, FP_INV_B, FP_INV_K, FP_NEG2_INV_B,
  FP_VMIN, FP_VMAX, FP_DZ,                                  # the C51 support
- FP_COUNT) = range(18)
+ FP_SAC_M0, FP_SAC_HW, FP_SAC_TGT_H,                       # SAC's clamp, target entropy
+ FP_COUNT) = range(21)
+# Which instantiation of the kernel a launch runs.
+MODE_PLAIN, MODE_C51, MODE_SAC = 0, 1, 2
 # Element-wise operations per parameter and step in the optimizer pass
 # (Adam: moments and the bias-corrected update; Polyak), for the
 # operation count.
@@ -123,17 +144,23 @@ ADAM_OPS_PER_PARAM, POLYAK_OPS_PER_PARAM = 12, 3
 # abs, divide, 1 -, max, multiply, add); that is not counted in the bound.
 C51_PROJ_ATOM_OPS, C51_CRITIC_ATOM_OPS, C51_ACTOR_ATOM_OPS = 10, 23, 10
 C51_PAIR_OPS = 7
+# Operations of SAC's row tasks, for the operation count: per action dim
+# of a sample (the clamp, exp, u, tanh, the action, the squash's log and
+# the log-prob's terms and sum: 21), of the actor's cotangent (du,
+# dlog_std, the clamp's backward: 15, with the sample's cached values); per
+# row of the target task (min, y, two td, two cotangents, td: 10) and of
+# the min gate (compares, gates, two cotangents, min: 8).
+SAC_SAMPLE_DIM_OPS, SAC_ACT_DIM_OPS, SAC_TD_ROW_OPS, SAC_PI_ROW_OPS = 21, 15, 10, 8
 
 
 def supported(config: DDPGConfig) -> bool:
-    """The DDPG TD(0), TD3 and C51 f32 part of the JAX kernel's envelope
-    (fused_chunk.py:167-180). SAC and bf16 are later work."""
+    """The f32 part of the JAX kernel's envelope (fused_chunk.py:167-180):
+    DDPG TD(0), TD3, C51 and SAC. bf16 is later work."""
     return (
         config.action_insert_layer == 1
         and config.critic_l2 == 0.0
         and not config.fused_update
         and config.compute_dtype == "float32"
-        and not config.sac
         and len(config.critic_hidden) >= 2
         and len(config.actor_hidden) >= 1
         and (not config.distributional or config.num_atoms <= MAX_ATOMS)
@@ -161,9 +188,11 @@ def support_params(config: DDPGConfig):
 
 def _net_dims(config: DDPGConfig, obs_dim: int, act_dim: int):
     """[(in, out)] per layer for the actor and the critic (action at
-    critic layer 1; num_atoms outputs under D4PG)."""
+    critic layer 1; num_atoms outputs under D4PG; SAC's actor head is
+    [mean | log_std], 2 * act_dim)."""
     ah, ch = list(config.actor_hidden), list(config.critic_hidden)
-    actor = list(zip([obs_dim] + ah, ah + [act_dim]))
+    head = 2 * act_dim if config.sac else act_dim
+    actor = list(zip([obs_dim] + ah, ah + [head]))
     critic = list(zip([obs_dim, ch[0] + act_dim] + ch[1:], ch + [_atoms(config)]))
     return actor, critic
 
@@ -198,16 +227,17 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
     D = 2 * o + a + 3
     twin = bool(config.twin_critic)
     c51 = bool(config.distributional)
+    sac = bool(config.sac)
     A = _atoms(config)                           # the critic head's width
     adims, cdims = _net_dims(config, o, a)
     aoffs, n_a = _layer_offsets(adims)
     coffs, n_c = _layer_offsets(cdims)           # one critic member
-    ncg = 2 * n_c if twin else n_c               # the critic group
+    ncg = 2 * n_c if twin or sac else n_c        # the critic group
     na, nc = len(adims), len(cdims)
     F = cdims[0][1]                              # critic features before the action
     # State groups: actor, critic, target actor, target critic, actor mu,
     # actor nu, critic mu, critic nu (the order the wrapper flattens); a
-    # TD3 critic group is all of member 0's layers, then member 1's.
+    # TD3 or SAC critic group is all of member 0's layers, then member 1's.
     PA, PC, TA, TC = 0, n_a, n_a + ncg, 2 * n_a + ncg
     scratch: Dict[str, int] = {}
     size = [0]
@@ -221,16 +251,24 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
     buf("g_a", n_a)
     buf("g_c", ncg)
     # The actor's cotangent at the critic's head: the constant -1/B, filled
-    # by the wrapper, or under C51 [B, A] from the actor's row task.
-    buf("dqpi", B * A)
-    if twin:
-        # The TD3 task reads the four heads q'0, q'1, q0, q1 and writes
-        # dq0, dq1, td0, td1: two [4, B] blocks, rows B apart.
-        heads, outs = buf("q4", 4 * B), buf("td3", 4 * B)
-        for i, name in enumerate(("ct0_q", "ct1_q", "c0_q", "c1_q")):
+    # by the wrapper, or under C51 [B, A] from the actor's row task; under
+    # SAC the min gate's [2, B], one row a member.
+    buf("dqpi", 2 * B if sac else B * A)
+    if twin or sac:
+        # The TD3 (SAC) task reads the four heads q'0, q'1, q0, q1 (and,
+        # under SAC, the target sample's log-prob lp') and writes dq0, dq1,
+        # td0, td1: blocks of rows B apart.
+        heads, outs = buf("q4", (5 if sac else 4) * B), buf("td3", 4 * B)
+        for i, name in enumerate(("ct0_q", "ct1_q", "c0_q", "c1_q", "sN_lp")[:5 if sac else 4]):
             scratch[name] = heads + i * B
         for i, name in enumerate(("dq0", "dq1", "td0", "td1")):
             scratch[name] = outs + i * B
+    if sac:
+        # The min gate reads both members' heads at the sampled action, one
+        # [2, B] block, and writes the cotangents into dqpi's two rows.
+        pi_heads = buf("pi2", 2 * B)
+        scratch["pi0_q"], scratch["pi1_q"] = pi_heads, pi_heads + B
+        scratch["dqpi0"], scratch["dqpi1"] = scratch["dqpi"], scratch["dqpi"] + B
     if c51:
         # The C51 row task reads the target and the online heads: one
         # [2, B, A] block, the target first.
@@ -271,11 +309,13 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
         r[F_TILES_N] = -(-N // TILE)
         return r
 
-    def row_task(epi, aux, c, aux2):
-        """A task with no product over the B rows of [B, A] heads: reads
-        aux (row stride A), writes c [B, A] and one value a row to aux2."""
-        r = task(OP_ROWS, B, A, [], c=c, epi=epi, aux=aux, aux2=aux2)
+    def row_task(epi, aux, c, aux2, n=A, arg=0):
+        """A task with no product over B rows, one warp a row. C51: reads
+        the [B, A] heads aux, writes c [B, A] and one value a row to aux2.
+        SAC: see csrc/fused_chunk.cu, run_sac_rows."""
+        r = task(OP_ROWS, B, n, [], c=c, epi=epi, aux=aux, aux2=aux2)
         r[F_TILES_M], r[F_TILES_N] = -(-B // ROWS_PER_TILE), 1
+        r[F_ARG] = arg
         return r
 
     def act_of(name, cols):     # a scratch activation [B, cols] as an A operand
@@ -293,14 +333,15 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
             last = i == na - 1
             out = f"{prefix}_u" if last else f"{prefix}_h{i + 1}"
             reads = [x_name] if x_name else []
+            tanh = last and head_epi != EPI_NONE     # SAC's head is linear
             add(task(
                 OP_FWD, B, dout,
                 [(x, (BASE_STATE, group + w_off, dout, 1), din)],
                 c=(BASE_SCRATCH, buf(out, B * dout), dout, 1),
                 bias=(BASE_STATE, group + b_off),
                 epi=head_epi if last else EPI_RELU,
-                aux=(BASE_SCRATCH, buf(f"{prefix}_t", B * dout), dout) if last else None,
-            ), reads, [out] + ([f"{prefix}_t"] if last else []))
+                aux=(BASE_SCRATCH, buf(f"{prefix}_t", B * dout), dout) if tanh else None,
+            ), reads, [out] + ([f"{prefix}_t"] if tanh else []))
             x, x_name = act_of(out, dout), out
 
     def critic_fwd(prefix, group, x, act_op, act_name, shared_h1=None, head_epi=EPI_NONE):
@@ -345,7 +386,39 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
             ), reads, writes)
             prev = out
 
-    if twin:
+    if sac:
+        # Both Gaussian heads through the ONLINE actor: on obs (the actor's
+        # loss; its activations feed the actor's backward) and on next_obs
+        # (the target); then the online critics on the batch's action.
+        actor_fwd("a", PA, obs, None, EPI_NONE)
+        actor_fwd("an", PA, nobs, None, EPI_NONE)
+        for m in range(2):
+            critic_fwd(f"c{m}", PC + m * n_c, obs, action, None)
+        # The samples: the action and the log-prob a row (the target's
+        # log-prob into the TD task's block), from eps_next and eps_cur.
+        add(row_task(EPI_SAC_SAMPLE, aux=(BASE_SCRATCH, scratch["an_u"], 2 * a),
+                     c=(BASE_SCRATCH, buf("sN_a", B * a), a, 1),
+                     aux2=(BASE_SCRATCH, scratch["sN_lp"]), n=a, arg=0),
+            ["an_u"], ["sN_a", "sN_lp"])
+        add(row_task(EPI_SAC_SAMPLE, aux=(BASE_SCRATCH, scratch["a_u"], 2 * a),
+                     c=(BASE_SCRATCH, buf("sC_a", B * a), a, 1),
+                     aux2=(BASE_SCRATCH, buf("sC_lp", B)), n=a, arg=1),
+            ["a_u"], ["sC_a", "sC_lp"])
+        for m in range(2):
+            critic_fwd(f"ct{m}", TC + m * n_c, nobs, act_of("sN_a", a), "sN_a")
+        for m in range(2):
+            critic_fwd(f"pi{m}", PC + m * n_c, obs, act_of("sC_a", a), "sC_a",
+                       shared_h1=f"c{m}_h1")
+        # y = r + disc * (min(q'0, q'1) - alpha * lp'), both members'
+        # cotangents and td; the min gate at the sampled action.
+        add(row_task(EPI_SAC_TD, aux=(BASE_SCRATCH, heads, B),
+                     c=None, aux2=(BASE_SCRATCH, outs), n=1),
+            ["ct0_q", "ct1_q", "c0_q", "c1_q", "sN_lp"], ["dq0", "dq1", "td0", "td1"])
+        add(row_task(EPI_SAC_PI, aux=(BASE_SCRATCH, pi_heads, B),
+                     c=(BASE_SCRATCH, scratch["dqpi"], B, 1),
+                     aux2=(BASE_SCRATCH, buf("pi_qmin", B)), n=1),
+            ["pi0_q", "pi1_q"], ["dqpi0", "dqpi1", "pi_qmin"])
+    elif twin:
         actor_fwd("at", TA, nobs, None, EPI_TANH_NOISE if config.takes_noise else EPI_TANH)
         for m in range(2):
             critic_fwd(f"c{m}", PC + m * n_c, obs, action, None)
@@ -423,22 +496,46 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
                    EPI_MASK, f"{prefix}_h{i}")
                 dz = f"{prefix}_dz{i - 1}"
 
-    if twin:
+    if twin or sac:
         for m in range(2):
             critic_bwd(f"c{m}", PC + m * n_c, gc + m * n_c, f"dq{m}")
     else:
         critic_bwd("c", PC, gc, "dq")
-    # Actor pass through the pre-update critic (TD3: member 0, the first
-    # in the group) to the action: dL/dq = -1/B (C51: the row task's dq_pi).
-    dz = "dqpi"
-    for i in range(nc - 1, 1, -1):
-        din, dout = cdims[i]
-        dx(dz, dout, PC, coffs[i][0], 0, din, f"pi_dz{i - 1}", EPI_MASK, f"pi_h{i}",
+    if sac:
+        # Both members' gated cotangents back to the sampled action, through
+        # the pre-update critics; one task of two segments sums them
+        # through each member's W1 action rows: da = da0 + da1.
+        dzs = []
+        for m in range(2):
+            dz = f"dqpi{m}"
+            for i in range(nc - 1, 1, -1):
+                din, dout = cdims[i]
+                dx(dz, dout, PC + m * n_c, coffs[i][0], 0, din, f"pi{m}_dz{i - 1}",
+                   EPI_MASK, f"pi{m}_h{i}", actor_bwd=True)
+                dz = f"pi{m}_dz{i - 1}"
+            dzs.append(dz)
+        d1 = cdims[1][1]
+        add(task(OP_DX, B, a, [
+            ((BASE_SCRATCH, scratch[dzs[m]], d1, 1),
+             (BASE_STATE, PC + m * n_c + coffs[1][0] + F * d1, 1, d1), d1) for m in range(2)],
+            c=(BASE_SCRATCH, buf("sC_da", B * a), a, 1)), dzs, ["sC_da"], actor_bwd=True)
+        # The cotangent at the actor's [mean | log_std_raw] head.
+        add(row_task(EPI_SAC_ACT, aux=(BASE_SCRATCH, scratch["a_u"], 2 * a),
+                     c=(BASE_SCRATCH, buf(f"a_dz{na - 1}", B * 2 * a), 2 * a, 1),
+                     aux2=(BASE_SCRATCH, scratch["sC_da"]), n=a, arg=1),
+            ["a_u", "sC_da"], [f"a_dz{na - 1}"], actor_bwd=True)
+    else:
+        # Actor pass through the pre-update critic (TD3: member 0, the first
+        # in the group) to the action: dL/dq = -1/B (C51: the row task's dq_pi).
+        dz = "dqpi"
+        for i in range(nc - 1, 1, -1):
+            din, dout = cdims[i]
+            dx(dz, dout, PC, coffs[i][0], 0, din, f"pi_dz{i - 1}", EPI_MASK, f"pi_h{i}",
+               actor_bwd=True)
+            dz = f"pi_dz{i - 1}"
+        # da through W1's action rows, chained through tanh*scale in the epilogue.
+        dx(dz, cdims[1][1], PC, coffs[1][0], F, a, f"a_dz{na - 1}", EPI_TANH_BWD, "a_t",
            actor_bwd=True)
-        dz = f"pi_dz{i - 1}"
-    # da through W1's action rows, chained through tanh*scale in the epilogue.
-    dx(dz, cdims[1][1], PC, coffs[1][0], F, a, f"a_dz{na - 1}", EPI_TANH_BWD, "a_t",
-       actor_bwd=True)
     dz = f"a_dz{na - 1}"
     for i in range(na - 1, -1, -1):
         din, dout = adims[i]
@@ -466,8 +563,13 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
             stage_tiles_skip[s] += tiles
         stage_start[s + 1] = t + 1
     table = np.stack([r for _, _, r in rows])
-    row_ops = B * A * (C51_PROJ_ATOM_OPS + C51_CRITIC_ATOM_OPS + C51_ACTOR_ATOM_OPS
-                       ) if c51 else 0
+    if c51:
+        row_ops = B * A * (C51_PROJ_ATOM_OPS + C51_CRITIC_ATOM_OPS + C51_ACTOR_ATOM_OPS)
+    elif sac:
+        row_ops = B * (a * (2 * SAC_SAMPLE_DIM_OPS + SAC_ACT_DIM_OPS)
+                       + SAC_TD_ROW_OPS + SAC_PI_ROW_OPS)
+    else:
+        row_ops = 0
     return _Program(
         tasks=table, stage_start=stage_start, stage_tiles=stage_tiles,
         stage_tiles_skip=stage_tiles_skip, scratch=scratch, scratch_size=size[0],
@@ -485,24 +587,38 @@ def actor_updates(config: DDPGConfig, step0, k: int):
     return (step0 + k + d - 1) // d - (step0 + d - 1) // d
 
 
+def _alpha_slots(config: DDPGConfig) -> int:
+    """State floats after the 8 groups: SAC's log_alpha, and its Adam
+    moments when autotuned."""
+    return (3 if config.sac_autotune else 1) if config.sac else 0
+
+
+def _alpha_adam(config: DDPGConfig) -> int:
+    """Scalars the temperature's Adam updates each step (SAC autotune)."""
+    return 1 if config.sac and config.sac_autotune else 0
+
+
 def ops_per_chunk(config: DDPGConfig, obs_dim: int, act_dim: int, chunk: int,
                   step0: int = 0) -> int:
     """Floating-point operations the kernel does for one chunk that starts
-    at global step step0: the program's matrix products, C51's row tasks
-    and the critic's Adam every step; the actor's backward, its Adam and
-    every Polyak update on the steps that update the actor."""
+    at global step step0: the program's matrix products, the row tasks
+    (C51's, SAC's), the critic's Adam and SAC's temperature Adam every
+    step; the actor's backward, its Adam and every Polyak update on the
+    steps that update the actor."""
     prog = _plan(config, obs_dim, act_dim)
     updates = actor_updates(config, int(step0), chunk)
-    every = prog.matmul_flops + prog.row_ops + ADAM_OPS_PER_PARAM * prog.n_critic
+    every = (prog.matmul_flops + prog.row_ops
+             + ADAM_OPS_PER_PARAM * (prog.n_critic + _alpha_adam(config)))
     per_update = (prog.actor_bwd_flops + ADAM_OPS_PER_PARAM * prog.n_actor
                   + POLYAK_OPS_PER_PARAM * (prog.n_actor + prog.n_critic))
     return chunk * every + updates * per_update
 
 
 def state_bytes(config: DDPGConfig, obs_dim: int, act_dim: int) -> int:
-    """f32 bytes of params, targets and both Adam moments of both nets."""
+    """f32 bytes of params, targets and both Adam moments of both nets (and
+    SAC's temperature)."""
     prog = _plan(config, obs_dim, act_dim)
-    return 16 * (prog.n_actor + prog.n_critic)
+    return 16 * (prog.n_actor + prog.n_critic) + 4 * _alpha_slots(config)
 
 
 TD3_NOISE_SALT = 0x7D3AF   # the JAX package's td3 base key: PRNGKey(seed ^ salt)
@@ -523,6 +639,27 @@ def td3_noise_eps(config: DDPGConfig, generator: torch.Generator, step0: int,
                     device=generator.device, dtype=torch.float32)
     return torch.clamp(config.target_noise * z, -config.target_noise_clip,
                        config.target_noise_clip)
+
+
+SAC_NOISE_SALT = 0x5AC0    # the JAX package's SAC base key: PRNGKey(seed ^ salt)
+
+
+def sac_noise_eps(config: DDPGConfig, generator: torch.Generator, step0: int,
+                  chunk: int, batch: int, act_dim: int):
+    """A chunk's SAC standard normals (eps_next, eps_cur), each [K, B, act],
+    drawn on the generator's device: eps_next for the critic target's
+    sample a' ~ pi(.|s'), eps_cur for the actor's a ~ pi(.|s). The
+    generator is first reseeded from (config.seed ^ 0x5AC0, step0), as
+    td3_noise_eps is, so a chunk's draw depends only on the seed and the
+    global step it starts at (the JAX package keys its stream by
+    fold_in(PRNGKey(seed ^ 0x5AC0), step)). The numbers are not the JAX
+    package's (the tests pass the JAX draw in). The two are views of one
+    [2, K, B, act] tensor."""
+    base = (int(config.seed) ^ SAC_NOISE_SALT) & 0xFFFFFFFF
+    generator.manual_seed((base << 32) | (int(step0) & 0xFFFFFFFF))
+    z = torch.randn((2, chunk, batch, act_dim), generator=generator,
+                    device=generator.device, dtype=torch.float32)
+    return z[0], z[1]
 
 
 # --- the plain PyTorch version ----------------------------------------------
@@ -546,14 +683,18 @@ def fused_chunk_reference(config: DDPGConfig, state: TrainState, packed: torch.T
                           action_scale, action_offset=0.0, eps=None):
     """K learner steps written out by hand, step by step as the kernel
     does them. `packed` is [K, B, 2*obs+act+3]; `eps` is TD3's smoothing
-    noise [K, B, act], given exactly when twin_critic and target_noise > 0.
+    noise [K, B, act], given exactly when twin_critic and target_noise > 0,
+    or under SAC the normals (eps_next, eps_cur), each [K, B, act].
     Under D4PG the support is config's (v_min, v_max, num_atoms), resolved.
+    Under SAC the log-prob's Gaussian term is -eps^2 / 2, the JAX kernel's
+    form (the eager step's ((u - mean) / std)^2 agrees to the ULP).
     Returns (new_state, td[K, B], metrics {METRIC_KEYS: 0-d tensors, chunk
     means})."""
-    K, B, _ = packed.shape
+    K, B, D = packed.shape
     dev = packed.device
     twin = bool(config.twin_critic)
     c51 = bool(config.distributional)
+    sac = bool(config.sac)
     config.check_noise(eps)
     if c51:
         if config.v_support_auto:
@@ -564,7 +705,7 @@ def fused_chunk_reference(config: DDPGConfig, state: TrainState, packed: torch.T
     delay = int(config.policy_delay)
     step0 = int(state.step)
     o = state.actor_params[0]["w"].shape[0]
-    a = state.actor_params[-1]["w"].shape[1]
+    a = D - 2 * o - 3
     f32 = torch.float32
     scale = torch.as_tensor(np.asarray(action_scale, np.float32), device=dev).expand(a)
     offset = torch.as_tensor(np.asarray(action_offset, np.float32), device=dev).expand(a)
@@ -576,7 +717,7 @@ def fused_chunk_reference(config: DDPGConfig, state: TrainState, packed: torch.T
         return [[layer["w"].clone(), layer["b"].clone()] for layer in t]
 
     def members(t):     # a critic group as a list of member nets
-        if not twin:
+        if not (twin or sac):
             return [copy(t)]
         return [[[layer["w"][m].clone(), layer["b"][m].clone()] for layer in t]
                 for m in range(2)]
@@ -585,6 +726,16 @@ def fused_chunk_reference(config: DDPGConfig, state: TrainState, packed: torch.T
     AMU, ANU = copy(state.actor_opt.mu), copy(state.actor_opt.nu)
     C, TCp = members(state.critic_params), members(state.target_critic_params)
     CMU, CNU = members(state.critic_opt.mu), members(state.critic_opt.nu)
+    if sac:
+        autotune = state.alpha_opt is not None
+        log_alpha = state.log_alpha.clone()
+        al_mu = al_nu = None
+        if autotune:
+            al_mu, al_nu = state.alpha_opt.mu.clone(), state.alpha_opt.nu.clone()
+        m0 = float(config.sac_log_std_min)
+        hw = 0.5 * (float(config.sac_log_std_max) - m0)
+        tgt_h = sac_target_entropy(config.target_entropy, a, action_scale)
+        half_log_2pi = 0.5 * math.log(2.0 * math.pi)
 
     def actor_fwd(P, x):
         acts = [x]
@@ -592,6 +743,23 @@ def fused_chunk_reference(config: DDPGConfig, state: TrainState, packed: torch.T
             acts.append(torch.relu(acts[-1] @ w + b))
         t = torch.tanh(acts[-1] @ P[-1][0] + P[-1][1])
         return t * scale + offset, acts, t
+
+    def gauss_fwd(P, x):
+        """SAC's head: (mean, log_std, tanh(raw), activations)."""
+        acts = [x]
+        for w, b in P[:-1]:
+            acts.append(torch.relu(acts[-1] @ w + b))
+        z = acts[-1] @ P[-1][0] + P[-1][1]
+        tr = torch.tanh(z[:, a:])
+        return z[:, :a], m0 + hw * (tr + 1.0), tr, acts
+
+    def sample(mean, log_std, e):
+        """(std, tanh(u), action, the squash's g, log-prob [B, 1])."""
+        std = torch.exp(log_std)
+        t = torch.tanh(mean + std * e)
+        g = scale * (1.0 - t * t) + TANH_EPS
+        lp = torch.sum(-0.5 * (e * e) - log_std - half_log_2pi - torch.log(g), -1, keepdim=True)
+        return std, t, t * scale + offset, g, lp
 
     def critic_fwd(P, x, act):
         f = P[0][0].shape[1]
@@ -656,6 +824,71 @@ def fused_chunk_reference(config: DDPGConfig, state: TrainState, packed: torch.T
         e = torch.exp(logits - torch.max(logits, -1, keepdim=True).values)
         return e / torch.sum(e, -1, keepdim=True)
 
+    def sac_step(k, obs, act, rew, disc, nobs, wgt):
+        """One SAC step, in the JAX kernel's order; returns (the 6 metric
+        values, td [B, 1], the grads)."""
+        nonlocal log_alpha, al_mu, al_nu
+        alpha = torch.exp(log_alpha)
+        # The critic: y = r + disc * (min(q'0, q'1) - alpha * lp'), a' from
+        # the online actor on next_obs; both members' TD updates.
+        mean_n, log_std_n, _, _ = gauss_fwd(A, nobs)
+        _, _, a_n, _, lp_n = sample(mean_n, log_std_n, eps[0][k])
+        q_t = torch.minimum(critic_fwd(TCp[0], nobs, a_n)[0], critic_fwd(TCp[1], nobs, a_n)[0])
+        y = rew + disc * (q_t - alpha * lp_n)
+        c_grads, wtd2, td_m = [], [], []
+        for P in C:
+            q, c_acts = critic_fwd(P, obs, act)
+            td = y - q
+            td_m.append(td)
+            wtd2.append(torch.sum(wgt * td * td))
+            c_grads.append(critic_bwd(P, c_acts, act, (-inv_b) * wgt * td, True)[0])
+        closs = sum(wtd2) * (0.5 * inv_b)
+        td = 0.5 * (td_m[0] + td_m[1])
+        # The actor: E[alpha * lp - min_m Q_m(s, a)] through the pre-update
+        # critics; the min gate splits ties 0.5/0.5.
+        e_c = eps[1][k]
+        mean_c, log_std_c, tr_c, a_acts = gauss_fwd(A, obs)
+        std_c, t_c, a_c, g_c, lp_c = sample(mean_c, log_std_c, e_c)
+        q_pi0, pia0 = critic_fwd(C[0], obs, a_c)
+        q_pi1, pia1 = critic_fwd(C[1], obs, a_c)
+        mean_lp = torch.sum(lp_c) * inv_b
+        aloss = alpha * mean_lp - torch.sum(torch.minimum(q_pi0, q_pi1)) * inv_b
+        lt, gt = (q_pi0 < q_pi1).to(q_pi0.dtype), (q_pi0 > q_pi1).to(q_pi0.dtype)
+        gate0 = lt + 0.5 * (1.0 - lt - gt)
+        _, da0 = critic_bwd(C[0], pia0, a_c, (-inv_b) * gate0, False)
+        _, da1 = critic_bwd(C[1], pia1, a_c, (-inv_b) * (1.0 - gate0), False)
+        # Through the sample (du/dmean = 1, du/dlog_std = std * eps), the
+        # log-prob (d lp/d log_std = -1; only -log g carries u) and the
+        # clamp log_std = m0 + hw * (tanh(raw) + 1).
+        dlp_row = alpha * inv_b
+        one_m_t2 = 1.0 - t_c * t_c
+        du = (da0 + da1) * scale * one_m_t2 + dlp_row * (2.0 * scale * t_c * one_m_t2 / g_c)
+        dlog_std = du * std_c * e_c - dlp_row
+        draw = dlog_std * (hw * (1.0 - tr_c * tr_c))
+        a_grads = actor_bwd(A, a_acts, torch.cat([du, draw], -1))
+        # Adam (critic, actor), Polyak (both targets, every step), then the
+        # temperature's Adam at critic_lr on its own count.
+        c_t = state.critic_opt.count + k + 1
+        for P, MU, NU, g in zip(C, CMU, CNU, c_grads):
+            adam(P, MU, NU, g, config.critic_lr, c_t)
+        adam(A, AMU, ANU, a_grads, config.actor_lr, state.actor_opt.count + k + 1)
+        for P, T in zip(C, TCp):
+            polyak(P, T)
+        polyak(A, TAp)
+        if autotune:
+            al_g = -(mean_lp + tgt_h)
+            t = (state.alpha_opt.count + k + 1).to(log_alpha.dtype)
+            bc1, bc2 = 1.0 - torch.exp(t * log_b1), 1.0 - torch.exp(t * log_b2)
+            al_mu = B1 * al_mu + (1.0 - B1) * al_g
+            al_nu = B2 * al_nu + (1.0 - B2) * (al_g * al_g)
+            log_alpha = log_alpha - config.critic_lr * (al_mu / bc1) / (
+                torch.sqrt(al_nu / bc2) + EPS)
+        vals = torch.stack([
+            closs, aloss, alpha * mean_lp - aloss, torch.sum(torch.abs(td)) * inv_b,
+            torch.sqrt(sum(sq(g) for g in c_grads)), torch.sqrt(sq(a_grads)),
+        ])
+        return vals, td, a_grads, c_grads
+
     met = torch.zeros(len(METRIC_KEYS), dtype=f32, device=dev)
     tds = []
     with torch.no_grad():
@@ -664,6 +897,11 @@ def fused_chunk_reference(config: DDPGConfig, state: TrainState, packed: torch.T
             obs, act = x[:, :o], x[:, o:o + a]
             rew, disc = x[:, o + a:o + a + 1], x[:, o + a + 1:o + a + 2]
             nobs, wgt = x[:, o + a + 2:2 * o + a + 2], x[:, 2 * o + a + 2:]
+            if sac:
+                vals, td, a_grads, c_grads = sac_step(k, obs, act, rew, disc, nobs, wgt)
+                met = met + vals * inv_k
+                tds.append(td[:, 0])
+                continue
             u_t, _, _ = actor_fwd(TAp, nobs)
             if eps is not None:
                 u_t = torch.minimum(torch.maximum(u_t + eps[k], offset - scale),
@@ -738,7 +976,7 @@ def fused_chunk_reference(config: DDPGConfig, state: TrainState, packed: torch.T
         return tuple({"w": w, "b": b} for w, b in P)
 
     def group(Ms):
-        if not twin:
+        if not (twin or sac):
             return tree(Ms[0])
         return tuple({"w": torch.stack([w0, w1]), "b": torch.stack([b0, b1])}
                      for (w0, b0), (w1, b1) in zip(*Ms))
@@ -751,6 +989,11 @@ def fused_chunk_reference(config: DDPGConfig, state: TrainState, packed: torch.T
         critic_opt=OptState(group(CMU), group(CNU), state.critic_opt.count + K),
         step=state.step + K,
     )
+    if sac:
+        new_state = new_state._replace(
+            log_alpha=log_alpha,
+            alpha_opt=(OptState(al_mu, al_nu, state.alpha_opt.count + K)
+                       if autotune else None))
     return new_state, torch.stack(tds), dict(zip(METRIC_KEYS, met.unbind()))
 
 
@@ -770,7 +1013,7 @@ _CRITIC_GROUPS = (1, 3, 6, 7)   # the _groups entries that hold critic trees
 
 
 def _is_twin(state: TrainState) -> bool:
-    """A TD3 state: critic leaves carry a leading [2, ...] ensemble axis."""
+    """A TD3 or SAC state: critic leaves carry a leading [2, ...] ensemble axis."""
     return state.critic_params[0]["w"].dim() == 3
 
 
@@ -783,20 +1026,32 @@ def _group_leaves(tree, twin: bool):
     return [t for layer in tree for t in (layer["w"], layer["b"])]
 
 
+def _alpha_leaves(state: TrainState):
+    """SAC's state after the 8 groups: log_alpha, then alpha_opt's mu and nu
+    when the temperature is learned; nothing otherwise."""
+    if state.log_alpha is None:
+        return []
+    if state.alpha_opt is None:
+        return [state.log_alpha]
+    return [state.log_alpha, state.alpha_opt.mu, state.alpha_opt.nu]
+
+
 def flatten_state(state: TrainState) -> torch.Tensor:
-    """The kernel's state buffer: the 8 groups in _groups order (a copy;
-    the input state is not touched)."""
+    """The kernel's state buffer: the 8 groups in _groups order, then SAC's
+    temperature slots (a copy; the input state is not touched)."""
     twin = _is_twin(state)
     return torch.cat([
         t.reshape(-1) for i, g in enumerate(_groups(state))
         for t in _group_leaves(g, twin and i in _CRITIC_GROUPS)
-    ])
+    ] + [t.reshape(1) for t in _alpha_leaves(state)])
 
 
 def unflatten_state(flat: torch.Tensor, like: TrainState, steps, actor_steps) -> TrainState:
-    """Views into `flat` shaped like `like`: the critic count and the step
-    advanced by `steps`, the actor count by `actor_steps`. A TD3 critic
-    leaf [2, ...] is one strided view over its two members' slices."""
+    """Views into `flat` shaped like `like`: the critic count, the step and
+    (SAC, autotuned) the temperature's count advanced by `steps`, the actor
+    count by `actor_steps`. A TD3 or SAC critic leaf [2, ...] is one
+    strided view over its two members' slices; log_alpha and alpha_opt's
+    moments are 0-d views of their slots."""
     twin = _is_twin(like)
     pos = [0]
 
@@ -822,12 +1077,16 @@ def unflatten_state(flat: torch.Tensor, like: TrainState, steps, actor_steps) ->
 
     g = [take_group(grp, twin and i in _CRITIC_GROUPS)
          for i, grp in enumerate(_groups(like))]
+    alpha = [flat[pos[0] + i] for i in range(len(_alpha_leaves(like)))]
     return TrainState(
         actor_params=g[0], critic_params=g[1],
         target_actor_params=g[2], target_critic_params=g[3],
         actor_opt=OptState(g[4], g[5], like.actor_opt.count + actor_steps),
         critic_opt=OptState(g[6], g[7], like.critic_opt.count + steps),
         step=like.step + steps,
+        log_alpha=alpha[0] if alpha else None,
+        alpha_opt=(OptState(alpha[1], alpha[2], like.alpha_opt.count + steps)
+                   if like.alpha_opt is not None else None),
     )
 
 
@@ -837,7 +1096,7 @@ def _lib():
     lib = _build.load("fused_chunk")
     if not getattr(lib, "_typed", False):
         ptr = ctypes.c_void_p
-        lib.fused_chunk_launch.argtypes = [ptr] * 13 + [ctypes.c_int, ptr]
+        lib.fused_chunk_launch.argtypes = [ptr] * 13 + [ctypes.c_int, ctypes.c_int, ptr]
         lib.fused_chunk_launch.restype = ctypes.c_int
         lib.fused_chunk_max_grid.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.fused_chunk_max_grid.restype = ctypes.c_int
@@ -860,7 +1119,8 @@ def make_fused_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
                         device="cuda"):
     """Returns run(state, packed[K, B, D], eps=None) -> (new_state, td[K, B],
     metrics). `eps` is TD3's smoothing noise [K, B, act] (td3_noise_eps),
-    given exactly when twin_critic and target_noise > 0.
+    given exactly when twin_critic and target_noise > 0, or under SAC the
+    normals (eps_next, eps_cur), each [K, B, act] (sac_noise_eps).
 
     Under D4PG, run.set_value_bounds(v_min, v_max) moves the C51 support:
     on the card it rewrites the launch's support row and spacing in place,
@@ -869,19 +1129,21 @@ def make_fused_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
 
     On the CPU, run is the plain version. On the card it launches the
     kernel once per call (counted in KERNEL_LAUNCHES["fused_chunk"],
-    ["fused_chunk_td3"] for TD3 or ["fused_chunk_d4pg"] for D4PG) or
-    raises; the input state is never modified."""
+    ["fused_chunk_td3"] for TD3, ["fused_chunk_d4pg"] for D4PG or
+    ["fused_chunk_sac"] for SAC) or raises; the input state is never
+    modified."""
     if not supported(config):
         raise ValueError(
-            "fused chunk kernel envelope: DDPG, TD3 or D4PG (num_atoms <= 256), "
-            "float32, action_insert_layer=1, critic_l2=0, fused_update=False, "
+            "fused chunk kernel envelope: DDPG, TD3, D4PG (num_atoms <= 256) or "
+            "SAC, float32, action_insert_layer=1, critic_l2=0, fused_update=False, "
             ">=2 critic hidden layers, >=1 actor hidden layer"
         )
     K, B = int(chunk_size), int(config.batch_size)
     o, a = int(obs_dim), int(act_dim)
     D = 2 * o + a + 3
-    twin, c51 = bool(config.twin_critic), bool(config.distributional)
-    name = "fused_chunk_d4pg" if c51 else "fused_chunk_td3" if twin else "fused_chunk"
+    twin, c51, sac = bool(config.twin_critic), bool(config.distributional), bool(config.sac)
+    name = ("fused_chunk_d4pg" if c51 else "fused_chunk_td3" if twin
+            else "fused_chunk_sac" if sac else "fused_chunk")
     device = torch.device(device)
     current = [config]        # set_value_bounds replaces its support bounds
     write_support = None      # on the card: rewrites the launch's support
@@ -934,11 +1196,15 @@ def make_fused_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
         4 * n_a + 2 * n_c, 4 * n_a + 3 * n_c)
     ip[[IP_OFF_GA, IP_OFF_GC, IP_OFF_QPI, IP_OFF_PART, IP_OFF_STEPMET,
         IP_OFF_STEPNORM]] = (
-        prog.scratch["g_a"], prog.scratch["g_c"], prog.scratch["pi_qexp" if c51 else "pi_q"],
+        prog.scratch["g_a"], prog.scratch["g_c"],
+        prog.scratch["pi_qexp" if c51 else "pi_qmin" if sac else "pi_q"],
         off_part, off_stepmet, off_stepnorm)
     ip[[IP_DELAY, IP_OFF_TD01, IP_OFF_WCE]] = (
-        config.policy_delay, prog.scratch["td0"] if twin else -1,
+        config.policy_delay, prog.scratch["td0"] if twin or sac else -1,
         prog.scratch["c51_wce"] if c51 else -1)
+    ip[[IP_OFF_ALPHA, IP_ALPHA_AUTOTUNE, IP_OFF_LPC]] = (
+        (4 * (n_a + n_c), _alpha_adam(config), prog.scratch["sC_lp"]) if sac
+        else (-1, 0, -1))
     n_stages = len(prog.stage_tiles)
     ip[IP_STAGE_START:IP_STAGE_START + n_stages + 1] = prog.stage_start
     ip[IP_STAGE_TILES:IP_STAGE_TILES + n_stages] = prog.stage_tiles
@@ -949,11 +1215,18 @@ def make_fused_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
         config.actor_lr, config.critic_lr, B1, 1.0 - B1, B2, 1.0 - B2, EPS,
         math.log(B1), math.log(B2), config.tau, 1.0 - config.tau,
         1.0 / B, 1.0 / K, -2.0 / B)
+    if sac:
+        fp[[FP_SAC_M0, FP_SAC_HW, FP_SAC_TGT_H]] = (
+            config.sac_log_std_min,
+            0.5 * (float(config.sac_log_std_max) - float(config.sac_log_std_min)),
+            sac_target_entropy(config.target_entropy, a, action_scale))
+    mode = MODE_C51 if c51 else MODE_SAC if sac else MODE_PLAIN
+    n_alpha = _alpha_slots(config)
     ip_d = torch.from_numpy(ip).to(device)
     fp_d = torch.from_numpy(fp).to(device)
     tasks_d = torch.from_numpy(np.ascontiguousarray(prog.tasks)).to(device)
     scratch = torch.zeros(off_stepnorm + 2 * K, dtype=torch.float32, device=device)
-    if not c51:
+    if not (c51 or sac):
         dqpi = prog.scratch["dqpi"]
         scratch[dqpi:dqpi + B] = -1.0 / B
     scale = torch.as_tensor(np.broadcast_to(np.asarray(action_scale, np.float32), (a,)).copy(),
@@ -986,13 +1259,19 @@ def make_fused_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
         check_input("packed batch", packed, (K, B, D))
         config.check_noise(eps)
         resolved()
-        if eps is not None:
+        if sac:
+            for e in eps:
+                check_input("eps", e, (K, B, a))
+            eps = torch.stack(eps)    # [2, K, B, act]: eps_next, then eps_cur
+        elif eps is not None:
             check_input("eps", eps, (K, B, a))
         flat = flatten_state(state)
-        if flat.numel() != 4 * (n_a + n_c) or flat.device != scratch.device:
+        if flat.numel() != 4 * (n_a + n_c) + n_alpha or flat.device != scratch.device:
             raise ValueError("state does not match the kernel's net shapes or device")
-        counts = torch.stack(
-            [state.actor_opt.count, state.critic_opt.count, state.step]).to(torch.int32)
+        counts = [state.actor_opt.count, state.critic_opt.count, state.step]
+        if state.alpha_opt is not None:
+            counts.append(state.alpha_opt.count)
+        counts = torch.stack(counts).to(torch.int32)
         td = torch.empty((K, B), dtype=torch.float32, device=device)
         metrics = torch.empty(len(METRIC_KEYS), dtype=torch.float32, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -1002,7 +1281,7 @@ def make_fused_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
             support.data_ptr() if c51 else None, td.data_ptr(),
             metrics.data_ptr(), counts.data_ptr(), scale.data_ptr(),
             offset.data_ptr(), ip_d.data_ptr(), fp_d.data_ptr(),
-            tasks_d.data_ptr(), grid, stream,
+            tasks_d.data_ptr(), mode, grid, stream,
         )
         _check(lib, code, "launch")
         KERNEL_LAUNCHES[name] += 1

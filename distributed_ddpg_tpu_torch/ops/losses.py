@@ -1,15 +1,18 @@
-"""DDPG, TD3 and D4PG losses.
+"""DDPG, TD3, SAC and D4PG losses.
 
 Counterpart of distributed_ddpg_tpu/ops/losses.py:29-143 (critic_loss,
-actor_loss, td3_critic_loss, td3_actor_loss) and :287-369 (the categorical
-support and projection, distributional_critic_loss and
-distributional_actor_loss). The SAC losses are not ported yet. The TD3
-smoothing noise is an input here, drawn by the caller: the JAX package
-draws it inside the loss from a key, and the two frameworks' random
-streams differ, so the tests pass the JAX draw in.
+actor_loss, td3_critic_loss, td3_actor_loss), :153-275 (sac_sample,
+sac_critic_loss, sac_actor_loss, sac_target_entropy) and :287-369 (the
+categorical support and projection, distributional_critic_loss and
+distributional_actor_loss). The TD3 smoothing noise and SAC's standard
+normals are inputs here, drawn by the caller: the JAX package draws them
+inside the loss from a key, and the two frameworks' random streams differ,
+so the tests pass the JAX draw in.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -17,6 +20,7 @@ import torch.nn.functional as F
 
 from distributed_ddpg_tpu_torch.models.mlp import (
     actor_apply,
+    actor_gaussian_apply,
     critic_apply,
     critic_member,
     ensemble_critic_apply,
@@ -77,6 +81,73 @@ def td3_actor_loss(actor_params, critic_params, batch: Batch, action_scale,
     """DPG loss through critic member 0 only (the TD3 convention)."""
     action = actor_apply(actor_params, batch.obs, action_scale, action_offset)
     return -torch.mean(critic_apply(critic_member(critic_params, 0), batch.obs, action))
+
+
+# --- SAC ---------------------------------------------------------------------
+
+TANH_EPS = 1e-6
+
+
+def sac_sample(mean, log_std, normal, action_scale, action_offset=0.0):
+    """Reparameterized tanh-Gaussian sample on the action box from the
+    standard normal `normal` [B, act]. Returns (action [B, act],
+    log_prob [B]): the Gaussian log-density of u = mean + std * normal,
+    less the squash's log|d action / du| = log(scale * (1 - tanh(u)^2) +
+    1e-6), summed over the action dims. Gradients flow through mean and
+    log_std."""
+    std = torch.exp(log_std)
+    u = mean + std * normal
+    tanh_u = torch.tanh(u)
+    action = tanh_u * action_scale + action_offset
+    gauss_lp = -0.5 * (torch.square((u - mean) / std) + 2.0 * log_std + math.log(2.0 * math.pi))
+    squash = torch.log(action_scale * (1.0 - torch.square(tanh_u)) + TANH_EPS)
+    return action, torch.sum(gauss_lp - squash, dim=-1)
+
+
+def sac_critic_loss(critic_params, actor_params, target_critic_params, batch: Batch,
+                    action_scale, normal, alpha, log_std_min: float, log_std_max: float,
+                    action_offset=0.0):
+    """Entropy-regularized clipped double-Q TD loss over the [2, ...]
+    ensemble: y = r + discount * (min_i Q'_i(s', a') - alpha * log pi(a'|s')),
+    a' ~ pi(.|s') from the ONLINE actor (SAC has no target actor) with the
+    normal `normal`. Returns (the mean over [2, B] of w * td^2, the
+    ensemble-mean td [B])."""
+    with torch.no_grad():
+        mean, log_std = actor_gaussian_apply(actor_params, batch.next_obs, log_std_min,
+                                             log_std_max)
+        next_action, next_lp = sac_sample(mean, log_std, normal, action_scale, action_offset)
+        next_q = torch.min(
+            ensemble_critic_apply(target_critic_params, batch.next_obs, next_action), dim=0
+        ).values
+        y = batch.reward + batch.discount * (next_q - alpha * next_lp)
+    q = ensemble_critic_apply(critic_params, batch.obs, batch.action)   # [2, B]
+    td = y[None, :] - q
+    loss = torch.mean(batch.weight[None, :] * torch.square(td))
+    return loss, torch.mean(td, dim=0)
+
+
+def sac_actor_loss(actor_params, critic_params, batch: Batch, action_scale, normal, alpha,
+                   log_std_min: float, log_std_max: float, action_offset=0.0):
+    """Reparameterized actor objective E[alpha * log pi(a|s) - min_i Q_i(s, a)]
+    against the ensemble min (the 1812.05905 convention). Returns (loss,
+    mean log-prob), the latter for the temperature's update."""
+    mean, log_std = actor_gaussian_apply(actor_params, batch.obs, log_std_min, log_std_max)
+    action, lp = sac_sample(mean, log_std, normal, action_scale, action_offset)
+    # amin's gradient splits ties 0.5/0.5, as jnp.min's does (torch.min's
+    # goes to one member).
+    q = torch.amin(ensemble_critic_apply(critic_params, batch.obs, action), dim=0)
+    return torch.mean(alpha * lp - q), torch.mean(lp)
+
+
+def sac_target_entropy(target_entropy: float, act_dim: int, action_scale) -> float:
+    """The temperature's target as a Python float: an explicit
+    target_entropy wins; nan means auto, -act_dim + sum(log scale) (the
+    1812.05905 heuristic for unit-box log-probs, shifted because
+    sac_sample's densities are in the env's action units)."""
+    if not math.isnan(target_entropy):
+        return float(target_entropy)
+    scale = np.broadcast_to(np.asarray(action_scale, np.float64), (act_dim,))
+    return -float(act_dim) + float(np.sum(np.log(scale)))
 
 
 # --- distributional critic (D4PG) -------------------------------------------

@@ -21,7 +21,10 @@ EPS = 1e-8
 
 
 def tree_map(fn, *trees):
-    """Map `fn` over the leaves of params trees of one structure."""
+    """Map `fn` over the leaves of params trees of one structure; a bare
+    tensor is a tree of one leaf (SAC's log_alpha)."""
+    if isinstance(trees[0], torch.Tensor):
+        return fn(*trees)
     return tuple(
         {k: fn(*(t[i][k] for t in trees)) for k in trees[0][i]}
         for i in range(len(trees[0]))
@@ -33,7 +36,8 @@ def tree_leaves(tree):
 
 
 def adam_update(params, grads, opt: OptState, lr):
-    """One Adam step. Returns (new_params, new_opt)."""
+    """One Adam step over a params tree or one tensor. Returns
+    (new_params, new_opt)."""
     count = opt.count + 1
     c = count.to(torch.float32)
     bc1 = 1.0 - torch.pow(B1, c)

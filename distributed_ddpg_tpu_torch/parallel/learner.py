@@ -1,4 +1,4 @@
-"""The learner: K DDPG, TD3 or D4PG steps per dispatch, sampled on the device.
+"""The learner: K DDPG, TD3, D4PG or SAC steps per dispatch, sampled on the device.
 
 Counterpart of distributed_ddpg_tpu/parallel/learner.py, single device for
 now (the name is kept; the data-parallel mesh and its launch of the chunk
@@ -8,8 +8,11 @@ the CPU. There is no fallback from the kernel to the eager step: on the
 card the kernel runs or the dispatch raises. For TD3 with target
 smoothing each chunk also draws its noise [K, B, act] on the device, beside
 the index draw (ops/fused_chunk.td3_noise_eps), keyed by the global step
-the chunk starts at. Under D4PG, set_value_bounds moves the C51 support
-between chunks.
+the chunk starts at; for SAC its two standard-normal streams (eps_next,
+eps_cur), each [K, B, act] (ops/fused_chunk.sac_noise_eps), the same way.
+A SAC chunk advances the actor and critic counts and the step by K, and
+the temperature's count by K when it is learned. Under D4PG,
+set_value_bounds moves the C51 support between chunks.
 """
 
 from __future__ import annotations
@@ -63,10 +66,12 @@ class ShardedLearner:
             chunk_size=self.chunk_size, device=self.device,
         )
         # Index draws on the device, from their own seeded generator; TD3's
-        # smoothing noise from another (td3_noise_eps reseeds it per chunk).
+        # smoothing noise or SAC's normals from another (td3_noise_eps and
+        # sac_noise_eps reseed it per chunk).
         self._gen = torch.Generator(device=self.device).manual_seed(config.seed)
         self._noise_gen = (
-            torch.Generator(device=self.device) if config.takes_noise else None
+            torch.Generator(device=self.device)
+            if config.takes_noise or config.sac else None
         )
         self._step = int(self.state.step)   # host copy of the global step
         self._done: Optional[torch.cuda.Event] = None
@@ -74,10 +79,9 @@ class ShardedLearner:
     def _run(self, packed: torch.Tensor) -> StepOutput:
         eps = None
         if self._noise_gen is not None:
-            eps = fused_chunk.td3_noise_eps(
-                self.config, self._noise_gen, self._step, self.chunk_size,
-                self.config.batch_size, self.act_dim,
-            )
+            draw = fused_chunk.sac_noise_eps if self.config.sac else fused_chunk.td3_noise_eps
+            eps = draw(self.config, self._noise_gen, self._step, self.chunk_size,
+                       self.config.batch_size, self.act_dim)
         new_state, td, metrics = self._fused(self.state, packed, eps)
         self.state = new_state
         self._step += self.chunk_size
@@ -109,8 +113,9 @@ class ShardedLearner:
     def run_sample_chunk(self, device_replay, idx: Optional[torch.Tensor] = None) -> StepOutput:
         """K learner steps on minibatches drawn uniformly from the device
         replay: K*B indices drawn on the device, the rows gathered with
-        one index, (TD3) the chunk's smoothing noise drawn on the device,
-        one kernel launch. `idx` ([K, B] ints) replaces the index draw."""
+        one index, (TD3) the chunk's smoothing noise or (SAC) its normals
+        drawn on the device, one kernel launch. `idx` ([K, B] ints)
+        replaces the index draw."""
         storage, size = device_replay.device_state()
         if idx is None:
             idx = torch.randint(
@@ -126,8 +131,9 @@ class ShardedLearner:
 
     def actor_params_to_host(self) -> np.ndarray:
         """The actor params as one flat f32 vector in the layout of
-        actors/policy.flatten_params (per layer w then b, C order), for the
-        broadcast to CPU rollout workers. One device->host copy."""
+        actors/policy.flatten_params (per layer w then b, C order; SAC's
+        head 2 * act wide), for the broadcast to CPU rollout workers. One
+        device->host copy."""
         flat = torch.cat([
             t.reshape(-1) for layer in self.state.actor_params
             for t in (layer["w"], layer["b"])

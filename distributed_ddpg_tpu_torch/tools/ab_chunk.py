@@ -15,7 +15,8 @@ A child builds its tree's kernel (printing ptxas's register and spill
 report when it compiles) and times each branch the tree has at the main
 path's shapes (Pendulum obs 3 / act 1, 2x256, batch 64, K = 800): DDPG
 from step 1000, TD3 with policy_delay 2 and target_noise 0.2 from step
-1001, and D4PG at 51 atoms where the tree has it. The state, batch and
+1001, D4PG at 51 atoms and SAC (README's learning rates, the temperature
+learned) from step 1000 where the tree has them. The state, batch and
 noise come from the tree's chip_smoke.py with the seeds its timing phase
 uses (trees may differ in the batch's weight column, which does not
 change the kernel's work). One warm-up chunk, then `reps` chunks between
@@ -55,6 +56,9 @@ def child(reps: int) -> None:
     if hasattr(cfg, "v_support_auto"):   # a tree with the D4PG branch
         branches["fused_chunk_d4pg"] = (
             cfg.replace(distributional=True, v_min=-10.0, v_max=10.0), 1000)
+    if hasattr(cfg, "sac_autotune"):     # a tree with the SAC branch
+        branches["fused_chunk_sac"] = (
+            cfg.replace(sac=True, actor_lr=3e-4, critic_lr=3e-4, tau=0.005), 1000)
     times = {}
     for name, (c, step) in branches.items():
         state = train_state_from_numpy(cs.random_state_np(c, OBS, ACT, seed=7, step=step),

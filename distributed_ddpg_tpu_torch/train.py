@@ -15,10 +15,17 @@ K learner steps per dispatch). It covers:
   replay's rewards before the first chunk, then widened on the 50-chunk
   cadence when mean_q nears an edge and the replay's rewards corroborate
   it (ops/support_auto.py);
+- SAC (--sac=true): the actors sample the Gaussian policy after a
+  uniform-random warmup of config.resolved_warmup_uniform() env steps
+  (replay_min_size by default), the temperature's target entropy is
+  resolved in the kernel's wrapper (auto: -act_dim + sum(log scale)), and
+  eval acts on the Gaussian's mode, tanh(mean);
 - a numpy eval of the deterministic policy;
 - JSONL records under the JAX trainer's names: the six learner metrics,
   eval_return, env_steps_per_sec, learner_steps_per_sec, final_return,
-  and under D4PG v_min, v_max and support_refusals.
+  and under D4PG v_min, v_max and support_refusals (the JAX trainer
+  records no temperature, so neither does this one; train() returns the
+  final alpha under SAC).
 
 Checkpoint and resume are later work (so are the checkpointed bounds).
 
@@ -26,6 +33,8 @@ Usage:
     python -m distributed_ddpg_tpu_torch.train --total_env_steps=100000
     python -m distributed_ddpg_tpu_torch.train --distributional=true --n_step=5 \
         --v_min=auto --v_max=auto                                  # D4PG
+    python -m distributed_ddpg_tpu_torch.train --sac=true --actor_lr=3e-4 \
+        --critic_lr=3e-4 --tau=0.005                               # SAC
     python -m distributed_ddpg_tpu_torch.train --device=cpu ...   # plain versions
 """
 
@@ -38,7 +47,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from distributed_ddpg_tpu_torch.actors.policy import NumpyPolicy, param_layout
+from distributed_ddpg_tpu_torch.actors.policy import NumpyPolicy, actor_head_dim, param_layout
 from distributed_ddpg_tpu_torch.actors.pool import ActorPool
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.envs import make, spec_of
@@ -130,8 +139,9 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         config.replay_capacity, spec.obs_dim, spec.act_dim, device, block_size=1024,
     )
     eval_policy = NumpyPolicy(
-        param_layout(spec.obs_dim, spec.act_dim, tuple(config.actor_hidden)),
-        spec.action_scale, spec.action_offset,
+        param_layout(spec.obs_dim, actor_head_dim(spec.act_dim, config.sac),
+                     tuple(config.actor_hidden)),
+        spec.action_scale, spec.action_offset, gaussian=config.sac,
     )
     log = JsonlLog(config.log_path, echo=echo)
     env_timer, learn_timer = Timer(), Timer()
@@ -292,6 +302,7 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         "final_return": final_return,
         **{k: metrics[k] for k in METRIC_KEYS if k in metrics},
         **support_fields(),
+        **({"alpha": float(learner.state.log_alpha.exp())} if config.sac else {}),
     }
 
 

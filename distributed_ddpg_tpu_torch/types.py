@@ -39,8 +39,10 @@ class OptState(NamedTuple):
 
 
 class TrainState(NamedTuple):
-    """Everything the learner owns. The JAX TrainState's SAC-only fields
-    (log_alpha, alpha_opt) are not part of this slice."""
+    """Everything the learner owns. log_alpha (an f32 scalar tensor) is set
+    only under SAC, alpha_opt (an OptState of scalars) only when SAC
+    autotunes its temperature; both are None otherwise, as in the JAX
+    TrainState."""
 
     actor_params: Any
     critic_params: Any
@@ -49,6 +51,8 @@ class TrainState(NamedTuple):
     actor_opt: OptState
     critic_opt: OptState
     step: Any         # int32 scalar tensor
+    log_alpha: Any = None   # SAC: f32 scalar tensor, log of the temperature
+    alpha_opt: Any = None   # SAC with sac_autotune: OptState of scalars
 
 
 def packed_width(obs_dim: int, act_dim: int) -> int:

@@ -62,6 +62,10 @@ from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
 from test_torch_fused_chunk import _assert_stage_dependencies, _interpret_program
 from test_torch_slice import train_in_subprocess
 
+# Tiny nets: one torch thread per test process eases the CPU contention
+# of a run with many test workers.
+torch.set_num_threads(1)
+
 OBS, ACT, B, K = 3, 1, 8, 4
 ACTOR, CRITIC = (32, 32), (32, 24, 16)
 ATOMS, V_MIN, V_MAX = 21, -5.0, 5.0    # dz = 0.5: every atom exact in f32

@@ -31,6 +31,10 @@ from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
 from distributed_ddpg_tpu_torch.ops.optim import B1, B2, EPS
 from distributed_ddpg_tpu_torch.types import pack_batch_np
 
+# Tiny nets: one torch thread per test process eases the CPU contention
+# of a run with many test workers.
+torch.set_num_threads(1)
+
 OBS, ACT, B, K = 3, 1, 8, 4
 HIDDEN = (32, 32)
 RTOL, ATOL, METRIC_RTOL = 2e-5, 1e-6, 5e-5
@@ -105,20 +109,23 @@ def _softmax(x):
 
 def _interpret_program(cfg, state, packed, scale, offset, eps=None, obs=OBS, act=ACT):
     """Executes fc._plan's task table the way csrc/fused_chunk.cu does
-    (same offsets, strides, epilogues, C51's row tasks, stage order, TD3's
-    skipped tiles on steps without an actor update, optimizer pass and
-    metric reduction), in numpy. Returns (flat state, td, metrics)."""
+    (same offsets, strides, epilogues, C51's and SAC's row tasks, stage
+    order, TD3's skipped tiles on steps without an actor update, optimizer
+    pass, SAC's temperature and metric reduction), in numpy. `eps` is
+    TD3's noise or SAC's (eps_next, eps_cur), as numpy arrays. Returns
+    (flat state, td, metrics)."""
     k_steps, b, d = packed.shape
     prog = fc._plan(cfg, obs, act)
     na, nc = prog.n_actor, prog.n_critic
-    twin, c51 = cfg.twin_critic, cfg.distributional
+    twin, c51, sac = cfg.twin_critic, cfg.distributional, cfg.sac
     delay = cfg.policy_delay if twin else 1
     step0 = int(state.step)
     flat = fc.flatten_state(state).numpy().copy()
     scratch = np.zeros(prog.scratch_size, np.float32)
+    support = v_min = v_max = dz = None
     if c51:
         support, (v_min, v_max, dz) = fc.support_params(cfg)
-    else:
+    elif not sac:
         scratch[prog.scratch["dqpi"]:prog.scratch["dqpi"] + b] = -1.0 / b
     td_out = np.zeros((k_steps, b), np.float32)
     scale = np.broadcast_to(np.float32(scale), (act,))
@@ -132,6 +139,10 @@ def _interpret_program(cfg, state, packed, scale, offset, eps=None, obs=OBS, act
         step = step0 + k
         upd = step % delay == 0
         tiles = prog.stage_tiles if upd else prog.stage_tiles_skip
+        if sac:   # step k's temperature, cached before its first stage
+            la = flat[4 * (na + nc)]
+            sac_ctx = dict(alpha=np.exp(la), eps_next=eps[0][k], eps_cur=eps[1][k],
+                           scale=scale, offset=offset, act=act, cfg=cfg)
 
         def gather(base, off, s_row, s_col, rows, cols):
             if base == fc.BASE_ONES:
@@ -144,6 +155,9 @@ def _interpret_program(cfg, state, packed, scale, offset, eps=None, obs=OBS, act
                 if row[fc.F_TILE0] >= tiles[s]:
                     continue      # the kernel's tile loop stops before this task
                 M, N = int(row[fc.F_M]), int(row[fc.F_N])
+                if row[fc.F_OP] == fc.OP_ROWS and sac:
+                    _interpret_sac_rows(row, bases, sac_ctx, rew, disc, wgt, td_out[k], b)
+                    continue
                 if row[fc.F_OP] == fc.OP_ROWS:
                     _interpret_rows(row, bases, support, v_min, v_max, dz, rew, disc,
                                     wgt, td_out[k], b)
@@ -215,16 +229,36 @@ def _interpret_program(cfg, state, packed, scale, offset, eps=None, obs=OBS, act
         td = td_out[k]
         if c51:
             closs = np.sum(scratch[prog.scratch["c51_wce"]:prog.scratch["c51_wce"] + b]) / b
-        elif twin:
+        elif twin or sac:
             td0 = scratch[prog.scratch["td0"]:prog.scratch["td0"] + b]
             td1 = scratch[prog.scratch["td1"]:prog.scratch["td1"] + b]
             closs = np.sum(wgt * td0 * td0 + wgt * td1 * td1) * 0.5 / b
         else:
             closs = np.sum(wgt * td * td) / b
-        q_off = prog.scratch["pi_qexp" if c51 else "pi_q"]   # E[Z] under C51
-        q_pi = scratch[q_off:q_off + b]
-        aloss = -np.sum(q_pi) / b
-        step_vals.append([closs, aloss, -aloss, np.sum(np.abs(td)) / b, sums[0], sums[1]])
+        q_off = prog.scratch["pi_qexp" if c51 else "pi_qmin" if sac else "pi_q"]
+        q_pi = scratch[q_off:q_off + b]       # E[Z] under C51, min Q under SAC
+        if sac:
+            alpha = sac_ctx["alpha"]
+            lp_off = prog.scratch["sC_lp"]
+            mean_lp = np.sum(scratch[lp_off:lp_off + b]) / np.float32(b)
+            aloss = alpha * mean_lp - np.sum(q_pi) / np.float32(b)
+            mean_q = alpha * mean_lp - aloss
+            if cfg.sac_autotune:   # block 0's temperature Adam, after the losses
+                off = 4 * (na + nc)
+                g = -(mean_lp + np.float32(fc.sac_target_entropy(
+                    cfg.target_entropy, act, scale)))
+                tt = np.float32(int(state.alpha_opt.count) + k + 1)
+                bc1 = np.float32(1) - np.exp(tt * np.float32(np.log(B1)))
+                bc2 = np.float32(1) - np.exp(tt * np.float32(np.log(B2)))
+                m = np.float32(B1) * flat[off + 1] + np.float32(1.0 - B1) * g
+                v = np.float32(B2) * flat[off + 2] + np.float32(1.0 - B2) * (g * g)
+                flat[off + 1], flat[off + 2] = m, v
+                flat[off] = la - np.float32(cfg.critic_lr) * (m / bc1) / (
+                    np.sqrt(v / bc2) + np.float32(EPS))
+        else:
+            aloss = -np.sum(q_pi) / b
+            mean_q = -aloss
+        step_vals.append([closs, aloss, mean_q, np.sum(np.abs(td)) / b, sums[0], sums[1]])
     return flat, td_out, np.mean(np.asarray(step_vals, np.float64), axis=0)
 
 
@@ -259,6 +293,53 @@ def _interpret_rows(row, bases, z, v_min, v_max, dz, rew, disc, wgt, td_k, b):
         bases[a2b][a2o:a2o + M] = q_exp[:, 0]
 
 
+def _interpret_sac_rows(row, bases, ctx, rew, disc, wgt, td_k, b):
+    """SAC's row tasks, as csrc/fused_chunk.cu's run_sac_rows computes them."""
+    M, a, epi = int(row[fc.F_M]), ctx["act"], int(row[fc.F_EPI])
+    cfg, alpha = ctx["cfg"], ctx["alpha"]
+    aux_b, aux_o, aux_sm = (int(v) for v in row[fc.F_AUX:fc.F_AUX + 3])
+    cb, co, csm, _ = (int(v) for v in row[fc.F_C:fc.F_C + 4])
+    a2b, a2o = int(row[fc.F_AUX2]), int(row[fc.F_AUX2 + 1])
+    rows = np.arange(M)[:, None]
+    f32 = np.float32
+    if epi in (fc.EPI_SAC_SAMPLE, fc.EPI_SAC_ACT):
+        head = bases[aux_b][aux_o + rows * aux_sm + np.arange(2 * a)]
+        e = ctx["eps_next"] if epi == fc.EPI_SAC_SAMPLE and row[fc.F_ARG] == 0 else ctx["eps_cur"]
+        m0 = f32(cfg.sac_log_std_min)
+        hw = f32(0.5 * (cfg.sac_log_std_max - cfg.sac_log_std_min))
+        tr = np.tanh(head[:, a:])
+        log_std = m0 + hw * (tr + f32(1))
+        sd = np.exp(log_std)
+        t = np.tanh(head[:, :a] + sd * e)
+        sc = ctx["scale"]
+        g = sc * (f32(1) - t * t) + f32(1e-6)
+        if epi == fc.EPI_SAC_SAMPLE:
+            bases[cb][co + rows * csm + np.arange(a)] = t * sc + ctx["offset"]
+            lp = -f32(0.5) * (e * e) - log_std - f32(0.5 * np.log(2 * np.pi)) - np.log(g)
+            bases[a2b][a2o:a2o + M] = np.sum(lp, -1)
+        else:
+            da = bases[a2b][a2o + rows * a + np.arange(a)]
+            dlp_row = alpha * f32(1.0 / b)
+            one_m_t2 = f32(1) - t * t
+            du = da * sc * one_m_t2 + dlp_row * (f32(2) * sc * t * one_m_t2 / g)
+            draw = (du * sd * e - dlp_row) * (hw * (f32(1) - tr * tr))
+            bases[cb][co + rows * csm + np.arange(2 * a)] = np.concatenate([du, draw], -1)
+    elif epi == fc.EPI_SAC_TD:
+        q = [bases[aux_b][aux_o + i * aux_sm:aux_o + i * aux_sm + M] for i in range(5)]
+        y = rew + disc * (np.minimum(q[0], q[1]) - alpha * q[4])
+        td0, td1 = y - q[2], y - q[3]
+        g = f32(-1.0 / b) * wgt
+        for i, v in enumerate((g * td0, g * td1, td0, td1)):
+            bases[a2b][a2o + i * aux_sm:a2o + i * aux_sm + M] = v
+        td_k[:] = f32(0.5) * (td0 + td1)
+    else:                                   # EPI_SAC_PI
+        q0, q1 = (bases[aux_b][aux_o + i * aux_sm:aux_o + i * aux_sm + M] for i in range(2))
+        lt, gt = (q0 < q1).astype(f32), (q0 > q1).astype(f32)
+        bases[cb][co:co + M] = f32(-1.0 / b) * (lt + f32(0.5) * (f32(1) - lt - gt))
+        bases[cb][co + csm:co + csm + M] = f32(-1.0 / b) * (gt + f32(0.5) * (f32(1) - lt - gt))
+        bases[a2b][a2o:a2o + M] = np.minimum(q0, q1)
+
+
 def test_kernel_program_matches_reference():
     jcfg, cfg = _configs()
     state = train_state_from_numpy(
@@ -285,9 +366,10 @@ def _assert_stage_dependencies(prog, b, update=True):
             return set()
         return {off + r * sm + c * sn for r in range(rows) for c in range(cols)}
 
-    # DDPG's and TD3's dqpi is a constant the wrapper fills; C51 writes it.
-    c51 = any(row[fc.F_EPI] == fc.EPI_C51_PI for row in prog.tasks)
-    const = set() if c51 else set(range(prog.scratch["dqpi"], prog.scratch["dqpi"] + b))
+    # DDPG's and TD3's dqpi is a constant the wrapper fills; C51 and SAC
+    # write it.
+    written_dqpi = any(row[fc.F_EPI] in (fc.EPI_C51_PI, fc.EPI_SAC_PI) for row in prog.tasks)
+    const = set() if written_dqpi else set(range(prog.scratch["dqpi"], prog.scratch["dqpi"] + b))
 
     for s in range(len(prog.stage_tiles)):
         tasks = [row for row in prog.tasks[prog.stage_start[s]:prog.stage_start[s + 1]]
@@ -309,12 +391,33 @@ def _assert_stage_dependencies(prog, b, update=True):
                 reads |= span(aux[0], aux[1], aux[2], 1, 2 * M, N)
             if row[fc.F_EPI] == fc.EPI_C51_PI:       # the actor's head
                 reads |= span(aux[0], aux[1], aux[2], 1, M, N)
+            if row[fc.F_EPI] in (fc.EPI_SAC_SAMPLE, fc.EPI_SAC_ACT):   # [M, 2 act] head
+                reads |= span(aux[0], aux[1], aux[2], 1, M, 2 * N)
+            if row[fc.F_EPI] == fc.EPI_SAC_ACT:      # da [M, act]
+                reads |= span(int(row[fc.F_AUX2]), int(row[fc.F_AUX2 + 1]), N, 1, M, N)
+            if row[fc.F_EPI] == fc.EPI_SAC_TD:       # four heads and lp'
+                reads |= span(aux[0], aux[1], 1, aux[2], M, 5)
+            if row[fc.F_EPI] == fc.EPI_SAC_PI:       # both members' heads
+                reads |= span(aux[0], aux[1], 1, aux[2], M, 2)
             for addr in reads - const:
                 assert addr in written and written[addr] < s, (s, addr)
         for row in tasks:
             M, N = int(row[fc.F_M]), int(row[fc.F_N])
             aux = (int(row[fc.F_AUX]), int(row[fc.F_AUX + 1]), int(row[fc.F_AUX + 2]))
             out = set()
+            epi = int(row[fc.F_EPI])
+            a2 = (int(row[fc.F_AUX2]), int(row[fc.F_AUX2 + 1]))
+            if epi in (fc.EPI_SAC_SAMPLE, fc.EPI_SAC_TD, fc.EPI_SAC_PI, fc.EPI_SAC_ACT):
+                cb, co, csm, _ = (int(v) for v in row[fc.F_C:fc.F_C + 4])
+                out |= {
+                    fc.EPI_SAC_SAMPLE: span(cb, co, csm, 1, M, N) | span(*a2, 1, 0, M, 1),
+                    fc.EPI_SAC_TD: span(*a2, 1, aux[2], M, 4),     # dq0, dq1, td0, td1
+                    fc.EPI_SAC_PI: span(cb, co, 1, csm, M, 2) | span(*a2, 1, 0, M, 1),
+                    fc.EPI_SAC_ACT: span(cb, co, csm, 1, M, 2 * N),
+                }[epi]
+                assert not (out & set(written)), "a scratch range is written twice"
+                written.update({x: s for x in out})
+                continue
             if row[fc.F_C] >= 0:
                 cb, co, csm, csn = (int(v) for v in row[fc.F_C:fc.F_C + 4])
                 out |= span(cb, co, csm, csn, M, N)

@@ -12,7 +12,10 @@ One case per branch of the kernel, at a small size (obs 3, act 1, nets
 DDPG; TD3 at delay 1 without smoothing noise (no eps input); TD3 at
 delay 2 with noise (one eps stream drawn on the card, given to both);
 D4PG with 21 atoms on [-5, 5], then again after the support moved to
-[-8, 3] (set_value_bounds rewrites the launch's support in place).
+[-8, 3] (set_value_bounds rewrites the launch's support in place); SAC
+with the temperature learned, and again with both critic members equal
+(every row of the min gate ties), both with two normal streams drawn on
+the card, given to both.
 Tolerances: rtol 1e-4, atol 1e-5 (f32 with another summation order).
 """
 
@@ -33,7 +36,12 @@ BRANCHES = {
     "td3-delay1": dict(twin_critic=True),
     "td3-delay2-noise": dict(twin_critic=True, policy_delay=2, target_noise=0.2),
     "d4pg": dict(distributional=True, num_atoms=21, v_min=-5.0, v_max=5.0),
+    "sac": dict(sac=True),
+    "sac-tied": dict(sac=True),
 }
+
+# One torch thread: the tests' own host work is tiny.
+torch.set_num_threads(1)
 
 
 def _batches(seed):
@@ -62,9 +70,17 @@ def test_kernel_matches_reference_on_card(branch):
                      device="cuda", **BRANCHES[branch])
     state = init_train_state(cfg, OBS, ACT, cfg.seed, "cuda")
     state = state._replace(step=torch.tensor(STEP0, dtype=torch.int32, device="cuda"))
+    if branch == "sac-tied":
+        tie = tuple({k: torch.stack([v[0], v[0]]) for k, v in layer.items()}
+                    for layer in state.critic_params)
+        state = state._replace(critic_params=tie, target_critic_params=tie)
     packed = torch.from_numpy(_batches(5)).cuda()
-    eps = (fc.td3_noise_eps(cfg, torch.Generator(device="cuda"), STEP0, K, B, ACT)
-           if cfg.takes_noise else None)
+    if cfg.sac:
+        eps = fc.sac_noise_eps(cfg, torch.Generator(device="cuda"), STEP0, K, B, ACT)
+    elif cfg.takes_noise:
+        eps = fc.td3_noise_eps(cfg, torch.Generator(device="cuda"), STEP0, K, B, ACT)
+    else:
+        eps = None
     run = fc.make_fused_chunk_fn(cfg, OBS, ACT, 2.0, 0.0, chunk_size=K, device="cuda")
     new, td, met = run(state, packed, eps)
     ref, rtd, rmet = fc.fused_chunk_reference(cfg, state, packed, 2.0, 0.0, eps)
@@ -76,6 +92,8 @@ def test_kernel_matches_reference_on_card(branch):
     want = fc.actor_updates(cfg, STEP0, K)
     assert int(new.actor_opt.count) == int(ref.actor_opt.count) == want
     assert int(new.critic_opt.count) == K and int(new.step) == STEP0 + K
+    if cfg.sac:
+        assert int(new.alpha_opt.count) == int(ref.alpha_opt.count) == K
     if cfg.distributional:
         run.set_value_bounds(-8.0, 3.0)
         new, td, met = run(state, packed, eps)

@@ -6,6 +6,7 @@ n-step accumulator (copies) give the same streams."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from distributed_ddpg_tpu.replay.device import DeviceReplay as JaxDeviceReplay
 from distributed_ddpg_tpu.replay.nstep import NStepAccumulator as JaxNStep
@@ -13,6 +14,10 @@ from distributed_ddpg_tpu.replay.staging import HostStagingRing as JaxStagingRin
 from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
 from distributed_ddpg_tpu_torch.replay.nstep import NStepAccumulator
 from distributed_ddpg_tpu_torch.replay.staging import HostStagingRing
+
+# Tiny nets: one torch thread per test process eases the CPU contention
+# of a run with many test workers.
+torch.set_num_threads(1)
 
 OBS, ACT = 3, 1
 WIDTH = 2 * OBS + ACT + 3

@@ -37,6 +37,10 @@ from distributed_ddpg_tpu_torch.learner import METRIC_KEYS, train_state_from_num
 from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, resolve_learner_chunk
 from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
 
+# Tiny nets: one torch thread per test process eases the CPU contention
+# of a run with many test workers.
+torch.set_num_threads(1)
+
 OBS, ACT, B, K = 3, 1, 8, 4
 HIDDEN = (32, 32)
 RTOL, ATOL = 2e-5, 1e-6
@@ -186,6 +190,7 @@ def train_in_subprocess(flags, log_path, timeout=240):
     cmd = [sys.executable, "-m", "distributed_ddpg_tpu_torch.train", "--device=cpu",
            *flags, f"--log_path={log_path}"]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["OMP_NUM_THREADS"] = "1"   # tiny nets: one torch thread, as in the test process
     res = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
                          timeout=timeout)
     assert res.returncode == 0, res.stderr[-4000:]

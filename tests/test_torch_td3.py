@@ -53,6 +53,10 @@ from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
 from test_torch_fused_chunk import _assert_stage_dependencies, _interpret_program
 from test_torch_slice import train_in_subprocess
 
+# Tiny nets: one torch thread per test process eases the CPU contention
+# of a run with many test workers.
+torch.set_num_threads(1)
+
 OBS, ACT, B, K = 3, 2, 8, 5
 ACTOR, CRITIC = (32, 32), (32, 24, 16)
 STEP0, COUNT_A, COUNT_C = 5, 2, 5     # an odd start: the schedule is offset
