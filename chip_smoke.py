@@ -34,7 +34,12 @@ Phases (any failure raises; nothing is caught and passed over):
    carry weights 1. The cases that drift in f32 over K = 800 (TD3 and
    SAC at the bench's shape) may instead be refereed by the chunk in
    float64 (SHARE_RATIO, DRIFT_RATIO; for SAC the f32 spread from the plain
-   version on the card and on the CPU).
+   version on the card and on the CPU). Then every branch again with
+   compute_dtype='bfloat16' (bf16 product operands, f32 sums): at K = 16
+   at both shapes and at K = 800 at Pendulum shapes, TD3 with delay 2 and
+   noise, D4PG at 51 atoms, SAC with the temperature learned; the K = 800
+   cases refereed like SAC's above; and one small chunk a family (nets
+   32x32, batch 8, K = 4) from a fresh state (FRESH_FRAC).
 4. Drive the main paths, `distributed_ddpg_tpu_torch.train` (Pendulum-v1,
    2x256, batch 64, f32, one actor process, K = 800): DDPG with the
    default flags and TD3 with --twin_critic=true --policy_delay=2
@@ -42,14 +47,18 @@ Phases (any failure raises; nothing is caught and passed over):
    --distributional=true --n_step=5 --v_min=auto --v_max=auto for 20,000
    (51 atoms; the support resolved from the warmup rewards is
    printed), then SAC with --sac=true --actor_lr=3e-4 --critic_lr=3e-4
-   --tau=0.005 for 20,000 (its final alpha is printed). For each, the
+   --tau=0.005 for 20,000 (its final alpha is printed); then with
+   --compute_dtype=bfloat16 DDPG for 20,000 env steps and TD3, D4PG and
+   SAC (their flags as above) for 5000 each. For each, the
    launch counts are zeroed
    just before and read just after: every chunk must have been one launch
    of that branch's kernel, learner_steps = chunks x K, metrics finite.
 5. Time each branch of the kernel at the main path's shapes (CUDA events,
-   warmed up) beside its plain version and its bound; the eager autograd
-   step x K is printed as context only. Then break each branch's time
-   down into its barriers, its optimizer pass and each stage's tiles.
+   warmed up) beside its plain version (one run) and its bound; the eager autograd
+   step x K is printed as context only. Then break each f32 branch's time,
+   and bf16 DDPG's, down into its barriers, its optimizer pass and each
+   stage's tiles. The bf16 branches' bound counts their rounded products
+   at the bf16 tensor-core peak and the rest at the f32 peak.
 
 It imports nothing of JAX or of the JAX package. The second-to-last line
 is the kernels' JSON record; the last line is the device record.
@@ -69,8 +78,10 @@ import numpy as np
 import torch
 
 # Published H100 SXM peaks (NVIDIA's data sheet, dense, at the full 700 W
-# power limit): f32 on the CUDA cores and HBM3 bandwidth.
+# power limit): f32 on the CUDA cores, bf16 on the tensor cores (dense,
+# without sparsity) and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # Kernel-vs-plain tolerances. Both are f32 with different summation orders
@@ -136,6 +147,31 @@ DRIFT_RATIO = 3.0
 # float64 referee passed the kernel on one draw and failed it on the other
 # (actor_mu): whether such a check passes is down to the draw.
 WEIGHTED_UP_TO = 16
+# bf16 (compute_dtype='bfloat16'). The kernel and the plain version round
+# the same operands to bf16, so they differ by the f32 sums' order, and by
+# more only where that order flips one operand's rounding: on an H100
+# (700 W) the K = 16 chunks agreed within 6.5e-6 (state) and 1.9e-5 (td),
+# inside the f32 rule above, which they keep; the K = 800 ones drift as
+# TD3's and SAC's do in f32, so they take the referee with the spread of
+# the plain version on the card and on the CPU. Those checks do not see a
+# bias gradient whose cotangent is rounded (~2e-4 relative at B = 64,
+# hidden by Adam's moments): planted in the kernel, it passed all twelve;
+# an unrounded B operand passed D4PG's two at K = 16, whose cotangents
+# are small. So each family also runs one small chunk (nets 32x32, batch
+# 8, K = 4, as tests/test_torch_on_card.py) from a fresh state (zero Adam
+# moments, counts 0), whose first moments then hold the chunk's own
+# gradients (mu = 0.1 g after one step) over short sums, where a rounding
+# in the wrong place moves a gradient by ~1e-3 relative. Beside the rules
+# above, each first moment must be within FRESH_MU_RTOL of itself plus
+# FRESH_MU_SCALE of its group's largest: an absolute atol does not fit
+# gradients whose scale differs by family. On an H100 (700 W) the kernel
+# reached 0.23 of this tolerance (D4PG's critic), the kernel with a
+# rounded bias cotangent 10-126x it (its worst group: SAC 10.3, D4PG 17.9,
+# TD3 101, DDPG 126). At full width a fresh state does not work: sign-like
+# first Adam steps turn near-zero gradients' rounding differences into
+# steps of ~lr (1681 elements of the correct D4PG kernel past TIGHT_TOL
+# at K = 16).
+FRESH_MU_RTOL, FRESH_MU_SCALE = 1e-4, 1e-5
 
 
 def log(*args) -> None:
@@ -151,11 +187,11 @@ def card_line() -> str:
 
 
 def random_state_np(cfg, obs: int, act: int, seed: int, step: int = 1000,
-                    tied: bool = False, hot: bool = False):
+                    tied: bool = False, hot: bool = False, fresh: bool = False):
     """A TrainState with numpy leaves: random params near the init
     scale, targets near the params, nonzero Adam moments, every count
     1000 and the given step — a state in mid-training rather than at
-    init. A TD3 or SAC config gets two independent critics on a [2, ...]
+    init; with `fresh`, zero Adam moments and every count 0, as at init. A TD3 or SAC config gets two independent critics on a [2, ...]
     axis (with `tied`, two equal ones); SAC a temperature near 0.2 (and its
     Adam moments when autotuned), or with `hot` a temperature of 4 over a
     policy whose log_std sits near the clamp's floor, so that alpha * log pi
@@ -181,11 +217,17 @@ def random_state_np(cfg, obs: int, act: int, seed: int, step: int = 1000,
         return tuple({k: (v + 1e-3 * rng.standard_normal(v.shape)).astype(np.float32)
                       for k, v in layer.items()} for layer in tree)
 
-    def opt(dims):
+    count = np.int32(0 if fresh else 1000)
+
+    def opt(tree):
+        """Adam moments for a tree made by tree(leaf_fn)."""
+        if fresh:
+            zero = tree(lambda s, i, f: np.zeros(s, np.float32))
+            return OptState(mu=zero, nu=zero, count=count)
         return OptState(
-            mu=net(dims, lambda s, i, f: (1e-3 * rng.standard_normal(s)).astype(np.float32)),
-            nu=net(dims, lambda s, i, f: rng.uniform(1e-6, 1e-4, s).astype(np.float32)),
-            count=np.int32(1000),
+            mu=tree(lambda s, i, f: (1e-3 * rng.standard_normal(s)).astype(np.float32)),
+            nu=tree(lambda s, i, f: rng.uniform(1e-6, 1e-4, s).astype(np.float32)),
+            count=count,
         )
 
     def critic_net(fn):
@@ -195,13 +237,6 @@ def random_state_np(cfg, obs: int, act: int, seed: int, step: int = 1000,
         b = a if tied else net(cdims, fn)
         return tuple({k: np.stack([la[k], lb[k]]) for k in la} for la, lb in zip(a, b))
 
-    def critic_opt():
-        return OptState(
-            mu=critic_net(lambda s, i, f: (1e-3 * rng.standard_normal(s)).astype(np.float32)),
-            nu=critic_net(lambda s, i, f: rng.uniform(1e-6, 1e-4, s).astype(np.float32)),
-            count=np.int32(1000),
-        )
-
     def near_critic(tree):
         if not tied:
             return near(tree)
@@ -209,17 +244,20 @@ def random_state_np(cfg, obs: int, act: int, seed: int, step: int = 1000,
         return tuple({k: np.stack([v, v]) for k, v in layer.items()} for layer in one)
 
     actor, critic = net(adims, param), critic_net(param)
-    state = TrainState(actor, critic, near(actor), near_critic(critic), opt(adims),
-                       critic_opt(), np.int32(step))
+    state = TrainState(actor, critic, near(actor), near_critic(critic),
+                       opt(lambda fn: net(adims, fn)), opt(critic_net), np.int32(step))
     if cfg.sac:
         state = state._replace(log_alpha=np.float32(
             math.log(4.0) if hot else math.log(0.2) + 0.1 * rng.standard_normal()))
         if hot:   # log_std_raw ~ -3: log_std ~ min + 0.02
             actor[-1]["b"][act:] = -3.0
-        if cfg.sac_autotune:
+        if cfg.sac_autotune and fresh:
+            state = state._replace(alpha_opt=OptState(
+                mu=np.float32(0.0), nu=np.float32(0.0), count=count))
+        elif cfg.sac_autotune:
             state = state._replace(alpha_opt=OptState(
                 mu=np.float32(1e-2 * rng.standard_normal()),
-                nu=np.float32(rng.uniform(1e-4, 1e-3)), count=np.int32(1000)))
+                nu=np.float32(rng.uniform(1e-4, 1e-3)), count=count))
     return state
 
 
@@ -252,8 +290,9 @@ def random_batches(seed: int, k: int, b: int, obs: int, act: int,
     return torch.from_numpy(packed).cuda()
 
 
-def time_ms(fn, reps: int) -> float:
-    fn()
+def time_ms(fn, reps: int, warmup: bool = True) -> float:
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -303,7 +342,7 @@ def to_double(tree):
 def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
                       referee: bool = False, bounds=None, rewards=None,
                       tied: bool = False, hot: bool = False,
-                      spread_on_cpu: bool = False) -> float:
+                      spread_on_cpu: bool = False, fresh: bool = False) -> float:
     """Kernel vs plain version on one random state and batch (and noise);
     returns the largest absolute difference over end state, td and
     metrics. Raises where an output is outside the tolerances; with
@@ -313,7 +352,9 @@ def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
     larger miss of it and the plain version on the CPU. With `bounds` (D4PG)
     the kernel runs one chunk, then set_value_bounds(*bounds) and the
     chunk that is checked, against the plain version under those bounds.
-    `rewards` is random_batches', `tied` and `hot` random_state_np's."""
+    `rewards` is random_batches', `tied`, `hot` and `fresh` random_state_np's;
+    from a `fresh` state (zero Adam moments, counts 0) the first moments
+    are also held to FRESH_MU_RTOL and FRESH_MU_SCALE."""
     from distributed_ddpg_tpu_torch.learner import METRIC_KEYS, train_state_from_numpy
     from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
 
@@ -322,11 +363,13 @@ def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
              f"fused_chunk_d4pg atoms={cfg.num_atoms}" if cfg.distributional else
              f"fused_chunk_sac autotune={cfg.sac_autotune}" if cfg.sac else "fused_chunk")
     label += (f" obs={obs} act={act} K={k}" + (" tied critics" if tied else "")
-              + (" hot temperature" if hot else ""))
+              + (" hot temperature" if hot else "") + (" fresh state" if fresh else "")
+              + (" bf16" if cfg.compute_dtype == "bfloat16" else ""))
     if cfg.distributional:
         label += f" support=[{cfg.v_min:g}, {cfg.v_max:g}]"
     state = train_state_from_numpy(
-        random_state_np(cfg, obs, act, seed=obs, step=step, tied=tied, hot=hot), "cuda")
+        random_state_np(cfg, obs, act, seed=obs, step=step, tied=tied, hot=hot, fresh=fresh),
+        "cuda")
     packed = random_batches(seed=100 + obs, k=k, b=cfg.batch_size, obs=obs, act=act,
                             rewards=rewards, weighted=k <= WEIGHTED_UP_TO)
     eps = noise_for(cfg, k, cfg.batch_size, act, step)
@@ -374,6 +417,17 @@ def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
                      if loose[cuts[i]:cuts[i + 1]].any()}
             line += f", outside {TIGHT_TOL}: {frac:.2e} of elements {where}"
             ok = ok and frac <= TIGHT_FRAC
+            if fresh:
+                mu_ratio = {}
+                for i, g in enumerate(groups):
+                    m = want[cuts[i]:cuts[i + 1]]
+                    if g.endswith("_mu") and m.size:
+                        tol_mu = FRESH_MU_RTOL * np.abs(m) + FRESH_MU_SCALE * np.abs(m).max()
+                        mu_ratio[g] = float(np.max(err[cuts[i]:cuts[i + 1]]
+                                                   / np.maximum(tol_mu, 1e-30)))
+                line += ", first moments' error / their tolerance: " + ", ".join(
+                    f"{g} {r:.2e}" for g, r in mu_ratio.items())
+                ok = ok and max(mu_ratio.values()) <= 1.0
         if not ok:
             failed.append(name)
         log(line + ("" if ok else f" -- outside {tol} or TIGHT_FRAC"))
@@ -423,16 +477,17 @@ def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
     # The actor count advances by the chunk's actor updates (all K, or
     # under TD3's delay f(step0 + K) - f(step0)); the rest by K, SAC's
     # temperature count only when it is learned.
-    want_a = 1000 + fc.actor_updates(cfg, step, k)
+    count0 = 0 if fresh else 1000
+    want_a = count0 + fc.actor_updates(cfg, step, k)
     if (int(new.actor_opt.count), int(new.critic_opt.count), int(new.step)) != (
-            want_a, 1000 + k, step + k) or int(ref.actor_opt.count) != want_a:
+            want_a, count0 + k, step + k) or int(ref.actor_opt.count) != want_a:
         raise AssertionError(
             f"{label}: counts {int(new.actor_opt.count)}, {int(new.critic_opt.count)}, "
-            f"{int(new.step)}; expected {want_a}, {1000 + k}, {step + k}")
+            f"{int(new.step)}; expected {want_a}, {count0 + k}, {step + k}")
     if cfg.sac and (new.alpha_opt is None) != (not cfg.sac_autotune) or (
-            new.alpha_opt is not None and int(new.alpha_opt.count) != 1000 + k):
+            new.alpha_opt is not None and int(new.alpha_opt.count) != count0 + k):
         raise AssertionError(f"{label}: the temperature's count did not follow the autotune")
-    log(f"  {label}: actor count +{want_a - 1000} from step {step}")
+    log(f"  {label}: actor count +{want_a - count0} from step {step}")
     return worst
 
 
@@ -516,6 +571,8 @@ def drive_main_path(flags, name: str) -> dict:
         raise AssertionError(f"kernel launches {launches} != {summary['chunks']} x {name}")
     if summary["learner_steps"] != summary["chunks"] * resolve_learner_chunk(cfg):
         raise AssertionError("learner_steps != chunks x K")
+    if summary["compute_dtype"] != cfg.compute_dtype:
+        raise AssertionError(f"main path {name} ran in {summary['compute_dtype']}")
     if cfg.sac:
         log(f"[main path {name}] final alpha {summary['alpha']}, final return "
             f"{summary['final_return']}")
@@ -525,10 +582,11 @@ def drive_main_path(flags, name: str) -> dict:
     return launches
 
 
-def time_branch(cfg, name: str, k: int, step: int, card: str, eager: bool) -> dict:
+def time_branch(cfg, name: str, k: int, step: int, card: str, eager: bool,
+                split: bool = True) -> dict:
     """The kernel's time at the main path's shapes (Pendulum, K = k) beside
-    its plain version and its bound, then its breakdown. Returns the
-    timing fields of the kernel's record."""
+    its plain version and its bound, then (with `split`) its breakdown.
+    Returns the timing fields of the kernel's record."""
     from distributed_ddpg_tpu_torch.learner import make_learner_step, train_state_from_numpy
     from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
     from distributed_ddpg_tpu_torch.types import unpack_batch
@@ -539,8 +597,11 @@ def time_branch(cfg, name: str, k: int, step: int, card: str, eager: bool) -> di
     eps = noise_for(cfg, k, b, act, step)
     run = fc.make_fused_chunk_fn(cfg, obs, act, 2.0, 0.0, chunk_size=k, device="cuda")
     kernel_ms = time_ms(lambda: run(state, packed, eps), reps=10)
+    # The plain version: one run of K python-driven steps (seconds), whose
+    # first call pays nothing a second would not, so no warm-up run.
     plain_ms = time_ms(
-        lambda: fc.fused_chunk_reference(cfg, state, packed, 2.0, 0.0, eps), reps=1)
+        lambda: fc.fused_chunk_reference(cfg, state, packed, 2.0, 0.0, eps), reps=1,
+        warmup=False)
     context = ""
     if eager:
         step_fn, eager_steps = make_learner_step(cfg, 2.0), min(50, k)
@@ -558,6 +619,12 @@ def time_branch(cfg, name: str, k: int, step: int, card: str, eager: bool) -> di
               + numel(eps) * 4 + k * b * 4 + 6 * 4
               + (4 * cfg.num_atoms if cfg.distributional else 0))   # the C51 support
     bound_ops_ms, bound_bytes_ms = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    if cfg.compute_dtype == "bfloat16":
+        # The products that take bf16 operands at the tensor cores' peak;
+        # the rest (bias gradients, row tasks, optimizer) at the f32 peak.
+        rounded = fc.rounded_product_ops(cfg, obs, act, k, step)
+        bound_ops_ms = (rounded / PEAK_BF16_FLOPS + (ops - rounded) / PEAK_F32_FLOPS) * 1e3
+        context += f"; {rounded / 1e9:.2f} GFLOP of it bf16 products"
     bound_ms = max(bound_ops_ms, bound_bytes_ms)
     if cfg.distributional:   # the kernel's A x A projection, beyond what the bound counts
         context += (f"; the kernel's triangular projection does "
@@ -567,7 +634,8 @@ def time_branch(cfg, name: str, k: int, step: int, card: str, eager: bool) -> di
         f"{kernel_ms * 1e3 / k:.2f} us/step; plain {plain_ms:.3f} ms{context}; bound "
         f"{bound_ms:.4f} ms = {bound_ms * 1e3 / k:.3f} us/step ({ops / 1e9:.2f} GFLOP, "
         f"{nbytes / 1e6:.2f} MB)")
-    breakdown(run, state, packed, eps, k)
+    if split:
+        breakdown(run, state, packed, eps, k)
     return {
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -596,7 +664,7 @@ def main() -> int:
     log(f"[build] {time.monotonic() - t0:.1f}s")
     for name, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"  {name}: {line.strip()}")
 
     # --- 3. kernels against their plain versions ---
@@ -637,6 +705,23 @@ def main() -> int:
         check_fused_chunk(sac.replace(sac_autotune=False), obs, act, 16)
     check_fused_chunk(sac, 3, 1, 16, tied=True)
     check_fused_chunk(sac, 17, 6, 16, hot=True)
+    # bf16: the same branches with every product's operands rounded (TD3
+    # with delay 2 and noise, D4PG at 51 atoms, SAC learning its
+    # temperature); the K = 800 chunks with the f32 spread of the plain
+    # version on the card and on the CPU as referee.
+    for name, c, step in (("fused_chunk_bf16", cfg, 1000),
+                          ("fused_chunk_td3_bf16", td3, td3_step),
+                          ("fused_chunk_d4pg_bf16", d4pg, 1000),
+                          ("fused_chunk_sac_bf16", sac, 1000)):
+        c = c.replace(compute_dtype="bfloat16")
+        for obs, act in ((3, 1), (17, 6)):
+            check_fused_chunk(c, obs, act, 16, step)
+        small = c.replace(actor_hidden=(32, 32), critic_hidden=(32, 32), batch_size=8)
+        if c.distributional:
+            small = small.replace(num_atoms=21, v_min=-5.0, v_max=5.0)
+        check_fused_chunk(small, 3, 1, 4, 5, fresh=True)
+        errs[(name, 3, K)] = check_fused_chunk(c, 3, 1, K, step, referee=True,
+                                               spread_on_cpu=True)
 
     # --- 4. the main paths ---
     # D4PG and SAC, this slice's path, run 20k env steps each: tens of
@@ -660,6 +745,24 @@ def main() -> int:
         common + ["--total_env_steps=20000", "--sac=true", "--actor_lr=3e-4",
                   "--critic_lr=3e-4", "--tau=0.005"],
         "fused_chunk_sac"))
+    # bf16, this slice's path: DDPG for 20,000 env steps, the other
+    # families for a few chunks each.
+    bf16 = common + ["--compute_dtype=bfloat16"]
+    launches.update(drive_main_path(bf16 + ["--total_env_steps=20000"], "fused_chunk_bf16"))
+    launches.update(drive_main_path(
+        bf16 + ["--total_env_steps=5000", "--twin_critic=true", "--policy_delay=2",
+                "--target_noise=0.2"],
+        "fused_chunk_td3_bf16"))
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(drive_main_path(
+            bf16 + ["--total_env_steps=5000", "--distributional=true", "--n_step=5",
+                    "--v_min=auto", "--v_max=auto",
+                    f"--log_path={os.path.join(tmp, 'd4pg_bf16.jsonl')}"],
+            "fused_chunk_d4pg_bf16"))
+    launches.update(drive_main_path(
+        bf16 + ["--total_env_steps=5000", "--sac=true", "--actor_lr=3e-4",
+                "--critic_lr=3e-4", "--tau=0.005"],
+        "fused_chunk_sac_bf16"))
 
     # --- 5. timing at the main path's shapes ---
     timing = {
@@ -668,6 +771,13 @@ def main() -> int:
         "fused_chunk_d4pg": time_branch(d4pg, "fused_chunk_d4pg", K, 1000, card, eager=False),
         "fused_chunk_sac": time_branch(sac, "fused_chunk_sac", K, 1000, card, eager=False),
     }
+    for name, c, step in (("fused_chunk_bf16", cfg, 1000),
+                          ("fused_chunk_td3_bf16", td3, td3_step),
+                          ("fused_chunk_d4pg_bf16", d4pg, 1000),
+                          ("fused_chunk_sac_bf16", sac, 1000)):
+        timing[name] = time_branch(c.replace(compute_dtype="bfloat16"), name, K, step, card,
+                                   eager=name == "fused_chunk_bf16",
+                                   split=name == "fused_chunk_bf16")
     log(f"[done] {time.monotonic() - t_start:.1f}s")
 
     print(json.dumps({"kernels": [{

@@ -125,6 +125,9 @@ class DDPGConfig:
     warmup_uniform_steps: int = -1
 
     # --- precision ---
+    # "bfloat16": every matrix product takes bf16-rounded operands and
+    # accumulates in f32; params, Adam state, targets and activations stay
+    # f32 (models/mlp.py, ops/fused_chunk.py).
     compute_dtype: str = "float32"
 
     # --- run control ---
@@ -286,10 +289,12 @@ class DDPGConfig:
                     f"the PyTorch port yet (only {name}={off!r}); ROADMAP.md "
                     "lists what is left to port"
                 )
-        if self.compute_dtype != "float32":
+        # The JAX package also refuses bfloat16 under backend='native' (its
+        # numpy learner is the f32 oracle); the port has no backend switch.
+        if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
-                f"compute_dtype={self.compute_dtype!r} is not implemented in "
-                "the PyTorch port yet (only 'float32')"
+                f"compute_dtype must be 'float32' or 'bfloat16', got "
+                f"{self.compute_dtype!r}"
             )
         if self.transport not in ("auto", "queue"):
             raise ValueError(

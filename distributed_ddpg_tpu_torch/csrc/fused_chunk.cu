@@ -2,8 +2,8 @@
 //
 // Replaces: distributed_ddpg_tpu/ops/fused_chunk.py, make_fused_chunk_fn ->
 // run -> pl.pallas_call (the kernel body _make_kernel.kernel), its DDPG
-// TD(0) f32 branch (a), its TD3 branch (b), its C51 branch (c) and its SAC
-// branch (d). The Python side
+// TD(0) f32 branch (a), its TD3 branch (b), its C51 branch (c), its SAC
+// branch (d), and the bf16 operands of all four (e). The Python side
 // (ops/fused_chunk.py) plans the per-step work as a table of matrix-product
 // tasks grouped into dependency stages; this file executes that program K
 // times and runs the optimizer pass.
@@ -115,8 +115,23 @@
 // own count counts[3], only with sac_autotune) in the optimizer pass,
 // after its losses; no block reads log_alpha again before the barrier
 // that ends the step. Both targets take Polyak every step.
+//
+// bf16 (branch e; JAX kernel :218-242, `cast` before every dot): each
+// family has a BF16 instantiation that rounds both operands of every
+// product to bf16 (round to nearest even) as a tile's slots are staged
+// into shared memory, and keeps the f32 fmaf chain: a product of two bf16
+// values is exact in f32, so this is the tensor core's dot, summed in
+// another order. The one exemption is a bias gradient, a product whose A
+// operand is the row of ones (BASE_ONES): it is the JAX kernel's f32
+// jnp.sum of the cotangent, so neither operand is rounded. Epilogues, row
+// tasks, the optimizer pass and the temperature are the f32 code.
+// What bounds it: the bf16 tensor cores would do the products ~15x faster
+// than the f32 CUDA cores, so its bound is far below the f32 branches'
+// while this design runs at their speed (PERF.md); mma.sync / wgmma on
+// bf16 tiles is the later route.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -193,6 +208,12 @@ __device__ __forceinline__ float load(const float* p, int base) {
   return base == BASE_BATCH ? __ldg(p) : __ldcg(p);
 }
 
+// x rounded to the nearest bf16 value (ties to even), back in f32.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <bool BF16>
 __device__ void run_tile(const int* __restrict__ T, int tile, const Ctx& c,
                          float (*As)[JC + 1], float (*Bs)[TILE + 1]) {
   const int M = T[F_M], N = T[F_N], nseg = T[F_NSEG];
@@ -206,6 +227,9 @@ __device__ void run_tile(const int* __restrict__ T, int tile, const Ctx& c,
     const int b_base = S[4], b_sj = S[6], b_sn = S[7], J = S[8];
     const float* A = resolve(c, a_base, S[1]);
     const float* Bp = resolve(c, b_base, S[5]);
+    // bf16: every product's operands round, but a bias gradient's (its A
+    // is the row of ones; the B operand is the f32 cotangent it sums).
+    const bool rnd = BF16 && a_base != BASE_ONES;
     for (int j0 = 0; j0 < J; j0 += JC) {
       const int jl = min(JC, J - j0);
       // Each thread owns LOADS slots of each tile. All of a thread's loads
@@ -239,6 +263,10 @@ __device__ void run_tile(const int* __restrict__ T, int tile, const Ctx& c,
 #pragma unroll
       for (int r = 0; r < LOADS; ++r) {
         const int idx = tid + r * NT;
+        if (rnd) {
+          va[r] = bf16_round(va[r]);
+          vb[r] = bf16_round(vb[r]);
+        }
         if (a_sj == 1) As[idx / JC][idx % JC] = va[r];
         else As[idx % TILE][idx / TILE] = va[r];
         if (b_sn == 1) Bs[idx / TILE][idx % TILE] = vb[r];
@@ -580,8 +608,9 @@ __device__ float block_sum(float v, float* red) {
 // MODE: MODE_C51, the program has C51's row tasks (EPI_C51, EPI_C51_PI);
 // MODE_SAC, SAC's (run_sac_rows) and the temperature. The DDPG and TD3
 // programs run MODE_PLAIN, which tests no task's kind (with the test,
-// those branches were ~1% slower; PERF.md).
-template <int MODE>
+// those branches were ~1% slower; PERF.md). BF16: the products' operands
+// round (branch e); the f32 instantiations compile without the test.
+template <int MODE, bool BF16>
 __global__ void __launch_bounds__(NT, 1)
 fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch,
                    const float* __restrict__ noise, const float* __restrict__ support,
@@ -643,7 +672,7 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
         else if (SAC && T[F_OP] == OP_ROWS)
           run_sac_rows(T, tile - T[F_TILE0], c, eps_cur, alpha, m0, hw);
         else
-          run_tile(T, tile - T[F_TILE0], c, As, Bs);
+          run_tile<BF16>(T, tile - T[F_TILE0], c, As, Bs);
       }
       grid.sync();
     }
@@ -769,24 +798,35 @@ fused_chunk_kernel(float* state, float* scratch, const float* __restrict__ batch
   }
 }
 
+template <int MODE>
+static const void* with_bf16(int bf16) {
+  return bf16 ? (const void*)fused_chunk_kernel<MODE, true>
+              : (const void*)fused_chunk_kernel<MODE, false>;
+}
+
+// The instantiation for `mode` (MODE_PLAIN, MODE_C51, MODE_SAC) and `bf16`.
+static const void* instantiation(int mode, int bf16) {
+  return mode == MODE_C51   ? with_bf16<MODE_C51>(bf16)
+         : mode == MODE_SAC ? with_bf16<MODE_SAC>(bf16)
+                            : with_bf16<MODE_PLAIN>(bf16);
+}
+
 extern "C" {
 
 // Launches the kernel on `stream`; returns the CUDA error code (0 = ok).
 // `noise` is TD3's smoothing eps[K, B, act] when the target action is
 // smoothed, SAC's normals [2, K, B, act] (eps_next, then eps_cur), else
 // null; `support` (z[A]) is null unless the critic is distributional (C51);
-// `mode` (MODE_PLAIN, MODE_C51, MODE_SAC) selects the instantiation.
+// `mode` (MODE_PLAIN, MODE_C51, MODE_SAC) and `bf16` (0 or 1) select the
+// instantiation.
 int fused_chunk_launch(float* state, float* scratch, const float* batch, const float* noise,
                        const float* support, float* td_out, float* metrics, const int* counts,
                        const float* scale, const float* offset, const int* ip, const float* fp,
-                       const int* tasks, int mode, int grid, void* stream) {
+                       const int* tasks, int mode, int bf16, int grid, void* stream) {
   void* args[] = {&state, &scratch, &batch, &noise, &support, &td_out, &metrics, &counts,
                   &scale, &offset, &ip, &fp, &tasks};
-  const void* kernel = mode == MODE_C51   ? (const void*)fused_chunk_kernel<MODE_C51>
-                       : mode == MODE_SAC ? (const void*)fused_chunk_kernel<MODE_SAC>
-                                          : (const void*)fused_chunk_kernel<MODE_PLAIN>;
-  cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(NT), args, 0,
-                                              (cudaStream_t)stream);
+  cudaError_t e = cudaLaunchCooperativeKernel(instantiation(mode, bf16), dim3(grid), dim3(NT),
+                                              args, 0, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -794,18 +834,19 @@ int fused_chunk_launch(float* state, float* scratch, const float* batch, const f
 // Blocks of the kernel that can be resident at once on `device` (the
 // upper bound of a cooperative launch's grid), for every instantiation.
 int fused_chunk_max_grid(int device, int* out) {
-  int sms = 0, plain = 0, c51 = 0, sac = 0;
+  int sms = 0;
   cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&plain, fused_chunk_kernel<MODE_PLAIN>, NT,
-                                                    0);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c51, fused_chunk_kernel<MODE_C51>, NT, 0);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&sac, fused_chunk_kernel<MODE_SAC>, NT, 0);
-  if (e != cudaSuccess) return (int)e;
-  const int lo = plain < c51 ? plain : c51;
-  *out = sms * (lo < sac ? lo : sac);
+  int lo = 1 << 30;
+  for (int mode = MODE_PLAIN; mode <= MODE_SAC; ++mode) {
+    for (int bf16 = 0; bf16 < 2; ++bf16) {
+      int n = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, instantiation(mode, bf16), NT, 0);
+      if (e != cudaSuccess) return (int)e;
+      lo = n < lo ? n : lo;
+    }
+  }
+  *out = sms * lo;
   return 0;
 }
 

@@ -28,6 +28,13 @@ actor's slot too, though SAC's math never reads it), and with
 sac_autotune log_alpha takes an Adam step at critic_lr on its own count
 from the exact gradient -(mean log-prob + target entropy).
 
+With compute_dtype='bfloat16' every network apply takes `mm` =
+torch.bfloat16 (learner.py:159 of the JAX package): bf16-rounded matmul
+operands with f32 accumulation, and autodiff's rounding of the weight and
+input gradients (models/mlp.py::_Bf16Dense). The CUDA kernel and its plain
+version round elsewhere (ops/fused_chunk.py), as the JAX kernel does.
+make_act_fn stays f32, as the JAX package's does.
+
 The training path runs K of these per dispatch inside the CUDA kernel
 (ops/fused_chunk.py); this step is what the kernel and its plain version
 are held against.
@@ -126,10 +133,16 @@ def _as_tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
+def _mm_dtype(config: DDPGConfig):
+    """The matmul operand dtype of the learner step: bf16 or None (f32)."""
+    return torch.bfloat16 if config.compute_dtype == "bfloat16" else None
+
+
 def make_sac_step(config: DDPGConfig, action_scale, action_offset=0.0):
     """Returns (state, batch, eps) -> StepOutput, one eager SAC step;
     eps = (normal_next, normal_cur), two standard-normal [B, act] draws."""
     lo, hi = config.sac_log_std_min, config.sac_log_std_max
+    mm = _mm_dtype(config)
 
     def sac_step(state: TrainState, batch: Batch, eps) -> StepOutput:
         config.check_noise(eps)
@@ -142,12 +155,12 @@ def make_sac_step(config: DDPGConfig, action_scale, action_offset=0.0):
         cp = tree_map(lambda x: x.detach().requires_grad_(True), state.critic_params)
         closs, td = losses.sac_critic_loss(
             cp, state.actor_params, state.target_critic_params, batch, scale,
-            normal_next, alpha, lo, hi, offset)
+            normal_next, alpha, lo, hi, offset, mm)
         cgrads = _untree(torch.autograd.grad(closs, tree_leaves(cp)), state.critic_params)
         # The actor's gradient against the pre-update critics.
         ap = tree_map(lambda x: x.detach().requires_grad_(True), state.actor_params)
         aloss, mean_lp = losses.sac_actor_loss(
-            ap, state.critic_params, batch, scale, normal_cur, alpha, lo, hi, offset)
+            ap, state.critic_params, batch, scale, normal_cur, alpha, lo, hi, offset, mm)
         agrads = _untree(torch.autograd.grad(aloss, tree_leaves(ap)), state.actor_params)
 
         with torch.no_grad():
@@ -200,6 +213,7 @@ def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0):
         return make_sac_step(config, action_scale, action_offset)
     twin = bool(config.twin_critic)
     delay = int(config.policy_delay)   # 1 unless TD3 (config gate)
+    mm = _mm_dtype(config)
 
     def step(state: TrainState, batch: Batch, eps=None) -> StepOutput:
         config.check_noise(eps)
@@ -214,21 +228,22 @@ def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0):
                 config.v_min, config.v_max, config.num_atoms, device)
             closs, td = losses.distributional_critic_loss(
                 cp, state.target_actor_params, state.target_critic_params,
-                batch, scale, support, offset,
+                batch, scale, support, offset, mm,
             )
 
-            def actor_loss(ap, critic, batch, scale, offset):
-                return losses.distributional_actor_loss(ap, critic, batch, scale, support, offset)
+            def actor_loss(ap, critic, batch, scale, offset, mm):
+                return losses.distributional_actor_loss(ap, critic, batch, scale, support,
+                                                        offset, mm)
         elif twin:
             closs, td = losses.td3_critic_loss(
                 cp, state.target_actor_params, state.target_critic_params,
-                batch, scale, eps, offset,
+                batch, scale, eps, offset, mm,
             )
             actor_loss = losses.td3_actor_loss
         else:
             closs, td = losses.critic_loss(
                 cp, state.target_actor_params, state.target_critic_params,
-                batch, scale, offset,
+                batch, scale, offset, mm,
             )
             actor_loss = losses.actor_loss
         cgrads = torch.autograd.grad(closs, tree_leaves(cp))
@@ -236,7 +251,7 @@ def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0):
         # --- actor loss, through the pre-update critic; its gradient only
         # on update steps (every step unless TD3 delays it) ---
         ap = tree_map(lambda x: x.detach().requires_grad_(True), state.actor_params)
-        aloss = actor_loss(ap, state.critic_params, batch, scale, offset)
+        aloss = actor_loss(ap, state.critic_params, batch, scale, offset, mm)
         update = delay == 1 or int(state.step) % delay == 0
         agrads = torch.autograd.grad(aloss, tree_leaves(ap)) if update else None
 

@@ -50,8 +50,20 @@ with sac_autotune, block 0 takes the temperature's Adam step (critic_lr,
 its own count) after every reader of step k's alpha has cached it at the
 step's start.
 
-The bf16 branch and the data-parallel mesh launch of the JAX kernel are
-later work (ROADMAP.md).
+bf16 (compute_dtype='bfloat16', any of the four; JAX kernel :218-242,
+branch e): both operands of every product, forward and backward, are
+rounded to bf16 and the f32 sum is kept, as the JAX kernel's `cast` does
+before each dot. The bias gradients are sums of the f32 cotangent, not
+products, and round nothing (JAX kernel :354, :366, :371, :381, :386); in
+the program they are products with a row of ones (BASE_ONES), so the rule
+the kernel applies is: a segment whose A operand is BASE_ONES rounds
+neither operand. Activations, the TD, C51 and SAC row math, Adam, Polyak
+and the state stay f32. This is NOT where the eager bf16 step rounds (JAX
+autodiff rounds the gradients' products instead, models/mlp.py::
+_Bf16Dense); the two agree only to bf16 level, as in the JAX package.
+
+The data-parallel mesh launch of the JAX kernel is later work
+(ROADMAP.md).
 
 Three pieces live here:
 
@@ -84,6 +96,7 @@ import torch
 
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
+from distributed_ddpg_tpu_torch.models.mlp import round_bf16
 from distributed_ddpg_tpu_torch.ops.losses import TANH_EPS, sac_target_entropy, support_row
 from distributed_ddpg_tpu_torch.ops.optim import B1, B2, EPS
 from distributed_ddpg_tpu_torch.types import OptState, TrainState
@@ -154,13 +167,13 @@ SAC_SAMPLE_DIM_OPS, SAC_ACT_DIM_OPS, SAC_TD_ROW_OPS, SAC_PI_ROW_OPS = 21, 15, 10
 
 
 def supported(config: DDPGConfig) -> bool:
-    """The f32 part of the JAX kernel's envelope (fused_chunk.py:167-180):
-    DDPG TD(0), TD3, C51 and SAC. bf16 is later work."""
+    """The JAX kernel's envelope (fused_chunk.py:167-180): DDPG TD(0), TD3,
+    C51 and SAC, each in float32 or bfloat16."""
     return (
         config.action_insert_layer == 1
         and config.critic_l2 == 0.0
         and not config.fused_update
-        and config.compute_dtype == "float32"
+        and config.compute_dtype in ("float32", "bfloat16")
         and len(config.critic_hidden) >= 2
         and len(config.actor_hidden) >= 1
         and (not config.distributional or config.num_atoms <= MAX_ATOMS)
@@ -218,6 +231,7 @@ class _Program(NamedTuple):
     n_critic: int              # the critic group: both members under TD3
     matmul_flops: int          # per learner step, run every step
     actor_bwd_flops: int       # per actor update (every step but under TD3's delay)
+    sum_flops: Tuple[int, int]  # the bias gradients' part of the two above
     row_ops: int               # per learner step: C51's row tasks (0 otherwise)
 
 
@@ -278,6 +292,7 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
     skipped: set = set()        # buffers written only on actor-update steps
     rows: List[Tuple[int, bool, np.ndarray]] = []
     flops = [0, 0]              # every step, actor updates only
+    sums = [0, 0]               # of which bias gradients (A = BASE_ONES)
 
     def add(row, reads, writes, actor_bwd=False):
         stage = 1 + max([ready[r] for r in reads if r in ready], default=-1)
@@ -290,10 +305,11 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
         # Under TD3 the actor's backward sorts last in its stage, so a step
         # without an actor update runs a prefix of the stage's tiles.
         rows.append((stage, actor_bwd and twin, row))
-        flops[1 if actor_bwd else 0] += sum(
-            2 * int(row[F_M]) * int(row[F_N]) * int(row[F_SEG + 9 * s + 8])
-            for s in range(row[F_NSEG])
-        )
+        for s in range(row[F_NSEG]):
+            f = 2 * int(row[F_M]) * int(row[F_N]) * int(row[F_SEG + 9 * s + 8])
+            flops[1 if actor_bwd else 0] += f
+            if row[F_SEG + 9 * s] == BASE_ONES:
+                sums[1 if actor_bwd else 0] += f
 
     def task(op, M, N, segs, c=None, bias=None, epi=EPI_NONE, aux=None, aux2=None):
         r = np.zeros(TASK_INTS, np.int32)
@@ -574,7 +590,7 @@ def _plan(config: DDPGConfig, obs_dim: int, act_dim: int) -> _Program:
         tasks=table, stage_start=stage_start, stage_tiles=stage_tiles,
         stage_tiles_skip=stage_tiles_skip, scratch=scratch, scratch_size=size[0],
         n_actor=n_a, n_critic=ncg, matmul_flops=flops[0], actor_bwd_flops=flops[1],
-        row_ops=row_ops,
+        sum_flops=(sums[0], sums[1]), row_ops=row_ops,
     )
 
 
@@ -612,6 +628,16 @@ def ops_per_chunk(config: DDPGConfig, obs_dim: int, act_dim: int, chunk: int,
     per_update = (prog.actor_bwd_flops + ADAM_OPS_PER_PARAM * prog.n_actor
                   + POLYAK_OPS_PER_PARAM * (prog.n_actor + prog.n_critic))
     return chunk * every + updates * per_update
+
+
+def rounded_product_ops(config: DDPGConfig, obs_dim: int, act_dim: int, chunk: int,
+                        step0: int = 0) -> int:
+    """The part of ops_per_chunk that is products whose operands a bf16
+    chunk rounds: every product but the bias gradients' sums."""
+    prog = _plan(config, obs_dim, act_dim)
+    updates = actor_updates(config, int(step0), chunk)
+    return (chunk * (prog.matmul_flops - prog.sum_flops[0])
+            + updates * (prog.actor_bwd_flops - prog.sum_flops[1]))
 
 
 def state_bytes(config: DDPGConfig, obs_dim: int, act_dim: int) -> int:
@@ -737,19 +763,29 @@ def fused_chunk_reference(config: DDPGConfig, state: TrainState, packed: torch.T
         tgt_h = sac_target_entropy(config.target_entropy, a, action_scale)
         half_log_2pi = 0.5 * math.log(2.0 * math.pi)
 
+    if config.compute_dtype == "bfloat16":
+        # The JAX kernel's `cast` (fused_chunk.py:221-235): both operands of
+        # every product rounded to bf16, the f32 sum kept. The bias
+        # gradients (dz.sum(0)) are sums, not products, and round nothing.
+        def mm(x, y):
+            return round_bf16(x) @ round_bf16(y)
+    else:
+        def mm(x, y):
+            return x @ y
+
     def actor_fwd(P, x):
         acts = [x]
         for w, b in P[:-1]:
-            acts.append(torch.relu(acts[-1] @ w + b))
-        t = torch.tanh(acts[-1] @ P[-1][0] + P[-1][1])
+            acts.append(torch.relu(mm(acts[-1], w) + b))
+        t = torch.tanh(mm(acts[-1], P[-1][0]) + P[-1][1])
         return t * scale + offset, acts, t
 
     def gauss_fwd(P, x):
         """SAC's head: (mean, log_std, tanh(raw), activations)."""
         acts = [x]
         for w, b in P[:-1]:
-            acts.append(torch.relu(acts[-1] @ w + b))
-        z = acts[-1] @ P[-1][0] + P[-1][1]
+            acts.append(torch.relu(mm(acts[-1], w) + b))
+        z = mm(acts[-1], P[-1][0]) + P[-1][1]
         tr = torch.tanh(z[:, a:])
         return z[:, :a], m0 + hw * (tr + 1.0), tr, acts
 
@@ -763,13 +799,13 @@ def fused_chunk_reference(config: DDPGConfig, state: TrainState, packed: torch.T
 
     def critic_fwd(P, x, act):
         f = P[0][0].shape[1]
-        h = torch.relu(x @ P[0][0] + P[0][1])
+        h = torch.relu(mm(x, P[0][0]) + P[0][1])
         acts = [x, h]
-        h = torch.relu(h @ P[1][0][:f] + act @ P[1][0][f:] + P[1][1])
+        h = torch.relu(mm(h, P[1][0][:f]) + mm(act, P[1][0][f:]) + P[1][1])
         acts.append(h)
         for w, b in P[2:-1]:
-            acts.append(torch.relu(acts[-1] @ w + b))
-        return acts[-1] @ P[-1][0] + P[-1][1], acts      # q: [B, 1]
+            acts.append(torch.relu(mm(acts[-1], w) + b))
+        return mm(acts[-1], P[-1][0]) + P[-1][1], acts      # q: [B, 1]
 
     def critic_bwd(P, acts, act, dq, wgrads: bool):
         """(grads [[gw, gb]] or None, d_action)."""
@@ -778,25 +814,25 @@ def fused_chunk_reference(config: DDPGConfig, state: TrainState, packed: torch.T
         dz = dq
         for i in range(n - 1, 1, -1):
             if wgrads:
-                grads[i] = [acts[i].T @ dz, dz.sum(0)]
-            dz = (dz @ P[i][0].T) * (acts[i] > 0.0)
+                grads[i] = [mm(acts[i].T, dz), dz.sum(0)]
+            dz = (mm(dz, P[i][0].T)) * (acts[i] > 0.0)
         f = acts[1].shape[-1]
         w1 = P[1][0]
-        da = dz @ w1[f:].T
+        da = mm(dz, w1[f:].T)
         if not wgrads:
             return None, da
-        grads[1] = [torch.cat([acts[1].T @ dz, act.T @ dz], 0), dz.sum(0)]
-        dz0 = (dz @ w1[:f].T) * (acts[1] > 0.0)
-        grads[0] = [acts[0].T @ dz0, dz0.sum(0)]
+        grads[1] = [torch.cat([mm(acts[1].T, dz), mm(act.T, dz)], 0), dz.sum(0)]
+        dz0 = (mm(dz, w1[:f].T)) * (acts[1] > 0.0)
+        grads[0] = [mm(acts[0].T, dz0), dz0.sum(0)]
         return grads, da
 
     def actor_bwd(P, acts, dz):
         n = len(P)
         grads = [None] * n
         for i in range(n - 1, -1, -1):
-            grads[i] = [acts[i].T @ dz, dz.sum(0)]
+            grads[i] = [mm(acts[i].T, dz), dz.sum(0)]
             if i > 0:
-                dz = (dz @ P[i][0].T) * (acts[i] > 0.0)
+                dz = (mm(dz, P[i][0].T)) * (acts[i] > 0.0)
         return grads
 
     def adam(P, MU, NU, grads, lr, t):
@@ -1096,7 +1132,7 @@ def _lib():
     lib = _build.load("fused_chunk")
     if not getattr(lib, "_typed", False):
         ptr = ctypes.c_void_p
-        lib.fused_chunk_launch.argtypes = [ptr] * 13 + [ctypes.c_int, ctypes.c_int, ptr]
+        lib.fused_chunk_launch.argtypes = [ptr] * 13 + [ctypes.c_int] * 3 + [ptr]
         lib.fused_chunk_launch.restype = ctypes.c_int
         lib.fused_chunk_max_grid.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.fused_chunk_max_grid.restype = ctypes.c_int
@@ -1130,20 +1166,22 @@ def make_fused_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
     On the CPU, run is the plain version. On the card it launches the
     kernel once per call (counted in KERNEL_LAUNCHES["fused_chunk"],
     ["fused_chunk_td3"] for TD3, ["fused_chunk_d4pg"] for D4PG or
-    ["fused_chunk_sac"] for SAC) or raises; the input state is never
+    ["fused_chunk_sac"] for SAC, each with "_bf16" appended under
+    compute_dtype='bfloat16') or raises; the input state is never
     modified."""
     if not supported(config):
         raise ValueError(
             "fused chunk kernel envelope: DDPG, TD3, D4PG (num_atoms <= 256) or "
-            "SAC, float32, action_insert_layer=1, critic_l2=0, fused_update=False, "
-            ">=2 critic hidden layers, >=1 actor hidden layer"
+            "SAC, float32 or bfloat16, action_insert_layer=1, critic_l2=0, "
+            "fused_update=False, >=2 critic hidden layers, >=1 actor hidden layer"
         )
     K, B = int(chunk_size), int(config.batch_size)
     o, a = int(obs_dim), int(act_dim)
     D = 2 * o + a + 3
     twin, c51, sac = bool(config.twin_critic), bool(config.distributional), bool(config.sac)
+    bf16 = config.compute_dtype == "bfloat16"
     name = ("fused_chunk_d4pg" if c51 else "fused_chunk_td3" if twin
-            else "fused_chunk_sac" if sac else "fused_chunk")
+            else "fused_chunk_sac" if sac else "fused_chunk") + ("_bf16" if bf16 else "")
     device = torch.device(device)
     current = [config]        # set_value_bounds replaces its support bounds
     write_support = None      # on the card: rewrites the launch's support
@@ -1281,7 +1319,7 @@ def make_fused_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
             support.data_ptr() if c51 else None, td.data_ptr(),
             metrics.data_ptr(), counts.data_ptr(), scale.data_ptr(),
             offset.data_ptr(), ip_d.data_ptr(), fp_d.data_ptr(),
-            tasks_d.data_ptr(), mode, grid, stream,
+            tasks_d.data_ptr(), mode, int(bf16), grid, stream,
         )
         _check(lib, code, "launch")
         KERNEL_LAUNCHES[name] += 1

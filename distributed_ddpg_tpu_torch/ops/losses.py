@@ -7,7 +7,9 @@ categorical support and projection, distributional_critic_loss and
 distributional_actor_loss). The TD3 smoothing noise and SAC's standard
 normals are inputs here, drawn by the caller: the JAX package draws them
 inside the loss from a key, and the two frameworks' random streams differ,
-so the tests pass the JAX draw in.
+so the tests pass the JAX draw in. `mm` is the matmul dtype of every
+network apply: None (f32) or torch.bfloat16 (models/mlp.py::_dense), as
+the JAX losses' `mm_dtype`.
 """
 
 from __future__ import annotations
@@ -29,31 +31,31 @@ from distributed_ddpg_tpu_torch.types import Batch
 
 
 def critic_loss(critic_params, target_actor_params, target_critic_params,
-                batch: Batch, action_scale, action_offset=0.0):
+                batch: Batch, action_scale, action_offset=0.0, mm=None):
     """Weighted MSE TD loss against y = r + discount * Q'(s', mu'(s')).
     Returns (loss, td_errors[B])."""
     with torch.no_grad():
         next_action = actor_apply(
-            target_actor_params, batch.next_obs, action_scale, action_offset
+            target_actor_params, batch.next_obs, action_scale, action_offset, mm
         )
-        next_q = critic_apply(target_critic_params, batch.next_obs, next_action)
+        next_q = critic_apply(target_critic_params, batch.next_obs, next_action, mm)
         y = batch.reward + batch.discount * next_q
-    q = critic_apply(critic_params, batch.obs, batch.action)
+    q = critic_apply(critic_params, batch.obs, batch.action, mm)
     td = y - q
     loss = torch.mean(batch.weight * torch.square(td))
     return loss, td
 
 
 def actor_loss(actor_params, critic_params, batch: Batch, action_scale,
-               action_offset=0.0):
+               action_offset=0.0, mm=None):
     """DPG loss: -mean(Q(s, mu(s)))."""
-    action = actor_apply(actor_params, batch.obs, action_scale, action_offset)
-    q = critic_apply(critic_params, batch.obs, action)
+    action = actor_apply(actor_params, batch.obs, action_scale, action_offset, mm)
+    q = critic_apply(critic_params, batch.obs, action, mm)
     return -torch.mean(q)
 
 
 def td3_critic_loss(critic_params, target_actor_params, target_critic_params,
-                    batch: Batch, action_scale, eps=None, action_offset=0.0):
+                    batch: Batch, action_scale, eps=None, action_offset=0.0, mm=None):
     """Clipped double-Q TD loss over a [2, ...] critic ensemble. `eps`
     ([B, act], already scaled and clipped to +-target_noise_clip) smooths
     the target action, which is then clipped to the action box; None means
@@ -61,26 +63,26 @@ def td3_critic_loss(critic_params, target_actor_params, target_critic_params,
     (loss, the ensemble-mean td[B])."""
     with torch.no_grad():
         next_action = actor_apply(
-            target_actor_params, batch.next_obs, action_scale, action_offset
+            target_actor_params, batch.next_obs, action_scale, action_offset, mm
         )
         if eps is not None:
             next_action = torch.clamp(
                 next_action + eps, action_offset - action_scale,
                 action_offset + action_scale,
             )
-        next_q = ensemble_critic_apply(target_critic_params, batch.next_obs, next_action)
+        next_q = ensemble_critic_apply(target_critic_params, batch.next_obs, next_action, mm)
         y = batch.reward + batch.discount * torch.min(next_q, dim=0).values
-    q = ensemble_critic_apply(critic_params, batch.obs, batch.action)   # [2, B]
+    q = ensemble_critic_apply(critic_params, batch.obs, batch.action, mm)   # [2, B]
     td = y[None, :] - q
     loss = torch.mean(batch.weight[None, :] * torch.square(td))
     return loss, torch.mean(td, dim=0)
 
 
 def td3_actor_loss(actor_params, critic_params, batch: Batch, action_scale,
-                   action_offset=0.0):
+                   action_offset=0.0, mm=None):
     """DPG loss through critic member 0 only (the TD3 convention)."""
-    action = actor_apply(actor_params, batch.obs, action_scale, action_offset)
-    return -torch.mean(critic_apply(critic_member(critic_params, 0), batch.obs, action))
+    action = actor_apply(actor_params, batch.obs, action_scale, action_offset, mm)
+    return -torch.mean(critic_apply(critic_member(critic_params, 0), batch.obs, action, mm))
 
 
 # --- SAC ---------------------------------------------------------------------
@@ -106,7 +108,7 @@ def sac_sample(mean, log_std, normal, action_scale, action_offset=0.0):
 
 def sac_critic_loss(critic_params, actor_params, target_critic_params, batch: Batch,
                     action_scale, normal, alpha, log_std_min: float, log_std_max: float,
-                    action_offset=0.0):
+                    action_offset=0.0, mm=None):
     """Entropy-regularized clipped double-Q TD loss over the [2, ...]
     ensemble: y = r + discount * (min_i Q'_i(s', a') - alpha * log pi(a'|s')),
     a' ~ pi(.|s') from the ONLINE actor (SAC has no target actor) with the
@@ -114,28 +116,28 @@ def sac_critic_loss(critic_params, actor_params, target_critic_params, batch: Ba
     ensemble-mean td [B])."""
     with torch.no_grad():
         mean, log_std = actor_gaussian_apply(actor_params, batch.next_obs, log_std_min,
-                                             log_std_max)
+                                             log_std_max, mm)
         next_action, next_lp = sac_sample(mean, log_std, normal, action_scale, action_offset)
         next_q = torch.min(
-            ensemble_critic_apply(target_critic_params, batch.next_obs, next_action), dim=0
+            ensemble_critic_apply(target_critic_params, batch.next_obs, next_action, mm), dim=0
         ).values
         y = batch.reward + batch.discount * (next_q - alpha * next_lp)
-    q = ensemble_critic_apply(critic_params, batch.obs, batch.action)   # [2, B]
+    q = ensemble_critic_apply(critic_params, batch.obs, batch.action, mm)   # [2, B]
     td = y[None, :] - q
     loss = torch.mean(batch.weight[None, :] * torch.square(td))
     return loss, torch.mean(td, dim=0)
 
 
 def sac_actor_loss(actor_params, critic_params, batch: Batch, action_scale, normal, alpha,
-                   log_std_min: float, log_std_max: float, action_offset=0.0):
+                   log_std_min: float, log_std_max: float, action_offset=0.0, mm=None):
     """Reparameterized actor objective E[alpha * log pi(a|s) - min_i Q_i(s, a)]
     against the ensemble min (the 1812.05905 convention). Returns (loss,
     mean log-prob), the latter for the temperature's update."""
-    mean, log_std = actor_gaussian_apply(actor_params, batch.obs, log_std_min, log_std_max)
+    mean, log_std = actor_gaussian_apply(actor_params, batch.obs, log_std_min, log_std_max, mm)
     action, lp = sac_sample(mean, log_std, normal, action_scale, action_offset)
     # amin's gradient splits ties 0.5/0.5, as jnp.min's does (torch.min's
     # goes to one member).
-    q = torch.amin(ensemble_critic_apply(critic_params, batch.obs, action), dim=0)
+    q = torch.amin(ensemble_critic_apply(critic_params, batch.obs, action, mm), dim=0)
     return torch.mean(alpha * lp - q), torch.mean(lp)
 
 
@@ -186,18 +188,19 @@ def categorical_projection(support, target_probs, rewards, discounts):
 
 
 def distributional_critic_loss(critic_params, target_actor_params, target_critic_params,
-                               batch: Batch, action_scale, support, action_offset=0.0):
+                               batch: Batch, action_scale, support, action_offset=0.0,
+                               mm=None):
     """Categorical TD loss: the weighted mean cross-entropy of the online
     logits against the projected target distribution. Returns (loss,
     E[Z_target] - E[Z] per row, the td proxy)."""
     with torch.no_grad():
         next_action = actor_apply(
-            target_actor_params, batch.next_obs, action_scale, action_offset
+            target_actor_params, batch.next_obs, action_scale, action_offset, mm
         )
         target_probs = F.softmax(
-            critic_apply(target_critic_params, batch.next_obs, next_action), dim=-1)
+            critic_apply(target_critic_params, batch.next_obs, next_action, mm), dim=-1)
         proj = categorical_projection(support, target_probs, batch.reward, batch.discount)
-    logits = critic_apply(critic_params, batch.obs, batch.action)
+    logits = critic_apply(critic_params, batch.obs, batch.action, mm)
     ce = -torch.sum(proj * F.log_softmax(logits, dim=-1), dim=-1)
     loss = torch.mean(batch.weight * ce)
     mean_q = torch.sum(F.softmax(logits, dim=-1) * support[None, :], dim=-1)
@@ -206,8 +209,8 @@ def distributional_critic_loss(critic_params, target_actor_params, target_critic
 
 
 def distributional_actor_loss(actor_params, critic_params, batch: Batch, action_scale,
-                              support, action_offset=0.0):
+                              support, action_offset=0.0, mm=None):
     """-mean(E[Z(s, mu(s))]), E[Z] = sum_j softmax(logits)_j z_j."""
-    action = actor_apply(actor_params, batch.obs, action_scale, action_offset)
-    logits = critic_apply(critic_params, batch.obs, action)
+    action = actor_apply(actor_params, batch.obs, action_scale, action_offset, mm)
+    logits = critic_apply(critic_params, batch.obs, action, mm)
     return -torch.mean(torch.sum(F.softmax(logits, dim=-1) * support[None, :], dim=-1))

@@ -16,7 +16,8 @@ report when it compiles) and times each branch the tree has at the main
 path's shapes (Pendulum obs 3 / act 1, 2x256, batch 64, K = 800): DDPG
 from step 1000, TD3 with policy_delay 2 and target_noise 0.2 from step
 1001, D4PG at 51 atoms and SAC (README's learning rates, the temperature
-learned) from step 1000 where the tree has them. The state, batch and
+learned) from step 1000 where the tree has them, and each of the four
+again with compute_dtype='bfloat16' where the tree has that branch. The state, batch and
 noise come from the tree's chip_smoke.py with the seeds its timing phase
 uses (trees may differ in the batch's weight column, which does not
 change the kernel's work). One warm-up chunk, then `reps` chunks between
@@ -59,6 +60,9 @@ def child(reps: int) -> None:
     if hasattr(cfg, "sac_autotune"):     # a tree with the SAC branch
         branches["fused_chunk_sac"] = (
             cfg.replace(sac=True, actor_lr=3e-4, critic_lr=3e-4, tau=0.005), 1000)
+    if hasattr(fc, "rounded_product_ops"):   # a tree with the bf16 branch
+        branches.update({f"{name}_bf16": (c.replace(compute_dtype="bfloat16"), step)
+                         for name, (c, step) in list(branches.items())})
     times = {}
     for name, (c, step) in branches.items():
         state = train_state_from_numpy(cs.random_state_np(c, OBS, ACT, seed=7, step=step),
@@ -70,7 +74,7 @@ def child(reps: int) -> None:
     print(json.dumps({
         "tree": os.getcwd(),
         "ptxas": [ln.strip() for ln in report.splitlines()
-                  if "registers" in ln or "spill" in ln],
+                  if "registers" in ln or "spill" in ln or "entry function" in ln],
         "us_per_step": times,
     }), flush=True)
 

@@ -288,6 +288,7 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         env_steps_per_sec=env_rate,
         final_return=final_return,
         chunks=chunks,
+        compute_dtype=config.compute_dtype,
         **metrics,
         **support_fields(),
     )
@@ -298,6 +299,7 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         "learner_steps": learn_steps,
         "chunks": chunks,
         "chunk_size": chunk,
+        "compute_dtype": config.compute_dtype,
         "env_steps": env_steps(),
         "final_return": final_return,
         **{k: metrics[k] for k in METRIC_KEYS if k in metrics},

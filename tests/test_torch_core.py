@@ -135,7 +135,7 @@ def test_adam_and_polyak_match_jax():
     jp, jopt = jstate.critic_params, jstate.critic_opt
     for _ in range(3):   # several steps: the bias correction follows the count
         p, opt = adam_update(p, grads, opt, 1e-3)
-        jp, jopt = jax_adam(jp, grads_np, jopt, 1e-3)
+        jp, jopt = jax.jit(jax_adam)(jp, grads_np, jopt, 1e-3)
     _close_trees(p, _np(jp))
     _close_trees(opt.mu, _np(jopt.mu))
     _close_trees(opt.nu, _np(jopt.nu))
@@ -151,7 +151,7 @@ def test_eager_steps_match_jax_learner_step():
     cfg = DDPGConfig(actor_hidden=HIDDEN, critic_hidden=HIDDEN, batch_size=B, seed=3,
                      device="cpu")
     packed = types.pack_batch_np(_fields(4, lead=(K, B)))
-    jstep, step = jax_step(jcfg, 2.0), make_learner_step(cfg, 2.0)
+    jstep, step = jax.jit(jax_step(jcfg, 2.0)), make_learner_step(cfg, 2.0)
     state = train_state_from_numpy(_np(jstate))
     for k in range(K):
         jout = jstep(jstate, jax_types.unpack_batch(jnp.asarray(packed[k]), OBS, ACT))
@@ -195,7 +195,7 @@ def test_config_defaults_match_jax():
 @pytest.mark.parametrize("override", [
     dict(policy_delay=2), dict(num_atoms=300, distributional=True),
     dict(sac=True, fused_update=True),
-    dict(prioritized=True), dict(compute_dtype="bfloat16"), dict(guardrails=True),
+    dict(prioritized=True), dict(compute_dtype="float16"), dict(guardrails=True),
     dict(data_axis=4), dict(model_axis=2), dict(actor_backend="device"),
     dict(serve_actors=True), dict(transport="shm"), dict(checkpoint_dir="/x"),
     dict(fused_update=True), dict(faults="worker:0:crash@5"),

@@ -107,17 +107,28 @@ def _softmax(x):
     return e, np.sum(e, -1, keepdims=True)
 
 
-def _interpret_program(cfg, state, packed, scale, offset, eps=None, obs=OBS, act=ACT):
+def _round_bf16(x):
+    """x rounded to the nearest bf16 value (ties to even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(x)).to(torch.bfloat16).float().numpy()
+
+
+def _interpret_program(cfg, state, packed, scale, offset, eps=None, obs=OBS, act=ACT,
+                       round_bias=False):
     """Executes fc._plan's task table the way csrc/fused_chunk.cu does
     (same offsets, strides, epilogues, C51's and SAC's row tasks, stage
     order, TD3's skipped tiles on steps without an actor update, optimizer
     pass, SAC's temperature and metric reduction), in numpy. `eps` is
-    TD3's noise or SAC's (eps_next, eps_cur), as numpy arrays. Returns
-    (flat state, td, metrics)."""
+    TD3's noise or SAC's (eps_next, eps_cur), as numpy arrays. Under
+    compute_dtype='bfloat16' a product segment's operands are rounded to
+    bf16 as they are loaded, unless its A operand is BASE_ONES (a bias
+    gradient), the kernel's rule; `round_bias` rounds those too (a wrong
+    kernel, for the tests of that rule). Returns (flat state, td,
+    metrics)."""
     k_steps, b, d = packed.shape
     prog = fc._plan(cfg, obs, act)
     na, nc = prog.n_actor, prog.n_critic
     twin, c51, sac = cfg.twin_critic, cfg.distributional, cfg.sac
+    bf16 = cfg.compute_dtype == "bfloat16"
     delay = cfg.policy_delay if twin else 1
     step0 = int(state.step)
     flat = fc.flatten_state(state).numpy().copy()
@@ -165,7 +176,10 @@ def _interpret_program(cfg, state, packed, scale, offset, eps=None, obs=OBS, act
                 z = np.zeros((M, N), np.float32)
                 for g in range(int(row[fc.F_NSEG])):
                     ab, ao, asm, asj, bb, bo, bsj, bsn, J = (int(v) for v in row[fc.F_SEG + 9 * g:fc.F_SEG + 9 * g + 9])
-                    z += gather(ab, ao, asm, asj, M, J) @ gather(bb, bo, bsj, bsn, J, N)
+                    x, y = gather(ab, ao, asm, asj, M, J), gather(bb, bo, bsj, bsn, J, N)
+                    if bf16 and (ab != fc.BASE_ONES or round_bias):
+                        x, y = _round_bf16(x), _round_bf16(y)
+                    z += x @ y
                 if row[fc.F_BIAS] >= 0:
                     z = z + gather(int(row[fc.F_BIAS]), int(row[fc.F_BIAS + 1]), 0, 1, 1, N)
                 epi = int(row[fc.F_EPI])

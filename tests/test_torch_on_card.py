@@ -15,8 +15,11 @@ D4PG with 21 atoms on [-5, 5], then again after the support moved to
 [-8, 3] (set_value_bounds rewrites the launch's support in place); SAC
 with the temperature learned, and again with both critic members equal
 (every row of the min gate ties), both with two normal streams drawn on
-the card, given to both.
-Tolerances: rtol 1e-4, atol 1e-5 (f32 with another summation order).
+the card, given to both. Then DDPG, TD3 (delay 2, noise), D4PG and SAC
+again with compute_dtype='bfloat16' (both versions round every product's
+operands to bf16 and sum in f32).
+Tolerances: rtol 1e-4, atol 1e-5 (f32 with another summation order), for
+the bf16 cases too.
 """
 
 import numpy as np
@@ -38,6 +41,12 @@ BRANCHES = {
     "d4pg": dict(distributional=True, num_atoms=21, v_min=-5.0, v_max=5.0),
     "sac": dict(sac=True),
     "sac-tied": dict(sac=True),
+    "ddpg-bf16": dict(compute_dtype="bfloat16"),
+    "td3-delay2-noise-bf16": dict(twin_critic=True, policy_delay=2, target_noise=0.2,
+                                  compute_dtype="bfloat16"),
+    "d4pg-bf16": dict(distributional=True, num_atoms=21, v_min=-5.0, v_max=5.0,
+                      compute_dtype="bfloat16"),
+    "sac-bf16": dict(sac=True, compute_dtype="bfloat16"),
 }
 
 # One torch thread: the tests' own host work is tiny.

@@ -83,7 +83,7 @@ def test_sample_chunk_matches_jax_gather_and_steps():
 
     storage, _ = jax_replay.device_state()
     packed = storage[jnp.asarray(idx)]
-    step = jax_step(jcfg, 2.0)
+    step = jax.jit(jax_step(jcfg, 2.0))
     tds, metrics = [], []
     for k in range(K):
         jout = step(jstate, jax_types.unpack_batch(packed[k], OBS, ACT))

@@ -229,9 +229,9 @@ def test_td3_losses_match_jax():
     jbatch = jax_types.unpack_batch(jnp.asarray(packed), OBS, ACT)
     batch = types.unpack_batch(torch.from_numpy(packed), OBS, ACT)
     key = jax.random.PRNGKey(9)
-    jloss, jtd = jax_losses.td3_critic_loss(
-        jstate.critic_params, jstate.target_actor_params, jstate.target_critic_params,
-        jbatch, SCALE, key, 0.2, 0.5, action_offset=OFFSET)
+    jloss, jtd = jax.jit(lambda *args: jax_losses.td3_critic_loss(
+        *args, SCALE, key, 0.2, 0.5, action_offset=OFFSET))(
+        jstate.critic_params, jstate.target_actor_params, jstate.target_critic_params, jbatch)
     eps = np.clip(0.2 * np.asarray(jax.random.normal(key, (B, ACT))), -0.5, 0.5)
     loss, td = losses.td3_critic_loss(
         state.critic_params, state.target_actor_params, state.target_critic_params,
@@ -240,8 +240,9 @@ def test_td3_losses_match_jax():
     _close(td.numpy(), np.asarray(jtd))
     _close(float(losses.td3_actor_loss(state.actor_params, state.critic_params, batch,
                                        torch.tensor(SCALE), torch.tensor(OFFSET))),
-           float(jax_losses.td3_actor_loss(jstate.actor_params, jstate.critic_params,
-                                           jbatch, SCALE, action_offset=OFFSET)))
+           float(jax.jit(lambda *args: jax_losses.td3_actor_loss(
+               *args, SCALE, action_offset=OFFSET))(jstate.actor_params, jstate.critic_params,
+                                                    jbatch)))
 
 
 # --- the eager step and the plain chunk against the JAX scan ------------------
