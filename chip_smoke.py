@@ -9,9 +9,19 @@ Phases (any failure raises; nothing is caught and passed over):
 1. Require CUDA; print the card's name and power limit; turn TF32 off for
    matmul and cuDNN (the kernels and their plain versions are true f32).
 2. Build every kernel of the port from csrc/ (one nvcc per source, all
-   started together).
+   started together): the learner chunk (fused_chunk.cu) and the fused
+   Adam + Polyak update (fused_update.cu); print each one's registers and
+   spills.
 3. Hold each kernel against its plain PyTorch version on the card, on the
-   same inputs, from one random TrainState carried in with
+   same inputs. First the fused update (ops/fused_update.py), 3 steps on
+   the JAX test's ragged leaves and on the Pendulum DDPG critic and actor
+   and the D4PG critic of a random state, at tests/test_fused.py's rtol
+   1e-6, atol 1e-7, with its largest gap in ULP (0 expected); then the
+   scan route (parallel/learner.make_scan_chunk_fn, K = 16 on one state
+   and draw): with fused_update (DDPG and D4PG) and with critic_l2 on the
+   card against the same chunk on the CPU, and with fused_chunk='off'
+   against the chunk kernel, under the f32 rule below. Then, from one
+   random TrainState carried in with
    train_state_from_numpy: the learner chunk (ops/fused_chunk.py) at
    Pendulum shapes (obs 3, act 1) and at the bench's (obs 17, act 6),
    2x256 nets, batch 64 -- its DDPG branch at K = 16 and K = 800 (the main
@@ -49,16 +59,26 @@ Phases (any failure raises; nothing is caught and passed over):
    printed), then SAC with --sac=true --actor_lr=3e-4 --critic_lr=3e-4
    --tau=0.005 for 20,000 (its final alpha is printed); then with
    --compute_dtype=bfloat16 DDPG for 20,000 env steps and TD3, D4PG and
-   SAC (their flags as above) for 5000 each. For each, the
-   launch counts are zeroed
-   just before and read just after: every chunk must have been one launch
-   of that branch's kernel, learner_steps = chunks x K, metrics finite.
+   SAC (their flags as above) for 5000 each; then the scan route:
+   --fused_update=true for 5000 env steps, the D4PG command above with
+   --fused_update=true and --critic_l2=0.01 for 2000 each. For each, the
+   launch counts are zeroed just before and read just after: on the
+   kernel route every chunk must have been one launch of that branch's
+   kernel and nothing else; on the scan route (fused_chunk_active false)
+   no chunk kernel, and the fused update twice a learner step when
+   fused_update is on, else never; learner_steps = chunks x K, metrics
+   finite.
 5. Time each branch of the kernel at the main path's shapes (CUDA events,
    warmed up) beside its plain version (one run) and its bound; the eager autograd
    step x K is printed as context only. Then break each f32 branch's time,
    and bf16 DDPG's, down into its barriers, its optimizer pass and each
    stage's tiles. The bf16 branches' bound counts their rounded products
-   at the bf16 tensor-core peak and the rest at the f32 peak.
+   at the bf16 tensor-core peak and the rest at the f32 peak. Then the
+   fused update per call at the Pendulum critic's and actor's sizes (the
+   kernel, its wrapper, the plain version and the library pair
+   torch._fused_adam_ + torch._foreach_lerp_, each as device time in a
+   CUDA graph and as host time launched eagerly, beside its bound), and
+   the scan route's chunk at K = 800 with fused_update on and off.
 
 It imports nothing of JAX or of the JAX package. The second-to-last line
 is the kernels' JSON record; the last line is the device record.
@@ -172,6 +192,14 @@ WEIGHTED_UP_TO = 16
 # steps of ~lr (1681 elements of the correct D4PG kernel past TIGHT_TOL
 # at K = 16).
 FRESH_MU_RTOL, FRESH_MU_SCALE = 1e-4, 1e-5
+# Operations per element of the fused Adam + Polyak update (csrc/
+# fused_update.cu): the first moment 3, the second 4, the param 7 (three
+# divides, a multiply, a square root, an add, a subtract), the target 3.
+FUSED_UPDATE_OPS = 17
+# The scan route's profile (time_scan_chunk): steps profiled, and the
+# runtime calls that launch a kernel.
+PROFILE_STEPS = 32
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel")
 
 
 def log(*args) -> None:
@@ -339,6 +367,78 @@ def to_double(tree):
     return tree_map_tensors(lambda t: t.double() if t.is_floating_point() else t, tree)
 
 
+STATE_GROUPS = ("actor", "critic", "target_actor", "target_critic",
+                "actor_mu", "actor_nu", "critic_mu", "critic_nu", "alpha")
+
+
+def chunk_outputs(state, td, metrics) -> dict:
+    """A chunk's outputs as three flat tensors: the state, td, the metrics."""
+    from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
+    from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
+
+    return {"state": fc.flatten_state(state), "td": td,
+            "metrics": torch.stack([metrics[n] for n in METRIC_KEYS])}
+
+
+def state_cuts(cfg, obs: int, act: int):
+    """Offsets of the state groups in fused_chunk.flatten_state's layout."""
+    from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
+
+    actor, critic = fc._net_dims(cfg, obs, act)
+    n_a = sum(i * o + o for i, o in actor)
+    n_c = sum(i * o + o for i, o in critic) * (2 if cfg.twin_critic or cfg.sac else 1)
+    return np.cumsum([0] + [n_a, n_c] * 4 + [fc._alpha_slots(cfg)]), STATE_GROUPS
+
+
+def compare_outputs(label: str, cfg, obs: int, act: int, got_all: dict, want_all: dict,
+                    fresh: bool = False):
+    """One chunk's outputs against another's under the f32 rule (STATE_TOL,
+    TIGHT_TOL within TIGHT_FRAC, OUT_TOL; C51's td also TD_ULPS of the
+    support's scale; from a `fresh` state the first moments FRESH_MU_*).
+    Logs each output's error; returns (largest error, names that fail)."""
+    cuts, groups = state_cuts(cfg, obs, act)
+    worst, failed = 0.0, []
+    for name in got_all:
+        got = got_all[name].double().cpu().numpy()
+        want = want_all[name].double().cpu().numpy()
+        if not np.all(np.isfinite(got)):
+            raise AssertionError(f"{label}: non-finite {name}")
+        err = np.abs(got - want)
+        worst = max(worst, float(err.max()))
+        tol = STATE_TOL if name == "state" else OUT_TOL
+        if name == "td" and cfg.distributional:
+            # td = E_proj[z] - E_p[z] cancels two sums over the support, so
+            # its rounding floor is that of the support's scale S, not of
+            # td: OUT_TOL's atol, or TD_ULPS rounding units of S if larger
+            # (only at scales past ~52, such as the main path's).
+            scale = max(abs(cfg.v_min), abs(cfg.v_max))
+            tol = dict(OUT_TOL, atol=max(OUT_TOL["atol"], TD_ULPS * F32_EPS * scale))
+        ok = bool(np.all(err <= tol["atol"] + tol["rtol"] * np.abs(want)))
+        line = f"  {label} {name}: max_abs_err={err.max():.3e}"
+        if name == "state":
+            loose = err > TIGHT_TOL["atol"] + TIGHT_TOL["rtol"] * np.abs(want)
+            frac = float(loose.mean())
+            where = {g: int(loose[cuts[i]:cuts[i + 1]].sum()) for i, g in enumerate(groups)
+                     if loose[cuts[i]:cuts[i + 1]].any()}
+            line += f", outside {TIGHT_TOL}: {frac:.2e} of elements {where}"
+            ok = ok and frac <= TIGHT_FRAC
+            if fresh:
+                mu_ratio = {}
+                for i, g in enumerate(groups):
+                    m = want[cuts[i]:cuts[i + 1]]
+                    if g.endswith("_mu") and m.size:
+                        tol_mu = FRESH_MU_RTOL * np.abs(m) + FRESH_MU_SCALE * np.abs(m).max()
+                        mu_ratio[g] = float(np.max(err[cuts[i]:cuts[i + 1]]
+                                                   / np.maximum(tol_mu, 1e-30)))
+                line += ", first moments' error / their tolerance: " + ", ".join(
+                    f"{g} {r:.2e}" for g, r in mu_ratio.items())
+                ok = ok and max(mu_ratio.values()) <= 1.0
+        if not ok:
+            failed.append(name)
+        log(line + ("" if ok else f" -- outside {tol} or TIGHT_FRAC"))
+    return worst, failed
+
+
 def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
                       referee: bool = False, bounds=None, rewards=None,
                       tied: bool = False, hot: bool = False,
@@ -383,63 +483,18 @@ def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
     ref, rtd, rmet = fc.fused_chunk_reference(cfg, state, packed, 2.0, 0.0, eps)
     torch.cuda.synchronize()
 
-    def outputs(s, t, m):
-        return {"state": fc.flatten_state(s), "td": t,
-                "metrics": torch.stack([m[n] for n in METRIC_KEYS])}
-
-    got_all, want_all = outputs(new, td, met), outputs(ref, rtd, rmet)
-    groups = ("actor", "critic", "target_actor", "target_critic",
-              "actor_mu", "actor_nu", "critic_mu", "critic_nu", "alpha")
-    prog = fc._plan(cfg, obs, act)
-    cuts = np.cumsum([0] + [prog.n_actor, prog.n_critic] * 4 + [fc._alpha_slots(cfg)])
-    worst, failed = 0.0, []
-    for name in got_all:
-        got = got_all[name].double().cpu().numpy()
-        want = want_all[name].double().cpu().numpy()
-        if not np.all(np.isfinite(got)):
-            raise AssertionError(f"{label}: non-finite {name}")
-        err = np.abs(got - want)
-        worst = max(worst, float(err.max()))
-        tol = STATE_TOL if name == "state" else OUT_TOL
-        if name == "td" and cfg.distributional:
-            # td = E_proj[z] - E_p[z] cancels two sums over the support, so
-            # its rounding floor is that of the support's scale S, not of
-            # td: OUT_TOL's atol, or TD_ULPS rounding units of S if larger
-            # (only at scales past ~52, such as the main path's).
-            scale = max(abs(cfg.v_min), abs(cfg.v_max))
-            tol = dict(OUT_TOL, atol=max(OUT_TOL["atol"], TD_ULPS * F32_EPS * scale))
-        ok = bool(np.all(err <= tol["atol"] + tol["rtol"] * np.abs(want)))
-        line = f"  {label} {name}: max_abs_err={err.max():.3e}"
-        if name == "state":
-            loose = err > TIGHT_TOL["atol"] + TIGHT_TOL["rtol"] * np.abs(want)
-            frac = float(loose.mean())
-            where = {g: int(loose[cuts[i]:cuts[i + 1]].sum()) for i, g in enumerate(groups)
-                     if loose[cuts[i]:cuts[i + 1]].any()}
-            line += f", outside {TIGHT_TOL}: {frac:.2e} of elements {where}"
-            ok = ok and frac <= TIGHT_FRAC
-            if fresh:
-                mu_ratio = {}
-                for i, g in enumerate(groups):
-                    m = want[cuts[i]:cuts[i + 1]]
-                    if g.endswith("_mu") and m.size:
-                        tol_mu = FRESH_MU_RTOL * np.abs(m) + FRESH_MU_SCALE * np.abs(m).max()
-                        mu_ratio[g] = float(np.max(err[cuts[i]:cuts[i + 1]]
-                                                   / np.maximum(tol_mu, 1e-30)))
-                line += ", first moments' error / their tolerance: " + ", ".join(
-                    f"{g} {r:.2e}" for g, r in mu_ratio.items())
-                ok = ok and max(mu_ratio.values()) <= 1.0
-        if not ok:
-            failed.append(name)
-        log(line + ("" if ok else f" -- outside {tol} or TIGHT_FRAC"))
+    got_all, want_all = chunk_outputs(new, td, met), chunk_outputs(ref, rtd, rmet)
+    worst, failed = compare_outputs(label, cfg, obs, act, got_all, want_all, fresh)
     if failed and not referee:
         raise AssertionError(f"{label}: {', '.join(failed)} outside the tolerances")
     if failed:
         exact, etd, emet = fc.fused_chunk_reference(
             cfg, to_double(state), packed.double(), 2.0, 0.0, to_double(eps))
-        exact_all = outputs(exact, etd, emet)
+        exact_all = chunk_outputs(exact, etd, emet)
+        cuts, groups = state_cuts(cfg, obs, act)
         spread = [want_all]
         if spread_on_cpu:
-            spread.append(outputs(*fc.fused_chunk_reference(
+            spread.append(chunk_outputs(*fc.fused_chunk_reference(
                 cfg, tree_map_tensors(torch.Tensor.cpu, state), packed.cpu(), 2.0, 0.0,
                 tree_map_tensors(torch.Tensor.cpu, eps))))
         bad = []
@@ -489,6 +544,243 @@ def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
         raise AssertionError(f"{label}: the temperature's count did not follow the autotune")
     log(f"  {label}: actor count +{want_a - count0} from step {step}")
     return worst
+
+
+def ulp_gap(a: np.ndarray, b: np.ndarray) -> int:
+    """The largest distance between two f32 arrays in units in the last
+    place (the count of f32 values between them; +0 and -0 are one)."""
+    def ordered(x):
+        i = np.ascontiguousarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, np.int64(-2 ** 31) - i, i)
+
+    return int(np.abs(ordered(a) - ordered(b)).max()) if a.size else 0
+
+
+def update_trees(which: str):
+    """(params, opt, targets, grads of step i) for the fused update's checks,
+    on the card: the JAX test's ragged leaves (tests/test_fused.py:23; zero
+    moments, count 0, grads sin(p + i)), or the critic or actor of a
+    random_state_np state at Pendulum shapes (DDPG, or D4PG's 51-atom
+    critic), with gradients drawn from N(0, 1e-2)."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
+    from distributed_ddpg_tpu_torch.types import OptState
+
+    if which == "ragged":
+        rng = np.random.default_rng(0)
+        shapes = [((17, 256), (256,)), ((256, 129), (3,))]
+
+        def tree(fn):
+            return tuple({"w": torch.from_numpy(fn(w)).cuda(),
+                          "b": torch.from_numpy(fn(b)).cuda()} for w, b in shapes)
+
+        normal = lambda s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+        zero = lambda s: np.zeros(s, np.float32)  # noqa: E731
+        params, targets = tree(normal), tree(normal)
+        opt = OptState(mu=tree(zero), nu=tree(zero),
+                       count=torch.zeros((), dtype=torch.int32, device="cuda"))
+        return params, opt, targets, lambda i, p: tuple(
+            {k: torch.sin(v + i) for k, v in layer.items()} for layer in p)
+    family, net = which.split("_")
+    cfg = DDPGConfig(distributional=family == "d4pg", v_min=-10.0, v_max=10.0)
+    state = train_state_from_numpy(random_state_np(cfg, 3, 1, seed=11), "cuda")
+    params = getattr(state, f"{net}_params")
+    rng = np.random.default_rng(12)
+    draws = [tuple({k: torch.from_numpy((1e-2 * rng.standard_normal(tuple(v.shape))
+                                         ).astype(np.float32)).cuda()
+                    for k, v in layer.items()} for layer in params) for _ in range(3)]
+    return (params, getattr(state, f"{net}_opt"), getattr(state, f"target_{net}_params"),
+            lambda i, p: draws[i])
+
+
+def check_fused_update(which: str, steps: int = 3) -> float:
+    """The fused update kernel against its plain version on the card over
+    `steps` steps: each carries its own state from the same start and takes
+    the same gradients. Holds every output to tests/test_fused.py's rtol
+    1e-6, atol 1e-7 and prints the largest gap in units in the last place
+    (0 expected: the kernel repeats the plain version's operations in its
+    order and constants). Returns the largest absolute difference."""
+    from distributed_ddpg_tpu_torch.ops import fused_update as fu
+    from distributed_ddpg_tpu_torch.ops.optim import tree_leaves
+
+    params, opt, targets, grads_at = update_trees(which)
+    p, o, t = params, opt, targets
+    rp, ro, rt = params, opt, targets
+    n = sum(x.numel() for x in tree_leaves(params))
+    worst, ulps = 0.0, 0
+    for i in range(steps):
+        grads = grads_at(i, rp)
+        p, o, t = fu.fused_adam_polyak(p, grads, o, t, 1e-3, 0.05)
+        rp, ro, rt = fu.fused_adam_polyak_reference(rp, grads, ro, rt, 1e-3, 0.05)
+        torch.cuda.synchronize()
+        for name, got, want in (("params", p, rp), ("mu", o.mu, ro.mu), ("nu", o.nu, ro.nu),
+                                ("targets", t, rt)):
+            a = torch.cat([x.reshape(-1) for x in tree_leaves(got)]).cpu().numpy()
+            b = torch.cat([x.reshape(-1) for x in tree_leaves(want)]).cpu().numpy()
+            if not np.all(np.isfinite(a)):
+                raise AssertionError(f"fused_update {which}: non-finite {name}")
+            err = np.abs(a.astype(np.float64) - b)
+            worst, ulps = max(worst, float(err.max())), max(ulps, ulp_gap(a, b))
+            if not np.all(err <= 1e-7 + 1e-6 * np.abs(b.astype(np.float64))):
+                raise AssertionError(
+                    f"fused_update {which} step {i}: {name} outside rtol 1e-6, atol 1e-7 "
+                    f"(max_abs_err {err.max():.3e})")
+    if int(o.count) != int(ro.count) or int(o.count) != int(opt.count) + steps:
+        raise AssertionError(f"fused_update {which}: count {int(o.count)}")
+    log(f"  fused_update {which} ({n} elements, {steps} steps): max_abs_err={worst:.3e}, "
+        f"largest gap {ulps} ulp")
+    return worst
+
+
+def check_scan_route(cfg, k: int = 16, against_kernel: bool = False) -> None:
+    """The scan chunk (parallel/learner.make_scan_chunk_fn) on the card on
+    one random state and weighted draw at Pendulum shapes, against the same
+    scan chunk on the CPU, or with `against_kernel` against the chunk
+    kernel on the card, under the f32 rule (compare_outputs)."""
+    from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
+    from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
+    from distributed_ddpg_tpu_torch.parallel.learner import make_scan_chunk_fn
+
+    obs, act, step = 3, 1, 1000
+    label = (f"scan route {'d4pg' if cfg.distributional else 'ddpg'} "
+             f"fused_update={cfg.fused_update} critic_l2={cfg.critic_l2} K={k} "
+             + ("vs the chunk kernel on the card" if against_kernel else
+                "on the card vs on the CPU"))
+    state_np = random_state_np(cfg, obs, act, seed=21, step=step)
+    packed = random_batches(seed=22, k=k, b=cfg.batch_size, obs=obs, act=act)
+    state = train_state_from_numpy(state_np, "cuda")
+    scan = make_scan_chunk_fn(cfg, obs, act, 2.0, 0.0, chunk_size=k)
+    got = chunk_outputs(*scan(state, packed, None, step0=step))
+    if against_kernel:
+        run = fc.make_fused_chunk_fn(cfg, obs, act, 2.0, 0.0, chunk_size=k, device="cuda")
+        want = chunk_outputs(*run(state, packed, None))
+    else:
+        want = chunk_outputs(*scan(train_state_from_numpy(state_np, "cpu"), packed.cpu(),
+                                   None, step0=step))
+    torch.cuda.synchronize()
+    _, failed = compare_outputs(label, cfg, obs, act, got, want)
+    if failed:
+        raise AssertionError(f"{label}: {', '.join(failed)} outside the tolerances")
+
+
+def graph_ms(fn, calls: int = 50) -> float:
+    """Device time of one call of `fn`: `calls` calls captured in one CUDA
+    graph, the graph replayed (CUDA events), so that the host's launch rate
+    does not enter. `fn` is run once first, on the capture's side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, reps=20) / calls
+
+
+def time_fused_update(card: str) -> dict:
+    """The fused update at the Pendulum critic's and actor's sizes (DDPG,
+    2x256), each as device time in a CUDA graph (graph_ms) and as host
+    time a call when launched eagerly (time_ms; the scan step pays this
+    today): its wrapper (gather, bias corrections, kernel, views), as the
+    port calls it; the plain version; the library pair torch._fused_adam_ +
+    torch._foreach_lerp_ (two calls, a yardstick only); and, as a breakdown
+    of the wrapper, the kernel alone launched directly on flat buffers (warm
+    in L2, as the scan step leaves them; not counted). Beside the bound, 36
+    bytes an element over HBM's rate. Returns the critic's fields for the
+    kernels' record: device times in a CUDA graph, `ms` the wrapper's."""
+    from distributed_ddpg_tpu_torch.ops import fused_update as fu
+    from distributed_ddpg_tpu_torch.ops.optim import B1, B2, EPS, tree_leaves
+
+    lib = fu._lib()
+    fields = {}
+    for net in ("critic", "actor"):
+        params, opt, targets, grads_at = update_trees(f"ddpg_{net}")
+        grads = grads_at(0, params)
+        leaves = [tree_leaves(x) for x in (params, opt.mu, opt.nu, targets, grads)]
+        n = sum(x.numel() for x in leaves[0])
+        flat = torch.stack([torch.cat([x.reshape(-1) for x in ls]) for ls in leaves])
+        bc = torch.tensor([1.0 - B1 ** 1001, 1.0 - B2 ** 1001], device="cuda")
+        blocks = max(1, min(fu.MAX_BLOCKS, -(-n // fu.THREADS)))
+        ptrs = [flat[i].data_ptr() for i in range(5)]
+
+        def kernel():
+            code = lib.fused_update_launch(ptrs[0], ptrs[1], ptrs[2], ptrs[4], ptrs[3],
+                                           bc.data_ptr(), bc.data_ptr() + 4, 1e-3, 1e-3,
+                                           1.0 - 1e-3, n, blocks,
+                                           torch.cuda.current_stream().cuda_stream)
+            if code != 0:
+                raise RuntimeError(f"fused_update launch failed: CUDA error {code}")
+
+        ps, ms_, vs, ts = ([x.clone() for x in ls] for ls in leaves[:4])
+        steps = [torch.tensor(1001.0, device="cuda") for _ in ps]
+
+        def library():
+            torch._fused_adam_(ps, leaves[4], ms_, vs, [], steps, lr=1e-3, beta1=B1,
+                               beta2=B2, weight_decay=0.0, eps=EPS, amsgrad=False,
+                               maximize=False)
+            torch._foreach_lerp_(ts, ps, 1e-3)
+
+        calls = {
+            "wrapper": lambda: fu.fused_adam_polyak(params, grads, opt, targets, 1e-3, 1e-3),
+            "kernel alone (breakdown)": kernel,
+            "plain": lambda: fu.fused_adam_polyak_reference(params, grads, opt, targets,
+                                                            1e-3, 1e-3),
+            "library pair": library,
+        }
+        device = {name: graph_ms(fn) for name, fn in calls.items()}
+        host = {name: time_ms(fn, reps=200) for name, fn in calls.items()}
+        nbytes = 36 * n + 8          # 5 reads and 4 writes of f32 an element; bc1, bc2
+        ops = FUSED_UPDATE_OPS * n
+        bound_ms = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS) * 1e3
+        log(f"[timing] {card}: fused_update {net} (n={n}), us a call, device time in a "
+            f"CUDA graph / eager launches: " + ", ".join(
+                f"{name} {device[name] * 1e3:.2f} / {host[name] * 1e3:.2f}" for name in calls)
+            + f"; bound {bound_ms * 1e3:.3f} us, bytes ({nbytes / 1e6:.2f} MB, "
+            f"{ops / 1e6:.2f} MFLOP)")
+        if net == "critic":
+            fields = {"ms": device["wrapper"], "plain_ms": device["plain"],
+                      "bound_ms": bound_ms,
+                      "bound_by": ("bytes" if nbytes / PEAK_BYTES_PER_S >= ops / PEAK_F32_FLOPS
+                                   else "operations"),
+                      "library_ms": device["library pair"]}
+    return fields
+
+
+def time_scan_chunk(card: str, cfg, k: int) -> None:
+    """The scan route's time per step at the main path's chunk (Pendulum,
+    2x256, K = k), with fused_update on and off: one chunk each, host
+    enqueue included (context beside the chunk kernel's time). Then
+    torch.profiler over a chunk of PROFILE_STEPS steps: kernel launches a
+    step and the card's busy time a step, whose ratio to the K = k step
+    time is the card's busy share on this route."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
+    from distributed_ddpg_tpu_torch.parallel.learner import make_scan_chunk_fn
+
+    state = train_state_from_numpy(random_state_np(cfg, 3, 1, seed=7), "cuda")
+    packed = random_batches(seed=8, k=k, b=cfg.batch_size, obs=3, act=1, weighted=False)
+    short = packed[:PROFILE_STEPS].contiguous()
+    for fused in (True, False):
+        c = cfg.replace(fused_update=fused, fused_chunk="off")
+        scan = make_scan_chunk_fn(c, 3, 1, 2.0, 0.0, chunk_size=k)
+        ms = time_ms(lambda: scan(state, packed, None, step0=1000), reps=1, warmup=False)
+        few = make_scan_chunk_fn(c, 3, 1, 2.0, 0.0, chunk_size=PROFILE_STEPS)
+        few(state, short, None, step0=1000)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            few(state, short, None, step0=1000)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        launches = sum(e.count for e in events if e.key in LAUNCH_CALLS) / PROFILE_STEPS
+        busy_us = sum(e.self_device_time_total for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / PROFILE_STEPS
+        step_us = ms * 1e3 / k
+        log(f"[timing] {card}: scan route K={k} fused_update={fused}: {ms:.1f} ms/chunk = "
+            f"{step_us:.2f} us/step; profiled over {PROFILE_STEPS} steps: {launches:.1f} "
+            f"kernel launches and {busy_us:.1f} us of device time a step, the card busy "
+            f"{busy_us / step_us:.1%} of a step")
 
 
 def breakdown(run, state, packed, eps, k: int) -> None:
@@ -545,7 +837,10 @@ def breakdown(run, state, packed, eps, k: int) -> None:
 def drive_main_path(flags, name: str) -> dict:
     """One run of `distributed_ddpg_tpu_torch.train` with these flags (the
     CLI's own parser), with the launch counts zeroed just before and read
-    just after. Every chunk must be one launch of kernel `name`."""
+    just after. On the kernel route every chunk must be one launch of
+    kernel `name`; on the scan route (`name` "scan") no chunk kernel may
+    launch, and the fused update twice a learner step when fused_update is
+    on, else never."""
     from distributed_ddpg_tpu_torch.config import DDPGConfig
     from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
     from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
@@ -567,8 +862,14 @@ def drive_main_path(flags, name: str) -> dict:
         if not support or support[0]["reason"] != "warmup" or not (
                 math.isfinite(summary["v_min"]) and summary["v_min"] < summary["v_max"]):
             raise AssertionError(f"main path {name}: no support resolved from warmup")
-    if summary["chunks"] < 1 or launches != {name: summary["chunks"]}:
-        raise AssertionError(f"kernel launches {launches} != {summary['chunks']} x {name}")
+    scan = name == "scan"
+    if summary["fused_chunk_active"] == scan:
+        raise AssertionError(f"main path {name}: fused_chunk_active is "
+                             f"{summary['fused_chunk_active']}")
+    want = ({"fused_update": 2 * summary["learner_steps"]} if cfg.fused_update else {}) \
+        if scan else {name: summary["chunks"]}
+    if summary["chunks"] < 1 or launches != want:
+        raise AssertionError(f"kernel launches {launches} != {want}")
     if summary["learner_steps"] != summary["chunks"] * resolve_learner_chunk(cfg):
         raise AssertionError("learner_steps != chunks x K")
     if summary["compute_dtype"] != cfg.compute_dtype:
@@ -660,7 +961,7 @@ def main() -> int:
     from distributed_ddpg_tpu_torch.ops import _build
 
     t0 = time.monotonic()
-    reports = _build.build_all(["fused_chunk"])
+    reports = _build.build_all(["fused_chunk", "fused_update"])
     log(f"[build] {time.monotonic() - t0:.1f}s")
     for name, report in reports.items():
         for line in report.splitlines():
@@ -672,6 +973,15 @@ def main() -> int:
     from distributed_ddpg_tpu_torch.parallel.learner import resolve_learner_chunk
 
     cfg = DDPGConfig()                        # 2x256, batch 64, f32, cuda
+    log("[parity] fused_update kernel vs fused_adam_polyak_reference on the card")
+    update_err = {which: check_fused_update(which)
+                  for which in ("ragged", "ddpg_critic", "ddpg_actor", "d4pg_critic")}
+    log("[parity] the scan route on the card")
+    check_scan_route(cfg.replace(fused_update=True))
+    check_scan_route(cfg.replace(fused_update=True, distributional=True, v_min=-10.0,
+                                 v_max=10.0))
+    check_scan_route(cfg.replace(critic_l2=0.01))
+    check_scan_route(cfg.replace(fused_chunk="off"), against_kernel=True)
     td3 = cfg.replace(twin_critic=True, policy_delay=2, target_noise=0.2)
     td3_plain = cfg.replace(twin_critic=True)  # delay 1, no noise input
     d4pg = cfg.replace(distributional=True, v_min=-10.0, v_max=10.0)   # 51 atoms
@@ -723,6 +1033,8 @@ def main() -> int:
         errs[(name, 3, K)] = check_fused_chunk(c, 3, 1, K, step, referee=True,
                                                spread_on_cpu=True)
 
+    log(f"[phase] parity done at {time.monotonic() - t_start:.1f}s")
+
     # --- 4. the main paths ---
     # D4PG and SAC, this slice's path, run 20k env steps each: tens of
     # chunks, so their rates are the steady state's and not the first
@@ -763,6 +1075,24 @@ def main() -> int:
         bf16 + ["--total_env_steps=5000", "--sac=true", "--actor_lr=3e-4",
                 "--critic_lr=3e-4", "--tau=0.005"],
         "fused_chunk_sac_bf16"))
+    # The scan route, this slice's path: DDPG with the fused update, then
+    # README's D4PG command with it and the DDPG paper's critic weight decay
+    # (no fused update), 5000 env steps each. A scan chunk of 800 eager
+    # steps holds the host ~4-6 s while the actor's queue (4 x 32 rows)
+    # fills, so a chunk brings in only ~130-140 env steps (PERF.md §5):
+    # 5000 env steps are ~30 chunks, ~120-190 s a path. 20,000 for DDPG
+    # would be ~140 chunks, ~500-800 s alone, more than cutting every
+    # earlier path could make room for.
+    update_launches = drive_main_path(common + ["--total_env_steps=5000",
+                                                "--fused_update=true"], "scan")
+    with tempfile.TemporaryDirectory() as tmp:
+        drive_main_path(
+            common + ["--total_env_steps=5000", "--distributional=true", "--n_step=5",
+                      "--v_min=auto", "--v_max=auto", "--fused_update=true",
+                      f"--log_path={os.path.join(tmp, 'd4pg_scan.jsonl')}"],
+            "scan")
+    drive_main_path(common + ["--total_env_steps=5000", "--critic_l2=0.01"], "scan")
+    log(f"[phase] main paths done at {time.monotonic() - t_start:.1f}s")
 
     # --- 5. timing at the main path's shapes ---
     timing = {
@@ -778,6 +1108,8 @@ def main() -> int:
         timing[name] = time_branch(c.replace(compute_dtype="bfloat16"), name, K, step, card,
                                    eager=name == "fused_chunk_bf16",
                                    split=name == "fused_chunk_bf16")
+    update_timing = time_fused_update(card)
+    time_scan_chunk(card, cfg, K)
     log(f"[done] {time.monotonic() - t_start:.1f}s")
 
     print(json.dumps({"kernels": [{
@@ -789,7 +1121,15 @@ def main() -> int:
         "max_abs_err": errs[(name, 3, K)],
         **timing[name],
         "library_ms": None,
-    } for name in timing]}), flush=True)
+    } for name in timing] + [{
+        "name": "fused_update",
+        "route": "cuda",
+        "source": "distributed_ddpg_tpu_torch/csrc/fused_update.cu",
+        "replaces": "distributed_ddpg_tpu/ops/fused_update.py:81",
+        "launches": update_launches["fused_update"],
+        "max_abs_err": update_err["ddpg_critic"],
+        **update_timing,
+    }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,15 @@ Counterpart of distributed_ddpg_tpu/config.py, trimmed to the fields this
 slice reads. Every kept field has the JAX package's name and default, so a
 command line written for `python -m distributed_ddpg_tpu.train` means the
 same thing here; a flag the port does not know is an argparse error. The
-learner chunk is always the hand-written kernel on the card (there is no
-scan path, so no `fused_chunk` or `backend` switch). Options the port
-does not implement yet keep their field and default, and a non-default
-value raises a ValueError naming the option (ROADMAP.md lists the order
-they arrive in) — never a silent no-op.
+learner runs each chunk on one of two routes, chosen once from the config
+(`fused_chunk`, parallel/learner.py): the hand-written chunk kernel for
+configs inside its envelope (ops/fused_chunk.supported), or the scan route,
+K eager steps, for the rest (critic_l2 > 0, action_insert_layer != 1, one
+critic hidden layer, more than 256 atoms, fused_update=True, whose steps
+run the fused Adam + Polyak kernel). Options the port does not implement
+yet keep their field and default, and a non-default value raises a
+ValueError naming the option (ROADMAP.md lists the order they arrive in)
+— never a silent no-op.
 
 `device` is the port's own field: "cuda" (default) runs the learner on the
 card and raises if none is present; "cpu" runs the plain PyTorch versions
@@ -26,7 +30,6 @@ from typing import Sequence
 _NOT_IN_SLICE = {
     "prioritized": False,
     "guardrails": False,
-    "fused_update": False,
     "serve_actors": False,
     "checkpoint_dir": "",
     "faults": "",
@@ -129,6 +132,13 @@ class DDPGConfig:
     # accumulates in f32; params, Adam state, targets and activations stay
     # f32 (models/mlp.py, ops/fused_chunk.py).
     compute_dtype: str = "float32"
+    # Adam + Polyak of each step in one fused kernel (ops/fused_update.py);
+    # DDPG and D4PG only, on the scan route.
+    fused_update: bool = False
+    # The learner chunk kernel: "auto" runs it whenever the config is in
+    # its envelope (ops/fused_chunk.supported), else the scan route; "on"
+    # requires it (error if unsupported); "off" always takes the scan.
+    fused_chunk: str = "auto"
 
     # --- run control ---
     total_env_steps: int = 100_000
@@ -141,7 +151,6 @@ class DDPGConfig:
     # --- options outside this slice (see _NOT_IN_SLICE) ---
     prioritized: bool = False
     guardrails: bool = False
-    fused_update: bool = False
     serve_actors: bool = False
     checkpoint_dir: str = ""         # checkpoint and resume come later
     faults: str = ""
@@ -307,26 +316,20 @@ class DDPGConfig:
                 f"data_axis={self.data_axis} is not implemented in the "
                 "PyTorch port yet: the learner runs on one device"
             )
-        if self.action_insert_layer != 1:
+        if self.fused_chunk not in ("auto", "on", "off"):
             raise ValueError(
-                f"action_insert_layer={self.action_insert_layer} is not "
-                "implemented in the PyTorch port yet (only 1)"
+                f"fused_chunk must be 'auto', 'on', or 'off', got "
+                f"{self.fused_chunk!r}"
             )
-        if self.critic_l2 != 0.0:
+        if not 0 <= self.action_insert_layer <= len(self.critic_hidden):
             raise ValueError(
-                f"critic_l2={self.critic_l2} is not implemented in the "
-                "PyTorch port yet (only 0)"
+                f"action_insert_layer={self.action_insert_layer} out of range "
+                f"for critic with {len(self.critic_hidden) + 1} layers"
             )
-        if self.distributional and not 2 <= self.num_atoms <= 256:
-            raise ValueError(
-                f"num_atoms={self.num_atoms} is not implemented in the PyTorch "
-                "port yet: the learner chunk kernel takes 2 to 256 atoms"
-            )
-        if len(self.critic_hidden) < 2 or len(self.actor_hidden) < 1:
-            raise ValueError(
-                "the learner chunk kernel needs >= 2 critic hidden layers "
-                "and >= 1 actor hidden layer"
-            )
+        if self.distributional and self.num_atoms < 2:
+            raise ValueError(f"num_atoms must be >= 2, got {self.num_atoms}")
+        if len(self.actor_hidden) < 1:
+            raise ValueError("the actor needs >= 1 hidden layer")
         if self.device not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', got {self.device!r}")
         if self.n_step < 1:

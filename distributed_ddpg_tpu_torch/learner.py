@@ -17,7 +17,15 @@ With TD3 and policy_delay > 1 the critic steps every call, while the
 actor's Adam and BOTH Polyak updates run only when the pre-increment
 `state.step % policy_delay == 0` (learner.py:364-416 of the JAX package):
 actor_opt.count advances only then, and actor_grad_norm reads 0 on the
-other steps. The smoothing noise is an input (`eps`), see ops/losses.py.
+other steps. The step's index can come from the host (`step_index`), so
+that a chunk of steps on the card never reads the count back. The
+smoothing noise is an input (`eps`), see ops/losses.py.
+
+With fused_update (DDPG and D4PG; learner.py:417-430 of the JAX package)
+Adam and Polyak of each net run as one launch of the fused kernel
+(ops/fused_update.py), the critic's first. Every loss takes the config's
+action_insert_layer, and the DDPG, TD3 and SAC critic losses its
+critic_l2 weight decay.
 
 SAC (`sac_step`, learner.py:181-281 of the JAX package) takes its two
 standard-normal streams as inputs, eps = (normal_next, normal_cur): the
@@ -35,9 +43,12 @@ input gradients (models/mlp.py::_Bf16Dense). The CUDA kernel and its plain
 version round elsewhere (ops/fused_chunk.py), as the JAX kernel does.
 make_act_fn stays f32, as the JAX package's does.
 
-The training path runs K of these per dispatch inside the CUDA kernel
-(ops/fused_chunk.py); this step is what the kernel and its plain version
-are held against.
+The training path runs K of these per dispatch inside the CUDA chunk
+kernel (ops/fused_chunk.py) when the config is in its envelope, else
+as K of these steps, the scan route (parallel/learner.py); this step is
+what the kernel and its plain version are held against. The step builds
+its constants (action scale and offset, the C51 support) on the device
+once, so a step on the card copies nothing from the host.
 
 `train_state_from_numpy` / `train_state_to_numpy` carry weights across the
 frameworks: the JAX TrainState, passed as numpy (`jax.tree.map(np.asarray,
@@ -62,6 +73,7 @@ from distributed_ddpg_tpu_torch.models.mlp import (
     critic_init,
 )
 from distributed_ddpg_tpu_torch.ops import losses
+from distributed_ddpg_tpu_torch.ops.fused_update import fused_adam_polyak
 from distributed_ddpg_tpu_torch.ops.optim import adam_update, tree_leaves, tree_map
 from distributed_ddpg_tpu_torch.ops.polyak import polyak_update
 from distributed_ddpg_tpu_torch.types import Batch, OptState, TrainState
@@ -101,11 +113,14 @@ def init_train_state(config: DDPGConfig, obs_dim: int, act_dim: int, seed: int,
     log(sac_alpha) and alpha_opt (with sac_autotune) at zero."""
     gen = torch.Generator().manual_seed(int(seed))
     heads = config.num_atoms if config.distributional else 1
+    ail = config.action_insert_layer
     actor = actor_init(gen, obs_dim, actor_head_dim(act_dim, config.sac),
                        tuple(config.actor_hidden), device)
-    critic = critic_init(gen, obs_dim, act_dim, tuple(config.critic_hidden), device, heads)
+    critic = critic_init(gen, obs_dim, act_dim, tuple(config.critic_hidden), device, heads,
+                         ail)
     if config.twin_critic or config.sac:
-        second = critic_init(gen, obs_dim, act_dim, tuple(config.critic_hidden), device)
+        second = critic_init(gen, obs_dim, act_dim, tuple(config.critic_hidden), device,
+                             heads, ail)
         critic = tree_map(lambda a, b: torch.stack([a, b]), critic, second)
     zeros = lambda t: tree_map(torch.zeros_like, t)  # noqa: E731
     count = lambda: torch.zeros((), dtype=torch.int32, device=device)  # noqa: E731
@@ -138,29 +153,49 @@ def _mm_dtype(config: DDPGConfig):
     return torch.bfloat16 if config.compute_dtype == "bfloat16" else None
 
 
+def _device_constants(action_scale, action_offset, config: DDPGConfig):
+    """Returns device -> (scale, offset, C51 support or None), each built on
+    that device at its first use and kept: a copy from the host waits for
+    the card, so a step must not make one."""
+    cache = {}
+
+    def get(device):
+        key = str(device)
+        if key not in cache:
+            support = (losses.categorical_support(config.v_min, config.v_max,
+                                                  config.num_atoms, device)
+                       if config.distributional else None)
+            cache[key] = (_as_tensor(action_scale, device), _as_tensor(action_offset, device),
+                          support)
+        return cache[key]
+
+    return get
+
+
 def make_sac_step(config: DDPGConfig, action_scale, action_offset=0.0):
-    """Returns (state, batch, eps) -> StepOutput, one eager SAC step;
-    eps = (normal_next, normal_cur), two standard-normal [B, act] draws."""
+    """Returns (state, batch, eps, step_index=None) -> StepOutput, one eager
+    SAC step; eps = (normal_next, normal_cur), two standard-normal [B, act]
+    draws. SAC has no delay, so step_index is not read."""
     lo, hi = config.sac_log_std_min, config.sac_log_std_max
     mm = _mm_dtype(config)
+    ail, l2 = config.action_insert_layer, config.critic_l2
+    constants = _device_constants(action_scale, action_offset, config)
 
-    def sac_step(state: TrainState, batch: Batch, eps) -> StepOutput:
+    def sac_step(state: TrainState, batch: Batch, eps, step_index=None) -> StepOutput:
         config.check_noise(eps)
         normal_next, normal_cur = eps
-        device = batch.obs.device
-        scale = _as_tensor(action_scale, device)
-        offset = _as_tensor(action_offset, device)
+        scale, offset, _ = constants(batch.obs.device)
         alpha = torch.exp(state.log_alpha)
 
         cp = tree_map(lambda x: x.detach().requires_grad_(True), state.critic_params)
         closs, td = losses.sac_critic_loss(
             cp, state.actor_params, state.target_critic_params, batch, scale,
-            normal_next, alpha, lo, hi, offset, mm)
+            normal_next, alpha, lo, hi, offset, mm, ail, l2)
         cgrads = _untree(torch.autograd.grad(closs, tree_leaves(cp)), state.critic_params)
         # The actor's gradient against the pre-update critics.
         ap = tree_map(lambda x: x.detach().requires_grad_(True), state.actor_params)
         aloss, mean_lp = losses.sac_actor_loss(
-            ap, state.critic_params, batch, scale, normal_cur, alpha, lo, hi, offset, mm)
+            ap, state.critic_params, batch, scale, normal_cur, alpha, lo, hi, offset, mm, ail)
         agrads = _untree(torch.autograd.grad(aloss, tree_leaves(ap)), state.actor_params)
 
         with torch.no_grad():
@@ -205,45 +240,46 @@ def make_sac_step(config: DDPGConfig, action_scale, action_offset=0.0):
 
 
 def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0):
-    """Returns (state, batch, eps=None) -> StepOutput, one eager autograd
-    step. `eps` is TD3's smoothing noise [B, act] (scaled and clipped), and
-    is required exactly when twin_critic and target_noise > 0; under SAC
-    it is the pair of normals make_sac_step takes."""
+    """Returns (state, batch, eps=None, step_index=None) -> StepOutput, one
+    eager autograd step. `eps` is TD3's smoothing noise [B, act] (scaled
+    and clipped), and is required exactly when twin_critic and
+    target_noise > 0; under SAC it is the pair of normals make_sac_step
+    takes. `step_index` is state.step as a host int, for TD3's delay test
+    (else the step reads state.step back from its device)."""
     if config.sac:
         return make_sac_step(config, action_scale, action_offset)
     twin = bool(config.twin_critic)
     delay = int(config.policy_delay)   # 1 unless TD3 (config gate)
     mm = _mm_dtype(config)
+    ail, l2 = config.action_insert_layer, config.critic_l2
+    constants = _device_constants(action_scale, action_offset, config)
 
-    def step(state: TrainState, batch: Batch, eps=None) -> StepOutput:
+    def step(state: TrainState, batch: Batch, eps=None, step_index=None) -> StepOutput:
         config.check_noise(eps)
         device = batch.obs.device
-        scale = _as_tensor(action_scale, device)
-        offset = _as_tensor(action_offset, device)
+        scale, offset, support = constants(device)
 
         # --- critic gradient ---
         cp = tree_map(lambda x: x.detach().requires_grad_(True), state.critic_params)
         if config.distributional:
-            support = losses.categorical_support(
-                config.v_min, config.v_max, config.num_atoms, device)
             closs, td = losses.distributional_critic_loss(
                 cp, state.target_actor_params, state.target_critic_params,
-                batch, scale, support, offset, mm,
+                batch, scale, support, offset, mm, ail,
             )
 
-            def actor_loss(ap, critic, batch, scale, offset, mm):
+            def actor_loss(ap, critic, batch, scale, offset, mm, ail):
                 return losses.distributional_actor_loss(ap, critic, batch, scale, support,
-                                                        offset, mm)
+                                                        offset, mm, ail)
         elif twin:
             closs, td = losses.td3_critic_loss(
                 cp, state.target_actor_params, state.target_critic_params,
-                batch, scale, eps, offset, mm,
+                batch, scale, eps, offset, mm, ail, l2,
             )
             actor_loss = losses.td3_actor_loss
         else:
             closs, td = losses.critic_loss(
                 cp, state.target_actor_params, state.target_critic_params,
-                batch, scale, offset, mm,
+                batch, scale, offset, mm, ail, l2,
             )
             actor_loss = losses.actor_loss
         cgrads = torch.autograd.grad(closs, tree_leaves(cp))
@@ -251,17 +287,30 @@ def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0):
         # --- actor loss, through the pre-update critic; its gradient only
         # on update steps (every step unless TD3 delays it) ---
         ap = tree_map(lambda x: x.detach().requires_grad_(True), state.actor_params)
-        aloss = actor_loss(ap, state.critic_params, batch, scale, offset, mm)
-        update = delay == 1 or int(state.step) % delay == 0
+        aloss = actor_loss(ap, state.critic_params, batch, scale, offset, mm, ail)
+        update = delay == 1 or (
+            int(state.step) if step_index is None else step_index) % delay == 0
         agrads = torch.autograd.grad(aloss, tree_leaves(ap)) if update else None
 
         with torch.no_grad():
             cgrads = _untree(cgrads, state.critic_params)
-            new_critic, critic_opt = adam_update(
-                state.critic_params, cgrads, state.critic_opt, config.critic_lr
-            )
             if update:
                 agrads = _untree(agrads, state.actor_params)
+                actor_grad_norm = optree_norm(agrads)
+            if config.fused_update:
+                # Adam + Polyak of each net in one kernel launch, critic first.
+                new_critic, critic_opt, new_target_critic = fused_adam_polyak(
+                    state.critic_params, cgrads, state.critic_opt,
+                    state.target_critic_params, config.critic_lr, config.tau,
+                )
+                new_actor, actor_opt, new_target_actor = fused_adam_polyak(
+                    state.actor_params, agrads, state.actor_opt,
+                    state.target_actor_params, config.actor_lr, config.tau,
+                )
+            elif update:
+                new_critic, critic_opt = adam_update(
+                    state.critic_params, cgrads, state.critic_opt, config.critic_lr
+                )
                 new_actor, actor_opt = adam_update(
                     state.actor_params, agrads, state.actor_opt, config.actor_lr
                 )
@@ -271,8 +320,10 @@ def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0):
                 new_target_critic = polyak_update(
                     new_critic, state.target_critic_params, config.tau
                 )
-                actor_grad_norm = optree_norm(agrads)
             else:
+                new_critic, critic_opt = adam_update(
+                    state.critic_params, cgrads, state.critic_opt, config.critic_lr
+                )
                 new_actor, actor_opt = state.actor_params, state.actor_opt
                 new_target_actor = state.target_actor_params
                 new_target_critic = state.target_critic_params

@@ -5,9 +5,10 @@ Counterpart of distributed_ddpg_tpu/models/mlp.py, same shapes and init:
 - Actor mu(s): relu hiddens, tanh output mapped onto the action box.
 - SAC's Gaussian actor: the same MLP with a linear [mean | log_std_raw]
   head (2*act wide), log_std soft-clamped onto [min, max] with a tanh.
-- Critic Q(s, a): relu MLP whose layer 1 takes [features, action]
-  (classic DDPG; the action enters at the second layer); under D4PG its
-  head has num_atoms logits.
+- Critic Q(s, a): relu MLP whose layer `action_insert_layer` takes
+  [features, action] (1 by default: classic DDPG, the action enters at
+  the second layer; 0 is the input layer); under D4PG its head has
+  num_atoms logits.
 - Hidden layers ~ U(-1/sqrt(fan_in), +1/sqrt(fan_in)); final layers
   ~ U(-FINAL_INIT_SCALE, +FINAL_INIT_SCALE).
 
@@ -62,14 +63,21 @@ def actor_init(gen: torch.Generator, obs_dim: int, act_dim: int,
 
 
 def critic_init(gen: torch.Generator, obs_dim: int, act_dim: int,
-                hidden: Sequence[int], device="cpu", num_outputs: int = 1) -> Params:
-    """Critic params; layer 1's input is [hidden[0] features, action].
-    `num_outputs > 1` is the D4PG categorical head (one logit per atom)."""
+                hidden: Sequence[int], device="cpu", num_outputs: int = 1,
+                action_insert_layer: int = 1) -> Params:
+    """Critic params; layer `action_insert_layer`'s input is [features,
+    action]. `num_outputs > 1` is the D4PG categorical head (one logit per
+    atom)."""
     dims = [obs_dim, *hidden, num_outputs]
     n = len(dims) - 1
+    if not 0 <= action_insert_layer < n:
+        raise ValueError(
+            f"action_insert_layer={action_insert_layer} out of range for a "
+            f"{n}-layer critic (valid: 0..{n - 1})"
+        )
     return tuple(
         _linear_init(
-            gen, dims[i] + (act_dim if i == 1 else 0), dims[i + 1],
+            gen, dims[i] + (act_dim if i == action_insert_layer else 0), dims[i + 1],
             final=(i == n - 1), device=device,
         )
         for i in range(n)
@@ -139,14 +147,14 @@ def actor_gaussian_apply(params: Params, obs: torch.Tensor, log_std_min: float,
     return mean, log_std
 
 
-def critic_apply(params: Params, obs: torch.Tensor,
-                 action: torch.Tensor, mm_dtype=None) -> torch.Tensor:
+def critic_apply(params: Params, obs: torch.Tensor, action: torch.Tensor,
+                 mm_dtype=None, action_insert_layer: int = 1) -> torch.Tensor:
     """Q(s, a) -> f32[B] (f32[B, num_atoms] logits for a D4PG head); the
-    action joins the features at layer 1."""
+    action joins the features at layer `action_insert_layer`."""
     x = obs
     n = len(params)
     for i, layer in enumerate(params):
-        if i == 1:
+        if i == action_insert_layer:
             x = torch.cat([x, action], dim=-1)
         x = _dense(x, layer, mm_dtype)
         if i < n - 1:
@@ -159,10 +167,11 @@ def critic_member(params: Params, m: int) -> Params:
     return tuple({k: layer[k][m] for k in ("w", "b")} for layer in params)
 
 
-def ensemble_critic_apply(params: Params, obs: torch.Tensor,
-                          action: torch.Tensor, mm_dtype=None) -> torch.Tensor:
+def ensemble_critic_apply(params: Params, obs: torch.Tensor, action: torch.Tensor,
+                          mm_dtype=None, action_insert_layer: int = 1) -> torch.Tensor:
     """Q of both members of a [2, ...] critic ensemble -> f32[2, B] (the
     JAX package vmaps critic_apply over the leading axis)."""
-    return torch.stack(
-        [critic_apply(critic_member(params, m), obs, action, mm_dtype) for m in range(2)]
-    )
+    return torch.stack([
+        critic_apply(critic_member(params, m), obs, action, mm_dtype, action_insert_layer)
+        for m in range(2)
+    ])

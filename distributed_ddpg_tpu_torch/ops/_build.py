@@ -13,6 +13,7 @@ flags, so an edited source rebuilds and an unchanged one is reused.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -29,6 +30,10 @@ FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+# Launches of each hand-written kernel in this process, counted by its
+# wrapper where it launches (chip_smoke.py zeroes and reads them).
+KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def _nvcc() -> str:

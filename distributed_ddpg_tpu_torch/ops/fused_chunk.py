@@ -86,7 +86,6 @@ Three pieces live here:
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import math
 from typing import Dict, List, NamedTuple, Tuple
@@ -97,13 +96,10 @@ import torch
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
 from distributed_ddpg_tpu_torch.models.mlp import round_bf16
+from distributed_ddpg_tpu_torch.ops._build import KERNEL_LAUNCHES
 from distributed_ddpg_tpu_torch.ops.losses import TANH_EPS, sac_target_entropy, support_row
 from distributed_ddpg_tpu_torch.ops.optim import B1, B2, EPS
 from distributed_ddpg_tpu_torch.types import OptState, TrainState
-
-# Launches of each hand-written kernel in this process, counted by the
-# wrapper where it launches (chip_smoke.py zeroes and reads them).
-KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 
 # --- the kernel's program format (mirrors csrc/fused_chunk.cu) ------------
 

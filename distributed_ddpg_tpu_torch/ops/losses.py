@@ -9,7 +9,11 @@ normals are inputs here, drawn by the caller: the JAX package draws them
 inside the loss from a key, and the two frameworks' random streams differ,
 so the tests pass the JAX draw in. `mm` is the matmul dtype of every
 network apply: None (f32) or torch.bfloat16 (models/mlp.py::_dense), as
-the JAX losses' `mm_dtype`.
+the JAX losses' `mm_dtype`. Every loss takes `action_insert_layer`, the
+critic layer the action joins at; the DDPG, TD3 and SAC critic losses
+take `l2`, the weight decay l2 * sum of w^2 over the critic's weight
+leaves (both ensemble members), as the JAX losses do. The JAX D4PG loss
+has no such term, so neither has this one.
 """
 
 from __future__ import annotations
@@ -30,37 +34,50 @@ from distributed_ddpg_tpu_torch.models.mlp import (
 from distributed_ddpg_tpu_torch.types import Batch
 
 
+def weight_decay(critic_params, l2: float, loss):
+    """loss + l2 * sum(w^2) over the critic's weight leaves (whole [2, ...]
+    leaves for an ensemble); the loss itself when l2 is 0."""
+    if l2 > 0.0:
+        loss = loss + l2 * sum(torch.sum(torch.square(layer["w"])) for layer in critic_params)
+    return loss
+
+
 def critic_loss(critic_params, target_actor_params, target_critic_params,
-                batch: Batch, action_scale, action_offset=0.0, mm=None):
-    """Weighted MSE TD loss against y = r + discount * Q'(s', mu'(s')).
-    Returns (loss, td_errors[B])."""
+                batch: Batch, action_scale, action_offset=0.0, mm=None,
+                action_insert_layer: int = 1, l2: float = 0.0):
+    """Weighted MSE TD loss against y = r + discount * Q'(s', mu'(s')),
+    plus the weight decay. Returns (loss, td_errors[B])."""
+    ail = action_insert_layer
     with torch.no_grad():
         next_action = actor_apply(
             target_actor_params, batch.next_obs, action_scale, action_offset, mm
         )
-        next_q = critic_apply(target_critic_params, batch.next_obs, next_action, mm)
+        next_q = critic_apply(target_critic_params, batch.next_obs, next_action, mm, ail)
         y = batch.reward + batch.discount * next_q
-    q = critic_apply(critic_params, batch.obs, batch.action, mm)
+    q = critic_apply(critic_params, batch.obs, batch.action, mm, ail)
     td = y - q
     loss = torch.mean(batch.weight * torch.square(td))
-    return loss, td
+    return weight_decay(critic_params, l2, loss), td
 
 
 def actor_loss(actor_params, critic_params, batch: Batch, action_scale,
-               action_offset=0.0, mm=None):
+               action_offset=0.0, mm=None, action_insert_layer: int = 1):
     """DPG loss: -mean(Q(s, mu(s)))."""
     action = actor_apply(actor_params, batch.obs, action_scale, action_offset, mm)
-    q = critic_apply(critic_params, batch.obs, action, mm)
+    q = critic_apply(critic_params, batch.obs, action, mm, action_insert_layer)
     return -torch.mean(q)
 
 
 def td3_critic_loss(critic_params, target_actor_params, target_critic_params,
-                    batch: Batch, action_scale, eps=None, action_offset=0.0, mm=None):
+                    batch: Batch, action_scale, eps=None, action_offset=0.0, mm=None,
+                    action_insert_layer: int = 1, l2: float = 0.0):
     """Clipped double-Q TD loss over a [2, ...] critic ensemble. `eps`
     ([B, act], already scaled and clipped to +-target_noise_clip) smooths
     the target action, which is then clipped to the action box; None means
-    no smoothing. The loss is the MEAN over [2, B] of w * td^2. Returns
-    (loss, the ensemble-mean td[B])."""
+    no smoothing. The loss is the MEAN over [2, B] of w * td^2, plus the
+    weight decay over both members. Returns (loss, the ensemble-mean
+    td[B])."""
+    ail = action_insert_layer
     with torch.no_grad():
         next_action = actor_apply(
             target_actor_params, batch.next_obs, action_scale, action_offset, mm
@@ -70,19 +87,21 @@ def td3_critic_loss(critic_params, target_actor_params, target_critic_params,
                 next_action + eps, action_offset - action_scale,
                 action_offset + action_scale,
             )
-        next_q = ensemble_critic_apply(target_critic_params, batch.next_obs, next_action, mm)
+        next_q = ensemble_critic_apply(target_critic_params, batch.next_obs, next_action,
+                                       mm, ail)
         y = batch.reward + batch.discount * torch.min(next_q, dim=0).values
-    q = ensemble_critic_apply(critic_params, batch.obs, batch.action, mm)   # [2, B]
+    q = ensemble_critic_apply(critic_params, batch.obs, batch.action, mm, ail)   # [2, B]
     td = y[None, :] - q
     loss = torch.mean(batch.weight[None, :] * torch.square(td))
-    return loss, torch.mean(td, dim=0)
+    return weight_decay(critic_params, l2, loss), torch.mean(td, dim=0)
 
 
 def td3_actor_loss(actor_params, critic_params, batch: Batch, action_scale,
-                   action_offset=0.0, mm=None):
+                   action_offset=0.0, mm=None, action_insert_layer: int = 1):
     """DPG loss through critic member 0 only (the TD3 convention)."""
     action = actor_apply(actor_params, batch.obs, action_scale, action_offset, mm)
-    return -torch.mean(critic_apply(critic_member(critic_params, 0), batch.obs, action, mm))
+    return -torch.mean(critic_apply(critic_member(critic_params, 0), batch.obs, action, mm,
+                                    action_insert_layer))
 
 
 # --- SAC ---------------------------------------------------------------------
@@ -108,28 +127,32 @@ def sac_sample(mean, log_std, normal, action_scale, action_offset=0.0):
 
 def sac_critic_loss(critic_params, actor_params, target_critic_params, batch: Batch,
                     action_scale, normal, alpha, log_std_min: float, log_std_max: float,
-                    action_offset=0.0, mm=None):
+                    action_offset=0.0, mm=None, action_insert_layer: int = 1,
+                    l2: float = 0.0):
     """Entropy-regularized clipped double-Q TD loss over the [2, ...]
     ensemble: y = r + discount * (min_i Q'_i(s', a') - alpha * log pi(a'|s')),
     a' ~ pi(.|s') from the ONLINE actor (SAC has no target actor) with the
-    normal `normal`. Returns (the mean over [2, B] of w * td^2, the
-    ensemble-mean td [B])."""
+    normal `normal`. Returns (the mean over [2, B] of w * td^2 plus the
+    weight decay, the ensemble-mean td [B])."""
+    ail = action_insert_layer
     with torch.no_grad():
         mean, log_std = actor_gaussian_apply(actor_params, batch.next_obs, log_std_min,
                                              log_std_max, mm)
         next_action, next_lp = sac_sample(mean, log_std, normal, action_scale, action_offset)
         next_q = torch.min(
-            ensemble_critic_apply(target_critic_params, batch.next_obs, next_action, mm), dim=0
+            ensemble_critic_apply(target_critic_params, batch.next_obs, next_action, mm, ail),
+            dim=0,
         ).values
         y = batch.reward + batch.discount * (next_q - alpha * next_lp)
-    q = ensemble_critic_apply(critic_params, batch.obs, batch.action, mm)   # [2, B]
+    q = ensemble_critic_apply(critic_params, batch.obs, batch.action, mm, ail)   # [2, B]
     td = y[None, :] - q
     loss = torch.mean(batch.weight[None, :] * torch.square(td))
-    return loss, torch.mean(td, dim=0)
+    return weight_decay(critic_params, l2, loss), torch.mean(td, dim=0)
 
 
 def sac_actor_loss(actor_params, critic_params, batch: Batch, action_scale, normal, alpha,
-                   log_std_min: float, log_std_max: float, action_offset=0.0, mm=None):
+                   log_std_min: float, log_std_max: float, action_offset=0.0, mm=None,
+                   action_insert_layer: int = 1):
     """Reparameterized actor objective E[alpha * log pi(a|s) - min_i Q_i(s, a)]
     against the ensemble min (the 1812.05905 convention). Returns (loss,
     mean log-prob), the latter for the temperature's update."""
@@ -137,7 +160,8 @@ def sac_actor_loss(actor_params, critic_params, batch: Batch, action_scale, norm
     action, lp = sac_sample(mean, log_std, normal, action_scale, action_offset)
     # amin's gradient splits ties 0.5/0.5, as jnp.min's does (torch.min's
     # goes to one member).
-    q = torch.amin(ensemble_critic_apply(critic_params, batch.obs, action, mm), dim=0)
+    q = torch.amin(
+        ensemble_critic_apply(critic_params, batch.obs, action, mm, action_insert_layer), dim=0)
     return torch.mean(alpha * lp - q), torch.mean(lp)
 
 
@@ -175,32 +199,42 @@ def categorical_projection(support, target_probs, rewards, discounts):
     Returns f32[B, A]."""
     v_min, v_max = support[0], support[-1]
     num_atoms = support.shape[0]
-    dz = (v_max - v_min) / (num_atoms - 1)
+    # A true division, by a tensor, as JAX divides: on the card PyTorch
+    # turns a division by a host scalar into a product with its reciprocal,
+    # which can leave dz a rounding off JAX's.
+    dz = (v_max - v_min) / support.new_full((), num_atoms - 1)
     tz = torch.clamp(rewards[:, None] + discounts[:, None] * support[None, :], v_min, v_max)
-    b = (tz - v_min) / dz                 # fractional index in [0, A-1]
+    b = (tz - v_min) / dz                 # fractional index, ~[0, A-1]
     lower, upper = torch.floor(b), torch.ceil(b)
     eq = (upper == lower).to(target_probs.dtype)
     w_lower = (upper - b) + eq            # mass to the lower atom
     w_upper = b - lower
+    # A rounding can still put b past num_atoms - 1 at the top atom (v_max -
+    # v_min = 50 + 7 * 2**-18 at 51 atoms gives b = 50 + 2**-18). The
+    # indices are clamped, as JAX's gather clamps them, so both weights
+    # land on the top atom and its mass stays 1.
+    lo = torch.clamp(lower, 0, num_atoms - 1).long()
+    up = torch.clamp(upper, 0, num_atoms - 1).long()
     onehot = torch.eye(num_atoms, dtype=target_probs.dtype, device=target_probs.device)
-    proj = torch.einsum("ba,ba,baj->bj", target_probs, w_lower, onehot[lower.long()])
-    return proj + torch.einsum("ba,ba,baj->bj", target_probs, w_upper, onehot[upper.long()])
+    proj = torch.einsum("ba,ba,baj->bj", target_probs, w_lower, onehot[lo])
+    return proj + torch.einsum("ba,ba,baj->bj", target_probs, w_upper, onehot[up])
 
 
 def distributional_critic_loss(critic_params, target_actor_params, target_critic_params,
                                batch: Batch, action_scale, support, action_offset=0.0,
-                               mm=None):
+                               mm=None, action_insert_layer: int = 1):
     """Categorical TD loss: the weighted mean cross-entropy of the online
     logits against the projected target distribution. Returns (loss,
     E[Z_target] - E[Z] per row, the td proxy)."""
+    ail = action_insert_layer
     with torch.no_grad():
         next_action = actor_apply(
             target_actor_params, batch.next_obs, action_scale, action_offset, mm
         )
         target_probs = F.softmax(
-            critic_apply(target_critic_params, batch.next_obs, next_action, mm), dim=-1)
+            critic_apply(target_critic_params, batch.next_obs, next_action, mm, ail), dim=-1)
         proj = categorical_projection(support, target_probs, batch.reward, batch.discount)
-    logits = critic_apply(critic_params, batch.obs, batch.action, mm)
+    logits = critic_apply(critic_params, batch.obs, batch.action, mm, ail)
     ce = -torch.sum(proj * F.log_softmax(logits, dim=-1), dim=-1)
     loss = torch.mean(batch.weight * ce)
     mean_q = torch.sum(F.softmax(logits, dim=-1) * support[None, :], dim=-1)
@@ -209,8 +243,9 @@ def distributional_critic_loss(critic_params, target_actor_params, target_critic
 
 
 def distributional_actor_loss(actor_params, critic_params, batch: Batch, action_scale,
-                              support, action_offset=0.0, mm=None):
+                              support, action_offset=0.0, mm=None,
+                              action_insert_layer: int = 1):
     """-mean(E[Z(s, mu(s))]), E[Z] = sum_j softmax(logits)_j z_j."""
     action = actor_apply(actor_params, batch.obs, action_scale, action_offset, mm)
-    logits = critic_apply(critic_params, batch.obs, action, mm)
+    logits = critic_apply(critic_params, batch.obs, action, mm, action_insert_layer)
     return -torch.mean(torch.sum(F.softmax(logits, dim=-1) * support[None, :], dim=-1))

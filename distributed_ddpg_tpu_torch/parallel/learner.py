@@ -2,17 +2,29 @@
 
 Counterpart of distributed_ddpg_tpu/parallel/learner.py, single device for
 now (the name is kept; the data-parallel mesh and its launch of the chunk
-kernel are later work). Every chunk is one launch of the hand-written CUDA
-kernel (ops/fused_chunk.py) on the card, or its plain PyTorch version on
-the CPU. There is no fallback from the kernel to the eager step: on the
-card the kernel runs or the dispatch raises. For TD3 with target
-smoothing each chunk also draws its noise [K, B, act] on the device, beside
-the index draw (ops/fused_chunk.td3_noise_eps), keyed by the global step
-the chunk starts at; for SAC its two standard-normal streams (eps_next,
-eps_cur), each [K, B, act] (ops/fused_chunk.sac_noise_eps), the same way.
-A SAC chunk advances the actor and critic counts and the step by K, and
-the temperature's count by K when it is learned. Under D4PG,
-set_value_bounds moves the C51 support between chunks.
+kernel are later work). A chunk takes one of two routes, chosen once from
+the config before the first dispatch (`fused_chunk`, as the JAX learner's
+:357-405), and exposed as `fused_chunk_active`:
+
+- the kernel route: one launch of the hand-written CUDA chunk kernel
+  (ops/fused_chunk.py) on the card, or its plain PyTorch version on the
+  CPU, for configs inside the kernel's envelope (ops/fused_chunk.
+  supported) under 'auto' or 'on';
+- the scan route (`make_scan_chunk_fn`, the JAX learner's scan_steps):
+  K of the port's eager steps (learner.make_learner_step), for configs
+  outside the envelope or under 'off'. With fused_update each step's
+  Adam and Polyak run in the fused update kernel (ops/fused_update.py).
+
+Both take the same inputs and return the same outputs, and neither falls
+back to the other at run time: on the card a kernel runs or the dispatch
+raises. For TD3 with target smoothing each chunk also draws its noise
+[K, B, act] on the device, beside the index draw (ops/fused_chunk.
+td3_noise_eps), keyed by the global step the chunk starts at; for SAC its
+two standard-normal streams (eps_next, eps_cur), each [K, B, act]
+(ops/fused_chunk.sac_noise_eps), the same way; the scan route gives step k
+its k-th slice. A SAC chunk advances the actor and critic counts and the
+step by K, and the temperature's count by K when it is learned. Under
+D4PG, set_value_bounds moves the C51 support between chunks.
 """
 
 from __future__ import annotations
@@ -23,9 +35,14 @@ import numpy as np
 import torch
 
 from distributed_ddpg_tpu_torch.config import DDPGConfig
-from distributed_ddpg_tpu_torch.learner import METRIC_KEYS, StepOutput, init_train_state
+from distributed_ddpg_tpu_torch.learner import (
+    METRIC_KEYS,
+    StepOutput,
+    init_train_state,
+    make_learner_step,
+)
 from distributed_ddpg_tpu_torch.ops import fused_chunk
-from distributed_ddpg_tpu_torch.types import TrainState, pack_batch_np
+from distributed_ddpg_tpu_torch.types import TrainState, pack_batch_np, unpack_batch
 
 
 def resolve_device(config: DDPGConfig) -> torch.device:
@@ -49,6 +66,52 @@ def resolve_learner_chunk(config: DDPGConfig) -> int:
     return 800 if config.device == "cuda" else 8
 
 
+def make_scan_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
+                       action_scale, action_offset=0.0, chunk_size: int = 8):
+    """Returns run(state, packed[K, B, D], eps, step0) -> (new_state,
+    td[K, B], metrics), the scan route: K eager steps over the chunk's rows,
+    with the kernel route's inputs and outputs (the chunk-mean metrics in
+    METRIC_KEYS order). Step k takes eps[k] (TD3) or (eps_next[k],
+    eps_cur[k]) (SAC). `step0` is state.step as a host int (the learner's
+    own count), from which step k takes its index for TD3's delay, so
+    nothing inside the chunk reads the card back. run.set_value_bounds(v_min, v_max)
+    rebuilds the step on the new C51 support, as the JAX package rebuilds
+    its programs."""
+    K, B = int(chunk_size), int(config.batch_size)
+    D = 2 * int(obs_dim) + int(act_dim) + 3
+    current = [config, make_learner_step(config, action_scale, action_offset)]
+
+    def set_value_bounds(v_min: float, v_max: float) -> None:
+        if not config.distributional:
+            raise ValueError("set_value_bounds needs a distributional (D4PG) chunk")
+        current[0] = current[0].replace(v_min=float(v_min), v_max=float(v_max))
+        current[1] = make_learner_step(current[0], action_scale, action_offset)
+
+    def run(state: TrainState, packed, eps, step0: int):
+        cfg, step = current
+        if cfg.distributional and cfg.v_support_auto:
+            raise ValueError(
+                "the C51 support is still 'auto': set_value_bounds must resolve "
+                "v_min/v_max before the first chunk")
+        if packed.shape != (K, B, D):
+            raise ValueError(f"packed batch must be {(K, B, D)}, got {tuple(packed.shape)}")
+        cfg.check_noise(eps)
+        tds, metrics = [], []
+        for k in range(K):
+            e = eps if eps is None else (
+                (eps[0][k], eps[1][k]) if cfg.sac else eps[k])
+            out = step(state, unpack_batch(packed[k], obs_dim, act_dim), e,
+                       step_index=step0 + k)
+            state = out.state
+            tds.append(out.td_errors)
+            metrics.extend(out.metrics[name] for name in METRIC_KEYS)
+        means = torch.stack(metrics).view(K, len(METRIC_KEYS)).mean(dim=0)
+        return state, torch.stack(tds), dict(zip(METRIC_KEYS, means.unbind()))
+
+    run.set_value_bounds = set_value_bounds
+    return run
+
+
 class ShardedLearner:
     def __init__(self, config: DDPGConfig, obs_dim: int, act_dim: int,
                  action_scale, action_offset=0.0, chunk_size: int = 1,
@@ -61,10 +124,27 @@ class ShardedLearner:
             state if state is not None
             else init_train_state(config, obs_dim, act_dim, config.seed, self.device)
         )
-        self._fused = fused_chunk.make_fused_chunk_fn(
-            config, obs_dim, act_dim, action_scale, action_offset,
-            chunk_size=self.chunk_size, device=self.device,
-        )
+        # The route, once, before the first dispatch (JAX :357-405): the
+        # chunk kernel where the config is in its envelope, else the scan.
+        self.fused_chunk_active = (
+            config.fused_chunk != "off" and fused_chunk.supported(config))
+        if config.fused_chunk == "on" and not self.fused_chunk_active:
+            raise ValueError(
+                "fused_chunk='on' but the config is outside the kernel "
+                "envelope: needs action_insert_layer=1, critic_l2=0, "
+                "fused_update=False, >=2 critic hidden layers, >=1 actor "
+                "hidden layer and num_atoms <= 256 (ops/fused_chunk.supported)"
+            )
+        if self.fused_chunk_active:
+            self._chunk = fused_chunk.make_fused_chunk_fn(
+                config, obs_dim, act_dim, action_scale, action_offset,
+                chunk_size=self.chunk_size, device=self.device,
+            )
+        else:
+            self._chunk = make_scan_chunk_fn(
+                config, obs_dim, act_dim, action_scale, action_offset,
+                chunk_size=self.chunk_size,
+            )
         # Index draws on the device, from their own seeded generator; TD3's
         # smoothing noise or SAC's normals from another (td3_noise_eps and
         # sac_noise_eps reseed it per chunk).
@@ -82,7 +162,10 @@ class ShardedLearner:
             draw = fused_chunk.sac_noise_eps if self.config.sac else fused_chunk.td3_noise_eps
             eps = draw(self.config, self._noise_gen, self._step, self.chunk_size,
                        self.config.batch_size, self.act_dim)
-        new_state, td, metrics = self._fused(self.state, packed, eps)
+        if self.fused_chunk_active:
+            new_state, td, metrics = self._chunk(self.state, packed, eps)
+        else:
+            new_state, td, metrics = self._chunk(self.state, packed, eps, self._step)
         self.state = new_state
         self._step += self.chunk_size
         if self.device.type == "cuda":
@@ -95,12 +178,13 @@ class ShardedLearner:
         The JAX package rebuilds its chunk programs here (it bakes the
         support in at trace time); the port's kernel takes the support row
         and its spacing as launch inputs, so they are rewritten in place
-        and nothing is replanned. State, step and the index generator are
+        and nothing is replanned, and the scan route rebuilds its step on
+        the new support. State, step and the index generator are
         untouched: training continues where it was. The auto-support
         controller (ops/support_auto.py, train.py) calls this once after
         warmup and on each expansion."""
         self.config = self.config.replace(v_min=float(v_min), v_max=float(v_max))
-        self._fused.set_value_bounds(v_min, v_max)
+        self._chunk.set_value_bounds(v_min, v_max)
 
     def chunk_done(self) -> bool:
         """True once the last dispatched chunk has finished on the device
@@ -114,8 +198,8 @@ class ShardedLearner:
         """K learner steps on minibatches drawn uniformly from the device
         replay: K*B indices drawn on the device, the rows gathered with
         one index, (TD3) the chunk's smoothing noise or (SAC) its normals
-        drawn on the device, one kernel launch. `idx` ([K, B] ints)
-        replaces the index draw."""
+        drawn on the device, then one kernel launch (or the scan route's K
+        steps). `idx` ([K, B] ints) replaces the index draw."""
         storage, size = device_replay.device_state()
         if idx is None:
             idx = torch.randint(

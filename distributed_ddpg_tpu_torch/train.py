@@ -7,7 +7,11 @@ K learner steps per dispatch). It covers:
 - the actor pool's start and the ingest of its rows into DeviceReplay;
 - the replay_min_size warmup;
 - chunk dispatch through ShardedLearner.run_sample_chunk (on the card,
-  one launch of the hand-written kernel per chunk);
+  one launch of the hand-written chunk kernel per chunk, or on the scan
+  route, for configs outside the kernel's envelope or with
+  --fused_chunk=off, K eager steps; with --fused_update=true each runs
+  the fused Adam + Polyak kernel twice); train() returns which route ran
+  as `fused_chunk_active`;
 - the param broadcast (param_refresh_every learner steps, with the
   param_refresh_interval_s wall-clock floor);
 - the max_learn_ratio learner-rate cap;
@@ -35,6 +39,8 @@ Usage:
         --v_min=auto --v_max=auto                                  # D4PG
     python -m distributed_ddpg_tpu_torch.train --sac=true --actor_lr=3e-4 \
         --critic_lr=3e-4 --tau=0.005                               # SAC
+    python -m distributed_ddpg_tpu_torch.train --fused_update=true  # scan route
+    python -m distributed_ddpg_tpu_torch.train --critic_l2=0.01     # scan route
     python -m distributed_ddpg_tpu_torch.train --device=cpu ...   # plain versions
 """
 
@@ -300,6 +306,7 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         "chunks": chunks,
         "chunk_size": chunk,
         "compute_dtype": config.compute_dtype,
+        "fused_chunk_active": learner.fused_chunk_active,
         "env_steps": env_steps(),
         "final_return": final_return,
         **{k: metrics[k] for k in METRIC_KEYS if k in metrics},

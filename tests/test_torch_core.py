@@ -193,17 +193,28 @@ def test_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("override", [
-    dict(policy_delay=2), dict(num_atoms=300, distributional=True),
+    dict(policy_delay=2), dict(fused_chunk="sometimes"),
     dict(sac=True, fused_update=True),
     dict(prioritized=True), dict(compute_dtype="float16"), dict(guardrails=True),
     dict(data_axis=4), dict(model_axis=2), dict(actor_backend="device"),
     dict(serve_actors=True), dict(transport="shm"), dict(checkpoint_dir="/x"),
-    dict(fused_update=True), dict(faults="worker:0:crash@5"),
+    dict(action_insert_layer=5), dict(faults="worker:0:crash@5"),
 ])
 def test_options_outside_the_slice_raise(override):
     name = next(iter(override))
     with pytest.raises(ValueError, match=name):
         DDPGConfig(**override)
+
+
+@pytest.mark.parametrize("override", [
+    dict(fused_update=True), dict(distributional=True, num_atoms=300, fused_update=True),
+    dict(critic_l2=0.01), dict(action_insert_layer=0), dict(action_insert_layer=2),
+    dict(critic_hidden=(64,)), dict(fused_chunk="off"),
+])
+def test_configs_outside_the_kernel_envelope_construct(override):
+    """The scan route admits what the chunk kernel's envelope leaves out."""
+    cfg = DDPGConfig(**override)
+    assert all(getattr(cfg, k) == v for k, v in override.items())
 
 
 def test_from_flags():

@@ -1,5 +1,7 @@
-"""The port's learner chunk kernel (csrc/fused_chunk.cu) against its plain
-PyTorch version (ops/fused_chunk.fused_chunk_reference), on an NVIDIA GPU.
+"""The port's CUDA kernels against their plain PyTorch versions, on an
+NVIDIA GPU: the learner chunk kernel (csrc/fused_chunk.cu, against
+ops/fused_chunk.fused_chunk_reference) and the fused Adam + Polyak update
+(csrc/fused_update.cu, against ops/fused_update.fused_adam_polyak_reference).
 
 Marker `cuda`: every test skips without a card. This file imports nothing
 of JAX (tests/conftest.py does), so on a machine with a card and no JAX it
@@ -20,6 +22,14 @@ again with compute_dtype='bfloat16' (both versions round every product's
 operands to bf16 and sum in f32).
 Tolerances: rtol 1e-4, atol 1e-5 (f32 with another summation order), for
 the bf16 cases too.
+
+The fused update: three steps on the JAX test's ragged leaves
+(tests/test_fused.py:23) and on a 32x32 DDPG critic, each step one launch;
+rtol 1e-6, atol 1e-7 (tests/test_fused.py's), though the two are expected
+to agree bit for bit. The scan route (parallel/learner.make_scan_chunk_fn)
+with fused_update, DDPG and D4PG, on the card against the same chunk on
+the CPU (rtol 1e-4, atol 1e-5); D4PG's eager step once indexed past the
+last atom on the card only (ops/losses.categorical_projection).
 """
 
 import numpy as np
@@ -27,9 +37,17 @@ import pytest
 import torch
 
 from distributed_ddpg_tpu_torch.config import DDPGConfig
-from distributed_ddpg_tpu_torch.learner import METRIC_KEYS, init_train_state
+from distributed_ddpg_tpu_torch.learner import (
+    METRIC_KEYS,
+    init_train_state,
+    train_state_from_numpy,
+    train_state_to_numpy,
+)
 from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
-from distributed_ddpg_tpu_torch.types import pack_batch_np
+from distributed_ddpg_tpu_torch.ops import fused_update as fu
+from distributed_ddpg_tpu_torch.ops.optim import tree_leaves
+from distributed_ddpg_tpu_torch.parallel.learner import make_scan_chunk_fn
+from distributed_ddpg_tpu_torch.types import OptState, pack_batch_np
 
 OBS, ACT, B, K, STEP0 = 3, 1, 8, 4, 5
 HIDDEN = (32, 32)
@@ -111,3 +129,73 @@ def test_kernel_matches_reference_on_card(branch):
         torch.cuda.synchronize()
         _close(fc.flatten_state(new).cpu(), fc.flatten_state(ref).cpu())
         _close(td.cpu(), rtd.cpu())
+
+
+def _update_inputs(tree: str):
+    """(params, grads-of-step-i function, opt, targets) on the card, from a
+    seeded numpy draw: the JAX test's ragged leaves or a 32x32 critic."""
+    rng = np.random.default_rng(0)
+    if tree == "ragged":
+        shapes = [((17, 256), (256,)), ((256, 129), (3,))]
+    else:
+        cfg = DDPGConfig(actor_hidden=HIDDEN, critic_hidden=HIDDEN, device="cpu")
+        shapes = [(tuple(l["w"].shape), tuple(l["b"].shape))
+                  for l in init_train_state(cfg, OBS, ACT, 0).critic_params]
+
+    def tree_of(fn):
+        return tuple({"w": torch.from_numpy(fn(w)).cuda(), "b": torch.from_numpy(fn(b)).cuda()}
+                     for w, b in shapes)
+
+    normal = lambda s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    params, targets = tree_of(normal), tree_of(normal)
+    opt = OptState(mu=tree_of(lambda s: 1e-3 * normal(s)),
+                   nu=tree_of(lambda s: rng.uniform(1e-6, 1e-4, s).astype(np.float32)),
+                   count=torch.tensor(5, dtype=torch.int32, device="cuda"))
+    return params, opt, targets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree", ["ragged", "critic"])
+def test_fused_update_matches_reference_on_card(tree):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    params, opt, targets = _update_inputs(tree)
+    p, o, t = params, opt, targets
+    rp, ro, rt = params, opt, targets
+    launches = fc.KERNEL_LAUNCHES["fused_update"]
+    for i in range(3):
+        grads = tuple({k: torch.sin(v + i) for k, v in layer.items()} for layer in rp)
+        p, o, t = fu.fused_adam_polyak(p, grads, o, t, 1e-3, 0.05)
+        rp, ro, rt = fu.fused_adam_polyak_reference(rp, grads, ro, rt, 1e-3, 0.05)
+        torch.cuda.synchronize()
+        for got, want in ((p, rp), (o.mu, ro.mu), (o.nu, ro.nu), (t, rt)):
+            for a, b in zip(tree_leaves(got), tree_leaves(want)):
+                np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                           rtol=1e-6, atol=1e-7)
+    assert int(o.count) == int(ro.count) == 8
+    assert fc.KERNEL_LAUNCHES["fused_update"] == launches + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ddpg", "d4pg"])
+def test_scan_chunk_on_card_matches_cpu(family):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    over = dict(distributional=True, num_atoms=21, v_min=-5.0, v_max=5.0) \
+        if family == "d4pg" else {}
+    cfg = DDPGConfig(actor_hidden=HIDDEN, critic_hidden=HIDDEN, batch_size=B, seed=3,
+                     device="cpu", fused_update=True, **over)
+    state = init_train_state(cfg, OBS, ACT, cfg.seed)
+    packed = torch.from_numpy(_batches(6))
+    run = make_scan_chunk_fn(cfg, OBS, ACT, 2.0, 0.0, chunk_size=K)
+    launches = fc.KERNEL_LAUNCHES["fused_update"]
+    on_card = train_state_from_numpy(train_state_to_numpy(state), "cuda")
+    new, td, met = run(on_card, packed.cuda(), None, step0=0)
+    ref, rtd, rmet = run(state, packed, None, step0=0)
+    torch.cuda.synchronize()
+    assert fc.KERNEL_LAUNCHES["fused_update"] == launches + 2 * K
+    _close(fc.flatten_state(new).cpu(), fc.flatten_state(ref))
+    _close(td.cpu(), rtd)
+    for name in METRIC_KEYS:
+        _close(float(met[name]), float(rmet[name]))
