@@ -6,10 +6,11 @@ command line written for `python -m distributed_ddpg_tpu.train` means the
 same thing here; a flag the port does not know is an argparse error. The
 learner runs each chunk on one of two routes, chosen once from the config
 (`fused_chunk`, parallel/learner.py): the hand-written chunk kernel for
-configs inside its envelope (ops/fused_chunk.supported), or the scan route,
-K eager steps, for the rest (critic_l2 > 0, action_insert_layer != 1, one
-critic hidden layer, more than 256 atoms, fused_update=True, whose steps
-run the fused Adam + Polyak kernel). Options the port does not implement
+configs inside its envelope (ops/fused_chunk.supported) whose state fits its
+budget (ops/fused_chunk.fits_vmem, the JAX kernel's VMEM gate), or the scan
+route, K eager steps, for the rest (critic_l2 > 0, action_insert_layer != 1,
+one critic hidden layer, more than 256 atoms, a state over 6 MiB,
+fused_update=True, whose steps run the fused Adam + Polyak kernel). Options the port does not implement
 yet keep their field and default, and a non-default value raises a
 ValueError naming the option (ROADMAP.md lists the order they arrive in)
 — never a silent no-op.
@@ -136,8 +137,8 @@ class DDPGConfig:
     # DDPG and D4PG only, on the scan route.
     fused_update: bool = False
     # The learner chunk kernel: "auto" runs it whenever the config is in
-    # its envelope (ops/fused_chunk.supported), else the scan route; "on"
-    # requires it (error if unsupported); "off" always takes the scan.
+    # its envelope (ops/fused_chunk.supported and fits_vmem), else the scan
+    # route; "on" requires it (error outside); "off" always takes the scan.
     fused_chunk: str = "auto"
 
     # --- run control ---

@@ -63,7 +63,7 @@ autodiff rounds the gradients' products instead, models/mlp.py::
 _Bf16Dense); the two agree only to bf16 level, as in the JAX package.
 
 The data-parallel mesh launch of the JAX kernel is later work
-(ROADMAP.md).
+(ROADMAP.md Queue 1).
 
 Three pieces live here:
 
@@ -80,8 +80,9 @@ Three pieces live here:
 - `fused_chunk_reference`: the plain PyTorch version, the same K-step
   hand-written math. The wrapper runs it for tensors on the CPU; the
   tests and chip_smoke.py hold the kernel and the JAX package against it.
-- `make_fused_chunk_fn`: the wrapper. On a CUDA tensor it launches the
-  kernel or raises; it never falls back to the plain version.
+- `make_fused_chunk_fn`: the wrapper. Inside the envelope (`supported`)
+  and the JAX kernel's VMEM gate (`fits_vmem`), on a CUDA tensor it
+  launches the kernel or raises; it never falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -164,7 +165,8 @@ SAC_SAMPLE_DIM_OPS, SAC_ACT_DIM_OPS, SAC_TD_ROW_OPS, SAC_PI_ROW_OPS = 21, 15, 10
 
 def supported(config: DDPGConfig) -> bool:
     """The JAX kernel's envelope (fused_chunk.py:167-180): DDPG TD(0), TD3,
-    C51 and SAC, each in float32 or bfloat16."""
+    C51 and SAC, each in float32 or bfloat16. The route also needs
+    fits_vmem."""
     return (
         config.action_insert_layer == 1
         and config.critic_l2 == 0.0
@@ -174,6 +176,40 @@ def supported(config: DDPGConfig) -> bool:
         and len(config.actor_hidden) >= 1
         and (not config.distributional or config.num_atoms <= MAX_ATOMS)
     )
+
+
+def state_vmem_bytes(config: DDPGConfig, obs_dim: int, act_dim: int) -> int:
+    """f32 bytes of the JAX kernel's VMEM-resident state (fused_chunk.py:
+    132-157): params, targets and both Adam moments of the actor and the
+    critic group, 16 (a + c) for a actor and c critic-group floats; the
+    C51 head is num_atoms wide, TD3's and SAC's critic an ensemble of two,
+    SAC's actor head [mean | log_std]. SAC's temperature is not counted."""
+
+    def net(dims, extra_in=0):
+        total = 0
+        for i in range(len(dims) - 1):
+            d_in = dims[i] + (extra_in if i == 1 else 0)
+            total += d_in * dims[i + 1] + dims[i + 1]
+        return total
+
+    out = config.num_atoms if config.distributional else 1
+    head = 2 * act_dim if config.sac else act_dim
+    a = net([obs_dim, *config.actor_hidden, head])
+    c = net([obs_dim, *config.critic_hidden, out], extra_in=act_dim)
+    if config.twin_critic or config.sac:
+        c *= 2
+    return 4 * (4 * a + 4 * c)
+
+
+# The JAX kernel's budget for that state (fused_chunk.py:160-162). This
+# kernel keeps its state in device memory and has no such limit, but the
+# route follows the JAX learner's gate, so both packages take their kernel
+# on the same configs.
+VMEM_STATE_BUDGET = 6 * 1024 * 1024
+
+
+def fits_vmem(config: DDPGConfig, obs_dim: int, act_dim: int) -> bool:
+    return state_vmem_bytes(config, obs_dim, act_dim) <= VMEM_STATE_BUDGET
 
 
 def _atoms(config: DDPGConfig) -> int:
@@ -1170,6 +1206,13 @@ def make_fused_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
             "fused chunk kernel envelope: DDPG, TD3, D4PG (num_atoms <= 256) or "
             "SAC, float32 or bfloat16, action_insert_layer=1, critic_l2=0, "
             "fused_update=False, >=2 critic hidden layers, >=1 actor hidden layer"
+        )
+    if not fits_vmem(config, obs_dim, act_dim):   # the JAX kernel's message (:849-855)
+        raise ValueError(
+            f"fused chunk kernel: VMEM-resident state would be "
+            f"{state_vmem_bytes(config, obs_dim, act_dim)} bytes "
+            f"(budget {VMEM_STATE_BUDGET}); use the XLA scan path "
+            f"(fused_chunk='off') for nets this large"
         )
     K, B = int(chunk_size), int(config.batch_size)
     o, a = int(obs_dim), int(act_dim)

@@ -9,7 +9,8 @@ the config before the first dispatch (`fused_chunk`, as the JAX learner's
 - the kernel route: one launch of the hand-written CUDA chunk kernel
   (ops/fused_chunk.py) on the card, or its plain PyTorch version on the
   CPU, for configs inside the kernel's envelope (ops/fused_chunk.
-  supported) under 'auto' or 'on';
+  supported) whose state fits its budget (ops/fused_chunk.fits_vmem, the
+  JAX kernel's VMEM gate), under 'auto' or 'on';
 - the scan route (`make_scan_chunk_fn`, the JAX learner's scan_steps):
   K of the port's eager steps (learner.make_learner_step), for configs
   outside the envelope or under 'off'. With fused_update each step's
@@ -127,13 +128,17 @@ class ShardedLearner:
         # The route, once, before the first dispatch (JAX :357-405): the
         # chunk kernel where the config is in its envelope, else the scan.
         self.fused_chunk_active = (
-            config.fused_chunk != "off" and fused_chunk.supported(config))
+            config.fused_chunk != "off" and fused_chunk.supported(config)
+            and fused_chunk.fits_vmem(config, obs_dim, act_dim))
         if config.fused_chunk == "on" and not self.fused_chunk_active:
+            # The JAX learner's message (parallel/learner.py:398-406).
             raise ValueError(
-                "fused_chunk='on' but the config is outside the kernel "
-                "envelope: needs action_insert_layer=1, critic_l2=0, "
-                "fused_update=False, >=2 critic hidden layers, >=1 actor "
-                "hidden layer and num_atoms <= 256 (ops/fused_chunk.supported)"
+                "fused_chunk='on' but the config/mesh is outside the kernel "
+                "envelope: needs mode='auto', a single-device or data-only "
+                "mesh (model_axis == 1, and fused_mesh != 'off' for "
+                "multi-device), plus action_insert_layer=1, critic_l2=0, "
+                "fused_update=False, >=2 critic hidden layers, and nets "
+                "small enough for VMEM (ops/fused_chunk.fits_vmem)"
             )
         if self.fused_chunk_active:
             self._chunk = fused_chunk.make_fused_chunk_fn(
