@@ -14,9 +14,14 @@ Phases (any failure raises; nothing is caught and passed over):
    spills.
 3. Hold each kernel against its plain PyTorch version on the card, on the
    same inputs. First the fused update (ops/fused_update.py), 3 steps on
-   the JAX test's ragged leaves and on the Pendulum DDPG critic and actor
-   and the D4PG critic of a random state, at tests/test_fused.py's rtol
-   1e-6, atol 1e-7, with its largest gap in ULP (0 expected); then the
+   the JAX test's ragged leaves, on leaves of odd lengths (1, 3, 5, 4097),
+   on unaligned views, on more leaves than one launch's table holds
+   (tools/update_trees.py) and on the Pendulum DDPG critic and actor and the D4PG
+   critic of a random state, at tests/test_fused.py's rtol 1e-6, atol
+   1e-7, with its largest gap in ULP (0 expected), the inputs left as they
+   were and one launch a table; its bias corrections against torch.pow
+   for every count to 2^20; one device operation a call on the Pendulum
+   critic, counted by torch.profiler; then the
    scan route (parallel/learner.make_scan_chunk_fn, K = 16 on one state
    and draw): with fused_update (DDPG and D4PG) and with critic_l2 on the
    card against the same chunk on the CPU, and with fused_chunk='off'
@@ -60,8 +65,8 @@ Phases (any failure raises; nothing is caught and passed over):
    --tau=0.005 for 20,000 (its final alpha is printed); then with
    --compute_dtype=bfloat16 DDPG for 20,000 env steps and TD3, D4PG and
    SAC (their flags as above) for 5000 each; then the scan route:
-   --fused_update=true for 5000 env steps, the D4PG command above with
-   --fused_update=true and --critic_l2=0.01 for 2000 each. For each, the
+   --fused_update=true, the D4PG command above with --fused_update=true
+   and --critic_l2=0.01, for 5000 env steps each. For each, the
    launch counts are zeroed just before and read just after: on the
    kernel route every chunk must have been one launch of that branch's
    kernel and nothing else; on the scan route (fused_chunk_active false)
@@ -74,11 +79,12 @@ Phases (any failure raises; nothing is caught and passed over):
    and bf16 DDPG's, down into its barriers, its optimizer pass and each
    stage's tiles. The bf16 branches' bound counts their rounded products
    at the bf16 tensor-core peak and the rest at the f32 peak. Then the
-   fused update per call at the Pendulum critic's and actor's sizes (the
-   kernel, its wrapper, the plain version and the library pair
-   torch._fused_adam_ + torch._foreach_lerp_, each as device time in a
-   CUDA graph and as host time launched eagerly, beside its bound), and
-   the scan route's chunk at K = 800 with fused_update on and off.
+   fused update per call at the Pendulum critic's and actor's sizes (its
+   wrapper, the kernel alone, an empty kernel with the same table and
+   grid, the plain version and the library pair torch._fused_adam_ +
+   torch._foreach_lerp_, each as device time in a CUDA graph and as host
+   time launched eagerly, beside its bound), and the scan route's chunk
+   at K = 800 with fused_update on and off.
 
 It imports nothing of JAX or of the JAX package. The second-to-last line
 is the kernels' JSON record; the last line is the device record.
@@ -558,29 +564,19 @@ def ulp_gap(a: np.ndarray, b: np.ndarray) -> int:
 
 def update_trees(which: str):
     """(params, opt, targets, grads of step i) for the fused update's checks,
-    on the card: the JAX test's ragged leaves (tests/test_fused.py:23; zero
-    moments, count 0, grads sin(p + i)), or the critic or actor of a
-    random_state_np state at Pendulum shapes (DDPG, or D4PG's 51-atom
-    critic), with gradients drawn from N(0, 1e-2)."""
+    on the card: a tree of tools/update_trees.SHAPES (the ragged one as the
+    JAX test has it: zero moments, count 0; the others with random moments
+    from count 999), with grads sin(p + i), laid out as the params are; or
+    the critic or actor of a random_state_np state at Pendulum shapes (DDPG,
+    or D4PG's 51-atom critic), with gradients drawn from N(0, 1e-2)."""
     from distributed_ddpg_tpu_torch.config import DDPGConfig
     from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
-    from distributed_ddpg_tpu_torch.types import OptState
+    from distributed_ddpg_tpu_torch.tools import update_trees as ut
 
-    if which == "ragged":
-        rng = np.random.default_rng(0)
-        shapes = [((17, 256), (256,)), ((256, 129), (3,))]
-
-        def tree(fn):
-            return tuple({"w": torch.from_numpy(fn(w)).cuda(),
-                          "b": torch.from_numpy(fn(b)).cuda()} for w, b in shapes)
-
-        normal = lambda s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
-        zero = lambda s: np.zeros(s, np.float32)  # noqa: E731
-        params, targets = tree(normal), tree(normal)
-        opt = OptState(mu=tree(zero), nu=tree(zero),
-                       count=torch.zeros((), dtype=torch.int32, device="cuda"))
-        return params, opt, targets, lambda i, p: tuple(
-            {k: torch.sin(v + i) for k, v in layer.items()} for layer in p)
+    if which in ut.SHAPES:
+        return ut.update_inputs(ut.SHAPES[which], ut.SHIFTS.get(which, ut.NO_SHIFTS),
+                                count=0 if which == "ragged" else 999,
+                                zero_moments=which == "ragged")
     family, net = which.split("_")
     cfg = DDPGConfig(distributional=family == "d4pg", v_min=-10.0, v_max=10.0)
     state = train_state_from_numpy(random_state_np(cfg, 3, 1, seed=11), "cuda")
@@ -593,24 +589,46 @@ def update_trees(which: str):
             lambda i, p: draws[i])
 
 
+def _update_leaves(params, opt, targets):
+    from distributed_ddpg_tpu_torch.ops.optim import tree_leaves
+
+    return [x for tree in (params, opt.mu, opt.nu, targets) for x in tree_leaves(tree)] + [
+        opt.count]
+
+
 def check_fused_update(which: str, steps: int = 3) -> float:
     """The fused update kernel against its plain version on the card over
     `steps` steps: each carries its own state from the same start and takes
     the same gradients. Holds every output to tests/test_fused.py's rtol
     1e-6, atol 1e-7 and prints the largest gap in units in the last place
     (0 expected: the kernel repeats the plain version's operations in its
-    order and constants). Returns the largest absolute difference."""
+    order and constants); the new count must be the plain version's, each
+    call must be one launch a table (ops/fused_update.plan), and the inputs
+    must come out as they went in. Returns the largest absolute
+    difference."""
     from distributed_ddpg_tpu_torch.ops import fused_update as fu
+    from distributed_ddpg_tpu_torch.ops._build import KERNEL_LAUNCHES
     from distributed_ddpg_tpu_torch.ops.optim import tree_leaves
 
     params, opt, targets, grads_at = update_trees(which)
     p, o, t = params, opt, targets
     rp, ro, rt = params, opt, targets
     n = sum(x.numel() for x in tree_leaves(params))
+    per_call = len(fu.plan(tuple(x.shape for x in tree_leaves(params))).launches)
     worst, ulps = 0.0, 0
     for i in range(steps):
         grads = grads_at(i, rp)
-        p, o, t = fu.fused_adam_polyak(p, grads, o, t, 1e-3, 0.05)
+        inputs = lambda: _update_leaves(p, o, t) + tree_leaves(grads)  # noqa: E731
+        before = [x.clone() for x in inputs()]
+        launches = KERNEL_LAUNCHES["fused_update"]
+        new = fu.fused_adam_polyak(p, grads, o, t, 1e-3, 0.05)
+        made = KERNEL_LAUNCHES["fused_update"] - launches
+        if made != per_call:
+            raise AssertionError(f"fused_update {which}: {made} launches a call, "
+                                 f"expected {per_call}")
+        if not all(torch.equal(a, b) for a, b in zip(before, inputs())):
+            raise AssertionError(f"fused_update {which} step {i}: an input changed")
+        p, o, t = new
         rp, ro, rt = fu.fused_adam_polyak_reference(rp, grads, ro, rt, 1e-3, 0.05)
         torch.cuda.synchronize()
         for name, got, want in (("params", p, rp), ("mu", o.mu, ro.mu), ("nu", o.nu, ro.nu),
@@ -625,11 +643,62 @@ def check_fused_update(which: str, steps: int = 3) -> float:
                 raise AssertionError(
                     f"fused_update {which} step {i}: {name} outside rtol 1e-6, atol 1e-7 "
                     f"(max_abs_err {err.max():.3e})")
-    if int(o.count) != int(ro.count) or int(o.count) != int(opt.count) + steps:
+        if o.count.dtype != torch.int32 or int(o.count) != int(ro.count):
+            raise AssertionError(f"fused_update {which}: count {o.count}, plain {ro.count}")
+    if int(o.count) != int(opt.count) + steps:
         raise AssertionError(f"fused_update {which}: count {int(o.count)}")
-    log(f"  fused_update {which} ({n} elements, {steps} steps): max_abs_err={worst:.3e}, "
-        f"largest gap {ulps} ulp")
+    log(f"  fused_update {which} ({n} elements, {len(tree_leaves(params))} leaves, {per_call} "
+        f"launch(es) a call, {steps} steps): max_abs_err={worst:.3e}, largest gap {ulps} ulp")
     return worst
+
+
+def check_bias_corrections(counts: int = 2 ** 20) -> None:
+    """The kernel's bias corrections 1 - B^c (csrc/fused_update.cu) against
+    the plain version's expression, 1.0 - torch.pow(B, c) on the card, for
+    every new count c in 1..counts: they must agree bit for bit."""
+    from distributed_ddpg_tpu_torch.ops import fused_update as fu
+    from distributed_ddpg_tpu_torch.ops.optim import B1, B2
+
+    got = fu.kernel_bias_corrections(counts)
+    c = torch.arange(1, counts + 1, dtype=torch.int32, device="cuda").to(torch.float32)
+    for name, base, kernel in (("bc1", B1, got[0]), ("bc2", B2, got[1])):
+        want = 1.0 - torch.pow(base, c)
+        torch.cuda.synchronize()
+        a, b = kernel.cpu().numpy(), want.cpu().numpy()
+        bad = np.flatnonzero(a.view(np.int32) != b.view(np.int32))
+        if bad.size:
+            raise AssertionError(
+                f"fused_update {name}: the kernel's 1 - powf(B, c) differs from "
+                f"1.0 - torch.pow(B, c) at {bad.size} of {counts} counts (first c = "
+                f"{bad[0] + 1}, largest gap {ulp_gap(a, b)} ulp)")
+    log(f"  fused_update bias corrections: bc1 and bc2 bit-identical to 1.0 - torch.pow(B, c) "
+        f"for every count 1..{counts}")
+
+
+def update_launches_per_call(calls: int = 5) -> float:
+    """Device operations (kernels, copies, sets) a call of the fused update's
+    wrapper on the Pendulum DDPG critic, counted by torch.profiler over
+    `calls` calls: 1 expected."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_ddpg_tpu_torch.ops import fused_update as fu
+
+    params, opt, targets, grads_at = update_trees("ddpg_critic")
+    grads = grads_at(0, params)
+    fu.fused_adam_polyak(params, grads, opt, targets, 1e-3, 5e-3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fu.fused_adam_polyak(params, grads, opt, targets, 1e-3, 5e-3)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    per_call = sum(e.count for e in events) / calls
+    log(f"  fused_update wrapper: {per_call:g} device operations a call over {calls} calls "
+        f"(torch.profiler: " + ", ".join(f"{e.key} x{e.count}" for e in events) + ")")
+    if per_call != 1:
+        raise AssertionError(f"fused_update wrapper: {per_call} device operations a call, "
+                             "expected one launch")
+    return per_call
 
 
 def check_scan_route(cfg, k: int = 16, against_kernel: bool = False) -> None:
@@ -682,14 +751,17 @@ def graph_ms(fn, calls: int = 50) -> float:
 def time_fused_update(card: str) -> dict:
     """The fused update at the Pendulum critic's and actor's sizes (DDPG,
     2x256), each as device time in a CUDA graph (graph_ms) and as host
-    time a call when launched eagerly (time_ms; the scan step pays this
-    today): its wrapper (gather, bias corrections, kernel, views), as the
-    port calls it; the plain version; the library pair torch._fused_adam_ +
-    torch._foreach_lerp_ (two calls, a yardstick only); and, as a breakdown
-    of the wrapper, the kernel alone launched directly on flat buffers (warm
-    in L2, as the scan step leaves them; not counted). Beside the bound, 36
-    bytes an element over HBM's rate. Returns the critic's fields for the
-    kernels' record: device times in a CUDA graph, `ms` the wrapper's."""
+    time a call when launched eagerly (time_ms; the scan step pays this):
+    its wrapper (the leaf table, one launch, the output views), as the port
+    calls it; as a breakdown of the wrapper, the kernel alone, launched
+    directly with a table built once (on the tree's own leaves, warm in L2
+    as the scan step leaves them; not counted), and the launch floor, an
+    empty kernel with the same table and grid; the plain version; the
+    library pair torch._fused_adam_ + torch._foreach_lerp_ (two calls, a
+    yardstick only). Beside the bound, 36 bytes an element and the count
+    over HBM's rate.
+    Returns the critic's fields for the kernels' record: device times in a
+    CUDA graph, `ms` the wrapper's."""
     from distributed_ddpg_tpu_torch.ops import fused_update as fu
     from distributed_ddpg_tpu_torch.ops.optim import B1, B2, EPS, tree_leaves
 
@@ -698,40 +770,45 @@ def time_fused_update(card: str) -> dict:
     for net in ("critic", "actor"):
         params, opt, targets, grads_at = update_trees(f"ddpg_{net}")
         grads = grads_at(0, params)
-        leaves = [tree_leaves(x) for x in (params, opt.mu, opt.nu, targets, grads)]
+        leaves = [tree_leaves(x) for x in (params, opt.mu, opt.nu, grads, targets)]
+        shapes = tuple(x.shape for x in leaves[0])
         n = sum(x.numel() for x in leaves[0])
-        flat = torch.stack([torch.cat([x.reshape(-1) for x in ls]) for ls in leaves])
-        bc = torch.tensor([1.0 - B1 ** 1001, 1.0 - B2 ** 1001], device="cuda")
-        blocks = max(1, min(fu.MAX_BLOCKS, -(-n // fu.THREADS)))
-        ptrs = [flat[i].data_ptr() for i in range(5)]
+        in_ptrs = [[x.data_ptr() for x in ls] for ls in leaves]
+        layout = fu.plan(shapes)
+        (launch,) = layout.launches
+        out = torch.empty(4 * layout.stride, device="cuda")
+        new_count = torch.empty_like(opt.count)
+        table = fu.leaf_table(layout, launch, in_ptrs, out.data_ptr(), opt.count.data_ptr(),
+                              new_count.data_ptr(), 1e-3, 1e-3)
 
-        def kernel():
-            code = lib.fused_update_launch(ptrs[0], ptrs[1], ptrs[2], ptrs[4], ptrs[3],
-                                           bc.data_ptr(), bc.data_ptr() + 4, 1e-3, 1e-3,
-                                           1.0 - 1e-3, n, blocks,
-                                           torch.cuda.current_stream().cuda_stream)
-            if code != 0:
-                raise RuntimeError(f"fused_update launch failed: CUDA error {code}")
+        def kernel(empty: int = 0):
+            def run():
+                fu.check(lib, lib.fused_update_launch(table, launch.blocks, empty,
+                                                      torch.cuda.current_stream().cuda_stream))
 
-        ps, ms_, vs, ts = ([x.clone() for x in ls] for ls in leaves[:4])
+            return run
+
+        ps, ms_, vs, ts = ([x.clone() for x in ls] for ls in (leaves[0], leaves[1], leaves[2],
+                                                             leaves[4]))
         steps = [torch.tensor(1001.0, device="cuda") for _ in ps]
 
         def library():
-            torch._fused_adam_(ps, leaves[4], ms_, vs, [], steps, lr=1e-3, beta1=B1,
+            torch._fused_adam_(ps, leaves[3], ms_, vs, [], steps, lr=1e-3, beta1=B1,
                                beta2=B2, weight_decay=0.0, eps=EPS, amsgrad=False,
                                maximize=False)
             torch._foreach_lerp_(ts, ps, 1e-3)
 
         calls = {
             "wrapper": lambda: fu.fused_adam_polyak(params, grads, opt, targets, 1e-3, 1e-3),
-            "kernel alone (breakdown)": kernel,
+            "kernel alone (breakdown)": kernel(),
+            "empty kernel (launch floor)": kernel(empty=1),
             "plain": lambda: fu.fused_adam_polyak_reference(params, grads, opt, targets,
                                                             1e-3, 1e-3),
             "library pair": library,
         }
         device = {name: graph_ms(fn) for name, fn in calls.items()}
         host = {name: time_ms(fn, reps=200) for name, fn in calls.items()}
-        nbytes = 36 * n + 8          # 5 reads and 4 writes of f32 an element; bc1, bc2
+        nbytes = 36 * n + 8          # 5 reads and 4 writes of f32 an element; the count
         ops = FUSED_UPDATE_OPS * n
         bound_ms = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS) * 1e3
         log(f"[timing] {card}: fused_update {net} (n={n}), us a call, device time in a "
@@ -971,11 +1048,14 @@ def main() -> int:
     # --- 3. kernels against their plain versions ---
     from distributed_ddpg_tpu_torch.config import DDPGConfig
     from distributed_ddpg_tpu_torch.parallel.learner import resolve_learner_chunk
+    from distributed_ddpg_tpu_torch.tools import update_trees as ut
 
     cfg = DDPGConfig()                        # 2x256, batch 64, f32, cuda
     log("[parity] fused_update kernel vs fused_adam_polyak_reference on the card")
     update_err = {which: check_fused_update(which)
-                  for which in ("ragged", "ddpg_critic", "ddpg_actor", "d4pg_critic")}
+                  for which in (*ut.SHAPES, "ddpg_critic", "ddpg_actor", "d4pg_critic")}
+    check_bias_corrections()
+    update_launches_per_call()
     log("[parity] the scan route on the card")
     check_scan_route(cfg.replace(fused_update=True))
     check_scan_route(cfg.replace(fused_update=True, distributional=True, v_min=-10.0,

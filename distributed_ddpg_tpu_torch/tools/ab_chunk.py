@@ -30,8 +30,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
-import subprocess
 import sys
 
 K, OBS, ACT = 800, 3, 1
@@ -91,24 +89,11 @@ def main() -> int:
         return 0
     if not args.trees:
         ap.error("give at least one tree")
-    trees = [os.path.abspath(t) for t in args.trees]
-    order = (trees + trees[::-1]) * args.rounds
-    results = {t: {} for t in trees}
-    for tree in order:
-        env = dict(os.environ, PYTHONPATH=tree)
-        out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child", "--reps", str(args.reps)],
-            cwd=tree, env=env, capture_output=True, text=True, timeout=600)
-        if out.returncode != 0:
-            sys.stderr.write(out.stderr)
-            raise RuntimeError(f"timing child for {tree} exited {out.returncode}")
-        line = out.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        for name, us in json.loads(line)["us_per_step"].items():
-            results[tree].setdefault(name, []).append(us)
-    print(json.dumps({"median_us_per_step": {
-        tree: {name: statistics.median(v) for name, v in r.items()}
-        for tree, r in results.items()}}), flush=True)
+    from distributed_ddpg_tpu_torch.tools._ab import alternate
+
+    medians = alternate(os.path.abspath(__file__), args.trees, args.rounds,
+                        ["--reps", str(args.reps)], "us_per_step")
+    print(json.dumps({"median_us_per_step": medians}), flush=True)
     return 0
 
 

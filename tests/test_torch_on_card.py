@@ -24,9 +24,14 @@ Tolerances: rtol 1e-4, atol 1e-5 (f32 with another summation order), for
 the bf16 cases too.
 
 The fused update: three steps on the JAX test's ragged leaves
-(tests/test_fused.py:23) and on a 32x32 DDPG critic, each step one launch;
-rtol 1e-6, atol 1e-7 (tests/test_fused.py's), though the two are expected
-to agree bit for bit. The scan route (parallel/learner.make_scan_chunk_fn)
+(tests/test_fused.py:23), on a 32x32 DDPG critic, on leaves of odd
+lengths, on unaligned views and on more leaves than one launch's table
+holds, each step one launch a table, at rtol 1e-6, atol 1e-7
+(tests/test_fused.py's) and bit for bit (0 ULP), with the inputs left as
+they were; one device operation a call on the Pendulum critic, counted by
+torch.profiler; the wrapper in a CUDA graph against eager calls; the
+kernel's bias corrections against torch.pow for every count to 2^20. The
+scan route (parallel/learner.make_scan_chunk_fn)
 with fused_update, DDPG and D4PG, on the card against the same chunk on
 the CPU (rtol 1e-4, atol 1e-5); D4PG's eager step once indexed past the
 last atom on the card only (ops/losses.categorical_projection).
@@ -47,6 +52,7 @@ from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
 from distributed_ddpg_tpu_torch.ops import fused_update as fu
 from distributed_ddpg_tpu_torch.ops.optim import tree_leaves
 from distributed_ddpg_tpu_torch.parallel.learner import make_scan_chunk_fn
+from distributed_ddpg_tpu_torch.tools import update_trees as ut
 from distributed_ddpg_tpu_torch.types import OptState, pack_batch_np
 
 OBS, ACT, B, K, STEP0 = 3, 1, 8, 4, 5
@@ -131,49 +137,136 @@ def test_kernel_matches_reference_on_card(branch):
         _close(td.cpu(), rtd.cpu())
 
 
-def _update_inputs(tree: str):
-    """(params, grads-of-step-i function, opt, targets) on the card, from a
-    seeded numpy draw: the JAX test's ragged leaves or a 32x32 critic."""
-    rng = np.random.default_rng(0)
-    if tree == "ragged":
-        shapes = [((17, 256), (256,)), ((256, 129), (3,))]
-    else:
-        cfg = DDPGConfig(actor_hidden=HIDDEN, critic_hidden=HIDDEN, device="cpu")
-        shapes = [(tuple(l["w"].shape), tuple(l["b"].shape))
-                  for l in init_train_state(cfg, OBS, ACT, 0).critic_params]
+# The fused update's trees: tools/update_trees.SHAPES (the JAX test's
+# ragged leaves; leaves of odd lengths; the ragged leaves as unaligned
+# views; more leaves than one launch's table holds) and a 32x32 critic.
+UPDATE_TREES = [*ut.SHAPES, "critic"]
 
-    def tree_of(fn):
-        return tuple({"w": torch.from_numpy(fn(w)).cuda(), "b": torch.from_numpy(fn(b)).cuda()}
-                     for w, b in shapes)
 
-    normal = lambda s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
-    params, targets = tree_of(normal), tree_of(normal)
-    opt = OptState(mu=tree_of(lambda s: 1e-3 * normal(s)),
-                   nu=tree_of(lambda s: rng.uniform(1e-6, 1e-4, s).astype(np.float32)),
-                   count=torch.tensor(5, dtype=torch.int32, device="cuda"))
-    return params, opt, targets
+def _critic_shapes(hidden):
+    cfg = DDPGConfig(actor_hidden=hidden, critic_hidden=hidden, device="cpu")
+    return [(tuple(l["w"].shape), tuple(l["b"].shape))
+            for l in init_train_state(cfg, OBS, ACT, 0).critic_params]
+
+
+def _update_inputs(tree: str, hidden=HIDDEN):
+    """(params, opt, targets, grads-of-step-i function) on the card, from a
+    seeded numpy draw (tools/update_trees.update_inputs, count 5): a tree
+    of tools/update_trees.SHAPES, or a DDPG critic of `hidden`."""
+    shapes = ut.SHAPES[tree] if tree in ut.SHAPES else _critic_shapes(hidden)
+    return ut.update_inputs(shapes, ut.SHIFTS.get(tree, ut.NO_SHIFTS))
+
+
+def _leaves(*trees):
+    return [x for tree in trees for x in tree_leaves(tree)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tree", ["ragged", "critic"])
+@pytest.mark.parametrize("tree", UPDATE_TREES)
 def test_fused_update_matches_reference_on_card(tree):
+    """Three steps, each against the plain version bit for bit (0 ULP), with
+    the inputs left as they were and one launch a table."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    params, opt, targets = _update_inputs(tree)
+    params, opt, targets, grads_at = _update_inputs(tree)
     p, o, t = params, opt, targets
     rp, ro, rt = params, opt, targets
+    per_call = len(fu.plan(tuple(x.shape for x in tree_leaves(params))).launches)
+    assert per_call == (2 if tree == "many" else 1)
     launches = fc.KERNEL_LAUNCHES["fused_update"]
     for i in range(3):
-        grads = tuple({k: torch.sin(v + i) for k, v in layer.items()} for layer in rp)
-        p, o, t = fu.fused_adam_polyak(p, grads, o, t, 1e-3, 0.05)
+        grads = grads_at(i, rp)
+        before = [x.clone() for x in _leaves(p, o.mu, o.nu, t, grads)] + [o.count.clone()]
+        new = fu.fused_adam_polyak(p, grads, o, t, 1e-3, 0.05)
+        torch.cuda.synchronize()
+        for a, b in zip(before, _leaves(p, o.mu, o.nu, t, grads) + [o.count]):
+            assert torch.equal(a, b)
+        p, o, t = new
         rp, ro, rt = fu.fused_adam_polyak_reference(rp, grads, ro, rt, 1e-3, 0.05)
         torch.cuda.synchronize()
         for got, want in ((p, rp), (o.mu, ro.mu), (o.nu, ro.nu), (t, rt)):
             for a, b in zip(tree_leaves(got), tree_leaves(want)):
                 np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                            rtol=1e-6, atol=1e-7)
+                assert torch.equal(a, b)            # 0 ULP
+    assert o.count.dtype == torch.int32
     assert int(o.count) == int(ro.count) == 8
-    assert fc.KERNEL_LAUNCHES["fused_update"] == launches + 3
+    assert fc.KERNEL_LAUNCHES["fused_update"] == launches + 3 * per_call
+
+
+@pytest.mark.cuda
+def test_fused_update_is_one_launch_on_card():
+    """A call on the Pendulum DDPG critic (2x256) is one device operation,
+    counted by torch.profiler: no gather, no bias-correction launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+
+    params, opt, targets, grads_at = _update_inputs("critic", hidden=(256, 256))
+    grads = grads_at(0, params)
+    fu.fused_adam_polyak(params, grads, opt, targets, 1e-3, 5e-3)
+    torch.cuda.synchronize()
+    launches = fc.KERNEL_LAUNCHES["fused_update"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            fu.fused_adam_polyak(params, grads, opt, targets, 1e-3, 5e-3)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(e.count for e in events) == 4, [(e.key, e.count) for e in events]
+    assert fc.KERNEL_LAUNCHES["fused_update"] == launches + 4
+
+
+@pytest.mark.cuda
+def test_fused_update_in_a_cuda_graph_matches_eager():
+    """The wrapper captured in a CUDA graph, replayed twice (each replay's
+    outputs copied back into the graph's inputs), gives the two eager
+    calls' trees and count bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    params, opt, targets, grads_at = _update_inputs("critic")
+    grads = grads_at(0, params)
+    eager = [(params, opt, targets)]
+    for _ in range(2):
+        p, o, t = eager[-1]
+        eager.append(fu.fused_adam_polyak(p, grads, o, t, 1e-3, 0.05))
+
+    static = [x.clone() for x in _leaves(params, opt.mu, opt.nu, targets)] + [opt.count.clone()]
+    it = iter(static)
+    sp, smu, snu, st = (tuple({"w": next(it), "b": next(it)} for _ in params) for _ in range(4))
+    sopt = OptState(mu=smu, nu=snu, count=next(it))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fu.fused_adam_polyak(sp, grads, sopt, st, 1e-3, 0.05)     # warm up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fu.fused_adam_polyak(sp, grads, sopt, st, 1e-3, 0.05)
+    new = _leaves(out[0], out[1].mu, out[1].nu, out[2]) + [out[1].count]
+    for step in (1, 2):
+        graph.replay()
+        torch.cuda.synchronize()
+        p, o, t = eager[step]
+        for a, b in zip(new, _leaves(p, o.mu, o.nu, t) + [o.count]):
+            assert torch.equal(a, b)
+        for dst, src in zip(static, new):
+            dst.copy_(src)
+    assert int(new[-1]) == 7
+
+
+@pytest.mark.cuda
+def test_fused_update_bias_corrections_match_torch_pow():
+    """The kernel's 1 - B^c for every new count c in 1..2^20, against the
+    plain version's 1.0 - torch.pow(B, c) on the card, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from distributed_ddpg_tpu_torch.ops.optim import B1, B2
+
+    counts = 2 ** 20
+    bc1, bc2 = fu.kernel_bias_corrections(counts)
+    c = torch.arange(1, counts + 1, dtype=torch.int32, device="cuda").to(torch.float32)
+    assert torch.equal(bc1, 1.0 - torch.pow(B1, c))
+    assert torch.equal(bc2, 1.0 - torch.pow(B2, c))
 
 
 @pytest.mark.cuda
