@@ -54,19 +54,36 @@ Phases (any failure raises; nothing is caught and passed over):
    at both shapes and at K = 800 at Pendulum shapes, TD3 with delay 2 and
    noise, D4PG at 51 atoms, SAC with the temperature learned; the K = 800
    cases refereed like SAC's above; and one small chunk a family (nets
-   32x32, batch 8, K = 4) from a fresh state (FRESH_FRAC).
+   32x32, batch 8, K = 4) from a fresh state (FRESH_FRAC). Then
+   prioritized replay (replay/device.py, parallel/learner.py
+   run_sample_chunk_per): the PER draw on the card against the CPU with
+   the same uniforms, on dyadic priorities at the main path's capacity
+   (1M; every running sum exact, so the same indices, weights within
+   1e-6), and on random ones (the share of indices that differ and the
+   card's cumsum's decreasing neighbours printed); one PER chunk at
+   K = 16 on the chunk kernel's route against the scan route, DDPG and
+   D4PG (51 atoms), on the same idx and weights (the state under the f32
+   rule, td, the priority vector and max_priority within OUT_TOL); the
+   duplicate rule of the priority write (the last draw of a slot wins)
+   the same on the card as on the CPU and bit-identical over two runs;
+   and no synchronizing call added by the PER chunk over a uniform one,
+   or by the priority stamp over a uniform insert (torch.cuda sync
+   debug mode).
 4. Drive the main paths, `distributed_ddpg_tpu_torch.train` (Pendulum-v1,
    2x256, batch 64, f32, one actor process, K = 800): DDPG with the
    default flags and TD3 with --twin_critic=true --policy_delay=2
    --target_noise=0.2 for 5000 env steps each, then D4PG with
-   --distributional=true --n_step=5 --v_min=auto --v_max=auto for 20,000
+   --distributional=true --n_step=5 --v_min=auto --v_max=auto for 5000
    (51 atoms; the support resolved from the warmup rewards is
+   printed) and README's whole D4PG command, the same with
+   --prioritized=true, for 20,000 (its final beta and max_priority
    printed), then SAC with --sac=true --actor_lr=3e-4 --critic_lr=3e-4
    --tau=0.005 for 20,000 (its final alpha is printed); then with
    --compute_dtype=bfloat16 DDPG for 20,000 env steps and TD3, D4PG and
    SAC (their flags as above) for 5000 each; then the scan route:
-   --fused_update=true, the D4PG command above with --fused_update=true
-   and --critic_l2=0.01, for 5000 env steps each. For each, the
+   --fused_update=true for 5000 env steps, README's D4PG command (with
+   --prioritized=true) with --fused_update=true and --critic_l2=0.01 for
+   2500 each. For each, the
    launch counts are zeroed just before and read just after: on the
    kernel route every chunk must have been one launch of that branch's
    kernel and nothing else; on the scan route (fused_chunk_active false)
@@ -84,7 +101,11 @@ Phases (any failure raises; nothing is caught and passed over):
    grid, the plain version and the library pair torch._fused_adam_ +
    torch._foreach_lerp_, each as device time in a CUDA graph and as host
    time launched eagerly, beside its bound), and the scan route's chunk
-   at K = 800 with fused_update on and off.
+   at K = 800 with fused_update on and off. Then PER's own work a chunk
+   at K = 800, B = 64, capacity 1M (the draw, the gather, the weight
+   column, the priority write and max), as device time (torch.profiler)
+   and as time a chunk with its host enqueue (CUDA events), beside D4PG's
+   kernel time a chunk and PER's byte bound.
 
 It imports nothing of JAX or of the JAX package. The second-to-last line
 is the kernels' JSON record; the last line is the device record.
@@ -732,6 +753,239 @@ def check_scan_route(cfg, k: int = 16, against_kernel: bool = False) -> None:
         raise AssertionError(f"{label}: {', '.join(failed)} outside the tolerances")
 
 
+# Prioritized replay's checks and timing: the main path's capacity, the
+# rows of the parity phase's replay, and the draw's shape (K x B).
+PER_CAPACITY = 1_000_000
+PER_FILL = 200_000
+PER_K, PER_B = 800, 64
+
+
+def per_priorities(kind: str, n: int, seed: int) -> np.ndarray:
+    """n priorities: `dyadic` ones (multiples of 1/8 up to 1, so every
+    running sum up to 1M of them is exact in f32, in any order), or ones
+    of the main path's kind: (|td| + 1e-6)^0.6 of D4PG-sized td, three in
+    ten still at a stamped max."""
+    rng = np.random.default_rng(seed)
+    if kind == "dyadic":
+        return (rng.integers(1, 9, n) / 8.0).astype(np.float32)
+    p = (np.abs(5.0 * rng.standard_normal(n)) + 1e-6) ** 0.6
+    p[rng.random(n) < 0.3] = p.max()
+    return p.astype(np.float32)
+
+
+def check_per_draw() -> None:
+    """draw_per_indices on the card against the CPU with the same uniforms,
+    at the main path's capacity and draw: on dyadic priorities the indices
+    must be identical and the weights within 1e-6 relative; on the main
+    path's kind the share of indices that differ is printed (the two
+    cumsums sum in different orders), with the count of decreasing
+    neighbours in the card's cumsum."""
+    from distributed_ddpg_tpu_torch.replay.device import draw_per_indices
+
+    uniform = torch.from_numpy(
+        np.random.default_rng(30).uniform(0, 1, (PER_K, PER_B)).astype(np.float32))
+    for kind in ("dyadic", "random"):
+        prios = torch.from_numpy(per_priorities(kind, PER_CAPACITY, 31))
+        cidx, cw = draw_per_indices(prios.cuda(), PER_CAPACITY, (PER_K, PER_B), 0.4,
+                                    uniform=uniform.cuda())
+        hidx, hw = draw_per_indices(prios, PER_CAPACITY, (PER_K, PER_B), 0.4, uniform=uniform)
+        cum = torch.cumsum(prios.cuda(), 0)
+        falls = int((cum[1:] < cum[:-1]).sum())
+        again = bool(torch.equal(cum, torch.cumsum(prios.cuda(), 0)))
+        cidx, cw = cidx.cpu(), cw.cpu()
+        same = cidx == hidx
+        rows = same.all(dim=1)    # a row's weights share its max: compare whole rows
+        w_err = float(((cw - hw).abs() / hw)[rows].max())
+        log(f"  PER draw {kind} priorities, capacity {PER_CAPACITY}, K={PER_K} B={PER_B}: "
+            f"{float((~same).double().mean()):.3e} of the indices differ from the CPU's "
+            f"({int((~rows).sum())} of {PER_K} rows), weights' largest relative gap in the "
+            f"rows that agree {w_err:.3e}; the card's cumsum (bit-identical when run "
+            f"again: {again}) has {falls} decreasing neighbours, total {float(cum[-1]):.6f} on the card, "
+            f"{float(torch.cumsum(prios, 0)[-1]):.6f} on the CPU")
+        if kind == "dyadic" and (not bool(same.all()) or w_err > 1e-6):
+            raise AssertionError("PER draw: the card and the CPU differ on exact sums")
+        if cidx.max() >= PER_CAPACITY or not bool(torch.isfinite(cw).all()):
+            raise AssertionError(f"PER draw {kind}: an index past the fill or a bad weight")
+
+
+def per_replay(obs: int, act: int, seed: int):
+    """A DevicePrioritizedReplay on the card at the main path's capacity:
+    PER_FILL random rows (weight column 1) and priorities of the main
+    path's kind, max_priority their largest."""
+    from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay
+
+    rep = DevicePrioritizedReplay(PER_CAPACITY, obs, act, "cuda", block_size=1024)
+    rep.add_packed(random_batches(seed, 1, PER_FILL, obs, act, weighted=False)[0].cpu().numpy())
+    prios = torch.zeros(PER_CAPACITY, device="cuda")
+    prios[:PER_FILL] = torch.from_numpy(per_priorities("random", PER_FILL, seed))
+    rep.set_per_state(prios, prios.max())
+    return rep
+
+
+def check_per_chunk(cfg, k: int = 16) -> None:
+    """One PER chunk (ShardedLearner.run_sample_chunk_per) on the chunk
+    kernel's route against the scan route, on the card, from one random
+    state and replay, on the same idx and weights (drawn once at beta
+    0.5): the state, td and the metrics under the f32 rule
+    (compare_outputs), the priority vector and max_priority within
+    OUT_TOL, and the replay's rows untouched."""
+    from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+    from distributed_ddpg_tpu_torch.replay.device import draw_per_indices
+
+    obs, act, step = 3, 1, 1000
+    label = f"PER chunk {'d4pg' if cfg.distributional else 'ddpg'} K={k}, kernel vs scan route"
+    state_np = random_state_np(cfg, obs, act, seed=33, step=step)
+    rep = per_replay(obs, act, 34)
+    p0, m0, rows = rep.priorities.clone(), rep.max_priority.clone(), rep.storage.clone()
+    idx, w = draw_per_indices(p0, PER_FILL, (k, cfg.batch_size), 0.5,
+                              generator=torch.Generator(device="cuda").manual_seed(35))
+    outs = {}
+    for route in ("on", "off"):
+        c = cfg.replace(prioritized=True, fused_chunk=route)
+        learner = ShardedLearner(c, obs, act, 2.0, 0.0, chunk_size=k,
+                                 state=train_state_from_numpy(state_np, "cuda"))
+        rep.set_per_state(p0.clone(), m0.clone())
+        out = learner.run_sample_chunk_per(rep, 0.5, idx=idx, weights=w)
+        outs[route] = (chunk_outputs(learner.state, out.td_errors, out.metrics),
+                       {"priorities": rep.priorities, "max_priority": rep.max_priority})
+    torch.cuda.synchronize()
+    if not torch.equal(rep.storage, rows):
+        raise AssertionError(f"{label}: the chunk wrote into the replay's rows")
+    _, failed = compare_outputs(label, cfg, obs, act, outs["on"][0], outs["off"][0])
+    for name in ("priorities", "max_priority"):
+        got = outs["on"][1][name].double().cpu().numpy()
+        want = outs["off"][1][name].double().cpu().numpy()
+        err = np.abs(got - want)
+        ok = bool(np.all(err <= OUT_TOL["atol"] + OUT_TOL["rtol"] * np.abs(want)))
+        log(f"  {label} {name}: max_abs_err={err.max():.3e}" + ("" if ok else " -- outside"))
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"{label}: {', '.join(failed)} outside the tolerances")
+
+
+def check_per_duplicates() -> None:
+    """The priority write's duplicate rule (scatter_last_wins: the last
+    occurrence in flat order wins) on the card, twice, against the CPU and
+    a plain loop, on K x B indices over 1000 slots (every slot drawn ~51
+    times): bit-identical throughout."""
+    from distributed_ddpg_tpu_torch.replay.device import scatter_last_wins
+
+    rng = np.random.default_rng(36)
+    idx = rng.integers(0, 1000, PER_K * PER_B)
+    vals = rng.standard_normal(PER_K * PER_B).astype(np.float32)
+    want = np.zeros(1000, np.float32)
+    for i, v in zip(idx.tolist(), vals):
+        want[i] = v
+    runs = []
+    for device in ("cuda", "cuda", "cpu"):
+        target = torch.zeros(1000, device=device)
+        scatter_last_wins(target, torch.from_numpy(idx).to(device),
+                          torch.from_numpy(vals).to(device))
+        runs.append(target.cpu().numpy())
+    same = [bool(np.array_equal(r.view(np.int32), want.view(np.int32))) for r in runs]
+    log(f"  PER duplicate rule over {len(idx)} draws of 1000 slots: card run 1 {same[0]}, "
+        f"card run 2 {same[1]}, CPU {same[2]} bit-identical to last-wins")
+    if not all(same):
+        raise AssertionError("PER duplicate rule: not the last draw on the card or the CPU")
+
+
+def sync_calls(fn) -> int:
+    """Synchronizing CUDA calls made by fn() (torch.cuda sync debug mode,
+    'warn', its warnings counted; the mode's own notice, once a process,
+    is not one)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def check_per_syncs() -> None:
+    """PER adds no synchronizing call: a PER chunk (draw, gather, weights,
+    chunk, priority write, max) against a uniform chunk on the same
+    learner, and a prioritized insert (rows, then the stamp) against a
+    uniform one, at the main path's capacity (DDPG, K = 16)."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+    from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
+
+    cfg = DDPGConfig(prioritized=True)
+    learner = ShardedLearner(cfg, 3, 1, 2.0, 0.0, chunk_size=16, state=train_state_from_numpy(
+        random_state_np(cfg, 3, 1, seed=37), "cuda"))
+    rep = per_replay(3, 1, 38)
+    learner.run_sample_chunk_per(rep, 0.5)          # warm: first calls allocate
+    learner.run_sample_chunk(rep)
+    per = sync_calls(lambda: learner.run_sample_chunk_per(rep, 0.5))
+    uniform = sync_calls(lambda: learner.run_sample_chunk(rep))
+    block = random_batches(39, 1, 1024, 3, 1, weighted=False)[0].cpu().numpy()
+    plain = DeviceReplay(PER_CAPACITY, 3, 1, "cuda", block_size=1024)
+    for r in (rep, plain):
+        r.add_packed(block)
+    stamped = sync_calls(lambda: rep.add_packed(block))
+    unstamped = sync_calls(lambda: plain.add_packed(block))
+    log(f"  PER host syncs: a PER chunk {per}, a uniform chunk {uniform}; a prioritized "
+        f"insert {stamped}, a uniform insert {unstamped}")
+    if per > uniform or stamped > unstamped:
+        raise AssertionError("PER adds a synchronizing call (a host read of the device)")
+
+
+def time_per(card: str, chunk_ms: float) -> None:
+    """PER's own work a chunk at the main path's shapes (K = 800, B = 64,
+    capacity 1M, D4PG's rows): the draw, the gather into a fresh copy, the
+    weight column, then from a td of the chunk's shape the new priorities,
+    their write and the max, as run_sample_chunk_per does them around the
+    chunk. Device time a chunk from torch.profiler (the card's busy time),
+    time a chunk with the host's enqueue from CUDA events, beside the
+    chunk kernel's time a chunk and PER's byte bound: the priority vector
+    read once, the K x B rows read and written, td read, the K x B
+    priorities and the max written."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_ddpg_tpu_torch.replay.device import draw_per_indices, scatter_last_wins
+
+    rep = per_replay(3, 1, 40)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    td = torch.randn(PER_K, PER_B, device="cuda", generator=gen)
+
+    def per_work():
+        p, m = rep.priorities, rep.max_priority
+        idx, w = draw_per_indices(p, rep.size, (PER_K, PER_B), 0.7, generator=gen)
+        packed = rep.storage[idx]
+        packed[..., -1] = w
+        new_p = (td.abs() + 1e-6) ** 0.6
+        scatter_last_wins(p, idx.reshape(-1), new_p.reshape(-1))
+        torch.maximum(m, new_p.max(), out=m)
+
+    reps = 20
+    wall_ms = time_ms(per_work, reps=reps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            per_work()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
+    launches = sum(e.count for e in events if e.key in LAUNCH_CALLS) / reps
+    width = rep.width
+    nbytes = (4 * PER_CAPACITY + 2 * PER_K * PER_B * width * 4 + PER_K * PER_B * 4
+              + PER_K * PER_B * 4 + 4)
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    log(f"[timing] {card}: PER a chunk (K={PER_K}, B={PER_B}, capacity {PER_CAPACITY}): "
+        f"device time {device_ms * 1e3:.2f} us ({launches:.1f} kernel launches), "
+        f"{wall_ms * 1e3:.2f} us a chunk with the host's enqueue; the D4PG chunk kernel "
+        f"{chunk_ms:.3f} ms a chunk, PER's device time {device_ms / chunk_ms:.3%} of it; "
+        f"bound {bound_ms * 1e3:.3f} us, bytes ({nbytes / 1e6:.2f} MB)")
+
+
 def graph_ms(fn, calls: int = 50) -> float:
     """Device time of one call of `fn`: `calls` calls captured in one CUDA
     graph, the graph replayed (CUDA events), so that the host's launch rate
@@ -917,7 +1171,8 @@ def drive_main_path(flags, name: str) -> dict:
     just after. On the kernel route every chunk must be one launch of
     kernel `name`; on the scan route (`name` "scan") no chunk kernel may
     launch, and the fused update twice a learner step when fused_update is
-    on, else never."""
+    on, else never. Under --prioritized=true the final beta must lie in
+    [per_beta, per_beta_final] and max_priority be at least its start, 1."""
     from distributed_ddpg_tpu_torch.config import DDPGConfig
     from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
     from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
@@ -954,7 +1209,14 @@ def drive_main_path(flags, name: str) -> dict:
     if cfg.sac:
         log(f"[main path {name}] final alpha {summary['alpha']}, final return "
             f"{summary['final_return']}")
-    for key in (*METRIC_KEYS, "final_return") + (("alpha",) if cfg.sac else ()):
+    if cfg.prioritized:
+        log(f"[main path {name}] prioritized: final beta {summary['beta']}, max_priority "
+            f"{summary['max_priority']}")
+        if not (summary["prioritized"] and cfg.per_beta <= summary["beta"] <= cfg.per_beta_final
+                and summary["max_priority"] >= 1.0):
+            raise AssertionError(f"main path {name}: PER's beta or max_priority is wrong")
+    for key in (*METRIC_KEYS, "final_return") + (("alpha",) if cfg.sac else ()) + (
+            ("beta", "max_priority") if cfg.prioritized else ()):
         if not math.isfinite(summary[key]):
             raise AssertionError(f"main path {name}: {key} = {summary[key]} is not finite")
     return launches
@@ -1113,13 +1375,21 @@ def main() -> int:
         errs[(name, 3, K)] = check_fused_chunk(c, 3, 1, K, step, referee=True,
                                                spread_on_cpu=True)
 
+    log("[parity] prioritized replay on the card")
+    check_per_draw()
+    check_per_chunk(cfg)
+    check_per_chunk(d4pg)
+    check_per_duplicates()
+    check_per_syncs()
+
     log(f"[phase] parity done at {time.monotonic() - t_start:.1f}s")
 
     # --- 4. the main paths ---
-    # D4PG and SAC, this slice's path, run 20k env steps each: tens of
-    # chunks, so their rates are the steady state's and not the first
-    # chunk's one-time costs. The earlier paths run a few chunks each,
-    # enough to check their launches and metrics.
+    # README's whole D4PG command (with --prioritized=true), this slice's
+    # path, and SAC run 20k env steps each: tens of chunks, so their rates
+    # are the steady state's and not the first chunk's one-time costs. The
+    # other paths run a few chunks each, enough to check their launches
+    # and metrics.
     common = ["--num_actors=1", "--replay_min_size=1000", "--eval_every=0",
               "--eval_episodes=2"]
     launches = drive_main_path(common + ["--total_env_steps=5000"], "fused_chunk")
@@ -1127,11 +1397,15 @@ def main() -> int:
         common + ["--total_env_steps=5000", "--twin_critic=true", "--policy_delay=2",
                   "--target_noise=0.2"],
         "fused_chunk_td3"))
+    d4pg_flags = ["--distributional=true", "--n_step=5", "--v_min=auto", "--v_max=auto"]
     with tempfile.TemporaryDirectory() as tmp:   # the run's JSONL: its support records
-        launches.update(drive_main_path(
-            common + ["--total_env_steps=20000", "--distributional=true", "--n_step=5",
-                      "--v_min=auto", "--v_max=auto",
+        drive_main_path(
+            common + ["--total_env_steps=5000", *d4pg_flags,
                       f"--log_path={os.path.join(tmp, 'd4pg.jsonl')}"],
+            "fused_chunk_d4pg")
+        launches.update(drive_main_path(
+            common + ["--total_env_steps=20000", *d4pg_flags, "--prioritized=true",
+                      f"--log_path={os.path.join(tmp, 'd4pg_per.jsonl')}"],
             "fused_chunk_d4pg"))
     launches.update(drive_main_path(
         common + ["--total_env_steps=20000", "--sac=true", "--actor_lr=3e-4",
@@ -1155,23 +1429,24 @@ def main() -> int:
         bf16 + ["--total_env_steps=5000", "--sac=true", "--actor_lr=3e-4",
                 "--critic_lr=3e-4", "--tau=0.005"],
         "fused_chunk_sac_bf16"))
-    # The scan route, this slice's path: DDPG with the fused update, then
-    # README's D4PG command with it and the DDPG paper's critic weight decay
-    # (no fused update), 5000 env steps each. A scan chunk of 800 eager
-    # steps holds the host ~4-6 s while the actor's queue (4 x 32 rows)
-    # fills, so a chunk brings in only ~130-140 env steps (PERF.md §5):
-    # 5000 env steps are ~30 chunks, ~120-190 s a path. 20,000 for DDPG
-    # would be ~140 chunks, ~500-800 s alone, more than cutting every
-    # earlier path could make room for.
+    # The scan route: DDPG with the fused update for 5000 env steps, then
+    # README's whole D4PG command (PER included) with it and the DDPG
+    # paper's critic weight decay (no fused update) for 2500 each. A scan
+    # chunk of 800 eager steps holds the host ~3-8 s while the actor's
+    # queue (4 x 32 rows) fills, so a chunk brings in only ~130-170 env
+    # steps (PERF.md §5): 5000 env steps are ~30 chunks, 130-250 s a path
+    # on the hosts seen so far, 2500 about 10 chunks. Three paths at 5000
+    # took 564 s of a 938 s run on a slow host, too close to the run's
+    # limit for a slower one (PERF.md §4).
     update_launches = drive_main_path(common + ["--total_env_steps=5000",
                                                 "--fused_update=true"], "scan")
     with tempfile.TemporaryDirectory() as tmp:
         drive_main_path(
-            common + ["--total_env_steps=5000", "--distributional=true", "--n_step=5",
-                      "--v_min=auto", "--v_max=auto", "--fused_update=true",
+            common + ["--total_env_steps=2500", *d4pg_flags, "--prioritized=true",
+                      "--fused_update=true",
                       f"--log_path={os.path.join(tmp, 'd4pg_scan.jsonl')}"],
             "scan")
-    drive_main_path(common + ["--total_env_steps=5000", "--critic_l2=0.01"], "scan")
+    drive_main_path(common + ["--total_env_steps=2500", "--critic_l2=0.01"], "scan")
     log(f"[phase] main paths done at {time.monotonic() - t_start:.1f}s")
 
     # --- 5. timing at the main path's shapes ---
@@ -1190,6 +1465,7 @@ def main() -> int:
                                    split=name == "fused_chunk_bf16")
     update_timing = time_fused_update(card)
     time_scan_chunk(card, cfg, K)
+    time_per(card, timing["fused_chunk_d4pg"]["ms"])
     log(f"[done] {time.monotonic() - t_start:.1f}s")
 
     print(json.dumps({"kernels": [{

@@ -29,7 +29,6 @@ from typing import Sequence
 
 # Options outside this slice: field -> the value that means "off".
 _NOT_IN_SLICE = {
-    "prioritized": False,
     "guardrails": False,
     "serve_actors": False,
     "checkpoint_dir": "",
@@ -75,6 +74,14 @@ class DDPGConfig:
     # --- replay ---
     replay_capacity: int = 1_000_000
     replay_min_size: int = 1_000
+    # Proportional prioritized replay on the device (replay/device.py
+    # DevicePrioritizedReplay): priorities (|td| + per_eps)^per_alpha, IS
+    # weights annealed from per_beta to per_beta_final over the run.
+    prioritized: bool = False
+    per_alpha: float = 0.6
+    per_beta: float = 0.4
+    per_beta_final: float = 1.0
+    per_eps: float = 1e-6
 
     # --- exploration ---
     ou_theta: float = 0.15
@@ -150,7 +157,6 @@ class DDPGConfig:
     device: str = "cuda"
 
     # --- options outside this slice (see _NOT_IN_SLICE) ---
-    prioritized: bool = False
     guardrails: bool = False
     serve_actors: bool = False
     checkpoint_dir: str = ""         # checkpoint and resume come later

@@ -26,6 +26,12 @@ two standard-normal streams (eps_next, eps_cur), each [K, B, act]
 its k-th slice. A SAC chunk advances the actor and critic counts and the
 step by K, and the temperature's count by K when it is learned. Under
 D4PG, set_value_bounds moves the C51 support between chunks.
+
+With prioritized replay (run_sample_chunk_per) the chunk's rows are drawn
+in proportion to their priorities (replay/device.py draw_per_indices), the
+IS weights are written into the gathered rows' weight column, which both
+routes read, and the chunk's (|td| + eps)^alpha go back into the priority
+vector, all on the device, as the JAX learner's PER programs do.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from distributed_ddpg_tpu_torch.learner import (
     make_learner_step,
 )
 from distributed_ddpg_tpu_torch.ops import fused_chunk
+from distributed_ddpg_tpu_torch.replay.device import draw_per_indices, scatter_last_wins
 from distributed_ddpg_tpu_torch.types import TrainState, pack_batch_np, unpack_batch
 
 
@@ -212,6 +219,37 @@ class ShardedLearner:
                 generator=self._gen, device=self.device,
             )
         return self._run(storage[idx.to(self.device)])
+
+    def run_sample_chunk_per(self, device_replay, beta: float,
+                             idx: Optional[torch.Tensor] = None,
+                             weights: Optional[torch.Tensor] = None) -> StepOutput:
+        """K learner steps on minibatches drawn from a DevicePrioritizedReplay
+        in proportion to its priorities (the JAX learner's
+        run_sample_chunk_per): one [K, B] uniform from the learner's index
+        generator into draw_per_indices at this `beta`, the rows gathered (a
+        copy) with the IS weights written into its weight column, the chunk
+        on the learner's route, then the priorities of the drawn rows set
+        to (|td| + eps)^alpha (an index drawn twice takes its last value in
+        flat K x B order, scatter_last_wins) and max_priority raised to the
+        largest of them. Priorities and max_priority are updated in place,
+        on the device and in stream order, with no host read: an insert
+        issued after this call returns stamps the new max. `idx` and
+        `weights` ([K, B], given together) replace the draw."""
+        storage, size, priorities, max_priority = device_replay.per_state()
+        if (idx is None) != (weights is None):
+            raise ValueError("idx and weights replace the PER draw together")
+        if idx is None:
+            idx, weights = draw_per_indices(
+                priorities, size, (self.chunk_size, self.config.batch_size), beta,
+                generator=self._gen)
+        idx = idx.to(self.device)
+        packed = storage[idx]
+        packed[..., -1] = weights.to(self.device, torch.float32)
+        out = self._run(packed)
+        new_p = (out.td_errors.abs() + device_replay.eps) ** device_replay.alpha
+        scatter_last_wins(priorities, idx.reshape(-1), new_p.reshape(-1))
+        torch.maximum(max_priority, new_p.max(), out=max_priority)
+        return out
 
     def run_chunk(self, np_batches: Dict[str, np.ndarray]) -> StepOutput:
         """K learner steps on host-fed [K, B, ...] stacked minibatches."""

@@ -16,15 +16,64 @@ sharded modes are later work.
 
 `ptr` and `size` are host integers: the host drives every insert, so it
 knows them without reading the device.
+
+DevicePrioritizedReplay adds proportional PER on the device, as the JAX
+package's does: an f32 [capacity] priority vector and a 0-d max priority,
+both device tensors; every insert stamps its rows with the max priority,
+and the learner draws with `draw_per_indices` and writes the chunk's new
+priorities back (parallel/learner.py run_sample_chunk_per). Neither reads
+the device back.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from distributed_ddpg_tpu_torch.replay.staging import HostStagingRing
 from distributed_ddpg_tpu_torch.types import packed_width
+
+
+def draw_per_indices(priorities: torch.Tensor, size: int, shape, beta: float,
+                     generator: Optional[torch.Generator] = None,
+                     uniform: Optional[torch.Tensor] = None):
+    """Stratified proportional PER draw on the priorities' device, the JAX
+    package's draw_per_indices step by step: one cumsum over the priority
+    vector, u = (arange(B) + U[K, B]) / B * total, a searchsorted (side
+    right) clamped to size - 1, and IS weights (size * p / total)^-beta
+    divided by their max over each row of B. `uniform` ([K, B] in [0, 1))
+    replaces the draw from `generator`. Returns (idx [K, B] int64,
+    weights [K, B] f32); nothing is read back to the host.
+
+    The cumsum's f32 summation order differs by device (and from XLA's),
+    so two devices draw the same indices only where the running sums are
+    exact (for example dyadic priorities with a small total)."""
+    k, b = shape
+    cum = torch.cumsum(priorities, 0)
+    total = cum[-1]
+    if uniform is None:
+        uniform = torch.rand((k, b), generator=generator, device=priorities.device)
+    u = (torch.arange(b, dtype=torch.float32, device=priorities.device)[None, :]
+         + uniform) / b * total
+    idx = torch.searchsorted(cum, u.reshape(-1), right=True).reshape(k, b)
+    idx = idx.clamp_max(max(int(size) - 1, 0))
+    probs = priorities[idx] / total.clamp_min(1e-12)
+    weights = (float(size) * probs.clamp_min(1e-12)) ** (-float(beta))
+    return idx, weights / weights.amax(dim=-1, keepdim=True)
+
+
+def scatter_last_wins(target: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> None:
+    """target[idx[i]] = vals[i] in place, in flat order: where an index
+    occurs more than once, its last occurrence wins (XLA's scatter on the
+    CPU does the same; the JAX package leaves it unspecified). A stable
+    sort groups the duplicates in flat order and every member of a group
+    writes the group's last value, so the result is the same on every
+    device and run, with no host read."""
+    sorted_idx, order = torch.sort(idx, stable=True)
+    last = torch.searchsorted(sorted_idx, sorted_idx, right=True) - 1
+    target[sorted_idx] = vals[order[last]]
 
 
 class DeviceReplay:
@@ -125,3 +174,65 @@ class DeviceReplay:
         )
         self.ptr = int(state["ptr"]) % self.capacity
         self.size = n
+
+
+class DevicePrioritizedReplay(DeviceReplay):
+    """Proportional PER with the priorities in device memory (counterpart
+    of the JAX package's DevicePrioritizedReplay, one process, unsharded).
+
+    - `priorities`: f32 [capacity], zero for empty slots, so a draw never
+      reaches them; `max_priority`: a 0-d f32 device tensor, initially 1.
+    - Every insert of m rows stamps positions (old ptr + arange(m)) mod
+      capacity with max_priority, a padded flush included (JAX stamps the
+      shipped rows, padding and all).
+    - The learner draws (draw_per_indices) and writes (|td| + eps)^alpha of
+      the chunk's rows back with scatter_last_wins, then raises
+      max_priority to the chunk's largest, in place on the device
+      (parallel/learner.py run_sample_chunk_per). The stamp and the
+      chunk's write run on one CUDA stream in the order they were
+      issued, so an insert made while a chunk runs stamps that chunk's
+      new max priority, as the JAX package's dispatch lock ensures.
+    """
+
+    def __init__(self, capacity: int, obs_dim: int, act_dim: int, device="cpu",
+                 block_size: int = 4096, staging_blocks: int = 16,
+                 alpha: float = 0.6, eps: float = 1e-6):
+        super().__init__(capacity, obs_dim, act_dim, device, block_size, staging_blocks)
+        self.alpha = float(alpha)
+        self.eps = float(eps)
+        self.priorities = torch.zeros(self.capacity, dtype=torch.float32, device=self.device)
+        self.max_priority = torch.ones((), dtype=torch.float32, device=self.device)
+
+    def _insert(self, rows: np.ndarray) -> None:
+        old_ptr, m = self.ptr, len(rows)
+        super()._insert(rows)
+        first = min(m, self.capacity - old_ptr)
+        self.priorities[old_ptr:old_ptr + first].fill_(self.max_priority)
+        if m > first:
+            self.priorities[:m - first].fill_(self.max_priority)
+
+    def per_state(self):
+        """(storage, size, priorities, max_priority) for the learner's draw."""
+        return self.storage, self.size, self.priorities, self.max_priority
+
+    def set_per_state(self, priorities: torch.Tensor, max_priority: torch.Tensor) -> None:
+        """Install a priority vector and max priority (the learner updates
+        the installed ones in place)."""
+        self.priorities = priorities
+        self.max_priority = max_priority
+
+    def state_dict(self):
+        state = super().state_dict()
+        state["priorities"] = self.priorities[: self.size].cpu().numpy().copy()
+        state["max_priority"] = np.asarray(float(self.max_priority))
+        return state
+
+    def load_state_dict(self, state) -> None:
+        super().load_state_dict(state)
+        if "priorities" not in state:
+            return
+        n = int(state["size"])
+        self.priorities[:n] = torch.as_tensor(
+            np.asarray(state["priorities"], np.float32), device=self.device)
+        self.max_priority = torch.tensor(
+            float(state["max_priority"]), dtype=torch.float32, device=self.device)

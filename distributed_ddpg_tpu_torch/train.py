@@ -15,6 +15,10 @@ K learner steps per dispatch). It covers:
 - the param broadcast (param_refresh_every learner steps, with the
   param_refresh_interval_s wall-clock floor);
 - the max_learn_ratio learner-rate cap;
+- prioritized replay (--prioritized=true): DevicePrioritizedReplay, each
+  chunk through ShardedLearner.run_sample_chunk_per with beta annealed
+  linearly from per_beta to per_beta_final over total_env_steps (the JAX
+  trainer's rule, its global env-step count being this process's);
 - D4PG's auto support (--v_min=auto --v_max=auto): sized from the warmup
   replay's rewards before the first chunk, then widened on the 50-chunk
   cadence when mean_q nears an edge and the replay's rewards corroborate
@@ -27,7 +31,8 @@ K learner steps per dispatch). It covers:
 - a numpy eval of the deterministic policy;
 - JSONL records under the JAX trainer's names: the six learner metrics,
   eval_return, env_steps_per_sec, learner_steps_per_sec, final_return,
-  and under D4PG v_min, v_max and support_refusals (the JAX trainer
+  under D4PG v_min, v_max and support_refusals, and under PER the last
+  beta, with max_priority read once, in the final record (the JAX trainer
   records no temperature, so neither does this one; train() returns the
   final alpha under SAC).
 
@@ -36,7 +41,7 @@ Checkpoint and resume are later work (so are the checkpointed bounds).
 Usage:
     python -m distributed_ddpg_tpu_torch.train --total_env_steps=100000
     python -m distributed_ddpg_tpu_torch.train --distributional=true --n_step=5 \
-        --v_min=auto --v_max=auto                                  # D4PG
+        --prioritized=true --v_min=auto --v_max=auto               # D4PG
     python -m distributed_ddpg_tpu_torch.train --sac=true --actor_lr=3e-4 \
         --critic_lr=3e-4 --tau=0.005                               # SAC
     python -m distributed_ddpg_tpu_torch.train --fused_update=true  # scan route
@@ -130,7 +135,7 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         resolve_device,
         resolve_learner_chunk,
     )
-    from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
+    from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay, DeviceReplay
 
     device = resolve_device(config)
     env = make(config.env_id, seed=config.seed)
@@ -141,8 +146,15 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         config, spec.obs_dim, spec.act_dim, spec.action_scale,
         spec.action_offset, chunk_size=chunk,
     )
-    replay = DeviceReplay(
-        config.replay_capacity, spec.obs_dim, spec.act_dim, device, block_size=1024,
+    replay = (
+        DevicePrioritizedReplay(
+            config.replay_capacity, spec.obs_dim, spec.act_dim, device, block_size=1024,
+            alpha=config.per_alpha, eps=config.per_eps,
+        )
+        if config.prioritized
+        else DeviceReplay(
+            config.replay_capacity, spec.obs_dim, spec.act_dim, device, block_size=1024,
+        )
     )
     eval_policy = NumpyPolicy(
         param_layout(spec.obs_dim, actor_head_dim(spec.act_dim, config.sac),
@@ -152,6 +164,7 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
     log = JsonlLog(config.log_path, echo=echo)
     env_timer, learn_timer = Timer(), Timer()
     learn_steps = chunks = 0
+    beta = config.per_beta            # PER's IS exponent, annealed per chunk
     support_controller = support_auto.SupportController()
 
     def support_fields() -> Dict[str, Any]:
@@ -159,6 +172,9 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
             return {}
         return dict(v_min=learner.config.v_min, v_max=learner.config.v_max,
                     support_refusals=support_controller.refusals)
+
+    def per_fields() -> Dict[str, Any]:
+        return dict(prioritized=True, beta=beta) if config.prioritized else {}
 
     def data_bounds():
         return support_auto.replay_data_bounds(replay, config.gamma, config.n_step)
@@ -223,7 +239,12 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
                 if not ingest():
                     time.sleep(0.002)
                 continue
-            out = learner.run_sample_chunk(replay)
+            if config.prioritized:
+                frac = min(1.0, env_steps() / config.total_env_steps)
+                beta = config.per_beta + frac * (config.per_beta_final - config.per_beta)
+                out = learner.run_sample_chunk_per(replay, beta)
+            else:
+                out = learner.run_sample_chunk(replay)
             chunks += 1
             learn_steps += chunk
             learn_timer.tick(chunk)
@@ -275,6 +296,7 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
                     ),
                     **metrics,
                     **support_fields(),
+                    **per_fields(),
                 )
             if config.eval_every and env_steps() - last_eval >= config.eval_every:
                 last_eval = env_steps()
@@ -283,6 +305,8 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         pool.stop()
 
     metrics = learner.metrics_to_host(out) if out is not None else {}
+    if config.prioritized:   # the run's one read of the max priority
+        metrics["max_priority"] = float(replay.max_priority)
     rate = learn_timer.rate()
     env_rate = env_timer.rate()
     eval_policy.load_flat(learner.actor_params_to_host())
@@ -297,6 +321,7 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         compute_dtype=config.compute_dtype,
         **metrics,
         **support_fields(),
+        **per_fields(),
     )
     log.close()
     return {
@@ -309,8 +334,9 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         "fused_chunk_active": learner.fused_chunk_active,
         "env_steps": env_steps(),
         "final_return": final_return,
-        **{k: metrics[k] for k in METRIC_KEYS if k in metrics},
+        **{k: metrics[k] for k in (*METRIC_KEYS, "max_priority") if k in metrics},
         **support_fields(),
+        **per_fields(),
         **({"alpha": float(learner.state.log_alpha.exp())} if config.sac else {}),
     }
 

@@ -195,7 +195,7 @@ def test_config_defaults_match_jax():
 @pytest.mark.parametrize("override", [
     dict(policy_delay=2), dict(fused_chunk="sometimes"),
     dict(sac=True, fused_update=True),
-    dict(prioritized=True), dict(compute_dtype="float16"), dict(guardrails=True),
+    dict(data_axis=2), dict(compute_dtype="float16"), dict(guardrails=True),
     dict(data_axis=4), dict(model_axis=2), dict(actor_backend="device"),
     dict(serve_actors=True), dict(transport="shm"), dict(checkpoint_dir="/x"),
     dict(action_insert_layer=5), dict(faults="worker:0:crash@5"),

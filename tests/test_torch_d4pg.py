@@ -169,9 +169,17 @@ def test_d4pg_gates_match_jax(override):
 
 
 def test_prioritized_still_raises_naming_the_option():
-    with pytest.raises(ValueError, match="prioritized"):
-        DDPGConfig.from_flags(["--distributional=true", "--n_step=5", "--v_min=auto",
-                               "--v_max=auto", "--prioritized=true"])
+    """This case pinned the refusal of --prioritized; the port now runs it,
+    so it holds the opposite: README's whole D4PG command parses, with the
+    JAX package's per_* defaults, and the JAX config accepts it too."""
+    flags = ["--distributional=true", "--n_step=5", "--prioritized=true", "--v_min=auto",
+             "--v_max=auto"]
+    cfg = DDPGConfig.from_flags(flags)
+    assert cfg.prioritized and cfg.distributional and cfg.n_step == 5 and cfg.v_support_auto
+    jcfg = JaxConfig.from_flags(flags)
+    assert jcfg.prioritized
+    for name in ("per_alpha", "per_beta", "per_beta_final", "per_eps"):
+        assert getattr(cfg, name) == getattr(jcfg, name)
 
 
 # --- the support and the weight bridge -------------------------------------------

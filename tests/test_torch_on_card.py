@@ -292,3 +292,64 @@ def test_scan_chunk_on_card_matches_cpu(family):
     _close(td.cpu(), rtd)
     for name in METRIC_KEYS:
         _close(float(met[name]), float(rmet[name]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ddpg", "d4pg"])
+def test_per_chunk_on_card_matches_cpu(family):
+    """One prioritized chunk (run_sample_chunk_per, the kernel route) on the
+    card against the same chunk on the CPU: the draw on dyadic priorities
+    (exact sums, so the same indices on both), then the chunk on those
+    idx and weights; the state, td, the priority vector and max_priority
+    within RTOL and ATOL, a slot drawn twice at its last draw's value, and
+    the replay's rows untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+    from distributed_ddpg_tpu_torch.replay.device import (
+        DevicePrioritizedReplay,
+        draw_per_indices,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    over = dict(distributional=True, num_atoms=21, v_min=-5.0, v_max=5.0) \
+        if family == "d4pg" else {}
+    cap, fill = 512, 384
+    rng = np.random.default_rng(6)
+    rows = _batches(7).reshape(K * B, -1)
+    rows = np.concatenate([rows] * (fill // len(rows)))
+    rows[:, -1] = 1.0
+    prios = np.zeros(cap, np.float32)
+    prios[:fill] = rng.integers(1, 33, fill) / 8.0
+    uniform = torch.from_numpy(rng.uniform(0, 1, (K, B)).astype(np.float32))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        cfg = DDPGConfig(actor_hidden=HIDDEN, critic_hidden=HIDDEN, batch_size=B, seed=3,
+                         device=device, prioritized=True, fused_chunk="on", **over)
+        state = init_train_state(cfg, OBS, ACT, cfg.seed, "cpu")
+        state = train_state_from_numpy(train_state_to_numpy(state), device)
+        learner = ShardedLearner(cfg, OBS, ACT, 2.0, 0.0, chunk_size=K, state=state)
+        rep = DevicePrioritizedReplay(cap, OBS, ACT, device, block_size=64)
+        rep.add_packed(rows)
+        rep.set_per_state(torch.from_numpy(prios.copy()).to(device),
+                          torch.tensor(4.0, device=device))
+        idx, w = draw_per_indices(rep.priorities, fill, (K, B), 0.5,
+                                  uniform=uniform.to(device))
+        out = learner.run_sample_chunk_per(rep, 0.5, idx=idx, weights=w)
+        runs[device] = (idx.cpu(), w.cpu(), fc.flatten_state(learner.state).cpu(),
+                        out.td_errors.cpu(), rep.priorities.cpu(), float(rep.max_priority),
+                        rep.storage.cpu())
+    (gi, gw, gs, gtd, gp, gm, gst), (ri, rw, rs, rtd, rp, rm, rst) = runs["cuda"], runs["cpu"]
+    assert torch.equal(gi, ri)
+    _close(gw, rw)
+    _close(gs, rs)
+    _close(gtd, rtd)
+    _close(gp, rp)
+    _close(gm, rm)
+    assert torch.equal(gst, rst) and torch.equal(gst[:fill, -1], torch.ones(fill))
+    new_p = (gtd.abs() + 1e-6) ** 0.6
+    flat = gi.reshape(-1).tolist()
+    last = {i: float(v) for i, v in zip(flat, new_p.reshape(-1))}
+    for slot, v in last.items():
+        if flat.count(slot) > 1:
+            _close(gp[slot], v)

@@ -239,7 +239,7 @@ def test_sac_gates_match_jax(override):
 
 
 @pytest.mark.parametrize("override", [
-    dict(prioritized=True), dict(compute_dtype="float16"), dict(guardrails=True),
+    dict(checkpoint_dir="/x"), dict(compute_dtype="float16"), dict(guardrails=True),
     dict(data_axis=4),
 ])
 def test_sac_with_options_outside_the_slice_raises(override):
