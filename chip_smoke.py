@@ -21,8 +21,8 @@ Phases (any failure raises; nothing is caught and passed over):
    1e-7, with its largest gap in ULP (0 expected), the inputs left as they
    were and one launch a table; its bias corrections against torch.pow
    for every count to 2^20; one device operation a call on the Pendulum
-   critic, counted by torch.profiler; then the
-   scan route (parallel/learner.make_scan_chunk_fn, K = 16 on one state
+   critic, counted as the nodes of a CUDA graph that captures the calls;
+   then the scan route (parallel/learner.make_scan_chunk_fn, K = 16 on one state
    and draw): with fused_update (DDPG and D4PG) and with critic_l2 on the
    card against the same chunk on the CPU, and with fused_chunk='off'
    against the chunk kernel, under the f32 rule below. Then, from one
@@ -60,7 +60,9 @@ Phases (any failure raises; nothing is caught and passed over):
    the same uniforms, on dyadic priorities at the main path's capacity
    (1M; every running sum exact, so the same indices, weights within
    1e-6), and on random ones (the share of indices that differ and the
-   card's cumsum's decreasing neighbours printed); one PER chunk at
+   card's prefix sum's decreasing neighbours printed); the card's prefix
+   sum (replay/device.fixed_order_cumsum) and the draw bit-identical over
+   PER_REPEATS runs (torch's 1-D cumsum's repeat printed as context); one PER chunk at
    K = 16 on the chunk kernel's route against the scan route, DDPG and
    D4PG (51 atoms), on the same idx and weights (the state under the f32
    rule, td, the priority vector and max_priority within OUT_TOL); the
@@ -69,6 +71,29 @@ Phases (any failure raises; nothing is caught and passed over):
    and no synchronizing call added by the PER chunk over a uniform one,
    or by the priority stamp over a uniform insert (torch.cuda sync
    debug mode).
+3b. The mesh phase (mesh_phase): two processes of this script, each one
+   rank of a gloo group on the one card (NCCL refuses two ranks on one
+   device), MESH_TIMEOUT_S for both, a failing rank failing the phase.
+   The ranks' PER draws from the same generator and priorities
+   bit-identical; the mesh launch (parallel/learner.py, K-step local
+   SGD) against its plain version for DDPG, TD3, D4PG and SAC in f32 and
+   DDPG in bf16, at the bench's shape, K = 16, 64 rows a rank: each
+   rank's chunk kernel on its own draws plus the state average, against
+   the same rank's plain chunk on the CPU from the same draws averaged
+   over the group, under the K = 16 f32 rule; after every check both
+   ranks' states bit-identical (rank 0 broadcasts, each rank compares);
+   device times of K1 a rank (both ranks' kernels on the card, and rank
+   0's alone) and of the state average a chunk, labelled as gloo, two
+   ranks on one card; one forced expansion of the auto C51 support
+   through the trainer's own check (train.expand_support) from a support
+   too narrow for Pendulum's returns, the same wider bounds on both
+   ranks and the next chunk on them; then two main paths through train()
+   at D = 2 (Pendulum, 2x256, 64 rows a rank): DDPG on the mesh launch
+   for 5000 env steps (every chunk one DDPG kernel launch a rank) and
+   README's whole D4PG command with --prioritized=true, which takes the
+   scan route on a mesh, for MESH_PER_ENV_STEPS; each prints its route,
+   global_batch, chunks, learner and env steps a second, and both end
+   with bit-identical replicas.
 4. Drive the main paths, `distributed_ddpg_tpu_torch.train` (Pendulum-v1,
    2x256, batch 64, f32, one actor process, K = 800): DDPG with the
    default flags and TD3 with --twin_critic=true --policy_delay=2
@@ -105,7 +130,9 @@ Phases (any failure raises; nothing is caught and passed over):
    at K = 800, B = 64, capacity 1M (the draw, the gather, the weight
    column, the priority write and max), as device time (torch.profiler)
    and as time a chunk with its host enqueue (CUDA events), beside D4PG's
-   kernel time a chunk and PER's byte bound.
+   kernel time a chunk and PER's byte bound; then the draw's prefix sum
+   alone at rows of SCAN_BLOCK and of 4x it, and torch's 1-D cumsum, as
+   device time in a CUDA graph.
 
 It imports nothing of JAX or of the JAX package. The second-to-last line
 is the kernels' JSON record; the last line is the device record.
@@ -696,29 +723,64 @@ def check_bias_corrections(counts: int = 2 ** 20) -> None:
         f"for every count 1..{counts}")
 
 
+# CUgraphNodeType (cuda.h), by value.
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+                    6: "wait event", 7: "event record", 10: "mem alloc", 11: "mem free"}
+
+
+def captured_nodes(fn, calls: int) -> list:
+    """The device operations that `calls` calls of `fn` enqueue: the calls
+    are captured in one CUDA graph, and the graph's nodes are read through
+    libcuda (cuGraphGetNodes, cuGraphNodeGetType). Every kernel, copy
+    and set a call puts on the stream is one node, so the count is exact;
+    a synchronizing call fails the capture. `fn` is run once first, on
+    the capture's side stream."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds.append(GRAPH_NODE_TYPES.get(kind.value, f"type {kind.value}"))
+    return kinds
+
+
 def update_launches_per_call(calls: int = 5) -> float:
     """Device operations (kernels, copies, sets) a call of the fused update's
-    wrapper on the Pendulum DDPG critic, counted by torch.profiler over
-    `calls` calls: 1 expected."""
-    from torch.profiler import ProfilerActivity, profile
-
+    wrapper on the Pendulum DDPG critic, counted exactly as the nodes of a
+    CUDA graph that captures `calls` calls (captured_nodes): 1 expected, a
+    kernel."""
     from distributed_ddpg_tpu_torch.ops import fused_update as fu
 
     params, opt, targets, grads_at = update_trees("ddpg_critic")
     grads = grads_at(0, params)
-    fu.fused_adam_polyak(params, grads, opt, targets, 1e-3, 5e-3)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fu.fused_adam_polyak(params, grads, opt, targets, 1e-3, 5e-3)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    per_call = sum(e.count for e in events) / calls
+    kinds = captured_nodes(lambda: fu.fused_adam_polyak(params, grads, opt, targets, 1e-3, 5e-3),
+                           calls)
+    per_call = len(kinds) / calls
     log(f"  fused_update wrapper: {per_call:g} device operations a call over {calls} calls "
-        f"(torch.profiler: " + ", ".join(f"{e.key} x{e.count}" for e in events) + ")")
-    if per_call != 1:
-        raise AssertionError(f"fused_update wrapper: {per_call} device operations a call, "
-                             "expected one launch")
+        f"(the nodes of a CUDA graph of the calls: " + ", ".join(
+            f"{kind} x{kinds.count(kind)}" for kind in sorted(set(kinds))) + ")")
+    if per_call != 1 or set(kinds) != {"kernel"}:
+        raise AssertionError(f"fused_update wrapper: {per_call} device operations a call "
+                             f"({sorted(set(kinds))}), expected one kernel launch")
     return per_call
 
 
@@ -758,6 +820,7 @@ def check_scan_route(cfg, k: int = 16, against_kernel: bool = False) -> None:
 PER_CAPACITY = 1_000_000
 PER_FILL = 200_000
 PER_K, PER_B = 800, 64
+PER_REPEATS = 10          # runs of the card's prefix sum and draw that must agree
 
 
 def per_priorities(kind: str, n: int, seed: int) -> np.ndarray:
@@ -778,9 +841,12 @@ def check_per_draw() -> None:
     at the main path's capacity and draw: on dyadic priorities the indices
     must be identical and the weights within 1e-6 relative; on the main
     path's kind the share of indices that differ is printed (the two
-    cumsums sum in different orders), with the count of decreasing
-    neighbours in the card's cumsum."""
-    from distributed_ddpg_tpu_torch.replay.device import draw_per_indices
+    prefix sums add in different orders), with the count of decreasing
+    neighbours in the card's prefix sum. The card's prefix sum
+    (fixed_order_cumsum) must be bit-identical over PER_REPEATS runs, and
+    so must the draw; torch's 1-D cumsum on the card is run as often and
+    whether it repeated is printed, as context."""
+    from distributed_ddpg_tpu_torch.replay.device import draw_per_indices, fixed_order_cumsum
 
     uniform = torch.from_numpy(
         np.random.default_rng(30).uniform(0, 1, (PER_K, PER_B)).astype(np.float32))
@@ -789,9 +855,19 @@ def check_per_draw() -> None:
         cidx, cw = draw_per_indices(prios.cuda(), PER_CAPACITY, (PER_K, PER_B), 0.4,
                                     uniform=uniform.cuda())
         hidx, hw = draw_per_indices(prios, PER_CAPACITY, (PER_K, PER_B), 0.4, uniform=uniform)
-        cum = torch.cumsum(prios.cuda(), 0)
+        cum = fixed_order_cumsum(prios.cuda())
         falls = int((cum[1:] < cum[:-1]).sum())
-        again = bool(torch.equal(cum, torch.cumsum(prios.cuda(), 0)))
+        again = all(torch.equal(cum.view(torch.int32),
+                                fixed_order_cumsum(prios.cuda()).view(torch.int32))
+                    for _ in range(PER_REPEATS))
+        redraws = [draw_per_indices(prios.cuda(), PER_CAPACITY, (PER_K, PER_B), 0.4,
+                                    uniform=uniform.cuda()) for _ in range(PER_REPEATS)]
+        draw_again = all(torch.equal(i.cpu(), cidx.cpu()) and torch.equal(
+            w.cpu().view(torch.int32), cw.cpu().view(torch.int32)) for i, w in redraws)
+        lib = torch.cumsum(prios.cuda(), 0)
+        lib_again = all(torch.equal(lib.view(torch.int32),
+                                    torch.cumsum(prios.cuda(), 0).view(torch.int32))
+                        for _ in range(PER_REPEATS))
         cidx, cw = cidx.cpu(), cw.cpu()
         same = cidx == hidx
         rows = same.all(dim=1)    # a row's weights share its max: compare whole rows
@@ -799,13 +875,17 @@ def check_per_draw() -> None:
         log(f"  PER draw {kind} priorities, capacity {PER_CAPACITY}, K={PER_K} B={PER_B}: "
             f"{float((~same).double().mean()):.3e} of the indices differ from the CPU's "
             f"({int((~rows).sum())} of {PER_K} rows), weights' largest relative gap in the "
-            f"rows that agree {w_err:.3e}; the card's cumsum (bit-identical when run "
-            f"again: {again}) has {falls} decreasing neighbours, total {float(cum[-1]):.6f} on the card, "
-            f"{float(torch.cumsum(prios, 0)[-1]):.6f} on the CPU")
+            f"rows that agree {w_err:.3e}; the card's prefix sum (bit-identical when run "
+            f"again: {again}, {PER_REPEATS} runs; the draw again: {draw_again}) has {falls} "
+            f"decreasing neighbours, total {float(cum[-1]):.6f} on the card, "
+            f"{float(torch.cumsum(prios, 0)[-1]):.6f} on the CPU; torch's 1-D cumsum on "
+            f"the card bit-identical when run again: {lib_again} (context)")
         if kind == "dyadic" and (not bool(same.all()) or w_err > 1e-6):
             raise AssertionError("PER draw: the card and the CPU differ on exact sums")
         if cidx.max() >= PER_CAPACITY or not bool(torch.isfinite(cw).all()):
             raise AssertionError(f"PER draw {kind}: an index past the fill or a bad weight")
+        if not (again and draw_again):
+            raise AssertionError(f"PER draw {kind}: not bit-identical when run again")
 
 
 def per_replay(obs: int, act: int, seed: int):
@@ -947,10 +1027,14 @@ def time_per(card: str, chunk_ms: float) -> None:
     time a chunk with the host's enqueue from CUDA events, beside the
     chunk kernel's time a chunk and PER's byte bound: the priority vector
     read once, the K x B rows read and written, td read, the K x B
-    priorities and the max written."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from distributed_ddpg_tpu_torch.replay.device import draw_per_indices, scatter_last_wins
+    priorities and the max written. Then the draw's prefix sum alone, by
+    row length, beside torch's 1-D cumsum (graph_ms)."""
+    from distributed_ddpg_tpu_torch.replay.device import (
+        SCAN_BLOCK,
+        draw_per_indices,
+        fixed_order_cumsum,
+        scatter_last_wins,
+    )
 
     rep = per_replay(3, 1, 40)
     gen = torch.Generator(device="cuda").manual_seed(41)
@@ -965,16 +1049,8 @@ def time_per(card: str, chunk_ms: float) -> None:
         scatter_last_wins(p, idx.reshape(-1), new_p.reshape(-1))
         torch.maximum(m, new_p.max(), out=m)
 
-    reps = 20
-    wall_ms = time_ms(per_work, reps=reps)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            per_work()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    device_ms = sum(e.self_device_time_total for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
-    launches = sum(e.count for e in events if e.key in LAUNCH_CALLS) / reps
+    wall_ms = time_ms(per_work, reps=20)
+    device_ms, launches = profiled(per_work)
     width = rep.width
     nbytes = (4 * PER_CAPACITY + 2 * PER_K * PER_B * width * 4 + PER_K * PER_B * 4
               + PER_K * PER_B * 4 + 4)
@@ -984,6 +1060,33 @@ def time_per(card: str, chunk_ms: float) -> None:
         f"{wall_ms * 1e3:.2f} us a chunk with the host's enqueue; the D4PG chunk kernel "
         f"{chunk_ms:.3f} ms a chunk, PER's device time {device_ms / chunk_ms:.3%} of it; "
         f"bound {bound_ms * 1e3:.3f} us, bytes ({nbytes / 1e6:.2f} MB)")
+    # The draw's prefix sum alone, at the kept row length and at 4x it, and
+    # torch's 1-D cumsum (CUB's look-back: faster, not reproducible), as
+    # device time in a CUDA graph: after the profiler sessions before it,
+    # torch.profiler has reported no device time for CUB's kernels.
+    p = rep.priorities
+    sums = {f"fixed_order_cumsum rows of {SCAN_BLOCK} (kept)": lambda: fixed_order_cumsum(p),
+            f"fixed_order_cumsum rows of {4 * SCAN_BLOCK}":
+                lambda: fixed_order_cumsum(p, 4 * SCAN_BLOCK),
+            "torch.cumsum 1-D (context)": lambda: torch.cumsum(p, 0)}
+    for name, fn in sums.items():
+        log(f"[timing] {card}: PER's prefix sum over {PER_CAPACITY} priorities, {name}: "
+            f"device time {graph_ms(fn) * 1e3:.2f} us (CUDA graph)")
+
+
+def profiled(fn, reps: int = 20):
+    """Device time (ms) and kernel launches of one call of `fn`, from
+    torch.profiler over `reps` calls (the card's busy time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
+    return device_ms, sum(e.count for e in events if e.key in LAUNCH_CALLS) / reps
 
 
 def graph_ms(fn, calls: int = 50) -> float:
@@ -1284,6 +1387,341 @@ def time_branch(cfg, name: str, k: int, step: int, card: str, eager: bool,
     }
 
 
+# --- the mesh phase: two data-parallel ranks over gloo on the one card ------
+
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 600      # the whole phase, both ranks
+MESH_K = 16               # the mesh launch's checks (the existing K = 16 rule)
+MESH_SUPPORT = (-4.0, 4.0)   # a C51 support far too narrow for Pendulum's returns
+MESH_SUPPORT_K = 200      # learner steps a chunk of the forced expansion
+MESH_SUPPORT_CHUNKS = 12  # chunks the expansion may take to fire
+# README's whole D4PG command with PER at D = 2 takes the scan route: a scan
+# chunk of 800 eager steps holds each rank's host ~9 s while ~160 env steps
+# come in, so 2600 env steps are ~10 chunks past the 1000-row warmup.
+MESH_PER_ENV_STEPS = 2600
+
+
+def mesh_phase(card: str) -> dict:
+    """Starts MESH_RANKS processes of this script (`--mesh-rank`), each one
+    rank of a gloo group on the one card, and waits for them; any rank that
+    fails fails the phase at once (the other is stopped). Returns rank 0's
+    record of the phase (its times and its main paths' summaries)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as out_dir:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                                   str(r), out_dir, card])
+                 for r in range(MESH_RANKS)]
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        codes = [p.returncode for p in procs]
+        if codes != [0] * MESH_RANKS:
+            raise AssertionError(f"mesh phase: the ranks exited with {codes}")
+        with open(os.path.join(out_dir, "rank0.json")) as f:
+            return json.load(f)
+
+
+def mesh_kernel_check(cfg, group, say, obs: int = 17, act: int = 6, k: int = MESH_K,
+                      step: int = 1000) -> float:
+    """The mesh launch against its plain version: each rank runs the chunk
+    kernel on its own draws (idx from a generator seeded by its rank, the
+    noise with its rank folded in) through ShardedLearner.run_sample_chunk,
+    which averages the state and metrics and gathers td over the group;
+    the plain version runs the same rank's chunk on the CPU from the same
+    state, rows and noise, and the CPU results are averaged (and td
+    gathered) over the same group. Held under the f32 rule of the K = 16
+    checks (compare_outputs); then every rank's state against rank 0's,
+    bit for bit. Returns the largest absolute difference."""
+    from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
+    from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
+    from distributed_ddpg_tpu_torch.parallel import mesh
+    from distributed_ddpg_tpu_torch.parallel.learner import (
+        ShardedLearner,
+        float_leaves,
+        state_tensors,
+    )
+    from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
+
+    b = cfg.batch_size
+    name = ("fused_chunk_d4pg" if cfg.distributional else "fused_chunk_td3"
+            if cfg.twin_critic else "fused_chunk_sac" if cfg.sac else "fused_chunk") + (
+        "_bf16" if cfg.compute_dtype == "bfloat16" else "")
+    label = f"mesh launch {name} D={group.world_size} obs={obs} act={act} K={k} B={b} a rank"
+    state_np = random_state_np(cfg, obs, act, seed=obs, step=step)
+    rep = DeviceReplay(4096, obs, act, "cuda", block_size=1024)
+    rep.add_packed(random_batches(seed=200 + obs, k=1, b=4096, obs=obs, act=act)[0].cpu().numpy())
+    learner = ShardedLearner(cfg, obs, act, 2.0, 0.0, chunk_size=k, group=group,
+                             state=train_state_from_numpy(state_np, "cuda"))
+    if not learner.fused_mesh_active:
+        raise AssertionError(f"{label}: the mesh launch is not the route")
+    gen = torch.Generator(device="cuda").manual_seed(300 + group.rank)
+    idx = torch.randint(0, 4096, (k, b), generator=gen, device="cuda")
+    eps = None
+    if cfg.sac or cfg.takes_noise:
+        draw = fc.sac_noise_eps if cfg.sac else fc.td3_noise_eps
+        eps = draw(cfg, gen, step, k, b, act, device_fold=group.rank)
+    fc.KERNEL_LAUNCHES.clear()
+    out = learner.run_sample_chunk(rep, idx=idx, eps=eps)
+    torch.cuda.synchronize()
+    if dict(fc.KERNEL_LAUNCHES) != {name: 1}:
+        raise AssertionError(f"{label}: launches {dict(fc.KERNEL_LAUNCHES)}")
+    cpu = tree_map_tensors(torch.Tensor.cpu, eps)
+    ref, rtd, rmet = fc.fused_chunk_reference(cfg, train_state_from_numpy(state_np, "cpu"),
+                                              rep.storage[idx].cpu(), 2.0, 0.0, cpu)
+    full = torch.zeros((k, learner.global_batch))
+    full[:, group.rank * b:(group.rank + 1) * b] = rtd
+    mesh.all_reduce_mean_(float_leaves(ref) + list(rmet.values()), group, sums=[full])
+    worst, failed = compare_outputs(label, cfg, obs, act,
+                                    chunk_outputs(learner.state, out.td_errors, out.metrics),
+                                    chunk_outputs(ref, full, rmet))
+    if failed:
+        raise AssertionError(f"{label}: {', '.join(failed)} outside the tolerances")
+    same = mesh.replicas_equal(state_tensors(learner.state), group)
+    say(f"  {label}: the replicas' states bit-identical: {same}")
+    if not same:
+        raise AssertionError(f"{label}: the replicas differ")
+    return worst
+
+
+def mesh_per_draw(group, say) -> None:
+    """The repaired PER draw on two ranks: each draws the global
+    [K, B * D] from the same generator state and the same 1M priorities of
+    the main path's kind (as run_sample_chunk_per does on a mesh); both
+    ranks' indices and weights must be bit-identical."""
+    from distributed_ddpg_tpu_torch.parallel import mesh
+    from distributed_ddpg_tpu_torch.replay.device import draw_per_indices
+
+    prios = torch.from_numpy(per_priorities("random", PER_CAPACITY, 31)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    idx, w = draw_per_indices(prios, PER_CAPACITY, (PER_K, PER_B * group.world_size), 0.4,
+                              generator=gen)
+    same = mesh.replicas_equal([idx, w], group)
+    say(f"  PER draw on {group.world_size} ranks, capacity {PER_CAPACITY}, K={PER_K}, "
+        f"B={PER_B * group.world_size}: the ranks' indices and weights bit-identical: {same}")
+    if not same:
+        raise AssertionError("PER draw: the ranks drew different indices or weights")
+
+
+def mesh_timing(group, card: str, say) -> dict:
+    """Device time (CUDA events) of the mesh launch's two parts at the main
+    path's shapes (Pendulum, 2x256, K = 800, 64 rows a rank): K1 a rank,
+    with both ranks' kernels on the card at once and with rank 0's alone,
+    and the state average a chunk (one all_reduce over the float leaves,
+    the metrics and the td gather) over gloo; then a whole mesh chunk,
+    draw to average, on the host's clock after a synchronize. Two ranks on
+    one card over gloo: not an NCCL figure."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
+    from distributed_ddpg_tpu_torch.parallel import mesh
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, float_leaves
+    from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
+
+    cfg, k, obs, act = DDPGConfig(), 800, 3, 1
+    state = train_state_from_numpy(random_state_np(cfg, obs, act, seed=7), "cuda")
+    learner = ShardedLearner(cfg, obs, act, 2.0, 0.0, chunk_size=k, state=state, group=group)
+    rep = DeviceReplay(PER_FILL, obs, act, "cuda", block_size=1024)
+    rep.add_packed(random_batches(41, 1, PER_FILL, obs, act, weighted=False)[0].cpu().numpy())
+    packed = random_batches(seed=8 + group.rank, k=k, b=cfg.batch_size, obs=obs, act=act)
+    run = learner._chunk
+    mesh.share([0], group)                         # both ranks start together
+    both_ms = time_ms(lambda: run(state, packed, None), reps=3)
+    mesh.share([0], group)
+    alone_ms = time_ms(lambda: run(state, packed, None), reps=3) if group.lead else math.nan
+    mesh.share([0], group)
+    new, _, met = run(state, packed, None)
+    floats = float_leaves(new) + list(met.values())
+    td = torch.zeros((k, learner.global_batch), device="cuda")
+    avg_ms = time_ms(lambda: mesh.all_reduce_mean_(floats, group, sums=[td]), reps=10)
+    nbytes = sum(t.numel() for t in floats) * 4 + td.numel() * 4
+    learner.run_sample_chunk(rep)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        learner.run_sample_chunk(rep)
+    torch.cuda.synchronize()
+    chunk_ms = (time.perf_counter() - t0) / 3 * 1e3
+    say(f"[timing] {card}: gloo, two ranks on one card, DDPG K={k} at Pendulum shapes, "
+        f"64 rows a rank: K1 a rank {both_ms:.3f} ms a chunk with both ranks' kernels on the "
+        f"card ({both_ms * 1e3 / k:.2f} us/step)" + (
+            f", {alone_ms:.3f} ms with rank 0's alone" if group.lead else "")
+        + f"; the state average {avg_ms:.3f} ms a chunk (one all_reduce, "
+        f"{nbytes / 1e6:.3f} MB); a whole mesh chunk {chunk_ms:.3f} ms on the host's clock")
+    return dict(k1_both_ms=both_ms, k1_alone_ms=alone_ms, average_ms=avg_ms,
+                average_mb=nbytes / 1e6, mesh_chunk_ms=chunk_ms)
+
+
+def mesh_support_expansion(group, say) -> dict:
+    """Forces one expansion of the auto C51 support at D = 2 through the
+    trainer's own check (train.expand_support, the controller's rule and
+    cooldown unchanged): a D4PG learner (Pendulum, 2x256, 64 rows a rank)
+    starts from MESH_SUPPORT, far too narrow for Pendulum's returns, on a
+    replay of Pendulum transitions from a uniform-random policy that rank 0
+    steps and shares as the trainer's ingest does; the check runs after
+    every chunk (the trainer's cadence is 50 chunks) until it fires. Then
+    both ranks must hold the same, wider bounds, and the next chunk must
+    run on them: its mean_q lies below the old v_min, which the old support
+    could not express, and the replicas stay bit-identical."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.envs import make, spec_of
+    from distributed_ddpg_tpu_torch.ops import support_auto
+    from distributed_ddpg_tpu_torch.parallel import mesh
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, state_tensors
+    from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
+    from distributed_ddpg_tpu_torch.train import expand_support
+    from distributed_ddpg_tpu_torch.types import pack_batch_np
+
+    cfg = DDPGConfig(distributional=True, v_min=MESH_SUPPORT[0], v_max=MESH_SUPPORT[1])
+    env = make(cfg.env_id, seed=5)
+    spec = spec_of(env)
+    rows = None
+    if group.lead:
+        rng = np.random.default_rng(5)
+        fields = {k: [] for k in ("obs", "action", "reward", "discount", "next_obs")}
+        obs, _ = env.reset(seed=5)
+        for _ in range(8192):
+            a = rng.uniform(spec.action_low, spec.action_high).astype(np.float32)
+            nxt, r, term, trunc, _ = env.step(a)
+            for key, v in zip(fields, (obs, a, r, 0.0 if term else cfg.gamma, nxt)):
+                fields[key].append(v)
+            obs = env.reset()[0] if term or trunc else nxt
+        rows = pack_batch_np({k: np.asarray(v, np.float32) for k, v in fields.items()})
+    rows = mesh.share_rows(rows, 2 * spec.obs_dim + spec.act_dim + 3, group)
+    rep = DeviceReplay(65536, spec.obs_dim, spec.act_dim, "cuda", block_size=1024)
+    rep.add_packed(rows)
+    learner = ShardedLearner(cfg, spec.obs_dim, spec.act_dim, spec.action_scale,
+                             spec.action_offset, chunk_size=MESH_SUPPORT_K, group=group)
+    controller = support_auto.SupportController()
+
+    def data_bounds():
+        return support_auto.replay_data_bounds(rep, cfg.gamma, cfg.n_step)
+
+    grown, steps = None, 0
+    for chunk in range(1, MESH_SUPPORT_CHUNKS + 1):
+        out = learner.run_sample_chunk(rep)
+        steps += MESH_SUPPORT_K
+        grown = expand_support(learner, controller, out, steps, data_bounds, group)
+        if grown is not None:
+            break
+    if grown is None:
+        raise AssertionError(f"support expansion: no expansion in {MESH_SUPPORT_CHUNKS} chunks")
+    bounds = torch.tensor([learner.config.v_min, learner.config.v_max], device="cuda")
+    same = mesh.replicas_equal([bounds], group)
+    out = learner.run_sample_chunk(rep)
+    mean_q = float(out.metrics["mean_q"])
+    replicas = mesh.replicas_equal(state_tensors(learner.state), group)
+    say(f"  support expansion at D={group.world_size}: {MESH_SUPPORT} -> "
+        f"[{grown['v_min']}, {grown['v_max']}] after chunk {chunk} (mean_q {grown['mean_q']:.4f}, "
+        f"refusals {controller.refusals}); the ranks' bounds bit-identical: {same}; the next "
+        f"chunk's mean_q {mean_q:.4f}; the replicas bit-identical: {replicas}")
+    if not (same and replicas and grown["v_min"] < MESH_SUPPORT[0]
+            and grown["v_max"] >= MESH_SUPPORT[1] and math.isfinite(mean_q)
+            and mean_q < MESH_SUPPORT[0]):
+        raise AssertionError("support expansion: the ranks' bounds differ, did not widen, or "
+                             "the next chunk did not run on them")
+    return dict(start=list(MESH_SUPPORT), grown=[grown["v_min"], grown["v_max"]],
+                chunk=chunk, mean_q_after=mean_q)
+
+
+def mesh_main_path(flags, group, say, route: str) -> dict:
+    """One run of train() at D = 2 (the CLI's parser, `--data_axis=2`) in
+    this rank's group, with the launch counts zeroed just before and read
+    just after: on the mesh launch every chunk is one launch of the DDPG
+    kernel on each rank; on the scan route no chunk kernel launches. The
+    record's route, global_batch and replicas (bit-identical states, and
+    priorities under PER) are checked."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
+    from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
+    from distributed_ddpg_tpu_torch.parallel.learner import resolve_learner_chunk
+    from distributed_ddpg_tpu_torch.train import train
+
+    cfg = DDPGConfig.from_flags(flags + [f"--data_axis={group.world_size}"])
+    fc.KERNEL_LAUNCHES.clear()
+    t0 = time.monotonic()
+    summary = train(cfg, echo=False, group=group)
+    launches = dict(fc.KERNEL_LAUNCHES)
+    keys = ("route", "global_batch", "chunks", "learner_steps", "learner_steps_per_sec",
+            "env_steps", "env_steps_per_sec", "replicas_identical", "final_return")
+    say(f"[mesh path {route}] {time.monotonic() - t0:.1f}s, launches {launches}: "
+        + json.dumps({k: summary[k] for k in keys}
+                     | {k: summary[k] for k in ("v_min", "v_max", "beta", "max_priority")
+                        if k in summary}))
+    want = {"fused_chunk": summary["chunks"]} if route == "mesh" else {}
+    if (summary["route"] != route or launches != want or summary["chunks"] < 1
+            or summary["global_batch"] != cfg.batch_size * group.world_size
+            or summary["learner_steps"] != summary["chunks"] * resolve_learner_chunk(cfg)
+            or summary["replicas_identical"] is not True):
+        raise AssertionError(f"mesh path {route}: {summary}, launches {launches}")
+    for key in METRIC_KEYS:
+        if not math.isfinite(summary[key]):
+            raise AssertionError(f"mesh path {route}: {key} = {summary[key]}")
+    return {k: summary[k] for k in keys if k in summary}
+
+
+def mesh_rank(rank: int, out_dir: str, card: str) -> int:
+    """One rank of the mesh phase (see mesh_phase): joins the gloo group on
+    the card; holds the mesh launch against its plain version for DDPG,
+    TD3, D4PG and SAC in f32 and DDPG in bf16 (K = 16, the bench's shape,
+    64 rows a rank), the ranks' PER draws against each other, times the
+    mesh launch's parts, forces one support expansion, then drives two
+    main paths through train() at D = 2: DDPG on the mesh launch (5000 env
+    steps) and README's whole D4PG command with --prioritized=true, which
+    takes the scan route on a mesh (MESH_PER_ENV_STEPS). Rank 0 writes its
+    record to out_dir/rank0.json."""
+    import torch.distributed as dist
+
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.parallel.mesh import init_data_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = init_data_group("gloo", "cuda",
+                            init_method="file://" + os.path.join(out_dir, "rendezvous"),
+                            rank=rank, world_size=MESH_RANKS, timeout_s=300.0)
+
+    def say(*args):
+        log(f"[mesh r{rank}]", *args)
+
+    t0 = time.monotonic()
+    record = {"errs": {}}
+    mesh_per_draw(group, say)
+    cfg = DDPGConfig()
+    for name, c in (("fused_chunk", cfg),
+                    ("fused_chunk_td3", cfg.replace(twin_critic=True, policy_delay=2,
+                                                    target_noise=0.2)),
+                    ("fused_chunk_d4pg", cfg.replace(distributional=True, v_min=-10.0,
+                                                     v_max=10.0)),
+                    ("fused_chunk_sac", cfg.replace(sac=True, actor_lr=3e-4, critic_lr=3e-4,
+                                                    tau=0.005)),
+                    ("fused_chunk_bf16", cfg.replace(compute_dtype="bfloat16"))):
+        record["errs"][name] = mesh_kernel_check(c, group, say)
+    say(f"[phase] mesh checks done at {time.monotonic() - t0:.1f}s")
+    record["timing"] = mesh_timing(group, card, say)
+    record["expansion"] = mesh_support_expansion(group, say)
+    common = ["--num_actors=1", "--replay_min_size=1000", "--eval_every=0",
+              "--eval_episodes=2"]
+    record["paths"] = {
+        "mesh": mesh_main_path(common + ["--total_env_steps=5000"], group, say, "mesh"),
+        "scan": mesh_main_path(
+            common + [f"--total_env_steps={MESH_PER_ENV_STEPS}", "--distributional=true",
+                      "--n_step=5", "--v_min=auto", "--v_max=auto", "--prioritized=true"],
+            group, say, "scan"),
+    }
+    say(f"[phase] mesh phase done at {time.monotonic() - t0:.1f}s")
+    if group.lead:
+        with open(os.path.join(out_dir, "rank0.json"), "w") as f:
+            json.dump(record, f)
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this needs an "
@@ -1383,6 +1821,11 @@ def main() -> int:
     check_per_syncs()
 
     log(f"[phase] parity done at {time.monotonic() - t_start:.1f}s")
+
+    # --- 3b. the mesh phase: two ranks over gloo on the one card ---
+    mesh_record = mesh_phase(card)
+    log("[mesh] rank 0's record: " + json.dumps(mesh_record))
+    log(f"[phase] mesh done at {time.monotonic() - t_start:.1f}s")
 
     # --- 4. the main paths ---
     # README's whole D4PG command (with --prioritized=true), this slice's
@@ -1495,4 +1938,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -93,8 +93,13 @@ class DDPGConfig:
     # Actor->learner transport. The port has the queue transport only;
     # "auto" resolves to it. The shm ring needs the C++ native core.
     transport: str = "auto"
-    # -1: all devices. The port runs one device; more is not in the slice.
+    # Data-parallel ranks (parallel/mesh.py): -1 = every rank of the
+    # torch.distributed group (one when there is none); any other value
+    # must equal the group's size.
     data_axis: int = -1
+    # True: batch_size is per rank, the global batch batch_size * D; False:
+    # batch_size is the global batch, split over the D ranks.
+    scale_batch_with_data: bool = True
     # Learner steps <= replay_min_size + ratio * env steps; 0 = free-running.
     max_learn_ratio: float = 0.0
     param_refresh_every: int = 1     # learner steps between actor param refresh
@@ -147,6 +152,11 @@ class DDPGConfig:
     # its envelope (ops/fused_chunk.supported and fits_vmem), else the scan
     # route; "on" requires it (error outside); "off" always takes the scan.
     fused_chunk: str = "auto"
+    # On D > 1 ranks, "auto" runs the chunk kernel on each rank's own draws
+    # and averages the float state at the chunk's end (K-step local SGD,
+    # the mesh launch); "off" takes the scan route with a gradient
+    # all-reduce every step.
+    fused_mesh: str = "auto"
 
     # --- run control ---
     total_env_steps: int = 100_000
@@ -318,10 +328,13 @@ class DDPGConfig:
                 "PyTorch port yet (the shm ring needs the native C++ core); "
                 "use 'queue' or 'auto'"
             )
-        if self.data_axis not in (-1, 1):
+        if self.data_axis == 0 or self.data_axis < -1:
             raise ValueError(
-                f"data_axis={self.data_axis} is not implemented in the "
-                "PyTorch port yet: the learner runs on one device"
+                f"data_axis must be -1 (every rank) or >= 1, got {self.data_axis}"
+            )
+        if self.fused_mesh not in ("auto", "off"):
+            raise ValueError(
+                f"fused_mesh must be 'auto' or 'off', got {self.fused_mesh!r}"
             )
         if self.fused_chunk not in ("auto", "on", "off"):
             raise ValueError(

@@ -50,6 +50,15 @@ what the kernel and its plain version are held against. The step builds
 its constants (action scale and offset, the C51 support) on the device
 once, so a step on the card copies nothing from the host.
 
+With a data-parallel group (parallel/mesh.py) each rank runs the step on
+its own rows, and one collective a step averages what the JAX step's
+`_maybe_psum_mean` averages (learner.py:203-270 and :345-462 of the JAX
+package): the critic's and (on update steps) the actor's gradients before
+the norms and Adam, SAC's mean log-prob before the temperature's
+gradient, and the critic loss, actor loss and mean |td| of the metrics;
+the gradient norms are then those of the averaged gradients, the same on
+every rank. td_errors stay the rank's own rows.
+
 `train_state_from_numpy` / `train_state_to_numpy` carry weights across the
 frameworks: the JAX TrainState, passed as numpy (`jax.tree.map(np.asarray,
 s)`), becomes the port's state and back, [2, ...] ensemble leaves
@@ -76,6 +85,7 @@ from distributed_ddpg_tpu_torch.ops import losses
 from distributed_ddpg_tpu_torch.ops.fused_update import fused_adam_polyak
 from distributed_ddpg_tpu_torch.ops.optim import adam_update, tree_leaves, tree_map
 from distributed_ddpg_tpu_torch.ops.polyak import polyak_update
+from distributed_ddpg_tpu_torch.parallel.mesh import all_reduce_mean_
 from distributed_ddpg_tpu_torch.types import Batch, OptState, TrainState
 
 
@@ -172,10 +182,11 @@ def _device_constants(action_scale, action_offset, config: DDPGConfig):
     return get
 
 
-def make_sac_step(config: DDPGConfig, action_scale, action_offset=0.0):
+def make_sac_step(config: DDPGConfig, action_scale, action_offset=0.0, group=None):
     """Returns (state, batch, eps, step_index=None) -> StepOutput, one eager
     SAC step; eps = (normal_next, normal_cur), two standard-normal [B, act]
-    draws. SAC has no delay, so step_index is not read."""
+    draws. SAC has no delay, so step_index is not read. With `group`, the
+    gradients, mean log-prob and losses are averaged over its ranks."""
     lo, hi = config.sac_log_std_min, config.sac_log_std_max
     mm = _mm_dtype(config)
     ail, l2 = config.action_insert_layer, config.critic_l2
@@ -199,13 +210,17 @@ def make_sac_step(config: DDPGConfig, action_scale, action_offset=0.0):
         agrads = _untree(torch.autograd.grad(aloss, tree_leaves(ap)), state.actor_params)
 
         with torch.no_grad():
+            closs, aloss, mean_lp, td = (x.detach() for x in (closs, aloss, mean_lp, td))
+            td_abs = torch.mean(torch.abs(td))
+            if group is not None:
+                all_reduce_mean_([*tree_leaves(cgrads), *tree_leaves(agrads), mean_lp,
+                                  closs, aloss, td_abs], group)
             new_critic, critic_opt = adam_update(
                 state.critic_params, cgrads, state.critic_opt, config.critic_lr)
             new_actor, actor_opt = adam_update(
                 state.actor_params, agrads, state.actor_opt, config.actor_lr)
             new_target_critic = polyak_update(new_critic, state.target_critic_params, config.tau)
             new_target_actor = polyak_update(new_actor, state.target_actor_params, config.tau)
-            closs, aloss, mean_lp, td = (x.detach() for x in (closs, aloss, mean_lp, td))
             if config.sac_autotune:
                 # J(log_alpha) = -log_alpha * (E[log pi] + target_H): the
                 # exact scalar gradient, Adam at critic_lr.
@@ -219,7 +234,7 @@ def make_sac_step(config: DDPGConfig, action_scale, action_offset=0.0):
                 closs,
                 aloss,
                 alpha * mean_lp - aloss,     # = E[min Q], exactly as the JAX step
-                torch.mean(torch.abs(td)),
+                td_abs,
                 optree_norm(cgrads),
                 optree_norm(agrads),
             )))
@@ -239,15 +254,17 @@ def make_sac_step(config: DDPGConfig, action_scale, action_offset=0.0):
     return sac_step
 
 
-def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0):
+def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0, group=None):
     """Returns (state, batch, eps=None, step_index=None) -> StepOutput, one
     eager autograd step. `eps` is TD3's smoothing noise [B, act] (scaled
     and clipped), and is required exactly when twin_critic and
     target_noise > 0; under SAC it is the pair of normals make_sac_step
     takes. `step_index` is state.step as a host int, for TD3's delay test
-    (else the step reads state.step back from its device)."""
+    (else the step reads state.step back from its device). With `group`
+    (parallel/mesh.DataGroup) the gradients and loss metrics are averaged
+    over its ranks, one collective a step; without one, nothing is."""
     if config.sac:
-        return make_sac_step(config, action_scale, action_offset)
+        return make_sac_step(config, action_scale, action_offset, group)
     twin = bool(config.twin_critic)
     delay = int(config.policy_delay)   # 1 unless TD3 (config gate)
     mm = _mm_dtype(config)
@@ -293,6 +310,11 @@ def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0):
         agrads = torch.autograd.grad(aloss, tree_leaves(ap)) if update else None
 
         with torch.no_grad():
+            closs, aloss, td = closs.detach(), aloss.detach(), td.detach()
+            td_abs = torch.mean(torch.abs(td))
+            if group is not None:
+                all_reduce_mean_([*cgrads, *(agrads if update else ()), closs, aloss, td_abs],
+                                 group)
             cgrads = _untree(cgrads, state.critic_params)
             if update:
                 agrads = _untree(agrads, state.actor_params)
@@ -328,7 +350,6 @@ def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0):
                 new_target_actor = state.target_actor_params
                 new_target_critic = state.target_critic_params
                 actor_grad_norm = torch.zeros((), dtype=torch.float32, device=device)
-            closs, aloss, td = closs.detach(), aloss.detach(), td.detach()
             metrics = dict(
                 zip(
                     METRIC_KEYS,
@@ -336,7 +357,7 @@ def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0):
                         closs,
                         aloss,
                         -aloss,
-                        torch.mean(torch.abs(td)),
+                        td_abs,
                         optree_norm(cgrads),
                         actor_grad_norm,
                     ),

@@ -682,17 +682,34 @@ def state_bytes(config: DDPGConfig, obs_dim: int, act_dim: int) -> int:
 TD3_NOISE_SALT = 0x7D3AF   # the JAX package's td3 base key: PRNGKey(seed ^ salt)
 
 
+def fold_seed(seed: int, value: int) -> int:
+    """A 63-bit generator seed from (seed, value), the port's fold_in: the
+    splitmix64 finalizer of the pair, so that each rank (value) of one
+    seed gets its own stream."""
+    x = ((int(seed) & 0xFFFFFFFFFFFFFFFF) * 0x9E3779B97F4A7C15
+         + (int(value) + 1) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return (x ^ (x >> 31)) & 0x7FFFFFFFFFFFFFFF
+
+
+def _noise_seed(salt: int, config: DDPGConfig, step0: int, device_fold) -> int:
+    seed = (((int(config.seed) ^ salt) & 0xFFFFFFFF) << 32) | (int(step0) & 0xFFFFFFFF)
+    return seed if device_fold is None else fold_seed(seed, device_fold)
+
+
 def td3_noise_eps(config: DDPGConfig, generator: torch.Generator, step0: int,
-                  chunk: int, batch: int, act_dim: int) -> torch.Tensor:
+                  chunk: int, batch: int, act_dim: int, device_fold=None) -> torch.Tensor:
     """A chunk's TD3 target-smoothing noise [K, B, act]:
     clip(target_noise * N(0, 1), +-target_noise_clip), drawn on the
     generator's device. The generator is first reseeded from
     (config.seed ^ 0x7D3AF, step0), so a chunk's draw depends only on the
     seed and the global step it starts at, as the JAX package keys its
-    stream by fold_in(PRNGKey(seed ^ 0x7D3AF), step). The numbers are not
-    the JAX package's (the tests pass the JAX draw in)."""
-    base = (int(config.seed) ^ TD3_NOISE_SALT) & 0xFFFFFFFF
-    generator.manual_seed((base << 32) | (int(step0) & 0xFFFFFFFF))
+    stream by fold_in(PRNGKey(seed ^ 0x7D3AF), step); `device_fold` (a
+    rank of the mesh launch) is folded in after the step, as the JAX
+    package's device_fold is, so each rank draws its own noise. The
+    numbers are not the JAX package's (the tests pass the JAX draw in)."""
+    generator.manual_seed(_noise_seed(TD3_NOISE_SALT, config, step0, device_fold))
     z = torch.randn((chunk, batch, act_dim), generator=generator,
                     device=generator.device, dtype=torch.float32)
     return torch.clamp(config.target_noise * z, -config.target_noise_clip,
@@ -703,18 +720,18 @@ SAC_NOISE_SALT = 0x5AC0    # the JAX package's SAC base key: PRNGKey(seed ^ salt
 
 
 def sac_noise_eps(config: DDPGConfig, generator: torch.Generator, step0: int,
-                  chunk: int, batch: int, act_dim: int):
+                  chunk: int, batch: int, act_dim: int, device_fold=None):
     """A chunk's SAC standard normals (eps_next, eps_cur), each [K, B, act],
     drawn on the generator's device: eps_next for the critic target's
     sample a' ~ pi(.|s'), eps_cur for the actor's a ~ pi(.|s). The
     generator is first reseeded from (config.seed ^ 0x5AC0, step0), as
     td3_noise_eps is, so a chunk's draw depends only on the seed and the
     global step it starts at (the JAX package keys its stream by
-    fold_in(PRNGKey(seed ^ 0x5AC0), step)). The numbers are not the JAX
-    package's (the tests pass the JAX draw in). The two are views of one
+    fold_in(PRNGKey(seed ^ 0x5AC0), step)), and on `device_fold` (a rank
+    of the mesh launch) when given. The numbers are not the JAX package's
+    (the tests pass the JAX draw in). The two are views of one
     [2, K, B, act] tensor."""
-    base = (int(config.seed) ^ SAC_NOISE_SALT) & 0xFFFFFFFF
-    generator.manual_seed((base << 32) | (int(step0) & 0xFFFFFFFF))
+    generator.manual_seed(_noise_seed(SAC_NOISE_SALT, config, step0, device_fold))
     z = torch.randn((2, chunk, batch, act_dim), generator=generator,
                     device=generator.device, dtype=torch.float32)
     return z[0], z[1]

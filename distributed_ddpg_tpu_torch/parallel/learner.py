@@ -1,10 +1,11 @@
 """The learner: K DDPG, TD3, D4PG or SAC steps per dispatch, sampled on the device.
 
-Counterpart of distributed_ddpg_tpu/parallel/learner.py, single device for
-now (the name is kept; the data-parallel mesh and its launch of the chunk
-kernel are later work). A chunk takes one of two routes, chosen once from
-the config before the first dispatch (`fused_chunk`, as the JAX learner's
-:357-405), and exposed as `fused_chunk_active`:
+Counterpart of distributed_ddpg_tpu/parallel/learner.py, on one device or
+on a data-parallel group of D ranks (parallel/mesh.py, one process and one
+card a rank). A chunk takes one of two routes, chosen once from the config
+and the group's size before the first dispatch (`fused_chunk` and
+`fused_mesh`, as the JAX learner's :357-414), and exposed as
+`fused_chunk_active` (and `fused_mesh_active` on D > 1 ranks):
 
 - the kernel route: one launch of the hand-written CUDA chunk kernel
   (ops/fused_chunk.py) on the card, or its plain PyTorch version on the
@@ -32,6 +33,32 @@ in proportion to their priorities (replay/device.py draw_per_indices), the
 IS weights are written into the gathered rows' weight column, which both
 routes read, and the chunk's (|td| + eps)^alpha go back into the priority
 vector, all on the device, as the JAX learner's PER programs do.
+
+On D > 1 ranks the global batch is batch_size * D (scale_batch_with_data,
+else batch_size), b_local = global / D rows a rank, and a chunk runs one
+of two ways (the JAX learner's rules as they are):
+
+- the mesh launch (`fused_mesh_active`: the kernel's envelope holds and
+  fused_mesh != 'off'; the JAX learner's _make_fused_mesh_fn, :769-870):
+  each rank draws its own [K, b_local] indices from a generator with its
+  rank folded into the seed (and its TD3 noise or SAC normals with the
+  rank folded in, device_fold), runs the chunk kernel on them, and at the
+  chunk's end one all_reduce averages every float leaf of the state
+  (params, targets, Adam moments, SAC's log_alpha and alpha_opt moments)
+  and the metrics: K-step local SGD. Counts and step pass through;
+- the scan route with a gradient all-reduce every step (fused_mesh='off',
+  configs outside the envelope, and every PER chunk on a mesh: the JAX
+  learner builds its PER kernel program for one device only, :408-414):
+  every rank draws the same global [K, B * D] indices (and noise) from
+  the same generator, as the JAX learner's replicated key does, and runs
+  its own columns [rank * b_local, (rank + 1) * b_local) through the
+  eager step with the group.
+
+Either way td comes back as the global [K, B * D], rank d's rows in its
+columns (a zero buffer each rank writes its part into, summed). With PER
+every rank then writes the same priorities from the same global draw and
+td, so the replicas' priority vectors stay bit-identical (the draw's
+prefix sum has a fixed order on the card, replay/device.py).
 """
 
 from __future__ import annotations
@@ -49,6 +76,11 @@ from distributed_ddpg_tpu_torch.learner import (
     make_learner_step,
 )
 from distributed_ddpg_tpu_torch.ops import fused_chunk
+from distributed_ddpg_tpu_torch.parallel.mesh import (
+    DataGroup,
+    all_reduce_mean_,
+    resolve_data_axis,
+)
 from distributed_ddpg_tpu_torch.replay.device import draw_per_indices, scatter_last_wins
 from distributed_ddpg_tpu_torch.types import TrainState, pack_batch_np, unpack_batch
 
@@ -75,7 +107,8 @@ def resolve_learner_chunk(config: DDPGConfig) -> int:
 
 
 def make_scan_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
-                       action_scale, action_offset=0.0, chunk_size: int = 8):
+                       action_scale, action_offset=0.0, chunk_size: int = 8,
+                       group: Optional[DataGroup] = None):
     """Returns run(state, packed[K, B, D], eps, step0) -> (new_state,
     td[K, B], metrics), the scan route: K eager steps over the chunk's rows,
     with the kernel route's inputs and outputs (the chunk-mean metrics in
@@ -84,16 +117,17 @@ def make_scan_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
     own count), from which step k takes its index for TD3's delay, so
     nothing inside the chunk reads the card back. run.set_value_bounds(v_min, v_max)
     rebuilds the step on the new C51 support, as the JAX package rebuilds
-    its programs."""
+    its programs. With `group` every step averages its gradients over the
+    group's ranks (learner.make_learner_step), B being the rank's rows."""
     K, B = int(chunk_size), int(config.batch_size)
     D = 2 * int(obs_dim) + int(act_dim) + 3
-    current = [config, make_learner_step(config, action_scale, action_offset)]
+    current = [config, make_learner_step(config, action_scale, action_offset, group)]
 
     def set_value_bounds(v_min: float, v_max: float) -> None:
         if not config.distributional:
             raise ValueError("set_value_bounds needs a distributional (D4PG) chunk")
         current[0] = current[0].replace(v_min=float(v_min), v_max=float(v_max))
-        current[1] = make_learner_step(current[0], action_scale, action_offset)
+        current[1] = make_learner_step(current[0], action_scale, action_offset, group)
 
     def run(state: TrainState, packed, eps, step0: int):
         cfg, step = current
@@ -123,20 +157,42 @@ def make_scan_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
 class ShardedLearner:
     def __init__(self, config: DDPGConfig, obs_dim: int, act_dim: int,
                  action_scale, action_offset=0.0, chunk_size: int = 1,
-                 state: Optional[TrainState] = None):
+                 state: Optional[TrainState] = None, group: Optional[DataGroup] = None):
         self.config = config
+        self.group = group
+        self.data_size = resolve_data_axis(config, group.world_size if group else 1)
+        self.rank = group.rank if group else 0
         self.device = resolve_device(config)
+        if group is not None:
+            if group.device.type != self.device.type:
+                raise ValueError(f"the group's device {group.device} is not on "
+                                 f"config.device={config.device!r}")
+            self.device = group.device
         self.obs_dim, self.act_dim = obs_dim, act_dim
         self.chunk_size = int(chunk_size)
+        # Rows a learner step draws (JAX :129-138): batch_size a rank, or
+        # batch_size in all, split over the ranks.
+        D = self.data_size
+        self.global_batch = (config.batch_size * D if config.scale_batch_with_data
+                             else config.batch_size)
+        if self.global_batch % D:
+            raise ValueError(
+                f"batch_size={config.batch_size} not divisible by data axis size {D}")
+        self.b_local = self.global_batch // D
         self.state: TrainState = (
             state if state is not None
             else init_train_state(config, obs_dim, act_dim, config.seed, self.device)
         )
-        # The route, once, before the first dispatch (JAX :357-405): the
-        # chunk kernel where the config is in its envelope, else the scan.
-        self.fused_chunk_active = (
+        # The route, once, before the first dispatch (JAX :357-414): the
+        # chunk kernel where the config is in its envelope, on one device
+        # or as the mesh launch on D > 1 ranks unless fused_mesh='off';
+        # else the scan. PER takes the kernel on one device only.
+        envelope_ok = (
             config.fused_chunk != "off" and fused_chunk.supported(config)
             and fused_chunk.fits_vmem(config, obs_dim, act_dim))
+        self.fused_mesh_active = envelope_ok and D > 1 and config.fused_mesh != "off"
+        self.fused_chunk_active = envelope_ok and (D == 1 or self.fused_mesh_active)
+        self.fused_per_active = self.fused_chunk_active and not self.fused_mesh_active
         if config.fused_chunk == "on" and not self.fused_chunk_active:
             # The JAX learner's message (parallel/learner.py:398-406).
             raise ValueError(
@@ -147,20 +203,27 @@ class ShardedLearner:
                 "fused_update=False, >=2 critic hidden layers, and nets "
                 "small enough for VMEM (ops/fused_chunk.fits_vmem)"
             )
+        local = config.replace(batch_size=self.b_local) if D > 1 else config
+        self._chunk = self._scan = None
         if self.fused_chunk_active:
             self._chunk = fused_chunk.make_fused_chunk_fn(
-                config, obs_dim, act_dim, action_scale, action_offset,
+                local, obs_dim, act_dim, action_scale, action_offset,
                 chunk_size=self.chunk_size, device=self.device,
             )
-        else:
-            self._chunk = make_scan_chunk_fn(
-                config, obs_dim, act_dim, action_scale, action_offset,
-                chunk_size=self.chunk_size,
+        if not self.fused_per_active:
+            self._scan = make_scan_chunk_fn(
+                local, obs_dim, act_dim, action_scale, action_offset,
+                chunk_size=self.chunk_size, group=group if D > 1 else None,
             )
-        # Index draws on the device, from their own seeded generator; TD3's
-        # smoothing noise or SAC's normals from another (td3_noise_eps and
-        # sac_noise_eps reseed it per chunk).
+        # Index draws on the device, from their own seeded generator (the
+        # same on every rank: the scan route's global draw and PER's); the
+        # mesh launch's own draws from one with the rank folded into its
+        # seed; TD3's smoothing noise or SAC's normals from another
+        # (td3_noise_eps and sac_noise_eps reseed it per chunk).
         self._gen = torch.Generator(device=self.device).manual_seed(config.seed)
+        self._rank_gen = (
+            torch.Generator(device=self.device).manual_seed(fused_chunk.fold_seed(config.seed, self.rank))
+            if self.fused_mesh_active else None)
         self._noise_gen = (
             torch.Generator(device=self.device)
             if config.takes_noise or config.sac else None
@@ -168,16 +231,60 @@ class ShardedLearner:
         self._step = int(self.state.step)   # host copy of the global step
         self._done: Optional[torch.cuda.Event] = None
 
-    def _run(self, packed: torch.Tensor) -> StepOutput:
-        eps = None
-        if self._noise_gen is not None:
-            draw = fused_chunk.sac_noise_eps if self.config.sac else fused_chunk.td3_noise_eps
-            eps = draw(self.config, self._noise_gen, self._step, self.chunk_size,
-                       self.config.batch_size, self.act_dim)
-        if self.fused_chunk_active:
+    def route(self, per: bool = False) -> str:
+        """'kernel' (one device), 'mesh' (the mesh launch) or 'scan': the
+        route a uniform chunk, or with `per` a PER chunk, takes."""
+        if per and self.fused_per_active or not per and self.fused_chunk_active:
+            return "mesh" if self.fused_mesh_active and not per else "kernel"
+        return "scan"
+
+    def _cols(self, x):
+        """This rank's columns of a global [K, B * D, ...] draw (a pair of
+        them under SAC); on one device the draw itself."""
+        if x is None or self.data_size == 1:
+            return x
+        if isinstance(x, (tuple, list)):
+            return tuple(self._cols(e) for e in x)
+        lo = self.rank * self.b_local
+        return x[:, lo:lo + self.b_local]
+
+    def _noise(self, batch: int, device_fold: Optional[int] = None):
+        """The chunk's TD3 noise or SAC normals for `batch` rows, keyed by
+        the step it starts at (and on the mesh launch by the rank)."""
+        if self._noise_gen is None:
+            return None
+        draw = fused_chunk.sac_noise_eps if self.config.sac else fused_chunk.td3_noise_eps
+        args = (self.config, self._noise_gen, self._step, self.chunk_size, batch, self.act_dim)
+        return draw(*args) if device_fold is None else draw(*args, device_fold=device_fold)
+
+    def _gathered(self, td: torch.Tensor, sums=None) -> torch.Tensor:
+        """The global [K, B * D] td from this rank's [K, b_local]: a zero
+        buffer with the rank's columns written, summed over the group."""
+        if self.data_size == 1:
+            return td
+        full = torch.zeros((self.chunk_size, self.global_batch), dtype=td.dtype,
+                           device=td.device)
+        self._cols(full).copy_(td)
+        if sums is None:
+            all_reduce_mean_([], self.group, sums=[full])
+        else:
+            sums.append(full)
+        return full
+
+    def _run(self, packed: torch.Tensor, eps, kernel: bool) -> StepOutput:
+        if kernel:
             new_state, td, metrics = self._chunk(self.state, packed, eps)
         else:
-            new_state, td, metrics = self._chunk(self.state, packed, eps, self._step)
+            new_state, td, metrics = self._scan(self.state, packed, eps, self._step)
+        if self.fused_mesh_active and kernel:
+            # K-step local SGD: one all_reduce averages every float leaf and
+            # the metrics and gathers the td (JAX :815-850).
+            sums = []
+            td = self._gathered(td, sums)
+            all_reduce_mean_(float_leaves(new_state) + list(metrics.values()), self.group,
+                             sums=sums)
+        else:
+            td = self._gathered(td)
         self.state = new_state
         self._step += self.chunk_size
         if self.device.type == "cuda":
@@ -194,9 +301,11 @@ class ShardedLearner:
         the new support. State, step and the index generator are
         untouched: training continues where it was. The auto-support
         controller (ops/support_auto.py, train.py) calls this once after
-        warmup and on each expansion."""
+        warmup and on each expansion, on every rank with the same bounds."""
         self.config = self.config.replace(v_min=float(v_min), v_max=float(v_max))
-        self._chunk.set_value_bounds(v_min, v_max)
+        for run in (self._chunk, self._scan):
+            if run is not None:
+                run.set_value_bounds(v_min, v_max)
 
     def chunk_done(self) -> bool:
         """True once the last dispatched chunk has finished on the device
@@ -206,55 +315,76 @@ class ShardedLearner:
         of the device and then blocking on all of them at its next read."""
         return self._done is None or self._done.query()
 
-    def run_sample_chunk(self, device_replay, idx: Optional[torch.Tensor] = None) -> StepOutput:
+    def run_sample_chunk(self, device_replay, idx: Optional[torch.Tensor] = None,
+                         eps=None) -> StepOutput:
         """K learner steps on minibatches drawn uniformly from the device
         replay: K*B indices drawn on the device, the rows gathered with
         one index, (TD3) the chunk's smoothing noise or (SAC) its normals
         drawn on the device, then one kernel launch (or the scan route's K
-        steps). `idx` ([K, B] ints) replaces the index draw."""
+        steps). `idx` ([K, B] ints) and `eps` (the noise) replace the
+        draws: on the mesh launch this rank's own [K, b_local], on the
+        scan route the global [K, B * D] every rank draws."""
         storage, size = device_replay.device_state()
+        if self.fused_mesh_active:
+            if idx is None:
+                idx = torch.randint(0, max(int(size), 1), (self.chunk_size, self.b_local),
+                                    generator=self._rank_gen, device=self.device)
+            if eps is None:
+                eps = self._noise(self.b_local, device_fold=self.rank)
+            return self._run(storage[idx.to(self.device)], eps, kernel=True)
         if idx is None:
             idx = torch.randint(
-                0, max(int(size), 1), (self.chunk_size, self.config.batch_size),
+                0, max(int(size), 1), (self.chunk_size, self.global_batch),
                 generator=self._gen, device=self.device,
             )
-        return self._run(storage[idx.to(self.device)])
+        if eps is None:
+            eps = self._noise(self.global_batch)
+        return self._run(storage[self._cols(idx).to(self.device)], self._cols(eps),
+                         kernel=self.fused_chunk_active)
 
     def run_sample_chunk_per(self, device_replay, beta: float,
                              idx: Optional[torch.Tensor] = None,
-                             weights: Optional[torch.Tensor] = None) -> StepOutput:
+                             weights: Optional[torch.Tensor] = None,
+                             eps=None) -> StepOutput:
         """K learner steps on minibatches drawn from a DevicePrioritizedReplay
         in proportion to its priorities (the JAX learner's
-        run_sample_chunk_per): one [K, B] uniform from the learner's index
-        generator into draw_per_indices at this `beta`, the rows gathered (a
-        copy) with the IS weights written into its weight column, the chunk
-        on the learner's route, then the priorities of the drawn rows set
-        to (|td| + eps)^alpha (an index drawn twice takes its last value in
-        flat K x B order, scatter_last_wins) and max_priority raised to the
-        largest of them. Priorities and max_priority are updated in place,
-        on the device and in stream order, with no host read: an insert
-        issued after this call returns stamps the new max. `idx` and
-        `weights` ([K, B], given together) replace the draw."""
+        run_sample_chunk_per): one [K, B * D] uniform from the learner's
+        index generator into draw_per_indices at this `beta` (the same
+        draw on every rank), this rank's columns gathered (a copy) with the
+        IS weights written into its weight column, the chunk on the
+        learner's PER route, the td gathered, then the priorities of the
+        drawn rows set to (|td| + eps)^alpha (an index drawn twice takes
+        its last value in flat K x B order, scatter_last_wins) and
+        max_priority raised to the largest of them, the same on every
+        rank. Priorities and max_priority are updated in place, on the
+        device and in stream order, with no host read: an insert issued
+        after this call returns stamps the new max. `idx` and `weights`
+        ([K, B * D], given together) replace the draw, `eps` the noise."""
         storage, size, priorities, max_priority = device_replay.per_state()
         if (idx is None) != (weights is None):
             raise ValueError("idx and weights replace the PER draw together")
         if idx is None:
             idx, weights = draw_per_indices(
-                priorities, size, (self.chunk_size, self.config.batch_size), beta,
+                priorities, size, (self.chunk_size, self.global_batch), beta,
                 generator=self._gen)
+        if eps is None:
+            eps = self._noise(self.global_batch)
         idx = idx.to(self.device)
-        packed = storage[idx]
-        packed[..., -1] = weights.to(self.device, torch.float32)
-        out = self._run(packed)
+        packed = storage[self._cols(idx)]
+        packed[..., -1] = self._cols(weights).to(self.device, torch.float32)
+        out = self._run(packed, self._cols(eps), kernel=self.fused_per_active)
         new_p = (out.td_errors.abs() + device_replay.eps) ** device_replay.alpha
         scatter_last_wins(priorities, idx.reshape(-1), new_p.reshape(-1))
         torch.maximum(max_priority, new_p.max(), out=max_priority)
         return out
 
     def run_chunk(self, np_batches: Dict[str, np.ndarray]) -> StepOutput:
-        """K learner steps on host-fed [K, B, ...] stacked minibatches."""
+        """K learner steps on host-fed [K, B * D, ...] stacked minibatches
+        (on D > 1 ranks this rank's columns, on the scan route)."""
         packed = torch.from_numpy(pack_batch_np(np_batches)).to(self.device)
-        return self._run(packed)
+        kernel = self.fused_chunk_active and self.data_size == 1
+        return self._run(self._cols(packed).contiguous(), self._cols(self._noise(self.global_batch)),
+                         kernel=kernel)
 
     def actor_params_to_host(self) -> np.ndarray:
         """The actor params as one flat f32 vector in the layout of
@@ -270,3 +400,25 @@ class ShardedLearner:
     def metrics_to_host(self, out: StepOutput) -> Dict[str, float]:
         vals = torch.stack([out.metrics[k] for k in METRIC_KEYS]).cpu().tolist()
         return dict(zip(METRIC_KEYS, vals))
+
+
+def float_leaves(state: TrainState):
+    """Every float leaf of a state: params, targets, both Adam moments, and
+    SAC's log_alpha and its Adam moments (counts and step excluded)."""
+    out = [t for tree in (state.actor_params, state.critic_params, state.target_actor_params,
+                          state.target_critic_params, state.actor_opt.mu, state.actor_opt.nu,
+                          state.critic_opt.mu, state.critic_opt.nu)
+           for layer in tree for t in (layer["w"], layer["b"])]
+    if state.log_alpha is not None:
+        out.append(state.log_alpha)
+    if state.alpha_opt is not None:
+        out += [state.alpha_opt.mu, state.alpha_opt.nu]
+    return out
+
+
+def state_tensors(state: TrainState):
+    """Every tensor of a state: its float leaves, then the counts and step."""
+    counts = [state.actor_opt.count, state.critic_opt.count, state.step]
+    if state.alpha_opt is not None:
+        counts.append(state.alpha_opt.count)
+    return float_leaves(state) + counts

@@ -1,0 +1,210 @@
+"""The data-parallel group of the port: D ranks over torch.distributed.
+
+Counterpart of distributed_ddpg_tpu/parallel/mesh.py for its data axis
+only (tensor parallelism, the model axis, is later work). Where the JAX
+package builds a (data, model) device mesh in one process, the port runs
+one process a rank, one card a rank, joined by a torch.distributed process
+group:
+
+- `DataGroup` is a rank's view of it: its rank, the group's size, its
+  device and its control-plane group. The data plane (the learner's
+  gradient and state averages, the TD gather) runs on the rank's device,
+  over the default group (NCCL or gloo). The control plane (the
+  trainer's rows, counts and decisions: `share`, `share_rows`) runs on
+  CPU tensors over gloo, so that a control broadcast never waits in a card's stream behind
+  a running chunk. Under gloo both planes are one group.
+- `resolve_data_axis(config, world_size)` applies the JAX package's rule:
+  -1 is the whole group, any other value must equal its size.
+- `init_data_group(backend, device)` joins the group (from torchrun's
+  environment, or from an address, rank and size the caller gives) with a
+  timeout on every collective, so a rank that dies ends the others with an
+  error instead of hanging them.
+- `replicas_equal` holds every rank's tensors to rank 0's, bit for bit.
+- `all_reduce_mean_` averages a list of tensors in place with one
+  collective over one flat buffer (and can sum a second list, exactly, in
+  the same collective). On CUDA tensors gloo offers only broadcast and
+  all_reduce, so these are the only collectives the port uses on the card:
+  a gather is a zero buffer in which each rank writes its own part, summed
+  (x + 0 is exact).
+
+A DataGroup can be made without joining anything: with one rank its
+collectives are identities; with more, it serves route decisions alone
+(a ShardedLearner's route and batch split), and a collective on it needs
+the joined default group.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+# Seconds a collective may wait for the other ranks before it raises.
+DEFAULT_TIMEOUT_S = 300.0
+
+
+@dataclasses.dataclass
+class DataGroup:
+    """A rank's place in a data-parallel group of `world_size` ranks."""
+
+    rank: int
+    world_size: int
+    device: torch.device
+    ctrl: Optional[object] = None    # control-plane gloo group (None: the default group)
+
+    @property
+    def lead(self) -> bool:
+        """Rank 0 runs the actors, the eval and the log, and decides."""
+        return self.rank == 0
+
+
+def resolve_data_axis(config, world_size: int) -> int:
+    """The number of data-parallel ranks: config.data_axis, -1 meaning the
+    whole group; any other value must equal the group's size (the JAX
+    package's make_mesh raises the same way when the devices disagree)."""
+    world_size = int(world_size)
+    if config.data_axis == -1:
+        return world_size
+    if config.data_axis != world_size:
+        raise ValueError(
+            f"data_axis={config.data_axis} but the torch.distributed group has "
+            f"{world_size} rank(s): launch D processes (torchrun "
+            f"--nproc_per_node=D) or pass data_axis=-1"
+        )
+    return world_size
+
+
+def init_data_group(backend: str = "nccl", device=None, init_method: Optional[str] = None,
+                    rank: Optional[int] = None, world_size: Optional[int] = None,
+                    timeout_s: float = DEFAULT_TIMEOUT_S) -> DataGroup:
+    """Join the data-parallel group and return this rank's DataGroup.
+
+    Without `init_method`, the rank, size and rendezvous come from the
+    environment torchrun sets (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT). Under NCCL the rank's device is cuda:{LOCAL_RANK}, and a
+    request for more ranks on a host than it has cards raises; under gloo
+    it is `device` (the CPU when none is named), so two gloo ranks may
+    share one card. Every collective of the group raises after
+    `timeout_s` seconds without its peers."""
+    import torch.distributed as dist
+
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
+    if rank is None:
+        rank = int(os.environ.get("RANK", "0"))
+    if world_size is None:
+        world_size = int(os.environ.get("WORLD_SIZE", "1"))
+    local_rank = int(os.environ.get("LOCAL_RANK", str(rank)))
+    if backend == "nccl":
+        if not torch.cuda.is_available():
+            raise RuntimeError("backend='nccl' needs CUDA; torch.cuda.is_available() is False")
+        cards = torch.cuda.device_count()
+        if local_rank >= cards:
+            raise RuntimeError(
+                f"NCCL rank {rank} (local rank {local_rank}) has no card of its "
+                f"own: this host has {cards}; NCCL runs one rank a card (gloo can "
+                f"share one)"
+            )
+        device = torch.device("cuda", local_rank)
+        torch.cuda.set_device(device)
+    else:
+        device = torch.device(device if device is not None else "cpu")
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} but torch.cuda.is_available() is False")
+    timeout = datetime.timedelta(seconds=float(timeout_s))
+    if not dist.is_initialized():
+        dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
+                                world_size=world_size, timeout=timeout)
+    ctrl = dist.new_group(backend="gloo", timeout=timeout) if backend == "nccl" else None
+    return DataGroup(rank=dist.get_rank(), world_size=dist.get_world_size(), device=device,
+                     ctrl=ctrl)
+
+
+def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+
+
+def _scatter_back(flat: torch.Tensor, tensors: Sequence[torch.Tensor]) -> None:
+    pos = 0
+    for t in tensors:
+        n = t.numel()
+        t.copy_(flat[pos:pos + n].view(t.shape))
+        pos += n
+
+
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group: Optional[DataGroup],
+                     sums: Sequence[torch.Tensor] = ()) -> None:
+    """In place: each of `tensors` becomes its mean over the group, and each
+    of `sums` its sum, with one all_reduce over one flat f32 buffer (the
+    sum, then the mean's part divided by D; the order of a sum is the
+    backend's, the same on every rank). A group of one, or none, leaves
+    them as they are."""
+    if group is None or group.world_size == 1:
+        return
+    import torch.distributed as dist
+
+    tensors, sums = list(tensors), list(sums)
+    flat = _flat(tensors + sums)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=None)
+    n = sum(t.numel() for t in tensors)
+    flat[:n].div_(group.world_size)
+    _scatter_back(flat, tensors + sums)
+
+
+def _broadcast(tensor: torch.Tensor, group: Optional[DataGroup], control: bool = False) -> None:
+    """Rank 0's `tensor` into every rank's, in place; over the control
+    plane (CPU tensors, gloo) when `control`, else the data plane."""
+    if group is None or group.world_size == 1:
+        return
+    import torch.distributed as dist
+
+    dist.broadcast(tensor, src=0, group=group.ctrl if control else None)
+
+
+def share(values: Sequence[float], group: Optional[DataGroup]) -> list:
+    """Rank 0's numbers on every rank (the control plane; float64, so
+    counts up to 2^53 and Python floats come across exactly). Without a
+    group, or with one rank, the values themselves."""
+    if group is None or group.world_size == 1:
+        return list(values)
+    t = torch.tensor([float(v) for v in values], dtype=torch.float64)
+    _broadcast(t, group, control=True)
+    return t.tolist()
+
+
+def share_rows(rows: Optional[np.ndarray], width: int,
+               group: Optional[DataGroup]) -> Optional[np.ndarray]:
+    """Rank 0's packed f32 rows [n, width] (None: no rows) on every rank:
+    first their count, then the rows, over the control plane. Without a
+    group, or with one rank, `rows` itself."""
+    if group is None or group.world_size == 1:
+        return rows
+    n = int(share([0 if rows is None else len(rows)], group)[0])
+    if n == 0:
+        return None
+    buf = (torch.from_numpy(np.ascontiguousarray(rows, np.float32)) if group.lead
+           else torch.empty((n, int(width)), dtype=torch.float32))
+    _broadcast(buf, group, control=True)
+    return buf.numpy()
+
+
+def replicas_equal(tensors: Sequence[torch.Tensor], group: Optional[DataGroup]) -> bool:
+    """True on every rank when every rank's tensors equal rank 0's bit for
+    bit: rank 0 broadcasts their bytes on the data plane, each rank
+    compares its own, and the verdicts are summed, so all ranks return the
+    same answer."""
+    if group is None or group.world_size == 1:
+        return True
+    import torch.distributed as dist
+
+    mine = torch.cat([t.detach().reshape(-1).contiguous().view(torch.uint8) for t in tensors])
+    lead = mine.clone()
+    _broadcast(lead, group)
+    differ = torch.tensor([0.0 if torch.equal(lead, mine) else 1.0], dtype=torch.float32,
+                          device=mine.device)
+    dist.all_reduce(differ, op=dist.ReduceOp.SUM, group=None)
+    return float(differ) == 0.0

@@ -36,6 +36,35 @@ from distributed_ddpg_tpu_torch.replay.staging import HostStagingRing
 from distributed_ddpg_tpu_torch.types import packed_width
 
 
+SCAN_BLOCK = 256   # row length of the blocked scan (PERF.md: PER, the prefix sum)
+SCAN_SERIAL = 64   # at most this many totals are scanned one after another
+
+
+def fixed_order_cumsum(x: torch.Tensor, block: int = SCAN_BLOCK) -> torch.Tensor:
+    """Inclusive prefix sum of a 1-D f32 tensor whose addition order is
+    fixed by its length alone, so it is bit-identical run to run on the
+    card. The vector, zero-padded to m >= 2 rows of `block`, is scanned
+    along each row (torch's innermost-dimension scan: one tree a row, no
+    atomics); the m row totals are scanned the same way, recursively, down
+    to at most SCAN_SERIAL of them, which are scanned down a [n, 2] column
+    pair (torch's outer-dimension scan: one thread a column, in order);
+    each row then adds the exclusive prefix of the totals before it. A
+    1-D torch.cumsum on the card goes through CUB's decoupled look-back
+    instead, whose order depends on timing; these 2-D shapes never reach
+    it. Over 1M priorities: 3907 rows of 256, then their totals in 16
+    rows, then those 16 totals in order."""
+    n = x.numel()
+    if n <= SCAN_SERIAL:
+        return torch.cumsum(torch.stack([x, x], 1), 0)[:, 0]
+    m = max(2, -(-n // block))
+    rows = x.new_zeros(m * block)
+    rows[:n] = x
+    inner = torch.cumsum(rows.view(m, block), 1)
+    running = fixed_order_cumsum(inner[:, -1].contiguous(), block)
+    before = torch.cat([running.new_zeros(1), running[:-1]])
+    return (inner + before[:, None]).view(-1)[:n]
+
+
 def draw_per_indices(priorities: torch.Tensor, size: int, shape, beta: float,
                      generator: Optional[torch.Generator] = None,
                      uniform: Optional[torch.Tensor] = None):
@@ -49,9 +78,14 @@ def draw_per_indices(priorities: torch.Tensor, size: int, shape, beta: float,
 
     The cumsum's f32 summation order differs by device (and from XLA's),
     so two devices draw the same indices only where the running sums are
-    exact (for example dyadic priorities with a small total)."""
+    exact (for example dyadic priorities with a small total). On the card
+    the prefix sum is fixed_order_cumsum, so a draw is bit-identical run
+    to run and on every replica of a data-parallel group (each rank draws
+    the same global indices from the same priorities); on the CPU it is
+    torch.cumsum (which sums in double)."""
     k, b = shape
-    cum = torch.cumsum(priorities, 0)
+    cum = (torch.cumsum(priorities, 0) if priorities.device.type == "cpu"
+           else fixed_order_cumsum(priorities))
     total = cum[-1]
     if uniform is None:
         uniform = torch.rand((k, b), generator=generator, device=priorities.device)

@@ -1,8 +1,9 @@
-"""Training entry point + CLI of the port: one learner process, N actor processes.
+"""Training entry point + CLI of the port: D learner processes, N actor processes.
 
-A lean single-process counterpart of distributed_ddpg_tpu/train.py's
-_train_jax_impl (the default path: uniform device replay, host actor pool,
-K learner steps per dispatch). It covers:
+A lean counterpart of distributed_ddpg_tpu/train.py's _train_jax_impl (the
+default path: uniform device replay, host actor pool, K learner steps per
+dispatch), on one learner process or on D data-parallel ranks, one card
+each (parallel/mesh.py). It covers:
 
 - the actor pool's start and the ingest of its rows into DeviceReplay;
 - the replay_min_size warmup;
@@ -18,7 +19,7 @@ K learner steps per dispatch). It covers:
 - prioritized replay (--prioritized=true): DevicePrioritizedReplay, each
   chunk through ShardedLearner.run_sample_chunk_per with beta annealed
   linearly from per_beta to per_beta_final over total_env_steps (the JAX
-  trainer's rule, its global env-step count being this process's);
+  trainer's rule, its global env-step count being rank 0's pool's);
 - D4PG's auto support (--v_min=auto --v_max=auto): sized from the warmup
   replay's rewards before the first chunk, then widened on the 50-chunk
   cadence when mean_q nears an edge and the replay's rewards corroborate
@@ -36,6 +37,30 @@ K learner steps per dispatch). It covers:
   records no temperature, so neither does this one; train() returns the
   final alpha under SAC).
 
+On D > 1 ranks every rank runs train() with its DataGroup, in lockstep:
+
+- rank 0 alone runs the actor pool, the eval, the log and the param
+  broadcast (the replicas end each chunk with the same actor params, so
+  rank 0 publishes its own);
+- each ingest shares rank 0's drained rows, first their count, then the
+  rows, and every rank inserts the same rows into its own replay, so the
+  rings (and PER's priorities and stamps) stay identical: the JAX
+  package's replicated storage. The rows cross on the control plane (CPU
+  tensors over gloo), so the share never waits behind a running chunk in
+  the card's stream;
+- once a loop turn, and again after the chunk's ingest, rank 0's env-step
+  count is shared (beta and the stop test read it, as the JAX trainer's
+  global count), and while a chunk runs rank 0's poll of its end decides
+  for all; no rank decides anything from its own clock;
+- D4PG's warmup bounds and each expansion are rank 0's, shared, and every
+  rank calls set_value_bounds with the same numbers (expand_support);
+- learner_steps_per_sec counts K a chunk, as the JAX trainer's does; the
+  final record adds data_axis, global_batch, the route and whether the
+  replicas' states (and priorities) are bit-identical at the end.
+
+Under the CLI the D processes come from torchrun (NCCL, one card a rank):
+    torchrun --nproc_per_node=D -m distributed_ddpg_tpu_torch.train --data_axis=D ...
+
 Checkpoint and resume are later work (so are the checkpointed bounds).
 
 Usage:
@@ -52,6 +77,8 @@ Usage:
 from __future__ import annotations
 
 import json
+import math
+import os
 import sys
 import time
 from typing import Any, Dict, Optional
@@ -126,26 +153,54 @@ def _eval_numpy(policy, config: DDPGConfig, spec, episodes: Optional[int] = None
     return float(np.mean(returns))
 
 
-def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
+def expand_support(learner, controller, out, learn_steps: int, data_bounds,
+                   group=None) -> Optional[Dict[str, float]]:
+    """The running expansion check of the auto C51 support, as the trainer
+    calls it every 50 chunks: on rank 0, mean_q of the last chunk near an
+    edge of the support and the replay's current rewards corroborating a
+    wider one (support_auto.SupportController, its own rule and
+    cooldown); then rank 0's verdict and bounds go to every rank, and
+    every rank moves its learner to them. Returns {v_min, v_max, mean_q}
+    when the support grew, else None (the same on every rank)."""
+    from distributed_ddpg_tpu_torch.parallel import mesh
+
+    verdict = [0.0, math.nan, math.nan, math.nan]
+    if group is None or group.lead:
+        mean_q = learner.metrics_to_host(out)["mean_q"]
+        grown = controller.check(learner.config.v_min, learner.config.v_max, mean_q,
+                                 learn_steps, data_bounds_fn=data_bounds)
+        if grown is not None:
+            verdict = [1.0, *grown, mean_q]
+    grew, v_min, v_max, mean_q = mesh.share(verdict, group)
+    if not grew:
+        return None
+    learner.set_value_bounds(v_min, v_max)
+    return dict(v_min=v_min, v_max=v_max, mean_q=mean_q)
+
+
+def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
+    """Trains with `config` and returns the run's summary. With `group` (a
+    parallel/mesh.DataGroup of D ranks) every rank calls this: rank 0 runs
+    the actors, the eval and the log, and its decisions and rows go to the
+    others (see the module's docstring); its summary carries the final
+    return, the others' None."""
     # torch loads here, not at import: spawned actor workers re-import the
     # main module (this one, under `python -m`) and must stay torch-free.
     from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
-    from distributed_ddpg_tpu_torch.parallel.learner import (
-        ShardedLearner,
-        resolve_device,
-        resolve_learner_chunk,
-    )
+    from distributed_ddpg_tpu_torch.parallel import mesh
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, resolve_learner_chunk
     from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay, DeviceReplay
 
-    device = resolve_device(config)
+    lead = group is None or group.lead
     env = make(config.env_id, seed=config.seed)
     spec = spec_of(env)
     chunk = resolve_learner_chunk(config)
     min_fill = max(config.replay_min_size, config.batch_size)
     learner = ShardedLearner(
         config, spec.obs_dim, spec.act_dim, spec.action_scale,
-        spec.action_offset, chunk_size=chunk,
+        spec.action_offset, chunk_size=chunk, group=group,
     )
+    device = learner.device
     replay = (
         DevicePrioritizedReplay(
             config.replay_capacity, spec.obs_dim, spec.act_dim, device, block_size=1024,
@@ -161,11 +216,12 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
                      tuple(config.actor_hidden)),
         spec.action_scale, spec.action_offset, gaussian=config.sac,
     )
-    log = JsonlLog(config.log_path, echo=echo)
+    log = JsonlLog(config.log_path if lead else "", echo=echo and lead)
     env_timer, learn_timer = Timer(), Timer()
     learn_steps = chunks = 0
     beta = config.per_beta            # PER's IS exponent, annealed per chunk
     support_controller = support_auto.SupportController()
+    n_env = 0                         # the global env-step count (rank 0's pool)
 
     def support_fields() -> Dict[str, Any]:
         if not config.distributional:
@@ -176,19 +232,31 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
     def per_fields() -> Dict[str, Any]:
         return dict(prioritized=True, beta=beta) if config.prioritized else {}
 
+    def mesh_fields() -> Dict[str, Any]:
+        if learner.data_size == 1:
+            return {}
+        return dict(data_axis=learner.data_size, global_batch=learner.global_batch,
+                    route=learner.route(per=config.prioritized))
+
     def data_bounds():
         return support_auto.replay_data_bounds(replay, config.gamma, config.n_step)
 
-    pool = ActorPool(config, spec).start(learner.actor_params_to_host())
+    pool = ActorPool(config, spec).start(learner.actor_params_to_host()) if lead else None
 
     def env_steps() -> int:
-        return pool.steps_received
+        """The global env-step count, as rank 0's pool has it, shared."""
+        return int(mesh.share([pool.steps_received if lead else 0], group)[0])
 
     def ingest() -> int:
-        moved = 0
-        for batch in pool.drain_batches():
-            replay.add_packed(pack_batch_np(batch))
-            moved += len(batch["reward"])
+        rows = None
+        if lead:
+            batches = pool.drain_batches()
+            if batches:
+                rows = np.concatenate([pack_batch_np(batch) for batch in batches])
+        rows = mesh.share_rows(rows, replay.width, group)
+        moved = 0 if rows is None else len(rows)
+        if moved:
+            replay.add_packed(rows)
         env_timer.tick(moved)
         return moved
 
@@ -200,6 +268,12 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         log.log("eval", at_step, eval_return=ret)
         return ret
 
+    def monitor() -> None:
+        nonlocal last_monitor_t
+        if lead and time.monotonic() - last_monitor_t >= 1.0:
+            last_monitor_t = time.monotonic()
+            pool.monitor()
+
     try:
         # --- warmup: fill replay to the learning threshold ---
         last_monitor_t = time.monotonic()
@@ -207,17 +281,16 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
             moved = ingest()
             if len(replay) + replay.pending_rows >= min_fill:
                 replay.flush()
-            if time.monotonic() - last_monitor_t >= 1.0:
-                last_monitor_t = time.monotonic()
-                pool.monitor()
+            monitor()
             if not moved:
                 time.sleep(0.01)
 
         if config.distributional and learner.config.v_support_auto:
             # C51 auto support: [v_min, v_max] from the warmup replay's
-            # (n-step) reward statistics, before the first chunk.
-            learner.set_value_bounds(*data_bounds())
-            log.log("support", env_steps(), reason="warmup", **support_fields())
+            # (n-step) reward statistics, before the first chunk; rank 0's.
+            learner.set_value_bounds(*mesh.share(data_bounds() if lead else (0, 0), group))
+            n_env = env_steps()
+            log.log("support", n_env, reason="warmup", **support_fields())
 
         learn_timer.reset()
         env_timer.reset()
@@ -226,13 +299,12 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         last_eval = 0
         out = None
         while True:
-            if time.monotonic() - last_monitor_t >= 1.0:
-                last_monitor_t = time.monotonic()
-                pool.monitor()
-            if env_steps() >= config.total_env_steps and learn_steps > 0:
+            monitor()
+            n_env = env_steps()
+            if n_env >= config.total_env_steps and learn_steps > 0:
                 break
             if config.max_learn_ratio > 0.0 and learn_steps > 0 and (
-                learn_steps + chunk > min_fill + config.max_learn_ratio * env_steps()
+                learn_steps + chunk > min_fill + config.max_learn_ratio * n_env
             ):
                 # Learner-rate cap: ingest instead of dispatching until env
                 # steps catch up with the allowance.
@@ -240,7 +312,7 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
                     time.sleep(0.002)
                 continue
             if config.prioritized:
-                frac = min(1.0, env_steps() / config.total_env_steps)
+                frac = min(1.0, n_env / config.total_env_steps)
                 beta = config.per_beta + frac * (config.per_beta_final - config.per_beta)
                 out = learner.run_sample_chunk_per(replay, beta)
             else:
@@ -251,16 +323,19 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
             # Ingest while the chunk runs. Without this wait the loop would
             # queue chunks far ahead of the card, then block on all of them
             # at its next device read while the actors' bounded queue sits
-            # full and undrained.
+            # full and undrained. Rank 0's chunk decides when it ends.
             while True:
                 done = learner.chunk_done()
-                if not ingest() and not done:
+                moved = ingest()
+                done = bool(mesh.share([done], group)[0])
+                if not moved and not done:
                     time.sleep(0.0005)
                 if done:
                     break
+            n_env = env_steps()
 
             now = time.perf_counter()
-            if learn_steps >= next_refresh and (
+            if lead and learn_steps >= next_refresh and (
                 now - last_refresh_t >= config.param_refresh_interval_s
             ):
                 pool.broadcast(learner.actor_params_to_host())
@@ -270,23 +345,19 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
             if config.distributional and config.v_support_auto and chunks % 50 == 0:
                 # Running expansion: mean_q near an edge of the support, and
                 # the replay's current rewards corroborate a wider one.
-                mean_q = learner.metrics_to_host(out)["mean_q"]
-                grown = support_controller.check(
-                    learner.config.v_min, learner.config.v_max, mean_q, learn_steps,
-                    data_bounds_fn=data_bounds,
-                )
+                grown = expand_support(learner, support_controller, out, learn_steps,
+                                       data_bounds, group)
                 if grown is not None:
-                    learner.set_value_bounds(*grown)
-                    log.log("support", env_steps(), reason="expanded", mean_q=mean_q,
+                    log.log("support", n_env, reason="expanded", mean_q=grown["mean_q"],
                             **support_fields())
 
             on_cadence = chunks == 1 or chunks % 50 == 0
-            if on_cadence and now - last_log_t >= 1.0:
+            if lead and on_cadence and now - last_log_t >= 1.0:
                 last_log_t = now
                 episodes = pool.episode_stats()
                 metrics = learner.metrics_to_host(out)
                 log.log(
-                    "train", env_steps(),
+                    "train", n_env,
                     learner_steps=learn_steps,
                     learner_steps_per_sec=learn_timer.rate(),
                     env_steps_per_sec=env_timer.rate(),
@@ -298,21 +369,34 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
                     **support_fields(),
                     **per_fields(),
                 )
-            if config.eval_every and env_steps() - last_eval >= config.eval_every:
-                last_eval = env_steps()
+            if lead and config.eval_every and n_env - last_eval >= config.eval_every:
+                last_eval = n_env
                 evaluate(last_eval)
     finally:
-        pool.stop()
+        if pool is not None:
+            pool.stop()
 
     metrics = learner.metrics_to_host(out) if out is not None else {}
     if config.prioritized:   # the run's one read of the max priority
         metrics["max_priority"] = float(replay.max_priority)
     rate = learn_timer.rate()
     env_rate = env_timer.rate()
-    eval_policy.load_flat(learner.actor_params_to_host())
-    final_return = _eval_numpy(eval_policy, config, spec)
+    replica = {}
+    if learner.data_size > 1:
+        # Every rank's state (and PER's priorities) against rank 0's, bit
+        # for bit: the replicas must not have drifted apart.
+        from distributed_ddpg_tpu_torch.parallel.learner import state_tensors
+
+        held = state_tensors(learner.state)
+        if config.prioritized:
+            held += [replay.priorities, replay.max_priority]
+        replica = dict(replicas_identical=mesh.replicas_equal(held, group))
+    final_return = None
+    if lead:
+        eval_policy.load_flat(learner.actor_params_to_host())
+        final_return = _eval_numpy(eval_policy, config, spec)
     log.log(
-        "final", env_steps(),
+        "final", n_env,
         learner_steps=learn_steps,
         learner_steps_per_sec=rate,
         env_steps_per_sec=env_rate,
@@ -322,6 +406,8 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         **metrics,
         **support_fields(),
         **per_fields(),
+        **mesh_fields(),
+        **replica,
     )
     log.close()
     return {
@@ -332,19 +418,34 @@ def train(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         "chunk_size": chunk,
         "compute_dtype": config.compute_dtype,
         "fused_chunk_active": learner.fused_chunk_active,
-        "env_steps": env_steps(),
+        "env_steps": n_env,
         "final_return": final_return,
         **{k: metrics[k] for k in (*METRIC_KEYS, "max_priority") if k in metrics},
         **support_fields(),
         **per_fields(),
+        **mesh_fields(),
+        **replica,
         **({"alpha": float(learner.state.log_alpha.exp())} if config.sac else {}),
     }
 
 
 def main(argv=None) -> None:
     config = DDPGConfig.from_flags(argv if argv is not None else sys.argv[1:])
-    summary = train(config)
-    print({k: round(v, 3) if isinstance(v, float) else v for k, v in summary.items()})
+    group = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # Under torchrun: one rank a card over NCCL (gloo on the CPU).
+        from distributed_ddpg_tpu_torch.parallel.mesh import init_data_group
+
+        group = init_data_group("nccl" if config.device == "cuda" else "gloo")
+    try:
+        summary = train(config, group=group)
+    finally:
+        if group is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    if group is None or group.lead:
+        print({k: round(v, 3) if isinstance(v, float) else v for k, v in summary.items()})
 
 
 if __name__ == "__main__":

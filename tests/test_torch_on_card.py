@@ -35,6 +35,12 @@ scan route (parallel/learner.make_scan_chunk_fn)
 with fused_update, DDPG and D4PG, on the card against the same chunk on
 the CPU (rtol 1e-4, atol 1e-5); D4PG's eager step once indexed past the
 last atom on the card only (ops/losses.categorical_projection).
+
+Prioritized replay: a PER chunk a family (DDPG, D4PG) on the card against
+the CPU; the draw bit-identical twice at capacity 1M on priorities that
+are not dyadic (its prefix sum has a fixed order). Data parallelism: two
+ranks over gloo on the one card (tests/torch_mesh_child.py; the mesh
+launch and the scan route's PER chunk) end with bit-identical replicas.
 """
 
 import numpy as np
@@ -353,3 +359,55 @@ def test_per_chunk_on_card_matches_cpu(family):
     for slot, v in last.items():
         if flat.count(slot) > 1:
             _close(gp[slot], v)
+
+
+@pytest.mark.cuda
+def test_per_draw_is_bit_identical_twice_on_card():
+    """The PER draw's prefix sum has a fixed order on the card
+    (replay/device.fixed_order_cumsum): at the main path's capacity (1M)
+    on priorities that are not dyadic, two draws with the same uniforms
+    give the same indices and weights bit for bit, and the prefix sum
+    itself is the same twice (torch's 1-D CUDA cumsum is not)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the draw's fixed order is a property of the card")
+    from distributed_ddpg_tpu_torch.replay.device import draw_per_indices, fixed_order_cumsum
+
+    cap = 1_000_000
+    rng = np.random.default_rng(31)
+    p = (np.abs(5.0 * rng.standard_normal(cap)) + 1e-6) ** 0.6
+    prios = torch.from_numpy(p.astype(np.float32)).cuda()
+    uniform = torch.from_numpy(rng.uniform(0, 1, (800, 64)).astype(np.float32)).cuda()
+    draws = [draw_per_indices(prios, cap, (800, 64), 0.4, uniform=uniform) for _ in range(2)]
+    cums = [fixed_order_cumsum(prios) for _ in range(2)]
+    assert torch.equal(draws[0][0], draws[1][0])
+    assert torch.equal(draws[0][1].view(torch.int32), draws[1][1].view(torch.int32))
+    assert torch.equal(cums[0].view(torch.int32), cums[1].view(torch.int32))
+    want = torch.cumsum(prios.double().cpu(), 0)
+    assert float((cums[0].double().cpu() - want).abs().max()) < 1e-6 * float(want[-1])
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_card_keep_the_replicas_identical(tmp_path):
+    """Two ranks over gloo on the one card: two chunks of the mesh launch
+    (DDPG, the chunk kernel on each rank's own draws, the state averaged)
+    and two PER chunks on the scan route (the global draw, the gradient
+    all-reduce, the td gathered): both ranks' states, and PER's priority
+    vectors and max priority, bit-identical, and the td the same global
+    [K, 2B] on both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the ranks run the CUDA kernel")
+    from torch_mesh_child import run_ranks
+
+    rows = _batches(9).reshape(K * B, -1)
+    rows = np.concatenate([rows] * 8)
+    for per in (False, True):
+        spec = dict(kind="chunk", device="cuda", obs=OBS, act=ACT, k=K, scale=2.0,
+                    offset=0.0, capacity=512, block=64, per=per, beta=0.5, chunks=2,
+                    config=dict(actor_hidden=list(HIDDEN), critic_hidden=list(HIDDEN),
+                                batch_size=B, seed=3, prioritized=per))
+        results = run_ranks(tmp_path, spec, dict(rows=rows), name=f"per{int(per)}")
+        for res in results:
+            assert bool(res["replicas"]) and res["td"].shape == (K, 2 * B)
+            assert str(res["route"]) == ("scan" if per else "mesh")
+            assert np.isfinite(res["metrics"]).all()
+        np.testing.assert_array_equal(results[0]["td"], results[1]["td"])

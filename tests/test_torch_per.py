@@ -53,6 +53,7 @@ from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
 from distributed_ddpg_tpu_torch.replay.device import (
     DevicePrioritizedReplay,
     draw_per_indices,
+    fixed_order_cumsum,
     scatter_last_wins,
 )
 from distributed_ddpg_tpu_torch.types import pack_batch_np
@@ -408,3 +409,22 @@ def test_readme_d4pg_command_with_per_trains(tmp_path):
     assert abs(e - round(e)) < 1e-6 and 200 <= round(e) <= final["step"]
     assert all(r["prioritized"] and jcfg.per_beta <= r["beta"] <= final["beta"]
                for r in records if r["kind"] == "train")
+
+
+@pytest.mark.parametrize("n,block", [(1, 256), (64, 256), (65, 256), (257, 256),
+                                     (70_001, 256), (70_001, 32), (1_000_003, 1024)])
+def test_fixed_order_cumsum_is_a_prefix_sum(n, block):
+    """The card's prefix sum of the PER draw (its order fixed by the length
+    alone, for bit-identical replicas), run here on the CPU: within f32
+    rounding of a float64 prefix sum (a few ulps of the total), exact on
+    dyadic values (every partial sum representable, as the dyadic draw
+    checks need), and the same twice."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.uniform(0.1, 2.0, n).astype(np.float32))
+    got = fixed_order_cumsum(x, block)
+    want = torch.cumsum(x.double(), 0)
+    assert got.shape == (n,) and got.dtype == torch.float32
+    assert float((got.double() - want).abs().max()) <= 8 * 2.0 ** -24 * float(want[-1])
+    assert torch.equal(got, fixed_order_cumsum(x, block))
+    dyadic = torch.from_numpy((rng.integers(1, 9, n) / 8.0).astype(np.float32))
+    assert torch.equal(fixed_order_cumsum(dyadic, block), torch.cumsum(dyadic, 0))
