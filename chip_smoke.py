@@ -115,6 +115,24 @@ Phases (any failure raises; nothing is caught and passed over):
    no chunk kernel, and the fused update twice a learner step when
    fused_update is on, else never; learner_steps = chunks x K, metrics
    finite.
+4b. Checkpoint and resume (checkpoint.py): README's whole D4PG command
+   (PER, the auto support) at Pendulum shapes with the 1M-row replay
+   full, on the kernel route at K = 800 and on the scan route with
+   fused_update at K = RESUME_SCAN_K (check_resume_chunk): two chunks, a
+   save through the trainer's AsyncSaver, a third chunk on draws fixed
+   here; a fresh learner and replay restored; the restored state,
+   priorities, max_priority, rows and bounds equal to the saved ones bit
+   for bit, and the resumed third chunk the uninterrupted one's bits, on
+   one K1 launch (kernel) or two K2 launches a step (scan); the snapshot,
+   write and restore times and the checkpoint's bytes printed with the
+   card. Then the CLI drill (resume_drill), each run a child process of
+   this script (`--resume-drill`): the DDPG defaults with a save every
+   chunk, SIGTERM after the first `train` record and two checkpoints
+   (exit 75, "emergency checkpoint", a checkpoint that verifies,
+   emergency_ckpt 1), then the same command with more env steps (it
+   resumes at that learner step and every chunk is one K1 launch). Then
+   the DDPG main path again with a save every chunk, its learner steps/s
+   beside the same path's without.
 5. Time each branch of the kernel at the main path's shapes (CUDA events,
    warmed up) beside its plain version (one run) and its bound; the eager autograd
    step x K is printed as context only. Then break each f32 branch's time,
@@ -143,6 +161,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1268,14 +1287,15 @@ def breakdown(run, state, packed, eps, k: int) -> None:
             f"{unmasked:.2f} us/step")
 
 
-def drive_main_path(flags, name: str) -> dict:
+def drive_main_path(flags, name: str, summary_out: dict = None) -> dict:
     """One run of `distributed_ddpg_tpu_torch.train` with these flags (the
     CLI's own parser), with the launch counts zeroed just before and read
     just after. On the kernel route every chunk must be one launch of
     kernel `name`; on the scan route (`name` "scan") no chunk kernel may
     launch, and the fused update twice a learner step when fused_update is
     on, else never. Under --prioritized=true the final beta must lie in
-    [per_beta, per_beta_final] and max_priority be at least its start, 1."""
+    [per_beta, per_beta_final] and max_priority be at least its start, 1.
+    Returns the launch counts; `summary_out` receives train()'s summary."""
     from distributed_ddpg_tpu_torch.config import DDPGConfig
     from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
     from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
@@ -1287,6 +1307,8 @@ def drive_main_path(flags, name: str) -> dict:
     t0 = time.monotonic()
     summary = train(cfg, echo=False)
     launches = dict(fc.KERNEL_LAUNCHES)
+    if summary_out is not None:
+        summary_out.update(summary)
     log(f"[main path {name}] {time.monotonic() - t0:.1f}s: " + json.dumps(summary))
     if cfg.distributional:
         with open(cfg.log_path) as f:
@@ -1722,6 +1744,218 @@ def mesh_rank(rank: int, out_dir: str, card: str) -> int:
     return 0
 
 
+RESUME_K = 800             # (a): the main path's chunk
+RESUME_SCAN_K = 50        # (b): the scan route with K2, a check of the path
+RESUME_BETA = 0.5
+RESUME_WAIT_S = 240       # (c): a drill child's time to its first record, or to its end
+RESUME_MORE_ENV_STEPS = 3000
+
+
+def check_resume_chunk(cfg, k: int, card: str) -> dict:
+    """Checkpoint and resume at the learner's level: README's whole D4PG
+    command (PER, the auto support sized from the replay's rewards) at
+    Pendulum shapes, K = k, the replay at the main path's capacity (1M
+    rows, full, Pendulum's 5-step returns, priorities of the main path's
+    kind). Two chunks on the learner's own draws, then a save through the
+    trainer's AsyncSaver (its snapshot and its write timed apart); a third
+    chunk on draws fixed here; then a fresh learner and replay, restore
+    and load_state (timed), the same third chunk. The restored state,
+    priorities, max_priority, rows and bounds must equal the saved ones
+    bit for bit, and the two third chunks must end in the same bits
+    (state, td, priorities, max_priority): every input is the same. The
+    third chunks' launches are counted: on the kernel route one K1 launch
+    each, on the scan route with fused_update two K2 launches a step."""
+    from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
+    from distributed_ddpg_tpu_torch.learner import train_state_to_flat
+    from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
+    from distributed_ddpg_tpu_torch.ops import support_auto
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, state_tensors
+    from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay, draw_per_indices
+
+    obs, act = 3, 1
+
+    def build():
+        learner = ShardedLearner(cfg, obs, act, 2.0, 0.0, chunk_size=k)
+        rep = DevicePrioritizedReplay(PER_CAPACITY, obs, act, "cuda", block_size=1024,
+                                      alpha=cfg.per_alpha, eps=cfg.per_eps)
+        return learner, rep
+
+    learner, rep = build()
+    rep.add_packed(random_batches(21, 1, PER_CAPACITY, obs, act, rewards=(-81.5, 0.0, 0.99 ** 5),
+                                  weighted=False)[0].cpu().numpy())
+    rep.flush()   # the ring full and wrapped
+    prios = torch.from_numpy(per_priorities("random", PER_CAPACITY, 22)).cuda()
+    rep.set_per_state(prios, prios.max())
+    learner.set_value_bounds(*support_auto.replay_data_bounds(rep, cfg.gamma, cfg.n_step))
+    for _ in range(2):
+        learner.run_sample_chunk_per(rep, RESUME_BETA)
+    torch.cuda.synchronize()
+    saved = train_state_to_flat(learner.state)
+    saved_rows, saved_prios = rep.storage.clone(), rep.priorities.clone()
+    saved_max = rep.max_priority.clone()
+    bounds = (learner.config.v_min, learner.config.v_max)
+    name = "fused_update" if cfg.fused_update else "fused_chunk_d4pg"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        saver = ckpt_lib.AsyncSaver()
+        t0 = time.perf_counter()
+        if not saver.save_async(d, learner._step, learner.state, rep, cfg, env_steps=12345,
+                                v_bounds=bounds):
+            raise AssertionError("resume: the saver skipped the save")
+        t1 = time.perf_counter()
+        saver.wait()
+        t2 = time.perf_counter()
+        step_dir = os.path.join(d, f"step_{learner._step}")
+        size = sum(os.path.getsize(os.path.join(step_dir, n)) for n in os.listdir(step_dir))
+        if ckpt_lib.verify_checkpoint(d, learner._step) != (True, "ok"):
+            raise AssertionError("resume: the checkpoint does not verify")
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        idx, weights = draw_per_indices(rep.priorities, len(rep), (k, cfg.batch_size),
+                                        RESUME_BETA, generator=gen)
+        fc.KERNEL_LAUNCHES.clear()
+        out = learner.run_sample_chunk_per(rep, RESUME_BETA, idx=idx, weights=weights)
+        want = [t.clone() for t in state_tensors(learner.state)
+                + [out.td_errors, rep.priorities, rep.max_priority]]
+        fresh, frep = build()
+        meta = {}
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        state, step, env_steps = ckpt_lib.restore(d, fresh.state, frep, config=cfg,
+                                                  meta_out=meta)
+        fresh.load_state(state)
+        fresh.set_value_bounds(*meta["v_bounds"])
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        got_flat = train_state_to_flat(fresh.state)
+        same = (set(got_flat) == set(saved) and all(
+            got_flat[p].dtype == saved[p].dtype and np.array_equal(got_flat[p], saved[p])
+            for p in saved))
+        if not (same and torch.equal(frep.storage, saved_rows)
+                and torch.equal(frep.priorities, saved_prios)
+                and torch.equal(frep.max_priority, saved_max)
+                and (fresh.config.v_min, fresh.config.v_max) == bounds
+                and (step, env_steps, fresh._step, frep.ptr, len(frep))
+                == (learner._step - k, 12345, learner._step - k, rep.ptr, len(rep))):
+            raise AssertionError(f"resume ({name}): the restored state, replay or bounds "
+                                 "differ from the saved ones")
+        out = fresh.run_sample_chunk_per(frep, RESUME_BETA, idx=idx, weights=weights)
+        got = state_tensors(fresh.state) + [out.td_errors, frep.priorities, frep.max_priority]
+        launches = dict(fc.KERNEL_LAUNCHES)
+    differ = [i for i, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+    gap = max((float((a.double() - b.double()).abs().max()) for a, b in zip(got, want)),
+              default=0.0)
+    want_launches = {name: 2 * (2 * k if cfg.fused_update else 1)}
+    record = dict(route=fresh.route(per=True), k=k, snapshot_ms=1e3 * (t1 - t0),
+                  write_ms=1e3 * (t2 - t1), restore_ms=1e3 * (t4 - t3), ckpt_bytes=size,
+                  bounds=list(bounds), launches=launches, identical=not differ,
+                  max_abs_gap=gap)
+    log(f"[resume] {name}, {card}: " + json.dumps(record))
+    if launches != want_launches:
+        raise AssertionError(f"resume ({name}): launches {launches} != {want_launches}")
+    if differ:
+        raise AssertionError(f"resume ({name}): the resumed chunk differs from the "
+                             f"uninterrupted one in tensors {differ} (largest gap {gap})")
+    return record
+
+
+def resume_drill(card: str) -> dict:
+    """The trainer's CLI on the card, preempted and resumed, each run a
+    child process of this script (`--resume-drill`, train.main) that
+    prints its kernels' launch counts: the DDPG defaults with
+    --checkpoint_dir and --checkpoint_every=800 (a save every chunk); after
+    its first `train` record and two cadence checkpoints, SIGTERM. It must
+    exit 75, say "emergency checkpoint" on stderr, leave a checkpoint that
+    verifies at its last learner step, and record emergency_ckpt 1. Then
+    the same command with RESUME_MORE_ENV_STEPS more env steps: it must
+    say "resumed from DIR at learner step S", end at learner_steps = S +
+    chunks x 800 with resumed_from S, and every chunk must have been one
+    K1 launch."""
+    from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_drill_") as tmp:
+        d = os.path.join(tmp, "ckpt")
+        common = ["--num_actors=1", "--replay_min_size=1000", "--eval_every=0",
+                  "--eval_episodes=1", f"--checkpoint_dir={d}", "--checkpoint_every=800"]
+
+        def start(flags, tag):
+            paths = [os.path.join(tmp, f"{tag}.{x}") for x in ("out", "err", "jsonl")]
+            with open(paths[0], "w") as out, open(paths[1], "w") as err:
+                proc = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--resume-drill", *common,
+                     *flags, f"--log_path={paths[2]}"], stdout=out, stderr=err)
+            return proc, paths[:2], paths[2]
+
+        def finish(proc, files, log_path, tag):
+            try:
+                proc.wait(timeout=RESUME_WAIT_S)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            out, err = (open(path).read() for path in files)
+            with open(log_path) as f:
+                records = [json.loads(line) for line in f]
+            launches = json.loads(out.split("[launches] ")[-1].splitlines()[0])
+            log(f"[resume drill {tag}] exit {proc.returncode}, launches {launches}, final "
+                + json.dumps({k: records[-1].get(k) for k in (
+                    "step", "learner_steps", "chunks", "emergency_ckpt", "ckpt_skipped",
+                    "resumed_from", "learner_steps_per_sec", "env_steps_per_sec")}))
+            return proc.returncode, out, err, records[-1], launches
+
+        t0 = time.monotonic()
+        proc, files, log_path = start(["--total_env_steps=100000000"], "preempted")
+        deadline = time.monotonic() + RESUME_WAIT_S
+        while time.monotonic() < deadline and proc.poll() is None:
+            if (os.path.exists(log_path) and '"kind": "train"' in open(log_path).read()
+                    and len(ckpt_lib.valid_steps(d)) >= 2):
+                break
+            time.sleep(0.2)
+        if proc.poll() is not None:
+            raise AssertionError(f"resume drill: the trainer exited {proc.returncode} "
+                                 "before SIGTERM")
+        proc.send_signal(signal.SIGTERM)
+        code, _, err, final, launches = finish(proc, files, log_path, "preempted")
+        step = ckpt_lib.latest_step(d)
+        if not (code == 75 and "emergency checkpoint" in err and final["emergency_ckpt"] == 1
+                and step == final["learner_steps"]
+                and ckpt_lib.verify_checkpoint(d, step) == (True, "ok")
+                and launches == {"fused_chunk": final["chunks"]}):
+            raise AssertionError(f"resume drill: preemption gave exit {code}, checkpoint "
+                                 f"step {step}, final {final}; stderr: {err[-2000:]}")
+        t1 = time.monotonic()
+        proc, files, log_path = start(
+            [f"--total_env_steps={final['step'] + RESUME_MORE_ENV_STEPS}"], "resumed")
+        code, out, err, final2, launches = finish(proc, files, log_path, "resumed")
+        if not (code == 0 and f"resumed from {d} at learner step {step}," in out
+                and final2["resumed_from"] == step and final2["chunks"] >= 1
+                and final2["learner_steps"] == step + 800 * final2["chunks"]
+                and launches == {"fused_chunk": final2["chunks"]}):
+            raise AssertionError(f"resume drill: the resumed run gave exit {code}, final "
+                                 f"{final2}, launches {launches}; stderr: {err[-2000:]}")
+        t2 = time.monotonic()
+    record = dict(preempted_at=step, resumed_chunks=final2["chunks"],
+                  preempted_run_s=t1 - t0, resumed_run_s=t2 - t1)
+    log(f"[resume drill] {card}: " + json.dumps(record))
+    return record
+
+
+def resume_drill_child(argv) -> int:
+    """One run of the trainer's CLI (train.main) in this process for
+    resume_drill; prints the chunk kernels' launch counts on a line of
+    their own, then exits with main()'s code."""
+    from distributed_ddpg_tpu_torch import train
+    from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    code = 0
+    try:
+        train.main(argv)
+    except SystemExit as e:
+        code = e.code
+    print("[launches] " + json.dumps(dict(fc.KERNEL_LAUNCHES)), flush=True)
+    return code
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this needs an "
@@ -1835,7 +2069,8 @@ def main() -> int:
     # and metrics.
     common = ["--num_actors=1", "--replay_min_size=1000", "--eval_every=0",
               "--eval_episodes=2"]
-    launches = drive_main_path(common + ["--total_env_steps=5000"], "fused_chunk")
+    plain = {}
+    launches = drive_main_path(common + ["--total_env_steps=5000"], "fused_chunk", plain)
     launches.update(drive_main_path(
         common + ["--total_env_steps=5000", "--twin_critic=true", "--policy_delay=2",
                   "--target_noise=0.2"],
@@ -1892,6 +2127,24 @@ def main() -> int:
     drive_main_path(common + ["--total_env_steps=2500", "--critic_l2=0.01"], "scan")
     log(f"[phase] main paths done at {time.monotonic() - t_start:.1f}s")
 
+    # --- 4b. checkpoint and resume ---
+    readme_d4pg = cfg.replace(distributional=True, n_step=5, v_min=math.nan, v_max=math.nan,
+                              prioritized=True)
+    check_resume_chunk(readme_d4pg, RESUME_K, card)
+    check_resume_chunk(readme_d4pg.replace(fused_update=True), RESUME_SCAN_K, card)
+    resume_drill(card)
+    # The DDPG main path again with a save every chunk (its snapshot on
+    # the loop's thread), beside the same path's rate without it above.
+    cadence = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        drive_main_path(common + ["--total_env_steps=5000", f"--checkpoint_dir={tmp}",
+                                  "--checkpoint_every=800"], "fused_chunk", cadence)
+    log(f"[resume] {card}: DDPG main path learner steps/s "
+        f"{plain['learner_steps_per_sec']} without checkpoints, "
+        f"{cadence['learner_steps_per_sec']} with a save every chunk "
+        f"({cadence['ckpt_skipped']} skipped)")
+    log(f"[phase] resume done at {time.monotonic() - t_start:.1f}s")
+
     # --- 5. timing at the main path's shapes ---
     timing = {
         "fused_chunk": time_branch(cfg, "fused_chunk", K, 1000, card, eager=True),
@@ -1940,4 +2193,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--resume-drill"]:
+        sys.exit(resume_drill_child(sys.argv[2:]))
     sys.exit(main())

@@ -45,8 +45,13 @@ _QUEUE_BATCHES = 4
 
 
 class ActorPool:
-    def __init__(self, config: DDPGConfig, spec: EnvSpec, num_actors: Optional[int] = None):
+    def __init__(self, config: DDPGConfig, spec: EnvSpec, num_actors: Optional[int] = None,
+                 env_steps_offset: int = 0):
         self.config = config
+        # Env steps a resumed run had taken before its checkpoint: they
+        # count against the uniform-warmup budget, so a resumed run puts
+        # no random actions into its replay again.
+        self.env_steps_offset = int(env_steps_offset)
         self.spec = spec
         self.num_actors = num_actors or config.num_actors
         self.heartbeat_timeout = config.heartbeat_timeout_s
@@ -67,10 +72,12 @@ class ActorPool:
 
     def warmup_budget_per_worker(self) -> int:
         """The uniform-warmup budget left at spawn time
-        (config.resolved_warmup_uniform less the env steps already drained,
-        so a respawned worker does not put random actions into a trained
-        run's replay), split evenly (ceil) across the pool."""
-        remaining = max(0, self.config.resolved_warmup_uniform() - self._steps_received)
+        (config.resolved_warmup_uniform less the env steps of a resumed
+        checkpoint and those already drained, so a respawned or resumed
+        worker does not put random actions into a trained run's replay),
+        split evenly (ceil) across the pool."""
+        remaining = max(0, self.config.resolved_warmup_uniform() - self.env_steps_offset
+                        - self._steps_received)
         return (remaining + self.num_actors - 1) // self.num_actors
 
     def _spawn(self, worker_id: int) -> None:

@@ -1,0 +1,473 @@
+"""Checkpoint and resume of the port (counterpart of distributed_ddpg_tpu/checkpoint.py).
+
+A checkpoint is the whole learner-side state, as the JAX package's is:
+the TrainState (params, targets, both Adam states, the step; SAC's
+log_alpha and alpha_opt), the device replay's contents (its state_dict
+under the JAX package's keys: packed, ptr, size and, under PER,
+priorities and max_priority), the env-step count and, for an auto-sized
+C51 support, the resolved bounds. The JAX package writes it with orbax,
+which imports JAX; the port has its own format, one directory a step:
+
+    DIR/step_<N>/state.npz     the TrainState's leaves keyed by their path
+                               (actor_params/0/w, critic_opt/count, step,
+                               log_alpha, alpha_opt/mu, ...)
+    DIR/step_<N>/replay.npz    the replay's state_dict
+    DIR/step_<N>/meta.json     {"env_steps": E, "v_bounds": [lo, hi]}
+    DIR/config_<N>.json        the run's config (nan written as null)
+    DIR/manifest_<N>.json      {"step": N, "files": {rel: [size, crc32]}}
+
+The step directory is written as step_<N>.tmp and published with
+os.replace, the counterpart of orbax's atomic finalization, so a step_<N>
+that exists finished writing; the manifest, written after it, certifies
+that. The manifest's format is the JAX package's (size and a crc32 of the
+first and last MiB of each file), so each package's verify_checkpoint
+reads the other's checkpoints. Arrays are read back with
+allow_pickle=False.
+
+Kept from the JAX module, by name: COMPAT_FIELDS and
+check_config_compatible (nan and null both mean an auto bound), _steps,
+_prune (stale steps above the save that just landed go, loudly; below it
+the newest keep - 1 stay), _digest_file, _write_manifest,
+verify_checkpoint, _quarantine_corrupt (a step that fails verification
+becomes corrupt_step_<N>), _write (retries with exponential backoff on
+OSError; `fault`, any object with a tick() method, is ticked once an
+attempt; a failed attempt's directory is cleared), save, AsyncSaver (the
+snapshot on the caller's thread, the write on one background thread; a
+save while it is busy is skipped and counted), latest_step, valid_steps
+and restore (with step=None the newest-first walk: verify, quarantine on
+failure, check the config outside the load's try, fall back past a load
+error; an explicit step has no fallback). Not here yet: discard_above
+(the guardrails' rollback), the replay slices of an elastic pod and the
+device actors' carry.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import shutil
+import sys
+import threading
+import time
+import zlib
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+from distributed_ddpg_tpu_torch.learner import (
+    state_signature,
+    train_state_from_flat,
+    train_state_to_flat,
+)
+from distributed_ddpg_tpu_torch.types import TrainState
+
+# Fields that must match between a checkpoint and the run restoring it: the
+# restored state's shapes and meaning depend on them.
+COMPAT_FIELDS = (
+    "env_id",
+    "actor_hidden",
+    "critic_hidden",
+    "action_insert_layer",
+    "distributional",
+    "twin_critic",
+    "sac",
+    "sac_autotune",
+    "num_atoms",
+    "v_min",
+    "v_max",
+    "prioritized",
+    "replay_capacity",
+    "n_step",
+)
+
+# Checkpoints retained after each successful write (the newest N).
+KEEP_CHECKPOINTS = 3
+
+STATE_FILE, REPLAY_FILE, META_FILE = "state.npz", "replay.npz", "meta.json"
+
+
+def _snapshot(step: int, state: TrainState, replay, env_steps: int,
+              v_bounds=None) -> Dict[str, Any]:
+    """Everything on the host: the only part that reads device memory. Once
+    it returns the learner may go on updating its state and the replay;
+    the write can run on any thread. The replay's D2H copy is queued on
+    the current stream, so it reads the priorities a chunk queued before
+    it wrote."""
+    ckpt: Dict[str, Any] = {
+        "state": train_state_to_flat(state),
+        "meta": {"env_steps": int(env_steps)},
+    }
+    if v_bounds is not None:
+        # The resolved auto support: expansions cannot be rebuilt from the
+        # rewards, and the critic's logits mean nothing on other atoms.
+        ckpt["meta"]["v_bounds"] = [float(v_bounds[0]), float(v_bounds[1])]
+    if replay is not None:
+        ckpt["replay"] = replay.state_dict()
+    return ckpt
+
+
+def _steps(directory: str):
+    """Every step N with a step_N directory (step_N.tmp is not one)."""
+    return sorted(
+        int(name.split("_", 1)[1])
+        for name in os.listdir(directory)
+        if name.startswith("step_") and name.split("_", 1)[1].isdigit()
+    )
+
+
+def _prune(directory: str, keep: int, current: int) -> None:
+    """Delete old step_*/config_*/manifest_* triples, keeping `current`
+    (the save that just landed) and the newest keep - 1 steps below it.
+    Steps above `current` are stale (a previous run's, in a directory
+    reused with --resume=false) and go too, loudly: left in place they
+    would hold the retention slots and keep resume pointing at another
+    run's state. Best-effort: a failed unlink does not fail the save."""
+    if keep <= 0:
+        return
+    steps = _steps(directory)
+    stale_above = [s for s in steps if s > current]
+    below = [s for s in steps if s < current]
+    if stale_above:
+        print(
+            f"[checkpoint] pruning stale checkpoint(s) above the current save "
+            f"step_{current}: " + ", ".join(f"step_{s}" for s in stale_above)
+            + " (a previous run's leftovers: resume must track this run's "
+            "latest state)",
+            file=sys.stderr, flush=True,
+        )
+    doomed = stale_above + (below[: -(keep - 1)] if keep > 1 else below)
+    for old in doomed:
+        try:
+            shutil.rmtree(os.path.join(directory, f"step_{old}"), ignore_errors=True)
+            for side in (f"config_{old}.json", f"manifest_{old}.json"):
+                side_path = os.path.join(directory, side)
+                if os.path.exists(side_path):
+                    os.unlink(side_path)
+        except OSError:
+            pass
+
+
+# --- the integrity manifest ---------------------------------------------------
+
+# Digest window a file: crc32 over its first and last MiB, and its size.
+_DIGEST_CAP = 1 << 20
+
+
+def _digest_file(path: str) -> Tuple[int, int]:
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        crc = zlib.crc32(f.read(_DIGEST_CAP))
+        if size > _DIGEST_CAP:
+            f.seek(max(size - _DIGEST_CAP, _DIGEST_CAP))
+            crc = zlib.crc32(f.read(_DIGEST_CAP), crc)
+    return size, crc
+
+
+def _write_manifest(directory: str, step: int) -> None:
+    """Every file under step_<step> with its size and head/tail crc32,
+    written after the directory is published."""
+    root = os.path.join(directory, f"step_{step}")
+    files: Dict[str, Any] = {}
+    for dirpath, _, names in os.walk(root):
+        for name in sorted(names):
+            full = os.path.join(dirpath, name)
+            files[os.path.relpath(full, root)] = list(_digest_file(full))
+    path = os.path.join(directory, f"manifest_{step}.json")
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump({"step": step, "files": files}, f)
+    os.replace(tmp, path)
+
+
+def verify_checkpoint(directory: str, step: int) -> Tuple[bool, str]:
+    """(ok, why) of one retained checkpoint against its manifest. A
+    checkpoint without a manifest verifies as ok, as the JAX package's
+    does: the load is its check, and restore's fallback catches a failed
+    one."""
+    directory = os.path.abspath(directory)
+    root = os.path.join(directory, f"step_{step}")
+    if not os.path.isdir(root):
+        return False, "missing checkpoint directory"
+    mpath = os.path.join(directory, f"manifest_{step}.json")
+    if not os.path.exists(mpath):
+        return True, "no manifest (pre-manifest checkpoint)"
+    try:
+        with open(mpath) as f:
+            entries = json.load(f)["files"]
+    except (OSError, json.JSONDecodeError, KeyError, TypeError) as e:
+        return False, f"unreadable manifest: {e!r}"
+    for rel, (size, crc) in entries.items():
+        try:
+            got_size, got_crc = _digest_file(os.path.join(root, rel))
+        except OSError:
+            return False, f"missing/unreadable file {rel}"
+        if got_size != size:
+            return False, f"size mismatch {rel}: {got_size} != {size}"
+        if got_crc != crc:
+            return False, f"digest mismatch {rel}"
+    return True, "ok"
+
+
+def _quarantine_corrupt(directory: str, step: int) -> None:
+    """Move a checkpoint that failed verification to corrupt_step_<N> (kept
+    for inspection) and drop its manifest and config, so a resumed run
+    that reaches step N again writes a fresh one there. Best-effort."""
+    directory = os.path.abspath(directory)
+    src = os.path.join(directory, f"step_{step}")
+    dst = os.path.join(directory, f"corrupt_step_{step}")
+    try:
+        if os.path.isdir(dst):
+            shutil.rmtree(dst, ignore_errors=True)
+        os.rename(src, dst)
+        for side in (f"manifest_{step}.json", f"config_{step}.json"):
+            side_path = os.path.join(directory, side)
+            if os.path.exists(side_path):
+                os.unlink(side_path)
+        print(f"[checkpoint] quarantined corrupt step_{step} -> corrupt_step_{step}",
+              file=sys.stderr, flush=True)
+    except OSError:
+        pass
+
+
+# --- writing ---------------------------------------------------------------------
+
+
+def _write_once(directory: str, step: int, ckpt: Dict[str, Any], config,
+                keep: int = KEEP_CHECKPOINTS) -> str:
+    directory = os.path.abspath(directory)
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"step_{step}")
+    tmp = path + ".tmp"
+    # A leftover at this step (a corrupt checkpoint restore skipped, or a
+    # failed attempt) is replaced: this writer is the step's one author.
+    for leftover in (path, tmp):
+        if os.path.isdir(leftover):
+            shutil.rmtree(leftover)
+    os.makedirs(tmp)
+    with open(os.path.join(tmp, STATE_FILE), "wb") as f:
+        np.savez(f, **ckpt["state"])
+    if "replay" in ckpt:
+        with open(os.path.join(tmp, REPLAY_FILE), "wb") as f:
+            np.savez(f, **ckpt["replay"])
+    with open(os.path.join(tmp, META_FILE), "w") as f:
+        json.dump(ckpt["meta"], f)
+    os.replace(tmp, path)
+    if config is not None:
+        # nan (the auto bounds) as null: a bare NaN is not valid JSON.
+        fields = {k: (None if isinstance(v, float) and math.isnan(v) else v)
+                  for k, v in dataclasses.asdict(config).items()}
+        with open(os.path.join(directory, f"config_{step}.json"), "w") as f:
+            json.dump(fields, f, indent=2, default=list)
+    _write_manifest(directory, step)
+    _prune(directory, keep, step)
+    return path
+
+
+def _write(directory: str, step: int, ckpt: Dict[str, Any], config,
+           keep: int = KEEP_CHECKPOINTS, retries: int = 0, backoff_s: float = 0.5,
+           fault=None) -> Tuple[str, int]:
+    """Write with up to `retries` retries on OSError, waiting backoff_s,
+    2 backoff_s, ... between attempts. Returns (path, retries used).
+    `fault.tick()` runs once an attempt (retries advance its count) and
+    may raise OSError to script a failed attempt."""
+    for attempt in range(retries + 1):
+        try:
+            if fault is not None:
+                fault.tick()
+            return _write_once(directory, step, ckpt, config, keep=keep), attempt
+        except OSError as e:
+            for part in (f"step_{step}", f"step_{step}.tmp"):
+                shutil.rmtree(os.path.join(os.path.abspath(directory), part),
+                              ignore_errors=True)
+            if attempt >= retries:
+                raise
+            delay = backoff_s * (2.0 ** attempt)
+            print(f"[checkpoint] write of step_{step} failed ({e!r}); retry "
+                  f"{attempt + 1}/{retries} in {delay:.2f}s", file=sys.stderr, flush=True)
+            time.sleep(delay)
+    raise AssertionError("unreachable")
+
+
+def save(directory: str, step: int, state: TrainState, replay=None, config=None,
+         env_steps: int = 0, v_bounds=None, keep: int = KEEP_CHECKPOINTS,
+         retries: int = 0, backoff_s: float = 0.5, fault=None) -> str:
+    """Write checkpoint directory/step_<step> now; returns its path."""
+    path, _ = _write(directory, step, _snapshot(step, state, replay, env_steps, v_bounds),
+                     config, keep=keep, retries=retries, backoff_s=backoff_s, fault=fault)
+    return path
+
+
+class AsyncSaver:
+    """Checkpoints off the training loop: save_async takes the snapshot on
+    the caller's thread (the state's and the replay's device-to-host
+    copies) and hands the write to one background thread. While a write is
+    in flight a further save is skipped (`skipped` counts them): a fresher
+    one is coming, and a queue would hold a replay copy per entry. A
+    failed write lands in `errors` and is raised by wait(); write_retries
+    counts the retries the writes used."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self.skipped = 0
+        self.errors: list = []
+        self.write_retries = 0
+
+    @property
+    def busy(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def save_async(self, directory: str, step: int, state: TrainState, replay=None,
+                   config=None, env_steps: int = 0, v_bounds=None,
+                   keep: int = KEEP_CHECKPOINTS, retries: int = 0, backoff_s: float = 0.5,
+                   fault=None) -> bool:
+        """Snapshot now, write in the background. False (and skipped) while
+        the previous write is in flight."""
+        with self._lock:
+            if self.busy:
+                self.skipped += 1
+                return False
+            ckpt = _snapshot(step, state, replay, env_steps, v_bounds)
+
+            def run():
+                try:
+                    _, used = _write(directory, step, ckpt, config, keep=keep,
+                                     retries=retries, backoff_s=backoff_s, fault=fault)
+                    self.write_retries += used
+                except Exception as e:   # raised by wait()
+                    self.errors.append(e)
+
+            self._thread = threading.Thread(target=run, name=f"ckpt-writer-{step}",
+                                            daemon=True)
+            self._thread.start()
+            return True
+
+    def wait(self) -> None:
+        """Block until the write in flight (if any) lands; raise the last
+        failed write's error."""
+        if self._thread is not None:
+            self._thread.join()
+        if self.errors:
+            raise self.errors[-1]
+
+
+# --- reading ---------------------------------------------------------------------
+
+
+def check_config_compatible(directory: str, step: int, config) -> None:
+    """Raise ValueError when the checkpoint's config differs from `config`
+    in any of COMPAT_FIELDS."""
+    path = os.path.join(os.path.abspath(directory), f"config_{step}.json")
+    if not os.path.exists(path):
+        return
+    with open(path) as f:
+        saved = json.load(f)
+    current = dataclasses.asdict(config)
+    mismatches = [
+        f"{k}: checkpoint={saved[k]!r} run={_listify(current[k])!r}"
+        for k in COMPAT_FIELDS
+        if k in saved and not _compat_eq(saved[k], _listify(current[k]))
+    ]
+    if mismatches:
+        raise ValueError(
+            f"checkpoint {directory}/step_{step} is incompatible with this "
+            "run's config (pass --resume=false or a fresh --checkpoint_dir):\n  "
+            + "\n  ".join(mismatches)
+        )
+
+
+def _listify(v):
+    return list(v) if isinstance(v, tuple) else v
+
+
+def _compat_eq(a, b) -> bool:
+    """Equal, with nan and null (the auto bounds, as written) equal."""
+    def _is_auto(v) -> bool:
+        return v is None or (isinstance(v, float) and math.isnan(v))
+
+    if _is_auto(a) and _is_auto(b):
+        return True
+    return a == b
+
+
+def latest_step(directory: str) -> Optional[int]:
+    if not os.path.isdir(directory):
+        return None
+    steps = _steps(directory)
+    return max(steps) if steps else None
+
+
+def valid_steps(directory: str):
+    """The retained steps that verify, ascending."""
+    if not directory or not os.path.isdir(directory):
+        return []
+    return [s for s in _steps(directory) if verify_checkpoint(directory, s)[0]]
+
+
+def _load_npz(path: str) -> Dict[str, np.ndarray]:
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def restore(directory: str, state_template: TrainState, replay=None,
+            step: Optional[int] = None, config=None,
+            meta_out: Optional[Dict[str, Any]] = None) -> Tuple[TrainState, int, int]:
+    """Restore (TrainState, step, env_steps); `replay`, when given, is
+    filled in place. The state comes back on the template's device, with
+    the template's paths and shapes (else a ValueError). With `config` the
+    checkpoint's config is checked first. `meta_out` receives, for an
+    auto support, "v_bounds" (lo, hi).
+
+    With step=None the retained checkpoints are tried newest first: one
+    that fails verification is quarantined, one that fails to load is
+    passed over, each with a note on stderr, so a corrupt newest
+    checkpoint costs one cadence of progress. A config mismatch raises
+    either way. An explicit step restores that step or raises."""
+    if step is None:
+        candidates = _steps(os.path.abspath(directory)) if os.path.isdir(directory) else []
+        if not candidates:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+        failures = []
+        for s in sorted(candidates, reverse=True):
+            ok, why = verify_checkpoint(directory, s)
+            if not ok:
+                print(f"[checkpoint] step_{s} failed verification ({why}); falling "
+                      "back to the previous retained checkpoint",
+                      file=sys.stderr, flush=True)
+                failures.append(f"step_{s}: {why}")
+                _quarantine_corrupt(directory, s)
+                continue
+            # Outside the load's try: a mismatch is the caller's error, not
+            # corruption, and must not fall back.
+            if config is not None:
+                check_config_compatible(directory, s, config)
+            try:
+                return restore(directory, state_template, replay=replay, step=s,
+                               meta_out=meta_out)
+            except Exception as e:
+                print(f"[checkpoint] step_{s} failed to load ({e!r}); falling back "
+                      "to the previous retained checkpoint", file=sys.stderr, flush=True)
+                failures.append(f"step_{s}: load error: {e!r}")
+        raise RuntimeError(f"no restorable checkpoint under {directory}; tried newest-"
+                           "first: " + "; ".join(failures))
+    if config is not None:
+        check_config_compatible(directory, step, config)
+    path = os.path.join(os.path.abspath(directory), f"step_{step}")
+    state = train_state_from_flat(_load_npz(os.path.join(path, STATE_FILE)),
+                                  state_template.step.device)
+    if state_signature(state) != state_signature(state_template):
+        raise ValueError(f"checkpoint step_{step}'s state does not match this run's "
+                         "learner (paths, shapes or dtypes)")
+    if replay is not None:
+        if os.path.exists(os.path.join(path, REPLAY_FILE)):
+            replay.load_state_dict(_load_npz(os.path.join(path, REPLAY_FILE)))
+        else:
+            print(f"[checkpoint] step_{step} carries no replay contents; the buffer "
+                  "resumes empty", file=sys.stderr, flush=True)
+    with open(os.path.join(path, META_FILE)) as f:
+        meta = json.load(f)
+    if meta_out is not None and "v_bounds" in meta:
+        meta_out["v_bounds"] = (float(meta["v_bounds"][0]), float(meta["v_bounds"][1]))
+    return state, step, int(meta.get("env_steps", 0))

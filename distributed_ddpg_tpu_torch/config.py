@@ -31,7 +31,6 @@ from typing import Sequence
 _NOT_IN_SLICE = {
     "guardrails": False,
     "serve_actors": False,
-    "checkpoint_dir": "",
     "faults": "",
     "actor_backend": "host",
     "model_axis": 1,
@@ -166,10 +165,23 @@ class DDPGConfig:
     heartbeat_timeout_s: float = 30.0
     device: str = "cuda"
 
+    # --- checkpoint and resume (checkpoint.py) ---
+    # Every checkpoint_every learner steps rank 0 snapshots the state, the
+    # replay, the env-step count and the resolved C51 bounds, and a
+    # background thread writes them to checkpoint_dir/step_<N> ("" = off).
+    checkpoint_every: int = 10_000
+    checkpoint_dir: str = ""
+    # Latest-N retention (0 = keep all).
+    checkpoint_keep: int = 3
+    resume: bool = True              # restore the newest valid checkpoint
+    # A write that fails with an OSError is retried this many times, with
+    # exponential backoff from ckpt_retry_backoff_s.
+    ckpt_write_retries: int = 2
+    ckpt_retry_backoff_s: float = 0.5
+
     # --- options outside this slice (see _NOT_IN_SLICE) ---
     guardrails: bool = False
     serve_actors: bool = False
-    checkpoint_dir: str = ""         # checkpoint and resume come later
     faults: str = ""
     actor_backend: str = "host"
     model_axis: int = 1
@@ -370,3 +382,9 @@ class DDPGConfig:
             raise ValueError("param_refresh_interval_s must be >= 0")
         if self.heartbeat_timeout_s <= 0:
             raise ValueError("heartbeat_timeout_s must be > 0")
+        if self.checkpoint_keep < 0:
+            raise ValueError("checkpoint_keep must be >= 0 (0 = keep all)")
+        if self.ckpt_write_retries < 0:
+            raise ValueError("ckpt_write_retries must be >= 0")
+        if self.ckpt_retry_backoff_s < 0:
+            raise ValueError("ckpt_retry_backoff_s must be >= 0")

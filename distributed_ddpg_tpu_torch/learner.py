@@ -63,12 +63,14 @@ every rank. td_errors stay the rank's own rows.
 frameworks: the JAX TrainState, passed as numpy (`jax.tree.map(np.asarray,
 s)`), becomes the port's state and back, [2, ...] ensemble leaves
 included. Parity always starts from a state the JAX package made, because
-the two frameworks' random streams differ.
+the two frameworks' random streams differ. `train_state_to_flat` /
+`train_state_from_flat` are the same leaves keyed by their path in the
+tree, the layout of a checkpoint's state.npz (checkpoint.py).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, Iterator, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -481,3 +483,67 @@ def train_state_to_numpy(state: TrainState) -> TrainState:
             count=np.asarray(int(state.alpha_opt.count), np.int32),
         ),
     )
+
+
+def state_items(state: TrainState) -> Iterator[Tuple[str, object]]:
+    """(path, leaf) of every leaf of a state, in a fixed order: a params
+    leaf is "<field>/<layer>/<w|b>" (actor_params/0/w, critic_opt/mu/1/b),
+    a count "<field>/count", then "step", SAC's "log_alpha" and
+    "alpha_opt/mu", "alpha_opt/nu", "alpha_opt/count" when present."""
+    def walk(prefix, node):
+        if node is None:
+            return
+        if isinstance(node, (TrainState, OptState)):
+            for name in node._fields:
+                yield from walk(f"{prefix}{name}/", getattr(node, name))
+        elif isinstance(node, tuple):          # params: one {"w", "b"} a layer
+            for i, layer in enumerate(node):
+                for k in ("w", "b"):
+                    yield f"{prefix}{i}/{k}", layer[k]
+        else:
+            yield prefix[:-1], node
+
+    return walk("", state)
+
+
+def state_signature(state: TrainState):
+    """[(path, shape, dtype)] of a state's tensors: two states can stand in
+    for each other exactly when their signatures are equal."""
+    return [(path, tuple(t.shape), t.dtype) for path, t in state_items(state)]
+
+
+def train_state_to_flat(state: TrainState) -> Dict[str, np.ndarray]:
+    """Host copies of the state's leaves keyed by path (state_items): f32
+    params, moments and log_alpha, int32 counts and step. The copies are
+    the caller's: the learner may go on updating its state."""
+    return {path: t.detach().to("cpu", copy=True).numpy() for path, t in state_items(state)}
+
+
+def train_state_from_flat(flat: Dict[str, np.ndarray], device="cpu") -> TrainState:
+    """Inverse of train_state_to_flat, on `device`. A missing path raises
+    KeyError; SAC's log_alpha and alpha_opt come across when present."""
+    def params(prefix):
+        n = 0
+        while f"{prefix}/{n}/w" in flat:
+            n += 1
+        if n == 0:
+            raise KeyError(f"{prefix}/0/w")
+        return tuple({k: flat[f"{prefix}/{i}/{k}"] for k in ("w", "b")} for i in range(n))
+
+    def opt(prefix):
+        return OptState(mu=params(f"{prefix}/mu"), nu=params(f"{prefix}/nu"),
+                        count=flat[f"{prefix}/count"])
+
+    tree = TrainState(
+        actor_params=params("actor_params"),
+        critic_params=params("critic_params"),
+        target_actor_params=params("target_actor_params"),
+        target_critic_params=params("target_critic_params"),
+        actor_opt=opt("actor_opt"),
+        critic_opt=opt("critic_opt"),
+        step=flat["step"],
+        log_alpha=flat.get("log_alpha"),
+        alpha_opt=(OptState(flat["alpha_opt/mu"], flat["alpha_opt/nu"], flat["alpha_opt/count"])
+                   if "alpha_opt/count" in flat else None),
+    )
+    return train_state_from_numpy(tree, device)

@@ -74,6 +74,7 @@ from distributed_ddpg_tpu_torch.learner import (
     StepOutput,
     init_train_state,
     make_learner_step,
+    state_signature,
 )
 from distributed_ddpg_tpu_torch.ops import fused_chunk
 from distributed_ddpg_tpu_torch.parallel.mesh import (
@@ -82,7 +83,7 @@ from distributed_ddpg_tpu_torch.parallel.mesh import (
     resolve_data_axis,
 )
 from distributed_ddpg_tpu_torch.replay.device import draw_per_indices, scatter_last_wins
-from distributed_ddpg_tpu_torch.types import TrainState, pack_batch_np, unpack_batch
+from distributed_ddpg_tpu_torch.types import OptState, TrainState, pack_batch_np, unpack_batch
 
 
 def resolve_device(config: DDPGConfig) -> torch.device:
@@ -230,6 +231,24 @@ class ShardedLearner:
         )
         self._step = int(self.state.step)   # host copy of the global step
         self._done: Optional[torch.cuda.Event] = None
+
+    def load_state(self, state: TrainState) -> None:
+        """Take a restored state (checkpoint.restore) as the learner's own:
+        every leaf put on the learner's device, its paths, shapes and
+        dtypes those of the current state (else a ValueError). The host
+        copy of the step is set from it: each chunk's TD3 smoothing noise
+        and SAC normals are reseeded from (seed, step) and the scan route's
+        TD3 delay counts from it, so a stale copy would give a resumed
+        chunk the wrong noise without an error. The index generators are
+        not part of a checkpoint, as the JAX learner's key is not: a
+        resumed run draws other rows than an uninterrupted one would."""
+        if state_signature(state) != state_signature(self.state):
+            raise ValueError("the state does not match this learner's (paths, shapes "
+                             "or dtypes): was it saved under another config?")
+        self.state = type(state)(*(
+            None if field is None else _to_device(field, self.device) for field in state))
+        self._step = int(self.state.step)
+        self._done = None
 
     def route(self, per: bool = False) -> str:
         """'kernel' (one device), 'mesh' (the mesh launch) or 'scan': the
@@ -400,6 +419,15 @@ class ShardedLearner:
     def metrics_to_host(self, out: StepOutput) -> Dict[str, float]:
         vals = torch.stack([out.metrics[k] for k in METRIC_KEYS]).cpu().tolist()
         return dict(zip(METRIC_KEYS, vals))
+
+
+def _to_device(node, device):
+    """A TrainState field (params, an OptState, a tensor) on `device`."""
+    if isinstance(node, torch.Tensor):
+        return node.to(device)
+    if isinstance(node, OptState):
+        return OptState(*(_to_device(x, device) for x in node))
+    return tuple({k: v.to(device) for k, v in layer.items()} for layer in node)
 
 
 def float_leaves(state: TrainState):

@@ -262,11 +262,15 @@ class DevicePrioritizedReplay(DeviceReplay):
         return state
 
     def load_state_dict(self, state) -> None:
+        """The rows, ptr and size, then the priorities (zero past size) and
+        the max priority, written into the tensors this replay already
+        holds: whatever read them before (per_state) reads the restored
+        values, in stream order."""
         super().load_state_dict(state)
         if "priorities" not in state:
             return
         n = int(state["size"])
+        self.priorities.zero_()
         self.priorities[:n] = torch.as_tensor(
             np.asarray(state["priorities"], np.float32), device=self.device)
-        self.max_priority = torch.tensor(
-            float(state["max_priority"]), dtype=torch.float32, device=self.device)
+        self.max_priority.fill_(float(state["max_priority"]))

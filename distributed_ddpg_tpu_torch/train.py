@@ -61,7 +61,31 @@ On D > 1 ranks every rank runs train() with its DataGroup, in lockstep:
 Under the CLI the D processes come from torchrun (NCCL, one card a rank):
     torchrun --nproc_per_node=D -m distributed_ddpg_tpu_torch.train --data_axis=D ...
 
-Checkpoint and resume are later work (so are the checkpointed bounds).
+Checkpoint and resume (checkpoint.py), with --checkpoint_dir=DIR:
+
+- on start, with --resume=true (the default), the newest checkpoint under
+  DIR that verifies is restored before the actor pool starts (rank 0
+  walks the checkpoints newest first, quarantining a corrupt one, and
+  every rank restores the step it picked): the state into the learner,
+  the replay in place, the learner-step count, and the resolved C51
+  bounds (a `support` record with reason "checkpoint"; the warmup sizing
+  is skipped). Its env steps count against total_env_steps, beta's
+  anneal and the uniform warmup, so a resumed SAC run takes no random
+  actions again;
+- every checkpoint_every learner steps, at a chunk's end, rank 0
+  snapshots the state and the replay and a background thread writes
+  them (checkpoint.AsyncSaver); a write that fails raises at the run's
+  end;
+- SIGTERM sets a flag that the next chunk end reads (on D > 1 ranks
+  rank 0's flag rides the env-step share, so every rank stops after the
+  same chunk); rank 0 then lands the write in flight and writes one
+  emergency checkpoint unless the cadence has just written this step,
+  the final eval is skipped, and main() exits EXIT_PREEMPTED (75);
+- the final record and the summary carry emergency_ckpt,
+  ckpt_write_retries, ckpt_skipped and resumed_from (the step, or None).
+
+With checkpoint_dir="" none of this runs and the records are as before
+(a SIGTERM still stops the run after the running chunk, with exit 75).
 
 Usage:
     python -m distributed_ddpg_tpu_torch.train --total_env_steps=100000
@@ -72,6 +96,7 @@ Usage:
     python -m distributed_ddpg_tpu_torch.train --fused_update=true  # scan route
     python -m distributed_ddpg_tpu_torch.train --critic_l2=0.01     # scan route
     python -m distributed_ddpg_tpu_torch.train --device=cpu ...   # plain versions
+    python -m distributed_ddpg_tpu_torch.train --checkpoint_dir=/tmp/ckpt  # resumable
 """
 
 from __future__ import annotations
@@ -79,9 +104,11 @@ from __future__ import annotations
 import json
 import math
 import os
+import signal
 import sys
+import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -89,6 +116,7 @@ from distributed_ddpg_tpu_torch.actors.policy import NumpyPolicy, actor_head_dim
 from distributed_ddpg_tpu_torch.actors.pool import ActorPool
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.envs import make, spec_of
+from distributed_ddpg_tpu_torch.exits import EXIT_PREEMPTED
 from distributed_ddpg_tpu_torch.ops import support_auto
 from distributed_ddpg_tpu_torch.types import pack_batch_np
 
@@ -178,6 +206,41 @@ def expand_support(learner, controller, out, learn_steps: int, data_bounds,
     return dict(v_min=v_min, v_max=v_max, mean_q=mean_q)
 
 
+def resume(config: DDPGConfig, learner, replay,
+           group=None) -> Optional[Tuple[int, int, Optional[Tuple[float, float]]]]:
+    """Restore the newest checkpoint under config.checkpoint_dir that
+    verifies into `learner` (load_state) and `replay` (in place). Rank 0
+    walks the checkpoints (checkpoint.restore's newest-first fallback) and
+    shares the step it restored; every other rank restores exactly that
+    step. Returns (step, env_steps, v_bounds or None), or None when the
+    directory holds no checkpoint. A rank 0 that fails tells the others,
+    which raise too."""
+    from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
+    from distributed_ddpg_tpu_torch.parallel import mesh
+
+    lead = group is None or group.lead
+    meta: Dict[str, Any] = {}
+    step = -1
+    if lead and ckpt_lib.latest_step(config.checkpoint_dir) is not None:
+        try:
+            state, step, env_steps = ckpt_lib.restore(
+                config.checkpoint_dir, learner.state, replay, config=config, meta_out=meta)
+        except Exception:
+            mesh.share([-2], group)
+            raise
+    step = int(mesh.share([step], group)[0])
+    if step == -2:
+        raise RuntimeError(f"rank 0 could not restore from {config.checkpoint_dir}")
+    if step < 0:
+        return None
+    if not lead:
+        state, _, env_steps = ckpt_lib.restore(
+            config.checkpoint_dir, learner.state, replay, step=step, config=config,
+            meta_out=meta)
+    learner.load_state(state)
+    return step, env_steps, meta.get("v_bounds")
+
+
 def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     """Trains with `config` and returns the run's summary. With `group` (a
     parallel/mesh.DataGroup of D ranks) every rank calls this: rank 0 runs
@@ -186,6 +249,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     return, the others' None."""
     # torch loads here, not at import: spawned actor workers re-import the
     # main module (this one, under `python -m`) and must stay torch-free.
+    from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
     from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
     from distributed_ddpg_tpu_torch.parallel import mesh
     from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, resolve_learner_chunk
@@ -222,6 +286,12 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     beta = config.per_beta            # PER's IS exponent, annealed per chunk
     support_controller = support_auto.SupportController()
     n_env = 0                         # the global env-step count (rank 0's pool)
+    env_offset = 0                    # env steps of the checkpoint resumed from
+    resumed_from = None
+    saver = ckpt_lib.AsyncSaver()
+    emergency_ckpt = 0
+    preempt = threading.Event()       # set by SIGTERM; rank 0's is shared
+    stopping = False                  # rank 0's flag, as every rank saw it
 
     def support_fields() -> Dict[str, Any]:
         if not config.distributional:
@@ -232,6 +302,18 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     def per_fields() -> Dict[str, Any]:
         return dict(prioritized=True, beta=beta) if config.prioritized else {}
 
+    def ckpt_fields() -> Dict[str, Any]:
+        if not config.checkpoint_dir:
+            return {}
+        return dict(emergency_ckpt=emergency_ckpt, ckpt_write_retries=saver.write_retries,
+                    ckpt_skipped=saver.skipped, resumed_from=resumed_from)
+
+    def auto_bounds() -> Optional[Tuple[float, float]]:
+        """The resolved auto C51 support, which a checkpoint must carry."""
+        if config.distributional and config.v_support_auto:
+            return learner.config.v_min, learner.config.v_max
+        return None
+
     def mesh_fields() -> Dict[str, Any]:
         if learner.data_size == 1:
             return {}
@@ -241,11 +323,17 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     def data_bounds():
         return support_auto.replay_data_bounds(replay, config.gamma, config.n_step)
 
-    pool = ActorPool(config, spec).start(learner.actor_params_to_host()) if lead else None
+    pool = None
 
     def env_steps() -> int:
-        """The global env-step count, as rank 0's pool has it, shared."""
-        return int(mesh.share([pool.steps_received if lead else 0], group)[0])
+        """The global env-step count, as rank 0's pool has it (with the
+        resumed checkpoint's), shared; rank 0's SIGTERM flag rides the
+        same share and latches `stopping` on every rank at once."""
+        nonlocal stopping
+        n, flag = mesh.share([env_offset + pool.steps_received, float(preempt.is_set())]
+                             if lead else [0, 0.0], group)
+        stopping = stopping or bool(flag)
+        return int(n)
 
     def ingest() -> int:
         rows = None
@@ -274,7 +362,49 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             last_monitor_t = time.monotonic()
             pool.monitor()
 
+    def emergency_checkpoint() -> int:
+        """After SIGTERM: land the write in flight (its failure does not
+        cost this save), then rank 0 writes this step unless the cadence
+        has just written it. Returns emergency_ckpt's value."""
+        try:
+            saver.wait()
+        except Exception as e:
+            print(f"[train] in-flight checkpoint write failed during preemption ({e!r}); "
+                  "writing the emergency checkpoint anyway", file=sys.stderr, flush=True)
+            saver.errors.clear()
+        if not (config.checkpoint_dir and lead):
+            return 0
+        if ckpt_lib.latest_step(config.checkpoint_dir) != learn_steps:
+            ckpt_lib.save(config.checkpoint_dir, learn_steps, learner.state, replay, config,
+                          env_steps=n_env, v_bounds=auto_bounds(),
+                          keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
+                          backoff_s=config.ckpt_retry_backoff_s)
+        print(f"[train] emergency checkpoint at learner step {learn_steps} (env step "
+              f"{n_env}): resumable", file=sys.stderr, flush=True)
+        return 1
+
+    # The handler only sets a flag (no I/O in a signal handler); the loop
+    # reads it at a chunk's end. Off the main thread there is none.
+    prev_sigterm = None
     try:
+        prev_sigterm = signal.signal(signal.SIGTERM, lambda *_: preempt.set())
+    except ValueError:
+        pass
+    try:
+        if config.resume and config.checkpoint_dir:
+            restored = resume(config, learner, replay, group)
+            if restored is not None:
+                learn_steps, env_offset, bounds = restored
+                resumed_from, n_env = learn_steps, env_offset
+                if bounds is not None and config.distributional and config.v_support_auto:
+                    learner.set_value_bounds(*bounds)
+                    log.log("support", env_offset, reason="checkpoint", **support_fields())
+                print(f"resumed from {config.checkpoint_dir} at learner step {learn_steps}, "
+                      f"env step {env_offset}", flush=True)
+        if lead:
+            pool = ActorPool(config, spec, env_steps_offset=env_offset)
+            pool.start(learner.actor_params_to_host())
+
         # --- warmup: fill replay to the learning threshold ---
         last_monitor_t = time.monotonic()
         while len(replay) < min_fill:
@@ -297,11 +427,12 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         next_refresh = 0
         last_refresh_t = last_log_t = 0.0
         last_eval = 0
+        last_ckpt = learn_steps
         out = None
         while True:
             monitor()
             n_env = env_steps()
-            if n_env >= config.total_env_steps and learn_steps > 0:
+            if stopping or n_env >= config.total_env_steps and learn_steps > 0:
                 break
             if config.max_learn_ratio > 0.0 and learn_steps > 0 and (
                 learn_steps + chunk > min_fill + config.max_learn_ratio * n_env
@@ -372,9 +503,27 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             if lead and config.eval_every and n_env - last_eval >= config.eval_every:
                 last_eval = n_env
                 evaluate(last_eval)
+            if config.checkpoint_dir and learn_steps - last_ckpt >= config.checkpoint_every:
+                # One writer: the replicas hold the same state and replay.
+                # Only the snapshot runs here; the write on the saver's thread.
+                if lead:
+                    saver.save_async(
+                        config.checkpoint_dir, learn_steps, learner.state, replay, config,
+                        env_steps=n_env, v_bounds=auto_bounds(),
+                        keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
+                        backoff_s=config.ckpt_retry_backoff_s)
+                last_ckpt = learn_steps
+        if stopping:
+            if lead:
+                print(f"[train] SIGTERM: the running chunk finished; exiting {EXIT_PREEMPTED} "
+                      "(resumable)", file=sys.stderr, flush=True)
+            emergency_ckpt = emergency_checkpoint()
     finally:
         if pool is not None:
             pool.stop()
+        if prev_sigterm is not None:
+            signal.signal(signal.SIGTERM, prev_sigterm)
+    saver.wait()   # a failed cadence write raises here
 
     metrics = learner.metrics_to_host(out) if out is not None else {}
     if config.prioritized:   # the run's one read of the max priority
@@ -392,7 +541,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             held += [replay.priorities, replay.max_priority]
         replica = dict(replicas_identical=mesh.replicas_equal(held, group))
     final_return = None
-    if lead:
+    if lead and not stopping:   # preempted: checkpoint and get out
         eval_policy.load_flat(learner.actor_params_to_host())
         final_return = _eval_numpy(eval_policy, config, spec)
     log.log(
@@ -408,6 +557,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         **per_fields(),
         **mesh_fields(),
         **replica,
+        **ckpt_fields(),
     )
     log.close()
     return {
@@ -425,6 +575,8 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         **per_fields(),
         **mesh_fields(),
         **replica,
+        **ckpt_fields(),
+        "preempted": stopping,
         **({"alpha": float(learner.state.log_alpha.exp())} if config.sac else {}),
     }
 
@@ -446,6 +598,9 @@ def main(argv=None) -> None:
             dist.destroy_process_group()
     if group is None or group.lead:
         print({k: round(v, 3) if isinstance(v, float) else v for k, v in summary.items()})
+    if summary["preempted"]:
+        # Preempted and resumable: relaunch with the same --checkpoint_dir.
+        sys.exit(EXIT_PREEMPTED)
 
 
 if __name__ == "__main__":

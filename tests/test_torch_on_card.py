@@ -41,6 +41,8 @@ the CPU; the draw bit-identical twice at capacity 1M on priorities that
 are not dyadic (its prefix sum has a fixed order). Data parallelism: two
 ranks over gloo on the one card (tests/torch_mesh_child.py; the mesh
 launch and the scan route's PER chunk) end with bit-identical replicas.
+Checkpoint and resume: a TD3 kernel-route state and its PER replay saved
+and restored on the card bit for bit, and the next chunk the same bits.
 """
 
 import numpy as np
@@ -411,3 +413,53 @@ def test_two_gloo_ranks_on_card_keep_the_replicas_identical(tmp_path):
             assert str(res["route"]) == ("scan" if per else "mesh")
             assert np.isfinite(res["metrics"]).all()
         np.testing.assert_array_equal(results[0]["td"], results[1]["td"])
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_a_kernel_state_on_card(tmp_path):
+    """A TD3 learner on the kernel route (delay 2, smoothing noise drawn
+    on the card) and its PER replay, one chunk in, saved and restored into
+    a fresh learner and replay on the card: the state, the priorities and
+    max_priority bit for bit, the host step resynced, and the next chunk
+    on the same indices the same bits as the uninterrupted learner's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from distributed_ddpg_tpu_torch import checkpoint as ckpt
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, state_tensors
+    from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = DDPGConfig(actor_hidden=HIDDEN, critic_hidden=HIDDEN, batch_size=B, seed=3,
+                     device="cuda", prioritized=True, fused_chunk="on",
+                     **BRANCHES["td3-delay2-noise"])
+    rows = _batches(11).reshape(K * B, -1)
+    rows = np.concatenate([rows] * 12)
+    rows[:, -1] = 1.0
+
+    def build():
+        return (ShardedLearner(cfg, OBS, ACT, 2.0, 0.0, chunk_size=K),
+                DevicePrioritizedReplay(512, OBS, ACT, "cuda", block_size=64))
+
+    learner, rep = build()
+    rep.add_packed(rows)
+    learner.run_sample_chunk_per(rep, 0.5)
+    ckpt.save(str(tmp_path), int(learner.state.step), learner.state, rep, cfg)
+    saved = [t.clone() for t in state_tensors(learner.state) + [rep.priorities,
+                                                                 rep.max_priority]]
+    idx = torch.from_numpy(np.random.default_rng(12).integers(0, len(rows), (K, B)))
+    weights = torch.full((K, B), 0.75)
+    out = learner.run_sample_chunk_per(rep, 0.5, idx=idx, weights=weights)
+    want = state_tensors(learner.state) + [out.td_errors, rep.priorities, rep.max_priority]
+
+    fresh, frep = build()
+    state, step, _ = ckpt.restore(str(tmp_path), fresh.state, frep, config=cfg)
+    fresh.load_state(state)
+    assert step == fresh._step == K
+    restored = state_tensors(fresh.state) + [frep.priorities, frep.max_priority]
+    assert all(t.is_cuda for t in restored)
+    for a, b in zip(restored, saved):
+        assert torch.equal(a, b)
+    out = fresh.run_sample_chunk_per(frep, 0.5, idx=idx, weights=weights)
+    got = state_tensors(fresh.state) + [out.td_errors, frep.priorities, frep.max_priority]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
