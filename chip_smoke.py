@@ -70,7 +70,20 @@ Phases (any failure raises; nothing is caught and passed over):
    the same on the card as on the CPU and bit-identical over two runs;
    and no synchronizing call added by the PER chunk over a uniform one,
    or by the priority stamp over a uniform insert (torch.cuda sync
-   debug mode).
+   debug mode). Then the ingest pipeline (replay/device.py, transfer/):
+   the main path's (the scheduler's ships, the adaptive cap, the pinned
+   pool) against the serial block-at-a-time inserts on a ragged inflow
+   that wraps a 16-block ring, uniform and PER, bit for bit
+   (check_ingest_parity); 8 blocks staged while a K = 800 K1 (a) chunk
+   runs, on the main path's pipeline (uniform, PER), inline from the
+   pinned pool with the PER stamp, and on the old pipeline: no
+   synchronizing call and the chunk still running for all but the old,
+   the driver's time in add_packed of each printed beside the chunk's ms
+   (ingest_during_chunk); a chunk queued behind a running one gathers the
+   rows as they were before a wrapping insert issued after it
+   (check_ingest_wrap); a pinned buffer filled with NaN as it is acquired
+   leaves the ring as shipped: the pool waited for the copy's fence
+   (check_ingest_fence).
 3b. The mesh phase (mesh_phase): two processes of this script, each one
    rank of a gloo group on the one card (NCCL refuses two ranks on one
    device), MESH_TIMEOUT_S for both, a failing rank failing the phase.
@@ -106,15 +119,24 @@ Phases (any failure raises; nothing is caught and passed over):
    --tau=0.005 for 20,000 (its final alpha is printed); then with
    --compute_dtype=bfloat16 DDPG for 20,000 env steps and TD3, D4PG and
    SAC (their flags as above) for 5000 each; then the scan route:
-   --fused_update=true for 5000 env steps, README's D4PG command (with
+   --fused_update=true for 20,000 env steps, README's D4PG command (with
    --prioritized=true) with --fused_update=true and --critic_l2=0.01 for
-   2500 each. For each, the
+   5000 each. DDPG and README's D4PG command (20,000 env steps each) run
+   on the default pipeline and with the old one's flags,
+   --transport=queue --ingest_async=false --transfer_scheduler=false, in
+   turns (default, old, old, default), and the scan route with K2 once
+   with them (2500), each run printed with its wall time a chunk
+   (before_after). For each, the
    launch counts are zeroed just before and read just after: on the
    kernel route every chunk must have been one launch of that branch's
    kernel and nothing else; on the scan route (fused_chunk_active false)
    no chunk kernel, and the fused update twice a learner step when
    fused_update is on, else never; learner_steps = chunks x K, metrics
-   finite.
+   finite; the transport shm and the shipper on (the queue and no
+   shipper under the old flags); the driver's ingest time a chunk, the
+   longest call, ingest_coalesce_mean, ingest_stall_ms and
+   transfer_pool_fence_waits printed beside the rates. The mesh phase's
+   paths run rank 0's actors on shm, every rank without a shipper.
 4b. Checkpoint and resume (checkpoint.py): README's whole D4PG command
    (PER, the auto support) at Pendulum shapes with the 1M-row replay
    full, on the kernel route at K = 800 and on the scan route with
@@ -990,13 +1012,15 @@ def check_per_duplicates() -> None:
         raise AssertionError("PER duplicate rule: not the last draw on the card or the CPU")
 
 
-def sync_calls(fn) -> int:
+def sync_calls(fn, settle: bool = True) -> int:
     """Synchronizing CUDA calls made by fn() (torch.cuda sync debug mode,
-    'warn', its warnings counted; the mode's own notice, once a process,
-    is not one)."""
+    'warn', its warnings counted, from any thread; the mode's own notice,
+    once a process, is not one). With `settle` the card is synchronized
+    first; without, work queued before (a running chunk) keeps running."""
     import warnings
 
-    torch.cuda.synchronize()
+    if settle:
+        torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1035,6 +1059,289 @@ def check_per_syncs() -> None:
         f"insert {stamped}, a uniform insert {unstamped}")
     if per > uniform or stamped > unstamped:
         raise AssertionError("PER adds a synchronizing call (a host read of the device)")
+
+
+# --- the ingest pipeline (replay/device.py, transfer/) ---
+
+INGEST_BLOCK = 1024       # the main path's block (train.py)
+INGEST_BLOCKS = 8         # blocks staged by the driver during one running chunk
+
+
+def pipeline_kwargs(kind: str, sched=None) -> dict:
+    """The replay's pipeline: "main" is the main path's at D = 1 (the
+    scheduler's ships, the adaptive cap, the pinned pool), "inline" its
+    ships on the caller's thread with the pinned pool (the D > 1 ranks'),
+    "old" the pipeline of --ingest_async=false --transfer_scheduler=false
+    (inline, pageable), "serial" the block-at-a-time reference."""
+    return {
+        "main": dict(async_ship=True, scheduler=sched, adaptive_coalesce=True, host_pool=True),
+        "inline": dict(host_pool=True),
+        "old": dict(),
+        "serial": dict(max_coalesce=1),
+    }[kind]
+
+
+def warm_pool(rep, rows: int, n: int = 2) -> None:
+    """Allocate the pool's n pinned buffers of a shape up front, so no
+    allocation falls inside a measured window."""
+    bufs = [rep._pool.acquire(rows) for _ in range(n)]
+    for buf in bufs:
+        rep._pool.commit(buf, None)
+
+
+def replay_snapshot(rep) -> dict:
+    out = dict(storage=rep.storage.clone(), ptr=rep.ptr, size=rep.size)
+    if hasattr(rep, "priorities"):
+        out.update(priorities=rep.priorities.clone(), max_priority=rep.max_priority.clone())
+    return out
+
+
+def same_replay(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor) else a[k] == b[k]
+               for k in a)
+
+
+def check_ingest_parity() -> None:
+    """The main path's pipeline against the serial block-at-a-time
+    sequence on the card, uniform and PER: a ragged inflow at Pendulum's
+    width (40 adds of 1-3000 rows) into a ring of 16 blocks, which it
+    wraps ~3.7 times, with a priority write between two inserts under
+    PER. Storage, ptr, size, priorities and max priority bit for bit."""
+    from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay, DeviceReplay
+    from distributed_ddpg_tpu_torch.transfer import TransferScheduler
+
+    obs, act, cap = 3, 1, 16 * INGEST_BLOCK
+    rng = np.random.default_rng(51)
+    inflow = [rng.standard_normal((int(n), 2 * obs + act + 3)).astype(np.float32)
+              for n in rng.integers(1, 3000, 40)]
+    for per in (False, True):
+        cls = DevicePrioritizedReplay if per else DeviceReplay
+        sched = TransferScheduler().start()
+        try:
+            serial = cls(cap, obs, act, "cuda", block_size=INGEST_BLOCK,
+                         **pipeline_kwargs("serial"))
+            piped = cls(cap, obs, act, "cuda", block_size=INGEST_BLOCK,
+                        **pipeline_kwargs("main", sched))
+            for i, rows in enumerate(inflow):
+                serial.add_packed(rows)
+                piped.add_packed(rows)
+                if per and i == 20:
+                    prios = torch.rand(cap, device="cuda") + 0.5
+                    for r in (serial, piped):
+                        r.drain_pending()
+                        r.set_per_state(prios.clone(), torch.tensor(3.25, device="cuda"))
+            piped.drain_pending()
+            for r in (serial, piped):
+                r.flush()
+            torch.cuda.synchronize()
+            ok = same_replay(replay_snapshot(piped), replay_snapshot(serial))
+            snap, tsnap = piped.ingest_snapshot(), piped.transfer_snapshot()
+            log(f"  ingest parity {'PER' if per else 'uniform'}: {sum(map(len, inflow))} rows, "
+                f"ptr {piped.ptr}, size {piped.size}, bit-identical to the serial run: {ok}; "
+                f"{snap['ingest_ship_calls']} ships, coalesce mean "
+                f"{snap['ingest_coalesce_mean']}, cap {tsnap['transfer_coalesce_cap']}, "
+                f"pool buffers {tsnap['transfer_pool_buffers']}, fence waits "
+                f"{tsnap['transfer_pool_fence_waits']}")
+            piped.close()
+            if not ok:
+                raise AssertionError("the pipelined replay differs from the serial one")
+        finally:
+            sched.close()
+
+
+def ingest_during_chunk(card: str) -> dict:
+    """The driver's side of an insert while a K = 800 K1 (a) chunk runs
+    (Pendulum shapes, 2x256, batch 64): INGEST_BLOCKS blocks staged by
+    add_packed, one block a call, on the main path's pipeline (uniform and
+    PER) and the old one; then one 8-block add_packed shipped and stamped
+    inline from the pinned pool (PER, the D > 1 ranks' pipeline). For
+    each: torch's synchronizing calls (sync debug mode) from the first
+    add_packed until every ship has been issued, the driver's time in
+    add_packed (total and longest call), and whether the chunk was still
+    running when the last add_packed returned; the rows then landed. The
+    main and inline pipelines must make no synchronizing call and leave
+    the chunk running (a ship that waits on a pool fence waits on the
+    scheduler's thread, and is counted); the old one's copy waits for the
+    chunk."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+    from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay, DeviceReplay
+    from distributed_ddpg_tpu_torch.transfer import TransferScheduler
+
+    cfg, obs, act, k = DDPGConfig(), 3, 1, 800
+    learner = ShardedLearner(cfg, obs, act, 2.0, 0.0, chunk_size=k, state=train_state_from_numpy(
+        random_state_np(cfg, obs, act, seed=53), "cuda"))
+    big = DeviceReplay(65536, obs, act, "cuda", block_size=INGEST_BLOCK)
+    big.add_packed(random_batches(54, 1, 65536, obs, act, weighted=False)[0].cpu().numpy())
+    chunk_ms = time_ms(lambda: learner.run_sample_chunk(big), reps=3)
+    rows = random_batches(55, 1, INGEST_BLOCKS * INGEST_BLOCK, obs, act,
+                          weighted=False)[0].cpu().numpy()
+    out = {"chunk_ms": chunk_ms}
+    sched = TransferScheduler().start()
+    try:
+        for label, per, kind, calls in (("main", False, "main", INGEST_BLOCKS),
+                                        ("main PER", True, "main", INGEST_BLOCKS),
+                                        ("inline PER", True, "inline", 1),
+                                        ("old", False, "old", INGEST_BLOCKS)):
+            cls = DevicePrioritizedReplay if per else DeviceReplay
+            rep = cls(PER_CAPACITY, obs, act, "cuda", block_size=INGEST_BLOCK,
+                      **pipeline_kwargs(kind, sched))
+            if kind == "inline":
+                rep._adaptive = None   # one 8-block ship, one stamp
+            pieces = np.split(rows, calls)
+            for _ in range(3):   # warm: the pool's buffers, the cap's first steps
+                for piece in pieces:
+                    rep.add_packed(piece)
+                rep.drain_pending()
+            before = rep.size
+            waits = rep._pool.fence_waits if rep._pool is not None else None
+            times = []
+
+            def stage():
+                for piece in pieces:
+                    t0 = time.perf_counter()
+                    rep.add_packed(piece)
+                    times.append(time.perf_counter() - t0)
+                running = not learner.chunk_done()
+                while rep.pending_rows:   # every ship popped, on whichever thread,
+                    time.sleep(0.0002)
+                with rep.dispatch_lock:   # and issued
+                    pass
+                return running
+
+            torch.cuda.synchronize()
+            learner.run_sample_chunk(big)     # the running chunk
+            running = []
+            syncs = sync_calls(lambda: running.append(stage()), settle=False)
+            torch.cuda.synchronize()
+            landed = rep.size - before == INGEST_BLOCKS * INGEST_BLOCK and torch.equal(
+                rep.storage[before:rep.size].cpu(), torch.from_numpy(rows))
+            out[label] = dict(total_ms=1000.0 * sum(times), max_ms=1000.0 * max(times),
+                              syncs=syncs, running=running[0], landed=landed,
+                              fence_waits=None if waits is None
+                              else rep._pool.fence_waits - waits)
+            log(f"  ingest during a K={k} chunk ({chunk_ms:.3f} ms), {label} pipeline: "
+                f"add_packed of {INGEST_BLOCKS} blocks in {calls} calls held the driver "
+                f"{out[label]['total_ms']:.3f} ms (longest call {out[label]['max_ms']:.3f}); "
+                f"sync calls {syncs}; the chunk still running when the last call returned: "
+                f"{running[0]}; rows landed: {landed}; pool fence waits (on the shipping "
+                f"thread) {out[label]['fence_waits']} ({card})")
+            rep.close()
+            if not landed:
+                raise AssertionError(f"ingest ({label}): the rows did not land")
+            if kind != "old" and (syncs or not running[0]):
+                raise AssertionError(f"ingest ({label}): a ship synchronized or waited for "
+                                     "the running chunk")
+    finally:
+        sched.close()
+    return out
+
+
+def check_ingest_wrap() -> None:
+    """A ring of 4 blocks, full, gathered by a K = 16 chunk dispatched
+    behind a running K = 800 chunk; then 4 new blocks inserted on the main
+    path's pipeline (one 4-block ship, the adaptive cap off so that no
+    ship waits on a pool fence), which wrap and overwrite the whole ring
+    while the gather is still queued. The chunk's gathered rows must be
+    the rows before the insert, and the ring must hold the new rows."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+    from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
+    from distributed_ddpg_tpu_torch.transfer import TransferScheduler
+
+    cfg, obs, act, cap = DDPGConfig(), 3, 1, 4 * INGEST_BLOCK
+    state = random_state_np(cfg, obs, act, seed=57)
+    long = ShardedLearner(cfg, obs, act, 2.0, 0.0, chunk_size=800,
+                          state=train_state_from_numpy(state, "cuda"))
+    short = ShardedLearner(cfg, obs, act, 2.0, 0.0, chunk_size=16,
+                           state=train_state_from_numpy(state, "cuda"))
+    big = DeviceReplay(65536, obs, act, "cuda", block_size=INGEST_BLOCK)
+    big.add_packed(random_batches(58, 1, 65536, obs, act, weighted=False)[0].cpu().numpy())
+    old = random_batches(59, 1, cap, obs, act, weighted=False)[0].cpu().numpy()
+    new = random_batches(60, 1, cap, obs, act, weighted=False)[0].cpu().numpy()
+    sched = TransferScheduler().start()
+    try:
+        rep = DeviceReplay(cap, obs, act, "cuda", block_size=INGEST_BLOCK,
+                           **pipeline_kwargs("main", sched))
+        rep._adaptive = None
+        warm_pool(rep, cap)
+        rep.add_packed(old)
+        rep.drain_pending()
+        idx = torch.randint(0, cap, (16, cfg.batch_size), device="cuda")
+        gathered = []
+        run = short._run
+
+        def capture(packed, eps, kernel):
+            gathered.append(packed.clone())   # queued right after the gather
+            return run(packed, eps, kernel)
+
+        short._run = capture
+        torch.cuda.synchronize()
+        long.run_sample_chunk(big)        # occupies the stream ~73 ms
+        short.run_sample_chunk(rep, idx=idx)
+        queued = not long.chunk_done()
+        rep.add_packed(new)
+        while rep.pending_rows:
+            time.sleep(0.0002)
+        with rep.dispatch_lock:
+            issued_early = not long.chunk_done()
+        torch.cuda.synchronize()
+        want = torch.from_numpy(old)[idx.cpu()]
+        ok = torch.equal(gathered[0].cpu(), want) and torch.equal(
+            rep.storage.cpu(), torch.from_numpy(new))
+        log(f"  ingest wrap: a chunk queued before a wrapping insert gathered the rows before "
+            f"it: {ok} (the gather queued behind the running chunk: {queued}; the insert "
+            f"issued before it ended: {issued_early})")
+        rep.close()
+        if not (ok and queued and issued_early):
+            raise AssertionError("ingest wrap: an insert overtook a queued gather, or the "
+                                 "check did not overlap the chunk")
+    finally:
+        sched.close()
+
+
+def check_ingest_fence() -> None:
+    """The pinned pool hands a buffer out again only after the copy that
+    read it has run: 3 inline one-block ships from the pool (depth 2)
+    behind a running K = 800 chunk, each buffer filled with NaN right as
+    acquire returns it. The third ship must wait for the first's fence,
+    and the ring must hold the rows shipped, not the NaN."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+    from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
+
+    cfg, obs, act = DDPGConfig(), 3, 1
+    learner = ShardedLearner(cfg, obs, act, 2.0, 0.0, chunk_size=800, state=train_state_from_numpy(
+        random_state_np(cfg, obs, act, seed=61), "cuda"))
+    big = DeviceReplay(65536, obs, act, "cuda", block_size=INGEST_BLOCK)
+    big.add_packed(random_batches(62, 1, 65536, obs, act, weighted=False)[0].cpu().numpy())
+    rows = random_batches(63, 1, 3 * INGEST_BLOCK, obs, act, weighted=False)[0].cpu().numpy()
+    rep = DeviceReplay(8 * INGEST_BLOCK, obs, act, "cuda", block_size=INGEST_BLOCK,
+                       **pipeline_kwargs("inline"))
+    warm_pool(rep, INGEST_BLOCK)
+    acquire = rep._pool.acquire
+
+    def acquire_and_clobber(n):
+        buf = acquire(n)
+        buf.fill(np.nan)
+        return buf
+
+    rep._pool.acquire = acquire_and_clobber
+    learner.run_sample_chunk(big)
+    torch.cuda.synchronize()
+    learner.run_sample_chunk(big)
+    for piece in np.split(rows, 3):
+        rep.add_packed(piece)
+    torch.cuda.synchronize()
+    ok = torch.equal(rep.storage[:3 * INGEST_BLOCK].cpu(), torch.from_numpy(rows))
+    waits = rep._pool.fence_waits
+    log(f"  ingest fence: 3 pooled ships behind a running chunk, each buffer clobbered as "
+        f"acquired: the ring holds the shipped rows: {ok}; fence waits {waits}")
+    if not ok or waits != 1:
+        raise AssertionError("ingest fence: a pool buffer was reused before its copy ran")
 
 
 def time_per(card: str, chunk_ms: float) -> None:
@@ -1287,6 +1594,53 @@ def breakdown(run, state, packed, eps, k: int) -> None:
             f"{unmasked:.2f} us/step")
 
 
+class ChunkEvents:
+    """CUDA events (timing on) recorded just before and just after every
+    chunk dispatch of a main path (ShardedLearner.run_sample_chunk and
+    run_sample_chunk_per, patched for the `with` block). The card is idle
+    from a chunk's end event to the next chunk's start event, save for the
+    inserts queued in between; `summary()` reads the gaps after a
+    synchronize."""
+
+    def __enter__(self):
+        from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+
+        self.events = []
+        self._saved = {n: getattr(ShardedLearner, n)
+                       for n in ("run_sample_chunk", "run_sample_chunk_per")}
+        for n, fn in self._saved.items():
+            setattr(ShardedLearner, n, self._timed(fn))
+        return self
+
+    def _timed(self, fn):
+        def run(learner, *args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(learner, *args, **kwargs)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.events.append((start, end))
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+
+        for n, fn in self._saved.items():
+            setattr(ShardedLearner, n, fn)
+
+    def summary(self) -> dict:
+        """The idle gaps between chunks (ms: median, max) and the card's
+        busy share from the first chunk's start to the last one's end."""
+        torch.cuda.synchronize()
+        ev = self.events
+        gaps = [ev[i][1].elapsed_time(ev[i + 1][0]) for i in range(len(ev) - 1)]
+        busy = sum(a.elapsed_time(b) for a, b in ev)
+        span = ev[0][0].elapsed_time(ev[-1][1])
+        return dict(gap_median_ms=float(np.median(gaps)) if gaps else None,
+                    gap_max_ms=max(gaps) if gaps else None, busy_share=busy / span)
+
+
 def drive_main_path(flags, name: str, summary_out: dict = None) -> dict:
     """One run of `distributed_ddpg_tpu_torch.train` with these flags (the
     CLI's own parser), with the launch counts zeroed just before and read
@@ -1305,11 +1659,30 @@ def drive_main_path(flags, name: str, summary_out: dict = None) -> dict:
     cfg = DDPGConfig.from_flags(flags)
     fc.KERNEL_LAUNCHES.clear()
     t0 = time.monotonic()
-    summary = train(cfg, echo=False)
+    with ChunkEvents() as chunk_events:
+        summary = train(cfg, echo=False)
     launches = dict(fc.KERNEL_LAUNCHES)
+    summary.update(chunk_events.summary())
     if summary_out is not None:
         summary_out.update(summary)
     log(f"[main path {name}] {time.monotonic() - t0:.1f}s: " + json.dumps(summary))
+    log(f"[main path {name}] {summary['transport']}, shipper "
+        f"{summary['ingest_async_active']}: learner steps/s {summary['learner_steps_per_sec']}, "
+        f"env steps/s {summary['env_steps_per_sec']}; the driver's ingest while chunks ran "
+        f"{summary['t_ingest_chunk_ms']:.3f} ms a chunk (longest call "
+        f"{summary['t_ingest_max']:.3f} ms, {summary['n_ingest']} calls); since the last "
+        f"train record: ingest_coalesce_mean {summary['ingest_coalesce_mean']}, "
+        f"ingest_stall_ms {summary['ingest_stall_ms']}, transfer_pool_fence_waits "
+        f"{summary.get('transfer_pool_fence_waits')}; the card idle between chunks "
+        f"{summary['gap_median_ms']} ms median (max {summary['gap_max_ms']}), busy "
+        f"{100.0 * summary['busy_share']:.2f}% from the first chunk's start to the last's end")
+    # Every D = 1 main path runs the JAX trainer's default ingest, unless
+    # its flags ask for the old pipeline: 'auto' must not land on the queue.
+    want_transport = "queue" if "--transport=queue" in flags else "shm"
+    want_async = "--ingest_async=false" not in flags
+    if summary["transport"] != want_transport or summary["ingest_async_active"] != want_async:
+        raise AssertionError(f"main path {name}: transport {summary['transport']}, shipper "
+                             f"{summary['ingest_async_active']}")
     if cfg.distributional:
         with open(cfg.log_path) as f:
             support = [r for r in map(json.loads, f) if r["kind"] == "support"]
@@ -1345,6 +1718,41 @@ def drive_main_path(flags, name: str, summary_out: dict = None) -> dict:
         if not math.isfinite(summary[key]):
             raise AssertionError(f"main path {name}: {key} = {summary[key]} is not finite")
     return launches
+
+
+# The ingest before this port's default one: the queue, inline pageable
+# inserts, no scheduler.
+OLD_PIPELINE = ["--transport=queue", "--ingest_async=false", "--transfer_scheduler=false"]
+
+
+def ms_a_chunk(summary: dict) -> float:
+    """A main path's wall time a chunk after its warmup (its learner steps
+    over its learner steps/s, over its chunks)."""
+    return 1000.0 * summary["learner_steps"] / summary["learner_steps_per_sec"] \
+        / summary["chunks"]
+
+
+def before_after(card: str, path: str, flags_of, name: str, first: dict = None,
+                 turns=("default", "old", "old", "default")) -> None:
+    """A main path on the default pipeline and on the old one (OLD_PIPELINE)
+    in turns, each run printed with its rates, its wall time a chunk and
+    the driver's ingest time a chunk. `flags_of(i)` gives run i's flags;
+    `first`, a summary already taken on the default pipeline, stands for
+    the first turn."""
+    runs = []
+    for i, kind in enumerate(turns):
+        summary = first if (i == 0 and first is not None) else {}
+        if not summary:
+            drive_main_path(flags_of(i) + (OLD_PIPELINE if kind == "old" else []), name,
+                            summary)
+        runs.append((kind, summary))
+    for kind, s in runs:
+        log(f"[ingest] {card}: {path} main path, {kind} pipeline: learner steps/s "
+            f"{s['learner_steps_per_sec']}, env steps/s {s['env_steps_per_sec']}, "
+            f"{ms_a_chunk(s):.2f} ms a chunk over {s['chunks']} chunks ({s['env_steps']} env "
+            f"steps), the card idle between chunks {s['gap_median_ms']} ms median, the "
+            f"driver's ingest {s['t_ingest_chunk_ms']:.3f} ms a chunk, longest call "
+            f"{s['t_ingest_max']:.3f} ms")
 
 
 def time_branch(cfg, name: str, k: int, step: int, card: str, eager: bool,
@@ -1418,9 +1826,10 @@ MESH_SUPPORT = (-4.0, 4.0)   # a C51 support far too narrow for Pendulum's retur
 MESH_SUPPORT_K = 200      # learner steps a chunk of the forced expansion
 MESH_SUPPORT_CHUNKS = 12  # chunks the expansion may take to fire
 # README's whole D4PG command with PER at D = 2 takes the scan route: a scan
-# chunk of 800 eager steps holds each rank's host ~9 s while ~160 env steps
-# come in, so 2600 env steps are ~10 chunks past the 1000-row warmup.
-MESH_PER_ENV_STEPS = 2600
+# chunk of 800 eager steps holds each rank's host ~9 s while the actor
+# fills its 4096-row shm ring, so 10,000 env steps are ~3 chunks past the
+# 1000-row warmup.
+MESH_PER_ENV_STEPS = 10_000
 
 
 def mesh_phase(card: str) -> dict:
@@ -1673,9 +2082,17 @@ def mesh_main_path(flags, group, say, route: str) -> dict:
             "env_steps", "env_steps_per_sec", "replicas_identical", "final_return")
     say(f"[mesh path {route}] {time.monotonic() - t0:.1f}s, launches {launches}: "
         + json.dumps({k: summary[k] for k in keys}
-                     | {k: summary[k] for k in ("v_min", "v_max", "beta", "max_priority")
+                     | {k: summary[k] for k in ("v_min", "v_max", "beta", "max_priority",
+                                                "transport", "ingest_async_active",
+                                                "t_ingest_chunk_ms", "t_ingest_max",
+                                                "ingest_coalesce_mean", "ingest_stall_ms",
+                                                "transfer_pool_fence_waits")
                         if k in summary}))
     want = {"fused_chunk": summary["chunks"]} if route == "mesh" else {}
+    # Rank 0's actors on shm; every rank ships inline (no shipper at D > 1).
+    if summary["transport"] != ("shm" if group.lead else None) or summary["ingest_async_active"]:
+        raise AssertionError(f"mesh path {route}: transport {summary['transport']}, shipper "
+                             f"{summary['ingest_async_active']}")
     if (summary["route"] != route or launches != want or summary["chunks"] < 1
             or summary["global_batch"] != cfg.batch_size * group.world_size
             or summary["learner_steps"] != summary["chunks"] * resolve_learner_chunk(cfg)
@@ -2054,6 +2471,12 @@ def main() -> int:
     check_per_duplicates()
     check_per_syncs()
 
+    log("[parity] the ingest pipeline on the card")
+    check_ingest_parity()
+    ingest_chunk = ingest_during_chunk(card)
+    check_ingest_wrap()
+    check_ingest_fence()
+
     log(f"[phase] parity done at {time.monotonic() - t_start:.1f}s")
 
     # --- 3b. the mesh phase: two ranks over gloo on the one card ---
@@ -2071,6 +2494,16 @@ def main() -> int:
               "--eval_episodes=2"]
     plain = {}
     launches = drive_main_path(common + ["--total_env_steps=5000"], "fused_chunk", plain)
+    # The same with the pipeline before this slice's (the queue, inline
+    # pageable inserts, no scheduler): the before/after record.
+    # DDPG at 20,000 env steps (20-40 chunks) on the default and the old
+    # pipeline in turns (default, old, old, default): the before/after
+    # record of this slice.
+    before_after(card, "DDPG", lambda i: common + ["--total_env_steps=20000"], "fused_chunk")
+    log(f"[ingest] {card}: in the parity phase {INGEST_BLOCKS} blocks staged during a "
+        f"{ingest_chunk['chunk_ms']:.3f} ms chunk held the driver "
+        f"{ingest_chunk['main']['total_ms']:.3f} ms on the default pipeline, "
+        f"{ingest_chunk['old']['total_ms']:.3f} ms on the old one")
     launches.update(drive_main_path(
         common + ["--total_env_steps=5000", "--twin_critic=true", "--policy_delay=2",
                   "--target_noise=0.2"],
@@ -2081,10 +2514,14 @@ def main() -> int:
             common + ["--total_env_steps=5000", *d4pg_flags,
                       f"--log_path={os.path.join(tmp, 'd4pg.jsonl')}"],
             "fused_chunk_d4pg")
-        launches.update(drive_main_path(
-            common + ["--total_env_steps=20000", *d4pg_flags, "--prioritized=true",
-                      f"--log_path={os.path.join(tmp, 'd4pg_per.jsonl')}"],
-            "fused_chunk_d4pg"))
+        d4pg_per = {}
+
+        def d4pg_per_flags(i):
+            return common + ["--total_env_steps=20000", *d4pg_flags, "--prioritized=true",
+                             f"--log_path={os.path.join(tmp, f'd4pg_per{i}.jsonl')}"]
+
+        launches.update(drive_main_path(d4pg_per_flags(0), "fused_chunk_d4pg", d4pg_per))
+        before_after(card, "D4PG with PER", d4pg_per_flags, "fused_chunk_d4pg", first=d4pg_per)
     launches.update(drive_main_path(
         common + ["--total_env_steps=20000", "--sac=true", "--actor_lr=3e-4",
                   "--critic_lr=3e-4", "--tau=0.005"],
@@ -2107,24 +2544,28 @@ def main() -> int:
         bf16 + ["--total_env_steps=5000", "--sac=true", "--actor_lr=3e-4",
                 "--critic_lr=3e-4", "--tau=0.005"],
         "fused_chunk_sac_bf16"))
-    # The scan route: DDPG with the fused update for 5000 env steps, then
+    # The scan route: DDPG with the fused update for 20,000 env steps, then
     # README's whole D4PG command (PER included) with it and the DDPG
-    # paper's critic weight decay (no fused update) for 2500 each. A scan
-    # chunk of 800 eager steps holds the host ~3-8 s while the actor's
-    # queue (4 x 32 rows) fills, so a chunk brings in only ~130-170 env
-    # steps (PERF.md §5): 5000 env steps are ~30 chunks, 130-250 s a path
-    # on the hosts seen so far, 2500 about 10 chunks. Three paths at 5000
-    # took 564 s of a 938 s run on a slow host, too close to the run's
-    # limit for a slower one (PERF.md §4).
-    update_launches = drive_main_path(common + ["--total_env_steps=5000",
-                                                "--fused_update=true"], "scan")
+    # paper's critic weight decay (no fused update) for 5000 each. A scan
+    # chunk of 800 eager steps holds the host ~3-5 s; the actor fills its
+    # shm ring (4096 rows) meanwhile, so a chunk brings in ~4000 env steps
+    # (PERF.md §5): 20,000 env steps are ~5 chunks. On the old pipeline
+    # (its 4 x 32-row queue) a chunk brought in ~130-220, so its run is cut
+    # to 2500 env steps (~12 chunks, ~50 s).
+    scan_k2 = {}
+    update_launches = drive_main_path(common + ["--total_env_steps=20000",
+                                                "--fused_update=true"], "scan", scan_k2)
+    before_after(card, "the scan route with K2",
+                 lambda i: common + [f"--total_env_steps={20000 if i == 0 else 2500}",
+                                     "--fused_update=true"],
+                 "scan", first=scan_k2, turns=("default", "old"))
     with tempfile.TemporaryDirectory() as tmp:
         drive_main_path(
-            common + ["--total_env_steps=2500", *d4pg_flags, "--prioritized=true",
+            common + ["--total_env_steps=5000", *d4pg_flags, "--prioritized=true",
                       "--fused_update=true",
                       f"--log_path={os.path.join(tmp, 'd4pg_scan.jsonl')}"],
             "scan")
-    drive_main_path(common + ["--total_env_steps=2500", "--critic_l2=0.01"], "scan")
+    drive_main_path(common + ["--total_env_steps=5000", "--critic_l2=0.01"], "scan")
     log(f"[phase] main paths done at {time.monotonic() - t_start:.1f}s")
 
     # --- 4b. checkpoint and resume ---

@@ -35,6 +35,17 @@ def layout_size(layout: Layout) -> int:
     return sum(int(np.prod(w)) + int(np.prod(b)) for w, b in layout)
 
 
+def encode_version(version: int) -> np.float32:
+    """Bit-cast an int32 param-version tag into the shm ring's f32 version
+    column (a float(version) would lose exactness past 2^24). Every hop
+    of the column is a bit-preserving f32 copy."""
+    return np.int32(version).view(np.float32)
+
+
+def decode_version(tag) -> int:
+    return int(np.float32(tag).view(np.int32))
+
+
 def seqlock_snapshot(shared, version, out: np.ndarray, seen_version: int):
     """One seqlock read attempt of the pool's broadcast buffer
     (ActorPool.broadcast writes it: version odd while the flat array is

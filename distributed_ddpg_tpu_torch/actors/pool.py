@@ -1,15 +1,22 @@
 """ActorPool: N rollout worker processes feeding one learner.
 
-A trimmed copy of distributed_ddpg_tpu/actors/pool.py: queue transport,
-seqlock param broadcast, heartbeat monitor with respawn. The shm ring,
-served acting, fault injection, tracing and the quarantine breaker are not
-in the port yet.
+A trimmed copy of distributed_ddpg_tpu/actors/pool.py: the shm and queue
+transports, seqlock param broadcast, heartbeat monitor with respawn.
+Served acting, fault injection, tracing, staleness tracking and the
+quarantine breaker are not in the port yet.
 
 - Param broadcast: one flat f32 shared-memory array + a version counter.
   Workers poll the version each env step and copy on change.
-- Transitions: each worker pushes batched n-step transitions, with the
-  episodes it finished, over its OWN bounded mp.Queue; `drain_batches`
-  pops them for the device-replay ingest.
+- Transport (config.transport, resolved as the JAX pool resolves it):
+  'shm' gives each worker a C++ SPSC ring in an anonymous shared-memory
+  block (native.ShmRing, config.shm_ring_rows rows of [obs, action,
+  reward, discount, next_obs, version]) and raises when the ring cannot
+  be built; 'auto' takes shm whenever it can be built, else the queue
+  (said once on stderr); 'queue' sends each batch, with the episodes it
+  finished, over the worker's OWN bounded mp.Queue. On shm that queue
+  carries only the finished episodes. `transport` names the one in use;
+  `drain_batches` pops either for the device-replay ingest. A ring
+  belongs to its slot: a respawned worker attaches to it.
 - Failure detection: workers stamp heartbeats; `monitor()` respawns a
   worker that died or went silent past the heartbeat timeout.
 - What a dead worker can leave behind: a process killed outright dies
@@ -28,11 +35,13 @@ from __future__ import annotations
 import multiprocessing as mp
 import os
 import queue as queue_mod
+import sys
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from distributed_ddpg_tpu_torch import native
 from distributed_ddpg_tpu_torch.actors.policy import actor_head_dim, layout_size, param_layout
 from distributed_ddpg_tpu_torch.actors.worker import run_worker
 from distributed_ddpg_tpu_torch.config import DDPGConfig
@@ -42,6 +51,26 @@ from distributed_ddpg_tpu_torch.envs.registry import EnvSpec
 _TERMINATE_JOIN_S = 2.0
 # Transition batches a worker may have in flight before it blocks.
 _QUEUE_BATCHES = 4
+
+
+def resolve_transport(transport: str) -> str:
+    """'shm' or 'queue' for config.transport: 'shm' raises (with the
+    compiler's output) when the ring cannot be built, 'auto' is shm
+    whenever it can be, and says so on stderr when it cannot (a run makes
+    one pool, so once)."""
+    if transport == "shm":
+        try:
+            native.load()
+        except RuntimeError as e:
+            raise ValueError(f"transport='shm' but the shm ring cannot be built ({e}); "
+                             "use transport='queue'") from e
+        return "shm"
+    if transport == "auto":
+        if native.available():
+            return "shm"
+        print("[actors] transport='auto' resolved to the queue: the shm ring cannot "
+              "be built", file=sys.stderr, flush=True)
+    return "queue"
 
 
 class ActorPool:
@@ -67,6 +96,17 @@ class ActorPool:
         self._procs: List[Optional[mp.Process]] = [None] * self.num_actors
         self._respawns = 0
         self._steps_received = 0
+        self.transport = resolve_transport(config.transport)
+        self.row_width = 2 * spec.obs_dim + spec.act_dim + 3
+        self._ring_bufs: List = []
+        self._rings: List = []
+        if self.transport == "shm":
+            nbytes = native.ShmRing.nbytes(config.shm_ring_rows, self.row_width)
+            for _ in range(self.num_actors):
+                buf = self._ctx.Array("B", nbytes, lock=False)
+                self._ring_bufs.append(buf)
+                self._rings.append(native.ShmRing(buf, config.shm_ring_rows,
+                                                  self.row_width, init=True))
 
     # --- lifecycle ---
 
@@ -108,6 +148,8 @@ class ActorPool:
                 log_std_min=self.config.sac_log_std_min,
                 log_std_max=self.config.sac_log_std_max,
                 warmup_uniform=self.warmup_budget_per_worker(),
+                ring_buf=self._ring_bufs[worker_id] if self._rings else None,
+                ring_rows=self.config.shm_ring_rows,
             ),
             daemon=True,
             name=f"actor-{worker_id}",
@@ -155,19 +197,57 @@ class ActorPool:
 
     # --- experience (workers -> replay) ---
 
-    def drain_batches(self) -> List[Dict[str, np.ndarray]]:
-        """Pop every pending transition batch (field dicts) without
-        blocking; the episodes that rode along go to episode_stats()."""
+    def _rows_to_batch(self, rows: np.ndarray) -> Dict[str, np.ndarray]:
+        o, a = self.spec.obs_dim, self.spec.act_dim
+        return {
+            "obs": rows[:, :o],
+            "action": rows[:, o:o + a],
+            "reward": rows[:, o + a],
+            "discount": rows[:, o + a + 1],
+            "next_obs": rows[:, o + a + 2:2 * o + a + 2],
+        }
+
+    def _pop_ring_batches(self, max_rows: Optional[int]) -> List[Dict[str, np.ndarray]]:
         out = []
+        remaining = (self.config.shm_ring_rows * self.num_actors if max_rows is None
+                     else int(max_rows))
+        for ring in self._rings:
+            if remaining <= 0:
+                break
+            # Ask for no more than the ring holds: pop allocates the request.
+            avail = len(ring)
+            if not avail:
+                continue
+            rows = ring.pop(min(remaining, avail))
+            if rows.shape[0]:
+                out.append(self._rows_to_batch(rows))
+                self._steps_received += rows.shape[0]
+                remaining -= rows.shape[0]
+        return out
+
+    def drain_batches(self, max_rows: Optional[int] = None) -> List[Dict[str, np.ndarray]]:
+        """Pop pending transition batches (field dicts) without blocking,
+        at most `max_rows` transitions (the ingest rate limiter's budget;
+        on the queue the last batch may overshoot it); the episodes that
+        came with them go to episode_stats()."""
+        if self.transport == "shm":
+            out = self._pop_ring_batches(max_rows)
+        else:
+            out = []
+        moved = 0
         for q in self._queues:
             while q is not None:
+                if self.transport == "queue" and max_rows is not None and moved >= max_rows:
+                    break
                 try:
                     wid, batch, episodes = q.get_nowait()
                 except queue_mod.Empty:
                     break
-                out.append(batch)
-                self._steps_received += len(batch["reward"])
+                if batch is not None:
+                    out.append(batch)
+                    moved += len(batch["reward"])
                 self._episodes.extend((wid, r, n) for r, n in episodes)
+        self._steps_received += moved
         return out
 
     def episode_stats(self) -> List[tuple]:

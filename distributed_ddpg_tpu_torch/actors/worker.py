@@ -1,15 +1,24 @@
 """Rollout worker process: the per-worker episode loop.
 
-A trimmed copy of distributed_ddpg_tpu/actors/worker.py (queue transport;
-the shm ring, served acting, fault injection and tracing are not in the
-port yet). Each worker owns one env, one OU noise process (reset per
-episode; zeroed under SAC, whose workers sample the Gaussian policy
-instead), one n-step accumulator, and a numpy policy refreshed from the
-shared-memory param buffer. Its first `warmup_uniform` env steps take
-uniform-random actions from the box (SAC's start_steps). It streams
-n-step transitions back in batches over a bounded mp.Queue of its own and
-stamps a heartbeat every loop so the pool's monitor can respawn it if it
-dies or goes silent.
+A trimmed copy of distributed_ddpg_tpu/actors/worker.py (served acting,
+fault injection and tracing are not in the port yet). Each worker owns one
+env, one OU noise process (reset per episode; zeroed under SAC, whose
+workers sample the Gaussian policy instead), one n-step accumulator, and a
+numpy policy refreshed from the shared-memory param buffer. Its first
+`warmup_uniform` env steps take uniform-random actions from the box (SAC's
+start_steps). It streams n-step transitions back in batches and stamps a
+heartbeat every loop so the pool's monitor can respawn it if it dies or
+goes silent. Two transports:
+
+- shm (`ring_buf` given): rows packed [obs, action, reward, discount,
+  next_obs, version] are pushed into the worker's SPSC ring
+  (native.ShmRing); rows the ring has no room for are carried to the next
+  flush, which first waits, stamping the heartbeat and with the orphan
+  guard, until the learner drains the ring (backpressure: env stepping
+  slows, no row is dropped). Finished episodes go over the worker's
+  bounded queue when it has room;
+- queue: each batch, with the episodes finished since the last, over the
+  worker's bounded mp.Queue.
 
 Workers never import torch (policy.py), so they never touch CUDA.
 """
@@ -34,7 +43,7 @@ def run_worker(
     action_high,
     shared_params,          # mp.Array('f'), flat actor params
     param_version,          # mp.Value('l'), seqlock version
-    transition_queue,       # this worker's mp.Queue
+    transition_queue,       # this worker's mp.Queue (batches, or episodes only on shm)
     heartbeat,              # mp.Array('d', num_workers)
     stop_flag,              # mp.Value('b')
     ou_theta: float,
@@ -48,8 +57,14 @@ def run_worker(
     log_std_min: float = -5.0,
     log_std_max: float = 2.0,
     warmup_uniform: int = 0,         # uniform-random actions for the first N steps
+    ring_buf=None,                   # mp.Array('B') of this slot's ShmRing, or None
+    ring_rows: int = 0,
 ) -> None:
-    from distributed_ddpg_tpu_torch.actors.policy import NumpyPolicy, seqlock_snapshot
+    from distributed_ddpg_tpu_torch.actors.policy import (
+        NumpyPolicy,
+        encode_version,
+        seqlock_snapshot,
+    )
     from distributed_ddpg_tpu_torch.envs import make
     from distributed_ddpg_tpu_torch.ops.noise import OUNoise
     from distributed_ddpg_tpu_torch.replay.nstep import NStepAccumulator
@@ -67,6 +82,16 @@ def run_worker(
     seen_version = -1
     pending: list = []
     episodes: list = []     # (return, length) finished since the last send
+    # shm: attach to the slot's ring (the pool ran ring_init and built the
+    # library, so this is a dlopen). A respawned worker attaches to the
+    # same ring and goes on where the last one stopped.
+    ring = None
+    carry = None            # rows the ring had no room for at the last flush
+    if ring_buf is not None:
+        from distributed_ddpg_tpu_torch.native import ShmRing
+
+        obs_dim = layout[0][0][0]   # first layer w is (obs_dim, hidden)
+        ring = ShmRing(ring_buf, ring_rows, 2 * obs_dim + act_dim + 3)
 
     def maybe_refresh():
         nonlocal seen_version
@@ -75,7 +100,47 @@ def run_worker(
             policy.load_flat(flat_scratch)
             seen_version = v
 
+    def send_episodes():
+        """shm: the finished episodes over the queue, if it has room (else
+        they wait for the next flush)."""
+        if episodes:
+            try:
+                transition_queue.put_nowait((worker_id, None, list(episodes)))
+                episodes.clear()
+            except queue_mod.Full:
+                pass
+
+    def flush_ring():
+        nonlocal carry
+        if pending:
+            n = len(pending)
+            o = pending[0][0].shape[-1]
+            rows = np.empty((n, ring.width), np.float32)
+            rows[:, :o] = np.stack([p[0] for p in pending])
+            rows[:, o:o + act_dim] = np.stack([p[1] for p in pending])
+            rows[:, o + act_dim] = [p[2] for p in pending]
+            rows[:, o + act_dim + 1] = [p[3] for p in pending]
+            rows[:, o + act_dim + 2:2 * o + act_dim + 2] = np.stack([p[4] for p in pending])
+            rows[:, -1] = encode_version(seen_version)
+            pending.clear()
+            carry = rows if carry is None else np.concatenate([carry, rows])
+        send_episodes()
+        # Backpressure as a full queue gives it: wait (stamping the
+        # heartbeat, so the monitor does not respawn a throttled worker)
+        # until the learner drains the ring.
+        while carry is not None and not stop_flag.value:
+            if parent_pid and os.getppid() != parent_pid:
+                return   # orphaned: the drainer is gone
+            accepted = ring.push(carry)
+            carry = carry[accepted:] if accepted < carry.shape[0] else None
+            if carry is not None:
+                heartbeat[worker_id] = time.time()
+                time.sleep(0.001)
+
     def flush():
+        if ring is not None:
+            flush_ring()
+            return
         if not pending:
             return
         batch = {

@@ -92,9 +92,12 @@ def _snapshot(step: int, state: TrainState, replay, env_steps: int,
               v_bounds=None) -> Dict[str, Any]:
     """Everything on the host: the only part that reads device memory. Once
     it returns the learner may go on updating its state and the replay;
-    the write can run on any thread. The replay's D2H copy is queued on
-    the current stream, so it reads the priorities a chunk queued before
-    it wrote."""
+    the write can run on any thread. The replay's state_dict holds its
+    dispatch_lock, so its rows, ptr, size and priorities are those between
+    two ships, whichever thread ships; its D2H copy is queued on the
+    current stream, so it reads the priorities a chunk queued before it
+    wrote. (Rows still staged on the host are not saved, as in the JAX
+    package.)"""
     ckpt: Dict[str, Any] = {
         "state": train_state_to_flat(state),
         "meta": {"env_steps": int(env_steps)},

@@ -87,11 +87,38 @@ class DDPGConfig:
     ou_sigma: float = 0.2
     ou_dt: float = 1.0
 
+    # Device-replay ingest pipeline (replay/device.py). ingest_async ships
+    # host->device off the driver's thread (bounded by the 16-block staging
+    # ring: a full ring blocks the drain, backpressure), so the insert's
+    # copy queues behind the running chunk without holding the driver; on
+    # D > 1 ranks it is off (every rank must insert at the same point of
+    # its loop). ingest_coalesce caps how many staged blocks fold into one
+    # insert (power-of-two groups; 1 = block-at-a-time ships).
+    ingest_async: bool = True
+    ingest_coalesce: int = 8
+    # The transfer scheduler (transfer/scheduler.py): one dispatch thread
+    # owns the replay's ingest ships (prioritized work classes, byte-fair
+    # between the bulk ones). The two policies below run only with it.
+    transfer_scheduler: bool = True
+    # The effective coalesce cap grows (x2, up to ingest_coalesce) while
+    # the staging queue backs up and shrinks on a dispatch stall
+    # (transfer/adaptive.py); replay contents are the same for any cap.
+    ingest_coalesce_adaptive: bool = True
+    # Pooled staging buffers for the insert's H2D copy
+    # (transfer/hostbuf.py): pinned on the card, so the copy is
+    # non-blocking; each is fenced on an event after the insert.
+    transfer_host_pool: bool = True
+
     # --- topology ---
     num_actors: int = 1
-    # Actor->learner transport. The port has the queue transport only;
-    # "auto" resolves to it. The shm ring needs the C++ native core.
+    # Actor->learner transport: "shm" = a C++ SPSC ring in shared memory a
+    # worker (native/ring.cpp, built with g++ at first use; raises if it
+    # cannot be built); "queue" = an mp.Queue a worker; "auto" = shm
+    # whenever the ring can be built, else queue (said once on stderr).
     transport: str = "auto"
+    # Rows a worker's ring holds: a full ring blocks its worker, as a full
+    # queue does.
+    shm_ring_rows: int = 4096
     # Data-parallel ranks (parallel/mesh.py): -1 = every rank of the
     # torch.distributed group (one when there is none); any other value
     # must equal the group's size.
@@ -99,6 +126,10 @@ class DDPGConfig:
     # True: batch_size is per rank, the global batch batch_size * D; False:
     # batch_size is the global batch, split over the D ranks.
     scale_batch_with_data: bool = True
+    # Ingest rate limiter: drained env steps <= replay_min_size + ratio *
+    # learner steps; past it the transports fill and the workers block.
+    # 0 = free-running.
+    max_ingest_ratio: float = 0.0
     # Learner steps <= replay_min_size + ratio * env steps; 0 = free-running.
     max_learn_ratio: float = 0.0
     param_refresh_every: int = 1     # learner steps between actor param refresh
@@ -334,11 +365,28 @@ class DDPGConfig:
                 f"compute_dtype must be 'float32' or 'bfloat16', got "
                 f"{self.compute_dtype!r}"
             )
-        if self.transport not in ("auto", "queue"):
+        if self.transport not in ("auto", "shm", "queue"):
             raise ValueError(
-                f"transport={self.transport!r} is not implemented in the "
-                "PyTorch port yet (the shm ring needs the native C++ core); "
-                "use 'queue' or 'auto'"
+                f"transport must be 'auto', 'shm', or 'queue', got "
+                f"{self.transport!r}"
+            )
+        if self.shm_ring_rows < 1:
+            raise ValueError("shm_ring_rows must be >= 1")
+        if self.ingest_coalesce < 1:
+            raise ValueError("ingest_coalesce must be >= 1")
+        if self.max_ingest_ratio < 0:
+            raise ValueError("max_ingest_ratio must be >= 0 (0 = unlimited)")
+        if (
+            self.max_learn_ratio > 0
+            and self.max_ingest_ratio > 0
+            and self.max_learn_ratio * self.max_ingest_ratio < 1.0
+        ):
+            raise ValueError(
+                "max_learn_ratio * max_ingest_ratio < 1 livelocks: each "
+                "counter waits on the other and neither allowance can ever "
+                "open. With product >= 1 (e.g. both 1.0 — the equal-return "
+                "gate pinning ~1 grad step per env step from BOTH sides) "
+                "the two advance together at the slower side's pace."
             )
         if self.data_axis == 0 or self.data_axis < -1:
             raise ValueError(

@@ -342,24 +342,35 @@ class ShardedLearner:
         drawn on the device, then one kernel launch (or the scan route's K
         steps). `idx` ([K, B] ints) and `eps` (the noise) replace the
         draws: on the mesh launch this rank's own [K, b_local], on the
-        scan route the global [K, B * D] every rank draws."""
-        storage, size = device_replay.device_state()
+        scan route the global [K, B * D] every rank draws.
+
+        The draw reads the replay's host `size` and the gather is issued
+        under its dispatch_lock, so an insert (on whatever thread ships)
+        lands wholly before or wholly after it in the stream, with ptr and
+        size moving together with the rows."""
+        with device_replay.dispatch_lock:
+            storage, size = device_replay.device_state()
+            if self.fused_mesh_active:
+                if idx is None:
+                    idx = torch.randint(0, max(int(size), 1), (self.chunk_size, self.b_local),
+                                        generator=self._rank_gen, device=self.device)
+                packed = storage[idx.to(self.device)]
+            else:
+                if idx is None:
+                    idx = torch.randint(
+                        0, max(int(size), 1), (self.chunk_size, self.global_batch),
+                        generator=self._gen, device=self.device,
+                    )
+                packed = storage[self._cols(idx).to(self.device)]
+        # The gathered rows are the chunk's own copy: the chunk itself
+        # needs no lock.
         if self.fused_mesh_active:
-            if idx is None:
-                idx = torch.randint(0, max(int(size), 1), (self.chunk_size, self.b_local),
-                                    generator=self._rank_gen, device=self.device)
             if eps is None:
                 eps = self._noise(self.b_local, device_fold=self.rank)
-            return self._run(storage[idx.to(self.device)], eps, kernel=True)
-        if idx is None:
-            idx = torch.randint(
-                0, max(int(size), 1), (self.chunk_size, self.global_batch),
-                generator=self._gen, device=self.device,
-            )
+            return self._run(packed, eps, kernel=True)
         if eps is None:
             eps = self._noise(self.global_batch)
-        return self._run(storage[self._cols(idx).to(self.device)], self._cols(eps),
-                         kernel=self.fused_chunk_active)
+        return self._run(packed, self._cols(eps), kernel=self.fused_chunk_active)
 
     def run_sample_chunk_per(self, device_replay, beta: float,
                              idx: Optional[torch.Tensor] = None,
@@ -378,24 +389,29 @@ class ShardedLearner:
         rank. Priorities and max_priority are updated in place, on the
         device and in stream order, with no host read: an insert issued
         after this call returns stamps the new max. `idx` and `weights`
-        ([K, B * D], given together) replace the draw, `eps` the noise."""
-        storage, size, priorities, max_priority = device_replay.per_state()
+        ([K, B * D], given together) replace the draw, `eps` the noise.
+        The whole sequence is issued under the replay's dispatch_lock, as
+        the JAX learner dispatches it: no insert or stamp falls between
+        the draw and the priority write, so a stamp never loses to the
+        write of a row it replaced."""
         if (idx is None) != (weights is None):
             raise ValueError("idx and weights replace the PER draw together")
-        if idx is None:
-            idx, weights = draw_per_indices(
-                priorities, size, (self.chunk_size, self.global_batch), beta,
-                generator=self._gen)
-        if eps is None:
-            eps = self._noise(self.global_batch)
-        idx = idx.to(self.device)
-        packed = storage[self._cols(idx)]
-        packed[..., -1] = self._cols(weights).to(self.device, torch.float32)
-        out = self._run(packed, self._cols(eps), kernel=self.fused_per_active)
-        new_p = (out.td_errors.abs() + device_replay.eps) ** device_replay.alpha
-        scatter_last_wins(priorities, idx.reshape(-1), new_p.reshape(-1))
-        torch.maximum(max_priority, new_p.max(), out=max_priority)
-        return out
+        with device_replay.dispatch_lock:
+            storage, size, priorities, max_priority = device_replay.per_state()
+            if idx is None:
+                idx, weights = draw_per_indices(
+                    priorities, size, (self.chunk_size, self.global_batch), beta,
+                    generator=self._gen)
+            if eps is None:
+                eps = self._noise(self.global_batch)
+            idx = idx.to(self.device)
+            packed = storage[self._cols(idx)]
+            packed[..., -1] = self._cols(weights).to(self.device, torch.float32)
+            out = self._run(packed, self._cols(eps), kernel=self.fused_per_active)
+            new_p = (out.td_errors.abs() + device_replay.eps) ** device_replay.alpha
+            scatter_last_wins(priorities, idx.reshape(-1), new_p.reshape(-1))
+            torch.maximum(max_priority, new_p.max(), out=max_priority)
+            return out
 
     def run_chunk(self, np_batches: Dict[str, np.ndarray]) -> StepOutput:
         """K learner steps on host-fed [K, B * D, ...] stacked minibatches

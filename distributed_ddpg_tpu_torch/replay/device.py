@@ -1,21 +1,52 @@
-"""Device-resident uniform replay: the packed ring lives in device memory.
+"""Device-resident replay: the packed ring lives in device memory.
 
-Counterpart of distributed_ddpg_tpu/replay/device.py (DeviceReplay,
-uniform, one process). The packed [capacity, 2*obs+act+3] f32 ring sits on
-the learner's device; the learner samples it there (one gather of K*B rows
-per chunk, parallel/learner.py), so a chunk needs no host->device copy.
+Counterpart of distributed_ddpg_tpu/replay/device.py (DeviceReplay and
+DevicePrioritizedReplay, one process, replicated storage). The packed
+[capacity, 2*obs+act+3] f32 ring sits on the learner's device; the learner
+samples it there (one gather of K*B rows per chunk, parallel/learner.py),
+so a chunk needs no host->device copy.
 
-Ingest: `add_packed` stages actor rows in a host ring (replay/staging.py)
-and, synchronously, ships every full block as ONE coalesced wrap-around
-insert (two slice copies when it wraps). The trainer ingests between
-chunks, so inserts land at chunk boundaries. Positions, `ptr` and `size`
-follow exactly the JAX package's block-at-a-time sequence: an insert never
-exceeds the capacity, so no position is written twice in one copy. The
-JAX package's background shipper, transfer scheduler, multi-host and
-sharded modes are later work.
+Ingest pipeline (the JAX package's, port of its `_IngestShipper`,
+`dispatch_lock` and transfer-scheduler items):
+
+- `add_packed` stages actor rows in a host ring (replay/staging.py, 16
+  blocks) and returns; full blocks ship as COALESCED super-blocks: up to
+  the coalesce cap (`max_coalesce`, or the adaptive controller's
+  effective cap, transfer/adaptive.py) of staged blocks, a power of two,
+  in one insert, at most the capacity, so no position is written twice
+  in one insert;
+- an insert is one H2D copy straight into the ring's slice (two when it
+  wraps), on the learner's stream. With `host_pool` the rows are popped
+  into a pooled staging buffer (transfer/hostbuf.py; pinned on the
+  card), the copy is non-blocking, and the buffer is fenced on a CUDA
+  event recorded right after the insert, so it is reused only once the
+  copy has run. A pageable copy (no pool) makes CUDA wait for the
+  running chunk before it starts, holding whichever thread shipped;
+- with `async_ship` the ships run off the caller's thread: on the
+  transfer scheduler's dispatch thread as ingest items when a
+  `scheduler` is given (one item in flight, re-armed while full blocks
+  remain), else on a private shipper thread. The producer blocks only
+  when the staging ring is full (`ingest_stall_ms`). A failed ship
+  restarts the shipper (or resubmits the item) up to 3 times, then the
+  producer's next call raises IngestError. `close()` stops it; later
+  inserts ship inline;
+- `dispatch_lock` (an RLock) serializes every sequence that reads or
+  moves ptr/size with the device work it issues: each ship (pop, copy,
+  PER stamp, ptr/size), each chunk's draw and gather (parallel/learner.py),
+  reward_sample, state_dict and load_state_dict. So the stream order of
+  inserts and chunks is the order the host saw ptr and size change in,
+  whatever thread shipped: a chunk dispatched before an insert gathers
+  the rows as they were, and one dispatched after sees the new rows;
+- positions, `ptr`, `size` and the PER stamps are bit-identical to the
+  serial block-at-a-time sequence (max_coalesce=1) for any cap sequence:
+  rows land in FIFO order at consecutive positions mod capacity, and
+  `flush` pads the remainder by repetition to one block, as the JAX
+  package's does.
 
 `ptr` and `size` are host integers: the host drives every insert, so it
-knows them without reading the device.
+knows them without reading the device. The JAX package's multi-host
+sync_ship, sharded placement, source tracking and device-actor inserts
+are later work.
 
 DevicePrioritizedReplay adds proportional PER on the device, as the JAX
 package's does: an f32 [capacity] priority vector and a 0-d max priority,
@@ -27,12 +58,18 @@ the device back.
 
 from __future__ import annotations
 
+import contextlib
+import sys
+import threading
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from distributed_ddpg_tpu_torch.metrics import IngestStats
 from distributed_ddpg_tpu_torch.replay.staging import HostStagingRing
+from distributed_ddpg_tpu_torch.transfer import AdaptiveCoalesce, HostBufferPool
 from distributed_ddpg_tpu_torch.types import packed_width
 
 
@@ -110,9 +147,55 @@ def scatter_last_wins(target: torch.Tensor, idx: torch.Tensor, vals: torch.Tenso
     target[sorted_idx] = vals[order[last]]
 
 
+class IngestError(RuntimeError):
+    """The background ingest shipper (or the scheduler's ingest work)
+    died past its restart budget; the original exception rides along as
+    __cause__."""
+
+
+class _IngestShipper:
+    """The private background shipper (async_ship without a scheduler):
+    moves staged full blocks to the device off the producer's thread. The
+    staging ring is its bounded buffer: a full ring blocks producers in
+    add_packed."""
+
+    def __init__(self, replay: "DeviceReplay"):
+        self._replay = replay
+        self._stop = threading.Event()
+        self.exc: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, daemon=True, name="ingest-ship")
+
+    def start(self) -> "_IngestShipper":
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        r = self._replay
+        try:
+            while not self._stop.is_set():
+                with r._staging:
+                    while len(r._ring) < r.block_size and not self._stop.is_set():
+                        r._staging.wait(0.1)
+                if self._stop.is_set():
+                    return
+                r._drain_ring()
+        except Exception as e:   # surfaces in the producer's next call
+            self.exc = e
+            with r._staging:
+                r._staging.notify_all()   # unblock backpressure waiters
+
+    def stop(self, timeout: float = 5.0) -> None:
+        self._stop.set()
+        with self._replay._staging:
+            self._replay._staging.notify_all()
+        self._thread.join(timeout=timeout)
+
+
 class DeviceReplay:
     def __init__(self, capacity: int, obs_dim: int, act_dim: int, device="cpu",
-                 block_size: int = 4096, staging_blocks: int = 16):
+                 block_size: int = 4096, staging_blocks: int = 16,
+                 async_ship: bool = False, max_coalesce: int = 8, scheduler=None,
+                 adaptive_coalesce: bool = False, host_pool: bool = False):
         self.capacity = int(capacity)
         self.obs_dim, self.act_dim = obs_dim, act_dim
         self.block_size = int(block_size)
@@ -123,8 +206,37 @@ class DeviceReplay:
         )
         self.ptr = 0
         self.size = 0
+        on_card = self.device.type == "cuda"
+        # The learner's stream (the constructing thread's current one): a
+        # shipping thread enters it, since torch's current stream is per
+        # thread.
+        self._stream = torch.cuda.current_stream(self.device) if on_card else None
+
+        self._max_coalesce = max(1, int(max_coalesce))
         self._ring = HostStagingRing(
             self.width, max(1, int(staging_blocks)) * self.block_size
+        )
+        # Producers push under the staging condition, ships pop under it,
+        # and backpressure waits on it.
+        self._staging = threading.Condition()
+        self.dispatch_lock = threading.RLock()
+        self._stats = IngestStats()
+        self._shipper_restarts = 0
+        self._max_shipper_restarts = 3
+
+        self._sched = scheduler
+        self._adaptive = (
+            AdaptiveCoalesce(hi=self._max_coalesce, block_size=self.block_size)
+            if adaptive_coalesce and self._max_coalesce > 1 else None
+        )
+        self._pool = HostBufferPool(self.width, pin=on_card) if host_pool else None
+        self._ingest_inflight = False
+        self._ingest_ticket = None
+        self._ingest_exc: Optional[BaseException] = None
+        self._async = bool(async_ship)
+        self._sched_ingest = self._async and self._sched is not None
+        self._shipper = (
+            _IngestShipper(self).start() if self._async and not self._sched_ingest else None
         )
 
     def __len__(self) -> int:
@@ -132,44 +244,254 @@ class DeviceReplay:
 
     @property
     def pending_rows(self) -> int:
-        return len(self._ring)
+        """Rows staged on the host and not yet shipped."""
+        with self._staging:
+            return len(self._ring)
 
-    def _insert(self, rows: np.ndarray) -> None:
-        """Write rows at ptr, ptr+1, ... mod capacity (len(rows) <= capacity)."""
-        m = len(rows)
-        block = torch.from_numpy(rows).to(self.device)
-        first = min(m, self.capacity - self.ptr)
-        self.storage[self.ptr:self.ptr + first] = block[:first]
-        if m > first:
-            self.storage[:m - first] = block[first:]
-        self.ptr = (self.ptr + m) % self.capacity
-        self.size = min(self.size + m, self.capacity)
+    def ingest_snapshot(self) -> dict:
+        """The interval's ingest_* fields (metrics.IngestStats) and the
+        shipper's cumulative restart count."""
+        out = self._stats.snapshot(pending_rows=self.pending_rows)
+        out["ingest_shipper_restarts"] = self._shipper_restarts
+        return out
+
+    def transfer_snapshot(self) -> dict:
+        """The replay's transfer_* fields: the adaptive cap's trajectory
+        and the host pool's gauges (the scheduler's own counters are its
+        snapshot; train.py merges both)."""
+        out = {}
+        if self._adaptive is not None:
+            out.update(self._adaptive.snapshot())
+        if self._pool is not None:
+            out.update(self._pool.snapshot())
+        return out
+
+    def close(self) -> None:
+        """Stop the background shipper, if any, and detach from the
+        scheduler; later add_packed calls ship inline, so teardown
+        stragglers still land."""
+        if self._shipper is not None:
+            self._shipper.stop()
+            self._shipper = None
+            self._async = False
+        if self._sched_ingest:
+            self._sched_ingest = False
+            self._async = False
+
+    # --- host -> device ---
+
+    def _on_stream(self):
+        return torch.cuda.stream(self._stream) if self._stream is not None \
+            else contextlib.nullcontext()
+
+    def _check_shipper(self) -> None:
+        """Surface, or recover from, a dead shipper. Staged rows stay in
+        the ring until a ship pops them, so a crash loses at most the one
+        super-block in flight, and a bounded number of restarts is safe;
+        past the budget the failure is structural and raises."""
+        s = self._shipper
+        if s is not None and s.exc is not None:
+            if self._shipper_restarts < self._max_shipper_restarts:
+                self._shipper_restarts += 1
+                exc, s.exc = s.exc, None
+                print(f"[ingest] shipper thread died ({exc!r}); restarting "
+                      f"({self._shipper_restarts}/{self._max_shipper_restarts})",
+                      file=sys.stderr, flush=True)
+                self._shipper = _IngestShipper(self).start()
+                return
+            raise IngestError("ingest shipper thread died") from s.exc
+        # The scheduler's equivalent: a failed ingest item (its own
+        # exception, or the scheduler's death failing its ticket) takes
+        # the same budget, resubmitted until it is spent.
+        t = self._ingest_ticket
+        if t is not None and t.done() and t.exception is not None:
+            with self._staging:
+                self._ingest_inflight = False
+            self._ingest_exc = self._ingest_exc or t.exception
+            self._ingest_ticket = None
+        exc = self._ingest_exc
+        if exc is not None:
+            self._ingest_exc = None
+            if self._shipper_restarts < self._max_shipper_restarts:
+                self._shipper_restarts += 1
+                print(f"[ingest] transfer ingest work died ({exc!r}); resubmitting "
+                      f"({self._shipper_restarts}/{self._max_shipper_restarts})",
+                      file=sys.stderr, flush=True)
+                if self._sched_ingest:
+                    with self._staging:
+                        self._submit_ingest_locked()
+                return
+            raise IngestError("ingest shipper thread died") from exc
+
+    def _coalesce_k(self, n_blocks: int, cap_blocks: int, cap: Optional[int] = None) -> int:
+        """Blocks to fold into the next ship: the largest power of two <=
+        min(staged, the coalesce cap, the capacity in blocks). Capped by
+        the capacity, so every position within one insert is distinct."""
+        k = min(n_blocks, cap or self._max_coalesce, max(1, cap_blocks))
+        if k <= 0:
+            return 0
+        return 1 << (k.bit_length() - 1)
+
+    def _effective_coalesce(self) -> int:
+        return self._adaptive.cap() if self._adaptive is not None else self._max_coalesce
+
+    def _fence(self):
+        """A CUDA event recorded on the learner's stream after the last
+        insert (None on the CPU, where the copy has already run)."""
+        if self._stream is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(self._stream)
+        return ev
+
+    def _drain_step(self) -> int:
+        """Ship ONE coalesced super-block if a full block is staged;
+        returns rows shipped. Pop and ship happen under the dispatch lock,
+        so the device order is the ring's FIFO order whichever thread
+        ships (inline, the shipper, the scheduler)."""
+        cap_blocks = self.capacity // self.block_size
+        with self.dispatch_lock:
+            with self._staging:
+                k = self._coalesce_k(len(self._ring) // self.block_size, cap_blocks,
+                                     cap=self._effective_coalesce())
+            if k == 0:
+                return 0
+            n = k * self.block_size
+            # Acquire outside the staging condition (it may wait on a
+            # fence), pop into it under the condition. The ring can only
+            # grow in between (every popper holds dispatch_lock).
+            buf = self._pool.acquire(n) if self._pool is not None else None
+            with self._staging:
+                rows = self._ring.pop_into(n, buf) if buf is not None else self._ring.pop(n)
+                self._staging.notify_all()
+            t0 = time.perf_counter()
+            try:
+                self._ship(rows)
+            except BaseException:
+                if buf is not None:
+                    # Not consumed: back unfenced, so a resubmit does not
+                    # find the pool drained.
+                    self._pool.commit(buf, None)
+                raise
+            dt = time.perf_counter() - t0
+            self._stats.record_ship(n, k, dt)
+            if buf is not None:
+                self._pool.commit(buf, self._fence())
+            if self._adaptive is not None:
+                with self._staging:
+                    queue_rows = len(self._ring)
+                self._adaptive.observe_ship(k, dt, queue_rows)
+        return n
 
     def _drain_ring(self) -> int:
-        """Ship every staged full block, as few inserts as the capacity
-        allows. Returns rows shipped."""
-        cap_blocks = max(1, self.capacity // self.block_size)
+        """Ship every full block staged now, coalesced. Returns rows shipped."""
         shipped = 0
-        while len(self._ring) >= self.block_size:
-            k = min(len(self._ring) // self.block_size, cap_blocks)
-            self._insert(self._ring.pop(k * self.block_size))
-            shipped += k * self.block_size
-        return shipped
+        while True:
+            n = self._drain_step()
+            if n == 0:
+                return shipped
+            shipped += n
+
+    def _submit_ingest_locked(self) -> None:
+        """Queue one ingest item on the scheduler if a full block is staged
+        and none is in flight. The caller holds _staging."""
+        if (not self._sched_ingest or self._ingest_inflight
+                or len(self._ring) < self.block_size):
+            return
+        self._ingest_inflight = True
+        try:
+            self._ingest_ticket = self._sched.submit(
+                "ingest", self._scheduled_drain_step, label="ingest_ship")
+        except Exception as e:
+            # A dead or closed scheduler surfaces through _check_shipper,
+            # not as a TransferError from whoever staged rows.
+            self._ingest_inflight = False
+            self._ingest_exc = self._ingest_exc or e
+
+    def _scheduled_drain_step(self) -> int:
+        """One scheduler-dispatched ship, re-armed while full blocks remain
+        (one item in flight, so the fair queue can interleave other
+        classes between super-blocks). Returns bytes moved."""
+        try:
+            shipped = self._drain_step()
+        except Exception as e:
+            with self._staging:
+                self._ingest_inflight = False
+                self._ingest_exc = e
+                self._staging.notify_all()
+            return 0
+        with self._staging:
+            self._ingest_inflight = False
+            self._submit_ingest_locked()
+        return shipped * self.width * 4
 
     def add_packed(self, block: np.ndarray) -> None:
-        """Stage packed [M, D] rows; ship whatever full blocks are staged."""
-        self._ring.push(np.asarray(block, np.float32))
+        """Stage packed [M, D] rows; ship the full blocks (inline, or on the
+        shipper with async_ship, where a full staging ring blocks here:
+        backpressure, counted in ingest_stall_ms)."""
+        self._check_shipper()
+        rows = np.asarray(block, np.float32)
+        stall = 0.0
+        with self._staging:
+            if self._async:
+                t0 = time.perf_counter()
+                while (len(self._ring) + len(rows) > self._ring.capacity
+                       and len(self._ring) >= self.block_size):
+                    self._staging.wait(0.05)
+                    self._check_shipper()
+                    if not self._async:
+                        break   # close() raced us: push (the ring grows), ship inline
+                stall = time.perf_counter() - t0
+            self._ring.push(rows)
+            self._stats.record_push(len(rows), stall)
+            self._staging.notify_all()
+            self._submit_ingest_locked()
+        if self._async:
+            return
         self._drain_ring()
 
-    def flush(self) -> None:
+    def drain_pending(self) -> int:
+        """Ship every staged full block and wait until the inserts have run
+        on the device: the barrier before reading storage."""
+        self._check_shipper()
+        moved = self._drain_ring()
+        with self.dispatch_lock:
+            if self._stream is not None:
+                self._stream.synchronize()
+        return moved
+
+    def flush(self, min_rows: int = 1) -> None:
         """Force pending rows out, padded by repetition to the block shape
         (warmup and shutdown only, as in the JAX package)."""
+        self._check_shipper()
         self._drain_ring()
-        n = len(self._ring)
-        if n > 0:
-            rows = self._ring.pop(n)
-            reps = -(-self.block_size // n)
-            self._insert(np.tile(rows, (reps, 1))[: min(self.block_size, self.capacity)])
+        with self.dispatch_lock:
+            with self._staging:
+                n = len(self._ring)
+                rows = self._ring.pop(n) if (n >= min_rows and n > 0) else None
+                if rows is not None:
+                    self._staging.notify_all()
+            if rows is not None:
+                reps = -(-self.block_size // n)
+                t0 = time.perf_counter()
+                self._ship(np.tile(rows, (reps, 1))[: min(self.block_size, self.capacity)])
+                self._stats.record_ship(n, 1, time.perf_counter() - t0)
+
+    def _ship(self, rows: np.ndarray) -> None:
+        """Write rows at ptr, ptr+1, ... mod capacity (len(rows) <=
+        capacity): one H2D copy into the ring's slice, two when it wraps,
+        on the learner's stream; non-blocking from pinned memory. The
+        caller holds dispatch_lock."""
+        m = len(rows)
+        src = torch.from_numpy(rows)
+        pinned = self._stream is not None and src.is_pinned()
+        first = min(m, self.capacity - self.ptr)
+        with self._on_stream():
+            self.storage[self.ptr:self.ptr + first].copy_(src[:first], non_blocking=pinned)
+            if m > first:
+                self.storage[:m - first].copy_(src[first:], non_blocking=pinned)
+        self.ptr = (self.ptr + m) % self.capacity
+        self.size = min(self.size + m, self.capacity)
 
     def reward_sample(self, max_n: int = 100_000):
         """(reward, discount) columns of up to max_n filled rows, pulled to
@@ -178,36 +500,44 @@ class DeviceReplay:
         discount == 0 marks the terminal rows). A ring fuller than max_n is
         read at an even stride over its live rows, not as a stale prefix."""
         col = self.obs_dim + self.act_dim
-        n = min(self.size, int(max_n))
-        if n == self.size:
-            cols = self.storage[:n, col:col + 2]
-        else:
-            idx = torch.from_numpy(np.linspace(0, self.size - 1, n).astype(np.int64))
-            cols = self.storage[idx.to(self.device), col:col + 2]
-        pend = self._ring.peek(min(len(self._ring), int(max_n)))[:, col:col + 2]
-        cols = np.concatenate([cols.cpu().numpy(), pend])
+        with self.dispatch_lock:
+            n = min(self.size, int(max_n))
+            if n == self.size:
+                cols = self.storage[:n, col:col + 2]
+            else:
+                idx = torch.from_numpy(np.linspace(0, self.size - 1, n).astype(np.int64))
+                cols = self.storage[idx.to(self.device), col:col + 2]
+            cols = cols.cpu().numpy()
+            # Still under the lock: no ship moves rows between the two reads.
+            with self._staging:
+                pend = self._ring.peek_cols(col, 2, int(max_n))
+        if len(pend):
+            cols = np.concatenate([cols, pend])
         return cols[:, 0], cols[:, 1]
 
     def device_state(self):
-        """(storage [capacity, D] on the device, size) for the sampler."""
+        """(storage [capacity, D] on the device, size) for the sampler; the
+        caller holds dispatch_lock from here to its gather."""
         return self.storage, self.size
 
     def state_dict(self):
-        return {
-            "packed": self.storage[: self.size].cpu().numpy().copy(),
-            "ptr": np.asarray(self.ptr),
-            "size": np.asarray(self.size),
-        }
+        with self.dispatch_lock:
+            return {
+                "packed": self.storage[: self.size].cpu().numpy().copy(),
+                "ptr": np.asarray(self.ptr),
+                "size": np.asarray(self.size),
+            }
 
     def load_state_dict(self, state) -> None:
         n = int(state["size"])
         if n > self.capacity:
             raise ValueError(f"checkpointed size {n} exceeds capacity {self.capacity}")
-        self.storage[:n] = torch.as_tensor(
-            np.asarray(state["packed"], np.float32), device=self.device
-        )
-        self.ptr = int(state["ptr"]) % self.capacity
-        self.size = n
+        with self.dispatch_lock:
+            self.storage[:n] = torch.as_tensor(
+                np.asarray(state["packed"], np.float32), device=self.device
+            )
+            self.ptr = int(state["ptr"]) % self.capacity
+            self.size = n
 
 
 class DevicePrioritizedReplay(DeviceReplay):
@@ -223,27 +553,34 @@ class DevicePrioritizedReplay(DeviceReplay):
       the chunk's rows back with scatter_last_wins, then raises
       max_priority to the chunk's largest, in place on the device
       (parallel/learner.py run_sample_chunk_per). The stamp and the
-      chunk's write run on one CUDA stream in the order they were
-      issued, so an insert made while a chunk runs stamps that chunk's
-      new max priority, as the JAX package's dispatch lock ensures.
+      chunk's write are issued under dispatch_lock, from whichever
+      thread, and run on the learner's stream in that order, so an insert
+      made while a chunk runs stamps that chunk's new max priority, as
+      the JAX package's dispatch lock ensures.
     """
 
     def __init__(self, capacity: int, obs_dim: int, act_dim: int, device="cpu",
                  block_size: int = 4096, staging_blocks: int = 16,
-                 alpha: float = 0.6, eps: float = 1e-6):
-        super().__init__(capacity, obs_dim, act_dim, device, block_size, staging_blocks)
+                 alpha: float = 0.6, eps: float = 1e-6, **pipeline):
+        # The priorities exist before the base class can start a shipper.
+        self.priorities = torch.zeros(int(capacity), dtype=torch.float32, device=device)
+        self.max_priority = torch.ones((), dtype=torch.float32, device=device)
         self.alpha = float(alpha)
         self.eps = float(eps)
-        self.priorities = torch.zeros(self.capacity, dtype=torch.float32, device=self.device)
-        self.max_priority = torch.ones((), dtype=torch.float32, device=self.device)
+        super().__init__(capacity, obs_dim, act_dim, device, block_size, staging_blocks,
+                         **pipeline)
 
-    def _insert(self, rows: np.ndarray) -> None:
+    def _ship(self, rows: np.ndarray) -> None:
+        """The insert, then its stamp: positions (old ptr + arange(m)) mod
+        capacity take the max priority, on the same stream, so a coalesced
+        ship stamps exactly what k serial ships would."""
         old_ptr, m = self.ptr, len(rows)
-        super()._insert(rows)
+        super()._ship(rows)
         first = min(m, self.capacity - old_ptr)
-        self.priorities[old_ptr:old_ptr + first].fill_(self.max_priority)
-        if m > first:
-            self.priorities[:m - first].fill_(self.max_priority)
+        with self._on_stream():
+            self.priorities[old_ptr:old_ptr + first].fill_(self.max_priority)
+            if m > first:
+                self.priorities[:m - first].fill_(self.max_priority)
 
     def per_state(self):
         """(storage, size, priorities, max_priority) for the learner's draw."""
@@ -252,25 +589,28 @@ class DevicePrioritizedReplay(DeviceReplay):
     def set_per_state(self, priorities: torch.Tensor, max_priority: torch.Tensor) -> None:
         """Install a priority vector and max priority (the learner updates
         the installed ones in place)."""
-        self.priorities = priorities
-        self.max_priority = max_priority
+        with self.dispatch_lock:
+            self.priorities = priorities
+            self.max_priority = max_priority
 
     def state_dict(self):
-        state = super().state_dict()
-        state["priorities"] = self.priorities[: self.size].cpu().numpy().copy()
-        state["max_priority"] = np.asarray(float(self.max_priority))
-        return state
+        with self.dispatch_lock:
+            state = super().state_dict()
+            state["priorities"] = self.priorities[: self.size].cpu().numpy().copy()
+            state["max_priority"] = np.asarray(float(self.max_priority))
+            return state
 
     def load_state_dict(self, state) -> None:
         """The rows, ptr and size, then the priorities (zero past size) and
         the max priority, written into the tensors this replay already
         holds: whatever read them before (per_state) reads the restored
         values, in stream order."""
-        super().load_state_dict(state)
-        if "priorities" not in state:
-            return
-        n = int(state["size"])
-        self.priorities.zero_()
-        self.priorities[:n] = torch.as_tensor(
-            np.asarray(state["priorities"], np.float32), device=self.device)
-        self.max_priority.fill_(float(state["max_priority"]))
+        with self.dispatch_lock:
+            super().load_state_dict(state)
+            if "priorities" not in state:
+                return
+            n = int(state["size"])
+            self.priorities.zero_()
+            self.priorities[:n] = torch.as_tensor(
+                np.asarray(state["priorities"], np.float32), device=self.device)
+            self.max_priority.fill_(float(state["max_priority"]))

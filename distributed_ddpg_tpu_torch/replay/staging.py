@@ -3,10 +3,12 @@
 A copy of distributed_ddpg_tpu/replay/staging.py (numpy, no framework),
 trimmed to what the port's DeviceReplay uses. A preallocated [capacity, D]
 float32 ring: push is one bounded memcpy into the tail, pop one bounded
-memcpy out of the head (two on wraparound). FIFO order is exact.
+memcpy out of the head (two on wraparound), pop_into the same into a
+caller's buffer (the host-buffer pool's, transfer/hostbuf.py). FIFO order
+is exact.
 
-The ring is not thread-safe; the port's DeviceReplay uses it from the
-learner thread only.
+The ring is not thread-safe; DeviceReplay serializes every access under
+its staging condition (the lock its backpressure waits on).
 """
 
 from __future__ import annotations
@@ -75,6 +77,23 @@ class HostStagingRing:
         self._size -= n
         return out
 
+    def pop_into(self, n: int, out: np.ndarray) -> np.ndarray:
+        """pop(), but into a caller-owned [n, width] buffer (the transfer
+        host-buffer pool's): the same FIFO semantics, no allocation."""
+        if n > self._size:
+            raise ValueError(f"pop_into({n}) from ring holding {self._size}")
+        if out.shape != (n, self.width):
+            raise ValueError(
+                f"pop_into needs a [{n}, {self.width}] buffer, got {out.shape}"
+            )
+        first = min(n, self.capacity - self._head)
+        out[:first] = self._buf[self._head : self._head + first]
+        if n > first:
+            out[first:] = self._buf[: n - first]
+        self._head = (self._head + n) % self.capacity
+        self._size -= n
+        return out
+
     def peek(self, n: int) -> np.ndarray:
         """Copy of the n oldest rows without consuming them."""
         if n > self._size:
@@ -85,4 +104,16 @@ class HostStagingRing:
         out = np.empty((n, self.width), np.float32)
         out[:first] = self._buf[self._head :]
         out[first:] = self._buf[: n - first]
+        return out
+
+    def peek_cols(self, col: int, ncols: int, max_n: int) -> np.ndarray:
+        """Copy of the oldest min(len, max_n) rows' columns [col, col +
+        ncols), without copying whole rows (reward_sample reads only the
+        reward and discount pair)."""
+        n = min(self._size, max_n)
+        first = min(n, self.capacity - self._head)
+        out = np.empty((n, ncols), np.float32)
+        out[:first] = self._buf[self._head : self._head + first, col : col + ncols]
+        if n > first:
+            out[first:] = self._buf[: n - first, col : col + ncols]
         return out

@@ -5,7 +5,17 @@ default path: uniform device replay, host actor pool, K learner steps per
 dispatch), on one learner process or on D data-parallel ranks, one card
 each (parallel/mesh.py). It covers:
 
-- the actor pool's start and the ingest of its rows into DeviceReplay;
+- the actor pool's start (on the shm transport whenever its ring can be
+  built, config.transport) and the ingest of its rows into DeviceReplay
+  through the JAX trainer's default pipeline: rows staged on the host and
+  shipped by the transfer scheduler's dispatch thread (--ingest_async,
+  --transfer_scheduler), coalesced up to an adaptive cap
+  (--ingest_coalesce, --ingest_coalesce_adaptive) from pinned pooled
+  buffers (--transfer_host_pool), so the insert's copy queues behind the
+  running chunk and the driver only stages rows; on D > 1 ranks the
+  ships stay on the driver's thread (every rank inserts at the same
+  point). Each drain is capped by --max_ingest_ratio. The scheduler is
+  made with the replay and closed after it;
 - the replay_min_size warmup;
 - chunk dispatch through ShardedLearner.run_sample_chunk (on the card,
   one launch of the hand-written chunk kernel per chunk, or on the scan
@@ -31,11 +41,19 @@ each (parallel/mesh.py). It covers:
   eval acts on the Gaussian's mode, tanh(mean);
 - a numpy eval of the deterministic policy;
 - JSONL records under the JAX trainer's names: the six learner metrics,
-  eval_return, env_steps_per_sec, learner_steps_per_sec, final_return,
+  eval_return, env_steps_per_sec, learner_steps_per_sec (in the final
+  record the rates from the warmup's end to the loop's, the teardown
+  left out), final_return,
   under D4PG v_min, v_max and support_refusals, and under PER the last
   beta, with max_priority read once, in the final record (the JAX trainer
   records no temperature, so neither does this one; train() returns the
-  final alpha under SAC).
+  final alpha under SAC); the ingest_* fields (replay/device.py
+  IngestStats) and, with the scheduler, the transfer_* fields in every
+  train record and the final one (each an interval's), and in the final
+  record and the summary the transport that ran, ingest_async_active,
+  and the driver's time in ingest while chunks ran: t_ingest_chunk_ms
+  (the mean a chunk), t_ingest_ms (the mean a call), t_ingest_max (the
+  longest call), n_ingest (calls).
 
 On D > 1 ranks every rank runs train() with its DataGroup, in lockstep:
 
@@ -254,6 +272,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     from distributed_ddpg_tpu_torch.parallel import mesh
     from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, resolve_learner_chunk
     from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay, DeviceReplay
+    from distributed_ddpg_tpu_torch.transfer import TransferScheduler
 
     lead = group is None or group.lead
     env = make(config.env_id, seed=config.seed)
@@ -265,16 +284,36 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         spec.action_offset, chunk_size=chunk, group=group,
     )
     device = learner.device
-    replay = (
-        DevicePrioritizedReplay(
-            config.replay_capacity, spec.obs_dim, spec.act_dim, device, block_size=1024,
-            alpha=config.per_alpha, eps=config.per_eps,
-        )
-        if config.prioritized
-        else DeviceReplay(
-            config.replay_capacity, spec.obs_dim, spec.act_dim, device, block_size=1024,
-        )
+    # After every check that can refuse the run, so a refusal leaks no
+    # dispatch thread; closed after the replay (teardown below).
+    transfer_sched = TransferScheduler().start() if config.transfer_scheduler else None
+    # A shipping thread would make the time an insert lands, relative to
+    # the next chunk's draw, depend on each rank's host: the replicas would
+    # part. So on D > 1 ranks the ships stay inline (the pinned pool's
+    # non-blocking copy still applies).
+    ingest_async = config.ingest_async and learner.data_size == 1
+    replay_kwargs = dict(
+        block_size=1024,
+        async_ship=ingest_async,
+        max_coalesce=config.ingest_coalesce,
+        scheduler=transfer_sched,
+        adaptive_coalesce=transfer_sched is not None and config.ingest_coalesce_adaptive,
+        host_pool=transfer_sched is not None and config.transfer_host_pool,
     )
+    try:
+        replay = (
+            DevicePrioritizedReplay(
+                config.replay_capacity, spec.obs_dim, spec.act_dim, device,
+                alpha=config.per_alpha, eps=config.per_eps, **replay_kwargs,
+            )
+            if config.prioritized
+            else DeviceReplay(config.replay_capacity, spec.obs_dim, spec.act_dim, device,
+                              **replay_kwargs)
+        )
+    except BaseException:
+        if transfer_sched is not None:
+            transfer_sched.close()
+        raise
     eval_policy = NumpyPolicy(
         param_layout(spec.obs_dim, actor_head_dim(spec.act_dim, config.sac),
                      tuple(config.actor_hidden)),
@@ -314,6 +353,15 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             return learner.config.v_min, learner.config.v_max
         return None
 
+    def ingest_fields() -> Dict[str, Any]:
+        """The interval's ingest_* and transfer_* fields (each snapshot
+        starts a new interval)."""
+        out = replay.ingest_snapshot()
+        if transfer_sched is not None:
+            out.update(transfer_sched.snapshot())
+            out.update(replay.transfer_snapshot())
+        return out
+
     def mesh_fields() -> Dict[str, Any]:
         if learner.data_size == 1:
             return {}
@@ -335,10 +383,21 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         stopping = stopping or bool(flag)
         return int(n)
 
+    def drain_budget() -> Optional[int]:
+        """The rows max_ingest_ratio lets this drain take (None = all):
+        env steps <= the warmup fill + ratio * learner steps. It caps each
+        drain, so a long gap cannot overshoot it in one call."""
+        if config.max_ingest_ratio <= 0.0:
+            return None
+        allowed = min_fill + config.max_ingest_ratio * learn_steps
+        return int(allowed) - (env_offset + pool.steps_received)
+
     def ingest() -> int:
         rows = None
         if lead:
-            batches = pool.drain_batches()
+            budget = drain_budget()
+            batches = pool.drain_batches(max_rows=budget) if budget is None or budget > 0 \
+                else []
             if batches:
                 rows = np.concatenate([pack_batch_np(batch) for batch in batches])
         rows = mesh.share_rows(rows, replay.width, group)
@@ -390,6 +449,9 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         prev_sigterm = signal.signal(signal.SIGTERM, lambda *_: preempt.set())
     except ValueError:
         pass
+    ingest_chunk_s = 0.0              # the driver's time in ingest while chunks ran
+    ingest_max_s = 0.0
+    ingest_calls = 0
     try:
         if config.resume and config.checkpoint_dir:
             restored = resume(config, learner, replay, group)
@@ -457,7 +519,12 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             # full and undrained. Rank 0's chunk decides when it ends.
             while True:
                 done = learner.chunk_done()
+                t_ingest = time.perf_counter()
                 moved = ingest()
+                t_ingest = time.perf_counter() - t_ingest
+                ingest_chunk_s += t_ingest
+                ingest_max_s = max(ingest_max_s, t_ingest)
+                ingest_calls += 1
                 done = bool(mesh.share([done], group)[0])
                 if not moved and not done:
                     time.sleep(0.0005)
@@ -499,6 +566,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                     **metrics,
                     **support_fields(),
                     **per_fields(),
+                    **ingest_fields(),
                 )
             if lead and config.eval_every and n_env - last_eval >= config.eval_every:
                 last_eval = n_env
@@ -513,6 +581,9 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                         keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
                         backoff_s=config.ckpt_retry_backoff_s)
                 last_ckpt = learn_steps
+        # The rates end with the loop: the teardown below (the actors'
+        # exit, an emergency checkpoint) is not the run's pace.
+        rate, env_rate = learn_timer.rate(), env_timer.rate()
         if stopping:
             if lead:
                 print(f"[train] SIGTERM: the running chunk finished; exiting {EXIT_PREEMPTED} "
@@ -521,6 +592,11 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     finally:
         if pool is not None:
             pool.stop()
+        # The shipper stops (later inserts would ship inline), then the
+        # scheduler: its pending tickets fail into their waiters.
+        replay.close()
+        if transfer_sched is not None:
+            transfer_sched.close()
         if prev_sigterm is not None:
             signal.signal(signal.SIGTERM, prev_sigterm)
     saver.wait()   # a failed cadence write raises here
@@ -528,8 +604,6 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     metrics = learner.metrics_to_host(out) if out is not None else {}
     if config.prioritized:   # the run's one read of the max priority
         metrics["max_priority"] = float(replay.max_priority)
-    rate = learn_timer.rate()
-    env_rate = env_timer.rate()
     replica = {}
     if learner.data_size > 1:
         # Every rank's state (and PER's priorities) against rank 0's, bit
@@ -544,6 +618,20 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     if lead and not stopping:   # preempted: checkpoint and get out
         eval_policy.load_flat(learner.actor_params_to_host())
         final_return = _eval_numpy(eval_policy, config, spec)
+    ingest_record = dict(
+        transport=pool.transport if pool is not None else None,
+        ingest_async_active=ingest_async,
+        t_ingest_chunk_ms=1000.0 * ingest_chunk_s / max(chunks, 1),
+        t_ingest_ms=1000.0 * ingest_chunk_s / max(ingest_calls, 1),
+        t_ingest_max=1000.0 * ingest_max_s,
+        n_ingest=ingest_calls,
+        **ingest_fields(),
+    )
+    # The summary keeps the scheduler's ingest count and the replay's
+    # transfer fields; the final record has every class's.
+    kept = {"transfer_ingest_items", *replay.transfer_snapshot()}
+    ingest_summary = {k: v for k, v in ingest_record.items()
+                      if not k.startswith("transfer_") or k in kept}
     log.log(
         "final", n_env,
         learner_steps=learn_steps,
@@ -558,6 +646,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         **mesh_fields(),
         **replica,
         **ckpt_fields(),
+        **ingest_record,
     )
     log.close()
     return {
@@ -568,6 +657,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         "chunk_size": chunk,
         "compute_dtype": config.compute_dtype,
         "fused_chunk_active": learner.fused_chunk_active,
+        **ingest_summary,
         "env_steps": n_env,
         "final_return": final_return,
         **{k: metrics[k] for k in (*METRIC_KEYS, "max_priority") if k in metrics},

@@ -514,9 +514,12 @@ def test_resumed_pool_takes_no_uniform_warmup_again():
 
 # --- through the CLI -----------------------------------------------------------------
 
+# --shm_ring_rows=128: the actor runs at most 128 rows ahead of the
+# learner, as on the queue (4 batches of 32), so a run's env steps take
+# the chunks these drills are sized for.
 TINY = ["--device=cpu", "--num_actors=1", "--actor_hidden=16,16", "--critic_hidden=16,16",
         "--batch_size=16", "--learner_chunk=4", "--replay_min_size=200", "--eval_every=0",
-        "--eval_episodes=1"]
+        "--eval_episodes=1", "--shm_ring_rows=128"]
 
 
 def _env():

@@ -197,7 +197,7 @@ def test_config_defaults_match_jax():
     dict(sac=True, fused_update=True),
     dict(data_axis=0), dict(compute_dtype="float16"), dict(guardrails=True),
     dict(data_axis=-2), dict(model_axis=2), dict(actor_backend="device"),
-    dict(serve_actors=True), dict(transport="shm"), dict(fused_mesh="on"),
+    dict(serve_actors=True), dict(transport="tcp"), dict(fused_mesh="on"),
     dict(action_insert_layer=5), dict(faults="worker:0:crash@5"),
 ])
 def test_options_outside_the_slice_raise(override):
@@ -211,6 +211,7 @@ def test_options_outside_the_slice_raise(override):
     dict(critic_l2=0.01), dict(action_insert_layer=0), dict(action_insert_layer=2),
     dict(critic_hidden=(64,)), dict(fused_chunk="off"),
     dict(data_axis=2), dict(fused_mesh="off"), dict(checkpoint_dir="/x"),
+    dict(transport="shm"),
 ])
 def test_configs_outside_the_kernel_envelope_construct(override):
     """The scan route admits what the chunk kernel's envelope leaves out."""

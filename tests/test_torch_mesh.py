@@ -313,9 +313,11 @@ def test_per_chunk_on_a_mesh_matches_jax(tmp_path):
          prioritized=True),
 ], ids=["ddpg-mesh", "d4pg-per-scan"])
 def test_train_at_two_ranks_keeps_the_replicas_identical(extra, tmp_path):
+    # shm_ring_rows=128: the actor runs at most 128 rows ahead, as on the
+    # queue (4 batches of 32), so the run takes more than one chunk.
     cfg = dict(total_env_steps=600, replay_min_size=200, batch_size=16,
                actor_hidden=[16, 16], critic_hidden=[16, 16], learner_chunk=4,
-               eval_every=0, eval_episodes=1, **extra)
+               eval_every=0, eval_episodes=1, shm_ring_rows=128, **extra)
     results = run_ranks(tmp_path, dict(kind="train", config=cfg), {})
     lead, other = (json.loads(str(res["summary"])) for res in results)
     for s in (lead, other):
@@ -323,6 +325,10 @@ def test_train_at_two_ranks_keeps_the_replicas_identical(extra, tmp_path):
         assert s["replicas_identical"] is True
         assert s["learner_steps"] == s["chunks"] * 4 and s["chunks"] >= 2
         assert math.isfinite(s["critic_loss"])
+        # The ranks insert on their driver's thread (no shipper), so they
+        # insert at the same point of the loop.
+        assert s["ingest_async_active"] is False
+    assert lead["transport"] == "shm" and other["transport"] is None
     assert lead["route"] == ("scan" if extra else "mesh")
     assert lead["chunks"] == other["chunks"] and lead["env_steps"] == other["env_steps"]
     assert math.isfinite(lead["final_return"]) and other["final_return"] is None

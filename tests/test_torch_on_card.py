@@ -43,7 +43,13 @@ ranks over gloo on the one card (tests/torch_mesh_child.py; the mesh
 launch and the scan route's PER chunk) end with bit-identical replicas.
 Checkpoint and resume: a TD3 kernel-route state and its PER replay saved
 and restored on the card bit for bit, and the next chunk the same bits.
+Ingest: rows inserted while a K = 800 chunk runs, on the main path's
+pipeline and inline from the pinned pool with the PER stamp, make no
+synchronizing call (torch's sync debug mode, "error") and leave the chunk
+running.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -463,3 +469,62 @@ def test_checkpoint_round_trip_of_a_kernel_state_on_card(tmp_path):
     got = state_tensors(fresh.state) + [out.td_errors, frep.priorities, frep.max_priority]
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", ["scheduler", "inline-per"])
+def test_add_packed_makes_no_synchronizing_call_while_a_chunk_runs(pipeline):
+    """Rows inserted while a K = 800 DDPG chunk (2x256, batch 64, ~70 ms)
+    runs, with torch's sync debug mode at "error" (any synchronizing call
+    raises): on the main path's pipeline (add_packed stages, the
+    scheduler's thread ships from the pinned pool), and shipped inline
+    from the pinned pool with the PER stamp (the D > 1 ranks'). Every
+    add_packed returns while the chunk still runs, no ship failed, and
+    the rows landed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+    from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay, DeviceReplay
+    from distributed_ddpg_tpu_torch.transfer import TransferScheduler
+
+    learner = ShardedLearner(DDPGConfig(), OBS, ACT, 2.0, 0.0, chunk_size=800)
+    rng = np.random.default_rng(21)
+    width = 2 * OBS + ACT + 3
+    big = DeviceReplay(8192, OBS, ACT, "cuda", block_size=1024)
+    big.add_packed(rng.standard_normal((8192, width)).astype(np.float32))
+    rows = rng.standard_normal((4096, width)).astype(np.float32)
+    sched = TransferScheduler().start()
+    try:
+        if pipeline == "scheduler":
+            rep = DeviceReplay(16384, OBS, ACT, "cuda", block_size=1024, async_ship=True,
+                               scheduler=sched, adaptive_coalesce=True, host_pool=True)
+            pieces = np.split(rows, 4)
+        else:
+            rep = DevicePrioritizedReplay(16384, OBS, ACT, "cuda", block_size=1024,
+                                          host_pool=True)
+            pieces = [rows]
+        for piece in pieces:   # warm: the pool's first buffers are allocated
+            rep.add_packed(piece)
+        rep.drain_pending()
+        learner.run_sample_chunk(big)
+        torch.cuda.synchronize()
+        learner.run_sample_chunk(big)   # the running chunk
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for piece in pieces:
+                rep.add_packed(piece)
+            running = not learner.chunk_done()
+            while rep.pending_rows:
+                time.sleep(0.0002)
+            with rep.dispatch_lock:
+                pass
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert running
+        rep.drain_pending()
+        assert rep.ingest_snapshot()["ingest_shipper_restarts"] == 0
+        assert rep.size == 2 * len(rows)
+        assert torch.equal(rep.storage[len(rows):2 * len(rows)].cpu(), torch.from_numpy(rows))
+        rep.close()
+    finally:
+        sched.close()
