@@ -83,7 +83,15 @@ Phases (any failure raises; nothing is caught and passed over):
    rows as they were before a wrapping insert issued after it
    (check_ingest_wrap); a pinned buffer filled with NaN as it is acquired
    leaves the ring as shipped: the pool waited for the copy's fence
-   (check_ingest_fence).
+   (check_ingest_fence). Then K1 (a) at MountainCarContinuous-v0's shapes
+   (obs 2, act 1, action scale 1) on rows 15% of which are terminal
+   (discount 0, reward 100) at K = 16 and 800, under PR 1's f32 rule; and
+   the guarded scan chunk (check_guarded_chunk: K = 16, K2 on, Pendulum
+   shapes): on healthy rows bit for bit the unguarded chunk, with
+   numeric:grad:nan@3 and numeric:loss:spike@9 (warmup 4) exactly those
+   steps skipped and bit for bit the chunk with them left out, and a
+   screen of more than 32 non-finite rows the same on the card as on the
+   CPU.
 3b. The mesh phase (mesh_phase): two processes of this script, each one
    rank of a gloo group on the one card (NCCL refuses two ranks on one
    device), MESH_TIMEOUT_S for both, a failing rank failing the phase.
@@ -119,14 +127,13 @@ Phases (any failure raises; nothing is caught and passed over):
    --tau=0.005 for 20,000 (its final alpha is printed); then with
    --compute_dtype=bfloat16 DDPG for 20,000 env steps and TD3, D4PG and
    SAC (their flags as above) for 5000 each; then the scan route:
-   --fused_update=true for 20,000 env steps, README's D4PG command (with
+   --fused_update=true for 10,000 env steps, README's D4PG command (with
    --prioritized=true) with --fused_update=true and --critic_l2=0.01 for
-   5000 each. DDPG and README's D4PG command (20,000 env steps each) run
-   on the default pipeline and with the old one's flags,
-   --transport=queue --ingest_async=false --transfer_scheduler=false, in
-   turns (default, old, old, default), and the scan route with K2 once
-   with them (2500), each run printed with its wall time a chunk
-   (before_after). For each, the
+   5000 each. DDPG and README's D4PG command run on the default pipeline
+   (20,000 env steps) and once with the old one's flags (5000),
+   --transport=queue --ingest_async=false --transfer_scheduler=false, and
+   the scan route with K2 once with them (1200), each run printed with
+   its wall time a chunk (before_after). For each, the
    launch counts are zeroed just before and read just after: on the
    kernel route every chunk must have been one launch of that branch's
    kernel and nothing else; on the scan route (fused_chunk_active false)
@@ -136,7 +143,13 @@ Phases (any failure raises; nothing is caught and passed over):
    shipper under the old flags); the driver's ingest time a chunk, the
    longest call, ingest_coalesce_mean, ingest_stall_ms and
    transfer_pool_fence_waits printed beside the rates. The mesh phase's
-   paths run rank 0's actors on shm, every rank without a shipper.
+   paths run rank 0's actors on shm, every rank without a shipper. Then
+   MountainCarContinuous-v0 with 4 actors on K1 (a) for 20,000 env steps
+   (mountain_car_path: the env's source, rows from every actor, the
+   terminal rows ingested and the coalesced ships printed), and the
+   guarded scan route, `--guardrails=true --fused_update=true`, for
+   10,000 env steps, and with PER for 5000 (guarded_main_paths: the health
+   word read once a chunk, no non-finite step, its counters printed).
 4b. Checkpoint and resume (checkpoint.py): README's whole D4PG command
    (PER, the auto support) at Pendulum shapes with the 1M-row replay
    full, on the kernel route at K = 800 and on the scan route with
@@ -155,6 +168,12 @@ Phases (any failure raises; nothing is caught and passed over):
    resumes at that learner step and every chunk is one K1 launch). Then
    the DDPG main path again with a save every chunk, its learner steps/s
    beside the same path's without.
+4c. The guardrail drills (guardrail_drills), each `python -m
+   distributed_ddpg_tpu_torch.train` as a child at 2x256, K = 100: a
+   rollback that restores a step below the first injected NaN step,
+   renames the newer checkpoints diverged_step_N and finishes (exit 0,
+   the restore's ms printed); an abort (exit 77, no checkpoint from the
+   injected step's chunk on); a poisoned row's actor quarantined.
 5. Time each branch of the kernel at the main path's shapes (CUDA events,
    warmed up) beside its plain version (one run) and its bound; the eager autograd
    step x K is printed as context only. Then break each f32 branch's time,
@@ -172,7 +191,9 @@ Phases (any failure raises; nothing is caught and passed over):
    and as time a chunk with its host enqueue (CUDA events), beside D4PG's
    kernel time a chunk and PER's byte bound; then the draw's prefix sum
    alone at rows of SCAN_BLOCK and of 4x it, and torch's 1-D cumsum, as
-   device time in a CUDA graph.
+   device time in a CUDA graph. Then the guarded scan step's device
+   operations and device time against the unguarded one's
+   (guard_ops_per_step).
 
 It imports nothing of JAX or of the JAX package. The second-to-last line
 is the kernels' JSON record; the last line is the device record.
@@ -183,6 +204,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -385,13 +407,15 @@ def random_state_np(cfg, obs: int, act: int, seed: int, step: int = 1000,
 
 
 def random_batches(seed: int, k: int, b: int, obs: int, act: int,
-                   rewards=None, weighted: bool = True) -> torch.Tensor:
+                   rewards=None, weighted: bool = True, terminal: float = 0.0) -> torch.Tensor:
     """Random packed rows. Rewards are N(0, 1) with discount 0.99, or with
     `rewards` = (low, high, discount) uniform in [low, high) at that
     discount. Importance weights are drawn from [0.5, 1], so a kernel that
     drops them fails, or are 1 unless `weighted`. The columns are drawn
     in the order obs, action, reward, next_obs, weight, so the default
-    rows do not depend on `weighted`."""
+    rows do not depend on `weighted`. With `terminal` that share of the
+    rows (drawn last) are terminal: discount 0, reward 100 (MountainCar's
+    goal)."""
     from distributed_ddpg_tpu_torch.types import pack_batch_np
 
     rng = np.random.default_rng(seed)
@@ -401,7 +425,7 @@ def random_batches(seed: int, k: int, b: int, obs: int, act: int,
         reward, disc = rng.standard_normal((k, b)), 0.99
     else:
         reward, disc = rng.uniform(rewards[0], rewards[1], (k, b)), rewards[2]
-    packed = pack_batch_np({
+    fields = {
         "obs": o.astype(np.float32),
         "action": a.astype(np.float32),
         "reward": reward.astype(np.float32),
@@ -409,8 +433,12 @@ def random_batches(seed: int, k: int, b: int, obs: int, act: int,
         "next_obs": rng.standard_normal((k, b, obs)).astype(np.float32),
         "weight": (rng.uniform(0.5, 1.0, (k, b)) if weighted else np.ones((k, b))
                    ).astype(np.float32),
-    })
-    return torch.from_numpy(packed).cuda()
+    }
+    if terminal:
+        done = rng.random((k, b)) < terminal
+        fields["discount"][done] = 0.0
+        fields["reward"][done] = 100.0
+    return torch.from_numpy(pack_batch_np(fields)).cuda()
 
 
 def time_ms(fn, reps: int, warmup: bool = True) -> float:
@@ -537,7 +565,8 @@ def compare_outputs(label: str, cfg, obs: int, act: int, got_all: dict, want_all
 def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
                       referee: bool = False, bounds=None, rewards=None,
                       tied: bool = False, hot: bool = False,
-                      spread_on_cpu: bool = False, fresh: bool = False) -> float:
+                      spread_on_cpu: bool = False, fresh: bool = False,
+                      terminal: float = 0.0, scale: float = 2.0) -> float:
     """Kernel vs plain version on one random state and batch (and noise);
     returns the largest absolute difference over end state, td and
     metrics. Raises where an output is outside the tolerances; with
@@ -547,9 +576,10 @@ def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
     larger miss of it and the plain version on the CPU. With `bounds` (D4PG)
     the kernel runs one chunk, then set_value_bounds(*bounds) and the
     chunk that is checked, against the plain version under those bounds.
-    `rewards` is random_batches', `tied`, `hot` and `fresh` random_state_np's;
-    from a `fresh` state (zero Adam moments, counts 0) the first moments
-    are also held to FRESH_MU_RTOL and FRESH_MU_SCALE."""
+    `rewards` and `terminal` are random_batches', `tied`, `hot` and `fresh`
+    random_state_np's; from a `fresh` state (zero Adam moments, counts 0)
+    the first moments are also held to FRESH_MU_RTOL and FRESH_MU_SCALE.
+    `scale` is the action box's half-width (2 for Pendulum)."""
     from distributed_ddpg_tpu_torch.learner import METRIC_KEYS, train_state_from_numpy
     from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
 
@@ -559,6 +589,7 @@ def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
              f"fused_chunk_sac autotune={cfg.sac_autotune}" if cfg.sac else "fused_chunk")
     label += (f" obs={obs} act={act} K={k}" + (" tied critics" if tied else "")
               + (" hot temperature" if hot else "") + (" fresh state" if fresh else "")
+              + (f" {terminal:.0%} terminal rows" if terminal else "")
               + (" bf16" if cfg.compute_dtype == "bfloat16" else ""))
     if cfg.distributional:
         label += f" support=[{cfg.v_min:g}, {cfg.v_max:g}]"
@@ -566,16 +597,21 @@ def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
         random_state_np(cfg, obs, act, seed=obs, step=step, tied=tied, hot=hot, fresh=fresh),
         "cuda")
     packed = random_batches(seed=100 + obs, k=k, b=cfg.batch_size, obs=obs, act=act,
-                            rewards=rewards, weighted=k <= WEIGHTED_UP_TO)
+                            rewards=rewards, weighted=k <= WEIGHTED_UP_TO, terminal=terminal)
+    if terminal:
+        share = float((packed[..., obs + act + 1] == 0).float().mean())
+        label += f" ({share:.1%} at discount 0)"
+        if share < terminal * 0.9:
+            raise AssertionError(f"{label}: too few terminal rows")
     eps = noise_for(cfg, k, cfg.batch_size, act, step)
-    run = fc.make_fused_chunk_fn(cfg, obs, act, 2.0, 0.0, chunk_size=k, device="cuda")
+    run = fc.make_fused_chunk_fn(cfg, obs, act, scale, 0.0, chunk_size=k, device="cuda")
     if bounds is not None:
         run(state, packed, eps)
         run.set_value_bounds(*bounds)
         cfg = cfg.replace(v_min=bounds[0], v_max=bounds[1])
         label += f" after set_value_bounds{tuple(bounds)}"
     new, td, met = run(state, packed, eps)
-    ref, rtd, rmet = fc.fused_chunk_reference(cfg, state, packed, 2.0, 0.0, eps)
+    ref, rtd, rmet = fc.fused_chunk_reference(cfg, state, packed, scale, 0.0, eps)
     torch.cuda.synchronize()
 
     got_all, want_all = chunk_outputs(new, td, met), chunk_outputs(ref, rtd, rmet)
@@ -584,13 +620,13 @@ def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
         raise AssertionError(f"{label}: {', '.join(failed)} outside the tolerances")
     if failed:
         exact, etd, emet = fc.fused_chunk_reference(
-            cfg, to_double(state), packed.double(), 2.0, 0.0, to_double(eps))
+            cfg, to_double(state), packed.double(), scale, 0.0, to_double(eps))
         exact_all = chunk_outputs(exact, etd, emet)
         cuts, groups = state_cuts(cfg, obs, act)
         spread = [want_all]
         if spread_on_cpu:
             spread.append(chunk_outputs(*fc.fused_chunk_reference(
-                cfg, tree_map_tensors(torch.Tensor.cpu, state), packed.cpu(), 2.0, 0.0,
+                cfg, tree_map_tensors(torch.Tensor.cpu, state), packed.cpu(), scale, 0.0,
                 tree_map_tensors(torch.Tensor.cpu, eps))))
         bad = []
         for name in failed:
@@ -1273,9 +1309,9 @@ def check_ingest_wrap() -> None:
         gathered = []
         run = short._run
 
-        def capture(packed, eps, kernel):
+        def capture(packed, eps, kernel, **kw):
             gathered.append(packed.clone())   # queued right after the gather
-            return run(packed, eps, kernel)
+            return run(packed, eps, kernel, **kw)
 
         short._run = capture
         torch.cuda.synchronize()
@@ -2373,6 +2409,381 @@ def resume_drill_child(argv) -> int:
     return code
 
 
+# --- environments and guardrails ------------------------------------------------
+
+MC_ACTORS = 4              # the MountainCar main path's actor processes
+MC_ENV_STEPS = 20_000
+GUARD_K = 16               # the guarded chunk's checks on the card
+GUARD_ENV_STEPS = 10_000   # the guarded main path (2-3 chunks); with PER 5000 (1-2)
+GUARD_INJECT = {"grad": (3,), "loss": (9,)}   # numeric:grad:nan@3, numeric:loss:spike@9
+DRILL_K = 100              # the drills' learner chunk (the widths stay 2x256)
+DRILL_TIMEOUT_S = 300
+
+
+class IngestTally:
+    """For the `with` block: the rows each actor slot delivered
+    (ActorPool.drain_batches), the rows and terminal rows (discount 0)
+    staged into the replay (DeviceReplay.add_packed) and the ships and
+    coalesced ships (k > 1 blocks, IngestStats.record_ship). The patched
+    methods call the real ones with the same arguments."""
+
+    def __enter__(self):
+        from distributed_ddpg_tpu_torch.actors.pool import ActorPool
+        from distributed_ddpg_tpu_torch.metrics import IngestStats
+        from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
+
+        self.by_actor, self.rows, self.terminal, self.ships, self.coalesced = {}, 0, 0, 0, 0
+        self._saved = [(cls, name, getattr(cls, name)) for cls, name in (
+            (ActorPool, "drain_batches"), (DeviceReplay, "add_packed"),
+            (IngestStats, "record_ship"))]
+        drain, add, ship = (fn for _, _, fn in self._saved)
+        tally = self
+
+        def drain_batches(pool, max_rows=None, with_sources=False):
+            pairs = drain(pool, max_rows=max_rows, with_sources=True)
+            for wid, batch in pairs:
+                tally.by_actor[wid] = tally.by_actor.get(wid, 0) + len(batch["reward"])
+            return pairs if with_sources else [batch for _, batch in pairs]
+
+        def add_packed(rep, block, source=-1):
+            tally.rows += len(block)
+            tally.terminal += int((block[:, rep.obs_dim + rep.act_dim + 1] == 0).sum())
+            return add(rep, block, source=source)
+
+        def record_ship(stats, rows, blocks, ship_s=0.0):
+            tally.ships += 1
+            tally.coalesced += int(blocks > 1)
+            return ship(stats, rows, blocks, ship_s)
+
+        ActorPool.drain_batches = drain_batches
+        DeviceReplay.add_packed = add_packed
+        IngestStats.record_ship = record_ship
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+
+
+def mountain_car_path(card: str) -> dict:
+    """The MountainCar main path: `--env_id=MountainCarContinuous-v0
+    --num_actors=4` at 2x256 on the kernel route (K1 (a), every chunk one
+    launch and no scan chunk: drive_main_path), MC_ENV_STEPS env steps.
+    Prints the env source, the rates, K1's launches, the terminal rows
+    ingested (not a check: early exploration seldom reaches the goal),
+    the ships and how many coalesced; fails unless all 4 actors
+    delivered rows."""
+    from distributed_ddpg_tpu_torch.envs import make
+
+    env = make("MountainCarContinuous-v0")
+    source = "gymnasium" if hasattr(env, "_env") else "built-in"
+    summary = {}
+    with IngestTally() as tally:
+        launches = drive_main_path(
+            ["--env_id=MountainCarContinuous-v0", f"--num_actors={MC_ACTORS}",
+             "--replay_min_size=1000", "--eval_every=0", "--eval_episodes=2",
+             f"--total_env_steps={MC_ENV_STEPS}"], "fused_chunk", summary)
+    log(f"[mountain car] {card}: env {source}, {MC_ACTORS} actors: learner steps/s "
+        f"{summary['learner_steps_per_sec']}, env steps/s {summary['env_steps_per_sec']}, "
+        f"K1 launches {launches['fused_chunk']} (= chunks {summary['chunks']}), rows by actor "
+        f"{dict(sorted(tally.by_actor.items()))}, terminal rows ingested {tally.terminal} of "
+        f"{tally.rows}, ships {tally.ships} ({tally.coalesced} coalesced, k > 1), "
+        f"ingest_coalesce_mean {summary['ingest_coalesce_mean']} (last interval), the card "
+        f"busy {100.0 * summary['busy_share']:.2f}%")
+    if sorted(tally.by_actor) != list(range(MC_ACTORS)) or min(tally.by_actor.values()) <= 0:
+        raise AssertionError(f"mountain car: rows came from actors {tally.by_actor}, "
+                             f"not all {MC_ACTORS}")
+    return dict(summary, terminal_rows=tally.terminal, ships=tally.ships,
+                coalesced_ships=tally.coalesced, env_source=source)
+
+
+def check_guarded_chunk(card: str) -> None:
+    """The guarded scan chunk on the card (Pendulum shapes, 2x256, batch 64,
+    K = GUARD_K, K2 on): on healthy rows bit for bit the unguarded chunk
+    (state, td, metrics), 2 K2 launches a step each; with GUARD_INJECT
+    (warmup 4, so the z-scores are armed by step 9) exactly those two steps
+    skipped, and state, td and metrics bit for bit the chunk with those two
+    updates left out (their step counted, their td and metrics zero); then
+    a chunk's rows with more than 32 non-finite ones screened on the card
+    give the same count, flags and 32 indices as on the CPU."""
+    from distributed_ddpg_tpu_torch import guardrails as gl
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.learner import (METRIC_KEYS, make_learner_step,
+                                                    train_state_from_numpy)
+    from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
+    from distributed_ddpg_tpu_torch.parallel.learner import make_scan_chunk_fn, state_tensors
+    from distributed_ddpg_tpu_torch.types import unpack_batch
+
+    # zmax 50: far above a healthy step's z-scores early in the EWMA (~3-5),
+    # far below the injected spike's.
+    cfg = DDPGConfig(fused_update=True, fused_chunk="off", guardrails=True,
+                     guardrail_warmup_steps=4, guardrail_zmax=50.0)
+    plain_cfg = cfg.replace(guardrails=False)
+    state = train_state_from_numpy(random_state_np(plain_cfg, 3, 1, seed=21), "cuda")
+    packed = random_batches(seed=22, k=GUARD_K, b=cfg.batch_size, obs=3, act=1)
+    pre_bad, count, _ = gl.batch_row_health(packed, None)
+    if bool(pre_bad.any()) or int(count):
+        raise AssertionError("guarded chunk: the healthy rows were screened as bad")
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def outputs(state_, td, metrics):
+        return state_tensors(state_) + [td] + [metrics[k] for k in METRIC_KEYS]
+
+    fc.KERNEL_LAUNCHES.clear()
+    plain = make_scan_chunk_fn(plain_cfg, 3, 1, 2.0, 0.0, chunk_size=GUARD_K)
+    want = outputs(*plain(state, packed, None, 1000))
+    guarded = make_scan_chunk_fn(cfg, 3, 1, 2.0, 0.0, chunk_size=GUARD_K, guard=True)
+    new, g, td, met = guarded.guarded(state, gl.init_guard_state(device="cuda"), packed, None,
+                                      1000, pre_bad)
+    health = gl.health_vector(g).tolist()
+    k2 = fc.KERNEL_LAUNCHES.get("fused_update", 0)
+    if not same(outputs(new, td, met), want) or health != [GUARD_K, 0, 0, 0, 0] \
+            or k2 != 4 * GUARD_K:
+        raise AssertionError(f"guarded chunk on healthy rows: not the unguarded chunk's bits "
+                             f"(health {health}, K2 launches {k2})")
+    log(f"  guarded chunk K={GUARD_K} with K2, healthy rows: bit for bit the unguarded chunk; "
+        f"health word {health}; K2 launches {k2} (2 a step, each chunk)")
+
+    injected = make_scan_chunk_fn(cfg, 3, 1, 2.0, 0.0, chunk_size=GUARD_K, guard=True,
+                                  inject=GUARD_INJECT)
+    new, g, td, met = injected.guarded(state, gl.init_guard_state(device="cuda"), packed, None,
+                                       1000, pre_bad)
+    skip = {at for ats in GUARD_INJECT.values() for at in ats}
+    step = make_learner_step(plain_cfg, 2.0, 0.0)
+    s, tds, metrics = state, [], []
+    for k in range(GUARD_K):
+        out = step(s, unpack_batch(packed[k], 3, 1), None, step_index=1000 + k)
+        if k + 1 in skip:
+            s = s._replace(step=out.state.step)
+            tds.append(torch.zeros_like(out.td_errors))
+            metrics.extend(torch.zeros_like(out.metrics[n]) for n in METRIC_KEYS)
+        else:
+            s = out.state
+            tds.append(out.td_errors)
+            metrics.extend(out.metrics[n] for n in METRIC_KEYS)
+    means = torch.stack(metrics).view(GUARD_K, len(METRIC_KEYS)).mean(dim=0)
+    want = outputs(s, torch.stack(tds), dict(zip(METRIC_KEYS, means.unbind())))
+    health = gl.health_vector(g).tolist()
+    if not same(outputs(new, td, met), want) or health != [GUARD_K, 1, 1, 2, 0]:
+        raise AssertionError(f"guarded chunk with {GUARD_INJECT}: health {health}, or not the "
+                             "chunk with those updates left out")
+    log(f"  guarded chunk K={GUARD_K} with {GUARD_INJECT} (warmup 4): health word {health} "
+        "(total, nonfinite, spikes, skipped, bad_rows); bit for bit the chunk with steps "
+        f"{sorted(skip)} left out")
+
+    rng = np.random.default_rng(23)
+    bad = packed.clone()
+    ks, bs = np.nonzero(rng.random((GUARD_K, cfg.batch_size)) < 0.1)
+    cols = rng.integers(0, bad.shape[-1], len(ks))
+    bad[torch.from_numpy(ks), torch.from_numpy(bs), torch.from_numpy(cols)] = float("nan")
+    idx = torch.from_numpy(rng.integers(0, 1_000_000, (GUARD_K, cfg.batch_size))).cuda()
+    on_card = [x.cpu().tolist() for x in gl.batch_row_health(bad, idx)]
+    on_cpu = [x.tolist() for x in gl.batch_row_health(bad.cpu(), idx.cpu())]
+    if on_card != on_cpu or on_card[1] != len(ks) or len(ks) <= gl.GUARD_BAD_IDX:
+        raise AssertionError("guarded chunk: the row screen on the card differs from the CPU")
+    log(f"  row screen: {len(ks)} non-finite rows of {GUARD_K * cfg.batch_size}, the same "
+        f"count, flags and {gl.GUARD_BAD_IDX} indices on the card as on the CPU")
+
+
+def guard_ops_per_step(card: str, cfg) -> dict:
+    """Device operations (kernel launches) and device time a scan step,
+    guarded and not (K2 on), by torch.profiler over PROFILE_STEPS steps at
+    the main path's shapes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_ddpg_tpu_torch import guardrails as gl
+    from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
+    from distributed_ddpg_tpu_torch.parallel.learner import make_scan_chunk_fn
+
+    c = cfg.replace(fused_update=True, fused_chunk="off", guardrails=True)
+    state = train_state_from_numpy(random_state_np(c, 3, 1, seed=7), "cuda")
+    packed = random_batches(seed=8, k=PROFILE_STEPS, b=c.batch_size, obs=3, act=1)
+    pre_bad = torch.zeros(PROFILE_STEPS, dtype=torch.bool, device="cuda")
+    run = make_scan_chunk_fn(c, 3, 1, 2.0, 0.0, chunk_size=PROFILE_STEPS, guard=True)
+    chunks = {
+        "unguarded": lambda: run(state, packed, None, 1000),
+        "guarded": lambda: run.guarded(state, gl.init_guard_state(device="cuda"), packed,
+                                       None, 1000, pre_bad),
+    }
+    out = {}
+    for name, fn in chunks.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        out[name] = dict(
+            launches=sum(e.count for e in events if e.key in LAUNCH_CALLS) / PROFILE_STEPS,
+            device_us=sum(e.self_device_time_total for e in events
+                          if e.device_type == torch.autograd.DeviceType.CUDA) / PROFILE_STEPS,
+            host_ms=time_ms(fn, reps=1, warmup=False) / PROFILE_STEPS)
+    log(f"[guardrails] {card}: scan step with K2, profiled over {PROFILE_STEPS} steps: "
+        + "; ".join(f"{n} {v['launches']:.1f} kernel launches, {v['device_us']:.1f} us of "
+                    f"device time, {1e3 * v['host_ms']:.1f} us a step on the host's clock"
+                    for n, v in out.items()))
+    return out
+
+
+class HealthReads:
+    """Counts ShardedLearner.poll_health calls in the `with` block."""
+
+    def __enter__(self):
+        from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+
+        self.n = 0
+        self._fn = ShardedLearner.poll_health
+        fn, tally = self._fn, self
+
+        def poll_health(learner):
+            tally.n += 1
+            return fn(learner)
+
+        ShardedLearner.poll_health = poll_health
+        return self
+
+    def __exit__(self, *exc):
+        from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+
+        ShardedLearner.poll_health = self._fn
+
+
+def guarded_main_paths(card: str) -> dict:
+    """`--guardrails=true --fused_update=true` at 2x256, K = 800, for
+    GUARD_ENV_STEPS env steps, and with PER for half that: the scan route, 2 K2
+    launches a learner step and no K1 (drive_main_path), the health word
+    read once a chunk, no non-finite step or row. Prints the rates, the
+    health word (the guardrail_* counters) and K2's launches. With
+    --guardrail_rollback_k=0: at the default zmax of 8 the z-score
+    detector skips healthy steps of this path (13 in its second chunk on
+    an H100; the JAX trainer on the CPU skipped 87 of 2400), and 8 within
+    a window would roll back a run that has no checkpoint to restore
+    (exit 77); rollback is the drills' subject."""
+    out = {}
+    for per in (False, True):
+        name = "guarded" + (" PER" if per else "")
+        summary = {}
+        flags = ["--num_actors=1", "--replay_min_size=1000", "--eval_every=0",
+                 "--eval_episodes=2",
+                 f"--total_env_steps={GUARD_ENV_STEPS // 2 if per else GUARD_ENV_STEPS}",
+                 "--guardrails=true", "--fused_update=true", "--guardrail_rollback_k=0"] + (
+                     ["--prioritized=true"] if per else [])
+        with HealthReads() as reads:
+            launches = drive_main_path(flags, "scan", summary)
+        health = {k: v for k, v in summary.items() if k.startswith("guardrail_")}
+        log(f"[guardrails] {card}: {name} main path: learner steps/s "
+            f"{summary['learner_steps_per_sec']}, env steps/s {summary['env_steps_per_sec']}, "
+            f"{summary['chunks']} chunks, health word read {reads.n} times, K2 launches "
+            f"{launches.get('fused_update')}; {json.dumps(health)}")
+        if reads.n != summary["chunks"] or health["guardrail_nonfinite_steps"] \
+                or health["guardrail_bad_rows"] or launches.get("fused_update", 0) <= 0:
+            raise AssertionError(f"{name} main path: {reads.n} health reads for "
+                                 f"{summary['chunks']} chunks, {health}, launches {launches}")
+        out[name] = dict(summary, health_reads=reads.n, launches=launches)
+    return out
+
+
+def run_cli(flags, tag: str):
+    """`python -m distributed_ddpg_tpu_torch.train` with these flags as a
+    child process; returns (exit code, stdout, stderr, the final record)."""
+    t0 = time.monotonic()
+    res = subprocess.run([sys.executable, "-m", "distributed_ddpg_tpu_torch.train", *flags],
+                         capture_output=True, text=True, timeout=DRILL_TIMEOUT_S,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    finals = [json.loads(line) for line in res.stdout.splitlines()
+              if line.startswith('{"kind": "final"')]
+    final = finals[-1] if finals else {}
+    log(f"[drill {tag}] exit {res.returncode} in {time.monotonic() - t0:.1f}s; final "
+        + json.dumps({k: final.get(k) for k in (
+            "step", "learner_steps", "chunks", "final_return", "learner_steps_per_sec",
+            "guardrail_anomalies", "guardrail_nonfinite_steps", "guardrail_bad_rows",
+            "guardrail_rollbacks", "guardrail_last_rollback_step",
+            "guardrail_source_quarantines", "actor_quarantined")}))
+    for line in res.stderr.splitlines():
+        if line.startswith(("[guardrail]", "[checkpoint]", "[chaos]", "[pool]")):
+            log(f"  {line}")
+    return res.returncode, res.stdout, res.stderr, final
+
+
+def guardrail_drills(card: str) -> dict:
+    """The drills through the CLI at 2x256 (K = DRILL_K, the learner and
+    ingest ratios at 1 so the env steps and learner steps move together):
+
+    The rollback and abort drills run with --guardrail_zmax=1000: they
+    hold the non-finite path, and at the default zmax of 8 healthy steps
+    trip the z-score detector too (guarded_main_paths), which would move
+    the rollback or the abort to another chunk.
+
+    - rollback: numeric:grad:nan at steps 1450 and 1750 (two chunks),
+      guardrail_rollback_k=2 within a 1000-step window, a checkpoint every
+      chunk (8 kept): exit 0 at its env budget, one rollback or more to a
+      step below 1450, finite params, the checkpoints from 1500 on renamed
+      diverged_step_N; the restore's ms printed;
+    - abort: guardrail_max_rollbacks=0, numeric:grad:nan@500: exit 77, no
+      final return, no checkpoint from the chunk of step 500 on;
+    - poison: numeric:replay:inf@1500 from one of 2 actors, 4000 env steps,
+      guardrail_source_offenses=1, no rollback: the poisoned actor's slot,
+      and only it, quarantined."""
+    from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
+
+    common = ["--replay_min_size=1000", "--eval_every=0", "--eval_episodes=1",
+              f"--learner_chunk={DRILL_K}", "--guardrails=true", "--max_learn_ratio=1.0",
+              "--max_ingest_ratio=1.0"]
+    record = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_guard_") as tmp:
+        d = os.path.join(tmp, "rollback")
+        code, _, err, final = run_cli(common + [
+            "--num_actors=1", "--fused_update=true", "--total_env_steps=3000",
+            f"--checkpoint_dir={d}", f"--checkpoint_every={DRILL_K}", "--checkpoint_keep=8",
+            "--guardrail_rollback_k=2", "--guardrail_rollback_window=1000",
+            "--guardrail_zmax=1000",
+            "--faults=numeric:grad:nan@1450;numeric:grad:nan@1750"], "rollback")
+        names = os.listdir(d) if os.path.isdir(d) else []
+        diverged = sorted(int(n.split("_")[-1]) for n in names if n.startswith("diverged_step_"))
+        restored = final.get("guardrail_last_rollback_step", -1)
+        ms = [float(x) for x in re.findall(r"\) in ([0-9.]+) ms", err)]
+        if not (code == 0 and final.get("guardrail_rollbacks", 0) >= 1 and 0 < restored < 1450
+                and final["step"] >= 3000 and math.isfinite(final["final_return"])
+                and all(math.isfinite(final[k]) for k in ("critic_loss", "actor_loss"))
+                and diverged and min(diverged) >= 1500 and ms):
+            raise AssertionError(f"rollback drill: exit {code}, final {final}, diverged "
+                                 f"{diverged}; stderr: {err[-3000:]}")
+        log(f"[drill rollback] {card}: restored step {restored}, diverged_step_N {diverged}, "
+            f"restore {ms} ms")
+        record["rollback"] = dict(restored=restored, diverged=diverged, restore_ms=ms)
+
+        d = os.path.join(tmp, "abort")
+        code, _, err, final = run_cli(common + [
+            "--num_actors=1", "--total_env_steps=100000", f"--checkpoint_dir={d}",
+            f"--checkpoint_every={DRILL_K}", "--guardrail_rollback_k=1",
+            "--guardrail_max_rollbacks=0", "--guardrail_zmax=1000",
+            "--faults=numeric:grad:nan@500"], "abort")
+        names = os.listdir(d) if os.path.isdir(d) else []
+        steps = [int(n.split("_")[1]) for n in names if n.startswith("step_")]
+        if not (code == 77 and "NUMERIC ABORT" in err and final.get("final_return", 0) is None
+                and steps and max(steps) < 500 <= final["learner_steps"]
+                and ckpt_lib.verify_checkpoint(d, max(steps))[0]):
+            raise AssertionError(f"abort drill: exit {code}, checkpoints {sorted(steps)}, final "
+                                 f"{final}; stderr: {err[-3000:]}")
+        record["abort"] = dict(exit=code, learner_steps=final["learner_steps"],
+                               newest_checkpoint=max(steps))
+
+    code, _, err, final = run_cli(common + [
+        "--num_actors=2", "--total_env_steps=4000", "--guardrail_rollback_k=0",
+        "--guardrail_source_offenses=1", "--faults=numeric:replay:inf@1500"], "poison")
+    poisoned = re.search(r"poisoned ingested row 1500 \(reward=\+inf\) from actor (\d)", err)
+    quarantined = re.findall(r"QUARANTINED worker (\d) \(numeric\)", err)
+    if not (code == 0 and poisoned and quarantined == [poisoned.group(1)]
+            and final.get("guardrail_source_quarantines", 0) >= 1
+            and final.get("actor_quarantined") == 1):
+        raise AssertionError(f"poison drill: exit {code}, final {final}; stderr: {err[-3000:]}")
+    record["poison"] = dict(actor=int(poisoned.group(1)), bad_rows=final["guardrail_bad_rows"])
+    log(f"[drills] {card}: " + json.dumps(record))
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this needs an "
@@ -2477,6 +2888,13 @@ def main() -> int:
     check_ingest_wrap()
     check_ingest_fence()
 
+    log("[parity] K1 (a) on terminal rows at MountainCar's shapes; the guarded chunk")
+    # MountainCar's rows: a step's reward in [-0.1, 0], 15% of them terminal
+    # (discount 0, reward 100), under PR 1's f32 rule at K = 16 and 800.
+    for k in (16, K):
+        check_fused_chunk(cfg, 2, 1, k, terminal=0.15, scale=1.0, rewards=(-0.1, 0.0, 0.99))
+    check_guarded_chunk(card)
+
     log(f"[phase] parity done at {time.monotonic() - t_start:.1f}s")
 
     # --- 3b. the mesh phase: two ranks over gloo on the one card ---
@@ -2494,12 +2912,13 @@ def main() -> int:
               "--eval_episodes=2"]
     plain = {}
     launches = drive_main_path(common + ["--total_env_steps=5000"], "fused_chunk", plain)
-    # The same with the pipeline before this slice's (the queue, inline
-    # pageable inserts, no scheduler): the before/after record.
-    # DDPG at 20,000 env steps (20-40 chunks) on the default and the old
-    # pipeline in turns (default, old, old, default): the before/after
-    # record of this slice.
-    before_after(card, "DDPG", lambda i: common + ["--total_env_steps=20000"], "fused_chunk")
+    # The same with the pipeline before PR 13's (the queue, inline pageable
+    # inserts, no scheduler): DDPG at 20,000 env steps (20-40 chunks) on the
+    # default pipeline, and once at 5000 on the old one (the before/after
+    # record of PR 13 ran each twice at 20,000; cut to stay in time).
+    before_after(card, "DDPG",
+                 lambda i: common + [f"--total_env_steps={20000 if i == 0 else 5000}"],
+                 "fused_chunk", turns=("default", "old"))
     log(f"[ingest] {card}: in the parity phase {INGEST_BLOCKS} blocks staged during a "
         f"{ingest_chunk['chunk_ms']:.3f} ms chunk held the driver "
         f"{ingest_chunk['main']['total_ms']:.3f} ms on the default pipeline, "
@@ -2517,11 +2936,13 @@ def main() -> int:
         d4pg_per = {}
 
         def d4pg_per_flags(i):
-            return common + ["--total_env_steps=20000", *d4pg_flags, "--prioritized=true",
+            return common + [f"--total_env_steps={20000 if i == 0 else 5000}", *d4pg_flags,
+                             "--prioritized=true",
                              f"--log_path={os.path.join(tmp, f'd4pg_per{i}.jsonl')}"]
 
         launches.update(drive_main_path(d4pg_per_flags(0), "fused_chunk_d4pg", d4pg_per))
-        before_after(card, "D4PG with PER", d4pg_per_flags, "fused_chunk_d4pg", first=d4pg_per)
+        before_after(card, "D4PG with PER", d4pg_per_flags, "fused_chunk_d4pg", first=d4pg_per,
+                     turns=("default", "old"))
     launches.update(drive_main_path(
         common + ["--total_env_steps=20000", "--sac=true", "--actor_lr=3e-4",
                   "--critic_lr=3e-4", "--tau=0.005"],
@@ -2544,19 +2965,19 @@ def main() -> int:
         bf16 + ["--total_env_steps=5000", "--sac=true", "--actor_lr=3e-4",
                 "--critic_lr=3e-4", "--tau=0.005"],
         "fused_chunk_sac_bf16"))
-    # The scan route: DDPG with the fused update for 20,000 env steps, then
+    # The scan route: DDPG with the fused update for 10,000 env steps, then
     # README's whole D4PG command (PER included) with it and the DDPG
     # paper's critic weight decay (no fused update) for 5000 each. A scan
     # chunk of 800 eager steps holds the host ~3-5 s; the actor fills its
     # shm ring (4096 rows) meanwhile, so a chunk brings in ~4000 env steps
-    # (PERF.md §5): 20,000 env steps are ~5 chunks. On the old pipeline
+    # (PERF.md §5): 10,000 env steps are 2-3 chunks. On the old pipeline
     # (its 4 x 32-row queue) a chunk brought in ~130-220, so its run is cut
-    # to 2500 env steps (~12 chunks, ~50 s).
+    # to 1200 env steps (1-2 chunks).
     scan_k2 = {}
-    update_launches = drive_main_path(common + ["--total_env_steps=20000",
+    update_launches = drive_main_path(common + ["--total_env_steps=10000",
                                                 "--fused_update=true"], "scan", scan_k2)
     before_after(card, "the scan route with K2",
-                 lambda i: common + [f"--total_env_steps={20000 if i == 0 else 2500}",
+                 lambda i: common + [f"--total_env_steps={10000 if i == 0 else 1200}",
                                      "--fused_update=true"],
                  "scan", first=scan_k2, turns=("default", "old"))
     with tempfile.TemporaryDirectory() as tmp:
@@ -2566,6 +2987,10 @@ def main() -> int:
                       f"--log_path={os.path.join(tmp, 'd4pg_scan.jsonl')}"],
             "scan")
     drive_main_path(common + ["--total_env_steps=5000", "--critic_l2=0.01"], "scan")
+    # This slice's paths: MountainCar with 4 actors on K1 (a), and the
+    # guarded scan route with K2, PER off and on.
+    mountain_car_path(card)
+    guarded = guarded_main_paths(card)
     log(f"[phase] main paths done at {time.monotonic() - t_start:.1f}s")
 
     # --- 4b. checkpoint and resume ---
@@ -2586,6 +3011,10 @@ def main() -> int:
         f"({cadence['ckpt_skipped']} skipped)")
     log(f"[phase] resume done at {time.monotonic() - t_start:.1f}s")
 
+    # --- 4c. the guardrail drills through the CLI ---
+    guardrail_drills(card)
+    log(f"[phase] drills done at {time.monotonic() - t_start:.1f}s")
+
     # --- 5. timing at the main path's shapes ---
     timing = {
         "fused_chunk": time_branch(cfg, "fused_chunk", K, 1000, card, eager=True),
@@ -2602,6 +3031,12 @@ def main() -> int:
                                    split=name == "fused_chunk_bf16")
     update_timing = time_fused_update(card)
     time_scan_chunk(card, cfg, K)
+    guard_ops = guard_ops_per_step(card, cfg)
+    log(f"[guardrails] {card}: guarded main paths' learner steps/s "
+        + ", ".join(f"{n} {g['learner_steps_per_sec']}" for n, g in guarded.items())
+        + f" against the unguarded K2 scan route's {scan_k2['learner_steps_per_sec']}; "
+        f"device operations a step {guard_ops['guarded']['launches']:.1f} guarded, "
+        f"{guard_ops['unguarded']['launches']:.1f} unguarded")
     time_per(card, timing["fused_chunk_d4pg"]["ms"])
     log(f"[done] {time.monotonic() - t_start:.1f}s")
 

@@ -1,9 +1,10 @@
 """ActorPool: N rollout worker processes feeding one learner.
 
 A trimmed copy of distributed_ddpg_tpu/actors/pool.py: the shm and queue
-transports, seqlock param broadcast, heartbeat monitor with respawn.
-Served acting, fault injection, tracing, staleness tracking and the
-quarantine breaker are not in the port yet.
+transports, seqlock param broadcast, heartbeat monitor with respawn and
+the quarantine breaker. Served acting, fault injection, tracing,
+staleness tracking and the zero-rows detector (actor_no_progress_s) are
+not in the port yet.
 
 - Param broadcast: one flat f32 shared-memory array + a version counter.
   Workers poll the version each env step and copy on change.
@@ -18,7 +19,15 @@ quarantine breaker are not in the port yet.
   `drain_batches` pops either for the device-replay ingest. A ring
   belongs to its slot: a respawned worker attaches to it.
 - Failure detection: workers stamp heartbeats; `monitor()` respawns a
-  worker that died or went silent past the heartbeat timeout.
+  worker that died or went silent past the heartbeat timeout, after a
+  per-slot exponential backoff (config.respawn_backoff_s, doubled each
+  recent failure up to respawn_backoff_max_s). A slot that fails
+  config.quarantine_respawns times within quarantine_window_s is
+  QUARANTINED: no more respawns, training goes on with the other workers.
+  After config.quarantine_probe_s the slot is probed with one respawn:
+  rows delivered and a whole quarantine_window_s survived un-quarantine
+  it, a failure re-quarantines it. `quarantine_source` quarantines a slot
+  directly (the guardrails' bad-row path, train.py).
 - What a dead worker can leave behind: a process killed outright dies
   holding whatever cross-process lock it held. So every spawn gets a
   fresh queue (an abandoned one may hold a half-written message and its
@@ -96,6 +105,18 @@ class ActorPool:
         self._procs: List[Optional[mp.Process]] = [None] * self.num_actors
         self._respawns = 0
         self._steps_received = 0
+        # The breaker's state, one entry a slot (see the module docstring).
+        self._fail_times: List[List[float]] = [[] for _ in range(self.num_actors)]
+        self._backoff_until = [0.0] * self.num_actors
+        self._pending_respawn = [False] * self.num_actors
+        self._quarantined = [False] * self.num_actors
+        self._quarantined_at = [0.0] * self.num_actors
+        self._probing = [False] * self.num_actors
+        self._probe_t = [0.0] * self.num_actors
+        self._unquarantines = 0
+        # When rows last came from each slot (drains only): the probe's
+        # sustained-progress clock.
+        self._rows_seen_t = [0.0] * self.num_actors
         self.transport = resolve_transport(config.transport)
         self.row_width = 2 * spec.obs_dim + spec.act_dim + 3
         self._ring_bufs: List = []
@@ -155,9 +176,12 @@ class ActorPool:
             name=f"actor-{worker_id}",
         )
         p.start()
-        # 0.0 = still booting: the silent-timeout respawn arms only once
-        # the worker's loop stamps its first heartbeat.
+        # 0.0 = still booting (interpreter, env imports -- gymnasium and
+        # mujoco for their envs -- and the env's build): the silent-timeout
+        # respawn arms only once the worker's loop stamps its first
+        # heartbeat, so a slow boot is never respawned as silent.
         self._heartbeat[worker_id] = 0.0
+        self._rows_seen_t[worker_id] = 0.0
         self._procs[worker_id] = p
 
     def start(self, flat_params: np.ndarray) -> "ActorPool":
@@ -207,11 +231,11 @@ class ActorPool:
             "next_obs": rows[:, o + a + 2:2 * o + a + 2],
         }
 
-    def _pop_ring_batches(self, max_rows: Optional[int]) -> List[Dict[str, np.ndarray]]:
+    def _pop_ring_batches(self, max_rows: Optional[int]) -> List[tuple]:
         out = []
         remaining = (self.config.shm_ring_rows * self.num_actors if max_rows is None
                      else int(max_rows))
-        for ring in self._rings:
+        for wid, ring in enumerate(self._rings):
             if remaining <= 0:
                 break
             # Ask for no more than the ring holds: pop allocates the request.
@@ -220,16 +244,20 @@ class ActorPool:
                 continue
             rows = ring.pop(min(remaining, avail))
             if rows.shape[0]:
-                out.append(self._rows_to_batch(rows))
+                out.append((wid, self._rows_to_batch(rows)))
+                self._rows_seen_t[wid] = time.time()
                 self._steps_received += rows.shape[0]
                 remaining -= rows.shape[0]
         return out
 
-    def drain_batches(self, max_rows: Optional[int] = None) -> List[Dict[str, np.ndarray]]:
+    def drain_batches(self, max_rows: Optional[int] = None,
+                      with_sources: bool = False) -> List:
         """Pop pending transition batches (field dicts) without blocking,
         at most `max_rows` transitions (the ingest rate limiter's budget;
         on the queue the last batch may overshoot it); the episodes that
-        came with them go to episode_stats()."""
+        came with them go to episode_stats(). With `with_sources`, (worker
+        id, batch) pairs, so the guardrails can trace a non-finite replay
+        row to the slot that produced it."""
         if self.transport == "shm":
             out = self._pop_ring_batches(max_rows)
         else:
@@ -244,36 +272,149 @@ class ActorPool:
                 except queue_mod.Empty:
                     break
                 if batch is not None:
-                    out.append(batch)
+                    out.append((wid, batch))
+                    self._rows_seen_t[wid] = time.time()
                     moved += len(batch["reward"])
                 self._episodes.extend((wid, r, n) for r, n in episodes)
         self._steps_received += moved
-        return out
+        return out if with_sources else [batch for _, batch in out]
 
     def episode_stats(self) -> List[tuple]:
         """(worker_id, return, length) of the episodes drained so far."""
         out, self._episodes = self._episodes, []
         return out
 
-    # --- failure detection ---
+    # --- failure detection and the breaker ---
 
     def monitor(self) -> Dict[str, int]:
-        """Respawn workers that died or went silent. Call periodically."""
+        """Supervise the workers; call periodically. A worker that died or
+        went silent is respawned after its slot's backoff; a slot that
+        failed quarantine_respawns times within quarantine_window_s is
+        quarantined instead, and probed after quarantine_probe_s."""
+        cfg = self.config
         now = time.time()
         respawned = 0
         for i, p in enumerate(self._procs):
-            hb = self._heartbeat[i]
-            dead = p is None or not p.is_alive()
-            silent = hb > 0.0 and now - hb > self.heartbeat_timeout
-            if not (dead or silent):
+            if self._quarantined[i]:
+                # The probe: after the cooldown, one respawn. The slot leaves
+                # quarantine provisionally, under the usual checks; a failure
+                # during the probe sends it straight back.
+                if (cfg.quarantine_probe_s > 0
+                        and now - self._quarantined_at[i] >= cfg.quarantine_probe_s):
+                    self._quarantined[i] = False
+                    self._probing[i] = True
+                    self._probe_t[i] = now
+                    self._fail_times[i] = []
+                    self._respawns += 1
+                    respawned += 1
+                    print(f"[pool] probing quarantined worker {i} after "
+                          f"{cfg.quarantine_probe_s:.0f}s cooldown (single respawn attempt)",
+                          file=sys.stderr, flush=True)
+                    self._spawn(i)
                 continue
-            if p is not None and p.is_alive():
-                p.terminate()
-                p.join(timeout=_TERMINATE_JOIN_S)
-            self._respawns += 1
-            respawned += 1
-            self._spawn(i)
-        return {"respawned": respawned, "total_respawns": self._respawns}
+            if self._probing[i] and not self._pending_respawn[i]:
+                # The probe succeeds on sustained progress: rows since its
+                # spawn and a whole quarantine_window_s survived.
+                if (self._rows_seen_t[i] > self._probe_t[i]
+                        and now - self._probe_t[i] >= cfg.quarantine_window_s):
+                    self._probing[i] = False
+                    self._unquarantines += 1
+                    print(f"[pool] worker {i} UN-QUARANTINED: sustained progress for "
+                          f"{cfg.quarantine_window_s:.0f}s after probe — fleet back to "
+                          f"{self.num_actors - self.quarantined_count} workers",
+                          file=sys.stderr, flush=True)
+            if not self._pending_respawn[i]:
+                why = self._detect_failure(i, p, now)
+                if why is None:
+                    continue
+                if p is not None and p.is_alive():
+                    p.terminate()
+                    p.join(timeout=_TERMINATE_JOIN_S)
+                self._procs[i] = None
+                if self._probing[i]:
+                    self._probing[i] = False
+                    self._quarantined[i] = True
+                    self._quarantined_at[i] = now
+                    print(f"[pool] probe of worker {i} failed ({why}); re-quarantined",
+                          file=sys.stderr, flush=True)
+                    continue
+                window = [t for t in self._fail_times[i] if now - t <= cfg.quarantine_window_s]
+                window.append(now)
+                self._fail_times[i] = window
+                if cfg.quarantine_respawns > 0 and len(window) >= cfg.quarantine_respawns:
+                    self._quarantined[i] = True
+                    self._quarantined_at[i] = now
+                    print(f"[pool] QUARANTINED worker {i}: {len(window)} failures (last: "
+                          f"{why}) within {cfg.quarantine_window_s:.0f}s — respawns "
+                          "suspended, training continues degraded on "
+                          f"{self.num_actors - self.quarantined_count} workers"
+                          + (f"; probe in {cfg.quarantine_probe_s:.0f}s"
+                             if cfg.quarantine_probe_s > 0 else ""),
+                          file=sys.stderr, flush=True)
+                    continue
+                backoff = min(cfg.respawn_backoff_s * (2.0 ** (len(window) - 1)),
+                              cfg.respawn_backoff_max_s)
+                self._backoff_until[i] = now + backoff
+                self._pending_respawn[i] = True
+            if self._pending_respawn[i] and now >= self._backoff_until[i]:
+                self._pending_respawn[i] = False
+                self._respawns += 1
+                respawned += 1
+                self._spawn(i)
+        return {"respawned": respawned, "total_respawns": self._respawns,
+                "quarantined": self.quarantined_count}
+
+    def _detect_failure(self, i: int, p, now: float) -> Optional[str]:
+        """One slot's health check: 'dead', 'silent' or None. A heartbeat of
+        0 means the worker is still booting: only a death counts then."""
+        if p is None or not p.is_alive():
+            return "dead"
+        hb = self._heartbeat[i]
+        if hb <= 0.0:
+            return None
+        if now - hb > self.heartbeat_timeout:
+            return "silent"
+        return None
+
+    def quarantine_source(self, worker_id: int, why: str = "numeric") -> bool:
+        """Quarantine one slot directly, the guardrails' bad-row path
+        (train.py): a worker that keeps feeding non-finite rows poisons the
+        replay though its process looks healthy, so it takes the breaker's
+        quarantine (training goes on degraded; the probe may bring it
+        back). Returns False when the slot is out of range or already
+        quarantined."""
+        i = int(worker_id)
+        if not 0 <= i < self.num_actors or self._quarantined[i]:
+            return False
+        p = self._procs[i]
+        if p is not None and p.is_alive():
+            p.terminate()
+            p.join(timeout=_TERMINATE_JOIN_S)
+        self._procs[i] = None
+        self._probing[i] = False
+        self._pending_respawn[i] = False
+        self._fail_times[i] = []
+        self._quarantined[i] = True
+        self._quarantined_at[i] = time.time()
+        print(f"[pool] QUARANTINED worker {i} ({why}): repeatedly produced non-finite "
+              "experience rows — respawns suspended, training continues degraded on "
+              f"{self.num_actors - self.quarantined_count} workers"
+              + (f"; probe in {self.config.quarantine_probe_s:.0f}s"
+                 if self.config.quarantine_probe_s > 0 else ""),
+              file=sys.stderr, flush=True)
+        return True
+
+    @property
+    def quarantined_count(self) -> int:
+        return sum(self._quarantined)
+
+    def recovery_counters(self) -> Dict[str, int]:
+        """The cumulative fault-history counters of the records."""
+        return {
+            "actor_respawns": self._respawns,
+            "actor_quarantined": self.quarantined_count,
+            "actor_unquarantined": self._unquarantines,
+        }
 
     @property
     def steps_received(self) -> int:

@@ -36,9 +36,10 @@ snapshot on the caller's thread, the write on one background thread; a
 save while it is busy is skipped and counted), latest_step, valid_steps
 and restore (with step=None the newest-first walk: verify, quarantine on
 failure, check the config outside the load's try, fall back past a load
-error; an explicit step has no fallback). Not here yet: discard_above
-(the guardrails' rollback), the replay slices of an elastic pod and the
-device actors' carry.
+error; an explicit step has no fallback) and discard_above (the
+guardrails' rollback: checkpoints newer than the restored step become
+diverged_step_<N>). Not here yet: the replay slices of an elastic pod and
+the device actors' carry.
 """
 
 from __future__ import annotations
@@ -234,6 +235,43 @@ def _quarantine_corrupt(directory: str, step: int) -> None:
         pass
 
 
+def discard_above(directory: str, step: int) -> list:
+    """Move every retained checkpoint NEWER than `step` out of the step_N
+    namespace (-> diverged_step_N; its manifest and config removed, so
+    latest_step and valid_steps stop seeing it; the payload kept for
+    inspection). The guardrails' rollback (train.py) calls this right after
+    restoring `step`: checkpoints written after the divergence began are
+    presumed poisoned, and a crash before the next clean save must resume
+    from `step`, not from them. Returns the steps discarded."""
+    directory = os.path.abspath(directory)
+    if not os.path.isdir(directory):
+        return []
+    discarded = []
+    for s in _steps(directory):
+        if s <= step:
+            continue
+        src = os.path.join(directory, f"step_{s}")
+        dst = os.path.join(directory, f"diverged_step_{s}")
+        try:
+            if os.path.isdir(dst):
+                shutil.rmtree(dst, ignore_errors=True)
+            os.rename(src, dst)
+            for side in (f"manifest_{s}.json", f"config_{s}.json"):
+                side_path = os.path.join(directory, side)
+                if os.path.exists(side_path):
+                    os.unlink(side_path)
+            discarded.append(s)
+        except OSError:
+            pass
+    if discarded:
+        print(
+            "[checkpoint] rollback quarantined diverged checkpoint(s): "
+            + ", ".join(f"step_{s} -> diverged_step_{s}" for s in discarded),
+            file=sys.stderr, flush=True,
+        )
+    return discarded
+
+
 # --- writing ---------------------------------------------------------------------
 
 
@@ -416,7 +454,8 @@ def _load_npz(path: str) -> Dict[str, np.ndarray]:
 
 def restore(directory: str, state_template: TrainState, replay=None,
             step: Optional[int] = None, config=None,
-            meta_out: Optional[Dict[str, Any]] = None) -> Tuple[TrainState, int, int]:
+            meta_out: Optional[Dict[str, Any]] = None,
+            at_most: Optional[int] = None) -> Tuple[TrainState, int, int]:
     """Restore (TrainState, step, env_steps); `replay`, when given, is
     filled in place. The state comes back on the template's device, with
     the template's paths and shapes (else a ValueError). With `config` the
@@ -427,9 +466,13 @@ def restore(directory: str, state_template: TrainState, replay=None,
     that fails verification is quarantined, one that fails to load is
     passed over, each with a note on stderr, so a corrupt newest
     checkpoint costs one cadence of progress. A config mismatch raises
-    either way. An explicit step restores that step or raises."""
+    either way. An explicit step restores that step or raises. `at_most`
+    limits the walk to steps <= it (the guardrails' rollback: the newest
+    checkpoint from before the divergence began)."""
     if step is None:
         candidates = _steps(os.path.abspath(directory)) if os.path.isdir(directory) else []
+        if at_most is not None:
+            candidates = [s for s in candidates if s <= at_most]
         if not candidates:
             raise FileNotFoundError(f"no checkpoints under {directory}")
         failures = []

@@ -10,8 +10,9 @@ configs inside its envelope (ops/fused_chunk.supported) whose state fits its
 budget (ops/fused_chunk.fits_vmem, the JAX kernel's VMEM gate), or the scan
 route, K eager steps, for the rest (critic_l2 > 0, action_insert_layer != 1,
 one critic hidden layer, more than 256 atoms, a state over 6 MiB,
-fused_update=True, whose steps run the fused Adam + Polyak kernel). Options the port does not implement
-yet keep their field and default, and a non-default value raises a
+fused_update=True, whose steps run the fused Adam + Polyak kernel, and
+guardrails=True, whose steps carry the health probe). Options the port
+does not implement yet keep their field and default, and a non-default value raises a
 ValueError naming the option (ROADMAP.md lists the order they arrive in)
 — never a silent no-op.
 
@@ -29,9 +30,7 @@ from typing import Sequence
 
 # Options outside this slice: field -> the value that means "off".
 _NOT_IN_SLICE = {
-    "guardrails": False,
     "serve_actors": False,
-    "faults": "",
     "actor_backend": "host",
     "model_axis": 1,
 }
@@ -196,6 +195,55 @@ class DDPGConfig:
     heartbeat_timeout_s: float = 30.0
     device: str = "cuda"
 
+    # --- the actor pool's breaker (actors/pool.py) ---
+    # Respawn backoff: the k-th recent failure of one worker slot waits
+    # min(base * 2^(k-1), max) seconds before its respawn.
+    respawn_backoff_s: float = 0.5
+    respawn_backoff_max_s: float = 30.0
+    # Crash-loop breaker: this many failures of one slot within
+    # quarantine_window_s quarantine it (no more respawns; training goes on
+    # with the other workers). 0 = breaker off.
+    quarantine_respawns: int = 5
+    quarantine_window_s: float = 60.0
+    # After this cooldown a quarantined slot is probed with one respawn:
+    # rows delivered and quarantine_window_s survived un-quarantine it, a
+    # failure re-quarantines it. 0 = never probe.
+    quarantine_probe_s: float = 300.0
+
+    # --- fault injection (faults.py; the numeric component only) ---
+    # e.g. --faults='numeric:grad:nan@500;numeric:replay:inf@42'. "" = none.
+    faults: str = ""
+
+    # --- numerical-health guardrails (guardrails.py) ---
+    # Finite checks on td, losses, grad norms and the updated params, and
+    # EWMA z-scores on the critic loss and grad norm, in every learner step
+    # on the device; a bad step's update is dropped, non-finite sampled
+    # rows are traced to the actor that produced them, and sustained
+    # divergence rolls the run back to the last valid checkpoint. Forces
+    # the scan route (the chunk kernel has no probe slot; 'auto' degrades
+    # to the scan, 'on' raises) and one health-word read a chunk.
+    guardrails: bool = False
+    # One-sided z-score threshold of the loss / grad-norm detector.
+    guardrail_zmax: float = 8.0
+    # Clean steps the EWMA absorbs before the z-scores arm (the finite
+    # checks are armed from step 1).
+    guardrail_warmup_steps: int = 64
+    # Rollback trigger: this many anomalous learner steps within
+    # guardrail_rollback_window steps restore the last valid checkpoint.
+    # 0 = detect, skip and quarantine only.
+    guardrail_rollback_k: int = 8
+    guardrail_rollback_window: int = 256
+    # A run that needs more rollbacks than this (or one with nothing to
+    # restore) exits EXIT_NUMERIC (77).
+    guardrail_max_rollbacks: int = 3
+    # After a rollback both learning rates scale by this factor until
+    # guardrail_lr_cooldown_steps clean steps pass. 1.0 = off.
+    guardrail_lr_backoff: float = 0.5
+    guardrail_lr_cooldown_steps: int = 2000
+    # This many non-finite replay rows traced to one actor slot quarantine
+    # it through the pool's breaker. 0 = off.
+    guardrail_source_offenses: int = 3
+
     # --- checkpoint and resume (checkpoint.py) ---
     # Every checkpoint_every learner steps rank 0 snapshots the state, the
     # replay, the env-step count and the resolved C51 bounds, and a
@@ -211,14 +259,18 @@ class DDPGConfig:
     ckpt_retry_backoff_s: float = 0.5
 
     # --- options outside this slice (see _NOT_IN_SLICE) ---
-    guardrails: bool = False
     serve_actors: bool = False
-    faults: str = ""
     actor_backend: str = "host"
     model_axis: int = 1
 
     def replace(self, **kwargs) -> "DDPGConfig":
         return dataclasses.replace(self, **kwargs)
+
+    def fault_plan(self):
+        """The parsed --faults schedule (faults.FaultPlan)."""
+        from distributed_ddpg_tpu_torch.faults import FaultPlan
+
+        return FaultPlan.parse(self.faults, seed=self.seed)
 
     @property
     def takes_noise(self) -> bool:
@@ -436,3 +488,52 @@ class DDPGConfig:
             raise ValueError("ckpt_write_retries must be >= 0")
         if self.ckpt_retry_backoff_s < 0:
             raise ValueError("ckpt_retry_backoff_s must be >= 0")
+        # The JAX package's checks of the breaker, the fault plan and the
+        # guardrails (its config.py), its `backend` check left out: the port
+        # has one backend.
+        self.fault_plan()
+        if self.respawn_backoff_s < 0 or self.respawn_backoff_max_s < 0:
+            raise ValueError("respawn backoff values must be >= 0")
+        if self.quarantine_respawns < 0:
+            raise ValueError("quarantine_respawns must be >= 0 (0 = off)")
+        if self.quarantine_window_s <= 0:
+            raise ValueError("quarantine_window_s must be > 0")
+        if self.quarantine_probe_s < 0:
+            raise ValueError("quarantine_probe_s must be >= 0 (0 = off)")
+        if self.guardrails:
+            if self.fused_chunk == "on":
+                raise ValueError(
+                    "guardrails=True forces the XLA scan path (the Pallas "
+                    "megakernel has no health-probe slot) — incompatible "
+                    "with fused_chunk='on'; use 'auto' (degrades to scan) "
+                    "or 'off'"
+                )
+            if self.data_axis not in (-1, 1):
+                raise ValueError(
+                    f"guardrails=True with data_axis={self.data_axis} is not in "
+                    "this slice of the PyTorch port: the row screen shared "
+                    "across ranks comes with ROADMAP.md Queue 1 item 10; run "
+                    "the guarded learner on one rank"
+                )
+        if self.guardrail_zmax <= 0:
+            raise ValueError("guardrail_zmax must be > 0")
+        if self.guardrail_warmup_steps < 1:
+            raise ValueError("guardrail_warmup_steps must be >= 1")
+        if self.guardrail_rollback_k < 0:
+            raise ValueError(
+                "guardrail_rollback_k must be >= 0 (0 = never roll back)"
+            )
+        if self.guardrail_rollback_window < 1:
+            raise ValueError("guardrail_rollback_window must be >= 1")
+        if self.guardrail_max_rollbacks < 0:
+            raise ValueError("guardrail_max_rollbacks must be >= 0")
+        if not 0.0 < self.guardrail_lr_backoff <= 1.0:
+            raise ValueError(
+                "guardrail_lr_backoff must be in (0, 1] (1.0 = off)"
+            )
+        if self.guardrail_lr_cooldown_steps < 1:
+            raise ValueError("guardrail_lr_cooldown_steps must be >= 1")
+        if self.guardrail_source_offenses < 0:
+            raise ValueError(
+                "guardrail_source_offenses must be >= 0 (0 = off)"
+            )

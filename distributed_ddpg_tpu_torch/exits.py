@@ -6,15 +6,22 @@ distributed_ddpg_tpu/exits.py, trimmed to the codes the port can return).
                         checkpoint was written (with --checkpoint_dir),
                         and the run can be resumed from it: relaunch the
                         same command with the same --checkpoint_dir.
+    77  EXIT_NUMERIC    the guardrails (--guardrails=true) used up their
+                        rollback budget, or had no checkpoint to roll
+                        back to: the params are presumed poisoned and NO
+                        checkpoint was written. Do not relaunch blindly;
+                        read the guardrail_* counters first.
 
-The JAX package's other codes (70 watchdog stall, 76-79 pods, numeric
-abort, supervisor) arrive with the slices that can raise them.
+The JAX package's other codes (70 watchdog stall, 76 and 78 pods, 79
+supervisor) arrive with the slices that can raise them.
 """
 
 EXIT_OK = 0
 EXIT_PREEMPTED = 75
+EXIT_NUMERIC = 77
 
 NAMES = {
     EXIT_OK: "ok",
     EXIT_PREEMPTED: "preempted",
+    EXIT_NUMERIC: "numeric_abort",
 }

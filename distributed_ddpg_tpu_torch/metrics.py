@@ -1,9 +1,10 @@
-"""Counters of the ingest pipeline and the transfer scheduler.
+"""Counters of the ingest pipeline, the transfer scheduler and the guardrails.
 
 A trimmed copy of distributed_ddpg_tpu/metrics.py: IngestStats and
-TransferStats (with the reservoir they keep their tails in), under the JAX
-package's snapshot keys letter for letter, so a record of either trainer
-reads the same. The port's JSONL log is train.JsonlLog.
+TransferStats (with the reservoir they keep their tails in) and
+GuardrailStats, under the JAX package's snapshot keys letter for letter,
+so a record of either trainer reads the same. The port's JSONL log is
+train.JsonlLog.
 """
 
 from __future__ import annotations
@@ -193,3 +194,78 @@ class TransferStats:
             if reset:
                 self._reset_locked()
         return out
+
+
+class GuardrailStats:
+    """The host's numerical-health counters (guardrails.py): the
+    `guardrail_*` fields of every train and final record when guardrails
+    are on. Cumulative:
+
+      guardrail_anomalies          anomalous learner steps (nonfinite +
+                                   z-score spikes), the rollback trigger's
+                                   input
+      guardrail_nonfinite_steps    steps skipped for a non-finite td, grad
+                                   or param value
+      guardrail_loss_spikes        steps skipped by the EWMA z-score
+                                   detector (finite but absurd)
+      guardrail_skipped_updates    updates dropped on the device
+      guardrail_bad_rows           non-finite sampled replay rows seen
+      guardrail_rollbacks          checkpoint rollback-repairs taken
+      guardrail_last_rollback_step the step the latest rollback restored
+                                   (-1 = none)
+      guardrail_lr_cooldowns       LR backoff -> restore cycles completed
+      guardrail_source_quarantines ingest sources quarantined for
+                                   repeatedly feeding non-finite rows
+
+    `absorb(health)` takes the device probe's cumulative counters and
+    returns the DELTA since the previous read: the rolling window's input
+    for the rollback trigger (train.py)."""
+
+    def __init__(self):
+        self.nonfinite = 0
+        self.spikes = 0
+        self.skipped = 0
+        self.bad_rows = 0
+        self.total_steps = 0
+        self.rollbacks = 0
+        self.last_rollback_step = -1
+        self.lr_cooldowns = 0
+        self.source_quarantines = 0
+
+    def absorb(self, health: Dict[str, int]) -> Dict[str, int]:
+        delta = {
+            "nonfinite": int(health.get("nonfinite", 0)) - self.nonfinite,
+            "spikes": int(health.get("spikes", 0)) - self.spikes,
+            "skipped": int(health.get("skipped", 0)) - self.skipped,
+            "bad_rows": int(health.get("bad_rows", 0)) - self.bad_rows,
+        }
+        self.nonfinite = int(health.get("nonfinite", 0))
+        self.spikes = int(health.get("spikes", 0))
+        self.skipped = int(health.get("skipped", 0))
+        self.bad_rows = int(health.get("bad_rows", 0))
+        self.total_steps = int(health.get("total", 0))
+        delta["anomalies"] = delta["nonfinite"] + delta["spikes"]
+        return delta
+
+    def record_rollback(self, step: int) -> None:
+        self.rollbacks += 1
+        self.last_rollback_step = int(step)
+
+    def record_lr_cooldown(self) -> None:
+        self.lr_cooldowns += 1
+
+    def record_source_quarantine(self) -> None:
+        self.source_quarantines += 1
+
+    def snapshot(self) -> Dict[str, int]:
+        return {
+            "guardrail_anomalies": self.nonfinite + self.spikes,
+            "guardrail_nonfinite_steps": self.nonfinite,
+            "guardrail_loss_spikes": self.spikes,
+            "guardrail_skipped_updates": self.skipped,
+            "guardrail_bad_rows": self.bad_rows,
+            "guardrail_rollbacks": self.rollbacks,
+            "guardrail_last_rollback_step": self.last_rollback_step,
+            "guardrail_lr_cooldowns": self.lr_cooldowns,
+            "guardrail_source_quarantines": self.source_quarantines,
+        }

@@ -34,6 +34,19 @@ IS weights are written into the gathered rows' weight column, which both
 routes read, and the chunk's (|td| + eps)^alpha go back into the priority
 vector, all on the device, as the JAX learner's PER programs do.
 
+With guardrails (config.guardrails; guardrails.py) a chunk takes the scan
+route, as the JAX learner's guarded programs do (:366-371, :582-720), and
+'auto' degrades to it: before the steps the gathered rows are screened
+(batch_row_health: per-step bad flags, the bad-row count added to the
+GuardState, the first 32 bad replay indices), then each of the K steps
+runs through the guarded step with its own step index (TD3's delay) or
+normals (SAC), and under PER a bad step's rows take the priority
+(0 + eps)^alpha from its zeroed td. The GuardState and the health word
+stay on the device: a guarded chunk reads nothing back. The host reads the
+word (poll_health) and the bad indices (bad_indices) after the chunk has
+ended. reset_guard, reseed and set_lr_scale serve the trainer's
+rollback-repair (train.py). Guardrails run on one rank only.
+
 On D > 1 ranks the global batch is batch_size * D (scale_batch_with_data,
 else batch_size), b_local = global / D rows a rank, and a chunk runs one
 of two ways (the JAX learner's rules as they are):
@@ -68,6 +81,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from distributed_ddpg_tpu_torch import guardrails as guard_lib
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.learner import (
     METRIC_KEYS,
@@ -109,7 +123,8 @@ def resolve_learner_chunk(config: DDPGConfig) -> int:
 
 def make_scan_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
                        action_scale, action_offset=0.0, chunk_size: int = 8,
-                       group: Optional[DataGroup] = None):
+                       group: Optional[DataGroup] = None, guard: bool = False,
+                       inject: Optional[Dict[str, tuple]] = None):
     """Returns run(state, packed[K, B, D], eps, step0) -> (new_state,
     td[K, B], metrics), the scan route: K eager steps over the chunk's rows,
     with the kernel route's inputs and outputs (the chunk-mean metrics in
@@ -118,20 +133,44 @@ def make_scan_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
     own count), from which step k takes its index for TD3's delay, so
     nothing inside the chunk reads the card back. run.set_value_bounds(v_min, v_max)
     rebuilds the step on the new C51 support, as the JAX package rebuilds
-    its programs. With `group` every step averages its gradients over the
-    group's ranks (learner.make_learner_step), B being the rank's rows."""
+    its programs, and run.set_lr_scale(scale) on both learning rates times
+    `scale` (the guardrails' LR cooldown); each keeps the other's setting.
+    With `group` every step averages its gradients over the group's ranks
+    (learner.make_learner_step), B being the rank's rows. With `guard`,
+    run.guarded(state, g, packed, eps, step0, pre_bad) -> (new_state,
+    new_g, td, metrics) runs the K steps through the health probe
+    (guardrails.make_guarded_step, with the `inject` ordinals), step k
+    with its screen flag pre_bad[k]."""
     K, B = int(chunk_size), int(config.batch_size)
     D = 2 * int(obs_dim) + int(act_dim) + 3
-    current = [config, make_learner_step(config, action_scale, action_offset, group)]
+    settings = {"bounds": None, "lr_scale": 1.0}
+    current = []
+
+    def build() -> None:
+        cfg = config
+        if settings["bounds"] is not None:
+            cfg = cfg.replace(v_min=settings["bounds"][0], v_max=settings["bounds"][1])
+        if settings["lr_scale"] != 1.0:
+            cfg = cfg.replace(actor_lr=config.actor_lr * settings["lr_scale"],
+                              critic_lr=config.critic_lr * settings["lr_scale"])
+        step = make_learner_step(cfg, action_scale, action_offset, group)
+        gstep = (guard_lib.make_guarded_step(step, cfg.guardrail_zmax,
+                                             cfg.guardrail_warmup_steps, inject)
+                 if guard else None)
+        current[:] = [cfg, step, gstep]
 
     def set_value_bounds(v_min: float, v_max: float) -> None:
         if not config.distributional:
             raise ValueError("set_value_bounds needs a distributional (D4PG) chunk")
-        current[0] = current[0].replace(v_min=float(v_min), v_max=float(v_max))
-        current[1] = make_learner_step(current[0], action_scale, action_offset, group)
+        settings["bounds"] = (float(v_min), float(v_max))
+        build()
 
-    def run(state: TrainState, packed, eps, step0: int):
-        cfg, step = current
+    def set_lr_scale(scale: float) -> None:
+        settings["lr_scale"] = float(scale)
+        build()
+
+    def checked(packed, eps):
+        cfg = current[0]
         if cfg.distributional and cfg.v_support_auto:
             raise ValueError(
                 "the C51 support is still 'auto': set_value_bounds must resolve "
@@ -139,19 +178,43 @@ def make_scan_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
         if packed.shape != (K, B, D):
             raise ValueError(f"packed batch must be {(K, B, D)}, got {tuple(packed.shape)}")
         cfg.check_noise(eps)
+        return cfg
+
+    def noise_at(cfg, eps, k):
+        return eps if eps is None else ((eps[0][k], eps[1][k]) if cfg.sac else eps[k])
+
+    def chunk_means(metrics):
+        means = torch.stack(metrics).view(K, len(METRIC_KEYS)).mean(dim=0)
+        return dict(zip(METRIC_KEYS, means.unbind()))
+
+    def run(state: TrainState, packed, eps, step0: int):
+        cfg, step, _ = current
+        checked(packed, eps)
         tds, metrics = [], []
         for k in range(K):
-            e = eps if eps is None else (
-                (eps[0][k], eps[1][k]) if cfg.sac else eps[k])
-            out = step(state, unpack_batch(packed[k], obs_dim, act_dim), e,
+            out = step(state, unpack_batch(packed[k], obs_dim, act_dim), noise_at(cfg, eps, k),
                        step_index=step0 + k)
             state = out.state
             tds.append(out.td_errors)
             metrics.extend(out.metrics[name] for name in METRIC_KEYS)
-        means = torch.stack(metrics).view(K, len(METRIC_KEYS)).mean(dim=0)
-        return state, torch.stack(tds), dict(zip(METRIC_KEYS, means.unbind()))
+        return state, torch.stack(tds), chunk_means(metrics)
 
+    def guarded(state: TrainState, g, packed, eps, step0: int, pre_bad):
+        cfg, _, gstep = current
+        checked(packed, eps)
+        tds, metrics = [], []
+        for k in range(K):
+            state, g, td, ms = gstep(state, g, unpack_batch(packed[k], obs_dim, act_dim),
+                                     pre_bad[k], noise_at(cfg, eps, k), step_index=step0 + k)
+            tds.append(td)
+            metrics.extend(ms[name] for name in METRIC_KEYS)
+        return state, g, torch.stack(tds), chunk_means(metrics)
+
+    build()
     run.set_value_bounds = set_value_bounds
+    run.set_lr_scale = set_lr_scale
+    if guard:
+        run.guarded = guarded
     return run
 
 
@@ -188,8 +251,17 @@ class ShardedLearner:
         # chunk kernel where the config is in its envelope, on one device
         # or as the mesh launch on D > 1 ranks unless fused_mesh='off';
         # else the scan. PER takes the kernel on one device only.
+        # Guardrails need the probe in every step: the chunk kernel has no
+        # slot for it, so they take the scan route (JAX :366-371).
+        self.guard_enabled = bool(config.guardrails)
+        if self.guard_enabled and D > 1:
+            raise ValueError(
+                f"guardrails=True on {D} ranks is not in this slice of the PyTorch "
+                "port (the row screen shared across ranks: ROADMAP.md Queue 1 "
+                "item 10); run the guarded learner on one rank")
         envelope_ok = (
-            config.fused_chunk != "off" and fused_chunk.supported(config)
+            config.fused_chunk != "off" and not self.guard_enabled
+            and fused_chunk.supported(config)
             and fused_chunk.fits_vmem(config, obs_dim, act_dim))
         self.fused_mesh_active = envelope_ok and D > 1 and config.fused_mesh != "off"
         self.fused_chunk_active = envelope_ok and (D == 1 or self.fused_mesh_active)
@@ -215,6 +287,9 @@ class ShardedLearner:
             self._scan = make_scan_chunk_fn(
                 local, obs_dim, act_dim, action_scale, action_offset,
                 chunk_size=self.chunk_size, group=group if D > 1 else None,
+                guard=self.guard_enabled,
+                inject=(config.fault_plan().numeric_steps()
+                        if self.guard_enabled and config.faults else None),
             )
         # Index draws on the device, from their own seeded generator (the
         # same on every rank: the scan route's global draw and PER's); the
@@ -231,6 +306,14 @@ class ShardedLearner:
         )
         self._step = int(self.state.step)   # host copy of the global step
         self._done: Optional[torch.cuda.Event] = None
+        # The LR cooldown's scale (set_lr_scale), applied where the step is
+        # built, so it composes with set_value_bounds.
+        self._lr_scale = 1.0
+        if self.guard_enabled:
+            # The probe's state and the last chunk's (health word, bad
+            # indices), all on the device until the host polls them.
+            self._guard = guard_lib.init_guard_state(device=self.device)
+            self._health_cur = None
 
     def load_state(self, state: TrainState) -> None:
         """Take a restored state (checkpoint.restore) as the learner's own:
@@ -290,9 +373,23 @@ class ShardedLearner:
             sums.append(full)
         return full
 
-    def _run(self, packed: torch.Tensor, eps, kernel: bool) -> StepOutput:
+    def _screen(self, packed: torch.Tensor, idx: Optional[torch.Tensor]):
+        """The guarded chunk's row screen (guardrails.batch_row_health) of
+        the rows as gathered, or None when guardrails are off; `idx` (the
+        draw, None when the host fed the rows) names them."""
+        return guard_lib.batch_row_health(packed, idx) if self.guard_enabled else None
+
+    def _run(self, packed: torch.Tensor, eps, kernel: bool, screen=None) -> StepOutput:
         if kernel:
             new_state, td, metrics = self._chunk(self.state, packed, eps)
+        elif self.guard_enabled:
+            # The screen's count into the GuardState, then the guarded
+            # steps (JAX :633-650).
+            pre_bad, bad_count, bad_idx = screen
+            g = self._guard._replace(bad_rows=self._guard.bad_rows + bad_count)
+            new_state, self._guard, td, metrics = self._scan.guarded(
+                self.state, g, packed, eps, self._step, pre_bad)
+            self._health_cur = (guard_lib.health_vector(self._guard), bad_idx)
         else:
             new_state, td, metrics = self._scan(self.state, packed, eps, self._step)
         if self.fused_mesh_active and kernel:
@@ -325,6 +422,68 @@ class ShardedLearner:
         for run in (self._chunk, self._scan):
             if run is not None:
                 run.set_value_bounds(v_min, v_max)
+
+    # --- numerical-health guardrails (guardrails.py) ---
+
+    def poll_health(self) -> Optional[Dict[str, int]]:
+        """The probe's cumulative counters after the last guarded chunk
+        (HEALTH_KEYS), the one read of the health word a chunk; None before
+        the first guarded chunk, after reset_guard, or with guardrails off.
+        Call it once chunk_done() is true: the read waits for the chunk."""
+        if not self.guard_enabled or self._health_cur is None:
+            return None
+        return dict(zip(guard_lib.HEALTH_KEYS,
+                        (int(v) for v in self._health_cur[0].cpu().tolist())))
+
+    def bad_indices(self) -> np.ndarray:
+        """Replay indices of the non-finite rows the last guarded chunk
+        drew (the first guardrails.GUARD_BAD_IDX, the -1 padding dropped).
+        Read only when the health word shows new bad rows."""
+        if not self.guard_enabled or self._health_cur is None:
+            return np.empty(0, np.int64)
+        arr = self._health_cur[1].cpu().numpy().astype(np.int64)
+        return arr[arr >= 0]
+
+    def reset_guard(self) -> None:
+        """Re-arm the probe after a rollback: the EWMA statistics reset (the
+        restored params have the loss scale of before the divergence), the
+        cumulative counters and the monotonic step clock survive (the
+        host's deltas and the numeric fault ordinals key on them)."""
+        if not self.guard_enabled:
+            return
+        h = self.poll_health() or {}
+        self._guard = guard_lib.init_guard_state(
+            **{k: h.get(k, int(getattr(self._guard, k))) for k in guard_lib.HEALTH_KEYS},
+            device=self.device)
+        self._health_cur = None
+
+    def reseed(self, salt: int) -> None:
+        """Fold `salt` into the index generator's seed (fused_chunk.fold_seed,
+        deterministic). Rollback-repair calls this so the restored run
+        draws other rows than the run that diverged: restoring the state
+        alone would replay the same draws into the same divergence."""
+        self._gen.manual_seed(fused_chunk.fold_seed(self._gen.initial_seed(), int(salt)))
+
+    @property
+    def lr_scale(self) -> float:
+        return self._lr_scale
+
+    def set_lr_scale(self, scale: float) -> None:
+        """Scale both learning rates (the guardrails' rollback cooldown) from
+        the next chunk on: the scan route rebuilds its step with
+        actor_lr * scale and critic_lr * scale, keeping the C51 support
+        set_value_bounds gave it (K2 reads the rates from that step's
+        config). State, generators and the guard are untouched. The LR
+        cooldown belongs to the guarded route, the scan route: on the
+        kernel route this raises."""
+        scale = float(scale)
+        if scale == self._lr_scale:
+            return
+        if self.route(per=self.config.prioritized) != "scan":
+            raise ValueError("set_lr_scale is the guardrails' LR cooldown; it runs on "
+                             "the scan route, and this learner takes the kernel route")
+        self._lr_scale = scale
+        self._scan.set_lr_scale(scale)
 
     def chunk_done(self) -> bool:
         """True once the last dispatched chunk has finished on the device
@@ -370,7 +529,8 @@ class ShardedLearner:
             return self._run(packed, eps, kernel=True)
         if eps is None:
             eps = self._noise(self.global_batch)
-        return self._run(packed, self._cols(eps), kernel=self.fused_chunk_active)
+        return self._run(packed, self._cols(eps), kernel=self.fused_chunk_active,
+                         screen=self._screen(packed, idx))
 
     def run_sample_chunk_per(self, device_replay, beta: float,
                              idx: Optional[torch.Tensor] = None,
@@ -406,8 +566,13 @@ class ShardedLearner:
                 eps = self._noise(self.global_batch)
             idx = idx.to(self.device)
             packed = storage[self._cols(idx)]
+            # The screen reads the rows as gathered, before the weight column
+            # takes the IS weights (JAX :690-699); a bad step's zeroed td
+            # stamps its rows at (0 + eps)^alpha below.
+            screen = self._screen(packed, idx)
             packed[..., -1] = self._cols(weights).to(self.device, torch.float32)
-            out = self._run(packed, self._cols(eps), kernel=self.fused_per_active)
+            out = self._run(packed, self._cols(eps), kernel=self.fused_per_active,
+                            screen=screen)
             new_p = (out.td_errors.abs() + device_replay.eps) ** device_replay.alpha
             scatter_last_wins(priorities, idx.reshape(-1), new_p.reshape(-1))
             torch.maximum(max_priority, new_p.max(), out=max_priority)
@@ -418,8 +583,9 @@ class ShardedLearner:
         (on D > 1 ranks this rank's columns, on the scan route)."""
         packed = torch.from_numpy(pack_batch_np(np_batches)).to(self.device)
         kernel = self.fused_chunk_active and self.data_size == 1
-        return self._run(self._cols(packed).contiguous(), self._cols(self._noise(self.global_batch)),
-                         kernel=kernel)
+        packed = self._cols(packed).contiguous()
+        return self._run(packed, self._cols(self._noise(self.global_batch)), kernel=kernel,
+                         screen=self._screen(packed, None))
 
     def actor_params_to_host(self) -> np.ndarray:
         """The actor params as one flat f32 vector in the layout of

@@ -45,8 +45,17 @@ Ingest pipeline (the JAX package's, port of its `_IngestShipper`,
 
 `ptr` and `size` are host integers: the host drives every insert, so it
 knows them without reading the device. The JAX package's multi-host
-sync_ship, sharded placement, source tracking and device-actor inserts
-are later work.
+sync_ship, sharded placement and device-actor inserts are later work.
+
+Source attribution (`track_sources`, the guardrails' bad-row quarantine;
+JAX :354-369, :560-605): add_packed tags its rows with an ingest source
+(the actor slot), a FIFO of [source, rows] runs beside the staging ring
+and is popped with it, under the same lock, and each ship that lands
+stamps a host map of storage position -> source from the ptr it wrote at
+(a padded flush's copies inherit their originals' tags). So tags survive
+coalesced ships, the shipper and its bounded restart (a failed ship loses
+its rows and their tags together). `sources_of(idx)` reads the map: -1
+where no source is known (tracking off, restored rows, untagged rows).
 
 DevicePrioritizedReplay adds proportional PER on the device, as the JAX
 package's does: an f32 [capacity] priority vector and a 0-d max priority,
@@ -62,6 +71,7 @@ import contextlib
 import sys
 import threading
 import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -195,7 +205,8 @@ class DeviceReplay:
     def __init__(self, capacity: int, obs_dim: int, act_dim: int, device="cpu",
                  block_size: int = 4096, staging_blocks: int = 16,
                  async_ship: bool = False, max_coalesce: int = 8, scheduler=None,
-                 adaptive_coalesce: bool = False, host_pool: bool = False):
+                 adaptive_coalesce: bool = False, host_pool: bool = False,
+                 track_sources: bool = False):
         self.capacity = int(capacity)
         self.obs_dim, self.act_dim = obs_dim, act_dim
         self.block_size = int(block_size)
@@ -221,6 +232,12 @@ class DeviceReplay:
         self._staging = threading.Condition()
         self.dispatch_lock = threading.RLock()
         self._stats = IngestStats()
+        # Ingest-source attribution (see the module docstring): off, no
+        # bookkeeping and sources_of reports -1.
+        self._track_sources = bool(track_sources)
+        self._source_map = (np.full(self.capacity, -1, np.int32)
+                            if self._track_sources else None)
+        self._src_fifo: deque = deque()   # mutable [source, rows] run-lengths
         self._shipper_restarts = 0
         self._max_shipper_restarts = 3
 
@@ -323,6 +340,42 @@ class DeviceReplay:
                 return
             raise IngestError("ingest shipper thread died") from exc
 
+    # --- ingest-source attribution ---
+
+    def _pop_sources_locked(self, n: int) -> Optional[np.ndarray]:
+        """Take n rows' worth of source tags off the FIFO (the caller holds
+        _staging and pops n rows off the ring with it); rows without a tag
+        report -1."""
+        if not self._track_sources:
+            return None
+        out = np.full(n, -1, np.int32)
+        i = 0
+        while i < n and self._src_fifo:
+            entry = self._src_fifo[0]
+            take = min(entry[1], n - i)
+            out[i:i + take] = entry[0]
+            entry[1] -= take
+            if entry[1] == 0:
+                self._src_fifo.popleft()
+            i += take
+        return out
+
+    def _note_shipped(self, srcs: Optional[np.ndarray], start: int) -> None:
+        """Stamp the positions a ship that landed wrote, from `start` (the
+        ptr it wrote at), with their rows' tags."""
+        if srcs is not None:
+            self._source_map[(start + np.arange(len(srcs))) % self.capacity] = srcs
+
+    def sources_of(self, idx) -> np.ndarray:
+        """The actor slots that produced the rows at replay positions `idx`
+        (-1 = untracked: tracking off, restored rows, untagged rows). The
+        map is stamped after each ship without a reader lock: attribution
+        feeds a repeat-offender threshold, not an exact count."""
+        idx = np.asarray(idx, np.int64)
+        if self._source_map is None:
+            return np.full(idx.shape, -1, np.int32)
+        return self._source_map[idx % self.capacity]
+
     def _coalesce_k(self, n_blocks: int, cap_blocks: int, cap: Optional[int] = None) -> int:
         """Blocks to fold into the next ship: the largest power of two <=
         min(staged, the coalesce cap, the capacity in blocks). Capped by
@@ -363,7 +416,9 @@ class DeviceReplay:
             buf = self._pool.acquire(n) if self._pool is not None else None
             with self._staging:
                 rows = self._ring.pop_into(n, buf) if buf is not None else self._ring.pop(n)
+                srcs = self._pop_sources_locked(n)
                 self._staging.notify_all()
+            start = self.ptr
             t0 = time.perf_counter()
             try:
                 self._ship(rows)
@@ -375,6 +430,8 @@ class DeviceReplay:
                 raise
             dt = time.perf_counter() - t0
             self._stats.record_ship(n, k, dt)
+            # Stamped only once the ship landed, as ptr moves.
+            self._note_shipped(srcs, start)
             if buf is not None:
                 self._pool.commit(buf, self._fence())
             if self._adaptive is not None:
@@ -425,10 +482,12 @@ class DeviceReplay:
             self._submit_ingest_locked()
         return shipped * self.width * 4
 
-    def add_packed(self, block: np.ndarray) -> None:
+    def add_packed(self, block: np.ndarray, source: int = -1) -> None:
         """Stage packed [M, D] rows; ship the full blocks (inline, or on the
         shipper with async_ship, where a full staging ring blocks here:
-        backpressure, counted in ingest_stall_ms)."""
+        backpressure, counted in ingest_stall_ms). `source` tags the rows'
+        ingest source (the actor slot) when track_sources is on; -1 =
+        untracked."""
         self._check_shipper()
         rows = np.asarray(block, np.float32)
         stall = 0.0
@@ -443,6 +502,8 @@ class DeviceReplay:
                         break   # close() raced us: push (the ring grows), ship inline
                 stall = time.perf_counter() - t0
             self._ring.push(rows)
+            if self._track_sources and len(rows):
+                self._src_fifo.append([int(source), len(rows)])
             self._stats.record_push(len(rows), stall)
             self._staging.notify_all()
             self._submit_ingest_locked()
@@ -469,13 +530,20 @@ class DeviceReplay:
             with self._staging:
                 n = len(self._ring)
                 rows = self._ring.pop(n) if (n >= min_rows and n > 0) else None
+                srcs = self._pop_sources_locked(n) if rows is not None else None
                 if rows is not None:
                     self._staging.notify_all()
             if rows is not None:
                 reps = -(-self.block_size // n)
+                m = min(self.block_size, self.capacity)
+                start = self.ptr
                 t0 = time.perf_counter()
-                self._ship(np.tile(rows, (reps, 1))[: min(self.block_size, self.capacity)])
+                self._ship(np.tile(rows, (reps, 1))[:m])
                 self._stats.record_ship(n, 1, time.perf_counter() - t0)
+                if srcs is not None:
+                    # The padding repeats real rows: the copies inherit the
+                    # originals' tags.
+                    self._note_shipped(np.tile(srcs, reps)[:m], start)
 
     def _ship(self, rows: np.ndarray) -> None:
         """Write rows at ptr, ptr+1, ... mod capacity (len(rows) <=
@@ -538,6 +606,10 @@ class DeviceReplay:
             )
             self.ptr = int(state["ptr"]) % self.capacity
             self.size = n
+            if self._track_sources:
+                # Restored rows carry no tag. The FIFO stays: it pairs with
+                # the staged rows, which a restore leaves in the ring.
+                self._source_map.fill(-1)
 
 
 class DevicePrioritizedReplay(DeviceReplay):

@@ -105,6 +105,38 @@ Checkpoint and resume (checkpoint.py), with --checkpoint_dir=DIR:
 With checkpoint_dir="" none of this runs and the records are as before
 (a SIGTERM still stops the run after the running chunk, with exit 75).
 
+Numerical-health guardrails (--guardrails=true; guardrails.py, the JAX
+trainer's blocks :487-503, :1399-1700), on one rank, on the scan route:
+
+- the learner's guarded chunk drops a bad step's update on the device;
+  after each chunk has ended the driver reads its health word once
+  (ShardedLearner.poll_health) and takes the delta of its counters
+  (metrics.GuardrailStats);
+- non-finite sampled rows are traced to the actor slot that produced them
+  (the replay's track_sources, the pool's drains with their sources), and
+  a slot with guardrail_source_offenses of them is quarantined through
+  the pool's breaker;
+- guardrail_rollback_k anomalous steps within guardrail_rollback_window
+  steps roll the run back: under the replay's dispatch_lock the newest
+  valid checkpoint from before the chunk of the window's first anomaly
+  (else the newest valid one) is restored (state, replay, C51 bounds),
+  then the probe
+  is re-armed (reset_guard), the index generator reseeded (0x6A4D + the
+  rollback count), both learning rates scaled by guardrail_lr_backoff
+  until guardrail_lr_cooldown_steps clean steps pass, the newer
+  checkpoints renamed diverged_step_<N> (checkpoint.discard_above) and
+  the params rebroadcast;
+- past guardrail_max_rollbacks rollbacks, or with nothing to restore, the
+  run stops without writing a checkpoint and main() exits EXIT_NUMERIC
+  (77);
+- --faults=numeric:replay:inf@K poisons the K-th ingested row's reward
+  to +inf at drain time; numeric:grad:nan@K and numeric:loss:spike@K
+  poison the K-th guarded step on the device (parallel/learner.py);
+- every train and final record, and the summary, carry the guardrail_*
+  counters, the final record and the summary the pool's actor_respawns,
+  actor_quarantined and actor_unquarantined, and the summary
+  numeric_failed.
+
 Usage:
     python -m distributed_ddpg_tpu_torch.train --total_env_steps=100000
     python -m distributed_ddpg_tpu_torch.train --distributional=true --n_step=5 \
@@ -115,6 +147,10 @@ Usage:
     python -m distributed_ddpg_tpu_torch.train --critic_l2=0.01     # scan route
     python -m distributed_ddpg_tpu_torch.train --device=cpu ...   # plain versions
     python -m distributed_ddpg_tpu_torch.train --checkpoint_dir=/tmp/ckpt  # resumable
+    python -m distributed_ddpg_tpu_torch.train --env_id=MountainCarContinuous-v0 \
+        --num_actors=4                                            # built-in env
+    python -m distributed_ddpg_tpu_torch.train --guardrails=true --fused_update=true \
+        --checkpoint_dir=/tmp/ckpt                                 # guarded
 """
 
 from __future__ import annotations
@@ -134,7 +170,8 @@ from distributed_ddpg_tpu_torch.actors.policy import NumpyPolicy, actor_head_dim
 from distributed_ddpg_tpu_torch.actors.pool import ActorPool
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.envs import make, spec_of
-from distributed_ddpg_tpu_torch.exits import EXIT_PREEMPTED
+from distributed_ddpg_tpu_torch.exits import EXIT_NUMERIC, EXIT_PREEMPTED
+from distributed_ddpg_tpu_torch.metrics import GuardrailStats
 from distributed_ddpg_tpu_torch.ops import support_auto
 from distributed_ddpg_tpu_torch.types import pack_batch_np
 
@@ -292,6 +329,16 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     # part. So on D > 1 ranks the ships stay inline (the pinned pool's
     # non-blocking copy still applies).
     ingest_async = config.ingest_async and learner.data_size == 1
+    # Guardrails (see the module docstring): the driver's half of the probe.
+    guard_on = config.guardrails
+    track_sources = guard_on and config.guardrail_source_offenses > 0
+    gstats = GuardrailStats()
+    guard_window: list = []           # (learn_steps at the read, anomalies)
+    guard_src_offenses: Dict[int, int] = {}
+    numeric_failed = False
+    lr_backoff_since = -1             # learn_steps at the LR backoff; -1 = none
+    numeric_replay_at = config.fault_plan().numeric_replay_rows()
+    ingested_rows = 0
     replay_kwargs = dict(
         block_size=1024,
         async_ship=ingest_async,
@@ -299,6 +346,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         scheduler=transfer_sched,
         adaptive_coalesce=transfer_sched is not None and config.ingest_coalesce_adaptive,
         host_pool=transfer_sched is not None and config.transfer_host_pool,
+        track_sources=track_sources,
     )
     try:
         replay = (
@@ -371,6 +419,12 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     def data_bounds():
         return support_auto.replay_data_bounds(replay, config.gamma, config.n_step)
 
+    def guardrail_fields() -> Dict[str, Any]:
+        return gstats.snapshot() if guard_on else {}
+
+    def recovery_fields() -> Dict[str, Any]:
+        return pool.recovery_counters() if pool is not None else {}
+
     pool = None
 
     def env_steps() -> int:
@@ -392,18 +446,45 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         allowed = min_fill + config.max_ingest_ratio * learn_steps
         return int(allowed) - (env_offset + pool.steps_received)
 
+    def poison(packed: np.ndarray, source: Optional[int] = None) -> np.ndarray:
+        """numeric:replay:inf@K: the K-th ingested row (1-based, counted on
+        this rank) lands with reward=+inf, through the real ingest path."""
+        nonlocal ingested_rows
+        base, m = ingested_rows, len(packed)
+        for at in numeric_replay_at:
+            if base < at <= base + m:
+                packed[at - base - 1, spec.obs_dim + spec.act_dim] = np.inf
+                print(f"[chaos] numeric:replay:inf — poisoned ingested row {at} "
+                      f"(reward=+inf)" + ("" if source is None else f" from actor {source}"),
+                      file=sys.stderr, flush=True)
+        ingested_rows = base + m
+        return packed
+
     def ingest() -> int:
-        rows = None
+        rows, pairs = None, []
         if lead:
             budget = drain_budget()
-            batches = pool.drain_batches(max_rows=budget) if budget is None or budget > 0 \
-                else []
-            if batches:
-                rows = np.concatenate([pack_batch_np(batch) for batch in batches])
-        rows = mesh.share_rows(rows, replay.width, group)
-        moved = 0 if rows is None else len(rows)
-        if moved:
-            replay.add_packed(rows)
+            if budget is None or budget > 0:
+                pairs = pool.drain_batches(max_rows=budget, with_sources=True)
+            if pairs and not track_sources:
+                rows = np.concatenate([pack_batch_np(batch) for _, batch in pairs])
+                if numeric_replay_at:
+                    rows = poison(rows)
+        moved = 0
+        if track_sources:
+            # One rank (guardrails refuse more): each batch staged with the
+            # slot that produced it.
+            for wid, batch in pairs:
+                packed = pack_batch_np(batch)
+                if numeric_replay_at:
+                    packed = poison(packed, wid)
+                replay.add_packed(packed, source=wid)
+                moved += len(packed)
+        else:
+            rows = mesh.share_rows(rows, replay.width, group)
+            moved = 0 if rows is None else len(rows)
+            if moved:
+                replay.add_packed(rows)
         env_timer.tick(moved)
         return moved
 
@@ -441,6 +522,134 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         print(f"[train] emergency checkpoint at learner step {learn_steps} (env step "
               f"{n_env}): resumable", file=sys.stderr, flush=True)
         return 1
+
+    def quarantine_sources() -> None:
+        """The bad rows' replay indices (read only now, on the rare path)
+        traced to their actor slots; a slot past the offense threshold is
+        quarantined through the pool's breaker."""
+        idx = learner.bad_indices()
+        if not track_sources or not len(idx):
+            return
+        for src in replay.sources_of(idx):
+            src = int(src)
+            if src < 0:
+                continue   # untracked: restored rows, padding
+            guard_src_offenses[src] = guard_src_offenses.get(src, 0) + 1
+            if guard_src_offenses[src] >= config.guardrail_source_offenses:
+                guard_src_offenses[src] = 0   # a probed comeback counts anew
+                if pool.quarantine_source(src, why="numeric"):
+                    gstats.record_source_quarantine()
+
+    def numeric_abort(why: str) -> bool:
+        """Rollback impossible: stop the run without writing a checkpoint
+        (the params are presumed poisoned; the last retained checkpoint
+        from before the divergence stays the newest); main() exits 77."""
+        nonlocal numeric_failed
+        numeric_failed = True
+        print(f"[guardrail] NUMERIC ABORT at learner step {learn_steps}: {why}; exiting "
+              f"{EXIT_NUMERIC} (no checkpoint written — the last retained pre-divergence "
+              "checkpoint stands)", file=sys.stderr, flush=True)
+        return True
+
+    def rollback_or_abort() -> bool:
+        """Rollback-repair (JAX :1484-1615): restore the newest valid
+        checkpoint, re-arm the probe, reseed the draws, back off the
+        learning rates, set the diverged checkpoints aside and rebroadcast
+        the params; past the budget, or with nothing to restore, abort.
+        Returns True either way (the caller skips the rest of the chunk's
+        work)."""
+        nonlocal learn_steps, last_ckpt, next_refresh, last_refresh_t, lr_backoff_since
+        if gstats.rollbacks >= config.guardrail_max_rollbacks:
+            return numeric_abort(f"rollback budget exhausted "
+                                 f"({gstats.rollbacks}/{config.guardrail_max_rollbacks})")
+        if not config.checkpoint_dir:
+            return numeric_abort("sustained divergence with no checkpoint_dir to roll back to")
+        try:
+            saver.wait()   # land (or surface) the write in flight
+        except Exception as e:
+            print(f"[guardrail] in-flight checkpoint write failed before rollback ({e!r}); "
+                  "restoring from the last retained checkpoint", file=sys.stderr, flush=True)
+            saver.errors.clear()
+        # The divergence began in the chunk of the window's first anomaly:
+        # a checkpoint written at or after its start is presumed poisoned,
+        # so the restore takes the newest one from before it, and
+        # discard_above sets the later ones aside. Where retention kept
+        # none from before it, the newest valid one, as the JAX trainer
+        # always takes (when its window spans chunks, that is one written
+        # after the divergence began).
+        before = (guard_window[0][0] if guard_window else learn_steps) - chunk
+        meta: Dict[str, Any] = {}
+        t0 = time.perf_counter()
+        try:
+            # No ship may write into the replay while it is restored.
+            with replay.dispatch_lock:
+                try:
+                    state, step, _ = ckpt_lib.restore(config.checkpoint_dir, learner.state,
+                                                      replay, config=config, meta_out=meta,
+                                                      at_most=before)
+                except (FileNotFoundError, RuntimeError):
+                    state, step, _ = ckpt_lib.restore(config.checkpoint_dir, learner.state,
+                                                      replay, config=config, meta_out=meta)
+                learner.load_state(state)
+        except (FileNotFoundError, RuntimeError) as e:
+            return numeric_abort(f"no restorable checkpoint ({e})")
+        restore_ms = 1000.0 * (time.perf_counter() - t0)
+        rolled_from = learn_steps
+        learn_steps = last_ckpt = step
+        if config.distributional and config.v_support_auto and "v_bounds" in meta:
+            learner.set_value_bounds(*meta["v_bounds"])
+        learner.reset_guard()
+        guard_window.clear()
+        gstats.record_rollback(step)
+        learner.reseed(0x6A4D + gstats.rollbacks)
+        if config.guardrail_lr_backoff < 1.0:
+            learner.set_lr_scale(config.guardrail_lr_backoff)
+            lr_backoff_since = learn_steps
+        ckpt_lib.discard_above(config.checkpoint_dir, step)
+        pool.broadcast(learner.actor_params_to_host())
+        next_refresh = learn_steps + config.param_refresh_every
+        last_refresh_t = time.perf_counter()
+        print(f"[guardrail] ROLLBACK #{gstats.rollbacks}: restored manifest-valid step {step} "
+              f"(diverged at ~{rolled_from}) in {restore_ms:.2f} ms; exploration reseeded"
+              + (f", LR x{config.guardrail_lr_backoff} until "
+                 f"{config.guardrail_lr_cooldown_steps} clean steps pass"
+                 if config.guardrail_lr_backoff < 1.0 else ""),
+              file=sys.stderr, flush=True)
+        return True
+
+    def guardrail_monitor() -> bool:
+        """After each chunk (JAX :1618-1700): one read of the health word,
+        its delta into the rolling anomaly window, the bad rows traced, and
+        the rollback and LR-cooldown transitions. True when the chunk's
+        remaining work is to be skipped (a rollback or an abort)."""
+        nonlocal lr_backoff_since
+        h = learner.poll_health()
+        if h is None:
+            return False
+        delta = gstats.absorb(h)
+        if delta["bad_rows"] > 0:
+            quarantine_sources()
+        if delta["anomalies"] > 0:
+            print(f"[guardrail] {delta['anomalies']} anomalous learner step(s) in the chunk "
+                  f"ending at {learn_steps} (nonfinite {delta['nonfinite']}, z-spikes "
+                  f"{delta['spikes']}, bad replay rows {delta['bad_rows']}) — update(s) "
+                  "dropped on device", file=sys.stderr, flush=True)
+            guard_window.append((learn_steps, delta["anomalies"]))
+        # Never narrower than two health reads: one read lands a chunk.
+        lo = learn_steps - max(config.guardrail_rollback_window, 2 * chunk)
+        guard_window[:] = [(s, n) for s, n in guard_window if s > lo]
+        handled = False
+        if (config.guardrail_rollback_k > 0
+                and sum(n for _, n in guard_window) >= config.guardrail_rollback_k):
+            handled = rollback_or_abort()
+        if (not handled and lr_backoff_since >= 0 and not guard_window
+                and learn_steps - lr_backoff_since >= config.guardrail_lr_cooldown_steps):
+            learner.set_lr_scale(1.0)
+            lr_backoff_since = -1
+            gstats.record_lr_cooldown()
+            print(f"[guardrail] LR cooldown complete at step {learn_steps}: learning rates "
+                  "restored", file=sys.stderr, flush=True)
+        return handled
 
     # The handler only sets a flag (no I/O in a signal handler); the loop
     # reads it at a chunk's end. Off the main thread there is none.
@@ -531,6 +740,12 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                 if done:
                     break
             n_env = env_steps()
+            if guard_on and guardrail_monitor():
+                # Rolled back (the params already rebroadcast) or aborted:
+                # the rest of this chunk's work is moot.
+                if numeric_failed:
+                    break
+                continue
 
             now = time.perf_counter()
             if lead and learn_steps >= next_refresh and (
@@ -567,6 +782,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                     **support_fields(),
                     **per_fields(),
                     **ingest_fields(),
+                    **guardrail_fields(),
                 )
             if lead and config.eval_every and n_env - last_eval >= config.eval_every:
                 last_eval = n_env
@@ -615,7 +831,9 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             held += [replay.priorities, replay.max_priority]
         replica = dict(replicas_identical=mesh.replicas_equal(held, group))
     final_return = None
-    if lead and not stopping:   # preempted: checkpoint and get out
+    # Preempted: checkpoint and get out. Numerically aborted: the params are
+    # presumed poisoned, an eval would score garbage.
+    if lead and not stopping and not numeric_failed:
         eval_policy.load_flat(learner.actor_params_to_host())
         final_return = _eval_numpy(eval_policy, config, spec)
     ingest_record = dict(
@@ -647,6 +865,8 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         **replica,
         **ckpt_fields(),
         **ingest_record,
+        **guardrail_fields(),
+        **(recovery_fields() if guard_on else {}),
     )
     log.close()
     return {
@@ -667,6 +887,9 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         **replica,
         **ckpt_fields(),
         "preempted": stopping,
+        "numeric_failed": numeric_failed,
+        **guardrail_fields(),
+        **(recovery_fields() if guard_on else {}),
         **({"alpha": float(learner.state.log_alpha.exp())} if config.sac else {}),
     }
 
@@ -688,6 +911,10 @@ def main(argv=None) -> None:
             dist.destroy_process_group()
     if group is None or group.lead:
         print({k: round(v, 3) if isinstance(v, float) else v for k, v in summary.items()})
+    if summary["numeric_failed"]:
+        # The guardrails could not repair a sustained divergence: read the
+        # guardrail_* counters before spending more on this config.
+        sys.exit(EXIT_NUMERIC)
     if summary["preempted"]:
         # Preempted and resumable: relaunch with the same --checkpoint_dir.
         sys.exit(EXIT_PREEMPTED)

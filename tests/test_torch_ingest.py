@@ -358,7 +358,12 @@ try:
     pool._procs[0].join(timeout=10)
     left = len(ring)   # the dead worker's rows stay in its ring
     assert pool.drain_batches() and pool.steps_received == 100 + left
-    assert pool.monitor()["respawned"] == 1
+    # The respawn waits out the slot's backoff (respawn_backoff_s).
+    stats = pool.monitor()
+    while stats["total_respawns"] == 0 and time.time() < deadline:
+        time.sleep(0.05)
+        stats = pool.monitor()
+    assert stats["total_respawns"] == 1
     before = pool.steps_received
     while pool.steps_received < before + 300 and time.time() < deadline:
         pool.drain_batches()

@@ -46,7 +46,11 @@ and restored on the card bit for bit, and the next chunk the same bits.
 Ingest: rows inserted while a K = 800 chunk runs, on the main path's
 pipeline and inline from the pinned pool with the PER stamp, make no
 synchronizing call (torch's sync debug mode, "error") and leave the chunk
-running.
+running. Environments: K1 (a) on terminal rows (discount 0) at
+MountainCar's shapes (obs 2, act 1). Guardrails: the guarded scan chunk
+with K2 bit for bit the unguarded one on healthy rows, an injected NaN
+step and loss spike skipped exactly (bit for bit the chunk with those
+updates left out), the row screen of more than 32 bad rows as on the CPU.
 """
 
 import time
@@ -528,3 +532,112 @@ def test_add_packed_makes_no_synchronizing_call_while_a_chunk_runs(pipeline):
         rep.close()
     finally:
         sched.close()
+
+
+@pytest.mark.cuda
+def test_kernel_on_terminal_rows_at_mountain_car_shapes_on_card():
+    """K1 (a) on rows a quarter of which are terminal (discount 0, reward
+    100) at MountainCarContinuous-v0's shapes (obs 2, act 1, action scale
+    1): the kernel against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    obs, act = 2, 1
+    cfg = DDPGConfig(actor_hidden=HIDDEN, critic_hidden=HIDDEN, batch_size=B, seed=3,
+                     device="cuda")
+    rng = np.random.default_rng(8)
+    done = rng.random((K, B)) < 0.25
+    done[0, 0] = True
+    packed = torch.from_numpy(pack_batch_np({
+        "obs": rng.uniform(-1.2, 0.6, (K, B, obs)).astype(np.float32),
+        "action": rng.uniform(-1, 1, (K, B, act)).astype(np.float32),
+        "reward": np.where(done, 100.0, -0.1).astype(np.float32),
+        "discount": np.where(done, 0.0, 0.99).astype(np.float32),
+        "next_obs": rng.uniform(-1.2, 0.6, (K, B, obs)).astype(np.float32),
+        "weight": rng.uniform(0.5, 1.0, (K, B)).astype(np.float32),
+    })).cuda()
+    state = init_train_state(cfg, obs, act, cfg.seed, "cuda")
+    run = fc.make_fused_chunk_fn(cfg, obs, act, 1.0, 0.0, chunk_size=K, device="cuda")
+    new, td, met = run(state, packed, None)
+    ref, rtd, rmet = fc.fused_chunk_reference(cfg, state, packed, 1.0, 0.0, None)
+    torch.cuda.synchronize()
+    _close(fc.flatten_state(new).cpu(), fc.flatten_state(ref).cpu())
+    _close(td.cpu(), rtd.cpu())
+    for name in METRIC_KEYS:
+        _close(float(met[name]), float(rmet[name]))
+
+
+GUARD_K = 16
+
+
+@pytest.mark.cuda
+def test_guarded_chunk_on_card():
+    """The guarded scan chunk with K2 on the card: on healthy rows bit for
+    bit the unguarded chunk; with numeric:grad:nan@3 and
+    numeric:loss:spike@9 (warmup 4) exactly those steps skipped, bit for
+    bit the chunk with those updates left out; and more than 32
+    non-finite rows screened as on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from distributed_ddpg_tpu_torch import guardrails as gl
+    from distributed_ddpg_tpu_torch.learner import make_learner_step
+    from distributed_ddpg_tpu_torch.parallel.learner import state_tensors
+    from distributed_ddpg_tpu_torch.types import unpack_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = DDPGConfig(actor_hidden=HIDDEN, critic_hidden=HIDDEN, batch_size=B, seed=3,
+                     device="cuda", fused_update=True, fused_chunk="off", guardrails=True,
+                     guardrail_warmup_steps=4, guardrail_zmax=50.0)
+    plain_cfg = cfg.replace(guardrails=False)
+    state = init_train_state(plain_cfg, OBS, ACT, cfg.seed, "cuda")
+    rng = np.random.default_rng(9)
+    packed = torch.from_numpy(pack_batch_np({
+        "obs": rng.standard_normal((GUARD_K, B, OBS)).astype(np.float32),
+        "action": rng.uniform(-1, 1, (GUARD_K, B, ACT)).astype(np.float32),
+        "reward": rng.standard_normal((GUARD_K, B)).astype(np.float32),
+        "discount": np.full((GUARD_K, B), 0.99, np.float32),
+        "next_obs": rng.standard_normal((GUARD_K, B, OBS)).astype(np.float32),
+    })).cuda()
+    pre_bad = torch.zeros(GUARD_K, dtype=torch.bool, device="cuda")
+
+    def outputs(s, td, met):
+        return state_tensors(s) + [td] + [met[k] for k in METRIC_KEYS]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    plain = make_scan_chunk_fn(plain_cfg, OBS, ACT, 2.0, 0.0, chunk_size=GUARD_K)
+    launches = fc.KERNEL_LAUNCHES["fused_update"]
+    guarded = make_scan_chunk_fn(cfg, OBS, ACT, 2.0, 0.0, chunk_size=GUARD_K, guard=True)
+    new, g, td, met = guarded.guarded(state, gl.init_guard_state(device="cuda"), packed,
+                                      None, STEP0, pre_bad)
+    assert fc.KERNEL_LAUNCHES["fused_update"] == launches + 2 * GUARD_K
+    assert same(outputs(new, td, met), outputs(*plain(state, packed, None, STEP0)))
+    assert gl.health_vector(g).tolist() == [GUARD_K, 0, 0, 0, 0]
+
+    inject = {"grad": (3,), "loss": (9,)}
+    injected = make_scan_chunk_fn(cfg, OBS, ACT, 2.0, 0.0, chunk_size=GUARD_K, guard=True,
+                                  inject=inject)
+    new, g, td, met = injected.guarded(state, gl.init_guard_state(device="cuda"), packed,
+                                       None, STEP0, pre_bad)
+    assert gl.health_vector(g).tolist() == [GUARD_K, 1, 1, 2, 0]
+    step = make_learner_step(plain_cfg, 2.0, 0.0)
+    s, tds, ms = state, [], []
+    for k in range(GUARD_K):
+        out = step(s, unpack_batch(packed[k], OBS, ACT), None, step_index=STEP0 + k)
+        left_out = k + 1 in (3, 9)
+        s = s._replace(step=out.state.step) if left_out else out.state
+        tds.append(torch.zeros_like(out.td_errors) if left_out else out.td_errors)
+        ms.extend(torch.zeros_like(out.metrics[n]) if left_out else out.metrics[n]
+                  for n in METRIC_KEYS)
+    means = torch.stack(ms).view(GUARD_K, len(METRIC_KEYS)).mean(dim=0)
+    assert same(outputs(new, td, met),
+                outputs(s, torch.stack(tds), dict(zip(METRIC_KEYS, means.unbind()))))
+
+    bad = packed.clone()
+    ks, bs = np.nonzero(rng.random((GUARD_K, B)) < 0.4)
+    bad[torch.from_numpy(ks), torch.from_numpy(bs), 0] = float("inf")
+    assert len(ks) > gl.GUARD_BAD_IDX
+    idx = torch.from_numpy(rng.integers(0, 1_000_000, (GUARD_K, B))).cuda()
+    assert ([x.cpu().tolist() for x in gl.batch_row_health(bad, idx)]
+            == [x.tolist() for x in gl.batch_row_health(bad.cpu(), idx.cpu())])

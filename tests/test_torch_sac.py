@@ -239,8 +239,8 @@ def test_sac_gates_match_jax(override):
 
 
 @pytest.mark.parametrize("override", [
-    dict(serve_actors=True), dict(compute_dtype="float16"), dict(guardrails=True),
-    dict(data_axis=-3),
+    dict(serve_actors=True), dict(compute_dtype="float16"),
+    dict(guardrails=True, fused_chunk="on"), dict(data_axis=-3),
 ])
 def test_sac_with_options_outside_the_slice_raises(override):
     name = next(iter(override))

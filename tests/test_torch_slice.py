@@ -150,7 +150,12 @@ try:
     pool._procs[0].kill()
     pool._procs[0].join(timeout=10)
     pool.broadcast(np.ones_like(np.frombuffer(pool._shared, np.float32)))
-    assert pool.monitor()["respawned"] == 1
+    # The respawn waits out the slot's backoff (respawn_backoff_s).
+    stats = pool.monitor()
+    while stats["total_respawns"] == 0 and time.time() < deadline:
+        time.sleep(0.05)
+        stats = pool.monitor()
+    assert stats["total_respawns"] == 1
     before = pool.steps_received
     while pool.steps_received == before and time.time() < deadline:
         pool.drain_batches()
