@@ -174,6 +174,23 @@ Phases (any failure raises; nothing is caught and passed over):
    renames the newer checkpoints diverged_step_N and finishes (exit 0,
    the restore's ms printed); an abort (exit 77, no checkpoint from the
    injected step's chunk on); a poisoned row's actor quarantined.
+4d. The host replay, lockstep mode and the agent (host_replay_phase):
+   the native sum tree (native/replay_core.cpp) must build; PREFETCH_CHUNKS
+   chunks of K1 (a) and of K1 (c) at K = 800 through the ChunkPrefetcher
+   (depth 1 and 2, the transfer scheduler's prefetch class), put_chunk
+   and run_chunk_async, dispatched without waiting, bit for bit what
+   run_chunk gives on the same draws from an identical PER replay
+   (check_prefetched_chunk); then the main paths with --host_replay=true
+   for HOST_ENV_STEPS each: DDPG on K1 (a), README's whole D4PG command
+   (PER on the host sum tree, which must be the native one) on K1 (c), and
+   --fused_update=true on the scan route (K2), each checked as every main
+   path is and printed with the driver's wait for a prefetched chunk;
+   then two --strict_sync=true runs (inline actors, both ratios 1) on K1
+   (a) and two on the scan route with K2, each pair's records
+   bit-identical once the wall-clock fields are stripped (strict_pair);
+   then DDPGAgent with fused_update=True for AGENT_ENV_STEPS env steps (K2
+   twice a learner step, agent_path). The kernels' record counts K1 (a)'s
+   and (c)'s launches on the host-replay paths and K2's in the agent.
 5. Time each branch of the kernel at the main path's shapes (CUDA events,
    warmed up) beside its plain version (one run) and its bound; the eager autograd
    step x K is printed as context only. Then break each f32 branch's time,
@@ -196,7 +213,9 @@ Phases (any failure raises; nothing is caught and passed over):
    (guard_ops_per_step).
 
 It imports nothing of JAX or of the JAX package. The second-to-last line
-is the kernels' JSON record; the last line is the device record.
+is the kernels' JSON record (each kernel's launches on this slice's paths
+where it runs on one, else on its main path); the last line is the
+device record.
 """
 
 from __future__ import annotations
@@ -1632,8 +1651,9 @@ def breakdown(run, state, packed, eps, k: int) -> None:
 
 class ChunkEvents:
     """CUDA events (timing on) recorded just before and just after every
-    chunk dispatch of a main path (ShardedLearner.run_sample_chunk and
-    run_sample_chunk_per, patched for the `with` block). The card is idle
+    chunk dispatch of a main path (ShardedLearner.run_sample_chunk,
+    run_sample_chunk_per and, for the host replay, run_chunk_async,
+    patched for the `with` block). The card is idle
     from a chunk's end event to the next chunk's start event, save for the
     inserts queued in between; `summary()` reads the gaps after a
     synchronize."""
@@ -1643,7 +1663,7 @@ class ChunkEvents:
 
         self.events = []
         self._saved = {n: getattr(ShardedLearner, n)
-                       for n in ("run_sample_chunk", "run_sample_chunk_per")}
+                       for n in ("run_sample_chunk", "run_sample_chunk_per", "run_chunk_async")}
         for n, fn in self._saved.items():
             setattr(ShardedLearner, n, self._timed(fn))
         return self
@@ -1707,18 +1727,28 @@ def drive_main_path(flags, name: str, summary_out: dict = None) -> dict:
         f"env steps/s {summary['env_steps_per_sec']}; the driver's ingest while chunks ran "
         f"{summary['t_ingest_chunk_ms']:.3f} ms a chunk (longest call "
         f"{summary['t_ingest_max']:.3f} ms, {summary['n_ingest']} calls); since the last "
-        f"train record: ingest_coalesce_mean {summary['ingest_coalesce_mean']}, "
-        f"ingest_stall_ms {summary['ingest_stall_ms']}, transfer_pool_fence_waits "
+        f"train record: ingest_coalesce_mean {summary.get('ingest_coalesce_mean')}, "
+        f"ingest_stall_ms {summary.get('ingest_stall_ms')}, transfer_pool_fence_waits "
         f"{summary.get('transfer_pool_fence_waits')}; the card idle between chunks "
         f"{summary['gap_median_ms']} ms median (max {summary['gap_max_ms']}), busy "
         f"{100.0 * summary['busy_share']:.2f}% from the first chunk's start to the last's end")
     # Every D = 1 main path runs the JAX trainer's default ingest, unless
     # its flags ask for the old pipeline: 'auto' must not land on the queue.
-    want_transport = "queue" if "--transport=queue" in flags else "shm"
-    want_async = "--ingest_async=false" not in flags
+    # Under strict_sync the actors are inline and nothing ships off the
+    # driver's thread; the host replay has no shipper.
+    want_transport = ("inline" if cfg.strict_sync else
+                      "queue" if "--transport=queue" in flags else "shm")
+    want_async = not (cfg.strict_sync or cfg.host_replay or "--ingest_async=false" in flags)
     if summary["transport"] != want_transport or summary["ingest_async_active"] != want_async:
         raise AssertionError(f"main path {name}: transport {summary['transport']}, shipper "
                              f"{summary['ingest_async_active']}")
+    if cfg.host_replay:
+        log(f"[main path {name}] host replay: the driver's wait for a prefetched chunk "
+            f"{summary['t_sample_wait_ms']:.3f} ms a chunk (depth {summary['prefetch_depth']})"
+            + (f", sum tree {summary['sum_tree']}" if cfg.prioritized else ""))
+        if cfg.prioritized and summary["sum_tree"] != "native":
+            raise AssertionError(f"main path {name}: the host PER ran the "
+                                 f"{summary['sum_tree']} sum tree, not the native one")
     if cfg.distributional:
         with open(cfg.log_path) as f:
             support = [r for r in map(json.loads, f) if r["kind"] == "support"]
@@ -2784,6 +2814,233 @@ def guardrail_drills(card: str) -> dict:
     return record
 
 
+# --- the host replay path, lockstep mode and the agent ----------------------------
+
+HOST_ENV_STEPS = 5000      # each host-replay main path
+PREFETCH_CHUNKS = 4        # chunks through the prefetcher a check
+STRICT_ENV_STEPS = 5000    # each strict-sync run on K1 (a)
+STRICT_SCAN_ENV_STEPS = 3000   # each strict-sync run on the scan route (~4 s a chunk)
+AGENT_ENV_STEPS = 2000
+# The wall-clock fields of a record (tests/test_strict_sync.py's list, the
+# port's env_steps_per_sec and every t_* field); the rest must match.
+STRICT_TIME_KEYS = ("wall_time", "learner_steps_per_sec", "actor_steps_per_sec",
+                    "ingest_rows_per_sec", "ingest_stall_ms", "ingest_ship_ms",
+                    "env_steps_per_sec")
+
+
+def host_rows(n: int, obs: int, act: int, seed: int):
+    """Replay rows as the actors write them, with Pendulum's rewards
+    (discount 0.99 ** 5, as README's D4PG command's 5-step returns)."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, obs)).astype(np.float32),
+            rng.uniform(-2, 2, (n, act)).astype(np.float32),
+            rng.uniform(-81.5, 0.0, n).astype(np.float32),
+            np.full(n, 0.99 ** 5, np.float32),
+            rng.standard_normal((n, obs)).astype(np.float32))
+
+
+def check_prefetched_chunk(cfg, obs: int, act: int, k: int, depth: int, card: str) -> dict:
+    """The host replay's chunks on the card: PREFETCH_CHUNKS chunks drawn by
+    a ChunkPrefetcher (depth `depth`, its puts on the transfer scheduler's
+    prefetch class, as on the main path) from a PrioritizedReplay whose
+    priorities vary (the IS weights in the rows), each put through
+    ShardedLearner.put_chunk (pinned buffer, side-stream copy) and
+    dispatched with run_chunk_async without waiting, so the next chunk's
+    copy runs while a chunk runs; against the same draws from an identical
+    replay through run_chunk, one chunk at a time, on a second learner
+    from the same state. The indices, every chunk's td and the end state
+    must be bit-identical: a chunk that read a half-copied chunk, or a
+    pinned buffer reused before its copy, would differ."""
+    from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
+    from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+    from distributed_ddpg_tpu_torch.parallel.prefetch import ChunkPrefetcher
+    from distributed_ddpg_tpu_torch.replay import PrioritizedReplay
+    from distributed_ddpg_tpu_torch.transfer import TransferScheduler
+
+    state = random_state_np(cfg, obs, act, seed=41)
+
+    def learner():
+        out = ShardedLearner(cfg, obs, act, 2.0, 0.0, chunk_size=k,
+                             state=train_state_from_numpy(state, "cuda"))
+        assert out.fused_chunk_active
+        return out
+
+    def replay():
+        rep = PrioritizedReplay(50_000, obs, act, seed=7)
+        rep.add_batch(*host_rows(40_000, obs, act, seed=8))
+        rng = np.random.default_rng(9)
+        rep.update_priorities(np.arange(0, 40_000, 3), rng.uniform(0.0, 40.0, 13_334))
+        return rep
+
+    a, b = learner(), learner()
+    fc.KERNEL_LAUNCHES.clear()
+    sched = TransferScheduler().start()
+    prefetch = ChunkPrefetcher(replay(), a.put_chunk, cfg.batch_size, k, depth=depth,
+                               scheduler=sched).start()
+    got = []
+    t0 = time.monotonic()
+    try:
+        for _ in range(PREFETCH_CHUNKS):
+            device_chunk, idx = prefetch.next()
+            got.append((a.run_chunk_async(device_chunk).td_errors, idx))
+    finally:
+        prefetch.stop()
+        sched.close()
+    torch.cuda.synchronize()
+    prefetched_s = time.monotonic() - t0
+    rb = replay()
+    want = []
+    for _ in range(PREFETCH_CHUNKS):
+        draws = [rb.sample(cfg.batch_size) for _ in range(k)]
+        chunk = {f: np.stack([d[f] for d in draws]) for f in draws[0]}
+        idx = chunk.pop("indices")
+        want.append((b.run_chunk(chunk).td_errors, idx))
+    torch.cuda.synchronize()
+    name = "fused_chunk_d4pg" if cfg.distributional else "fused_chunk"
+    launches = dict(fc.KERNEL_LAUNCHES)
+    if launches != {name: 2 * PREFETCH_CHUNKS}:
+        raise AssertionError(f"prefetched chunk check: launches {launches}")
+    for i, ((td_a, ia), (td_b, ib)) in enumerate(zip(got, want)):
+        if not (np.array_equal(ia, ib) and torch.equal(td_a, td_b)):
+            raise AssertionError(f"prefetched chunk {i} (depth {depth}, {name}) differs from "
+                                 f"run_chunk's: max |td| gap {(td_a - td_b).abs().max()}")
+    gap = (fc.flatten_state(a.state) - fc.flatten_state(b.state)).abs().max().item()
+    if gap != 0.0:
+        raise AssertionError(f"prefetched chunks (depth {depth}, {name}): end state {gap} "
+                             "from run_chunk's")
+    log(f"[host replay] {card}: {PREFETCH_CHUNKS} prefetched {name} chunks at K = {k}, "
+        f"depth {depth}: bit-identical to run_chunk (td and end state), "
+        f"{1000.0 * prefetched_s / PREFETCH_CHUNKS:.2f} ms a chunk with the prefetcher")
+    return dict(name=name, depth=depth, ms_a_chunk=1000.0 * prefetched_s / PREFETCH_CHUNKS)
+
+
+def strict_pair(flags, name: str, tmp: str, tag: str) -> dict:
+    """Two strict-sync runs of one command (drive_main_path, so each is
+    checked as a main path) whose records, the wall-clock fields stripped,
+    must be bit-identical. Returns the first run's launch counts."""
+    records, launches, summaries = [], None, []
+    for i in range(2):
+        path = os.path.join(tmp, f"{tag}{i}.jsonl")
+        summary = {}
+        got = drive_main_path(flags + [f"--log_path={path}"], name, summary)
+        launches = launches or got
+        summaries.append(summary)
+        with open(path) as f:
+            records.append([{k: v for k, v in json.loads(line).items()
+                             if k not in STRICT_TIME_KEYS and not k.startswith("t_")}
+                            for line in f])
+    a, b = records
+    if len(a) != len(b) or a != b:
+        diff = next(((ra, rb) for ra, rb in zip(a, b) if ra != rb), (len(a), len(b)))
+        raise AssertionError(f"strict-sync pair {tag}: the records differ: {diff}")
+    if not any(r["kind"] == "train" for r in a):
+        raise AssertionError(f"strict-sync pair {tag}: no train record")
+    log(f"[strict sync] {tag}: two runs, {len(a)} records bit-identical once the wall-clock "
+        f"fields are stripped; final learner_steps {a[-1]['learner_steps']}, chunks "
+        f"{a[-1]['chunks']}, critic_loss {a[-1]['critic_loss']!r}, final_return "
+        f"{a[-1]['final_return']!r}; learner steps/s {summaries[0]['learner_steps_per_sec']}, "
+        f"{summaries[1]['learner_steps_per_sec']}")
+    return launches
+
+
+def agent_path(card: str) -> dict:
+    """DDPGAgent with fused_update=True on the card (Pendulum-v1, 2x256,
+    batch 64, the default 1000-row warmup) for AGENT_ENV_STEPS env steps of
+    act, observe and train_step, with the launch counts zeroed before and
+    read after: K2 twice a learner step and no chunk kernel; finite
+    metrics and eval return. Prints the env and learner steps a second
+    (the loop's host clock, one step a call)."""
+    from distributed_ddpg_tpu_torch import DDPGAgent
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.envs import make, spec_of
+    from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
+    from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
+
+    cfg = DDPGConfig(fused_update=True, total_env_steps=AGENT_ENV_STEPS)
+    env = make(cfg.env_id, seed=0)
+    agent = DDPGAgent(cfg, spec_of(env))
+    fc.KERNEL_LAUNCHES.clear()
+    obs, _ = env.reset(seed=0)
+    metrics, learn_steps = None, 0
+    t0 = time.monotonic()
+    for _ in range(AGENT_ENV_STEPS):
+        action = agent.act(obs)
+        next_obs, reward, terminated, truncated, _ = env.step(action)
+        agent.observe(obs, action, reward, terminated, next_obs)
+        m = agent.train_step()
+        if m is not None:
+            metrics, learn_steps = m, learn_steps + 1
+        obs = next_obs
+        if terminated or truncated:
+            obs, _ = env.reset()
+            agent.reset_episode()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = dict(fc.KERNEL_LAUNCHES)
+    ret = agent.evaluate(make(cfg.env_id, seed=1), episodes=1)
+    if launches != {"fused_update": 2 * learn_steps} or learn_steps < 1:
+        raise AssertionError(f"agent path: launches {launches}, learner steps {learn_steps}")
+    if not all(math.isfinite(metrics[k]) for k in METRIC_KEYS) or not math.isfinite(ret):
+        raise AssertionError(f"agent path: metrics {metrics}, eval return {ret}")
+    log(f"[agent] {card}: DDPGAgent(fused_update=True) {AGENT_ENV_STEPS} env steps, "
+        f"{learn_steps} learner steps in {dt:.2f}s ({AGENT_ENV_STEPS / dt:.2f} env steps/s, "
+        f"{learn_steps / dt:.2f} learner steps/s, one step a call); fused_update launches "
+        f"{launches['fused_update']} = 2 x learner steps; critic_loss "
+        f"{metrics['critic_loss']}, eval return {ret}")
+    return launches
+
+
+def host_replay_phase(card: str, common) -> dict:
+    """The slice's paths (see the module docstring, 4d). Returns the launch
+    counts of each path by kernel name."""
+    from distributed_ddpg_tpu_torch import native
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.parallel.learner import resolve_learner_chunk
+
+    if not native.sum_tree_available():
+        raise AssertionError("the native sum tree (native/replay_core.cpp) did not build: "
+                             "the host PER would run on the numpy tree")
+    cfg = DDPGConfig()
+    d4pg = cfg.replace(distributional=True, v_min=-1500.0, v_max=150.0)
+    prefetched = [check_prefetched_chunk(c, 3, 1, resolve_learner_chunk(c), depth, card)
+                  for c in (cfg, d4pg) for depth in (1, 2)]
+    host = ["--host_replay=true", f"--total_env_steps={HOST_ENV_STEPS}"]
+    d4pg_flags = ["--distributional=true", "--n_step=5", "--v_min=auto", "--v_max=auto",
+                  "--prioritized=true"]
+    out = {}
+    summaries = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as tmp:
+        summaries["K1 (a)"] = {}
+        out["fused_chunk"] = drive_main_path(common + host, "fused_chunk",
+                                             summaries["K1 (a)"])["fused_chunk"]
+        summaries["K1 (c), PER"] = {}
+        out["fused_chunk_d4pg"] = drive_main_path(
+            common + host + d4pg_flags + [f"--log_path={os.path.join(tmp, 'd4pg.jsonl')}"],
+            "fused_chunk_d4pg", summaries["K1 (c), PER"])["fused_chunk_d4pg"]
+        summaries["K2 (scan)"] = {}
+        out["fused_update_host"] = drive_main_path(
+            common + host + ["--fused_update=true"], "scan",
+            summaries["K2 (scan)"])["fused_update"]
+        strict = ["--strict_sync=true", "--max_learn_ratio=1.0", "--max_ingest_ratio=1.0"]
+        out["fused_chunk_strict"] = strict_pair(
+            common + strict + [f"--total_env_steps={STRICT_ENV_STEPS}"], "fused_chunk", tmp,
+            "K1 (a)")["fused_chunk"]
+        out["fused_update_strict"] = strict_pair(
+            common + strict + [f"--total_env_steps={STRICT_SCAN_ENV_STEPS}",
+                               "--fused_update=true"], "scan", tmp, "scan route with K2")[
+            "fused_update"]
+    out["fused_update_agent"] = agent_path(card)["fused_update"]
+    for path, s in summaries.items():
+        log(f"[host replay] {card}: {path} main path on the host replay: learner steps/s "
+            f"{s['learner_steps_per_sec']}, env steps/s {s['env_steps_per_sec']}, "
+            f"{s['chunks']} chunks, the driver's wait for a chunk {s['t_sample_wait_ms']:.3f} "
+            f"ms a chunk, the card idle between chunks {s['gap_median_ms']} ms median"
+            + (f", sum tree {s['sum_tree']}" if "sum_tree" in s else ""))
+    log(f"[host replay] {card}: " + json.dumps(dict(prefetched=prefetched, launches=out)))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this needs an "
@@ -3014,6 +3271,16 @@ def main() -> int:
     # --- 4c. the guardrail drills through the CLI ---
     guardrail_drills(card)
     log(f"[phase] drills done at {time.monotonic() - t_start:.1f}s")
+
+    # --- 4d. the host replay, strict sync and the agent (this slice) ---
+    host = host_replay_phase(card, common)
+    log(f"[phase] host replay, strict sync and agent done at "
+        f"{time.monotonic() - t_start:.1f}s")
+    # The kernels' record counts each kernel's launches on this slice's
+    # paths where it runs on one: K1 (a) and (c) on the host replay, K2 in
+    # the agent's steps; the other branches on their device-replay paths.
+    launches.update(fused_chunk=host["fused_chunk"], fused_chunk_d4pg=host["fused_chunk_d4pg"])
+    update_launches = {"fused_update": host["fused_update_agent"]}
 
     # --- 5. timing at the main path's shapes ---
     timing = {

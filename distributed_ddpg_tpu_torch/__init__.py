@@ -12,11 +12,20 @@ carried by one launch of the hand-written CUDA kernel in
 csrc/fused_chunk.cu (ops/fused_chunk.py wraps it).
 
 Importing the package imports no torch: actor worker processes import
-`actors/` and `envs/` only and never touch CUDA.
+`actors/` and `envs/` only and never touch CUDA. DDPGAgent, exported as
+the JAX package exports it, loads (with torch) at its first use.
 """
 
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 
 __version__ = "0.1.0"
 
-__all__ = ["DDPGConfig", "__version__"]
+__all__ = ["DDPGAgent", "DDPGConfig", "__version__"]
+
+
+def __getattr__(name: str):
+    if name == "DDPGAgent":
+        from distributed_ddpg_tpu_torch.agent import DDPGAgent
+
+        return DDPGAgent
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -16,6 +16,11 @@ does not implement yet keep their field and default, and a non-default value rai
 ValueError naming the option (ROADMAP.md lists the order they arrive in)
 — never a silent no-op.
 
+`backend` is the JAX package's switch: "jax_tpu" (the default) is the
+port's trainer on the card, "native" the numpy CPU learner
+(native_backend.py, train.train_native), asked for by name and never a
+fallback; "jax_ondevice" raises (not in this slice).
+
 `device` is the port's own field: "cuda" (default) runs the learner on the
 card and raises if none is present; "cpu" runs the plain PyTorch versions
 of the kernels, as the tests do.
@@ -33,6 +38,7 @@ _NOT_IN_SLICE = {
     "serve_actors": False,
     "actor_backend": "host",
     "model_axis": 1,
+    "replay_sharding": "replicated",
 }
 
 
@@ -73,13 +79,18 @@ class DDPGConfig:
     replay_capacity: int = 1_000_000
     replay_min_size: int = 1_000
     # Proportional prioritized replay on the device (replay/device.py
-    # DevicePrioritizedReplay): priorities (|td| + per_eps)^per_alpha, IS
+    # DevicePrioritizedReplay), or with host_replay in the host sum tree
+    # (replay/prioritized.py): priorities (|td| + per_eps)^per_alpha, IS
     # weights annealed from per_beta to per_beta_final over the run.
     prioritized: bool = False
     per_alpha: float = 0.6
     per_beta: float = 0.4
     per_beta_final: float = 1.0
     per_eps: float = 1e-6
+    # The host replay (replay/uniform.py, replay/prioritized.py, numpy) and
+    # the chunk prefetcher (parallel/prefetch.py) in place of the device
+    # ring: the path for replays larger than the card's memory. One rank.
+    host_replay: bool = False
 
     # --- exploration ---
     ou_theta: float = 0.15
@@ -109,6 +120,10 @@ class DDPGConfig:
     transfer_host_pool: bool = True
 
     # --- topology ---
+    # "jax_tpu": the port's trainer (the JAX package's name for its
+    # default); "native": the numpy learner on the CPU; "jax_ondevice":
+    # not in this slice.
+    backend: str = "jax_tpu"
     num_actors: int = 1
     # Actor->learner transport: "shm" = a C++ SPSC ring in shared memory a
     # worker (native/ring.cpp, built with g++ at first use; raises if it
@@ -131,8 +146,17 @@ class DDPGConfig:
     max_ingest_ratio: float = 0.0
     # Learner steps <= replay_min_size + ratio * env steps; 0 = free-running.
     max_learn_ratio: float = 0.0
+    train_every: int = 1             # env steps between learner steps (native backend)
+    # Lockstep debug mode: the actors run inline on the driver's thread
+    # (actors/sync_pool.py) in a fixed round-robin order, the transfer
+    # scheduler, the shipper and the adaptive cap are off, and the
+    # wall-clock floors on the param refresh and the log are ignored, so
+    # two runs of one config give bit-identical records. Needs both ratio
+    # gates (the drain budget is the schedule).
+    strict_sync: bool = False
     param_refresh_every: int = 1     # learner steps between actor param refresh
     param_refresh_interval_s: float = 0.1
+    prefetch_depth: int = 2          # host replay: chunks prefetched ahead of the learner
     # Learner steps per dispatch (one kernel launch). 0 = auto: 800 on the
     # card, 8 on the CPU (parallel/learner.resolve_learner_chunk).
     learner_chunk: int = 0
@@ -262,6 +286,7 @@ class DDPGConfig:
     serve_actors: bool = False
     actor_backend: str = "host"
     model_axis: int = 1
+    replay_sharding: str = "replicated"
 
     def replace(self, **kwargs) -> "DDPGConfig":
         return dataclasses.replace(self, **kwargs)
@@ -342,6 +367,18 @@ class DDPGConfig:
         return cls(**vars(parser.parse_args(argv)))
 
     def __post_init__(self):
+        # The JAX package's backend gate and message (its config.py).
+        if self.backend not in ("native", "jax_tpu", "jax_ondevice"):
+            raise ValueError(
+                "backend must be 'native', 'jax_tpu', or 'jax_ondevice', "
+                f"got {self.backend!r}"
+            )
+        if self.backend == "jax_ondevice":
+            raise ValueError(
+                "backend='jax_ondevice' is not implemented in the PyTorch port "
+                "yet (only 'jax_tpu' and 'native'); ROADMAP.md lists what is "
+                "left to port (Queue 1 item 9)"
+            )
         # The JAX package's TD3 gates and messages (its config.py), checked
         # before the slice's own so a TD3 misconfiguration reads the same.
         if self.policy_delay < 1:
@@ -398,11 +435,40 @@ class DDPGConfig:
             raise ValueError("sac_alpha must be > 0 (it is exp(log_alpha))")
         if self.sac_log_std_min >= self.sac_log_std_max:
             raise ValueError("sac_log_std_min must be < sac_log_std_max")
+        if self.sac and self.backend == "native":
+            raise ValueError(
+                "sac requires a JAX backend: the native numpy learner is "
+                "the plain-DDPG bit-comparability oracle"
+            )
         if self.twin_critic and self.fused_update:
             raise ValueError(
                 "twin_critic composes with the stock Adam+Polyak tree update"
                 " (delayed via lax.cond), not the fused_update kernel"
             )
+        if self.twin_critic and self.backend == "native":
+            raise ValueError(
+                "twin_critic requires a JAX backend: the native numpy "
+                "learner is the plain-DDPG bit-comparability oracle"
+            )
+        # The JAX package's replay_sharding checks, before the slice's own
+        # refusal of 'sharded' (ROADMAP.md Queue 1 item 10).
+        if self.replay_sharding not in ("replicated", "sharded"):
+            raise ValueError(
+                f"replay_sharding must be 'replicated' or 'sharded', got "
+                f"{self.replay_sharding!r}"
+            )
+        if self.replay_sharding == "sharded":
+            if self.backend != "jax_tpu":
+                raise ValueError(
+                    "replay_sharding='sharded' partitions the DeviceReplay "
+                    "HBM ring over the jax_tpu mesh; the native/ondevice "
+                    "backends have no sharded ring"
+                )
+            if self.host_replay:
+                raise ValueError(
+                    "replay_sharding='sharded' shards the DEVICE replay; "
+                    "host_replay has no device ring to shard — disable one"
+                )
         for name, off in _NOT_IN_SLICE.items():
             if getattr(self, name) != off:
                 raise ValueError(
@@ -410,12 +476,15 @@ class DDPGConfig:
                     f"the PyTorch port yet (only {name}={off!r}); ROADMAP.md "
                     "lists what is left to port"
                 )
-        # The JAX package also refuses bfloat16 under backend='native' (its
-        # numpy learner is the f32 oracle); the port has no backend switch.
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"compute_dtype must be 'float32' or 'bfloat16', got "
                 f"{self.compute_dtype!r}"
+            )
+        if self.compute_dtype == "bfloat16" and self.backend == "native":
+            raise ValueError(
+                "compute_dtype='bfloat16' requires a JAX backend: the "
+                "native numpy learner is the f32 bit-comparability oracle"
             )
         if self.transport not in ("auto", "shm", "queue"):
             raise ValueError(
@@ -488,9 +557,41 @@ class DDPGConfig:
             raise ValueError("ckpt_write_retries must be >= 0")
         if self.ckpt_retry_backoff_s < 0:
             raise ValueError("ckpt_retry_backoff_s must be >= 0")
+        if self.train_every < 1:
+            raise ValueError("train_every must be >= 1")
+        if self.prefetch_depth < 1:
+            raise ValueError("prefetch_depth must be >= 1")
+        # The JAX package's strict_sync checks and messages (its config.py).
+        if self.strict_sync:
+            if self.backend != "jax_tpu":
+                raise ValueError(
+                    "strict_sync is a train_jax (jax_tpu backend) debug "
+                    "mode; the native backend is already single-threaded "
+                    "and deterministic, and the fused on-device backend "
+                    "has no host actor loop to make lockstep"
+                )
+            if self.max_learn_ratio <= 0 or self.max_ingest_ratio <= 0:
+                raise ValueError(
+                    "strict_sync derives its deterministic ingest schedule "
+                    "from the ratio gates; set max_learn_ratio and "
+                    "max_ingest_ratio (1.0 each = the reference's "
+                    "synchronous 1:1 schedule)"
+                )
+            if self.host_replay:
+                raise ValueError(
+                    "strict_sync requires the device replay path: the host "
+                    "prefetch thread samples concurrently with ingest, "
+                    "which is exactly the nondeterminism this mode removes"
+                )
+        if self.host_replay and self.data_axis not in (-1, 1):
+            raise ValueError(
+                f"host_replay=True with data_axis={self.data_axis} is not in this "
+                "slice of the PyTorch port: a host replay a rank under the "
+                "lockstep driver comes with ROADMAP.md Queue 1 item 10; run the "
+                "host replay on one rank"
+            )
         # The JAX package's checks of the breaker, the fault plan and the
-        # guardrails (its config.py), its `backend` check left out: the port
-        # has one backend.
+        # guardrails (its config.py).
         self.fault_plan()
         if self.respawn_backoff_s < 0 or self.respawn_backoff_max_s < 0:
             raise ValueError("respawn backoff values must be >= 0")

@@ -1,16 +1,24 @@
-"""The port's native core: the SPSC shared-memory ring of the shm transport.
+"""The port's native core: the shm transport's ring and the host sum tree.
 
-Counterpart of distributed_ddpg_tpu/native/__init__.py (ShmRing and its
-loader), trimmed to the ring. `ring.cpp` is built with g++ at first use
-into distributed_ddpg_tpu_torch/build/libring-<hash>.so (git-ignored), the
-hash over the source, the flags and the compiler's version, so an edited
-source or another toolchain rebuilds; then it is loaded with ctypes:
+Counterpart of distributed_ddpg_tpu/native/__init__.py: ShmRing over
+`ring.cpp` (the SPSC shared-memory ring of the shm transport), and
+NativeSumTree and make_sum_tree over `replay_core.cpp` (the host PER sum
+tree's set, sample and get). Each source is built with g++ at first use
+into distributed_ddpg_tpu_torch/build/lib<name>-<hash>.so (git-ignored),
+the hash over the source, the flags and the compiler's version, so an
+edited source or another toolchain rebuilds; then it is loaded with
+ctypes:
 
   g++ -O2 -std=c++17 -shared -fPIC -o build/libring-<hash>.so native/ring.cpp
+  g++ -O2 -std=c++17 -shared -fPIC -o build/libreplay_core-<hash>.so native/replay_core.cpp
 
-`load()` raises with the compiler's output when the build fails;
-`available()` says whether it can be loaded (transport 'auto' resolves to
-the ring exactly when it is). Nothing is built outside the package.
+`load()` and `load_sum_tree()` raise with the compiler's output when the
+build fails; `available()` and `sum_tree_available()` say whether each can
+be loaded. Transport 'auto' resolves to the ring exactly when it can be;
+make_sum_tree takes the C++ tree exactly when it can be, else the numpy
+tree, which draws the same indices (the JAX package's rule: a missing
+toolchain costs speed, never a result). Nothing is built outside the
+package.
 """
 
 from __future__ import annotations
@@ -23,33 +31,45 @@ from typing import Optional
 
 import numpy as np
 
+from distributed_ddpg_tpu_torch.replay.sum_tree import SumTree
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(_DIR, "ring.cpp")
+SUM_TREE_SRC = os.path.join(_DIR, "replay_core.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "build")
 FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
 _error: Optional[str] = None
+_st_lib: Optional[ctypes.CDLL] = None
+_st_error: Optional[str] = None
 
 
-def _target() -> str:
+def _target(src: str, stem: str) -> str:
     try:
         version = subprocess.run(["g++", "--version"], capture_output=True, text=True,
                                  check=True).stdout
     except (OSError, subprocess.CalledProcessError) as e:
         raise RuntimeError(f"g++ not usable: {e!r}") from e
-    with open(SRC, "rb") as f:
+    with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode() + version.encode())
-    return os.path.join(BUILD_DIR, f"libring-{digest.hexdigest()[:12]}.so")
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
 
 
-def _build(out: str) -> None:
+def _build(src: str, out: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run(["g++", *FLAGS, "-o", tmp, SRC], capture_output=True, text=True)
+    proc = subprocess.run(["g++", *FLAGS, "-o", tmp, src], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed to build {SRC}:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"g++ failed to build {src}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)   # atomic: concurrent builders race benignly
+
+
+def _built(src: str, stem: str) -> ctypes.CDLL:
+    out = _target(src, stem)
+    if not os.path.exists(out):
+        _build(src, out)
+    return ctypes.CDLL(out)
 
 
 def load() -> ctypes.CDLL:
@@ -62,10 +82,7 @@ def load() -> ctypes.CDLL:
     if _error is not None:
         raise RuntimeError(_error)
     try:
-        out = _target()
-        if not os.path.exists(out):
-            _build(out)
-        lib = ctypes.CDLL(out)
+        lib = _built(SRC, "ring")
     except Exception as e:
         _error = f"the shm ring's native library is unavailable: {e}"
         raise RuntimeError(_error) from e
@@ -90,8 +107,83 @@ def available() -> bool:
     return True
 
 
-def _ptr(arr: np.ndarray):
-    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+def _ptr(arr: np.ndarray, ctype=ctypes.POINTER(ctypes.c_float)):
+    return arr.ctypes.data_as(ctype)
+
+
+# --- the host sum tree ----------------------------------------------------------
+
+_F64 = ctypes.POINTER(ctypes.c_double)
+_I64 = ctypes.POINTER(ctypes.c_int64)
+
+
+def load_sum_tree() -> ctypes.CDLL:
+    """The loaded sum-tree library (replay_core.cpp), built first if
+    needed; raises as load() does, and remembers a failure the same way."""
+    global _st_lib, _st_error
+    if _st_lib is not None:
+        return _st_lib
+    if _st_error is not None:
+        raise RuntimeError(_st_error)
+    try:
+        lib = _built(SUM_TREE_SRC, "replay_core")
+    except Exception as e:
+        _st_error = f"the sum tree's native library is unavailable: {e}"
+        raise RuntimeError(_st_error) from e
+    _I = ctypes.c_int64
+    lib.st_set.argtypes = [_F64, _I, _I64, _F64, _I]
+    lib.st_set.restype = None
+    lib.st_sample.argtypes = [_F64, _I, _F64, _I64, _I]
+    lib.st_sample.restype = None
+    lib.st_get.argtypes = [_F64, _I, _I64, _F64, _I]
+    lib.st_get.restype = None
+    _st_lib = lib
+    return lib
+
+
+def sum_tree_available() -> bool:
+    try:
+        load_sum_tree()
+    except RuntimeError:
+        return False
+    return True
+
+
+class NativeSumTree(SumTree):
+    """replay/sum_tree.SumTree with the hot loops (set, get, sample) in C++
+    (replay_core.cpp). The layout, the rounding and the stratified draw are
+    inherited: the numpy class stays the one source of those semantics and
+    the oracle."""
+
+    def __init__(self, capacity: int):
+        self._lib = load_sum_tree()
+        super().__init__(capacity)
+
+    def set(self, indices, priorities) -> None:
+        idx = np.ascontiguousarray(indices, np.int64)
+        prio = np.ascontiguousarray(priorities, np.float64)
+        self._lib.st_set(_ptr(self.tree, _F64), self.capacity, _ptr(idx, _I64),
+                         _ptr(prio, _F64), len(idx))
+
+    def get(self, indices) -> np.ndarray:
+        idx = np.ascontiguousarray(indices, np.int64)
+        out = np.empty(len(idx), np.float64)
+        self._lib.st_get(_ptr(self.tree, _F64), self.capacity, _ptr(idx, _I64),
+                         _ptr(out, _F64), len(idx))
+        return out
+
+    def sample(self, values) -> np.ndarray:
+        v = np.ascontiguousarray(values, np.float64)
+        out = np.empty(len(v), np.int64)
+        self._lib.st_sample(_ptr(self.tree, _F64), self.capacity, _ptr(v, _F64),
+                            _ptr(out, _I64), len(v))
+        return out
+
+
+def make_sum_tree(capacity: int):
+    """NativeSumTree when the toolchain builds it, else the numpy SumTree,
+    which draws the same indices."""
+    return NativeSumTree(capacity) if sum_tree_available() else SumTree(capacity)
 
 
 class ShmRing:

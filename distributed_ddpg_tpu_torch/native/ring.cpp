@@ -2,10 +2,10 @@
 // transport (actors/pool.py, transport "shm").
 //
 // A copy of the ring_* functions of distributed_ddpg_tpu/native/
-// replay_core.cpp (the sum tree is not used by the port yet). One ring per
-// rollout worker: the worker process is the only producer, the learner
-// process the only consumer, so monotonic head and tail counters with
-// acquire/release ordering need no lock. Rows are fixed-width f32
+// replay_core.cpp (its sum tree is the port's native/replay_core.cpp).
+// One ring per rollout worker: the worker process is the only producer,
+// the learner process the only consumer, so monotonic head and tail
+// counters with acquire/release ordering need no lock. Rows are fixed-width f32
 // transitions copied in place, with no pickling.
 //
 // Python owns the shared block and passes its address; nothing here

@@ -34,6 +34,17 @@ IS weights are written into the gathered rows' weight column, which both
 routes read, and the chunk's (|td| + eps)^alpha go back into the priority
 vector, all on the device, as the JAX learner's PER programs do.
 
+Host-fed chunks (the host replay's path, train.py with host_replay and
+parallel/prefetch.py) come in through put_chunk and run_chunk_async (the
+JAX learner's pair; run_chunk is the two in one): put_chunk packs the
+sampled [K, B, ...] fields into a pinned buffer of a pool and copies it
+to the card on the learner's copy stream, a side stream, recording an
+event; run_chunk_async makes the chunk's stream wait on that event before
+the chunk reads the rows, and the pool does not hand the buffer out again
+before the event has completed. So the copy of chunk n + 1 overlaps chunk
+n, and neither a half-copied chunk nor a reused buffer can be read. The
+rows carry their own weights (PER's IS weights from the host sum tree).
+
 With guardrails (config.guardrails; guardrails.py) a chunk takes the scan
 route, as the JAX learner's guarded programs do (:366-371, :582-720), and
 'auto' degrades to it: before the steps the gathered rows are screened
@@ -76,7 +87,7 @@ prefix sum has a fixed order on the card, replay/device.py).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -97,7 +108,23 @@ from distributed_ddpg_tpu_torch.parallel.mesh import (
     resolve_data_axis,
 )
 from distributed_ddpg_tpu_torch.replay.device import draw_per_indices, scatter_last_wins
-from distributed_ddpg_tpu_torch.types import OptState, TrainState, pack_batch_np, unpack_batch
+from distributed_ddpg_tpu_torch.transfer.hostbuf import HostBufferPool
+from distributed_ddpg_tpu_torch.types import (
+    OptState,
+    TrainState,
+    pack_batch_np,
+    packed_width,
+    unpack_batch,
+)
+
+
+class HostChunk(NamedTuple):
+    """A host-fed chunk on its way to the learner (put_chunk): the packed
+    [K, B * D, W] rows on the learner's device, and the event that marks
+    the end of their copy (None on the CPU)."""
+
+    packed: torch.Tensor
+    ready: Optional[torch.cuda.Event]
 
 
 def resolve_device(config: DDPGConfig) -> torch.device:
@@ -306,6 +333,12 @@ class ShardedLearner:
         )
         self._step = int(self.state.step)   # host copy of the global step
         self._done: Optional[torch.cuda.Event] = None
+        # Host-fed chunks (put_chunk): pinned staging buffers and the side
+        # stream their copies run on, on the card only.
+        on_card = self.device.type == "cuda"
+        self._copy_stream = torch.cuda.Stream(self.device) if on_card else None
+        self._chunk_pool = HostBufferPool(packed_width(obs_dim, act_dim), depth=2,
+                                          pin=True) if on_card else None
         # The LR cooldown's scale (set_lr_scale), applied where the step is
         # built, so it composes with set_value_bounds.
         self._lr_scale = 1.0
@@ -580,8 +613,50 @@ class ShardedLearner:
 
     def run_chunk(self, np_batches: Dict[str, np.ndarray]) -> StepOutput:
         """K learner steps on host-fed [K, B * D, ...] stacked minibatches
-        (on D > 1 ranks this rank's columns, on the scan route)."""
-        packed = torch.from_numpy(pack_batch_np(np_batches)).to(self.device)
+        (on D > 1 ranks this rank's columns, on the scan route): the JAX
+        learner's run_chunk_async(put_chunk(np_batches))."""
+        return self.run_chunk_async(self.put_chunk(np_batches))
+
+    def put_chunk(self, np_batches: Dict[str, np.ndarray]) -> "HostChunk":
+        """Pack a [K, B, field] dict into the one wire array and start its
+        copy to the learner's device (the JAX learner's put_chunk). On the
+        card the rows go into a pinned buffer of a pool (transfer/hostbuf.py)
+        and are copied with non_blocking=True on the learner's copy stream,
+        a side stream, so the copy overlaps a running chunk; the copy's
+        event goes into the pool as the buffer's fence (the buffer is not
+        handed out again before the copy has read it) and rides along in
+        the HostChunk (run_chunk_async makes the chunk's stream wait on it
+        before the chunk reads the rows). Callable from any thread (the
+        prefetcher's, the transfer scheduler's). On the CPU the packed
+        array itself."""
+        packed = pack_batch_np(np_batches)
+        if self._copy_stream is None:
+            return HostChunk(torch.from_numpy(packed), None)
+        k, b, w = packed.shape
+        buf = self._chunk_pool.acquire(k * b)
+        buf[:] = packed.reshape(k * b, w)
+        with torch.cuda.stream(self._copy_stream):
+            # Allocated on the copy stream: the chunk's stream records its
+            # use (run_chunk_async), so the allocator does not hand the
+            # block out again before the chunk has read it.
+            rows = torch.from_numpy(buf).to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
+        self._chunk_pool.commit(buf, ready)
+        return HostChunk(rows.view(k, b, w), ready)
+
+    def run_chunk_async(self, device_chunk: "HostChunk") -> StepOutput:
+        """run_chunk on a chunk put_chunk has placed (from the prefetch
+        pipeline); returns without waiting for the chunk, as every dispatch
+        does (chunk_done polls its end). The learner's stream waits on the
+        copy's event, so the chunk never reads a half-copied chunk. Both
+        routes take it: the kernel route on one rank, the scan route (with
+        or without K2, guarded or not) everywhere."""
+        packed, ready = device_chunk
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            packed.record_stream(stream)
         kernel = self.fused_chunk_active and self.data_size == 1
         packed = self._cols(packed).contiguous()
         return self._run(packed, self._cols(self._noise(self.global_batch)), kernel=kernel,

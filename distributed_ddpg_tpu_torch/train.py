@@ -137,6 +137,40 @@ trainer's blocks :487-503, :1399-1700), on one rank, on the scan route:
   actor_quarantined and actor_unquarantined, and the summary
   numeric_failed.
 
+The host replay (--host_replay=true; the JAX trainer's path for a replay
+larger than the card's memory), on one rank:
+
+- the replay is make_replay's (replay/uniform.py, or with PER
+  replay/prioritized.py over the sum tree, whose C++ core
+  native/replay_core.cpp is built at first use), in host memory; one
+  replay_lock orders the driver's inserts and priority updates against
+  the prefetcher's draws;
+- the warmup fills it and sizes D4PG's auto support from it, then a
+  ChunkPrefetcher (parallel/prefetch.py) samples K minibatches a chunk on
+  its own thread and puts them on the card through
+  ShardedLearner.put_chunk (a pinned buffer, a copy on a side stream,
+  submitted to the transfer scheduler's prefetch class), up to
+  --prefetch_depth chunks ahead;
+- each dispatch takes the next chunk (`prefetch.next()`; the wait is the
+  final record's t_sample_wait_ms, a chunk) into
+  ShardedLearner.run_chunk_async, on the kernel route or the scan route;
+- under PER, once the chunk has ended, its td goes back into the sum tree
+  and beta anneals, under the lock; chunks the prefetcher drew meanwhile
+  keep the priorities they were drawn with, as in the JAX trainer;
+- checkpoints save the host replay's state_dict; the prefetcher stops on
+  every way out.
+
+Lockstep mode (--strict_sync=true, with both ratio gates): the actors run
+inline on the driver's thread (actors/sync_pool.py), the transfer
+scheduler, the shipper and the adaptive cap are off, one drain a chunk
+takes the whole ratio budget, and the wall-clock floors on the param
+refresh and the train records are ignored, so two runs of one config
+write the same records but for their wall-clock fields.
+
+--backend=native runs train_native instead: the numpy learner
+(native_backend.py) on the CPU, one env and one step a train_every env
+steps, the JAX trainer's baseline loop, asked for by name.
+
 Usage:
     python -m distributed_ddpg_tpu_torch.train --total_env_steps=100000
     python -m distributed_ddpg_tpu_torch.train --distributional=true --n_step=5 \
@@ -151,6 +185,10 @@ Usage:
         --num_actors=4                                            # built-in env
     python -m distributed_ddpg_tpu_torch.train --guardrails=true --fused_update=true \
         --checkpoint_dir=/tmp/ckpt                                 # guarded
+    python -m distributed_ddpg_tpu_torch.train --host_replay=true  # host replay
+    python -m distributed_ddpg_tpu_torch.train --strict_sync=true --max_learn_ratio=1 \
+        --max_ingest_ratio=1                                       # lockstep
+    python -m distributed_ddpg_tpu_torch.train --backend=native    # numpy on the CPU
 """
 
 from __future__ import annotations
@@ -173,7 +211,10 @@ from distributed_ddpg_tpu_torch.envs import make, spec_of
 from distributed_ddpg_tpu_torch.exits import EXIT_NUMERIC, EXIT_PREEMPTED
 from distributed_ddpg_tpu_torch.metrics import GuardrailStats
 from distributed_ddpg_tpu_torch.ops import support_auto
-from distributed_ddpg_tpu_torch.types import pack_batch_np
+from distributed_ddpg_tpu_torch.ops.noise import OUNoise
+from distributed_ddpg_tpu_torch.replay import make_replay
+from distributed_ddpg_tpu_torch.replay.nstep import NStepAccumulator
+from distributed_ddpg_tpu_torch.types import pack_batch_np, packed_width, unpack_batch
 
 
 class JsonlLog:
@@ -301,13 +342,18 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     parallel/mesh.DataGroup of D ranks) every rank calls this: rank 0 runs
     the actors, the eval and the log, and its decisions and rows go to the
     others (see the module's docstring); its summary carries the final
-    return, the others' None."""
+    return, the others' None. backend='native' runs train_native."""
+    if config.backend == "native":
+        return train_native(config, echo)
     # torch loads here, not at import: spawned actor workers re-import the
     # main module (this one, under `python -m`) and must stay torch-free.
     from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
+    from distributed_ddpg_tpu_torch.actors.sync_pool import SyncActorPool
     from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
+    from distributed_ddpg_tpu_torch.native import NativeSumTree
     from distributed_ddpg_tpu_torch.parallel import mesh
     from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, resolve_learner_chunk
+    from distributed_ddpg_tpu_torch.parallel.prefetch import ChunkPrefetcher
     from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay, DeviceReplay
     from distributed_ddpg_tpu_torch.transfer import TransferScheduler
 
@@ -321,17 +367,29 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         spec.action_offset, chunk_size=chunk, group=group,
     )
     device = learner.device
+    host_replay, strict = config.host_replay, config.strict_sync
+    if host_replay and learner.data_size > 1:
+        raise ValueError(
+            f"host_replay=True on {learner.data_size} ranks is not in this slice of the "
+            "PyTorch port: a host replay a rank under the lockstep driver comes with "
+            "ROADMAP.md Queue 1 item 10; run the host replay on one rank")
     # After every check that can refuse the run, so a refusal leaks no
-    # dispatch thread; closed after the replay (teardown below).
-    transfer_sched = TransferScheduler().start() if config.transfer_scheduler else None
+    # dispatch thread; closed after the replay (teardown below). Off under
+    # strict_sync: its dispatch timing would make the records depend on
+    # the host's scheduling (and with it the adaptive cap and the pool).
+    transfer_sched = (TransferScheduler().start()
+                      if config.transfer_scheduler and not strict else None)
     # A shipping thread would make the time an insert lands, relative to
     # the next chunk's draw, depend on each rank's host: the replicas would
-    # part. So on D > 1 ranks the ships stay inline (the pinned pool's
-    # non-blocking copy still applies).
-    ingest_async = config.ingest_async and learner.data_size == 1
+    # part, and so would two strict-sync runs. So on D > 1 ranks and under
+    # strict_sync the ships stay inline (the pinned pool's non-blocking
+    # copy still applies where the scheduler runs).
+    ingest_async = (config.ingest_async and learner.data_size == 1 and not strict
+                    and not host_replay)
     # Guardrails (see the module docstring): the driver's half of the probe.
+    # The host replay keeps no sources (as in the JAX trainer).
     guard_on = config.guardrails
-    track_sources = guard_on and config.guardrail_source_offenses > 0
+    track_sources = guard_on and config.guardrail_source_offenses > 0 and not host_replay
     gstats = GuardrailStats()
     guard_window: list = []           # (learn_steps at the read, anomalies)
     guard_src_offenses: Dict[int, int] = {}
@@ -349,19 +407,28 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         track_sources=track_sources,
     )
     try:
-        replay = (
-            DevicePrioritizedReplay(
+        if host_replay:
+            replay = make_replay(config, spec.obs_dim, spec.act_dim)
+        elif config.prioritized:
+            replay = DevicePrioritizedReplay(
                 config.replay_capacity, spec.obs_dim, spec.act_dim, device,
                 alpha=config.per_alpha, eps=config.per_eps, **replay_kwargs,
             )
-            if config.prioritized
-            else DeviceReplay(config.replay_capacity, spec.obs_dim, spec.act_dim, device,
-                              **replay_kwargs)
-        )
+        else:
+            replay = DeviceReplay(config.replay_capacity, spec.obs_dim, spec.act_dim, device,
+                                  **replay_kwargs)
     except BaseException:
         if transfer_sched is not None:
             transfer_sched.close()
         raise
+    width = packed_width(spec.obs_dim, spec.act_dim)
+    # The host replay's one lock: the driver's inserts and priority
+    # updates against the prefetcher's draws (the device replay orders its
+    # ships on its own dispatch_lock).
+    replay_lock = threading.Lock()
+    replay_mutex = replay_lock if host_replay else replay.dispatch_lock
+    prefetch = None
+    sample_wait_s = 0.0               # host replay: the driver's wait for a chunk
     eval_policy = NumpyPolicy(
         param_layout(spec.obs_dim, actor_head_dim(spec.act_dim, config.sac),
                      tuple(config.actor_hidden)),
@@ -403,12 +470,26 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
 
     def ingest_fields() -> Dict[str, Any]:
         """The interval's ingest_* and transfer_* fields (each snapshot
-        starts a new interval)."""
-        out = replay.ingest_snapshot()
+        starts a new interval); the host replay has no ingest pipeline."""
+        out = {} if host_replay else replay.ingest_snapshot()
         if transfer_sched is not None:
             out.update(transfer_sched.snapshot())
-            out.update(replay.transfer_snapshot())
+            if not host_replay:
+                out.update(replay.transfer_snapshot())
         return out
+
+    def host_fields() -> Dict[str, Any]:
+        """The host replay's record: its prefetch depth, the driver's wait
+        for a chunk (ms, a chunk's mean) and under PER which sum tree ran
+        (native: the C++ core; numpy: the fallback)."""
+        if not host_replay:
+            return {}
+        tree = {}
+        if config.prioritized:
+            tree = dict(sum_tree="native" if isinstance(replay._tree, NativeSumTree)
+                        else "numpy")
+        return dict(host_replay=True, prefetch_depth=config.prefetch_depth,
+                    t_sample_wait_ms=1000.0 * sample_wait_s / max(chunks, 1), **tree)
 
     def mesh_fields() -> Dict[str, Any]:
         if learner.data_size == 1:
@@ -460,6 +541,16 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         ingested_rows = base + m
         return packed
 
+    def insert(rows: np.ndarray, source: int = -1) -> None:
+        """Packed rows into the replay: staged for the device ring's ships,
+        or added to the host replay under replay_lock."""
+        if not host_replay:
+            replay.add_packed(rows, source=source)
+            return
+        b = unpack_batch(rows, spec.obs_dim, spec.act_dim)
+        with replay_lock:
+            replay.add_batch(b.obs, b.action, b.reward, b.discount, b.next_obs)
+
     def ingest() -> int:
         rows, pairs = None, []
         if lead:
@@ -478,13 +569,13 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                 packed = pack_batch_np(batch)
                 if numeric_replay_at:
                     packed = poison(packed, wid)
-                replay.add_packed(packed, source=wid)
+                insert(packed, source=wid)
                 moved += len(packed)
         else:
-            rows = mesh.share_rows(rows, replay.width, group)
+            rows = mesh.share_rows(rows, width, group)
             moved = 0 if rows is None else len(rows)
             if moved:
-                replay.add_packed(rows)
+                insert(rows)
         env_timer.tick(moved)
         return moved
 
@@ -581,8 +672,9 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         meta: Dict[str, Any] = {}
         t0 = time.perf_counter()
         try:
-            # No ship may write into the replay while it is restored.
-            with replay.dispatch_lock:
+            # No ship (or prefetcher draw) may touch the replay while it is
+            # restored.
+            with replay_mutex:
                 try:
                     state, step, _ = ckpt_lib.restore(config.checkpoint_dir, learner.state,
                                                       replay, config=config, meta_out=meta,
@@ -673,14 +765,16 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                 print(f"resumed from {config.checkpoint_dir} at learner step {learn_steps}, "
                       f"env step {env_offset}", flush=True)
         if lead:
-            pool = ActorPool(config, spec, env_steps_offset=env_offset)
+            # strict_sync: inline deterministic actors, the same surface.
+            pool = (SyncActorPool if strict else ActorPool)(config, spec,
+                                                            env_steps_offset=env_offset)
             pool.start(learner.actor_params_to_host())
 
         # --- warmup: fill replay to the learning threshold ---
         last_monitor_t = time.monotonic()
         while len(replay) < min_fill:
             moved = ingest()
-            if len(replay) + replay.pending_rows >= min_fill:
+            if not host_replay and len(replay) + replay.pending_rows >= min_fill:
                 replay.flush()
             monitor()
             if not moved:
@@ -692,6 +786,14 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             learner.set_value_bounds(*mesh.share(data_bounds() if lead else (0, 0), group))
             n_env = env_steps()
             log.log("support", n_env, reason="warmup", **support_fields())
+
+        if host_replay and not stopping:
+            # After the warmup (and the support's sizing): the prefetcher
+            # draws from the filled replay, ahead of the learner.
+            prefetch = ChunkPrefetcher(
+                replay, learner.put_chunk, learner.global_batch, chunk,
+                depth=config.prefetch_depth, lock=replay_lock, scheduler=transfer_sched,
+            ).start()
 
         learn_timer.reset()
         env_timer.reset()
@@ -713,7 +815,12 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                 if not ingest():
                     time.sleep(0.002)
                 continue
-            if config.prioritized:
+            if host_replay:
+                t_wait = time.perf_counter()
+                device_chunk, indices = prefetch.next()
+                sample_wait_s += time.perf_counter() - t_wait
+                out = learner.run_chunk_async(device_chunk)
+            elif config.prioritized:
                 frac = min(1.0, n_env / config.total_env_steps)
                 beta = config.per_beta + frac * (config.per_beta_final - config.per_beta)
                 out = learner.run_sample_chunk_per(replay, beta)
@@ -725,15 +832,21 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             # Ingest while the chunk runs. Without this wait the loop would
             # queue chunks far ahead of the card, then block on all of them
             # at its next device read while the actors' bounded queue sits
-            # full and undrained. Rank 0's chunk decides when it ends.
+            # full and undrained. Rank 0's chunk decides when it ends. Under
+            # strict_sync one drain a chunk (it takes the whole ratio
+            # budget), so the records do not depend on the chunk's time.
+            drained = False
             while True:
                 done = learner.chunk_done()
-                t_ingest = time.perf_counter()
-                moved = ingest()
-                t_ingest = time.perf_counter() - t_ingest
-                ingest_chunk_s += t_ingest
-                ingest_max_s = max(ingest_max_s, t_ingest)
-                ingest_calls += 1
+                moved = 0
+                if not (strict and drained):
+                    t_ingest = time.perf_counter()
+                    moved = ingest()
+                    t_ingest = time.perf_counter() - t_ingest
+                    ingest_chunk_s += t_ingest
+                    ingest_max_s = max(ingest_max_s, t_ingest)
+                    ingest_calls += 1
+                    drained = True
                 done = bool(mesh.share([done], group)[0])
                 if not moved and not done:
                     time.sleep(0.0005)
@@ -746,10 +859,22 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                 if numeric_failed:
                     break
                 continue
+            if host_replay and config.prioritized:
+                # Host PER (JAX :2152-2160): the chunk's td into the sum
+                # tree, then beta, under the lock the prefetcher draws under.
+                tds = out.td_errors.cpu().numpy().reshape(-1)
+                frac = min(1.0, n_env / config.total_env_steps)
+                beta = config.per_beta + frac * (config.per_beta_final - config.per_beta)
+                with replay_lock:
+                    replay.update_priorities(indices.reshape(-1), tds)
+                    replay.set_beta(beta)
 
+            # strict_sync ignores the wall-clock floors on the refresh and
+            # the log: they would make which params act and which chunks log
+            # depend on the host's timing.
             now = time.perf_counter()
             if lead and learn_steps >= next_refresh and (
-                now - last_refresh_t >= config.param_refresh_interval_s
+                strict or now - last_refresh_t >= config.param_refresh_interval_s
             ):
                 pool.broadcast(learner.actor_params_to_host())
                 next_refresh = learn_steps + config.param_refresh_every
@@ -765,7 +890,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                             **support_fields())
 
             on_cadence = chunks == 1 or chunks % 50 == 0
-            if lead and on_cadence and now - last_log_t >= 1.0:
+            if lead and on_cadence and (strict or now - last_log_t >= 1.0):
                 last_log_t = now
                 episodes = pool.episode_stats()
                 metrics = learner.metrics_to_host(out)
@@ -806,11 +931,14 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                       "(resumable)", file=sys.stderr, flush=True)
             emergency_ckpt = emergency_checkpoint()
     finally:
+        if prefetch is not None:
+            prefetch.stop()
         if pool is not None:
             pool.stop()
         # The shipper stops (later inserts would ship inline), then the
         # scheduler: its pending tickets fail into their waiters.
-        replay.close()
+        if not host_replay:
+            replay.close()
         if transfer_sched is not None:
             transfer_sched.close()
         if prev_sigterm is not None:
@@ -845,9 +973,10 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         n_ingest=ingest_calls,
         **ingest_fields(),
     )
-    # The summary keeps the scheduler's ingest count and the replay's
-    # transfer fields; the final record has every class's.
-    kept = {"transfer_ingest_items", *replay.transfer_snapshot()}
+    # The summary keeps the scheduler's ingest and prefetch counts and the
+    # replay's transfer fields; the final record has every class's.
+    kept = {"transfer_ingest_items", "transfer_prefetch_items",
+            *(() if host_replay else replay.transfer_snapshot())}
     ingest_summary = {k: v for k, v in ingest_record.items()
                       if not k.startswith("transfer_") or k in kept}
     log.log(
@@ -865,6 +994,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         **replica,
         **ckpt_fields(),
         **ingest_record,
+        **host_fields(),
         **guardrail_fields(),
         **(recovery_fields() if guard_on else {}),
     )
@@ -878,6 +1008,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         "compute_dtype": config.compute_dtype,
         "fused_chunk_active": learner.fused_chunk_active,
         **ingest_summary,
+        **host_fields(),
         "env_steps": n_env,
         "final_return": final_return,
         **{k: metrics[k] for k in (*METRIC_KEYS, "max_priority") if k in metrics},
@@ -891,6 +1022,85 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         **guardrail_fields(),
         **(recovery_fields() if guard_on else {}),
         **({"alpha": float(learner.state.log_alpha.exp())} if config.sac else {}),
+    }
+
+
+def train_native(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
+    """--backend=native (JAX train.py:111-203): the numpy learner
+    (native_backend.NativeLearner) on the CPU, one env stepped with the
+    deterministic policy plus OU noise, one learner step on one sampled
+    batch every train_every env steps once the replay holds
+    max(replay_min_size, batch_size) rows, PER's priorities written from
+    the step's td. Every eval_every env steps a train record and (once
+    learning) an inline eval, its time left out of the learner rate. The
+    params start from the port's init_train_state on the CPU: the only
+    torch this path touches, and never the card."""
+    from distributed_ddpg_tpu_torch.learner import init_train_state, train_state_to_numpy
+    from distributed_ddpg_tpu_torch.native_backend import NativeLearner
+
+    env = make(config.env_id, seed=config.seed)
+    spec = spec_of(env)
+    state = init_train_state(config, spec.obs_dim, spec.act_dim, config.seed, device="cpu")
+    learner = NativeLearner(config, train_state_to_numpy(state), spec.action_scale,
+                            spec.action_offset)
+    replay = make_replay(config, spec.obs_dim, spec.act_dim)
+    noise = OUNoise((spec.act_dim,), config.ou_theta, config.ou_sigma, dt=config.ou_dt,
+                    seed=config.seed + 1)
+    nstep = NStepAccumulator(config.n_step, config.gamma)
+    log = JsonlLog(config.log_path, echo=echo)
+    learn_timer = Timer()
+    learn_steps = 0
+    metrics: Dict[str, float] = {}
+    ep_return, ep_returns = 0.0, []
+
+    obs, _ = env.reset(seed=config.seed)
+    for step in range(1, config.total_env_steps + 1):
+        action = learner.act(obs)[0] + noise() * spec.action_scale
+        action = np.clip(action, spec.action_low, spec.action_high).astype(np.float32)
+        next_obs, reward, terminated, truncated, _ = env.step(action)
+        ep_return += reward
+        for tr in nstep.push(obs[None], action[None], [reward], [terminated], next_obs[None]):
+            replay.add(*tr)
+        obs = next_obs
+        if terminated or truncated:
+            obs, _ = env.reset()
+            noise.reset()
+            nstep.reset()
+            ep_returns.append(ep_return)
+            ep_return = 0.0
+        if (len(replay) >= max(config.replay_min_size, config.batch_size)
+                and step % config.train_every == 0):
+            sample = replay.sample(config.batch_size)
+            indices = sample.pop("indices")
+            m = learner.step(sample)
+            td = m.pop("td_errors")
+            if config.prioritized:
+                replay.update_priorities(indices, td)
+            metrics = m
+            learn_steps += 1
+            learn_timer.tick()
+        if step % max(1, config.eval_every) == 0:
+            log.log("train", step, learner_steps=learn_steps,
+                    learner_steps_per_sec=learn_timer.rate(), buffer_fill=len(replay),
+                    episode_return=float(np.mean(ep_returns)) if ep_returns else None,
+                    **metrics)
+            ep_returns = []
+            if learn_steps:
+                # The inline eval is off the learner's path: its time is
+                # left out of the rate.
+                t_eval = time.monotonic()
+                ret = _eval_numpy(learner.act, config, spec)
+                learn_timer.exclude(time.monotonic() - t_eval)
+                log.log("eval", step, eval_return=ret)
+    rate = learn_timer.rate()
+    final_return = _eval_numpy(learner.act, config, spec)
+    log.log("final", config.total_env_steps, learner_steps_per_sec=rate,
+            final_return=final_return)
+    log.close()
+    return {
+        "learner_steps_per_sec": rate,
+        "learner_steps": learn_steps,
+        "final_return": final_return,
     }
 
 
@@ -911,11 +1121,11 @@ def main(argv=None) -> None:
             dist.destroy_process_group()
     if group is None or group.lead:
         print({k: round(v, 3) if isinstance(v, float) else v for k, v in summary.items()})
-    if summary["numeric_failed"]:
+    if summary.get("numeric_failed"):
         # The guardrails could not repair a sustained divergence: read the
         # guardrail_* counters before spending more on this config.
         sys.exit(EXIT_NUMERIC)
-    if summary["preempted"]:
+    if summary.get("preempted"):
         # Preempted and resumable: relaunch with the same --checkpoint_dir.
         sys.exit(EXIT_PREEMPTED)
 

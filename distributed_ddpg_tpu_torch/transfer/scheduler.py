@@ -17,10 +17,11 @@ Between ingest, prefetch and serve the scheduler does start-time fair
 queuing by bytes (a virtual time a class, advanced by bytes / weight): an
 item of one class waits at most about one in-flight item of another, and
 a class that was idle re-enters at the current virtual time, so it cannot
-bank credit. In the port only ingest is submitted so far: the prefetch
-class's user (a host replay) and the lockstep lane's (a pod's background
-ingest beats) come with later slices, the JAX package's sharded-replay
-`shard_exchange` class and its pod deadline with them.
+bank credit. In the port the device replay's ships are submitted as
+ingest items and the host replay's chunk copies (parallel/prefetch.py)
+as prefetch items; the lockstep lane's user (a pod's background ingest
+beats) comes with a later slice, the JAX package's sharded-replay
+`shard_exchange` class and its pod deadline with it.
 
 Failures: an exception thrown by a work item lands in its ticket (the
 submitter's problem; the replay turns it into its bounded-restart and

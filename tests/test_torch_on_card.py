@@ -47,7 +47,11 @@ Ingest: rows inserted while a K = 800 chunk runs, on the main path's
 pipeline and inline from the pinned pool with the PER stamp, make no
 synchronizing call (torch's sync debug mode, "error") and leave the chunk
 running. Environments: K1 (a) on terminal rows (discount 0) at
-MountainCar's shapes (obs 2, act 1). Guardrails: the guarded scan chunk
+MountainCar's shapes (obs 2, act 1). The host replay: chunks through the
+prefetcher (depth 1 and 2), put_chunk and run_chunk_async bit for bit
+what run_chunk gives on the same draws. Lockstep mode: two strict-sync
+runs through train() on the kernel route and on the scan route with K2,
+the same records but for their wall-clock fields. Guardrails: the guarded scan chunk
 with K2 bit for bit the unguarded one on healthy rows, an injected NaN
 step and loss spike skipped exactly (bit for bit the chunk with those
 updates left out), the row screen of more than 32 bad rows as on the CPU.
@@ -641,3 +645,91 @@ def test_guarded_chunk_on_card():
     idx = torch.from_numpy(rng.integers(0, 1_000_000, (GUARD_K, B))).cuda()
     assert ([x.cpu().tolist() for x in gl.batch_row_health(bad, idx)]
             == [x.tolist() for x in gl.batch_row_health(bad.cpu(), idx.cpu())])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2])
+def test_prefetched_chunk_on_card_matches_run_chunk(depth):
+    """The host replay's chunks on the card: chunks drawn by a
+    ChunkPrefetcher (its puts on the transfer scheduler's prefetch class)
+    from a PER replay, put on the card by put_chunk (pinned buffer,
+    side-stream copy) and dispatched with run_chunk_async without waiting,
+    against the same draws through run_chunk one at a time, on the kernel
+    route (DDPG): the indices, every td and the end state bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the copy stream and the kernel are the card's")
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+    from distributed_ddpg_tpu_torch.parallel.prefetch import ChunkPrefetcher
+    from distributed_ddpg_tpu_torch.replay import PrioritizedReplay
+    from distributed_ddpg_tpu_torch.transfer import TransferScheduler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k = 64
+    cfg = DDPGConfig(actor_hidden=HIDDEN, critic_hidden=HIDDEN, batch_size=B, seed=3)
+    state = train_state_to_numpy(init_train_state(cfg, OBS, ACT, cfg.seed, "cpu"))
+
+    def replay():
+        rng = np.random.default_rng(4)
+        rep = PrioritizedReplay(4096, OBS, ACT, seed=2)
+        rep.add_batch(rng.standard_normal((3000, OBS)).astype(np.float32),
+                      rng.uniform(-1, 1, (3000, ACT)).astype(np.float32),
+                      rng.standard_normal(3000).astype(np.float32),
+                      np.full(3000, 0.99, np.float32),
+                      rng.standard_normal((3000, OBS)).astype(np.float32))
+        rep.update_priorities(np.arange(0, 3000, 2), rng.uniform(0, 5, 1500))
+        return rep
+
+    a, b = (ShardedLearner(cfg, OBS, ACT, 2.0, 0.0, chunk_size=k,
+                           state=train_state_from_numpy(state, "cuda")) for _ in range(2))
+    assert a.fused_chunk_active
+    sched = TransferScheduler().start()
+    prefetch = ChunkPrefetcher(replay(), a.put_chunk, B, k, depth=depth,
+                               scheduler=sched).start()
+    got = []
+    try:
+        for _ in range(4):
+            device_chunk, idx = prefetch.next(timeout=60.0)
+            got.append((a.run_chunk_async(device_chunk).td_errors, idx))
+    finally:
+        prefetch.stop()
+        sched.close()
+    rb = replay()
+    for td, idx in got:
+        draws = [rb.sample(B) for _ in range(k)]
+        chunk = {f: np.stack([d[f] for d in draws]) for f in draws[0]}
+        np.testing.assert_array_equal(chunk.pop("indices"), idx)
+        assert torch.equal(b.run_chunk(chunk).td_errors, td)
+    assert torch.equal(fc.flatten_state(a.state), fc.flatten_state(b.state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["kernel", "scan"])
+def test_strict_sync_pair_on_card_is_bit_identical(tmp_path, route):
+    """Two --strict_sync runs of one tiny config through train() on the
+    card (inline actors: no process is started), on the kernel route and
+    on the scan route with the fused update: the same records once the
+    wall-clock fields (tests/test_strict_sync.py's, env_steps_per_sec and
+    every t_* field) are stripped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the lockstep contract is tested on the card")
+    import json
+
+    from distributed_ddpg_tpu_torch.train import train
+
+    wall = ("wall_time", "learner_steps_per_sec", "actor_steps_per_sec",
+            "ingest_rows_per_sec", "ingest_stall_ms", "ingest_ship_ms", "env_steps_per_sec")
+    records = []
+    for run in range(2):
+        log = tmp_path / f"{route}{run}.jsonl"
+        cfg = DDPGConfig(strict_sync=True, max_learn_ratio=1.0, max_ingest_ratio=1.0,
+                         num_actors=2, actor_hidden=(16, 16), critic_hidden=(16, 16),
+                         n_step=2, batch_size=32, replay_min_size=192, total_env_steps=1000,
+                         learner_chunk=8, eval_every=400, eval_episodes=1,
+                         fused_update=route == "scan", log_path=str(log))
+        summary = train(cfg, echo=False)
+        assert summary["fused_chunk_active"] is (route == "kernel")
+        records.append([{k: v for k, v in json.loads(line).items()
+                         if k not in wall and not k.startswith("t_")}
+                        for line in log.read_text().splitlines()])
+    assert records[0] == records[1]
+    assert any(r["kind"] == "train" for r in records[0])
