@@ -189,8 +189,28 @@ Phases (any failure raises; nothing is caught and passed over):
    (a) and two on the scan route with K2, each pair's records
    bit-identical once the wall-clock fields are stripped (strict_pair);
    then DDPGAgent with fused_update=True for AGENT_ENV_STEPS env steps (K2
-   twice a learner step, agent_path). The kernels' record counts K1 (a)'s
-   and (c)'s launches on the host-replay paths and K2's in the agent.
+   twice a learner step, agent_path).
+4e. Device actors, the fused beat, the superstep and the on-device
+   monolith (device_actor_phase, Pendulum-v1, 2x256, batch 64, the 1M
+   ring, 1024 device envs x 64 steps a rollout): the device actors on K1
+   (a) with num_actors=0 through train() (DEVACTOR_ROLLOUTS rollouts, 4
+   chunks; transfer_ingest_items 0; the rollout between chunks); the
+   rollout timed (device and host ms a dispatch, device busy time,
+   launches a rollout step); a rollout on the card against the CPU from
+   the same draws, step by step, the rows and the carry (rtol 1e-5, atol
+   1e-5; the free-running gap within FREE_RUNNING_BOUND); a rollout after a K1 chunk bit for bit one from a copy of
+   the new actor params; 3 fused beats bit-identical to the separate
+   sequence at K = BEAT_PARITY_K, uniform and PER; the fused beat's main
+   path (--fused_chunk=off --fused_update=true, 3 beats at K = 800, K2
+   twice a learner step); one superstep of 4 beats bit-identical to 4
+   beats and its host syncs counted (1); the superstep's main path (one
+   superstep); --backend=jax_ondevice --fused_update=true for
+   ONDEVICE_ENV_STEPS env steps, MountainCar's terminal rows on the
+   monolith stored at discount 0, and MountainCar on it for
+   ONDEVICE_MC_ENV_STEPS; the device actors resumed from a checkpoint
+   continuing their episodes. The kernels' record counts K1 (a)'s
+   launches on the device actors' path and K2's on the fused beat's, and
+   lists each kernel's launches on every path (launches_on_paths).
 5. Time each branch of the kernel at the main path's shapes (CUDA events,
    warmed up) beside its plain version (one run) and its bound; the eager autograd
    step x K is printed as context only. Then break each f32 branch's time,
@@ -1766,7 +1786,9 @@ def drive_main_path(flags, name: str, summary_out: dict = None) -> dict:
         if scan else {name: summary["chunks"]}
     if summary["chunks"] < 1 or launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
-    if summary["learner_steps"] != summary["chunks"] * resolve_learner_chunk(cfg):
+    # A resumed run's learner steps start at the step it restored.
+    if summary["learner_steps"] - (summary.get("resumed_from") or 0) != \
+            summary["chunks"] * resolve_learner_chunk(cfg):
         raise AssertionError("learner_steps != chunks x K")
     if summary["compute_dtype"] != cfg.compute_dtype:
         raise AssertionError(f"main path {name} ran in {summary['compute_dtype']}")
@@ -3041,6 +3063,407 @@ def host_replay_phase(card: str, common) -> dict:
     return out
 
 
+# --- 4e. device actors, the fused beat, the superstep, the monolith ---
+
+DEVACTOR_ENVS = 1024      # device_actor_envs (the JAX default); K = 64 on the card
+DEVACTOR_ROLLOUTS = 5     # the K1 (a) path: the warmup's rollout, then 4 chunks and rollouts
+BEAT_PARITY_K = 16        # the bit-identity checks' learner chunk (the main path's is 800)
+# Two free-running f32 rollouts (card, CPU; 1024 envs x 64 steps) parted by
+# 3.405e-4 in both chip runs that printed it (H100 80GB HBM3, 700 W); about
+# three times that fails.
+FREE_RUNNING_BOUND = 1e-3
+BEAT_PARITY_N = 3         # beats against the separate sequence
+FUSED_BEATS = 3           # the fused beat's main path: beats after the warmup's rollout
+ONDEVICE_ENV_STEPS = 5000
+ONDEVICE_MC_ENV_STEPS = 1500
+DEVACTOR_TIME_REPS = 5
+
+
+def _pool_system(cfg, replay_cls=None):
+    """A learner, a device-actor pool bound to it and a device replay on the
+    card (the trainer's wiring), the replay warmed by one rollout."""
+    from distributed_ddpg_tpu_torch.actors.device_pool import DeviceActorPool
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, resolve_learner_chunk
+    from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay, DeviceReplay
+
+    pool = DeviceActorPool(cfg)
+    learner = ShardedLearner(cfg, pool.obs_dim, pool.act_dim, pool.action_scale,
+                             pool.action_offset, chunk_size=resolve_learner_chunk(cfg))
+    pool.bind(lambda: learner.state.actor_params)
+    if cfg.prioritized:
+        rep = DevicePrioritizedReplay(cfg.replay_capacity, pool.obs_dim, pool.act_dim, "cuda",
+                                      alpha=cfg.per_alpha, eps=cfg.per_eps)
+    else:
+        rep = DeviceReplay(cfg.replay_capacity, pool.obs_dim, pool.act_dim, "cuda")
+    pool.run_chunk(rep)
+    return cfg, learner, pool, rep
+
+
+def _system_tensors(learner, pool, rep):
+    from distributed_ddpg_tpu_torch.parallel.learner import state_tensors
+
+    c = pool.carry
+    out = [*state_tensors(learner.state), rep.storage, *c.env_state, c.obs, c.ou, c.ep_ret,
+           c.steps, c.episodes, c.ret_sum, learner._gen.get_state(), pool._gen.get_state()]
+    if hasattr(rep, "priorities"):
+        out += [rep.priorities, rep.max_priority]
+    return out, (rep.ptr, len(rep), c.host_steps)
+
+
+def _same_system(a, b, what: str) -> None:
+    (ta, ha), (tb, hb) = _system_tensors(*a[1:]), _system_tensors(*b[1:])
+    bad = [i for i, (x, y) in enumerate(zip(ta, tb)) if not torch.equal(x, y)]
+    if ha != hb or bad or len(ta) != len(tb):
+        raise AssertionError(f"{what}: not bit-identical (host {ha} vs {hb}, tensors {bad})")
+
+
+def check_rollout_against_cpu(card: str) -> float:
+    """A rollout at the main path's width (1024 envs, 2x256 actor, 64
+    steps) on the card against the CPU from the same params, start state
+    and injected draws, one step at a time: each step's CPU reference
+    starts from the card's carry after the step before, so the check holds
+    the step's code at rtol 1e-5, atol 1e-5 (the JAX rollout test's
+    tolerance) over all 64 steps and not the pendulum's sensitivity to
+    initial conditions, which parts two free-running f32 rollouts. Each
+    step's rows and its carry (every leaf: env state, observations, OU,
+    episode returns and counters) are held at that tolerance. The
+    free-running gap is held to FREE_RUNNING_BOUND. Returns the largest
+    stepwise gap of the rows."""
+    from distributed_ddpg_tpu_torch.actors.device_pool import DeviceActorPool
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.learner import init_train_state
+    from distributed_ddpg_tpu_torch.ops.exploration import StepDraws, draw_step
+    from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
+
+    steps = 64
+    cfg = DDPGConfig(actor_backend="device", num_actors=0, device_actor_envs=DEVACTOR_ENVS,
+                     device_actor_chunk=1)
+    params = init_train_state(cfg, 3, 1, 5, "cpu").actor_params
+    pools = {dev: DeviceActorPool(cfg.replace(device=dev)) for dev in ("cpu", "cuda")}
+    free = DeviceActorPool(cfg.replace(device="cpu"))
+    gen = torch.Generator().manual_seed(17)
+    draws = [draw_step(pools["cpu"].env, 1, gen, pools["cpu"]._low, pools["cpu"]._high, False)
+             for _ in range(steps)]
+
+    def moved(carry, dev):
+        env = type(carry.env_state)(*(t.to(dev) for t in carry.env_state))
+        return carry._replace(env_state=env, **{f: getattr(carry, f).to(dev) for f in (
+            "obs", "ou", "ep_ret", "steps", "episodes", "ret_sum")})
+
+    pools["cuda"]._carry = moved(pools["cpu"].carry, "cuda")
+    free._carry = pools["cpu"].carry
+    reps = {dev: DeviceReplay(cfg.replay_capacity, 3, 1, dev) for dev in ("cpu", "cuda")}
+    free_rep = DeviceReplay(cfg.replay_capacity, 3, 1, "cpu")
+    for dev, pool in pools.items():
+        pool.set_params(tuple({k: v.to(dev) for k, v in layer.items()} for layer in params))
+    free.set_params(params)
+    def leaves(carry):
+        return [*carry.env_state, carry.obs, carry.ou, carry.ep_ret, carry.steps,
+                carry.episodes, carry.ret_sum]
+
+    carry_err = 0.0
+    for i, d in enumerate(draws):
+        if i:
+            # The step's carry update on the card (OU reset where done, the
+            # episode returns and counters, the env state) against the
+            # CPU's, before the CPU takes the card's carry for the next step.
+            for j, (a, b) in enumerate(zip(leaves(pools["cpu"].carry),
+                                           leaves(pools["cuda"].carry))):
+                a, b = a.numpy(), b.cpu().numpy()
+                np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5,
+                                           err_msg=f"carry leaf {j} after step {i}")
+                if a.size:
+                    carry_err = max(carry_err, float(np.abs(
+                        a.astype(np.float64) - b.astype(np.float64)).max()))
+            if pools["cpu"].carry.host_steps != pools["cuda"].carry.host_steps:
+                raise AssertionError(f"host step counts part after step {i}")
+        pools["cpu"]._carry = moved(pools["cuda"].carry, "cpu")
+        for dev, pool in pools.items():
+            pool.run_chunk(reps[dev], draws=[StepDraws(d.noise.to(dev), d.reset.to(dev))])
+        free.run_chunk(free_rep, draws=[d])
+    for j, (a, b) in enumerate(zip(leaves(pools["cpu"].carry), leaves(pools["cuda"].carry))):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=f"carry leaf {j} after the last step")
+    n = DEVACTOR_ENVS * steps
+    on_card = reps["cuda"].storage[:n].cpu().numpy()
+    on_cpu = reps["cpu"].storage[:n].numpy()
+    err = float(np.abs(on_card - on_cpu).max())
+    free_err = float(np.abs(on_card - free_rep.storage[:n].numpy()).max())
+    log(f"[devactor] {card}: a rollout ({DEVACTOR_ENVS} envs x {steps} steps) on the card "
+        f"against the CPU from the same draws, step by step: rows max abs gap {err:.3e}, "
+        f"carry (every leaf, each step) {carry_err:.3e}; free-running over all {steps} "
+        f"steps: {free_err:.3e} (bound {FREE_RUNNING_BOUND:.0e})")
+    np.testing.assert_allclose(on_card, on_cpu, rtol=1e-5, atol=1e-5)
+    if not free_err <= FREE_RUNNING_BOUND:
+        raise AssertionError(f"the free-running rollout parts from the CPU's by {free_err:.3e}, "
+                             f"above its bound {FREE_RUNNING_BOUND:.0e}")
+    return err
+
+
+def check_stale_params(card: str) -> None:
+    """A rollout after a K1 (a) chunk (K = 800) equals, bit for bit, one from
+    a copy of the learner's NEW actor params, and differs from the old's."""
+    from distributed_ddpg_tpu_torch.actors.device_pool import DeviceActorPool
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
+    from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
+
+    cfg = DDPGConfig(actor_backend="device", num_actors=0, device_actor_envs=DEVACTOR_ENVS)
+    _, learner, pool, rep = _pool_system(cfg)
+    old = tuple({k: v.clone() for k, v in layer.items()} for layer in learner.state.actor_params)
+    fc.KERNEL_LAUNCHES.clear()
+    learner.run_sample_chunk(rep)
+    if fc.KERNEL_LAUNCHES.get("fused_chunk") != 1:
+        raise AssertionError(f"stale params: the chunk launched {dict(fc.KERNEL_LAUNCHES)}")
+    carry, gen_state = pool.carry, pool._gen.get_state()
+    rows = {}
+    for name in ("bound", "new", "old"):
+        pool._carry = carry
+        pool._gen.set_state(gen_state)
+        if name == "new":
+            pool.set_params(tuple({k: v.clone() for k, v in layer.items()}
+                                  for layer in learner.state.actor_params))
+        elif name == "old":
+            pool.set_params(old)
+        else:
+            pool.bind(lambda: learner.state.actor_params)
+        r = DeviceReplay(cfg.replay_capacity, 3, 1, "cuda")
+        pool.run_chunk(r)
+        rows[name] = r.storage[:pool.rows_per_chunk].clone()
+    if not torch.equal(rows["bound"], rows["new"]) or torch.equal(rows["bound"], rows["old"]):
+        raise AssertionError("stale params: the rollout after a chunk did not read the new "
+                             "actor params")
+    log(f"[devactor] {card}: the rollout after a K1 (a) chunk equals a rollout from a copy of "
+        "the new actor params bit for bit, and differs from the old params'")
+
+
+def time_rollout(card: str) -> dict:
+    """The rollout at the main path's width: its device time and its host
+    time a dispatch (CUDA events and the host clock, warm), its launches a
+    rollout step (torch.profiler), and env steps a second of device time."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
+
+    cfg = DDPGConfig(actor_backend="device", num_actors=0, device_actor_envs=DEVACTOR_ENVS)
+    _, learner, pool, rep = _pool_system(cfg)
+    dev_ms = time_ms(lambda: pool.run_chunk(rep), reps=DEVACTOR_TIME_REPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DEVACTOR_TIME_REPS):
+        pool.run_chunk(rep)
+    host_ms = 1000.0 * (time.perf_counter() - t0) / DEVACTOR_TIME_REPS
+    torch.cuda.synchronize()
+    prof_ms, launches = profiled(lambda: pool.run_chunk(rep), reps=2)
+    out = dict(ms=dev_ms, host_ms=host_ms, busy_ms=prof_ms,
+               launches_per_step=launches / pool.chunk_size,
+               env_steps_per_s=1000.0 * pool.rows_per_chunk / dev_ms, rows=pool.rows_per_chunk)
+    log(f"[devactor] {card}: a rollout of {pool.rows_per_chunk} rows ({DEVACTOR_ENVS} envs x "
+        f"{pool.chunk_size} steps): {dev_ms:.3f} ms a dispatch (CUDA events), {host_ms:.3f} ms "
+        f"of host enqueue, {prof_ms:.3f} ms of device busy time (profiler), "
+        f"{out['launches_per_step']:.1f} launches a rollout step, "
+        f"{out['env_steps_per_s']:.1f} env steps/s")
+    return out
+
+
+def check_beats(card: str, per: bool) -> None:
+    """BEAT_PARITY_N fused beats against the separate sequence (the scan
+    route's chunk with K2, then the rollout into the ring) on the card, at
+    the main path's widths (1024 envs x 64 steps, 2x256, 1M ring) with the
+    learner chunk cut to BEAT_PARITY_K: bit-identical."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.parallel.megastep import FusedMegastep
+
+    cfg = DDPGConfig(actor_backend="device", num_actors=0, device_actor_envs=DEVACTOR_ENVS,
+                     fused_chunk="off", fused_update=True, learner_chunk=BEAT_PARITY_K,
+                     prioritized=per)
+    fused, sep = _pool_system(cfg), _pool_system(cfg)
+    ms = FusedMegastep(*fused)
+    for n in range(BEAT_PARITY_N):
+        beta = 0.4 + 0.1 * n
+        ms.run_beat(beta if per else None)
+        if per:
+            sep[1].run_sample_chunk_per(sep[3], beta)
+        else:
+            sep[1].run_sample_chunk(sep[3])
+        sep[2].run_chunk(sep[3])
+    _same_system(fused, sep, f"the fused beat{' with PER' if per else ''}")
+    log(f"[fused beat] {card}: {BEAT_PARITY_N} beats bit-identical to the separate sequence"
+        + (" with PER" if per else "") + f" (K = {BEAT_PARITY_K}, 1024 envs x 64 steps)")
+
+
+def check_superstep(card: str) -> int:
+    """One superstep of 4 beats against 4 beats (K = BEAT_PARITY_K, uniform):
+    bit-identical; then the host syncs of one superstep, counted in
+    torch's sync debug mode, must be 1 (its stats' read). Returns it."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.parallel.megastep import FusedMegastep
+    from distributed_ddpg_tpu_torch.parallel.superstep import FusedSuperstep
+
+    cfg = DDPGConfig(actor_backend="device", num_actors=0, device_actor_envs=DEVACTOR_ENVS,
+                     fused_chunk="off", fused_update=True, learner_chunk=BEAT_PARITY_K,
+                     superstep_beats=4)
+    sup, seq = _pool_system(cfg), _pool_system(cfg)
+    ss, ms = FusedSuperstep(*sup), FusedMegastep(*seq)
+    ss.run_superstep()
+    for _ in range(4):
+        ms.run_beat()
+    _same_system(sup, seq, "the superstep")
+    syncs = sync_calls(lambda: ss.run_superstep())
+    log(f"[superstep] {card}: one superstep of 4 beats bit-identical to 4 beats; host syncs "
+        f"a superstep: {syncs}")
+    if syncs != 1:
+        raise AssertionError(f"the superstep made {syncs} host syncs, not 1")
+    return syncs
+
+
+def ondevice_path(flags, name: str) -> dict:
+    """`--backend=jax_ondevice` through train() with these flags, the launch
+    counts zeroed before and read after: K2 twice a learner step with
+    --fused_update=true, no K1; finite metrics and return."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
+    from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
+    from distributed_ddpg_tpu_torch.train import train
+
+    cfg = DDPGConfig.from_flags(flags)
+    fc.KERNEL_LAUNCHES.clear()
+    t0 = time.monotonic()
+    summary = train(cfg, echo=False)
+    launches = dict(fc.KERNEL_LAUNCHES)
+    log(f"[ondevice {name}] {time.monotonic() - t0:.1f}s: " + json.dumps(summary))
+    want = {"fused_update": 2 * summary["learner_steps"]} if cfg.fused_update else {}
+    if launches != want or summary["learner_steps"] < 1 or summary["env_steps"] < \
+            cfg.total_env_steps:
+        raise AssertionError(f"ondevice {name}: launches {launches} != {want}, {summary}")
+    for key in (*METRIC_KEYS, "final_return"):
+        if not math.isfinite(summary[key]):
+            raise AssertionError(f"ondevice {name}: {key} = {summary[key]}")
+    return dict(summary, launches=launches)
+
+
+def check_terminal_rows_on_card(card: str) -> None:
+    """MountainCar on the monolith at 2x256: 64 envs, half of them placed at
+    the goal, one chunk on the card; the terminal rows (next position >=
+    0.45 with velocity >= 0) stored at discount 0 with reward > 99, the
+    others at gamma."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.ondevice import OnDeviceDDPG
+
+    cfg = DDPGConfig(backend="jax_ondevice", env_id="MountainCarContinuous-v0", num_actors=64,
+                     fused_update=True)
+    od = OnDeviceDDPG(cfg, chunk_size=8)
+    near = torch.arange(64, device="cuda") % 2 == 0
+    od.env_state = od.env_state._replace(
+        pos=torch.where(near, 0.449, od.env_state.pos),
+        vel=torch.where(near, 0.02, od.env_state.vel))
+    od.obs = od.env.observe(od.env_state)
+    od.run_chunk()
+    rows = od.replay.storage[:len(od.replay)].cpu().numpy()
+    disc, rew, nxt = rows[:, 4], rows[:, 3], rows[:, 5:7]
+    term = (nxt[:, 0] >= 0.45) & (nxt[:, 1] >= 0.0)
+    ok = (term.sum() >= 32 and np.all(disc[term] == 0.0) and np.all(rew[term] > 99.0)
+          and np.allclose(disc[~term], np.float32(cfg.gamma)))
+    log(f"[ondevice] {card}: MountainCar on the monolith, {int(term.sum())} terminal rows of "
+        f"{len(rows)} stored at discount 0 (reward > 99), the rest at gamma: {ok}")
+    if not ok:
+        raise AssertionError("MountainCar's terminal rows are not stored at discount 0")
+
+
+def device_actor_phase(card: str, host_actors: dict) -> dict:
+    """4e (see the module docstring). `host_actors` is the DDPG main path's
+    summary with a host actor process, for the comparison printed. Returns
+    the launch counts of each path by kernel and path."""
+    t_phase = time.monotonic()
+    rows = DEVACTOR_ENVS * 64
+    device = ["--actor_backend=device", "--num_actors=0",
+              f"--device_actor_envs={DEVACTOR_ENVS}", "--replay_min_size=1000",
+              "--eval_every=0", "--eval_episodes=2"]
+    out = {}
+    # K1 (a) with the device actors (the dispatch-per-phase loop: 'auto'
+    # keeps the kernel route and the rollout after each chunk).
+    s = {}
+    out["device_actors"] = drive_main_path(
+        device + [f"--total_env_steps={DEVACTOR_ROLLOUTS * rows}"], "fused_chunk", s)
+    if (s["transfer_ingest_items"] != 0 or s["chunks"] < 4 or s["fused_beat_active"]
+            or s["devactor_env_steps"] < DEVACTOR_ROLLOUTS * rows):
+        raise AssertionError(f"device actors on K1 (a): {s}")
+    log(f"[devactor] {card}: K1 (a) with {DEVACTOR_ENVS} device envs: {s['chunks']} chunks, "
+        f"{s['devactor_env_steps'] // rows} rollouts of {rows} rows, learner steps/s "
+        f"{s['learner_steps_per_sec']}, env steps/s {s['env_steps_per_sec']}, the card idle "
+        f"between chunks {s['gap_median_ms']} ms median (max {s['gap_max_ms']}; the rollout "
+        f"runs there), transfer_ingest_items {s['transfer_ingest_items']}; with one host "
+        f"actor process: learner steps/s {host_actors['learner_steps_per_sec']}, env steps/s "
+        f"{host_actors['env_steps_per_sec']}")
+    rollout = time_rollout(card)
+    err = check_rollout_against_cpu(card)
+    check_stale_params(card)
+    log(f"[phase] device actors done at {time.monotonic() - t_phase:.1f}s of the phase")
+
+    # The fused beat: on the card bit for bit the separate sequence, then
+    # its main path (scan route, K2) through the trainer.
+    check_beats(card, per=False)
+    check_beats(card, per=True)
+    fused = ["--fused_chunk=off", "--fused_update=true",
+             f"--total_env_steps={(FUSED_BEATS + 1) * rows}"]
+    f = {}
+    out["fused_beat"] = drive_main_path(device + fused, "scan", f)
+    if not f["fused_beat_active"] or f["fused_beats"] != f["chunks"]:
+        raise AssertionError(f"the fused beat's main path: {f}")
+    log(f"[fused beat] {card}: main path {f['fused_beats']} beats of K = "
+        f"{f['learner_steps'] // f['chunks']} learner steps and {rows} rows, learner steps/s "
+        f"{f['learner_steps_per_sec']}, env steps/s {f['env_steps_per_sec']}, K2 launches "
+        f"{out['fused_beat'].get('fused_update')}")
+    syncs = check_superstep(card)
+    sup = {}
+    out["superstep"] = drive_main_path(
+        device + ["--fused_chunk=off", "--fused_update=true", "--superstep_beats=4",
+                  f"--total_env_steps={5 * rows}"], "scan", sup)
+    if sup["fused_supersteps"] != 1 or sup["fused_beats"] != 4:
+        raise AssertionError(f"the superstep's main path: {sup}")
+    log(f"[superstep] {card}: main path 1 superstep of 4 beats, learner steps/s "
+        f"{sup['learner_steps_per_sec']}, env steps/s {sup['env_steps_per_sec']}, K2 launches "
+        f"{out['superstep'].get('fused_update')}, host syncs a superstep {syncs}")
+    log(f"[phase] fused beat and superstep done at {time.monotonic() - t_phase:.1f}s")
+
+    # The monolith with K2, then MountainCar on it.
+    od = ondevice_path(["--backend=jax_ondevice", "--fused_update=true",
+                        "--replay_min_size=1000", "--eval_every=0", "--eval_episodes=2",
+                        f"--total_env_steps={ONDEVICE_ENV_STEPS}"], "Pendulum")
+    out["jax_ondevice"] = od["launches"]
+    check_terminal_rows_on_card(card)
+    mc = ondevice_path(["--backend=jax_ondevice", "--fused_update=true",
+                        "--env_id=MountainCarContinuous-v0", "--replay_min_size=1000",
+                        "--eval_every=0", "--eval_episodes=1",
+                        f"--total_env_steps={ONDEVICE_MC_ENV_STEPS}"], "MountainCar")
+    log(f"[ondevice] {card}: Pendulum {od['env_steps']} env steps, {od['learner_steps']} "
+        f"learner steps: env steps/s {od['env_steps_per_sec']}, learner steps/s "
+        f"{od['learner_steps_per_sec']}, K2 launches {od['launches'].get('fused_update')}; "
+        f"MountainCar learner steps/s {mc['learner_steps_per_sec']}, final return "
+        f"{mc['final_return']}")
+
+    # The device actors resumed from a checkpoint: the episodes go on. Each
+    # env ends an episode every 200 of its steps (64 a rollout): 1024 by
+    # the first run's end, 3072 by the resumed one's if the carry came back.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_devactor_") as tmp:
+        ck = ["--checkpoint_dir=" + tmp, "--checkpoint_every=800"]
+        first, second = {}, {}
+        out["devactor_resume"] = drive_main_path(
+            device + ck + [f"--total_env_steps={DEVACTOR_ROLLOUTS * rows}"], "fused_chunk",
+            first)
+        drive_main_path(device + ck + [f"--total_env_steps={2 * DEVACTOR_ROLLOUTS * rows}"],
+                        "fused_chunk", second)
+    log(f"[devactor] {card}: resumed from learner step {second['resumed_from']}: episodes "
+        f"{first['devactor_episodes']} after the first run, {second['devactor_episodes']} "
+        "after the resumed one")
+    if second["resumed_from"] is None or second["devactor_episodes"] != 3 * DEVACTOR_ENVS:
+        raise AssertionError(f"the resumed device actors did not continue their episodes: "
+                             f"{second}")
+    secs = time.monotonic() - t_phase
+    log(f"[phase] 4e took {secs:.1f}s")
+    return dict(launches=out, rollout=rollout, rollout_err=err, seconds=secs,
+                superstep_syncs=syncs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this needs an "
@@ -3282,6 +3705,25 @@ def main() -> int:
     launches.update(fused_chunk=host["fused_chunk"], fused_chunk_d4pg=host["fused_chunk_d4pg"])
     update_launches = {"fused_update": host["fused_update_agent"]}
 
+    # --- 4e. device actors, the fused beat, the superstep, the monolith ---
+    devact = device_actor_phase(card, plain)
+    log(f"[phase] device actors, fused beat, superstep and monolith done at "
+        f"{time.monotonic() - t_start:.1f}s")
+    dl = devact["launches"]
+    # This slice's paths: K1 (a) on the device actors, K2 on the fused beat;
+    # every path's count beside them.
+    paths = {
+        "fused_chunk": {"device_actors": dl["device_actors"]["fused_chunk"],
+                        "devactor_resume": dl["devactor_resume"]["fused_chunk"],
+                        "host_replay": host["fused_chunk"]},
+        "fused_update": {"fused_beat": dl["fused_beat"]["fused_update"],
+                         "superstep": dl["superstep"]["fused_update"],
+                         "jax_ondevice": dl["jax_ondevice"]["fused_update"],
+                         "agent": host["fused_update_agent"]},
+    }
+    launches["fused_chunk"] = paths["fused_chunk"]["device_actors"]
+    update_launches = {"fused_update": paths["fused_update"]["fused_beat"]}
+
     # --- 5. timing at the main path's shapes ---
     timing = {
         "fused_chunk": time_branch(cfg, "fused_chunk", K, 1000, card, eager=True),
@@ -3316,6 +3758,7 @@ def main() -> int:
         "max_abs_err": errs[(name, 3, K)],
         **timing[name],
         "library_ms": None,
+        **({"launches_on_paths": paths[name]} if name in paths else {}),
     } for name in timing] + [{
         "name": "fused_update",
         "route": "cuda",
@@ -3324,6 +3767,7 @@ def main() -> int:
         "launches": update_launches["fused_update"],
         "max_abs_err": update_err["ddpg_critic"],
         **update_timing,
+        "launches_on_paths": paths["fused_update"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -23,7 +23,9 @@ pieces across processes.
   TD3's smoothing noise and SAC's normals are drawn on the state's device
   from the step's own key (ops/fused_chunk.td3_noise_eps, sac_noise_eps):
   the JAX agent draws them from jax.random, so the two agents agree on
-  them only when a test passes the same draw in.
+  them only when a test passes the same draw in: `train_step(eps=...)`
+  takes the step's noise ([B, act], or SAC's pair), `act(obs,
+  normal=...)` SAC's exploring normal ([act]).
 - `evaluate(env, episodes, seed)`: the deterministic policy's mean return.
 
 The state lives on config.device ("cuda" by default, which raises
@@ -94,16 +96,22 @@ class DDPGAgent:
 
     # --- acting ---
 
+    def _on_device(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.array(x, np.float32), device=self.device)
+
     def _obs(self, obs: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(obs, np.float32)[None], device=self.device)
 
-    def act(self, obs: np.ndarray, explore: bool = True) -> np.ndarray:
+    def act(self, obs: np.ndarray, explore: bool = True,
+            normal: Optional[np.ndarray] = None) -> np.ndarray:
         if explore and self._env_steps < self._warmup_uniform:
             return self._warmup_rng.uniform(self.spec.action_low,
                                             self.spec.action_high).astype(np.float32)
         if explore and self.config.sac:
-            action = self._sample_fn(self.state.actor_params, self._obs(obs),
-                                     self._act_gen)[0].cpu().numpy()
+            if normal is not None:
+                normal = self._on_device(np.reshape(normal, (1, -1)))
+            action = self._sample_fn(self.state.actor_params, self._obs(obs), self._act_gen,
+                                     normal)[0].cpu().numpy()
             return np.clip(action, self.spec.action_low, self.spec.action_high)
         action = self._act_fn(self.state.actor_params, self._obs(obs))[0].cpu().numpy()
         if explore:
@@ -137,7 +145,10 @@ class DDPGAgent:
                    self.spec.act_dim)
         return (eps[0][0], eps[1][0]) if self.config.sac else eps[0]
 
-    def train_step(self) -> Optional[Dict[str, float]]:
+    def train_step(self, eps=None) -> Optional[Dict[str, float]]:
+        """One learner step on one sampled batch (None before the replay
+        holds enough rows). `eps` replaces the step's own TD3 noise or SAC
+        normals (host arrays or tensors, _step_noise's shapes)."""
         if not self.can_train():
             return None
         if self.config.distributional and self.config.v_support_auto:
@@ -151,8 +162,11 @@ class DDPGAgent:
         batch = Batch(*(torch.as_tensor(np.asarray(sample[f], np.float32), device=self.device)
                         for f in Batch._fields))
         step = int(self.state.step)
-        out: StepOutput = self._step_fn(self.state, batch, self._step_noise(step),
-                                        step_index=step)
+        if eps is None:
+            eps = self._step_noise(step)
+        else:
+            eps = tuple(map(self._on_device, eps)) if self.config.sac else self._on_device(eps)
+        out: StepOutput = self._step_fn(self.state, batch, eps, step_index=step)
         self.state = out.state
         self._learn_steps += 1
         metrics = dict(zip(METRIC_KEYS, torch.stack(

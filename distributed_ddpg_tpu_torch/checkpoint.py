@@ -87,10 +87,14 @@ COMPAT_FIELDS = (
 KEEP_CHECKPOINTS = 3
 
 STATE_FILE, REPLAY_FILE, META_FILE = "state.npz", "replay.npz", "meta.json"
+# The device actors' rollout carry (actors/device_pool.carry_state_dict),
+# the JAX package's sidecar name: flat numpy leaves, inside the step
+# directory, so the manifest covers it.
+DEVACTOR_FILE = "devactor_carry.npz"
 
 
 def _snapshot(step: int, state: TrainState, replay, env_steps: int,
-              v_bounds=None) -> Dict[str, Any]:
+              v_bounds=None, devactor_state=None) -> Dict[str, Any]:
     """Everything on the host: the only part that reads device memory. Once
     it returns the learner may go on updating its state and the replay;
     the write can run on any thread. The replay's state_dict holds its
@@ -109,6 +113,8 @@ def _snapshot(step: int, state: TrainState, replay, env_steps: int,
         ckpt["meta"]["v_bounds"] = [float(v_bounds[0]), float(v_bounds[1])]
     if replay is not None:
         ckpt["replay"] = replay.state_dict()
+    if devactor_state:
+        ckpt["devactor"] = devactor_state
     return ckpt
 
 
@@ -292,6 +298,9 @@ def _write_once(directory: str, step: int, ckpt: Dict[str, Any], config,
     if "replay" in ckpt:
         with open(os.path.join(tmp, REPLAY_FILE), "wb") as f:
             np.savez(f, **ckpt["replay"])
+    if "devactor" in ckpt:
+        with open(os.path.join(tmp, DEVACTOR_FILE), "wb") as f:
+            np.savez(f, **ckpt["devactor"])
     with open(os.path.join(tmp, META_FILE), "w") as f:
         json.dump(ckpt["meta"], f)
     os.replace(tmp, path)
@@ -333,9 +342,13 @@ def _write(directory: str, step: int, ckpt: Dict[str, Any], config,
 
 def save(directory: str, step: int, state: TrainState, replay=None, config=None,
          env_steps: int = 0, v_bounds=None, keep: int = KEEP_CHECKPOINTS,
-         retries: int = 0, backoff_s: float = 0.5, fault=None) -> str:
-    """Write checkpoint directory/step_<step> now; returns its path."""
-    path, _ = _write(directory, step, _snapshot(step, state, replay, env_steps, v_bounds),
+         retries: int = 0, backoff_s: float = 0.5, fault=None,
+         devactor_state=None) -> str:
+    """Write checkpoint directory/step_<step> now; returns its path.
+    `devactor_state` (actors/device_pool.carry_state_dict) rides as the
+    devactor_carry.npz sidecar inside the step directory."""
+    path, _ = _write(directory, step,
+                     _snapshot(step, state, replay, env_steps, v_bounds, devactor_state),
                      config, keep=keep, retries=retries, backoff_s=backoff_s, fault=fault)
     return path
 
@@ -363,14 +376,15 @@ class AsyncSaver:
     def save_async(self, directory: str, step: int, state: TrainState, replay=None,
                    config=None, env_steps: int = 0, v_bounds=None,
                    keep: int = KEEP_CHECKPOINTS, retries: int = 0, backoff_s: float = 0.5,
-                   fault=None) -> bool:
+                   fault=None, devactor_state=None) -> bool:
         """Snapshot now, write in the background. False (and skipped) while
-        the previous write is in flight."""
+        the previous write is in flight. `devactor_state` is a host
+        snapshot already (carry_state_dict)."""
         with self._lock:
             if self.busy:
                 self.skipped += 1
                 return False
-            ckpt = _snapshot(step, state, replay, env_steps, v_bounds)
+            ckpt = _snapshot(step, state, replay, env_steps, v_bounds, devactor_state)
 
             def run():
                 try:
@@ -460,7 +474,9 @@ def restore(directory: str, state_template: TrainState, replay=None,
     filled in place. The state comes back on the template's device, with
     the template's paths and shapes (else a ValueError). With `config` the
     checkpoint's config is checked first. `meta_out` receives, for an
-    auto support, "v_bounds" (lo, hi).
+    auto support, "v_bounds" (lo, hi), and where the checkpoint carries the
+    device actors' sidecar, "devactor_carry" (its leaves as host arrays:
+    the pool that takes them is built after the restore).
 
     With step=None the retained checkpoints are tried newest first: one
     that fails verification is quarantined, one that fails to load is
@@ -516,4 +532,11 @@ def restore(directory: str, state_template: TrainState, replay=None,
         meta = json.load(f)
     if meta_out is not None and "v_bounds" in meta:
         meta_out["v_bounds"] = (float(meta["v_bounds"][0]), float(meta["v_bounds"][1]))
+    carry = os.path.join(path, DEVACTOR_FILE)
+    if meta_out is not None and os.path.exists(carry):
+        try:
+            meta_out["devactor_carry"] = _load_npz(carry)
+        except (OSError, ValueError) as e:
+            print(f"[checkpoint] {DEVACTOR_FILE} unreadable ({e!r}); the rollout state "
+                  "starts fresh", file=sys.stderr, flush=True)
     return state, step, int(meta.get("env_steps", 0))

@@ -19,7 +19,17 @@ ValueError naming the option (ROADMAP.md lists the order they arrive in)
 `backend` is the JAX package's switch: "jax_tpu" (the default) is the
 port's trainer on the card, "native" the numpy CPU learner
 (native_backend.py, train.train_native), asked for by name and never a
-fallback; "jax_ondevice" raises (not in this slice).
+fallback, and "jax_ondevice" the on-device monolith (ondevice.py,
+train.train_ondevice: E vectorized envs, the replay ring and the learner
+in one loop on the card, E = num_actors).
+
+`actor_backend='device'` runs the rollouts on the card
+(actors/device_pool.py: device_actor_envs vectorized envs, K =
+device_actor_chunk steps a dispatch, the rows scattered straight into the
+device replay); `fused_beat` and `superstep_beats` fuse the loop's
+learn, rollout and scatter into one beat (parallel/megastep.py) and B
+beats into one dispatch (parallel/superstep.py). All of them run on one
+rank (ROADMAP.md Queue 1 item 10).
 
 `device` is the port's own field: "cuda" (default) runs the learner on the
 card and raises if none is present; "cpu" runs the plain PyTorch versions
@@ -36,10 +46,19 @@ from typing import Sequence
 # Options outside this slice: field -> the value that means "off".
 _NOT_IN_SLICE = {
     "serve_actors": False,
-    "actor_backend": "host",
     "model_axis": 1,
     "replay_sharding": "replicated",
 }
+
+
+def resolve_device_actor_chunk(config: "DDPGConfig") -> int:
+    """K, the env steps a device-actor rollout dispatch takes:
+    config.device_actor_chunk when set, else 64 on the card and 8 on the
+    CPU (the JAX package's rule, 64 where its kernels run natively, with
+    the card in the TPU's place, as resolve_learner_chunk does)."""
+    if config.device_actor_chunk > 0:
+        return config.device_actor_chunk
+    return 64 if config.device == "cuda" else 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,10 +138,33 @@ class DDPGConfig:
     # non-blocking; each is fenced on an event after the insert.
     transfer_host_pool: bool = True
 
+    # --- device actors (actors/device_pool.py) ---
+    # "host": num_actors worker processes step CPU envs and ship their rows
+    # through the ingest pipeline. "device": device_actor_envs vectorized
+    # envs (envs/vector_envs.py) step on the card with the policy and OU
+    # noise, device_actor_chunk steps a dispatch, and the rows scatter
+    # straight into the device replay (no staging, no transfer item); the
+    # host pool can run beside them (num_actors > 0; 0 = device only).
+    actor_backend: str = "host"
+    device_actor_envs: int = 1024
+    # K env steps a rollout dispatch; 0 = auto: 64 on the card, 8 on the
+    # CPU (resolve_device_actor_chunk).
+    device_actor_chunk: int = 0
+    # The fused beat (parallel/megastep.py): the loop's learn (the scan
+    # route's sampling chunk), rollout (with the updated actor params) and
+    # scatter as one beat, enqueued on one stream with no host read
+    # between them. "auto": whenever the device actors feed the device
+    # replay, the chunk kernel's route is inactive and both ratio gates
+    # are 0; "on": required; "off": the dispatch-per-phase loop.
+    fused_beat: str = "auto"
+    # B beats a dispatch (parallel/superstep.py), their stats stacked on
+    # the device and read once; needs the fused beat.
+    superstep_beats: int = 1
+
     # --- topology ---
     # "jax_tpu": the port's trainer (the JAX package's name for its
     # default); "native": the numpy learner on the CPU; "jax_ondevice":
-    # not in this slice.
+    # the on-device monolith (ondevice.py), num_actors vectorized envs.
     backend: str = "jax_tpu"
     num_actors: int = 1
     # Actor->learner transport: "shm" = a C++ SPSC ring in shared memory a
@@ -284,7 +326,6 @@ class DDPGConfig:
 
     # --- options outside this slice (see _NOT_IN_SLICE) ---
     serve_actors: bool = False
-    actor_backend: str = "host"
     model_axis: int = 1
     replay_sharding: str = "replicated"
 
@@ -373,11 +414,11 @@ class DDPGConfig:
                 "backend must be 'native', 'jax_tpu', or 'jax_ondevice', "
                 f"got {self.backend!r}"
             )
-        if self.backend == "jax_ondevice":
+        if self.backend == "jax_ondevice" and self.data_axis not in (-1, 1):
             raise ValueError(
-                "backend='jax_ondevice' is not implemented in the PyTorch port "
-                "yet (only 'jax_tpu' and 'native'); ROADMAP.md lists what is "
-                "left to port (Queue 1 item 9)"
+                f"backend='jax_ondevice' with data_axis={self.data_axis} is not in this "
+                "slice of the PyTorch port: the monolith over a data-parallel group "
+                "comes with ROADMAP.md Queue 1 item 10; run it on one rank"
             )
         # The JAX package's TD3 gates and messages (its config.py), checked
         # before the slice's own so a TD3 misconfiguration reads the same.
@@ -410,6 +451,12 @@ class DDPGConfig:
                 "the sizing bound r/(1-gamma^n) blows up at gamma=1, and 51 "
                 "atoms over a near-infinite range cannot resolve real "
                 "returns — pass concrete bounds for undiscounted setups"
+            )
+        if v_min_auto and self.backend == "jax_ondevice":
+            raise ValueError(
+                "v_min/v_max='auto' sizes the support from host-visible "
+                "warmup replay rewards; the fused on-device backend has no "
+                "such window — pass concrete bounds"
             )
         if not v_min_auto and self.distributional and self.v_min >= self.v_max:
             raise ValueError(
@@ -469,6 +516,161 @@ class DDPGConfig:
                     "replay_sharding='sharded' shards the DEVICE replay; "
                     "host_replay has no device ring to shard — disable one"
                 )
+        # The JAX package's strict_sync checks and messages (its config.py).
+        if self.strict_sync:
+            if self.backend != "jax_tpu":
+                raise ValueError(
+                    "strict_sync is a train_jax (jax_tpu backend) debug "
+                    "mode; the native backend is already single-threaded "
+                    "and deterministic, and the fused on-device backend "
+                    "has no host actor loop to make lockstep"
+                )
+            if self.max_learn_ratio <= 0 or self.max_ingest_ratio <= 0:
+                raise ValueError(
+                    "strict_sync derives its deterministic ingest schedule "
+                    "from the ratio gates; set max_learn_ratio and "
+                    "max_ingest_ratio (1.0 each = the reference's "
+                    "synchronous 1:1 schedule)"
+                )
+            if self.host_replay:
+                raise ValueError(
+                    "strict_sync requires the device replay path: the host "
+                    "prefetch thread samples concurrently with ingest, "
+                    "which is exactly the nondeterminism this mode removes"
+                )
+        # The JAX package's device-actor, fused-beat and superstep checks
+        # and messages (its config.py), before the slice's own refusals.
+        if self.actor_backend not in ("host", "device"):
+            raise ValueError(
+                f"actor_backend must be 'host' or 'device', got "
+                f"{self.actor_backend!r}"
+            )
+        if self.device_actor_envs < 1:
+            raise ValueError("device_actor_envs must be >= 1")
+        if self.device_actor_chunk < 0:
+            raise ValueError("device_actor_chunk must be >= 0 (0 = auto)")
+        if self.num_actors < 0 or (
+            self.num_actors == 0 and self.actor_backend != "device"
+        ):
+            raise ValueError(
+                "num_actors must be >= 1 (0 is allowed only with "
+                "actor_backend='device', where the on-device rollout loop "
+                "is the experience source and the host pool runs empty)"
+            )
+        if self.actor_backend == "device":
+            if self.backend != "jax_tpu":
+                raise ValueError(
+                    "actor_backend='device' runs the vectorized rollout "
+                    "loop inside the jax_tpu trainer; the native backend "
+                    "has no device, and jax_ondevice already fuses its "
+                    "envs into the learner monolith — use backend='jax_tpu'"
+                )
+            # Lazy: the env table imports torch, which parsing the default
+            # (host) config does not need.
+            from distributed_ddpg_tpu_torch.envs.vector_envs import (
+                _VECTOR_ENVS,
+                has_vector_env,
+            )
+
+            if not has_vector_env(self.env_id):
+                raise ValueError(
+                    f"actor_backend='device' needs an on-device (JAX) "
+                    f"implementation of {self.env_id!r}; available: "
+                    f"{sorted(set(_VECTOR_ENVS))} — keep actor_backend='host' "
+                    "for Gym/Mujoco envs (docs/DEVICE_ACTORS.md)"
+                )
+            if self.serve_actors:
+                raise ValueError(
+                    "serve_actors batches host workers' act() requests; "
+                    "device actors never call act() on the host — mu(s) "
+                    "runs inside the rollout program. Disable serve_actors "
+                    "(or serve a host pool alongside via actor_backend="
+                    "'host')"
+                )
+            if self.n_step != 1:
+                raise ValueError(
+                    "actor_backend='device' stores 1-step transitions "
+                    "(the n-step window is a host-side accumulator, "
+                    "replay/nstep.py); use the host pool for n_step > 1"
+                )
+            if self.host_replay:
+                raise ValueError(
+                    "actor_backend='device' scatters rollout rows "
+                    "directly into DeviceReplay's HBM ring; host_replay "
+                    "has no device ring to insert into — disable one"
+                )
+            if self.strict_sync:
+                raise ValueError(
+                    "strict_sync's lockstep schedule is defined over the "
+                    "host pool's deterministic drain budget; device-actor "
+                    "chunks dispatch outside it — use actor_backend='host' "
+                    "for lockstep debugging"
+                )
+            rows = self.device_actor_envs * resolve_device_actor_chunk(self)
+            if rows > self.replay_capacity:
+                raise ValueError(
+                    f"one device-actor chunk produces {rows} rows "
+                    f"(device_actor_envs={self.device_actor_envs} x "
+                    f"chunk {resolve_device_actor_chunk(self)}) — more "
+                    f"than replay_capacity={self.replay_capacity}: the "
+                    "scatter insert would write duplicate ring positions "
+                    "in unspecified order. Shrink the chunk/env count or "
+                    "grow the replay"
+                )
+            if self.data_axis not in (-1, 1):
+                raise ValueError(
+                    f"actor_backend='device' with data_axis={self.data_axis} is not in "
+                    "this slice of the PyTorch port: the rollout over a data-parallel "
+                    "group comes with ROADMAP.md Queue 1 item 10; run the device actors "
+                    "on one rank"
+                )
+        if self.fused_beat not in ("auto", "on", "off"):
+            raise ValueError(
+                f"fused_beat must be 'auto', 'on', or 'off', got "
+                f"{self.fused_beat!r}"
+            )
+        if self.fused_beat == "on":
+            if self.backend != "jax_tpu":
+                raise ValueError(
+                    "fused_beat='on' fuses the jax_tpu training loop; the "
+                    "native backend has no device programs and "
+                    "jax_ondevice is already a fused monolith (ondevice.py)"
+                )
+            if self.actor_backend != "device":
+                raise ValueError(
+                    "fused_beat='on' needs the on-device rollout leg "
+                    "(actor_backend='device'): host actor processes step "
+                    "envs outside XLA and cannot be compiled into the "
+                    "beat — use the dispatch-per-phase loop for host "
+                    "actors"
+                )
+            if self.fused_chunk == "on":
+                raise ValueError(
+                    "fused_beat='on' composes the XLA scan sampling chunk "
+                    "(the Pallas megakernel has no rollout/probe slot "
+                    "inside a larger traced program) — incompatible with "
+                    "fused_chunk='on'; use 'auto' or 'off'"
+                )
+            if self.max_ingest_ratio > 0.0 or self.max_learn_ratio > 0.0:
+                raise ValueError(
+                    "fused_beat='on' fixes the rollout:learn ratio inside "
+                    "one program (device_actor_envs x chunk rows per "
+                    "learner_chunk steps, every beat); the "
+                    "max_ingest_ratio/max_learn_ratio gates need "
+                    "independently dispatchable phases to throttle — "
+                    "disable the gates or use fused_beat='auto'/'off'"
+                )
+        if self.superstep_beats < 1:
+            raise ValueError(
+                f"superstep_beats must be >= 1, got {self.superstep_beats}"
+            )
+        if self.superstep_beats > 1 and self.fused_beat == "off":
+            raise ValueError(
+                "superstep_beats > 1 composes B FUSED beats into one "
+                "lax.fori_loop program (parallel/superstep.py) — it has "
+                "no unfused dispatch to wrap; use fused_beat='auto'/'on' "
+                "or superstep_beats=1"
+            )
         for name, off in _NOT_IN_SLICE.items():
             if getattr(self, name) != off:
                 raise ValueError(
@@ -537,8 +739,6 @@ class DDPGConfig:
             raise ValueError("n_step must be >= 1")
         if self.batch_size < 1:
             raise ValueError("batch_size must be >= 1")
-        if self.num_actors < 1:
-            raise ValueError("num_actors must be >= 1")
         if self.learner_chunk < 0:
             raise ValueError("learner_chunk must be >= 0 (0 = auto)")
         if self.max_learn_ratio < 0:
@@ -561,28 +761,6 @@ class DDPGConfig:
             raise ValueError("train_every must be >= 1")
         if self.prefetch_depth < 1:
             raise ValueError("prefetch_depth must be >= 1")
-        # The JAX package's strict_sync checks and messages (its config.py).
-        if self.strict_sync:
-            if self.backend != "jax_tpu":
-                raise ValueError(
-                    "strict_sync is a train_jax (jax_tpu backend) debug "
-                    "mode; the native backend is already single-threaded "
-                    "and deterministic, and the fused on-device backend "
-                    "has no host actor loop to make lockstep"
-                )
-            if self.max_learn_ratio <= 0 or self.max_ingest_ratio <= 0:
-                raise ValueError(
-                    "strict_sync derives its deterministic ingest schedule "
-                    "from the ratio gates; set max_learn_ratio and "
-                    "max_ingest_ratio (1.0 each = the reference's "
-                    "synchronous 1:1 schedule)"
-                )
-            if self.host_replay:
-                raise ValueError(
-                    "strict_sync requires the device replay path: the host "
-                    "prefetch thread samples concurrently with ingest, "
-                    "which is exactly the nondeterminism this mode removes"
-                )
         if self.host_replay and self.data_axis not in (-1, 1):
             raise ValueError(
                 f"host_replay=True with data_axis={self.data_axis} is not in this "
@@ -602,6 +780,12 @@ class DDPGConfig:
         if self.quarantine_probe_s < 0:
             raise ValueError("quarantine_probe_s must be >= 0 (0 = off)")
         if self.guardrails:
+            if self.backend != "jax_tpu":
+                raise ValueError(
+                    "guardrails instrument the sharded-learner chunk "
+                    "programs (jax_tpu backend); the native/ondevice "
+                    "backends have no probe slot"
+                )
             if self.fused_chunk == "on":
                 raise ValueError(
                     "guardrails=True forces the XLA scan path (the Pallas "

@@ -70,7 +70,7 @@ tree, the layout of a checkpoint's state.npz (checkpoint.py).
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, NamedTuple, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -404,19 +404,22 @@ def make_act_fn(config: DDPGConfig, action_scale, action_offset=0.0):
 
 def make_sample_fn(config: DDPGConfig, action_scale, action_offset=0.0):
     """SAC's stochastic policy for exploration (the JAX package's
-    make_sample_fn): sample(actor_params, obs, generator) -> a ~ pi(.|s),
-    the reparameterized tanh-Gaussian sample (ops/losses.sac_sample) from
-    standard normals drawn with `generator`, an explicit torch.Generator
-    on the params' device (JAX passes a key)."""
+    make_sample_fn): sample(actor_params, obs, generator, normal=None) -> a ~
+    pi(.|s), the reparameterized tanh-Gaussian sample (ops/losses.sac_sample)
+    from standard normals drawn with `generator`, an explicit torch.Generator
+    on the params' device (JAX passes a key), or from `normal` ([B, act])
+    when given (a test passes the reference's draw in)."""
 
     @torch.no_grad()
-    def sample(actor_params, obs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    def sample(actor_params, obs: torch.Tensor, generator: torch.Generator,
+               normal: Optional[torch.Tensor] = None) -> torch.Tensor:
         scale = _as_tensor(action_scale, obs.device)
         offset = _as_tensor(action_offset, obs.device)
         mean, log_std = actor_gaussian_apply(actor_params, obs, config.sac_log_std_min,
                                              config.sac_log_std_max)
-        normal = torch.randn(mean.shape, generator=generator, device=mean.device,
-                             dtype=mean.dtype)
+        if normal is None:
+            normal = torch.randn(mean.shape, generator=generator, device=mean.device,
+                                 dtype=mean.dtype)
         action, _ = losses.sac_sample(mean, log_std, normal, scale, offset)
         return action
 

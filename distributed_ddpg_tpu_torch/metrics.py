@@ -1,8 +1,9 @@
-"""Counters of the ingest pipeline, the transfer scheduler and the guardrails.
+"""Counters of the ingest pipeline, the transfer scheduler, the guardrails,
+the device actors and the fused beat.
 
 A trimmed copy of distributed_ddpg_tpu/metrics.py: IngestStats and
-TransferStats (with the reservoir they keep their tails in) and
-GuardrailStats, under the JAX package's snapshot keys letter for letter,
+TransferStats (with the reservoir they keep their tails in),
+GuardrailStats, DevActorStats and FusedBeatStats, under the JAX package's snapshot keys letter for letter,
 so a record of either trainer reads the same. The port's JSONL log is
 train.JsonlLog.
 """
@@ -269,3 +270,139 @@ class GuardrailStats:
             "guardrail_lr_cooldowns": self.lr_cooldowns,
             "guardrail_source_quarantines": self.source_quarantines,
         }
+
+
+# Durations a reservoir keeps (the JAX package's PhaseTimers.RESERVOIR_K).
+RESERVOIR_K = 256
+
+
+class DevActorStats:
+    """The device actors' counters (actors/device_pool.py): the
+    `devactor_*` fields of every train and final record when
+    actor_backend='device'. Throughput and the dispatch tails are the
+    interval's (each snapshot starts a new one); the env steps, episodes
+    and restarts are cumulative:
+
+      devactor_rows_per_s   rows landed in the ring over the interval
+      devactor_chunks       rollout dispatches in the interval
+      devactor_chunk_ms     mean host time a rollout dispatch (its enqueue
+                            and the insert's; the device work runs behind
+                            it on the stream)
+      devactor_chunk_p50/p95/max
+                            reservoir tails of the same
+      devactor_env_steps    env steps the pool produced
+      devactor_episodes     finished episodes
+      devactor_episode_return
+                            mean return of the episodes finished in the
+                            interval
+      devactor_restarts     bounded-restart recoveries
+    """
+
+    def __init__(self, seed: int = 0):
+        self._lock = threading.Lock()
+        self._seed = seed
+        self._reset_locked()
+
+    def _reset_locked(self) -> None:
+        self._t0 = time.monotonic()
+        self._rows = 0
+        self._chunks = 0
+        self._dur_s = 0.0
+        self._res = _Reservoir(RESERVOIR_K,
+                               (zlib.crc32(b"devactor_chunk") ^ self._seed) & 0x7FFFFFFF)
+
+    def record_chunk(self, rows: int, dur_s: float) -> None:
+        with self._lock:
+            self._rows += int(rows)
+            self._chunks += 1
+            self._dur_s += dur_s
+            self._res.add(dur_s)
+
+    def snapshot(self, reset: bool = True) -> Dict[str, float]:
+        with self._lock:
+            dt = max(time.monotonic() - self._t0, 1e-9)
+            n = self._chunks
+            out = {
+                "devactor_rows_per_s": round(self._rows / dt, 1),
+                "devactor_chunks": n,
+                "devactor_chunk_ms": round(1000.0 * self._dur_s / n, 3) if n else 0.0,
+                "devactor_chunk_p50": round(1000.0 * self._res.percentile(0.50), 3),
+                "devactor_chunk_p95": round(1000.0 * self._res.percentile(0.95), 3),
+                "devactor_chunk_max": round(1000.0 * self._res.max, 3),
+            }
+            if reset:
+                self._reset_locked()
+        return out
+
+
+class FusedBeatStats:
+    """The fused beat's counters (parallel/megastep.py, superstep.py): the
+    `fused_*` fields of every train and final record when the beat is
+    active, all the interval's:
+
+      fused_beats           beats in the interval
+      fused_steps_per_s     learner steps over the interval
+      fused_rows_per_s      rollout rows landed over the interval
+      fused_beat_ms         mean host time a dispatch (a beat, or a
+                            superstep of B beats)
+      fused_beat_p50/p95/max
+                            reservoir tails of the same
+      fused_supersteps      dispatches in the interval (fused_beats / B)
+      fused_superstep_beats beats a dispatch (B; 1.0 for the plain beat)
+    """
+
+    def __init__(self, seed: int = 0):
+        self._lock = threading.Lock()
+        self._seed = seed
+        self._total_beats = 0
+        self._total_supersteps = 0
+        self._reset_locked()
+
+    def _reset_locked(self) -> None:
+        self._t0 = time.monotonic()
+        self._beats = 0
+        self._supersteps = 0
+        self._steps = 0
+        self._rows = 0
+        self._dur_s = 0.0
+        self._res = _Reservoir(RESERVOIR_K,
+                               (zlib.crc32(b"fused_beat") ^ self._seed) & 0x7FFFFFFF)
+
+    def record_beat(self, learn_steps: int, rows: int, dur_s: float, beats: int = 1) -> None:
+        """One call a dispatch: a B-beat superstep records its B beats."""
+        with self._lock:
+            self._beats += int(beats)
+            self._supersteps += 1
+            self._total_beats += int(beats)
+            self._total_supersteps += 1
+            self._steps += int(learn_steps)
+            self._rows += int(rows)
+            self._dur_s += dur_s
+            self._res.add(dur_s)
+
+    def snapshot(self, reset: bool = True) -> Dict[str, float]:
+        with self._lock:
+            dt = max(time.monotonic() - self._t0, 1e-9)
+            n = self._beats
+            out = {
+                "fused_beats": n,
+                "fused_steps_per_s": round(self._steps / dt, 1),
+                "fused_rows_per_s": round(self._rows / dt, 1),
+                "fused_beat_ms": round(1000.0 * self._dur_s / n, 3) if n else 0.0,
+                "fused_beat_p50": round(1000.0 * self._res.percentile(0.50), 3),
+                "fused_beat_p95": round(1000.0 * self._res.percentile(0.95), 3),
+                "fused_beat_max": round(1000.0 * self._res.max, 3),
+                "fused_supersteps": self._supersteps,
+                "fused_superstep_beats": (round(n / self._supersteps, 2)
+                                          if self._supersteps else 0.0),
+            }
+            if reset:
+                self._reset_locked()
+        return out
+
+    def totals(self) -> Dict[str, float]:
+        """The whole run's beats and dispatches (the summary's fields)."""
+        with self._lock:
+            n, d = self._total_beats, self._total_supersteps
+            return {"fused_beats": n, "fused_supersteps": d,
+                    "fused_superstep_beats": round(n / d, 2) if d else 0.0}

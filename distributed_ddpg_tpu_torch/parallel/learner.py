@@ -58,6 +58,14 @@ word (poll_health) and the bad indices (bad_indices) after the chunk has
 ended. reset_guard, reseed and set_lr_scale serve the trainer's
 rollback-repair (train.py). Guardrails run on one rank only.
 
+The fused beat (parallel/megastep.py, superstep.py) composes the scan
+route's sampling chunk (`scan_sample_fn`: uniform or PER, guarded or not,
+whatever route the learner's own chunks take) with the device actors'
+rollout; a superstep hands its stacked per-beat health ([B, 5], and the
+bad indices [B, 32]) back through `note_fused_health`, and poll_health
+then reports the last row and the first beat whose anomaly count moved
+(`first_bad_beat`).
+
 On D > 1 ranks the global batch is batch_size * D (scale_batch_with_data,
 else batch_size), b_local = global / D rows a rank, and a chunk runs one
 of two ways (the JAX learner's rules as they are):
@@ -347,6 +355,9 @@ class ShardedLearner:
             # indices), all on the device until the host polls them.
             self._guard = guard_lib.init_guard_state(device=self.device)
             self._health_cur = None
+            self._health_prev_anom = 0   # nonfinite + spikes at the last poll
+        self._local_config = local
+        self._action = (action_scale, action_offset)
 
     def load_state(self, state: TrainState) -> None:
         """Take a restored state (checkpoint.restore) as the learner's own:
@@ -436,10 +447,16 @@ class ShardedLearner:
             td = self._gathered(td)
         self.state = new_state
         self._step += self.chunk_size
+        self.mark_dispatched()
+        return StepOutput(state=new_state, td_errors=td, metrics=metrics)
+
+    def mark_dispatched(self) -> None:
+        """Record the end of the work queued so far on the learner's stream,
+        the event chunk_done() polls (a chunk's, or a fused beat's after
+        its rollout and scatter)."""
         if self.device.type == "cuda":
             self._done = torch.cuda.Event()
             self._done.record()
-        return StepOutput(state=new_state, td_errors=td, metrics=metrics)
 
     def set_value_bounds(self, v_min: float, v_max: float) -> None:
         """Move the C51 support to [v_min, v_max] from the next chunk on.
@@ -462,20 +479,68 @@ class ShardedLearner:
         """The probe's cumulative counters after the last guarded chunk
         (HEALTH_KEYS), the one read of the health word a chunk; None before
         the first guarded chunk, after reset_guard, or with guardrails off.
-        Call it once chunk_done() is true: the read waits for the chunk."""
+        Call it once chunk_done() is true: the read waits for the chunk.
+        After a superstep (note_fused_health with a [B, 5] stack) the same
+        one read: the last row's counters, plus `first_bad_beat`, the first
+        beat whose anomalies (nonfinite + spikes) moved past the previous
+        poll's, -1 when none did (JAX :1103-1150)."""
         if not self.guard_enabled or self._health_cur is None:
             return None
-        return dict(zip(guard_lib.HEALTH_KEYS,
-                        (int(v) for v in self._health_cur[0].cpu().tolist())))
+        vec = self._health_cur[0]
+        vec = np.asarray(vec.cpu() if isinstance(vec, torch.Tensor) else vec, np.int64)
+        keys = guard_lib.HEALTH_KEYS
+        if vec.ndim == 1:
+            h = dict(zip(keys, (int(v) for v in vec)))
+        else:
+            anom = vec[:, keys.index("nonfinite")] + vec[:, keys.index("spikes")]
+            fresh = np.flatnonzero(anom > self._health_prev_anom)
+            h = dict(zip(keys, (int(v) for v in vec[-1])))
+            h["first_bad_beat"] = int(fresh[0]) if fresh.size else -1
+        self._health_prev_anom = h["nonfinite"] + h["spikes"]
+        return h
 
     def bad_indices(self) -> np.ndarray:
         """Replay indices of the non-finite rows the last guarded chunk
-        drew (the first guardrails.GUARD_BAD_IDX, the -1 padding dropped).
-        Read only when the health word shows new bad rows."""
+        drew (the first guardrails.GUARD_BAD_IDX, the -1 padding dropped;
+        a superstep's [B, 32] captures flattened). Read only when the
+        health word shows new bad rows."""
         if not self.guard_enabled or self._health_cur is None:
             return np.empty(0, np.int64)
-        arr = self._health_cur[1].cpu().numpy().astype(np.int64)
+        arr = self._health_cur[1].cpu().numpy().astype(np.int64).reshape(-1)
         return arr[arr >= 0]
+
+    # --- the fused beat's composition hooks (parallel/megastep.py) ---
+
+    def scan_sample_fn(self, per: bool):
+        """The scan route's sampling chunk as a callable (JAX
+        pure_scan_sample_fn): uniform `fn(replay, idx=None)`, PER
+        `fn(replay, beta, idx=None, weights=None)` (the draw replaced as in
+        run_sample_chunk(_per)),
+        guarded or not as the learner is, each run_sample_chunk(_per) on
+        the scan route whatever route the learner's own chunks take (the
+        scan's step is built here if the kernel route had no use for it).
+        The fused beat composes it with the rollout and the scatter."""
+        if self.data_size > 1:
+            raise ValueError("the fused beat runs on one rank (ROADMAP.md Queue 1 item 10)")
+        if self._scan is None:
+            self._scan = make_scan_chunk_fn(
+                self._local_config, self.obs_dim, self.act_dim, *self._action,
+                chunk_size=self.chunk_size, guard=self.guard_enabled)
+            if self.config.distributional and not self.config.v_support_auto:
+                self._scan.set_value_bounds(self.config.v_min, self.config.v_max)
+        if per:
+            return lambda replay, beta, idx=None, weights=None: self.run_sample_chunk_per(
+                replay, beta, idx=idx, weights=weights, kernel=False)
+        return lambda replay, idx=None: self.run_sample_chunk(replay, idx=idx, kernel=False)
+
+    def note_fused_health(self, guard, health, bad_idx) -> None:
+        """Install the probe state and the health word(s) a fused dispatch
+        left, so poll_health and bad_indices read them as a guarded
+        chunk's: a beat's [5] word and [32] captures, or a superstep's
+        stacked [B, 5] and [B, 32] (the health may already be on the host:
+        the superstep reads its stack once)."""
+        self._guard = guard
+        self._health_cur = (health, bad_idx)
 
     def reset_guard(self) -> None:
         """Re-arm the probe after a rollback: the EWMA statistics reset (the
@@ -527,14 +592,16 @@ class ShardedLearner:
         return self._done is None or self._done.query()
 
     def run_sample_chunk(self, device_replay, idx: Optional[torch.Tensor] = None,
-                         eps=None) -> StepOutput:
+                         eps=None, kernel: Optional[bool] = None) -> StepOutput:
         """K learner steps on minibatches drawn uniformly from the device
         replay: K*B indices drawn on the device, the rows gathered with
         one index, (TD3) the chunk's smoothing noise or (SAC) its normals
         drawn on the device, then one kernel launch (or the scan route's K
         steps). `idx` ([K, B] ints) and `eps` (the noise) replace the
         draws: on the mesh launch this rank's own [K, b_local], on the
-        scan route the global [K, B * D] every rank draws.
+        scan route the global [K, B * D] every rank draws. `kernel=False`
+        takes the scan route whatever the learner's own route (the fused
+        beat's leg, scan_sample_fn).
 
         The draw reads the replay's host `size` and the gather is issued
         under its dispatch_lock, so an insert (on whatever thread ships)
@@ -562,13 +629,14 @@ class ShardedLearner:
             return self._run(packed, eps, kernel=True)
         if eps is None:
             eps = self._noise(self.global_batch)
-        return self._run(packed, self._cols(eps), kernel=self.fused_chunk_active,
+        return self._run(packed, self._cols(eps),
+                         kernel=self.fused_chunk_active if kernel is None else kernel,
                          screen=self._screen(packed, idx))
 
     def run_sample_chunk_per(self, device_replay, beta: float,
                              idx: Optional[torch.Tensor] = None,
                              weights: Optional[torch.Tensor] = None,
-                             eps=None) -> StepOutput:
+                             eps=None, kernel: Optional[bool] = None) -> StepOutput:
         """K learner steps on minibatches drawn from a DevicePrioritizedReplay
         in proportion to its priorities (the JAX learner's
         run_sample_chunk_per): one [K, B * D] uniform from the learner's
@@ -582,7 +650,8 @@ class ShardedLearner:
         rank. Priorities and max_priority are updated in place, on the
         device and in stream order, with no host read: an insert issued
         after this call returns stamps the new max. `idx` and `weights`
-        ([K, B * D], given together) replace the draw, `eps` the noise.
+        ([K, B * D], given together) replace the draw, `eps` the noise,
+        and `kernel=False` takes the scan route (scan_sample_fn).
         The whole sequence is issued under the replay's dispatch_lock, as
         the JAX learner dispatches it: no insert or stamp falls between
         the draw and the priority write, so a stamp never loses to the
@@ -604,7 +673,8 @@ class ShardedLearner:
             # stamps its rows at (0 + eps)^alpha below.
             screen = self._screen(packed, idx)
             packed[..., -1] = self._cols(weights).to(self.device, torch.float32)
-            out = self._run(packed, self._cols(eps), kernel=self.fused_per_active,
+            out = self._run(packed, self._cols(eps),
+                            kernel=self.fused_per_active if kernel is None else kernel,
                             screen=screen)
             new_p = (out.td_errors.abs() + device_replay.eps) ** device_replay.alpha
             scatter_last_wins(priorities, idx.reshape(-1), new_p.reshape(-1))

@@ -45,7 +45,18 @@ Ingest pipeline (the JAX package's, port of its `_IngestShipper`,
 
 `ptr` and `size` are host integers: the host drives every insert, so it
 knows them without reading the device. The JAX package's multi-host
-sync_ship, sharded placement and device-actor inserts are later work.
+sync_ship and sharded placement are later work.
+
+Device rows (the device actors, actors/device_pool.py, and the fused beat,
+parallel/megastep.py): `insert_device_rows` lands an [M, D] block that is
+already on the device as one wraparound scatter at (ptr + arange(M)) mod
+capacity, on the learner's stream, under dispatch_lock: no staging ring,
+no transfer-scheduler item, no IngestStats traffic (a device-actor-only
+run ships nothing). The PER subclass stamps the landed run with the max
+priority from the pre-insert pointer. `note_device_rows(m)` then advances
+the host ptr/size and, under track_sources, stamps the landed positions
+untracked (-1), so the source map stays aligned when host actors feed the
+same ring.
 
 Source attribution (`track_sources`, the guardrails' bad-row quarantine;
 JAX :354-369, :560-605): add_packed tags its rows with an ingest source
@@ -561,6 +572,46 @@ class DeviceReplay:
         self.ptr = (self.ptr + m) % self.capacity
         self.size = min(self.size + m, self.capacity)
 
+    # --- device rows (the device actors, the fused beat) ---
+
+    def _device_positions(self, m: int) -> torch.Tensor:
+        """(ptr + arange(m)) mod capacity on the storage's device."""
+        return torch.remainder(
+            torch.arange(m, dtype=torch.int64, device=self.device) + self.ptr, self.capacity)
+
+    def insert_device_rows(self, rows: torch.Tensor) -> int:
+        """Land an [M, D] block already on the device (JAX
+        insert_device_rows): one scatter at (ptr + arange(M)) mod capacity,
+        the PER stamp, then note_device_rows, all under dispatch_lock and
+        on the learner's stream; no host read. M <= capacity (the config
+        checks a rollout's rows against it), so no position is written
+        twice. Returns M."""
+        m = int(rows.shape[0])
+        if m == 0:
+            return 0
+        if m > self.capacity:
+            raise ValueError(f"insert_device_rows: {m} rows exceed the capacity "
+                             f"{self.capacity}; positions would be written twice")
+        with self.dispatch_lock:
+            with self._on_stream():
+                idx = self._device_positions(m)
+                self.storage.index_copy_(0, idx, rows)
+                self._stamp_device_rows(idx)
+            self.note_device_rows(m)
+        return m
+
+    def _stamp_device_rows(self, idx: torch.Tensor) -> None:
+        """The PER subclass stamps the landed positions; uniform: nothing."""
+
+    def note_device_rows(self, m: int) -> None:
+        """Advance the host ptr/size past m device rows landed at ptr, and
+        stamp their positions untracked (-1) in the source map (JAX
+        note_device_rows). The caller holds dispatch_lock."""
+        if self._source_map is not None:
+            self._source_map[(self.ptr + np.arange(m)) % self.capacity] = -1
+        self.ptr = (self.ptr + m) % self.capacity
+        self.size = min(self.size + m, self.capacity)
+
     def reward_sample(self, max_n: int = 100_000):
         """(reward, discount) columns of up to max_n filled rows, pulled to
         the host, then the staged rows not yet shipped (up to max_n more):
@@ -653,6 +704,11 @@ class DevicePrioritizedReplay(DeviceReplay):
             self.priorities[old_ptr:old_ptr + first].fill_(self.max_priority)
             if m > first:
                 self.priorities[:m - first].fill_(self.max_priority)
+
+    def _stamp_device_rows(self, idx: torch.Tensor) -> None:
+        """Device rows take the max priority, as every insert's rows do (JAX
+        pure_stamp_fn from the pre-insert pointer); no host read."""
+        self.priorities.index_put_((idx,), self.max_priority.expand(idx.shape[0]))
 
     def per_state(self):
         """(storage, size, priorities, max_priority) for the learner's draw."""

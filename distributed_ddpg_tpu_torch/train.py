@@ -167,9 +167,32 @@ takes the whole ratio budget, and the wall-clock floors on the param
 refresh and the train records are ignored, so two runs of one config
 write the same records but for their wall-clock fields.
 
+Device actors (--actor_backend=device, one rank; JAX :1011-1090,
+:1802-1836): after the resume, a DeviceActorPool (actors/device_pool.py)
+bound to the learner's live actor params rolls out device_actor_envs
+vectorized envs on the card, its rows scattered straight into the device
+replay; the warmup fills the ring with its rollouts (and the host pool's
+rows, num_actors of them, 0 = none), and one rollout follows every chunk,
+queued right behind it (guarded, after the monitor). Its carry rides in
+checkpoints (devactor_carry.npz) and comes back on resume and rollback;
+the devactor_* fields are in every train and final record and the
+summary. Where the fused beat is active (parallel/megastep.py
+fused_beat_active: 'auto' with the scan route and both ratio gates 0, or
+'on') each dispatch is a beat, the chunk, the rollout and the scatter, or
+with superstep_beats=B a superstep of B beats with its stats read once
+(PER's betas per beat, per_beat_betas); chunks and learner steps advance
+by B, the 50-chunk cadences are crossings, the guardrails' window is two
+dispatches wide and their message names a superstep's first bad beat.
+The fused_* fields are in the records; the summary has fused_beat_active
+and the whole run's fused_beats, fused_supersteps and
+fused_superstep_beats.
+
 --backend=native runs train_native instead: the numpy learner
 (native_backend.py) on the CPU, one env and one step a train_every env
 steps, the JAX trainer's baseline loop, asked for by name.
+--backend=jax_ondevice runs train_ondevice: the on-device monolith
+(ondevice.py), num_actors vectorized envs, the ring and the learner on
+the card.
 
 Usage:
     python -m distributed_ddpg_tpu_torch.train --total_env_steps=100000
@@ -189,6 +212,10 @@ Usage:
     python -m distributed_ddpg_tpu_torch.train --strict_sync=true --max_learn_ratio=1 \
         --max_ingest_ratio=1                                       # lockstep
     python -m distributed_ddpg_tpu_torch.train --backend=native    # numpy on the CPU
+    python -m distributed_ddpg_tpu_torch.train --actor_backend=device --num_actors=0
+    python -m distributed_ddpg_tpu_torch.train --actor_backend=device --num_actors=0 \
+        --fused_chunk=off --fused_update=true --superstep_beats=4  # fused beats
+    python -m distributed_ddpg_tpu_torch.train --backend=jax_ondevice  # the monolith
 """
 
 from __future__ import annotations
@@ -302,15 +329,17 @@ def expand_support(learner, controller, out, learn_steps: int, data_bounds,
     return dict(v_min=v_min, v_max=v_max, mean_q=mean_q)
 
 
-def resume(config: DDPGConfig, learner, replay,
-           group=None) -> Optional[Tuple[int, int, Optional[Tuple[float, float]]]]:
+def resume(config: DDPGConfig, learner, replay, group=None,
+           meta_out: Optional[Dict[str, Any]] = None
+           ) -> Optional[Tuple[int, int, Optional[Tuple[float, float]]]]:
     """Restore the newest checkpoint under config.checkpoint_dir that
     verifies into `learner` (load_state) and `replay` (in place). Rank 0
     walks the checkpoints (checkpoint.restore's newest-first fallback) and
     shares the step it restored; every other rank restores exactly that
     step. Returns (step, env_steps, v_bounds or None), or None when the
     directory holds no checkpoint. A rank 0 that fails tells the others,
-    which raise too."""
+    which raise too. `meta_out` receives checkpoint.restore's meta (the
+    device actors' sidecar, "devactor_carry")."""
     from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
     from distributed_ddpg_tpu_torch.parallel import mesh
 
@@ -334,6 +363,8 @@ def resume(config: DDPGConfig, learner, replay,
             config.checkpoint_dir, learner.state, replay, step=step, config=config,
             meta_out=meta)
     learner.load_state(state)
+    if meta_out is not None:
+        meta_out.update(meta)
     return step, env_steps, meta.get("v_bounds")
 
 
@@ -345,6 +376,8 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     return, the others' None. backend='native' runs train_native."""
     if config.backend == "native":
         return train_native(config, echo)
+    if config.backend == "jax_ondevice":
+        return train_ondevice(config, echo, group)
     # torch loads here, not at import: spawned actor workers re-import the
     # main module (this one, under `python -m`) and must stay torch-free.
     from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
@@ -353,7 +386,9 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     from distributed_ddpg_tpu_torch.native import NativeSumTree
     from distributed_ddpg_tpu_torch.parallel import mesh
     from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, resolve_learner_chunk
+    from distributed_ddpg_tpu_torch.parallel.megastep import FusedMegastep, fused_beat_active
     from distributed_ddpg_tpu_torch.parallel.prefetch import ChunkPrefetcher
+    from distributed_ddpg_tpu_torch.parallel.superstep import FusedSuperstep, per_beat_betas
     from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay, DeviceReplay
     from distributed_ddpg_tpu_torch.transfer import TransferScheduler
 
@@ -373,6 +408,12 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             f"host_replay=True on {learner.data_size} ranks is not in this slice of the "
             "PyTorch port: a host replay a rank under the lockstep driver comes with "
             "ROADMAP.md Queue 1 item 10; run the host replay on one rank")
+    device_actors = config.actor_backend == "device"
+    if device_actors and learner.data_size > 1:
+        raise ValueError(
+            f"actor_backend='device' on {learner.data_size} ranks is not in this slice of "
+            "the PyTorch port: the rollout over a data-parallel group comes with "
+            "ROADMAP.md Queue 1 item 10; run the device actors on one rank")
     # After every check that can refuse the run, so a refusal leaks no
     # dispatch thread; closed after the replay (teardown below). Off under
     # strict_sync: its dispatch timing would make the records depend on
@@ -446,6 +487,9 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     emergency_ckpt = 0
     preempt = threading.Event()       # set by SIGTERM; rank 0's is shared
     stopping = False                  # rank 0's flag, as every rank saw it
+    device_pool = None                # actor_backend='device' (actors/device_pool.py)
+    megastep = None                   # the fused beat or superstep (parallel/megastep.py)
+    resume_meta: Dict[str, Any] = {}
 
     def support_fields() -> Dict[str, Any]:
         if not config.distributional:
@@ -506,14 +550,32 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     def recovery_fields() -> Dict[str, Any]:
         return pool.recovery_counters() if pool is not None else {}
 
+    def devactor_fields() -> Dict[str, Any]:
+        """The devactor_* fields (metrics.DevActorStats) with the device actors."""
+        return device_pool.snapshot() if device_pool is not None else {}
+
+    def fused_fields() -> Dict[str, Any]:
+        """The fused_* fields (metrics.FusedBeatStats) while the beat runs."""
+        return megastep.snapshot() if megastep is not None else {}
+
+    def devactor_state():
+        """The device actors' carry for a checkpoint's sidecar (or None)."""
+        return device_pool.carry_state_dict() if device_pool is not None else None
+
     pool = None
 
+    def local_env_steps() -> int:
+        """Env steps of this rank's sources: the host pool's, the device
+        actors', and the resumed checkpoint's."""
+        return (env_offset + pool.steps_received
+                + (device_pool.steps_done if device_pool is not None else 0))
+
     def env_steps() -> int:
-        """The global env-step count, as rank 0's pool has it (with the
+        """The global env-step count, as rank 0's sources have it (with the
         resumed checkpoint's), shared; rank 0's SIGTERM flag rides the
         same share and latches `stopping` on every rank at once."""
         nonlocal stopping
-        n, flag = mesh.share([env_offset + pool.steps_received, float(preempt.is_set())]
+        n, flag = mesh.share([local_env_steps(), float(preempt.is_set())]
                              if lead else [0, 0.0], group)
         stopping = stopping or bool(flag)
         return int(n)
@@ -525,7 +587,21 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         if config.max_ingest_ratio <= 0.0:
             return None
         allowed = min_fill + config.max_ingest_ratio * learn_steps
-        return int(allowed) - (env_offset + pool.steps_received)
+        return int(allowed) - local_env_steps()
+
+    def devactor_step() -> int:
+        """One device-actor rollout into the ring (JAX :1802-1836), under
+        the same ingest-ratio gate as the host drain: while any allowance
+        remains it admits one whole rollout (an all-or-nothing gate would
+        wedge a warmup whose rollout is larger than the fill)."""
+        if device_pool is None:
+            return 0
+        if config.max_ingest_ratio > 0.0 and local_env_steps() >= (
+                min_fill + config.max_ingest_ratio * learn_steps):
+            return 0
+        rows = device_pool.run_chunk(replay)
+        env_timer.tick(rows)
+        return rows
 
     def poison(packed: np.ndarray, source: Optional[int] = None) -> np.ndarray:
         """numeric:replay:inf@K: the K-th ingested row (1-based, counted on
@@ -609,7 +685,8 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             ckpt_lib.save(config.checkpoint_dir, learn_steps, learner.state, replay, config,
                           env_steps=n_env, v_bounds=auto_bounds(),
                           keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
-                          backoff_s=config.ckpt_retry_backoff_s)
+                          backoff_s=config.ckpt_retry_backoff_s,
+                          devactor_state=devactor_state())
         print(f"[train] emergency checkpoint at learner step {learn_steps} (env step "
               f"{n_env}): resumable", file=sys.stderr, flush=True)
         return 1
@@ -699,6 +776,10 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             lr_backoff_since = learn_steps
         ckpt_lib.discard_above(config.checkpoint_dir, step)
         pool.broadcast(learner.actor_params_to_host())
+        if device_pool is not None and "devactor_carry" in meta:
+            # The rollout state rolls back with the learner: its episodes
+            # go on from the restored point.
+            device_pool.load_carry_state(meta["devactor_carry"])
         next_refresh = learn_steps + config.param_refresh_every
         last_refresh_t = time.perf_counter()
         print(f"[guardrail] ROLLBACK #{gstats.rollbacks}: restored manifest-valid step {step} "
@@ -722,13 +803,19 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         if delta["bad_rows"] > 0:
             quarantine_sources()
         if delta["anomalies"] > 0:
+            # A superstep's stacked health names its first bad beat (JAX
+            # :1632-1648); a chunk's word has no such key.
+            first_bad = int(h.get("first_bad_beat", -1))
             print(f"[guardrail] {delta['anomalies']} anomalous learner step(s) in the chunk "
                   f"ending at {learn_steps} (nonfinite {delta['nonfinite']}, z-spikes "
-                  f"{delta['spikes']}, bad replay rows {delta['bad_rows']}) — update(s) "
-                  "dropped on device", file=sys.stderr, flush=True)
+                  f"{delta['spikes']}, bad replay rows {delta['bad_rows']})"
+                  + (f", first bad beat {first_bad} of the superstep" if first_bad >= 0
+                     else "")
+                  + " — update(s) dropped on device", file=sys.stderr, flush=True)
             guard_window.append((learn_steps, delta["anomalies"]))
-        # Never narrower than two health reads: one read lands a chunk.
-        lo = learn_steps - max(config.guardrail_rollback_window, 2 * chunk)
+        # Never narrower than two health reads: one read lands a chunk (a
+        # superstep's B chunks).
+        lo = learn_steps - max(config.guardrail_rollback_window, 2 * chunk * beats)
         guard_window[:] = [(s, n) for s, n in guard_window if s > lo]
         handled = False
         if (config.guardrail_rollback_k > 0
@@ -755,7 +842,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     ingest_calls = 0
     try:
         if config.resume and config.checkpoint_dir:
-            restored = resume(config, learner, replay, group)
+            restored = resume(config, learner, replay, group, meta_out=resume_meta)
             if restored is not None:
                 learn_steps, env_offset, bounds = restored
                 resumed_from, n_env = learn_steps, env_offset
@@ -769,11 +856,28 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             pool = (SyncActorPool if strict else ActorPool)(config, spec,
                                                             env_steps_offset=env_offset)
             pool.start(learner.actor_params_to_host())
+        if device_actors:
+            # After the resume, so the uniform warmup nets out the restored
+            # env steps (JAX :1011-1041). The pool reads the learner's live
+            # params at each dispatch.
+            from distributed_ddpg_tpu_torch.actors.device_pool import DeviceActorPool
+
+            device_pool = DeviceActorPool(config, device=device, warmup_offset=env_offset)
+            device_pool.bind(lambda: learner.state.actor_params)
+            if "devactor_carry" in resume_meta:
+                device_pool.load_carry_state(resume_meta["devactor_carry"])
+        if fused_beat_active(config, learner, device_pool is not None):
+            # The fused beat (JAX :1043-1090): learn, roll out and scatter
+            # in one dispatch; B of them a dispatch under superstep_beats.
+            megastep = (FusedSuperstep(config, learner, device_pool, replay)
+                        if config.superstep_beats > 1
+                        else FusedMegastep(config, learner, device_pool, replay))
+        beats = megastep.beats if megastep is not None else 1
 
         # --- warmup: fill replay to the learning threshold ---
         last_monitor_t = time.monotonic()
         while len(replay) < min_fill:
-            moved = ingest()
+            moved = ingest() + devactor_step()
             if not host_replay and len(replay) + replay.pending_rows >= min_fill:
                 replay.flush()
             monitor()
@@ -812,7 +916,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             ):
                 # Learner-rate cap: ingest instead of dispatching until env
                 # steps catch up with the allowance.
-                if not ingest():
+                if not ingest() + devactor_step():
                     time.sleep(0.002)
                 continue
             if host_replay:
@@ -820,15 +924,37 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                 device_chunk, indices = prefetch.next()
                 sample_wait_s += time.perf_counter() - t_wait
                 out = learner.run_chunk_async(device_chunk)
+            elif megastep is not None:
+                # The fused beat: this chunk, the rollout with its updated
+                # params and their scatter in one dispatch (B beats a
+                # dispatch for a superstep, its PER betas the sequential
+                # loop's, one host read at its end).
+                if beats > 1:
+                    betas = (per_beat_betas(config, n_env, beats, device_pool.rows_per_chunk)
+                             if config.prioritized else None)
+                    out = megastep.run_superstep(betas)
+                    beta = float(betas[-1]) if config.prioritized else beta
+                else:
+                    frac = min(1.0, n_env / config.total_env_steps)
+                    beta = config.per_beta + frac * (config.per_beta_final - config.per_beta)
+                    out = megastep.run_beat(beta if config.prioritized else None)
+                env_timer.tick(device_pool.rows_per_chunk * beats)
             elif config.prioritized:
                 frac = min(1.0, n_env / config.total_env_steps)
                 beta = config.per_beta + frac * (config.per_beta_final - config.per_beta)
                 out = learner.run_sample_chunk_per(replay, beta)
             else:
                 out = learner.run_sample_chunk(replay)
-            chunks += 1
-            learn_steps += chunk
-            learn_timer.tick(chunk)
+            prev_chunks = chunks
+            chunks += beats
+            learn_steps += chunk * beats
+            learn_timer.tick(chunk * beats)
+            if megastep is None and not guard_on:
+                # The rollout with the chunk's updated params, queued right
+                # behind the chunk on the learner's stream (the card works
+                # it off while the driver ingests); guarded, after the
+                # monitor, as the JAX trainer orders them.
+                devactor_step()
             # Ingest while the chunk runs. Without this wait the loop would
             # queue chunks far ahead of the card, then block on all of them
             # at its next device read while the actors' bounded queue sits
@@ -859,6 +985,8 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                 if numeric_failed:
                     break
                 continue
+            if guard_on and megastep is None and devactor_step():
+                n_env = env_steps()
             if host_replay and config.prioritized:
                 # Host PER (JAX :2152-2160): the chunk's td into the sum
                 # tree, then beta, under the lock the prefetcher draws under.
@@ -880,7 +1008,9 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                 next_refresh = learn_steps + config.param_refresh_every
                 last_refresh_t = time.perf_counter()
 
-            if config.distributional and config.v_support_auto and chunks % 50 == 0:
+            # The 50-chunk cadence as a crossing (a superstep moves B chunks).
+            on_fifty = prev_chunks // 50 != chunks // 50
+            if config.distributional and config.v_support_auto and on_fifty:
                 # Running expansion: mean_q near an edge of the support, and
                 # the replay's current rewards corroborate a wider one.
                 grown = expand_support(learner, support_controller, out, learn_steps,
@@ -889,7 +1019,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                     log.log("support", n_env, reason="expanded", mean_q=grown["mean_q"],
                             **support_fields())
 
-            on_cadence = chunks == 1 or chunks % 50 == 0
+            on_cadence = prev_chunks == 0 or on_fifty
             if lead and on_cadence and (strict or now - last_log_t >= 1.0):
                 last_log_t = now
                 episodes = pool.episode_stats()
@@ -908,6 +1038,8 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                     **per_fields(),
                     **ingest_fields(),
                     **guardrail_fields(),
+                    **devactor_fields(),
+                    **fused_fields(),
                 )
             if lead and config.eval_every and n_env - last_eval >= config.eval_every:
                 last_eval = n_env
@@ -920,7 +1052,8 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                         config.checkpoint_dir, learn_steps, learner.state, replay, config,
                         env_steps=n_env, v_bounds=auto_bounds(),
                         keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
-                        backoff_s=config.ckpt_retry_backoff_s)
+                        backoff_s=config.ckpt_retry_backoff_s,
+                        devactor_state=devactor_state())
                 last_ckpt = learn_steps
         # The rates end with the loop: the teardown below (the actors'
         # exit, an emergency checkpoint) is not the run's pace.
@@ -979,6 +1112,8 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             *(() if host_replay else replay.transfer_snapshot())}
     ingest_summary = {k: v for k, v in ingest_record.items()
                       if not k.startswith("transfer_") or k in kept}
+    devactor_final = devactor_fields()
+    fused_final = fused_fields()
     log.log(
         "final", n_env,
         learner_steps=learn_steps,
@@ -987,6 +1122,8 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         final_return=final_return,
         chunks=chunks,
         compute_dtype=config.compute_dtype,
+        **devactor_final,
+        **fused_final,
         **metrics,
         **support_fields(),
         **per_fields(),
@@ -1007,6 +1144,11 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         "chunk_size": chunk,
         "compute_dtype": config.compute_dtype,
         "fused_chunk_active": learner.fused_chunk_active,
+        # The fused beat carried the loop (JAX :2702); its whole run's
+        # beats and dispatches, and the device actors' counters.
+        "fused_beat_active": megastep is not None,
+        **(megastep.totals() if megastep is not None else {}),
+        **devactor_final,
         **ingest_summary,
         **host_fields(),
         "env_steps": n_env,
@@ -1101,6 +1243,109 @@ def train_native(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
         "learner_steps_per_sec": rate,
         "learner_steps": learn_steps,
         "final_return": final_return,
+    }
+
+
+def train_ondevice(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
+    """--backend=jax_ondevice (JAX train.py:210-330): the on-device monolith
+    (ondevice.OnDeviceDDPG), num_actors vectorized envs, the ring and the
+    learner on the card, 64 iterations a chunk (superstep_beats chunks a
+    dispatch, their stats read once). A checkpoint holds the state, the
+    ring's rows (the monolith's DeviceReplay) and the env steps;
+    a run resumes from the newest one that verifies. Evals run the numpy
+    policy every eval_every env steps (0 = the final eval only); a `train`
+    record is written whenever the env steps cross a multiple of ten
+    chunks' worth (a crossing, so a superstep that jumps over one still
+    logs). One rank (ROADMAP.md Queue 1 item 10)."""
+    from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
+    from distributed_ddpg_tpu_torch.envs.registry import EnvSpec
+    from distributed_ddpg_tpu_torch.ondevice import OnDeviceDDPG
+
+    if group is not None and group.world_size > 1:
+        raise ValueError(
+            f"backend='jax_ondevice' on {group.world_size} ranks is not in this slice of "
+            "the PyTorch port: the monolith over a data-parallel group comes with "
+            "ROADMAP.md Queue 1 item 10; run it on one rank")
+    trainer = OnDeviceDDPG(config)
+    log = JsonlLog(config.log_path, echo=echo)
+
+    env_offset = last_ckpt = 0
+    resumed_from = None
+    if (config.resume and config.checkpoint_dir
+            and ckpt_lib.latest_step(config.checkpoint_dir) is not None):
+        state, step, env_offset = ckpt_lib.restore(config.checkpoint_dir, trainer.state,
+                                                   trainer.replay, config=config)
+        trainer.load_train_state(state)
+        trainer._learn_steps = last_ckpt = resumed_from = step
+        print(f"resumed from {config.checkpoint_dir} at learner step {step}, env step "
+              f"{env_offset}", flush=True)
+    env = trainer.env
+    spec = EnvSpec(env.obs_dim, env.act_dim, np.asarray(env.action_low, np.float32),
+                   np.asarray(env.action_high, np.float32))
+    eval_policy = NumpyPolicy(
+        param_layout(spec.obs_dim, actor_head_dim(spec.act_dim, config.sac),
+                     tuple(config.actor_hidden)),
+        spec.action_scale, spec.action_offset, gaussian=config.sac)
+    env_timer, learn_timer = Timer(), Timer()
+
+    def env_steps() -> int:
+        return env_offset + trainer.env_steps
+
+    beats = max(1, trainer.superstep_beats)
+    rows_per_dispatch = trainer.chunk_size * trainer.num_envs * beats
+    log_stride = trainer.chunk_size * trainer.num_envs * 10
+    episodes_acc, return_acc = 0, []
+    last_eval = dispatches = 0
+    metrics: Dict[str, float] = {}     # the last dispatch's learner metrics
+    while env_steps() < config.total_env_steps:
+        before = trainer.learn_steps
+        stats = trainer.run_superstep() if beats > 1 else trainer.run_chunk()
+        host = trainer.finalize_stats(stats)
+        dispatches += 1
+        env_timer.tick(rows_per_dispatch)
+        learn_timer.tick(trainer.learn_steps - before)
+        episodes_acc += host.pop("episodes", 0)
+        if "episode_return" in host:
+            return_acc.append(host.pop("episode_return"))
+        metrics = host
+        if config.eval_every and env_steps() - last_eval >= config.eval_every:
+            t0 = time.monotonic()
+            eval_policy.load_flat(trainer.actor_params_to_host())
+            last_eval = env_steps()
+            log.log("eval", last_eval, eval_return=_eval_numpy(eval_policy, config, spec))
+            learn_timer.exclude(time.monotonic() - t0)
+            env_timer.exclude(time.monotonic() - t0)
+        if trainer.env_steps // log_stride != (trainer.env_steps - rows_per_dispatch) // log_stride:
+            log.log("train", env_steps(), learner_steps=trainer.learn_steps,
+                    env_steps_per_sec=env_timer.rate(),
+                    learner_steps_per_sec=learn_timer.rate(), episodes=episodes_acc,
+                    episode_return=float(np.mean(return_acc)) if return_acc else None,
+                    **host)
+            episodes_acc, return_acc = 0, []
+        if config.checkpoint_dir and trainer.learn_steps - last_ckpt >= config.checkpoint_every:
+            ckpt_lib.save(config.checkpoint_dir, trainer.learn_steps, trainer.state,
+                          trainer.replay, config, env_steps=env_steps(),
+                          keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
+                          backoff_s=config.ckpt_retry_backoff_s)
+            last_ckpt = trainer.learn_steps
+    rate, env_rate = learn_timer.rate(), env_timer.rate()
+    eval_policy.load_flat(trainer.actor_params_to_host())
+    final_return = _eval_numpy(eval_policy, config, spec)
+    log.log("final", env_steps(), learner_steps=trainer.learn_steps,
+            env_steps_per_sec=env_rate, learner_steps_per_sec=rate, final_return=final_return,
+            dispatches=dispatches, superstep_beats=beats)
+    log.close()
+    return {
+        "env_steps_per_sec": env_rate,
+        "learner_steps_per_sec": rate,
+        "learner_steps": trainer.learn_steps,
+        "env_steps": env_steps(),
+        "dispatches": dispatches,
+        "chunk_size": trainer.chunk_size,
+        "num_envs": trainer.num_envs,
+        "final_return": final_return,
+        "resumed_from": resumed_from,
+        **metrics,
     }
 
 

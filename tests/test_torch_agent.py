@@ -16,8 +16,10 @@ package's, on the CPU at a small size.
   atoms, the auto support, 3-step returns) with PER, and for DDPG with
   fused_update=True (K2's plain version here; the JAX kernel in
   interpret mode).
-- TD3 and SAC agents run (their noise is the port's own draw; the JAX
-  agent draws from jax.random): finite metrics, actions in the box.
+- TD3 (policy_delay 2, smoothing noise) and SAC agents against the JAX
+  agent the same way, the JAX agent's draws (the step's noise or normals,
+  SAC's exploring normal) passed into the port's, at the same tolerances,
+  actor_opt.count and SAC's temperature included.
 - make_sample_fn against the JAX Gaussian head with the same normals:
   rtol 1e-5, atol 1e-6.
 - NativeLearner (native_backend.py) against the JAX package's on
@@ -27,7 +29,8 @@ package's, on the CPU at a small size.
   on td, rtol 1e-4 / atol 1e-5 on the params).
 - The backend switch: `--backend=native` through the CLI in a child
   process, its refusals with the JAX package's messages, and
-  backend='jax_ondevice' refused naming the option.
+  backend='jax_ondevice' refused naming the option where it is outside the
+  slice (on more than one rank).
 """
 
 import jax
@@ -42,6 +45,7 @@ from distributed_ddpg_tpu.envs import make as jax_make
 from distributed_ddpg_tpu.learner import init_train_state as jax_init
 from distributed_ddpg_tpu.models.mlp import actor_gaussian_apply as jax_gaussian
 from distributed_ddpg_tpu.native_backend import NativeLearner as JaxNative
+from distributed_ddpg_tpu.ops import fused_chunk as jax_fc
 from distributed_ddpg_tpu_torch import DDPGAgent
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.envs import spec_of
@@ -147,22 +151,66 @@ def test_agent_matches_jax_agent(case):
     dict(sac=True, actor_lr=3e-4, critic_lr=3e-4, tau=0.005),
 ])
 def test_td3_and_sac_agents_train(over):
-    cfg = DDPGConfig(device="cpu", **dict(COMMON, **over))
-    env = jax_make(cfg.env_id, seed=0, prefer_builtin=True)
+    """The TD3 (policy_delay 2, smoothing noise) and SAC agents against the
+    JAX agent from one converted state, as test_agent_matches_jax_agent
+    runs DDPG, with the JAX agent's own draws passed into the port's: TD3's
+    smoothing noise and SAC's critic and actor normals of each learner
+    step (the JAX ops/fused_chunk.td3_noise_eps / sac_noise_eps at K = 1,
+    the learner step's exact stream) and SAC's exploring normal of each
+    act (the JAX agent's split of its act key). Actions, metrics and the
+    state (actor_opt.count under the delay, SAC's temperature and its Adam
+    state) at that test's tolerances."""
+    over = dict(COMMON, **over)
+    cfg, jcfg = DDPGConfig(device="cpu", **over), JaxConfig(**over)
+    env = jax_make(jcfg.env_id, seed=0, prefer_builtin=True)
     spec = spec_of(env)
+    jagent = JaxAgent(jcfg, spec)
     agent = DDPGAgent(cfg, spec)
+    agent.state = train_state_from_numpy(jax.tree.map(np.asarray, jagent.state))
+    B, act = cfg.batch_size, spec.act_dim
     obs, _ = env.reset(seed=0)
-    metrics = None
-    for _ in range(120):
-        action = agent.act(obs)
-        assert np.all(action >= spec.action_low) and np.all(action <= spec.action_high)
-        next_obs, reward, terminated, truncated, _ = env.step(action)
-        agent.observe(obs, action, reward, terminated, next_obs)
-        metrics = agent.train_step() or metrics
+    trained = 0
+    for t in range(cfg.total_env_steps):
+        normal = None
+        if cfg.sac and jagent._env_steps >= jagent._warmup_uniform:
+            # The JAX agent's act: split its key, sample normal(k, [1, act]).
+            _, k = jax.random.split(jagent._act_key)
+            normal = np.asarray(jax.random.normal(k, (1, act)))[0]
+        a_j = np.asarray(jagent.act(obs))
+        a_p = agent.act(obs, normal=normal)
+        _close(f"action at env step {t}", a_p, a_j)
+        next_obs, reward, terminated, truncated, _ = env.step(a_j)
+        for ag in (jagent, agent):
+            ag.observe(obs, a_j, reward, terminated, next_obs)
+        eps = None
+        if jagent.can_train():
+            step = int(jagent.state.step)
+            if cfg.sac:
+                eps = tuple(np.asarray(e)[0] for e in jax_fc.sac_noise_eps(jcfg, step, 1, B, act))
+            else:
+                eps = np.asarray(jax_fc.td3_noise_eps(jcfg, step, 1, B, act))[0]
+        m_j, m_p = jagent.train_step(), agent.train_step(eps=eps)
+        assert (m_j is None) == (m_p is None)
+        if m_p is not None:
+            trained += 1
+            for k in m_j:
+                _close(f"{k} at env step {t}", m_p[k], m_j[k], METRIC_RTOL)
         obs = next_obs
-    assert set(METRIC_KEYS) <= set(metrics)
-    assert all(np.isfinite(v) for v in metrics.values())
-    assert int(agent.state.step) == 120 - COMMON["replay_min_size"] + 1
+        if terminated or truncated:
+            obs, _ = env.reset()
+            jagent.reset_episode()
+            agent.reset_episode()
+    assert trained == cfg.total_env_steps - cfg.replay_min_size + 1
+    _assert_state(agent.state, jagent.state)
+    ours, theirs = train_state_to_numpy(agent.state), jax.tree.map(np.asarray, jagent.state)
+    if cfg.twin_critic:
+        # The delay: the actor stepped on every second critic step.
+        assert int(ours.actor_opt.count) == (trained + 1) // 2 == int(theirs.actor_opt.count)
+    if cfg.sac:
+        _close("log_alpha", ours.log_alpha, theirs.log_alpha)
+        _close("alpha_opt.mu", ours.alpha_opt.mu, theirs.alpha_opt.mu)
+        _close("alpha_opt.nu", ours.alpha_opt.nu, theirs.alpha_opt.nu)
+        assert int(ours.alpha_opt.count) == int(theirs.alpha_opt.count) == trained
 
 
 def test_make_sample_fn_matches_the_jax_gaussian_head():
@@ -274,8 +322,10 @@ def test_backend_refusals_match_jax(over, match):
 
 
 def test_jax_ondevice_is_refused_naming_the_option():
-    with pytest.raises(ValueError, match="backend='jax_ondevice' is not implemented"):
-        DDPGConfig(backend="jax_ondevice")
+    # The monolith (ondevice.py) runs on one rank; more are refused by name.
+    assert DDPGConfig(backend="jax_ondevice").backend == "jax_ondevice"
+    with pytest.raises(ValueError, match="backend='jax_ondevice' with data_axis=2 is not in"):
+        DDPGConfig(backend="jax_ondevice", data_axis=2)
 
 
 def test_native_backend_cli_run(tmp_path):

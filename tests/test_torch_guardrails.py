@@ -188,6 +188,47 @@ def test_guarded_step_matches_jax(case):
         assert int(g.spikes) == 1
 
 
+def test_zscore_lockout_at_a_data_shift_matches_jax():
+    """The z-score detector at JAX's default zmax 8 over a data shift, as
+    the main path meets one at a chunk boundary: 160 steps drawn from a
+    fixed pool of 48 rows (the EWMA's variance shrinks as the critic fits
+    them), then 40 from a pool of fresh rows whose critic loss jumps far
+    above the band. Every step after the shift is a spike, and since a
+    spike never updates the EWMA, the band stays where it was: the lock-out
+    behind the guarded main path's skips, whose count depends on how many
+    new rows the actors land between chunks (PERF.md section 7). The
+    port's skip flags equal JAX's step for step, on the same batches from
+    the same state; its EWMA within rtol 1e-4."""
+    jcfg, cfg = _cfgs()
+    jguarded = jax.jit(jax_guard.make_guarded_step(jax_make_step(jcfg, 1.0), 8.0, 64))
+    guarded = guardrails.make_guarded_step(make_learner_step(cfg, 1.0), 8.0, 64)
+    jstate = jax_init(jcfg, OBS, ACT, seed=0)
+    jg = jax_guard.init_guard_state()
+    state = train_state_from_numpy(jax.tree.map(np.asarray, jstate))
+    g = guardrails.guard_state_from_numpy(jax.tree.map(np.asarray, jg))
+    rng = np.random.default_rng(5)
+    old = _batch(np.random.default_rng(6)), _batch(np.random.default_rng(7)), \
+        _batch(np.random.default_rng(8))
+    jskips, skips = [], []
+    for i in range(200):
+        if i < 160:
+            pool = old[i % 3]
+            idx = rng.permutation(B)
+            fields = {k: v[idx] for k, v in pool.items()}
+        else:
+            fields = _batch(rng, reward_scale=4.0)
+        before, jbefore = int(g.spikes), int(jg.spikes)
+        jstate, jg, _, _ = jguarded(jstate, jg, _jax_batch(fields), jnp.asarray(False))
+        state, g, _, _ = guarded(state, g, _port_batch(fields), torch.tensor(False))
+        jskips.append(int(jg.spikes) > jbefore)
+        skips.append(int(g.spikes) > before)
+    assert skips == jskips
+    assert not any(skips[:160]) and all(skips[160:])
+    for name in ("loss_mean", "loss_var", "gnorm_mean", "gnorm_var"):
+        np.testing.assert_allclose(float(getattr(g, name)), float(np.asarray(getattr(jg, name))),
+                                   rtol=1e-4, err_msg=name)
+
+
 def test_injection_does_not_refire_on_a_preserved_clock():
     """Rollback keeps the clock: a step-keyed fault never fires again."""
     _, cfg = _cfgs()

@@ -55,6 +55,10 @@ the same records but for their wall-clock fields. Guardrails: the guarded scan c
 with K2 bit for bit the unguarded one on healthy rows, an injected NaN
 step and loss spike skipped exactly (bit for bit the chunk with those
 updates left out), the row screen of more than 32 bad rows as on the CPU.
+Device actors: a rollout (64 envs x 8 steps, DDPG and SAC through its
+uniform warmup) on the card against the CPU from the same draws, step by
+step (rtol 1e-5, atol 1e-5), and a rollout after a K1 chunk bit for bit one from a
+copy of the learner's new actor params.
 """
 
 import time
@@ -733,3 +737,101 @@ def test_strict_sync_pair_on_card_is_bit_identical(tmp_path, route):
                         for line in log.read_text().splitlines()])
     assert records[0] == records[1]
     assert any(r["kind"] == "train" for r in records[0])
+
+
+def _device_actor_cfg(**over):
+    base = dict(actor_backend="device", num_actors=0, device_actor_envs=64,
+                device_actor_chunk=8, actor_hidden=HIDDEN, critic_hidden=HIDDEN,
+                batch_size=B, replay_capacity=8192, seed=3)
+    base.update(over)
+    return DDPGConfig(**base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ddpg", "sac"])
+def test_rollout_on_card_matches_cpu(family):
+    """A device-actor rollout (64 envs x 8 steps) on the card and on the CPU
+    from the same params, start state and injected draws, one step at a
+    time (each CPU step starts from the card's carry, so the pendulum's
+    sensitivity to its state cannot part them): the rows, and every leaf
+    of the carry after each step, agree at rtol 1e-5, atol 1e-5 (the JAX
+    rollout test's tolerance)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from distributed_ddpg_tpu_torch.actors.device_pool import DeviceActorPool
+    from distributed_ddpg_tpu_torch.ops.exploration import StepDraws, draw_step
+    from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    over = dict(sac=True, warmup_uniform_steps=128) if family == "sac" else {}
+    cfg = _device_actor_cfg(device="cuda", device_actor_chunk=1, **over)
+    params = init_train_state(cfg, 3, 1, cfg.seed, "cpu").actor_params
+    pools = {dev: DeviceActorPool(cfg.replace(device=dev)) for dev in ("cpu", "cuda")}
+    gen = torch.Generator().manual_seed(11)
+    draws = [draw_step(pools["cpu"].env, 1, gen, pools["cpu"]._low, pools["cpu"]._high, True)
+             for _ in range(8)]
+
+    def moved(carry, dev):
+        env = type(carry.env_state)(*(t.to(dev) for t in carry.env_state))
+        return carry._replace(env_state=env, **{f: getattr(carry, f).to(dev) for f in (
+            "obs", "ou", "ep_ret", "steps", "episodes", "ret_sum")})
+
+    pools["cuda"]._carry = moved(pools["cpu"].carry, "cuda")
+    reps = {dev: DeviceReplay(cfg.replay_capacity, 3, 1, dev) for dev in pools}
+    for dev, pool in pools.items():
+        pool.set_params(tuple({k: v.to(dev) for k, v in layer.items()} for layer in params))
+    def assert_same_carry(step):
+        a, b = pools["cpu"], pools["cuda"]
+        for j, (x, y) in enumerate(zip(a._leaves(a.carry), b._leaves(b.carry))):
+            np.testing.assert_allclose(y.cpu().numpy(), x.numpy(), rtol=1e-5, atol=1e-5,
+                                       err_msg=f"carry leaf {j} after step {step}")
+        assert a.carry.host_steps == b.carry.host_steps
+
+    for i, d in enumerate(draws):
+        if i:
+            assert_same_carry(i)
+        pools["cpu"]._carry = moved(pools["cuda"].carry, "cpu")
+        for dev, pool in pools.items():
+            pool.run_chunk(reps[dev], draws=[StepDraws(*(t.to(dev) for t in d))])
+    assert_same_carry(len(draws))
+    n = 8 * 64
+    np.testing.assert_allclose(reps["cuda"].storage[:n].cpu().numpy(),
+                               reps["cpu"].storage[:n].numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_rollout_after_a_kernel_chunk_reads_the_new_params_on_card():
+    """A rollout after a K1 chunk equals, bit for bit, a rollout from a copy
+    of the learner's new actor params, and differs from the old params'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from distributed_ddpg_tpu_torch.actors.device_pool import DeviceActorPool
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+    from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
+
+    cfg = _device_actor_cfg(device="cuda")
+    learner = ShardedLearner(cfg, 3, 1, np.array([2.0], np.float32), chunk_size=K)
+    assert learner.fused_chunk_active
+    rep = DeviceReplay(cfg.replay_capacity, 3, 1, "cuda")
+    warm = DeviceActorPool(cfg)
+    warm.bind(lambda: learner.state.actor_params)
+    warm.run_chunk(rep)
+    old = tuple({k: v.clone() for k, v in layer.items()} for layer in learner.state.actor_params)
+    fc.KERNEL_LAUNCHES.clear()
+    learner.run_sample_chunk(rep)
+    assert fc.KERNEL_LAUNCHES.get("fused_chunk") == 1
+    out = {}
+    for name in ("bound", "new", "old"):
+        pool = DeviceActorPool(cfg)
+        if name == "bound":
+            pool.bind(lambda: learner.state.actor_params)
+        elif name == "new":
+            pool.set_params(tuple({k: v.clone() for k, v in layer.items()}
+                                  for layer in learner.state.actor_params))
+        else:
+            pool.set_params(old)
+        r = DeviceReplay(cfg.replay_capacity, 3, 1, "cuda")
+        pool.run_chunk(r)
+        out[name] = r.storage[:pool.rows_per_chunk].cpu()
+    assert torch.equal(out["bound"], out["new"])
+    assert not torch.equal(out["bound"], out["old"])
