@@ -117,8 +117,8 @@ Phases (any failure raises; nothing is caught and passed over):
    with bit-identical replicas.
 4. Drive the main paths, `distributed_ddpg_tpu_torch.train` (Pendulum-v1,
    2x256, batch 64, f32, one actor process, K = 800): DDPG with the
-   default flags and TD3 with --twin_critic=true --policy_delay=2
-   --target_noise=0.2 for 5000 env steps each, then D4PG with
+   default flags for 20,000 env steps and TD3 with --twin_critic=true
+   --policy_delay=2 --target_noise=0.2 for 5000, then D4PG with
    --distributional=true --n_step=5 --v_min=auto --v_max=auto for 5000
    (51 atoms; the support resolved from the warmup rewards is
    printed) and README's whole D4PG command, the same with
@@ -129,11 +129,12 @@ Phases (any failure raises; nothing is caught and passed over):
    SAC (their flags as above) for 5000 each; then the scan route:
    --fused_update=true for 10,000 env steps, README's D4PG command (with
    --prioritized=true) with --fused_update=true and --critic_l2=0.01 for
-   5000 each. DDPG and README's D4PG command run on the default pipeline
-   (20,000 env steps) and once with the old one's flags (5000),
-   --transport=queue --ingest_async=false --transfer_scheduler=false, and
-   the scan route with K2 once with them (1200), each run printed with
-   its wall time a chunk (before_after). For each, the
+   5000 each. DDPG and README's D4PG command also run once with the old
+   pipeline's flags (OLD_ENV_STEPS), --transport=queue
+   --ingest_async=false --transfer_scheduler=false, and the scan route
+   with K2 once with them (OLD_SCAN_ENV_STEPS), each printed beside its
+   default-pipeline run with its wall time a chunk (before_after). For
+   each, the
    launch counts are zeroed just before and read just after: on the
    kernel route every chunk must have been one launch of that branch's
    kernel and nothing else; on the scan route (fused_chunk_active false)
@@ -144,8 +145,8 @@ Phases (any failure raises; nothing is caught and passed over):
    longest call, ingest_coalesce_mean, ingest_stall_ms and
    transfer_pool_fence_waits printed beside the rates. The mesh phase's
    paths run rank 0's actors on shm, every rank without a shipper. Then
-   MountainCarContinuous-v0 with 4 actors on K1 (a) for 20,000 env steps
-   (mountain_car_path: the env's source, rows from every actor, the
+   MountainCarContinuous-v0 with 4 actors on K1 (a) for MC_ENV_STEPS env
+   steps (mountain_car_path: the env's source, rows from every actor, the
    terminal rows ingested and the coalesced ships printed), and the
    guarded scan route, `--guardrails=true --fused_update=true`, for
    10,000 env steps, and with PER for 5000 (guarded_main_paths: the health
@@ -166,8 +167,8 @@ Phases (any failure raises; nothing is caught and passed over):
    (exit 75, "emergency checkpoint", a checkpoint that verifies,
    emergency_ckpt 1), then the same command with more env steps (it
    resumes at that learner step and every chunk is one K1 launch). Then
-   the DDPG main path again with a save every chunk, its learner steps/s
-   beside the same path's without.
+   the DDPG main path again with a save every chunk (CADENCE_ENV_STEPS),
+   its learner steps/s beside the same path's without.
 4c. The guardrail drills (guardrail_drills), each `python -m
    distributed_ddpg_tpu_torch.train` as a child at 2x256, K = 100: a
    rollback that restores a step below the first injected NaN step,
@@ -208,11 +209,35 @@ Phases (any failure raises; nothing is caught and passed over):
    ONDEVICE_ENV_STEPS env steps, MountainCar's terminal rows on the
    monolith stored at discount 0, and MountainCar on it for
    ONDEVICE_MC_ENV_STEPS; the device actors resumed from a checkpoint
-   continuing their episodes. The kernels' record counts K1 (a)'s
-   launches on the device actors' path and K2's on the fused beat's, and
-   lists each kernel's launches on every path (launches_on_paths).
+   continuing their episodes. K2's launches in the kernels' record are
+   the fused beat's.
+4f. Batched policy serving (serving_phase, SERVE_LIMIT_S of its own, an
+   alarm): the device apply (serve/server.py, backend 'jax') on the card
+   with TF32 off at Pendulum 2x256 (obs 3, act 1) and at the bench's
+   shape (obs 17, act 6), DDPG and SAC's head rows, max_batch 32, n in
+   (1, 7, 32), within SERVE_ATOL of the numpy oracle, of the same apply on
+   the CPU and of a full batch's rows, with stale values in the pad rows'
+   buffer; a seqlock refresh served from the next batch on; no
+   synchronizing call; the apply's launches, device time and round trip a
+   batch (the checks are tools/serve_checks.py's, shared with the on-card
+   tests). Then `--serve_actors=true --serve_backend=jax` through the
+   CLI's parser and train() on K1 (a) with 4 actors, twice: for
+   SERVE_ENV_STEPS env steps with the learner gated 1:1, and free running
+   (README's command) for SERVE_FREE_ENV_STEPS, its served steps behind
+   back-to-back chunks; each with JAX's healthy-run checks
+   (serve_requests > 0, serve_errors 0, serve_overloads 0,
+   transfer_serve_items > 0, serve_client_fallbacks <= 8) and its serve
+   tails, env rate and ingest stalls printed. Then FrontServer with
+   device engines on ephemeral localhost ports: 50 TCP and 10 HTTP
+   requests against the device apply, a candidate canaried and promoted,
+   the routing following. Then tools/serve_bench.py's numpy and device
+   backends at 1 and 8 clients (SERVE_BENCH_S each), and the device
+   backend while K1 (a) chunks run back to back. The kernels' record
+   counts K1 (a)'s launches on the gated served path, and lists each
+   kernel's launches on every path (launches_on_paths).
 5. Time each branch of the kernel at the main path's shapes (CUDA events,
-   warmed up) beside its plain version (one run) and its bound; the eager autograd
+   warmed up) beside its plain version (one run, timed where the parity
+   phase ran it at these shapes: PLAIN_MS) and its bound; the eager autograd
    step x K is printed as context only. Then break each f32 branch's time,
    and bf16 DDPG's, down into its barriers, its optimizer pass and each
    stage's tiles. The bf16 branches' bound counts their rounded products
@@ -251,7 +276,12 @@ import tempfile
 import time
 
 import numpy as np
-import torch
+
+# An actor process that the pool spawns re-runs this file as __mp_main__
+# and needs nothing of torch: its import is ~2-3 s of each main path's
+# start-up, on the path the learner waits on.
+if __name__ != "__mp_main__":
+    import torch
 
 # Published H100 SXM peaks (NVIDIA's data sheet, dense, at the full 700 W
 # power limit): f32 on the CUDA cores, bf16 on the tensor cores (dense,
@@ -601,6 +631,12 @@ def compare_outputs(label: str, cfg, obs: int, act: int, got_all: dict, want_all
     return worst, failed
 
 
+# The plain version's time in each check_fused_chunk run (CUDA events, one
+# run), by (cfg, obs, act, K, step, scale): time_branch takes the main
+# path's shapes' from here instead of running the K eager steps again.
+PLAIN_MS = {}
+
+
 def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
                       referee: bool = False, bounds=None, rewards=None,
                       tied: bool = False, hot: bool = False,
@@ -650,8 +686,11 @@ def check_fused_chunk(cfg, obs: int, act: int, k: int, step: int = 1000,
         cfg = cfg.replace(v_min=bounds[0], v_max=bounds[1])
         label += f" after set_value_bounds{tuple(bounds)}"
     new, td, met = run(state, packed, eps)
-    ref, rtd, rmet = fc.fused_chunk_reference(cfg, state, packed, scale, 0.0, eps)
-    torch.cuda.synchronize()
+    plain = []
+    PLAIN_MS[(cfg, obs, act, k, step, scale)] = time_ms(
+        lambda: plain.append(fc.fused_chunk_reference(cfg, state, packed, scale, 0.0, eps)),
+        reps=1, warmup=False)
+    ref, rtd, rmet = plain[0]
 
     got_all, want_all = chunk_outputs(new, td, met), chunk_outputs(ref, rtd, rmet)
     worst, failed = compare_outputs(label, cfg, obs, act, got_all, want_all, fresh)
@@ -1811,6 +1850,11 @@ def drive_main_path(flags, name: str, summary_out: dict = None) -> dict:
 # The ingest before this port's default one: the queue, inline pageable
 # inserts, no scheduler.
 OLD_PIPELINE = ["--transport=queue", "--ingest_async=false", "--transfer_scheduler=false"]
+OLD_ENV_STEPS = 2000       # each kernel-route path on it (a few chunks)
+STEADY_ENV_STEPS = 20_000  # the main paths whose rates are recorded
+# The scan route on it: its 4 x 32-row queue brings in ~130-220 env steps
+# a ~3-5 s chunk, so 1-2 chunks.
+OLD_SCAN_ENV_STEPS = 1200
 
 
 def ms_a_chunk(summary: dict) -> float:
@@ -1820,21 +1864,15 @@ def ms_a_chunk(summary: dict) -> float:
         / summary["chunks"]
 
 
-def before_after(card: str, path: str, flags_of, name: str, first: dict = None,
-                 turns=("default", "old", "old", "default")) -> None:
-    """A main path on the default pipeline and on the old one (OLD_PIPELINE)
-    in turns, each run printed with its rates, its wall time a chunk and
-    the driver's ingest time a chunk. `flags_of(i)` gives run i's flags;
-    `first`, a summary already taken on the default pipeline, stands for
-    the first turn."""
-    runs = []
-    for i, kind in enumerate(turns):
-        summary = first if (i == 0 and first is not None) else {}
-        if not summary:
-            drive_main_path(flags_of(i) + (OLD_PIPELINE if kind == "old" else []), name,
-                            summary)
-        runs.append((kind, summary))
-    for kind, s in runs:
+def before_after(card: str, path: str, default_run: dict, old_flags, name: str) -> None:
+    """A main path on the old pipeline (`old_flags` + OLD_PIPELINE, through
+    drive_main_path, which checks the queue and the inline ingest), printed
+    beside `default_run`, the same path's summary on the default pipeline:
+    each with its rates, its wall time a chunk and the driver's ingest time
+    a chunk."""
+    old = {}
+    drive_main_path(old_flags + OLD_PIPELINE, name, old)
+    for kind, s in (("default", default_run), ("old", old)):
         log(f"[ingest] {card}: {path} main path, {kind} pipeline: learner steps/s "
             f"{s['learner_steps_per_sec']}, env steps/s {s['env_steps_per_sec']}, "
             f"{ms_a_chunk(s):.2f} ms a chunk over {s['chunks']} chunks ({s['env_steps']} env "
@@ -1859,10 +1897,13 @@ def time_branch(cfg, name: str, k: int, step: int, card: str, eager: bool,
     run = fc.make_fused_chunk_fn(cfg, obs, act, 2.0, 0.0, chunk_size=k, device="cuda")
     kernel_ms = time_ms(lambda: run(state, packed, eps), reps=10)
     # The plain version: one run of K python-driven steps (seconds), whose
-    # first call pays nothing a second would not, so no warm-up run.
-    plain_ms = time_ms(
-        lambda: fc.fused_chunk_reference(cfg, state, packed, 2.0, 0.0, eps), reps=1,
-        warmup=False)
+    # first call pays nothing a second would not, so no warm-up run; the
+    # parity phase's run at these shapes where it made one.
+    plain_ms = PLAIN_MS.get((cfg, obs, act, k, step, 2.0))
+    if plain_ms is None:
+        plain_ms = time_ms(
+            lambda: fc.fused_chunk_reference(cfg, state, packed, 2.0, 0.0, eps), reps=1,
+            warmup=False)
     context = ""
     if eager:
         step_fn, eager_steps = make_learner_step(cfg, 2.0), min(50, k)
@@ -1915,9 +1956,9 @@ MESH_SUPPORT_K = 200      # learner steps a chunk of the forced expansion
 MESH_SUPPORT_CHUNKS = 12  # chunks the expansion may take to fire
 # README's whole D4PG command with PER at D = 2 takes the scan route: a scan
 # chunk of 800 eager steps holds each rank's host ~9 s while the actor
-# fills its 4096-row shm ring, so 10,000 env steps are ~3 chunks past the
+# fills its 4096-row shm ring, so 5000 env steps are 1-2 chunks past the
 # 1000-row warmup.
-MESH_PER_ENV_STEPS = 10_000
+MESH_PER_ENV_STEPS = 5000
 
 
 def mesh_phase(card: str) -> dict:
@@ -2251,6 +2292,7 @@ def mesh_rank(rank: int, out_dir: str, card: str) -> int:
 
 RESUME_K = 800             # (a): the main path's chunk
 RESUME_SCAN_K = 50        # (b): the scan route with K2, a check of the path
+CADENCE_ENV_STEPS = 3000   # the DDPG main path with a save every chunk
 RESUME_BETA = 0.5
 RESUME_WAIT_S = 240       # (c): a drill child's time to its first record, or to its end
 RESUME_MORE_ENV_STEPS = 3000
@@ -2466,7 +2508,7 @@ def resume_drill_child(argv) -> int:
 MC_ACTORS = 4              # the MountainCar main path's actor processes
 MC_ENV_STEPS = 20_000
 GUARD_K = 16               # the guarded chunk's checks on the card
-GUARD_ENV_STEPS = 10_000   # the guarded main path (2-3 chunks); with PER 5000 (1-2)
+GUARD_ENV_STEPS = 5000    # the guarded main path (1-2 chunks); with PER 2500 (1)
 GUARD_INJECT = {"grad": (3,), "loss": (9,)}   # numeric:grad:nan@3, numeric:loss:spike@9
 DRILL_K = 100              # the drills' learner chunk (the widths stay 2x256)
 DRILL_TIMEOUT_S = 300
@@ -2838,10 +2880,10 @@ def guardrail_drills(card: str) -> dict:
 
 # --- the host replay path, lockstep mode and the agent ----------------------------
 
-HOST_ENV_STEPS = 5000      # each host-replay main path
+HOST_ENV_STEPS = 3000      # each host-replay main path (2 chunks)
 PREFETCH_CHUNKS = 4        # chunks through the prefetcher a check
 STRICT_ENV_STEPS = 5000    # each strict-sync run on K1 (a)
-STRICT_SCAN_ENV_STEPS = 3000   # each strict-sync run on the scan route (~4 s a chunk)
+STRICT_SCAN_ENV_STEPS = 2000   # each strict-sync run on the scan route (~4 s a chunk)
 AGENT_ENV_STEPS = 2000
 # The wall-clock fields of a record (tests/test_strict_sync.py's list, the
 # port's env_steps_per_sec and every t_* field); the rest must match.
@@ -3074,7 +3116,7 @@ BEAT_PARITY_K = 16        # the bit-identity checks' learner chunk (the main pat
 FREE_RUNNING_BOUND = 1e-3
 BEAT_PARITY_N = 3         # beats against the separate sequence
 FUSED_BEATS = 3           # the fused beat's main path: beats after the warmup's rollout
-ONDEVICE_ENV_STEPS = 5000
+ONDEVICE_ENV_STEPS = 2000
 ONDEVICE_MC_ENV_STEPS = 1500
 DEVACTOR_TIME_REPS = 5
 
@@ -3463,6 +3505,300 @@ def device_actor_phase(card: str, host_actors: dict) -> dict:
     return dict(launches=out, rollout=rollout, rollout_err=err, seconds=secs,
                 superstep_syncs=syncs)
 
+# --- 4f. batched policy serving (serve/) -------------------------------------
+
+SERVE_LIMIT_S = 60        # phase 4f's budget, enforced by an alarm of its own
+SERVE_ACTORS = 4
+# The gated served run: 4 served actors step 189-461 env steps/s on an
+# H100 (80GB HBM3, 700 W), with the host's speed, so 3000 env steps (2-3
+# chunks) keep the phase inside its limit on a slow host.
+SERVE_ENV_STEPS = 3000
+SERVE_MIN_SIZE = 1000
+# The free-running served run: each served step after the warmup waits
+# behind a running chunk (~50 env steps/s), so it is kept to a couple of
+# hundred such steps.
+SERVE_FREE_MIN_SIZE = 500
+SERVE_FREE_ENV_STEPS = 700
+SERVE_ATOL = 1e-5
+SERVE_BENCH_S = 2.0
+FRONT_TCP_REQUESTS, FRONT_HTTP_REQUESTS = 50, 10
+
+
+class PhaseLimit:
+    """For the `with` block: raises TimeoutError in the main thread once
+    `seconds` have passed (SIGALRM), so a phase that overruns its budget
+    fails instead of eating the script's limit."""
+
+    def __init__(self, seconds: float, name: str):
+        self.seconds, self.name = seconds, name
+
+    def __enter__(self):
+        def fire(signum, frame):
+            raise TimeoutError(f"{self.name} went past its {self.seconds} s limit")
+
+        self._old = signal.signal(signal.SIGALRM, fire)
+        signal.setitimer(signal.ITIMER_REAL, self.seconds)
+        return self
+
+    def __exit__(self, *exc):
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, self._old)
+
+
+def check_serve_apply(card: str) -> dict:
+    """The device apply (serve/server.py, backend 'jax') on the card through
+    tools/serve_checks.py (the on-card tests' checks): at Pendulum 2x256
+    (obs 3, act 1) and at the bench's shape (obs 17, act 6), DDPG and SAC's
+    head rows, max_batch 32, n in (1, 7, 32), within SERVE_ATOL of the
+    numpy oracle, of the same apply on the CPU and of the same rows of a
+    full batch, with stale values in the pad rows' buffer; a seqlock
+    refresh served from the next batch on; no synchronizing call in an
+    apply. Then its own measurements: a server's build (with its warm
+    apply), and the apply's kernel launches and device time a batch of 32
+    (torch.profiler) and its round trip on the host."""
+    from distributed_ddpg_tpu_torch.tools import serve_checks as sc
+
+    worst = 0.0
+    for obs, act in ((3, 1), (17, 6)):
+        for sac in (False, True):
+            t0 = time.perf_counter()
+            sc.make_server(sc.layout_of(obs, act, sac), act, "cuda", sac=sac)
+            build_ms = 1e3 * (time.perf_counter() - t0)
+            err, same, _ = sc.check_apply(obs, act, sac, "cuda", SERVE_ATOL, seed=10 * obs + sac)
+            worst = max(worst, err)
+            log(f"[serve] {card}: device apply obs {obs} act {act} "
+                f"{'SAC head' if sac else 'DDPG'}: built and warmed in {build_ms:.1f} ms; "
+                f"n = 1, 7, 32 within {err:.3e} of the numpy oracle, the CPU apply and a full "
+                f"batch's rows ({'bit-identical' if same else 'not bit-identical'} to those)")
+    srv = sc.check_seqlock_refresh("cuda", SERVE_ATOL)
+    syncs = sc.count_syncs(srv)
+    if syncs:
+        raise AssertionError(f"the serve apply made {syncs} synchronizing calls")
+    full = np.random.default_rng(4).standard_normal((sc.MAX_BATCH, 3)).astype(np.float32)
+    device_ms, launches = profiled(lambda: srv._compute(full), reps=20)
+    reps = 200
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        srv._compute(full)
+    roundtrip_ms = 1e3 * (time.perf_counter() - t0) / reps
+    log(f"[serve] {card}: seqlock refresh served from the next batch on, an odd version "
+        f"skipped; no synchronizing call; one batch of 32 at Pendulum 2x256: {launches:.1f} "
+        f"kernel launches, {device_ms * 1e3:.2f} us of device time, {roundtrip_ms * 1e3:.1f} us "
+        "round trip on the host (pad, copy in, apply, copy out, wait on its event), learner "
+        "idle")
+    return dict(max_abs_err=worst, launches=launches, device_ms=device_ms,
+                roundtrip_ms=roundtrip_ms)
+
+
+def served_main_path(card: str, gated: bool) -> dict:
+    """`--serve_actors=true --serve_backend=jax` through the CLI's parser and
+    train() on K1 (a), SERVE_ACTORS actors (each chunk one K1 launch:
+    drive_main_path): gated, SERVE_ENV_STEPS env steps with the learner at
+    one learner step an env step (--max_learn_ratio=1), or free running
+    (the command README gives), SERVE_FREE_ENV_STEPS, the chunks back to
+    back once the replay holds SERVE_FREE_MIN_SIZE rows. JAX's healthy-run
+    checks (tests/test_serve.py:514-559) on both: serve_requests > 0,
+    serve_errors 0, serve_overloads 0, transfer_serve_items > 0,
+    serve_client_fallbacks <= 8 (printed); the serve tails, the env rate
+    and the ingest's stalls printed beside each other."""
+    s = {}
+    flags = ([f"--replay_min_size={SERVE_MIN_SIZE}", "--max_learn_ratio=1.0",
+              f"--total_env_steps={SERVE_ENV_STEPS}"] if gated else
+             [f"--replay_min_size={SERVE_FREE_MIN_SIZE}",
+              f"--total_env_steps={SERVE_FREE_ENV_STEPS}"])
+    launches = drive_main_path(
+        [f"--num_actors={SERVE_ACTORS}", "--eval_every=0", "--eval_episodes=2",
+         "--serve_actors=true", "--serve_backend=jax", *flags], "fused_chunk", s)
+    log(f"[serve] {card}: served main path, {'gated 1:1' if gated else 'free running'} "
+        f"({SERVE_ACTORS} actors, K1 (a), {s['env_steps']} env steps, warmup "
+        f"{SERVE_MIN_SIZE if gated else SERVE_FREE_MIN_SIZE} rows): serve_requests "
+        f"{s['serve_requests']}, serve_batches {s['serve_batches']}, serve_errors "
+        f"{s['serve_errors']}, serve_overloads {s['serve_overloads']}, serve_client_fallbacks "
+        f"{s['serve_client_fallbacks']}, transfer_serve_items {s['transfer_serve_items']}; "
+        f"serve_p50_ms {s['serve_p50_ms']}, serve_p95_ms {s['serve_p95_ms']}, serve_max_ms "
+        f"{s['serve_max_ms']}, serve_fill_mean {s['serve_fill_mean']} (the serve fields "
+        f"since the last train record); {s['chunks']} chunks, K1 launches "
+        f"{launches.get('fused_chunk')}, the card busy {100.0 * s['busy_share']:.2f}% from the "
+        f"first chunk's start to the last's end, idle between chunks {s['gap_median_ms']} ms "
+        f"median; env steps/s {s['env_steps_per_sec']}, learner steps/s "
+        f"{s['learner_steps_per_sec']}; ingest_stall_ms {s.get('ingest_stall_ms')}, the "
+        f"driver's longest ingest call {s['t_ingest_max']:.3f} ms")
+    if not (s["serve_requests"] > 0 and s["serve_errors"] == 0 and s["serve_overloads"] == 0
+            and s["transfer_serve_items"] > 0 and s["serve_client_fallbacks"] <= 8):
+        raise AssertionError(f"the served main path is not healthy: {s}")
+    return dict(s, launches=launches)
+
+
+def check_front(card: str) -> dict:
+    """FrontServer with device engines (Pendulum 2x256 on the card) on
+    ephemeral localhost ports: FRONT_TCP_REQUESTS framed-TCP requests and
+    FRONT_HTTP_REQUESTS HTTP POST /act, each answer within SERVE_ATOL of
+    the device apply of a server of its own; then a candidate published,
+    canaried at half the traffic (both versions serve, each request the
+    apply of the version it names) and promoted (every answer then v2's)."""
+    import http.client
+
+    from distributed_ddpg_tpu_torch.serve.front import FrontClient, FrontServer
+
+    from distributed_ddpg_tpu_torch.tools import serve_checks as sc
+
+    layout = sc.layout_of(3, 1)
+    flats = {"v1": sc.flat_params(layout, 11), "v2": sc.flat_params(layout, 12)}
+    refs = {}
+    for name, flat in flats.items():
+        refs[name] = sc.make_server(layout, 1, "cuda")
+        refs[name].refresh(flat)
+    front = FrontServer(lambda: sc.make_server(layout, 1, "cuda", max_latency_s=0.005),
+                        port=0, http_port=0)
+    front.publish("v1", flats["v1"])
+    front.start()
+    obs = np.random.default_rng(5).standard_normal((200, 3)).astype(np.float32)
+    err, seen = 0.0, {}
+
+    def answered(action, version, i):
+        nonlocal err
+        want = refs[version]._compute(obs[i:i + 1])[0]
+        err = max(err, float(np.max(np.abs(np.asarray(action, np.float32) - want))))
+        seen[version] = seen.get(version, 0) + 1
+
+    try:
+        t0 = time.perf_counter()
+        with FrontClient(front.port, tenant="smoke") as cli:
+            for i in range(FRONT_TCP_REQUESTS):
+                answered(*cli.act(obs[i], request_id=i), i)
+            tcp_ms = 1e3 * (time.perf_counter() - t0) / FRONT_TCP_REQUESTS
+            conn = http.client.HTTPConnection("127.0.0.1", front.http_port, timeout=10.0)
+            for i in range(FRONT_TCP_REQUESTS, FRONT_TCP_REQUESTS + FRONT_HTTP_REQUESTS):
+                conn.request("POST", "/act", json.dumps(
+                    {"tenant": "smoke", "request_id": i, "obs": obs[i].tolist()}))
+                r = conn.getresponse()
+                body = json.loads(r.read())
+                if r.status != 200:
+                    raise AssertionError(f"front HTTP: {r.status} {body}")
+                answered(body["action"], body["version"], i)
+            conn.close()
+            if seen != {"v1": FRONT_TCP_REQUESTS + FRONT_HTTP_REQUESTS}:
+                raise AssertionError(f"front before the canary: versions {seen}")
+            front.publish("v2", flats["v2"])
+            front.start_canary("v2", 0.5)
+            seen.clear()
+            for i in range(100, 140):
+                answered(*cli.act(obs[i], request_id=i), i)
+            split = dict(seen)
+            front.promote("v2")
+            seen.clear()
+            for i in range(140, 160):
+                answered(*cli.act(obs[i], request_id=i), i)
+        if not (split.get("v1") and split.get("v2")) or seen != {"v2": 20}:
+            raise AssertionError(f"front routing: canary {split}, after the promote {seen}")
+        if not err <= SERVE_ATOL:
+            raise AssertionError(f"front answers {err} from the device apply")
+        snap = front.snapshot()
+    finally:
+        front.stop()
+    log(f"[front] {card}: {FRONT_TCP_REQUESTS} TCP and {FRONT_HTTP_REQUESTS} HTTP requests "
+        f"on device engines within {err:.3e} of the device apply ({tcp_ms:.3f} ms a TCP round "
+        f"trip, one client); canary at 0.5: {split}; after the promote every answer v2's; "
+        f"front_wire_p50_ms {snap['front_wire_p50_ms']}, front_wire_p95_ms "
+        f"{snap['front_wire_p95_ms']}, front_promotes {snap['front_promotes']}")
+    return dict(max_abs_err=err, tcp_ms=tcp_ms, **snap)
+
+
+class BackToBackChunks:
+    """For the `with` block: a thread launches K1 (a) chunks at the main
+    path's shapes (Pendulum 2x256, batch 64, K = 800) one after another on
+    the default stream, each waited for on its own event before the next
+    is launched, as the trainer's free-running loop does; `summary()`
+    gives the chunks, their mean device ms and the card's busy share."""
+
+    def __enter__(self):
+        import threading
+
+        from distributed_ddpg_tpu_torch.config import DDPGConfig
+        from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
+        from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
+        from distributed_ddpg_tpu_torch.parallel.learner import resolve_learner_chunk
+
+        cfg = DDPGConfig()
+        k = resolve_learner_chunk(cfg)
+        state = train_state_from_numpy(random_state_np(cfg, 3, 1, seed=7, step=1000), "cuda")
+        packed = random_batches(seed=8, k=k, b=cfg.batch_size, obs=3, act=1)
+        run = fc.make_fused_chunk_fn(cfg, 3, 1, 2.0, 0.0, chunk_size=k, device="cuda")
+        run(state, packed, None)
+        torch.cuda.synchronize()
+        self.events, self._stop = [], threading.Event()
+
+        def loop():
+            while not self._stop.is_set():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                run(state, packed, None)
+                end.record()
+                end.synchronize()
+                self.events.append((start, end))
+
+        self._thread = threading.Thread(target=loop, daemon=True, name="k1-chunks")
+        self._t0 = time.perf_counter()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30.0)
+        self._wall_ms = 1e3 * (time.perf_counter() - self._t0)
+
+    def summary(self) -> dict:
+        ms = [a.elapsed_time(b) for a, b in self.events]
+        return dict(chunks=len(ms), chunk_ms=float(np.mean(ms)) if ms else None,
+                    busy_share=sum(ms) / self._wall_ms)
+
+
+def serve_bench_on_card(card: str) -> dict:
+    """tools/serve_bench.py's closed loop at its default shape (obs 17, act
+    6, 2x256, max_batch 32, 5 ms window) for SERVE_BENCH_S each: the numpy
+    and the device backend at 1 and 8 clients with the card idle, then the
+    device backend at 8 clients while BackToBackChunks runs K1 (a)."""
+    from distributed_ddpg_tpu_torch.tools.serve_bench import run_serve_bench
+
+    out = {}
+
+    def bench(tag, **kw):
+        r = run_serve_bench(duration_s=SERVE_BENCH_S, device="cuda", measure_local=False, **kw)
+        out[tag] = {k: r[k] for k in ("served_rps", "serve_p50_ms", "serve_p95_ms",
+                                       "serve_max_ms", "serve_fill_mean", "client_sheds",
+                                       "serve_errors")}
+        log(f"[serve_bench] {card}: {tag}: rps {r['served_rps']}, p50 {r['serve_p50_ms']} ms, "
+            f"p95 {r['serve_p95_ms']} ms, max {r['serve_max_ms']} ms, fill "
+            f"{r['serve_fill_mean']}, sheds {r['client_sheds']}")
+        if r["serve_errors"] or not r["served_rps"] > 0:
+            raise AssertionError(f"serve_bench {tag}: {r}")
+
+    for backend in ("numpy", "jax"):
+        for clients in (1, 8):
+            bench(f"{backend} x{clients} idle", backend=backend, clients=clients)
+    with BackToBackChunks() as chunks:
+        bench("jax x8 during K1 chunks", backend="jax", clients=8)
+    c = chunks.summary()
+    out["chunks"] = c
+    log(f"[serve_bench] {card}: meanwhile {c['chunks']} K1 (a) chunks of {c['chunk_ms']:.3f} "
+        f"ms, the card busy with them {100.0 * c['busy_share']:.1f}% of the run")
+    return out
+
+
+def serving_phase(card: str) -> dict:
+    """4f (see the module docstring), under PhaseLimit(SERVE_LIMIT_S)."""
+    t0 = time.monotonic()
+    with PhaseLimit(SERVE_LIMIT_S, "phase 4f"):
+        apply = check_serve_apply(card)
+        served = served_main_path(card, gated=True)
+        free = served_main_path(card, gated=False)
+        front = check_front(card)
+        bench = serve_bench_on_card(card)
+    secs = time.monotonic() - t0
+    log(f"[phase] 4f took {secs:.1f}s")
+    return dict(apply=apply, served=served, free=free, front=front, bench=bench, seconds=secs)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3583,22 +3919,22 @@ def main() -> int:
     log(f"[phase] mesh done at {time.monotonic() - t_start:.1f}s")
 
     # --- 4. the main paths ---
-    # README's whole D4PG command (with --prioritized=true), this slice's
-    # path, and SAC run 20k env steps each: tens of chunks, so their rates
+    # DDPG, README's whole D4PG command (with --prioritized=true), SAC and
+    # bf16 DDPG run STEADY_ENV_STEPS each: tens of chunks, so their rates
     # are the steady state's and not the first chunk's one-time costs. The
     # other paths run a few chunks each, enough to check their launches
     # and metrics.
     common = ["--num_actors=1", "--replay_min_size=1000", "--eval_every=0",
               "--eval_episodes=2"]
     plain = {}
-    launches = drive_main_path(common + ["--total_env_steps=5000"], "fused_chunk", plain)
-    # The same with the pipeline before PR 13's (the queue, inline pageable
-    # inserts, no scheduler): DDPG at 20,000 env steps (20-40 chunks) on the
-    # default pipeline, and once at 5000 on the old one (the before/after
-    # record of PR 13 ran each twice at 20,000; cut to stay in time).
-    before_after(card, "DDPG",
-                 lambda i: common + [f"--total_env_steps={20000 if i == 0 else 5000}"],
-                 "fused_chunk", turns=("default", "old"))
+    launches = drive_main_path(common + [f"--total_env_steps={STEADY_ENV_STEPS}"],
+                               "fused_chunk", plain)
+    # Each main path of the before/after record also runs once on the old
+    # pipeline (OLD_PIPELINE: the queue, inline pageable inserts, no
+    # scheduler), for a few chunks: DDPG here, README's D4PG command and
+    # the scan route with K2 below.
+    before_after(card, "DDPG", plain, common + [f"--total_env_steps={OLD_ENV_STEPS}"],
+                 "fused_chunk")
     log(f"[ingest] {card}: in the parity phase {INGEST_BLOCKS} blocks staged during a "
         f"{ingest_chunk['chunk_ms']:.3f} ms chunk held the driver "
         f"{ingest_chunk['main']['total_ms']:.3f} ms on the default pipeline, "
@@ -3614,23 +3950,25 @@ def main() -> int:
                       f"--log_path={os.path.join(tmp, 'd4pg.jsonl')}"],
             "fused_chunk_d4pg")
         d4pg_per = {}
-
-        def d4pg_per_flags(i):
-            return common + [f"--total_env_steps={20000 if i == 0 else 5000}", *d4pg_flags,
-                             "--prioritized=true",
-                             f"--log_path={os.path.join(tmp, f'd4pg_per{i}.jsonl')}"]
-
-        launches.update(drive_main_path(d4pg_per_flags(0), "fused_chunk_d4pg", d4pg_per))
-        before_after(card, "D4PG with PER", d4pg_per_flags, "fused_chunk_d4pg", first=d4pg_per,
-                     turns=("default", "old"))
+        launches.update(drive_main_path(
+            common + [f"--total_env_steps={STEADY_ENV_STEPS}", *d4pg_flags,
+                      "--prioritized=true",
+                      f"--log_path={os.path.join(tmp, 'd4pg_per.jsonl')}"],
+            "fused_chunk_d4pg", d4pg_per))
+        before_after(card, "D4PG with PER", d4pg_per,
+                     common + [f"--total_env_steps={OLD_ENV_STEPS}", *d4pg_flags,
+                               "--prioritized=true",
+                               f"--log_path={os.path.join(tmp, 'd4pg_per_old.jsonl')}"],
+                     "fused_chunk_d4pg")
     launches.update(drive_main_path(
-        common + ["--total_env_steps=20000", "--sac=true", "--actor_lr=3e-4",
+        common + [f"--total_env_steps={STEADY_ENV_STEPS}", "--sac=true", "--actor_lr=3e-4",
                   "--critic_lr=3e-4", "--tau=0.005"],
         "fused_chunk_sac"))
-    # bf16, this slice's path: DDPG for 20,000 env steps, the other
-    # families for a few chunks each.
+    # bf16: DDPG for STEADY_ENV_STEPS, the other families for a few chunks
+    # each.
     bf16 = common + ["--compute_dtype=bfloat16"]
-    launches.update(drive_main_path(bf16 + ["--total_env_steps=20000"], "fused_chunk_bf16"))
+    launches.update(drive_main_path(bf16 + [f"--total_env_steps={STEADY_ENV_STEPS}"],
+                                    "fused_chunk_bf16"))
     launches.update(drive_main_path(
         bf16 + ["--total_env_steps=5000", "--twin_critic=true", "--policy_delay=2",
                 "--target_noise=0.2"],
@@ -3650,16 +3988,13 @@ def main() -> int:
     # paper's critic weight decay (no fused update) for 5000 each. A scan
     # chunk of 800 eager steps holds the host ~3-5 s; the actor fills its
     # shm ring (4096 rows) meanwhile, so a chunk brings in ~4000 env steps
-    # (PERF.md §5): 10,000 env steps are 2-3 chunks. On the old pipeline
-    # (its 4 x 32-row queue) a chunk brought in ~130-220, so its run is cut
-    # to 1200 env steps (1-2 chunks).
+    # (PERF.md §5): 10,000 env steps are 2-3 chunks.
     scan_k2 = {}
     update_launches = drive_main_path(common + ["--total_env_steps=10000",
                                                 "--fused_update=true"], "scan", scan_k2)
-    before_after(card, "the scan route with K2",
-                 lambda i: common + [f"--total_env_steps={10000 if i == 0 else 1200}",
-                                     "--fused_update=true"],
-                 "scan", first=scan_k2, turns=("default", "old"))
+    before_after(card, "the scan route with K2", scan_k2,
+                 common + [f"--total_env_steps={OLD_SCAN_ENV_STEPS}", "--fused_update=true"],
+                 "scan")
     with tempfile.TemporaryDirectory() as tmp:
         drive_main_path(
             common + ["--total_env_steps=5000", *d4pg_flags, "--prioritized=true",
@@ -3683,12 +4018,13 @@ def main() -> int:
     # the loop's thread), beside the same path's rate without it above.
     cadence = {}
     with tempfile.TemporaryDirectory() as tmp:
-        drive_main_path(common + ["--total_env_steps=5000", f"--checkpoint_dir={tmp}",
-                                  "--checkpoint_every=800"], "fused_chunk", cadence)
+        drive_main_path(common + [f"--total_env_steps={CADENCE_ENV_STEPS}",
+                                  f"--checkpoint_dir={tmp}", "--checkpoint_every=800"],
+                        "fused_chunk", cadence)
     log(f"[resume] {card}: DDPG main path learner steps/s "
         f"{plain['learner_steps_per_sec']} without checkpoints, "
         f"{cadence['learner_steps_per_sec']} with a save every chunk "
-        f"({cadence['ckpt_skipped']} skipped)")
+        f"({cadence['ckpt_skipped']} skipped, {cadence['chunks']} chunks)")
     log(f"[phase] resume done at {time.monotonic() - t_start:.1f}s")
 
     # --- 4c. the guardrail drills through the CLI ---
@@ -3721,8 +4057,15 @@ def main() -> int:
                          "jax_ondevice": dl["jax_ondevice"]["fused_update"],
                          "agent": host["fused_update_agent"]},
     }
-    launches["fused_chunk"] = paths["fused_chunk"]["device_actors"]
     update_launches = {"fused_update": paths["fused_update"]["fused_beat"]}
+
+    # --- 4f. batched policy serving (this slice) ---
+    serving = serving_phase(card)
+    log(f"[phase] serving done at {time.monotonic() - t_start:.1f}s")
+    # This slice's path: K1 (a) on the served actors' main path.
+    paths["fused_chunk"]["served"] = serving["served"]["launches"]["fused_chunk"]
+    paths["fused_chunk"]["served_free_running"] = serving["free"]["launches"]["fused_chunk"]
+    launches["fused_chunk"] = paths["fused_chunk"]["served"]
 
     # --- 5. timing at the main path's shapes ---
     timing = {

@@ -1,7 +1,7 @@
 """Pure-numpy actor policy for rollout workers.
 
 A trimmed copy of distributed_ddpg_tpu/actors/policy.py: the deterministic
-head and SAC's Gaussian head. Workers run this numpy mirror of the actor
+head, SAC's Gaussian head, and the raw head rows the serving path ships. Workers run this numpy mirror of the actor
 MLP and never import torch, so they are cheap to spawn and never touch
 the card.
 
@@ -111,6 +111,16 @@ class NumpyPolicy:
             n = int(np.prod(b_shape))
             layer["b"] = flat[i : i + n].copy()
             i += n
+
+    def head(self, obs: np.ndarray) -> np.ndarray:
+        """Raw final-layer output: [mean | log_std_raw] for SAC's head,
+        pre-tanh mu otherwise. The serve path's building block
+        (serve/server.py ships head rows and squashes or samples them
+        itself, with per-client keys)."""
+        x = np.atleast_2d(obs)
+        for layer in self.layers[:-1]:
+            x = np.maximum(x @ layer["w"] + layer["b"], 0.0)
+        return x @ self.layers[-1]["w"] + self.layers[-1]["b"]
 
     def __call__(self, obs: np.ndarray) -> np.ndarray:
         x = np.atleast_2d(obs)

@@ -1,10 +1,10 @@
 """ActorPool: N rollout worker processes feeding one learner.
 
 A trimmed copy of distributed_ddpg_tpu/actors/pool.py: the shm and queue
-transports, seqlock param broadcast, heartbeat monitor with respawn and
-the quarantine breaker. Served acting, fault injection, tracing,
-staleness tracking and the zero-rows detector (actor_no_progress_s) are
-not in the port yet.
+transports, seqlock param broadcast, heartbeat monitor with respawn, the
+quarantine breaker and the served actors' transport. Fault injection,
+tracing, staleness tracking and the zero-rows detector
+(actor_no_progress_s) are not in the port yet.
 
 - Param broadcast: one flat f32 shared-memory array + a version counter.
   Workers poll the version each env step and copy on change.
@@ -34,6 +34,13 @@ not in the port yet.
   write lock; the rows in it are lost, as the in-flight episode is), and
   the version counter, stop flag and heartbeats are lock-free shared
   values (the seqlock needs no mutex: one writer, and readers re-check).
+- Served acting (config.serve_actors): workers ask the learner process's
+  InferenceServer for mu(s) over ONE bounded shared request queue
+  (serve_queue) and a response queue a worker, which a respawned worker
+  reuses (its drain-and-fresh-ids start makes that safe). serve_channels()
+  hands them to the learner's ServeFront, param_source() the broadcast
+  buffer to the server, and serve_counters() reads the workers' local-act
+  fallbacks (serve_client_fallbacks).
 
 Uses the 'spawn' start method: workers start from a fresh interpreter and
 never inherit the parent's CUDA state.
@@ -117,6 +124,14 @@ class ActorPool:
         # When rows last came from each slot (drains only): the probe's
         # sustained-progress clock.
         self._rows_seen_t = [0.0] * self.num_actors
+        self.serving = bool(config.serve_actors)
+        self._serve_req = None
+        self._serve_resp: List = []
+        self._serve_fallbacks = None
+        if self.serving:
+            self._serve_req = self._ctx.Queue(maxsize=config.serve_queue)
+            self._serve_resp = [self._ctx.Queue(maxsize=8) for _ in range(self.num_actors)]
+            self._serve_fallbacks = self._ctx.Array("l", self.num_actors, lock=False)
         self.transport = resolve_transport(config.transport)
         self.row_width = 2 * spec.obs_dim + spec.act_dim + 3
         self._ring_bufs: List = []
@@ -171,6 +186,11 @@ class ActorPool:
                 warmup_uniform=self.warmup_budget_per_worker(),
                 ring_buf=self._ring_bufs[worker_id] if self._rings else None,
                 ring_rows=self.config.shm_ring_rows,
+                serve_request_queue=self._serve_req,
+                serve_response_queue=self._serve_resp[worker_id] if self.serving else None,
+                serve_fallbacks=self._serve_fallbacks,
+                serve_timeout_s=self.config.serve_timeout_s,
+                serve_fallback_s=self.config.serve_fallback_s,
             ),
             daemon=True,
             name=f"actor-{worker_id}",
@@ -205,6 +225,24 @@ class ActorPool:
             if p is not None and p.is_alive():
                 p.terminate()
                 p.join(timeout=_TERMINATE_JOIN_S)
+
+    # --- serving (serve/) ---
+
+    def serve_channels(self):
+        """(request_queue, response_queues) for the learner process's
+        ServeFront; None and [] unless config.serve_actors built them."""
+        return self._serve_req, self._serve_resp
+
+    def param_source(self):
+        """(shared flat-param array, seqlock version): the broadcast buffer
+        the workers poll, from which the InferenceServer refreshes too."""
+        return self._shared, self._version
+
+    def serve_counters(self) -> Dict[str, int]:
+        """The workers' local-act fallbacks for the serve_* fields."""
+        if self._serve_fallbacks is None:
+            return {}
+        return {"serve_client_fallbacks": int(sum(self._serve_fallbacks))}
 
     # --- param broadcast (learner -> workers) ---
 

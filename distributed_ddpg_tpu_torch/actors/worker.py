@@ -1,7 +1,7 @@
 """Rollout worker process: the per-worker episode loop.
 
-A trimmed copy of distributed_ddpg_tpu/actors/worker.py (served acting,
-fault injection and tracing are not in the port yet). Each worker owns one
+A trimmed copy of distributed_ddpg_tpu/actors/worker.py (fault injection
+and tracing are not in the port yet). Each worker owns one
 env, one OU noise process (reset per episode; zeroed under SAC, whose
 workers sample the Gaussian policy instead), one n-step accumulator, and a
 numpy policy refreshed from the shared-memory param buffer. Its first
@@ -19,6 +19,15 @@ goes silent. Two transports:
   bounded queue when it has room;
 - queue: each batch, with the episodes finished since the last, over the
   worker's bounded mp.Queue.
+
+Served acting (config.serve_actors; the JAX worker's `served_mu`): mu(s)
+comes from the learner process's InferenceServer over the pool's shared
+request queue and this worker's response queue, each request bounded by
+serve_timeout_s. The local policy mirror stays loaded as the fallback: a
+full request queue, a timeout or a request the server could not serve
+sends the worker to its local act() for serve_fallback_s, counted in the
+pool's serve_fallbacks (serve_client_fallbacks). A stalled or dead serving
+stack costs latency, never a deadlock.
 
 Workers never import torch (policy.py), so they never touch CUDA.
 """
@@ -59,6 +68,11 @@ def run_worker(
     warmup_uniform: int = 0,         # uniform-random actions for the first N steps
     ring_buf=None,                   # mp.Array('B') of this slot's ShmRing, or None
     ring_rows: int = 0,
+    serve_request_queue=None,        # served acting: the pool's shared request queue
+    serve_response_queue=None,       # and this worker's own response queue
+    serve_fallbacks=None,            # mp.Array('l'): local-act fallbacks a worker
+    serve_timeout_s: float = 1.0,
+    serve_fallback_s: float = 5.0,
 ) -> None:
     from distributed_ddpg_tpu_torch.actors.policy import (
         NumpyPolicy,
@@ -169,6 +183,56 @@ def run_worker(
         pending.clear()
         episodes.clear()
 
+    # Request ids start at a random 48-bit offset each incarnation, and
+    # replies already in the response queue are drained: the pool reuses a
+    # slot's response queue across respawns, so a late reply to a dead
+    # incarnation must never match a fresh one's request id.
+    serve_rid = int.from_bytes(os.urandom(6), "little")
+    serve_down_until = 0.0
+    if serve_response_queue is not None:
+        while True:
+            try:
+                serve_response_queue.get_nowait()
+            except Exception:
+                break
+
+    def serve_degrade() -> None:
+        nonlocal serve_down_until
+        serve_down_until = time.time() + serve_fallback_s
+        if serve_fallbacks is not None:
+            serve_fallbacks[worker_id] += 1
+
+    def served_mu(o: np.ndarray) -> np.ndarray:
+        """One served action request, bounded by serve_timeout_s; the local
+        mirror answers whenever the served path cannot."""
+        nonlocal serve_rid
+        if time.time() < serve_down_until:
+            return policy(o)[0]
+        serve_rid += 1
+        try:
+            serve_request_queue.put_nowait((worker_id, serve_rid, np.asarray(o, np.float32)))
+        except queue_mod.Full:
+            serve_degrade()
+            return policy(o)[0]
+        deadline = time.time() + serve_timeout_s
+        while time.time() < deadline and not stop_flag.value:
+            if parent_pid and os.getppid() != parent_pid:
+                return policy(o)[0]   # orphaned: the server is gone
+            try:
+                rid, action = serve_response_queue.get(timeout=0.05)
+            except queue_mod.Empty:
+                # A bounded served wait is healthy, not a silent worker.
+                heartbeat[worker_id] = time.time()
+                continue
+            if rid != serve_rid:
+                continue   # a stale reply to a request given up on
+            if action is None:
+                serve_degrade()   # the server shed or failed this request
+                return policy(o)[0]
+            return np.asarray(action, np.float32)
+        serve_degrade()
+        return policy(o)[0]
+
     maybe_refresh()
     obs, _ = env.reset(seed=seed)
     noise.reset()
@@ -183,7 +247,7 @@ def run_worker(
         if total_steps < warmup_uniform:
             action = warmup_rng.uniform(action_low, action_high).astype(np.float32)
         else:
-            mu = policy(obs)[0]
+            mu = served_mu(obs) if serve_request_queue is not None else policy(obs)[0]
             action = mu + noise() * np.asarray(action_scale, np.float32)
         action = np.clip(action, action_low, action_high).astype(np.float32)
         next_obs, reward, terminated, truncated, _ = env.step(action)

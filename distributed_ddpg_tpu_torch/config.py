@@ -31,6 +31,12 @@ learn, rollout and scatter into one beat (parallel/megastep.py) and B
 beats into one dispatch (parallel/superstep.py). All of them run on one
 rank (ROADMAP.md Queue 1 item 10).
 
+`serve_actors` serves the host workers' mu(s) from one InferenceServer in
+the learner process (serve/); `serve_backend='jax'` (the JAX package's
+flag value) applies the policy on `device`. `front_port` /
+`front_http_port` add the network front (serve/front/). Serving runs on
+one rank (item 10).
+
 `device` is the port's own field: "cuda" (default) runs the learner on the
 card and raises if none is present; "cpu" runs the plain PyTorch versions
 of the kernels, as the tests do.
@@ -45,7 +51,6 @@ from typing import Sequence
 
 # Options outside this slice: field -> the value that means "off".
 _NOT_IN_SLICE = {
-    "serve_actors": False,
     "model_axis": 1,
     "replay_sharding": "replicated",
 }
@@ -324,8 +329,52 @@ class DDPGConfig:
     ckpt_write_retries: int = 2
     ckpt_retry_backoff_s: float = 0.5
 
-    # --- options outside this slice (see _NOT_IN_SLICE) ---
+    # --- batched policy serving (serve/) ---
+    # serve_actors: the host workers ask one InferenceServer in the learner
+    # process for mu(s) over a bounded mp queue; a dynamic batcher
+    # dispatches at serve_max_batch rows or once the oldest request has
+    # waited serve_max_latency_ms, whichever comes first. A worker that
+    # cannot get a served action (overload, stall, a failed dispatch) acts
+    # on its local policy mirror for serve_fallback_s instead of blocking.
     serve_actors: bool = False
+    serve_max_batch: int = 32
+    serve_max_latency_ms: float = 5.0
+    # Bounded request queue: submissions past it raise typed ServeOverload.
+    serve_queue: int = 1024
+    # A worker waits this long for a served action before its local act().
+    serve_timeout_s: float = 1.0
+    # ...and stays on the local path this long before asking again.
+    serve_fallback_s: float = 5.0
+    # "numpy": row-wise NumpyPolicy, bit-identical to the workers' act();
+    # "jax" (the JAX package's name): the device apply on `device`, params
+    # resident there, batches padded to (serve_max_batch, obs_dim).
+    serve_backend: str = "numpy"
+
+    # --- the network serving front (serve/front/) ---
+    # Framed-TCP and HTTP/JSON ingress over the same batcher, versioned
+    # policy snapshots with canary promote, per-tenant QoS. 0 = off; any
+    # other value binds that port on localhost.
+    front_port: int = 0
+    front_http_port: int = 0
+    # A request older than this when its batch completes gets a typed
+    # `timeout` answer.
+    front_timeout_s: float = 2.0
+    # Share of traffic the canary split routes to a staged candidate
+    # (crc32(tenant:request_id) buckets: replayable, not random).
+    front_canary_fraction: float = 0.1
+    # Latency samples BOTH arms need before the gate may promote.
+    front_canary_min_requests: int = 50
+    # Allowed relative p95 regression of the candidate against stable.
+    front_canary_threshold: float = 0.5
+    # "name:priority[:rate[:burst]];...": priority 0 is highest (never
+    # depth-shed), rate in tokens/s (0 = uncapped), burst defaults to
+    # max(1, rate). Unknown tenants get front_default_priority.
+    front_tenants: str = ""
+    front_default_priority: int = 1
+    # Queue-depth share where the lowest priority class starts to shed.
+    front_shed_start: float = 0.5
+
+    # --- options outside this slice (see _NOT_IN_SLICE) ---
     model_axis: int = 1
     replay_sharding: str = "replicated"
 
@@ -538,6 +587,84 @@ class DDPGConfig:
                     "prefetch thread samples concurrently with ingest, "
                     "which is exactly the nondeterminism this mode removes"
                 )
+        # The JAX package's serve and front checks and messages (its
+        # config.py), then the slice's refusal of serving on D > 1 ranks.
+        if self.serve_max_batch < 1:
+            raise ValueError("serve_max_batch must be >= 1")
+        if self.serve_max_latency_ms < 0:
+            raise ValueError("serve_max_latency_ms must be >= 0")
+        if self.serve_queue < 1:
+            raise ValueError("serve_queue must be >= 1")
+        if self.serve_timeout_s <= 0:
+            raise ValueError("serve_timeout_s must be > 0")
+        if self.serve_fallback_s < 0:
+            raise ValueError("serve_fallback_s must be >= 0")
+        if self.serve_backend not in ("numpy", "jax"):
+            raise ValueError(
+                f"serve_backend must be 'numpy' or 'jax', got "
+                f"{self.serve_backend!r}"
+            )
+        if self.serve_actors:
+            if self.backend != "jax_tpu":
+                raise ValueError(
+                    "serve_actors serves the actor POOL (jax_tpu backend); "
+                    "the native/ondevice backends have no worker fleet to "
+                    "serve"
+                )
+            if self.strict_sync:
+                raise ValueError(
+                    "serve_actors is incompatible with strict_sync: batch "
+                    "composition and dispatch timing are wall-clock-driven, "
+                    "which breaks the bit-identical-two-runs contract"
+                )
+            if self.data_axis not in (-1, 1):
+                raise ValueError(
+                    f"serve_actors=True with data_axis={self.data_axis} is not in this "
+                    "slice of the PyTorch port: serving beside a data-parallel learner "
+                    "comes with ROADMAP.md Queue 1 item 10; serve on one rank"
+                )
+        if self.front_port < 0 or self.front_port > 65535:
+            raise ValueError("front_port must be in [0, 65535] (0 = off)")
+        if self.front_http_port < 0 or self.front_http_port > 65535:
+            raise ValueError(
+                "front_http_port must be in [0, 65535] (0 = off)"
+            )
+        if (
+            self.front_port
+            and self.front_http_port
+            and self.front_port == self.front_http_port
+        ):
+            raise ValueError(
+                "front_port and front_http_port must differ: the frame "
+                "server and the HTTP adapter each bind their own socket"
+            )
+        if self.front_timeout_s <= 0:
+            raise ValueError("front_timeout_s must be > 0")
+        if not 0.0 < self.front_canary_fraction < 1.0:
+            raise ValueError(
+                "front_canary_fraction must be in (0, 1): 0 would starve "
+                "the candidate of gate samples forever, 1 would route ALL "
+                "traffic through an unproven version"
+            )
+        if self.front_canary_min_requests < 1:
+            raise ValueError("front_canary_min_requests must be >= 1")
+        if self.front_canary_threshold <= 0:
+            raise ValueError("front_canary_threshold must be > 0")
+        if self.front_default_priority < 0:
+            raise ValueError("front_default_priority must be >= 0")
+        if not 0.0 < self.front_shed_start <= 1.0:
+            raise ValueError("front_shed_start must be in (0, 1]")
+        if self.front_tenants:
+            # Fail at parse, not at the first shed.
+            from distributed_ddpg_tpu_torch.serve.front.qos import parse_tenants
+
+            parse_tenants(self.front_tenants)
+        if (self.front_port or self.front_http_port) and not self.serve_actors:
+            raise ValueError(
+                "the network front rides the serve subsystem's "
+                "InferenceServer: set serve_actors=True (docs/SERVING.md "
+                "'Network front')"
+            )
         # The JAX package's device-actor, fused-beat and superstep checks
         # and messages (its config.py), before the slice's own refusals.
         if self.actor_backend not in ("host", "device"):

@@ -36,6 +36,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from distributed_ddpg_tpu_torch.devices import require_device
+
 
 class StepOut(NamedTuple):
     state: object             # post-step state (the reset applied where done)
@@ -76,9 +78,9 @@ class VectorPendulum:
     action_low = np.array([-2.0], np.float32)
     action_high = np.array([2.0], np.float32)
 
-    def __init__(self, num_envs: int, device="cpu"):
+    def __init__(self, num_envs: int, device="cuda"):
         self.num_envs = int(num_envs)
-        self.device = torch.device(device)
+        self.device = require_device(device)
         self._high = torch.tensor([math.pi, 1.0], dtype=torch.float32, device=self.device)
 
     def draw_reset(self, generator: torch.Generator) -> torch.Tensor:
@@ -141,9 +143,9 @@ class VectorMountainCar:
     action_low = np.array([-1.0], np.float32)
     action_high = np.array([1.0], np.float32)
 
-    def __init__(self, num_envs: int, device="cpu"):
+    def __init__(self, num_envs: int, device="cuda"):
         self.num_envs = int(num_envs)
-        self.device = torch.device(device)
+        self.device = require_device(device)
 
     def draw_reset(self, generator: torch.Generator) -> torch.Tensor:
         """[E, 1] positions uniform on [-0.6, -0.4]."""
@@ -192,7 +194,7 @@ def has_vector_env(env_id: str) -> bool:
     return env_id in _VECTOR_ENVS
 
 
-def make_vector_env(env_id: str, num_envs: int, device="cpu"):
+def make_vector_env(env_id: str, num_envs: int, device="cuda"):
     if env_id not in _VECTOR_ENVS:
         raise ValueError(
             f"no on-device (JAX) implementation for {env_id!r}; available: "

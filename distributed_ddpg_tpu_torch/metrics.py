@@ -1,9 +1,10 @@
 """Counters of the ingest pipeline, the transfer scheduler, the guardrails,
-the device actors and the fused beat.
+the device actors, the fused beat and the serving stack.
 
 A trimmed copy of distributed_ddpg_tpu/metrics.py: IngestStats and
 TransferStats (with the reservoir they keep their tails in),
-GuardrailStats, DevActorStats and FusedBeatStats, under the JAX package's snapshot keys letter for letter,
+GuardrailStats, DevActorStats, FusedBeatStats, and ServeStats, FrontStats
+and TenantStats (serve/), under the JAX package's snapshot keys letter for letter,
 so a record of either trainer reads the same. The port's JSONL log is
 train.JsonlLog.
 """
@@ -406,3 +407,266 @@ class FusedBeatStats:
             n, d = self._total_beats, self._total_supersteps
             return {"fused_beats": n, "fused_supersteps": d,
                     "fused_superstep_beats": round(n / d, 2) if d else 0.0}
+
+
+def _seeded_reservoir(name: str, seed: int) -> _Reservoir:
+    """A RESERVOIR_K reservoir seeded from its name (crc32, not hash(): str
+    hashing is salted per interpreter) and the stats' seed, as the JAX
+    package's PhaseTimers seeds its phases."""
+    return _Reservoir(RESERVOIR_K, (zlib.crc32(name.encode()) ^ seed) & 0x7FFFFFFF)
+
+
+class ServeStats:
+    """Thread-safe counters of the batched policy-inference service
+    (serve/): the `serve_*` fields of every train and final record when
+    serving is armed, and the digest of tools/serve_bench.py. The counters
+    are cumulative; the latency, batch-fill and queue-depth tails are the
+    interval's (each snapshot starts a new one):
+
+      serve_requests        requests accepted by the batcher
+      serve_batches         batches dispatched
+      serve_overloads       submissions the bounded queue refused
+                            (typed ServeOverload backpressure)
+      serve_errors          batch dispatches that failed; every request of
+                            the batch got a typed error
+      serve_param_refreshes params reloaded (broadcast buffer or refresh())
+      serve_fill_mean       rows a dispatched batch / max_batch, whole run
+      serve_fill_p50/p95    the interval's batch-fill tails
+      serve_p50_ms/p95_ms/max_ms
+                            the interval's request latency, enqueue to
+                            response delivered
+      serve_queue_depth     the request queue's depth at snapshot (gauge)
+      serve_queue_depth_p95 the interval's p95 of the depth at each submit
+    """
+
+    def __init__(self, seed: int = 0, max_batch: int = 1):
+        self._lock = threading.Lock()
+        self._seed = seed
+        self.max_batch = max(1, int(max_batch))
+        self.requests = 0
+        self.batches = 0
+        self.batch_rows = 0
+        self.overloads = 0
+        self.errors = 0
+        self.refreshes = 0
+        self._reset_reservoirs()
+
+    def _reset_reservoirs(self) -> None:
+        self._lat = _seeded_reservoir("serve_latency", self._seed)
+        self._fill = _seeded_reservoir("serve_fill", self._seed)
+        self._depth = _seeded_reservoir("serve_depth", self._seed)
+
+    def record_request(self, queue_depth: int) -> None:
+        with self._lock:
+            self.requests += 1
+            self._depth.add(float(queue_depth))
+
+    def record_batch(self, rows: int, latencies_s) -> None:
+        with self._lock:
+            self.batches += 1
+            self.batch_rows += int(rows)
+            self._fill.add(rows / self.max_batch)
+            for lat in latencies_s:
+                self._lat.add(lat)
+
+    def record_overload(self) -> None:
+        with self._lock:
+            self.overloads += 1
+
+    def record_error(self) -> None:
+        with self._lock:
+            self.errors += 1
+
+    def record_refresh(self) -> None:
+        with self._lock:
+            self.refreshes += 1
+
+    def snapshot(self, queue_depth: int = 0, reset: bool = True) -> Dict[str, float]:
+        with self._lock:
+            out = {
+                "serve_requests": self.requests,
+                "serve_batches": self.batches,
+                "serve_overloads": self.overloads,
+                "serve_errors": self.errors,
+                "serve_param_refreshes": self.refreshes,
+                "serve_fill_mean": (
+                    round(self.batch_rows / (self.batches * self.max_batch), 4)
+                    if self.batches else 0.0
+                ),
+                "serve_fill_p50": round(self._fill.percentile(0.50), 4),
+                "serve_fill_p95": round(self._fill.percentile(0.95), 4),
+                "serve_p50_ms": round(1000.0 * self._lat.percentile(0.50), 3),
+                "serve_p95_ms": round(1000.0 * self._lat.percentile(0.95), 3),
+                "serve_max_ms": round(1000.0 * self._lat.max, 3),
+                "serve_queue_depth": int(queue_depth),
+                "serve_queue_depth_p95": round(self._depth.percentile(0.95), 3),
+            }
+            if reset:
+                self._reset_reservoirs()
+        return out
+
+
+class FrontStats:
+    """Thread-safe counters of the network serving front (serve/front/):
+    the `front_*` fields of every train and final record when the front is
+    armed, and the digest of tools/serve_bench.py --transport socket. The
+    counters are cumulative; the wire-latency tail is the interval's:
+
+      front_requests        frames accepted over TCP
+      front_http_requests   requests accepted over the HTTP adapter (not a
+                            subset of front_requests)
+      front_bad_frames      undecodable or oversized frames, answered with
+                            a typed bad_frame error
+      front_sheds           requests the per-tenant QoS refused before the
+                            batcher (TenantStats splits them by cause)
+      front_overloads       requests the batcher's bounded queue refused
+                            past QoS admission
+      front_timeouts        requests that missed front_timeout_s
+      front_errors          dispatch failures surfaced as typed errors
+      front_canary_requests requests the canary split routed to the
+                            candidate version
+      front_promotes        candidates promoted by the live gate
+      front_rollbacks       candidates rolled back by the gate
+      front_wire_p50_ms/front_wire_p95_ms/front_wire_max_ms
+                            the interval's wire latency, frame decoded to
+                            response queued
+    """
+
+    def __init__(self, seed: int = 0):
+        self._lock = threading.Lock()
+        self._seed = seed
+        self.requests = 0
+        self.http_requests = 0
+        self.bad_frames = 0
+        self.sheds = 0
+        self.overloads = 0
+        self.timeouts = 0
+        self.errors = 0
+        self.canary_requests = 0
+        self.promotes = 0
+        self.rollbacks = 0
+        self._reset_reservoirs()
+
+    def _reset_reservoirs(self) -> None:
+        self._wire = _seeded_reservoir("front_wire", self._seed)
+
+    def record_request(self, http: bool = False) -> None:
+        with self._lock:
+            if http:
+                self.http_requests += 1
+            else:
+                self.requests += 1
+
+    def record_bad_frame(self) -> None:
+        with self._lock:
+            self.bad_frames += 1
+
+    def record_shed(self) -> None:
+        with self._lock:
+            self.sheds += 1
+
+    def record_overload(self) -> None:
+        with self._lock:
+            self.overloads += 1
+
+    def record_timeout(self) -> None:
+        with self._lock:
+            self.timeouts += 1
+
+    def record_error(self) -> None:
+        with self._lock:
+            self.errors += 1
+
+    def record_canary_request(self) -> None:
+        with self._lock:
+            self.canary_requests += 1
+
+    def record_promote(self) -> None:
+        with self._lock:
+            self.promotes += 1
+
+    def record_rollback(self) -> None:
+        with self._lock:
+            self.rollbacks += 1
+
+    def record_wire_latency(self, seconds: float) -> None:
+        with self._lock:
+            self._wire.add(float(seconds))
+
+    def snapshot(self, reset: bool = True) -> Dict[str, float]:
+        with self._lock:
+            out = {
+                "front_requests": self.requests,
+                "front_http_requests": self.http_requests,
+                "front_bad_frames": self.bad_frames,
+                "front_sheds": self.sheds,
+                "front_overloads": self.overloads,
+                "front_timeouts": self.timeouts,
+                "front_errors": self.errors,
+                "front_canary_requests": self.canary_requests,
+                "front_promotes": self.promotes,
+                "front_rollbacks": self.rollbacks,
+                "front_wire_p50_ms": round(1000.0 * self._wire.percentile(0.50), 3),
+                "front_wire_p95_ms": round(1000.0 * self._wire.percentile(0.95), 3),
+                "front_wire_max_ms": round(1000.0 * self._wire.max, 3),
+            }
+            if reset:
+                self._reset_reservoirs()
+        return out
+
+
+class TenantStats:
+    """Thread-safe per-tenant QoS counters (serve/front/qos.py): the
+    `tenant_*` fields, all cumulative (shed ordering is a contract over
+    the run; per_tenant() is its evidence):
+
+      tenant_count          distinct tenants seen
+      tenant_served         requests admitted past QoS
+      tenant_shed_rate      requests shed by a tenant's token bucket
+      tenant_shed_priority  requests shed by priority-ordered overload
+                            protection
+      tenant_shed_total     the two together
+      tenant_errors         typed errors returned after admission
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._tenants: Dict[str, Dict[str, int]] = {}
+
+    def _row(self, tenant: str) -> Dict[str, int]:
+        row = self._tenants.get(tenant)
+        if row is None:
+            row = {"served": 0, "shed_rate": 0, "shed_priority": 0, "errors": 0}
+            self._tenants[tenant] = row
+        return row
+
+    def record_served(self, tenant: str) -> None:
+        with self._lock:
+            self._row(tenant)["served"] += 1
+
+    def record_shed(self, tenant: str, cause: str) -> None:
+        """cause: 'rate' (token bucket) or 'priority' (overload shed)."""
+        with self._lock:
+            self._row(tenant)["shed_rate" if cause == "rate" else "shed_priority"] += 1
+
+    def record_error(self, tenant: str) -> None:
+        with self._lock:
+            self._row(tenant)["errors"] += 1
+
+    def per_tenant(self) -> Dict[str, Dict[str, int]]:
+        with self._lock:
+            return {t: dict(row) for t, row in self._tenants.items()}
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            rows = list(self._tenants.values())
+            shed_rate = sum(r["shed_rate"] for r in rows)
+            shed_priority = sum(r["shed_priority"] for r in rows)
+            return {
+                "tenant_count": len(rows),
+                "tenant_served": sum(r["served"] for r in rows),
+                "tenant_shed_rate": shed_rate,
+                "tenant_shed_priority": shed_priority,
+                "tenant_shed_total": shed_rate + shed_priority,
+                "tenant_errors": sum(r["errors"] for r in rows),
+            }

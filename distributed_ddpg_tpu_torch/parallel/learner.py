@@ -102,6 +102,7 @@ import torch
 
 from distributed_ddpg_tpu_torch import guardrails as guard_lib
 from distributed_ddpg_tpu_torch.config import DDPGConfig
+from distributed_ddpg_tpu_torch.devices import require_device
 from distributed_ddpg_tpu_torch.learner import (
     METRIC_KEYS,
     StepOutput,
@@ -138,13 +139,7 @@ class HostChunk(NamedTuple):
 def resolve_device(config: DDPGConfig) -> torch.device:
     """config.device as a torch.device; raises when the card is asked for
     and none is present (never carries on quietly on the CPU)."""
-    if config.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' but torch.cuda.is_available() is False: the port "
-            "runs its learner on the card; pass device='cpu' to run the plain "
-            "PyTorch versions instead"
-        )
-    return torch.device(config.device)
+    return require_device(config.device)
 
 
 def resolve_learner_chunk(config: DDPGConfig) -> int:

@@ -88,6 +88,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from distributed_ddpg_tpu_torch.devices import require_device
 from distributed_ddpg_tpu_torch.metrics import IngestStats
 from distributed_ddpg_tpu_torch.replay.staging import HostStagingRing
 from distributed_ddpg_tpu_torch.transfer import AdaptiveCoalesce, HostBufferPool
@@ -213,7 +214,7 @@ class _IngestShipper:
 
 
 class DeviceReplay:
-    def __init__(self, capacity: int, obs_dim: int, act_dim: int, device="cpu",
+    def __init__(self, capacity: int, obs_dim: int, act_dim: int, device="cuda",
                  block_size: int = 4096, staging_blocks: int = 16,
                  async_ship: bool = False, max_coalesce: int = 8, scheduler=None,
                  adaptive_coalesce: bool = False, host_pool: bool = False,
@@ -222,7 +223,7 @@ class DeviceReplay:
         self.obs_dim, self.act_dim = obs_dim, act_dim
         self.block_size = int(block_size)
         self.width = packed_width(obs_dim, act_dim)
-        self.device = torch.device(device)
+        self.device = require_device(device)
         self.storage = torch.zeros(
             (self.capacity, self.width), dtype=torch.float32, device=self.device
         )
@@ -682,9 +683,10 @@ class DevicePrioritizedReplay(DeviceReplay):
       the JAX package's dispatch lock ensures.
     """
 
-    def __init__(self, capacity: int, obs_dim: int, act_dim: int, device="cpu",
+    def __init__(self, capacity: int, obs_dim: int, act_dim: int, device="cuda",
                  block_size: int = 4096, staging_blocks: int = 16,
                  alpha: float = 0.6, eps: float = 1e-6, **pipeline):
+        device = require_device(device)
         # The priorities exist before the base class can start a shipper.
         self.priorities = torch.zeros(int(capacity), dtype=torch.float32, device=device)
         self.max_priority = torch.ones((), dtype=torch.float32, device=device)

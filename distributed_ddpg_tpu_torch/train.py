@@ -187,6 +187,19 @@ The fused_* fields are in the records; the summary has fused_beat_active
 and the whole run's fused_beats, fused_supersteps and
 fused_superstep_beats.
 
+--serve_actors=true serves the host workers' mu(s) from one
+InferenceServer in this process (JAX :1095-1220): the server refreshes
+from the pool's broadcast buffer, its batch applies ride the transfer
+scheduler's `serve` class, a ServeFront thread moves the workers'
+requests into its batcher, and --serve_backend=jax applies the policy on
+the card (serve/server.py). It is built and warmed before the workers
+start. --front_port / --front_http_port add the network front
+(serve/front/): one engine a version, the learner's params published as
+"live-0" at the start. The serve_* fields (and front_* and tenant_*) go
+into every record, and one snapshot into the final record and the
+summary. Teardown: the workers, then the front, then ServeFront, then the
+server flushes (JAX :2582-2595). One rank.
+
 --backend=native runs train_native instead: the numpy learner
 (native_backend.py) on the CPU, one env and one step a train_every env
 steps, the JAX trainer's baseline loop, asked for by name.
@@ -216,6 +229,8 @@ Usage:
     python -m distributed_ddpg_tpu_torch.train --actor_backend=device --num_actors=0 \
         --fused_chunk=off --fused_update=true --superstep_beats=4  # fused beats
     python -m distributed_ddpg_tpu_torch.train --backend=jax_ondevice  # the monolith
+    python -m distributed_ddpg_tpu_torch.train --serve_actors=true --serve_backend=jax \
+        --num_actors=4                                             # served actors
 """
 
 from __future__ import annotations
@@ -408,6 +423,11 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             f"host_replay=True on {learner.data_size} ranks is not in this slice of the "
             "PyTorch port: a host replay a rank under the lockstep driver comes with "
             "ROADMAP.md Queue 1 item 10; run the host replay on one rank")
+    if config.serve_actors and learner.data_size > 1:
+        raise ValueError(
+            f"serve_actors=True on {learner.data_size} ranks is not in this slice of the "
+            "PyTorch port: serving beside a data-parallel learner comes with ROADMAP.md "
+            "Queue 1 item 10; serve on one rank")
     device_actors = config.actor_backend == "device"
     if device_actors and learner.data_size > 1:
         raise ValueError(
@@ -562,7 +582,18 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         """The device actors' carry for a checkpoint's sidecar (or None)."""
         return device_pool.carry_state_dict() if device_pool is not None else None
 
+    def serve_fields() -> Dict[str, Any]:
+        """The serve_* fields (metrics.ServeStats) and the workers'
+        fallbacks while serving; front_* and tenant_* with the front."""
+        if serve_server is None:
+            return {}
+        out = {**serve_server.snapshot(), **pool.serve_counters()}
+        if front_server is not None:
+            out.update(front_server.snapshot())
+        return out
+
     pool = None
+    serve_server = serve_front = front_server = None
 
     def local_env_steps() -> int:
         """Env steps of this rank's sources: the host pool's, the device
@@ -855,6 +886,9 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             # strict_sync: inline deterministic actors, the same surface.
             pool = (SyncActorPool if strict else ActorPool)(config, spec,
                                                             env_steps_offset=env_offset)
+            if config.serve_actors:
+                serve_server, serve_front, front_server = start_serving(
+                    config, spec, pool, transfer_sched, learner.actor_params_to_host())
             pool.start(learner.actor_params_to_host())
         if device_actors:
             # After the resume, so the uniform warmup nets out the restored
@@ -1040,6 +1074,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                     **guardrail_fields(),
                     **devactor_fields(),
                     **fused_fields(),
+                    **serve_fields(),
                 )
             if lead and config.eval_every and n_env - last_eval >= config.eval_every:
                 last_eval = n_env
@@ -1068,6 +1103,16 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             prefetch.stop()
         if pool is not None:
             pool.stop()
+        # Then the serving stack (no worker can ask any more): the front
+        # stops taking external traffic, ServeFront stops feeding the
+        # batcher, and the server flushes every accepted request, all
+        # before the scheduler under it closes.
+        if front_server is not None:
+            front_server.stop()
+        if serve_front is not None:
+            serve_front.stop()
+        if serve_server is not None:
+            serve_server.close()
         # The shipper stops (later inserts would ship inline), then the
         # scheduler: its pending tickets fail into their waiters.
         if not host_replay:
@@ -1108,12 +1153,15 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     )
     # The summary keeps the scheduler's ingest and prefetch counts and the
     # replay's transfer fields; the final record has every class's.
-    kept = {"transfer_ingest_items", "transfer_prefetch_items",
+    kept = {"transfer_ingest_items", "transfer_prefetch_items", "transfer_serve_items",
             *(() if host_replay else replay.transfer_snapshot())}
     ingest_summary = {k: v for k, v in ingest_record.items()
                       if not k.startswith("transfer_") or k in kept}
     devactor_final = devactor_fields()
     fused_final = fused_fields()
+    # One serve snapshot for the final record and the summary: a second
+    # would report the tails of an empty interval.
+    serve_final = serve_fields()
     log.log(
         "final", n_env,
         learner_steps=learn_steps,
@@ -1134,6 +1182,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         **host_fields(),
         **guardrail_fields(),
         **(recovery_fields() if guard_on else {}),
+        **serve_final,
     )
     log.close()
     return {
@@ -1163,8 +1212,61 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         "numeric_failed": numeric_failed,
         **guardrail_fields(),
         **(recovery_fields() if guard_on else {}),
+        **serve_final,
         **({"alpha": float(learner.state.log_alpha.exp())} if config.sac else {}),
     }
+
+
+def start_serving(config: DDPGConfig, spec, pool, scheduler, flat_params):
+    """The serving stack of --serve_actors (JAX train.py:1095-1220): the
+    InferenceServer (built, and on the card warmed, here, before any
+    worker starts) and its ServeFront over the pool's channels, and with
+    front_port / front_http_port the FrontServer, one engine a version,
+    the learner's params published as "live-0". A bind failure of the
+    front is said on stderr and leaves the run without it (ingress must
+    never kill the run it fronts). Returns (server, serve_front, front)."""
+    from distributed_ddpg_tpu_torch.serve import InferenceServer, ServeFront
+
+    plan = config.fault_plan()
+
+    def engine(**kw):
+        return InferenceServer(
+            pool.layout, spec.action_scale, spec.action_offset,
+            max_batch=config.serve_max_batch,
+            max_latency_s=config.serve_max_latency_ms / 1000.0,
+            max_queue=config.serve_queue, backend=config.serve_backend,
+            seed=config.seed, sac=config.sac, log_std_min=config.sac_log_std_min,
+            log_std_max=config.sac_log_std_max, device=config.device, **kw)
+
+    server = engine(param_source=pool.param_source(), scheduler=scheduler,
+                    fault_batcher=plan.site("serve", "batcher") if plan else None,
+                    fault_dispatch=plan.site("serve", "dispatch") if plan else None).start()
+    serve_front = ServeFront(server, *pool.serve_channels()).start()
+    front = None
+    if config.front_port or config.front_http_port:
+        from distributed_ddpg_tpu_torch.serve.front import FrontServer
+
+        try:
+            front = FrontServer(
+                engine, port=config.front_port, http_port=config.front_http_port or None,
+                timeout_s=config.front_timeout_s,
+                canary_fraction=config.front_canary_fraction,
+                canary_min_requests=config.front_canary_min_requests,
+                canary_threshold=config.front_canary_threshold,
+                tenants=config.front_tenants, default_priority=config.front_default_priority,
+                shed_start=config.front_shed_start, seed=config.seed,
+                fault_accept=plan.site("front", "accept") if plan else None,
+                fault_frame=plan.site("front", "frame") if plan else None,
+                canary_regressions=plan.front_canary_regressions() if plan else (),
+            )
+            front.publish("live-0", flat_params)
+            front.start()
+            print(f"[front] serving ingress on tcp:{front.port} "
+                  f"http:{front.http_port or '-'} (stable=live-0)", file=sys.stderr, flush=True)
+        except OSError as e:
+            front = None
+            print(f"[front] ingress disabled (bind failed: {e})", file=sys.stderr, flush=True)
+    return server, serve_front, front
 
 
 def train_native(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:

@@ -197,7 +197,7 @@ def test_config_defaults_match_jax():
     dict(sac=True, fused_update=True),
     dict(data_axis=0), dict(compute_dtype="float16"), dict(guardrails=True, fused_chunk="on"),
     dict(data_axis=-2), dict(model_axis=2), dict(actor_backend="device", data_axis=2),
-    dict(serve_actors=True), dict(transport="tcp"), dict(fused_mesh="on"),
+    dict(serve_actors=True, data_axis=2), dict(transport="tcp"), dict(fused_mesh="on"),
     dict(action_insert_layer=5), dict(faults="worker:0:crash@5"),
 ])
 def test_options_outside_the_slice_raise(override):

@@ -121,7 +121,7 @@ def test_rollout_rows_match_the_jax_pool(family):
     init, draws = _jax_draws(jcfg, 2 * K)
     state = train_state_from_numpy(jax.tree.map(np.asarray, jstate))
     pool = _port_pool(cfg, init, state.actor_params)
-    rep = DeviceReplay(cfg.replay_capacity, pool.obs_dim, pool.act_dim)
+    rep = DeviceReplay(cfg.replay_capacity, pool.obs_dim, pool.act_dim, device="cpu")
     for c in range(2):
         jpool.set_params(jstate.actor_params)
         assert jpool.run_chunk(jrep) == K * E
@@ -140,7 +140,7 @@ def test_rollout_rows_match_the_jax_pool(family):
 def test_insert_device_rows_wraparound_and_per_stamp_match_jax():
     mesh = _one_device_mesh()
     jper = JaxPER(64, 3, 1, mesh=mesh, block_size=16, async_ship=False)
-    per = DevicePrioritizedReplay(64, 3, 1, block_size=16)
+    per = DevicePrioritizedReplay(64, 3, 1, device="cpu", block_size=16)
     width = per.width
     rows = np.arange(48 * width, dtype=np.float32).reshape(48, width)
     for r in (rows, rows + 1000.0):
@@ -161,7 +161,7 @@ def test_insert_device_rows_wraparound_and_per_stamp_match_jax():
 
 
 def test_device_rows_stamp_the_source_map_untracked():
-    rep = DeviceReplay(32, 3, 1, block_size=8, track_sources=True)
+    rep = DeviceReplay(32, 3, 1, device="cpu", block_size=8, track_sources=True)
     rep.add_packed(np.ones((8, rep.width), np.float32), source=3)
     rep.insert_device_rows(torch.zeros((12, rep.width)))
     rep.add_packed(np.ones((16, rep.width), np.float32), source=5)
@@ -202,13 +202,13 @@ def test_bounded_restart_absorbs_a_failure_then_exhausts(where):
     params = init_train_state(cfg, 3, 1, 0).actor_params
     clean = DeviceActorPool(cfg)
     clean.set_params(params)
-    r1 = DeviceReplay(4096, 3, 1)
+    r1 = DeviceReplay(4096, 3, 1, device="cpu")
     if where == "before-rollout":
         failing = DeviceActorPool(cfg, fault=_Failing({2}))
-        r2 = DeviceReplay(4096, 3, 1)
+        r2 = DeviceReplay(4096, 3, 1, device="cpu")
     else:
         failing = DeviceActorPool(cfg)
-        r2 = _FailingInsert({2}, 4096, 3, 1)
+        r2 = _FailingInsert({2}, 4096, 3, 1, "cpu")
     failing.set_params(params)
     for _ in range(2):
         assert clean.run_chunk(r1) == failing.run_chunk(r2) == K * E
@@ -236,7 +236,7 @@ def test_carry_round_trip_continues_the_rollout():
     params = init_train_state(cfg, 3, 1, 0).actor_params
     a = DeviceActorPool(cfg)
     a.set_params(params)
-    rep = DeviceReplay(4096, 3, 1)
+    rep = DeviceReplay(4096, 3, 1, device="cpu")
     a.run_chunk(rep)
     a.run_chunk(rep)
     snap = a.carry_state_dict()
@@ -244,7 +244,7 @@ def test_carry_round_trip_continues_the_rollout():
     b = DeviceActorPool(cfg)
     b.set_params(params)
     assert b.load_carry_state(snap) is True
-    cont, rest = DeviceReplay(4096, 3, 1), DeviceReplay(4096, 3, 1)
+    cont, rest = DeviceReplay(4096, 3, 1, device="cpu"), DeviceReplay(4096, 3, 1, device="cpu")
     a.run_chunk(cont)
     b.run_chunk(rest)
     np.testing.assert_array_equal(cont.storage.numpy(), rest.storage.numpy())
@@ -260,7 +260,7 @@ def test_checkpoint_carries_the_sidecar(tmp_path):
     state = init_train_state(cfg, 3, 1, 0)
     pool = DeviceActorPool(cfg)
     pool.set_params(state.actor_params)
-    rep = DeviceReplay(4096, 3, 1)
+    rep = DeviceReplay(4096, 3, 1, device="cpu")
     pool.run_chunk(rep)
     d = str(tmp_path)
     ckpt.save(d, 7, state, rep, cfg, env_steps=K * E, devactor_state=pool.carry_state_dict())
@@ -269,7 +269,7 @@ def test_checkpoint_carries_the_sidecar(tmp_path):
     assert "devactor_carry.npz" in manifest["files"]
     assert ckpt.verify_checkpoint(d, 7)[0]
     meta = {}
-    _, step, env_steps = ckpt.restore(d, state, DeviceReplay(4096, 3, 1), meta_out=meta)
+    _, step, env_steps = ckpt.restore(d, state, DeviceReplay(4096, 3, 1, device="cpu"), meta_out=meta)
     assert (step, env_steps) == (7, K * E) and "devactor_carry" in meta
     fresh = DeviceActorPool(cfg)
     assert fresh.load_carry_state(meta["devactor_carry"]) is True
@@ -397,7 +397,7 @@ def test_resolve_device_actor_chunk():
 def test_rollout_after_a_chunk_reads_the_new_params():
     _, cfg = _cfgs(batch_size=16, learner_chunk=4)
     learner = ShardedLearner(cfg, 3, 1, np.array([2.0], np.float32), chunk_size=4)
-    rep = DeviceReplay(4096, 3, 1)
+    rep = DeviceReplay(4096, 3, 1, device="cpu")
     warm = DeviceActorPool(cfg)
     warm.bind(lambda: learner.state.actor_params)
     for _ in range(4):
@@ -412,7 +412,7 @@ def test_rollout_after_a_chunk_reads_the_new_params():
             pool.bind(lambda: learner.state.actor_params)
         else:
             pool.set_params(params)
-        out = DeviceReplay(4096, 3, 1)
+        out = DeviceReplay(4096, 3, 1, device="cpu")
         pool.run_chunk(out)
         rows[name] = out.storage[:K * E].numpy()
     np.testing.assert_array_equal(rows["bound"], rows["new"])

@@ -89,9 +89,9 @@ def _system(**over):
     pool.bind(lambda: learner.state.actor_params)
     if cfg.prioritized:
         rep = DevicePrioritizedReplay(cfg.replay_capacity, pool.obs_dim, pool.act_dim,
-                                      alpha=cfg.per_alpha, eps=cfg.per_eps)
+                                      device="cpu", alpha=cfg.per_alpha, eps=cfg.per_eps)
     else:
-        rep = DeviceReplay(cfg.replay_capacity, pool.obs_dim, pool.act_dim)
+        rep = DeviceReplay(cfg.replay_capacity, pool.obs_dim, pool.act_dim, device="cpu")
     while len(rep) < cfg.replay_min_size:
         pool.run_chunk(rep)
     return cfg, learner, pool, rep
@@ -289,11 +289,11 @@ def _port_from_jax(cfg, jl, jp, jr):
         ret_sum=t(c.ret_sum), host_steps=int(c.steps))
     if cfg.prioritized:
         rep = DevicePrioritizedReplay(cfg.replay_capacity, pool.obs_dim, pool.act_dim,
-                                      alpha=cfg.per_alpha, eps=cfg.per_eps)
+                                      device="cpu", alpha=cfg.per_alpha, eps=cfg.per_eps)
         rep.set_per_state(torch.from_numpy(_np(jr.priorities).copy()),
                           torch.tensor(float(jr.max_priority)))
     else:
-        rep = DeviceReplay(cfg.replay_capacity, pool.obs_dim, pool.act_dim)
+        rep = DeviceReplay(cfg.replay_capacity, pool.obs_dim, pool.act_dim, device="cpu")
     rep.storage.copy_(torch.from_numpy(_np(jr.storage).copy()))
     rep.ptr, rep.size = int(_np(jr.ptr)), int(_np(jr.size))
     return learner, pool, rep

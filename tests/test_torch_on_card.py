@@ -58,7 +58,11 @@ updates left out), the row screen of more than 32 bad rows as on the CPU.
 Device actors: a rollout (64 envs x 8 steps, DDPG and SAC through its
 uniform warmup) on the card against the CPU from the same draws, step by
 step (rtol 1e-5, atol 1e-5), and a rollout after a K1 chunk bit for bit one from a
-copy of the learner's new actor params.
+copy of the learner's new actor params. Serving: the device apply
+(serve/server.py) at 2x256, DDPG and SAC's head, at Pendulum's and the
+bench's shapes, n = 1, 7 and 32 of max_batch 32, against the numpy oracle
+and the same apply on the CPU (atol 1e-5); a seqlock refresh served from
+the next batch on, and no synchronizing call in an apply.
 """
 
 import time
@@ -835,3 +839,39 @@ def test_rollout_after_a_kernel_chunk_reads_the_new_params_on_card():
         out[name] = r.storage[:pool.rows_per_chunk].cpu()
     assert torch.equal(out["bound"], out["new"])
     assert not torch.equal(out["bound"], out["old"])
+
+
+# --- serving: the device apply on the card ----------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sac", [False, True], ids=["ddpg", "sac"])
+@pytest.mark.parametrize("shape", [(3, 1), (17, 6)], ids=["pendulum", "bench"])
+def test_serve_device_apply_on_card_matches_the_oracle_and_the_cpu(shape, sac):
+    """The device apply (serve/server.py, backend 'jax') at 2x256, n = 1, 7
+    and 32 of max_batch 32, against the numpy oracle and the same apply on
+    the CPU at atol 1e-5; stale values in the padded buffer change no
+    answer (tools/serve_checks.check_apply, chip_smoke.py's check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the serve apply runs on the card")
+    from distributed_ddpg_tpu_torch.tools import serve_checks as sc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    obs, act = shape
+    err, _, card = sc.check_apply(obs, act, sac, "cuda", atol=1e-5, seed=obs + 10 * sac)
+    assert card.device.type == "cuda" and err <= 1e-5
+
+
+@pytest.mark.cuda
+def test_serve_refresh_on_card_serves_from_the_next_batch_without_a_sync():
+    """A seqlock refresh from the broadcast buffer lands in the resident
+    params from the next batch on (an odd version is skipped), and an apply
+    makes no synchronizing call (torch's sync debug mode)
+    (tools/serve_checks, chip_smoke.py's checks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the serve apply runs on the card")
+    from distributed_ddpg_tpu_torch.tools import serve_checks as sc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = sc.check_seqlock_refresh("cuda", atol=1e-5)
+    assert sc.count_syncs(card) == 0

@@ -239,7 +239,7 @@ def test_sac_gates_match_jax(override):
 
 
 @pytest.mark.parametrize("override", [
-    dict(serve_actors=True), dict(compute_dtype="float16"),
+    dict(serve_actors=True, data_axis=2), dict(compute_dtype="float16"),
     dict(guardrails=True, fused_chunk="on"), dict(data_axis=-3),
 ])
 def test_sac_with_options_outside_the_slice_raises(override):

@@ -85,7 +85,7 @@ def test_pendulum_step_matches_jax():
         t=jnp.asarray(rng.choice([0, 5, 198, 199], E).astype(np.int32)))
     actions = rng.uniform(-3.0, 3.0, (E, 1)).astype(np.float32)
     jout, fresh = _jax_step(jax_envs.JaxPendulum(), jstate, actions, jax.random.PRNGKey(1))
-    env = ve.VectorPendulum(E)
+    env = ve.VectorPendulum(E, device="cpu")
     reset = torch.from_numpy(np.stack([np.asarray(fresh.th), np.asarray(fresh.thdot)], 1))
     out = env.step(_pendulum_state(jstate), torch.from_numpy(actions), reset)
     assert out.done.any() and not out.done.all()
@@ -94,7 +94,7 @@ def test_pendulum_step_matches_jax():
 
 def test_pendulum_rollout_with_auto_resets_matches_jax():
     E, T = 8, 420
-    jenv, env = jax_envs.JaxPendulum(), ve.VectorPendulum(E)
+    jenv, env = jax_envs.JaxPendulum(), ve.VectorPendulum(E, device="cpu")
     key = jax.random.PRNGKey(3)
     k0, key = jax.random.split(key)
     jstate = jax.vmap(jenv.init)(jax.random.split(k0, E))
@@ -124,7 +124,7 @@ def test_mountain_car_step_matches_jax():
         t=jnp.asarray(rng.choice([0, 500, 997, 998], E).astype(np.int32)))
     actions = rng.uniform(-1.5, 1.5, (E, 1)).astype(np.float32)
     jout, fresh = _jax_step(jax_envs.JaxMountainCar(), jstate, actions, jax.random.PRNGKey(2))
-    env = ve.VectorMountainCar(E)
+    env = ve.VectorMountainCar(E, device="cpu")
     state = ve.MountainCarState(*(torch.from_numpy(np.asarray(x).copy()) for x in jstate))
     out = env.step(state, torch.from_numpy(actions), torch.from_numpy(
         np.asarray(fresh.pos)[:, None].copy()))
@@ -152,7 +152,7 @@ def test_vector_env_ids_and_refusal_match_jax():
     assert set(ve._VECTOR_ENVS) == set(jax_envs._JAX_ENVS)
     for env_id, cls in jax_envs._JAX_ENVS.items():
         assert ve.has_vector_env(env_id) == jax_envs.has_jax_env(env_id)
-        env = ve.make_vector_env(env_id, 3)
+        env = ve.make_vector_env(env_id, 3, device="cpu")
         assert (env.obs_dim, env.act_dim) == (cls.obs_dim, cls.act_dim)
         np.testing.assert_array_equal(env.action_low, cls.action_low)
         np.testing.assert_array_equal(env.action_high, cls.action_high)
@@ -165,9 +165,9 @@ def test_vector_env_ids_and_refusal_match_jax():
 
 def test_draw_reset_on_jax_ranges():
     gen = torch.Generator().manual_seed(0)
-    p = ve.VectorPendulum(4096).draw_reset(gen).numpy()
+    p = ve.VectorPendulum(4096, device="cpu").draw_reset(gen).numpy()
     assert p.shape == (4096, 2)
     assert np.all(np.abs(p[:, 0]) <= math.pi) and np.all(np.abs(p[:, 1]) <= 1.0)
     assert p[:, 0].min() < -3.0 and p[:, 0].max() > 3.0
-    m = ve.VectorMountainCar(4096).draw_reset(gen).numpy()
+    m = ve.VectorMountainCar(4096, device="cpu").draw_reset(gen).numpy()
     assert m.shape == (4096, 1) and np.all((m >= -0.6) & (m <= -0.4))
