@@ -233,8 +233,29 @@ Phases (any failure raises; nothing is caught and passed over):
    the routing following. Then tools/serve_bench.py's numpy and device
    backends at 1 and 8 clients (SERVE_BENCH_S each), and the device
    backend while K1 (a) chunks run back to back. The kernels' record
-   counts K1 (a)'s launches on the gated served path, and lists each
-   kernel's launches on every path (launches_on_paths).
+   lists each kernel's launches on every path (launches_on_paths).
+4g. The operations layer (operations_phase, OPS_LIMIT_S of its own, an
+   alarm): the DDPG main path on K1 (a) for OPS_ENV_STEPS env steps
+   without, then with --trace_dir --watchdog_s=20 --obs_port --tb_dir
+   --log_path, a thread scraping /healthz (200, healthy), /metrics (the
+   train record's learner rate) and /trace during the second and sending
+   SIGUSR2 once (its export must appear); trace.json with the learner's,
+   the ship's and the scheduler's spans, each actor's own file, the train
+   records' t_dispatch_*, t_sync_*, t_ingest_* and staleness_* fields,
+   and both runs' learner steps/s printed. A short run with --profile_dir
+   in a child process: K1's kernel a CUDA kernel event once a chunk in its
+   Chrome trace. Three
+   CLI fault drills together (fault_drills): OPS_FAULTS on K1 (a) with two
+   actors (two respawns, dead and no_rows, a shipper restart, a scheduler
+   restart, a checkpoint write retry), the host replay on the scan route
+   with K2 and a slow prefetch sample, the device actors with a rollout
+   crash (one restart), each exit 0. The stall drill: a child trainer with
+   --watchdog_s=5 whose harness enqueues torch.cuda._sleep on the
+   learner's stream after the first chunk exits 70 with stall_report.json
+   (the main thread in its device read) and stall_trace.json; the seconds
+   from the stall to the report and to the process's end printed. The
+   kernels' record counts K1 (a)'s launches on the traced main path and
+   K2's on the prefetch drill.
 5. Time each branch of the kernel at the main path's shapes (CUDA events,
    warmed up) beside its plain version (one run, timed where the parity
    phase ran it at these shapes: PLAIN_MS) and its bound; the eager autograd
@@ -1785,7 +1806,7 @@ def drive_main_path(flags, name: str, summary_out: dict = None) -> dict:
         f"{summary['ingest_async_active']}: learner steps/s {summary['learner_steps_per_sec']}, "
         f"env steps/s {summary['env_steps_per_sec']}; the driver's ingest while chunks ran "
         f"{summary['t_ingest_chunk_ms']:.3f} ms a chunk (longest call "
-        f"{summary['t_ingest_max']:.3f} ms, {summary['n_ingest']} calls); since the last "
+        f"{summary['t_ingest_run_max']:.3f} ms, {summary['n_ingest_run']} calls); since the last "
         f"train record: ingest_coalesce_mean {summary.get('ingest_coalesce_mean')}, "
         f"ingest_stall_ms {summary.get('ingest_stall_ms')}, transfer_pool_fence_waits "
         f"{summary.get('transfer_pool_fence_waits')}; the card idle between chunks "
@@ -1803,7 +1824,7 @@ def drive_main_path(flags, name: str, summary_out: dict = None) -> dict:
                              f"{summary['ingest_async_active']}")
     if cfg.host_replay:
         log(f"[main path {name}] host replay: the driver's wait for a prefetched chunk "
-            f"{summary['t_sample_wait_ms']:.3f} ms a chunk (depth {summary['prefetch_depth']})"
+            f"{summary['t_sample_wait_run_ms']:.3f} ms a chunk (depth {summary['prefetch_depth']})"
             + (f", sum tree {summary['sum_tree']}" if cfg.prioritized else ""))
         if cfg.prioritized and summary["sum_tree"] != "native":
             raise AssertionError(f"main path {name}: the host PER ran the "
@@ -1878,7 +1899,7 @@ def before_after(card: str, path: str, default_run: dict, old_flags, name: str) 
             f"{ms_a_chunk(s):.2f} ms a chunk over {s['chunks']} chunks ({s['env_steps']} env "
             f"steps), the card idle between chunks {s['gap_median_ms']} ms median, the "
             f"driver's ingest {s['t_ingest_chunk_ms']:.3f} ms a chunk, longest call "
-            f"{s['t_ingest_max']:.3f} ms")
+            f"{s['t_ingest_run_max']:.3f} ms")
 
 
 def time_branch(cfg, name: str, k: int, step: int, card: str, eager: bool,
@@ -2213,7 +2234,7 @@ def mesh_main_path(flags, group, say, route: str) -> dict:
         + json.dumps({k: summary[k] for k in keys}
                      | {k: summary[k] for k in ("v_min", "v_max", "beta", "max_priority",
                                                 "transport", "ingest_async_active",
-                                                "t_ingest_chunk_ms", "t_ingest_max",
+                                                "t_ingest_chunk_ms", "t_ingest_run_max",
                                                 "ingest_coalesce_mean", "ingest_stall_ms",
                                                 "transfer_pool_fence_waits")
                         if k in summary}))
@@ -3098,7 +3119,7 @@ def host_replay_phase(card: str, common) -> dict:
     for path, s in summaries.items():
         log(f"[host replay] {card}: {path} main path on the host replay: learner steps/s "
             f"{s['learner_steps_per_sec']}, env steps/s {s['env_steps_per_sec']}, "
-            f"{s['chunks']} chunks, the driver's wait for a chunk {s['t_sample_wait_ms']:.3f} "
+            f"{s['chunks']} chunks, the driver's wait for a chunk {s['t_sample_wait_run_ms']:.3f} "
             f"ms a chunk, the card idle between chunks {s['gap_median_ms']} ms median"
             + (f", sum tree {s['sum_tree']}" if "sum_tree" in s else ""))
     log(f"[host replay] {card}: " + json.dumps(dict(prefetched=prefetched, launches=out)))
@@ -3622,7 +3643,7 @@ def served_main_path(card: str, gated: bool) -> dict:
         f"first chunk's start to the last's end, idle between chunks {s['gap_median_ms']} ms "
         f"median; env steps/s {s['env_steps_per_sec']}, learner steps/s "
         f"{s['learner_steps_per_sec']}; ingest_stall_ms {s.get('ingest_stall_ms')}, the "
-        f"driver's longest ingest call {s['t_ingest_max']:.3f} ms")
+        f"driver's longest ingest call {s['t_ingest_run_max']:.3f} ms")
     if not (s["serve_requests"] > 0 and s["serve_errors"] == 0 and s["serve_overloads"] == 0
             and s["transfer_serve_items"] > 0 and s["serve_client_fallbacks"] <= 8):
         raise AssertionError(f"the served main path is not healthy: {s}")
@@ -3798,6 +3819,413 @@ def serving_phase(card: str) -> dict:
     secs = time.monotonic() - t0
     log(f"[phase] 4f took {secs:.1f}s")
     return dict(apply=apply, served=served, free=free, front=front, bench=bench, seconds=secs)
+
+
+# --- 4g. the operations layer (trace.py, watchdog.py, obs/, faults.py) -------
+
+OPS_LIMIT_S = 150         # phase 4g's alarm (its budget is ~40 s on a fast host)
+OPS_ENV_STEPS = 3000      # the traced main path, and the same path without the flags
+# The profiled run: the warmup (1000 rows), then env steps held to the
+# learner's by --max_ingest_ratio=1, so two chunks or three.
+OPS_PROFILE_ENV_STEPS = 2600
+OPS_WATCHDOG_S = 5        # the stall drill child's --watchdog_s
+# The drill child's torch.cuda._sleep: at least 60 s at any SM clock up to
+# 2 GHz (an H100 boosts to 1.98 GHz), over 10x OPS_WATCHDOG_S.
+OPS_SLEEP_CYCLES = 60 * 2_000_000_000
+OPS_DRILL_S = 240         # each drill child's time limit
+# The CLI drill on K1 (a): both workers fail at their 500th env step (one
+# dead, one heartbeating without rows), the 2nd ship and the 2nd transfer
+# dispatch crash, the 1st checkpoint write fails, the 2nd broadcast is slow.
+OPS_FAULTS = ("worker:0:crash@500;worker:1:stall@500;shipper:ship:crash@2;"
+              "transfer:dispatch:crash@2;ckpt:write:ioerror@1;pool:broadcast:slow@2")
+OPS_DRILL_ENV_STEPS = 8000
+OPS_DEVACTOR_ENV_STEPS = 3 * 65536   # the warmup's rollout and two more (1024 envs x 64)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class Scraper:
+    """A thread that scrapes a running trainer's exporter every 250 ms:
+    /healthz (200 and `healthy` expected), /metrics (the train record's
+    learner rate once one is logged) and, at most twice, /trace (each
+    writes the whole ring to a file); after the first scrape
+    that shows a train record it sends this process SIGUSR2 once and waits
+    for the signal's export (`trace_path`) to appear."""
+
+    def __init__(self, port: int, trace_path: str):
+        import threading
+
+        self.url = f"http://127.0.0.1:{port}"
+        self.trace_path = trace_path
+        self.seen = dict(healthz=0, unhealthy=[], metrics=0, train_gauge=0, trace=0,
+                         sigusr2_export=False)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="scraper", daemon=True)
+
+    def start(self) -> "Scraper":
+        self._thread.start()
+        return self
+
+    def _get(self, path: str):
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(self.url + path, timeout=2) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+        except OSError:
+            return None, ""     # not bound yet, or already gone
+
+    def _run(self) -> None:
+        signalled = False
+        while not self._stop.wait(0.25):
+            status, body = self._get("/healthz")
+            if status is None:
+                continue
+            if status == 200 and json.loads(body)["state"] == "healthy":
+                self.seen["healthz"] += 1
+            else:
+                self.seen["unhealthy"].append((status, body))
+            status, body = self._get("/metrics")
+            if status == 200:
+                self.seen["metrics"] += 1
+                if 'ddpg_learner_steps_per_sec{kind="train"}' in body:
+                    self.seen["train_gauge"] += 1
+            if self.seen["trace"] < 2:
+                status, body = self._get("/trace")
+                if status == 200 and json.loads(body).get("enabled"):
+                    self.seen["trace"] += 1
+            if self.seen["train_gauge"] and not signalled:
+                signalled = True
+                os.kill(os.getpid(), signal.SIGUSR2)
+                deadline = time.monotonic() + 5.0
+                while time.monotonic() < deadline and not os.path.exists(self.trace_path):
+                    time.sleep(0.01)
+                self.seen["sigusr2_export"] = os.path.exists(self.trace_path)
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        return self.seen
+
+
+def _tracks(path: str) -> dict:
+    """{thread name: the set of span and instant names} of a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["tid"]: e["args"]["name"] for e in events if e["ph"] == "M"}
+    out = {}
+    for e in events:
+        if e["ph"] != "M":
+            out.setdefault(names.get(e["tid"], str(e["tid"])), set()).add(e["name"])
+    return out
+
+
+def traced_main_path(card: str, common) -> dict:
+    """4g (1): the DDPG main path on K1 (a) for OPS_ENV_STEPS env steps,
+    first without and then with --trace_dir --watchdog_s=20 --obs_port
+    --tb_dir --log_path, a Scraper reading the exporter during the second
+    and sending SIGUSR2 once. Checks the exporter answered (/healthz 200
+    healthy on every scrape, the train record's gauge, /trace), the signal's
+    export, the train records' t_dispatch_*, t_sync_*, t_ingest_* and
+    staleness_* fields, trace.json's tracks (the learner's dispatch, the
+    ship and the scheduler's transfer spans), each actor's own file with
+    its flushes, and the TensorBoard events file; prints both runs'
+    learner steps/s."""
+    flags = common + [f"--total_env_steps={OPS_ENV_STEPS}"]
+    plain, traced = {}, {}
+    drive_main_path(flags, "fused_chunk", plain)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ops_") as tmp:
+        tdir, log_path = os.path.join(tmp, "trace"), os.path.join(tmp, "ops.jsonl")
+        port = free_port()
+        scraper = Scraper(port, os.path.join(tdir, "trace.json")).start()
+        try:
+            launches = drive_main_path(
+                flags + [f"--trace_dir={tdir}", "--watchdog_s=20", f"--obs_port={port}",
+                         f"--tb_dir={os.path.join(tmp, 'tb')}", f"--log_path={log_path}"],
+                "fused_chunk", traced)
+        finally:
+            seen = scraper.stop()
+        with open(log_path) as f:
+            records = [json.loads(line) for line in f]
+        trains = [r for r in records if r["kind"] == "train"]
+        want = {f"t_{p}_{s}" for p in ("dispatch", "sync", "ingest")
+                for s in ("ms", "p50", "p95", "max")} | {
+            "n_dispatch", "n_sync", "n_ingest", "staleness_mean", "staleness_max"}
+        missing = want - set(trains[0]) if trains else want
+        tracks = _tracks(os.path.join(tdir, "trace.json"))
+        actor_files = sorted(f for f in os.listdir(tdir) if f.startswith("trace_actor"))
+        actor_tracks = [_tracks(os.path.join(tdir, f)) for f in actor_files]
+        tb = [f for f in os.listdir(os.path.join(tmp, "tb")) if f.startswith("events.out")]
+    span_threads = {name: sorted(t for t, spans in tracks.items() if name in spans)
+                    for name in ("dispatch", "ingest_ship", "transfer_ingest", "param_broadcast")}
+    log(f"[ops] traced main path: scrapes {json.dumps(seen)}; trace tracks "
+        f"{json.dumps(span_threads)}; actor files {actor_files}; the first train record's "
+        + json.dumps({k: trains[0].get(k) for k in sorted(want)} if trains else {}))
+    if not (seen["healthz"] and not seen["unhealthy"] and seen["train_gauge"]
+            and seen["trace"] and seen["sigusr2_export"]):
+        raise AssertionError(f"ops: the exporter or SIGUSR2 did not answer as expected: {seen}")
+    if missing:
+        raise AssertionError(f"ops: the train record lacks {sorted(missing)}")
+    if not (span_threads["dispatch"] == ["MainThread"] and span_threads["ingest_ship"]
+            and "transfer-sched" in span_threads["transfer_ingest"]):
+        raise AssertionError(f"ops: trace.json's tracks are not as expected: {span_threads}")
+    if len(actor_files) != 1 or not all("actor_flush" in spans for t in actor_tracks
+                                        for spans in t.values()):
+        raise AssertionError(f"ops: actor trace files {actor_files} {actor_tracks}")
+    if not tb:
+        raise AssertionError("ops: no TensorBoard events file")
+    overhead = 1.0 - traced["learner_steps_per_sec"] / plain["learner_steps_per_sec"]
+    log(f"[ops] {card}: DDPG main path, {OPS_ENV_STEPS} env steps, learner steps/s "
+        f"{plain['learner_steps_per_sec']} without the operations flags, "
+        f"{traced['learner_steps_per_sec']} with them ({100.0 * overhead:.2f}% fewer; "
+        f"{plain['chunks']} and {traced['chunks']} chunks)")
+    return dict(launches=launches, plain=plain["learner_steps_per_sec"],
+                traced=traced["learner_steps_per_sec"], overhead=overhead, scrapes=seen)
+
+
+def profiled_flags(common, prof_dir: str):
+    """4g (2)'s run: --profile_dir over the warmup and then two chunks or
+    three, through train.main in a child process of this script
+    (`--resume-drill`, which prints the kernels' launches), as a user runs
+    it. (In this long-lived process, after the earlier phases' profiler
+    sessions, the first chunk's kernel records were missing from such a
+    trace in 3 of 5 runs, their launch calls present; PERF.md §7.)"""
+    return common + [f"--total_env_steps={OPS_PROFILE_ENV_STEPS}", "--max_ingest_ratio=1",
+                     f"--profile_dir={prof_dir}"]
+
+
+def profiled_main_path(card: str, child: Child, prof_dir: str) -> dict:
+    """4g (2): in the profiled run's Chrome trace (profiled_flags) K1's
+    kernel appears as a CUDA kernel event once a chunk."""
+    code, stdout, stderr, _, secs = child.finish()
+    finals = [json.loads(line) for line in stdout.splitlines()
+              if line.startswith('{"kind": "final"')]
+    if code != 0 or not finals or not os.path.exists(os.path.join(prof_dir, "profile.json")):
+        raise AssertionError(f"ops: the profiled run exited {code}; stderr: {stderr[-3000:]}")
+    chunks = finals[-1]["chunks"]
+    launches = json.loads(stdout.split("[launches] ")[-1].splitlines()[0])
+    with open(os.path.join(prof_dir, "profile.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "fused_chunk_kernel" in e.get("name", "")]
+    # The runtime calls that launched K1 (cudaLaunchCooperativeKernel), by
+    # correlation id, beside the kernels they launched.
+    launch_calls = [e for e in events if e.get("cat") == "cuda_runtime"
+                    and "Cooperative" in e.get("name", "")]
+    k1_corr = {e.get("args", {}).get("correlation") for e in k1}
+    log(f"[ops] profiled main path ({secs:.1f}s, a child process): {chunks} chunks, {len(k1)} "
+        f"K1 kernel events ({k1[0]['name'].split('(')[0] if k1 else None}, "
+        f"{sum(e['dur'] for e in k1) / max(len(k1), 1):.1f} us each), {len(launch_calls)} "
+        f"cooperative launch calls (without a kernel event: "
+        f"{[e['ts'] for e in launch_calls if e.get('args', {}).get('correlation') not in k1_corr]}"
+        f"), {len(kernels)} kernel events in all, {len(events)} events")
+    if chunks < 2 or len(k1) != chunks or launches != {"fused_chunk": chunks}:
+        raise AssertionError(f"ops: {len(k1)} K1 kernel events in the profile for "
+                             f"{chunks} chunks (launches {launches})")
+    return dict(chunks=chunks, k1_events=len(k1), kernel_events=len(kernels), seconds=secs)
+
+
+def watchdog_drill_child(argv) -> int:
+    """The stall drill's child (`--watchdog-drill OUT_DIR`): the DDPG main
+    path through train.main with --watchdog_s=OPS_WATCHDOG_S and
+    --trace_dir=OUT_DIR, and this harness, not a program flag, enqueueing
+    torch.cuda._sleep(OPS_SLEEP_CYCLES) on the learner's stream right after
+    the first chunk's dispatch, so the driver's next read waits on the card
+    past the watchdog's timeout. Prints the stall's start time; the
+    watchdog is to end the process with 70."""
+    from distributed_ddpg_tpu_torch import train
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+
+    out_dir = argv[0]
+    run = ShardedLearner.run_sample_chunk
+    calls = [0]
+
+    def first_chunk_then_stall(learner, *args, **kwargs):
+        out = run(learner, *args, **kwargs)
+        calls[0] += 1
+        if calls[0] == 1:
+            torch.cuda._sleep(OPS_SLEEP_CYCLES)
+            print(f"[stall] {time.time():.6f}", flush=True)
+        return out
+
+    ShardedLearner.run_sample_chunk = first_chunk_then_stall
+    torch.backends.cuda.matmul.allow_tf32 = False
+    train.main(["--num_actors=1", "--replay_min_size=1000", "--eval_every=0",
+                "--eval_episodes=1", "--total_env_steps=100000000",
+                f"--watchdog_s={OPS_WATCHDOG_S}", f"--trace_dir={out_dir}"])
+    return 0
+
+
+class Child:
+    """A child process of this script (`mode` and its arguments), its
+    output in files under `tmp`; finish() waits for it (OPS_DRILL_S at
+    most, then kills it) and returns (exit code, stdout, stderr, the
+    time.time() it was seen to end, its seconds)."""
+
+    def __init__(self, tmp: str, tag: str, mode: str, args):
+        self.files = [open(os.path.join(tmp, f"{tag}.{x}"), "w+") for x in ("out", "err")]
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), mode, *args],
+                                     stdout=self.files[0], stderr=self.files[1])
+
+    def finish(self):
+        try:
+            self.proc.wait(timeout=OPS_DRILL_S)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        ended, secs = time.time(), time.monotonic() - self.t0
+        out = []
+        for f in self.files:
+            f.seek(0)
+            out.append(f.read())
+            f.close()
+        return self.proc.returncode, out[0], out[1], ended, secs
+
+
+def watchdog_drill(card: str, child: Child, tmp: str) -> dict:
+    """4g (3): the stall drill child (started by operations_phase, output
+    dir `tmp`) must exit 70 and leave stall_report.json (the main thread
+    in its device wait: a `_to_host` read) and stall_trace.json (its last
+    spans, the first chunk's dispatch among them). Prints the seconds from
+    the stall to the watchdog's report and from the report to the
+    process's end."""
+    code, stdout, stderr, ended, _ = child.finish()
+    stalls = [float(line.split()[1]) for line in stdout.splitlines()
+              if line.startswith("[stall] ")]
+    files = sorted(os.listdir(tmp))
+    report = trace_names = None
+    if "stall_report.json" in files:
+        with open(os.path.join(tmp, "stall_report.json")) as f:
+            report = json.load(f)
+    if "stall_trace.json" in files:
+        trace_names = _tracks(os.path.join(tmp, "stall_trace.json"))
+    main = next((t for t in (report or {}).get("threads", []) if t["name"] == "MainThread"),
+                {"stack": []})
+    waits = [line for line in main["stack"] if "_to_host" in line]
+    if not (code == 70 and stalls and report is not None and waits
+            and trace_names and "dispatch" in trace_names.get("MainThread", ())):
+        raise AssertionError(f"watchdog drill: exit {code}, files {files}, main "
+                             f"stack {main['stack'][-6:]}; stderr: {stderr[-3000:]}")
+    record = dict(exit=code, stall_to_report_s=report["wall_time"] - stalls[0],
+                  report_to_end_s=ended - report["wall_time"],
+                  stall_to_end_s=ended - stalls[0], stalled_s=report["stalled_s"],
+                  device_wait=waits[-1].split(": ")[0])
+    log(f"[ops] {card}: watchdog drill (watchdog_s {OPS_WATCHDOG_S}, a "
+        f"{OPS_SLEEP_CYCLES:.1e}-cycle sleep on the learner's stream after the first "
+        "chunk): " + json.dumps(record))
+    return record
+
+
+def fault_drill_flags(tmp: str) -> dict:
+    """4g (4)'s three CLI drills (run by operations_phase as children of
+    this script, `--resume-drill`: train.main, printing the kernels'
+    launches): OPS_FAULTS on K1 (a) with 2 actors, --actor_no_progress_s=3
+    and --checkpoint_every=800; the host replay on the scan route with K2
+    (--fused_update=true, K = 100) with prefetch:sample:slow@2~0.5; the
+    device actors on K1 (a) with devactor:rollout:crash@2."""
+    base = ["--replay_min_size=1000", "--eval_every=0", "--eval_episodes=1"]
+    return {
+        "sites": base + ["--num_actors=2", "--actor_no_progress_s=3",
+                         "--actor_throttle_s=0.001", "--checkpoint_every=800",
+                         f"--checkpoint_dir={os.path.join(tmp, 'ck')}",
+                         f"--total_env_steps={OPS_DRILL_ENV_STEPS}", f"--faults={OPS_FAULTS}"],
+        "prefetch": base + ["--num_actors=1", "--host_replay=true", "--fused_update=true",
+                            "--learner_chunk=100", "--total_env_steps=3000",
+                            "--faults=prefetch:sample:slow@2~0.5"],
+        "devactor": base + ["--num_actors=0", "--actor_backend=device",
+                            f"--total_env_steps={OPS_DEVACTOR_ENV_STEPS}",
+                            "--faults=devactor:rollout:crash@2"],
+    }
+
+
+def fault_drills(children: dict) -> dict:
+    """4g (4): each drill (fault_drill_flags) must exit 0 with the JAX
+    trainer's counters: two respawns (one `dead`, one `no_rows`), one
+    shipper restart, one scheduler restart and one checkpoint write retry,
+    every chunk one K1 launch; the prefetched chunks' K2 launches twice a
+    learner step; one device-actor restart."""
+    out = {}
+    for tag, child in children.items():
+        code, stdout, stderr, _, secs = child.finish()
+        finals = [json.loads(line) for line in stdout.splitlines()
+                  if line.startswith('{"kind": "final"')]
+        launches = json.loads(stdout.split("[launches] ")[-1].splitlines()[0]) \
+            if "[launches] " in stdout else {}
+        out[tag] = dict(exit=code, final=finals[-1] if finals else {}, launches=launches,
+                        stderr=stderr, seconds=secs)
+    for tag, r in out.items():
+        f = r["final"]
+        log(f"[ops] drill {tag}: exit {r['exit']} in {r['seconds']:.1f}s, launches "
+            f"{r['launches']}; final " + json.dumps({k: f.get(k) for k in (
+                "step", "learner_steps", "chunks", "actor_respawns", "actor_quarantined",
+                "ingest_shipper_restarts", "transfer_restarts", "ckpt_write_retries",
+                "devactor_restarts", "learner_steps_per_sec")}))
+        for line in r["stderr"].splitlines():
+            if line.startswith(("[pool]", "[checkpoint]", "[ingest]", "[transfer]",
+                                "[devactor]")):
+                log(f"  {line}")
+        if r["exit"] != 0 or not f:
+            raise AssertionError(f"drill {tag}: exit {r['exit']}; stderr: {r['stderr'][-3000:]}")
+    sites, pre, dev = (out[t]["final"] for t in ("sites", "prefetch", "devactor"))
+    err = out["sites"]["stderr"]
+    if not (sites["actor_respawns"] == 2 and "failed (dead)" in err
+            and "failed (no_rows)" in err and sites["ingest_shipper_restarts"] == 1
+            and sites["transfer_restarts"] == 1 and sites["ckpt_write_retries"] == 1
+            and out["sites"]["launches"] == {"fused_chunk": sites["chunks"]}):
+        raise AssertionError(f"drill sites: counters {sites}, launches "
+                             f"{out['sites']['launches']}")
+    if out["prefetch"]["launches"] != {"fused_update": 2 * pre["learner_steps"]}:
+        raise AssertionError(f"drill prefetch: launches {out['prefetch']['launches']} for "
+                             f"{pre['learner_steps']} learner steps")
+    if not (dev["devactor_restarts"] == 1
+            and out["devactor"]["launches"] == {"fused_chunk": dev["chunks"]}):
+        raise AssertionError(f"drill devactor: {dev}, launches {out['devactor']['launches']}")
+    return {tag: dict(final=r["final"], launches=r["launches"], seconds=r["seconds"])
+            for tag, r in out.items()}
+
+
+def operations_phase(card: str) -> dict:
+    """4g (see the module docstring), under PhaseLimit(OPS_LIMIT_S): the
+    traced main path and its plain twin on an otherwise idle card (their
+    rates are compared), then the profiled run's, the drills' and the
+    stall drill's children started together, and their checks."""
+    common = ["--num_actors=1", "--replay_min_size=1000", "--eval_every=0",
+              "--eval_episodes=1"]
+    t0 = time.monotonic()
+    with PhaseLimit(OPS_LIMIT_S, "phase 4g"), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_drills_") as tmp:
+        traced = traced_main_path(card, common)
+        stall_dir, prof_dir = os.path.join(tmp, "stall"), os.path.join(tmp, "profile")
+        os.makedirs(stall_dir)
+        children = {tag: Child(tmp, tag, "--resume-drill", flags)
+                    for tag, flags in fault_drill_flags(tmp).items()}
+        prof_child = Child(tmp, "profile", "--resume-drill", profiled_flags(common, prof_dir))
+        stall_child = Child(tmp, "stall", "--watchdog-drill", [stall_dir])
+        try:
+            # The stall child first: it ends soonest, and the seconds to its
+            # end are read when the wait for it returns.
+            stall = watchdog_drill(card, stall_child, stall_dir)
+            profiled_run = profiled_main_path(card, prof_child, prof_dir)
+            drills = fault_drills(children)
+        finally:
+            for child in (*children.values(), prof_child, stall_child):
+                if child.proc.poll() is None:
+                    child.proc.kill()
+                    child.proc.wait()
+    secs = time.monotonic() - t0
+    log(f"[phase] 4g took {secs:.1f}s")
+    return dict(traced=traced, profiled=profiled_run, drills=drills, stall=stall, seconds=secs)
 
 
 def main() -> int:
@@ -4067,6 +4495,19 @@ def main() -> int:
     paths["fused_chunk"]["served_free_running"] = serving["free"]["launches"]["fused_chunk"]
     launches["fused_chunk"] = paths["fused_chunk"]["served"]
 
+    # --- 4g. the operations layer (this slice) ---
+    ops = operations_phase(card)
+    log(f"[phase] operations done at {time.monotonic() - t_start:.1f}s")
+    # This slice's paths: K1 (a) on the traced main path and the drills, K2
+    # on the host-replay drill's scan route.
+    paths["fused_chunk"]["operations"] = ops["traced"]["launches"]["fused_chunk"]
+    paths["fused_chunk"]["fault_drill"] = ops["drills"]["sites"]["launches"]["fused_chunk"]
+    paths["fused_chunk"]["devactor_drill"] = ops["drills"]["devactor"]["launches"]["fused_chunk"]
+    paths["fused_update"]["prefetch_drill"] = \
+        ops["drills"]["prefetch"]["launches"]["fused_update"]
+    launches["fused_chunk"] = paths["fused_chunk"]["operations"]
+    update_launches = {"fused_update": paths["fused_update"]["prefetch_drill"]}
+
     # --- 5. timing at the main path's shapes ---
     timing = {
         "fused_chunk": time_branch(cfg, "fused_chunk", K, 1000, card, eager=True),
@@ -4125,4 +4566,6 @@ if __name__ == "__main__":
         sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     if sys.argv[1:2] == ["--resume-drill"]:
         sys.exit(resume_drill_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--watchdog-drill"]:
+        sys.exit(watchdog_drill_child(sys.argv[2:]))
     sys.exit(main())

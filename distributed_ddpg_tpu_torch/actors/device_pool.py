@@ -26,8 +26,11 @@ pipeline; this pool takes the host off the experience path:
   began with (the carry tensors are never written in place, so the old
   carry is intact even where the new one was installed before the insert
   failed), at most 3 times (devactor_restarts); past that a
-  DeviceActorError carries the cause.
-  (The `--faults devactor:*` grammar is refused: ROADMAP item 12.)
+  DeviceActorError carries the cause. `fault` (the plan's
+  `devactor:rollout` site, --faults='devactor:rollout:crash@K') is ticked
+  once a dispatch, before it, so an injected crash leaves it retryable;
+  a dispatch is a `devactor_rollout` span, a restart a `devactor_restart`
+  instant (trace.py).
 
 The carry (ActorCarry) is the env state, the observations, the OU state,
 the running episode returns and the cumulative step, episode and return
@@ -49,6 +52,7 @@ from typing import Callable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from distributed_ddpg_tpu_torch import trace
 from distributed_ddpg_tpu_torch.config import DDPGConfig, resolve_device_actor_chunk
 from distributed_ddpg_tpu_torch.envs.vector_envs import make_vector_env
 from distributed_ddpg_tpu_torch.metrics import DevActorStats
@@ -191,8 +195,10 @@ class DeviceActorPool:
                 if self._fault is not None:
                     self._fault.tick()
                 t0 = time.perf_counter()
-                rows = self.advance(draws)
-                replay.insert_device_rows(rows)
+                with trace.span("devactor_rollout", rows=self.rows_per_chunk,
+                                envs=self.num_envs):
+                    rows = self.advance(draws)
+                    replay.insert_device_rows(rows)
                 dt = time.perf_counter() - t0
             except Exception as e:   # not BaseException: Ctrl-C aborts
                 if not self._recoverable(e):
@@ -211,6 +217,7 @@ class DeviceActorPool:
         if self._restarts >= self._max_restarts:
             return False
         self._restarts += 1
+        trace.instant("devactor_restart", n=self._restarts)
         print(f"[devactor] rollout dispatch failed ({exc!r}); restarting "
               f"({self._restarts}/{self._max_restarts})", file=sys.stderr, flush=True)
         return True
@@ -268,6 +275,8 @@ class DeviceActorPool:
         # steps_done stays 0: the restored production is the resumed run's
         # env-step offset already. The carry's own count keeps its value,
         # which keeps the warmup gate closed.
+        trace.instant("devactor_carry_restored", steps=self._carry.host_steps,
+                      episodes=self._eps_seen)
         print(f"[devactor] rollout state restored: {self._carry.host_steps} env steps, "
               f"{self._eps_seen} episodes", file=sys.stderr, flush=True)
         return True

@@ -1,13 +1,18 @@
 """ActorPool: N rollout worker processes feeding one learner.
 
-A trimmed copy of distributed_ddpg_tpu/actors/pool.py: the shm and queue
-transports, seqlock param broadcast, heartbeat monitor with respawn, the
-quarantine breaker and the served actors' transport. Fault injection,
-tracing, staleness tracking and the zero-rows detector
-(actor_no_progress_s) are not in the port yet.
+A copy of distributed_ddpg_tpu/actors/pool.py: the shm and queue
+transports, the seqlock param broadcast with its staleness, the heartbeat
+monitor with respawn, the zero-rows detector, the quarantine breaker, the
+fault plan's worker and pool sites, and the served actors' transport.
 
 - Param broadcast: one flat f32 shared-memory array + a version counter.
-  Workers poll the version each env step and copy on change.
+  Workers poll the version each env step and copy on change. Each row
+  carries the version of the params that acted (the shm ring's last
+  column, the queue message's last field); `broadcast(flat, learner_step)`
+  maps each version to its learner step, and `staleness()` gives, over
+  the workers, the learner steps between the latest broadcast and the
+  params behind each worker's latest drained rows (staleness_mean,
+  staleness_max).
 - Transport (config.transport, resolved as the JAX pool resolves it):
   'shm' gives each worker a C++ SPSC ring in an anonymous shared-memory
   block (native.ShmRing, config.shm_ring_rows rows of [obs, action,
@@ -19,7 +24,9 @@ tracing, staleness tracking and the zero-rows detector
   `drain_batches` pops either for the device-replay ingest. A ring
   belongs to its slot: a respawned worker attaches to it.
 - Failure detection: workers stamp heartbeats; `monitor()` respawns a
-  worker that died or went silent past the heartbeat timeout, after a
+  worker that died (`dead`), went silent past the heartbeat timeout
+  (`silent`), or, with config.actor_no_progress_s > 0, kept heartbeating
+  while delivering no rows for that long (`no_rows`), after a
   per-slot exponential backoff (config.respawn_backoff_s, doubled each
   recent failure up to respawn_backoff_max_s). A slot that fails
   config.quarantine_respawns times within quarantine_window_s is
@@ -28,6 +35,13 @@ tracing, staleness tracking and the zero-rows detector
   rows delivered and a whole quarantine_window_s survived un-quarantine
   it, a failure re-quarantines it. `quarantine_source` quarantines a slot
   directly (the guardrails' bad-row path, train.py).
+- Fault injection (config.faults, faults.py): each worker gets its slice
+  of the plan at spawn (`for_worker(id, incarnation)`: one-shot faults arm
+  only a slot's first incarnation, `crashloop` every one);
+  `pool:broadcast` and `pool:monitor` are ticked once a broadcast and a
+  supervision pass. Respawns, quarantines and probes are flight-recorder
+  instants (`actor_respawn`, `actor_quarantined`, ...), a broadcast is a
+  `param_broadcast` span.
 - What a dead worker can leave behind: a process killed outright dies
   holding whatever cross-process lock it held. So every spawn gets a
   fresh queue (an abandoned one may hold a half-written message and its
@@ -57,8 +71,13 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from distributed_ddpg_tpu_torch import native
-from distributed_ddpg_tpu_torch.actors.policy import actor_head_dim, layout_size, param_layout
+from distributed_ddpg_tpu_torch import native, trace
+from distributed_ddpg_tpu_torch.actors.policy import (
+    actor_head_dim,
+    decode_version,
+    layout_size,
+    param_layout,
+)
 from distributed_ddpg_tpu_torch.actors.worker import run_worker
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.envs.registry import EnvSpec
@@ -100,6 +119,13 @@ class ActorPool:
         self.spec = spec
         self.num_actors = num_actors or config.num_actors
         self.heartbeat_timeout = config.heartbeat_timeout_s
+        if config.actor_throttle_s >= self.heartbeat_timeout:
+            raise ValueError(
+                f"actor_throttle_s={config.actor_throttle_s} >= the pool's "
+                f"heartbeat timeout ({self.heartbeat_timeout}s): the throttle "
+                "sleep sits between heartbeat stamps, so the monitor would "
+                "respawn every worker forever"
+            )
         self._ctx = mp.get_context("spawn")
         self.layout = param_layout(spec.obs_dim, actor_head_dim(spec.act_dim, config.sac),
                                    tuple(config.actor_hidden))
@@ -121,9 +147,24 @@ class ActorPool:
         self._probing = [False] * self.num_actors
         self._probe_t = [0.0] * self.num_actors
         self._unquarantines = 0
+        self._plan = config.fault_plan()
+        self._broadcast_fault = self._plan.site("pool", "broadcast")
+        # pool:monitor:slow@k delays the k-th supervision pass: training
+        # must tolerate late failure detection too.
+        self._monitor_fault = self._plan.site("pool", "monitor")
+        self._incarnation = [0] * self.num_actors
+        # The zero-rows detector's clock: 0.0 = no rows this incarnation,
+        # armed at the first heartbeat seen (boot time is not production
+        # time).
+        self._last_rows_t = [0.0] * self.num_actors
         # When rows last came from each slot (drains only): the probe's
         # sustained-progress clock.
         self._rows_seen_t = [0.0] * self.num_actors
+        # Staleness: each even version -> the learner step broadcast with
+        # it (the newest 64), and each worker's staleness at its last drain.
+        self._version_steps: Dict[int, int] = {}
+        self._last_broadcast_step = 0
+        self._staleness = np.zeros(self.num_actors, np.int64)
         self.serving = bool(config.serve_actors)
         self._serve_req = None
         self._serve_resp: List = []
@@ -157,6 +198,9 @@ class ActorPool:
         return (remaining + self.num_actors - 1) // self.num_actors
 
     def _spawn(self, worker_id: int) -> None:
+        fault_specs = self._plan.for_worker(worker_id,
+                                            incarnation=self._incarnation[worker_id])
+        self._incarnation[worker_id] += 1
         self._queues[worker_id] = self._ctx.Queue(maxsize=_QUEUE_BATCHES)
         p = self._ctx.Process(
             target=run_worker,
@@ -191,6 +235,11 @@ class ActorPool:
                 serve_fallbacks=self._serve_fallbacks,
                 serve_timeout_s=self.config.serve_timeout_s,
                 serve_fallback_s=self.config.serve_fallback_s,
+                fault_specs=fault_specs,
+                throttle_s=self.config.actor_throttle_s,
+                # Each worker keeps its own flight recorder and writes
+                # trace_actor<k>.json on its exit; Perfetto merges by pid.
+                trace_dir=self.config.trace_dir,
             ),
             daemon=True,
             name=f"actor-{worker_id}",
@@ -201,6 +250,7 @@ class ActorPool:
         # respawn arms only once the worker's loop stamps its first
         # heartbeat, so a slow boot is never respawned as silent.
         self._heartbeat[worker_id] = 0.0
+        self._last_rows_t[worker_id] = 0.0
         self._rows_seen_t[worker_id] = 0.0
         self._procs[worker_id] = p
 
@@ -246,16 +296,41 @@ class ActorPool:
 
     # --- param broadcast (learner -> workers) ---
 
-    def broadcast(self, flat_params: np.ndarray) -> None:
+    def broadcast(self, flat_params: np.ndarray, learner_step: int = 0) -> None:
         """Seqlock write: version goes ODD while the flat array is being
         written, EVEN when it is consistent. Workers copy only at even
         versions and re-check after the copy, so a torn parameter vector
         is never acted on. `flat_params` is in policy.flatten_params
-        layout (the learner's actor_params_to_host)."""
-        view = np.frombuffer(self._shared, dtype=np.float32)
-        self._version.value += 1   # odd: write in progress
-        view[:] = flat_params
-        self._version.value += 1   # even: consistent
+        layout (the learner's actor_params_to_host); `learner_step` stamps
+        the learner step these params come from (staleness())."""
+        self._broadcast_fault.tick()
+        with trace.span("param_broadcast", learner_step=int(learner_step)):
+            view = np.frombuffer(self._shared, dtype=np.float32)
+            self._version.value += 1   # odd: write in progress
+            view[:] = flat_params
+            self._version.value += 1   # even: consistent
+        self._last_broadcast_step = int(learner_step)
+        self._version_steps[self._version.value] = self._last_broadcast_step
+        while len(self._version_steps) > 64:
+            self._version_steps.pop(next(iter(self._version_steps)))
+
+    def _note_version(self, worker_id: int, version: int) -> None:
+        """Rows arrived from this worker, made with the params of
+        `version`: its staleness, the zero-rows detector's clock and the
+        probe's sustained-progress clock."""
+        acted_at = self._version_steps.get(version, 0)
+        self._staleness[worker_id] = self._last_broadcast_step - acted_at
+        self._last_rows_t[worker_id] = time.time()
+        self._rows_seen_t[worker_id] = self._last_rows_t[worker_id]
+
+    def staleness(self) -> Dict[str, float]:
+        """Learner-step staleness of the params behind each worker's most
+        recently drained rows: 0 = acting on the latest broadcast."""
+        s = self._staleness[: self.num_actors]
+        return {
+            "staleness_mean": float(s.mean()) if len(s) else 0.0,
+            "staleness_max": int(s.max()) if len(s) else 0,
+        }
 
     # --- experience (workers -> replay) ---
 
@@ -282,8 +357,10 @@ class ActorPool:
                 continue
             rows = ring.pop(min(remaining, avail))
             if rows.shape[0]:
+                # Rows are in production order: the last carries the
+                # freshest version.
+                self._note_version(wid, decode_version(rows[-1, -1]))
                 out.append((wid, self._rows_to_batch(rows)))
-                self._rows_seen_t[wid] = time.time()
                 self._steps_received += rows.shape[0]
                 remaining -= rows.shape[0]
         return out
@@ -306,12 +383,12 @@ class ActorPool:
                 if self.transport == "queue" and max_rows is not None and moved >= max_rows:
                     break
                 try:
-                    wid, batch, episodes = q.get_nowait()
+                    wid, batch, episodes, version = q.get_nowait()
                 except queue_mod.Empty:
                     break
                 if batch is not None:
                     out.append((wid, batch))
-                    self._rows_seen_t[wid] = time.time()
+                    self._note_version(wid, version)
                     moved += len(batch["reward"])
                 self._episodes.extend((wid, r, n) for r, n in episodes)
         self._steps_received += moved
@@ -329,6 +406,7 @@ class ActorPool:
         went silent is respawned after its slot's backoff; a slot that
         failed quarantine_respawns times within quarantine_window_s is
         quarantined instead, and probed after quarantine_probe_s."""
+        self._monitor_fault.tick()
         cfg = self.config
         now = time.time()
         respawned = 0
@@ -345,6 +423,7 @@ class ActorPool:
                     self._fail_times[i] = []
                     self._respawns += 1
                     respawned += 1
+                    trace.instant("actor_probe", worker=i)
                     print(f"[pool] probing quarantined worker {i} after "
                           f"{cfg.quarantine_probe_s:.0f}s cooldown (single respawn attempt)",
                           file=sys.stderr, flush=True)
@@ -357,6 +436,7 @@ class ActorPool:
                         and now - self._probe_t[i] >= cfg.quarantine_window_s):
                     self._probing[i] = False
                     self._unquarantines += 1
+                    trace.instant("actor_unquarantined", worker=i)
                     print(f"[pool] worker {i} UN-QUARANTINED: sustained progress for "
                           f"{cfg.quarantine_window_s:.0f}s after probe — fleet back to "
                           f"{self.num_actors - self.quarantined_count} workers",
@@ -373,6 +453,7 @@ class ActorPool:
                     self._probing[i] = False
                     self._quarantined[i] = True
                     self._quarantined_at[i] = now
+                    trace.instant("actor_probe_failed", worker=i, why=why)
                     print(f"[pool] probe of worker {i} failed ({why}); re-quarantined",
                           file=sys.stderr, flush=True)
                     continue
@@ -382,6 +463,8 @@ class ActorPool:
                 if cfg.quarantine_respawns > 0 and len(window) >= cfg.quarantine_respawns:
                     self._quarantined[i] = True
                     self._quarantined_at[i] = now
+                    trace.instant("actor_quarantined", worker=i, why=why,
+                                  failures=len(window))
                     print(f"[pool] QUARANTINED worker {i}: {len(window)} failures (last: "
                           f"{why}) within {cfg.quarantine_window_s:.0f}s — respawns "
                           "suspended, training continues degraded on "
@@ -394,6 +477,10 @@ class ActorPool:
                               cfg.respawn_backoff_max_s)
                 self._backoff_until[i] = now + backoff
                 self._pending_respawn[i] = True
+                trace.instant("actor_respawn", worker=i, why=why,
+                              backoff_s=round(backoff, 3))
+                print(f"[pool] worker {i} failed ({why}); respawn in {backoff:.2f}s",
+                      file=sys.stderr, flush=True)
             if self._pending_respawn[i] and now >= self._backoff_until[i]:
                 self._pending_respawn[i] = False
                 self._respawns += 1
@@ -403,8 +490,9 @@ class ActorPool:
                 "quarantined": self.quarantined_count}
 
     def _detect_failure(self, i: int, p, now: float) -> Optional[str]:
-        """One slot's health check: 'dead', 'silent' or None. A heartbeat of
-        0 means the worker is still booting: only a death counts then."""
+        """One slot's health check: 'dead', 'silent', 'no_rows' or None. A
+        heartbeat of 0 means the worker is still booting: only a death
+        counts then."""
         if p is None or not p.is_alive():
             return "dead"
         hb = self._heartbeat[i]
@@ -412,6 +500,14 @@ class ActorPool:
             return None
         if now - hb > self.heartbeat_timeout:
             return "silent"
+        no_progress_s = self.config.actor_no_progress_s
+        if no_progress_s > 0.0:
+            if self._last_rows_t[i] == 0.0:
+                # The first heartbeat with no rows yet: the clock starts
+                # here, not at the spawn.
+                self._last_rows_t[i] = now
+            elif now - self._last_rows_t[i] > no_progress_s:
+                return "no_rows"
         return None
 
     def quarantine_source(self, worker_id: int, why: str = "numeric") -> bool:
@@ -434,6 +530,7 @@ class ActorPool:
         self._fail_times[i] = []
         self._quarantined[i] = True
         self._quarantined_at[i] = time.time()
+        trace.instant("actor_quarantined", worker=i, why=why)
         print(f"[pool] QUARANTINED worker {i} ({why}): repeatedly produced non-finite "
               "experience rows — respawns suspended, training continues degraded on "
               f"{self.num_actors - self.quarantined_count} workers"

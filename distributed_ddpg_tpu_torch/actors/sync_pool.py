@@ -14,7 +14,7 @@ config: two runs give bit-identical records (train.py, strict_sync), and
 a run that differs from an async one points at the async machinery.
 
 It has the ActorPool surface the port's driver calls (start, stop,
-broadcast with the flat params, drain_batches, drain_into,
+broadcast with the flat params, staleness, drain_batches, drain_into,
 steps_received, episode_stats, monitor, recovery_counters,
 quarantine_source, transport). The config requires both ratio gates with
 strict_sync, which pins learner and ingest to the configured ratio: at
@@ -125,9 +125,13 @@ class SyncActorPool:
                 close()
         self._actors = []
 
-    def broadcast(self, flat_params: np.ndarray) -> None:
+    def broadcast(self, flat_params: np.ndarray, learner_step: int = 0) -> None:
         """The learner's actor params in policy.flatten_params layout."""
         self._policy.load_flat(flat_params)
+
+    def staleness(self) -> Dict[str, float]:
+        # Lockstep: every row is produced under the latest broadcast.
+        return {"staleness_mean": 0.0, "staleness_max": 0}
 
     # --- experience ---
 

@@ -1,7 +1,6 @@
 """Rollout worker process: the per-worker episode loop.
 
-A trimmed copy of distributed_ddpg_tpu/actors/worker.py (fault injection
-and tracing are not in the port yet). Each worker owns one
+A copy of distributed_ddpg_tpu/actors/worker.py. Each worker owns one
 env, one OU noise process (reset per episode; zeroed under SAC, whose
 workers sample the Gaussian policy instead), one n-step accumulator, and a
 numpy policy refreshed from the shared-memory param buffer. Its first
@@ -11,14 +10,26 @@ heartbeat every loop so the pool's monitor can respawn it if it dies or
 goes silent. Two transports:
 
 - shm (`ring_buf` given): rows packed [obs, action, reward, discount,
-  next_obs, version] are pushed into the worker's SPSC ring
+  next_obs, version] (the version of the params that acted, which the pool
+  turns into staleness) are pushed into the worker's SPSC ring
   (native.ShmRing); rows the ring has no room for are carried to the next
   flush, which first waits, stamping the heartbeat and with the orphan
   guard, until the learner drains the ring (backpressure: env stepping
   slows, no row is dropped). Finished episodes go over the worker's
   bounded queue when it has room;
-- queue: each batch, with the episodes finished since the last, over the
-  worker's bounded mp.Queue.
+- queue: each batch, with the episodes finished since the last and the
+  params' version, over the worker's bounded mp.Queue.
+
+`fault_specs` is this worker's slice of the run's FaultPlan (config.faults,
+faults.py): (kind, at_step, duration_s) tuples applied inline after each
+env step: `crash` raises (the pool respawns the dead worker), `hang`
+freezes without heartbeats (the silent timeout), `stall` keeps
+heartbeating and produces nothing (the pool's zero-rows detector,
+actor_no_progress_s), `slow` sleeps each step for SLOW_FAULT_STEPS steps.
+`throttle_s` (config.actor_throttle_s) sleeps before each step. With
+`trace_dir` the worker keeps its own flight recorder (trace.py: an
+`actor_flush` span a flush, an `episode` instant an episode) and writes
+trace_actor<id>.json there when it exits.
 
 Served acting (config.serve_actors; the JAX worker's `served_mu`): mu(s)
 comes from the learner process's InferenceServer over the pool's shared
@@ -29,7 +40,8 @@ sends the worker to its local act() for serve_fallback_s, counted in the
 pool's serve_fallbacks (serve_client_fallbacks). A stalled or dead serving
 stack costs latency, never a deadlock.
 
-Workers never import torch (policy.py), so they never touch CUDA.
+Workers never import torch (policy.py, trace.py and faults.py are numpy or
+stdlib), so they never touch CUDA.
 """
 
 from __future__ import annotations
@@ -73,7 +85,11 @@ def run_worker(
     serve_fallbacks=None,            # mp.Array('l'): local-act fallbacks a worker
     serve_timeout_s: float = 1.0,
     serve_fallback_s: float = 5.0,
+    fault_specs=(),                  # (kind, at_step, duration_s), faults.for_worker
+    throttle_s: float = 0.0,         # config.actor_throttle_s
+    trace_dir: str = "",             # this worker's trace export dir ("" = off)
 ) -> None:
+    from distributed_ddpg_tpu_torch import trace
     from distributed_ddpg_tpu_torch.actors.policy import (
         NumpyPolicy,
         encode_version,
@@ -82,6 +98,10 @@ def run_worker(
     from distributed_ddpg_tpu_torch.envs import make
     from distributed_ddpg_tpu_torch.ops.noise import OUNoise
     from distributed_ddpg_tpu_torch.replay.nstep import NStepAccumulator
+
+    # A worker is its own interpreter: its own ring, its own file.
+    if trace_dir:
+        trace.configure(capacity=8192)
 
     env = make(env_id, seed=seed)
     act_dim = len(np.atleast_1d(action_low))
@@ -119,7 +139,7 @@ def run_worker(
         they wait for the next flush)."""
         if episodes:
             try:
-                transition_queue.put_nowait((worker_id, None, list(episodes)))
+                transition_queue.put_nowait((worker_id, None, list(episodes), seen_version))
                 episodes.clear()
             except queue_mod.Full:
                 pass
@@ -152,6 +172,11 @@ def run_worker(
                 time.sleep(0.001)
 
     def flush():
+        # A long actor_flush span is the learner's backpressure.
+        with trace.span("actor_flush", rows=len(pending)):
+            flush_impl()
+
+    def flush_impl():
         if ring is not None:
             flush_ring()
             return
@@ -164,7 +189,7 @@ def run_worker(
             "discount": np.asarray([p[3] for p in pending], np.float32),
             "next_obs": np.stack([p[4] for p in pending]),
         }
-        msg = (worker_id, batch, list(episodes))
+        msg = (worker_id, batch, list(episodes), seen_version)
         # Bounded waits with the orphan guard between them: a blocking put
         # on a full queue whose drainer died would hang forever.
         while not stop_flag.value:
@@ -233,17 +258,60 @@ def run_worker(
         serve_degrade()
         return policy(o)[0]
 
+    # --- scripted faults (faults.py; see the module docstring) ---
+    faults = sorted(fault_specs, key=lambda t: t[1])
+    fault_i = 0
+    slow_until, slow_sleep = 0, 0.0
+
+    def freeze(stamp_heartbeat: bool) -> None:
+        """An injected hang or stall: park until the pool terminates this
+        process (the recovery under test), or a clean stop or orphaning
+        ends the run. `hang` parks without heartbeats, `stall` keeps
+        stamping them while producing nothing."""
+        while not stop_flag.value:
+            if parent_pid and os.getppid() != parent_pid:
+                return
+            if stamp_heartbeat:
+                heartbeat[worker_id] = time.time()
+            time.sleep(0.05)
+
+    def apply_faults(step: int) -> bool:
+        """Fire the faults due at `step`; True when the worker must exit
+        (it was hung or stalled and then released)."""
+        nonlocal fault_i, slow_until, slow_sleep
+        while fault_i < len(faults) and faults[fault_i][1] <= step:
+            kind, _, dur = faults[fault_i]
+            fault_i += 1
+            if kind == "crash":
+                from distributed_ddpg_tpu_torch.faults import InjectedFault
+
+                raise InjectedFault(f"injected crash in worker {worker_id} at step {step}")
+            if kind in ("hang", "stall"):
+                freeze(stamp_heartbeat=(kind == "stall"))
+                return True
+            if kind == "slow":
+                from distributed_ddpg_tpu_torch.faults import SLOW_FAULT_STEPS
+
+                slow_until = step + SLOW_FAULT_STEPS
+                slow_sleep = dur
+        if step < slow_until and slow_sleep > 0.0:
+            time.sleep(slow_sleep)
+        return False
+
     maybe_refresh()
     obs, _ = env.reset(seed=seed)
     noise.reset()
     ep_return, ep_len, total_steps = 0.0, 0, 0
-    orphaned = False
+    orphaned = hung = False
     while not stop_flag.value:
         if parent_pid and os.getppid() != parent_pid:
             orphaned = True
             break
         heartbeat[worker_id] = time.time()
         maybe_refresh()
+        if throttle_s > 0.0:
+            # Before the step, so the heartbeat above keeps the monitor quiet.
+            time.sleep(throttle_s)
         if total_steps < warmup_uniform:
             action = warmup_rng.uniform(action_low, action_high).astype(np.float32)
         else:
@@ -258,11 +326,15 @@ def run_worker(
         ep_len += 1
         total_steps += 1
         obs = next_obs
+        if apply_faults(total_steps):
+            hung = True   # parked by an injected hang or stall, then released
+            break
         if terminated or truncated:
             # Truncation bootstraps: flush the partial windows with a
             # nonzero discount, then reset per-episode state.
             if truncated and not terminated:
                 pending.extend(_flush_truncated(nstep, next_obs))
+            trace.instant("episode", ret=round(float(ep_return), 3), length=ep_len)
             episodes.append((ep_return, ep_len))
             obs, _ = env.reset()
             noise.reset()
@@ -270,8 +342,17 @@ def run_worker(
             ep_return, ep_len = 0.0, 0
         if len(pending) >= send_every:
             flush()
-    if not orphaned:
+    # An orphan skips the last flush (its backpressure would wait forever
+    # on the gone drainer), and so does a worker released from an injected
+    # hang or stall (its rows in flight are the loss the fault simulates);
+    # both still write their trace.
+    if not orphaned and not hung:
         flush()
+    if trace_dir:
+        try:
+            trace.export(os.path.join(trace_dir, f"trace_actor{worker_id}.json"))
+        except Exception:
+            pass   # diagnostics never fail a clean worker exit
 
 
 def _flush_truncated(nstep, bootstrap_obs):

@@ -57,6 +57,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from distributed_ddpg_tpu_torch import trace
 from distributed_ddpg_tpu_torch.learner import (
     state_signature,
     train_state_from_flat,
@@ -334,6 +335,7 @@ def _write(directory: str, step: int, ckpt: Dict[str, Any], config,
             if attempt >= retries:
                 raise
             delay = backoff_s * (2.0 ** attempt)
+            trace.instant("ckpt_write_retry", step=step, attempt=attempt + 1)
             print(f"[checkpoint] write of step_{step} failed ({e!r}); retry "
                   f"{attempt + 1}/{retries} in {delay:.2f}s", file=sys.stderr, flush=True)
             time.sleep(delay)
@@ -388,8 +390,9 @@ class AsyncSaver:
 
             def run():
                 try:
-                    _, used = _write(directory, step, ckpt, config, keep=keep,
-                                     retries=retries, backoff_s=backoff_s, fault=fault)
+                    with trace.span("ckpt_write", step=step):
+                        _, used = _write(directory, step, ckpt, config, keep=keep,
+                                         retries=retries, backoff_s=backoff_s, fault=fault)
                     self.write_retries += used
                 except Exception as e:   # raised by wait()
                     self.errors.append(e)

@@ -266,6 +266,37 @@ class DDPGConfig:
     heartbeat_timeout_s: float = 30.0
     device: str = "cuda"
 
+    # --- operations (trace.py, watchdog.py, obs/, metrics.py) ---
+    # Stall watchdog: no trainer progress for this many seconds (a wait on
+    # the card that never returns, a wedged driver) dumps every thread's
+    # stack, writes stall_report.json and stall_trace.json, and exits 70.
+    # 0 = off; unattended runs should set ~300.
+    watchdog_s: float = 0.0
+    tb_dir: str = ""                 # TensorBoard summary dir ("" = off)
+    # torch.profiler trace of the training loop, CPU and CUDA activities,
+    # exported as a Chrome trace into this dir ("" = off). It holds every
+    # event in memory: keep such runs short.
+    profile_dir: str = ""
+    # Flight recorder: thread-tagged spans of the trainer's threads and
+    # actor processes in a preallocated ring, written as Perfetto-loadable
+    # Chrome trace JSON here on a clean exit (trace.json, and
+    # trace_actor<k>.json a worker), on SIGUSR2, and from the watchdog's
+    # stall path. "" = off (each span is a shared no-op).
+    trace_dir: str = ""
+    trace_events: int = 65_536       # the ring's capacity in events
+    # The telemetry ingress: one stdlib HTTP thread on this port serving
+    # /metrics (Prometheus text of the latest record of each kind),
+    # /healthz (healthy / degraded / draining) and /trace. Read-only, no
+    # auth, binds all interfaces: private networks only. 0 = off.
+    obs_port: int = 0
+    # Sleep before each actor env step (wall clock only; the grad steps a
+    # env step are unchanged): slows env production so the learner can
+    # meet the ratio caps. 0 = off.
+    actor_throttle_s: float = 0.0
+    # Respawn a worker that heartbeats but has delivered no experience rows
+    # for this many seconds (the pool's `no_rows`). 0 = off.
+    actor_no_progress_s: float = 0.0
+
     # --- the actor pool's breaker (actors/pool.py) ---
     # Respawn backoff: the k-th recent failure of one worker slot waits
     # min(base * 2^(k-1), max) seconds before its respawn.
@@ -281,8 +312,11 @@ class DDPGConfig:
     # failure re-quarantines it. 0 = never probe.
     quarantine_probe_s: float = 300.0
 
-    # --- fault injection (faults.py; the numeric component only) ---
-    # e.g. --faults='numeric:grad:nan@500;numeric:replay:inf@42'. "" = none.
+    # --- fault injection (faults.py) ---
+    # A deterministic schedule, e.g.
+    # --faults='worker:1:crash@500;ckpt:write:ioerror@2;numeric:grad:nan@500'.
+    # The old one-shot --inject_fault's 'actor:<id>:<step>' form still
+    # parses, as a worker crash. "" = none.
     faults: str = ""
 
     # --- numerical-health guardrails (guardrails.py) ---
@@ -454,7 +488,14 @@ class DDPGConfig:
                     str(field.type), str
                 )
                 parser.add_argument(f"--{field.name}", type=ftype, default=field.default)
-        return cls(**vars(parser.parse_args(argv)))
+        # The JAX package's deprecated alias: --inject_fault's
+        # 'actor:<id>:<step>' one-shot crash folds into the --faults plan.
+        parser.add_argument("--inject_fault", type=str, default="")
+        args = vars(parser.parse_args(argv))
+        legacy = args.pop("inject_fault")
+        if legacy:
+            args["faults"] = ";".join(filter(None, [args["faults"], legacy]))
+        return cls(**args)
 
     def __post_init__(self):
         # The JAX package's backend gate and message (its config.py).
@@ -878,6 +919,17 @@ class DDPGConfig:
             raise ValueError("param_refresh_interval_s must be >= 0")
         if self.heartbeat_timeout_s <= 0:
             raise ValueError("heartbeat_timeout_s must be > 0")
+        if self.actor_throttle_s < 0:
+            raise ValueError("actor_throttle_s must be >= 0 (0 = off)")
+        if self.actor_no_progress_s < 0:
+            raise ValueError("actor_no_progress_s must be >= 0 (0 = off)")
+        if self.trace_events < 16:
+            raise ValueError("trace_events must be >= 16")
+        if not 0 <= self.obs_port < 65536:
+            raise ValueError(
+                f"obs_port must be 0 (off) or a valid TCP port, "
+                f"got {self.obs_port}"
+            )
         if self.checkpoint_keep < 0:
             raise ValueError("checkpoint_keep must be >= 0 (0 = keep all)")
         if self.ckpt_write_retries < 0:

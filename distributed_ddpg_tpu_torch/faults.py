@@ -1,52 +1,90 @@
-"""Deterministic fault injection: the `numeric`, `serve` and `front`
-components.
+"""Deterministic fault injection: a seeded `FaultPlan` scripted from the
+config (`--faults='worker:1:crash@500;ckpt:write:ioerror@2'`) that drives
+crashes, hangs, slowdowns and IO errors into every recoverable component
+(counterpart of distributed_ddpg_tpu/faults.py).
 
-A trimmed copy of distributed_ddpg_tpu/faults.py: `FaultPlan.parse` reads
-the JAX package's `--faults` grammar (';'-separated specs,
-`component[:target]:kind@at[~seconds]`) and keeps the numeric, serve and
-front specs:
+Every fault fires at a deterministic trigger point (an env step for a
+worker, a call ordinal for a host-side site); the plan's seed only fills in
+durations left unspecified, each drawn from a PRNG seeded by the plan's seed
+and the spec, as the JAX package draws them, so one spec string and seed
+give one schedule in either package.
 
-    numeric:grad:nan@K     the K-th guarded learner step computes against a
-                           NaN-poisoned minibatch (NaN grads and td): the
-                           probe must skip the update and, sustained,
-                           roll back
-    numeric:replay:inf@K   the K-th ingested env-step row lands in replay
-                           with reward=+inf (poisoned on the host at drain
-                           time, train.py): the row screen must record it
-                           and attribute it to its ingest source
-    numeric:loss:spike@K   the K-th guarded learner step sees its rewards
-                           scaled by 1e6 (finite, absurd): the EWMA
-                           z-score detector's territory
+Grammar (';'-separated specs):
+
+    spec      := component [':' target] ':' kind '@' at ['~' seconds]
+    component := worker | pool | shipper | prefetch | ckpt | transfer
+                 | numeric | serve | devactor | front
+    kind      := crash | crashloop | hang | stall | slow | ioerror | nan
+                 | inf | spike | corrupt | regress
+
+`at` is 1-based: for `worker` the env step inside that worker's first
+incarnation (a respawned worker starts clean, except for `crashloop`, which
+re-arms on every incarnation), for a host-side site the n-th call of the
+instrumented operation. `~seconds` sets the duration of slow, hang and
+stall faults (default: the seeded draw of `_default_duration`).
+
+    worker:<id>:crash@N      raise at env step N (the process dies; the
+                             pool's monitor respawns it as `dead`)
+    worker:<id>:crashloop@N  crash at local step N of every incarnation
+    worker:<id>:hang@N       freeze without heartbeats (the silent timeout)
+    worker:<id>:stall@N      keep heartbeating, produce nothing (the pool's
+                             zero-rows detector, --actor_no_progress_s)
+    worker:<id>:slow@N~S     sleep S a step for SLOW_FAULT_STEPS env steps
+    ckpt:write:ioerror@K     the K-th checkpoint write attempt raises
+                             (checkpoint.py's retry)
+    ckpt:write:slow@K~S      the K-th write attempt sleeps S first
+    shipper:ship:crash@K     the K-th ingest ship raises (replay/device.py's
+                             bounded shipper restart)
+    shipper:ship:slow@K~S    the K-th ingest ship sleeps S first
+    prefetch:sample:hang@K~S the K-th prefetch sample sleeps S
+                             (parallel/prefetch.py; also slow, crash)
+    pool:broadcast:slow@K~S  the K-th param broadcast sleeps S first
+    pool:monitor:slow@K~S    the K-th supervision pass sleeps S first
+    transfer:dispatch:crash@K the K-th transfer-scheduler dispatch raises,
+                             killing the scheduler thread (its bounded
+                             self-restart, transfer/scheduler.py)
+    transfer:dispatch:slow@K~S the K-th dispatch sleeps S first
+    devactor:rollout:crash@K the K-th device-actor rollout raises
+                             (actors/device_pool.py's bounded restart,
+                             devactor_restarts)
+    devactor:rollout:slow@K~S the K-th rollout sleeps S first
+    numeric:grad:nan@K       the K-th guarded learner step computes against
+                             a NaN-poisoned minibatch (the probe must skip
+                             the update and, sustained, roll back)
+    numeric:replay:inf@K     the K-th ingested env-step row lands with
+                             reward=+inf (poisoned at drain time, train.py)
+    numeric:loss:spike@K     the K-th guarded learner step sees its rewards
+                             scaled by 1e6 (the z-score detector)
     serve:batcher:stall@K~S  the K-th inference-batch dispatch sleeps S
-                           before its apply (serve/batcher.py): served
-                           clients time out and degrade to their local
-                           act() path (also hang and slow)
-    serve:dispatch:crash@K the K-th inference-batch apply raises: every
-                           request of the batch fails typed, the batcher
-                           survives (also slow)
-    front:accept:stall@K~S the K-th accepted TCP connection's handler
-                           sleeps S before reading frames
-                           (serve/front/ingress.py; also slow and hang)
-    front:frame:corrupt@K  the K-th decoded request frame is treated as
-                           corrupt: a typed bad_frame answer, and the
-                           connection survives
-    front:canary:regress@K~S every candidate-routed request from the K-th
-                           on serves S seconds slower (sustained:
-                           front_canary_regressions), which the canary
-                           gate must roll back
+                             before its apply (serve/batcher.py; also hang
+                             and slow)
+    serve:dispatch:crash@K   the K-th inference-batch apply raises (also
+                             slow)
+    front:accept:stall@K~S   the K-th accepted TCP connection's handler
+                             sleeps S (serve/front/ingress.py; also slow
+                             and hang)
+    front:frame:corrupt@K    the K-th decoded request frame is treated as
+                             corrupt (a typed bad_frame answer)
+    front:canary:regress@K~S every candidate-routed request from the K-th on
+                             serves S seconds slower (sustained)
 
 Numeric `at` ordinals count guarded learner steps on a monotonic clock
-(guardrails.GuardState.total) that a rollback does not rewind, so a fault
-never re-fires after the rollback it caused. They are consumed when the
-learner builds its chunk (parallel/learner.py), not through a FaultSite.
-Serve and front `at` ordinals count calls of the instrumented operation:
-their consumers hold a FaultSite (`plan.site(component, target)`) and tick
-it once per operation. Durations left unspecified are drawn from a PRNG
-seeded by the plan's seed and the spec, as the JAX package draws them.
+(guardrails.GuardState.total) that a rollback does not rewind; they are
+consumed when the learner builds its chunk (parallel/learner.py), not
+through a FaultSite.
 
-Every other component of the JAX grammar (worker, pool, shipper,
-prefetch, ckpt, transfer, pod, devactor, slice) raises: its injection
-sites are not in the port yet (ROADMAP.md Queue 1 item 12).
+The legacy hook `--inject_fault=actor:<id>:<step>` (config.py) is an alias
+for `worker:<id>:crash@<step>`.
+
+Host-side consumers hold a `FaultSite` (`plan.site(component, target)`) and
+tick it once an operation; worker processes receive their picklable fault
+tuples through `plan.for_worker(id, incarnation)` and apply them inline
+(actors/worker.py). An empty plan's tick is one attribute check.
+
+The JAX grammar's `pod` and `slice` components raise: they script the
+processes of a multi-host pod and its replay slices, which come with the
+pods (ROADMAP.md Queue 1 item 10). Stdlib only: the actor workers import
+this module and never import torch.
 """
 
 from __future__ import annotations
@@ -61,8 +99,16 @@ COMPONENTS = ("worker", "pool", "shipper", "prefetch", "ckpt", "transfer",
               "pod", "numeric", "serve", "devactor", "slice", "front")
 KINDS = ("crash", "crashloop", "hang", "stall", "slow", "ioerror", "kill",
          "nan", "inf", "spike", "corrupt", "exit", "regress")
-# Numeric faults are target->kind pairs (each target poisons one specific
-# detector of the guardrails probe): grad->nan, replay->inf, loss->spike.
+
+# Worker `slow` faults throttle this many consecutive env steps, then lift.
+SLOW_FAULT_STEPS = 200
+
+# Worker kinds need a process to kill or freeze; site kinds need a call
+# site that can raise or sleep inline.
+_WORKER_KINDS = ("crash", "crashloop", "hang", "stall", "slow")
+_SITE_KINDS = ("crash", "hang", "slow", "ioerror")
+# Numeric faults are target->kind pairs (each target poisons one detector
+# of the guardrails' probe): grad->nan, replay->inf, loss->spike.
 _NUMERIC_PAIRS = {"grad": "nan", "replay": "inf", "loss": "spike"}
 # Serve faults target one of the batcher's two fault points: the
 # collection path (delayed responses, the client-timeout fallback) or the
@@ -79,22 +125,24 @@ _FRONT_KINDS = {
     "frame": ("corrupt",),
     "canary": ("regress",),
 }
-_IN_PORT = ("numeric", "serve", "front")
+# The multi-host components (ROADMAP.md Queue 1 item 10).
+_POD_ONLY = ("pod", "slice")
 
 
 class InjectedFault(OSError):
     """A scripted fault from a FaultPlan. Subclasses OSError so recovery
-    paths written for real IO failures treat an injected failure like the
-    genuine article."""
+    paths written for real IO failures (the checkpoint write's retry) treat
+    an injected failure like the genuine article."""
 
 
 @dataclasses.dataclass(frozen=True)
 class FaultSpec:
     component: str
-    target: str
+    target: str      # worker id as str, or site name ("write", "ship", ...)
     kind: str
-    at: int          # 1-based guarded-step, ingested-row or call ordinal
+    at: int          # env step (worker) / 1-based call ordinal (site)
     duration_s: float = 0.0  # slow/hang/stall/regress; resolved at parse time
+    code: int = 0    # the JAX grammar's pod exit status; always 0 here
 
     def describe(self) -> str:
         tgt = f":{self.target}" if self.target else ""
@@ -104,7 +152,8 @@ class FaultSpec:
 def _default_duration(kind: str, rng: random.Random) -> float:
     """Seeded default durations (the JAX package's): slowdowns are
     sub-second hiccups, canary regressions a few tens of ms a request,
-    hangs and stalls long enough to trip the timeouts they target."""
+    hangs and stalls long enough to trip the timeouts they target (worker
+    hangs ignore this: they freeze until terminated)."""
     if kind == "slow":
         return round(rng.uniform(0.05, 0.25), 3)
     if kind == "regress":
@@ -115,9 +164,9 @@ def _default_duration(kind: str, rng: random.Random) -> float:
 
 
 class FaultPlan:
-    """An immutable schedule of numeric FaultSpecs. Parse once (config
-    validation does, so a typo dies at argument parsing), share
-    everywhere."""
+    """An immutable, seeded schedule of FaultSpecs and the factory of the
+    per-component injectors. Parse once (config validation does, so a typo
+    dies at argument parsing), share everywhere."""
 
     def __init__(self, specs: Sequence[FaultSpec] = (), seed: int = 0):
         self.specs: Tuple[FaultSpec, ...] = tuple(specs)
@@ -144,9 +193,24 @@ class FaultPlan:
                 specs.append(_parse_one(raw, random.Random(f"{seed}:{i}:{raw}")))
         return cls(specs, seed=seed)
 
+    def for_worker(self, worker_id: int, incarnation: int = 0) -> List[Tuple[str, int, float]]:
+        """Picklable (kind, at_step, duration_s) tuples for one worker
+        process. The first incarnation gets every scheduled fault; a
+        respawn gets only `crashloop` (re-armed as a plain crash), so a
+        recovery is observable and a one-shot crash does not re-fire."""
+        out = []
+        for s in self.specs:
+            if s.component != "worker" or s.target != str(worker_id):
+                continue
+            if s.kind == "crashloop":
+                out.append(("crash", s.at, s.duration_s))
+            elif incarnation == 0:
+                out.append((s.kind, s.at, s.duration_s))
+        return sorted(out, key=lambda t: t[1])
+
     def site(self, component: str, target: str = "") -> "FaultSite":
-        """The injector of one host-side operation (a serve or front
-        target): the specs of `component` whose target matches."""
+        """The injector of one host-side operation: the specs of
+        `component` whose target matches."""
         matches = [s for s in self.specs if s.component == component
                    and (not s.target or not target or s.target == target)]
         return FaultSite(matches, component, target)
@@ -184,20 +248,22 @@ def _parse_one(raw: str, rng: random.Random) -> FaultSpec:
         return ValueError(
             f"bad fault spec {raw!r}: {why} (grammar: "
             "component[:target]:kind@at[~seconds], e.g. "
-            "'numeric:grad:nan@500')"
+            "'worker:2:crash@5000' or 'ckpt:write:ioerror@2')"
         )
 
     parts = raw.split(":")
     if len(parts) == 3 and parts[0] == "actor" and "@" not in parts[2]:
-        # The JAX package's legacy --inject_fault alias (a worker crash).
-        parts = ["worker"]
-    component = parts[0]
-    if component in COMPONENTS and component not in _IN_PORT:
+        # The legacy --inject_fault alias: actor:<id>:<step> is a crash.
+        try:
+            wid, step = int(parts[1]), int(parts[2])
+        except ValueError:
+            raise bad("legacy actor:<id>:<step> needs two integers") from None
+        return FaultSpec("worker", str(wid), "crash", step, 0.0)
+    if parts[0] in _POD_ONLY:
         raise ValueError(
-            f"faults={raw!r}: the {component!r} component is not in this "
-            "slice of the PyTorch port (ROADMAP.md Queue 1 item 12); only "
-            "numeric:grad:nan, numeric:replay:inf, numeric:loss:spike and the "
-            "serve and front sites are"
+            f"faults={raw!r}: the {parts[0]!r} component scripts the processes of a "
+            "multi-host pod and is not in this slice of the PyTorch port (ROADMAP.md "
+            "Queue 1 item 10)"
         )
     if len(parts) == 2:
         (component, tail), target = parts, ""
@@ -227,7 +293,14 @@ def _parse_one(raw: str, rng: random.Random) -> FaultSpec:
         raise bad(f"bad trigger {at_str!r} (integer step/ordinal)") from None
     if at < 1:
         raise bad("trigger must be >= 1")
-    if component == "numeric":
+    if component == "worker":
+        if kind not in _WORKER_KINDS:
+            raise bad(f"kind {kind!r} does not apply to workers")
+        try:
+            int(target)
+        except ValueError:
+            raise bad("worker target must be an integer id") from None
+    elif component == "numeric":
         if target not in _NUMERIC_PAIRS:
             raise bad(f"numeric target must be one of {tuple(_NUMERIC_PAIRS)}")
         if kind != _NUMERIC_PAIRS[target]:
@@ -235,24 +308,27 @@ def _parse_one(raw: str, rng: random.Random) -> FaultSpec:
                 f"numeric:{target} takes kind {_NUMERIC_PAIRS[target]!r} "
                 f"(got {kind!r}) — grad:nan, replay:inf, loss:spike"
             )
-    else:
+    elif component in ("serve", "front"):
         table = _SERVE_KINDS if component == "serve" else _FRONT_KINDS
         if target not in table:
             raise bad(f"{component} target must be one of {tuple(table)}")
         if kind not in table[target]:
             raise bad(f"{component}:{target} takes kind in {table[target]} "
                       f"(got {kind!r})")
+    elif kind not in _SITE_KINDS:
+        raise bad(f"kind {kind!r} does not apply to host sites")
     if duration is None:
         duration = _default_duration(kind, rng)
     return FaultSpec(component, target, kind, at, duration)
 
 
 class FaultSite:
-    """Call-ordinal injector of one host-side operation: `tick()` once per
-    operation; the n-th tick fires every spec scheduled `@n` (`crash` and
-    `corrupt` raise InjectedFault, `slow`/`hang`/`stall` sleep their
-    duration; `regress` is read by front_canary_regressions, not here).
-    Thread-safe. A site with no specs is a no-op."""
+    """Call-ordinal injector of one host-side operation: `tick()` once an
+    operation; the n-th tick fires every spec scheduled `@n` (`ioerror`,
+    `crash` and `corrupt` raise InjectedFault, `slow`/`hang`/`stall` sleep
+    their duration; `regress` is read by front_canary_regressions, not
+    here). Thread-safe (sites sit on the shipper's, the prefetcher's and
+    the saver's threads). A site with no specs is a no-op."""
 
     def __init__(self, specs: Sequence[FaultSpec], component: str, target: str = ""):
         self._by_at: Dict[int, List[FaultSpec]] = {}
@@ -281,5 +357,9 @@ class FaultSite:
             self.fired.append(s.describe())
             if s.kind in ("slow", "hang", "stall"):
                 time.sleep(s.duration_s)
-            elif s.kind in ("crash", "corrupt"):
+            elif s.kind != "regress":   # ioerror, crash, corrupt
                 raise InjectedFault(f"injected {s.describe()} (call #{self._count})")
+
+
+# The shared empty site: the no-plan path every production call site holds.
+NULL_SITE = FaultSite((), "", "")

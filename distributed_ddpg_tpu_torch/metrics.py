@@ -1,21 +1,140 @@
-"""Counters of the ingest pipeline, the transfer scheduler, the guardrails,
+"""Structured metrics: the JSONL logger, the per-phase timers and the
+counters of the ingest pipeline, the transfer scheduler, the guardrails,
 the device actors, the fused beat and the serving stack.
 
-A trimmed copy of distributed_ddpg_tpu/metrics.py: IngestStats and
-TransferStats (with the reservoir they keep their tails in),
-GuardrailStats, DevActorStats, FusedBeatStats, and ServeStats, FrontStats
-and TenantStats (serve/), under the JAX package's snapshot keys letter for letter,
-so a record of either trainer reads the same. The port's JSONL log is
-train.JsonlLog.
+A counterpart of distributed_ddpg_tpu/metrics.py: MetricsLogger (JSONL to
+a file and stdout, the latest record of each kind for the exporter's
+/metrics, and a TensorBoard sink with tb_dir), PhaseTimers (each phase's
+mean, count and reservoir tails, and a flight-recorder span), Timer (the
+rate meter), IngestStats and TransferStats (with the reservoir they keep
+their tails in), GuardrailStats, DevActorStats, FusedBeatStats, and
+ServeStats, FrontStats and TenantStats (serve/), under the JAX package's
+snapshot keys letter for letter, so a record of either trainer reads the
+same. The JAX package's pod, mesh, replay-shard and supervisor stats come
+with their slices. Nothing here imports torch at import time.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import random
+import sys
 import threading
 import time
+import warnings
 import zlib
-from typing import Dict, List
+from contextlib import contextmanager
+from typing import Any, Dict, List
+
+from distributed_ddpg_tpu_torch import trace
+
+
+class MetricsLogger:
+    """One JSON object a line to stdout (with `echo`) and, when given, a
+    file; the latest record of each kind for the exporter's /metrics
+    (obs/exporter.py); with `tb_dir`, every numeric field as a TensorBoard
+    scalar `<kind>/<field>`. The stream opens with one `header` record
+    carrying the absolute wall-clock base (`t_unix_base`): `wall_time` is
+    seconds since the logger's creation, so t_unix_base + wall_time is an
+    event's absolute time."""
+
+    def __init__(self, path: str = "", echo: bool = True, tb_dir: str = ""):
+        self._file = open(path, "a", buffering=1) if path else None
+        self._echo = echo
+        self._t0 = time.time()
+        # log() may be called from more than one thread; the sinks are
+        # serialized so JSONL lines never interleave.
+        self._lock = threading.Lock()
+        self._latest: Dict[str, Dict[str, Any]] = {}
+        self._tb = None
+        if tb_dir:
+            try:
+                # Its event writer needs no tensors for scalars.
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(tb_dir)
+            except Exception as e:  # JSONL only, said once (the JAX package's rule)
+                warnings.warn(f"tb_dir={tb_dir!r} requested but TensorBoard "
+                              f"writer unavailable: {e}")
+        self.t_unix_base = round(self._t0, 6)
+        self.log("header", 0, t_unix_base=self.t_unix_base, pid=os.getpid())
+
+    def log(self, kind: str, step: int, **fields: Any) -> Dict[str, Any]:
+        rec = {
+            "kind": kind,
+            "step": step,
+            "wall_time": round(time.time() - self._t0, 3),
+            **{k: _jsonable(v) for k, v in fields.items()},
+        }
+        line = json.dumps(rec)
+        with self._lock:
+            self._latest[kind] = rec
+            if self._file:
+                self._file.write(line + "\n")
+            if self._echo:
+                print(line, file=sys.stdout, flush=True)
+            if self._tb is not None:
+                for k, v in rec.items():
+                    if k in ("kind", "step") or not isinstance(v, (int, float)):
+                        continue
+                    self._tb.add_scalar(f"{kind}/{k}", v, step)
+        return rec
+
+    def latest(self) -> Dict[str, Dict[str, Any]]:
+        """{kind: the most recent record}, the /metrics render source;
+        shallow-copied so the scrape thread iterates a stable dict."""
+        with self._lock:
+            return dict(self._latest)
+
+    def close(self) -> None:
+        if self._file:
+            self._file.close()
+        if self._tb is not None:
+            self._tb.close()
+
+
+def _jsonable(v):
+    """A JSONL field's value: bools and ints pass as their type, numpy and
+    torch zero-dim scalars are unwrapped to theirs, other numbers become
+    floats rounded to 6 decimals (which bounds a record's size), and
+    everything else passes unchanged."""
+    if isinstance(v, bool):
+        return v
+    if isinstance(v, int):
+        return v
+    if hasattr(v, "item") and not hasattr(v, "__len__"):
+        try:
+            return _jsonable(v.item())
+        except (TypeError, ValueError):
+            return v
+    try:
+        return round(float(v), 6)
+    except (TypeError, ValueError):
+        return v
+
+
+class Timer:
+    """Running rate meter on the monotonic clock: a wall-clock jump must
+    not spike or zero the reported rate."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self._t = time.monotonic()
+        self._n = 0
+
+    def tick(self, n: int = 1) -> None:
+        self._n += n
+
+    def rate(self) -> float:
+        dt = time.monotonic() - self._t
+        return self._n / dt if dt > 0 else 0.0
+
+    def exclude(self, seconds: float) -> None:
+        """Drop off-path work (an inline eval) from the measured window."""
+        self._t += seconds
 
 
 class _Reservoir:
@@ -275,6 +394,70 @@ class GuardrailStats:
 
 # Durations a reservoir keeps (the JAX package's PhaseTimers.RESERVOIR_K).
 RESERVOIR_K = 256
+
+
+class PhaseTimers:
+    """Per-phase wall time and tails of the driver's phases (the JAX
+    package's PhaseTimers). Phases are whatever the caller brackets; the
+    trainer's are dispatch (a chunk's enqueue: on the card a launch
+    returns at once, and the wait shows in sync or metrics_d2h), ingest,
+    sync (a metrics read), sample_wait, refresh, prio_update, devactor,
+    ckpt and eval_snapshot. snapshot() returns the interval's fields and
+    starts a new one:
+
+      t_<name>_ms    mean ms a call
+      n_<name>       calls in the interval
+      t_<name>_p50 / t_<name>_p95 / t_<name>_max
+                     reservoir percentiles and the exact max, ms
+
+    Each bracket also opens a flight-recorder span (trace.py) under the
+    phase's name. The host's clock: none of these is a device time."""
+
+    RESERVOIR_K = RESERVOIR_K
+
+    def __init__(self, seed: int = 0):
+        self._acc: Dict[str, float] = {}
+        self._n: Dict[str, int] = {}
+        self._res: Dict[str, _Reservoir] = {}
+        self._seed = seed
+
+    @contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        with trace.span(name):
+            try:
+                yield
+            finally:
+                dt = time.perf_counter() - t0
+                self._acc[name] = self._acc.get(name, 0.0) + dt
+                self._n[name] = self._n.get(name, 0) + 1
+                r = self._res.get(name)
+                if r is None:
+                    # Seeded from the phase's name with crc32 (str hashing
+                    # is salted per interpreter) and the seed, so which
+                    # samples the reservoir keeps is the same run to run.
+                    r = self._res[name] = _Reservoir(
+                        self.RESERVOIR_K,
+                        (zlib.crc32(name.encode()) ^ self._seed) & 0x7FFFFFFF,
+                    )
+                r.add(dt)
+
+    def snapshot(self, reset: bool = True) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for name, total in self._acc.items():
+            n = max(self._n.get(name, 1), 1)
+            out[f"t_{name}_ms"] = round(1000.0 * total / n, 3)
+            out[f"n_{name}"] = self._n.get(name, 0)
+            r = self._res.get(name)
+            if r is not None and r.buf:
+                out[f"t_{name}_p50"] = round(1000.0 * r.percentile(0.50), 3)
+                out[f"t_{name}_p95"] = round(1000.0 * r.percentile(0.95), 3)
+                out[f"t_{name}_max"] = round(1000.0 * r.max, 3)
+        if reset:
+            self._acc.clear()
+            self._n.clear()
+            self._res.clear()
+        return out
 
 
 class DevActorStats:

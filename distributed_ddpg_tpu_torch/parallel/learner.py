@@ -101,6 +101,7 @@ import numpy as np
 import torch
 
 from distributed_ddpg_tpu_torch import guardrails as guard_lib
+from distributed_ddpg_tpu_torch import trace
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.devices import require_device
 from distributed_ddpg_tpu_torch.learner import (
@@ -482,7 +483,8 @@ class ShardedLearner:
         if not self.guard_enabled or self._health_cur is None:
             return None
         vec = self._health_cur[0]
-        vec = np.asarray(vec.cpu() if isinstance(vec, torch.Tensor) else vec, np.int64)
+        with trace.span("health_d2h"):
+            vec = np.asarray(vec.cpu() if isinstance(vec, torch.Tensor) else vec, np.int64)
         keys = guard_lib.HEALTH_KEYS
         if vec.ndim == 1:
             h = dict(zip(keys, (int(v) for v in vec)))
@@ -693,7 +695,11 @@ class ShardedLearner:
         the HostChunk (run_chunk_async makes the chunk's stream wait on it
         before the chunk reads the rows). Callable from any thread (the
         prefetcher's, the transfer scheduler's). On the CPU the packed
-        array itself."""
+        array itself. A `chunk_h2d` span (trace.py)."""
+        with trace.span("chunk_h2d"):
+            return self._put_chunk(np_batches)
+
+    def _put_chunk(self, np_batches: Dict[str, np.ndarray]) -> "HostChunk":
         packed = pack_batch_np(np_batches)
         if self._copy_stream is None:
             return HostChunk(torch.from_numpy(packed), None)
@@ -731,15 +737,20 @@ class ShardedLearner:
         """The actor params as one flat f32 vector in the layout of
         actors/policy.flatten_params (per layer w then b, C order; SAC's
         head 2 * act wide), for the broadcast to CPU rollout workers. One
-        device->host copy."""
-        flat = torch.cat([
-            t.reshape(-1) for layer in self.state.actor_params
-            for t in (layer["w"], layer["b"])
-        ])
-        return flat.cpu().numpy()
+        device->host copy, which waits for the running chunk: a
+        `params_d2h` span (trace.py)."""
+        with trace.span("params_d2h"):
+            flat = torch.cat([
+                t.reshape(-1) for layer in self.state.actor_params
+                for t in (layer["w"], layer["b"])
+            ])
+            return flat.cpu().numpy()
 
     def metrics_to_host(self, out: StepOutput) -> Dict[str, float]:
-        vals = torch.stack([out.metrics[k] for k in METRIC_KEYS]).cpu().tolist()
+        """The chunk's metrics on the host: one read, which waits for the
+        chunk (a `metrics_d2h` span)."""
+        with trace.span("metrics_d2h"):
+            vals = torch.stack([out.metrics[k] for k in METRIC_KEYS]).cpu().tolist()
         return dict(zip(METRIC_KEYS, vals))
 
 

@@ -39,6 +39,7 @@ from __future__ import annotations
 import time
 from typing import Optional
 
+from distributed_ddpg_tpu_torch import trace
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.learner import StepOutput
 from distributed_ddpg_tpu_torch.metrics import FusedBeatStats
@@ -102,7 +103,8 @@ class FusedMegastep:
         (build_beat_body)."""
         t0 = time.perf_counter()
         with self.replay.dispatch_lock:
-            out = self._beat(beta, idx, weights, draws)
+            with trace.span("fused_beat", rows=self.rows_per_beat, steps=self.chunk_size):
+                out = self._beat(beta, idx, weights, draws)
             self.learner.mark_dispatched()
         dt = time.perf_counter() - t0
         self.pool.absorb_fused_chunk(dt)

@@ -13,8 +13,10 @@ updates after the chunk's td comes back.
 With a transfer scheduler (transfer/scheduler.py) the put is submitted as
 a `prefetch`-class item, so its copy shares the scheduler's byte-fair
 queue with the ingest ships; the sampling stays on this thread (CPU work,
-not bus work). The JAX module's chaos site (`prefetch:sample`) is not
-ported: a `prefetch:*` fault spec raises in faults.py.
+not bus work). `fault` (the plan's `prefetch:sample` site,
+--faults='prefetch:sample:hang@K~S') is ticked once a sample; a sample is a
+`prefetch_sample` span, an unscheduled put a `prefetch_h2d` one
+(trace.py).
 
 Failures: an exception on the thread is raised at the next `next()` as
 PrefetchError (the cause chained); a `next()` that waits past its timeout
@@ -32,6 +34,8 @@ import warnings
 from typing import Dict, Optional
 
 import numpy as np
+
+from distributed_ddpg_tpu_torch import trace
 
 # How long the thread grants an in-flight put to land after stop is
 # asked, before it leaves it to the scheduler (whose close() fails
@@ -60,10 +64,12 @@ class ChunkPrefetcher:
         depth: int = 2,
         lock: Optional[threading.Lock] = None,
         scheduler=None,             # transfer.TransferScheduler (optional)
+        fault=None,                 # faults.FaultSite ticked once a sample
     ):
         self._replay = replay
         self._put = put_chunk
         self._sched = scheduler
+        self._fault = fault
         self._batch_size = batch_size
         self._chunk = chunk_size
         self._lock = lock or threading.Lock()
@@ -77,11 +83,16 @@ class ChunkPrefetcher:
         return self
 
     def _sample_chunk(self) -> Dict[str, np.ndarray]:
-        samples = []
-        with self._lock:
-            for _ in range(self._chunk):
-                samples.append(self._replay.sample(self._batch_size))
-        return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+        if self._fault is not None:
+            self._fault.tick()
+        # When the learner's sample_wait grows, this span and the h2d's
+        # say which of the two is the bottleneck.
+        with trace.span("prefetch_sample"):
+            samples = []
+            with self._lock:
+                for _ in range(self._chunk):
+                    samples.append(self._replay.sample(self._batch_size))
+            return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
     def _run(self) -> None:
         try:
@@ -109,7 +120,8 @@ class ChunkPrefetcher:
                         return
                     device_chunk = ticket.result(timeout=0.0)
                 else:
-                    device_chunk = self._put(chunk)
+                    with trace.span("prefetch_h2d"):
+                        device_chunk = self._put(chunk)
                 # Block here while the queue is full: the backpressure that
                 # makes `depth` the bound.
                 while not self._stop.is_set():

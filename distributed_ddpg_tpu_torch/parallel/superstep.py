@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from distributed_ddpg_tpu_torch import trace
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.learner import METRIC_KEYS, StepOutput
 from distributed_ddpg_tpu_torch.metrics import FusedBeatStats
@@ -84,13 +85,15 @@ class FusedSuperstep:
         t0 = time.perf_counter()
         metrics, health, bad = [], [], []
         with self.replay.dispatch_lock:
-            for b in range(B):
-                out = self._beat(float(betas[b]) if self.per else None,
-                                 _nth(idx, b), _nth(weights, b), _nth(draws, b))
-                metrics.append(torch.stack([out.metrics[k] for k in METRIC_KEYS]))
-                if self.guard:
-                    health.append(L._health_cur[0])
-                    bad.append(L._health_cur[1])
+            with trace.span("superstep", beats=B, rows=B * self.rows_per_beat,
+                            steps=B * self.chunk_size):
+                for b in range(B):
+                    out = self._beat(float(betas[b]) if self.per else None,
+                                     _nth(idx, b), _nth(weights, b), _nth(draws, b))
+                    metrics.append(torch.stack([out.metrics[k] for k in METRIC_KEYS]))
+                    if self.guard:
+                        health.append(L._health_cur[0])
+                        bad.append(L._health_cur[1])
             L.mark_dispatched()
         stacked = torch.stack(metrics).double()
         if self.guard:

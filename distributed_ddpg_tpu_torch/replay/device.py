@@ -29,7 +29,11 @@ Ingest pipeline (the JAX package's, port of its `_IngestShipper`,
   when the staging ring is full (`ingest_stall_ms`). A failed ship
   restarts the shipper (or resubmits the item) up to 3 times, then the
   producer's next call raises IngestError. `close()` stops it; later
-  inserts ship inline;
+  inserts ship inline. `fault` (the plan's `shipper:ship` site,
+  --faults='shipper:ship:crash@K') is ticked once a ship; each ship is an
+  `ingest_ship` span (a padded flush `ingest_flush`), a restart a
+  `shipper_restart` instant and a producer's wait on a full ring an
+  `ingest_backpressure` span (trace.py);
 - `dispatch_lock` (an RLock) serializes every sequence that reads or
   moves ptr/size with the device work it issues: each ship (pop, copy,
   PER stamp, ptr/size), each chunk's draw and gather (parallel/learner.py),
@@ -88,6 +92,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from distributed_ddpg_tpu_torch import trace
 from distributed_ddpg_tpu_torch.devices import require_device
 from distributed_ddpg_tpu_torch.metrics import IngestStats
 from distributed_ddpg_tpu_torch.replay.staging import HostStagingRing
@@ -218,7 +223,7 @@ class DeviceReplay:
                  block_size: int = 4096, staging_blocks: int = 16,
                  async_ship: bool = False, max_coalesce: int = 8, scheduler=None,
                  adaptive_coalesce: bool = False, host_pool: bool = False,
-                 track_sources: bool = False):
+                 track_sources: bool = False, fault=None):
         self.capacity = int(capacity)
         self.obs_dim, self.act_dim = obs_dim, act_dim
         self.block_size = int(block_size)
@@ -252,6 +257,7 @@ class DeviceReplay:
         self._src_fifo: deque = deque()   # mutable [source, rows] run-lengths
         self._shipper_restarts = 0
         self._max_shipper_restarts = 3
+        self._fault = fault   # a faults.FaultSite ticked once a ship
 
         self._sched = scheduler
         self._adaptive = (
@@ -323,6 +329,7 @@ class DeviceReplay:
             if self._shipper_restarts < self._max_shipper_restarts:
                 self._shipper_restarts += 1
                 exc, s.exc = s.exc, None
+                trace.instant("shipper_restart", n=self._shipper_restarts)
                 print(f"[ingest] shipper thread died ({exc!r}); restarting "
                       f"({self._shipper_restarts}/{self._max_shipper_restarts})",
                       file=sys.stderr, flush=True)
@@ -343,6 +350,7 @@ class DeviceReplay:
             self._ingest_exc = None
             if self._shipper_restarts < self._max_shipper_restarts:
                 self._shipper_restarts += 1
+                trace.instant("shipper_restart", n=self._shipper_restarts)
                 print(f"[ingest] transfer ingest work died ({exc!r}); resubmitting "
                       f"({self._shipper_restarts}/{self._max_shipper_restarts})",
                       file=sys.stderr, flush=True)
@@ -433,7 +441,8 @@ class DeviceReplay:
             start = self.ptr
             t0 = time.perf_counter()
             try:
-                self._ship(rows)
+                with trace.span("ingest_ship", rows=n, blocks=k):
+                    self._ship(rows)
             except BaseException:
                 if buf is not None:
                     # Not consumed: back unfenced, so a resubmit does not
@@ -513,6 +522,9 @@ class DeviceReplay:
                     if not self._async:
                         break   # close() raced us: push (the ring grows), ship inline
                 stall = time.perf_counter() - t0
+                if stall > 0.001:
+                    # The producer's wait on a full ring, as a span.
+                    trace.complete("ingest_backpressure", t0, stall, rows=len(rows))
             self._ring.push(rows)
             if self._track_sources and len(rows):
                 self._src_fifo.append([int(source), len(rows)])
@@ -550,7 +562,8 @@ class DeviceReplay:
                 m = min(self.block_size, self.capacity)
                 start = self.ptr
                 t0 = time.perf_counter()
-                self._ship(np.tile(rows, (reps, 1))[:m])
+                with trace.span("ingest_flush", rows=n):
+                    self._ship(np.tile(rows, (reps, 1))[:m])
                 self._stats.record_ship(n, 1, time.perf_counter() - t0)
                 if srcs is not None:
                     # The padding repeats real rows: the copies inherit the
@@ -562,6 +575,8 @@ class DeviceReplay:
         capacity): one H2D copy into the ring's slice, two when it wraps,
         on the learner's stream; non-blocking from pinned memory. The
         caller holds dispatch_lock."""
+        if self._fault is not None:
+            self._fault.tick()
         m = len(rows)
         src = torch.from_numpy(rows)
         pinned = self._stream is not None and src.is_pinned()

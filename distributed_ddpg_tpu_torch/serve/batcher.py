@@ -1,7 +1,6 @@
 """Dynamic request batcher of the policy-inference service.
 
-A copy of distributed_ddpg_tpu/serve/batcher.py without its trace spans
-(tracing is ROADMAP.md Queue 1 item 12). Clients enqueue single
+A copy of distributed_ddpg_tpu/serve/batcher.py. Clients enqueue single
 observations; one dispatcher thread collects them into batches and
 dispatches when whichever trigger fires first:
 
@@ -26,6 +25,10 @@ Contracts (tests/test_torch_serve.py):
 Fault injection (faults.py): `serve:batcher:stall@k` sleeps the k-th
 dispatch before its apply (clients time out and fall back locally);
 `serve:dispatch:crash@k` raises inside the k-th batch apply.
+
+Tracing (trace.py): each batch apply is a `serve_dispatch` span, a failed
+one a `serve_dispatch_error` instant, a refused submit a `serve_overload`
+instant.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from collections import deque
 from typing import Callable, List, Optional
 
 import numpy as np
+
+from distributed_ddpg_tpu_torch import trace
 
 
 class ServeOverload(RuntimeError):
@@ -140,6 +145,7 @@ class Batcher:
             if len(self._q) >= self.max_queue:
                 if self.stats is not None:
                     self.stats.record_overload()
+                trace.instant("serve_overload", depth=len(self._q))
                 raise ServeOverload(f"serve request queue full ({self.max_queue} pending)")
             self._q.append(p)
             if self.stats is not None:
@@ -185,12 +191,14 @@ class Batcher:
             # Inside the try: a malformed observation (a wrong obs_dim from
             # a misbehaving client) fails THIS batch typed, not the thread.
             obs = np.stack([p.obs for p in batch]).astype(np.float32, copy=False)
-            if self._fault_dispatch is not None:
-                self._fault_dispatch.tick()  # serve:dispatch:crash@k
-            actions = np.asarray(self._apply(obs))
+            with trace.span("serve_dispatch", rows=len(batch)):
+                if self._fault_dispatch is not None:
+                    self._fault_dispatch.tick()  # serve:dispatch:crash@k
+                actions = np.asarray(self._apply(obs))
         except BaseException as e:
             if self.stats is not None:
                 self.stats.record_error()
+            trace.instant("serve_dispatch_error", rows=len(batch))
             err = ServeDispatchError(f"inference batch of {len(batch)} failed: {e!r}")
             err.__cause__ = e
             for p in batch:

@@ -51,9 +51,11 @@ each (parallel/mesh.py). It covers:
   IngestStats) and, with the scheduler, the transfer_* fields in every
   train record and the final one (each an interval's), and in the final
   record and the summary the transport that ran, ingest_async_active,
-  and the driver's time in ingest while chunks ran: t_ingest_chunk_ms
-  (the mean a chunk), t_ingest_ms (the mean a call), t_ingest_max (the
-  longest call), n_ingest (calls).
+  and the driver's time in ingest while chunks ran over the whole run:
+  t_ingest_chunk_ms (the mean a chunk), t_ingest_run_ms (the mean a
+  call), t_ingest_run_max (the longest call), n_ingest_run (calls).
+  (t_ingest_ms, t_ingest_max and n_ingest are PhaseTimers' ingest phase
+  over the record's interval, as in the JAX trainer's records.)
 
 On D > 1 ranks every rank runs train() with its DataGroup, in lockstep:
 
@@ -152,7 +154,8 @@ larger than the card's memory), on one rank:
   submitted to the transfer scheduler's prefetch class), up to
   --prefetch_depth chunks ahead;
 - each dispatch takes the next chunk (`prefetch.next()`; the wait is the
-  final record's t_sample_wait_ms, a chunk) into
+  sample_wait phase, and over the whole run the final record's
+  t_sample_wait_run_ms, a chunk) into
   ShardedLearner.run_chunk_async, on the kernel route or the scan route;
 - under PER, once the chunk has ended, its td goes back into the sum tree
   and beta anneals, under the lock; chunks the prefetcher drew meanwhile
@@ -200,6 +203,44 @@ into every record, and one snapshot into the final record and the
 summary. Teardown: the workers, then the front, then ServeFront, then the
 server flushes (JAX :2582-2595). One rank.
 
+The operations layer (the JAX trainer's train_jax and its telemetry):
+
+- --trace_dir: the flight recorder (trace.py, --trace_events slots) for
+  the whole device lifetime of train(), written to trace_dir/trace.json
+  on the way out and on SIGUSR2; each actor worker writes its own
+  trace_actor<k>.json;
+- --watchdog_s: the stall watchdog (watchdog.py) over the same lifetime:
+  the driver beats it at each milestone (the learner built, the first
+  params read, every warmup and loop turn, every teardown stage), the
+  first chunk, which builds the kernels with nvcc, gets
+  max(300, 2 watchdog_s), as do a rollback and a support expansion; no
+  beat for watchdog_s writes stall_report.json and stall_trace.json into
+  trace_dir (else checkpoint_dir, else the cwd) and exits 70. No ingested
+  row for 10 x watchdog_s, in the warmup or the loop, raises (an
+  actor-side stall, on a healthy learner thread);
+- --obs_port: the exporter (obs/exporter.py): /metrics from the latest
+  record of each kind, /healthz from obs/health.py (draining on SIGTERM
+  and on a stall; degraded while a guardrail quarantine holds or the
+  serve queue is saturated), /trace;
+- PhaseTimers (metrics.py) around the JAX trainer's phases (dispatch,
+  sample_wait, ingest, sync, refresh, prio_update, devactor, ckpt,
+  eval_snapshot): t_<phase>_ms / n_<phase> / t_<phase>_p50 / _p95 / _max
+  over each train record's interval and in the final record, beside the
+  actors' staleness_mean / staleness_max (the pool's) in each train
+  record. These are host-clock times: `dispatch` on the card is the
+  chunk's enqueue, and the wait for the card shows in `sync`;
+- --profile_dir: the loop under torch.profiler (CPU and, on the card, CUDA
+  activities), written as a Chrome trace to profile_dir/profile.json;
+- --tb_dir: every record's numbers as TensorBoard scalars
+  (metrics.MetricsLogger), in train_native and train_ondevice too;
+- --faults: the plan's sites are wired here: the transfer scheduler's
+  `transfer:dispatch`, the shipper's `shipper:ship`, the checkpoint
+  writer's `ckpt:write`, the prefetcher's `prefetch:sample`, the device
+  actors' `devactor:rollout` and (actors/pool.py) the workers' and the
+  pool's; every train and final record carries the recovery counters
+  (actor_respawns, actor_quarantined, actor_unquarantined,
+  ckpt_write_retries, emergency_ckpt).
+
 --backend=native runs train_native instead: the numpy learner
 (native_backend.py) on the CPU, one env and one step a train_every env
 steps, the JAX trainer's baseline loop, asked for by name.
@@ -235,7 +276,7 @@ Usage:
 
 from __future__ import annotations
 
-import json
+import contextlib
 import math
 import os
 import signal
@@ -250,8 +291,9 @@ from distributed_ddpg_tpu_torch.actors.policy import NumpyPolicy, actor_head_dim
 from distributed_ddpg_tpu_torch.actors.pool import ActorPool
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.envs import make, spec_of
+from distributed_ddpg_tpu_torch import trace
 from distributed_ddpg_tpu_torch.exits import EXIT_NUMERIC, EXIT_PREEMPTED
-from distributed_ddpg_tpu_torch.metrics import GuardrailStats
+from distributed_ddpg_tpu_torch.metrics import GuardrailStats, MetricsLogger, PhaseTimers, Timer
 from distributed_ddpg_tpu_torch.ops import support_auto
 from distributed_ddpg_tpu_torch.ops.noise import OUNoise
 from distributed_ddpg_tpu_torch.replay import make_replay
@@ -259,49 +301,39 @@ from distributed_ddpg_tpu_torch.replay.nstep import NStepAccumulator
 from distributed_ddpg_tpu_torch.types import pack_batch_np, packed_width, unpack_batch
 
 
-class JsonlLog:
-    """One JSON object per line to stdout and, when given, a file."""
+def _enable_faulthandler() -> None:
+    """Stack dumps on a hard fault and on demand (kill -USR1 <pid>): a
+    wedged driver must be debuggable without a debugger attached."""
+    import faulthandler
 
-    def __init__(self, path: str = "", echo: bool = True):
-        self._file = open(path, "a", buffering=1) if path else None
-        self._echo = echo
-        self._t0 = time.time()
-
-    def log(self, kind: str, step: int, **fields: Any) -> Dict[str, Any]:
-        rec = {"kind": kind, "step": int(step),
-               "wall_time": round(time.time() - self._t0, 3), **fields}
-        line = json.dumps(rec)
-        if self._file:
-            self._file.write(line + "\n")
-        if self._echo:
-            print(line, flush=True)
-        return rec
-
-    def close(self) -> None:
-        if self._file:
-            self._file.close()
+    faulthandler.enable()
+    if hasattr(signal, "SIGUSR1"):
+        faulthandler.register(signal.SIGUSR1)
 
 
-class Timer:
-    """Running rate meter on the monotonic clock."""
+@contextlib.contextmanager
+def _profiled(config: DDPGConfig, device):
+    """--profile_dir: the block under torch.profiler (CPU activities, and
+    CUDA's on the card), exported as a Chrome trace to
+    profile_dir/profile.json (the JAX trainer's jax.profiler.trace). It
+    holds every event in memory: keep such runs short."""
+    if not config.profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    def __init__(self):
-        self.reset()
-
-    def reset(self) -> None:
-        self._t = time.monotonic()
-        self._n = 0
-
-    def tick(self, n: int = 1) -> None:
-        self._n += n
-
-    def rate(self) -> float:
-        dt = time.monotonic() - self._t
-        return self._n / dt if dt > 0 else 0.0
-
-    def exclude(self, seconds: float) -> None:
-        """Drop off-path work (an inline eval) from the measured window."""
-        self._t += seconds
+    on_card = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=activities) as prof:
+        yield
+        if on_card:
+            # Every kernel of the block ends inside the profiled window.
+            torch.cuda.synchronize()
+    os.makedirs(config.profile_dir, exist_ok=True)
+    path = os.path.join(config.profile_dir, "profile.json")
+    prof.export_chrome_trace(path)
+    print(f"[profile] -> {path}", file=sys.stderr, flush=True)
 
 
 def _eval_numpy(policy, config: DDPGConfig, spec, episodes: Optional[int] = None) -> float:
@@ -389,16 +421,80 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     the actors, the eval and the log, and its decisions and rows go to the
     others (see the module's docstring); its summary carries the final
     return, the others' None. backend='native' runs train_native."""
+    _enable_faulthandler()
     if config.backend == "native":
         return train_native(config, echo)
     if config.backend == "jax_ondevice":
         return train_ondevice(config, echo, group)
+    return _train_operated(config, echo, group)
+
+
+def _train_operated(config: DDPGConfig, echo: bool, group) -> Dict[str, Any]:
+    """The flight recorder and the stall watchdog around the whole device
+    lifetime of one training run (JAX train_jax): the learner's
+    construction, the first params d2h, every loop turn and the teardown.
+    The recorder is exported on the way out (and on SIGUSR2); the watchdog
+    dies with the call, so it never fires on a process that has already
+    left the run through an ordinary exception."""
+    trace_path = ""
+    if config.trace_dir:
+        trace.configure(capacity=config.trace_events)
+        rank = group.rank if group is not None else 0
+        trace_path = os.path.join(config.trace_dir,
+                                  "trace.json" if rank == 0 else f"trace_rank{rank}.json")
+        trace.install_signal_export(trace_path)
+    beats = [0]
+
+    def beat() -> None:
+        beats[0] += 1
+
+    watchdog = None
+    if config.watchdog_s > 0:
+        from distributed_ddpg_tpu_torch.watchdog import Watchdog
+
+        # The stall artifacts land beside the trace, else beside the
+        # checkpoints, else in the cwd: always somewhere findable.
+        watchdog = Watchdog(config.watchdog_s, progress=lambda: beats[0],
+                            stall_dir=config.trace_dir or config.checkpoint_dir or ".").start()
+
+    def grant(extra_s: float) -> None:
+        """Suspend the watchdog for extra_s seconds, or (extra_s == 0) end
+        the allowance (Watchdog.end_grant)."""
+        if watchdog is not None:
+            if extra_s > 0:
+                watchdog.grant(extra_s)
+            else:
+                watchdog.end_grant()
+
+    try:
+        return _train_impl(config, echo, group, beat, grant)
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
+        if trace_path:
+            try:
+                n = trace.export(trace_path)
+                print(f"[trace] {n} events -> {trace_path} (load in ui.perfetto.dev)",
+                      file=sys.stderr, flush=True)
+            except Exception as e:
+                # A full disk loses the trace, not the run (nor masks the
+                # exception in flight).
+                print(f"[trace] export failed: {e!r}", file=sys.stderr, flush=True)
+            finally:
+                trace.disable()
+
+
+def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[str, Any]:
+    """train() on the jax_tpu backend; `_beat` advances the watchdog's
+    progress count, `_grant(s)` suspends it for s seconds and `_grant(0)`
+    ends that allowance."""
     # torch loads here, not at import: spawned actor workers re-import the
     # main module (this one, under `python -m`) and must stay torch-free.
     from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
     from distributed_ddpg_tpu_torch.actors.sync_pool import SyncActorPool
     from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
     from distributed_ddpg_tpu_torch.native import NativeSumTree
+    from distributed_ddpg_tpu_torch.obs import health
     from distributed_ddpg_tpu_torch.parallel import mesh
     from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, resolve_learner_chunk
     from distributed_ddpg_tpu_torch.parallel.megastep import FusedMegastep, fused_beat_active
@@ -412,10 +508,17 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     spec = spec_of(env)
     chunk = resolve_learner_chunk(config)
     min_fill = max(config.replay_min_size, config.batch_size)
+    # A fresh health state (a run in the same interpreter must not inherit
+    # the last one's latched `draining`).
+    health.get().reset()
+    obs_server = None
+    fault_plan = config.fault_plan()
+    ckpt_fault = fault_plan.site("ckpt", "write") if fault_plan else None
     learner = ShardedLearner(
         config, spec.obs_dim, spec.act_dim, spec.action_scale,
         spec.action_offset, chunk_size=chunk, group=group,
     )
+    _beat()   # the learner's construction survived
     device = learner.device
     host_replay, strict = config.host_replay, config.strict_sync
     if host_replay and learner.data_size > 1:
@@ -438,8 +541,9 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     # dispatch thread; closed after the replay (teardown below). Off under
     # strict_sync: its dispatch timing would make the records depend on
     # the host's scheduling (and with it the adaptive cap and the pool).
-    transfer_sched = (TransferScheduler().start()
-                      if config.transfer_scheduler and not strict else None)
+    transfer_sched = (
+        TransferScheduler(fault=fault_plan.site("transfer", "dispatch") if fault_plan else None)
+        .start() if config.transfer_scheduler and not strict else None)
     # A shipping thread would make the time an insert lands, relative to
     # the next chunk's draw, depend on each rank's host: the replicas would
     # part, and so would two strict-sync runs. So on D > 1 ranks and under
@@ -456,7 +560,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     guard_src_offenses: Dict[int, int] = {}
     numeric_failed = False
     lr_backoff_since = -1             # learn_steps at the LR backoff; -1 = none
-    numeric_replay_at = config.fault_plan().numeric_replay_rows()
+    numeric_replay_at = fault_plan.numeric_replay_rows()
     ingested_rows = 0
     replay_kwargs = dict(
         block_size=1024,
@@ -466,6 +570,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         adaptive_coalesce=transfer_sched is not None and config.ingest_coalesce_adaptive,
         host_pool=transfer_sched is not None and config.transfer_host_pool,
         track_sources=track_sources,
+        fault=fault_plan.site("shipper", "ship") if fault_plan else None,
     )
     try:
         if host_replay:
@@ -495,8 +600,10 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                      tuple(config.actor_hidden)),
         spec.action_scale, spec.action_offset, gaussian=config.sac,
     )
-    log = JsonlLog(config.log_path if lead else "", echo=echo and lead)
+    log = MetricsLogger(config.log_path if lead else "", echo=echo and lead,
+                        tb_dir=config.tb_dir if lead else "")
     env_timer, learn_timer = Timer(), Timer()
+    phases = PhaseTimers(seed=config.seed)
     learn_steps = chunks = 0
     beta = config.per_beta            # PER's IS exponent, annealed per chunk
     support_controller = support_auto.SupportController()
@@ -523,8 +630,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     def ckpt_fields() -> Dict[str, Any]:
         if not config.checkpoint_dir:
             return {}
-        return dict(emergency_ckpt=emergency_ckpt, ckpt_write_retries=saver.write_retries,
-                    ckpt_skipped=saver.skipped, resumed_from=resumed_from)
+        return dict(ckpt_skipped=saver.skipped, resumed_from=resumed_from)
 
     def auto_bounds() -> Optional[Tuple[float, float]]:
         """The resolved auto C51 support, which a checkpoint must carry."""
@@ -553,7 +659,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             tree = dict(sum_tree="native" if isinstance(replay._tree, NativeSumTree)
                         else "numpy")
         return dict(host_replay=True, prefetch_depth=config.prefetch_depth,
-                    t_sample_wait_ms=1000.0 * sample_wait_s / max(chunks, 1), **tree)
+                    t_sample_wait_run_ms=1000.0 * sample_wait_s / max(chunks, 1), **tree)
 
     def mesh_fields() -> Dict[str, Any]:
         if learner.data_size == 1:
@@ -568,7 +674,11 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         return gstats.snapshot() if guard_on else {}
 
     def recovery_fields() -> Dict[str, Any]:
-        return pool.recovery_counters() if pool is not None else {}
+        """The cumulative fault-history counters of every train and final
+        record (the JAX trainer's)."""
+        return {**(pool.recovery_counters() if pool is not None else {}),
+                "ckpt_write_retries": saver.write_retries,
+                "emergency_ckpt": emergency_ckpt}
 
     def devactor_fields() -> Dict[str, Any]:
         """The devactor_* fields (metrics.DevActorStats) with the device actors."""
@@ -630,7 +740,8 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         if config.max_ingest_ratio > 0.0 and local_env_steps() >= (
                 min_fill + config.max_ingest_ratio * learn_steps):
             return 0
-        rows = device_pool.run_chunk(replay)
+        with phases.phase("devactor"):
+            rows = device_pool.run_chunk(replay)
         env_timer.tick(rows)
         return rows
 
@@ -659,6 +770,10 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             replay.add_batch(b.obs, b.action, b.reward, b.discount, b.next_obs)
 
     def ingest() -> int:
+        with phases.phase("ingest"):
+            return ingest_rows()
+
+    def ingest_rows() -> int:
         rows, pairs = None, []
         if lead:
             budget = drain_budget()
@@ -688,7 +803,9 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
 
     def evaluate(at_step: int) -> float:
         t0 = time.monotonic()
-        eval_policy.load_flat(learner.actor_params_to_host())
+        with phases.phase("eval_snapshot"):
+            flat = learner.actor_params_to_host()
+        eval_policy.load_flat(flat)
         ret = _eval_numpy(eval_policy, config, spec)
         learn_timer.exclude(time.monotonic() - t0)
         log.log("eval", at_step, eval_return=ret)
@@ -713,11 +830,13 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         if not (config.checkpoint_dir and lead):
             return 0
         if ckpt_lib.latest_step(config.checkpoint_dir) != learn_steps:
-            ckpt_lib.save(config.checkpoint_dir, learn_steps, learner.state, replay, config,
-                          env_steps=n_env, v_bounds=auto_bounds(),
-                          keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
-                          backoff_s=config.ckpt_retry_backoff_s,
-                          devactor_state=devactor_state())
+            with phases.phase("ckpt"):
+                ckpt_lib.save(config.checkpoint_dir, learn_steps, learner.state, replay, config,
+                              env_steps=n_env, v_bounds=auto_bounds(),
+                              keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
+                              backoff_s=config.ckpt_retry_backoff_s,
+                              devactor_state=devactor_state(), fault=ckpt_fault)
+        trace.instant("emergency_ckpt", step=learn_steps)
         print(f"[train] emergency checkpoint at learner step {learn_steps} (env step "
               f"{n_env}): resumable", file=sys.stderr, flush=True)
         return 1
@@ -745,6 +864,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         from before the divergence stays the newest); main() exits 77."""
         nonlocal numeric_failed
         numeric_failed = True
+        trace.instant("numeric_abort", step=learn_steps)
         print(f"[guardrail] NUMERIC ABORT at learner step {learn_steps}: {why}; exiting "
               f"{EXIT_NUMERIC} (no checkpoint written — the last retained pre-divergence "
               "checkpoint stands)", file=sys.stderr, flush=True)
@@ -757,7 +877,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         the params; past the budget, or with nothing to restore, abort.
         Returns True either way (the caller skips the rest of the chunk's
         work)."""
-        nonlocal learn_steps, last_ckpt, next_refresh, last_refresh_t, lr_backoff_since
+        nonlocal learn_steps, last_ckpt, next_refresh, last_refresh_t, lr_backoff_since, granted
         if gstats.rollbacks >= config.guardrail_max_rollbacks:
             return numeric_abort(f"rollback budget exhausted "
                                  f"({gstats.rollbacks}/{config.guardrail_max_rollbacks})")
@@ -806,13 +926,17 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             learner.set_lr_scale(config.guardrail_lr_backoff)
             lr_backoff_since = learn_steps
         ckpt_lib.discard_above(config.checkpoint_dir, step)
-        pool.broadcast(learner.actor_params_to_host())
+        with phases.phase("refresh"):
+            pool.broadcast(learner.actor_params_to_host(), learn_steps)
         if device_pool is not None and "devactor_carry" in meta:
             # The rollout state rolls back with the learner: its episodes
             # go on from the restored point.
             device_pool.load_carry_state(meta["devactor_carry"])
         next_refresh = learn_steps + config.param_refresh_every
         last_refresh_t = time.perf_counter()
+        _grant(max(300.0, 2.0 * config.watchdog_s))
+        granted = True
+        trace.instant("rollback", step=step, rolled_from=rolled_from)
         print(f"[guardrail] ROLLBACK #{gstats.rollbacks}: restored manifest-valid step {step} "
               f"(diverged at ~{rolled_from}) in {restore_ms:.2f} ms; exploration reseeded"
               + (f", LR x{config.guardrail_lr_backoff} until "
@@ -857,15 +981,21 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             learner.set_lr_scale(1.0)
             lr_backoff_since = -1
             gstats.record_lr_cooldown()
+            trace.instant("lr_cooldown", step=learn_steps)
             print(f"[guardrail] LR cooldown complete at step {learn_steps}: learning rates "
                   "restored", file=sys.stderr, flush=True)
         return handled
 
     # The handler only sets a flag (no I/O in a signal handler); the loop
     # reads it at a chunk's end. Off the main thread there is none.
+    def on_sigterm(*_) -> None:
+        preempt.set()
+        # /healthz reads `draining` from the first scrape after the signal.
+        health.get().drain("preempted (SIGTERM)")
+
     prev_sigterm = None
     try:
-        prev_sigterm = signal.signal(signal.SIGTERM, lambda *_: preempt.set())
+        prev_sigterm = signal.signal(signal.SIGTERM, on_sigterm)
     except ValueError:
         pass
     ingest_chunk_s = 0.0              # the driver's time in ingest while chunks ran
@@ -890,16 +1020,24 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                 serve_server, serve_front, front_server = start_serving(
                     config, spec, pool, transfer_sched, learner.actor_params_to_host())
             pool.start(learner.actor_params_to_host())
+            _beat()   # the first params d2h survived
+            obs_server = start_exporter(config, log, preempt)
+            if serve_server is not None:
+                # /healthz reads the serve queue as of the scrape.
+                health.get().register_probe("serve_overloaded", serve_server.overloaded)
         if device_actors:
             # After the resume, so the uniform warmup nets out the restored
             # env steps (JAX :1011-1041). The pool reads the learner's live
             # params at each dispatch.
             from distributed_ddpg_tpu_torch.actors.device_pool import DeviceActorPool
 
-            device_pool = DeviceActorPool(config, device=device, warmup_offset=env_offset)
+            device_pool = DeviceActorPool(
+                config, device=device, warmup_offset=env_offset,
+                fault=fault_plan.site("devactor", "rollout") if fault_plan else None)
             device_pool.bind(lambda: learner.state.actor_params)
             if "devactor_carry" in resume_meta:
                 device_pool.load_carry_state(resume_meta["devactor_carry"])
+            _beat()
         if fused_beat_active(config, learner, device_pool is not None):
             # The fused beat (JAX :1043-1090): learn, roll out and scatter
             # in one dispatch; B of them a dispatch under superstep_beats.
@@ -909,14 +1047,33 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         beats = megastep.beats if megastep is not None else 1
 
         # --- warmup: fill replay to the learning threshold ---
+        # The beat below keeps the watchdog quiet whether or not rows
+        # arrive, so an actor-side stall (workers alive, no experience)
+        # has a deadline of its own: no rows for 10x watchdog_s raises on
+        # this (healthy) thread.
+        stall_deadline = 10.0 * config.watchdog_s if config.watchdog_s > 0 else 0.0
+        last_moved_t = time.monotonic()
+
+        def check_actor_stall(where: str) -> None:
+            if stall_deadline and time.monotonic() - last_moved_t > stall_deadline:
+                raise RuntimeError(
+                    f"{where}: no experience ingested for {stall_deadline:.0f}s "
+                    "(10x watchdog_s) with the learner thread healthy — actor-side "
+                    "stall; aborting instead of burning the wall-clock budget")
+
         last_monitor_t = time.monotonic()
         while len(replay) < min_fill:
             moved = ingest() + devactor_step()
+            _beat()
             if not host_replay and len(replay) + replay.pending_rows >= min_fill:
                 replay.flush()
             monitor()
-            if not moved:
+            if moved:
+                last_moved_t = time.monotonic()
+            else:
+                check_actor_stall("warmup")
                 time.sleep(0.01)
+        trace.instant("warmup_done", buffer_fill=len(replay))
 
         if config.distributional and learner.config.v_support_auto:
             # C51 auto support: [v_min, v_max] from the warmup replay's
@@ -931,6 +1088,7 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             prefetch = ChunkPrefetcher(
                 replay, learner.put_chunk, learner.global_batch, chunk,
                 depth=config.prefetch_depth, lock=replay_lock, scheduler=transfer_sched,
+                fault=fault_plan.site("prefetch", "sample") if fault_plan else None,
             ).start()
 
         learn_timer.reset()
@@ -940,156 +1098,202 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         last_eval = 0
         last_ckpt = learn_steps
         out = None
-        while True:
-            monitor()
-            n_env = env_steps()
-            if stopping or n_env >= config.total_env_steps and learn_steps > 0:
-                break
-            if config.max_learn_ratio > 0.0 and learn_steps > 0 and (
-                learn_steps + chunk > min_fill + config.max_learn_ratio * n_env
-            ):
-                # Learner-rate cap: ingest instead of dispatching until env
-                # steps catch up with the allowance.
-                if not ingest() + devactor_step():
-                    time.sleep(0.002)
-                continue
-            if host_replay:
-                t_wait = time.perf_counter()
-                device_chunk, indices = prefetch.next()
-                sample_wait_s += time.perf_counter() - t_wait
-                out = learner.run_chunk_async(device_chunk)
-            elif megastep is not None:
-                # The fused beat: this chunk, the rollout with its updated
-                # params and their scatter in one dispatch (B beats a
-                # dispatch for a superstep, its PER betas the sequential
-                # loop's, one host read at its end).
-                if beats > 1:
-                    betas = (per_beat_betas(config, n_env, beats, device_pool.rows_per_chunk)
-                             if config.prioritized else None)
-                    out = megastep.run_superstep(betas)
-                    beta = float(betas[-1]) if config.prioritized else beta
+        last_budget = -1
+        first_dispatch_done = False
+        # The first chunk builds the kernels with nvcc at their first
+        # launch (minutes on a cold build): an allowance, so a slow build is
+        # not killed as a stall, ended once that chunk has run (granted).
+        _grant(max(300.0, 2.0 * config.watchdog_s))
+        granted = True
+        with _profiled(config, device):
+            while True:
+                _beat()
+                monitor()
+                n_env = env_steps()
+                if stopping or n_env >= config.total_env_steps and learn_steps > 0:
+                    trace.instant("budget_met", env_steps=n_env, learn_steps=learn_steps)
+                    break
+                # Actor-stall coverage after the warmup: env-step progress is
+                # the one sign the actors are alive (the beat above keeps the
+                # watchdog quiet either way).
+                if n_env > last_budget:
+                    last_budget = n_env
+                    last_moved_t = time.monotonic()
                 else:
+                    check_actor_stall("train loop")
+                if config.max_learn_ratio > 0.0 and learn_steps > 0 and (
+                    learn_steps + chunk > min_fill + config.max_learn_ratio * n_env
+                ):
+                    # Learner-rate cap: ingest instead of dispatching until env
+                    # steps catch up with the allowance.
+                    if not ingest() + devactor_step():
+                        time.sleep(0.002)
+                    continue
+                if host_replay:
+                    t_wait = time.perf_counter()
+                    with phases.phase("sample_wait"):
+                        device_chunk, indices = prefetch.next()
+                    sample_wait_s += time.perf_counter() - t_wait
+                    with phases.phase("dispatch"):
+                        out = learner.run_chunk_async(device_chunk)
+                elif megastep is not None:
+                    # The fused beat: this chunk, the rollout with its updated
+                    # params and their scatter in one dispatch (B beats a
+                    # dispatch for a superstep, its PER betas the sequential
+                    # loop's, one host read at its end).
+                    if beats > 1:
+                        betas = (per_beat_betas(config, n_env, beats, device_pool.rows_per_chunk)
+                                 if config.prioritized else None)
+                        with phases.phase("dispatch"):
+                            out = megastep.run_superstep(betas)
+                        beta = float(betas[-1]) if config.prioritized else beta
+                    else:
+                        frac = min(1.0, n_env / config.total_env_steps)
+                        beta = config.per_beta + frac * (config.per_beta_final - config.per_beta)
+                        with phases.phase("dispatch"):
+                            out = megastep.run_beat(beta if config.prioritized else None)
+                    env_timer.tick(device_pool.rows_per_chunk * beats)
+                elif config.prioritized:
                     frac = min(1.0, n_env / config.total_env_steps)
                     beta = config.per_beta + frac * (config.per_beta_final - config.per_beta)
-                    out = megastep.run_beat(beta if config.prioritized else None)
-                env_timer.tick(device_pool.rows_per_chunk * beats)
-            elif config.prioritized:
-                frac = min(1.0, n_env / config.total_env_steps)
-                beta = config.per_beta + frac * (config.per_beta_final - config.per_beta)
-                out = learner.run_sample_chunk_per(replay, beta)
-            else:
-                out = learner.run_sample_chunk(replay)
-            prev_chunks = chunks
-            chunks += beats
-            learn_steps += chunk * beats
-            learn_timer.tick(chunk * beats)
-            if megastep is None and not guard_on:
-                # The rollout with the chunk's updated params, queued right
-                # behind the chunk on the learner's stream (the card works
-                # it off while the driver ingests); guarded, after the
-                # monitor, as the JAX trainer orders them.
-                devactor_step()
-            # Ingest while the chunk runs. Without this wait the loop would
-            # queue chunks far ahead of the card, then block on all of them
-            # at its next device read while the actors' bounded queue sits
-            # full and undrained. Rank 0's chunk decides when it ends. Under
-            # strict_sync one drain a chunk (it takes the whole ratio
-            # budget), so the records do not depend on the chunk's time.
-            drained = False
-            while True:
-                done = learner.chunk_done()
-                moved = 0
-                if not (strict and drained):
-                    t_ingest = time.perf_counter()
-                    moved = ingest()
-                    t_ingest = time.perf_counter() - t_ingest
-                    ingest_chunk_s += t_ingest
-                    ingest_max_s = max(ingest_max_s, t_ingest)
-                    ingest_calls += 1
-                    drained = True
-                done = bool(mesh.share([done], group)[0])
-                if not moved and not done:
-                    time.sleep(0.0005)
-                if done:
-                    break
-            n_env = env_steps()
-            if guard_on and guardrail_monitor():
-                # Rolled back (the params already rebroadcast) or aborted:
-                # the rest of this chunk's work is moot.
-                if numeric_failed:
-                    break
-                continue
-            if guard_on and megastep is None and devactor_step():
+                    with phases.phase("dispatch"):
+                        out = learner.run_sample_chunk_per(replay, beta)
+                else:
+                    with phases.phase("dispatch"):
+                        out = learner.run_sample_chunk(replay)
+                if not first_dispatch_done:
+                    # The first chunk's kernel build must not count against
+                    # the actor-stall clock.
+                    first_dispatch_done = True
+                    last_moved_t = time.monotonic()
+                prev_chunks = chunks
+                chunks += beats
+                learn_steps += chunk * beats
+                learn_timer.tick(chunk * beats)
+                if megastep is None and not guard_on:
+                    # The rollout with the chunk's updated params, queued right
+                    # behind the chunk on the learner's stream (the card works
+                    # it off while the driver ingests); guarded, after the
+                    # monitor, as the JAX trainer orders them.
+                    devactor_step()
+                # Ingest while the chunk runs. Without this wait the loop would
+                # queue chunks far ahead of the card, then block on all of them
+                # at its next device read while the actors' bounded queue sits
+                # full and undrained. Rank 0's chunk decides when it ends. Under
+                # strict_sync one drain a chunk (it takes the whole ratio
+                # budget), so the records do not depend on the chunk's time.
+                drained = False
+                while True:
+                    done = learner.chunk_done()
+                    moved = 0
+                    if not (strict and drained):
+                        t_ingest = time.perf_counter()
+                        moved = ingest()
+                        t_ingest = time.perf_counter() - t_ingest
+                        ingest_chunk_s += t_ingest
+                        ingest_max_s = max(ingest_max_s, t_ingest)
+                        ingest_calls += 1
+                        drained = True
+                    done = bool(mesh.share([done], group)[0])
+                    if not moved and not done:
+                        time.sleep(0.0005)
+                    if done:
+                        break
+                if granted:
+                    _grant(0.0)   # the chunk the allowance covered has run
+                    granted = False
                 n_env = env_steps()
-            if host_replay and config.prioritized:
-                # Host PER (JAX :2152-2160): the chunk's td into the sum
-                # tree, then beta, under the lock the prefetcher draws under.
-                tds = out.td_errors.cpu().numpy().reshape(-1)
-                frac = min(1.0, n_env / config.total_env_steps)
-                beta = config.per_beta + frac * (config.per_beta_final - config.per_beta)
-                with replay_lock:
-                    replay.update_priorities(indices.reshape(-1), tds)
-                    replay.set_beta(beta)
+                if guard_on and guardrail_monitor():
+                    # Rolled back (the params already rebroadcast) or aborted:
+                    # the rest of this chunk's work is moot.
+                    if numeric_failed:
+                        break
+                    continue
+                if guard_on and megastep is None and devactor_step():
+                    n_env = env_steps()
+                if host_replay and config.prioritized:
+                    # Host PER (JAX :2152-2160): the chunk's td into the sum
+                    # tree, then beta, under the lock the prefetcher draws under.
+                    with phases.phase("prio_update"):
+                        tds = out.td_errors.cpu().numpy().reshape(-1)
+                        frac = min(1.0, n_env / config.total_env_steps)
+                        beta = config.per_beta + frac * (config.per_beta_final - config.per_beta)
+                        with replay_lock:
+                            replay.update_priorities(indices.reshape(-1), tds)
+                            replay.set_beta(beta)
 
-            # strict_sync ignores the wall-clock floors on the refresh and
-            # the log: they would make which params act and which chunks log
-            # depend on the host's timing.
-            now = time.perf_counter()
-            if lead and learn_steps >= next_refresh and (
-                strict or now - last_refresh_t >= config.param_refresh_interval_s
-            ):
-                pool.broadcast(learner.actor_params_to_host())
-                next_refresh = learn_steps + config.param_refresh_every
-                last_refresh_t = time.perf_counter()
+                # strict_sync ignores the wall-clock floors on the refresh and
+                # the log: they would make which params act and which chunks log
+                # depend on the host's timing.
+                now = time.perf_counter()
+                if lead and learn_steps >= next_refresh and (
+                    strict or now - last_refresh_t >= config.param_refresh_interval_s
+                ):
+                    with phases.phase("refresh"):
+                        pool.broadcast(learner.actor_params_to_host(), learn_steps)
+                    next_refresh = learn_steps + config.param_refresh_every
+                    last_refresh_t = time.perf_counter()
 
-            # The 50-chunk cadence as a crossing (a superstep moves B chunks).
-            on_fifty = prev_chunks // 50 != chunks // 50
-            if config.distributional and config.v_support_auto and on_fifty:
-                # Running expansion: mean_q near an edge of the support, and
-                # the replay's current rewards corroborate a wider one.
-                grown = expand_support(learner, support_controller, out, learn_steps,
-                                       data_bounds, group)
-                if grown is not None:
-                    log.log("support", n_env, reason="expanded", mean_q=grown["mean_q"],
-                            **support_fields())
+                # The 50-chunk cadence as a crossing (a superstep moves B chunks).
+                on_fifty = prev_chunks // 50 != chunks // 50
+                if config.distributional and config.v_support_auto and on_fifty:
+                    # Running expansion: mean_q near an edge of the support, and
+                    # the replay's current rewards corroborate a wider one.
+                    with phases.phase("sync"):
+                        grown = expand_support(learner, support_controller, out, learn_steps,
+                                               data_bounds, group)
+                    if grown is not None:
+                        _grant(max(300.0, 2.0 * config.watchdog_s))
+                        granted = True
+                        log.log("support", n_env, reason="expanded", mean_q=grown["mean_q"],
+                                **support_fields())
 
-            on_cadence = prev_chunks == 0 or on_fifty
-            if lead and on_cadence and (strict or now - last_log_t >= 1.0):
-                last_log_t = now
-                episodes = pool.episode_stats()
-                metrics = learner.metrics_to_host(out)
-                log.log(
-                    "train", n_env,
-                    learner_steps=learn_steps,
-                    learner_steps_per_sec=learn_timer.rate(),
-                    env_steps_per_sec=env_timer.rate(),
-                    buffer_fill=len(replay),
-                    episode_return=(
-                        float(np.mean([e[1] for e in episodes])) if episodes else None
-                    ),
-                    **metrics,
-                    **support_fields(),
-                    **per_fields(),
-                    **ingest_fields(),
-                    **guardrail_fields(),
-                    **devactor_fields(),
-                    **fused_fields(),
-                    **serve_fields(),
-                )
-            if lead and config.eval_every and n_env - last_eval >= config.eval_every:
-                last_eval = n_env
-                evaluate(last_eval)
-            if config.checkpoint_dir and learn_steps - last_ckpt >= config.checkpoint_every:
-                # One writer: the replicas hold the same state and replay.
-                # Only the snapshot runs here; the write on the saver's thread.
-                if lead:
-                    saver.save_async(
-                        config.checkpoint_dir, learn_steps, learner.state, replay, config,
-                        env_steps=n_env, v_bounds=auto_bounds(),
-                        keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
-                        backoff_s=config.ckpt_retry_backoff_s,
-                        devactor_state=devactor_state())
-                last_ckpt = learn_steps
+                on_cadence = prev_chunks == 0 or on_fifty
+                if guard_on and on_cadence:
+                    # Re-sampled every cadence: a lifted quarantine takes
+                    # /healthz back to healthy.
+                    health.get().note("guardrail_quarantine", gstats.source_quarantines > 0)
+                if lead and on_cadence and (strict or now - last_log_t >= 1.0):
+                    last_log_t = now
+                    episodes = pool.episode_stats()
+                    with phases.phase("sync"):
+                        metrics = learner.metrics_to_host(out)
+                    log.log(
+                        "train", n_env,
+                        learner_steps=learn_steps,
+                        learner_steps_per_sec=learn_timer.rate(),
+                        env_steps_per_sec=env_timer.rate(),
+                        buffer_fill=len(replay),
+                        episode_return=(
+                            float(np.mean([e[1] for e in episodes])) if episodes else None
+                        ),
+                        **pool.staleness(),
+                        **recovery_fields(),
+                        **metrics,
+                        **support_fields(),
+                        **per_fields(),
+                        **phases.snapshot(),
+                        **ingest_fields(),
+                        **guardrail_fields(),
+                        **devactor_fields(),
+                        **fused_fields(),
+                        **serve_fields(),
+                    )
+                if lead and config.eval_every and n_env - last_eval >= config.eval_every:
+                    last_eval = n_env
+                    evaluate(last_eval)
+                if config.checkpoint_dir and learn_steps - last_ckpt >= config.checkpoint_every:
+                    # One writer: the replicas hold the same state and replay.
+                    # Only the snapshot runs here; the write on the saver's thread.
+                    if lead:
+                        with phases.phase("ckpt"):
+                            saver.save_async(
+                                config.checkpoint_dir, learn_steps, learner.state, replay, config,
+                                env_steps=n_env, v_bounds=auto_bounds(),
+                                keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
+                                backoff_s=config.ckpt_retry_backoff_s,
+                                devactor_state=devactor_state(), fault=ckpt_fault)
+                    last_ckpt = learn_steps
         # The rates end with the loop: the teardown below (the actors'
         # exit, an emergency checkpoint) is not the run's pace.
         rate, env_rate = learn_timer.rate(), env_timer.rate()
@@ -1099,10 +1303,12 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
                       "(resumable)", file=sys.stderr, flush=True)
             emergency_ckpt = emergency_checkpoint()
     finally:
+        _beat()   # each teardown stage gets a fresh allowance
         if prefetch is not None:
             prefetch.stop()
         if pool is not None:
             pool.stop()
+        _beat()
         # Then the serving stack (no worker can ask any more): the front
         # stops taking external traffic, ServeFront stops feeding the
         # batcher, and the server flushes every accepted request, all
@@ -1121,7 +1327,13 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
             transfer_sched.close()
         if prev_sigterm is not None:
             signal.signal(signal.SIGTERM, prev_sigterm)
+        _beat()
+        if obs_server is not None and not preempt.is_set():
+            # A preempted run keeps answering /healthz (draining) up to
+            # its exit; the server's thread is a daemon.
+            obs_server.stop()
     saver.wait()   # a failed cadence write raises here
+    _beat()
 
     metrics = learner.metrics_to_host(out) if out is not None else {}
     if config.prioritized:   # the run's one read of the max priority
@@ -1146,9 +1358,9 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         transport=pool.transport if pool is not None else None,
         ingest_async_active=ingest_async,
         t_ingest_chunk_ms=1000.0 * ingest_chunk_s / max(chunks, 1),
-        t_ingest_ms=1000.0 * ingest_chunk_s / max(ingest_calls, 1),
-        t_ingest_max=1000.0 * ingest_max_s,
-        n_ingest=ingest_calls,
+        t_ingest_run_ms=1000.0 * ingest_chunk_s / max(ingest_calls, 1),
+        t_ingest_run_max=1000.0 * ingest_max_s,
+        n_ingest_run=ingest_calls,
         **ingest_fields(),
     )
     # The summary keeps the scheduler's ingest and prefetch counts and the
@@ -1180,8 +1392,9 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         **ckpt_fields(),
         **ingest_record,
         **host_fields(),
+        **phases.snapshot(),
         **guardrail_fields(),
-        **(recovery_fields() if guard_on else {}),
+        **recovery_fields(),
         **serve_final,
     )
     log.close()
@@ -1211,10 +1424,35 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
         "preempted": stopping,
         "numeric_failed": numeric_failed,
         **guardrail_fields(),
-        **(recovery_fields() if guard_on else {}),
+        **recovery_fields(),
         **serve_final,
         **({"alpha": float(learner.state.log_alpha.exp())} if config.sac else {}),
     }
+
+
+def start_exporter(config: DDPGConfig, log: MetricsLogger, preempt: threading.Event):
+    """The telemetry ingress of --obs_port (JAX train.py:1221-1252): /metrics
+    from the logger's latest record of each kind and the run's counters,
+    /healthz from obs/health.py, /trace into trace_dir. None when off. A
+    bind failure (the port taken) is said on stderr and leaves the run
+    without it: telemetry never kills the run it observes."""
+    from distributed_ddpg_tpu_torch.obs import ObsExporter, health
+
+    if config.obs_port <= 0:
+        return None
+    try:
+        server = ObsExporter(
+            config.obs_port, health=health.get(), latest_fn=log.latest,
+            counters_fn=lambda: {"t_unix_base": log.t_unix_base, "process_index": 0,
+                                 "process_count": 1, "preempt": int(preempt.is_set())},
+            trace_dir=config.trace_dir or config.checkpoint_dir or ".",
+        ).start()
+    except OSError as e:
+        print(f"[obs] exporter disabled (bind failed: {e})", file=sys.stderr, flush=True)
+        return None
+    print(f"[obs] telemetry ingress on :{server.port} (/metrics /healthz /trace)",
+          file=sys.stderr, flush=True)
+    return server
 
 
 def start_serving(config: DDPGConfig, spec, pool, scheduler, flat_params):
@@ -1291,7 +1529,7 @@ def train_native(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
     noise = OUNoise((spec.act_dim,), config.ou_theta, config.ou_sigma, dt=config.ou_dt,
                     seed=config.seed + 1)
     nstep = NStepAccumulator(config.n_step, config.gamma)
-    log = JsonlLog(config.log_path, echo=echo)
+    log = MetricsLogger(config.log_path, echo=echo, tb_dir=config.tb_dir)
     learn_timer = Timer()
     learn_steps = 0
     metrics: Dict[str, float] = {}
@@ -1358,7 +1596,8 @@ def train_ondevice(config: DDPGConfig, echo: bool = True, group=None) -> Dict[st
     policy every eval_every env steps (0 = the final eval only); a `train`
     record is written whenever the env steps cross a multiple of ten
     chunks' worth (a crossing, so a superstep that jumps over one still
-    logs). One rank (ROADMAP.md Queue 1 item 10)."""
+    logs). One rank (ROADMAP.md Queue 1 item 10). --profile_dir and
+    --tb_dir apply as in train()."""
     from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
     from distributed_ddpg_tpu_torch.envs.registry import EnvSpec
     from distributed_ddpg_tpu_torch.ondevice import OnDeviceDDPG
@@ -1369,7 +1608,7 @@ def train_ondevice(config: DDPGConfig, echo: bool = True, group=None) -> Dict[st
             "the PyTorch port: the monolith over a data-parallel group comes with "
             "ROADMAP.md Queue 1 item 10; run it on one rank")
     trainer = OnDeviceDDPG(config)
-    log = JsonlLog(config.log_path, echo=echo)
+    log = MetricsLogger(config.log_path, echo=echo, tb_dir=config.tb_dir)
 
     env_offset = last_ckpt = 0
     resumed_from = None
@@ -1399,37 +1638,39 @@ def train_ondevice(config: DDPGConfig, echo: bool = True, group=None) -> Dict[st
     episodes_acc, return_acc = 0, []
     last_eval = dispatches = 0
     metrics: Dict[str, float] = {}     # the last dispatch's learner metrics
-    while env_steps() < config.total_env_steps:
-        before = trainer.learn_steps
-        stats = trainer.run_superstep() if beats > 1 else trainer.run_chunk()
-        host = trainer.finalize_stats(stats)
-        dispatches += 1
-        env_timer.tick(rows_per_dispatch)
-        learn_timer.tick(trainer.learn_steps - before)
-        episodes_acc += host.pop("episodes", 0)
-        if "episode_return" in host:
-            return_acc.append(host.pop("episode_return"))
-        metrics = host
-        if config.eval_every and env_steps() - last_eval >= config.eval_every:
-            t0 = time.monotonic()
-            eval_policy.load_flat(trainer.actor_params_to_host())
-            last_eval = env_steps()
-            log.log("eval", last_eval, eval_return=_eval_numpy(eval_policy, config, spec))
-            learn_timer.exclude(time.monotonic() - t0)
-            env_timer.exclude(time.monotonic() - t0)
-        if trainer.env_steps // log_stride != (trainer.env_steps - rows_per_dispatch) // log_stride:
-            log.log("train", env_steps(), learner_steps=trainer.learn_steps,
-                    env_steps_per_sec=env_timer.rate(),
-                    learner_steps_per_sec=learn_timer.rate(), episodes=episodes_acc,
-                    episode_return=float(np.mean(return_acc)) if return_acc else None,
-                    **host)
-            episodes_acc, return_acc = 0, []
-        if config.checkpoint_dir and trainer.learn_steps - last_ckpt >= config.checkpoint_every:
-            ckpt_lib.save(config.checkpoint_dir, trainer.learn_steps, trainer.state,
-                          trainer.replay, config, env_steps=env_steps(),
-                          keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
-                          backoff_s=config.ckpt_retry_backoff_s)
-            last_ckpt = trainer.learn_steps
+    # --profile_dir: the loop under torch.profiler (JAX :263-286).
+    with _profiled(config, config.device):
+        while env_steps() < config.total_env_steps:
+            before = trainer.learn_steps
+            stats = trainer.run_superstep() if beats > 1 else trainer.run_chunk()
+            host = trainer.finalize_stats(stats)
+            dispatches += 1
+            env_timer.tick(rows_per_dispatch)
+            learn_timer.tick(trainer.learn_steps - before)
+            episodes_acc += host.pop("episodes", 0)
+            if "episode_return" in host:
+                return_acc.append(host.pop("episode_return"))
+            metrics = host
+            if config.eval_every and env_steps() - last_eval >= config.eval_every:
+                t0 = time.monotonic()
+                eval_policy.load_flat(trainer.actor_params_to_host())
+                last_eval = env_steps()
+                log.log("eval", last_eval, eval_return=_eval_numpy(eval_policy, config, spec))
+                learn_timer.exclude(time.monotonic() - t0)
+                env_timer.exclude(time.monotonic() - t0)
+            if trainer.env_steps // log_stride != (trainer.env_steps - rows_per_dispatch) // log_stride:
+                log.log("train", env_steps(), learner_steps=trainer.learn_steps,
+                        env_steps_per_sec=env_timer.rate(),
+                        learner_steps_per_sec=learn_timer.rate(), episodes=episodes_acc,
+                        episode_return=float(np.mean(return_acc)) if return_acc else None,
+                        **host)
+                episodes_acc, return_acc = 0, []
+            if config.checkpoint_dir and trainer.learn_steps - last_ckpt >= config.checkpoint_every:
+                ckpt_lib.save(config.checkpoint_dir, trainer.learn_steps, trainer.state,
+                              trainer.replay, config, env_steps=env_steps(),
+                              keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
+                              backoff_s=config.ckpt_retry_backoff_s)
+                last_ckpt = trainer.learn_steps
     rate, env_rate = learn_timer.rate(), env_timer.rate()
     eval_policy.load_flat(trainer.actor_params_to_host())
     final_return = _eval_numpy(eval_policy, config, spec)

@@ -40,6 +40,7 @@ import time
 from collections import deque
 from typing import Callable, Dict, Optional
 
+from distributed_ddpg_tpu_torch import trace
 from distributed_ddpg_tpu_torch.metrics import TransferStats
 
 LOCKSTEP = "lockstep"
@@ -202,7 +203,8 @@ class TransferScheduler:
         """Run `fn` on the caller's thread, accounted as transfer traffic
         of class `cls` (d2h: absolute priority, no queueing)."""
         t0 = time.perf_counter()
-        result = fn()
+        with trace.span(f"transfer_{cls}", label=label):
+            result = fn()
         nbytes = int(nbytes_of(result)) if nbytes_of is not None else 0
         self.stats.record_dispatch(cls, nbytes, time.perf_counter() - t0)
         return result
@@ -255,7 +257,8 @@ class TransferScheduler:
     def _dispatch(self, item: _Item) -> None:
         t0 = time.perf_counter()
         try:
-            ret = item.fn()
+            with trace.span(f"transfer_{item.cls}", label=item.ticket.label):
+                ret = item.fn()
         except Exception as e:   # the submitter's problem, not ours
             self.stats.record_dispatch(item.cls, item.nbytes, time.perf_counter() - t0)
             self._charge(item.cls, item.nbytes)
@@ -279,6 +282,7 @@ class TransferScheduler:
         waiter sees the failure."""
         if self.restarts < self._max_restarts and not self._stop:
             self.restarts += 1
+            trace.instant("transfer_restart", n=self.restarts)
             print(f"[transfer] scheduler thread died ({exc!r}); restarting "
                   f"({self.restarts}/{self._max_restarts})", file=sys.stderr, flush=True)
             with self._cv:

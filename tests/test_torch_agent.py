@@ -334,7 +334,8 @@ def test_native_backend_cli_run(tmp_path):
         "--batch_size=16", "--replay_min_size=200", "--total_env_steps=600",
         "--eval_every=300", "--eval_episodes=1", "--train_every=2"], tmp_path / "m.jsonl")
     kinds = [r["kind"] for r in records]
-    assert kinds == ["train", "eval", "train", "eval", "final"]
+    # The stream opens with the logger's header record (t_unix_base).
+    assert kinds == ["header", "train", "eval", "train", "eval", "final"]
     train = [r for r in records if r["kind"] == "train"]
     assert train[-1]["learner_steps"] == (600 - 200) // 2 + 1
     assert all(np.isfinite(train[-1][k]) for k in ("critic_loss", "actor_loss", "mean_q"))

@@ -12,10 +12,11 @@ config fields) against the JAX package's, on the CPU at tiny widths.
   at rtol 1e-5, atol 1e-5 (tests/test_device_actors.py's tolerance).
 - insert_device_rows: the wraparound and PER's max-priority stamp, against
   JAX's DevicePrioritizedReplay (storage, priorities, ptr, size equal).
-- The bounded restart, driven by a failing hook (the devactor fault
-  grammar is refused, ROADMAP item 12): one failure absorbed with the same
-  rows as an unfailed pool; four exhaust the budget (DeviceActorError with
-  the cause).
+- The bounded restart, driven by a failing hook (the plan's
+  `devactor:rollout` site takes the same place; tests/test_torch_faults.py
+  drives it through the CLI): one failure absorbed with the same rows as
+  an unfailed pool; four exhaust the budget (DeviceActorError with the
+  cause).
 - The carry round trip (the resumed pool's next rollout bit-identical to
   the uninterrupted one's; the warmup counter kept, steps_done not) and the
   mismatch fallback (another E, an empty snapshot).

@@ -286,13 +286,13 @@ def test_numeric_fault_grammar_rejects_as_jax(spec):
         FaultPlan.parse(spec)
 
 
-@pytest.mark.parametrize("spec", ["worker:2:crash@5000", "ckpt:write:ioerror@2",
-                                  "actor:1:300", "shipper:ship:crash@1"])
+@pytest.mark.parametrize("spec", ["pod:1:kill@5", "pod:0:exit@3:77",
+                                  "slice:0:corrupt@1", "pod:1:hang@2~1.5"])
 def test_other_fault_components_are_refused(spec):
     JaxFaultPlan.parse(spec)   # the JAX grammar takes them
     with pytest.raises(ValueError, match="not in this slice"):
         FaultPlan.parse(spec)
-    with pytest.raises(ValueError, match="item 12"):
+    with pytest.raises(ValueError, match="item 10"):
         DDPGConfig(faults=spec)
 
 

@@ -456,7 +456,7 @@ def test_host_replay_cli_run(tmp_path):
     # counts every put the scheduler ran.
     puts = sum(r.get("transfer_prefetch_items", 0) for r in records)
     assert puts >= final["chunks"] and final["transfer_ingest_items"] == 0
-    assert final["ingest_async_active"] is False and final["t_sample_wait_ms"] >= 0.0
+    assert final["ingest_async_active"] is False and final["t_sample_wait_run_ms"] >= 0.0
     assert all(np.isfinite(final[k]) for k in (*METRIC_KEYS, "final_return"))
 
 

@@ -455,8 +455,8 @@ def test_train_default_flags_run_on_shm_with_the_shipper(tmp_path):
     # The scheduler shipped the steady state's blocks from the pool.
     shipped = sum(r["transfer_ingest_items"] for r in trains + [final])
     assert shipped >= 1 and final["transfer_pool_buffers"] >= 1
-    assert final["n_ingest"] >= final["chunks"] >= 1
-    assert 0.0 <= final["t_ingest_max"] and math.isfinite(final["t_ingest_chunk_ms"])
+    assert final["n_ingest_run"] >= final["chunks"] >= 1
+    assert 0.0 <= final["t_ingest_run_max"] and math.isfinite(final["t_ingest_chunk_ms"])
     assert math.isfinite(final["critic_loss"]) and math.isfinite(final["final_return"])
 
 

@@ -40,13 +40,14 @@ from test_torch_slice import train_in_subprocess
 
 torch.set_num_threads(1)
 
-# tests/test_strict_sync.py's wall-clock fields, and the port's name for
-# the actors' rate.
+# tests/test_strict_sync.py's wall-clock fields, the port's name for the
+# actors' rate, and the header record's pid (each run here is a process of
+# its own; t_unix_base goes with the t_* fields).
 TIME_KEYS = (
     "wall_time", "learner_steps_per_sec", "actor_steps_per_sec",
     "ingest_rows_per_sec", "ingest_stall_ms", "ingest_ship_ms",
     "replay_exchange_ms_p50", "replay_exchange_ms_p95",
-    "env_steps_per_sec",
+    "env_steps_per_sec", "pid",
 )
 
 POOL_CASES = {
