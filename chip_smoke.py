@@ -256,6 +256,26 @@ Phases (any failure raises; nothing is caught and passed over):
    from the stall to the report and to the process's end printed. The
    kernels' record counts K1 (a)'s launches on the traced main path and
    K2's on the prefetch drill.
+4h. The pod layer (pod_phase, POD_LIMIT_S of its own, an alarm), in child
+   processes of tools/supervise.py, (a) and (b) side by side, each trainer this script's
+   `--pod-child` (train.main with a harness that reads back every beat's
+   rows from the ring at the JAX package's offsets and prints the ring's
+   sha256 and the launches): (a) one process on K1 (a) under the
+   supervisor, SIGTERMed (the child, not the supervisor) once its first
+   cadence checkpoint has landed: exit 75, relaunched in place, resumed
+   from --checkpoint_dir, exit 0, the supervisor exit 0 with spawn, exit,
+   relaunch, spawn and the final 0 in its event log; (b) two nodes of one
+   rank each over gloo on the one card (DDPG_DIST_BACKEND=gloo), 1 actor
+   each, Pendulum 2x256, batch 64, K = 800, a 1000-row warmup:
+   generation 1 with --pod_collective_timeout_s=POD_DEADLINE_S and
+   pod:1:hang@POD_HANG_BEAT (--env-first) exits 76 on node 0 within the
+   deadline plus POD_SLACK_S of the hang; generation 2 elects the same
+   resume step on both, every chunk one K1 launch a process, exit 0, the
+   replicas bit-identical, both rings the same bytes and every beat's rows
+   where the JAX layout puts them. Printed: the detection latency, the
+   elected step, the generations, K1's launches a process, generation 2's
+   learner and env steps/s a process (gloo time-slicing one card) and
+   node 0's final pod_* fields.
 5. Time each branch of the kernel at the main path's shapes (CUDA events,
    warmed up) beside its plain version (one run, timed where the parity
    phase ran it at these shapes: PLAIN_MS) and its bound; the eager autograd
@@ -4228,6 +4248,306 @@ def operations_phase(card: str) -> dict:
     return dict(traced=traced, profiled=profiled_run, drills=drills, stall=stall, seconds=secs)
 
 
+# --- 4h. the pod layer (parallel/multihost.py, supervisor/, tools/supervise.py) --
+
+POD_LIMIT_S = 90          # phase 4h's alarm (its budget is 40-60 s on a fast host)
+POD_DEADLINE_S = 8        # generation 1's --pod_collective_timeout_s
+POD_HANG_BEAT = 5         # pod:1:hang@5: the 5th steady-state beat (after chunk 5)
+# The global env-step budgets; generation 1 stops short of each. (a)'s
+# relaunch then learns ~10 chunks to it, (b)'s generation 2 at least 10
+# (its budget is gathered every 10th loop turn).
+POD_SINGLE_ENV_STEPS = 12_000
+POD_ENV_STEPS = 20_000
+POD_LINGER_S = 2          # node 0's linger before its exit 76 (pod_child's linger_s)
+# Detection past the deadline: the beat's lane dispatch and the two
+# processes' skew at the beat (a poll of the ingest loop, 0.5 ms, and a
+# chunk's end on two ranks time-slicing one card).
+POD_SLACK_S = 2.0
+
+
+def pod_child(argv) -> int:
+    """One trainer process of phase 4h under the supervisor (`--pod-child`):
+    train.main with a harness, not a program flag, that checks every beat's
+    ship on the card: after DeviceReplay._ship_global lands a super-block,
+    the node's own rows are read back from the ring at the JAX package's
+    offsets j*(procs*bs) + p*bs + r from the pointer it wrote at, and
+    counted when they differ. When the replay closes (after the last beat
+    has landed) it prints the ring's sha256 over its filled rows and the
+    tally; at the end, the kernels' launch counts, as --resume-drill does.
+
+    The harness, not the trainer, reads the fault plan from POD_FAULTS
+    (tools.supervise --env-first sets it in generation 1 only, as the JAX
+    package's test child reads it) and gives node 0's exit 76 a linger of
+    POD_LINGER_S."""
+    import functools
+    import hashlib
+
+    from distributed_ddpg_tpu_torch import train
+    from distributed_ddpg_tpu_torch.ops import fused_chunk as fc
+    from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
+
+    ship_global, close = DeviceReplay._ship_global, DeviceReplay.close
+    tally = dict(ships=0, rows_landed=0, rows_checked=0, rows_misplaced=0)
+
+    def checked_ship_global(rep, local_rows, k=1):
+        start = ship_global(rep, local_rows, k)
+        bs, procs, p = rep.block_size, rep._procs, rep._proc_idx
+        offsets = (np.arange(k)[:, None] * (procs * bs) + p * bs
+                   + np.arange(bs)[None, :]).reshape(-1)
+        idx = torch.as_tensor((start + offsets) % rep.capacity, device=rep.device)
+        landed = rep.storage[idx].cpu().numpy()
+        if rep._pod_lead:
+            tally["rows_checked"] += len(offsets)
+            tally["rows_misplaced"] += int((landed != local_rows).any(axis=1).sum())
+        tally["ships"] += 1
+        tally["rows_landed"] += procs * k * bs
+        return start
+
+    def closing(rep):
+        filled = rep.storage[:rep.size].cpu().numpy()
+        print("[ring] " + json.dumps(dict(sha256=hashlib.sha256(filled.tobytes()).hexdigest(),
+                                          size=rep.size, ptr=rep.ptr, **tally)), flush=True)
+        return close(rep)
+
+    DeviceReplay._ship_global = checked_ship_global
+    DeviceReplay.close = closing
+    train.pod_degraded_exit = functools.partial(train.pod_degraded_exit, POD_LINGER_S)
+    if os.environ.get("POD_FAULTS"):
+        argv = [*argv, f"--faults={os.environ['POD_FAULTS']}"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    code = 0
+    try:
+        train.main(argv)
+    except SystemExit as e:
+        code = e.code
+    print("[launches] " + json.dumps(dict(fc.KERNEL_LAUNCHES)), flush=True)
+    return code
+
+
+def supervise_cmd(tmp: str, tag: str, procs: int, flags, extra=()):
+    """tools.supervise over `procs` processes of pod_child with these trainer
+    flags (per-generation and per-process JSONL logs), its event log and
+    child logs under tmp/tag."""
+    base = os.path.join(tmp, tag)
+    os.makedirs(base, exist_ok=True)
+    return [sys.executable, "-m", "distributed_ddpg_tpu_torch.tools.supervise",
+            "--procs", str(procs), "--backoff-base", "0.1", "--drain-grace", "5",
+            "--kill-grace", "5", "--event-log", os.path.join(base, "events.jsonl"),
+            "--child-logs", os.path.join(base, "children"), *extra, "--",
+            sys.executable, os.path.abspath(__file__), "--pod-child", *flags,
+            f"--log_path={os.path.join(base, 'gen{gen}_proc{proc}.jsonl')}"]
+
+
+def _events(tmp: str, tag: str) -> list:
+    with open(os.path.join(tmp, tag, "events.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _child_log(tmp: str, tag: str, gen: int, proc: int) -> str:
+    with open(os.path.join(tmp, tag, "children", f"gen{gen}_proc{proc}.log"),
+              errors="replace") as f:
+        return f.read()
+
+
+def _child_summary(text: str) -> dict:
+    import ast
+
+    lines = [line for line in text.splitlines() if line.startswith("{'")]
+    if not lines:
+        raise AssertionError("phase 4h: a child printed no summary:\n" + text[-3000:])
+    return ast.literal_eval(lines[-1])
+
+
+def _tagged(text: str, tag: str) -> dict:
+    lines = [line for line in text.splitlines() if line.startswith(tag + " ")]
+    if not lines:
+        raise AssertionError(f"phase 4h: no {tag} line:\n" + text[-3000:])
+    return json.loads(lines[-1][len(tag) + 1:])
+
+
+def _in_order(kinds, want) -> bool:
+    it = iter(kinds)
+    return all(any(k == w for k in it) for w in want)
+
+
+class SupervisedPreemption:
+    """4h (a): one process under the supervisor on K1 (a), started before
+    (b) and finished after it (the two overlap while (b)'s first
+    generation waits out its deadline). Once generation 1's first cadence
+    checkpoint has landed, a watcher thread sends SIGTERM to that child
+    (not the supervisor): it exits 75 with its emergency checkpoint, the
+    supervisor relaunches it in place, generation 2 resumes from
+    --checkpoint_dir and finishes (exit 0), and so does the supervisor;
+    its event log holds spawn, exit, relaunch, spawn and the final 0 in
+    that order."""
+
+    def __init__(self, tmp: str, common):
+        import threading
+
+        self.tmp, self.t0 = tmp, time.monotonic()
+        self.ckdir = os.path.join(tmp, "single_ckpt")
+        flags = common + [f"--total_env_steps={POD_SINGLE_ENV_STEPS}",
+                          f"--checkpoint_dir={self.ckdir}", "--checkpoint_every=800"]
+        cmd = supervise_cmd(tmp, "single", 1, flags)
+        self.out = open(os.path.join(tmp, "single", "supervisor.out"), "w+")
+        self.sup = subprocess.Popen(cmd, stdout=self.out, stderr=subprocess.STDOUT)
+        self.sent = threading.Event()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, name="pod-4h-a", daemon=True)
+        self._thread.start()
+
+    def _watch(self) -> None:
+        manifest = os.path.join(self.ckdir, "manifest_800.json")
+        while not self._stop.is_set() and self.sup.poll() is None:
+            if os.path.exists(manifest):
+                spawn = next(e for e in _events(self.tmp, "single") if e["event"] == "spawn")
+                os.kill(spawn["pid"], signal.SIGTERM)
+                self.sent.set()
+                return
+            time.sleep(0.05)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self.sup.poll() is None:
+            self.sup.kill()
+            self.sup.wait()
+        self._thread.join(timeout=5)
+        self.out.close()
+
+    def finish(self, card: str) -> dict:
+        self.sup.wait()
+        self._thread.join(timeout=5)
+        secs = time.monotonic() - self.t0
+        self.out.seek(0)
+        out = self.out.read()
+        events = _events(self.tmp, "single")
+        kinds = [e["event"] for e in events]
+        exits_ = [(e["gen"], e["code"]) for e in events if e["event"] == "exit"]
+        gen2 = _child_log(self.tmp, "single", 2, 0)
+        summary = _child_summary(gen2)
+        launches = _tagged(gen2, "[launches]")
+        if not (self.sup.returncode == 0 and self.sent.is_set() and exits_ == [(1, 75), (2, 0)]
+                and _in_order(kinds, ["spawn", "exit", "relaunch", "spawn", "final"])
+                and events[-1]["event"] == "final" and events[-1]["code"] == 0
+                and summary["resumed_from"] and summary["resumed_from"] >= 800
+                and summary["fused_chunk_active"]
+                and launches == {"fused_chunk": summary["chunks"]}):
+            raise AssertionError(
+                f"phase 4h (a): supervisor exit {self.sup.returncode}, SIGTERM sent "
+                f"{self.sent.is_set()}, events {kinds}, exits {exits_}, launches {launches}, "
+                f"summary {summary}; supervisor output: {out[-2000:]}")
+        record = dict(seconds=secs, events=kinds, resumed_from=summary["resumed_from"],
+                      generation_s=[e["runtime_s"] for e in events if e["event"] == "exit"],
+                      ended_unix=events[-1]["t_unix"], launches=launches["fused_chunk"],
+                      chunks=summary["chunks"],
+                      learner_steps_per_sec=summary["learner_steps_per_sec"])
+        log(f"[pod] {card}: (a) one process under the supervisor, SIGTERM after the first "
+            "cadence checkpoint: " + json.dumps(record))
+        return record
+
+
+def two_node_pod(card: str, tmp: str, common) -> dict:
+    """4h (b): two nodes of one rank each (tools.supervise --procs 2 sets
+    torchrun's environment), DDPG_DIST_BACKEND=gloo on the one card, 1
+    actor each, K1 (a) on every chunk (the mesh launch). Generation 1 has
+    pod:1:hang@POD_HANG_BEAT (--env-first): node 0 must exit 76 within
+    POD_DEADLINE_S + POD_SLACK_S of the hang; node 1's own beat misses the
+    same deadline (76). Generation 2: both elect the same resume step,
+    every chunk one K1 launch a process, exit 0; the replicas' states
+    bit-identical (mesh.replicas_equal), both rings the same bytes, and
+    every beat's rows of each node at the JAX package's offsets."""
+    ckdir = os.path.join(tmp, "pod_ckpt")
+    flags = common + [f"--total_env_steps={POD_ENV_STEPS}", f"--checkpoint_dir={ckdir}",
+                      "--checkpoint_every=1600", f"--pod_collective_timeout_s={POD_DEADLINE_S}"]
+    extra = ["--env", "DDPG_DIST_BACKEND=gloo",
+             "--env-first", f"POD_FAULTS=pod:1:hang@{POD_HANG_BEAT}"]
+    t0 = time.monotonic()
+    res = subprocess.run(supervise_cmd(tmp, "pod", 2, flags, extra), capture_output=True,
+                         text=True, timeout=POD_LIMIT_S)
+    secs = time.monotonic() - t0
+    events = _events(tmp, "pod")
+    kinds = [e["event"] for e in events]
+    exits_ = sorted((e["gen"], e["proc"], e["code"]) for e in events if e["event"] == "exit")
+    g1 = [_child_log(tmp, "pod", 1, p) for p in (0, 1)]
+    g2 = [_child_log(tmp, "pod", 2, p) for p in (0, 1)]
+    fired = re.search(rf"\[chaos\] pod:1:hang@{POD_HANG_BEAT} fired at ([0-9.]+)", g1[1])
+    seen = re.search(r"\[train\] pod peer lost at ([0-9.]+)", g1[0])
+    latency = float(seen.group(1)) - float(fired.group(1)) if fired and seen else None
+    summaries = [_child_summary(t) for t in g2]
+    rings = [_tagged(t, "[ring]") for t in g2]
+    launches = [_tagged(t, "[launches]") for t in g2]
+    elected = [s["pod_resume_step_elected"] for s in summaries]
+    with open(os.path.join(tmp, "pod", "gen2_proc0.jsonl")) as f:
+        final = [r for r in map(json.loads, f) if r["kind"] == "final"][-1]
+    ok = (res.returncode == 0 and exits_[:1] == [(1, 0, 76)]
+          and [c for g, _, c in exits_ if g == 2] == [0, 0]
+          and _in_order(kinds, ["spawn", "spawn", "exit", "exit", "relaunch", "spawn", "spawn",
+                                "exit", "exit", "final"])
+          and events[-1]["code"] == 0 and latency is not None
+          and POD_DEADLINE_S - 0.5 <= latency <= POD_DEADLINE_S + POD_SLACK_S
+          and elected[0] == elected[1] > 0
+          and all(s["replicas_identical"] and s["route"] == "mesh" and s["fused_chunk_active"]
+                  and s["resumed_from"] == elected[0] for s in summaries)
+          and launches == [{"fused_chunk": s["chunks"]} for s in summaries]
+          and all(s["chunks"] > 0 for s in summaries)
+          and rings[0]["sha256"] == rings[1]["sha256"] and rings[0]["size"] == rings[1]["size"]
+          and all(r["ships"] > 0 and r["rows_checked"] > 0 and r["rows_misplaced"] == 0
+                  for r in rings))
+    if not ok:
+        raise AssertionError(
+            f"phase 4h (b): supervisor exit {res.returncode}, events {kinds}, exits {exits_}, "
+            f"detection latency {latency}, elected {elected}, launches {launches}, rings "
+            f"{rings}, summaries {summaries}; supervisor: {res.stdout[-1500:]} "
+            f"{res.stderr[-1500:]}; gen 1 node 0: {g1[0][-2500:]}; gen 1 node 1: "
+            f"{g1[1][-2500:]}")
+    pod_fields = {k: v for k, v in final.items() if k.startswith("pod_")}
+    record = dict(seconds=secs, generations=events[-1]["supervisor_generations"],
+                  generation_s=[e["runtime_s"] for e in events if e["event"] == "exit"],
+                  gen2_spawned_unix=[e["t_unix"] for e in events
+                                     if e["event"] == "spawn" and e["gen"] == 2][0],
+                  gen1_exits=[c for g, _, c in exits_ if g == 1],
+                  detection_latency_s=latency, deadline_s=POD_DEADLINE_S,
+                  elected_step=elected[0], launches=[x["fused_chunk"] for x in launches],
+                  chunks=[s["chunks"] for s in summaries],
+                  learner_steps_per_sec=[s["learner_steps_per_sec"] for s in summaries],
+                  env_steps_per_sec=[s["env_steps_per_sec"] for s in summaries],
+                  rings=rings, events=kinds)
+    log(f"[pod] {card}: (b) two nodes over gloo on the one card: " + json.dumps(record))
+    log(f"[pod] {card}: detection latency {latency:.3f} s (deadline {POD_DEADLINE_S} s), "
+        f"elected step {elected[0]}, generations {record['generations']}, K1 launches a "
+        f"process {record['launches']} (= chunks {record['chunks']}); generation 2, gloo "
+        f"time-slicing one card: learner steps/s {record['learner_steps_per_sec']}, env "
+        f"steps/s {record['env_steps_per_sec']} (nodes 0, 1)")
+    log(f"[pod] {card}: process 0's final record's pod_* fields: " + json.dumps(pod_fields))
+    return record
+
+
+def pod_phase(card: str) -> dict:
+    """4h (see the module docstring), under PhaseLimit(POD_LIMIT_S): (a) and
+    (b) side by side, each a tools.supervise process and its children
+    (most of each generation is its processes' start). Whether (a) still
+    ran when (b)'s generation 2 started, the run whose rates are printed,
+    is printed too."""
+    common = ["--num_actors=1", "--replay_min_size=1000", "--eval_every=0",
+              "--eval_episodes=1"]
+    t0 = time.monotonic()
+    with PhaseLimit(POD_LIMIT_S, "phase 4h"), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_pod_") as tmp:
+        single_run = SupervisedPreemption(tmp, common)
+        try:
+            pod = two_node_pod(card, tmp, common)
+            single = single_run.finish(card)
+        finally:
+            single_run.stop()
+    secs = time.monotonic() - t0
+    overlap = single["ended_unix"] - pod["gen2_spawned_unix"]
+    log(f"[pod] {card}: (a) ended {overlap:+.3f} s after (b)'s generation 2 spawned"
+        + (" (so (a)'s last seconds ran beside (b)'s relaunch)" if overlap > 0 else ""))
+    log(f"[phase] 4h took {secs:.1f}s")
+    return dict(single=single, pod=pod, seconds=secs, a_after_b_gen2_s=overlap)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this needs an "
@@ -4508,6 +4828,14 @@ def main() -> int:
     launches["fused_chunk"] = paths["fused_chunk"]["operations"]
     update_launches = {"fused_update": paths["fused_update"]["prefetch_drill"]}
 
+    # --- 4h. the pod layer (this slice) ---
+    pod = pod_phase(card)
+    log(f"[phase] pod done at {time.monotonic() - t_start:.1f}s")
+    # This slice's paths: K1 (a) a process on generation 2 of the two-node
+    # pod, and on the single supervised process's generation 2.
+    paths["fused_chunk"]["pod_generation2"] = pod["pod"]["launches"]
+    paths["fused_chunk"]["supervised_relaunch"] = pod["single"]["launches"]
+
     # --- 5. timing at the main path's shapes ---
     timing = {
         "fused_chunk": time_branch(cfg, "fused_chunk", K, 1000, card, eager=True),
@@ -4568,4 +4896,6 @@ if __name__ == "__main__":
         sys.exit(resume_drill_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--watchdog-drill"]:
         sys.exit(watchdog_drill_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--pod-child"]:
+        sys.exit(pod_child(sys.argv[2:]))
     sys.exit(main())

@@ -40,7 +40,7 @@ the draws), whose state the checkpoint sidecar carries too
 (carry_state_dict / load_carry_state; a snapshot of another E or env
 falls back to fresh episodes, as in JAX). `rollout` is the pure body the
 fused beat composes (parallel/megastep.py). Everything runs on one rank
-(ROADMAP item 10).
+(ROADMAP item 10, its data-plane half).
 """
 
 from __future__ import annotations

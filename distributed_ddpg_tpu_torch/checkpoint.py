@@ -38,8 +38,12 @@ and restore (with step=None the newest-first walk: verify, quarantine on
 failure, check the config outside the load's try, fall back past a load
 error; an explicit step has no fallback) and discard_above (the
 guardrails' rollback: checkpoints newer than the restored step become
-diverged_step_<N>). Not here yet: the replay slices of an elastic pod and
-the device actors' carry.
+diverged_step_<N>). `pod_dir` is a pod node's own directory for its
+emergency checkpoint after a peer loss (JAX train.py's pod_ckpt_dir):
+node 0 writes into the checkpoint directory, node k into its proc<k>
+subdirectory, so a shared filesystem never has two writers on one step.
+Not here yet: the replay slices of an elastic pod (ROADMAP.md Queue 1
+item 10, its data-plane half).
 """
 
 from __future__ import annotations
@@ -457,11 +461,23 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def valid_steps(directory: str):
-    """The retained steps that verify, ascending."""
+def pod_dir(directory: str, process_index: int) -> str:
+    """The directory pod node `process_index` writes its emergency
+    checkpoint into (module docstring): `directory` itself for node 0,
+    directory/proc<k> for node k."""
+    if not directory or int(process_index) == 0:
+        return directory
+    return os.path.join(directory, f"proc{int(process_index)}")
+
+
+def valid_steps(directory: str, limit: Optional[int] = None):
+    """The retained steps that verify, ascending (JAX checkpoint.valid_steps):
+    the input of the pod's resume election (parallel/multihost.
+    elect_resume_step). `limit` keeps only the newest N."""
     if not directory or not os.path.isdir(directory):
         return []
-    return [s for s in _steps(directory) if verify_checkpoint(directory, s)[0]]
+    out = [s for s in _steps(directory) if verify_checkpoint(directory, s)[0]]
+    return out[-limit:] if limit else out
 
 
 def _load_npz(path: str) -> Dict[str, np.ndarray]:

@@ -29,13 +29,18 @@ device_actor_chunk steps a dispatch, the rows scattered straight into the
 device replay); `fused_beat` and `superstep_beats` fuse the loop's
 learn, rollout and scatter into one beat (parallel/megastep.py) and B
 beats into one dispatch (parallel/superstep.py). All of them run on one
-rank (ROADMAP.md Queue 1 item 10).
+rank (ROADMAP.md Queue 1 item 10, its data-plane half).
 
 `serve_actors` serves the host workers' mu(s) from one InferenceServer in
 the learner process (serve/); `serve_backend='jax'` (the JAX package's
 flag value) applies the policy on `device`. `front_port` /
 `front_http_port` add the network front (serve/front/). Serving runs on
-one rank (item 10).
+one rank (item 10, its data-plane half).
+
+`sync_ship_background`, `pod_collective_timeout_s` and
+`pod_startup_grace_s` are the JAX package's pod fields, with its defaults
+and checks: they act on a pod of more than one node
+(parallel/multihost.py) and on nothing else.
 
 `device` is the port's own field: "cuda" (default) runs the learner on the
 card and raises if none is present; "cpu" runs the plain PyTorch versions
@@ -142,6 +147,13 @@ class DDPGConfig:
     # (transfer/hostbuf.py): pinned on the card, so the copy is
     # non-blocking; each is fenced on an event after the insert.
     transfer_host_pool: bool = True
+    # A pod (more than one node, parallel/multihost.py): run the sync_ship
+    # beat that gathers every node's staged rows as a background item on
+    # the transfer scheduler's lockstep lane (replay/device.py
+    # sync_ship_begin) instead of blocking the training loop at every
+    # chunk's end; the loop waits the beat before its next dispatch. No effect
+    # on one node.
+    sync_ship_background: bool = True
 
     # --- device actors (actors/device_pool.py) ---
     # "host": num_actors worker processes step CPU envs and ship their rows
@@ -284,6 +296,19 @@ class DDPGConfig:
     # stall path. "" = off (each span is a shared no-op).
     trace_dir: str = ""
     trace_events: int = 65_536       # the ring's capacity in events
+    # Pod deadlines (parallel/multihost.py), on more than one node only:
+    # every pod collective (the sync_ship beat, the env-step gather, the
+    # resume election) must finish within this many seconds, else the
+    # survivors abort cleanly with exit 76 (PodPeerLost) instead of
+    # blocking on a dead or hung peer. The first chunk's kernel build and
+    # a support expansion are granted pod_startup_grace_s more. Keep it
+    # well under watchdog_s where both are set: peer loss should exit 76,
+    # not 70. 0 = off (block for the process group's own timeout).
+    pod_collective_timeout_s: float = 60.0
+    # The one-time startup barrier's grace (multihost.startup_barrier),
+    # much larger than the steady deadline: process start-up skew under
+    # load is absorbed once here, not read as a dead peer by a beat.
+    pod_startup_grace_s: float = 300.0
     # The telemetry ingress: one stdlib HTTP thread on this port serving
     # /metrics (Prometheus text of the latest record of each kind),
     # /healthz (healthy / degraded / draining) and /trace. Read-only, no
@@ -508,7 +533,7 @@ class DDPGConfig:
             raise ValueError(
                 f"backend='jax_ondevice' with data_axis={self.data_axis} is not in this "
                 "slice of the PyTorch port: the monolith over a data-parallel group "
-                "comes with ROADMAP.md Queue 1 item 10; run it on one rank"
+                "comes with ROADMAP.md Queue 1 item 10 (its data-plane half); run it on one rank"
             )
         # The JAX package's TD3 gates and messages (its config.py), checked
         # before the slice's own so a TD3 misconfiguration reads the same.
@@ -588,7 +613,7 @@ class DDPGConfig:
                 "learner is the plain-DDPG bit-comparability oracle"
             )
         # The JAX package's replay_sharding checks, before the slice's own
-        # refusal of 'sharded' (ROADMAP.md Queue 1 item 10).
+        # refusal of 'sharded' (ROADMAP.md Queue 1 item 10, its data-plane half).
         if self.replay_sharding not in ("replicated", "sharded"):
             raise ValueError(
                 f"replay_sharding must be 'replicated' or 'sharded', got "
@@ -662,7 +687,7 @@ class DDPGConfig:
                 raise ValueError(
                     f"serve_actors=True with data_axis={self.data_axis} is not in this "
                     "slice of the PyTorch port: serving beside a data-parallel learner "
-                    "comes with ROADMAP.md Queue 1 item 10; serve on one rank"
+                    "comes with ROADMAP.md Queue 1 item 10 (its data-plane half); serve on one rank"
                 )
         if self.front_port < 0 or self.front_port > 65535:
             raise ValueError("front_port must be in [0, 65535] (0 = off)")
@@ -789,8 +814,8 @@ class DDPGConfig:
                 raise ValueError(
                     f"actor_backend='device' with data_axis={self.data_axis} is not in "
                     "this slice of the PyTorch port: the rollout over a data-parallel "
-                    "group comes with ROADMAP.md Queue 1 item 10; run the device actors "
-                    "on one rank"
+                    "group comes with ROADMAP.md Queue 1 item 10 (its data-plane half); "
+                    "run the device actors on one rank"
                 )
         if self.fused_beat not in ("auto", "on", "off"):
             raise ValueError(
@@ -923,6 +948,10 @@ class DDPGConfig:
             raise ValueError("actor_throttle_s must be >= 0 (0 = off)")
         if self.actor_no_progress_s < 0:
             raise ValueError("actor_no_progress_s must be >= 0 (0 = off)")
+        if self.pod_collective_timeout_s < 0:
+            raise ValueError("pod_collective_timeout_s must be >= 0 (0 = off)")
+        if self.pod_startup_grace_s < 0:
+            raise ValueError("pod_startup_grace_s must be >= 0")
         if self.trace_events < 16:
             raise ValueError("trace_events must be >= 16")
         if not 0 <= self.obs_port < 65536:
@@ -944,8 +973,8 @@ class DDPGConfig:
             raise ValueError(
                 f"host_replay=True with data_axis={self.data_axis} is not in this "
                 "slice of the PyTorch port: a host replay a rank under the "
-                "lockstep driver comes with ROADMAP.md Queue 1 item 10; run the "
-                "host replay on one rank"
+                "lockstep loop comes with ROADMAP.md Queue 1 item 10 (its data-plane "
+                "half); run the host replay on one rank"
             )
         # The JAX package's checks of the breaker, the fault plan and the
         # guardrails (its config.py).
@@ -976,7 +1005,7 @@ class DDPGConfig:
                 raise ValueError(
                     f"guardrails=True with data_axis={self.data_axis} is not in "
                     "this slice of the PyTorch port: the row screen shared "
-                    "across ranks comes with ROADMAP.md Queue 1 item 10; run "
+                    "across ranks comes with ROADMAP.md Queue 1 item 10 (its data-plane half); run "
                     "the guarded learner on one rank"
                 )
         if self.guardrail_zmax <= 0:

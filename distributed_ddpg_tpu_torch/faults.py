@@ -12,16 +12,20 @@ give one schedule in either package.
 Grammar (';'-separated specs):
 
     spec      := component [':' target] ':' kind '@' at ['~' seconds]
-    component := worker | pool | shipper | prefetch | ckpt | transfer
+               | 'pod' ':' proc ':' 'exit' '@' at ':' code
+    component := worker | pool | shipper | prefetch | ckpt | transfer | pod
                  | numeric | serve | devactor | front
-    kind      := crash | crashloop | hang | stall | slow | ioerror | nan
-                 | inf | spike | corrupt | regress
+    kind      := crash | crashloop | hang | stall | slow | ioerror | kill
+                 | nan | inf | spike | corrupt | exit | regress
 
 `at` is 1-based: for `worker` the env step inside that worker's first
 incarnation (a respawned worker starts clean, except for `crashloop`, which
 re-arms on every incarnation), for a host-side site the n-th call of the
-instrumented operation. `~seconds` sets the duration of slow, hang and
-stall faults (default: the seeded draw of `_default_duration`).
+instrumented operation; for `pod` it is the n-th steady-state sync_ship
+beat of that pod process (node), counted from the warmup's end, the same
+ordinal on every node. `~seconds` sets the duration of slow, hang and
+stall faults (default: the seeded draw of `_default_duration`; a pod hang
+defaults to an hour, to outlast the pod deadline).
 
     worker:<id>:crash@N      raise at env step N (the process dies; the
                              pool's monitor respawns it as `dead`)
@@ -44,6 +48,21 @@ stall faults (default: the seeded draw of `_default_duration`).
                              killing the scheduler thread (its bounded
                              self-restart, transfer/scheduler.py)
     transfer:dispatch:slow@K~S the K-th dispatch sleeps S first
+    pod:<proc>:kill@K        pod process <proc> SIGKILLs itself at its K-th
+                             sync_ship beat, before the beat's collective:
+                             the survivors must see the loss as
+                             PodPeerLost (parallel/multihost.py) and exit
+                             76
+    pod:<proc>:hang@K~S      pod process <proc> freezes S seconds (default
+                             an hour) at its K-th beat: the hung-peer
+                             flavour, caught by the pod deadline
+    pod:<proc>:slow@K~S      pod process <proc> sleeps S at its K-th beat
+                             and goes on: a straggler, not a lost peer
+                             (the pod aggregator attributes it)
+    pod:<proc>:exit@K:<code> pod process <proc> hard-exits with exactly
+                             <code> (0..255) at its K-th beat (os._exit):
+                             every branch of the exit contract for the
+                             supervisor's drills; peers see PodPeerLost
     devactor:rollout:crash@K the K-th device-actor rollout raises
                              (actors/device_pool.py's bounded restart,
                              devactor_restarts)
@@ -81,16 +100,19 @@ tick it once an operation; worker processes receive their picklable fault
 tuples through `plan.for_worker(id, incarnation)` and apply them inline
 (actors/worker.py). An empty plan's tick is one attribute check.
 
-The JAX grammar's `pod` and `slice` components raise: they script the
-processes of a multi-host pod and its replay slices, which come with the
-pods (ROADMAP.md Queue 1 item 10). Stdlib only: the actor workers import
-this module and never import torch.
+The `slice` component of the JAX grammar raises: it scripts the replay
+slices of a sharded pod, which come with the data-plane half of ROADMAP.md
+Queue 1 item 10. Stdlib only: the actor workers import this module and
+never import torch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import random
+import signal
+import sys
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -107,6 +129,8 @@ SLOW_FAULT_STEPS = 200
 # site that can raise or sleep inline.
 _WORKER_KINDS = ("crash", "crashloop", "hang", "stall", "slow")
 _SITE_KINDS = ("crash", "hang", "slow", "ioerror")
+# Pod kinds target a whole process (node) of a pod at a beat ordinal.
+_POD_KINDS = ("kill", "hang", "slow", "exit")
 # Numeric faults are target->kind pairs (each target poisons one detector
 # of the guardrails' probe): grad->nan, replay->inf, loss->spike.
 _NUMERIC_PAIRS = {"grad": "nan", "replay": "inf", "loss": "spike"}
@@ -125,8 +149,9 @@ _FRONT_KINDS = {
     "frame": ("corrupt",),
     "canary": ("regress",),
 }
-# The multi-host components (ROADMAP.md Queue 1 item 10).
-_POD_ONLY = ("pod", "slice")
+# The sharded pod's replay-slice component (ROADMAP.md Queue 1 item 10,
+# its data-plane half).
+_NOT_PORTED = ("slice",)
 
 
 class InjectedFault(OSError):
@@ -142,23 +167,27 @@ class FaultSpec:
     kind: str
     at: int          # env step (worker) / 1-based call ordinal (site)
     duration_s: float = 0.0  # slow/hang/stall/regress; resolved at parse time
-    code: int = 0    # the JAX grammar's pod exit status; always 0 here
+    code: int = 0    # pod exit only: the exit status to die with
 
     def describe(self) -> str:
         tgt = f":{self.target}" if self.target else ""
-        return f"{self.component}{tgt}:{self.kind}@{self.at}"
+        suffix = f":{self.code}" if self.kind == "exit" else ""
+        return f"{self.component}{tgt}:{self.kind}@{self.at}{suffix}"
 
 
-def _default_duration(kind: str, rng: random.Random) -> float:
+def _default_duration(kind: str, rng: random.Random, component: str = "") -> float:
     """Seeded default durations (the JAX package's): slowdowns are
     sub-second hiccups, canary regressions a few tens of ms a request,
     hangs and stalls long enough to trip the timeouts they target (worker
-    hangs ignore this: they freeze until terminated)."""
+    hangs ignore this: they freeze until terminated); a pod hang lasts an
+    hour, to outlast the pod deadline."""
     if kind == "slow":
         return round(rng.uniform(0.05, 0.25), 3)
     if kind == "regress":
         return round(rng.uniform(0.02, 0.1), 3)
     if kind in ("hang", "stall"):
+        if component == "pod":
+            return 3600.0
         return round(rng.uniform(2.0, 5.0), 3)
     return 0.0
 
@@ -215,6 +244,12 @@ class FaultPlan:
                    and (not s.target or not target or s.target == target)]
         return FaultSite(matches, component, target)
 
+    def pod_site(self, process_index: int) -> "FaultSite":
+        """The pod injector of one pod process (node): ticked once a
+        steady-state sync_ship beat (replay/device.py), so `@K` is the
+        K-th beat after the warmup, the same ordinal on every node."""
+        return self.site("pod", str(int(process_index)))
+
     def front_canary_regressions(self) -> Tuple[Tuple[int, float], ...]:
         """(at, seconds) of the `front:canary:regress@K~S` specs: sustained,
         unlike a FaultSite's one shot (the front sleeps S on every
@@ -259,12 +294,25 @@ def _parse_one(raw: str, rng: random.Random) -> FaultSpec:
         except ValueError:
             raise bad("legacy actor:<id>:<step> needs two integers") from None
         return FaultSpec("worker", str(wid), "crash", step, 0.0)
-    if parts[0] in _POD_ONLY:
+    if parts[0] in _NOT_PORTED:
         raise ValueError(
-            f"faults={raw!r}: the {parts[0]!r} component scripts the processes of a "
-            "multi-host pod and is not in this slice of the PyTorch port (ROADMAP.md "
-            "Queue 1 item 10)"
+            f"faults={raw!r}: the {parts[0]!r} component scripts the replay slices of a "
+            "sharded pod and is not in this slice of the PyTorch port (ROADMAP.md Queue 1 "
+            "item 10, its data-plane half)"
         )
+    # Typed-exit injection is the one 4-field spec: the trailing field is
+    # the exit status to die with (pod:<proc>:exit@<beat>:<code>).
+    code = 0
+    has_code = False
+    if len(parts) == 4 and parts[0] == "pod" and parts[2].startswith("exit@"):
+        has_code = True
+        code_str = parts.pop()
+        try:
+            code = int(code_str)
+        except ValueError:
+            raise bad(f"bad exit code {code_str!r} (integer 0..255)") from None
+        if not 0 <= code <= 255:
+            raise bad(f"exit code {code} out of range (0..255)")
     if len(parts) == 2:
         (component, tail), target = parts, ""
     elif len(parts) == 3:
@@ -300,6 +348,15 @@ def _parse_one(raw: str, rng: random.Random) -> FaultSpec:
             int(target)
         except ValueError:
             raise bad("worker target must be an integer id") from None
+    elif component == "pod":
+        if kind not in _POD_KINDS:
+            raise bad(f"kind {kind!r} does not apply to pod (one of {_POD_KINDS})")
+        if kind == "exit" and not has_code:
+            raise bad("exit needs a trailing ':<code>' (pod:<proc>:exit@<beat>:<code>)")
+        try:
+            int(target)
+        except ValueError:
+            raise bad("pod target must be an integer process id") from None
     elif component == "numeric":
         if target not in _NUMERIC_PAIRS:
             raise bad(f"numeric target must be one of {tuple(_NUMERIC_PAIRS)}")
@@ -318,16 +375,18 @@ def _parse_one(raw: str, rng: random.Random) -> FaultSpec:
     elif kind not in _SITE_KINDS:
         raise bad(f"kind {kind!r} does not apply to host sites")
     if duration is None:
-        duration = _default_duration(kind, rng)
-    return FaultSpec(component, target, kind, at, duration)
+        duration = _default_duration(kind, rng, component)
+    return FaultSpec(component, target, kind, at, duration, code)
 
 
 class FaultSite:
     """Call-ordinal injector of one host-side operation: `tick()` once an
     operation; the n-th tick fires every spec scheduled `@n` (`ioerror`,
     `crash` and `corrupt` raise InjectedFault, `slow`/`hang`/`stall` sleep
-    their duration; `regress` is read by front_canary_regressions, not
-    here). Thread-safe (sites sit on the shipper's, the prefetcher's and
+    their duration, a pod `kill` SIGKILLs this process and a pod `exit`
+    os._exits with its code; `regress` is read by
+    front_canary_regressions, not here). A pod fault notes its firing on
+    stderr with the wall time first. Thread-safe (sites sit on the shipper's, the prefetcher's and
     the saver's threads). A site with no specs is a no-op."""
 
     def __init__(self, specs: Sequence[FaultSpec], component: str, target: str = ""):
@@ -355,8 +414,21 @@ class FaultSite:
             due = self._by_at.get(self._count, ())
         for s in due:
             self.fired.append(s.describe())
+            if s.component == "pod":
+                # The drills read when the peer went (the detection latency).
+                print(f"[chaos] {s.describe()} fired at {time.time():.6f}",
+                      file=sys.stderr, flush=True)
             if s.kind in ("slow", "hang", "stall"):
                 time.sleep(s.duration_s)
+            elif s.kind == "kill":
+                # A real death: no cleanup, no exception. The peers must see
+                # it through their collective (PodPeerLost).
+                os.kill(os.getpid(), signal.SIGKILL)
+            elif s.kind == "exit":
+                # Exactly the scripted status, no cleanup (os._exit).
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os._exit(s.code)
             elif s.kind != "regress":   # ioerror, crash, corrupt
                 raise InjectedFault(f"injected {s.describe()} (call #{self._count})")
 

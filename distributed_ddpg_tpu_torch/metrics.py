@@ -317,6 +317,261 @@ class TransferStats:
         return out
 
 
+class PodStats:
+    """Thread-safe pod-resilience counters (parallel/multihost.py; the
+    JAX package's PodStats, the same fields) — the `pod_*` family every
+    train/final JSONL record carries on a pod (more than one node). Counters are CUMULATIVE
+    (peer loss and aborts are rare, terminal events; interval-resetting
+    them would hide the one record that matters):
+
+      pod_peer_lost               collectives declared lost (deadline
+                                  timeout or mid-flight transport error)
+      pod_aborts                  coordinated clean aborts taken (the
+                                  EXIT_POD_DEGRADED path)
+      pod_resume_step_elected     the step the coordinated resume election
+                                  agreed on (-1 = no election ran / no
+                                  common step)
+      pod_beats                   heartbeat-bearing lockstep beats gathered
+      pod_collective_near_misses  guarded collectives that consumed > 80%
+                                  of their deadline (the tune-the-timeout
+                                  signal BEFORE a false PodPeerLost)
+      pod_collective_slack_p95_ms deadline headroom at the p95-slowest
+                                  collective (deadline - p95 elapsed);
+                                  trending toward 0 = deadline too tight
+
+    Elastic-pod events (the sharded replay slices; zero until the
+    data-plane half of ROADMAP.md Queue 1 item 10 is ported):
+
+      pod_slices_adopted          replay slice sets adopted at restore
+                                  (all-writer checkpoints)
+      pod_slice_adopted_step      the step the adopted slice set was
+                                  written at (-1 = none; may trail the
+                                  elected resume step — replay is allowed
+                                  to be a few cadences staler)
+      pod_shrinks                 restarts that adopted a slice set from
+                                  a LARGER world (training continues at
+                                  reduced membership -> degraded)
+      pod_grows                   restarts that resharded a smaller
+                                  world's slices back up (rejoin ->
+                                  healthy)
+      pod_state_degraded          1 while the pod trains below the slice
+                                  set's writer count, 0 once grown back
+
+    Straggler attribution (obs/aggregate.py):
+
+      pod_stragglers              cadences on which the per-host beat-time
+                                  detector attributed a straggling host
+      pod_straggler_host          the most recently attributed host index
+                                  (-1 = never attributed)
+    """
+
+    NEAR_MISS_FRAC = 0.8
+
+    def __init__(self, seed: int = 0):
+        self._lock = threading.Lock()
+        self.peer_lost = 0
+        self.aborts = 0
+        self.resume_step_elected = -1
+        self.beats = 0
+        self.near_misses = 0
+        self.slices_adopted = 0
+        self.slice_adopted_step = -1
+        self.shrinks = 0
+        self.grows = 0
+        self.degraded = False
+        self.stragglers = 0
+        self.straggler_host = -1
+        self._deadline_s = 0.0
+        self._elapsed = _Reservoir(
+            64, (zlib.crc32(b"pod_collective") ^ seed) & 0x7FFFFFFF
+        )
+
+    def record_collective(self, elapsed_s: float, deadline_s: float) -> None:
+        with self._lock:
+            self._deadline_s = deadline_s
+            self._elapsed.add(elapsed_s)
+            if elapsed_s > self.NEAR_MISS_FRAC * deadline_s:
+                self.near_misses += 1
+
+    def record_peer_lost(self) -> None:
+        with self._lock:
+            self.peer_lost += 1
+
+    def record_abort(self) -> None:
+        with self._lock:
+            self.aborts += 1
+
+    def record_resume_elected(self, step: int) -> None:
+        with self._lock:
+            self.resume_step_elected = int(step)
+
+    def record_slice_adopted(self, step: int) -> None:
+        with self._lock:
+            self.slices_adopted += 1
+            self.slice_adopted_step = int(step)
+
+    def record_shrink(self) -> None:
+        """Adopted a slice set written by a LARGER world: the pod keeps
+        training at reduced membership in a typed degraded state."""
+        with self._lock:
+            self.shrinks += 1
+            self.degraded = True
+
+    def record_grow(self) -> None:
+        """Resharded a smaller world's slices back up (rejoin): degraded
+        clears — the pod is healthy at its new membership."""
+        with self._lock:
+            self.grows += 1
+            self.degraded = False
+
+    def record_straggler(self, host: int) -> None:
+        """One straggler attribution from the pod aggregator's per-host
+        beat-time detector (obs/aggregate.py)."""
+        with self._lock:
+            self.stragglers += 1
+            self.straggler_host = int(host)
+
+    def elastic_events(self) -> int:
+        """Nonzero when any elastic transition happened — the gate for
+        surfacing pod_* fields on runs that shrank to one process
+        (train_jax logs pod fields when is_multi OR this)."""
+        with self._lock:
+            return self.slices_adopted + self.shrinks + self.grows
+
+    def note_beat(self) -> None:
+        with self._lock:
+            self.beats += 1
+
+    def snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            slack_ms = 0.0
+            if self._elapsed.buf and self._deadline_s > 0:
+                slack_ms = round(
+                    1000.0
+                    * (self._deadline_s - self._elapsed.percentile(0.95)),
+                    3,
+                )
+            return {
+                "pod_peer_lost": self.peer_lost,
+                "pod_aborts": self.aborts,
+                "pod_resume_step_elected": self.resume_step_elected,
+                "pod_beats": self.beats,
+                "pod_collective_near_misses": self.near_misses,
+                "pod_collective_slack_p95_ms": slack_ms,
+                "pod_slices_adopted": self.slices_adopted,
+                "pod_slice_adopted_step": self.slice_adopted_step,
+                "pod_shrinks": self.shrinks,
+                "pod_grows": self.grows,
+                "pod_state_degraded": int(self.degraded),
+                "pod_stragglers": self.stragglers,
+                "pod_straggler_host": self.straggler_host,
+            }
+
+
+class SupervisorStats:
+    """Thread-safe pod-supervisor counters (supervisor/core.py; the JAX
+    package's SupervisorStats, the same fields) — the `supervisor_*` family
+    the supervisor's JSONL event stream carries on its final record, so
+    a long soak's whole restart history is auditable from one line.
+    CUMULATIVE across generations, like PodStats (every event here is a
+    rare, decision-bearing transition):
+
+      supervisor_generations      pod generations launched (gen 1 counts)
+      supervisor_spawns           child processes spawned, all generations
+      supervisor_relaunches       same-membership relaunches (70/75/76 or
+                                  untyped crashes)
+      supervisor_shrinks          shrink relaunches taken on exit 78
+                                  (membership reduced to the survivors)
+      supervisor_grows            health-gated grow relaunches (stop-the-
+                                  world resize back toward full strength)
+      supervisor_backoffs         exponential-backoff waits served
+      supervisor_backoff_wait_s   total seconds spent in those waits
+      supervisor_breaker_trips    crash-loop circuit-breaker trips (each
+                                  one is terminal: the SupervisorGaveUp
+                                  report path)
+      supervisor_numeric_refusals numeric aborts (77) refused past the
+                                  supervisor_max_numeric budget
+      supervisor_probe_ready      lost-peer slots that cleared the
+                                  K-consecutive-healthy rejoin gate
+      supervisor_probe_flaps      healthy->unhealthy probe regressions
+                                  (each restarts that slot's gate)
+      supervisor_gave_up          1 once the supervisor exited through
+                                  the typed give-up path, else 0
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.generations = 0
+        self.spawns = 0
+        self.relaunches = 0
+        self.shrinks = 0
+        self.grows = 0
+        self.backoffs = 0
+        self.backoff_wait_s = 0.0
+        self.breaker_trips = 0
+        self.numeric_refusals = 0
+        self.probe_ready = 0
+        self.probe_flaps = 0
+        self.gave_up = False
+
+    def record_generation(self, nprocs: int) -> None:
+        with self._lock:
+            self.generations += 1
+            self.spawns += int(nprocs)
+
+    def record_relaunch(self) -> None:
+        with self._lock:
+            self.relaunches += 1
+
+    def record_shrink(self) -> None:
+        with self._lock:
+            self.shrinks += 1
+
+    def record_grow(self) -> None:
+        with self._lock:
+            self.grows += 1
+
+    def record_backoff(self, wait_s: float) -> None:
+        with self._lock:
+            self.backoffs += 1
+            self.backoff_wait_s = round(self.backoff_wait_s + wait_s, 3)
+
+    def record_breaker_trip(self) -> None:
+        with self._lock:
+            self.breaker_trips += 1
+            self.gave_up = True
+
+    def record_numeric_refusal(self) -> None:
+        with self._lock:
+            self.numeric_refusals += 1
+            self.gave_up = True
+
+    def record_probe_ready(self) -> None:
+        with self._lock:
+            self.probe_ready += 1
+
+    def record_probe_flap(self) -> None:
+        with self._lock:
+            self.probe_flaps += 1
+
+    def snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            return {
+                "supervisor_generations": self.generations,
+                "supervisor_spawns": self.spawns,
+                "supervisor_relaunches": self.relaunches,
+                "supervisor_shrinks": self.shrinks,
+                "supervisor_grows": self.grows,
+                "supervisor_backoffs": self.backoffs,
+                "supervisor_backoff_wait_s": self.backoff_wait_s,
+                "supervisor_breaker_trips": self.breaker_trips,
+                "supervisor_numeric_refusals": self.numeric_refusals,
+                "supervisor_probe_ready": self.probe_ready,
+                "supervisor_probe_flaps": self.probe_flaps,
+                "supervisor_gave_up": int(self.gave_up),
+            }
+
+
 class GuardrailStats:
     """The host's numerical-health counters (guardrails.py): the
     `guardrail_*` fields of every train and final record when guardrails

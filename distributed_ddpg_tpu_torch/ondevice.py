@@ -33,7 +33,7 @@ superstep's rows by their learned counts.
 
 Refused as in JAX: PER, n_step != 1, train_every != 1, and a uniform
 warmup of the whole capacity or more (the gate reads the ring's fill,
-which saturates there). One rank (ROADMAP.md Queue 1 item 10).
+which saturates there). One rank (ROADMAP.md Queue 1 item 10, its data-plane half).
 """
 
 from __future__ import annotations

@@ -289,7 +289,7 @@ class ShardedLearner:
             raise ValueError(
                 f"guardrails=True on {D} ranks is not in this slice of the PyTorch "
                 "port (the row screen shared across ranks: ROADMAP.md Queue 1 "
-                "item 10); run the guarded learner on one rank")
+                "item 10, its data-plane half); run the guarded learner on one rank")
         envelope_ok = (
             config.fused_chunk != "off" and not self.guard_enabled
             and fused_chunk.supported(config)
@@ -518,7 +518,8 @@ class ShardedLearner:
         scan's step is built here if the kernel route had no use for it).
         The fused beat composes it with the rollout and the scatter."""
         if self.data_size > 1:
-            raise ValueError("the fused beat runs on one rank (ROADMAP.md Queue 1 item 10)")
+            raise ValueError("the fused beat runs on one rank (ROADMAP.md Queue 1 item 10, "
+                             "its data-plane half)")
         if self._scan is None:
             self._scan = make_scan_chunk_fn(
                 self._local_config, self.obs_dim, self.act_dim, *self._action,

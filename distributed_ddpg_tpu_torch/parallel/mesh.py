@@ -31,6 +31,18 @@ A DataGroup can be made without joining anything: with one rank its
 collectives are identities; with more, it serves route decisions alone
 (a ShardedLearner's route and batch split), and a collective on it needs
 the joined default group.
+
+The group knows its nodes (parallel/multihost.py's pod): the ranks that
+torchrun starts under one --node_rank (GROUP_RANK) are a node, and the
+node's rank with LOCAL_RANK 0 its lead. `process_index` is this rank's
+node among the group's `process_count` nodes, `lead_ranks` each node's
+lead, `node_lead` whether this rank leads its node. With more than one
+node (GROUP_WORLD_SIZE > 1) init_data_group all-gathers every rank's
+(GROUP_RANK, LOCAL_RANK) once to learn them, and makes the pod plane
+`pod`: a gloo group of its own for the pod's collectives (the sync_ship
+beats run on the transfer scheduler's thread beside the learner's
+collectives on the default group). With one node, nothing of this runs:
+`share`, `share_rows` and `replicas_equal` work as they do without nodes.
 """
 
 from __future__ import annotations
@@ -38,7 +50,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,11 +67,27 @@ class DataGroup:
     world_size: int
     device: torch.device
     ctrl: Optional[object] = None    # control-plane gloo group (None: the default group)
+    process_index: int = 0           # this rank's node among the group's nodes
+    process_count: int = 1           # the group's nodes
+    lead_ranks: Tuple[int, ...] = (0,)   # each node's lead, in node order
+    pod: Optional[object] = None     # the pod plane's gloo group (more than one node)
 
     @property
     def lead(self) -> bool:
-        """Rank 0 runs the actors, the eval and the log, and decides."""
+        """Rank 0 runs the eval and the log, and decides; on one node it
+        also runs the actors."""
         return self.rank == 0
+
+    @property
+    def node_lead(self) -> bool:
+        """This rank leads its node (LOCAL_RANK 0): on a pod it runs the
+        node's actors."""
+        return self.rank == self.lead_ranks[self.process_index]
+
+    @property
+    def is_pod(self) -> bool:
+        """More than one node: the pod layer is on (parallel/multihost.py)."""
+        return self.process_count > 1
 
 
 def resolve_data_axis(config, world_size: int) -> int:
@@ -89,7 +117,9 @@ def init_data_group(backend: str = "nccl", device=None, init_method: Optional[st
     request for more ranks on a host than it has cards raises; under gloo
     it is `device` (the CPU when none is named), so two gloo ranks may
     share one card. Every collective of the group raises after
-    `timeout_s` seconds without its peers."""
+    `timeout_s` seconds without its peers. With GROUP_WORLD_SIZE > 1 in
+    the environment (a pod) the nodes are learned as the module's
+    docstring says."""
     import torch.distributed as dist
 
     if backend not in ("nccl", "gloo"):
@@ -120,8 +150,37 @@ def init_data_group(backend: str = "nccl", device=None, init_method: Optional[st
         dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
                                 world_size=world_size, timeout=timeout)
     ctrl = dist.new_group(backend="gloo", timeout=timeout) if backend == "nccl" else None
-    return DataGroup(rank=dist.get_rank(), world_size=dist.get_world_size(), device=device,
-                     ctrl=ctrl)
+    group = DataGroup(rank=dist.get_rank(), world_size=dist.get_world_size(), device=device,
+                      ctrl=ctrl)
+    if int(os.environ.get("GROUP_WORLD_SIZE", "1")) > 1:
+        _learn_nodes(group, int(os.environ.get("GROUP_RANK", "0")), local_rank, timeout)
+    return group
+
+
+def _learn_nodes(group: DataGroup, node_rank: int, local_rank: int, timeout) -> None:
+    """Fill in the group's nodes from one all-gather of every rank's
+    (GROUP_RANK, LOCAL_RANK) on the control plane, and make the pod plane
+    when there is more than one node. Every node must have exactly one
+    rank with LOCAL_RANK 0."""
+    import torch.distributed as dist
+
+    mine = torch.tensor([node_rank, local_rank], dtype=torch.int64)
+    outs = [torch.empty_like(mine) for _ in range(group.world_size)]
+    dist.all_gather(outs, mine, group=group.ctrl)
+    pairs = [tuple(int(v) for v in t.tolist()) for t in outs]
+    nodes = sorted({n for n, _ in pairs})
+    leads = []
+    for n in nodes:
+        here = [r for r, (node, local) in enumerate(pairs) if node == n and local == 0]
+        if len(here) != 1:
+            raise RuntimeError(f"node {n} has {len(here)} ranks with LOCAL_RANK 0 "
+                               f"(ranks' (GROUP_RANK, LOCAL_RANK): {pairs})")
+        leads.append(here[0])
+    group.process_index = nodes.index(node_rank)
+    group.process_count = len(nodes)
+    group.lead_ranks = tuple(leads)
+    if group.process_count > 1:
+        group.pod = dist.new_group(backend="gloo", timeout=timeout)
 
 
 def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

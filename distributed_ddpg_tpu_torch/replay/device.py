@@ -48,8 +48,35 @@ Ingest pipeline (the JAX package's, port of its `_IngestShipper`,
   package's does.
 
 `ptr` and `size` are host integers: the host drives every insert, so it
-knows them without reading the device. The JAX package's multi-host
-sync_ship and sharded placement are later work.
+knows them without reading the device. The JAX package's sharded
+placement comes with the data-plane half of ROADMAP.md Queue 1 item 10.
+
+On a pod (`pod`, a parallel/mesh.DataGroup of more than one node;
+parallel/multihost.py) the ring is replicated on every rank and rows
+leave a node only through the sync_ship beat, the JAX package's
+lockstep ingest:
+
+- add_packed only stages (no ship, no shipper): each node's lead stages
+  its own actors' rows; the node's other ranks stage nothing;
+- `sync_ship(force)` is one beat, called by every rank at the same
+  point of its loop: it all-gathers the nodes' staged counts (with the
+  heartbeat word, multihost.beat_allgather), takes the common minimum m,
+  and ships m // block_size full blocks from every node in power-of-two
+  super-blocks of k blocks (at most the coalesce cap and the capacity
+  over procs * block_size), each one gather of every node's k blocks
+  (multihost.allgather_rows) landed at ptr + j*(procs*bs) + p*bs + r for
+  node p's block j row r (`_ship_global`, the layout of the JAX replay's
+  permuted all-gather insert); with `force` a remainder present on every
+  node is padded by repetition to one block (warmup). The PER twin
+  stamps every landed row with the max priority, as the JAX twin does;
+- with `background_sync` and a scheduler the beat runs as a lockstep
+  item (`sync_ship_begin` returns its ticket, which the caller waits
+  before its next collective); even a synchronous sync_ship goes through
+  the lane then, so the beats keep one order. Each beat reads its
+  staged count when it runs on the lane, after every earlier beat;
+- the pod fault site (`arm_pod_fault`, faults.FaultPlan.pod_site) is
+  ticked once a beat before its collective; the beat is a `sync_ship`
+  span, each landed super-block an `ingest_ship_global` span.
 
 Device rows (the device actors, actors/device_pool.py, and the fused beat,
 parallel/megastep.py): `insert_device_rows` lands an [M, D] block that is
@@ -223,7 +250,8 @@ class DeviceReplay:
                  block_size: int = 4096, staging_blocks: int = 16,
                  async_ship: bool = False, max_coalesce: int = 8, scheduler=None,
                  adaptive_coalesce: bool = False, host_pool: bool = False,
-                 track_sources: bool = False, fault=None):
+                 track_sources: bool = False, fault=None, pod=None,
+                 background_sync: bool = False, pod_fault=None):
         self.capacity = int(capacity)
         self.obs_dim, self.act_dim = obs_dim, act_dim
         self.block_size = int(block_size)
@@ -258,6 +286,17 @@ class DeviceReplay:
         self._shipper_restarts = 0
         self._max_shipper_restarts = 3
         self._fault = fault   # a faults.FaultSite ticked once a ship
+        # The pod (module docstring): rows leave a node only by sync_ship.
+        self._procs = pod.process_count if pod is not None else 1
+        self._proc_idx = pod.process_index if pod is not None else 0
+        self._pod_lead = pod.node_lead if pod is not None else True
+        self._pod_fault = pod_fault   # ticked once a beat (arm_pod_fault)
+        self._beat = 0
+        if self._procs > 1:
+            async_ship = False
+            if self.capacity < self._procs * self.block_size:
+                raise ValueError(f"capacity {self.capacity} holds less than one beat's "
+                                 f"{self._procs} x {self.block_size} rows")
 
         self._sched = scheduler
         self._adaptive = (
@@ -273,6 +312,7 @@ class DeviceReplay:
         self._shipper = (
             _IngestShipper(self).start() if self._async and not self._sched_ingest else None
         )
+        self._bg_sync = bool(background_sync) and scheduler is not None and self._procs > 1
 
     def __len__(self) -> int:
         return self.size
@@ -300,6 +340,13 @@ class DeviceReplay:
         if self._pool is not None:
             out.update(self._pool.snapshot())
         return out
+
+    def arm_pod_fault(self, site) -> None:
+        """Attach the pod fault site (faults.FaultPlan.pod_site), ticked once
+        a beat. Armed at the warmup's end, a point every node reaches at
+        the same beat, so `@K` counts steady-state beats (the warmup's
+        number of beats depends on how fast the actors start)."""
+        self._pod_fault = site
 
     def close(self) -> None:
         """Stop the background shipper, if any, and detach from the
@@ -380,11 +427,20 @@ class DeviceReplay:
             i += take
         return out
 
-    def _note_shipped(self, srcs: Optional[np.ndarray], start: int) -> None:
+    def _note_shipped(self, srcs: Optional[np.ndarray], start: int,
+                      offsets: Optional[np.ndarray] = None, advance: int = 0) -> None:
         """Stamp the positions a ship that landed wrote, from `start` (the
-        ptr it wrote at), with their rows' tags."""
-        if srcs is not None:
+        ptr it wrote at), with their rows' tags. A beat's ship (`offsets`,
+        `advance`) stamps this node's rows at start + offsets and marks the
+        rest of the `advance` rows it landed untracked (-1): the other
+        nodes' rows, whose actors this node cannot quarantine."""
+        if srcs is None:
+            return
+        if offsets is None:
             self._source_map[(start + np.arange(len(srcs))) % self.capacity] = srcs
+            return
+        self._source_map[(start + np.arange(advance)) % self.capacity] = -1
+        self._source_map[(start + offsets) % self.capacity] = srcs
 
     def sources_of(self, idx) -> np.ndarray:
         """The actor slots that produced the rows at replay positions `idx`
@@ -531,8 +587,8 @@ class DeviceReplay:
             self._stats.record_push(len(rows), stall)
             self._staging.notify_all()
             self._submit_ingest_locked()
-        if self._async:
-            return
+        if self._async or self._procs > 1:
+            return   # the shipper ships, or on a pod the beat
         self._drain_ring()
 
     def drain_pending(self) -> int:
@@ -569,6 +625,115 @@ class DeviceReplay:
                     # The padding repeats real rows: the copies inherit the
                     # originals' tags.
                     self._note_shipped(np.tile(srcs, reps)[:m], start)
+
+    # --- the pod's beat (module docstring) ---
+
+    def sync_ship(self, force: bool = False) -> int:
+        """One lockstep ingest beat (JAX sync_ship): every rank of the pod
+        calls it at the same point of its loop. Returns this rank's real
+        (unpadded) rows shipped. Under background_sync it goes through the
+        scheduler's lane and waits there (multihost.wait_beat_ticket), so
+        its collective keeps its place among the queued beats. A replay
+        without a pod has no beat: its rows move through add_packed and
+        flush."""
+        if self._procs == 1:
+            raise RuntimeError("sync_ship() needs a pod of more than one node; "
+                               "without one, rows move through add_packed and flush")
+        if self._bg_sync:
+            from distributed_ddpg_tpu_torch.parallel import multihost
+
+            return multihost.wait_beat_ticket(self.sync_ship_begin(force=force))
+        return self._sync_ship_collective(force)
+
+    def sync_ship_begin(self, force: bool = False):
+        """Issue one beat on the scheduler's lockstep lane and return its
+        TransferTicket without waiting (background_sync). Every rank issues
+        its beats at the same points in the same order, and waits the
+        ticket before its next collective; the beat reads its staged count
+        when it runs, after every earlier beat (FIFO), so no row is claimed
+        twice."""
+        if not self._bg_sync:
+            raise RuntimeError("sync_ship_begin() needs background_sync=True, a "
+                               "TransferScheduler and a pod of more than one node")
+        self._beat += 1
+        return self._sched.submit("lockstep", lambda: self._sync_ship_collective(force),
+                                  label=f"sync_ship_beat_{self._beat}")
+
+    def _sync_ship_collective(self, force: bool) -> int:
+        """The beat itself (see sync_ship and the module docstring)."""
+        from distributed_ddpg_tpu_torch.parallel import multihost
+
+        # The count now: rows staged later belong to a later beat.
+        count = self.pending_rows if self._pod_lead else 0
+        # The pod fault fires before the collective, so a kill or a hang
+        # leaves the peers blocked in this beat's gather: the failure the
+        # pod deadline is there to see.
+        if self._pod_fault is not None:
+            self._pod_fault.tick()
+        bs, procs, p = self.block_size, self._procs, self._proc_idx
+        with trace.span("sync_ship", beat=self._beat):
+            counts = multihost.beat_allgather(count)
+            m = int(counts.min())
+            moved = 0
+            cap_blocks = self.capacity // (procs * bs)
+            remaining = m // bs
+            with self.dispatch_lock:
+                while remaining:
+                    k = self._coalesce_k(remaining, cap_blocks)
+                    rows, srcs = self._pop_local(k * bs)
+                    t0 = time.perf_counter()
+                    with trace.span("ingest_ship_global", rows=k * bs, blocks=k):
+                        start = self._ship_global(rows, k)
+                    self._stats.record_ship(k * bs, k, time.perf_counter() - t0)
+                    # This node's k blocks land at j*(procs*bs) + p*bs + r.
+                    offsets = (np.arange(k)[:, None] * (procs * bs) + p * bs
+                               + np.arange(bs)[None, :]).reshape(-1)
+                    self._note_shipped(srcs, start, offsets, procs * k * bs)
+                    moved += k * bs
+                    remaining -= k
+                if force and m % bs:
+                    # The remainder as counted (rows staged since belong to a
+                    # later beat), padded by repetition to one block.
+                    take = min(count - moved, bs) if self._pod_lead else 0
+                    rows, srcs = self._pop_local(take)
+                    reps = -(-bs // max(take, 1))
+                    block = (np.tile(rows, (reps, 1))[:bs] if take
+                             else np.zeros((bs, self.width), np.float32))
+                    t0 = time.perf_counter()
+                    start = self._ship_global(block, 1)
+                    self._stats.record_ship(take, 1, time.perf_counter() - t0)
+                    if srcs is not None and take:
+                        self._note_shipped(np.tile(srcs, reps)[:bs], start,
+                                           p * bs + np.arange(bs), procs * bs)
+                    moved += take
+        return moved
+
+    def _pop_local(self, n: int):
+        """n staged rows and their tags off this node's ring (a rank that is
+        not its node's lead stages nothing and sends zeros)."""
+        if not self._pod_lead or n == 0:
+            return np.zeros((n, self.width), np.float32), None
+        with self._staging:
+            rows = self._ring.pop(n)
+            srcs = self._pop_sources_locked(n)
+            self._staging.notify_all()
+        return rows, srcs
+
+    def _ship_global(self, local_rows: np.ndarray, k: int = 1) -> int:
+        """Gather every node's k blocks (multihost.allgather_rows) and land
+        them at ptr in the JAX package's interleave: node p's block j, row
+        r at ptr + j*(procs*bs) + p*bs + r. Returns the ptr it wrote at.
+        The caller holds dispatch_lock."""
+        from distributed_ddpg_tpu_torch.parallel import multihost
+
+        bs, procs = self.block_size, self._procs
+        gathered = multihost.allgather_rows(local_rows)        # [procs, k*bs, W]
+        block = np.ascontiguousarray(
+            gathered.reshape(procs, k, bs, self.width).transpose(1, 0, 2, 3)
+            .reshape(k * procs * bs, self.width))
+        start = self.ptr
+        self._ship(block)
+        return start
 
     def _ship(self, rows: np.ndarray) -> None:
         """Write rows at ptr, ptr+1, ... mod capacity (len(rows) <=
@@ -630,7 +795,8 @@ class DeviceReplay:
 
     def reward_sample(self, max_n: int = 100_000):
         """(reward, discount) columns of up to max_n filled rows, pulled to
-        the host, then the staged rows not yet shipped (up to max_n more):
+        the host, then (one node) the staged rows not yet shipped (up to
+        max_n more):
         what the C51 auto support is sized from (ops/support_auto.py;
         discount == 0 marks the terminal rows). A ring fuller than max_n is
         read at an even stride over its live rows, not as a stale prefix."""
@@ -644,8 +810,11 @@ class DeviceReplay:
                 cols = self.storage[idx.to(self.device), col:col + 2]
             cols = cols.cpu().numpy()
             # Still under the lock: no ship moves rows between the two reads.
+            # On a pod only the shipped rows: every rank must size the same
+            # support from the same (replicated) rows.
             with self._staging:
-                pend = self._ring.peek_cols(col, 2, int(max_n))
+                pend = (self._ring.peek_cols(col, 2, int(max_n)) if self._procs == 1
+                        else cols[:0])
         if len(pend):
             cols = np.concatenate([cols, pend])
         return cols[:, 0], cols[:, 1]

@@ -44,7 +44,7 @@ of its own, sha256(seed, tenant, request_id), drawn with numpy: the same
 request samples the same action on any backend and in any process.
 
 Not here: the tensor-parallel apply (`mesh=`), which needs model_axis
-(ROADMAP.md Queue 1 item 10), and the JAX package's program_specs hook of
+(ROADMAP.md Queue 1 item 10, its data-plane half), and the JAX package's program_specs hook of
 its program-contract analyzer (item 13).
 """
 
@@ -95,7 +95,7 @@ class InferenceServer:
             raise ValueError(
                 "mesh= (the tensor-parallel serve apply) is not in this slice of the "
                 "PyTorch port: it shards the apply over model_axis, which comes with "
-                "ROADMAP.md Queue 1 item 10"
+                "ROADMAP.md Queue 1 item 10 (its data-plane half)"
             )
         self.backend = backend
         self.layout = layout

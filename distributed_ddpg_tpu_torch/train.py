@@ -81,6 +81,38 @@ On D > 1 ranks every rank runs train() with its DataGroup, in lockstep:
 Under the CLI the D processes come from torchrun (NCCL, one card a rank):
     torchrun --nproc_per_node=D -m distributed_ddpg_tpu_torch.train --data_axis=D ...
 
+A pod (parallel/multihost.py): ranks of more than one node, as torchrun
+starts them under --nnodes=N (each node's ranks under one --node_rank),
+or tools/supervise.py --procs N (one rank a node, on one host); the
+DDPG_DIST_BACKEND variable names the backend (gloo lets the nodes share
+one card). The JAX trainer's multi-process path, mapped onto nodes:
+
+- the bootstrap: the pod deadline armed (configure_pod), the startup
+  barrier with pod_startup_grace_s, the clock handshake into the trace's
+  metadata; a peer lost here returns at once and main() exits 76;
+- each node's lead runs its node's actors and stages their rows; after
+  every chunk (and every turn of the warmup, whose beats are waited at
+  once and every 20th forced) the sync_ship beat gathers every node's
+  staged rows into every rank's replicated ring, in the background on
+  the transfer scheduler's lockstep lane with sync_ship_background, and
+  the next dispatch waits it (wait_beat); the nodes' env steps are
+  summed by a gather every 10th loop turn (the budget and PER's beta
+  read it); a node whose staging holds 8 blocks stops draining;
+- the resume is the election (elect_and_resume) over the checkpoint
+  directory and the node's proc<k> directory; rank 0 writes the cadence
+  checkpoints; the pod fault site (pod:<proc>:...) is armed at the
+  warmup's end; a PodAggregator gather on each 50-chunk cadence, and
+  node 0 logs the `pod` record; the pod_* fields ride every record;
+- a PodPeerLost anywhere (a beat's deadline, a transport error) takes
+  the coordinated abort: the scheduler's pending tickets fail, each
+  node's lead writes one emergency checkpoint (node k into proc<k>),
+  nothing touches the process group again, and main() exits 76 through
+  pod_degraded_exit (os._exit after node 0's linger). The first chunk's
+  kernel build and a support expansion grant the pod deadline
+  pod_startup_grace_s (_grant_all). A SIGTERM ends its own node's run
+  (exit 75) and its peers' through PodPeerLost (76). With one node none
+  of this runs.
+
 Checkpoint and resume (checkpoint.py), with --checkpoint_dir=DIR:
 
 - on start, with --resume=true (the default), the newest checkpoint under
@@ -272,6 +304,8 @@ Usage:
     python -m distributed_ddpg_tpu_torch.train --backend=jax_ondevice  # the monolith
     python -m distributed_ddpg_tpu_torch.train --serve_actors=true --serve_backend=jax \
         --num_actors=4                                             # served actors
+    DDPG_DIST_BACKEND=gloo python -m distributed_ddpg_tpu_torch.tools.supervise --procs 2 \
+        -- python -m distributed_ddpg_tpu_torch.train --checkpoint_dir=/tmp/pod  # a pod
 """
 
 from __future__ import annotations
@@ -292,8 +326,19 @@ from distributed_ddpg_tpu_torch.actors.pool import ActorPool
 from distributed_ddpg_tpu_torch.config import DDPGConfig
 from distributed_ddpg_tpu_torch.envs import make, spec_of
 from distributed_ddpg_tpu_torch import trace
-from distributed_ddpg_tpu_torch.exits import EXIT_NUMERIC, EXIT_PREEMPTED
-from distributed_ddpg_tpu_torch.metrics import GuardrailStats, MetricsLogger, PhaseTimers, Timer
+from distributed_ddpg_tpu_torch.exits import (
+    EXIT_NUMERIC,
+    EXIT_POD_DEGRADED,
+    EXIT_POD_SHRINK,
+    EXIT_PREEMPTED,
+)
+from distributed_ddpg_tpu_torch.metrics import (
+    GuardrailStats,
+    MetricsLogger,
+    PhaseTimers,
+    PodStats,
+    Timer,
+)
 from distributed_ddpg_tpu_torch.ops import support_auto
 from distributed_ddpg_tpu_torch.ops.noise import OUNoise
 from distributed_ddpg_tpu_torch.replay import make_replay
@@ -415,6 +460,61 @@ def resume(config: DDPGConfig, learner, replay, group=None,
     return step, env_steps, meta.get("v_bounds")
 
 
+def elect_and_resume(config: DDPGConfig, learner, replay, process_index: int, pod_stats,
+                     meta_out: Optional[Dict[str, Any]] = None
+                     ) -> Optional[Tuple[int, int, Optional[Tuple[float, float]]]]:
+    """A pod's coordinated resume (JAX train.py:848-890): every rank
+    gathers its node's valid checkpoint steps, those of the checkpoint
+    directory and of its own proc<k> directory (checkpoint.pod_dir, where
+    a pod abort left node k's emergency checkpoint), and restores the
+    greatest step every node holds (multihost.elect_resume_step), from
+    the directory that holds it. A collective: every rank calls it,
+    whatever it sees on disk. Returns what resume() returns, None when no
+    step is common (every node starts fresh)."""
+    from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
+    from distributed_ddpg_tpu_torch.parallel import multihost
+
+    main_steps = set(ckpt_lib.valid_steps(config.checkpoint_dir))
+    own_dir = ckpt_lib.pod_dir(config.checkpoint_dir, process_index)
+    own_steps = set(ckpt_lib.valid_steps(own_dir)) if own_dir != config.checkpoint_dir else set()
+    elected = multihost.elect_resume_step(main_steps | own_steps)
+    if elected < 0:
+        return None
+    meta: Dict[str, Any] = {}
+    resume_dir = config.checkpoint_dir if elected in main_steps else own_dir
+    state, step, env_steps = ckpt_lib.restore(resume_dir, learner.state, replay, step=elected,
+                                              config=config, meta_out=meta)
+    learner.load_state(state)
+    pod_stats.record_resume_elected(elected)
+    trace.instant("pod_resume_elected", step=elected)
+    print(f"[pod] resume election: step {elected} is the newest checkpoint valid on every "
+          f"node (from {resume_dir})", flush=True)
+    if meta_out is not None:
+        meta_out.update(meta)
+    return step, env_steps, meta.get("v_bounds")
+
+
+def pod_env_steps(offset: int, received) -> int:
+    """A pod's global env-step count: the resumed checkpoint's env steps
+    (`offset`, a global count) once, plus every node's pool's (`received`,
+    one a node). The JAX trainer sums each process's offset plus its pool's
+    count, so N processes count a resumed offset N times and a resumed pod
+    stops early; here it counts once (ROADMAP.md Queue 3)."""
+    return int(offset) + int(np.sum(received))
+
+
+def _pod_degraded_early(e: BaseException, pod_stats) -> Dict[str, Any]:
+    """A peer lost in the pod's bootstrap (the startup barrier, the clock
+    handshake), before the training stack exists: nothing to checkpoint,
+    but main() still exits 76 (JAX :529-554)."""
+    pod_stats.record_abort()
+    print(f"[train] pod peer lost during pod bootstrap: {e}; exiting {EXIT_POD_DEGRADED}",
+          file=sys.stderr, flush=True)
+    return {"learner_steps_per_sec": 0.0, "learner_steps": 0, "final_return": None,
+            "preempted": False, "pod_degraded": True, "pod_shrink_ready": False,
+            **pod_stats.snapshot()}
+
+
 def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     """Trains with `config` and returns the run's summary. With `group` (a
     parallel/mesh.DataGroup of D ranks) every rank calls this: rank 0 runs
@@ -495,7 +595,8 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
     from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
     from distributed_ddpg_tpu_torch.native import NativeSumTree
     from distributed_ddpg_tpu_torch.obs import health
-    from distributed_ddpg_tpu_torch.parallel import mesh
+    from distributed_ddpg_tpu_torch.obs import PodAggregator
+    from distributed_ddpg_tpu_torch.parallel import mesh, multihost
     from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, resolve_learner_chunk
     from distributed_ddpg_tpu_torch.parallel.megastep import FusedMegastep, fused_beat_active
     from distributed_ddpg_tpu_torch.parallel.prefetch import ChunkPrefetcher
@@ -504,6 +605,11 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
     from distributed_ddpg_tpu_torch.transfer import TransferScheduler
 
     lead = group is None or group.lead
+    # The pod (parallel/multihost.py): more than one node. Each node's lead
+    # runs its node's actors; with one node rank 0 runs them all.
+    is_multi = group is not None and bool(getattr(group, "is_pod", False))
+    actor_host = group is None or (group.node_lead if is_multi else group.lead)
+    proc_idx = group.process_index if is_multi else 0
     env = make(config.env_id, seed=config.seed)
     spec = spec_of(env)
     chunk = resolve_learner_chunk(config)
@@ -514,6 +620,39 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
     obs_server = None
     fault_plan = config.fault_plan()
     ckpt_fault = fault_plan.site("ckpt", "write") if fault_plan else None
+    pod_stats = PodStats(seed=config.seed)
+    pod_lost: Optional[BaseException] = None
+    if is_multi:
+        # The pod's bootstrap (JAX :506-590): arm the collective deadline,
+        # then the one-time barrier with its own grace, then the clock
+        # handshake, all before anything else talks to the peers.
+        multihost.use_group(group)
+        multihost.configure_pod(config.pod_collective_timeout_s, stats=pod_stats)
+        try:
+            multihost.startup_barrier(config.pod_startup_grace_s)
+            clocks = multihost.clock_handshake()
+            if clocks is not None:
+                trace.set_meta(process_index=proc_idx, process_count=group.process_count,
+                               clock_offset_ms=clocks["offset_ms"][proc_idx],
+                               pod_wall_ms=clocks["wall_ms"])
+        except multihost.PodPeerLost as e:
+            multihost.configure_pod(0.0)
+            return _pod_degraded_early(e, pod_stats)
+
+    def _grant_all(extra_s: float) -> None:
+        """Extend both stall detectors across a known-long window (the
+        first chunk's kernel build, a support expansion): the watchdog by
+        extra_s, the pod deadline by pod_startup_grace_s (only the build's
+        skew between nodes can delay a pod collective, so the worst-case
+        detection stays deadline + grace). _grant_all(0) ends both, once
+        the window's chunk has run."""
+        _grant(extra_s)
+        if is_multi:
+            if extra_s > 0:
+                multihost.grant(config.pod_startup_grace_s)
+            else:
+                multihost.end_grant()
+
     learner = ShardedLearner(
         config, spec.obs_dim, spec.act_dim, spec.action_scale,
         spec.action_offset, chunk_size=chunk, group=group,
@@ -525,24 +664,29 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         raise ValueError(
             f"host_replay=True on {learner.data_size} ranks is not in this slice of the "
             "PyTorch port: a host replay a rank under the lockstep driver comes with "
-            "ROADMAP.md Queue 1 item 10; run the host replay on one rank")
+            "ROADMAP.md Queue 1 item 10 (its data-plane half); run the host replay on "
+            "one rank")
     if config.serve_actors and learner.data_size > 1:
         raise ValueError(
             f"serve_actors=True on {learner.data_size} ranks is not in this slice of the "
             "PyTorch port: serving beside a data-parallel learner comes with ROADMAP.md "
-            "Queue 1 item 10; serve on one rank")
+            "Queue 1 item 10 (its data-plane half); serve on one rank")
     device_actors = config.actor_backend == "device"
     if device_actors and learner.data_size > 1:
         raise ValueError(
             f"actor_backend='device' on {learner.data_size} ranks is not in this slice of "
             "the PyTorch port: the rollout over a data-parallel group comes with "
-            "ROADMAP.md Queue 1 item 10; run the device actors on one rank")
+            "ROADMAP.md Queue 1 item 10 (its data-plane half); run the device actors on "
+            "one rank")
     # After every check that can refuse the run, so a refusal leaks no
     # dispatch thread; closed after the replay (teardown below). Off under
     # strict_sync: its dispatch timing would make the records depend on
     # the host's scheduling (and with it the adaptive cap and the pool).
+    # On a pod its lockstep lane carries the background beats, each under
+    # the pod deadline.
     transfer_sched = (
-        TransferScheduler(fault=fault_plan.site("transfer", "dispatch") if fault_plan else None)
+        TransferScheduler(fault=fault_plan.site("transfer", "dispatch") if fault_plan else None,
+                          lockstep_timeout_s=config.pod_collective_timeout_s if is_multi else 0.0)
         .start() if config.transfer_scheduler and not strict else None)
     # A shipping thread would make the time an insert lands, relative to
     # the next chunk's draw, depend on each rank's host: the replicas would
@@ -571,6 +715,8 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         host_pool=transfer_sched is not None and config.transfer_host_pool,
         track_sources=track_sources,
         fault=fault_plan.site("shipper", "ship") if fault_plan else None,
+        pod=group if is_multi else None,
+        background_sync=config.sync_ship_background,
     )
     try:
         if host_replay:
@@ -664,8 +810,45 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
     def mesh_fields() -> Dict[str, Any]:
         if learner.data_size == 1:
             return {}
-        return dict(data_axis=learner.data_size, global_batch=learner.global_batch,
-                    route=learner.route(per=config.prioritized))
+        out = dict(data_axis=learner.data_size, global_batch=learner.global_batch,
+                   route=learner.route(per=config.prioritized))
+        if is_multi:
+            out.update(process_index=proc_idx, process_count=group.process_count)
+        return out
+
+    def pod_fields() -> Dict[str, Any]:
+        """The pod_* counters (metrics.PodStats) of every train and final
+        record on a pod; none on one node."""
+        return pod_stats.snapshot() if is_multi else {}
+
+    # --- the pod's beats (JAX :1340-1373) ---
+    # With the scheduler on a pod the sync_ship beat after each chunk is a
+    # background item of the lockstep lane, and the loop waits it before
+    # its next collective (wait_beat). The warmup and a forced beat wait at
+    # once: the warmup's loop reads the replicated fill, which every rank
+    # must see after the same beat.
+    bg_sync = transfer_sched is not None and is_multi and config.sync_ship_background
+    pending_beat = [None]
+    # The global env-step count of a pod, gathered every 10th loop turn.
+    cached_global = [0]
+
+    def wait_beat() -> None:
+        """Resolve the outstanding background beat, if any, within
+        multihost.beat_result_timeout_s (a PodPeerLost past it)."""
+        t = pending_beat[0]
+        if t is not None:
+            pending_beat[0] = None
+            with phases.phase("sync_ship_wait"):
+                multihost.wait_beat_ticket(t)
+
+    def ordered(fn, label: str):
+        """A pod collective of the training loop's: on the lockstep lane behind the
+        queued beats when they run in the background (one collective order
+        on every rank), else here."""
+        if bg_sync:
+            return multihost.wait_beat_ticket(
+                transfer_sched.submit("lockstep", fn, label=label), label=label)
+        return fn()
 
     def data_bounds():
         return support_auto.replay_data_bounds(replay, config.gamma, config.n_step)
@@ -705,21 +888,41 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
     pool = None
     serve_server = serve_front = front_server = None
 
+    def received() -> int:
+        """Env steps this rank's host pool delivered (none without one)."""
+        return pool.steps_received if pool is not None else 0
+
     def local_env_steps() -> int:
         """Env steps of this rank's sources: the host pool's, the device
         actors', and the resumed checkpoint's."""
-        return (env_offset + pool.steps_received
+        return (env_offset + received()
                 + (device_pool.steps_done if device_pool is not None else 0))
 
     def env_steps() -> int:
-        """The global env-step count, as rank 0's sources have it (with the
-        resumed checkpoint's), shared; rank 0's SIGTERM flag rides the
-        same share and latches `stopping` on every rank at once."""
+        """The global env-step count. One node: as rank 0's sources have
+        it (with the resumed checkpoint's), shared; rank 0's SIGTERM flag
+        rides the same share and latches `stopping` on every rank at once.
+        A pod: the last gathered count (global_env_steps, every 10th loop
+        turn), and each node's own SIGTERM (JAX: a node that leaves ends
+        its peers' run through PodPeerLost)."""
         nonlocal stopping
+        if is_multi:
+            stopping = stopping or preempt.is_set()
+            return cached_global[0]
         n, flag = mesh.share([local_env_steps(), float(preempt.is_set())]
                              if lead else [0, 0.0], group)
         stopping = stopping or bool(flag)
         return int(n)
+
+    def global_env_steps() -> int:
+        """A pod's global env-step count (pod_env_steps), all-gathered so
+        every rank sees the same number: the loop's stop test and PER's
+        beta read it."""
+        def gather() -> int:
+            return pod_env_steps(env_offset, multihost.allgather_scalar(np.int64(received())))
+
+        cached_global[0] = ordered(gather, "env_steps_allgather")
+        return cached_global[0]
 
     def drain_budget() -> Optional[int]:
         """The rows max_ingest_ratio lets this drain take (None = all):
@@ -775,7 +978,12 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
 
     def ingest_rows() -> int:
         rows, pairs = None, []
-        if lead:
+        if is_multi and replay.pending_rows >= 8 * replay.block_size:
+            # Backpressure (JAX :1724-1732): a beat ships the nodes' common
+            # minimum, so a node whose actors outpace the slowest would
+            # stage without bound; it stops draining and its workers block.
+            return 0
+        if actor_host:
             budget = drain_budget()
             if budget is None or budget > 0:
                 pairs = pool.drain_batches(max_rows=budget, with_sources=True)
@@ -794,11 +1002,28 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                 insert(packed, source=wid)
                 moved += len(packed)
         else:
-            rows = mesh.share_rows(rows, width, group)
+            if not is_multi:
+                # One node: rank 0's rows on every rank. A pod's rows leave
+                # the node by the beat (ingest_once).
+                rows = mesh.share_rows(rows, width, group)
             moved = 0 if rows is None else len(rows)
             if moved:
                 insert(rows)
         env_timer.tick(moved)
+        return moved
+
+    def ingest_once(force_ship: bool = False, sync_wait: bool = True) -> int:
+        """A pod's ingest beat (JAX ingest_once): drain this node's actors
+        into the staging ring, then the sync_ship beat that every rank
+        issues at the same point; in the background (sync_wait=False,
+        bg_sync) it is left pending for wait_beat. One beat at most is
+        ever outstanding."""
+        moved = ingest()
+        wait_beat()
+        if bg_sync and not sync_wait and not force_ship:
+            pending_beat[0] = replay.sync_ship_begin()
+        else:
+            replay.sync_ship(force=force_ship)
         return moved
 
     def evaluate(at_step: int) -> float:
@@ -813,25 +1038,30 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
 
     def monitor() -> None:
         nonlocal last_monitor_t
-        if lead and time.monotonic() - last_monitor_t >= 1.0:
+        if actor_host and time.monotonic() - last_monitor_t >= 1.0:
             last_monitor_t = time.monotonic()
             pool.monitor()
 
     def emergency_checkpoint() -> int:
-        """After SIGTERM: land the write in flight (its failure does not
-        cost this save), then rank 0 writes this step unless the cadence
-        has just written it. Returns emergency_ckpt's value."""
+        """After SIGTERM or a pod abort: land the write in flight (its
+        failure does not cost this save), then rank 0 writes this step
+        unless the cadence has just written it; on a pod abort every
+        surviving node's lead writes one, node k into its proc<k>
+        directory (checkpoint.pod_dir), so a relaunched pod can elect a
+        common step even where each node keeps its own disk. Returns
+        emergency_ckpt's value."""
         try:
             saver.wait()
         except Exception as e:
             print(f"[train] in-flight checkpoint write failed during preemption ({e!r}); "
                   "writing the emergency checkpoint anyway", file=sys.stderr, flush=True)
             saver.errors.clear()
-        if not (config.checkpoint_dir and lead):
+        if not (config.checkpoint_dir and (lead or (pod_lost is not None and actor_host))):
             return 0
-        if ckpt_lib.latest_step(config.checkpoint_dir) != learn_steps:
+        my_dir = ckpt_lib.pod_dir(config.checkpoint_dir, proc_idx)
+        if ckpt_lib.latest_step(my_dir) != learn_steps:
             with phases.phase("ckpt"):
-                ckpt_lib.save(config.checkpoint_dir, learn_steps, learner.state, replay, config,
+                ckpt_lib.save(my_dir, learn_steps, learner.state, replay, config,
                               env_steps=n_env, v_bounds=auto_bounds(),
                               keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
                               backoff_s=config.ckpt_retry_backoff_s,
@@ -1001,9 +1231,12 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
     ingest_chunk_s = 0.0              # the driver's time in ingest while chunks ran
     ingest_max_s = 0.0
     ingest_calls = 0
+    bootstrapped = False              # past the resume: an abort writes a checkpoint
     try:
         if config.resume and config.checkpoint_dir:
-            restored = resume(config, learner, replay, group, meta_out=resume_meta)
+            restored = (elect_and_resume(config, learner, replay, proc_idx, pod_stats,
+                                         meta_out=resume_meta) if is_multi
+                        else resume(config, learner, replay, group, meta_out=resume_meta))
             if restored is not None:
                 learn_steps, env_offset, bounds = restored
                 resumed_from, n_env = learn_steps, env_offset
@@ -1012,7 +1245,9 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                     log.log("support", env_offset, reason="checkpoint", **support_fields())
                 print(f"resumed from {config.checkpoint_dir} at learner step {learn_steps}, "
                       f"env step {env_offset}", flush=True)
-        if lead:
+        bootstrapped = True
+        cached_global[0] = n_env
+        if actor_host:
             # strict_sync: inline deterministic actors, the same surface.
             pool = (SyncActorPool if strict else ActorPool)(config, spec,
                                                             env_steps_offset=env_offset)
@@ -1021,7 +1256,7 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                     config, spec, pool, transfer_sched, learner.actor_params_to_host())
             pool.start(learner.actor_params_to_host())
             _beat()   # the first params d2h survived
-            obs_server = start_exporter(config, log, preempt)
+            obs_server = start_exporter(config, log, preempt, group)
             if serve_server is not None:
                 # /healthz reads the serve queue as of the scrape.
                 health.get().register_probe("serve_overloaded", serve_server.overloaded)
@@ -1062,10 +1297,21 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                     "stall; aborting instead of burning the wall-clock budget")
 
         last_monitor_t = time.monotonic()
-        while len(replay) < min_fill:
-            moved = ingest() + devactor_step()
+        warm_it = 0
+        while len(replay) < min_fill and not (is_multi and preempt.is_set()):
+            if is_multi:
+                # The pod's lockstep warmup (JAX :2254-2290): the test above
+                # reads the replicated fill, so every rank takes the same
+                # beats, each waited at once; every 20th pads a block from
+                # the remainders, so slow actors still cross the threshold.
+                fill = len(replay)
+                moved = ingest_once(force_ship=warm_it % 20 == 19) + len(replay) - fill
+                warm_it += 1
+            else:
+                moved = ingest() + devactor_step()
             _beat()
-            if not host_replay and len(replay) + replay.pending_rows >= min_fill:
+            if (not is_multi and not host_replay
+                    and len(replay) + replay.pending_rows >= min_fill):
                 replay.flush()
             monitor()
             if moved:
@@ -1074,6 +1320,17 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                 check_actor_stall("warmup")
                 time.sleep(0.01)
         trace.instant("warmup_done", buffer_fill=len(replay))
+        if is_multi and fault_plan:
+            # Armed at the warmup's end, a point every node reaches at the
+            # same beat, so `@K` counts steady-state beats (JAX :2295-2302).
+            replay.arm_pod_fault(fault_plan.pod_site(proc_idx))
+        pod_agg = None
+        if is_multi:
+            # Each cadence every node's snapshot goes into one gather and
+            # node 0 logs the `pod` record (JAX :1886-1893).
+            pod_agg = PodAggregator(
+                gather_fn=lambda vec: multihost.allgather_scalar(vec, label="pod_obs_gather"),
+                stats=pod_stats)
 
         if config.distributional and learner.config.v_support_auto:
             # C51 auto support: [v_min, v_max] from the warmup replay's
@@ -1103,12 +1360,19 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         # The first chunk builds the kernels with nvcc at their first
         # launch (minutes on a cold build): an allowance, so a slow build is
         # not killed as a stall, ended once that chunk has run (granted).
-        _grant(max(300.0, 2.0 * config.watchdog_s))
+        _grant_all(max(300.0, 2.0 * config.watchdog_s))
         granted = True
+        it = 0
         with _profiled(config, device):
             while True:
                 _beat()
                 monitor()
+                if is_multi and it % 10 == 0:
+                    # A pod's global budget, every 10th turn: the cadence is
+                    # the same on every rank, and the loop pays one gather
+                    # a 10 chunks (JAX :2363-2373).
+                    global_env_steps()
+                it += 1
                 n_env = env_steps()
                 if stopping or n_env >= config.total_env_steps and learn_steps > 0:
                     trace.instant("budget_met", env_steps=n_env, learn_steps=learn_steps)
@@ -1126,9 +1390,13 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                 ):
                     # Learner-rate cap: ingest instead of dispatching until env
                     # steps catch up with the allowance.
-                    if not ingest() + devactor_step():
+                    if not (ingest_once(sync_wait=False) if is_multi
+                            else ingest() + devactor_step()):
                         time.sleep(0.002)
                     continue
+                # A pod's dispatch gate: the last beat has landed on every
+                # rank before this rank's next collective.
+                wait_beat()
                 if host_replay:
                     t_wait = time.perf_counter()
                     with phases.phase("sample_wait"):
@@ -1183,7 +1451,21 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                 # strict_sync one drain a chunk (it takes the whole ratio
                 # budget), so the records do not depend on the chunk's time.
                 drained = False
-                while True:
+                while is_multi:
+                    # A pod: each rank polls its own chunk's end (every rank
+                    # runs the same chunks, so no collective decides it),
+                    # staging its node's rows meanwhile, then the beat.
+                    if learner.chunk_done():
+                        t_ingest = time.perf_counter()
+                        ingest_once(sync_wait=False)
+                        t_ingest = time.perf_counter() - t_ingest
+                        ingest_chunk_s += t_ingest
+                        ingest_max_s = max(ingest_max_s, t_ingest)
+                        ingest_calls += 1
+                        break
+                    if not ingest():
+                        time.sleep(0.0005)
+                while not is_multi:
                     done = learner.chunk_done()
                     moved = 0
                     if not (strict and drained):
@@ -1200,7 +1482,7 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                     if done:
                         break
                 if granted:
-                    _grant(0.0)   # the chunk the allowance covered has run
+                    _grant_all(0.0)   # the chunk the allowance covered has run
                     granted = False
                 n_env = env_steps()
                 if guard_on and guardrail_monitor():
@@ -1226,7 +1508,7 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                 # the log: they would make which params act and which chunks log
                 # depend on the host's timing.
                 now = time.perf_counter()
-                if lead and learn_steps >= next_refresh and (
+                if actor_host and learn_steps >= next_refresh and (
                     strict or now - last_refresh_t >= config.param_refresh_interval_s
                 ):
                     with phases.phase("refresh"):
@@ -1238,12 +1520,15 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                 on_fifty = prev_chunks // 50 != chunks // 50
                 if config.distributional and config.v_support_auto and on_fifty:
                     # Running expansion: mean_q near an edge of the support, and
-                    # the replay's current rewards corroborate a wider one.
+                    # the replay's current rewards corroborate a wider one. On
+                    # a pod the last beat lands first, so every rank reads the
+                    # same replicated rows.
+                    wait_beat()
                     with phases.phase("sync"):
                         grown = expand_support(learner, support_controller, out, learn_steps,
                                                data_bounds, group)
                     if grown is not None:
-                        _grant(max(300.0, 2.0 * config.watchdog_s))
+                        _grant_all(max(300.0, 2.0 * config.watchdog_s))
                         granted = True
                         log.log("support", n_env, reason="expanded", mean_q=grown["mean_q"],
                                 **support_fields())
@@ -1253,6 +1538,21 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                     # Re-sampled every cadence: a lifted quarantine takes
                     # /healthz back to healthy.
                     health.get().note("guardrail_quarantine", gstats.source_quarantines > 0)
+                if on_cadence and pod_agg is not None:
+                    # The pod's aggregation gather, gated on the cadence alone
+                    # (the same on every rank), never on a node's clock.
+                    health.get().note("pod_state_degraded", pod_stats.degraded)
+
+                    def pod_collect():
+                        return pod_agg.collect(
+                            beats=learn_steps // chunk, ingest_rows=received(),
+                            transfer_backlog=(sum(transfer_sched.queue_depths().values())
+                                              if transfer_sched is not None else 0))
+
+                    with phases.phase("pod_obs"):
+                        pod_record = ordered(pod_collect, "pod_obs_allgather")
+                    if pod_record is not None and lead:
+                        log.log("pod", n_env, **pod_record)
                 if lead and on_cadence and (strict or now - last_log_t >= 1.0):
                     last_log_t = now
                     episodes = pool.episode_stats()
@@ -1278,6 +1578,7 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                         **devactor_fields(),
                         **fused_fields(),
                         **serve_fields(),
+                        **pod_fields(),
                     )
                 if lead and config.eval_every and n_env - last_eval >= config.eval_every:
                     last_eval = n_env
@@ -1302,8 +1603,48 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                 print(f"[train] SIGTERM: the running chunk finished; exiting {EXIT_PREEMPTED} "
                       "(resumable)", file=sys.stderr, flush=True)
             emergency_ckpt = emergency_checkpoint()
+    except multihost.PodPeerLost as e:
+        # The coordinated clean abort (JAX :2511-2560): a peer node died or
+        # hung in a pod collective, and any further collective would block
+        # or fork the pod. This node fails the scheduler's pending tickets
+        # (a queued beat must never fire against a degraded pod), writes
+        # one emergency checkpoint and leaves; main() exits 76 without
+        # touching the process group again, and the relaunched pod's
+        # election restores one common step everywhere.
+        pod_lost = e
+        pod_stats.record_abort()
+        preempt.set()
+        stopping = True
+        _grant_all(max(300.0, 2.0 * config.watchdog_s))
+        trace.instant("pod_abort", step=learn_steps)
+        print(f"[train] pod peer lost at {time.time():.6f}: {e}; coordinated clean abort: "
+              f"draining transfers, emergency checkpoint, exit {EXIT_POD_DEGRADED}",
+              file=sys.stderr, flush=True)
+        # The outstanding beat's ticket failed (or is failing) under the
+        # same deadline: never waited again.
+        pending_beat[0] = None
+        rate, env_rate = learn_timer.rate(), env_timer.rate()
+        if prefetch is not None:
+            prefetch.stop()
+        if transfer_sched is not None:
+            transfer_sched.close()
+        if bootstrapped:
+            emergency_ckpt = emergency_checkpoint()
     finally:
         _beat()   # each teardown stage gets a fresh allowance
+        try:
+            # A pod lands its outstanding beat (every rank issued the same
+            # beats, so every rank waits here) before the machinery under
+            # it goes.
+            wait_beat()
+        except multihost.PodPeerLost as e:
+            # A peer left between the loop's last gate and here: the exit
+            # still says 76.
+            if pod_lost is None:
+                pod_lost = e
+                pod_stats.record_abort()
+        except Exception:
+            pass   # a failing beat must not mask the error in flight
         if prefetch is not None:
             prefetch.stop()
         if pool is not None:
@@ -1329,9 +1670,14 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
             signal.signal(signal.SIGTERM, prev_sigterm)
         _beat()
         if obs_server is not None and not preempt.is_set():
-            # A preempted run keeps answering /healthz (draining) up to
-            # its exit; the server's thread is a daemon.
+            # A preempted or aborted run keeps answering /healthz
+            # (draining, with the abort's reasons) up to its exit; the
+            # server's thread is a daemon.
             obs_server.stop()
+        if is_multi:
+            # Disarmed: a later run in this interpreter on one node keeps
+            # the direct path.
+            multihost.configure_pod(0.0)
     saver.wait()   # a failed cadence write raises here
     _beat()
 
@@ -1339,7 +1685,7 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
     if config.prioritized:   # the run's one read of the max priority
         metrics["max_priority"] = float(replay.max_priority)
     replica = {}
-    if learner.data_size > 1:
+    if learner.data_size > 1 and pod_lost is None:
         # Every rank's state (and PER's priorities) against rank 0's, bit
         # for bit: the replicas must not have drifted apart.
         from distributed_ddpg_tpu_torch.parallel.learner import state_tensors
@@ -1396,6 +1742,7 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         **guardrail_fields(),
         **recovery_fields(),
         **serve_final,
+        **pod_fields(),
     )
     log.close()
     return {
@@ -1421,7 +1768,12 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         **mesh_fields(),
         **replica,
         **ckpt_fields(),
-        "preempted": stopping,
+        # A pod abort takes the preemption's path but is its own exit (76,
+        # not 75): exactly one of the two is reported.
+        "preempted": stopping and pod_lost is None,
+        "pod_degraded": pod_lost is not None,
+        "pod_shrink_ready": False,
+        **pod_fields(),
         "numeric_failed": numeric_failed,
         **guardrail_fields(),
         **recovery_fields(),
@@ -1430,21 +1782,27 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
     }
 
 
-def start_exporter(config: DDPGConfig, log: MetricsLogger, preempt: threading.Event):
+def start_exporter(config: DDPGConfig, log: MetricsLogger, preempt: threading.Event,
+                   group=None):
     """The telemetry ingress of --obs_port (JAX train.py:1221-1252): /metrics
     from the logger's latest record of each kind and the run's counters,
     /healthz from obs/health.py, /trace into trace_dir. None when off. A
     bind failure (the port taken) is said on stderr and leaves the run
-    without it: telemetry never kills the run it observes."""
+    without it: telemetry never kills the run it observes. On a pod each
+    node's lead serves one, node k on obs_port + k (the supervisor's
+    --probe-port-base convention: slot i at base + i), so nodes that
+    share a host do not collide."""
     from distributed_ddpg_tpu_torch.obs import ObsExporter, health
 
     if config.obs_port <= 0:
         return None
+    index = group.process_index if group is not None and group.is_pod else 0
+    count = group.process_count if group is not None and group.is_pod else 1
     try:
         server = ObsExporter(
-            config.obs_port, health=health.get(), latest_fn=log.latest,
-            counters_fn=lambda: {"t_unix_base": log.t_unix_base, "process_index": 0,
-                                 "process_count": 1, "preempt": int(preempt.is_set())},
+            config.obs_port + index, health=health.get(), latest_fn=log.latest,
+            counters_fn=lambda: {"t_unix_base": log.t_unix_base, "process_index": index,
+                                 "process_count": count, "preempt": int(preempt.is_set())},
             trace_dir=config.trace_dir or config.checkpoint_dir or ".",
         ).start()
     except OSError as e:
@@ -1596,7 +1954,7 @@ def train_ondevice(config: DDPGConfig, echo: bool = True, group=None) -> Dict[st
     policy every eval_every env steps (0 = the final eval only); a `train`
     record is written whenever the env steps cross a multiple of ten
     chunks' worth (a crossing, so a superstep that jumps over one still
-    logs). One rank (ROADMAP.md Queue 1 item 10). --profile_dir and
+    logs). One rank (ROADMAP.md Queue 1 item 10, its data-plane half). --profile_dir and
     --tb_dir apply as in train()."""
     from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
     from distributed_ddpg_tpu_torch.envs.registry import EnvSpec
@@ -1606,7 +1964,7 @@ def train_ondevice(config: DDPGConfig, echo: bool = True, group=None) -> Dict[st
         raise ValueError(
             f"backend='jax_ondevice' on {group.world_size} ranks is not in this slice of "
             "the PyTorch port: the monolith over a data-parallel group comes with "
-            "ROADMAP.md Queue 1 item 10; run it on one rank")
+            "ROADMAP.md Queue 1 item 10 (its data-plane half); run it on one rank")
     trainer = OnDeviceDDPG(config)
     log = MetricsLogger(config.log_path, echo=echo, tb_dir=config.tb_dir)
 
@@ -1692,23 +2050,70 @@ def train_ondevice(config: DDPGConfig, echo: bool = True, group=None) -> Dict[st
     }
 
 
+def pod_degraded_exit(linger_s: float = 10.0, code: int = EXIT_POD_DEGRADED) -> None:
+    """Exit `code` the safe way after a pod abort (train() returned
+    pod_degraded=True; the emergency checkpoint and the logs have landed),
+    as the JAX trainer's pod_degraded_exit does: os._exit, not sys.exit,
+    because the abandoned collective's thread is still blocked in the
+    transport, and an ordinary interpreter teardown (or
+    destroy_process_group) would wait on, or die under, the dead peer.
+
+    Node 0 lingers first (linger_s): it hosts the process group's store,
+    and its exit would cut the surviving peers off while they still write
+    their own emergency checkpoints. /healthz reads `draining` meanwhile."""
+    drain_for_pod_exit(code)
+    try:
+        from distributed_ddpg_tpu_torch.parallel import multihost
+
+        if multihost.process_count() > 1 and multihost.process_index() == 0:
+            time.sleep(linger_s)
+    except Exception:
+        pass
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def drain_for_pod_exit(code: int = EXIT_POD_DEGRADED) -> None:
+    """Latch /healthz into `draining`, carrying the pod abort's verdict: the
+    exporter, left serving through the linger, answers a supervisor's
+    scrape with "winding down, and this is why" (the degraded reasons,
+    pod_peer_lost among them). drain() is first-wins, so a SIGTERM that
+    latched `preempted` first keeps its reason (JAX train.py:2736)."""
+    try:
+        from distributed_ddpg_tpu_torch.obs import health
+
+        _state, reasons = health.get().state()
+        health.get().drain("; ".join(reasons) if reasons else f"pod abort (exit {code})")
+    except Exception:
+        pass   # diagnostics never block the documented exit
+
+
 def main(argv=None) -> None:
     config = DDPGConfig.from_flags(argv if argv is not None else sys.argv[1:])
-    group = None
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        # Under torchrun: one rank a card over NCCL (gloo on the CPU).
-        from distributed_ddpg_tpu_torch.parallel.mesh import init_data_group
+    # Under torchrun (or tools/supervise.py): the process group its
+    # environment names, DDPG_DIST_BACKEND's backend (parallel/multihost.py).
+    from distributed_ddpg_tpu_torch.parallel import multihost
 
-        group = init_data_group("nccl" if config.device == "cuda" else "gloo")
+    group = multihost.initialize(config.device, config.pod_collective_timeout_s,
+                                 config.pod_startup_grace_s)
+    summary: Dict[str, Any] = {}
     try:
         summary = train(config, group=group)
     finally:
-        if group is not None:
+        # Never after a pod abort: the dead peer would hold it.
+        if group is not None and not summary.get("pod_degraded"):
             import torch.distributed as dist
 
             dist.destroy_process_group()
-    if group is None or group.lead:
-        print({k: round(v, 3) if isinstance(v, float) else v for k, v in summary.items()})
+    if group is None or group.lead or (group.is_pod and group.node_lead):
+        print({k: round(v, 3) if isinstance(v, float) else v for k, v in summary.items()},
+              flush=True)
+    if summary.get("pod_degraded"):
+        # A peer node was lost: relaunch the whole pod with the same
+        # directories; the resume election picks the common step.
+        pod_degraded_exit(code=EXIT_POD_SHRINK if summary.get("pod_shrink_ready")
+                          else EXIT_POD_DEGRADED)
     if summary.get("numeric_failed"):
         # The guardrails could not repair a sustained divergence: read the
         # guardrail_* counters before spending more on this config.

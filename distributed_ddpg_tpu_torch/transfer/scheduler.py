@@ -18,10 +18,15 @@ queuing by bytes (a virtual time a class, advanced by bytes / weight): an
 item of one class waits at most about one in-flight item of another, and
 a class that was idle re-enters at the current virtual time, so it cannot
 bank credit. In the port the device replay's ships are submitted as
-ingest items and the host replay's chunk copies (parallel/prefetch.py)
-as prefetch items; the lockstep lane's user (a pod's background ingest
-beats) comes with a later slice, the JAX package's sharded-replay
-`shard_exchange` class and its pod deadline with it.
+ingest items, the host replay's chunk copies (parallel/prefetch.py) as
+prefetch items, and a pod's background sync_ship beats and its ordered
+gathers (train.py run_ordered) as lockstep items. With
+`lockstep_timeout_s` > 0 (a pod: the pod deadline) every lockstep item
+runs under parallel/multihost.call_with_deadline, so a beat whose peer
+died fails its ticket with PodPeerLost at the deadline instead of
+wedging the lane, and the lane goes on serving. The JAX package's
+sharded-replay `shard_exchange` class comes with the data-plane half of
+ROADMAP.md Queue 1 item 10.
 
 Failures: an exception thrown by a work item lands in its ticket (the
 submitter's problem; the replay turns it into its bounded-restart and
@@ -115,11 +120,15 @@ class TransferScheduler:
         fault=None,
         max_restarts: int = 3,
         weights: Optional[Dict[str, float]] = None,
+        lockstep_timeout_s: float = 0.0,
     ):
         self.stats = stats or TransferStats()
         # Any object with a tick() (the JAX package's FaultSite interface),
         # ticked once a dequeued item, outside the item's own try.
         self._fault = fault
+        # The pod deadline of every lockstep item (see the module
+        # docstring); 0 = off, a direct call.
+        self._lockstep_timeout_s = float(lockstep_timeout_s)
         self._max_restarts = int(max_restarts)
         self.restarts = 0
         self._cv = threading.Condition()
@@ -258,7 +267,14 @@ class TransferScheduler:
         t0 = time.perf_counter()
         try:
             with trace.span(f"transfer_{item.cls}", label=item.ticket.label):
-                ret = item.fn()
+                if item.cls == LOCKSTEP and self._lockstep_timeout_s > 0:
+                    from distributed_ddpg_tpu_torch.parallel import multihost
+
+                    ret = multihost.call_with_deadline(
+                        item.fn, timeout_s=self._lockstep_timeout_s,
+                        label=item.ticket.label or LOCKSTEP)
+                else:
+                    ret = item.fn()
         except Exception as e:   # the submitter's problem, not ours
             self.stats.record_dispatch(item.cls, item.nbytes, time.perf_counter() - t0)
             self._charge(item.cls, item.nbytes)

@@ -198,7 +198,7 @@ def test_config_defaults_match_jax():
     dict(data_axis=0), dict(compute_dtype="float16"), dict(guardrails=True, fused_chunk="on"),
     dict(data_axis=-2), dict(model_axis=2), dict(actor_backend="device", data_axis=2),
     dict(serve_actors=True, data_axis=2), dict(transport="tcp"), dict(fused_mesh="on"),
-    dict(action_insert_layer=5), dict(faults="pod:0:kill@5"),
+    dict(action_insert_layer=5), dict(faults="slice:0:corrupt@1"),
 ])
 def test_options_outside_the_slice_raise(override):
     name = next(iter(override))

@@ -1,10 +1,10 @@
 """The fault plan and its sites, against the JAX package's, on the CPU.
 
-- Every spec form of the JAX `--faults` grammar but `pod` and `slice`
-  parses to the same FaultPlan in both packages (each spec's fields and
-  its seeded duration, under two seeds), the legacy `actor:<id>:<step>`
-  alias included; bad specs are refused by both; `pod` and `slice` raise
-  in the port, citing ROADMAP item 10.
+- Every spec form of the JAX `--faults` grammar but `slice` parses to the
+  same FaultPlan in both packages (each spec's fields and its seeded
+  duration, under two seeds), the legacy `actor:<id>:<step>` alias
+  included; bad specs are refused by both; `slice` raises in the port,
+  citing ROADMAP item 10 (`pod` parses: tests/test_torch_multihost.py).
 - `for_worker` gives each worker's incarnations the same fault tuples, and
   a site fires the same specs at the same call ordinals.
 - The `--inject_fault` alias and the eight operations fields of the config
@@ -102,9 +102,15 @@ def test_bad_specs_are_refused_by_both(spec):
 
 @pytest.mark.parametrize("spec", ["pod:0:kill@3", "pod:2:slow@1~0.5", "slice:1:kill@2"])
 def test_pod_and_slice_raise_citing_item_10(spec):
-    jax_faults.FaultPlan.parse(spec)
-    with pytest.raises(ValueError, match="item 10"):
-        faults.FaultPlan.parse(spec)
+    """`pod` parses as the JAX package's since the pod layer is ported;
+    `slice` (the sharded replay's, the data-plane half of ROADMAP.md Queue
+    1 item 10) still raises, citing the item."""
+    theirs = jax_faults.FaultPlan.parse(spec)
+    if spec.startswith("slice"):
+        with pytest.raises(ValueError, match="item 10"):
+            faults.FaultPlan.parse(spec)
+    else:
+        assert _plan_tuples(faults.FaultPlan.parse(spec)) == _plan_tuples(theirs)
 
 
 def test_for_worker_incarnations_match_jax():

@@ -289,11 +289,18 @@ def test_numeric_fault_grammar_rejects_as_jax(spec):
 @pytest.mark.parametrize("spec", ["pod:1:kill@5", "pod:0:exit@3:77",
                                   "slice:0:corrupt@1", "pod:1:hang@2~1.5"])
 def test_other_fault_components_are_refused(spec):
-    JaxFaultPlan.parse(spec)   # the JAX grammar takes them
-    with pytest.raises(ValueError, match="not in this slice"):
-        FaultPlan.parse(spec)
-    with pytest.raises(ValueError, match="item 10"):
-        DDPGConfig(faults=spec)
+    """The JAX grammar takes them all; the port refuses `slice` (the data-plane
+    half of ROADMAP.md Queue 1 item 10) and parses `pod` as JAX does."""
+    theirs = JaxFaultPlan.parse(spec)
+    if spec.startswith("slice"):
+        with pytest.raises(ValueError, match="not in this slice"):
+            FaultPlan.parse(spec)
+        with pytest.raises(ValueError, match="item 10"):
+            DDPGConfig(faults=spec)
+    else:
+        assert [s.describe() for s in FaultPlan.parse(spec).specs] == \
+            [s.describe() for s in theirs.specs]
+        assert DDPGConfig(faults=spec).fault_plan().pod_site(int(spec.split(":")[1]))
 
 
 # --- the guarded chunk on the port's learner ------------------------------------
