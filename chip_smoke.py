@@ -114,7 +114,21 @@ Phases (any failure raises; nothing is caught and passed over):
    README's whole D4PG command with --prioritized=true, which takes the
    scan route on a mesh, for MESH_PER_ENV_STEPS; each prints its route,
    global_batch, chunks, learner and env steps a second, and both end
-   with bit-identical replicas.
+   with bit-identical replicas. Then the sharded replay on the same two
+   ranks (mesh_sharded): a sharded PER ring of SHARD_RING_ROWS and a
+   replicated one fed the same rows through a wrap, the sharded one's
+   slots gathered in logical order: both rings' and both priority
+   vectors' sha256 equal; each ring's bytes on the card measured with
+   torch.cuda.memory_allocated against capacity x width x 4 / D (plus
+   the priorities); a sharded uniform chunk on the scan route with K2
+   (K = SHARD_K, 2x256, 64 rows a rank) bit for bit the replicated one
+   (every state tensor and td); a sharded PER chunk with K2 on one given
+   draw, its priorities (gathered) and max priority bit for bit the
+   replicated chunk's; then a short sharded main path through train() at
+   D = 2 with --fused_update=true (SHARD_K learner steps a chunk, paced by
+   --max_ingest_ratio=SHARD_INGEST_RATIO): K2's
+   launches = 2 x learner steps and no chunk-kernel launch, the replicas
+   bit-identical, the replay_* fields, learner and env steps/s.
 4. Drive the main paths, `distributed_ddpg_tpu_torch.train` (Pendulum-v1,
    2x256, batch 64, f32, one actor process, K = 800): DDPG with the
    default flags for 20,000 env steps and TD3 with --twin_critic=true
@@ -276,6 +290,18 @@ Phases (any failure raises; nothing is caught and passed over):
    elected step, the generations, K1's launches a process, generation 2's
    learner and env steps/s a process (gloo time-slicing one card) and
    node 0's final pod_* fields.
+4i. The sharded pod's shrink (ShardedShrink, SHRINK_LIMIT_S of its own, a
+   deadline on its supervisor), started before 4h (a) and (b) and
+   finished after them: two nodes over gloo on the one card under
+   tools.supervise, --replay_sharding=sharded --fused_update=true at
+   SHARD_K steps a chunk, a slice set every chunk, paced by
+   --max_ingest_ratio=SHRINK_INGEST_RATIO; generation 1's node 1
+   SIGKILLs itself at its SHRINK_KILL_BEAT-th beat (pod:1:kill, --env-first),
+   node 0 exits 78 with a complete slice set on disk; generation 2 runs
+   one node, adopts the two-writer set (pod_shrinks 1,
+   pod_state_degraded 1), K2 on every step, and finishes (exit 0).
+   Printed: the detection latency, each generation's seconds, the
+   adopted step and generation 2's launches and rates.
 5. Time each branch of the kernel at the main path's shapes (CUDA events,
    warmed up) beside its plain version (one run, timed where the parity
    phase ran it at these shapes: PLAIN_MS) and its bound; the eager autograd
@@ -2274,6 +2300,141 @@ def mesh_main_path(flags, group, say, route: str) -> dict:
     return {k: summary[k] for k in keys if k in summary}
 
 
+SHARD_RING_ROWS = 262_144   # the sharded ring check's capacity (and 1/4 more rows: a wrap)
+SHARD_K = 50                 # the sharded chunk checks' and main paths' learner chunk
+SHARD_ENV_STEPS = 3000       # the sharded main path at D = 2 (a few chunks past the warmup)
+SHARD_INGEST_RATIO = 8       # its --max_ingest_ratio: 5 chunks of SHARD_K to the budget
+
+
+def _logical(local, group):
+    """A sharded ring's (or priority vector's) slots gathered over the group
+    in logical order: logical p is rank p % D's slot p // D."""
+    from distributed_ddpg_tpu_torch.parallel import mesh
+
+    stacked = mesh.all_gather(local.contiguous(), group)
+    return stacked.transpose(0, 1).reshape(-1, *local.shape[1:])
+
+
+def _sha(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def mesh_sharded(group, card: str, say) -> dict:
+    """The sharded replay on the two ranks (module docstring, 3b): the ring
+    against the replicated one, the storage bytes, a uniform and a PER
+    chunk on the scan route with K2 bit for bit the replicated ones, then
+    the sharded main path. The chunks' K2 launches are checks, not the
+    main path's: the count is zeroed before the main path."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.ops._build import KERNEL_LAUNCHES
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, state_tensors
+    from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay, draw_per_indices
+
+    obs, act, cap = 3, 1, SHARD_RING_ROWS
+    width = 2 * obs + act + 3
+    rows = random_batches(seed=61, k=1, b=cap + cap // 4, obs=obs, act=act,
+                          weighted=False)[0].cpu().numpy()
+    reps, alloc = {}, {}
+    for mode in ("replicated", "sharded"):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        rep = DevicePrioritizedReplay(cap, obs, act, "cuda", block_size=1024,
+                                      replay_sharding=mode, group=group)
+        torch.cuda.synchronize()
+        alloc[mode] = torch.cuda.memory_allocated() - before
+        for lo in range(0, len(rows), 10_000):
+            rep.add_packed(rows[lo:lo + 10_000])
+        rep.flush()
+        rep.drain_pending()
+        reps[mode] = rep
+    rr, sr = reps["replicated"], reps["sharded"]
+    ring_same = (_sha(_logical(sr.storage, group)) == _sha(rr.storage)
+                 and _sha(_logical(sr.priorities, group)) == _sha(rr.priorities)
+                 and (sr.ptr, sr.size) == (rr.ptr, rr.size))
+    want_bytes = {m: cap * (width + 1) * 4 // d for m, d in
+                  (("replicated", 1), ("sharded", group.world_size))}
+    bytes_ok = all(abs(alloc[m] - want_bytes[m]) <= 1024 for m in alloc)
+    say(f"  sharded ring on {group.world_size} ranks, capacity {cap}, {len(rows)} rows "
+        f"(a wrap): sha256 of the logical ring and priorities equal to the replicated "
+        f"ring's: {ring_same}; bytes on the card (torch.cuda.memory_allocated, storage and "
+        f"priorities) {alloc['sharded']} sharded, {alloc['replicated']} replicated, against "
+        f"{want_bytes['sharded']} and {want_bytes['replicated']}")
+    if not (ring_same and bytes_ok):
+        raise AssertionError(f"sharded ring: the same ring {ring_same}, bytes {alloc}")
+
+    base = DDPGConfig(fused_update=True)
+    checks = {}
+    for per in (False, True):
+        got = {}
+        if per:
+            gen = torch.Generator(device="cuda").manual_seed(62)
+            idx, w = draw_per_indices(rr.priorities, rr.size,
+                                      (SHARD_K, base.batch_size * group.world_size), 0.5,
+                                      generator=gen)
+        for mode in ("replicated", "sharded"):
+            cfg = base.replace(replay_sharding=mode, prioritized=per)
+            lrn = ShardedLearner(cfg, obs, act, 2.0, 0.0, chunk_size=SHARD_K, group=group)
+            KERNEL_LAUNCHES.clear()
+            out = (lrn.run_sample_chunk_per(reps[mode], 0.5, idx=idx, weights=w) if per
+                   else lrn.run_sample_chunk(reps[mode]))
+            torch.cuda.synchronize()
+            got[mode] = dict(state=state_tensors(lrn.state), td=out.td_errors,
+                             launches=dict(KERNEL_LAUNCHES), route=lrn.route(per=per))
+            if per:
+                prios = _logical(reps[mode].priorities, group) if mode == "sharded" \
+                    else reps[mode].priorities
+                got[mode]["prios"] = _sha(prios)
+                got[mode]["maxp"] = float(reps[mode].max_priority)
+        a, b = got["replicated"], got["sharded"]
+        same = (all(torch.equal(x, y) for x, y in zip(a["state"], b["state"]))
+                and torch.equal(a["td"], b["td"])
+                and all(g["launches"] == {"fused_update": 2 * SHARD_K} for g in (a, b))
+                and a["route"] == b["route"] == "scan"
+                and (not per or (a["prios"] == b["prios"] and a["maxp"] == b["maxp"])))
+        name = "PER" if per else "uniform"
+        checks[name] = same
+        say(f"  sharded {name} chunk, scan route with K2, K={SHARD_K}, 2x256, "
+            f"{base.batch_size} rows a rank: every state tensor and td"
+            + (", the gathered priorities and max_priority" if per else "")
+            + f" bit for bit the replicated chunk's: {same} (K2 launches {b['launches']})")
+        if not same:
+            raise AssertionError(f"sharded {name} chunk differs from the replicated one")
+
+    from distributed_ddpg_tpu_torch.parallel.learner import resolve_learner_chunk
+    from distributed_ddpg_tpu_torch.train import train
+
+    flags = ["--num_actors=1", "--replay_min_size=1000", "--eval_every=0", "--eval_episodes=1",
+             f"--total_env_steps={SHARD_ENV_STEPS}", f"--learner_chunk={SHARD_K}",
+             # Paced: a few chunks, not one chunk after a long warmup.
+             f"--max_ingest_ratio={SHARD_INGEST_RATIO}",
+             "--replay_sharding=sharded", "--fused_update=true",
+             f"--data_axis={group.world_size}"]
+    cfg = DDPGConfig.from_flags(flags)
+    KERNEL_LAUNCHES.clear()
+    t0 = time.monotonic()
+    summary = train(cfg, echo=False, group=group)
+    launches = dict(KERNEL_LAUNCHES)
+    keys = ("route", "global_batch", "chunks", "learner_steps", "learner_steps_per_sec",
+            "env_steps", "env_steps_per_sec", "replicas_identical", "replay_shard_count",
+            "replay_device_storage_bytes", "replay_shard_fill_min", "replay_shard_fill_max",
+            "replay_ingest_bytes_per_row")
+    path = {k: summary[k] for k in keys}
+    say(f"[mesh path sharded] {card}: {time.monotonic() - t0:.1f}s, launches {launches}: "
+        + json.dumps(path))
+    if (summary["route"] != "scan" or summary["chunks"] < 1
+            or launches != {"fused_update": 2 * summary["learner_steps"]}
+            or summary["learner_steps"] != summary["chunks"] * resolve_learner_chunk(cfg)
+            or summary["replicas_identical"] is not True
+            or summary["replay_shard_count"] != group.world_size
+            or summary["replay_device_storage_bytes"]
+            != cfg.replay_capacity * width * 4 // group.world_size):
+        raise AssertionError(f"sharded main path: {summary}, launches {launches}")
+    return dict(ring_same=ring_same, bytes=alloc, checks=checks,
+                path=dict(path, launches=launches["fused_update"]))
+
+
 def mesh_rank(rank: int, out_dir: str, card: str) -> int:
     """One rank of the mesh phase (see mesh_phase): joins the gloo group on
     the card; holds the mesh launch against its plain version for DDPG,
@@ -2323,6 +2484,7 @@ def mesh_rank(rank: int, out_dir: str, card: str) -> int:
                       "--n_step=5", "--v_min=auto", "--v_max=auto", "--prioritized=true"],
             group, say, "scan"),
     }
+    record["sharded"] = mesh_sharded(group, card, say)
     say(f"[phase] mesh phase done at {time.monotonic() - t0:.1f}s")
     if group.lead:
         with open(os.path.join(out_dir, "rank0.json"), "w") as f:
@@ -2930,6 +3092,7 @@ AGENT_ENV_STEPS = 2000
 # port's env_steps_per_sec and every t_* field); the rest must match.
 STRICT_TIME_KEYS = ("wall_time", "learner_steps_per_sec", "actor_steps_per_sec",
                     "ingest_rows_per_sec", "ingest_stall_ms", "ingest_ship_ms",
+                    "replay_exchange_ms_p50", "replay_exchange_ms_p95",
                     "env_steps_per_sec")
 
 
@@ -4294,17 +4457,21 @@ def pod_child(argv) -> int:
         bs, procs, p = rep.block_size, rep._procs, rep._proc_idx
         offsets = (np.arange(k)[:, None] * (procs * bs) + p * bs
                    + np.arange(bs)[None, :]).reshape(-1)
-        idx = torch.as_tensor((start + offsets) % rep.capacity, device=rep.device)
+        # A sharded ring holds the logical positions it owns (p % D) at
+        # slots p // D: those of this node's rows are checked there.
+        pos = (start + offsets) % rep.capacity
+        mine = pos % rep.n_shards == rep.shard
+        idx = torch.as_tensor(pos[mine] // rep.n_shards, device=rep.device)
         landed = rep.storage[idx].cpu().numpy()
         if rep._pod_lead:
-            tally["rows_checked"] += len(offsets)
-            tally["rows_misplaced"] += int((landed != local_rows).any(axis=1).sum())
+            tally["rows_checked"] += int(mine.sum())
+            tally["rows_misplaced"] += int((landed != local_rows[mine]).any(axis=1).sum())
         tally["ships"] += 1
         tally["rows_landed"] += procs * k * bs
         return start
 
     def closing(rep):
-        filled = rep.storage[:rep.size].cpu().numpy()
+        filled = rep.storage[:rep.local_fill].cpu().numpy()
         print("[ring] " + json.dumps(dict(sha256=hashlib.sha256(filled.tobytes()).hexdigest(),
                                           size=rep.size, ptr=rep.ptr, **tally)), flush=True)
         return close(rep)
@@ -4523,6 +4690,87 @@ def two_node_pod(card: str, tmp: str, common) -> dict:
     return record
 
 
+SHRINK_LIMIT_S = 100       # 4i's own deadline on its supervisor
+SHRINK_KILL_BEAT = 3       # pod:1:kill@3: after two chunks' slice sets have landed
+SHRINK_ENV_STEPS = 20_000  # generation 1 is killed short of it; generation 2 finishes it
+SHRINK_INGEST_RATIO = 20   # paced: the kill comes ~4000 env steps in, on any host
+
+
+class ShardedShrink:
+    """4i (module docstring): the sharded pod's shrink under the supervisor,
+    started before 4h (a) and (b) and finished after them."""
+
+    def __init__(self, tmp: str, common):
+        self.tmp, self.t0 = tmp, time.monotonic()
+        self.ckdir = os.path.join(tmp, "shrink_ckpt")
+        flags = common + [f"--total_env_steps={SHRINK_ENV_STEPS}",
+                          f"--checkpoint_dir={self.ckdir}", f"--checkpoint_every={SHARD_K}",
+                          f"--learner_chunk={SHARD_K}", "--replay_sharding=sharded",
+                          "--fused_update=true", f"--max_ingest_ratio={SHRINK_INGEST_RATIO}",
+                          f"--pod_collective_timeout_s={POD_DEADLINE_S}"]
+        extra = ["--env", "DDPG_DIST_BACKEND=gloo",
+                 "--env-first", f"POD_FAULTS=pod:1:kill@{SHRINK_KILL_BEAT}"]
+        cmd = supervise_cmd(tmp, "shrink", 2, flags, extra)
+        self.out = open(os.path.join(tmp, "shrink", "supervisor.out"), "w+")
+        self.sup = subprocess.Popen(cmd, stdout=self.out, stderr=subprocess.STDOUT)
+
+    def stop(self) -> None:
+        if self.sup.poll() is None:
+            self.sup.kill()
+            self.sup.wait()
+        self.out.close()
+
+    def finish(self, card: str) -> dict:
+        try:
+            self.sup.wait(timeout=max(1.0, SHRINK_LIMIT_S - (time.monotonic() - self.t0)))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"phase 4i went past its {SHRINK_LIMIT_S} s limit") from None
+        secs = time.monotonic() - self.t0
+        self.out.seek(0)
+        out = self.out.read()
+        events = _events(self.tmp, "shrink")
+        kinds = [e["event"] for e in events]
+        exits_ = sorted((e["gen"], e["proc"], e["code"]) for e in events if e["event"] == "exit")
+        g1 = [_child_log(self.tmp, "shrink", 1, p) for p in (0, 1)]
+        g2 = _child_log(self.tmp, "shrink", 2, 0)
+        fired = re.search(rf"\[chaos\] pod:1:kill@{SHRINK_KILL_BEAT} fired at ([0-9.]+)", g1[1])
+        seen = re.search(r"\[train\] pod peer lost at ([0-9.]+)", g1[0])
+        latency = float(seen.group(1)) - float(fired.group(1)) if fired and seen else None
+        summary = _child_summary(g2)
+        launches = _tagged(g2, "[launches]")
+        ok = (self.sup.returncode == 0
+              and exits_ == [(1, 0, 78), (1, 1, -signal.SIGKILL), (2, 0, 0)]
+              and "shrink-ready, exiting 78" in g1[0]
+              and latency is not None and latency < POD_DEADLINE_S
+              and summary["pod_slices_adopted"] == 1 and summary["pod_shrinks"] == 1
+              and summary["pod_state_degraded"] == 1 and summary["replay_shard_count"] == 1
+              and "written by 2 process(es), resharded to 1" in g2
+              and summary["chunks"] > 0 and not summary["fused_chunk_active"]
+              and launches == {"fused_update": 2 * (summary["learner_steps"]
+                                                    - summary["resumed_from"])})
+        if not ok:
+            raise AssertionError(
+                f"phase 4i: supervisor exit {self.sup.returncode}, events {kinds}, exits "
+                f"{exits_}, detection latency {latency}, launches {launches}, summary "
+                f"{summary}; supervisor: {out[-1500:]}; gen 1 node 0: {g1[0][-2500:]}; "
+                f"gen 1 node 1: {g1[1][-1500:]}; gen 2: {g2[-2500:]}")
+        record = dict(seconds=secs, events=kinds, detection_latency_s=latency,
+                      generation_s=[(e["gen"], e["proc"], e["runtime_s"]) for e in events
+                                    if e["event"] == "exit"],
+                      adopted_step=summary["pod_slice_adopted_step"],
+                      resumed_from=summary["resumed_from"],
+                      launches=launches["fused_update"], chunks=summary["chunks"],
+                      learner_steps_per_sec=summary["learner_steps_per_sec"],
+                      env_steps_per_sec=summary["env_steps_per_sec"])
+        log(f"[pod] {card}: 4i the sharded pod's shrink: " + json.dumps(record))
+        log(f"[pod] {card}: 4i detection latency {latency:.3f} s; generation 1 node 0 exit 78 "
+            f"with slices adopted from step {record['adopted_step']}; generation 2 (one node) "
+            f"K2 launches {record['launches']}, learner steps/s "
+            f"{record['learner_steps_per_sec']}, env steps/s {record['env_steps_per_sec']}; "
+            f"generations' seconds {record['generation_s']}")
+        return record
+
+
 def pod_phase(card: str) -> dict:
     """4h (see the module docstring), under PhaseLimit(POD_LIMIT_S): (a) and
     (b) side by side, each a tools.supervise process and its children
@@ -4532,20 +4780,26 @@ def pod_phase(card: str) -> dict:
     common = ["--num_actors=1", "--replay_min_size=1000", "--eval_every=0",
               "--eval_episodes=1"]
     t0 = time.monotonic()
-    with PhaseLimit(POD_LIMIT_S, "phase 4h"), \
-            tempfile.TemporaryDirectory(prefix="chip_smoke_pod_") as tmp:
-        single_run = SupervisedPreemption(tmp, common)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pod_") as tmp:
+        # 4i beside 4h: started first, finished after, under its own limit.
+        shrink_run = ShardedShrink(tmp, common)
         try:
-            pod = two_node_pod(card, tmp, common)
-            single = single_run.finish(card)
+            with PhaseLimit(POD_LIMIT_S, "phase 4h"):
+                single_run = SupervisedPreemption(tmp, common)
+                try:
+                    pod = two_node_pod(card, tmp, common)
+                    single = single_run.finish(card)
+                finally:
+                    single_run.stop()
+            shrink = shrink_run.finish(card)
         finally:
-            single_run.stop()
+            shrink_run.stop()
     secs = time.monotonic() - t0
     overlap = single["ended_unix"] - pod["gen2_spawned_unix"]
     log(f"[pod] {card}: (a) ended {overlap:+.3f} s after (b)'s generation 2 spawned"
         + (" (so (a)'s last seconds ran beside (b)'s relaunch)" if overlap > 0 else ""))
-    log(f"[phase] 4h took {secs:.1f}s")
-    return dict(single=single, pod=pod, seconds=secs, a_after_b_gen2_s=overlap)
+    log(f"[phase] 4h and 4i took {secs:.1f}s")
+    return dict(single=single, pod=pod, shrink=shrink, seconds=secs, a_after_b_gen2_s=overlap)
 
 
 def main() -> int:
@@ -4835,6 +5089,12 @@ def main() -> int:
     # pod, and on the single supervised process's generation 2.
     paths["fused_chunk"]["pod_generation2"] = pod["pod"]["launches"]
     paths["fused_chunk"]["supervised_relaunch"] = pod["single"]["launches"]
+    # This slice's paths: K2 on the sharded main path at D = 2 (the mesh
+    # phase) and on the shrunk pod's generation 2 (4i); K1 runs on no
+    # sharded path (the JAX learner's rule).
+    paths["fused_update"]["sharded_mesh"] = mesh_record["sharded"]["path"]["launches"]
+    paths["fused_update"]["sharded_shrink_generation2"] = pod["shrink"]["launches"]
+    update_launches = {"fused_update": paths["fused_update"]["sharded_mesh"]}
 
     # --- 5. timing at the main path's shapes ---
     timing = {

@@ -42,8 +42,25 @@ diverged_step_<N>). `pod_dir` is a pod node's own directory for its
 emergency checkpoint after a peer loss (JAX train.py's pod_ckpt_dir):
 node 0 writes into the checkpoint directory, node k into its proc<k>
 subdirectory, so a shared filesystem never has two writers on one step.
-Not here yet: the replay slices of an elastic pod (ROADMAP.md Queue 1
-item 10, its data-plane half).
+
+The all-writer replay slices of a sharded replay (JAX checkpoint.py
+:597-803, the same layout and names, so a slice set written by one
+package loads in the other's):
+
+    DIR/replay_slices/step_<N>/slice_<k>_of_<n>.npz   rank k's slice
+    DIR/replay_slices/step_<N>/slice_<k>_of_<n>.json  its digest sidecar
+
+Each of the n ranks writes its own file (replay/device.py
+slice_state_dict: the logical positions it owns and their rows), as a
+temporary file renamed into place, then the sidecar with the payload's
+size and crc32, so a slice with a sidecar finished writing. A step's set
+is complete when every one of some n's slices is there and verifies
+(slice_status); verify_replay_slices quarantines a slice that fails
+(-> .corrupt) and leaves its siblings and the step's learner state;
+latest_complete_slice_step is the adoption's input, load_replay_slices
+its reader; _prune removes a step's slices with the step but keeps the
+newest complete set. `ckpt_has_replay` in restore's meta_out says whether
+the learner checkpoint carried the replay (a sharded run's does not).
 """
 
 from __future__ import annotations
@@ -52,6 +69,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import sys
 import threading
@@ -153,9 +171,15 @@ def _prune(directory: str, keep: int, current: int) -> None:
             file=sys.stderr, flush=True,
         )
     doomed = stale_above + (below[: -(keep - 1)] if keep > 1 else below)
+    # The newest complete replay slice set is never pruned: after a shrink
+    # it is the only copy of the lost rank's shard, and the survivors go on
+    # checkpointing learner state past it (JAX :178-186).
+    protected = latest_complete_slice_step(directory)
+    doomed = [s for s in doomed if s != protected]
     for old in doomed:
         try:
             shutil.rmtree(os.path.join(directory, f"step_{old}"), ignore_errors=True)
+            shutil.rmtree(_slice_step_dir(directory, old), ignore_errors=True)
             for side in (f"config_{old}.json", f"manifest_{old}.json"):
                 side_path = os.path.join(directory, side)
                 if os.path.exists(side_path):
@@ -222,6 +246,10 @@ def verify_checkpoint(directory: str, step: int) -> Tuple[bool, str]:
             return False, f"size mismatch {rel}: {got_size} != {size}"
         if got_crc != crc:
             return False, f"digest mismatch {rel}"
+    # A torn replay slice quarantines only itself: the step's learner state
+    # verified above, and adoption has its own fallback
+    # (latest_complete_slice_step).
+    verify_replay_slices(directory, step, quarantine=True)
     return True, "ok"
 
 
@@ -541,14 +569,19 @@ def restore(directory: str, state_template: TrainState, replay=None,
     if state_signature(state) != state_signature(state_template):
         raise ValueError(f"checkpoint step_{step}'s state does not match this run's "
                          "learner (paths, shapes or dtypes)")
+    has_replay = os.path.exists(os.path.join(path, REPLAY_FILE))
     if replay is not None:
-        if os.path.exists(os.path.join(path, REPLAY_FILE)):
+        if has_replay:
             replay.load_state_dict(_load_npz(os.path.join(path, REPLAY_FILE)))
         else:
             print(f"[checkpoint] step_{step} carries no replay contents; the buffer "
                   "resumes empty", file=sys.stderr, flush=True)
     with open(os.path.join(path, META_FILE)) as f:
         meta = json.load(f)
+    if meta_out is not None:
+        # The slice adoption's gate (train.py): a learner checkpoint that
+        # carried no replay leaves the ring to the slice sets.
+        meta_out["ckpt_has_replay"] = has_replay
     if meta_out is not None and "v_bounds" in meta:
         meta_out["v_bounds"] = (float(meta["v_bounds"][0]), float(meta["v_bounds"][1]))
     carry = os.path.join(path, DEVACTOR_FILE)
@@ -559,3 +592,156 @@ def restore(directory: str, state_template: TrainState, replay=None,
             print(f"[checkpoint] {DEVACTOR_FILE} unreadable ({e!r}); the rollout state "
                   "starts fresh", file=sys.stderr, flush=True)
     return state, step, int(meta.get("env_steps", 0))
+
+
+# --- the all-writer replay slices (module docstring) --------------------------
+
+SLICE_DIRNAME = "replay_slices"
+_SLICE_RE = re.compile(r"^slice_(\d+)_of_(\d+)\.npz$")
+
+
+def _slice_step_dir(directory: str, step: int) -> str:
+    return os.path.join(os.path.abspath(directory), SLICE_DIRNAME, f"step_{step}")
+
+
+def _slice_steps(directory: str):
+    """The steps with a slice directory, ascending."""
+    root = os.path.join(os.path.abspath(directory), SLICE_DIRNAME)
+    if not os.path.isdir(root):
+        return []
+    return sorted(int(name.split("_", 1)[1]) for name in os.listdir(root)
+                  if name.startswith("step_") and name.split("_", 1)[1].isdigit())
+
+
+def write_replay_slice(directory: str, step: int, proc: int, nprocs: int,
+                       slice_state: Dict[str, Any], fault=None) -> str:
+    """Write rank `proc`'s slice of `nprocs` for `step` (a temporary file
+    renamed into place), then its digest sidecar; returns the payload's
+    path. `slice_state` is replay/device.py slice_state_dict's. `fault`
+    (faults.FaultPlan.slice_site) is ticked once a call: `kill` dies
+    before any byte lands, `corrupt` (faults.InjectedCorruption) tears the
+    payload after the sidecar recorded the intact one, the torn write
+    verification must quarantine."""
+    torn = False
+    if fault is not None:
+        from distributed_ddpg_tpu_torch.faults import InjectedCorruption
+
+        try:
+            fault.tick()
+        except InjectedCorruption:
+            torn = True
+    root = _slice_step_dir(directory, step)
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, f"slice_{proc}_of_{nprocs}.npz")
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **slice_state)
+    os.replace(tmp, path)
+    size, crc = _digest_file(path)
+    jpath = os.path.join(root, f"slice_{proc}_of_{nprocs}.json")
+    jtmp = jpath + ".tmp"
+    with open(jtmp, "w") as f:
+        json.dump({"step": step, "proc": proc, "nprocs": nprocs, "digest": [size, crc]}, f)
+    os.replace(jtmp, jpath)
+    if torn:
+        # The sidecar covered the intact file; the payload is now shorter.
+        with open(path, "r+b") as f:
+            f.truncate(max(size // 2, 1))
+    return path
+
+
+def _verify_slice(root: str, proc: int, nprocs: int) -> Tuple[bool, str]:
+    path = os.path.join(root, f"slice_{proc}_of_{nprocs}.npz")
+    jpath = os.path.join(root, f"slice_{proc}_of_{nprocs}.json")
+    if not os.path.exists(path):
+        return False, "missing slice"
+    if not os.path.exists(jpath):
+        return False, "no digest sidecar (write did not finish)"
+    try:
+        with open(jpath) as f:
+            size, crc = json.load(f)["digest"]
+    except (OSError, json.JSONDecodeError, KeyError, TypeError, ValueError) as e:
+        return False, f"unreadable digest sidecar: {e!r}"
+    try:
+        got_size, got_crc = _digest_file(path)
+    except OSError:
+        return False, "unreadable slice"
+    if got_size != size:
+        return False, f"size mismatch: {got_size} != {size}"
+    if got_crc != crc:
+        return False, "digest mismatch"
+    return True, "ok"
+
+
+def slice_status(directory: str, step: int):
+    """(complete, nprocs, {proc: (ok, why)}) of a step's slice set: complete
+    when some writer count n has all n slices present and verified;
+    `nprocs` is that n (the largest seen when none is complete; None with
+    no slices at all)."""
+    root = _slice_step_dir(directory, step)
+    if not os.path.isdir(root):
+        return False, None, {}
+    by_n: Dict[int, set] = {}
+    for name in os.listdir(root):
+        m = _SLICE_RE.match(name)
+        if m:
+            by_n.setdefault(int(m.group(2)), set()).add(int(m.group(1)))
+    if not by_n:
+        return False, None, {}
+    for n in sorted(by_n, reverse=True):
+        if by_n[n] == set(range(n)):
+            status = {k: _verify_slice(root, k, n) for k in range(n)}
+            return all(ok for ok, _ in status.values()), n, status
+    n = max(by_n)
+    return False, n, {k: _verify_slice(root, k, n) for k in sorted(by_n[n])}
+
+
+def verify_replay_slices(directory: str, step: int,
+                         quarantine: bool = True) -> Tuple[bool, int]:
+    """Verify a step's slice set; with `quarantine`, move each slice that
+    fails its digest to <name>.corrupt (kept for inspection; the set reads
+    incomplete after). Returns (complete, nprocs or 0)."""
+    complete, n, status = slice_status(directory, step)
+    if quarantine:
+        root = _slice_step_dir(directory, step)
+        for proc, (ok, why) in status.items():
+            if ok or why == "missing slice":
+                continue
+            src = os.path.join(root, f"slice_{proc}_of_{n}.npz")
+            if not os.path.exists(src):
+                continue
+            try:
+                os.replace(src, src + ".corrupt")
+                print(f"[checkpoint] quarantined corrupt replay slice {proc}/{n} at "
+                      f"step_{step} ({why}) -> .corrupt; the step's learner state stays "
+                      "valid", file=sys.stderr, flush=True)
+            except OSError:
+                pass
+    return complete, (n or 0)
+
+
+def latest_complete_slice_step(directory: str,
+                               at_or_below: Optional[int] = None) -> Optional[int]:
+    """The newest step (at most `at_or_below`) whose slice set is complete
+    and verifies: the elastic restart's adoption input (train.py). None
+    when no step qualifies."""
+    if not directory:
+        return None
+    for s in sorted(_slice_steps(directory), reverse=True):
+        if at_or_below is not None and s > at_or_below:
+            continue
+        if slice_status(directory, s)[0]:
+            return s
+    return None
+
+
+def load_replay_slices(directory: str, step: int):
+    """The complete slice set at `step`, one dict of host arrays a writer
+    (merge_slice_states takes them in any order)."""
+    complete, n, status = slice_status(directory, step)
+    if not complete:
+        bad = {k: why for k, (ok, why) in status.items() if not ok}
+        raise RuntimeError(f"replay slice set at step_{step} is incomplete "
+                           f"(world={n}, failures={bad})")
+    root = _slice_step_dir(directory, step)
+    return [_load_npz(os.path.join(root, f"slice_{k}_of_{n}.npz")) for k in range(n)]

@@ -37,6 +37,12 @@ flag value) applies the policy on `device`. `front_port` /
 `front_http_port` add the network front (serve/front/). Serving runs on
 one rank (item 10, its data-plane half).
 
+`replay_sharding='sharded'` splits the device replay over the data-parallel
+ranks (replay/device.py; the JAX package's checks): the learner takes the
+scan route, and every rank writes its slice of the ring at each
+checkpoint. `model_axis` > 1 is the one option left outside the port
+(ROADMAP.md Queue 1 item 10).
+
 `sync_ship_background`, `pod_collective_timeout_s` and
 `pod_startup_grace_s` are the JAX package's pod fields, with its defaults
 and checks: they act on a pod of more than one node
@@ -57,7 +63,6 @@ from typing import Sequence
 # Options outside this slice: field -> the value that means "off".
 _NOT_IN_SLICE = {
     "model_axis": 1,
-    "replay_sharding": "replicated",
 }
 
 
@@ -433,7 +438,8 @@ class DDPGConfig:
     # Queue-depth share where the lowest priority class starts to shed.
     front_shed_start: float = 0.5
 
-    # --- options outside this slice (see _NOT_IN_SLICE) ---
+    # --- the sharded device replay (replay/device.py) and the option
+    # outside this slice (see _NOT_IN_SLICE) ---
     model_axis: int = 1
     replay_sharding: str = "replicated"
 
@@ -612,8 +618,8 @@ class DDPGConfig:
                 "twin_critic requires a JAX backend: the native numpy "
                 "learner is the plain-DDPG bit-comparability oracle"
             )
-        # The JAX package's replay_sharding checks, before the slice's own
-        # refusal of 'sharded' (ROADMAP.md Queue 1 item 10, its data-plane half).
+        # The JAX package's replay_sharding checks and messages (its
+        # config.py:648-700).
         if self.replay_sharding not in ("replicated", "sharded"):
             raise ValueError(
                 f"replay_sharding must be 'replicated' or 'sharded', got "
@@ -631,6 +637,34 @@ class DDPGConfig:
                     "replay_sharding='sharded' shards the DEVICE replay; "
                     "host_replay has no device ring to shard — disable one"
                 )
+            if self.fused_chunk == "on":
+                raise ValueError(
+                    "replay_sharding='sharded' forces the XLA scan path "
+                    "(the Pallas megakernel reads replicated storage "
+                    "whole) — incompatible with fused_chunk='on'; use "
+                    "'auto' (degrades to scan) or 'off'"
+                )
+            if self.data_axis > 0:
+                # The replay checks the alignment again with the group's
+                # real size; an explicit data_axis fails here first.
+                if self.replay_capacity % self.data_axis:
+                    raise ValueError(
+                        f"replay_capacity {self.replay_capacity} must "
+                        f"divide evenly over data_axis={self.data_axis} "
+                        "shards (replay_sharding='sharded')"
+                    )
+                if self.actor_backend == "device":
+                    rows = self.device_actor_envs * resolve_device_actor_chunk(self)
+                    if rows % self.data_axis:
+                        raise ValueError(
+                            f"one device-actor chunk produces {rows} rows, "
+                            f"which do not divide over data_axis="
+                            f"{self.data_axis} replay shards — sharded "
+                            "mode requires every insert_device_rows "
+                            "scatter to move a multiple of the shard "
+                            "count (keeps the ring pointer shard-aligned)."
+                            " Adjust device_actor_envs/device_actor_chunk"
+                        )
         # The JAX package's strict_sync checks and messages (its config.py).
         if self.strict_sync:
             if self.backend != "jax_tpu":
@@ -869,7 +903,7 @@ class DDPGConfig:
                 raise ValueError(
                     f"{name}={getattr(self, name)!r} is not implemented in "
                     f"the PyTorch port yet (only {name}={off!r}); ROADMAP.md "
-                    "lists what is left to port"
+                    "Queue 1 item 10 lists what is left to port"
                 )
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(

@@ -27,11 +27,11 @@ watchdog.py exit with them and supervisor/core.py dispatches on them.
                         back to: the params are presumed poisoned and NO
                         checkpoint was written. Do not relaunch blindly;
                         read the guardrail_* counters first.
-    78  EXIT_POD_SHRINK a peer was lost and a complete replay slice set is
-                        on disk, so the pod may relaunch smaller. Raised
-                        only once the sharded replay slices are ported
-                        (ROADMAP.md Queue 1 item 10); the supervisor
-                        classifies it already.
+    78  EXIT_POD_SHRINK a peer of a sharded-replay pod was lost and a
+                        complete, verified replay slice set is on disk
+                        (checkpoint.latest_complete_slice_step), so the
+                        pod may relaunch smaller: the relaunch adopts the
+                        set, resharded to its own size (train.py).
     79  EXIT_SUPERVISOR_GAVE_UP  the supervisor (tools/supervise.py)
                         refused to go on: its crash-loop breaker tripped,
                         a numeric abort went past its budget, or its

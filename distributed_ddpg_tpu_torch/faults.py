@@ -14,7 +14,7 @@ Grammar (';'-separated specs):
     spec      := component [':' target] ':' kind '@' at ['~' seconds]
                | 'pod' ':' proc ':' 'exit' '@' at ':' code
     component := worker | pool | shipper | prefetch | ckpt | transfer | pod
-                 | numeric | serve | devactor | front
+                 | numeric | serve | devactor | slice | front
     kind      := crash | crashloop | hang | stall | slow | ioerror | kill
                  | nan | inf | spike | corrupt | exit | regress
 
@@ -63,6 +63,15 @@ defaults to an hour, to outlast the pod deadline).
                              <code> (0..255) at its K-th beat (os._exit):
                              every branch of the exit contract for the
                              supervisor's drills; peers see PodPeerLost
+    slice:<proc>:corrupt@K   rank <proc>'s K-th replay-slice write lands torn:
+                             the digest sidecar records the intact payload,
+                             then the npz is truncated (checkpoint.
+                             write_replay_slice); verification must
+                             quarantine that slice alone
+    slice:<proc>:kill@K      rank <proc> SIGKILLs itself at its K-th slice
+                             write, before any byte lands: the step's set
+                             stays incomplete and adoption falls back to
+                             an older complete one
     devactor:rollout:crash@K the K-th device-actor rollout raises
                              (actors/device_pool.py's bounded restart,
                              devactor_restarts)
@@ -100,9 +109,9 @@ tick it once an operation; worker processes receive their picklable fault
 tuples through `plan.for_worker(id, incarnation)` and apply them inline
 (actors/worker.py). An empty plan's tick is one attribute check.
 
-The `slice` component of the JAX grammar raises: it scripts the replay
-slices of a sharded pod, which come with the data-plane half of ROADMAP.md
-Queue 1 item 10. Stdlib only: the actor workers import this module and
+`slice` targets a rank's all-writer replay-slice writes (plan.slice_site,
+ticked once a checkpoint.write_replay_slice call, cadence and emergency
+writes alike). Stdlib only: the actor workers import this module and
 never import torch.
 """
 
@@ -149,15 +158,22 @@ _FRONT_KINDS = {
     "frame": ("corrupt",),
     "canary": ("regress",),
 }
-# The sharded pod's replay-slice component (ROADMAP.md Queue 1 item 10,
-# its data-plane half).
-_NOT_PORTED = ("slice",)
+# Slice faults target one rank's replay-slice writes: `corrupt` tears the
+# payload after the digest landed, `kill` dies before any byte does.
+_SLICE_KINDS = ("corrupt", "kill")
 
 
 class InjectedFault(OSError):
     """A scripted fault from a FaultPlan. Subclasses OSError so recovery
     paths written for real IO failures (the checkpoint write's retry) treat
     an injected failure like the genuine article."""
+
+
+class InjectedCorruption(InjectedFault):
+    """A scripted torn write: a slice site's tick() raises it and
+    checkpoint.write_replay_slice catches it, then truncates the payload it
+    wrote after the sidecar landed. Any other site treats it as the IO
+    failure it subclasses."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,6 +266,12 @@ class FaultPlan:
         K-th beat after the warmup, the same ordinal on every node."""
         return self.site("pod", str(int(process_index)))
 
+    def slice_site(self, process_index: int) -> "FaultSite":
+        """The replay-slice injector of one rank: ticked once a
+        checkpoint.write_replay_slice call, so `@K` is that rank's K-th
+        slice write, cadence and emergency writes alike."""
+        return self.site("slice", str(int(process_index)))
+
     def front_canary_regressions(self) -> Tuple[Tuple[int, float], ...]:
         """(at, seconds) of the `front:canary:regress@K~S` specs: sustained,
         unlike a FaultSite's one shot (the front sleeps S on every
@@ -294,12 +316,6 @@ def _parse_one(raw: str, rng: random.Random) -> FaultSpec:
         except ValueError:
             raise bad("legacy actor:<id>:<step> needs two integers") from None
         return FaultSpec("worker", str(wid), "crash", step, 0.0)
-    if parts[0] in _NOT_PORTED:
-        raise ValueError(
-            f"faults={raw!r}: the {parts[0]!r} component scripts the replay slices of a "
-            "sharded pod and is not in this slice of the PyTorch port (ROADMAP.md Queue 1 "
-            "item 10, its data-plane half)"
-        )
     # Typed-exit injection is the one 4-field spec: the trailing field is
     # the exit status to die with (pod:<proc>:exit@<beat>:<code>).
     code = 0
@@ -357,6 +373,13 @@ def _parse_one(raw: str, rng: random.Random) -> FaultSpec:
             int(target)
         except ValueError:
             raise bad("pod target must be an integer process id") from None
+    elif component == "slice":
+        if kind not in _SLICE_KINDS:
+            raise bad(f"kind {kind!r} does not apply to slice (one of {_SLICE_KINDS})")
+        try:
+            int(target)
+        except ValueError:
+            raise bad("slice target must be an integer process id") from None
     elif component == "numeric":
         if target not in _NUMERIC_PAIRS:
             raise bad(f"numeric target must be one of {tuple(_NUMERIC_PAIRS)}")
@@ -382,7 +405,7 @@ def _parse_one(raw: str, rng: random.Random) -> FaultSpec:
 class FaultSite:
     """Call-ordinal injector of one host-side operation: `tick()` once an
     operation; the n-th tick fires every spec scheduled `@n` (`ioerror`,
-    `crash` and `corrupt` raise InjectedFault, `slow`/`hang`/`stall` sleep
+    `crash` raise InjectedFault and `corrupt` InjectedCorruption, `slow`/`hang`/`stall` sleep
     their duration, a pod `kill` SIGKILLs this process and a pod `exit`
     os._exits with its code; `regress` is read by
     front_canary_regressions, not here). A pod fault notes its firing on
@@ -414,12 +437,17 @@ class FaultSite:
             due = self._by_at.get(self._count, ())
         for s in due:
             self.fired.append(s.describe())
-            if s.component == "pod":
+            if s.component in ("pod", "slice"):
                 # The drills read when the peer went (the detection latency).
                 print(f"[chaos] {s.describe()} fired at {time.time():.6f}",
                       file=sys.stderr, flush=True)
             if s.kind in ("slow", "hang", "stall"):
                 time.sleep(s.duration_s)
+            elif s.kind == "corrupt":
+                # The slice writer catches this after its sidecar landed and
+                # truncates the payload: verification must reject it (the
+                # front reads it as the InjectedFault it subclasses).
+                raise InjectedCorruption(f"injected {s.describe()} (call #{self._count})")
             elif s.kind == "kill":
                 # A real death: no cleanup, no exception. The peers must see
                 # it through their collective (PodPeerLost).

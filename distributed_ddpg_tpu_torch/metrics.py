@@ -8,10 +8,10 @@ a file and stdout, the latest record of each kind for the exporter's
 mean, count and reservoir tails, and a flight-recorder span), Timer (the
 rate meter), IngestStats and TransferStats (with the reservoir they keep
 their tails in), GuardrailStats, DevActorStats, FusedBeatStats, and
-ServeStats, FrontStats and TenantStats (serve/), under the JAX package's
-snapshot keys letter for letter, so a record of either trainer reads the
-same. The JAX package's pod, mesh, replay-shard and supervisor stats come
-with their slices. Nothing here imports torch at import time.
+ServeStats, FrontStats and TenantStats (serve/), PodStats, SupervisorStats
+and ReplayShardStats (the sharded replay's placement), under the JAX
+package's snapshot keys letter for letter, so a record of either trainer
+reads the same. Nothing here imports torch at import time.
 """
 
 from __future__ import annotations
@@ -35,11 +35,13 @@ class MetricsLogger:
     file; the latest record of each kind for the exporter's /metrics
     (obs/exporter.py); with `tb_dir`, every numeric field as a TensorBoard
     scalar `<kind>/<field>`. The stream opens with one `header` record
-    carrying the absolute wall-clock base (`t_unix_base`): `wall_time` is
+    carrying the absolute wall-clock base (`t_unix_base`) and the caller's
+    `header` fields (the trainer's replay placement): `wall_time` is
     seconds since the logger's creation, so t_unix_base + wall_time is an
     event's absolute time."""
 
-    def __init__(self, path: str = "", echo: bool = True, tb_dir: str = ""):
+    def __init__(self, path: str = "", echo: bool = True, tb_dir: str = "",
+                 header: Dict[str, Any] = None):
         self._file = open(path, "a", buffering=1) if path else None
         self._echo = echo
         self._t0 = time.time()
@@ -58,7 +60,7 @@ class MetricsLogger:
                 warnings.warn(f"tb_dir={tb_dir!r} requested but TensorBoard "
                               f"writer unavailable: {e}")
         self.t_unix_base = round(self._t0, 6)
-        self.log("header", 0, t_unix_base=self.t_unix_base, pid=os.getpid())
+        self.log("header", 0, t_unix_base=self.t_unix_base, pid=os.getpid(), **(header or {}))
 
     def log(self, kind: str, step: int, **fields: Any) -> Dict[str, Any]:
         rec = {
@@ -317,6 +319,65 @@ class TransferStats:
         return out
 
 
+class ReplayShardStats:
+    """Thread-safe counters of the device replay's placement layer
+    (replay/device.py; the JAX package's ReplayShardStats, the same keys):
+    the `replay_*` family of every train and final record on the device
+    replay's path. Every figure is measured on the rank that reports it:
+
+      replay_ingest_bytes          host-to-device bytes this rank landed
+                                   into its storage this interval (the
+                                   bytes of the host rows it copied)
+      replay_ingest_bytes_per_row  the interval's landed bytes over the
+                                   ring rows the ships advanced it by:
+                                   width*4 replicated, width*4/D sharded
+      replay_shard_count           gauge: the ring's shards (1 = replicated)
+      replay_device_storage_bytes  gauge: the bytes of this rank's storage
+                                   tensor (capacity*width*4/D sharded)
+      replay_shard_fill_min/max    gauge: live rows on the emptiest and the
+                                   fullest shard, from each shard's own
+                                   count of the rows it landed
+      replay_exchange_ms_p50/p95   the interval's ship tails (host clock)
+    """
+
+    def __init__(self, seed: int = 0):
+        self._lock = threading.Lock()
+        self._seed = seed
+        self._reset_locked()
+
+    def _reset_locked(self) -> None:
+        self._rows = 0
+        self._bytes = 0
+        self._res = _Reservoir(RESERVOIR_K,
+                               (zlib.crc32(b"replay_exchange") ^ self._seed) & 0x7FFFFFFF)
+
+    def record_ship(self, rows: int, nbytes: int, dur_s: float) -> None:
+        with self._lock:
+            self._rows += int(rows)
+            self._bytes += int(nbytes)
+            self._res.add(dur_s)
+
+    def snapshot(self, n_shards: int = 1, device_storage_bytes: int = 0,
+                 fill_min: int = 0, fill_max: int = 0,
+                 reset: bool = True) -> Dict[str, float]:
+        with self._lock:
+            rows = self._rows
+            out = {
+                "replay_ingest_bytes": self._bytes,
+                "replay_ingest_bytes_per_row": (
+                    round(self._bytes / rows, 2) if rows else 0.0),
+                "replay_shard_count": int(n_shards),
+                "replay_device_storage_bytes": int(device_storage_bytes),
+                "replay_shard_fill_min": int(fill_min),
+                "replay_shard_fill_max": int(fill_max),
+                "replay_exchange_ms_p50": round(1000.0 * self._res.percentile(0.50), 3),
+                "replay_exchange_ms_p95": round(1000.0 * self._res.percentile(0.95), 3),
+            }
+            if reset:
+                self._reset_locked()
+        return out
+
+
 class PodStats:
     """Thread-safe pod-resilience counters (parallel/multihost.py; the
     JAX package's PodStats, the same fields) — the `pod_*` family every
@@ -339,8 +400,8 @@ class PodStats:
                                   collective (deadline - p95 elapsed);
                                   trending toward 0 = deadline too tight
 
-    Elastic-pod events (the sharded replay slices; zero until the
-    data-plane half of ROADMAP.md Queue 1 item 10 is ported):
+    Elastic-pod events (the sharded replay's all-writer slices, adopted
+    at a restart; train.py):
 
       pod_slices_adopted          replay slice sets adopted at restore
                                   (all-writer checkpoints)

@@ -91,6 +91,20 @@ columns (a zero buffer each rank writes its part into, summed). With PER
 every rank then writes the same priorities from the same global draw and
 td, so the replicas' priority vectors stay bit-identical (the draw's
 prefix sum has a fixed order on the card, replay/device.py).
+
+With the sharded replay (config.replay_sharding='sharded', the placement
+of replay/device.py: logical row p on rank p % D at slot p // D) the
+chunk leaves the kernel's envelope, so 'auto' takes the scan route (the
+JAX learner's :372-375), with K2 under fused_update. The global
+[K, B * D] draw is the same on every rank, as above; each rank gathers
+the rows it owns and writes -0.0 elsewhere, and one sum all-reduce over
+the group rebuilds the minibatch (every row has one owner, and
+x + (-0.0) == x), bit for bit the replicated one, of which each rank
+takes its columns. PER draws with draw_sharded_per_indices (each rank's
+prefix sum over its own slots, the shard totals all-gathered) and writes
+the chunk's priorities back owner-only (owner_scatter_last_wins, the
+last-wins rule inside the owner); max_priority is the same on every
+rank.
 """
 
 from __future__ import annotations
@@ -115,9 +129,15 @@ from distributed_ddpg_tpu_torch.ops import fused_chunk
 from distributed_ddpg_tpu_torch.parallel.mesh import (
     DataGroup,
     all_reduce_mean_,
+    all_reduce_sum_,
     resolve_data_axis,
 )
-from distributed_ddpg_tpu_torch.replay.device import draw_per_indices, scatter_last_wins
+from distributed_ddpg_tpu_torch.replay.device import (
+    draw_per_indices,
+    make_sharded_per_draw,
+    owner_scatter_last_wins,
+    scatter_last_wins,
+)
 from distributed_ddpg_tpu_torch.transfer.hostbuf import HostBufferPool
 from distributed_ddpg_tpu_torch.types import (
     OptState,
@@ -285,6 +305,12 @@ class ShardedLearner:
         # Guardrails need the probe in every step: the chunk kernel has no
         # slot for it, so they take the scan route (JAX :366-371).
         self.guard_enabled = bool(config.guardrails)
+        # The sharded replay's rows are gathered across the ranks, which the
+        # chunk kernel cannot do: the scan route (JAX :372-375).
+        self.replay_sharded = config.replay_sharding == "sharded"
+        self._gather_ranks = D if self.replay_sharded else 1
+        self._per_draw = (make_sharded_per_draw(group) if self._gather_ranks > 1
+                          else draw_per_indices)
         if self.guard_enabled and D > 1:
             raise ValueError(
                 f"guardrails=True on {D} ranks is not in this slice of the PyTorch "
@@ -292,6 +318,7 @@ class ShardedLearner:
                 "item 10, its data-plane half); run the guarded learner on one rank")
         envelope_ok = (
             config.fused_chunk != "off" and not self.guard_enabled
+            and not self.replay_sharded
             and fused_chunk.supported(config)
             and fused_chunk.fits_vmem(config, obs_dim, act_dim))
         self.fused_mesh_active = envelope_ok and D > 1 and config.fused_mesh != "off"
@@ -389,6 +416,23 @@ class ShardedLearner:
             return tuple(self._cols(e) for e in x)
         lo = self.rank * self.b_local
         return x[:, lo:lo + self.b_local]
+
+    def _gather(self, device_replay, storage: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """The global rows at logical indices `idx` ([K, B * D]): a plain
+        gather from a replicated ring; from a sharded one, this rank's
+        owned rows with -0.0 elsewhere, summed over the group (the JAX
+        learner's gather_rows), the same rows on every rank."""
+        n = self._gather_ranks
+        if n == 1:
+            return storage[idx]
+        if device_replay.n_shards != n:
+            raise ValueError(f"the replay is sharded over {device_replay.n_shards} rank(s), "
+                             f"the learner over {n}")
+        owned = idx % n == self.rank
+        rows = storage[torch.where(owned, idx // n, torch.zeros_like(idx))]
+        rows.masked_fill_(~owned[..., None], -0.0)
+        all_reduce_sum_([rows], self.group)
+        return rows
 
     def _noise(self, batch: int, device_fold: Optional[int] = None):
         """The chunk's TD3 noise or SAC normals for `batch` rows, keyed by
@@ -618,7 +662,11 @@ class ShardedLearner:
                         0, max(int(size), 1), (self.chunk_size, self.global_batch),
                         generator=self._gen, device=self.device,
                     )
-                packed = storage[self._cols(idx).to(self.device)]
+                if self._gather_ranks > 1:
+                    packed = self._cols(self._gather(device_replay, storage,
+                                                     idx.to(self.device))).contiguous()
+                else:
+                    packed = storage[self._cols(idx).to(self.device)]
         # The gathered rows are the chunk's own copy: the chunk itself
         # needs no lock.
         if self.fused_mesh_active:
@@ -658,14 +706,16 @@ class ShardedLearner:
             raise ValueError("idx and weights replace the PER draw together")
         with device_replay.dispatch_lock:
             storage, size, priorities, max_priority = device_replay.per_state()
+            sharded = self._gather_ranks > 1
             if idx is None:
-                idx, weights = draw_per_indices(
-                    priorities, size, (self.chunk_size, self.global_batch), beta,
-                    generator=self._gen)
+                idx, weights = self._per_draw(priorities, size,
+                                              (self.chunk_size, self.global_batch), beta,
+                                              generator=self._gen)
             if eps is None:
                 eps = self._noise(self.global_batch)
             idx = idx.to(self.device)
-            packed = storage[self._cols(idx)]
+            packed = (self._cols(self._gather(device_replay, storage, idx)).contiguous()
+                      if sharded else storage[self._cols(idx)])
             # The screen reads the rows as gathered, before the weight column
             # takes the IS weights (JAX :690-699); a bad step's zeroed td
             # stamps its rows at (0 + eps)^alpha below.
@@ -675,7 +725,11 @@ class ShardedLearner:
                             kernel=self.fused_per_active if kernel is None else kernel,
                             screen=screen)
             new_p = (out.td_errors.abs() + device_replay.eps) ** device_replay.alpha
-            scatter_last_wins(priorities, idx.reshape(-1), new_p.reshape(-1))
+            if sharded:
+                owner_scatter_last_wins(priorities, idx.reshape(-1), new_p.reshape(-1),
+                                        self._gather_ranks, self.rank)
+            else:
+                scatter_last_wins(priorities, idx.reshape(-1), new_p.reshape(-1))
             torch.maximum(max_priority, new_p.max(), out=max_priority)
             return out
 

@@ -26,6 +26,12 @@ group:
   all_reduce, so these are the only collectives the port uses on the card:
   a gather is a zero buffer in which each rank writes its own part, summed
   (x + 0 is exact).
+- `all_reduce_sum_` sums tensors over the group in place, and
+  `all_gather` stacks every rank's tensor, on the data plane (the sharded
+  replay's row gather, its PER draw's shard totals and owner sums). The
+  gather's buffer is -0.0 where a rank has nothing to say: x + (-0.0) is
+  x for every float x, -0.0 and +0.0 included, so a gather or an
+  owner-masked sum comes out bit for bit, in any summation order.
 
 A DataGroup can be made without joining anything: with one rank its
 collectives are identities; with more, it serves route decisions alone
@@ -212,6 +218,33 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], group: Optional[DataGroup]
     n = sum(t.numel() for t in tensors)
     flat[:n].div_(group.world_size)
     _scatter_back(flat, tensors + sums)
+
+
+def all_reduce_sum_(tensors: Sequence[torch.Tensor], group: Optional[DataGroup]) -> None:
+    """In place: each tensor becomes its sum over the group's ranks, on the
+    data plane (one all_reduce a tensor, each in its own dtype). A group
+    of one, or none, leaves them as they are."""
+    if group is None or group.world_size == 1:
+        return
+    import torch.distributed as dist
+
+    for t in tensors:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=None)
+
+
+def all_gather(tensor: torch.Tensor, group: Optional[DataGroup]) -> torch.Tensor:
+    """Every rank's `tensor` (the same shape and dtype on each) stacked in
+    rank order, [world_size, *shape], on every rank, over the data plane:
+    a buffer of -0.0 (0 for integers) with this rank's row written, summed.
+    Without a group, tensor[None]."""
+    if group is None or group.world_size == 1:
+        return tensor.unsqueeze(0)
+    out = torch.full((group.world_size, *tensor.shape),
+                     -0.0 if tensor.dtype.is_floating_point else 0,
+                     dtype=tensor.dtype, device=tensor.device)
+    out[group.rank] = tensor
+    all_reduce_sum_([out], group)
+    return out
 
 
 def _broadcast(tensor: torch.Tensor, group: Optional[DataGroup], control: bool = False) -> None:

@@ -51,7 +51,9 @@ one entry point every pod collective goes through:
    message quotes.
 3. **Coordinated resume.** `elect_resume_step` all-gathers each node's
    valid checkpoint steps and returns the greatest one every node holds,
-   so a pod relaunched after an abort (exit 76) never resumes forked.
+   so a pod relaunched after an abort (exit 76) never resumes forked;
+   `elect_slice_step` adopts a sharded replay's slice set only where
+   every node sees the same newest complete one.
 
 `startup_barrier` is the one-time rendezvous with its own grace
 (pod_startup_grace_s), so start-up skew is never read as a dead peer.
@@ -515,6 +517,46 @@ def elect_resume_step(local_steps: Iterable[int], limit: int = 8) -> int:
         vec[: len(steps)] = np.asarray(steps, np.int64)
     gathered = allgather_scalar(vec, label="resume_step_election")
     return _common_step(gathered)
+
+
+def elect_slice_step(local_step: Optional[int]) -> int:
+    """The slice adoption's election (JAX elect_slice_step): all-gather
+    each node's newest complete slice step (checkpoint.
+    latest_complete_slice_step) and adopt it only when every node sees
+    the same one; any disagreement (a lagging shared filesystem, per-host
+    disks) is -1 on every node, since a pod where some nodes load rows
+    and others do not has forked its data. Without a pod, the local
+    answer. Every node calls it at the same point (train.py's resume)."""
+    local = -1 if local_step is None else int(local_step)
+    if process_count() <= 1:
+        return local
+    gathered = allgather_scalar(np.int64(local), label="slice_step_election")
+    vals = {int(v) for v in np.asarray(gathered).reshape(-1)}
+    return local if vals == {local} and local >= 0 else -1
+
+
+def typed_peer_loss(fn, label: str = "collective"):
+    """`fn()` on the caller's thread; on a pod, a RuntimeError or OSError it
+    raises (torch.distributed's transport errors: gloo's when a peer died
+    inside a learner collective on the default group) becomes
+    PodPeerLost(reason="error"), so the
+    trainer takes the coordinated abort and not a crash. No deadline, no
+    helper thread: the learner's collectives stay on the thread that
+    issued them. Without a pod, a direct call."""
+    if process_count() <= 1:
+        return fn()
+    try:
+        return fn()
+    except PodPeerLost:
+        raise
+    except (RuntimeError, OSError) as e:
+        stats = _pod_stats
+        if stats is not None:
+            stats.record_peer_lost()
+        _note_peer_lost(f"pod_peer_lost:{label}")
+        raise _latch(PodPeerLost(
+            f"pod collective {label!r} failed mid-flight: {e!r} ({_liveness_note()})",
+            peer=_parse_peer(str(e)), reason="error")) from e
 
 
 def process_info() -> dict:

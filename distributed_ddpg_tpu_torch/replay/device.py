@@ -1,7 +1,7 @@
 """Device-resident replay: the packed ring lives in device memory.
 
 Counterpart of distributed_ddpg_tpu/replay/device.py (DeviceReplay and
-DevicePrioritizedReplay, one process, replicated storage). The packed
+DevicePrioritizedReplay, replicated or sharded over the ranks). The packed
 [capacity, 2*obs+act+3] f32 ring sits on the learner's device; the learner
 samples it there (one gather of K*B rows per chunk, parallel/learner.py),
 so a chunk needs no host->device copy.
@@ -48,8 +48,31 @@ Ingest pipeline (the JAX package's, port of its `_IngestShipper`,
   package's does.
 
 `ptr` and `size` are host integers: the host drives every insert, so it
-knows them without reading the device. The JAX package's sharded
-placement comes with the data-plane half of ROADMAP.md Queue 1 item 10.
+knows them without reading the device.
+
+The sharded placement (`replay_sharding='sharded'`, the JAX package's;
+`group` is the data-parallel group, parallel/mesh.py) partitions the same
+logical ring over the group's D ranks with strided ownership: logical
+position p lives on rank p % D at local slot p // D, so each rank holds
+capacity / D rows (and PER's priority vector the same slots). capacity
+and block_size divide by D and every insert moves a multiple of D rows,
+so ptr % D == 0 always and the rows of an insert at ptr land on rank r
+at rows[r::D], one contiguous run of local slots from ptr // D. A ship
+copies only those rows to the device: on one node from the rows
+share_rows gives every rank, on a pod from the beat's gathered block
+(which rides the scheduler's `shard_exchange` class). ptr, size, the
+insert positions and every logical row are those of the replicated ring
+(the parity the tests hold), so the learner's owner-masked gather
+(parallel/learner.py) rebuilds the replicated minibatch bit for bit. A
+rank is a process here, so the JAX package's multi-process rules hold on
+D > 1 ranks: no single-writer state_dict (ReplayUsageError), and each
+rank writes its own slice (slice_state_dict, checkpoint.
+write_replay_slice); load_state_dict takes the merged logical state
+(merge_slice_states) on every rank and keeps the rank's positions, so a
+set written by any number of ranks loads on today's. One rank sharded is
+one slice over the whole ring. The placement's figures (the replay_*
+fields, metrics.ReplayShardStats) are measured on the rank: the bytes it
+copied, its storage tensor's bytes, the rows it landed.
 
 On a pod (`pod`, a parallel/mesh.DataGroup of more than one node;
 parallel/multihost.py) the ring is replicated on every rank and rows
@@ -110,6 +133,7 @@ the device back.
 from __future__ import annotations
 
 import contextlib
+import math
 import sys
 import threading
 import time
@@ -121,7 +145,7 @@ import torch
 
 from distributed_ddpg_tpu_torch import trace
 from distributed_ddpg_tpu_torch.devices import require_device
-from distributed_ddpg_tpu_torch.metrics import IngestStats
+from distributed_ddpg_tpu_torch.metrics import IngestStats, ReplayShardStats
 from distributed_ddpg_tpu_torch.replay.staging import HostStagingRing
 from distributed_ddpg_tpu_torch.transfer import AdaptiveCoalesce, HostBufferPool
 from distributed_ddpg_tpu_torch.types import packed_width
@@ -201,6 +225,184 @@ def scatter_last_wins(target: torch.Tensor, idx: torch.Tensor, vals: torch.Tenso
     target[sorted_idx] = vals[order[last]]
 
 
+def owner_scatter_last_wins(local: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+                            n_shards: int, shard: int) -> None:
+    """The sharded twin of scatter_last_wins (JAX parallel/learner.py
+    scatter_prios): of the global logical indices `idx`, this rank writes
+    only those it owns (idx % n_shards == shard) into its local slots
+    idx // n_shards, the last occurrence in flat order winning, as in the
+    replicated write. The others go to a scratch slot past the end, so
+    nothing is read back to the host."""
+    if n_shards == 1:
+        scatter_last_wins(local, idx, vals)
+        return
+    sc = local.shape[0]
+    loc = torch.where(idx % n_shards == shard, idx // n_shards, sc)
+    buf = torch.cat([local, local.new_zeros(1)])
+    scatter_last_wins(buf, loc, vals)
+    local.copy_(buf[:sc])
+
+
+def draw_sharded_per_indices(priorities: torch.Tensor, size: int, shape, beta: float,
+                             group, generator: Optional[torch.Generator] = None,
+                             uniform: Optional[torch.Tensor] = None):
+    """The sharded counterpart of draw_per_indices (JAX
+    make_sharded_per_draw): `priorities` is this rank's [capacity / D]
+    slice of the strided vector (logical p at rank p % D, slot p // D).
+    Each rank prefix-sums its own slots (fixed_order_cumsum on the card),
+    the D shard totals are all-gathered and prefix-summed once, the same
+    on every rank, into half-open mass intervals [lo, hi) with +inf as the
+    last rank's upper bound; the stratified uniforms come from the
+    learner's generator (the same on every rank; `uniform` replaces
+    them); each u falls in one rank's interval, that rank searches its
+    own prefix sum with u - lo, clamped to its live slots, and contributes
+    the logical index and its priority; two sum all-reduces put both on
+    every rank. The weights are draw_per_indices' formula. The
+    distribution is the replicated draw's, the index stream is not (the
+    prefix sums are partitioned). With one rank, draw_per_indices."""
+    from distributed_ddpg_tpu_torch.parallel import mesh
+
+    n = group.world_size if group is not None else 1
+    if n == 1:
+        return draw_per_indices(priorities, size, shape, beta, generator=generator,
+                                uniform=uniform)
+    k, b = shape
+    s = group.rank
+    dev = priorities.device
+    sc = priorities.shape[0]
+    cum = (torch.cumsum(priorities, 0) if dev.type == "cpu"
+           else fixed_order_cumsum(priorities))
+    totals = mesh.all_gather(cum[-1].reshape(1), group).reshape(-1)
+    cumtot = torch.cumsum(torch.stack([totals, totals], 1), 0)[:, 0]
+    total = cumtot[-1]
+    lo = cumtot[s - 1] if s > 0 else total.new_zeros(())
+    hi = cumtot[s] if s < n - 1 else total.new_full((), math.inf)
+    if uniform is None:
+        uniform = torch.rand((k, b), generator=generator, device=dev)
+    u = (torch.arange(b, dtype=torch.float32, device=dev)[None, :] + uniform) / b * total
+    mine = (u >= lo) & (u < hi)
+    loc = torch.searchsorted(cum, (u - lo).reshape(-1), right=True).reshape(k, b)
+    # Clamped to this rank's last live slot: a u rounded past lo + its
+    # total must not select an empty, zero-priority slot (JAX's clamp).
+    live = max((int(size) - s + n - 1) // n, 1)
+    loc = loc.clamp_max(min(live - 1, sc - 1))
+    idx = torch.where(mine, loc * n + s, torch.zeros_like(loc))
+    prio = torch.where(mine, priorities[loc], torch.zeros_like(u))
+    mesh.all_reduce_sum_([idx, prio], group)
+    probs = prio / total.clamp_min(1e-12)
+    weights = (float(size) * probs.clamp_min(1e-12)) ** (-float(beta))
+    return idx, weights / weights.amax(dim=-1, keepdim=True)
+
+
+def make_sharded_per_draw(group):
+    """The sharded PER draw over `group` with draw_per_indices' signature
+    (JAX make_sharded_per_draw(mesh))."""
+    def draw(priorities, size, shape, beta, generator=None, uniform=None):
+        return draw_sharded_per_indices(priorities, size, shape, beta, group,
+                                        generator=generator, uniform=uniform)
+
+    return draw
+
+
+def merge_slice_states(slices):
+    """A complete all-writer slice set (checkpoint.load_replay_slices, any
+    order) as one logical-order state_dict, load_state_dict's format (JAX
+    merge_slice_states, its checks and messages): the slices must agree on
+    ptr, size and capacity, and their positions must tile [0, size)
+    exactly once; a hole or an overlap means the set mixes worlds or
+    writers."""
+    if not slices:
+        raise ReplayUsageError("merge_slice_states: empty slice set")
+    size = int(slices[0]["size"])
+    ptr = int(slices[0]["ptr"])
+    cap = int(slices[0]["capacity"])
+    for sl in slices:
+        got = (int(sl["size"]), int(sl["ptr"]), int(sl["capacity"]))
+        if got != (size, ptr, cap):
+            raise ReplayUsageError(
+                f"slice set disagrees on ring scalars: {got} != "
+                f"{(size, ptr, cap)} (slices from different steps or runs)")
+    width = int(np.asarray(slices[0]["rows"]).shape[-1])
+    packed = np.zeros((size, width), np.float32)
+    covered = np.zeros(size, bool)
+    has_prio = any("priorities" in sl for sl in slices)
+    prios = np.zeros(size, np.float32) if has_prio else None
+    maxp = 1.0
+    for sl in slices:
+        pos = np.asarray(sl["positions"], np.int64)
+        if pos.size == 0:
+            continue
+        if pos.min() < 0 or pos.max() >= size:
+            raise ReplayUsageError(
+                f"slice positions out of range [0, {size}): [{pos.min()}, {pos.max()}]")
+        if covered[pos].any():
+            raise ReplayUsageError(
+                "overlapping slice positions (two writers claim the same "
+                "ring rows — mixed slice sets)")
+        packed[pos] = np.asarray(sl["rows"], np.float32)
+        covered[pos] = True
+        if has_prio:
+            prios[pos] = np.asarray(sl["priorities"], np.float32)
+            maxp = max(maxp, float(sl["max_priority"]))
+    if not covered.all():
+        raise ReplayUsageError(
+            f"slice set does not cover the ring: {int((~covered).sum())} "
+            f"of {size} positions missing")
+    out = {"packed": packed, "ptr": np.asarray(ptr), "size": np.asarray(size)}
+    if has_prio:
+        out["priorities"] = prios
+        out["max_priority"] = np.asarray(maxp, np.float32)
+    return out
+
+
+def split_slice_state(state, nslices: int, capacity: int):
+    """A logical state_dict as `nslices` position-strided slices (position
+    p to slice p % nslices, what a sharded group of that many ranks
+    writes): merge_slice_states' inverse (JAX split_slice_state)."""
+    n = int(state["size"])
+    out = []
+    for k in range(nslices):
+        pos = np.arange(k, n, nslices, dtype=np.int64)
+        sl = {
+            "positions": pos,
+            "rows": np.asarray(state["packed"], np.float32)[pos],
+            "ptr": np.asarray(int(state["ptr"]), np.int64),
+            "size": np.asarray(n, np.int64),
+            "capacity": np.asarray(int(capacity), np.int64),
+        }
+        if "priorities" in state:
+            sl["priorities"] = np.asarray(state["priorities"], np.float32)[pos]
+            sl["max_priority"] = np.asarray(state["max_priority"], np.float32)
+        out.append(sl)
+    return out
+
+
+def _placement(capacity: int, block_size: int, replay_sharding: str, group):
+    """(sharded, shards, this rank's shard) with the JAX replay's checks."""
+    if replay_sharding not in ("replicated", "sharded"):
+        raise ValueError(f"replay_sharding must be 'replicated' or 'sharded', got "
+                         f"{replay_sharding!r}")
+    if replay_sharding == "replicated":
+        return False, 1, 0
+    n = group.world_size if group is not None else 1
+    if capacity % n:
+        raise ValueError(
+            f"replay_capacity {capacity} must divide evenly over {n} shards "
+            "(mod-capacity wraparound must preserve the position's owner residue)")
+    if block_size % n:
+        raise ValueError(
+            f"block_size {block_size} must divide evenly over {n} shards (each "
+            "ship lands rows on every owner in exactly even groups)")
+    return True, n, (group.rank if group is not None else 0)
+
+
+class ReplayUsageError(RuntimeError):
+    """A device-replay entry point used outside the mode it supports (a
+    single-writer checkpoint of a ring sharded over ranks, an unaligned
+    sharded insert, an empty slice set). Nothing died: unlike
+    IngestError, the call itself is wrong."""
+
+
 class IngestError(RuntimeError):
     """The background ingest shipper (or the scheduler's ingest work)
     died past its restart budget; the original exception rides along as
@@ -251,17 +453,26 @@ class DeviceReplay:
                  async_ship: bool = False, max_coalesce: int = 8, scheduler=None,
                  adaptive_coalesce: bool = False, host_pool: bool = False,
                  track_sources: bool = False, fault=None, pod=None,
-                 background_sync: bool = False, pod_fault=None):
+                 background_sync: bool = False, pod_fault=None,
+                 replay_sharding: str = "replicated", group=None):
         self.capacity = int(capacity)
         self.obs_dim, self.act_dim = obs_dim, act_dim
         self.block_size = int(block_size)
         self.width = packed_width(obs_dim, act_dim)
         self.device = require_device(device)
+        # The placement (module docstring): `group` is the data-parallel
+        # group whose ranks share the ring when it is sharded.
+        self.sharded, self.n_shards, self.shard = _placement(
+            self.capacity, self.block_size, replay_sharding, group)
+        self._group = group
+        self.shard_capacity = self.capacity // self.n_shards
         self.storage = torch.zeros(
-            (self.capacity, self.width), dtype=torch.float32, device=self.device
+            (self.shard_capacity, self.width), dtype=torch.float32, device=self.device
         )
         self.ptr = 0
         self.size = 0
+        self.local_fill = 0   # the rows this rank's storage holds (measured)
+        self._shard_stats = ReplayShardStats()
         on_card = self.device.type == "cuda"
         # The learner's stream (the constructing thread's current one): a
         # shipping thread enters it, since torch's current stream is per
@@ -329,6 +540,18 @@ class DeviceReplay:
         out = self._stats.snapshot(pending_rows=self.pending_rows)
         out["ingest_shipper_restarts"] = self._shipper_restarts
         return out
+
+    def shard_snapshot(self, fills=None) -> dict:
+        """The interval's replay_* fields (metrics.ReplayShardStats): the
+        landed bytes and their tails, this rank's storage bytes (its
+        tensor's), and the fill of the emptiest and the fullest shard from
+        `fills`, every rank's local_fill (train.py gathers them); without
+        it this rank's own fill stands for both."""
+        fills = [self.local_fill] if fills is None else [int(f) for f in fills]
+        return self._shard_stats.snapshot(
+            n_shards=self.n_shards,
+            device_storage_bytes=self.storage.numel() * self.storage.element_size(),
+            fill_min=min(fills), fill_max=max(fills))
 
     def transfer_snapshot(self) -> dict:
         """The replay's transfer_* fields: the adaptive cap's trajectory
@@ -656,7 +879,11 @@ class DeviceReplay:
             raise RuntimeError("sync_ship_begin() needs background_sync=True, a "
                                "TransferScheduler and a pod of more than one node")
         self._beat += 1
-        return self._sched.submit("lockstep", lambda: self._sync_ship_collective(force),
+        # A sharded ring's beats ride the shard_exchange class: the same
+        # ordered lane and deadline, their own transfer_shard_exchange_*
+        # counters (JAX :943-948).
+        return self._sched.submit("shard_exchange" if self.sharded else "lockstep",
+                                  lambda: self._sync_ship_collective(force),
                                   label=f"sync_ship_beat_{self._beat}")
 
     def _sync_ship_collective(self, force: bool) -> int:
@@ -722,8 +949,9 @@ class DeviceReplay:
     def _ship_global(self, local_rows: np.ndarray, k: int = 1) -> int:
         """Gather every node's k blocks (multihost.allgather_rows) and land
         them at ptr in the JAX package's interleave: node p's block j, row
-        r at ptr + j*(procs*bs) + p*bs + r. Returns the ptr it wrote at.
-        The caller holds dispatch_lock."""
+        r at ptr + j*(procs*bs) + p*bs + r (a sharded ring lands only the
+        rows this rank owns, _ship). Returns the ptr it wrote at. The
+        caller holds dispatch_lock."""
         from distributed_ddpg_tpu_torch.parallel import multihost
 
         bs, procs = self.block_size, self._procs
@@ -738,27 +966,43 @@ class DeviceReplay:
     def _ship(self, rows: np.ndarray) -> None:
         """Write rows at ptr, ptr+1, ... mod capacity (len(rows) <=
         capacity): one H2D copy into the ring's slice, two when it wraps,
-        on the learner's stream; non-blocking from pinned memory. The
-        caller holds dispatch_lock."""
+        on the learner's stream; non-blocking from pinned memory. A
+        sharded ring copies only this rank's rows, rows[shard::D], into its
+        local slots from ptr // D. The caller holds dispatch_lock."""
         if self._fault is not None:
             self._fault.tick()
+        t0 = time.perf_counter()
         m = len(rows)
-        src = torch.from_numpy(rows)
+        n = self.n_shards
+        if m % n:
+            raise ReplayUsageError(
+                f"an insert of {m} rows does not divide over {n} shards (every "
+                "insert moves a multiple of the shard count; flush pads to a block)")
+        mine = rows if n == 1 else np.ascontiguousarray(rows[self.shard::n])
+        src = torch.from_numpy(mine)
         pinned = self._stream is not None and src.is_pinned()
-        first = min(m, self.capacity - self.ptr)
+        lm, lptr, sc = len(mine), self.ptr // n, self.shard_capacity
+        first = min(lm, sc - lptr)
         with self._on_stream():
-            self.storage[self.ptr:self.ptr + first].copy_(src[:first], non_blocking=pinned)
-            if m > first:
-                self.storage[:m - first].copy_(src[first:], non_blocking=pinned)
+            self.storage[lptr:lptr + first].copy_(src[:first], non_blocking=pinned)
+            if lm > first:
+                self.storage[:lm - first].copy_(src[first:], non_blocking=pinned)
         self.ptr = (self.ptr + m) % self.capacity
         self.size = min(self.size + m, self.capacity)
+        self.local_fill = min(self.local_fill + lm, sc)
+        self._shard_stats.record_ship(m, src.numel() * src.element_size(),
+                                      time.perf_counter() - t0)
 
     # --- device rows (the device actors, the fused beat) ---
 
     def _device_positions(self, m: int) -> torch.Tensor:
-        """(ptr + arange(m)) mod capacity on the storage's device."""
+        """This rank's local slots of an m-row insert at ptr on the
+        storage's device: (ptr + arange(m)) mod capacity, or sharded
+        (ptr // D + arange(m // D)) mod capacity / D."""
+        n = self.n_shards
         return torch.remainder(
-            torch.arange(m, dtype=torch.int64, device=self.device) + self.ptr, self.capacity)
+            torch.arange(m // n, dtype=torch.int64, device=self.device) + self.ptr // n,
+            self.shard_capacity)
 
     def insert_device_rows(self, rows: torch.Tensor) -> int:
         """Land an [M, D] block already on the device (JAX
@@ -773,10 +1017,18 @@ class DeviceReplay:
         if m > self.capacity:
             raise ValueError(f"insert_device_rows: {m} rows exceed the capacity "
                              f"{self.capacity}; positions would be written twice")
+        n = self.n_shards
+        if m % n:
+            # JAX :806-812.
+            raise ValueError(
+                f"insert_device_rows: {m} rows do not divide over {n} shards — "
+                "sharded mode requires every insert to move a multiple of the shard "
+                "count (keeps ptr N-aligned; config.py validates the device-actor "
+                "chunk shape when data_axis is explicit)")
         with self.dispatch_lock:
             with self._on_stream():
                 idx = self._device_positions(m)
-                self.storage.index_copy_(0, idx, rows)
+                self.storage.index_copy_(0, idx, rows if n == 1 else rows[self.shard::n])
                 self._stamp_device_rows(idx)
             self.note_device_rows(m)
         return m
@@ -792,6 +1044,7 @@ class DeviceReplay:
             self._source_map[(self.ptr + np.arange(m)) % self.capacity] = -1
         self.ptr = (self.ptr + m) % self.capacity
         self.size = min(self.size + m, self.capacity)
+        self.local_fill = min(self.local_fill + m // self.n_shards, self.shard_capacity)
 
     def reward_sample(self, max_n: int = 100_000):
         """(reward, discount) columns of up to max_n filled rows, pulled to
@@ -799,11 +1052,18 @@ class DeviceReplay:
         max_n more):
         what the C51 auto support is sized from (ops/support_auto.py;
         discount == 0 marks the terminal rows). A ring fuller than max_n is
-        read at an even stride over its live rows, not as a stale prefix."""
+        read at an even stride over its live rows, not as a stale prefix.
+        A ring sharded over D > 1 ranks reads the same logical rows with an
+        owner-masked gather summed over the group (a collective: every
+        rank calls it), so every placement samples the same rows."""
         col = self.obs_dim + self.act_dim
         with self.dispatch_lock:
             n = min(self.size, int(max_n))
-            if n == self.size:
+            if self.n_shards > 1:
+                cols = self._gather_logical(
+                    np.arange(n) if n == self.size
+                    else np.linspace(0, self.size - 1, n).astype(np.int64), col, 2)
+            elif n == self.size:
                 cols = self.storage[:n, col:col + 2]
             else:
                 idx = torch.from_numpy(np.linspace(0, self.size - 1, n).astype(np.int64))
@@ -819,29 +1079,104 @@ class DeviceReplay:
             cols = np.concatenate([cols, pend])
         return cols[:, 0], cols[:, 1]
 
+    def _gather_logical(self, idx: np.ndarray, col: int, ncols: int) -> torch.Tensor:
+        """Columns [col, col + ncols) of the logical rows `idx` of a ring
+        sharded over D > 1 ranks, on every rank: each rank writes the rows
+        it owns into a buffer of -0.0, and a sum over the group fills it
+        (mesh.all_gather's exactness). A collective."""
+        from distributed_ddpg_tpu_torch.parallel import mesh
+
+        n = self.n_shards
+        idx = torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)
+        out = torch.full((len(idx), ncols), -0.0, dtype=torch.float32, device=self.device)
+        mine = idx % n == self.shard
+        out[mine] = self.storage[idx[mine] // n, col:col + ncols]
+        mesh.all_reduce_sum_([out], self._group)
+        return out
+
     def device_state(self):
-        """(storage [capacity, D] on the device, size) for the sampler; the
-        caller holds dispatch_lock from here to its gather."""
+        """(storage on the device, size) for the sampler: [capacity, D], or
+        sharded this rank's [capacity / D, D] slots; the caller holds
+        dispatch_lock from here to its gather."""
         return self.storage, self.size
 
+    def _multi_writer(self) -> bool:
+        """Sharded over more than one rank: no rank holds the whole ring."""
+        return self.sharded and self.n_shards > 1
+
+    def _local_count(self, size: int) -> int:
+        """The live local slots of this rank at ring size `size`: the
+        logical positions shard, shard + D, ... below it."""
+        n, s = self.n_shards, self.shard
+        return (size - s + n - 1) // n if size > s else 0
+
     def state_dict(self):
+        """The ring in logical order (the checkpoint's format, the JAX
+        package's). Raises ReplayUsageError on a ring sharded over D > 1
+        ranks: no rank can write it alone (slice_state_dict)."""
         with self.dispatch_lock:
+            if self._multi_writer():
+                raise ReplayUsageError(
+                    "sharded replay contents span processes and have no "
+                    "single-writer snapshot; each process checkpoints its "
+                    "own slice instead (slice_state_dict + "
+                    "checkpoint.write_replay_slice)")
             return {
                 "packed": self.storage[: self.size].cpu().numpy().copy(),
                 "ptr": np.asarray(self.ptr),
                 "size": np.asarray(self.size),
             }
 
+    def slice_state_dict(self):
+        """This rank's slice of the logical ring, the all-writer
+        checkpoint's payload (JAX slice_state_dict; checkpoint.
+        write_replay_slice): `positions`, the logical indices in [0, size)
+        this rank owns, ascending; `rows`, the packed rows there; the ring
+        scalars and the capacity; under PER the priorities and the max
+        priority. One rank (replicated, or sharded alone) is one slice over
+        the whole ring."""
+        with self.dispatch_lock:
+            if not self._multi_writer():
+                st = self.state_dict()
+                n = int(st["size"])
+                out = {"positions": np.arange(n, dtype=np.int64),
+                       "rows": np.asarray(st["packed"], np.float32)}
+                extra = {k: st[k] for k in ("priorities", "max_priority") if k in st}
+            else:
+                n = self.size
+                cnt = self._local_count(n)
+                out = {"positions": self.shard + np.arange(cnt, dtype=np.int64) * self.n_shards,
+                       "rows": self.storage[:cnt].cpu().numpy().copy()}
+                extra = self._slice_extra(cnt)
+            out.update(ptr=np.asarray(self.ptr, np.int64), size=np.asarray(n, np.int64),
+                       capacity=np.asarray(self.capacity, np.int64))
+            for k, v in extra.items():
+                out[k] = np.asarray(v, np.float32)
+            return out
+
+    def _slice_extra(self, cnt: int) -> dict:
+        """The PER subclass adds this rank's priorities; uniform: none."""
+        return {}
+
     def load_state_dict(self, state) -> None:
+        """Restore a logical-order state_dict (a checkpoint's, or
+        merge_slice_states' of a slice set written by any number of
+        ranks). Sharded over D > 1 ranks, every rank is given the same
+        whole state and keeps its own positions (the N -> M reshard, JAX
+        _load_state_multihost)."""
         n = int(state["size"])
         if n > self.capacity:
             raise ValueError(f"checkpointed size {n} exceeds capacity {self.capacity}")
         with self.dispatch_lock:
-            self.storage[:n] = torch.as_tensor(
-                np.asarray(state["packed"], np.float32), device=self.device
-            )
+            packed = np.asarray(state["packed"], np.float32)
+            if self._multi_writer():
+                packed = packed[self.shard::self.n_shards]
+                self.storage.zero_()
+            self.storage[:len(packed)] = torch.as_tensor(
+                np.ascontiguousarray(packed), device=self.device)
             self.ptr = int(state["ptr"]) % self.capacity
             self.size = n
+            self.local_fill = len(packed)
             if self._track_sources:
                 # Restored rows carry no tag. The FIFO stays: it pairs with
                 # the staged rows, which a restore leaves in the ring.
@@ -850,7 +1185,10 @@ class DeviceReplay:
 
 class DevicePrioritizedReplay(DeviceReplay):
     """Proportional PER with the priorities in device memory (counterpart
-    of the JAX package's DevicePrioritizedReplay, one process, unsharded).
+    of the JAX package's DevicePrioritizedReplay). Sharded, the priority
+    vector is this rank's [capacity / D] slots, the storage's placement: the
+    stamp writes the local run an insert lands, the learner draws with
+    draw_sharded_per_indices and writes back with owner_scatter_last_wins.
 
     - `priorities`: f32 [capacity], zero for empty slots, so a draw never
       reaches them; `max_priority`: a 0-d f32 device tensor, initially 1.
@@ -872,7 +1210,10 @@ class DevicePrioritizedReplay(DeviceReplay):
                  alpha: float = 0.6, eps: float = 1e-6, **pipeline):
         device = require_device(device)
         # The priorities exist before the base class can start a shipper.
-        self.priorities = torch.zeros(int(capacity), dtype=torch.float32, device=device)
+        _, n, _ = _placement(int(capacity), int(block_size),
+                             pipeline.get("replay_sharding", "replicated"),
+                             pipeline.get("group"))
+        self.priorities = torch.zeros(int(capacity) // n, dtype=torch.float32, device=device)
         self.max_priority = torch.ones((), dtype=torch.float32, device=device)
         self.alpha = float(alpha)
         self.eps = float(eps)
@@ -883,13 +1224,14 @@ class DevicePrioritizedReplay(DeviceReplay):
         """The insert, then its stamp: positions (old ptr + arange(m)) mod
         capacity take the max priority, on the same stream, so a coalesced
         ship stamps exactly what k serial ships would."""
-        old_ptr, m = self.ptr, len(rows)
+        n = self.n_shards
+        old_lptr, lm = self.ptr // n, len(rows) // n
         super()._ship(rows)
-        first = min(m, self.capacity - old_ptr)
+        first = min(lm, self.shard_capacity - old_lptr)
         with self._on_stream():
-            self.priorities[old_ptr:old_ptr + first].fill_(self.max_priority)
-            if m > first:
-                self.priorities[:m - first].fill_(self.max_priority)
+            self.priorities[old_lptr:old_lptr + first].fill_(self.max_priority)
+            if lm > first:
+                self.priorities[:lm - first].fill_(self.max_priority)
 
     def _stamp_device_rows(self, idx: torch.Tensor) -> None:
         """Device rows take the max priority, as every insert's rows do (JAX
@@ -914,6 +1256,10 @@ class DevicePrioritizedReplay(DeviceReplay):
             state["max_priority"] = np.asarray(float(self.max_priority))
             return state
 
+    def _slice_extra(self, cnt: int) -> dict:
+        return {"priorities": self.priorities[:cnt].cpu().numpy().copy(),
+                "max_priority": float(self.max_priority)}
+
     def load_state_dict(self, state) -> None:
         """The rows, ptr and size, then the priorities (zero past size) and
         the max priority, written into the tensors this replay already
@@ -923,8 +1269,10 @@ class DevicePrioritizedReplay(DeviceReplay):
             super().load_state_dict(state)
             if "priorities" not in state:
                 return
-            n = int(state["size"])
+            prios = np.asarray(state["priorities"], np.float32)
+            if self._multi_writer():
+                prios = prios[self.shard::self.n_shards]
             self.priorities.zero_()
-            self.priorities[:n] = torch.as_tensor(
-                np.asarray(state["priorities"], np.float32), device=self.device)
+            self.priorities[:len(prios)] = torch.as_tensor(
+                np.ascontiguousarray(prios), device=self.device)
             self.max_priority.fill_(float(state["max_priority"]))

@@ -11,11 +11,11 @@ classifies the exit codes, and acts:
                                `max_numeric` relaunch budget and raise a
                                typed SupervisorGaveUp (report on disk)
   any 78 (shrink-ready)     -> relaunch at M = members - dead(signal),
-                               immediately, no backoff (the sharded
-                               replay slices make the shrunk pod
-                               productive; their trainer side comes with
-                               ROADMAP.md Queue 1 item 10's data-plane
-                               half)
+                               immediately, no backoff: each child gets
+                               the torchrun environment of the M-node
+                               pod, and the trainer adopts the sharded
+                               replay's complete slice set, resharded to
+                               M (train.py adopt_replay_slices)
   grow resize (self-initiated SIGTERM) -> relaunch at the restored
                                membership
   anything else (70/75/76/untyped) -> relaunch in place with exponential

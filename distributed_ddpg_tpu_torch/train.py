@@ -503,16 +503,72 @@ def pod_env_steps(offset: int, received) -> int:
     return int(offset) + int(np.sum(received))
 
 
-def _pod_degraded_early(e: BaseException, pod_stats) -> Dict[str, Any]:
+def slices_adoptable(config: DDPGConfig) -> bool:
+    """A complete, verified replay slice set of a sharded run is on disk, so
+    a pod that lost a peer may relaunch smaller and adopt it (exit 78, JAX
+    _slices_adoptable)."""
+    from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
+
+    return bool(config.checkpoint_dir and config.replay_sharding == "sharded"
+                and ckpt_lib.latest_complete_slice_step(config.checkpoint_dir) is not None)
+
+
+def _pod_degraded_early(e: BaseException, pod_stats, config: DDPGConfig) -> Dict[str, Any]:
     """A peer lost in the pod's bootstrap (the startup barrier, the clock
     handshake), before the training stack exists: nothing to checkpoint,
-    but main() still exits 76 (JAX :529-554)."""
+    but main() still exits 76, or 78 when an earlier run left a complete
+    slice set (JAX :529-554)."""
     pod_stats.record_abort()
-    print(f"[train] pod peer lost during pod bootstrap: {e}; exiting {EXIT_POD_DEGRADED}",
-          file=sys.stderr, flush=True)
+    shrink = slices_adoptable(config)
+    print(f"[train] pod peer lost during pod bootstrap: {e}; exiting "
+          f"{EXIT_POD_SHRINK if shrink else EXIT_POD_DEGRADED}", file=sys.stderr, flush=True)
     return {"learner_steps_per_sec": 0.0, "learner_steps": 0, "final_return": None,
-            "preempted": False, "pod_degraded": True, "pod_shrink_ready": False,
+            "preempted": False, "pod_degraded": True, "pod_shrink_ready": shrink,
             **pod_stats.snapshot()}
+
+
+def adopt_replay_slices(config: DDPGConfig, replay, group, is_multi: bool, pod_stats,
+                        learn_steps: int) -> Optional[int]:
+    """The elastic restart's adoption (JAX :934-1010): a sharded run's
+    learner checkpoint carried no replay, so the ring comes from the
+    newest complete, verified slice set at or below the restored step,
+    written by any number of ranks n_prev: the set is elected (every node
+    the same step, multihost.elect_slice_step; on one node rank 0's
+    answer), merged in logical order and loaded, each rank keeping its own
+    positions among today's D (the reshard). D < n_prev is a shrink
+    (pod_state_degraded until a grow), D > n_prev a grow. A collective on
+    D > 1 ranks. Returns the adopted step, None when there was none (the
+    ring resumes empty)."""
+    from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
+    from distributed_ddpg_tpu_torch.parallel import mesh, multihost
+    from distributed_ddpg_tpu_torch.replay.device import merge_slice_states
+
+    sstep = ckpt_lib.latest_complete_slice_step(config.checkpoint_dir, at_or_below=learn_steps)
+    if is_multi:
+        elected = multihost.elect_slice_step(sstep)
+    else:
+        lead = group is None or group.lead
+        elected = int(mesh.share([-1 if sstep is None or not lead else sstep], group)[0])
+    if elected < 0:
+        print(f"[pod] no verified replay slice set to adopt at or below step {learn_steps}; "
+              "the buffer resumes empty", file=sys.stderr, flush=True)
+        return None
+    slices = ckpt_lib.load_replay_slices(config.checkpoint_dir, elected)
+    replay.load_state_dict(merge_slice_states(slices))
+    n_prev, now = len(slices), (group.world_size if group is not None else 1)
+    pod_stats.record_slice_adopted(elected)
+    trace.instant("pod_slice_adopted", step=elected)
+    print(f"[pod] adopted replay slices from step {elected} (written by {n_prev} "
+          f"process(es), resharded to {now})", file=sys.stderr, flush=True)
+    if now < n_prev:
+        pod_stats.record_shrink()
+        print(f"[pod] SHRINK: running at {now}/{n_prev} processes with the lost peer's "
+              "replay adopted — state degraded until a grow", file=sys.stderr, flush=True)
+    elif now > n_prev:
+        pod_stats.record_grow()
+        print(f"[pod] GROW: resharded {n_prev}-writer replay to {now} processes — state "
+              "healthy", file=sys.stderr, flush=True)
+    return elected
 
 
 def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
@@ -529,13 +585,40 @@ def train(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     return _train_operated(config, echo, group)
 
 
+def _load_training_stack(config: DDPGConfig) -> None:
+    """Import what _train_impl imports (see _train_operated). Workers never
+    call this: the module stays torch-free for them."""
+    import importlib
+
+    for name in ("torch", "distributed_ddpg_tpu_torch.checkpoint",
+                 "distributed_ddpg_tpu_torch.parallel.learner",
+                 "distributed_ddpg_tpu_torch.parallel.megastep",
+                 "distributed_ddpg_tpu_torch.parallel.prefetch",
+                 "distributed_ddpg_tpu_torch.replay.device",
+                 "distributed_ddpg_tpu_torch.obs"):
+        importlib.import_module(name)
+    if config.tb_dir:
+        try:
+            importlib.import_module("torch.utils.tensorboard")
+        except Exception:
+            pass   # MetricsLogger says it once when it cannot write
+
+
 def _train_operated(config: DDPGConfig, echo: bool, group) -> Dict[str, Any]:
     """The flight recorder and the stall watchdog around the whole device
     lifetime of one training run (JAX train_jax): the learner's
     construction, the first params d2h, every loop turn and the teardown.
     The recorder is exported on the way out (and on SIGUSR2); the watchdog
     dies with the call, so it never fires on a process that has already
-    left the run through an ordinary exception."""
+    left the run through an ordinary exception.
+
+    The one-time imports of the run (torch and the port's training stack,
+    and with tb_dir TensorBoard's writer, which pulls in TensorFlow where
+    it is installed) load before the watchdog is armed: the watchdog times
+    the device lifetime, and on a loaded host an import can take longer
+    than watchdog_s (where the JAX trainer has them loaded with its own
+    module)."""
+    _load_training_stack(config)
     trace_path = ""
     if config.trace_dir:
         trace.configure(capacity=config.trace_events)
@@ -637,7 +720,7 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                                pod_wall_ms=clocks["wall_ms"])
         except multihost.PodPeerLost as e:
             multihost.configure_pod(0.0)
-            return _pod_degraded_early(e, pod_stats)
+            return _pod_degraded_early(e, pod_stats, config)
 
     def _grant_all(extra_s: float) -> None:
         """Extend both stall detectors across a known-long window (the
@@ -671,6 +754,16 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
             f"serve_actors=True on {learner.data_size} ranks is not in this slice of the "
             "PyTorch port: serving beside a data-parallel learner comes with ROADMAP.md "
             "Queue 1 item 10 (its data-plane half); serve on one rank")
+    if (config.replay_sharding == "sharded" and config.distributional
+            and config.v_support_auto and learner.data_size > 1):
+        # JAX train.py:616-631 (its n_proc > 1: a rank of the port is a
+        # process): the support sizer's reward reads would be cross-rank
+        # gathers that only rank 0 makes.
+        raise ValueError(
+            "v_min/v_max=auto with replay_sharding='sharded' is not "
+            "supported multi-process: the support sizer's host-side "
+            "reward reads are cross-shard gathers outside the lockstep "
+            "lane. Use replicated replay or concrete v_min/v_max.")
     device_actors = config.actor_backend == "device"
     if device_actors and learner.data_size > 1:
         raise ValueError(
@@ -717,6 +810,8 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         fault=fault_plan.site("shipper", "ship") if fault_plan else None,
         pod=group if is_multi else None,
         background_sync=config.sync_ship_background,
+        replay_sharding=config.replay_sharding,
+        group=group,
     )
     try:
         if host_replay:
@@ -746,8 +841,26 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                      tuple(config.actor_hidden)),
         spec.action_scale, spec.action_offset, gaussian=config.sac,
     )
+    # A sharded ring spans the ranks, so no rank can checkpoint it alone:
+    # the learner checkpoints carry no replay, and every rank writes its
+    # slice of the ring beside them at each cadence and in the emergency
+    # save (the all-writer slices, JAX :776-822); a one-rank sharded run
+    # writes one slice over the whole ring, so the format never depends on
+    # the rank count.
+    slice_writer = not host_replay and config.replay_sharding == "sharded"
+    my_rank = group.rank if group is not None else 0
+    slice_fault = fault_plan.slice_site(my_rank) if (fault_plan and slice_writer) else None
+    if slice_writer and lead:
+        print("[replay] sharded mode: replay contents are omitted from checkpoints' "
+              "learner tree; every process writes its replay slice",
+              file=sys.stderr, flush=True)
     log = MetricsLogger(config.log_path if lead else "", echo=echo and lead,
-                        tb_dir=config.tb_dir if lead else "")
+                        tb_dir=config.tb_dir if lead else "",
+                        header=({} if host_replay else dict(
+                            replay_sharding=config.replay_sharding,
+                            replay_shard_count=replay.n_shards,
+                            replay_device_storage_bytes=(replay.storage.numel()
+                                                         * replay.storage.element_size()))))
     env_timer, learn_timer = Timer(), Timer()
     phases = PhaseTimers(seed=config.seed)
     learn_steps = chunks = 0
@@ -785,9 +898,11 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         return None
 
     def ingest_fields() -> Dict[str, Any]:
-        """The interval's ingest_* and transfer_* fields (each snapshot
-        starts a new interval); the host replay has no ingest pipeline."""
-        out = {} if host_replay else replay.ingest_snapshot()
+        """The interval's ingest_*, replay_* and transfer_* fields (each
+        snapshot starts a new interval); the host replay has no ingest
+        pipeline. The shard fill is every rank's, as last gathered."""
+        out = {} if host_replay else {**replay.ingest_snapshot(),
+                                       **replay.shard_snapshot(shard_fills[0])}
         if transfer_sched is not None:
             out.update(transfer_sched.snapshot())
             if not host_replay:
@@ -818,8 +933,46 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
 
     def pod_fields() -> Dict[str, Any]:
         """The pod_* counters (metrics.PodStats) of every train and final
-        record on a pod; none on one node."""
-        return pod_stats.snapshot() if is_multi else {}
+        record on a pod; on one node only once an elastic event (a slice
+        set adopted, a shrink, a grow) happened, so a pod shrunk to one
+        node still shows its degraded state (JAX :1385-1397)."""
+        return pod_stats.snapshot() if is_multi or pod_stats.elastic_events() else {}
+
+    def ckpt_replay():
+        """The replay a learner checkpoint carries: none for a sharded one."""
+        return None if slice_writer else replay
+
+    def write_replay_slices(step: int) -> None:
+        """This rank's slice of the sharded ring at `step`, beside the
+        learner checkpoint (checkpoint.write_replay_slice). A failed write
+        costs the step's set its completeness, never the run: adoption
+        falls back to an older complete set."""
+        if not (slice_writer and config.checkpoint_dir):
+            return
+        try:
+            ckpt_lib.write_replay_slice(config.checkpoint_dir, step, my_rank,
+                                        learner.data_size, replay.slice_state_dict(),
+                                        fault=slice_fault)
+        except Exception as e:
+            print(f"[pod] replay slice write at step {step} failed ({e!r}); the step's "
+                  "slice set stays incomplete", file=sys.stderr, flush=True)
+
+    # Every rank's local fill of a ring sharded over D > 1 ranks, gathered
+    # on the 50-chunk cadence (the replay_shard_fill_min/max fields).
+    shard_fills: list = [None]
+
+    def gather_shard_fills() -> None:
+        if slice_writer and learner.data_size > 1:
+            import torch
+
+            mine = torch.tensor([replay.local_fill], dtype=torch.int64, device=device)
+            shard_fills[0] = dispatch(lambda: mesh.all_gather(mine, group),
+                                      "shard_fill_gather").reshape(-1).tolist()
+
+    def dispatch(fn, label: str = "learner_chunk"):
+        """A learner-side collective: on a pod a transport error in it is a
+        PodPeerLost (multihost.typed_peer_loss), the abort's way out."""
+        return multihost.typed_peer_loss(fn, label) if is_multi else fn()
 
     # --- the pod's beats (JAX :1340-1373) ---
     # With the scheduler on a pod the sync_ship beat after each chunk is a
@@ -1056,12 +1209,19 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
             print(f"[train] in-flight checkpoint write failed during preemption ({e!r}); "
                   "writing the emergency checkpoint anyway", file=sys.stderr, flush=True)
             saver.errors.clear()
+        # Every rank writes its replay slice, into the shared directory (on
+        # a pod abort the lost peer's is missing, so this step's set stays
+        # incomplete and adoption takes the last complete one). A pod that
+        # is whole lands its outstanding beat first, as at the cadence.
+        if slice_writer and pod_lost is None:
+            wait_beat()
+        write_replay_slices(learn_steps)
         if not (config.checkpoint_dir and (lead or (pod_lost is not None and actor_host))):
             return 0
         my_dir = ckpt_lib.pod_dir(config.checkpoint_dir, proc_idx)
         if ckpt_lib.latest_step(my_dir) != learn_steps:
             with phases.phase("ckpt"):
-                ckpt_lib.save(my_dir, learn_steps, learner.state, replay, config,
+                ckpt_lib.save(my_dir, learn_steps, learner.state, ckpt_replay(), config,
                               env_steps=n_env, v_bounds=auto_bounds(),
                               keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
                               backoff_s=config.ckpt_retry_backoff_s,
@@ -1135,11 +1295,12 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
             with replay_mutex:
                 try:
                     state, step, _ = ckpt_lib.restore(config.checkpoint_dir, learner.state,
-                                                      replay, config=config, meta_out=meta,
-                                                      at_most=before)
+                                                      ckpt_replay(), config=config,
+                                                      meta_out=meta, at_most=before)
                 except (FileNotFoundError, RuntimeError):
                     state, step, _ = ckpt_lib.restore(config.checkpoint_dir, learner.state,
-                                                      replay, config=config, meta_out=meta)
+                                                      ckpt_replay(), config=config,
+                                                      meta_out=meta)
                 learner.load_state(state)
         except (FileNotFoundError, RuntimeError) as e:
             return numeric_abort(f"no restorable checkpoint ({e})")
@@ -1231,12 +1392,14 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
     ingest_chunk_s = 0.0              # the driver's time in ingest while chunks ran
     ingest_max_s = 0.0
     ingest_calls = 0
+    pod_shrink_ready = False          # a pod abort with a complete slice set (exit 78)
     bootstrapped = False              # past the resume: an abort writes a checkpoint
     try:
         if config.resume and config.checkpoint_dir:
-            restored = (elect_and_resume(config, learner, replay, proc_idx, pod_stats,
+            restored = (elect_and_resume(config, learner, ckpt_replay(), proc_idx, pod_stats,
                                          meta_out=resume_meta) if is_multi
-                        else resume(config, learner, replay, group, meta_out=resume_meta))
+                        else resume(config, learner, ckpt_replay(), group,
+                                    meta_out=resume_meta))
             if restored is not None:
                 learn_steps, env_offset, bounds = restored
                 resumed_from, n_env = learn_steps, env_offset
@@ -1245,6 +1408,9 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                     log.log("support", env_offset, reason="checkpoint", **support_fields())
                 print(f"resumed from {config.checkpoint_dir} at learner step {learn_steps}, "
                       f"env step {env_offset}", flush=True)
+                if slice_writer and not resume_meta.get("ckpt_has_replay"):
+                    adopt_replay_slices(config, replay, group, is_multi, pod_stats,
+                                        learn_steps)
         bootstrapped = True
         cached_global[0] = n_env
         if actor_host:
@@ -1425,10 +1591,10 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                     frac = min(1.0, n_env / config.total_env_steps)
                     beta = config.per_beta + frac * (config.per_beta_final - config.per_beta)
                     with phases.phase("dispatch"):
-                        out = learner.run_sample_chunk_per(replay, beta)
+                        out = dispatch(lambda: learner.run_sample_chunk_per(replay, beta))
                 else:
                     with phases.phase("dispatch"):
-                        out = learner.run_sample_chunk(replay)
+                        out = dispatch(lambda: learner.run_sample_chunk(replay))
                 if not first_dispatch_done:
                     # The first chunk's kernel build must not count against
                     # the actor-stall clock.
@@ -1534,6 +1700,8 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                                 **support_fields())
 
                 on_cadence = prev_chunks == 0 or on_fifty
+                if on_cadence:
+                    gather_shard_fills()
                 if guard_on and on_cadence:
                     # Re-sampled every cadence: a lifted quarantine takes
                     # /healthz back to healthy.
@@ -1589,11 +1757,20 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                     if lead:
                         with phases.phase("ckpt"):
                             saver.save_async(
-                                config.checkpoint_dir, learn_steps, learner.state, replay, config,
+                                config.checkpoint_dir, learn_steps, learner.state,
+                                ckpt_replay(), config,
                                 env_steps=n_env, v_bounds=auto_bounds(),
                                 keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
                                 backoff_s=config.ckpt_retry_backoff_s,
                                 devactor_state=devactor_state(), fault=ckpt_fault)
+                    # A sharded ring's slices: every rank, the same step. On a
+                    # pod the outstanding beat lands first, so every node's
+                    # slice is of the ring after the same beats (else the set
+                    # mixes two ring states and its merge refuses it).
+                    if slice_writer and config.checkpoint_dir:
+                        wait_beat()
+                        with phases.phase("ckpt"):
+                            write_replay_slices(learn_steps)
                     last_ckpt = learn_steps
         # The rates end with the loop: the teardown below (the actors'
         # exit, an emergency checkpoint) is not the run's pace.
@@ -1630,6 +1807,14 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
             transfer_sched.close()
         if bootstrapped:
             emergency_ckpt = emergency_checkpoint()
+        # Shrink-ready (JAX :2536-2556): with a complete, verified slice set
+        # on disk the lost peer's replay is recoverable, so the pod may
+        # relaunch smaller (exit 78) instead of waiting for it (76).
+        pod_shrink_ready = slices_adoptable(config)
+        if pod_shrink_ready:
+            print(f"[train] complete replay slice set on disk — shrink-ready, exiting "
+                  f"{EXIT_POD_SHRINK} (relaunch at any process count adopts it)",
+                  file=sys.stderr, flush=True)
     finally:
         _beat()   # each teardown stage gets a fresh allowance
         try:
@@ -1692,8 +1877,12 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
 
         held = state_tensors(learner.state)
         if config.prioritized:
-            held += [replay.priorities, replay.max_priority]
+            # A sharded ring's priorities are each rank's own slots: only
+            # the max priority is a replica.
+            held += ([replay.max_priority] if slice_writer
+                     else [replay.priorities, replay.max_priority])
         replica = dict(replicas_identical=mesh.replicas_equal(held, group))
+        gather_shard_fills()
     final_return = None
     # Preempted: checkpoint and get out. Numerically aborted: the params are
     # presumed poisoned, an eval would score garbage.
@@ -1743,6 +1932,7 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         **recovery_fields(),
         **serve_final,
         **pod_fields(),
+        **({"pod_shrink_ready": pod_shrink_ready} if pod_lost is not None else {}),
     )
     log.close()
     return {
@@ -1772,7 +1962,7 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         # not 75): exactly one of the two is reported.
         "preempted": stopping and pod_lost is None,
         "pod_degraded": pod_lost is not None,
-        "pod_shrink_ready": False,
+        "pod_shrink_ready": pod_shrink_ready,
         **pod_fields(),
         "numeric_failed": numeric_failed,
         **guardrail_fields(),

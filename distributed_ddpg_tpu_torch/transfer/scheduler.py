@@ -6,6 +6,9 @@ device stream instead of a private thread each):
 
   lockstep   host-initiated collective beats: strict FIFO and absolute
              priority, so every process issues them in the same order;
+  shard_exchange  a sharded replay's beats (replay/device.py): queued in
+             the lockstep lane itself (one FIFO, the same pod deadline),
+             counted apart in transfer_shard_exchange_*;
   ingest     inbound staged-replay super-blocks (the H2D copy + insert);
   prefetch   outbound sampled-chunk H2D (a host replay's);
   serve      policy-inference batch dispatches;
@@ -24,9 +27,8 @@ gathers (train.py run_ordered) as lockstep items. With
 `lockstep_timeout_s` > 0 (a pod: the pod deadline) every lockstep item
 runs under parallel/multihost.call_with_deadline, so a beat whose peer
 died fails its ticket with PodPeerLost at the deadline instead of
-wedging the lane, and the lane goes on serving. The JAX package's
-sharded-replay `shard_exchange` class comes with the data-plane half of
-ROADMAP.md Queue 1 item 10.
+wedging the lane, and the lane goes on serving; so does every
+shard_exchange item.
 
 Failures: an exception thrown by a work item lands in its ticket (the
 submitter's problem; the replay turns it into its bounded-restart and
@@ -53,9 +55,17 @@ INGEST = "ingest"
 PREFETCH = "prefetch"
 SERVE = "serve"
 D2H = "d2h"
+SHARD_EXCHANGE = "shard_exchange"
 
-_QUEUED_CLASSES = (LOCKSTEP, INGEST, PREFETCH, SERVE)
+_QUEUED_CLASSES = (LOCKSTEP, INGEST, PREFETCH, SERVE, SHARD_EXCHANGE)
+# The classes of the strict-FIFO ordered lane (one deque, LOCKSTEP's).
+_ORDERED_CLASSES = (LOCKSTEP, SHARD_EXCHANGE)
 _FAIR_CLASSES = (INGEST, PREFETCH, SERVE)
+
+
+def _lane(cls: str) -> str:
+    """The queue a class waits in: shard_exchange shares lockstep's."""
+    return LOCKSTEP if cls == SHARD_EXCHANGE else cls
 
 
 class TransferError(RuntimeError):
@@ -132,7 +142,7 @@ class TransferScheduler:
         self._max_restarts = int(max_restarts)
         self.restarts = 0
         self._cv = threading.Condition()
-        self._queues: Dict[str, deque] = {c: deque() for c in _QUEUED_CLASSES}
+        self._queues: Dict[str, deque] = {c: deque() for c in (LOCKSTEP,) + _FAIR_CLASSES}
         self._weights = {c: 1.0 for c in _FAIR_CLASSES}
         self._weights.update(weights or {})
         self._vt = {c: 0.0 for c in _FAIR_CLASSES}
@@ -193,7 +203,7 @@ class TransferScheduler:
                 raise TransferError("transfer scheduler thread died") from self._dead_exc
             if self._stop:
                 raise TransferError("transfer scheduler closed")
-            q = self._queues[cls]
+            q = self._queues[_lane(cls)]
             if cls in self._vt and not q:
                 # The class re-enters the fair queue at the current
                 # virtual time.
@@ -267,7 +277,7 @@ class TransferScheduler:
         t0 = time.perf_counter()
         try:
             with trace.span(f"transfer_{item.cls}", label=item.ticket.label):
-                if item.cls == LOCKSTEP and self._lockstep_timeout_s > 0:
+                if item.cls in _ORDERED_CLASSES and self._lockstep_timeout_s > 0:
                     from distributed_ddpg_tpu_torch.parallel import multihost
 
                     ret = multihost.call_with_deadline(
@@ -303,7 +313,7 @@ class TransferScheduler:
                   f"({self.restarts}/{self._max_restarts})", file=sys.stderr, flush=True)
             with self._cv:
                 if item is not None and not item.ticket.done():
-                    self._queues[item.cls].appendleft(item)
+                    self._queues[_lane(item.cls)].appendleft(item)
             self._thread = threading.Thread(target=self._run, daemon=True,
                                             name="transfer-sched")
             self._thread.start()

@@ -1,10 +1,11 @@
 """The fault plan and its sites, against the JAX package's, on the CPU.
 
-- Every spec form of the JAX `--faults` grammar but `slice` parses to the
-  same FaultPlan in both packages (each spec's fields and its seeded
+- Every spec form of the JAX `--faults` grammar parses to the same
+  FaultPlan in both packages (each spec's fields and its seeded
   duration, under two seeds), the legacy `actor:<id>:<step>` alias
-  included; bad specs are refused by both; `slice` raises in the port,
-  citing ROADMAP item 10 (`pod` parses: tests/test_torch_multihost.py).
+  included; bad specs are refused by both; `pod` and `slice` parse as
+  JAX's (their drills: tests/test_torch_multihost.py,
+  tests/test_torch_elastic.py).
 - `for_worker` gives each worker's incarnations the same fault tuples, and
   a site fires the same specs at the same call ordinals.
 - The `--inject_fault` alias and the eight operations fields of the config
@@ -54,6 +55,7 @@ SPECS = [
     "serve:batcher:stall@3", "serve:batcher:hang@2~1", "serve:batcher:slow@4",
     "serve:dispatch:crash@2", "serve:dispatch:slow@6",
     "front:accept:stall@1", "front:accept:slow@2", "front:accept:hang@3~0.7",
+    "slice:1:corrupt@2", "slice:0:kill@3",
     "front:frame:corrupt@4", "front:canary:regress@10", "front:canary:regress@20~0.05",
     "actor:1:300", "actor:0:7",
 ]
@@ -102,15 +104,11 @@ def test_bad_specs_are_refused_by_both(spec):
 
 @pytest.mark.parametrize("spec", ["pod:0:kill@3", "pod:2:slow@1~0.5", "slice:1:kill@2"])
 def test_pod_and_slice_raise_citing_item_10(spec):
-    """`pod` parses as the JAX package's since the pod layer is ported;
-    `slice` (the sharded replay's, the data-plane half of ROADMAP.md Queue
-    1 item 10) still raises, citing the item."""
+    """`pod` and `slice` parse as the JAX package's: the pod layer and the
+    sharded replay's slices are ported (the name is kept from when
+    `slice` still raised, citing ROADMAP item 10)."""
     theirs = jax_faults.FaultPlan.parse(spec)
-    if spec.startswith("slice"):
-        with pytest.raises(ValueError, match="item 10"):
-            faults.FaultPlan.parse(spec)
-    else:
-        assert _plan_tuples(faults.FaultPlan.parse(spec)) == _plan_tuples(theirs)
+    assert _plan_tuples(faults.FaultPlan.parse(spec)) == _plan_tuples(theirs)
 
 
 def test_for_worker_incarnations_match_jax():

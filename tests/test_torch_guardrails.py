@@ -289,18 +289,15 @@ def test_numeric_fault_grammar_rejects_as_jax(spec):
 @pytest.mark.parametrize("spec", ["pod:1:kill@5", "pod:0:exit@3:77",
                                   "slice:0:corrupt@1", "pod:1:hang@2~1.5"])
 def test_other_fault_components_are_refused(spec):
-    """The JAX grammar takes them all; the port refuses `slice` (the data-plane
-    half of ROADMAP.md Queue 1 item 10) and parses `pod` as JAX does."""
+    """The JAX grammar takes them all, and so does the port now: `pod` and
+    `slice` parse as JAX's (the name is kept from when `slice` was still
+    refused, citing ROADMAP.md Queue 1 item 10)."""
     theirs = JaxFaultPlan.parse(spec)
-    if spec.startswith("slice"):
-        with pytest.raises(ValueError, match="not in this slice"):
-            FaultPlan.parse(spec)
-        with pytest.raises(ValueError, match="item 10"):
-            DDPGConfig(faults=spec)
-    else:
-        assert [s.describe() for s in FaultPlan.parse(spec).specs] == \
-            [s.describe() for s in theirs.specs]
-        assert DDPGConfig(faults=spec).fault_plan().pod_site(int(spec.split(":")[1]))
+    assert [s.describe() for s in FaultPlan.parse(spec).specs] == \
+        [s.describe() for s in theirs.specs]
+    plan = DDPGConfig(faults=spec).fault_plan()
+    site = plan.slice_site if spec.startswith("slice") else plan.pod_site
+    assert site(int(spec.split(":")[1]))
 
 
 # --- the guarded chunk on the port's learner ------------------------------------

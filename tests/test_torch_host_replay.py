@@ -418,8 +418,11 @@ def test_replay_refusals_match_jax(over, match):
 
 
 def test_the_port_refuses_what_it_does_not_port_yet():
-    with pytest.raises(ValueError, match="replay_sharding='sharded' is not implemented"):
-        DDPGConfig(replay_sharding="sharded")
+    # The sharded device replay is ported (replay/device.py); the host
+    # replay on more than one rank is not.
+    assert DDPGConfig(replay_sharding="sharded").replay_sharding == "sharded"
+    with pytest.raises(ValueError, match="item 10"):
+        DDPGConfig(model_axis=2)
     with pytest.raises(ValueError, match="item 10"):
         DDPGConfig(host_replay=True, data_axis=2)
     with pytest.raises(ValueError, match="prefetch_depth"):

@@ -11,7 +11,7 @@ JAX package's, on the CPU.
   validation errors, PodStats' snapshot, the three pod config fields'
   defaults, checks and messages, checkpoint.valid_steps on one directory,
   detect_straggler and PodAggregator on the same gathered matrices, and
-  the config fields left to refuse (model_axis and replay_sharding).
+  the config field left to refuse (model_axis).
 - The port's own: _parse_peer on gloo's and NCCL's error texts, the latch
   after a failed pod collective, end_grant, the backend variable, the
   group's derived timeout; the lockstep lane: a ticket fails at its
@@ -314,17 +314,18 @@ def test_pod_config_fields_match_jax():
 
 
 def test_only_the_data_plane_fields_are_refused():
-    """Every JAX config field is the port's now; the two left to refuse are
-    the data-plane half of ROADMAP.md Queue 1 item 10."""
+    """Every JAX config field is the port's now; the one left to refuse is
+    model_axis (ROADMAP.md Queue 1 item 10). The sharded replay and its
+    `slice` faults are accepted."""
     ours = {f.name for f in dataclasses.fields(DDPGConfig)}
     theirs = {f.name for f in dataclasses.fields(JaxConfig)}
     assert theirs - ours == set()
-    assert set(config_mod._NOT_IN_SLICE) == {"model_axis", "replay_sharding"}
-    for bad in (dict(model_axis=2), dict(replay_sharding="sharded")):
-        with pytest.raises(ValueError):
-            DDPGConfig(**bad)
+    assert config_mod._NOT_IN_SLICE == {"model_axis": 1}
     with pytest.raises(ValueError, match="item 10"):
-        faults.FaultPlan.parse("slice:1:corrupt@2")
+        DDPGConfig(model_axis=2)
+    assert DDPGConfig(replay_sharding="sharded").replay_sharding == "sharded"
+    assert [s.describe() for s in faults.FaultPlan.parse("slice:1:corrupt@2").specs] == \
+        ["slice:1:corrupt@2"]
 
 
 def _fake_checkpoint(directory, step: int, payload: bytes) -> None:

@@ -253,9 +253,17 @@ def test_close_fails_pending_tickets():
 
 
 def test_unknown_class_is_refused():
+    # shard_exchange is a class now (the sharded replay's beats); an
+    # unknown name is still refused.
     s = TransferScheduler()
     with pytest.raises(ValueError, match="unknown transfer class"):
-        s.submit("shard_exchange", lambda: None)
+        s.submit("bogus", lambda: None)
+    s.start()
+    try:
+        assert s.submit("shard_exchange", lambda: 7).result(timeout=5) == 7
+        assert s.snapshot()["transfer_shard_exchange_items"] == 1
+    finally:
+        s.close()
 
 
 # --- the adaptive cap ----------------------------------------------------------------

@@ -18,7 +18,8 @@ Jobs (`spec["kind"]`):
   route, global_batch, (PER) the priorities and max priority, and whether
   every rank's state (and priorities) is bit-identical to rank 0's;
 - "train": train() at the job's config, in this rank's group; writes its
-  summary as JSON.
+  summary as JSON;
+- "shard_suite": the sharded replay's cases (tests/torch_shard_child.py).
 """
 
 from __future__ import annotations
@@ -213,6 +214,10 @@ def main(argv) -> int:
                             timeout_s=spec.get("timeout_s", 60.0))
     if spec["kind"] == "chunk":
         out = run_chunk(spec, job, group)
+    elif spec["kind"] == "shard_suite":
+        from torch_shard_child import run_suite
+
+        out = run_suite(spec, job, group)
     else:
         from distributed_ddpg_tpu_torch.config import DDPGConfig
         from distributed_ddpg_tpu_torch.train import train

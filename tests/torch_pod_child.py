@@ -18,11 +18,13 @@ JOB.npz holds a JSON spec:
   for each step of the schedule the node's lead stages that node's rows
   (node_rows, a seeded numpy draw), then every rank takes the step's beat:
   synchronous, background (sync_ship_begin on a TransferScheduler's
-  lockstep lane, then the ticket waited) or forced. Saves the ring.
+  lockstep lane, then the ticket waited) or forced. Saves the ring (with
+  "sharding": "sharded", this rank's slots of it, and the scheduler's
+  lockstep and shard_exchange item counts).
 - kind "onenode": the group has one node: rank 0's rows reach every rank
   through mesh.share_rows, each rank stages and ships them (the one-node path),
-  and a last flush pads the remainder. Saves the ring and the group's
-  node fields.
+  and a last flush pads the remainder. Saves the ring (sharded: this
+  rank's slots) and the group's node fields.
 
 Each rank writes JOB.rank<R>.npz.
 """
@@ -59,8 +61,9 @@ def run_beats(spec, group) -> dict:
     cls = DevicePrioritizedReplay if spec["per"] else DeviceReplay
     rep = cls(spec["capacity"], OBS, ACT, "cpu", block_size=spec["block_size"],
               max_coalesce=spec["max_coalesce"], scheduler=sched, background_sync=bg,
-              pod=group)
+              pod=group, replay_sharding=spec.get("sharding", "replicated"), group=group)
     shipped = []
+    counts_out = {}
     try:
         for step, (counts, force) in enumerate(spec["schedule"]):
             if group.node_lead and counts[group.process_index]:
@@ -73,6 +76,10 @@ def run_beats(spec, group) -> dict:
                 shipped.append(sum(multihost.wait_beat_ticket(t) for t in tickets))
             else:
                 shipped.append(rep.sync_ship(force=force))
+        if sched is not None:
+            snap = sched.snapshot()
+            counts_out = {k: np.array(snap[f"transfer_{k}_items"])
+                          for k in ("lockstep", "shard_exchange")}
     finally:
         if sched is not None:
             sched.close()
@@ -80,7 +87,8 @@ def run_beats(spec, group) -> dict:
     out = dict(storage=rep.storage.numpy().copy(), ptr=np.array(rep.ptr),
                size=np.array(rep.size), shipped=np.array(shipped),
                pending=np.array(rep.pending_rows), node=np.array(group.process_index),
-               node_lead=np.array(group.node_lead), lead_ranks=np.array(group.lead_ranks))
+               node_lead=np.array(group.node_lead), lead_ranks=np.array(group.lead_ranks),
+               local_fill=np.array(rep.local_fill), **counts_out)
     if spec["per"]:
         out["priorities"] = rep.priorities.numpy().copy()
     return out
@@ -90,7 +98,8 @@ def run_one_node(spec, group) -> dict:
     from distributed_ddpg_tpu_torch.parallel import mesh
     from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
 
-    rep = DeviceReplay(spec["capacity"], OBS, ACT, "cpu", block_size=spec["block_size"])
+    rep = DeviceReplay(spec["capacity"], OBS, ACT, "cpu", block_size=spec["block_size"],
+                       replay_sharding=spec.get("sharding", "replicated"), group=group)
     for step, n in enumerate(spec["counts"]):
         rows = node_rows(spec["seed"], 0, step, n) if group.lead else None
         rows = mesh.share_rows(rows, WIDTH, group)
