@@ -129,6 +129,38 @@ Phases (any failure raises; nothing is caught and passed over):
    --max_ingest_ratio=SHARD_INGEST_RATIO): K2's
    launches = 2 x learner steps and no chunk-kernel launch, the replicas
    bit-identical, the replay_* fields, learner and env steps/s.
+3c. Tensor parallelism (tp_phase, on the mesh phase's two ranks as a
+   (data, model) grid of D = 1 x M = 2: parallel/mesh.make_grid,
+   parallel/partition.py): (a) one chunk of TP_K steps on the scan route
+   with K2 at model_axis = 2 against the port's M = 1 chunk on the card
+   from one random state on the same rows and draws, DDPG and D4PG with
+   PER (each its own copy of the priorities), at the bench's shape (obs
+   17, act 6: the critic's action-insert layer row-parallel, cut off
+   layer 0's boundaries) and Pendulum's (obs 3, act 1: that layer
+   replicated): the logical end state, td, metrics (and priorities and
+   max priority) within TP_TOL (tests/test_torch_mesh.py's rtol 2e-5,
+   atol 1e-6, D4PG 2e-4, 1e-5), an output outside refereed by the M = 1
+   chunk in float64 under SHARE_RATIO and DRIFT_RATIO; K2 twice a step
+   and no chunk kernel; the replicated leaves bit-identical across the
+   model group; (b) K2 on each rank's critic and actor shards at the
+   bench's shape, 3 steps, one launch a call, against the plain version
+   (the largest gap in ULP printed) and bit for bit the logical update's
+   slice; (d) a checkpoint saved at M = 1, restored at M = 2, gathered,
+   saved and restored at M = 1, the logical state's sha256 the same at
+   each stage; a rank's learner's bytes on the card
+   (torch.cuda.memory_allocated across its construction, tp_memory) at
+   M = 2 below M = 1's; then the TP main path through train() at D = 1 x M = 2
+   (--model_axis=2 --fused_update=true, TP_K steps a chunk, paced by
+   --max_ingest_ratio=TP_INGEST_RATIO): K2 launches = 2 x learner steps,
+   no chunk-kernel launch, the replicas bit-identical, the mesh_* fields.
+   Beside them, started by rank 0 (TPLaunches): (c) D = 2 x M = 2 through
+   the CLI (torchrun --nproc_per_node=4 of this script's --tp-child under
+   DDPG_DIST_BACKEND=gloo, --replay_sharding=sharded --fused_update=true):
+   exit 0, every rank's K2 launches = 2 x learner steps, the final
+   record's mesh_* fields (a rank's bytes below the logical), bit-identical
+   replicas; (e) `--model_axis=2 --fused_chunk=on` exits with the
+   config's message. Learner steps/s a rank and the phase's seconds are
+   printed beside the card's line: gloo ranks time-slicing one card.
 4. Drive the main paths, `distributed_ddpg_tpu_torch.train` (Pendulum-v1,
    2x256, batch 64, f32, one actor process, K = 800): DDPG with the
    default flags for 20,000 env steps and TD3 with --twin_critic=true
@@ -2016,7 +2048,7 @@ def time_branch(cfg, name: str, k: int, step: int, card: str, eager: bool,
 # --- the mesh phase: two data-parallel ranks over gloo on the one card ------
 
 MESH_RANKS = 2
-MESH_TIMEOUT_S = 600      # the whole phase, both ranks
+MESH_TIMEOUT_S = 800      # the whole phase with 3c, both ranks
 MESH_K = 16               # the mesh launch's checks (the existing K = 16 rule)
 MESH_SUPPORT = (-4.0, 4.0)   # a C51 support far too narrow for Pendulum's returns
 MESH_SUPPORT_K = 200      # learner steps a chunk of the forced expansion
@@ -2435,6 +2467,482 @@ def mesh_sharded(group, card: str, say) -> dict:
                 path=dict(path, launches=launches["fused_update"]))
 
 
+# --- 3c. tensor parallelism (tp_phase): model_axis = 2 on the mesh ranks ---
+
+TP_K = 50                # the TP chunk checks' and main paths' learner chunk
+TP_ENV_STEPS = 3000      # the TP main paths (a few chunks past the warmup)
+TP_INGEST_RATIO = 8      # their --max_ingest_ratio: a few chunks of TP_K to the budget
+TP_2X2_RANKS = 4         # (c): D = 2 x M = 2 through the CLI (torchrun, gloo, one card)
+TP_2X2_TIMEOUT_S = 420   # (c) from its start to its end, beside the two ranks' checks
+# (a)'s tolerances: tests/test_torch_mesh.py's (rtol, atol), D4PG's wider.
+TP_TOL = {False: (2e-5, 1e-6), True: (2e-4, 1e-5)}
+
+
+def _tp_flat(state, td, metrics) -> dict:
+    """A chunk's outputs by piece: each state field's leaves flat, td and
+    each metric."""
+    from distributed_ddpg_tpu_torch.learner import METRIC_KEYS, state_items
+
+    out = {}
+    for path, t in state_items(state):
+        if t.is_floating_point():
+            field = path.split("/")[0]
+            out.setdefault(field, []).append(t.detach().reshape(-1).double().cpu())
+    out = {k: torch.cat(v).numpy() for k, v in out.items()}
+    out["td"] = td.detach().double().cpu().numpy().reshape(-1)
+    for n in METRIC_KEYS:
+        out[n] = np.array([float(metrics[n])])
+    return out
+
+
+def tp_chunk_check(cfg, group, obs: int, act: int, per: bool, say) -> dict:
+    """(a): one chunk of TP_K steps on the scan route with K2 at
+    model_axis = 2 (the two mesh ranks: D = 1 x M = 2) against the port's
+    M = 1 chunk on the card, from one random state, on the same rows and
+    draws (under PER the same indices and weights, and each its own copy
+    of the replay's priorities). The logical end state, td, the metrics
+    (and the priorities and max priority) within TP_TOL; an output outside
+    is refereed by the same M = 1 chunk in float64 (the stock update:
+    K2 is f32), under SHARE_RATIO and DRIFT_RATIO against the M = 1 f32
+    chunk's own miss. K2 must have launched twice a step and no chunk
+    kernel at all; the replicated leaves bit-identical across the model
+    group (replicas_equal with the shards marked)."""
+    from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
+    from distributed_ddpg_tpu_torch.ops._build import KERNEL_LAUNCHES
+    from distributed_ddpg_tpu_torch.parallel import mesh
+    from distributed_ddpg_tpu_torch.parallel.learner import (
+        ShardedLearner,
+        make_scan_chunk_fn,
+        state_tensors,
+    )
+    from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay, DeviceReplay
+
+    k, b, fam = TP_K, cfg.batch_size, "d4pg" if cfg.distributional else "ddpg"
+    label = (f"TP chunk {fam}{' PER' if per else ''} K2 D=1 M={group.world_size} "
+             f"obs={obs} act={act} K={k} B={b}")
+    state_np = random_state_np(cfg, obs, act, seed=obs, step=1000)
+    rows = random_batches(seed=400 + obs, k=1, b=4096, obs=obs, act=act)[0].cpu().numpy()
+    cls = DevicePrioritizedReplay if per else DeviceReplay
+    reps = []
+    for _ in range(2):
+        rep = cls(4096, obs, act, "cuda", block_size=1024)
+        rep.add_packed(rows)
+        if per:
+            g = torch.Generator(device="cuda").manual_seed(401)
+            rep.set_per_state(torch.rand(4096, generator=g, device="cuda") + 0.5,
+                              torch.tensor(1.5, device="cuda"))
+        reps.append(rep)
+    gen = torch.Generator(device="cuda").manual_seed(402 + obs)
+    idx = torch.randint(0, 4096, (k, b), generator=gen, device="cuda")
+    w = torch.rand((k, b), generator=gen, device="cuda") * 0.5 + 0.5
+    outs = {}
+    for m, rep in zip((group.world_size, 1), reps):
+        c = cfg.replace(model_axis=m)
+        lrn = ShardedLearner(c, obs, act, 2.0, 0.0, chunk_size=k,
+                             group=group if m > 1 else None,
+                             state=train_state_from_numpy(state_np, "cuda"))
+        KERNEL_LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = (lrn.run_sample_chunk_per(rep, 0.5, idx=idx, weights=w) if per
+               else lrn.run_sample_chunk(rep, idx=idx))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(KERNEL_LAUNCHES)
+        if launches != {"fused_update": 2 * k} or lrn.route(per=per) != "scan":
+            raise AssertionError(f"{label} M={m}: route {lrn.route(per=per)}, launches "
+                                 f"{launches}")
+        outs[m] = dict(lrn=lrn, flat=_tp_flat(lrn.logical_state(), out.td_errors, out.metrics),
+                       secs=secs)
+        if per:
+            outs[m]["flat"]["priorities"] = rep.priorities.double().cpu().numpy()
+            outs[m]["flat"]["max_priority"] = np.array([float(rep.max_priority)])
+    tp = outs[group.world_size]["lrn"]
+    replicas = mesh.replicas_equal(state_tensors(tp.state), tp.group, sharded=tp.state_sharded())
+    rtol, atol = TP_TOL[bool(cfg.distributional)]
+    got, want = outs[group.world_size]["flat"], outs[1]["flat"]
+    worst, failed = 0.0, []
+    for name in want:
+        err = np.abs(got[name] - want[name])
+        worst = max(worst, float(err.max()))
+        if not np.all(err <= atol + rtol * np.abs(want[name])):
+            failed.append(name)
+    if failed:
+        # The referee: the M = 1 chunk in float64 on the card (stock update).
+        c64 = cfg.replace(fused_update=False)
+        run = make_scan_chunk_fn(c64, obs, act, 2.0, 0.0, chunk_size=k)
+        packed = reps[1].storage[idx].double().clone() if not per else None
+        if per:
+            packed = torch.from_numpy(rows).cuda()[idx].double()
+            packed[..., -1] = w.double()
+        s64 = to_double(train_state_from_numpy(state_np, "cuda"))
+        new, td64, met64 = run(s64, packed, None, 1000)
+        exact = _tp_flat(new, td64, met64)
+        if per:
+            from distributed_ddpg_tpu_torch.replay.device import scatter_last_wins
+
+            g = torch.Generator(device="cuda").manual_seed(401)
+            prios = (torch.rand(4096, generator=g, device="cuda") + 0.5).double()
+            new_p = (td64.abs() + reps[1].eps) ** reps[1].alpha
+            scatter_last_wins(prios, idx.reshape(-1), new_p.reshape(-1))
+            exact["priorities"] = prios.cpu().numpy()
+            exact["max_priority"] = np.array([max(1.5, float(new_p.max()))])
+        bad = []
+        for name in failed:
+            if name not in exact:
+                bad.append(name)
+                continue
+            tight = TIGHT_TOL["atol"] + TIGHT_TOL["rtol"] * np.abs(exact[name])
+            e_t, e_1 = np.abs(got[name] - exact[name]), np.abs(want[name] - exact[name])
+            share_t, share_1 = float((e_t > tight).mean()), float((e_1 > tight).mean())
+            ok = (share_t <= SHARE_RATIO * share_1 + TIGHT_FRAC
+                  and bool(np.all(e_t <= DRIFT_RATIO * float(e_1.max()) + tight)))
+            say(f"  {label} {name} against the float64 M=1 chunk: TP max {e_t.max():.3e} "
+                f"({share_t:.2e} outside TIGHT_TOL), M=1 f32 max {e_1.max():.3e} "
+                f"({share_1:.2e})" + ("" if ok else " -- fails SHARE_RATIO or DRIFT_RATIO"))
+            if not ok:
+                bad.append(name)
+        if bad:
+            raise AssertionError(f"{label}: {', '.join(bad)} outside rtol {rtol} atol {atol} "
+                                 "and the float64 referee")
+    say(f"  {label}: the logical end state, td, metrics"
+        + (", priorities and max_priority" if per else "")
+        + f" against the M=1 chunk on the card: max_abs_err={worst:.3e} (rtol {rtol}, atol "
+        f"{atol}{'; refereed: ' + ', '.join(failed) if failed else ''}); K2 launches "
+        f"{2 * k} each; the replicated leaves bit-identical across the model group: "
+        f"{replicas}; {outs[group.world_size]['secs'] * 1e3:.1f} ms the TP chunk, "
+        f"{outs[1]['secs'] * 1e3:.1f} ms the M=1 chunk (host clock, first call)")
+    if not replicas:
+        raise AssertionError(f"{label}: the replicas differ")
+    return dict(max_abs_err=worst, refereed=failed, tp_chunk_ms=outs[group.world_size]["secs"]
+                * 1e3, m1_chunk_ms=outs[1]["secs"] * 1e3)
+
+
+def tp_update_check(group, say) -> dict:
+    """(b): K2 on a rank's shards at the bench's shape (2x256, obs 17, act
+    6): the critic's and the actor's shard trees of one random state, 3
+    steps with the same gradients, one launch a call, against the plain
+    version on the same shards (largest gap in ULP printed, 0 expected)
+    and against the logical update's slice (shard_tree of K2 on the whole
+    tree): bit for bit. The plain version runs on the card, as
+    check_fused_update's does."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
+    from distributed_ddpg_tpu_torch.ops import fused_update as fu
+    from distributed_ddpg_tpu_torch.ops._build import KERNEL_LAUNCHES
+    from distributed_ddpg_tpu_torch.ops.optim import tree_leaves
+    from distributed_ddpg_tpu_torch.parallel import partition
+
+    m, r = group.world_size, group.rank
+    cfg = DDPGConfig()
+    logical = train_state_from_numpy(random_state_np(cfg, 17, 6, seed=21), "cuda")
+    specs = partition.state_pspec(logical, m)
+    rng = np.random.default_rng(22)
+    out, ulps, worst = {}, 0, 0.0
+    for net in ("critic", "actor"):
+        p, o, t = (getattr(logical, f"{net}_params"), getattr(logical, f"{net}_opt"),
+                   getattr(logical, f"target_{net}_params"))
+        spec = getattr(specs, f"{net}_params")
+        grads = [tuple({k: torch.from_numpy((1e-2 * rng.standard_normal(tuple(v.shape))
+                                             ).astype(np.float32)).cuda()
+                        for k, v in layer.items()} for layer in p) for _ in range(3)]
+
+        def cut(tree):
+            return partition.shard_tree(tree, spec, r, m)
+
+        sp, so, st = cut(p), o._replace(mu=cut(o.mu), nu=cut(o.nu)), cut(t)
+        rp, ro, rt = sp, so, st
+        lp, lo, lt = p, o, t
+        shards = sum(x.numel() for x in tree_leaves(sp))
+        for i in range(3):
+            g = cut(grads[i])
+            before = KERNEL_LAUNCHES["fused_update"]
+            sp, so, st = fu.fused_adam_polyak(sp, g, so, st, 1e-3, 0.05)
+            if KERNEL_LAUNCHES["fused_update"] - before != 1:
+                raise AssertionError(f"K2 on {net} shards: "
+                                     f"{KERNEL_LAUNCHES['fused_update'] - before} launches a call")
+            rp, ro, rt = fu.fused_adam_polyak_reference(rp, g, ro, rt, 1e-3, 0.05)
+            lp, lo, lt = fu.fused_adam_polyak(lp, grads[i], lo, lt, 1e-3, 0.05)
+        torch.cuda.synchronize()
+        same = True
+        for name, got, plain, whole in (("params", sp, rp, lp), ("mu", so.mu, ro.mu, lo.mu),
+                                        ("nu", so.nu, ro.nu, lo.nu), ("targets", st, rt, lt)):
+            a = torch.cat([x.reshape(-1) for x in tree_leaves(got)]).cpu().numpy()
+            b = torch.cat([x.reshape(-1) for x in tree_leaves(plain)]).cpu().numpy()
+            s = torch.cat([x.reshape(-1) for x in tree_leaves(cut(whole))]).cpu().numpy()
+            err = np.abs(a.astype(np.float64) - b)
+            worst, ulps = max(worst, float(err.max())), max(ulps, ulp_gap(a, b))
+            if not np.all(err <= 1e-7 + 1e-6 * np.abs(b.astype(np.float64))):
+                raise AssertionError(f"K2 on {net} shards: {name} outside rtol 1e-6, atol 1e-7 "
+                                     f"of the plain version (max_abs_err {err.max():.3e})")
+            same = same and a.tobytes() == s.tobytes()
+        if not same or int(so.count) != int(o.count) + 3:
+            raise AssertionError(f"K2 on {net} shards: not the logical update's slice bit for "
+                                 f"bit ({same}), count {int(so.count)}")
+        out[net] = shards
+        say(f"  K2 on rank {r}'s {net} shards ({shards} elements of "
+            f"{sum(x.numel() for x in tree_leaves(p))}), 3 steps, one launch a call: "
+            f"bit for bit the logical update's slice: {same}")
+    say(f"  K2 on shards against the plain version: max_abs_err={worst:.3e}, largest gap "
+        f"{ulps} ulp")
+    return dict(max_abs_err=worst, ulp=ulps, shard_elements=out)
+
+
+def tp_checkpoint(group, out_dir: str, say) -> dict:
+    """(d): a random state (TD3, the bench's shape) saved at M = 1 by rank
+    0, restored on both ranks at M = 2 (each rank's shards the logical
+    blocks), gathered and saved again by rank 0, restored at M = 1: the
+    sha256 of the logical state the same at every stage."""
+    import hashlib
+
+    from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.learner import (
+        train_state_from_numpy,
+        train_state_to_flat,
+    )
+    from distributed_ddpg_tpu_torch.parallel import mesh
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+
+    def sha(state) -> str:
+        h = hashlib.sha256()
+        for path, a in sorted(train_state_to_flat(state).items()):
+            h.update(path.encode())
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()
+
+    cfg = DDPGConfig(twin_critic=True, policy_delay=2, target_noise=0.2)
+    logical = train_state_from_numpy(random_state_np(cfg, 17, 6, seed=23), "cuda")
+    src, dst = os.path.join(out_dir, "tp_ckpt_m1"), os.path.join(out_dir, "tp_ckpt_m2")
+    if group.lead:
+        ckpt_lib.save(src, 9, logical, config=cfg)
+    mesh.share([0], group)
+    lrn = ShardedLearner(cfg.replace(model_axis=group.world_size), 17, 6, 2.0, 0.0,
+                         group=group)
+    restored, step, _ = ckpt_lib.restore(src, lrn.state_template(), device=lrn.device)
+    lrn.load_state(restored)
+    gathered = lrn.logical_state()
+    if group.lead:
+        ckpt_lib.save(dst, step, gathered, config=cfg)
+    mesh.share([0], group)
+    back, step2, _ = ckpt_lib.restore(dst, logical)
+    shas = dict(saved=sha(logical), at_m2=sha(gathered), back_at_m1=sha(back))
+    ok = len(set(shas.values())) == 1 and step == step2 == 9
+    say(f"  checkpoint across model_axis (TD3, obs 17, act 6): saved at M=1, restored at "
+        f"M={group.world_size}, gathered and saved, restored at M=1: sha256 "
+        f"{shas['saved'][:16]}... at every stage: {ok}")
+    if not ok:
+        raise AssertionError(f"checkpoint across model_axis: {shas}, steps {step} {step2}")
+    return dict(sha256=shas["saved"], same=ok)
+
+
+def tp_memory(group, say) -> dict:
+    """A rank's learner on the card (torch.cuda.memory_allocated across its
+    construction; DDPG with K2, 2x256, obs 17, act 6): at M = 1 (one rank,
+    the whole state) and at M = M_mesh (its shards and the logical actor
+    it gathers for the actors). The second must be below the first."""
+    import gc
+
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, state_tensors
+
+    cfg = DDPGConfig(fused_update=True, seed=29)
+    alloc, held = {}, {}
+    for m, g in ((1, None), (group.world_size, group)):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        lrn = ShardedLearner(cfg.replace(model_axis=m), 17, 6, 2.0, 0.0, group=g)
+        torch.cuda.synchronize()
+        alloc[m] = torch.cuda.memory_allocated() - before
+        held[m] = sum(t.numel() * t.element_size() for t in state_tensors(lrn.state))
+        del lrn
+    m = group.world_size
+    say(f"  a rank's learner on the card (torch.cuda.memory_allocated across its "
+        f"construction): {alloc[1]} bytes at M=1, {alloc[m]} at M={m}; its state tensors "
+        f"{held[1]} and {held[m]} bytes")
+    if not alloc[m] < alloc[1]:
+        raise AssertionError(f"a rank's learner at M={m} holds {alloc[m]} bytes, not below "
+                             f"M=1's {alloc[1]}")
+    return dict(alloc_bytes={str(k): v for k, v in alloc.items()},
+                state_bytes={str(k): v for k, v in held.items()})
+
+
+def tp_main_path(group, card: str, say) -> dict:
+    """The TP main path through train() at D = 1 x M = 2 (the CLI's parser,
+    --model_axis=2 --fused_update=true, Pendulum 2x256, TP_K steps a chunk,
+    paced by --max_ingest_ratio=TP_INGEST_RATIO): the launch counts zeroed
+    just before and read just after: K2 twice a learner step and no chunk
+    kernel; the replicas bit-identical; the mesh_* fields."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.learner import METRIC_KEYS
+    from distributed_ddpg_tpu_torch.ops._build import KERNEL_LAUNCHES
+    from distributed_ddpg_tpu_torch.parallel.learner import resolve_learner_chunk
+    from distributed_ddpg_tpu_torch.train import train
+
+    flags = ["--num_actors=1", "--replay_min_size=1000", "--eval_every=0", "--eval_episodes=1",
+             f"--total_env_steps={TP_ENV_STEPS}", f"--learner_chunk={TP_K}",
+             f"--max_ingest_ratio={TP_INGEST_RATIO}", "--fused_update=true",
+             f"--model_axis={group.world_size}"]
+    cfg = DDPGConfig.from_flags(flags)
+    KERNEL_LAUNCHES.clear()
+    t0 = time.monotonic()
+    summary = train(cfg, echo=False, group=group)
+    launches = dict(KERNEL_LAUNCHES)
+    keys = ("route", "data_axis", "global_batch", "chunks", "learner_steps",
+            "learner_steps_per_sec", "env_steps", "env_steps_per_sec", "replicas_identical",
+            "mesh_data_axis", "mesh_model_axis", "mesh_param_bytes_per_device",
+            "mesh_param_bytes_total")
+    path = {k: summary[k] for k in keys}
+    say(f"[tp path D=1 M={group.world_size}] {card}: {time.monotonic() - t0:.1f}s, launches "
+        f"{launches}: " + json.dumps(path))
+    if (summary["route"] != "scan" or summary["chunks"] < 1
+            or launches != {"fused_update": 2 * summary["learner_steps"]}
+            or summary["learner_steps"] != summary["chunks"] * resolve_learner_chunk(cfg)
+            or summary["replicas_identical"] is not True
+            or summary["mesh_model_axis"] != group.world_size
+            or not summary["mesh_param_bytes_per_device"] < summary["mesh_param_bytes_total"]
+            or not all(math.isfinite(summary[k]) for k in METRIC_KEYS)):
+        raise AssertionError(f"TP main path: {summary}, launches {launches}")
+    return dict(path, launches=launches["fused_update"], seconds=time.monotonic() - t0)
+
+
+TP_2X2_FLAGS = ["--num_actors=1", "--replay_min_size=1000", "--eval_every=0",
+                "--eval_episodes=1", f"--total_env_steps={TP_ENV_STEPS}",
+                f"--learner_chunk={TP_K}", f"--max_ingest_ratio={TP_INGEST_RATIO}",
+                "--fused_update=true", "--replay_sharding=sharded", "--data_axis=2",
+                "--model_axis=2"]
+
+
+class TPLaunches:
+    """(c) and (e), started beside the two ranks' checks and finished after
+    them: (c) D = 2 x M = 2 through the CLI, `torchrun --nproc_per_node=4`
+    of this script's `--tp-child` (train.main with the launch counts read
+    at its end) under DDPG_DIST_BACKEND=gloo on the one card, with
+    TP_2X2_FLAGS; (e) `python -m distributed_ddpg_tpu_torch.train
+    --model_axis=2 --fused_chunk=on`, which must exit with the config's
+    message."""
+
+    def __init__(self, out_dir: str):
+        self.log_path = os.path.join(out_dir, "tp2x2.jsonl")
+        self.reports = os.path.join(out_dir, "tp2x2_launches")
+        self.out = open(os.path.join(out_dir, "tp2x2.out"), "w+")
+        env = dict(os.environ, DDPG_DIST_BACKEND="gloo", TP_CHILD_REPORT=self.reports)
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run",
+             f"--nproc_per_node={TP_2X2_RANKS}", f"--master_port={free_port()}",
+             os.path.abspath(__file__), "--tp-child", *TP_2X2_FLAGS,
+             f"--log_path={self.log_path}"],
+            stdout=self.out, stderr=subprocess.STDOUT, env=env)
+        self.refusal = subprocess.Popen(
+            [sys.executable, "-m", "distributed_ddpg_tpu_torch.train", "--model_axis=2",
+             "--fused_chunk=on"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish(self, card: str, say) -> dict:
+        try:
+            _, err = self.refusal.communicate(timeout=120)
+            rc = self.proc.wait(timeout=max(1.0, TP_2X2_TIMEOUT_S
+                                            - (time.monotonic() - self.t0)))
+        finally:
+            self.stop()
+        secs = time.monotonic() - self.t0
+        want = ("model_axis > 1 shards the param tensors the Pallas megakernel needs "
+                "VMEM-whole — incompatible with fused_chunk='on'")
+        refused = self.refusal.returncode != 0 and want in err
+        say(f"  (e) --model_axis=2 --fused_chunk=on: exit {self.refusal.returncode}, the "
+            f"config's message: {refused}")
+        if not refused:
+            raise AssertionError(f"(e) the refusal: exit {self.refusal.returncode}, "
+                                 f"{err[-1500:]}")
+        self.out.seek(0)
+        text = self.out.read()
+        children = []
+        for r in range(TP_2X2_RANKS):
+            path = f"{self.reports}.rank{r}.json"
+            if os.path.exists(path):
+                with open(path) as f:
+                    children.append(json.load(f))
+        if rc != 0 or len(children) != TP_2X2_RANKS:
+            raise AssertionError(f"(c) D=2 x M=2 through the CLI: exit {rc}, "
+                                 f"{len(children)} rank reports:\n{text[-4000:]}")
+        with open(self.log_path) as f:
+            final = [json.loads(line) for line in f if line.strip()][-1]
+        mesh_keys = ("mesh_data_axis", "mesh_model_axis", "mesh_param_bytes_per_device",
+                     "mesh_param_bytes_total")
+        rec = {k: final[k] for k in mesh_keys + ("route", "learner_steps", "chunks",
+                                                   "learner_steps_per_sec", "env_steps_per_sec",
+                                                   "replicas_identical", "replay_shard_count")}
+        steps = final["learner_steps"]
+        ok = (final["kind"] == "final" and final["replicas_identical"] is True
+              and final["mesh_data_axis"] == 2 and final["mesh_model_axis"] == 2
+              and final["mesh_param_bytes_per_device"] < final["mesh_param_bytes_total"]
+              and final["route"] == "scan" and final["replay_shard_count"] == 2
+              and all(c["launches"] == {"fused_update": 2 * steps} for c in children))
+        say(f"[tp path D=2 M=2 CLI] {card}: exit {rc} in {secs:.1f}s (gloo, four ranks on one "
+            f"card), launches a rank {[c['launches'] for c in children]}: " + json.dumps(rec))
+        if not ok:
+            raise AssertionError(f"(c) D=2 x M=2: {final}, children {children}")
+        return dict(rec, launches=children[0]["launches"]["fused_update"], seconds=secs)
+
+    def stop(self) -> None:
+        for p in (self.proc, self.refusal):
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def tp_child(flags) -> int:
+    """One rank of (c) under torchrun (`--tp-child`): train.main on the
+    flags with TF32 off and the launch counts zeroed just before; writes
+    {"rank": r, "launches": {...}} after it to $TP_CHILD_REPORT.rank<r>.json
+    (a file a rank: the ranks share one stdout)."""
+    from distributed_ddpg_tpu_torch.ops._build import KERNEL_LAUNCHES
+    from distributed_ddpg_tpu_torch.train import main as train_main
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    KERNEL_LAUNCHES.clear()
+    train_main(flags)
+    rank = int(os.environ.get("RANK", "0"))
+    with open(f"{os.environ['TP_CHILD_REPORT']}.rank{rank}.json", "w") as f:
+        json.dump({"rank": rank, "launches": dict(KERNEL_LAUNCHES)}, f)
+    return 0
+
+
+def tp_phase(group, out_dir: str, card: str, say) -> dict:
+    """3c (module docstring) on the mesh phase's two ranks at D = 1 x
+    M = 2, (c) and (e) beside them on rank 0's side."""
+    t0 = time.monotonic()
+    launches = TPLaunches(out_dir) if group.lead else None
+    try:
+        from distributed_ddpg_tpu_torch.config import DDPGConfig
+
+        record = {"chunks": {}}
+        d4pg = DDPGConfig(distributional=True, v_min=-10.0, v_max=10.0, fused_update=True,
+                          prioritized=True)
+        for obs, act in ((17, 6), (3, 1)):
+            record["chunks"][f"ddpg_{obs}_{act}"] = tp_chunk_check(
+                DDPGConfig(fused_update=True), group, obs, act, False, say)
+            record["chunks"][f"d4pg_per_{obs}_{act}"] = tp_chunk_check(
+                d4pg, group, obs, act, True, say)
+        record["k2_on_shards"] = tp_update_check(group, say)
+        record["checkpoint"] = tp_checkpoint(group, out_dir, say)
+        record["memory"] = tp_memory(group, say)
+        record["path"] = tp_main_path(group, card, say)
+        if launches is not None:
+            record["cli_2x2"] = launches.finish(card, say)
+    finally:
+        if launches is not None:
+            launches.stop()
+    record["seconds"] = time.monotonic() - t0
+    say(f"[tp] {card}: the TP phase took {record['seconds']:.1f}s; learner steps/s a rank "
+        f"{record['path']['learner_steps_per_sec']} at D=1 M=2"
+        + (f", {record['cli_2x2']['learner_steps_per_sec']} at D=2 M=2 (CLI)"
+           if "cli_2x2" in record else "")
+        + " -- gloo ranks time-slicing one card (NCCL refuses two ranks on one device)")
+    return record
+
+
 def mesh_rank(rank: int, out_dir: str, card: str) -> int:
     """One rank of the mesh phase (see mesh_phase): joins the gloo group on
     the card; holds the mesh launch against its plain version for DDPG,
@@ -2485,6 +2993,8 @@ def mesh_rank(rank: int, out_dir: str, card: str) -> int:
             group, say, "scan"),
     }
     record["sharded"] = mesh_sharded(group, card, say)
+    say(f"[phase] mesh phase without TP done at {time.monotonic() - t0:.1f}s")
+    record["tp"] = tp_phase(group, out_dir, card, say)
     say(f"[phase] mesh phase done at {time.monotonic() - t0:.1f}s")
     if group.lead:
         with open(os.path.join(out_dir, "rank0.json"), "w") as f:
@@ -5094,7 +5604,13 @@ def main() -> int:
     # sharded path (the JAX learner's rule).
     paths["fused_update"]["sharded_mesh"] = mesh_record["sharded"]["path"]["launches"]
     paths["fused_update"]["sharded_shrink_generation2"] = pod["shrink"]["launches"]
-    update_launches = {"fused_update": paths["fused_update"]["sharded_mesh"]}
+    # This slice's paths (3c): K2 on each rank's shards on the TP main path
+    # at D = 1 x M = 2 (train() on the mesh ranks) and at D = 2 x M = 2
+    # through the CLI (a rank's count); K1 runs on no TP path (the JAX
+    # learner's rule: model_axis > 1 keeps it off).
+    paths["fused_update"]["tp_mesh"] = mesh_record["tp"]["path"]["launches"]
+    paths["fused_update"]["tp_2x2_cli"] = mesh_record["tp"]["cli_2x2"]["launches"]
+    update_launches = {"fused_update": paths["fused_update"]["tp_mesh"]}
 
     # --- 5. timing at the main path's shapes ---
     timing = {
@@ -5158,4 +5674,6 @@ if __name__ == "__main__":
         sys.exit(watchdog_drill_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--pod-child"]:
         sys.exit(pod_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-child"]:
+        sys.exit(tp_child(sys.argv[2:]))
     sys.exit(main())

@@ -38,7 +38,12 @@ and restore (with step=None the newest-first walk: verify, quarantine on
 failure, check the config outside the load's try, fall back past a load
 error; an explicit step has no fallback) and discard_above (the
 guardrails' rollback: checkpoints newer than the restored step become
-diverged_step_<N>). `pod_dir` is a pod node's own directory for its
+diverged_step_<N>). A checkpoint holds the logical state, as the JAX
+package's does: under model_axis > 1 every rank gathers its shards over
+its model group (parallel/learner.ShardedLearner.logical_state) and rank
+0 writes; a restore takes the logical template (state_template) and
+load_state keeps each rank's shards, so a run resumes at another
+model_axis, bit for bit. `pod_dir` is a pod node's own directory for its
 emergency checkpoint after a peer loss (JAX train.py's pod_ckpt_dir):
 node 0 writes into the checkpoint directory, node k into its proc<k>
 subdirectory, so a shared filesystem never has two writers on one step.
@@ -516,10 +521,13 @@ def _load_npz(path: str) -> Dict[str, np.ndarray]:
 def restore(directory: str, state_template: TrainState, replay=None,
             step: Optional[int] = None, config=None,
             meta_out: Optional[Dict[str, Any]] = None,
-            at_most: Optional[int] = None) -> Tuple[TrainState, int, int]:
+            at_most: Optional[int] = None,
+            device=None) -> Tuple[TrainState, int, int]:
     """Restore (TrainState, step, env_steps); `replay`, when given, is
-    filled in place. The state comes back on the template's device, with
-    the template's paths and shapes (else a ValueError). With `config` the
+    filled in place. The state comes back on `device` (by default the
+    template's: a template of meta tensors, a tensor-parallel learner's
+    state_template, needs it), with the template's paths and shapes (else
+    a ValueError). With `config` the
     checkpoint's config is checked first. `meta_out` receives, for an
     auto support, "v_bounds" (lo, hi), and where the checkpoint carries the
     device actors' sidecar, "devactor_carry" (its leaves as host arrays:
@@ -554,7 +562,7 @@ def restore(directory: str, state_template: TrainState, replay=None,
                 check_config_compatible(directory, s, config)
             try:
                 return restore(directory, state_template, replay=replay, step=s,
-                               meta_out=meta_out)
+                               meta_out=meta_out, device=device)
             except Exception as e:
                 print(f"[checkpoint] step_{s} failed to load ({e!r}); falling back "
                       "to the previous retained checkpoint", file=sys.stderr, flush=True)
@@ -565,7 +573,7 @@ def restore(directory: str, state_template: TrainState, replay=None,
         check_config_compatible(directory, step, config)
     path = os.path.join(os.path.abspath(directory), f"step_{step}")
     state = train_state_from_flat(_load_npz(os.path.join(path, STATE_FILE)),
-                                  state_template.step.device)
+                                  device or state_template.step.device)
     if state_signature(state) != state_signature(state_template):
         raise ValueError(f"checkpoint step_{step}'s state does not match this run's "
                          "learner (paths, shapes or dtypes)")

@@ -40,8 +40,15 @@ one rank (item 10, its data-plane half).
 `replay_sharding='sharded'` splits the device replay over the data-parallel
 ranks (replay/device.py; the JAX package's checks): the learner takes the
 scan route, and every rank writes its slice of the ring at each
-checkpoint. `model_axis` > 1 is the one option left outside the port
-(ROADMAP.md Queue 1 item 10).
+checkpoint.
+
+`model_axis` > 1 is tensor parallelism (parallel/partition.py): a
+(data, model) grid of D x M ranks, each rank holding its shards of the
+params and Adam moments under the Megatron rule tables, with the JAX
+package's checks and messages. The learner takes the scan route (K2
+under fused_update on each rank's shards). What runs on one rank only
+(device actors, the fused beat, the monolith, serving, the host replay,
+guardrails) is refused under model_axis > 1 as on D > 1 ranks.
 
 `sync_ship_background`, `pod_collective_timeout_s` and
 `pod_startup_grace_s` are the JAX package's pod fields, with its defaults
@@ -58,12 +65,6 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Sequence
-
-
-# Options outside this slice: field -> the value that means "off".
-_NOT_IN_SLICE = {
-    "model_axis": 1,
-}
 
 
 def resolve_device_actor_chunk(config: "DDPGConfig") -> int:
@@ -438,8 +439,8 @@ class DDPGConfig:
     # Queue-depth share where the lowest priority class starts to shed.
     front_shed_start: float = 0.5
 
-    # --- the sharded device replay (replay/device.py) and the option
-    # outside this slice (see _NOT_IN_SLICE) ---
+    # --- tensor parallelism (parallel/partition.py) and the sharded
+    # device replay (replay/device.py) ---
     model_axis: int = 1
     replay_sharding: str = "replicated"
 
@@ -528,6 +529,54 @@ class DDPGConfig:
             args["faults"] = ";".join(filter(None, [args["faults"], legacy]))
         return cls(**args)
 
+    def _many_ranks(self) -> bool:
+        """More than one rank is asked for: data_axis > 1 or model_axis > 1."""
+        return self.data_axis not in (-1, 1) or self.model_axis > 1
+
+    def _ranks_knob(self) -> str:
+        """The field that asks for more than one rank, as `name=value`."""
+        if self.model_axis > 1:
+            return f"model_axis={self.model_axis}"
+        return f"data_axis={self.data_axis}"
+
+    def _check_model_axis(self) -> None:
+        """The JAX package's tensor-parallel checks and messages (its
+        config.py)."""
+        if self.model_axis < 1:
+            raise ValueError(
+                f"model_axis must be >= 1, got {self.model_axis} (1 = "
+                "data-parallel only)"
+            )
+        if self.model_axis > 1:
+            if self.backend == "native":
+                raise ValueError(
+                    "model_axis > 1 shards params over a jax mesh; the "
+                    "native numpy backend has no mesh — use "
+                    "backend='jax_tpu' (or 'jax_ondevice'), or set "
+                    "model_axis=1"
+                )
+            if self.fused_chunk == "on":
+                raise ValueError(
+                    "model_axis > 1 shards the param tensors the Pallas "
+                    "megakernel needs VMEM-whole — incompatible with "
+                    "fused_chunk='on'; use fused_chunk='auto' (degrades "
+                    "to the XLA scan path) or 'off', or set model_axis=1"
+                )
+            for knob in ("actor_hidden", "critic_hidden"):
+                bad = [
+                    d for d in getattr(self, knob)
+                    if d % self.model_axis != 0
+                ]
+                if bad:
+                    raise ValueError(
+                        f"model_axis={self.model_axis} cannot shard "
+                        f"{knob}={tuple(getattr(self, knob))}: hidden "
+                        f"dim(s) {bad} do not divide the model axis, so "
+                        "every layer would silently replicate and TP "
+                        f"would buy nothing — pick {knob} dims divisible "
+                        f"by {self.model_axis}, or lower model_axis"
+                    )
+
     def __post_init__(self):
         # The JAX package's backend gate and message (its config.py).
         if self.backend not in ("native", "jax_tpu", "jax_ondevice"):
@@ -535,9 +584,10 @@ class DDPGConfig:
                 "backend must be 'native', 'jax_tpu', or 'jax_ondevice', "
                 f"got {self.backend!r}"
             )
-        if self.backend == "jax_ondevice" and self.data_axis not in (-1, 1):
+        self._check_model_axis()
+        if self.backend == "jax_ondevice" and self._many_ranks():
             raise ValueError(
-                f"backend='jax_ondevice' with data_axis={self.data_axis} is not in this "
+                f"backend='jax_ondevice' with {self._ranks_knob()} is not in this "
                 "slice of the PyTorch port: the monolith over a data-parallel group "
                 "comes with ROADMAP.md Queue 1 item 10 (its data-plane half); run it on one rank"
             )
@@ -717,9 +767,9 @@ class DDPGConfig:
                     "composition and dispatch timing are wall-clock-driven, "
                     "which breaks the bit-identical-two-runs contract"
                 )
-            if self.data_axis not in (-1, 1):
+            if self._many_ranks():
                 raise ValueError(
-                    f"serve_actors=True with data_axis={self.data_axis} is not in this "
+                    f"serve_actors=True with {self._ranks_knob()} is not in this "
                     "slice of the PyTorch port: serving beside a data-parallel learner "
                     "comes with ROADMAP.md Queue 1 item 10 (its data-plane half); serve on one rank"
                 )
@@ -844,9 +894,9 @@ class DDPGConfig:
                     "in unspecified order. Shrink the chunk/env count or "
                     "grow the replay"
                 )
-            if self.data_axis not in (-1, 1):
+            if self._many_ranks():
                 raise ValueError(
-                    f"actor_backend='device' with data_axis={self.data_axis} is not in "
+                    f"actor_backend='device' with {self._ranks_knob()} is not in "
                     "this slice of the PyTorch port: the rollout over a data-parallel "
                     "group comes with ROADMAP.md Queue 1 item 10 (its data-plane half); "
                     "run the device actors on one rank"
@@ -898,13 +948,6 @@ class DDPGConfig:
                 "no unfused dispatch to wrap; use fused_beat='auto'/'on' "
                 "or superstep_beats=1"
             )
-        for name, off in _NOT_IN_SLICE.items():
-            if getattr(self, name) != off:
-                raise ValueError(
-                    f"{name}={getattr(self, name)!r} is not implemented in "
-                    f"the PyTorch port yet (only {name}={off!r}); ROADMAP.md "
-                    "Queue 1 item 10 lists what is left to port"
-                )
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"compute_dtype must be 'float32' or 'bfloat16', got "
@@ -1003,9 +1046,9 @@ class DDPGConfig:
             raise ValueError("train_every must be >= 1")
         if self.prefetch_depth < 1:
             raise ValueError("prefetch_depth must be >= 1")
-        if self.host_replay and self.data_axis not in (-1, 1):
+        if self.host_replay and self._many_ranks():
             raise ValueError(
-                f"host_replay=True with data_axis={self.data_axis} is not in this "
+                f"host_replay=True with {self._ranks_knob()} is not in this "
                 "slice of the PyTorch port: a host replay a rank under the "
                 "lockstep loop comes with ROADMAP.md Queue 1 item 10 (its data-plane "
                 "half); run the host replay on one rank"
@@ -1035,9 +1078,9 @@ class DDPGConfig:
                     "with fused_chunk='on'; use 'auto' (degrades to scan) "
                     "or 'off'"
                 )
-            if self.data_axis not in (-1, 1):
+            if self._many_ranks():
                 raise ValueError(
-                    f"guardrails=True with data_axis={self.data_axis} is not in "
+                    f"guardrails=True with {self._ranks_knob()} is not in "
                     "this slice of the PyTorch port: the row screen shared "
                     "across ranks comes with ROADMAP.md Queue 1 item 10 (its data-plane half); run "
                     "the guarded learner on one rank"

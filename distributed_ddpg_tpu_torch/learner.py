@@ -59,6 +59,16 @@ gradient, and the critic loss, actor loss and mean |td| of the metrics;
 the gradient norms are then those of the averaged gradients, the same on
 every rank. td_errors stay the rank's own rows.
 
+On a (data, model) grid (model_axis M > 1) the step takes `tp`
+(parallel/partition.TP) and runs on the rank's shards: the losses apply
+the nets Megatron's way (models/mlp.py), the gradient mean runs over the
+rank's data group only (a mean over every rank would mix shards of
+different model indices), Adam, Polyak and K2 act on the shards as they
+are (all three are element-wise), and the gradient norms sum the
+shards' squares over the model group and the replicated leaves' once,
+so the reported norms are the logical tree's. The metrics and the td are
+the same on every rank of a model group.
+
 `train_state_from_numpy` / `train_state_to_numpy` carry weights across the
 frameworks: the JAX TrainState, passed as numpy (`jax.tree.map(np.asarray,
 s)`), becomes the port's state and back, [2, ...] ensemble leaves
@@ -82,6 +92,7 @@ from distributed_ddpg_tpu_torch.models.mlp import (
     actor_gaussian_apply,
     actor_init,
     critic_init,
+    sum_sq,
 )
 from distributed_ddpg_tpu_torch.ops import losses
 from distributed_ddpg_tpu_torch.ops.fused_update import fused_adam_polyak
@@ -109,8 +120,10 @@ METRIC_KEYS = (
 )
 
 
-def optree_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x)) for x in tree_leaves(tree)))
+def optree_norm(tree, tp=None) -> torch.Tensor:
+    """The global L2 norm of a params tree; with `tp` (the net's
+    models/mlp.NetTP) of the logical tree whose shards this rank holds."""
+    return torch.sqrt(sum_sq(tree, tp))
 
 
 def init_train_state(config: DDPGConfig, obs_dim: int, act_dim: int, seed: int,
@@ -184,11 +197,14 @@ def _device_constants(action_scale, action_offset, config: DDPGConfig):
     return get
 
 
-def make_sac_step(config: DDPGConfig, action_scale, action_offset=0.0, group=None):
+def make_sac_step(config: DDPGConfig, action_scale, action_offset=0.0, group=None,
+                  tp=None):
     """Returns (state, batch, eps, step_index=None) -> StepOutput, one eager
     SAC step; eps = (normal_next, normal_cur), two standard-normal [B, act]
     draws. SAC has no delay, so step_index is not read. With `group`, the
-    gradients, mean log-prob and losses are averaged over its ranks."""
+    gradients, mean log-prob and losses are averaged over its ranks (on a
+    grid, the rank's data group); with `tp` the step runs on the rank's
+    shards (the module's docstring)."""
     lo, hi = config.sac_log_std_min, config.sac_log_std_max
     mm = _mm_dtype(config)
     ail, l2 = config.action_insert_layer, config.critic_l2
@@ -203,12 +219,13 @@ def make_sac_step(config: DDPGConfig, action_scale, action_offset=0.0, group=Non
         cp = tree_map(lambda x: x.detach().requires_grad_(True), state.critic_params)
         closs, td = losses.sac_critic_loss(
             cp, state.actor_params, state.target_critic_params, batch, scale,
-            normal_next, alpha, lo, hi, offset, mm, ail, l2)
+            normal_next, alpha, lo, hi, offset, mm, ail, l2, tp)
         cgrads = _untree(torch.autograd.grad(closs, tree_leaves(cp)), state.critic_params)
         # The actor's gradient against the pre-update critics.
         ap = tree_map(lambda x: x.detach().requires_grad_(True), state.actor_params)
         aloss, mean_lp = losses.sac_actor_loss(
-            ap, state.critic_params, batch, scale, normal_cur, alpha, lo, hi, offset, mm, ail)
+            ap, state.critic_params, batch, scale, normal_cur, alpha, lo, hi, offset, mm, ail,
+            tp)
         agrads = _untree(torch.autograd.grad(aloss, tree_leaves(ap)), state.actor_params)
 
         with torch.no_grad():
@@ -237,8 +254,8 @@ def make_sac_step(config: DDPGConfig, action_scale, action_offset=0.0, group=Non
                 aloss,
                 alpha * mean_lp - aloss,     # = E[min Q], exactly as the JAX step
                 td_abs,
-                optree_norm(cgrads),
-                optree_norm(agrads),
+                optree_norm(cgrads, tp and tp.critic),
+                optree_norm(agrads, tp and tp.actor),
             )))
         new_state = TrainState(
             actor_params=new_actor,
@@ -256,7 +273,8 @@ def make_sac_step(config: DDPGConfig, action_scale, action_offset=0.0, group=Non
     return sac_step
 
 
-def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0, group=None):
+def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0, group=None,
+                      tp=None):
     """Returns (state, batch, eps=None, step_index=None) -> StepOutput, one
     eager autograd step. `eps` is TD3's smoothing noise [B, act] (scaled
     and clipped), and is required exactly when twin_critic and
@@ -264,9 +282,11 @@ def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0, group
     takes. `step_index` is state.step as a host int, for TD3's delay test
     (else the step reads state.step back from its device). With `group`
     (parallel/mesh.DataGroup) the gradients and loss metrics are averaged
-    over its ranks, one collective a step; without one, nothing is."""
+    over its ranks (on a grid, the rank's data group), one collective a
+    step; without one, nothing is. With `tp` (parallel/partition.TP) the
+    step runs on the rank's shards (the module's docstring)."""
     if config.sac:
-        return make_sac_step(config, action_scale, action_offset, group)
+        return make_sac_step(config, action_scale, action_offset, group, tp)
     twin = bool(config.twin_critic)
     delay = int(config.policy_delay)   # 1 unless TD3 (config gate)
     mm = _mm_dtype(config)
@@ -283,22 +303,22 @@ def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0, group
         if config.distributional:
             closs, td = losses.distributional_critic_loss(
                 cp, state.target_actor_params, state.target_critic_params,
-                batch, scale, support, offset, mm, ail,
+                batch, scale, support, offset, mm, ail, tp,
             )
 
-            def actor_loss(ap, critic, batch, scale, offset, mm, ail):
+            def actor_loss(ap, critic, batch, scale, offset, mm, ail, tp):
                 return losses.distributional_actor_loss(ap, critic, batch, scale, support,
-                                                        offset, mm, ail)
+                                                        offset, mm, ail, tp)
         elif twin:
             closs, td = losses.td3_critic_loss(
                 cp, state.target_actor_params, state.target_critic_params,
-                batch, scale, eps, offset, mm, ail, l2,
+                batch, scale, eps, offset, mm, ail, l2, tp,
             )
             actor_loss = losses.td3_actor_loss
         else:
             closs, td = losses.critic_loss(
                 cp, state.target_actor_params, state.target_critic_params,
-                batch, scale, offset, mm, ail, l2,
+                batch, scale, offset, mm, ail, l2, tp,
             )
             actor_loss = losses.actor_loss
         cgrads = torch.autograd.grad(closs, tree_leaves(cp))
@@ -306,7 +326,7 @@ def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0, group
         # --- actor loss, through the pre-update critic; its gradient only
         # on update steps (every step unless TD3 delays it) ---
         ap = tree_map(lambda x: x.detach().requires_grad_(True), state.actor_params)
-        aloss = actor_loss(ap, state.critic_params, batch, scale, offset, mm, ail)
+        aloss = actor_loss(ap, state.critic_params, batch, scale, offset, mm, ail, tp)
         update = delay == 1 or (
             int(state.step) if step_index is None else step_index) % delay == 0
         agrads = torch.autograd.grad(aloss, tree_leaves(ap)) if update else None
@@ -320,7 +340,7 @@ def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0, group
             cgrads = _untree(cgrads, state.critic_params)
             if update:
                 agrads = _untree(agrads, state.actor_params)
-                actor_grad_norm = optree_norm(agrads)
+                actor_grad_norm = optree_norm(agrads, tp and tp.actor)
             if config.fused_update:
                 # Adam + Polyak of each net in one kernel launch, critic first.
                 new_critic, critic_opt, new_target_critic = fused_adam_polyak(
@@ -360,7 +380,7 @@ def make_learner_step(config: DDPGConfig, action_scale, action_offset=0.0, group
                         aloss,
                         -aloss,
                         td_abs,
-                        optree_norm(cgrads),
+                        optree_norm(cgrads, tp and tp.critic),
                         actor_grad_norm,
                     ),
                 )

@@ -8,8 +8,9 @@ a file and stdout, the latest record of each kind for the exporter's
 mean, count and reservoir tails, and a flight-recorder span), Timer (the
 rate meter), IngestStats and TransferStats (with the reservoir they keep
 their tails in), GuardrailStats, DevActorStats, FusedBeatStats, and
-ServeStats, FrontStats and TenantStats (serve/), PodStats, SupervisorStats
-and ReplayShardStats (the sharded replay's placement), under the JAX
+ServeStats, FrontStats and TenantStats (serve/), PodStats, SupervisorStats,
+ReplayShardStats (the sharded replay's placement) and MeshStats (the rank
+grid's placement, `mesh_*`), under the JAX
 package's snapshot keys letter for letter, so a record of either trainer
 reads the same. Nothing here imports torch at import time.
 """
@@ -376,6 +377,46 @@ class ReplayShardStats:
             if reset:
                 self._reset_locked()
         return out
+
+
+class MeshStats:
+    """Placement facts for the (data, model) rank grid (parallel/mesh.py,
+    parallel/partition.py): the `mesh_*` family of every train and final
+    record (JAX metrics.py:377-430), gauges read from the leaves' shapes
+    alone (no device work, no collective):
+
+      mesh_data_axis               the grid's data-parallel degree D
+      mesh_model_axis              its tensor-parallel degree M
+      mesh_param_bytes_per_device  the TrainState's bytes (params, targets,
+                                   both Adam states, counts) this rank holds
+      mesh_param_bytes_total       the logical (unsharded) TrainState's bytes
+
+    A rank's leaves are its shards: a sharded leaf's logical bytes are its
+    shard's times M, a replicated leaf's its own."""
+
+    def __init__(self, data_axis: int, model_axis: int):
+        self._data = int(data_axis)
+        self._model = int(model_axis)
+
+    def snapshot(self, state_leaves, sharded=None) -> Dict[str, float]:
+        """The four fields for a rank's `state_leaves`; `sharded` marks the
+        leaves that are shards (None: every leaf whole)."""
+        leaves = list(state_leaves)
+        flags = [False] * len(leaves) if sharded is None else list(sharded)
+        per_device = total = 0
+        for leaf, is_shard in zip(leaves, flags):
+            n = 1
+            for d in tuple(getattr(leaf, "shape", ())):
+                n *= int(d)
+            nbytes = n * int(getattr(leaf, "itemsize", None) or leaf.element_size())
+            per_device += nbytes
+            total += nbytes * (self._model if is_shard else 1)
+        return {
+            "mesh_data_axis": self._data,
+            "mesh_model_axis": self._model,
+            "mesh_param_bytes_per_device": per_device,
+            "mesh_param_bytes_total": total,
+        }
 
 
 class PodStats:

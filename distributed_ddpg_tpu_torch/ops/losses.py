@@ -13,7 +13,12 @@ the JAX losses' `mm_dtype`. Every loss takes `action_insert_layer`, the
 critic layer the action joins at; the DDPG, TD3 and SAC critic losses
 take `l2`, the weight decay l2 * sum of w^2 over the critic's weight
 leaves (both ensemble members), as the JAX losses do. The JAX D4PG loss
-has no such term, so neither has this one.
+has no such term, so neither has this one. Under tensor parallelism every
+loss takes `tp` (parallel/partition.TP: the actor's and the critic's
+models/mlp.NetTP) and runs on the rank's shards; its value, td and every
+whole output are the logical ones, the same on each rank of the model
+group (the weight decay's sum of squares adds the shards' over the
+group).
 """
 
 from __future__ import annotations
@@ -30,47 +35,50 @@ from distributed_ddpg_tpu_torch.models.mlp import (
     critic_apply,
     critic_member,
     ensemble_critic_apply,
+    sum_sq,
 )
 from distributed_ddpg_tpu_torch.types import Batch
 
 
-def weight_decay(critic_params, l2: float, loss):
+def weight_decay(critic_params, l2: float, loss, tp=None):
     """loss + l2 * sum(w^2) over the critic's weight leaves (whole [2, ...]
-    leaves for an ensemble); the loss itself when l2 is 0."""
-    if l2 > 0.0:
-        loss = loss + l2 * sum(torch.sum(torch.square(layer["w"])) for layer in critic_params)
-    return loss
+    leaves for an ensemble); the loss itself when l2 is 0. With `tp` (the
+    critic's NetTP) the logical tree's sum (models/mlp.sum_sq)."""
+    if l2 <= 0.0:
+        return loss
+    return loss + l2 * sum_sq(critic_params, tp, keys=("w",))
 
 
 def critic_loss(critic_params, target_actor_params, target_critic_params,
                 batch: Batch, action_scale, action_offset=0.0, mm=None,
-                action_insert_layer: int = 1, l2: float = 0.0):
+                action_insert_layer: int = 1, l2: float = 0.0, tp=None):
     """Weighted MSE TD loss against y = r + discount * Q'(s', mu'(s')),
     plus the weight decay. Returns (loss, td_errors[B])."""
     ail = action_insert_layer
     with torch.no_grad():
         next_action = actor_apply(
-            target_actor_params, batch.next_obs, action_scale, action_offset, mm
+            target_actor_params, batch.next_obs, action_scale, action_offset, mm, tp and tp.actor
         )
-        next_q = critic_apply(target_critic_params, batch.next_obs, next_action, mm, ail)
+        next_q = critic_apply(target_critic_params, batch.next_obs, next_action, mm, ail,
+                              tp and tp.critic)
         y = batch.reward + batch.discount * next_q
-    q = critic_apply(critic_params, batch.obs, batch.action, mm, ail)
+    q = critic_apply(critic_params, batch.obs, batch.action, mm, ail, tp and tp.critic)
     td = y - q
     loss = torch.mean(batch.weight * torch.square(td))
-    return weight_decay(critic_params, l2, loss), td
+    return weight_decay(critic_params, l2, loss, tp and tp.critic), td
 
 
 def actor_loss(actor_params, critic_params, batch: Batch, action_scale,
-               action_offset=0.0, mm=None, action_insert_layer: int = 1):
+               action_offset=0.0, mm=None, action_insert_layer: int = 1, tp=None):
     """DPG loss: -mean(Q(s, mu(s)))."""
-    action = actor_apply(actor_params, batch.obs, action_scale, action_offset, mm)
-    q = critic_apply(critic_params, batch.obs, action, mm, action_insert_layer)
+    action = actor_apply(actor_params, batch.obs, action_scale, action_offset, mm, tp and tp.actor)
+    q = critic_apply(critic_params, batch.obs, action, mm, action_insert_layer, tp and tp.critic)
     return -torch.mean(q)
 
 
 def td3_critic_loss(critic_params, target_actor_params, target_critic_params,
                     batch: Batch, action_scale, eps=None, action_offset=0.0, mm=None,
-                    action_insert_layer: int = 1, l2: float = 0.0):
+                    action_insert_layer: int = 1, l2: float = 0.0, tp=None):
     """Clipped double-Q TD loss over a [2, ...] critic ensemble. `eps`
     ([B, act], already scaled and clipped to +-target_noise_clip) smooths
     the target action, which is then clipped to the action box; None means
@@ -80,7 +88,7 @@ def td3_critic_loss(critic_params, target_actor_params, target_critic_params,
     ail = action_insert_layer
     with torch.no_grad():
         next_action = actor_apply(
-            target_actor_params, batch.next_obs, action_scale, action_offset, mm
+            target_actor_params, batch.next_obs, action_scale, action_offset, mm, tp and tp.actor
         )
         if eps is not None:
             next_action = torch.clamp(
@@ -88,20 +96,21 @@ def td3_critic_loss(critic_params, target_actor_params, target_critic_params,
                 action_offset + action_scale,
             )
         next_q = ensemble_critic_apply(target_critic_params, batch.next_obs, next_action,
-                                       mm, ail)
+                                       mm, ail, tp and tp.critic)
         y = batch.reward + batch.discount * torch.min(next_q, dim=0).values
-    q = ensemble_critic_apply(critic_params, batch.obs, batch.action, mm, ail)   # [2, B]
+    q = ensemble_critic_apply(critic_params, batch.obs, batch.action, mm, ail,
+                              tp and tp.critic)   # [2, B]
     td = y[None, :] - q
     loss = torch.mean(batch.weight[None, :] * torch.square(td))
-    return weight_decay(critic_params, l2, loss), torch.mean(td, dim=0)
+    return weight_decay(critic_params, l2, loss, tp and tp.critic), torch.mean(td, dim=0)
 
 
 def td3_actor_loss(actor_params, critic_params, batch: Batch, action_scale,
-                   action_offset=0.0, mm=None, action_insert_layer: int = 1):
+                   action_offset=0.0, mm=None, action_insert_layer: int = 1, tp=None):
     """DPG loss through critic member 0 only (the TD3 convention)."""
-    action = actor_apply(actor_params, batch.obs, action_scale, action_offset, mm)
+    action = actor_apply(actor_params, batch.obs, action_scale, action_offset, mm, tp and tp.actor)
     return -torch.mean(critic_apply(critic_member(critic_params, 0), batch.obs, action, mm,
-                                    action_insert_layer))
+                                    action_insert_layer, tp and tp.critic))
 
 
 # --- SAC ---------------------------------------------------------------------
@@ -128,7 +137,7 @@ def sac_sample(mean, log_std, normal, action_scale, action_offset=0.0):
 def sac_critic_loss(critic_params, actor_params, target_critic_params, batch: Batch,
                     action_scale, normal, alpha, log_std_min: float, log_std_max: float,
                     action_offset=0.0, mm=None, action_insert_layer: int = 1,
-                    l2: float = 0.0):
+                    l2: float = 0.0, tp=None):
     """Entropy-regularized clipped double-Q TD loss over the [2, ...]
     ensemble: y = r + discount * (min_i Q'_i(s', a') - alpha * log pi(a'|s')),
     a' ~ pi(.|s') from the ONLINE actor (SAC has no target actor) with the
@@ -137,31 +146,35 @@ def sac_critic_loss(critic_params, actor_params, target_critic_params, batch: Ba
     ail = action_insert_layer
     with torch.no_grad():
         mean, log_std = actor_gaussian_apply(actor_params, batch.next_obs, log_std_min,
-                                             log_std_max, mm)
+                                             log_std_max, mm, tp and tp.actor)
         next_action, next_lp = sac_sample(mean, log_std, normal, action_scale, action_offset)
         next_q = torch.min(
-            ensemble_critic_apply(target_critic_params, batch.next_obs, next_action, mm, ail),
+            ensemble_critic_apply(target_critic_params, batch.next_obs, next_action, mm, ail,
+                                  tp and tp.critic),
             dim=0,
         ).values
         y = batch.reward + batch.discount * (next_q - alpha * next_lp)
-    q = ensemble_critic_apply(critic_params, batch.obs, batch.action, mm, ail)   # [2, B]
+    q = ensemble_critic_apply(critic_params, batch.obs, batch.action, mm, ail,
+                              tp and tp.critic)   # [2, B]
     td = y[None, :] - q
     loss = torch.mean(batch.weight[None, :] * torch.square(td))
-    return weight_decay(critic_params, l2, loss), torch.mean(td, dim=0)
+    return weight_decay(critic_params, l2, loss, tp and tp.critic), torch.mean(td, dim=0)
 
 
 def sac_actor_loss(actor_params, critic_params, batch: Batch, action_scale, normal, alpha,
                    log_std_min: float, log_std_max: float, action_offset=0.0, mm=None,
-                   action_insert_layer: int = 1):
+                   action_insert_layer: int = 1, tp=None):
     """Reparameterized actor objective E[alpha * log pi(a|s) - min_i Q_i(s, a)]
     against the ensemble min (the 1812.05905 convention). Returns (loss,
     mean log-prob), the latter for the temperature's update."""
-    mean, log_std = actor_gaussian_apply(actor_params, batch.obs, log_std_min, log_std_max, mm)
+    mean, log_std = actor_gaussian_apply(actor_params, batch.obs, log_std_min, log_std_max, mm,
+                                         tp and tp.actor)
     action, lp = sac_sample(mean, log_std, normal, action_scale, action_offset)
     # amin's gradient splits ties 0.5/0.5, as jnp.min's does (torch.min's
     # goes to one member).
     q = torch.amin(
-        ensemble_critic_apply(critic_params, batch.obs, action, mm, action_insert_layer), dim=0)
+        ensemble_critic_apply(critic_params, batch.obs, action, mm, action_insert_layer,
+                              tp and tp.critic), dim=0)
     return torch.mean(alpha * lp - q), torch.mean(lp)
 
 
@@ -222,19 +235,20 @@ def categorical_projection(support, target_probs, rewards, discounts):
 
 def distributional_critic_loss(critic_params, target_actor_params, target_critic_params,
                                batch: Batch, action_scale, support, action_offset=0.0,
-                               mm=None, action_insert_layer: int = 1):
+                               mm=None, action_insert_layer: int = 1, tp=None):
     """Categorical TD loss: the weighted mean cross-entropy of the online
     logits against the projected target distribution. Returns (loss,
     E[Z_target] - E[Z] per row, the td proxy)."""
     ail = action_insert_layer
     with torch.no_grad():
         next_action = actor_apply(
-            target_actor_params, batch.next_obs, action_scale, action_offset, mm
+            target_actor_params, batch.next_obs, action_scale, action_offset, mm, tp and tp.actor
         )
         target_probs = F.softmax(
-            critic_apply(target_critic_params, batch.next_obs, next_action, mm, ail), dim=-1)
+            critic_apply(target_critic_params, batch.next_obs, next_action, mm, ail,
+                         tp and tp.critic), dim=-1)
         proj = categorical_projection(support, target_probs, batch.reward, batch.discount)
-    logits = critic_apply(critic_params, batch.obs, batch.action, mm, ail)
+    logits = critic_apply(critic_params, batch.obs, batch.action, mm, ail, tp and tp.critic)
     ce = -torch.sum(proj * F.log_softmax(logits, dim=-1), dim=-1)
     loss = torch.mean(batch.weight * ce)
     mean_q = torch.sum(F.softmax(logits, dim=-1) * support[None, :], dim=-1)
@@ -244,8 +258,9 @@ def distributional_critic_loss(critic_params, target_actor_params, target_critic
 
 def distributional_actor_loss(actor_params, critic_params, batch: Batch, action_scale,
                               support, action_offset=0.0, mm=None,
-                              action_insert_layer: int = 1):
+                              action_insert_layer: int = 1, tp=None):
     """-mean(E[Z(s, mu(s))]), E[Z] = sum_j softmax(logits)_j z_j."""
-    action = actor_apply(actor_params, batch.obs, action_scale, action_offset, mm)
-    logits = critic_apply(critic_params, batch.obs, action, mm, action_insert_layer)
+    action = actor_apply(actor_params, batch.obs, action_scale, action_offset, mm, tp and tp.actor)
+    logits = critic_apply(critic_params, batch.obs, action, mm, action_insert_layer,
+                          tp and tp.critic)
     return -torch.mean(torch.sum(F.softmax(logits, dim=-1) * support[None, :], dim=-1))

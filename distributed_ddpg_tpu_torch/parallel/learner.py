@@ -105,6 +105,28 @@ prefix sum over its own slots, the shard totals all-gathered) and writes
 the chunk's priorities back owner-only (owner_scatter_last_wins, the
 last-wins rule inside the owner); max_priority is the same on every
 rank.
+
+On a (data, model) grid (config.model_axis M > 1, parallel/mesh.make_grid:
+rank r at data index r // M, model index r % M) the learner is tensor-
+parallel, as the JAX learner is on a (data, model) mesh: the state's
+params, targets and Adam moments are split by the partition rule tables
+(parallel/partition.state_pspec; `specs`), each rank holding its shards
+(shard_tree), and every chunk takes the scan route (K1 needs the nets
+whole: the JAX learner keeps it off the mesh, :386-396), with K2 under
+fused_update on the rank's shards. The data axis is D = world / M:
+b_local splits the batch over it, the columns a rank trains on, the
+sharded replay's owner and the mesh launch's folds are its data index
+(so every rank of a model group draws and trains on the same rows and
+noise), and the gradient mean, the td gather and the sharded replay's
+exchanges run over its data group. A checkpoint holds the logical state:
+logical_state() gathers the shards over the model group (a collective),
+load_state() takes a logical state and keeps this rank's shards, and
+state_template() is the logical state's shape (meta tensors) for
+checkpoint.restore.
+actor_params_to_host() returns the logical actor, gathered at the end of
+every chunk (so only rank 0 need call it). mode='explicit' (the JAX
+learner's shard_map mode) is data-parallel only: the port's data-
+parallel step is already explicit collectives, so it runs as 'auto'.
 """
 
 from __future__ import annotations
@@ -130,7 +152,15 @@ from distributed_ddpg_tpu_torch.parallel.mesh import (
     DataGroup,
     all_reduce_mean_,
     all_reduce_sum_,
+    make_grid,
     resolve_data_axis,
+)
+from distributed_ddpg_tpu_torch.parallel.partition import (
+    make_tp,
+    shard_tree,
+    sharded_dim,
+    state_pspec,
+    unshard_tree,
 )
 from distributed_ddpg_tpu_torch.replay.device import (
     draw_per_indices,
@@ -175,7 +205,7 @@ def resolve_learner_chunk(config: DDPGConfig) -> int:
 def make_scan_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
                        action_scale, action_offset=0.0, chunk_size: int = 8,
                        group: Optional[DataGroup] = None, guard: bool = False,
-                       inject: Optional[Dict[str, tuple]] = None):
+                       inject: Optional[Dict[str, tuple]] = None, tp=None):
     """Returns run(state, packed[K, B, D], eps, step0) -> (new_state,
     td[K, B], metrics), the scan route: K eager steps over the chunk's rows,
     with the kernel route's inputs and outputs (the chunk-mean metrics in
@@ -187,7 +217,8 @@ def make_scan_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
     its programs, and run.set_lr_scale(scale) on both learning rates times
     `scale` (the guardrails' LR cooldown); each keeps the other's setting.
     With `group` every step averages its gradients over the group's ranks
-    (learner.make_learner_step), B being the rank's rows. With `guard`,
+    (learner.make_learner_step), B being the rank's rows; with `tp`
+    (parallel/partition.TP) the steps run on the rank's shards. With `guard`,
     run.guarded(state, g, packed, eps, step0, pre_bad) -> (new_state,
     new_g, td, metrics) runs the K steps through the health probe
     (guardrails.make_guarded_step, with the `inject` ordinals), step k
@@ -204,7 +235,7 @@ def make_scan_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
         if settings["lr_scale"] != 1.0:
             cfg = cfg.replace(actor_lr=config.actor_lr * settings["lr_scale"],
                               critic_lr=config.critic_lr * settings["lr_scale"])
-        step = make_learner_step(cfg, action_scale, action_offset, group)
+        step = make_learner_step(cfg, action_scale, action_offset, group, tp)
         gstep = (guard_lib.make_guarded_step(step, cfg.guardrail_zmax,
                                              cfg.guardrail_warmup_steps, inject)
                  if guard else None)
@@ -272,11 +303,25 @@ def make_scan_chunk_fn(config: DDPGConfig, obs_dim: int, act_dim: int,
 class ShardedLearner:
     def __init__(self, config: DDPGConfig, obs_dim: int, act_dim: int,
                  action_scale, action_offset=0.0, chunk_size: int = 1,
-                 state: Optional[TrainState] = None, group: Optional[DataGroup] = None):
+                 state: Optional[TrainState] = None, group: Optional[DataGroup] = None,
+                 mode: str = "auto"):
+        # The JAX learner's mode checks and messages (:92-93, :108-109).
+        if mode not in ("auto", "explicit"):
+            raise ValueError(f"mode must be 'auto' or 'explicit', got {mode!r}")
+        if mode == "explicit" and config.model_axis != 1:
+            raise ValueError("explicit (shard_map) mode is data-parallel only")
+        self.mode = mode
         self.config = config
-        self.group = group
+        self.model_axis = M = int(config.model_axis)
         self.data_size = resolve_data_axis(config, group.world_size if group else 1)
-        self.rank = group.rank if group else 0
+        # The grid (a collective the first time): the data and model groups.
+        self.group = group = make_grid(group, M)
+        # The ranks with this rank's model index (the group itself when
+        # M = 1): the gradient mean's, the td gather's, the sharded replay's.
+        self.data_group = group.data if group is not None and M > 1 else group
+        # This rank's data index: its columns, its replay shard, its folds.
+        self.rank = group.rank // M if group else 0
+        self.model_rank = group.rank % M if group else 0
         self.device = resolve_device(config)
         if group is not None:
             if group.device.type != self.device.type:
@@ -294,10 +339,16 @@ class ShardedLearner:
             raise ValueError(
                 f"batch_size={config.batch_size} not divisible by data axis size {D}")
         self.b_local = self.global_batch // D
-        self.state: TrainState = (
-            state if state is not None
-            else init_train_state(config, obs_dim, act_dim, config.seed, self.device)
-        )
+        logical = (state if state is not None
+                   else init_train_state(config, obs_dim, act_dim, config.seed, self.device))
+        # The placement (partition rules) and this rank's shards of it.
+        self.specs = state_pspec(logical, M)
+        self.tp = make_tp(self.specs, group.model if M > 1 else None)
+        # The logical state's paths, shapes and dtypes without its storage
+        # (meta tensors): load_state's check, checkpoint.restore's template.
+        self._template = type(logical)(*(
+            None if field is None else _to_device(field, "meta") for field in logical))
+        self.state: TrainState = shard_tree(logical, self.specs, self.model_rank, M)
         # The route, once, before the first dispatch (JAX :357-414): the
         # chunk kernel where the config is in its envelope, on one device
         # or as the mesh launch on D > 1 ranks unless fused_mesh='off';
@@ -309,7 +360,7 @@ class ShardedLearner:
         # chunk kernel cannot do: the scan route (JAX :372-375).
         self.replay_sharded = config.replay_sharding == "sharded"
         self._gather_ranks = D if self.replay_sharded else 1
-        self._per_draw = (make_sharded_per_draw(group) if self._gather_ranks > 1
+        self._per_draw = (make_sharded_per_draw(self.data_group) if self._gather_ranks > 1
                           else draw_per_indices)
         if self.guard_enabled and D > 1:
             raise ValueError(
@@ -318,7 +369,7 @@ class ShardedLearner:
                 "item 10, its data-plane half); run the guarded learner on one rank")
         envelope_ok = (
             config.fused_chunk != "off" and not self.guard_enabled
-            and not self.replay_sharded
+            and not self.replay_sharded and M == 1
             and fused_chunk.supported(config)
             and fused_chunk.fits_vmem(config, obs_dim, act_dim))
         self.fused_mesh_active = envelope_ok and D > 1 and config.fused_mesh != "off"
@@ -344,8 +395,8 @@ class ShardedLearner:
         if not self.fused_per_active:
             self._scan = make_scan_chunk_fn(
                 local, obs_dim, act_dim, action_scale, action_offset,
-                chunk_size=self.chunk_size, group=group if D > 1 else None,
-                guard=self.guard_enabled,
+                chunk_size=self.chunk_size, group=self.data_group if D > 1 else None,
+                guard=self.guard_enabled, tp=self.tp,
                 inject=(config.fault_plan().numeric_steps()
                         if self.guard_enabled and config.faults else None),
             )
@@ -381,6 +432,8 @@ class ShardedLearner:
             self._health_prev_anom = 0   # nonfinite + spikes at the last poll
         self._local_config = local
         self._action = (action_scale, action_offset)
+        self._actor_logical = None
+        self._sync_actor()
 
     def load_state(self, state: TrainState) -> None:
         """Take a restored state (checkpoint.restore) as the learner's own:
@@ -392,13 +445,40 @@ class ShardedLearner:
         chunk the wrong noise without an error. The index generators are
         not part of a checkpoint, as the JAX learner's key is not: a
         resumed run draws other rows than an uninterrupted one would."""
-        if state_signature(state) != state_signature(self.state):
+        if state_signature(state) != state_signature(self._template):
             raise ValueError("the state does not match this learner's (paths, shapes "
                              "or dtypes): was it saved under another config?")
-        self.state = type(state)(*(
+        state = type(state)(*(
             None if field is None else _to_device(field, self.device) for field in state))
+        self.state = shard_tree(state, self.specs, self.model_rank, self.model_axis)
         self._step = int(self.state.step)
         self._done = None
+        self._sync_actor()
+
+    def state_template(self) -> TrainState:
+        """The logical state's paths, shapes and dtypes (checkpoint.restore's
+        template, with device=self.device): on one model rank the state,
+        else meta tensors, so a rank holds no logical copy of the state."""
+        return self.state if self.model_axis == 1 else self._template
+
+    def logical_state(self) -> TrainState:
+        """The logical state: the shards gathered over the model group (a
+        collective: every rank calls it); on one model rank, the state."""
+        if self.model_axis == 1:
+            return self.state
+        return unshard_tree(self.state, self.specs, self.group.model)
+
+    def state_sharded(self):
+        """For each tensor of parallel/learner.state_tensors(self.state),
+        whether it is a shard (replicas_equal's `sharded`)."""
+        return [sharded_dim(s) is not None for s in state_tensors(self.specs)]
+
+    def _sync_actor(self) -> None:
+        """The logical actor, gathered over the model group (on every rank,
+        in lockstep: at construction, load_state and every chunk's end)."""
+        if self.model_axis > 1:
+            self._actor_logical = unshard_tree(self.state.actor_params,
+                                               self.specs.actor_params, self.group.model)
 
     def route(self, per: bool = False) -> str:
         """'kernel' (one device), 'mesh' (the mesh launch) or 'scan': the
@@ -431,7 +511,7 @@ class ShardedLearner:
         owned = idx % n == self.rank
         rows = storage[torch.where(owned, idx // n, torch.zeros_like(idx))]
         rows.masked_fill_(~owned[..., None], -0.0)
-        all_reduce_sum_([rows], self.group)
+        all_reduce_sum_([rows], self.data_group)
         return rows
 
     def _noise(self, batch: int, device_fold: Optional[int] = None):
@@ -452,7 +532,7 @@ class ShardedLearner:
                            device=td.device)
         self._cols(full).copy_(td)
         if sums is None:
-            all_reduce_mean_([], self.group, sums=[full])
+            all_reduce_mean_([], self.data_group, sums=[full])
         else:
             sums.append(full)
         return full
@@ -487,6 +567,7 @@ class ShardedLearner:
             td = self._gathered(td)
         self.state = new_state
         self._step += self.chunk_size
+        self._sync_actor()
         self.mark_dispatched()
         return StepOutput(state=new_state, td_errors=td, metrics=metrics)
 
@@ -561,7 +642,7 @@ class ShardedLearner:
         the scan route whatever route the learner's own chunks take (the
         scan's step is built here if the kernel route had no use for it).
         The fused beat composes it with the rollout and the scatter."""
-        if self.data_size > 1:
+        if self.data_size > 1 or self.model_axis > 1:
             raise ValueError("the fused beat runs on one rank (ROADMAP.md Queue 1 item 10, "
                              "its data-plane half)")
         if self._scan is None:
@@ -793,10 +874,12 @@ class ShardedLearner:
         actors/policy.flatten_params (per layer w then b, C order; SAC's
         head 2 * act wide), for the broadcast to CPU rollout workers. One
         device->host copy, which waits for the running chunk: a
-        `params_d2h` span (trace.py)."""
+        `params_d2h` span (trace.py). On a grid with model_axis > 1 the
+        logical actor gathered at the last chunk's end (_sync_actor)."""
+        actor = self.state.actor_params if self.model_axis == 1 else self._actor_logical
         with trace.span("params_d2h"):
             flat = torch.cat([
-                t.reshape(-1) for layer in self.state.actor_params
+                t.reshape(-1) for layer in actor
                 for t in (layer["w"], layer["b"])
             ])
             return flat.cpu().numpy()

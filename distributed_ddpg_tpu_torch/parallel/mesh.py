@@ -1,10 +1,19 @@
-"""The data-parallel group of the port: D ranks over torch.distributed.
+"""The rank grid of the port: D x M ranks over torch.distributed.
 
-Counterpart of distributed_ddpg_tpu/parallel/mesh.py for its data axis
-only (tensor parallelism, the model axis, is later work). Where the JAX
+Counterpart of distributed_ddpg_tpu/parallel/mesh.py. Where the JAX
 package builds a (data, model) device mesh in one process, the port runs
 one process a rank, one card a rank, joined by a torch.distributed process
-group:
+group. With model_axis M > 1 (tensor parallelism, parallel/partition.py)
+the group's ranks form the JAX mesh's grid, `reshape(data_axis,
+model_axis)`: rank r sits at data index r // M and model index r % M.
+`make_grid` makes two subgroups a rank: its data group (the D ranks with
+its model index: the gradient mean, the sharded replay's exchanges) and
+its model group (the M ranks with its data index: the activation
+exchanges of the Megatron-split apply, models/mlp.py). Each is a
+DataGroup view of its own (`group.data`, `group.model`), whose `rank` is
+the rank's index in it, so every collective below runs over a subgroup
+as it runs over the world. With M = 1 the data group is the group itself
+and the model group a group of one, and nothing changes.
 
 - `DataGroup` is a rank's view of it: its rank, the group's size, its
   device and its control-plane group. The data plane (the learner's
@@ -13,13 +22,15 @@ group:
   trainer's rows, counts and decisions: `share`, `share_rows`) runs on
   CPU tensors over gloo, so that a control broadcast never waits in a card's stream behind
   a running chunk. Under gloo both planes are one group.
-- `resolve_data_axis(config, world_size)` applies the JAX package's rule:
-  -1 is the whole group, any other value must equal its size.
+- `resolve_data_axis(config, world_size)` applies the JAX package's rule
+  (make_mesh): model_axis must divide the group's size, data_axis -1 is
+  the rest, any other value times model_axis must equal the size.
 - `init_data_group(backend, device)` joins the group (from torchrun's
   environment, or from an address, rank and size the caller gives) with a
   timeout on every collective, so a rank that dies ends the others with an
   error instead of hanging them.
-- `replicas_equal` holds every rank's tensors to rank 0's, bit for bit.
+- `replicas_equal` holds every rank's tensors to rank 0's, bit for bit
+  (a rank's shards to its data group's first rank's).
 - `all_reduce_mean_` averages a list of tensors in place with one
   collective over one flat buffer (and can sum a second list, exactly, in
   the same collective). On CUDA tensors gloo offers only broadcast and
@@ -76,7 +87,44 @@ class DataGroup:
     process_index: int = 0           # this rank's node among the group's nodes
     process_count: int = 1           # the group's nodes
     lead_ranks: Tuple[int, ...] = (0,)   # each node's lead, in node order
+    rank_nodes: Tuple[int, ...] = ()     # each rank's node (empty: one node)
     pod: Optional[object] = None     # the pod plane's gloo group (more than one node)
+    model_axis: int = 1              # M: the grid's model axis (tensor parallelism)
+    pg: Optional[object] = None      # the data plane's process group (None: the default)
+    ranks: Optional[Tuple[int, ...]] = None   # a view's global ranks (None: 0..world-1)
+    data_view: Optional["DataGroup"] = None   # make_grid's subgroups
+    model_view: Optional["DataGroup"] = None
+    grids: dict = dataclasses.field(default_factory=dict, repr=False)   # make_grid's cache
+
+    @property
+    def data_index(self) -> int:
+        """This rank's place on the data axis, rank // M."""
+        return self.rank // self.model_axis
+
+    @property
+    def model_index(self) -> int:
+        """This rank's place on the model axis, rank % M."""
+        return self.rank % self.model_axis
+
+    @property
+    def data(self) -> "DataGroup":
+        """The data group: the ranks with this rank's model index (the
+        group itself when M = 1)."""
+        if self.model_axis == 1:
+            return self
+        if self.data_view is None:
+            raise RuntimeError("model_axis > 1 but make_grid has not made the subgroups")
+        return self.data_view
+
+    @property
+    def model(self) -> "DataGroup":
+        """The model group: the ranks with this rank's data index (a group
+        of one when M = 1)."""
+        if self.model_view is not None:
+            return self.model_view
+        if self.model_axis > 1:
+            raise RuntimeError("model_axis > 1 but make_grid has not made the subgroups")
+        return DataGroup(rank=0, world_size=1, device=self.device, ranks=(self.rank,))
 
     @property
     def lead(self) -> bool:
@@ -91,6 +139,16 @@ class DataGroup:
         return self.rank == self.lead_ranks[self.process_index]
 
     @property
+    def model_on_node(self) -> bool:
+        """Every rank of this rank's model group is on this rank's node (a
+        node's ranks live or go together: on a pod abort such a group can
+        still gather its shards)."""
+        if not self.rank_nodes:
+            return True
+        return all(self.rank_nodes[r] == self.process_index
+                   for r in (self.model.ranks or (self.rank,)))
+
+    @property
     def is_pod(self) -> bool:
         """More than one node: the pod layer is on (parallel/multihost.py)."""
         return self.process_count > 1
@@ -98,9 +156,18 @@ class DataGroup:
 
 def resolve_data_axis(config, world_size: int) -> int:
     """The number of data-parallel ranks: config.data_axis, -1 meaning the
-    whole group; any other value must equal the group's size (the JAX
-    package's make_mesh raises the same way when the devices disagree)."""
+    whole group (over model_axis); any other value must equal the group's
+    size (times model_axis: the JAX package's make_mesh raises the same
+    way when the devices disagree)."""
     world_size = int(world_size)
+    m = int(getattr(config, "model_axis", 1))
+    if m > 1:
+        if world_size % m:
+            raise ValueError(f"model_axis={m} must divide device count {world_size}")
+        data_axis = world_size // m if config.data_axis == -1 else config.data_axis
+        if data_axis * m != world_size:
+            raise ValueError(f"mesh {data_axis}x{m} != {world_size} devices")
+        return data_axis
     if config.data_axis == -1:
         return world_size
     if config.data_axis != world_size:
@@ -185,8 +252,44 @@ def _learn_nodes(group: DataGroup, node_rank: int, local_rank: int, timeout) -> 
     group.process_index = nodes.index(node_rank)
     group.process_count = len(nodes)
     group.lead_ranks = tuple(leads)
+    group.rank_nodes = tuple(nodes.index(n) for n, _ in pairs)
     if group.process_count > 1:
         group.pod = dist.new_group(backend="gloo", timeout=timeout)
+
+
+def make_grid(group: Optional[DataGroup], model_axis: int,
+              timeout_s: float = DEFAULT_TIMEOUT_S) -> Optional[DataGroup]:
+    """`group`'s ranks laid out as the (data, model) grid of `model_axis`
+    columns, with this rank's two subgroups (the module's docstring): a
+    copy of the group, which is left as it is. A collective the first
+    time for a given model_axis (the copy is kept on the group): every
+    rank calls it, and each makes every subgroup, in one order
+    (torch.distributed.new_group's rule). With model_axis 1, or no group,
+    the group itself."""
+    m = int(model_axis)
+    if group is None or m == 1:
+        return group
+    if m in group.grids:
+        return group.grids[m]
+    n = group.world_size
+    if n % m:
+        raise ValueError(f"model_axis={m} must divide device count {n}")
+    import torch.distributed as dist
+
+    timeout = datetime.timedelta(seconds=float(timeout_s))
+    d, r = n // m, group.rank
+    views = {}
+    for kind, sets in (("model", [tuple(i * m + j for j in range(m)) for i in range(d)]),
+                       ("data", [tuple(i * m + j for i in range(d)) for j in range(m)])):
+        for ranks in sets:
+            pg = dist.new_group(list(ranks), timeout=timeout)
+            if r in ranks:
+                views[kind] = DataGroup(rank=ranks.index(r), world_size=len(ranks),
+                                        device=group.device, ctrl=pg, pg=pg, ranks=ranks)
+    grid = dataclasses.replace(group, model_axis=m, data_view=views["data"],
+                               model_view=views["model"], grids={})
+    group.grids[m] = grid
+    return grid
 
 
 def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -214,7 +317,7 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], group: Optional[DataGroup]
 
     tensors, sums = list(tensors), list(sums)
     flat = _flat(tensors + sums)
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=None)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group.pg)
     n = sum(t.numel() for t in tensors)
     flat[:n].div_(group.world_size)
     _scatter_back(flat, tensors + sums)
@@ -229,7 +332,7 @@ def all_reduce_sum_(tensors: Sequence[torch.Tensor], group: Optional[DataGroup])
     import torch.distributed as dist
 
     for t in tensors:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=None)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group.pg)
 
 
 def all_gather(tensor: torch.Tensor, group: Optional[DataGroup]) -> torch.Tensor:
@@ -248,13 +351,15 @@ def all_gather(tensor: torch.Tensor, group: Optional[DataGroup]) -> torch.Tensor
 
 
 def _broadcast(tensor: torch.Tensor, group: Optional[DataGroup], control: bool = False) -> None:
-    """Rank 0's `tensor` into every rank's, in place; over the control
-    plane (CPU tensors, gloo) when `control`, else the data plane."""
+    """The group's first rank's `tensor` into every rank's, in place; over
+    the control plane (CPU tensors, gloo) when `control`, else the data
+    plane."""
     if group is None or group.world_size == 1:
         return
     import torch.distributed as dist
 
-    dist.broadcast(tensor, src=0, group=group.ctrl if control else None)
+    src = group.ranks[0] if group.ranks else 0
+    dist.broadcast(tensor, src=src, group=group.ctrl if control else group.pg)
 
 
 def share(values: Sequence[float], group: Optional[DataGroup]) -> list:
@@ -284,19 +389,37 @@ def share_rows(rows: Optional[np.ndarray], width: int,
     return buf.numpy()
 
 
-def replicas_equal(tensors: Sequence[torch.Tensor], group: Optional[DataGroup]) -> bool:
+def _differs(tensors: Sequence[torch.Tensor], group: DataGroup) -> bool:
+    """Whether this rank's tensors differ, bit for bit, from the group's
+    first rank's (which broadcasts their bytes on the data plane)."""
+    if not tensors or group.world_size == 1:
+        return False
+    mine = torch.cat([t.detach().reshape(-1).contiguous().view(torch.uint8) for t in tensors])
+    lead = mine.clone()
+    _broadcast(lead, group)
+    return not torch.equal(lead, mine)
+
+
+def replicas_equal(tensors: Sequence[torch.Tensor], group: Optional[DataGroup],
+                   sharded: Optional[Sequence[bool]] = None) -> bool:
     """True on every rank when every rank's tensors equal rank 0's bit for
     bit: rank 0 broadcasts their bytes on the data plane, each rank
     compares its own, and the verdicts are summed, so all ranks return the
-    same answer."""
+    same answer. On a grid with model_axis > 1, `sharded` marks the
+    tensors that are a rank's shards: those are held to the first rank of
+    the rank's data group (the ranks with the same shards), the others to
+    rank 0 of the whole group."""
     if group is None or group.world_size == 1:
         return True
     import torch.distributed as dist
 
-    mine = torch.cat([t.detach().reshape(-1).contiguous().view(torch.uint8) for t in tensors])
-    lead = mine.clone()
-    _broadcast(lead, group)
-    differ = torch.tensor([0.0 if torch.equal(lead, mine) else 1.0], dtype=torch.float32,
-                          device=mine.device)
-    dist.all_reduce(differ, op=dist.ReduceOp.SUM, group=None)
-    return float(differ) == 0.0
+    tensors = list(tensors)
+    if sharded is None or group.model_axis == 1:
+        differ = _differs(tensors, group)
+    else:
+        differ = (_differs([t for t, s in zip(tensors, sharded) if not s], group)
+                  | _differs([t for t, s in zip(tensors, sharded) if s], group.data))
+    device = tensors[0].device if tensors else group.device
+    verdict = torch.tensor([1.0 if differ else 0.0], dtype=torch.float32, device=device)
+    dist.all_reduce(verdict, op=dist.ReduceOp.SUM, group=group.pg)
+    return float(verdict) == 0.0

@@ -78,6 +78,23 @@ On D > 1 ranks every rank runs train() with its DataGroup, in lockstep:
   final record adds data_axis, global_batch, the route and whether the
   replicas' states (and priorities) are bit-identical at the end.
 
+With --model_axis=M > 1 the D x M ranks are the learner's (data, model)
+grid (parallel/mesh.make_grid; `torchrun --nproc_per_node=D*M ...
+--data_axis=D --model_axis=M`), and the rules above hold over all of
+them. The learner holds each rank's shards (parallel/learner.py); at a
+checkpoint every rank gathers the logical state over its model group
+(learner.logical_state) and rank 0 writes it, a restore loads the logical
+state on every rank, and a sharded ring's slices are written by each model
+group's first rank, one a data index. On a pod abort under M > 1 a node
+lead writes its emergency checkpoint when its model group lies on its
+node (torchrun's --nproc_per_node a multiple of M), gathered under the
+pod deadline; a group that spans nodes writes none (a lost node's shards
+cannot be gathered), and the last cadence checkpoint is then the resume
+point. Every train and final record
+carries mesh_data_axis, mesh_model_axis, mesh_param_bytes_per_device (this
+rank's shards) and mesh_param_bytes_total (the logical state), at M = 1
+too (metrics.MeshStats).
+
 Under the CLI the D processes come from torchrun (NCCL, one card a rank):
     torchrun --nproc_per_node=D -m distributed_ddpg_tpu_torch.train --data_axis=D ...
 
@@ -334,6 +351,7 @@ from distributed_ddpg_tpu_torch.exits import (
 )
 from distributed_ddpg_tpu_torch.metrics import (
     GuardrailStats,
+    MeshStats,
     MetricsLogger,
     PhaseTimers,
     PodStats,
@@ -441,7 +459,8 @@ def resume(config: DDPGConfig, learner, replay, group=None,
     if lead and ckpt_lib.latest_step(config.checkpoint_dir) is not None:
         try:
             state, step, env_steps = ckpt_lib.restore(
-                config.checkpoint_dir, learner.state, replay, config=config, meta_out=meta)
+                config.checkpoint_dir, learner.state_template(), replay, config=config,
+                meta_out=meta, device=learner.device)
         except Exception:
             mesh.share([-2], group)
             raise
@@ -452,8 +471,8 @@ def resume(config: DDPGConfig, learner, replay, group=None,
         return None
     if not lead:
         state, _, env_steps = ckpt_lib.restore(
-            config.checkpoint_dir, learner.state, replay, step=step, config=config,
-            meta_out=meta)
+            config.checkpoint_dir, learner.state_template(), replay, step=step, config=config,
+            meta_out=meta, device=learner.device)
     learner.load_state(state)
     if meta_out is not None:
         meta_out.update(meta)
@@ -482,8 +501,9 @@ def elect_and_resume(config: DDPGConfig, learner, replay, process_index: int, po
         return None
     meta: Dict[str, Any] = {}
     resume_dir = config.checkpoint_dir if elected in main_steps else own_dir
-    state, step, env_steps = ckpt_lib.restore(resume_dir, learner.state, replay, step=elected,
-                                              config=config, meta_out=meta)
+    state, step, env_steps = ckpt_lib.restore(resume_dir, learner.state_template(), replay,
+                                              step=elected, config=config,
+                                              meta_out=meta, device=learner.device)
     learner.load_state(state)
     pod_stats.record_resume_elected(elected)
     trace.instant("pod_resume_elected", step=elected)
@@ -555,7 +575,7 @@ def adopt_replay_slices(config: DDPGConfig, replay, group, is_multi: bool, pod_s
         return None
     slices = ckpt_lib.load_replay_slices(config.checkpoint_dir, elected)
     replay.load_state_dict(merge_slice_states(slices))
-    n_prev, now = len(slices), (group.world_size if group is not None else 1)
+    n_prev, now = len(slices), replay.n_shards
     pod_stats.record_slice_adopted(elected)
     trace.instant("pod_slice_adopted", step=elected)
     print(f"[pod] adopted replay slices from step {elected} (written by {n_prev} "
@@ -680,7 +700,11 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
     from distributed_ddpg_tpu_torch.obs import health
     from distributed_ddpg_tpu_torch.obs import PodAggregator
     from distributed_ddpg_tpu_torch.parallel import mesh, multihost
-    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, resolve_learner_chunk
+    from distributed_ddpg_tpu_torch.parallel.learner import (
+        ShardedLearner,
+        resolve_learner_chunk,
+        state_tensors,
+    )
     from distributed_ddpg_tpu_torch.parallel.megastep import FusedMegastep, fused_beat_active
     from distributed_ddpg_tpu_torch.parallel.prefetch import ChunkPrefetcher
     from distributed_ddpg_tpu_torch.parallel.superstep import FusedSuperstep, per_beat_betas
@@ -811,7 +835,9 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         pod=group if is_multi else None,
         background_sync=config.sync_ship_background,
         replay_sharding=config.replay_sharding,
-        group=group,
+        # A sharded ring is split over the data group: the ranks of one
+        # model group hold the same slots.
+        group=learner.data_group,
     )
     try:
         if host_replay:
@@ -848,7 +874,9 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
     # writes one slice over the whole ring, so the format never depends on
     # the rank count.
     slice_writer = not host_replay and config.replay_sharding == "sharded"
-    my_rank = group.rank if group is not None else 0
+    # A slice a data index: under model_axis > 1 the ranks of a model group
+    # hold the same slots, and its first rank writes them.
+    my_rank = learner.rank
     slice_fault = fault_plan.slice_site(my_rank) if (fault_plan and slice_writer) else None
     if slice_writer and lead:
         print("[replay] sharded mode: replay contents are omitted from checkpoints' "
@@ -922,10 +950,16 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         return dict(host_replay=True, prefetch_depth=config.prefetch_depth,
                     t_sample_wait_run_ms=1000.0 * sample_wait_s / max(chunks, 1), **tree)
 
+    mesh_stats = MeshStats(learner.data_size, learner.model_axis)
+
     def mesh_fields() -> Dict[str, Any]:
-        if learner.data_size == 1:
-            return {}
-        out = dict(data_axis=learner.data_size, global_batch=learner.global_batch,
+        """The mesh_* placement facts (metrics.MeshStats, every train and
+        final record, JAX :1435-1444), and on more than one rank the grid's
+        data axis, global batch and route."""
+        out = mesh_stats.snapshot(state_tensors(learner.state), learner.state_sharded())
+        if learner.data_size == 1 and learner.model_axis == 1:
+            return out
+        out.update(data_axis=learner.data_size, global_batch=learner.global_batch,
                    route=learner.route(per=config.prioritized))
         if is_multi:
             out.update(process_index=proc_idx, process_count=group.process_count)
@@ -946,8 +980,9 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         """This rank's slice of the sharded ring at `step`, beside the
         learner checkpoint (checkpoint.write_replay_slice). A failed write
         costs the step's set its completeness, never the run: adoption
-        falls back to an older complete set."""
-        if not (slice_writer and config.checkpoint_dir):
+        falls back to an older complete set. Under model_axis > 1 the model
+        group's first rank writes its data index's slice."""
+        if not (slice_writer and config.checkpoint_dir) or learner.model_rank != 0:
             return
         try:
             ckpt_lib.write_replay_slice(config.checkpoint_dir, step, my_rank,
@@ -966,7 +1001,7 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
             import torch
 
             mine = torch.tensor([replay.local_fill], dtype=torch.int64, device=device)
-            shard_fills[0] = dispatch(lambda: mesh.all_gather(mine, group),
+            shard_fills[0] = dispatch(lambda: mesh.all_gather(mine, learner.data_group),
                                       "shard_fill_gather").reshape(-1).tolist()
 
     def dispatch(fn, label: str = "learner_chunk"):
@@ -1195,6 +1230,26 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
             last_monitor_t = time.monotonic()
             pool.monitor()
 
+    def emergency_logical_state():
+        """On a pod abort under model_axis > 1: the logical state, gathered
+        over this rank's model group under the pod deadline when the group
+        lies on this node (every rank of such a group takes the same
+        branch). None, and so no emergency checkpoint from this rank, when
+        the group spans nodes (one of them may be the lost one, which the
+        pod plane cannot always name) or the gather fails: the last
+        cadence checkpoint is then the resume point."""
+        if not learner.group.model_on_node:
+            print("[train] pod abort with model_axis > 1: this rank's model group spans "
+                  "nodes, no emergency checkpoint from it (a lost node's shards cannot be "
+                  "gathered)", file=sys.stderr, flush=True)
+            return None
+        try:
+            return multihost.call_with_deadline(learner.logical_state, label="emergency_gather")
+        except Exception as e:
+            print(f"[train] pod abort with model_axis > 1: the model group's gather failed "
+                  f"({e!r}), no emergency checkpoint from it", file=sys.stderr, flush=True)
+            return None
+
     def emergency_checkpoint() -> int:
         """After SIGTERM or a pod abort: land the write in flight (its
         failure does not cost this save), then rank 0 writes this step
@@ -1216,12 +1271,21 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         if slice_writer and pod_lost is None:
             wait_beat()
         write_replay_slices(learn_steps)
-        if not (config.checkpoint_dir and (lead or (pod_lost is not None and actor_host))):
+        if not config.checkpoint_dir:
+            return 0
+        if learner.model_axis > 1:
+            ckpt_state = (learner.logical_state() if pod_lost is None   # every rank
+                          else emergency_logical_state())
+            if ckpt_state is None:
+                return 0
+        else:
+            ckpt_state = learner.state
+        if not (lead or (pod_lost is not None and actor_host)):
             return 0
         my_dir = ckpt_lib.pod_dir(config.checkpoint_dir, proc_idx)
         if ckpt_lib.latest_step(my_dir) != learn_steps:
             with phases.phase("ckpt"):
-                ckpt_lib.save(my_dir, learn_steps, learner.state, ckpt_replay(), config,
+                ckpt_lib.save(my_dir, learn_steps, ckpt_state, ckpt_replay(), config,
                               env_steps=n_env, v_bounds=auto_bounds(),
                               keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
                               backoff_s=config.ckpt_retry_backoff_s,
@@ -1740,6 +1804,7 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                         **metrics,
                         **support_fields(),
                         **per_fields(),
+                        **mesh_fields(),
                         **phases.snapshot(),
                         **ingest_fields(),
                         **guardrail_fields(),
@@ -1754,10 +1819,13 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                 if config.checkpoint_dir and learn_steps - last_ckpt >= config.checkpoint_every:
                     # One writer: the replicas hold the same state and replay.
                     # Only the snapshot runs here; the write on the saver's thread.
+                    # The logical state: on a grid with model_axis > 1 the
+                    # shards gathered over each model group, on every rank.
+                    ckpt_state = learner.logical_state()
                     if lead:
                         with phases.phase("ckpt"):
                             saver.save_async(
-                                config.checkpoint_dir, learn_steps, learner.state,
+                                config.checkpoint_dir, learn_steps, ckpt_state,
                                 ckpt_replay(), config,
                                 env_steps=n_env, v_bounds=auto_bounds(),
                                 keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
@@ -1870,18 +1938,18 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
     if config.prioritized:   # the run's one read of the max priority
         metrics["max_priority"] = float(replay.max_priority)
     replica = {}
-    if learner.data_size > 1 and pod_lost is None:
+    if (learner.data_size > 1 or learner.model_axis > 1) and pod_lost is None:
         # Every rank's state (and PER's priorities) against rank 0's, bit
-        # for bit: the replicas must not have drifted apart.
-        from distributed_ddpg_tpu_torch.parallel.learner import state_tensors
-
+        # for bit (a rank's shards against its data group's first rank's):
+        # the replicas must not have drifted apart.
         held = state_tensors(learner.state)
         if config.prioritized:
             # A sharded ring's priorities are each rank's own slots: only
             # the max priority is a replica.
             held += ([replay.max_priority] if slice_writer
                      else [replay.priorities, replay.max_priority])
-        replica = dict(replicas_identical=mesh.replicas_equal(held, group))
+        flags = learner.state_sharded() + [False] * (len(held) - len(learner.state_sharded()))
+        replica = dict(replicas_identical=mesh.replicas_equal(held, learner.group, sharded=flags))
         gather_shard_fills()
     final_return = None
     # Preempted: checkpoint and get out. Numerically aborted: the params are

@@ -196,7 +196,7 @@ def test_config_defaults_match_jax():
     dict(policy_delay=2), dict(fused_chunk="sometimes"),
     dict(sac=True, fused_update=True),
     dict(data_axis=0), dict(compute_dtype="float16"), dict(guardrails=True, fused_chunk="on"),
-    dict(data_axis=-2), dict(model_axis=2), dict(actor_backend="device", data_axis=2),
+    dict(data_axis=-2), dict(model_axis=0), dict(actor_backend="device", data_axis=2),
     dict(serve_actors=True, data_axis=2), dict(transport="tcp"), dict(fused_mesh="on"),
     # (`slice` faults are in the slice since the sharded replay; the
     # guarded learner on two ranks is not.)

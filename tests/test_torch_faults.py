@@ -186,12 +186,31 @@ TINY = ["--actor_hidden=16,16", "--critic_hidden=16,16", "--batch_size=16",
         "--learner_chunk=4", "--replay_min_size=200", "--eval_every=0", "--eval_episodes=1"]
 
 
+# The JAX trainer builds its TensorBoard writer (torch.utils.tensorboard,
+# which imports TensorFlow, Keras, scikit-learn and SciPy) after its stall
+# watchdog is armed; on a loaded host that import outlasts --watchdog_s and
+# the watchdog ends the run with exit 70. The port's trainer loads the
+# writer before it arms its watchdog (train._load_training_stack); for the
+# JAX run the child loads it first, then runs the trainer as `-m` would.
+_JAX_WITH_TB = ("import runpy\n"
+                "try:\n"
+                "    import torch.utils.tensorboard\n"
+                "except Exception:\n"
+                "    pass\n"
+                "runpy.run_module('distributed_ddpg_tpu.train', run_name='__main__', "
+                "alter_sys=True)\n")
+
+
 def run_cli(package: str, flags, log_path, timeout=240):
     """`python -m <package>.train <flags>` in a child process (the port's on
-    the CPU); returns (returncode, records, stderr)."""
+    the CPU); returns (returncode, records, stderr). The JAX trainer with a
+    --tb_dir starts with its TensorBoard writer's modules loaded
+    (_JAX_WITH_TB)."""
     cmd = [sys.executable, "-m", f"{package}.train", *flags, f"--log_path={log_path}"]
     if package == "distributed_ddpg_tpu_torch":
         cmd.insert(3, "--device=cpu")
+    elif any(f.startswith("--tb_dir=") for f in flags):
+        cmd[1:3] = ["-c", _JAX_WITH_TB]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env.update(OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
     res = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,

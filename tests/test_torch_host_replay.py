@@ -422,7 +422,7 @@ def test_the_port_refuses_what_it_does_not_port_yet():
     # replay on more than one rank is not.
     assert DDPGConfig(replay_sharding="sharded").replay_sharding == "sharded"
     with pytest.raises(ValueError, match="item 10"):
-        DDPGConfig(model_axis=2)
+        DDPGConfig(host_replay=True, model_axis=2)
     with pytest.raises(ValueError, match="item 10"):
         DDPGConfig(host_replay=True, data_axis=2)
     with pytest.raises(ValueError, match="prefetch_depth"):

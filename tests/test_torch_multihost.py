@@ -314,15 +314,17 @@ def test_pod_config_fields_match_jax():
 
 
 def test_only_the_data_plane_fields_are_refused():
-    """Every JAX config field is the port's now; the one left to refuse is
-    model_axis (ROADMAP.md Queue 1 item 10). The sharded replay and its
-    `slice` faults are accepted."""
+    """Every JAX config field is the port's now, model_axis included (the
+    tensor-parallel learner); what runs on one rank only is refused with
+    item 10's message under model_axis > 1 (ROADMAP.md Queue 1 item 10).
+    The sharded replay and its `slice` faults are accepted."""
     ours = {f.name for f in dataclasses.fields(DDPGConfig)}
     theirs = {f.name for f in dataclasses.fields(JaxConfig)}
     assert theirs - ours == set()
-    assert config_mod._NOT_IN_SLICE == {"model_axis": 1}
+    assert not hasattr(config_mod, "_NOT_IN_SLICE")
+    assert DDPGConfig(model_axis=2).model_axis == 2
     with pytest.raises(ValueError, match="item 10"):
-        DDPGConfig(model_axis=2)
+        DDPGConfig(model_axis=2, serve_actors=True)
     assert DDPGConfig(replay_sharding="sharded").replay_sharding == "sharded"
     assert [s.describe() for s in faults.FaultPlan.parse("slice:1:corrupt@2").specs] == \
         ["slice:1:corrupt@2"]

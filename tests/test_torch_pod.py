@@ -29,6 +29,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -64,15 +65,18 @@ def _base_env() -> dict:
     return env
 
 
-def launch_pod(tmp_path, tag: str, flags, env_extra=None):
-    """Two nodes of the CLI trainer; returns [(code, stdout, stderr)] by node.
-    A node still running POD_TIMEOUT_S after the start is killed."""
+def launch_pod(tmp_path, tag: str, flags, env_extra=None, per_node: int = 1):
+    """Two nodes of the CLI trainer, `per_node` ranks each; returns
+    [(code, stdout, stderr)] by rank. A rank still running POD_TIMEOUT_S
+    after the start is killed."""
     port = _free_port()
     procs, files = [], []
-    for p in range(2):
+    world = 2 * per_node
+    for p in range(world):
         env = _base_env()
-        env.update(RANK=str(p), WORLD_SIZE="2", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
-                   GROUP_RANK=str(p), GROUP_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+        env.update(RANK=str(p), WORLD_SIZE=str(world), LOCAL_RANK=str(p % per_node),
+                   LOCAL_WORLD_SIZE=str(per_node), GROUP_RANK=str(p // per_node),
+                   GROUP_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(port), **(env_extra or {}))
         out = open(tmp_path / f"{tag}.p{p}.out", "w+")
         err = open(tmp_path / f"{tag}.p{p}.err", "w+")
@@ -162,6 +166,42 @@ def test_killed_peer_exits_76_then_the_relaunch_elects_the_common_step(tmp_path)
         assert s["process_count"] == 2 and not s["pod_degraded"]
     assert [s["process_index"] for s in summaries] == [0, 1]
     assert summaries[0]["learner_steps"] == summaries[1]["learner_steps"]
+
+
+@pytest.mark.parametrize("per_node", [2, 1])
+def test_killed_peer_under_model_axis_checkpoints_from_a_whole_model_group(tmp_path, per_node):
+    """--model_axis=2 with node 1 killed (pod:1:kill@3). Two ranks a node:
+    each model group lies on one node, and node 0's lead writes its
+    emergency checkpoint, the logical state gathered over its group. One
+    rank a node: the only model group spans both nodes, so no emergency
+    checkpoint is written (the port's deviation from the JAX trainer, which
+    writes one on every surviving process): the last cadence checkpoint
+    is the resume point. Both exit 76."""
+    ckdir = tmp_path / "ckpt"
+    ranks = launch_pod(
+        tmp_path, "tpkill", ["--total_env_steps=100000000", "--faults=pod:1:kill@3",
+                             "--model_axis=2", f"--pod_collective_timeout_s={DEADLINE_S}",
+                             f"--checkpoint_dir={ckdir}", "--checkpoint_every=16"],
+        per_node=per_node)
+    for code, _, err in ranks[per_node:]:
+        assert code == -9, err[-2000:]
+    for code, _, err in ranks[:per_node]:
+        assert code == EXIT_POD_DEGRADED, err[-3000:]
+    _, out0, err0 = ranks[0]
+    s0 = summary_of(out0)
+    assert s0["pod_degraded"] and s0["mesh_model_axis"] == 2
+    stopped = s0["learner_steps"]
+    if per_node == 2:
+        assert s0["emergency_ckpt"] == 1, err0[-3000:]
+        assert ckpt.valid_steps(str(ckdir))[-1] == stopped
+        with np.load(ckdir / f"step_{stopped}" / ckpt.STATE_FILE) as z:
+            # The logical leaves: the column layer's w whole, not a shard.
+            assert z["critic_params/0/w"].shape == (3, 16)
+            assert z["critic_opt/mu/0/w"].shape == (3, 16)
+    else:
+        assert s0["emergency_ckpt"] == 0
+        assert "model group spans nodes, no emergency checkpoint" in err0
+        assert all(s < stopped or s % 16 == 0 for s in ckpt.valid_steps(str(ckdir)))
 
 
 def test_supervised_pod_relaunches_after_a_hang(tmp_path):

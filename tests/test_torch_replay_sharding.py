@@ -254,12 +254,17 @@ def test_sharded_config_checks_match_jax(over):
 def test_sharded_is_accepted_and_model_axis_still_refused():
     from distributed_ddpg_tpu_torch import config as config_mod
 
-    assert config_mod._NOT_IN_SLICE == {"model_axis": 1}
+    # model_axis is in the port (the tensor-parallel learner): the sharded
+    # replay composes with it; the device actors beside it are still
+    # refused with item 10's message.
+    assert not hasattr(config_mod, "_NOT_IN_SLICE")
     assert DDPGConfig(replay_sharding="sharded").replay_sharding == "sharded"
     assert DDPGConfig(replay_sharding="sharded", data_axis=2,
                       replay_capacity=1024).data_axis == 2
+    assert DDPGConfig(replay_sharding="sharded", model_axis=2).model_axis == 2
     with pytest.raises(ValueError, match="item 10"):
-        DDPGConfig(model_axis=2)
+        DDPGConfig(model_axis=2, replay_sharding="sharded", actor_backend="device",
+                   num_actors=0)
 
 
 # --- on gloo ranks --------------------------------------------------------------------

@@ -16,10 +16,19 @@ Jobs (`spec["kind"]`):
   or PER (`run_sample_chunk_per`) with the global idx and weights from the
   job's priorities. Writes the end state, the global td, the metrics, the
   route, global_batch, (PER) the priorities and max priority, and whether
-  every rank's state (and priorities) is bit-identical to rank 0's;
+  every rank's state (and priorities) is bit-identical to rank 0's. On a
+  (data, model) grid (the job's config has model_axis > 1) the state
+  written is the logical one (ShardedLearner.logical_state), the replicas
+  are held as parallel/mesh.replicas_equal holds shards, and with
+  `"replay_sharding": "sharded"` the ring is split over the data group
+  (the PER priorities written are then the logical vector);
 - "train": train() at the job's config, in this rank's group; writes its
   summary as JSON;
-- "shard_suite": the sharded replay's cases (tests/torch_shard_child.py).
+- "shard_suite": the sharded replay's cases (tests/torch_shard_child.py);
+- "ckpt": a learner at the job's config (model_axis > 1) restores the
+  logical checkpoint in `src`, writes this rank's shards, and rank 0
+  writes the gathered logical state to `dst` (checkpoints across
+  model_axis).
 """
 
 from __future__ import annotations
@@ -164,8 +173,13 @@ def run_chunk(spec, job, group) -> dict:
                              state=state, group=group)
     per = spec.get("per", False)
     cls = DevicePrioritizedReplay if per else DeviceReplay
-    rep = cls(spec["capacity"], obs, act, device, block_size=spec["block"])
+    sharded = spec.get("replay_sharding") == "sharded"
+    placement = (dict(replay_sharding="sharded", group=learner.group.data if learner.group
+                      else None) if sharded else {})
+    rep = cls(spec["capacity"], obs, act, device, block_size=spec["block"], **placement)
     rep.add_packed(job["rows"])
+    if sharded:
+        rep.flush()
     if per and "prios" in job:
         rep.set_per_state(torch.from_numpy(job["prios"].copy()).to(device),
                           torch.tensor(float(job["max_priority"]), device=device))
@@ -180,7 +194,12 @@ def run_chunk(spec, job, group) -> dict:
                 idx=torch.from_numpy(job["idx"]) if given else None,
                 weights=torch.from_numpy(job["weights"]) if given else None,
                 eps=_noise(job, "", device))
-            out.update(priorities=rep.priorities.cpu().numpy(),
+            prios = rep.priorities
+            if sharded:
+                from torch_shard_child import _logical
+
+                prios = _logical(prios, learner.group.data)
+            out.update(priorities=prios.cpu().numpy(),
                        max_priority=np.float32(rep.max_priority.cpu()))
         else:
             suffix = str(group.rank) if f"idx{group.rank}" in job else ""
@@ -188,15 +207,41 @@ def run_chunk(spec, job, group) -> dict:
             res = learner.run_sample_chunk(
                 rep, idx=None if idx is None else torch.from_numpy(idx),
                 eps=_noise(job, suffix, device))
-    held = state_tensors(learner.state) + ([rep.priorities, rep.max_priority] if per else [])
-    out.update(state_arrays(learner.state))
+    # A sharded ring's priorities are each rank's own slots: only the max
+    # priority is a replica (as train.py holds them).
+    held = state_tensors(learner.state) + (
+        ([rep.max_priority] if sharded else [rep.priorities, rep.max_priority]) if per else [])
+    flags = learner.state_sharded() + [False] * (len(held) - len(learner.state_sharded()))
+    out.update(state_arrays(learner.logical_state()))
     out.update(
         td=res.td_errors.cpu().numpy(),
         metrics=np.array([float(res.metrics[name]) for name in METRIC_KEYS]),
-        replicas=np.array(mesh.replicas_equal(held, group)),
+        replicas=np.array(mesh.replicas_equal(held, learner.group or group, sharded=flags)),
         route=np.array(learner.route(per=per)),
         global_batch=np.array(learner.global_batch),
     )
+    return out
+
+
+def run_ckpt(spec, group) -> dict:
+    from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.learner import state_items
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+
+    cfg = DDPGConfig(device="cpu", **spec["config"])
+    learner = ShardedLearner(cfg, spec["obs"], spec["act"], spec["scale"], spec["offset"],
+                             group=group)
+    template = learner.state_template()
+    # The template carries shapes only: a rank holds no logical copy.
+    assert all(t.device.type == "meta" for _, t in state_items(template))
+    state, step, _ = ckpt_lib.restore(spec["src"], template, device=learner.device)
+    learner.load_state(state)
+    out = {f"shard/{path}": t.numpy() for path, t in state_items(learner.state)}
+    logical = learner.logical_state()
+    if group.rank == 0:
+        ckpt_lib.save(spec["dst"], step, logical, config=cfg)
+    out["step"] = np.int64(step)
     return out
 
 
@@ -214,6 +259,8 @@ def main(argv) -> int:
                             timeout_s=spec.get("timeout_s", 60.0))
     if spec["kind"] == "chunk":
         out = run_chunk(spec, job, group)
+    elif spec["kind"] == "ckpt":
+        out = run_ckpt(spec, group)
     elif spec["kind"] == "shard_suite":
         from torch_shard_child import run_suite
 
