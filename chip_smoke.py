@@ -161,6 +161,33 @@ Phases (any failure raises; nothing is caught and passed over):
    replicas; (e) `--model_axis=2 --fused_chunk=on` exits with the
    config's message. Learner steps/s a rank and the phase's seconds are
    printed beside the card's line: gloo ranks time-slicing one card.
+3d. The device-side data plane on more than one rank (dataplane_phase, on
+   the mesh phase's two ranks; Pendulum-v1, 2x256, batch 64 a rank, f32,
+   1024 device envs, 64 steps a rollout): (a) whether the actor's apply
+   over 512 rows is the same 512 rows of its apply over 1024, with one
+   product a layer and in the rollouts' row tiles (printed; the tiles
+   must be); the rollout at D = 2 (512
+   envs a rank, the rows gathered in JAX's global order): each rollout's
+   rows, the ring's sha256 and the rank's env block bit for bit a
+   one-rank pool's with the same seed and params, every rank's ring the
+   same, the sharded ring's logical rows the replicated one's; a
+   rollout's and its gather's host ms a rank; (b) the rollout at D = 1 x
+   M = 2 (the learner's actor in shards, the logical actor gathered) bit
+   for bit the M = 1 pool's; (c) at D = 2 a fused beat and a superstep of
+   2 beats with K2 (DP_BEAT_K learner steps a beat), uniform and PER, bit
+   for bit the separate sequence (the chunk, the rollout, its gather, the
+   insert) on the same ranks, the replicas the same; (d) the guarded
+   chunk at D = 2 with numeric:grad:nan@DP_GUARD_INJECT and one
+   non-finite replay row drawn into rank 1's columns: both ranks' health
+   words the same and the prediction's, the bad indices those the draw
+   predicts. Beside them, started by rank 0 (DataplaneCLI): (e) four
+   main paths through the CLI, two ranks each (torchrun of this script's
+   --tp-child, gloo on the card): the device actors at D = 2 on K1 (a)
+   (the mesh launch), the fused beat with a superstep of 2 and K2 at
+   D = 2, the monolith with K2 at D = 2 (4 envs, 2 a rank), the device
+   actors with K2 at D = 1 x M = 2; each exits 0 with its launches a rank
+   (K1 a chunk, K2 twice a learner step), bit-identical replicas, learner
+   and env steps/s a rank beside the card's line.
 4. Drive the main paths, `distributed_ddpg_tpu_torch.train` (Pendulum-v1,
    2x256, batch 64, f32, one actor process, K = 800): DDPG with the
    default flags for 20,000 env steps and TD3 with --twin_critic=true
@@ -173,9 +200,9 @@ Phases (any failure raises; nothing is caught and passed over):
    --tau=0.005 for 20,000 (its final alpha is printed); then with
    --compute_dtype=bfloat16 DDPG for 20,000 env steps and TD3, D4PG and
    SAC (their flags as above) for 5000 each; then the scan route:
-   --fused_update=true for 10,000 env steps, README's D4PG command (with
-   --prioritized=true) with --fused_update=true and --critic_l2=0.01 for
-   5000 each. DDPG and README's D4PG command also run once with the old
+   --fused_update=true, README's D4PG command (with --prioritized=true)
+   with --fused_update=true and --critic_l2=0.01 for 5000 env steps
+   each. DDPG and README's D4PG command also run once with the old
    pipeline's flags (OLD_ENV_STEPS), --transport=queue
    --ingest_async=false --transfer_scheduler=false, and the scan route
    with K2 once with them (OLD_SCAN_ENV_STEPS), each printed beside its
@@ -2055,9 +2082,9 @@ MESH_SUPPORT_K = 200      # learner steps a chunk of the forced expansion
 MESH_SUPPORT_CHUNKS = 12  # chunks the expansion may take to fire
 # README's whole D4PG command with PER at D = 2 takes the scan route: a scan
 # chunk of 800 eager steps holds each rank's host ~9 s while the actor
-# fills its 4096-row shm ring, so 5000 env steps are 1-2 chunks past the
-# 1000-row warmup.
-MESH_PER_ENV_STEPS = 5000
+# fills its 4096-row shm ring, so 3000 env steps are a chunk past the
+# 1000-row warmup (5000 before 3d took its seconds).
+MESH_PER_ENV_STEPS = 3000
 
 
 def mesh_phase(card: str) -> dict:
@@ -2892,8 +2919,9 @@ class TPLaunches:
 
 
 def tp_child(flags) -> int:
-    """One rank of (c) under torchrun (`--tp-child`): train.main on the
-    flags with TF32 off and the launch counts zeroed just before; writes
+    """One rank of a CLI path under torchrun (`--tp-child`; 3c's (c), 3d's
+    (e)): train.main on the flags with TF32 off and the launch counts
+    zeroed just before; writes
     {"rank": r, "launches": {...}} after it to $TP_CHILD_REPORT.rank<r>.json
     (a file a rank: the ranks share one stdout)."""
     from distributed_ddpg_tpu_torch.ops._build import KERNEL_LAUNCHES
@@ -2940,6 +2968,364 @@ def tp_phase(group, out_dir: str, card: str, say) -> dict:
         + (f", {record['cli_2x2']['learner_steps_per_sec']} at D=2 M=2 (CLI)"
            if "cli_2x2" in record else "")
         + " -- gloo ranks time-slicing one card (NCCL refuses two ranks on one device)")
+    return record
+
+
+# --- 3d. the device-side data plane on the mesh ranks ---
+
+DP_ROLLOUTS = 2           # (a), (b): rollouts of 1024 envs x 64 steps
+DP_ROWS = 1024 * 64       # a rollout's rows at the main path's width (4e's DEVACTOR_ENVS)
+DP_BEAT_K = 16            # (c): the beats' learner chunk (the bit-identity checks' K)
+DP_GUARD_K = 16           # (d): the guarded chunk's steps
+DP_GUARD_ROWS = 4096      # (d): the ring's rows, one of them non-finite
+DP_GUARD_INJECT = 3       # (d): numeric:grad:nan@3
+DP_CLI_TIMEOUT_S = 240    # (e): the four CLI paths, from their start to their end
+DP_CLI_COMMON = ["--replay_min_size=1000", "--eval_every=0", "--eval_episodes=2"]
+DP_DEVICE = ["--actor_backend=device", "--num_actors=0"]
+# (e): each path two ranks under torchrun (gloo, the one card): its flags
+# and the kernel its main path must launch.
+DP_CLI_PATHS = {
+    "device_actors_d2": (["--data_axis=2", *DP_DEVICE, "--total_env_steps=3000"],
+                         "fused_chunk"),
+    "superstep_d2": (["--data_axis=2", *DP_DEVICE, "--fused_beat=on", "--fused_update=true",
+                      "--superstep_beats=2", "--learner_chunk=50",
+                      f"--total_env_steps={2 * DP_ROWS}"], "fused_update"),
+    "ondevice_d2": (["--data_axis=2", "--backend=jax_ondevice", "--num_actors=4",
+                     "--fused_update=true", "--total_env_steps=2000"], "fused_update"),
+    "device_actors_1x2": (["--model_axis=2", *DP_DEVICE, "--fused_update=true",
+                           "--learner_chunk=50", "--total_env_steps=3000"], "fused_update"),
+}
+
+
+class DataplaneCLI:
+    """3d (e): the four CLI main paths, each `torchrun --nproc_per_node=2`
+    of this script's `--tp-child` (train.main with the launch counts zeroed
+    just before and read just after, a report a rank) under
+    DDPG_DIST_BACKEND=gloo on the one card, started together beside the
+    ranks' checks (a)-(d) and finished after them."""
+
+    def __init__(self, out_dir: str):
+        self.dir = out_dir
+        self.t0 = time.monotonic()
+        self.procs = {}
+        for name, (flags, _) in DP_CLI_PATHS.items():
+            env = dict(os.environ, DDPG_DIST_BACKEND="gloo",
+                       TP_CHILD_REPORT=os.path.join(out_dir, f"dp_{name}"))
+            out = open(os.path.join(out_dir, f"dp_{name}.out"), "w+")
+            self.procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2",
+                 f"--master_port={free_port()}", os.path.abspath(__file__), "--tp-child",
+                 *DP_CLI_COMMON, *flags,
+                 f"--log_path={os.path.join(out_dir, f'dp_{name}.jsonl')}"],
+                stdout=out, stderr=subprocess.STDOUT, env=env), out)
+
+    def finish(self, card: str, say) -> dict:
+        record = {}
+        try:
+            for name, (proc, out) in self.procs.items():
+                rc = proc.wait(timeout=max(1.0, DP_CLI_TIMEOUT_S
+                                           - (time.monotonic() - self.t0)))
+                secs = time.monotonic() - self.t0
+                out.seek(0)
+                text = out.read()
+                reports = []
+                for r in range(2):
+                    path = os.path.join(self.dir, f"dp_{name}.rank{r}.json")
+                    if os.path.exists(path):
+                        with open(path) as f:
+                            reports.append(json.load(f)["launches"])
+                if rc != 0 or len(reports) != 2:
+                    raise AssertionError(f"(e) {name}: exit {rc}, {len(reports)} rank "
+                                         f"reports:\n{text[-4000:]}")
+                with open(os.path.join(self.dir, f"dp_{name}.jsonl")) as f:
+                    final = [json.loads(line) for line in f if line.strip()][-1]
+                kernel = DP_CLI_PATHS[name][1]
+                steps = final["learner_steps"]
+                want = ({"fused_chunk": final["chunks"]} if kernel == "fused_chunk"
+                        else {"fused_update": 2 * steps})
+                keys = ("learner_steps", "learner_steps_per_sec", "env_steps_per_sec",
+                        "chunks", "route", "replicas_identical", "fused_supersteps",
+                        "fused_beats", "devactor_env_steps", "devactor_gather_ms",
+                        "data_axis", "mesh_model_axis", "global_batch")
+                rec = {k: final[k] for k in keys if k in final}
+                rec["env_steps"] = final["step"]
+                ok = (final["kind"] == "final" and steps > 0
+                      and all(r == want for r in reports)
+                      and final.get("replicas_identical", True) is True
+                      and all(math.isfinite(final[k]) for k in ("learner_steps_per_sec",
+                                                                "env_steps_per_sec")))
+                if name == "superstep_d2":
+                    # The whole run's counts are the summary's (rank 0's last
+                    # line); the final record's fused_* are its interval's.
+                    for k in ("fused_supersteps", "fused_beats", "fused_superstep_beats"):
+                        got = re.findall(rf"'{k}': ([0-9.]+)", text)
+                        rec[k] = float(got[-1]) if got else None
+                    ok = ok and (rec["fused_supersteps"] or 0) >= 1 \
+                        and rec["fused_superstep_beats"] == 2.0
+                if name == "device_actors_d2":
+                    ok = ok and final.get("route") == "mesh"
+                say(f"  (e) {name}: {card}: exit {rc} in {secs:.1f}s from the phase's start "
+                    f"(torchrun, gloo, two ranks on one card), launches a rank {reports}, "
+                    f"learner steps/s a rank {final['learner_steps_per_sec']}, env steps/s "
+                    f"{final['env_steps_per_sec']}: " + json.dumps(rec))
+                if not ok:
+                    raise AssertionError(f"(e) {name}: {final}, launches {reports}")
+                record[name] = dict(rec, launches=reports[0][kernel], kernel=kernel,
+                                    seconds=secs)
+        finally:
+            self.stop()
+        return record
+
+    def stop(self) -> None:
+        for proc, out in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            out.close()
+
+
+def _dp_params(cfg):
+    """The actor params of a random state made from the config's seed (on
+    the CPU, so every rank makes the same), on the card."""
+    from distributed_ddpg_tpu_torch.learner import init_train_state
+
+    return init_train_state(cfg, 3, 1, cfg.seed, "cpu")
+
+
+def _to_card(tree):
+    return tree_map_tensors(lambda t: t.to("cuda"), tree)
+
+
+def row_invariance(card: str, say) -> dict:
+    """Context for 3d (a): whether the last 512 rows of the actor's apply
+    over 1024 observations equal the apply over those 512 rows alone, bit
+    for bit, with every dense layer one `x @ w + b` (the learner's) and in
+    the rollouts' fixed row tiles (models/mlp.py ROW_TILE)."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.models.mlp import ROW_TILE, actor_apply
+
+    params = _to_card(_dp_params(DDPGConfig()).actor_params)
+    obs = torch.randn(1024, 3, generator=torch.Generator().manual_seed(1)).cuda()
+    out = {}
+    for name, tile in (("plain", False), ("tiled", True)):
+        full = actor_apply(params, obs, 2.0, row_tile=tile)
+        half = actor_apply(params, obs[512:].contiguous(), 2.0, row_tile=tile)
+        out[name] = bool(torch.equal(full[512:], half))
+    say(f"  (a) {card}: 512 rows of the actor's apply over 1024 the same bits as over 512 "
+        f"alone: one product a layer {out['plain']}, {ROW_TILE}-row tiles {out['tiled']}")
+    if not out["tiled"]:
+        raise AssertionError("(a) the row tiles do not make the apply row-count invariant")
+    return out
+
+
+def dp_rollout(group, card: str, say) -> dict:
+    """3d (a): the rollout at D = 2 (1024 envs sharded, 512 a rank, 64
+    steps, 2x256, random params from the seed): its gathered [K*E, W] rows,
+    rollout by rollout, and the ring's sha256 bit for bit a one-rank pool's
+    on the same rank with the same seed and params; every rank's ring the
+    same; the sharded ring's logical rows the replicated one's. Times a
+    rollout at D = 2 and its gather."""
+    from distributed_ddpg_tpu_torch.actors.device_pool import DeviceActorPool
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.parallel import mesh
+    from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
+
+    cfg = DDPGConfig(actor_backend="device", num_actors=0, device_actor_envs=DEVACTOR_ENVS)
+    params = _to_card(_dp_params(cfg).actor_params)
+    pool, one = DeviceActorPool(cfg, group=group), DeviceActorPool(cfg)
+    pool.set_params(params)
+    one.set_params(params)
+    rep, rep1 = (DeviceReplay(cfg.replay_capacity, 3, 1, "cuda") for _ in range(2))
+    shard = DeviceReplay(cfg.replay_capacity, 3, 1, "cuda", replay_sharding="sharded",
+                         group=group)
+    same_rows = True
+    for _ in range(DP_ROLLOUTS):
+        rows, rows1 = pool.advance(), one.advance()
+        same_rows = same_rows and torch.equal(rows, rows1)
+        rep.insert_device_rows(rows)
+        shard.insert_device_rows(rows)
+        rep1.insert_device_rows(rows1)
+    n = len(rep)
+    sha, sha1 = _sha(rep.storage[:n]), _sha(rep1.storage[:n])
+    c, c1 = pool.carry, one.carry
+    sl = pool.env_slice
+    same_carry = (all(torch.equal(a, b[sl]) for a, b in zip(c.env_state, c1.env_state))
+                  and torch.equal(c.obs, c1.obs[sl]) and torch.equal(c.ou, c1.ou[sl])
+                  and torch.equal(c.episodes, c1.episodes) and c.host_steps == c1.host_steps)
+    replicas = mesh.replicas_equal([rep.storage[:n]], group)
+    sharded_same = torch.equal(_logical(shard.storage, group)[:n], rep.storage[:n])
+    gather_ms = pool.snapshot()["devactor_gather_ms"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_ROLLOUTS):
+        pool.run_chunk(rep)
+    torch.cuda.synchronize()
+    rollout_ms = 1000.0 * (time.perf_counter() - t0) / DP_ROLLOUTS
+    timed_gather_ms = pool.snapshot()["devactor_gather_ms"]
+    say(f"  (a) {card}: the rollout at D = 2 ({DEVACTOR_ENVS} envs, {pool.local_envs} a rank, "
+        f"{pool.chunk_size} steps): rows bit for bit a one-rank pool's {same_rows}, ring "
+        f"sha256 {sha[:16]} vs one rank's {sha1[:16]}, carry block {same_carry}, every rank's "
+        f"ring the same {replicas}, sharded ring = replicated {sharded_same}; a rollout "
+        f"{rollout_ms:.3f} ms a rank (host clock, synchronized), its gather {timed_gather_ms} "
+        f"ms (gloo on one card)")
+    if not (same_rows and sha == sha1 and same_carry and replicas and sharded_same):
+        raise AssertionError("(a) the rollout at D = 2 is not a one-rank pool's bit for bit")
+    return dict(sha=sha, rollout_ms=rollout_ms, gather_ms=timed_gather_ms,
+                first_gather_ms=gather_ms, rows=pool.rows_per_chunk)
+
+
+def dp_grid_rollout(group, card: str, say) -> dict:
+    """3d (b): the rollout on the (1, 2) grid: the learner holds the actor
+    in shards, the pool acts with the logical actor gathered over the model
+    group; its rows bit for bit an M = 1 pool's with the logical params."""
+    from distributed_ddpg_tpu_torch.actors.device_pool import DeviceActorPool
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+
+    cfg = DDPGConfig(actor_backend="device", num_actors=0, device_actor_envs=DEVACTOR_ENVS,
+                     model_axis=group.world_size, fused_update=True)
+    logical = _to_card(_dp_params(cfg))
+    learner = ShardedLearner(cfg, 3, 1, np.array([2.0], np.float32),
+                             np.array([0.0], np.float32), state=logical, group=group)
+    pool, one = DeviceActorPool(cfg, group=learner.group), DeviceActorPool(cfg)
+    pool.bind(lambda: learner.actor_params_logical)
+    one.set_params(logical.actor_params)
+    same = all(torch.equal(pool.advance(), one.advance()) for _ in range(DP_ROLLOUTS))
+    say(f"  (b) {card}: the rollout at D = 1 x M = 2 (the actor in shards, gathered once a "
+        f"chunk): rows bit for bit the M = 1 pool's {same}")
+    if not same:
+        raise AssertionError("(b) the rollout on the (1, 2) grid differs from M = 1's")
+    return dict(same=same)
+
+
+def dp_beats(group, card: str, say) -> dict:
+    """3d (c): at D = 2 a fused beat and a superstep of 2 beats with K2
+    (1024 envs x 64 steps, 2x256, DP_BEAT_K learner steps a beat), uniform
+    and PER, each bit for bit the separate sequence on the same ranks (the
+    chunk, the rollout, its gather, the insert); the replicas the same."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.ops._build import KERNEL_LAUNCHES
+    from distributed_ddpg_tpu_torch.parallel import mesh
+    from distributed_ddpg_tpu_torch.parallel.learner import state_tensors
+    from distributed_ddpg_tpu_torch.parallel.megastep import FusedMegastep
+    from distributed_ddpg_tpu_torch.parallel.superstep import FusedSuperstep, per_beat_betas
+
+    out = {}
+    for per in (False, True):
+        cfg = DDPGConfig(actor_backend="device", num_actors=0, device_actor_envs=DEVACTOR_ENVS,
+                         fused_chunk="off", fused_update=True, learner_chunk=DP_BEAT_K,
+                         prioritized=per, superstep_beats=2)
+        fused, sep = _pool_system(cfg, group), _pool_system(cfg, group)
+        _, l2, p2, r2 = sep
+
+        def separate(beta):
+            if per:
+                l2.run_sample_chunk_per(r2, beta)
+            else:
+                l2.run_sample_chunk(r2)
+            p2.run_chunk(r2)
+
+        KERNEL_LAUNCHES.clear()
+        t0 = time.perf_counter()
+        FusedMegastep(*fused).run_beat(0.4 if per else None)
+        torch.cuda.synchronize()
+        beat_ms = 1000.0 * (time.perf_counter() - t0)
+        separate(0.4)
+        _same_system(fused, sep, f"(c) the beat at D = 2{' with PER' if per else ''}")
+        betas = per_beat_betas(cfg, 0, 2, fused[2].rows_per_chunk)
+        t0 = time.perf_counter()
+        FusedSuperstep(*fused).run_superstep(betas if per else None)
+        torch.cuda.synchronize()
+        super_ms = 1000.0 * (time.perf_counter() - t0)
+        for b in range(2):
+            separate(float(betas[b]))
+        _same_system(fused, sep, f"(c) the superstep at D = 2{' with PER' if per else ''}")
+        held = state_tensors(fused[1].state) + [fused[3].storage]
+        if per:
+            held += [fused[3].priorities, fused[3].max_priority]
+        replicas = mesh.replicas_equal(held, group)
+        launches = dict(KERNEL_LAUNCHES)
+        name = "per" if per else "uniform"
+        say(f"  (c) {card}: {name}: a beat and a superstep of 2 at D = 2 bit for bit the "
+            f"separate sequence, replicas {replicas}; a beat {beat_ms:.1f} ms, a superstep "
+            f"{super_ms:.1f} ms (host clock, synchronized, first calls), launches {launches}")
+        if not replicas:
+            raise AssertionError(f"(c) {name}: the replicas differ")
+        out[name] = dict(beat_ms=beat_ms, superstep_ms=super_ms, launches=launches)
+    return out
+
+
+def dp_guard(group, card: str, say) -> dict:
+    """3d (d): the guarded chunk at D = 2 (DP_GUARD_K steps with K2, 64 rows
+    a rank) with numeric:grad:nan@DP_GUARD_INJECT and one non-finite row in
+    the ring, drawn into rank 1's columns: both ranks' health words the
+    same and the prediction's (the injected step and every step that drew
+    the row skipped, the row counted each time it was drawn), the bad
+    indices those the draw predicts, in the global flat order."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.guardrails import GUARD_BAD_IDX, HEALTH_KEYS
+    from distributed_ddpg_tpu_torch.parallel import mesh
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+    from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
+
+    cfg = DDPGConfig(guardrails=True, fused_update=True, learner_chunk=DP_GUARD_K,
+                     faults=f"numeric:grad:nan@{DP_GUARD_INJECT}")
+    learner = ShardedLearner(cfg, 3, 1, np.array([2.0], np.float32),
+                             np.array([0.0], np.float32), chunk_size=DP_GUARD_K,
+                             state=_to_card(_dp_params(cfg)), group=group)
+    b = learner.b_local
+    rows = random_batches(5, 1, DP_GUARD_ROWS, 3, 1)[0].cpu().numpy()
+    gen = torch.Generator().manual_seed(7)
+    idx = torch.randint(0, DP_GUARD_ROWS, (DP_GUARD_K, learner.global_batch), generator=gen)
+    bad_row = int(idx[5, b + 7])               # rank 1's columns, step 5
+    rows[bad_row, 0] = np.nan
+    rep = DeviceReplay(cfg.replay_capacity, 3, 1, "cuda")
+    rep.storage[:DP_GUARD_ROWS] = torch.from_numpy(rows).to("cuda")
+    rep.ptr, rep.size = DP_GUARD_ROWS, DP_GUARD_ROWS
+    learner.run_sample_chunk(rep, idx=idx)
+    h = learner.poll_health()
+    bad = learner.bad_indices()
+    flat = idx.reshape(-1).numpy()
+    hit = sorted({DP_GUARD_INJECT - 1} | {int(k) for k in np.flatnonzero(
+        (idx.numpy() == bad_row).any(axis=1))})
+    want = dict(total=DP_GUARD_K, nonfinite=len(hit), spikes=0, skipped=len(hit),
+                bad_rows=int((flat == bad_row).sum()))
+    want_bad = flat[flat == bad_row][:GUARD_BAD_IDX].tolist()
+    vec = torch.tensor([h[k] for k in HEALTH_KEYS], dtype=torch.int64, device="cuda")
+    words = mesh.all_gather(vec, group).cpu().tolist()
+    same = all(w == words[0] for w in words)
+    say(f"  (d) {card}: the guarded chunk at D = 2 with numeric:grad:nan@{DP_GUARD_INJECT} and "
+        f"replay row {bad_row} non-finite (in rank 1's columns at step 5): health words "
+        f"{words} (the same on both ranks: {same}), predicted {want}; bad indices "
+        f"{bad.tolist()}, predicted {want_bad}")
+    if not same or h != want or bad.tolist() != want_bad:
+        raise AssertionError(f"(d) the guarded chunk at D = 2: {h} vs {want}, "
+                             f"{bad.tolist()} vs {want_bad}")
+    return dict(health=h, bad=bad.tolist(), bad_row=bad_row)
+
+
+def dataplane_phase(group, out_dir: str, card: str, say) -> dict:
+    """3d (module docstring) on the mesh phase's two ranks at D = 2 and on
+    the (1, 2) grid, (e) beside them on rank 0's side."""
+    t0 = time.monotonic()
+    cli = DataplaneCLI(out_dir) if group.lead else None
+    try:
+        record = {"row_invariance": row_invariance(card, say),
+                  "rollout": dp_rollout(group, card, say),
+                  "grid_rollout": dp_grid_rollout(group, card, say),
+                  "beats": dp_beats(group, card, say),
+                  "guard": dp_guard(group, card, say)}
+        record["checks_seconds"] = time.monotonic() - t0
+        if cli is not None:
+            record["cli"] = cli.finish(card, say)
+    finally:
+        if cli is not None:
+            cli.stop()
+    record["seconds"] = time.monotonic() - t0
+    say(f"[dataplane] {card}: phase 3d took {record['seconds']:.1f}s (its checks "
+        f"{record['checks_seconds']:.1f}s); a rollout at D = 2 "
+        f"{record['rollout']['rollout_ms']:.3f} ms a rank, its gather "
+        f"{record['rollout']['gather_ms']} ms -- gloo ranks time-slicing one card")
     return record
 
 
@@ -2995,6 +3381,8 @@ def mesh_rank(rank: int, out_dir: str, card: str) -> int:
     record["sharded"] = mesh_sharded(group, card, say)
     say(f"[phase] mesh phase without TP done at {time.monotonic() - t0:.1f}s")
     record["tp"] = tp_phase(group, out_dir, card, say)
+    say(f"[phase] mesh phase to 3c done at {time.monotonic() - t0:.1f}s")
+    record["dataplane"] = dataplane_phase(group, out_dir, card, say)
     say(f"[phase] mesh phase done at {time.monotonic() - t0:.1f}s")
     if group.lead:
         with open(os.path.join(out_dir, "rank0.json"), "w") as f:
@@ -3532,21 +3920,42 @@ def guardrail_drills(card: str) -> dict:
       final return, no checkpoint from the chunk of step 500 on;
     - poison: numeric:replay:inf@1500 from one of 2 actors, 4000 env steps,
       guardrail_source_offenses=1, no rollback: the poisoned actor's slot,
-      and only it, quarantined."""
+      and only it, quarantined.
+
+    The three run together: one after another they took ~96 s on an H100
+    host, the longest phase after the parity checks."""
+    import concurrent.futures
+
     from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
 
     common = ["--replay_min_size=1000", "--eval_every=0", "--eval_episodes=1",
               f"--learner_chunk={DRILL_K}", "--guardrails=true", "--max_learn_ratio=1.0",
               "--max_ingest_ratio=1.0"]
     record = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_guard_") as tmp:
-        d = os.path.join(tmp, "rollback")
-        code, _, err, final = run_cli(common + [
-            "--num_actors=1", "--fused_update=true", "--total_env_steps=3000",
-            f"--checkpoint_dir={d}", f"--checkpoint_every={DRILL_K}", "--checkpoint_keep=8",
-            "--guardrail_rollback_k=2", "--guardrail_rollback_window=1000",
-            "--guardrail_zmax=1000",
-            "--faults=numeric:grad:nan@1450;numeric:grad:nan@1750"], "rollback")
+    # The three drills run together, each its own process (their steps are
+    # paced by the ratio gates, so the host's contention moves no verdict).
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_guard_") as tmp, \
+            concurrent.futures.ThreadPoolExecutor(3) as drills:
+        rollback_dir, abort_dir = os.path.join(tmp, "rollback"), os.path.join(tmp, "abort")
+        runs = {
+            "rollback": drills.submit(run_cli, common + [
+                "--num_actors=1", "--fused_update=true", "--total_env_steps=3000",
+                f"--checkpoint_dir={rollback_dir}", f"--checkpoint_every={DRILL_K}",
+                "--checkpoint_keep=8", "--guardrail_rollback_k=2",
+                "--guardrail_rollback_window=1000", "--guardrail_zmax=1000",
+                "--faults=numeric:grad:nan@1450;numeric:grad:nan@1750"], "rollback"),
+            "abort": drills.submit(run_cli, common + [
+                "--num_actors=1", "--total_env_steps=100000", f"--checkpoint_dir={abort_dir}",
+                f"--checkpoint_every={DRILL_K}", "--guardrail_rollback_k=1",
+                "--guardrail_max_rollbacks=0", "--guardrail_zmax=1000",
+                "--faults=numeric:grad:nan@500"], "abort"),
+            "poison": drills.submit(run_cli, common + [
+                "--num_actors=2", "--total_env_steps=4000", "--guardrail_rollback_k=0",
+                "--guardrail_source_offenses=1", "--faults=numeric:replay:inf@1500"],
+                "poison"),
+        }
+        code, _, err, final = runs["rollback"].result()
+        d = rollback_dir
         names = os.listdir(d) if os.path.isdir(d) else []
         diverged = sorted(int(n.split("_")[-1]) for n in names if n.startswith("diverged_step_"))
         restored = final.get("guardrail_last_rollback_step", -1)
@@ -3561,12 +3970,8 @@ def guardrail_drills(card: str) -> dict:
             f"restore {ms} ms")
         record["rollback"] = dict(restored=restored, diverged=diverged, restore_ms=ms)
 
-        d = os.path.join(tmp, "abort")
-        code, _, err, final = run_cli(common + [
-            "--num_actors=1", "--total_env_steps=100000", f"--checkpoint_dir={d}",
-            f"--checkpoint_every={DRILL_K}", "--guardrail_rollback_k=1",
-            "--guardrail_max_rollbacks=0", "--guardrail_zmax=1000",
-            "--faults=numeric:grad:nan@500"], "abort")
+        code, _, err, final = runs["abort"].result()
+        d = abort_dir
         names = os.listdir(d) if os.path.isdir(d) else []
         steps = [int(n.split("_")[1]) for n in names if n.startswith("step_")]
         if not (code == 77 and "NUMERIC ABORT" in err and final.get("final_return", 0) is None
@@ -3577,9 +3982,7 @@ def guardrail_drills(card: str) -> dict:
         record["abort"] = dict(exit=code, learner_steps=final["learner_steps"],
                                newest_checkpoint=max(steps))
 
-    code, _, err, final = run_cli(common + [
-        "--num_actors=2", "--total_env_steps=4000", "--guardrail_rollback_k=0",
-        "--guardrail_source_offenses=1", "--faults=numeric:replay:inf@1500"], "poison")
+        code, _, err, final = runs["poison"].result()
     poisoned = re.search(r"poisoned ingested row 1500 \(reward=\+inf\) from actor (\d)", err)
     quarantined = re.findall(r"QUARANTINED worker (\d) \(numeric\)", err)
     if not (code == 0 and poisoned and quarantined == [poisoned.group(1)]
@@ -3835,17 +4238,22 @@ ONDEVICE_MC_ENV_STEPS = 1500
 DEVACTOR_TIME_REPS = 5
 
 
-def _pool_system(cfg, replay_cls=None):
+def _pool_system(cfg, group=None):
     """A learner, a device-actor pool bound to it and a device replay on the
-    card (the trainer's wiring), the replay warmed by one rollout."""
+    card (the trainer's wiring, on `group`'s ranks when given), the replay
+    warmed by one rollout."""
     from distributed_ddpg_tpu_torch.actors.device_pool import DeviceActorPool
+    from distributed_ddpg_tpu_torch.envs.vector_envs import make_vector_env
     from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, resolve_learner_chunk
     from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay, DeviceReplay
 
-    pool = DeviceActorPool(cfg)
-    learner = ShardedLearner(cfg, pool.obs_dim, pool.act_dim, pool.action_scale,
-                             pool.action_offset, chunk_size=resolve_learner_chunk(cfg))
-    pool.bind(lambda: learner.state.actor_params)
+    env = make_vector_env(cfg.env_id, 1, "cpu")
+    scale = ((env.action_high - env.action_low) / 2.0).astype(np.float32)
+    offset = ((env.action_high + env.action_low) / 2.0).astype(np.float32)
+    learner = ShardedLearner(cfg, env.obs_dim, env.act_dim, scale, offset,
+                             chunk_size=resolve_learner_chunk(cfg), group=group)
+    pool = DeviceActorPool(cfg, group=learner.group)
+    pool.bind(lambda: learner.actor_params_logical)
     if cfg.prioritized:
         rep = DevicePrioritizedReplay(cfg.replay_capacity, pool.obs_dim, pool.act_dim, "cuda",
                                       alpha=cfg.per_alpha, eps=cfg.per_eps)
@@ -5495,14 +5903,14 @@ def main() -> int:
         bf16 + ["--total_env_steps=5000", "--sac=true", "--actor_lr=3e-4",
                 "--critic_lr=3e-4", "--tau=0.005"],
         "fused_chunk_sac_bf16"))
-    # The scan route: DDPG with the fused update for 10,000 env steps, then
-    # README's whole D4PG command (PER included) with it and the DDPG
-    # paper's critic weight decay (no fused update) for 5000 each. A scan
-    # chunk of 800 eager steps holds the host ~3-5 s; the actor fills its
-    # shm ring (4096 rows) meanwhile, so a chunk brings in ~4000 env steps
-    # (PERF.md §5): 10,000 env steps are 2-3 chunks.
+    # The scan route: DDPG with the fused update, then README's whole D4PG
+    # command (PER included) with it and the DDPG paper's critic weight
+    # decay (no fused update), 5000 env steps each. A scan chunk of 800
+    # eager steps holds the host ~3-5 s; the actor fills its shm ring (4096
+    # rows) meanwhile, so a chunk brings in ~4000 env steps (PERF.md §5):
+    # 5000 env steps are 1-2 chunks (10,000 before 3d took its seconds).
     scan_k2 = {}
-    update_launches = drive_main_path(common + ["--total_env_steps=10000",
+    update_launches = drive_main_path(common + ["--total_env_steps=5000",
                                                 "--fused_update=true"], "scan", scan_k2)
     before_after(card, "the scan route with K2", scan_k2,
                  common + [f"--total_env_steps={OLD_SCAN_ENV_STEPS}", "--fused_update=true"],
@@ -5610,7 +6018,16 @@ def main() -> int:
     # learner's rule: model_axis > 1 keeps it off).
     paths["fused_update"]["tp_mesh"] = mesh_record["tp"]["path"]["launches"]
     paths["fused_update"]["tp_2x2_cli"] = mesh_record["tp"]["cli_2x2"]["launches"]
-    update_launches = {"fused_update": paths["fused_update"]["tp_mesh"]}
+    # This slice's paths (3d (e), a rank's count through the CLI): K1 (a) on
+    # the device actors at D = 2 (the mesh launch), K2 on the superstep and
+    # the monolith at D = 2 and on the device actors at D = 1 x M = 2.
+    dp_cli = mesh_record["dataplane"]["cli"]
+    paths["fused_chunk"]["dataplane_device_actors_d2"] = \
+        dp_cli["device_actors_d2"]["launches"]
+    for name in ("superstep_d2", "ondevice_d2", "device_actors_1x2"):
+        paths["fused_update"][f"dataplane_{name}"] = dp_cli[name]["launches"]
+    launches["fused_chunk"] = paths["fused_chunk"]["dataplane_device_actors_d2"]
+    update_launches = {"fused_update": paths["fused_update"]["dataplane_superstep_d2"]}
 
     # --- 5. timing at the main path's shapes ---
     timing = {

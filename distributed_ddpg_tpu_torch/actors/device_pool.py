@@ -39,8 +39,37 @@ torch.Generator on the device (ops/exploration.py documents the order of
 the draws), whose state the checkpoint sidecar carries too
 (carry_state_dict / load_carry_state; a snapshot of another E or env
 falls back to fresh episodes, as in JAX). `rollout` is the pure body the
-fused beat composes (parallel/megastep.py). Everything runs on one rank
-(ROADMAP item 10, its data-plane half).
+fused beat composes (parallel/megastep.py).
+
+On more than one rank (`group`, the learner's DataGroup; a rank is a
+process) the pool follows the JAX pool on a mesh, whose multi-process
+rules it takes:
+
+- the env axis shards over the data group when E % D == 0 (JAX
+  :159-162), else every rank steps all E envs. A rank steps its
+  contiguous block of E/D envs, env state and observations for those
+  only; the ranks of a model group share their data index's block.
+  Every rank's generator is seeded as one rank's is, and each step draws
+  the numbers of all E envs, then keeps its block (ops/exploration.py),
+  so the rows are a one-rank pool's with the same seed, bit for bit;
+- a rollout's [K, E/D, W] blocks are gathered over the data group into
+  the [K*E, W] step-major rows (parallel/mesh.gather_env_blocks), the
+  same on every rank, with each env's done flag and finished return
+  beside them, so the carry's step, episode and return counters are
+  global on every rank too; the gather's host time is
+  devactor_gather_ms;
+- under model_axis > 1 the learner holds the actor in shards: the
+  trainer binds the logical actor, gathered over the model group once a
+  chunk (ShardedLearner.actor_params_logical), and the rollout runs the
+  dense apply;
+- a failed dispatch is never restarted in the process (JAX :300-318: a
+  retry on one rank would fork the ranks' collective order): it raises
+  at once, and on a pod the trainer's abort turns it into a peer loss;
+- the checkpoint sidecar is None when the envs are sharded over more
+  than one rank (JAX :360-380: no rank holds the whole carry); the
+  checkpoint then omits it and a resumed run starts fresh episodes.
+  With the envs replicated every rank holds the same carry, and rank 0
+  writes it.
 """
 
 from __future__ import annotations
@@ -56,7 +85,13 @@ from distributed_ddpg_tpu_torch import trace
 from distributed_ddpg_tpu_torch.config import DDPGConfig, resolve_device_actor_chunk
 from distributed_ddpg_tpu_torch.envs.vector_envs import make_vector_env
 from distributed_ddpg_tpu_torch.metrics import DevActorStats
-from distributed_ddpg_tpu_torch.ops.exploration import StepDraws, draw_step, vector_env_step
+from distributed_ddpg_tpu_torch.ops.exploration import (
+    StepDraws,
+    draw_step,
+    slice_draws,
+    vector_env_step,
+)
+from distributed_ddpg_tpu_torch.parallel.mesh import gather_env_blocks
 
 __all__ = ["ActorCarry", "DeviceActorError", "DeviceActorPool", "resolve_device_actor_chunk"]
 
@@ -85,13 +120,24 @@ class DeviceActorPool:
     """E vectorized envs + the policy + OU noise, K steps a dispatch, feeding
     the device replay on the card (see the module)."""
 
-    def __init__(self, config: DDPGConfig, device=None, fault=None, warmup_offset: int = 0):
+    def __init__(self, config: DDPGConfig, device=None, fault=None, warmup_offset: int = 0,
+                 group=None):
         self.config = config
         self.device = torch.device(device if device is not None else config.device)
         self.num_envs = E = int(config.device_actor_envs)
         self.chunk_size = K = resolve_device_actor_chunk(config)
         self.rows_per_chunk = K * E
-        self.env = make_vector_env(config.env_id, E, self.device)
+        # The ranks (see the module): the envs shard over the data group
+        # when they divide over it, else every rank steps all E.
+        data = group.data if group is not None else None
+        D = data.world_size if data is not None else 1
+        self.ranks = group.world_size if group is not None else 1
+        self.env_sharded = D > 1 and E % D == 0
+        self.local_envs = E // D if self.env_sharded else E
+        lo = data.rank * self.local_envs if self.env_sharded else 0
+        self.env_slice = slice(lo, lo + self.local_envs)
+        self._gather_group = data if self.env_sharded else None
+        self.env = make_vector_env(config.env_id, self.local_envs, self.device)
         self.obs_dim, self.act_dim = self.env.obs_dim, self.env.act_dim
         scale = ((self.env.action_high - self.env.action_low) / 2.0).astype(np.float32)
         offset = ((self.env.action_high + self.env.action_low) / 2.0).astype(np.float32)
@@ -105,7 +151,7 @@ class DeviceActorPool:
         # count against it, so it never acts at random again.
         self._warmup_uniform = max(0, config.resolved_warmup_uniform() - int(warmup_offset))
         self._fault = fault
-        self._stats = DevActorStats(seed=config.seed)
+        self._stats = DevActorStats(seed=config.seed, gather=self.env_sharded)
         self._params_fn: Optional[Callable] = None
         self._restarts = 0
         self._max_restarts = 3
@@ -116,13 +162,15 @@ class DeviceActorPool:
         self._carry = self.fresh_carry()
 
     def fresh_carry(self) -> ActorCarry:
-        """E fresh episodes (their reset values the generator's first draw)."""
-        env_state = self.env.init(self.env.draw_reset(self._gen))
+        """E fresh episodes (their reset values the generator's first draw),
+        this rank's block of them."""
+        env_state = self.env.init(
+            self.env.draw_reset(self._gen, self.num_envs)[self.env_slice].contiguous())
         zero = dict(device=self.device)
         return ActorCarry(
             env_state=env_state, obs=self.env.observe(env_state),
-            ou=torch.zeros((self.num_envs, self.act_dim), dtype=torch.float32, **zero),
-            ep_ret=torch.zeros(self.num_envs, dtype=torch.float32, **zero),
+            ou=torch.zeros((self.local_envs, self.act_dim), dtype=torch.float32, **zero),
+            ep_ret=torch.zeros(self.local_envs, dtype=torch.float32, **zero),
             steps=torch.zeros((), dtype=torch.int64, **zero),
             episodes=torch.zeros((), dtype=torch.int64, **zero),
             ret_sum=torch.zeros((), dtype=torch.float32, **zero),
@@ -147,30 +195,49 @@ class DeviceActorPool:
 
     def rollout(self, params, carry: ActorCarry, draws: Optional[List[StepDraws]] = None):
         """K steps from `carry` with `params`: returns (new carry, rows
-        [K*E, D] step-major). `draws` (K StepDraws) replaces the
-        generator's numbers. Enqueues device work only: no host read."""
+        [K*E, D] step-major, every rank's envs gathered). `draws` (K
+        StepDraws of all E envs) replaces the generator's numbers.
+        Enqueues device work only on one rank: no host read (on more
+        than one rank the gather is a collective)."""
         E, warm = self.num_envs, self._warmup_uniform
         env_state, obs, ou, ep_ret = carry.env_state, carry.obs, carry.ou, carry.ep_ret
-        episodes, ret_sum = carry.episodes, carry.ret_sum
-        rows = []
+        blocks = []
         for k in range(self.chunk_size):
-            d = draws[k] if draws is not None else draw_step(
-                self.env, self.act_dim, self._gen, self._low, self._high, warm > 0)
+            d = slice_draws(draws[k], self.env_slice) if draws is not None else draw_step(
+                self.env, self.act_dim, self._gen, self._low, self._high, warm > 0,
+                num_envs=E, envs=self.env_slice)
             ou, _, out, r = vector_env_step(
                 self.config, self.env, params, env_state, obs, ou, self._scale, self._offset,
                 self._low, self._high, d, warmup_active=carry.host_steps + k * E < warm)
             with torch.no_grad():
                 ep_ret = ep_ret + out.reward
-                episodes = episodes + out.done.sum()
-                ret_sum = ret_sum + torch.where(out.done, ep_ret, 0.0).sum()
+                done_ret = torch.where(out.done, ep_ret, 0.0)
                 ep_ret = torch.where(out.done, 0.0, ep_ret)
+                # Each env's done flag and finished return ride beside its
+                # row through the gather: the counters are global.
+                blocks.append(torch.cat([r, out.done[:, None].to(r.dtype), done_ret[:, None]],
+                                        dim=-1))
             env_state, obs = out.state, out.obs
-            rows.append(r)
+        block = self._join(torch.stack(blocks))
+        with torch.no_grad():
+            episodes = carry.episodes + (block[:, -2] > 0.5).sum()
+            ret_sum = carry.ret_sum + block[:, -1].sum()
         n = self.rows_per_chunk
         new = ActorCarry(env_state=env_state, obs=obs, ou=ou, ep_ret=ep_ret,
                          steps=carry.steps + n, episodes=episodes, ret_sum=ret_sum,
                          host_steps=carry.host_steps + n)
-        return new, torch.cat(rows)
+        return new, block[:, :-2].contiguous()
+
+    def _join(self, block: torch.Tensor) -> torch.Tensor:
+        """The rollout's [K, E_rank, W] block as the global [K*E, W] rows:
+        gathered over the data group when the envs are sharded (timed:
+        devactor_gather_ms), else flattened."""
+        if self._gather_group is None:
+            return block.reshape(-1, block.shape[-1])
+        t0 = time.perf_counter()
+        rows = gather_env_blocks(block, self._gather_group)
+        self._stats.record_gather(time.perf_counter() - t0)
+        return rows
 
     def advance(self, draws: Optional[List[StepDraws]] = None) -> torch.Tensor:
         """One rollout from the pool's carry with the bound params, the new
@@ -187,7 +254,7 @@ class DeviceActorPool:
     def run_chunk(self, replay, draws: Optional[List[StepDraws]] = None) -> int:
         """One rollout dispatch into `replay` (insert_device_rows). Returns
         the rows it landed. A failure restarts from the dispatch's carry
-        and draws, at most 3 times (see the module)."""
+        and draws, at most 3 times, on one rank only (see the module)."""
         self._check_bound()
         while True:
             carry, gen_state = self._carry, self._gen.get_state()
@@ -202,8 +269,10 @@ class DeviceActorPool:
                 dt = time.perf_counter() - t0
             except Exception as e:   # not BaseException: Ctrl-C aborts
                 if not self._recoverable(e):
-                    raise DeviceActorError("device-actor rollout failed past the restart "
-                                           "budget") from e
+                    raise DeviceActorError(
+                        f"device-actor rollout failed on one of {self.ranks} ranks (no "
+                        "restart in the process on more than one rank)" if self.ranks > 1
+                        else "device-actor rollout failed past the restart budget") from e
                 # Back to the dispatch's start (advance may have installed
                 # the new carry before the insert failed): the same carry
                 # and the same draws give the same rows.
@@ -214,7 +283,8 @@ class DeviceActorPool:
             return self.rows_per_chunk
 
     def _recoverable(self, exc: Exception) -> bool:
-        if self._restarts >= self._max_restarts:
+        # On more than one rank never (see the module): the failure surfaces.
+        if self.ranks > 1 or self._restarts >= self._max_restarts:
             return False
         self._restarts += 1
         trace.instant("devactor_restart", n=self._restarts)
@@ -235,10 +305,13 @@ class DeviceActorPool:
         return [*carry.env_state, carry.obs, carry.ou, carry.ep_ret, carry.steps,
                 carry.episodes, carry.ret_sum]
 
-    def carry_state_dict(self) -> dict:
+    def carry_state_dict(self) -> Optional[dict]:
         """The carry as flat host arrays keyed by position (leaf_0..), the
         generator's state last: the devactor_carry.npz sidecar. One read,
-        at checkpoint cadence."""
+        at checkpoint cadence. None when the envs are sharded over more
+        than one rank (see the module)."""
+        if self.env_sharded:
+            return None
         leaves = [t.cpu().numpy() for t in self._leaves(self._carry)]
         leaves.append(self._gen.get_state().numpy())
         return {f"leaf_{i}": a for i, a in enumerate(leaves)}

@@ -117,7 +117,9 @@ KEEP_CHECKPOINTS = 3
 STATE_FILE, REPLAY_FILE, META_FILE = "state.npz", "replay.npz", "meta.json"
 # The device actors' rollout carry (actors/device_pool.carry_state_dict),
 # the JAX package's sidecar name: flat numpy leaves, inside the step
-# directory, so the manifest covers it.
+# directory, so the manifest covers it. None (no sidecar: a resumed run
+# starts fresh episodes) when the envs are sharded over more than one
+# rank; with them replicated, rank 0's carry is every rank's.
 DEVACTOR_FILE = "devactor_carry.npz"
 
 
@@ -385,7 +387,8 @@ def save(directory: str, step: int, state: TrainState, replay=None, config=None,
          devactor_state=None) -> str:
     """Write checkpoint directory/step_<step> now; returns its path.
     `devactor_state` (actors/device_pool.carry_state_dict) rides as the
-    devactor_carry.npz sidecar inside the step directory."""
+    devactor_carry.npz sidecar inside the step directory (None or empty:
+    no sidecar)."""
     path, _ = _write(directory, step,
                      _snapshot(step, state, replay, env_steps, v_bounds, devactor_state),
                      config, keep=keep, retries=retries, backoff_s=backoff_s, fault=fault)

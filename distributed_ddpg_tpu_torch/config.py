@@ -28,14 +28,17 @@ in one loop on the card, E = num_actors).
 device_actor_chunk steps a dispatch, the rows scattered straight into the
 device replay); `fused_beat` and `superstep_beats` fuse the loop's
 learn, rollout and scatter into one beat (parallel/megastep.py) and B
-beats into one dispatch (parallel/superstep.py). All of them run on one
-rank (ROADMAP.md Queue 1 item 10, its data-plane half).
+beats into one dispatch (parallel/superstep.py). They, the monolith and
+`guardrails` run on one rank, on D data-parallel ranks and on a (data,
+model) grid, as the JAX package runs them on a mesh (the envs shard over
+the data ranks, the rows are gathered into JAX's global order).
 
 `serve_actors` serves the host workers' mu(s) from one InferenceServer in
 the learner process (serve/); `serve_backend='jax'` (the JAX package's
 flag value) applies the policy on `device`. `front_port` /
-`front_http_port` add the network front (serve/front/). Serving runs on
-one rank (item 10, its data-plane half).
+`front_http_port` add the network front (serve/front/). Serving and
+`host_replay` run on one rank: on more than one they come in the next
+slice of item 10's data-plane half (ROADMAP.md Queue 1).
 
 `replay_sharding='sharded'` splits the device replay over the data-parallel
 ranks (replay/device.py; the JAX package's checks): the learner takes the
@@ -47,8 +50,8 @@ checkpoint.
 params and Adam moments under the Megatron rule tables, with the JAX
 package's checks and messages. The learner takes the scan route (K2
 under fused_update on each rank's shards). What runs on one rank only
-(device actors, the fused beat, the monolith, serving, the host replay,
-guardrails) is refused under model_axis > 1 as on D > 1 ranks.
+(serving, the host replay) is refused under model_axis > 1 as on D > 1
+ranks.
 
 `sync_ship_background`, `pod_collective_timeout_s` and
 `pod_startup_grace_s` are the JAX package's pod fields, with its defaults
@@ -585,12 +588,6 @@ class DDPGConfig:
                 f"got {self.backend!r}"
             )
         self._check_model_axis()
-        if self.backend == "jax_ondevice" and self._many_ranks():
-            raise ValueError(
-                f"backend='jax_ondevice' with {self._ranks_knob()} is not in this "
-                "slice of the PyTorch port: the monolith over a data-parallel group "
-                "comes with ROADMAP.md Queue 1 item 10 (its data-plane half); run it on one rank"
-            )
         # The JAX package's TD3 gates and messages (its config.py), checked
         # before the slice's own so a TD3 misconfiguration reads the same.
         if self.policy_delay < 1:
@@ -771,7 +768,8 @@ class DDPGConfig:
                 raise ValueError(
                     f"serve_actors=True with {self._ranks_knob()} is not in this "
                     "slice of the PyTorch port: serving beside a data-parallel learner "
-                    "comes with ROADMAP.md Queue 1 item 10 (its data-plane half); serve on one rank"
+                    "comes with the next slice of ROADMAP.md Queue 1 item 10 (its "
+                    "data-plane half); serve on one rank"
                 )
         if self.front_port < 0 or self.front_port > 65535:
             raise ValueError("front_port must be in [0, 65535] (0 = off)")
@@ -893,13 +891,6 @@ class DDPGConfig:
                     "scatter insert would write duplicate ring positions "
                     "in unspecified order. Shrink the chunk/env count or "
                     "grow the replay"
-                )
-            if self._many_ranks():
-                raise ValueError(
-                    f"actor_backend='device' with {self._ranks_knob()} is not in "
-                    "this slice of the PyTorch port: the rollout over a data-parallel "
-                    "group comes with ROADMAP.md Queue 1 item 10 (its data-plane half); "
-                    "run the device actors on one rank"
                 )
         if self.fused_beat not in ("auto", "on", "off"):
             raise ValueError(
@@ -1050,8 +1041,8 @@ class DDPGConfig:
             raise ValueError(
                 f"host_replay=True with {self._ranks_knob()} is not in this "
                 "slice of the PyTorch port: a host replay a rank under the "
-                "lockstep loop comes with ROADMAP.md Queue 1 item 10 (its data-plane "
-                "half); run the host replay on one rank"
+                "lockstep loop comes with the next slice of ROADMAP.md Queue 1 item "
+                "10 (its data-plane half); run the host replay on one rank"
             )
         # The JAX package's checks of the breaker, the fault plan and the
         # guardrails (its config.py).
@@ -1077,13 +1068,6 @@ class DDPGConfig:
                     "megakernel has no health-probe slot) — incompatible "
                     "with fused_chunk='on'; use 'auto' (degrades to scan) "
                     "or 'off'"
-                )
-            if self._many_ranks():
-                raise ValueError(
-                    f"guardrails=True with {self._ranks_knob()} is not in "
-                    "this slice of the PyTorch port: the row screen shared "
-                    "across ranks comes with ROADMAP.md Queue 1 item 10 (its data-plane half); run "
-                    "the guarded learner on one rank"
                 )
         if self.guardrail_zmax <= 0:
             raise ValueError("guardrail_zmax must be > 0")

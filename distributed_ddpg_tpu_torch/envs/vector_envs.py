@@ -11,7 +11,10 @@ ondevice.py).
 API (functional; the state is a NamedTuple of [E] tensors):
 
   env.init(fresh)             -> state from the reset values `fresh` [E, R]
-  env.draw_reset(generator)   -> fresh reset values [E, R] (R = reset_width)
+  env.draw_reset(generator, n=None)
+                              -> fresh reset values [n, R] (R = reset_width;
+                                 n defaults to E: a rank of a sharded rollout
+                                 draws the whole rollout's envs)
   env.step(state, u, fresh)   -> StepOut(state, obs, boot_obs, reward, done,
                                          terminated)
   env.observe(state)          -> obs [E, obs_dim]
@@ -83,9 +86,10 @@ class VectorPendulum:
         self.device = require_device(device)
         self._high = torch.tensor([math.pi, 1.0], dtype=torch.float32, device=self.device)
 
-    def draw_reset(self, generator: torch.Generator) -> torch.Tensor:
-        """[E, 2] (theta, theta_dot) uniform on [-pi, pi] x [-1, 1]."""
-        u = torch.rand((self.num_envs, 2), generator=generator, device=self.device)
+    def draw_reset(self, generator: torch.Generator, n=None) -> torch.Tensor:
+        """[n, 2] (theta, theta_dot) uniform on [-pi, pi] x [-1, 1] (n = E)."""
+        n = self.num_envs if n is None else int(n)
+        u = torch.rand((n, 2), generator=generator, device=self.device)
         return (2.0 * u - 1.0) * self._high
 
     def init(self, fresh: torch.Tensor) -> PendulumState:
@@ -147,9 +151,10 @@ class VectorMountainCar:
         self.num_envs = int(num_envs)
         self.device = require_device(device)
 
-    def draw_reset(self, generator: torch.Generator) -> torch.Tensor:
-        """[E, 1] positions uniform on [-0.6, -0.4]."""
-        u = torch.rand((self.num_envs, 1), generator=generator, device=self.device)
+    def draw_reset(self, generator: torch.Generator, n=None) -> torch.Tensor:
+        """[n, 1] positions uniform on [-0.6, -0.4] (n = E)."""
+        n = self.num_envs if n is None else int(n)
+        u = torch.rand((n, 1), generator=generator, device=self.device)
         return u * 0.2 - 0.6
 
     def init(self, fresh: torch.Tensor) -> MountainCarState:

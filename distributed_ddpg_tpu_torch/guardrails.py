@@ -30,6 +30,14 @@ the probe is read back inside a chunk. The state lives in a small
 (HEALTH_KEYS) and, when it shows new bad rows, the int32[GUARD_BAD_IDX]
 indices, once a chunk, after the chunk has ended.
 
+On D data-parallel ranks (parallel/learner.py) the screen reads the
+global minibatch, which every rank looks up whole (or gathers from a
+sharded ring), so its flags, its count and its first bad indices are in
+the JAX program's global flat order (step k, then rank 0's columns, rank
+1's, ...) on every rank; the probe reads the loss and the gradients after
+the step's all-reduce. Every decision is the same on every rank, as JAX's
+are computed from replicated inputs: no rank can fork on a guardrail.
+
 Injected faults (faults.py `numeric:*`): `numeric:grad:nan@K` and
 `numeric:loss:spike@K` poison the K-th guarded step's minibatch on the
 device, keyed on `GuardState.total`, a monotonic step clock that rollback

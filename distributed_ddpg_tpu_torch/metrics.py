@@ -837,11 +837,19 @@ class DevActorStats:
                             mean return of the episodes finished in the
                             interval
       devactor_restarts     bounded-restart recoveries
+      devactor_gather_ms    (envs sharded over D > 1 ranks) mean host time
+                            of a rollout's gather over the data group, a
+                            part of devactor_chunk_ms (under gloo it waits
+                            for the rollout's device work it reads)
+
+    The env steps are global on every rank (a rollout's K x E rows, every
+    rank's envs); the chunk and gather times are this rank's own.
     """
 
-    def __init__(self, seed: int = 0):
+    def __init__(self, seed: int = 0, gather: bool = False):
         self._lock = threading.Lock()
         self._seed = seed
+        self._gather = bool(gather)
         self._reset_locked()
 
     def _reset_locked(self) -> None:
@@ -851,6 +859,13 @@ class DevActorStats:
         self._dur_s = 0.0
         self._res = _Reservoir(RESERVOIR_K,
                                (zlib.crc32(b"devactor_chunk") ^ self._seed) & 0x7FFFFFFF)
+        self._gathers = 0
+        self._gather_s = 0.0
+
+    def record_gather(self, dur_s: float) -> None:
+        with self._lock:
+            self._gathers += 1
+            self._gather_s += dur_s
 
     def record_chunk(self, rows: int, dur_s: float) -> None:
         with self._lock:
@@ -871,6 +886,9 @@ class DevActorStats:
                 "devactor_chunk_p95": round(1000.0 * self._res.percentile(0.95), 3),
                 "devactor_chunk_max": round(1000.0 * self._res.max, 3),
             }
+            if self._gather:
+                out["devactor_gather_ms"] = (round(1000.0 * self._gather_s / self._gathers, 3)
+                                             if self._gathers else 0.0)
             if reset:
                 self._reset_locked()
         return out

@@ -40,6 +40,15 @@ group is rounded once, after the sum (the JAX package's step on a
 (data, model) mesh rounds the whole contraction's: tests/test_torch_tp.py
 holds the two).
 
+Row tiles (`row_tile`, the rollouts' policy apply, ops/exploration.py):
+each dense layer multiplies ROW_TILE rows at a time (one addmm a tile).
+cuBLAS picks its kernel, and with it the order of a row's sums, by the
+row count: on an H100 `x @ w` over 512 rows differs from the same rows of
+a 1024-row product (chip_smoke.py 3d (a) prints it). With fixed tiles a
+row's result depends on its tile only, so a rank stepping its block of
+the envs gets the bits of the whole batch wherever its block starts on a
+tile boundary (its envs a multiple of ROW_TILE, or all of them).
+
 Params are a tuple of {"w": [in, out], "b": [out]} dicts, the JAX layout,
 so a state converts across frameworks leaf by leaf (learner.py). A TD3
 critic ensemble has the same tree with every leaf stacked on a leading
@@ -58,6 +67,9 @@ import torch
 Params = Tuple[Dict[str, torch.Tensor], ...]
 
 FINAL_INIT_SCALE = 3e-3
+
+# Rows a dense layer takes at a time under `row_tile` (the module's docstring).
+ROW_TILE = 256
 
 
 def _linear_init(gen: torch.Generator, in_dim: int, out_dim: int, final: bool,
@@ -145,9 +157,12 @@ class _Bf16Dense(torch.autograd.Function):
         return gx, gw, gb, None
 
 
-def _dense(x: torch.Tensor, layer, mm_dtype) -> torch.Tensor:
+def _dense(x: torch.Tensor, layer, mm_dtype, row_tile: bool = False) -> torch.Tensor:
     """x @ w + b; with mm_dtype = torch.bfloat16 (the only other value),
-    _Bf16Dense."""
+    _Bf16Dense; with `row_tile` (f32) ROW_TILE rows at a time."""
+    if mm_dtype is None and row_tile:
+        return torch.cat([torch.addmm(layer["b"], t, layer["w"])
+                          for t in x.split(ROW_TILE)])
     if mm_dtype is None:
         return x @ layer["w"] + layer["b"]
     return _Bf16Dense.apply(x, layer["w"], layer["b"])
@@ -266,11 +281,11 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, mm_dtype) -> torch.Tensor:
 
 
 def _chain(params: Params, x: torch.Tensor, tp, mm_dtype,
-           action=None, insert_at: int = -1) -> torch.Tensor:
+           action=None, insert_at: int = -1, row_tile: bool = False) -> torch.Tensor:
     """The relu MLP with a linear last layer; `action` joins the features
     at layer `insert_at`. With `tp` (a NetTP) on a rank's shards (the
-    module's docstring), else every layer whole ("rep"). Returns the whole
-    output."""
+    module's docstring), else every layer whole ("rep"), in row tiles
+    with `row_tile`. Returns the whole output."""
     group = tp.group if tp is not None else None
     n, sharded = len(params), False
     for i, layer in enumerate(params):
@@ -295,26 +310,27 @@ def _chain(params: Params, x: torch.Tensor, tp, mm_dtype,
                 x = (x @ layer["w"] + layer["b"] if mm_dtype is None
                      else _Bf16Dense.apply(x, layer["w"], layer["b"], True))
             else:
-                x = _dense(x, layer, mm_dtype)
+                x = _dense(x, layer, mm_dtype, row_tile)
         if i < n - 1:
             x = torch.relu(x)
     return _Gather.apply(x, group) if sharded else x
 
 
 def actor_apply(params: Params, obs: torch.Tensor, action_scale,
-                action_offset=0.0, mm_dtype=None, tp=None) -> torch.Tensor:
+                action_offset=0.0, mm_dtype=None, tp=None,
+                row_tile: bool = False) -> torch.Tensor:
     """mu(s) onto the box [offset - scale, offset + scale]."""
-    x = _chain(params, obs, tp, mm_dtype)
+    x = _chain(params, obs, tp, mm_dtype, row_tile=row_tile)
     return torch.tanh(x) * action_scale + action_offset
 
 
 def actor_gaussian_apply(params: Params, obs: torch.Tensor, log_std_min: float,
-                         log_std_max: float, mm_dtype=None,
-                         tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                         log_std_max: float, mm_dtype=None, tp=None,
+                         row_tile: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """SAC's head: raw (mean, log_std), each [B, act], with
     log_std = min + (max - min) / 2 * (tanh(raw) + 1). Sampling, the squash
     and the log-prob live in ops/losses.py."""
-    x = _chain(params, obs, tp, mm_dtype)
+    x = _chain(params, obs, tp, mm_dtype, row_tile=row_tile)
     mean, log_std_raw = torch.chunk(x, 2, dim=-1)
     log_std = log_std_min + 0.5 * (log_std_max - log_std_min) * (torch.tanh(log_std_raw) + 1.0)
     return mean, log_std

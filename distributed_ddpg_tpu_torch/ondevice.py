@@ -33,7 +33,23 @@ superstep's rows by their learned counts.
 
 Refused as in JAX: PER, n_step != 1, train_every != 1, and a uniform
 warmup of the whole capacity or more (the gate reads the ring's fill,
-which saturates there). One rank (ROADMAP.md Queue 1 item 10, its data-plane half).
+which saturates there).
+
+On D data-parallel ranks (`group`; a rank is a process), and on a (data,
+model) grid of D x M, the monolith is JAX's on a mesh (JAX :112-160):
+the global batch is batch_size * D under scale_batch_with_data (JAX's
+divisibility check and message); the envs shard over the data group
+when E % D == 0, else every rank steps all E (actors/device_pool.py's
+rule: every rank draws all E envs' numbers and keeps its block, so the
+rows are a one-rank monolith's); each iteration's rows, done flags and
+finished returns are gathered over the data group into the global [E]
+block, so every rank's ring is the same replicated ring and the chunk's
+dones and returns are global; each rank draws the same global [B * D]
+indices and trains on its columns through the eager step with the
+gradient all-reduce (K2 under fused_update), on a grid on its shards of
+the state (parallel/partition.py), the rollout acting with the logical
+actor gathered over the model group after each learner step.
+`logical_state()` and `state_template()` serve the checkpoint.
 """
 
 from __future__ import annotations
@@ -51,8 +67,20 @@ from distributed_ddpg_tpu_torch.learner import (
     make_learner_step,
 )
 from distributed_ddpg_tpu_torch.ops import fused_chunk
-from distributed_ddpg_tpu_torch.ops.exploration import StepDraws, draw_step, vector_env_step
+from distributed_ddpg_tpu_torch.ops.exploration import (
+    StepDraws,
+    draw_step,
+    slice_draws,
+    vector_env_step,
+)
 from distributed_ddpg_tpu_torch.parallel.learner import _to_device, resolve_device
+from distributed_ddpg_tpu_torch.parallel.mesh import gather_env_blocks, make_grid, resolve_data_axis
+from distributed_ddpg_tpu_torch.parallel.partition import (
+    make_tp,
+    shard_tree,
+    state_pspec,
+    unshard_tree,
+)
 from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
 from distributed_ddpg_tpu_torch.types import TrainState, unpack_batch
 
@@ -68,7 +96,7 @@ class ChunkStats(NamedTuple):
 
 
 class OnDeviceDDPG:
-    def __init__(self, config: DDPGConfig, chunk_size: int = 64, device=None):
+    def __init__(self, config: DDPGConfig, chunk_size: int = 64, device=None, group=None):
         if config.prioritized:
             raise ValueError(
                 "jax_ondevice backend supports uniform replay only (PER "
@@ -93,10 +121,36 @@ class OnDeviceDDPG:
             )
         self.config = config
         self.device = torch.device(device) if device is not None else resolve_device(config)
+        if group is not None:
+            self.device = group.device
         self.num_envs = E = int(config.num_actors)
         self.chunk_size = int(chunk_size)
         self.superstep_beats = int(config.superstep_beats)
-        self.env = make_vector_env(config.env_id, E, self.device)
+        # The ranks: the data axis, the grid (a collective the first time)
+        # and this rank's data and model indices.
+        M = self.model_axis = int(config.model_axis)
+        D = self.data_size = resolve_data_axis(config, group.world_size if group else 1)
+        self.group = group = make_grid(group, M)
+        self.data_group = group.data if group is not None and D > 1 else None
+        self.model_group = group.model if group is not None and M > 1 else None
+        rank = group.rank // M if group is not None else 0
+        model_rank = group.rank % M if group is not None else 0
+        # JAX :121-131: batch_size rows a data-axis rank under
+        # scale_batch_with_data, and its divisibility check and message.
+        self.global_batch = (config.batch_size * D if config.scale_batch_with_data
+                             else config.batch_size)
+        if self.global_batch % D:
+            raise ValueError(f"batch_size={config.batch_size} not divisible by data axis "
+                             f"size {D}")
+        self.b_local = self.global_batch // D
+        self._cols = slice(rank * self.b_local, (rank + 1) * self.b_local)
+        # The envs shard over the data group when they divide over it (JAX
+        # :140-142), else every rank steps all E.
+        self.env_sharded = D > 1 and E % D == 0
+        self.local_envs = E // D if self.env_sharded else E
+        lo = rank * self.local_envs if self.env_sharded else 0
+        self.env_slice = slice(lo, lo + self.local_envs)
+        self.env = make_vector_env(config.env_id, self.local_envs, self.device)
         self.obs_dim, self.act_dim = self.env.obs_dim, self.env.act_dim
         scale = ((self.env.action_high - self.env.action_low) / 2.0).astype(np.float32)
         offset = ((self.env.action_high + self.env.action_low) / 2.0).astype(np.float32)
@@ -105,21 +159,30 @@ class OnDeviceDDPG:
         self._scale, self._offset = torch.tensor(scale, **on), torch.tensor(offset, **on)
         self._low = torch.tensor(self.env.action_low, **on)
         self._high = torch.tensor(self.env.action_high, **on)
-        self.global_batch = int(config.batch_size)
         self.capacity = int(config.replay_capacity)
         self._min_fill = max(config.replay_min_size, config.batch_size)
         self._warmup_uniform = config.resolved_warmup_uniform()
-        self._step_fn = make_learner_step(config, scale, offset)
         self._noise_gen = (torch.Generator(device=self.device)
                            if config.takes_noise or config.sac else None)
-        self.state: TrainState = init_train_state(config, self.obs_dim, self.act_dim,
-                                                  config.seed, self.device)
+        logical = init_train_state(config, self.obs_dim, self.act_dim, config.seed,
+                                   self.device)
+        # The placement (parallel/partition.py) and this rank's shards.
+        self._specs = state_pspec(logical, M)
+        self._model_rank = model_rank
+        tp = make_tp(self._specs, self.model_group)
+        self._template = type(logical)(*(None if f is None else _to_device(f, "meta")
+                                         for f in logical))
+        self._step_fn = make_learner_step(config.replace(batch_size=self.b_local), scale,
+                                          offset, self.data_group, tp)
+        self.state: TrainState = shard_tree(logical, self._specs, model_rank, M)
+        self._sync_actor()
         self._step = int(self.state.step)
         self._gen = torch.Generator(device=self.device).manual_seed(config.seed)
-        self.env_state = self.env.init(self.env.draw_reset(self._gen))
+        self.env_state = self.env.init(
+            self.env.draw_reset(self._gen, E)[self.env_slice].contiguous())
         self.obs = self.env.observe(self.env_state)
-        self.ou = torch.zeros((E, self.act_dim), **on)
-        self.ep_ret = torch.zeros(E, **on)
+        self.ou = torch.zeros((self.local_envs, self.act_dim), **on)
+        self.ep_ret = torch.zeros(self.local_envs, **on)
         self.replay = DeviceReplay(self.capacity, self.obs_dim, self.act_dim,
                                    device=self.device)
         self._env_steps = 0
@@ -127,37 +190,60 @@ class OnDeviceDDPG:
 
     # --- driving ---
 
+    def _sync_actor(self) -> None:
+        """The logical actor the rollout acts with: the state's, or on a
+        grid the model group's gather of its shards (a collective)."""
+        self.actor_params = (self.state.actor_params if self.model_group is None else
+                             unshard_tree(self.state.actor_params, self._specs.actor_params,
+                                          self.model_group))
+
     def _noise(self):
+        """The step's TD3 noise or SAC normals: the global [B * D] draw,
+        this rank's rows of it."""
         if self._noise_gen is None:
             return None
         draw = fused_chunk.sac_noise_eps if self.config.sac else fused_chunk.td3_noise_eps
         eps = draw(self.config, self._noise_gen, self._step, 1, self.global_batch,
                    self.act_dim)
-        return (eps[0][0], eps[1][0]) if self.config.sac else eps[0]
+        c = self._cols
+        return (eps[0][0][c], eps[1][0][c]) if self.config.sac else eps[0][c]
 
     def run_chunk(self, draws: Optional[List[StepDraws]] = None,
                   indices: Optional[List[torch.Tensor]] = None) -> ChunkStats:
         """K iterations: K*E env steps and up to K learner steps. `draws`
-        (K StepDraws) and `indices` (one [B] index tensor for each
-        iteration that learns, in order) replace the generator's numbers."""
+        (K StepDraws of all E envs) and `indices` (one global [B * D] index
+        tensor for each iteration that learns, in order) replace the
+        generator's numbers. On more than one rank each iteration's rows
+        are gathered over the data group (a collective)."""
         cfg, E = self.config, self.num_envs
         metrics, dones, rets = [], [], []
         learned = 0
         replay = self.replay
         for k in range(self.chunk_size):
-            d = draws[k] if draws is not None else draw_step(
+            d = slice_draws(draws[k], self.env_slice) if draws is not None else draw_step(
                 self.env, self.act_dim, self._gen, self._low, self._high,
-                self._warmup_uniform > 0)
+                self._warmup_uniform > 0, num_envs=E, envs=self.env_slice)
             self.ou, _, out, rows = vector_env_step(
-                cfg, self.env, self.state.actor_params, self.env_state, self.obs, self.ou,
+                cfg, self.env, self.actor_params, self.env_state, self.obs, self.ou,
                 self._scale, self._offset, self._low, self._high, d,
                 warmup_active=len(replay) < self._warmup_uniform)
-            replay.insert_device_rows(rows)
             with torch.no_grad():
                 ep_ret = self.ep_ret + out.reward
-                rets.append(torch.where(out.done, ep_ret, 0.0))
+                done_ret = torch.where(out.done, ep_ret, 0.0)
                 self.ep_ret = torch.where(out.done, 0.0, ep_ret)
-            dones.append(out.done)
+                if self.env_sharded:
+                    # Every rank's envs, with their done flags and finished
+                    # returns, in the global env order.
+                    block = gather_env_blocks(torch.cat(
+                        [rows, out.done[:, None].to(rows.dtype), done_ret[:, None]],
+                        dim=-1)[None], self.data_group)
+                    rows = block[:, :-2].contiguous()
+                    done, done_ret = block[:, -2] > 0.5, block[:, -1].contiguous()
+                else:
+                    done = out.done
+            replay.insert_device_rows(rows)
+            rets.append(done_ret)
+            dones.append(done)
             self.env_state, self.obs = out.state, out.obs
             if len(replay) >= self._min_fill:
                 if indices is not None:
@@ -165,9 +251,11 @@ class OnDeviceDDPG:
                 else:
                     idx = torch.randint(0, len(replay), (self.global_batch,),
                                         generator=self._gen, device=self.device)
-                batch = unpack_batch(replay.storage[idx], self.obs_dim, self.act_dim)
+                batch = unpack_batch(replay.storage[idx[self._cols]], self.obs_dim,
+                                     self.act_dim)
                 step = self._step_fn(self.state, batch, self._noise(), step_index=self._step)
                 self.state = step.state
+                self._sync_actor()
                 self._step += 1
                 learned += 1
                 metrics.append(torch.stack([step.metrics[k] for k in METRIC_KEYS]))
@@ -223,11 +311,27 @@ class OnDeviceDDPG:
     # --- host views (checkpoint, eval) ---
 
     def actor_params_to_host(self) -> np.ndarray:
-        """The actor params flat in actors/policy.flatten_params' layout."""
-        return torch.cat([t.reshape(-1) for layer in self.state.actor_params
+        """The (logical) actor params flat in actors/policy.flatten_params'
+        layout."""
+        return torch.cat([t.reshape(-1) for layer in self.actor_params
                           for t in (layer["w"], layer["b"])]).cpu().numpy()
 
+    def logical_state(self) -> TrainState:
+        """The logical state: on a grid the shards gathered over the model
+        group (a collective: every rank calls it), else the state."""
+        if self.model_group is None:
+            return self.state
+        return unshard_tree(self.state, self._specs, self.model_group)
+
+    def state_template(self) -> TrainState:
+        """checkpoint.restore's template (with device=): the logical state's
+        shapes, as meta tensors on a grid."""
+        return self.state if self.model_group is None else self._template
+
     def load_train_state(self, state: TrainState) -> None:
-        self.state = type(state)(*(None if f is None else _to_device(f, self.device)
-                                   for f in state))
+        """Take a logical state (this rank keeps its shards)."""
+        state = type(state)(*(None if f is None else _to_device(f, self.device)
+                              for f in state))
+        self.state = shard_tree(state, self._specs, self._model_rank, self.model_axis)
+        self._sync_actor()
         self._step = int(self.state.step)

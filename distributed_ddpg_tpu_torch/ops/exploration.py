@@ -22,6 +22,16 @@ or SAC's standard normals), (2) the env's reset values [E, R]
 [E, act], whether or not the gate is open (so the stream does not depend
 on it). `draws` (a StepDraws) replaces all three, so a test can pass the
 reference's stream in.
+
+On D data-parallel ranks with the envs sharded (actors/device_pool.py,
+ondevice.py) a rank steps only its block of envs, but its generator is
+seeded as a one-rank rollout's, and every step draws all three for ALL E
+envs in that order, then keeps its block (`draw_step(num_envs=, envs=)`,
+`slice_draws`). JAX draws E envs' numbers from one replicated key and
+shards the result, so a sharded rollout is the one-device rollout; so
+are the port's D ranks, bit for bit, at the cost of E x act extra normals
+a step; the policy multiplies in fixed row tiles (models/mlp.py's
+ROW_TILE) for the same reason.
 """
 
 from __future__ import annotations
@@ -45,17 +55,28 @@ class StepDraws(NamedTuple):
     uniform: Optional[torch.Tensor] = None
 
 
+def slice_draws(d: StepDraws, envs: Optional[slice]) -> StepDraws:
+    """A step's draws for the envs `envs` (a slice of the E; None: all)."""
+    if envs is None:
+        return d
+    return StepDraws(d.noise[envs], d.reset[envs],
+                     None if d.uniform is None else d.uniform[envs])
+
+
 def draw_step(env, act_dim: int, generator: torch.Generator, low: torch.Tensor,
-              high: torch.Tensor, warmup: bool) -> StepDraws:
-    """A step's draws from `generator`, in the documented order."""
-    E = env.num_envs
+              high: torch.Tensor, warmup: bool, num_envs: Optional[int] = None,
+              envs: Optional[slice] = None) -> StepDraws:
+    """A step's draws from `generator`, in the documented order, for
+    `num_envs` envs (env.num_envs by default), of which `envs` are kept (a
+    rank's block of a sharded rollout; None: all)."""
+    E = env.num_envs if num_envs is None else int(num_envs)
     noise = torch.randn((E, act_dim), generator=generator, device=low.device)
-    reset = env.draw_reset(generator)
+    reset = env.draw_reset(generator, E)
     uniform = None
     if warmup:
         u = torch.rand((E, act_dim), generator=generator, device=low.device)
         uniform = low + u * (high - low)
-    return StepDraws(noise, reset, uniform)
+    return slice_draws(StepDraws(noise, reset, uniform), envs)
 
 
 def vector_env_step(cfg, env, params, env_state, obs, ou, scale, offset, low, high,
@@ -68,16 +89,18 @@ def vector_env_step(cfg, env, params, env_state, obs, ou, scale, offset, low, hi
     [E, 2*obs+act+3] block."""
     E = env.num_envs
     with torch.no_grad():
+        # The policy in fixed row tiles (models/mlp.py): a rank's block of
+        # the envs acts as it would in the whole batch, bit for bit.
         if cfg.sac:
             mean, log_std = actor_gaussian_apply(params, obs, cfg.sac_log_std_min,
-                                                 cfg.sac_log_std_max)
+                                                 cfg.sac_log_std_max, row_tile=True)
             sampled, _ = losses.sac_sample(mean, log_std, draws.noise, scale, offset)
             action = torch.minimum(torch.maximum(sampled, low), high)
             new_ou = ou
         else:
             new_ou = (ou + cfg.ou_theta * (0.0 - ou) * cfg.ou_dt
                       + cfg.ou_sigma * math.sqrt(cfg.ou_dt) * draws.noise)
-            action = actor_apply(params, obs, scale, offset) + new_ou * scale
+            action = actor_apply(params, obs, scale, offset, row_tile=True) + new_ou * scale
             action = torch.minimum(torch.maximum(action, low), high)
         if warmup_active:
             action = draws.uniform

@@ -56,7 +56,11 @@ normals (SAC), and under PER a bad step's rows take the priority
 stay on the device: a guarded chunk reads nothing back. The host reads the
 word (poll_health) and the bad indices (bad_indices) after the chunk has
 ended. reset_guard, reseed and set_lr_scale serve the trainer's
-rollback-repair (train.py). Guardrails run on one rank only.
+rollback-repair (train.py). On D > 1 ranks the screen reads the global
+minibatch (every rank looks up or gathers all B * D rows), so the health
+word and the bad indices are the same on every rank, and the probe reads
+the loss and the gradients after the step's all-reduce: every rank takes
+the same skip and the same rollback.
 
 The fused beat (parallel/megastep.py, superstep.py) composes the scan
 route's sampling chunk (`scan_sample_fn`: uniform or PER, guarded or not,
@@ -362,11 +366,6 @@ class ShardedLearner:
         self._gather_ranks = D if self.replay_sharded else 1
         self._per_draw = (make_sharded_per_draw(self.data_group) if self._gather_ranks > 1
                           else draw_per_indices)
-        if self.guard_enabled and D > 1:
-            raise ValueError(
-                f"guardrails=True on {D} ranks is not in this slice of the PyTorch "
-                "port (the row screen shared across ranks: ROADMAP.md Queue 1 "
-                "item 10, its data-plane half); run the guarded learner on one rank")
         envelope_ok = (
             config.fused_chunk != "off" and not self.guard_enabled
             and not self.replay_sharded and M == 1
@@ -473,6 +472,13 @@ class ShardedLearner:
         whether it is a shard (replicas_equal's `sharded`)."""
         return [sharded_dim(s) is not None for s in state_tensors(self.specs)]
 
+    @property
+    def actor_params_logical(self):
+        """The logical actor params: the state's on one model rank, else
+        the model group's gather at the last chunk's end (_sync_actor).
+        What the device actors roll out with (the dense apply)."""
+        return self.state.actor_params if self.model_axis == 1 else self._actor_logical
+
     def _sync_actor(self) -> None:
         """The logical actor, gathered over the model group (on every rank,
         in lockstep: at construction, load_state and every chunk's end)."""
@@ -540,8 +546,28 @@ class ShardedLearner:
     def _screen(self, packed: torch.Tensor, idx: Optional[torch.Tensor]):
         """The guarded chunk's row screen (guardrails.batch_row_health) of
         the rows as gathered, or None when guardrails are off; `idx` (the
-        draw, None when the host fed the rows) names them."""
+        draw, None when the host fed the rows) names them. On D > 1 ranks
+        `packed` is the GLOBAL [K, B * D] minibatch, the same on every
+        rank, as the JAX program screens it: so the per-step flags, the
+        count and the first bad indices, in JAX's flat order (step k, then
+        rank 0's columns, rank 1's, ...), are every rank's, and no rank
+        can fork on a guardrail."""
         return guard_lib.batch_row_health(packed, idx) if self.guard_enabled else None
+
+    def _rows(self, device_replay, storage: torch.Tensor, idx: torch.Tensor):
+        """This rank's columns of the global rows at `idx` ([K, B * D], on
+        the device) as the chunk's own copy, and the screen (_screen) of
+        the global rows: gathered from a sharded ring, looked up whole in
+        a replicated one when guarded on D > 1 ranks (every rank holds the
+        ring), else only this rank's columns are looked up."""
+        if self._gather_ranks > 1:
+            full = self._gather(device_replay, storage, idx)
+        elif self.guard_enabled and self.data_size > 1:
+            full = storage[idx]
+        else:
+            packed = storage[self._cols(idx)]
+            return packed, self._screen(packed, idx)
+        return self._cols(full).contiguous(), self._screen(full, idx)
 
     def _run(self, packed: torch.Tensor, eps, kernel: bool, screen=None) -> StepOutput:
         if kernel:
@@ -641,14 +667,17 @@ class ShardedLearner:
         guarded or not as the learner is, each run_sample_chunk(_per) on
         the scan route whatever route the learner's own chunks take (the
         scan's step is built here if the kernel route had no use for it).
-        The fused beat composes it with the rollout and the scatter."""
-        if self.data_size > 1 or self.model_axis > 1:
-            raise ValueError("the fused beat runs on one rank (ROADMAP.md Queue 1 item 10, "
-                             "its data-plane half)")
+        On D > 1 ranks it is the rank's chunk of the global draw, with the
+        gradient all-reduce of every step (the mesh launch's learner
+        included: the beat's leg never takes the kernel), on a grid the
+        Megatron-split step on the rank's shards. The fused beat composes
+        it with the rollout and the scatter."""
         if self._scan is None:
             self._scan = make_scan_chunk_fn(
                 self._local_config, self.obs_dim, self.act_dim, *self._action,
-                chunk_size=self.chunk_size, guard=self.guard_enabled)
+                chunk_size=self.chunk_size,
+                group=self.data_group if self.data_size > 1 else None,
+                guard=self.guard_enabled, tp=self.tp)
             if self.config.distributional and not self.config.v_support_auto:
                 self._scan.set_value_bounds(self.config.v_min, self.config.v_max)
         if per:
@@ -730,9 +759,10 @@ class ShardedLearner:
         under its dispatch_lock, so an insert (on whatever thread ships)
         lands wholly before or wholly after it in the stream, with ptr and
         size moving together with the rows."""
+        mesh_launch = self.fused_mesh_active and kernel is not False
         with device_replay.dispatch_lock:
             storage, size = device_replay.device_state()
-            if self.fused_mesh_active:
+            if mesh_launch:
                 if idx is None:
                     idx = torch.randint(0, max(int(size), 1), (self.chunk_size, self.b_local),
                                         generator=self._rank_gen, device=self.device)
@@ -743,14 +773,10 @@ class ShardedLearner:
                         0, max(int(size), 1), (self.chunk_size, self.global_batch),
                         generator=self._gen, device=self.device,
                     )
-                if self._gather_ranks > 1:
-                    packed = self._cols(self._gather(device_replay, storage,
-                                                     idx.to(self.device))).contiguous()
-                else:
-                    packed = storage[self._cols(idx).to(self.device)]
+                packed, screen = self._rows(device_replay, storage, idx.to(self.device))
         # The gathered rows are the chunk's own copy: the chunk itself
         # needs no lock.
-        if self.fused_mesh_active:
+        if mesh_launch:
             if eps is None:
                 eps = self._noise(self.b_local, device_fold=self.rank)
             return self._run(packed, eps, kernel=True)
@@ -758,7 +784,7 @@ class ShardedLearner:
             eps = self._noise(self.global_batch)
         return self._run(packed, self._cols(eps),
                          kernel=self.fused_chunk_active if kernel is None else kernel,
-                         screen=self._screen(packed, idx))
+                         screen=screen)
 
     def run_sample_chunk_per(self, device_replay, beta: float,
                              idx: Optional[torch.Tensor] = None,
@@ -795,12 +821,10 @@ class ShardedLearner:
             if eps is None:
                 eps = self._noise(self.global_batch)
             idx = idx.to(self.device)
-            packed = (self._cols(self._gather(device_replay, storage, idx)).contiguous()
-                      if sharded else storage[self._cols(idx)])
             # The screen reads the rows as gathered, before the weight column
             # takes the IS weights (JAX :690-699); a bad step's zeroed td
             # stamps its rows at (0 + eps)^alpha below.
-            screen = self._screen(packed, idx)
+            packed, screen = self._rows(device_replay, storage, idx)
             packed[..., -1] = self._cols(weights).to(self.device, torch.float32)
             out = self._run(packed, self._cols(eps),
                             kernel=self.fused_per_active if kernel is None else kernel,
@@ -865,9 +889,10 @@ class ShardedLearner:
             stream.wait_event(ready)
             packed.record_stream(stream)
         kernel = self.fused_chunk_active and self.data_size == 1
+        screen = self._screen(packed, None)
         packed = self._cols(packed).contiguous()
         return self._run(packed, self._cols(self._noise(self.global_batch)), kernel=kernel,
-                         screen=self._screen(packed, None))
+                         screen=screen)
 
     def actor_params_to_host(self) -> np.ndarray:
         """The actor params as one flat f32 vector in the layout of
@@ -876,7 +901,7 @@ class ShardedLearner:
         device->host copy, which waits for the running chunk: a
         `params_d2h` span (trace.py). On a grid with model_axis > 1 the
         logical actor gathered at the last chunk's end (_sync_actor)."""
-        actor = self.state.actor_params if self.model_axis == 1 else self._actor_logical
+        actor = self.actor_params_logical
         with trace.span("params_d2h"):
             flat = torch.cat([
                 t.reshape(-1) for layer in actor

@@ -31,7 +31,17 @@ ordinary replay data, under the same row screen).
 'auto' activates the beat (train.py, JAX train.py:1057-1069) when the
 device actors feed the device replay, the chunk kernel's route is
 inactive (it has no rollout slot), and both ratio gates are 0 (a beat
-fixes the rollout:learn ratio); 'on' requires it. One rank only.
+fixes the rollout:learn ratio); 'on' requires it.
+
+On D data-parallel ranks, and on a (data, model) grid, every rank runs
+the same beat in the same order (JAX :82-200 builds every variant on a
+mesh): the learner leg is the rank's chunk of the global draw with the
+gradient all-reduce of each step (on a grid, the Megatron-split step on
+the rank's shards), the rollout steps the rank's envs with the updated
+logical actor and gathers every rank's rows over the data group, and the
+scatter lands the same global rows in every rank's ring (a sharded ring
+keeps its slots of them). Uniform and PER, replicated and sharded,
+guarded and not.
 """
 
 from __future__ import annotations

@@ -39,7 +39,9 @@ and the model group a group of one, and nothing changes.
   (x + 0 is exact).
 - `all_reduce_sum_` sums tensors over the group in place, and
   `all_gather` stacks every rank's tensor, on the data plane (the sharded
-  replay's row gather, its PER draw's shard totals and owner sums). The
+  replay's row gather, its PER draw's shard totals and owner sums);
+  `gather_env_blocks` joins a sharded rollout's blocks in JAX's global
+  row order (step-major, then env: every rank's envs in rank order). The
   gather's buffer is -0.0 where a rank has nothing to say: x + (-0.0) is
   x for every float x, -0.0 and +0.0 included, so a gather or an
   owner-masked sum comes out bit for bit, in any summation order.
@@ -348,6 +350,21 @@ def all_gather(tensor: torch.Tensor, group: Optional[DataGroup]) -> torch.Tensor
     out[group.rank] = tensor
     all_reduce_sum_([out], group)
     return out
+
+
+def gather_env_blocks(block: torch.Tensor, group: Optional[DataGroup]) -> torch.Tensor:
+    """A sharded rollout's rows in the global order: every rank's
+    [K, E/D, W] block (rank r steps envs r*E/D ... (r+1)*E/D - 1, the
+    contiguous blocks JAX's P('data') gives the env axis) into the
+    [K*E, W] step-major block on every rank, env e of step k at row
+    k*E + e, as JAX's replicated rows have them. all_gather stacks
+    rank-major ([D, K, E/D, W]); the steps go first, then the ranks.
+    Bit for bit the ranks' rows (the gather adds -0.0). Without a group,
+    or with one rank, the block flattened."""
+    w = block.shape[-1]
+    if group is None or group.world_size == 1:
+        return block.reshape(-1, w)
+    return all_gather(block, group).transpose(0, 1).reshape(-1, w)
 
 
 def _broadcast(tensor: torch.Tensor, group: Optional[DataGroup], control: bool = False) -> None:

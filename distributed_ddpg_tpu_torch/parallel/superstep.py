@@ -18,6 +18,12 @@ sequential loop would have used, in f32 on the host (beat b from
 budget + b * rows_per_beat env steps), so the superstep takes the same
 numbers. JAX loops in one XLA program (lax.fori_loop); the port's loop is
 the host's, enqueueing onto one stream (a CUDA graph of it is held note A).
+
+On more than one rank each rank runs the B beats (parallel/megastep.py)
+and makes its own one read; the health words are the same on every rank
+(the guarded learner screens the global minibatch and probes the
+all-reduced step), so every rank names the same first bad beat and takes
+the same rollback.
 """
 
 from __future__ import annotations

@@ -44,8 +44,9 @@ of its own, sha256(seed, tenant, request_id), drawn with numpy: the same
 request samples the same action on any backend and in any process.
 
 Not here: the tensor-parallel apply (`mesh=`): in the port a model group
-is several processes, so it is serving on more than one rank (ROADMAP.md
-Queue 1 item 10, its data-plane half), and the JAX package's program_specs hook of
+is several processes, so it is serving on more than one rank (the next
+slice of ROADMAP.md Queue 1 item 10, its data-plane half), and the JAX
+package's program_specs hook of
 its program-contract analyzer (item 13).
 """
 
@@ -96,8 +97,8 @@ class InferenceServer:
             raise ValueError(
                 "mesh= (the tensor-parallel serve apply) is not in this slice of the "
                 "PyTorch port: it shards the apply over a model group of ranks, serving "
-                "on more than one rank, which comes with ROADMAP.md Queue 1 item 10 (its "
-                "data-plane half)"
+                "on more than one rank, which comes with the next slice of ROADMAP.md "
+                "Queue 1 item 10 (its data-plane half)"
             )
         self.backend = backend
         self.layout = layout

@@ -157,7 +157,11 @@ With checkpoint_dir="" none of this runs and the records are as before
 (a SIGTERM still stops the run after the running chunk, with exit 75).
 
 Numerical-health guardrails (--guardrails=true; guardrails.py, the JAX
-trainer's blocks :487-503, :1399-1700), on one rank, on the scan route:
+trainer's blocks :487-503, :1399-1700), on the scan route, on one rank or
+on D ranks (the health word is every rank's: every rank takes the same
+rollback, restores the same step and waits for the others before rank 0
+sets the later checkpoints aside; rank 0's drained batches reach every
+rank with their actor slots):
 
 - the learner's guarded chunk drops a bad step's update on the device;
   after each chunk has ended the driver reads its health word once
@@ -219,14 +223,18 @@ takes the whole ratio budget, and the wall-clock floors on the param
 refresh and the train records are ignored, so two runs of one config
 write the same records but for their wall-clock fields.
 
-Device actors (--actor_backend=device, one rank; JAX :1011-1090,
-:1802-1836): after the resume, a DeviceActorPool (actors/device_pool.py)
-bound to the learner's live actor params rolls out device_actor_envs
+Device actors (--actor_backend=device; JAX :1011-1090, :1802-1836): after
+the resume, a DeviceActorPool (actors/device_pool.py) on every rank, bound
+to the learner's live logical actor params (on a grid gathered once a
+chunk), rolls out device_actor_envs (on D ranks sharded over them when
+they divide, the rows gathered: every rank lands the same rows)
 vectorized envs on the card, its rows scattered straight into the device
 replay; the warmup fills the ring with its rollouts (and the host pool's
 rows, num_actors of them, 0 = none), and one rollout follows every chunk,
-queued right behind it (guarded, after the monitor). Its carry rides in
-checkpoints (devactor_carry.npz) and comes back on resume and rollback;
+queued right behind it (guarded, after the monitor). On more than one
+rank a failed rollout is not restarted (on a pod it is a peer loss, exit
+76). Its carry rides in checkpoints (devactor_carry.npz; not with the
+envs sharded over ranks) and comes back on resume and rollback;
 the devactor_* fields are in every train and final record and the
 summary. Where the fused beat is active (parallel/megastep.py
 fused_beat_active: 'auto' with the scan route and both ratio gates 0, or
@@ -771,13 +779,13 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         raise ValueError(
             f"host_replay=True on {learner.data_size} ranks is not in this slice of the "
             "PyTorch port: a host replay a rank under the lockstep driver comes with "
-            "ROADMAP.md Queue 1 item 10 (its data-plane half); run the host replay on "
-            "one rank")
+            "the next slice of ROADMAP.md Queue 1 item 10 (its data-plane half); run the "
+            "host replay on one rank")
     if config.serve_actors and learner.data_size > 1:
         raise ValueError(
             f"serve_actors=True on {learner.data_size} ranks is not in this slice of the "
-            "PyTorch port: serving beside a data-parallel learner comes with ROADMAP.md "
-            "Queue 1 item 10 (its data-plane half); serve on one rank")
+            "PyTorch port: serving beside a data-parallel learner comes with the next "
+            "slice of ROADMAP.md Queue 1 item 10 (its data-plane half); serve on one rank")
     if (config.replay_sharding == "sharded" and config.distributional
             and config.v_support_auto and learner.data_size > 1):
         # JAX train.py:616-631 (its n_proc > 1: a rank of the port is a
@@ -789,12 +797,6 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
             "reward reads are cross-shard gathers outside the lockstep "
             "lane. Use replicated replay or concrete v_min/v_max.")
     device_actors = config.actor_backend == "device"
-    if device_actors and learner.data_size > 1:
-        raise ValueError(
-            f"actor_backend='device' on {learner.data_size} ranks is not in this slice of "
-            "the PyTorch port: the rollout over a data-parallel group comes with "
-            "ROADMAP.md Queue 1 item 10 (its data-plane half); run the device actors on "
-            "one rank")
     # After every check that can refuse the run, so a refusal leaks no
     # dispatch thread; closed after the replay (teardown below). Off under
     # strict_sync: its dispatch timing would make the records depend on
@@ -1132,7 +1134,9 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                 min_fill + config.max_ingest_ratio * learn_steps):
             return 0
         with phases.phase("devactor"):
-            rows = device_pool.run_chunk(replay)
+            # On more than one rank the rollout's gather is a collective and
+            # a failure is not restarted: on a pod it is a peer loss.
+            rows = dispatch(lambda: device_pool.run_chunk(replay), "devactor_rollout")
         env_timer.tick(rows)
         return rows
 
@@ -1181,12 +1185,23 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                     rows = poison(rows)
         moved = 0
         if track_sources:
-            # One rank (guardrails refuse more): each batch staged with the
-            # slot that produced it.
+            # Each batch staged with the slot that produced it; on one node
+            # with D > 1 ranks rank 0's batches go to every rank with their
+            # slots in a column of their own (share_rows), so every rank
+            # stages the same rows with the same sources.
+            blocks = []
             for wid, batch in pairs:
                 packed = pack_batch_np(batch)
                 if numeric_replay_at:
                     packed = poison(packed, wid)
+                blocks.append((packed, wid))
+            if not is_multi and group is not None and group.world_size > 1:
+                tagged = (np.concatenate([np.concatenate(
+                    [p, np.full((len(p), 1), w, np.float32)], axis=1) for p, w in blocks])
+                    if blocks else None)
+                tagged = mesh.share_rows(tagged, width + 1, group)
+                blocks = [] if tagged is None else source_runs(tagged)
+            for packed, wid in blocks:
                 insert(packed, source=wid)
                 moved += len(packed)
         else:
@@ -1309,7 +1324,8 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
             guard_src_offenses[src] = guard_src_offenses.get(src, 0) + 1
             if guard_src_offenses[src] >= config.guardrail_source_offenses:
                 guard_src_offenses[src] = 0   # a probed comeback counts anew
-                if pool.quarantine_source(src, why="numeric"):
+                # The pool is rank 0's (every rank counts the same offenses).
+                if pool is not None and pool.quarantine_source(src, why="numeric"):
                     gstats.record_source_quarantine()
 
     def numeric_abort(why: str) -> bool:
@@ -1357,14 +1373,16 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
             # No ship (or prefetcher draw) may touch the replay while it is
             # restored.
             with replay_mutex:
+                template = learner.state_template()
                 try:
-                    state, step, _ = ckpt_lib.restore(config.checkpoint_dir, learner.state,
+                    state, step, _ = ckpt_lib.restore(config.checkpoint_dir, template,
                                                       ckpt_replay(), config=config,
-                                                      meta_out=meta, at_most=before)
+                                                      meta_out=meta, at_most=before,
+                                                      device=device)
                 except (FileNotFoundError, RuntimeError):
-                    state, step, _ = ckpt_lib.restore(config.checkpoint_dir, learner.state,
+                    state, step, _ = ckpt_lib.restore(config.checkpoint_dir, template,
                                                       ckpt_replay(), config=config,
-                                                      meta_out=meta)
+                                                      meta_out=meta, device=device)
                 learner.load_state(state)
         except (FileNotFoundError, RuntimeError) as e:
             return numeric_abort(f"no restorable checkpoint ({e})")
@@ -1380,9 +1398,15 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         if config.guardrail_lr_backoff < 1.0:
             learner.set_lr_scale(config.guardrail_lr_backoff)
             lr_backoff_since = learn_steps
-        ckpt_lib.discard_above(config.checkpoint_dir, step)
-        with phases.phase("refresh"):
-            pool.broadcast(learner.actor_params_to_host(), learn_steps)
+        # On D > 1 ranks every rank takes the same rollback (the health word
+        # is every rank's): all of them have restored before rank 0 sets
+        # the later checkpoints aside.
+        mesh.share([0], group)
+        if lead:
+            ckpt_lib.discard_above(config.checkpoint_dir, step)
+        if pool is not None:
+            with phases.phase("refresh"):
+                pool.broadcast(learner.actor_params_to_host(), learn_steps)
         if device_pool is not None and "devactor_carry" in meta:
             # The rollout state rolls back with the learner: its episodes
             # go on from the restored point.
@@ -1498,8 +1522,11 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
 
             device_pool = DeviceActorPool(
                 config, device=device, warmup_offset=env_offset,
-                fault=fault_plan.site("devactor", "rollout") if fault_plan else None)
-            device_pool.bind(lambda: learner.state.actor_params)
+                fault=fault_plan.site("devactor", "rollout") if fault_plan else None,
+                group=learner.group)
+            # The logical actor: on a grid the model group's gather of the
+            # shards at each chunk's end (the rollout's dense apply).
+            device_pool.bind(lambda: learner.actor_params_logical)
             if "devactor_carry" in resume_meta:
                 device_pool.load_carry_state(resume_meta["devactor_carry"])
             _beat()
@@ -1643,13 +1670,14 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                         betas = (per_beat_betas(config, n_env, beats, device_pool.rows_per_chunk)
                                  if config.prioritized else None)
                         with phases.phase("dispatch"):
-                            out = megastep.run_superstep(betas)
+                            out = dispatch(lambda: megastep.run_superstep(betas), "superstep")
                         beta = float(betas[-1]) if config.prioritized else beta
                     else:
                         frac = min(1.0, n_env / config.total_env_steps)
                         beta = config.per_beta + frac * (config.per_beta_final - config.per_beta)
                         with phases.phase("dispatch"):
-                            out = megastep.run_beat(beta if config.prioritized else None)
+                            out = dispatch(lambda: megastep.run_beat(
+                                beta if config.prioritized else None), "fused_beat")
                     env_timer.tick(device_pool.rows_per_chunk * beats)
                 elif config.prioritized:
                     frac = min(1.0, n_env / config.total_env_steps)
@@ -2202,6 +2230,15 @@ def train_native(config: DDPGConfig, echo: bool = True) -> Dict[str, Any]:
     }
 
 
+def source_runs(tagged: np.ndarray):
+    """Packed rows with their actor slot in a last column -> [(rows,
+    slot)], one a run of equal slots, in order."""
+    src = tagged[:, -1].astype(np.int64)
+    cuts = np.flatnonzero(np.diff(src)) + 1
+    return [(np.ascontiguousarray(part[:, :-1]), int(part[0, -1]))
+            for part in np.split(tagged, cuts)]
+
+
 def train_ondevice(config: DDPGConfig, echo: bool = True, group=None) -> Dict[str, Any]:
     """--backend=jax_ondevice (JAX train.py:210-330): the on-device monolith
     (ondevice.OnDeviceDDPG), num_actors vectorized envs, the ring and the
@@ -2212,30 +2249,34 @@ def train_ondevice(config: DDPGConfig, echo: bool = True, group=None) -> Dict[st
     policy every eval_every env steps (0 = the final eval only); a `train`
     record is written whenever the env steps cross a multiple of ten
     chunks' worth (a crossing, so a superstep that jumps over one still
-    logs). One rank (ROADMAP.md Queue 1 item 10, its data-plane half). --profile_dir and
-    --tb_dir apply as in train()."""
+    logs). On D ranks, or a D x M grid (`group`), every rank runs the
+    monolith on its envs and columns (ondevice.py) and the same number of
+    dispatches (the env steps are global); rank 0 logs, evaluates and
+    writes the checkpoints (the logical state, gathered over the model
+    group by every rank), and every rank resumes from them.
+    --profile_dir and --tb_dir apply as in train()."""
     from distributed_ddpg_tpu_torch import checkpoint as ckpt_lib
     from distributed_ddpg_tpu_torch.envs.registry import EnvSpec
     from distributed_ddpg_tpu_torch.ondevice import OnDeviceDDPG
+    from distributed_ddpg_tpu_torch.parallel import mesh
 
-    if group is not None and group.world_size > 1:
-        raise ValueError(
-            f"backend='jax_ondevice' on {group.world_size} ranks is not in this slice of "
-            "the PyTorch port: the monolith over a data-parallel group comes with "
-            "ROADMAP.md Queue 1 item 10 (its data-plane half); run it on one rank")
-    trainer = OnDeviceDDPG(config)
-    log = MetricsLogger(config.log_path, echo=echo, tb_dir=config.tb_dir)
+    trainer = OnDeviceDDPG(config, group=group)
+    lead = group is None or group.lead
+    log = MetricsLogger(config.log_path if lead else "", echo=echo and lead,
+                        tb_dir=config.tb_dir if lead else "")
 
     env_offset = last_ckpt = 0
     resumed_from = None
     if (config.resume and config.checkpoint_dir
             and ckpt_lib.latest_step(config.checkpoint_dir) is not None):
-        state, step, env_offset = ckpt_lib.restore(config.checkpoint_dir, trainer.state,
-                                                   trainer.replay, config=config)
+        state, step, env_offset = ckpt_lib.restore(config.checkpoint_dir,
+                                                   trainer.state_template(), trainer.replay,
+                                                   config=config, device=trainer.device)
         trainer.load_train_state(state)
         trainer._learn_steps = last_ckpt = resumed_from = step
-        print(f"resumed from {config.checkpoint_dir} at learner step {step}, env step "
-              f"{env_offset}", flush=True)
+        if lead:
+            print(f"resumed from {config.checkpoint_dir} at learner step {step}, env step "
+                  f"{env_offset}", flush=True)
     env = trainer.env
     spec = EnvSpec(env.obs_dim, env.act_dim, np.asarray(env.action_low, np.float32),
                    np.asarray(env.action_high, np.float32))
@@ -2269,9 +2310,11 @@ def train_ondevice(config: DDPGConfig, echo: bool = True, group=None) -> Dict[st
             metrics = host
             if config.eval_every and env_steps() - last_eval >= config.eval_every:
                 t0 = time.monotonic()
-                eval_policy.load_flat(trainer.actor_params_to_host())
                 last_eval = env_steps()
-                log.log("eval", last_eval, eval_return=_eval_numpy(eval_policy, config, spec))
+                if lead:
+                    eval_policy.load_flat(trainer.actor_params_to_host())
+                    log.log("eval", last_eval,
+                            eval_return=_eval_numpy(eval_policy, config, spec))
                 learn_timer.exclude(time.monotonic() - t0)
                 env_timer.exclude(time.monotonic() - t0)
             if trainer.env_steps // log_stride != (trainer.env_steps - rows_per_dispatch) // log_stride:
@@ -2282,14 +2325,21 @@ def train_ondevice(config: DDPGConfig, echo: bool = True, group=None) -> Dict[st
                         **host)
                 episodes_acc, return_acc = 0, []
             if config.checkpoint_dir and trainer.learn_steps - last_ckpt >= config.checkpoint_every:
-                ckpt_lib.save(config.checkpoint_dir, trainer.learn_steps, trainer.state,
-                              trainer.replay, config, env_steps=env_steps(),
-                              keep=config.checkpoint_keep, retries=config.ckpt_write_retries,
-                              backoff_s=config.ckpt_retry_backoff_s)
+                ckpt_state = trainer.logical_state()   # every rank: a gather on a grid
+                if lead:
+                    ckpt_lib.save(config.checkpoint_dir, trainer.learn_steps, ckpt_state,
+                                  trainer.replay, config, env_steps=env_steps(),
+                                  keep=config.checkpoint_keep,
+                                  retries=config.ckpt_write_retries,
+                                  backoff_s=config.ckpt_retry_backoff_s)
+                if group is not None and group.world_size > 1:
+                    # No rank resumes (or reads the directory) before the
+                    # lead's write has landed.
+                    mesh.share([0], group)
                 last_ckpt = trainer.learn_steps
     rate, env_rate = learn_timer.rate(), env_timer.rate()
     eval_policy.load_flat(trainer.actor_params_to_host())
-    final_return = _eval_numpy(eval_policy, config, spec)
+    final_return = _eval_numpy(eval_policy, config, spec) if lead else float("nan")
     log.log("final", env_steps(), learner_steps=trainer.learn_steps,
             env_steps_per_sec=env_rate, learner_steps_per_sec=rate, final_return=final_return,
             dispatches=dispatches, superstep_beats=beats)

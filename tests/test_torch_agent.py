@@ -33,6 +33,7 @@ package's, on the CPU at a small size.
   slice (on more than one rank).
 """
 
+import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -322,10 +323,14 @@ def test_backend_refusals_match_jax(over, match):
 
 
 def test_jax_ondevice_is_refused_naming_the_option():
-    # The monolith (ondevice.py) runs on one rank; more are refused by name.
+    # The monolith (ondevice.py) runs on one rank and on D > 1 ranks
+    # (tests/test_torch_dataplane_ranks.py): accepted with JAX's fields.
     assert DDPGConfig(backend="jax_ondevice").backend == "jax_ondevice"
-    with pytest.raises(ValueError, match="backend='jax_ondevice' with data_axis=2 is not in"):
-        DDPGConfig(backend="jax_ondevice", data_axis=2)
+    theirs = JaxConfig(backend="jax_ondevice", data_axis=2)
+    ours = DDPGConfig(backend="jax_ondevice", data_axis=2)
+    for f in dataclasses.fields(JaxConfig):
+        a, b = getattr(ours, f.name), getattr(theirs, f.name)
+        assert a == b or a != a and b != b, f.name   # NaN: an 'auto' field
 
 
 def test_native_backend_cli_run(tmp_path):

@@ -196,11 +196,12 @@ def test_config_defaults_match_jax():
     dict(policy_delay=2), dict(fused_chunk="sometimes"),
     dict(sac=True, fused_update=True),
     dict(data_axis=0), dict(compute_dtype="float16"), dict(guardrails=True, fused_chunk="on"),
-    dict(data_axis=-2), dict(model_axis=0), dict(actor_backend="device", data_axis=2),
+    dict(data_axis=-2), dict(model_axis=0), dict(host_replay=True, data_axis=2),
     dict(serve_actors=True, data_axis=2), dict(transport="tcp"), dict(fused_mesh="on"),
-    # (`slice` faults are in the slice since the sharded replay; the
-    # guarded learner on two ranks is not.)
-    dict(action_insert_layer=5), dict(guardrails=True, data_axis=2),
+    # (`slice` faults are in the slice since the sharded replay; the device
+    # actors and the guarded learner on two ranks since the data plane on
+    # ranks, so these two cases now hold the refusals left.)
+    dict(action_insert_layer=5), dict(serve_actors=True, model_axis=2),
 ])
 def test_options_outside_the_slice_raise(override):
     name = next(iter(override))
@@ -213,10 +214,12 @@ def test_options_outside_the_slice_raise(override):
     dict(critic_l2=0.01), dict(action_insert_layer=0), dict(action_insert_layer=2),
     dict(critic_hidden=(64,)), dict(fused_chunk="off"),
     dict(data_axis=2), dict(fused_mesh="off"), dict(checkpoint_dir="/x"),
-    dict(transport="shm"),
+    dict(transport="shm"), dict(actor_backend="device", data_axis=2),
+    dict(guardrails=True, data_axis=2),
 ])
 def test_configs_outside_the_kernel_envelope_construct(override):
-    """The scan route admits what the chunk kernel's envelope leaves out."""
+    """The scan route admits what the chunk kernel's envelope leaves out
+    (and the device actors and the guarded learner on two ranks)."""
     cfg = DDPGConfig(**override)
     assert all(getattr(cfg, k) == v for k, v in override.items())
 

@@ -22,8 +22,8 @@ config fields) against the JAX package's, on the CPU at tiny widths.
   mismatch fallback (another E, an empty snapshot).
 - The sidecar through checkpoint.save / restore (covered by the manifest),
   and a CLI run resumed from its checkpoint that continues its episodes.
-- The config: every refusal JAX makes, with JAX's message; the D > 1
-  refusals citing item 10; resolve_device_actor_chunk.
+- The config: every refusal JAX makes, with JAX's message; D > 1 ranks
+  accepted as JAX accepts them (the same fields); resolve_device_actor_chunk.
 - Stale params: a rollout after a learner chunk equals a rollout from a
   copy of the learner's NEW actor params, bit for bit, and differs from
   one with the old params.
@@ -31,6 +31,7 @@ config fields) against the JAX package's, on the CPU at tiny widths.
   ingest item), and host and device actors side by side.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -378,9 +379,13 @@ def test_config_refusals_match_jax(over):
     dict(backend="jax_ondevice"),
 ], ids=["device-actors", "ondevice"])
 def test_more_than_one_rank_is_refused_citing_item_10(over):
-    JaxConfig(data_axis=2, **over)
-    with pytest.raises(ValueError, match="item 10"):
-        DDPGConfig(device="cpu", data_axis=2, **over)
+    # Ported since: both run on D > 1 ranks (tests/test_torch_dataplane_ranks.py),
+    # and the config takes every JAX field as the JAX package does.
+    theirs = JaxConfig(data_axis=2, **over)
+    ours = DDPGConfig(device="cpu", data_axis=2, **over)
+    for f in dataclasses.fields(JaxConfig):
+        a, b = getattr(ours, f.name), getattr(theirs, f.name)
+        assert a == b or a != a and b != b, f.name   # NaN: an 'auto' field
 
 
 def test_resolve_device_actor_chunk():

@@ -16,12 +16,16 @@ package's parallel/partition.py, config.py and make_mesh, in this process
   layer kinds the Megatron apply runs; shard_tree's blocks rebuild the
   logical tree.
 - The config: JAX's tensor-parallel checks and messages; the refusals of
-  what runs on one rank only, under model_axis > 1, name item 10;
+  what still runs on one rank only (serving, the host replay), under
+  model_axis > 1, name item 10, and the device actors, the monolith and
+  the guarded learner are accepted with JAX's fields;
   resolve_data_axis on a grid raises as make_mesh does; mode='explicit'
   is data-parallel only, with JAX's message.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -196,9 +200,18 @@ def test_tp_configs_jax_accepts_and_the_port_runs():
     dict(backend="jax_ondevice"), dict(host_replay=True), dict(guardrails=True),
 ], ids=["serve", "device-actors", "ondevice", "host-replay", "guardrails"])
 def test_one_rank_paths_are_refused_under_model_axis(over):
-    JaxConfig(model_axis=2, **over)     # legal in the JAX package
-    with pytest.raises(ValueError, match=r"model_axis=2 is not in this slice.*item 10"):
-        DDPGConfig(model_axis=2, **over)
+    theirs = JaxConfig(model_axis=2, **over)     # legal in the JAX package
+    if "serve_actors" in over or "host_replay" in over:
+        # Serving and the host replay on ranks: the next slice of item 10.
+        with pytest.raises(ValueError, match=r"model_axis=2 is not in this slice.*item 10"):
+            DDPGConfig(model_axis=2, **over)
+        return
+    # The device actors, the monolith and the guarded learner run on a grid
+    # now (tests/test_torch_dataplane_ranks.py): accepted with JAX's fields.
+    ours = DDPGConfig(model_axis=2, **over)
+    for f in dataclasses.fields(JaxConfig):
+        a, b = getattr(ours, f.name), getattr(theirs, f.name)
+        assert a == b or a != a and b != b, f.name   # NaN: an 'auto' field
 
 
 @pytest.mark.parametrize("world,data_axis,m", [(4, -1, 2), (4, 2, 2), (3, -1, 2), (4, 1, 2),

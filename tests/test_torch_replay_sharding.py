@@ -31,6 +31,7 @@ package's, on the CPU, after the JAX package's tests/test_replay_sharding.py.
 
 from __future__ import annotations
 
+import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -255,16 +256,19 @@ def test_sharded_is_accepted_and_model_axis_still_refused():
     from distributed_ddpg_tpu_torch import config as config_mod
 
     # model_axis is in the port (the tensor-parallel learner): the sharded
-    # replay composes with it; the device actors beside it are still
-    # refused with item 10's message.
+    # replay composes with it, and so do the device actors beside it.
     assert not hasattr(config_mod, "_NOT_IN_SLICE")
     assert DDPGConfig(replay_sharding="sharded").replay_sharding == "sharded"
     assert DDPGConfig(replay_sharding="sharded", data_axis=2,
                       replay_capacity=1024).data_axis == 2
     assert DDPGConfig(replay_sharding="sharded", model_axis=2).model_axis == 2
-    with pytest.raises(ValueError, match="item 10"):
-        DDPGConfig(model_axis=2, replay_sharding="sharded", actor_backend="device",
-                   num_actors=0)
+    theirs = JaxConfig(model_axis=2, replay_sharding="sharded", actor_backend="device",
+                       num_actors=0)
+    ours = DDPGConfig(model_axis=2, replay_sharding="sharded", actor_backend="device",
+                      num_actors=0)
+    for f in dataclasses.fields(JaxConfig):
+        a, b = getattr(ours, f.name), getattr(theirs, f.name)
+        assert a == b or a != a and b != b, f.name   # NaN: an 'auto' field
 
 
 # --- on gloo ranks --------------------------------------------------------------------

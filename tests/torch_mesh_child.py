@@ -25,6 +25,9 @@ Jobs (`spec["kind"]`):
 - "train": train() at the job's config, in this rank's group; writes its
   summary as JSON;
 - "shard_suite": the sharded replay's cases (tests/torch_shard_child.py);
+- "dataplane" and "beats": the device-side data plane on the ranks (the
+  device actors, the guarded chunk, the monolith, the fused beat and
+  superstep; the cases in tests/torch_dataplane_child.py);
 - "ckpt": a learner at the job's config (model_axis > 1) restores the
   logical checkpoint in `src`, writes this rank's shards, and rank 0
   writes the gathered logical state to `dst` (checkpoints across
@@ -265,6 +268,14 @@ def main(argv) -> int:
         from torch_shard_child import run_suite
 
         out = run_suite(spec, job, group)
+    elif spec["kind"] == "dataplane":
+        from torch_dataplane_child import run_dataplane
+
+        out = run_dataplane(spec, job, group)
+    elif spec["kind"] == "beats":
+        from torch_dataplane_child import run_beats
+
+        out = run_beats(spec, job, group)
     else:
         from distributed_ddpg_tpu_torch.config import DDPGConfig
         from distributed_ddpg_tpu_torch.train import train
