@@ -188,17 +188,44 @@ Phases (any failure raises; nothing is caught and passed over):
    actors with K2 at D = 1 x M = 2; each exits 0 with its launches a rank
    (K1 a chunk, K2 twice a learner step), bit-identical replicas, learner
    and env steps/s a rank beside the card's line.
+3e. The host replay and serving on more than one rank (hostserve_phase,
+   on the mesh phase's two ranks; Pendulum-v1, 2x256, batch 64 a rank,
+   f32): (a) at D = 2 with K2 (HS_K steps) rank 0's host replay draws a
+   chunk (its ChunkPrefetcher's draw, put_chunk), every rank gets it
+   through ShardedLearner.share_chunk and runs it: every state tensor and
+   the td bit for bit the device-replay chunk run_sample_chunk(idx=) on
+   the same rows and draw (PER: run_sample_chunk_per(idx=, weights=) with
+   the host draw's IS weights), uniform and PER, K2 twice a step and no
+   chunk kernel on both; (b) the tensor-parallel serve apply at D = 1 x
+   M = 2 (rank 0's InferenceServer with mesh=, rank 1's ServeFollower),
+   DDPG's actions and SAC's head rows at 1, 7 and 32 rows, against the
+   single-device apply on the card and the numpy oracle within
+   SERVE_ATOL; each rank's bytes of policy on the card (its shards) beside
+   the whole policy's, and a 32-row round trip TP and single. Beside them,
+   started on rank 0: (c) four CLI main paths, two ranks each (torchrun of
+   this script's --tp-child, gloo on the card): from 3d's start, beside
+   3d (e)'s, the host replay at D = 2 with K2, uniform and PER (2000 env
+   steps, K = 50, paced by --max_ingest_ratio=16: K2 twice a learner step
+   and no K1 launch); from 3e's start, serving at D = 2 on K1 (a) (the
+   mesh launch, 2 actors, --serve_backend=jax, the learner gated 1:1: K1
+   a chunk) and serving at D = 1 x M = 2 with --serve_backend=jax (the
+   TP apply) and K2 (1200 env steps each after a 500-row warmup); each
+   exits 0 with bit-identical replicas, a served path
+   with requests served, no serve error and no local fallback
+   (serve_client_fallbacks 0). The phase's seconds printed beside the
+   card's line. The kernels' record's launches are 3e (c)'s: K1 (a)'s on
+   the served D = 2 path, K2's on the host replay at D = 2.
 4. Drive the main paths, `distributed_ddpg_tpu_torch.train` (Pendulum-v1,
    2x256, batch 64, f32, one actor process, K = 800): DDPG with the
-   default flags for 20,000 env steps and TD3 with --twin_critic=true
+   default flags for 12,000 env steps and TD3 with --twin_critic=true
    --policy_delay=2 --target_noise=0.2 for 5000, then D4PG with
    --distributional=true --n_step=5 --v_min=auto --v_max=auto for 5000
    (51 atoms; the support resolved from the warmup rewards is
    printed) and README's whole D4PG command, the same with
-   --prioritized=true, for 20,000 (its final beta and max_priority
+   --prioritized=true, for 12,000 (its final beta and max_priority
    printed), then SAC with --sac=true --actor_lr=3e-4 --critic_lr=3e-4
-   --tau=0.005 for 20,000 (its final alpha is printed); then with
-   --compute_dtype=bfloat16 DDPG for 20,000 env steps and TD3, D4PG and
+   --tau=0.005 for 12,000 (its final alpha is printed); then with
+   --compute_dtype=bfloat16 DDPG for 12,000 env steps and TD3, D4PG and
    SAC (their flags as above) for 5000 each; then the scan route:
    --fused_update=true, README's D4PG command (with --prioritized=true)
    with --fused_update=true and --critic_l2=0.01 for 5000 env steps
@@ -275,7 +302,7 @@ Phases (any failure raises; nothing is caught and passed over):
    1e-5; the free-running gap within FREE_RUNNING_BOUND); a rollout after a K1 chunk bit for bit one from a copy of
    the new actor params; 3 fused beats bit-identical to the separate
    sequence at K = BEAT_PARITY_K, uniform and PER; the fused beat's main
-   path (--fused_chunk=off --fused_update=true, 3 beats at K = 800, K2
+   path (--fused_chunk=off --fused_update=true, 2 beats at K = 800, K2
    twice a learner step); one superstep of 4 beats bit-identical to 4
    beats and its host syncs counted (1); the superstep's main path (one
    superstep); --backend=jax_ondevice --fused_update=true for
@@ -516,6 +543,144 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel")
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+# Every process this script starts carries a mark in its environment, and
+# every process under it inherits the mark: torchrun's ranks and the
+# supervisor's children run in sessions of their own, and a killed parent
+# leaves its children to init, so neither a process group nor the tree of
+# parents finds them all. A child's mark is its parent's mark, a slash and
+# a name of its own, so that end_process(proc) finds everything under proc
+# and the script's end everything it started.
+RUN_MARK = "CHIP_SMOKE_RUN"
+_spawned = 0
+
+
+def spawn(cmd, env=None, **kw) -> subprocess.Popen:
+    """subprocess.Popen with a mark of its own (see RUN_MARK) in the
+    child's environment, kept as the Popen's `run_mark`."""
+    global _spawned
+    _spawned += 1
+    mark = f"{os.environ.get(RUN_MARK, '')}/{os.getpid()}.{_spawned}"
+    proc = subprocess.Popen(cmd, env={**(os.environ if env is None else env), RUN_MARK: mark},
+                            **kw)
+    proc.run_mark = mark
+    return proc
+
+
+def _marked(mark: str):
+    """The pids of the processes whose mark is `mark` or under it."""
+    want = f"{RUN_MARK}={mark}".encode()
+    pids = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit() or int(name) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{name}/environ", "rb") as f:
+                env = f.read().split(b"\0")
+        except OSError:
+            continue   # gone, or not ours
+        if any(v == want or v.startswith(want + b"/") for v in env):
+            pids.append(int(name))
+    return pids
+
+
+def _stat(pid: int):
+    """(state, ppid) of a process, None once it has left the process table."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        return fields[0], int(fields[1])
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace").strip()[:200]
+    except OSError:
+        return ""
+
+
+def kill_marked(mark: str, wait_s: float = 10.0):
+    """SIGKILLs every process whose mark is `mark` or under it, and waits
+    (`wait_s` at most) until none is left and each one it killed has died:
+    a killed process that still tears down its CUDA context has no
+    environment to read any more, but it is still there. Returns
+    {pid: command line} of those it killed."""
+    killed, deadline = {}, time.monotonic() + wait_s
+    while time.monotonic() < deadline:
+        pids = _marked(mark)
+        dying = [p for p in killed if (_stat(p) or ("Z",))[0] != "Z"]
+        if not pids and not dying:
+            break
+        for pid in pids:
+            cmd = _cmdline(pid)
+            try:
+                os.kill(pid, signal.SIGKILL)
+                killed.setdefault(pid, cmd)
+            except (ProcessLookupError, PermissionError):
+                pass
+        time.sleep(0.05)
+    return killed
+
+
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def become_subreaper() -> bool:
+    """Makes this process the reaper of every orphan below it (prctl on
+    this process alone), so that end_descendants finds them all."""
+    import ctypes
+
+    try:
+        return ctypes.CDLL(None, use_errno=True).prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) == 0
+    except (OSError, AttributeError):
+        return False
+
+
+def end_descendants(wait_s: float = 30.0):
+    """SIGKILLs every process below this one, reaps them, and waits
+    (`wait_s` at most) until none is left. Returns ({pid: command line} of
+    those it found, [pids still there at the deadline])."""
+    found, deadline = {}, time.monotonic() + wait_s
+    while True:
+        while True:   # reap this process's exited children, orphans included
+            try:
+                if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                    break
+            except ChildProcessError:
+                break
+        table = {int(n): _stat(int(n)) for n in os.listdir("/proc") if n.isdigit()}
+        kids = {}
+        for pid, st in table.items():
+            if st is not None:
+                kids.setdefault(st[1], []).append(pid)
+        below, todo = [], [os.getpid()]
+        while todo:
+            for pid in kids.get(todo.pop(), ()):
+                below.append(pid)
+                todo.append(pid)
+        if not below or time.monotonic() > deadline:
+            return found, below
+        for pid in below:
+            if table[pid][0] != "Z":
+                found.setdefault(pid, _cmdline(pid))
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except (ProcessLookupError, PermissionError):
+                    pass
+        time.sleep(0.05)
+
+
+def end_process(proc: subprocess.Popen) -> None:
+    """Ends a process that spawn() started and every process under it, and
+    reaps it."""
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+    kill_marked(proc.run_mark)
 
 
 def card_line() -> str:
@@ -1977,7 +2142,7 @@ def drive_main_path(flags, name: str, summary_out: dict = None) -> dict:
 # inserts, no scheduler.
 OLD_PIPELINE = ["--transport=queue", "--ingest_async=false", "--transfer_scheduler=false"]
 OLD_ENV_STEPS = 2000       # each kernel-route path on it (a few chunks)
-STEADY_ENV_STEPS = 20_000  # the main paths whose rates are recorded
+STEADY_ENV_STEPS = 12_000  # the main paths whose rates are recorded
 # The scan route on it: its 4 x 32-row queue brings in ~130-220 env steps
 # a ~3-5 s chunk, so 1-2 chunks.
 OLD_SCAN_ENV_STEPS = 1200
@@ -2093,8 +2258,8 @@ def mesh_phase(card: str) -> dict:
     fails fails the phase at once (the other is stopped). Returns rank 0's
     record of the phase (its times and its main paths' summaries)."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as out_dir:
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
-                                   str(r), out_dir, card])
+        procs = [spawn([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+                        out_dir, card])
                  for r in range(MESH_RANKS)]
         deadline = time.monotonic() + MESH_TIMEOUT_S
         try:
@@ -2104,9 +2269,7 @@ def mesh_phase(card: str) -> dict:
                 time.sleep(0.2)
         finally:
             for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
+                end_process(p)
         codes = [p.returncode for p in procs]
         if codes != [0] * MESH_RANKS:
             raise AssertionError(f"mesh phase: the ranks exited with {codes}")
@@ -2855,13 +3018,13 @@ class TPLaunches:
         self.out = open(os.path.join(out_dir, "tp2x2.out"), "w+")
         env = dict(os.environ, DDPG_DIST_BACKEND="gloo", TP_CHILD_REPORT=self.reports)
         self.t0 = time.monotonic()
-        self.proc = subprocess.Popen(
+        self.proc = spawn(
             [sys.executable, "-m", "torch.distributed.run",
              f"--nproc_per_node={TP_2X2_RANKS}", f"--master_port={free_port()}",
              os.path.abspath(__file__), "--tp-child", *TP_2X2_FLAGS,
              f"--log_path={self.log_path}"],
             stdout=self.out, stderr=subprocess.STDOUT, env=env)
-        self.refusal = subprocess.Popen(
+        self.refusal = spawn(
             [sys.executable, "-m", "distributed_ddpg_tpu_torch.train", "--model_axis=2",
              "--fused_chunk=on"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
@@ -2913,9 +3076,7 @@ class TPLaunches:
 
     def stop(self) -> None:
         for p in (self.proc, self.refusal):
-            if p.poll() is None:
-                p.kill()
-            p.wait()
+            end_process(p)
 
 
 def tp_child(flags) -> int:
@@ -3002,51 +3163,57 @@ class DataplaneCLI:
     of this script's `--tp-child` (train.main with the launch counts zeroed
     just before and read just after, a report a rank) under
     DDPG_DIST_BACKEND=gloo on the one card, started together beside the
-    ranks' checks (a)-(d) and finished after them."""
+    ranks' checks (a)-(d) and finished after them. 3e (c) runs two more,
+    over HS_HOST_PATHS and HS_SERVE_PATHS (tag "hs"): a served path must
+    also have served requests and taken no local fallback."""
 
-    def __init__(self, out_dir: str):
-        self.dir = out_dir
+    def __init__(self, out_dir: str, paths=None, tag: str = "dp", label: str = "(e)",
+                 timeout_s: float = DP_CLI_TIMEOUT_S):
+        self.dir, self.tag, self.label, self.timeout_s = out_dir, tag, label, timeout_s
+        self.paths = DP_CLI_PATHS if paths is None else paths
         self.t0 = time.monotonic()
         self.procs = {}
-        for name, (flags, _) in DP_CLI_PATHS.items():
+        for name, (flags, _) in self.paths.items():
             env = dict(os.environ, DDPG_DIST_BACKEND="gloo",
-                       TP_CHILD_REPORT=os.path.join(out_dir, f"dp_{name}"))
-            out = open(os.path.join(out_dir, f"dp_{name}.out"), "w+")
-            self.procs[name] = (subprocess.Popen(
+                       TP_CHILD_REPORT=os.path.join(out_dir, f"{tag}_{name}"))
+            out = open(os.path.join(out_dir, f"{tag}_{name}.out"), "w+")
+            self.procs[name] = (spawn(
                 [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2",
                  f"--master_port={free_port()}", os.path.abspath(__file__), "--tp-child",
                  *DP_CLI_COMMON, *flags,
-                 f"--log_path={os.path.join(out_dir, f'dp_{name}.jsonl')}"],
+                 f"--log_path={os.path.join(out_dir, f'{tag}_{name}.jsonl')}"],
                 stdout=out, stderr=subprocess.STDOUT, env=env), out)
 
     def finish(self, card: str, say) -> dict:
-        record = {}
+        record, tag, label = {}, self.tag, self.label
         try:
             for name, (proc, out) in self.procs.items():
-                rc = proc.wait(timeout=max(1.0, DP_CLI_TIMEOUT_S
+                rc = proc.wait(timeout=max(1.0, self.timeout_s
                                            - (time.monotonic() - self.t0)))
                 secs = time.monotonic() - self.t0
                 out.seek(0)
                 text = out.read()
                 reports = []
                 for r in range(2):
-                    path = os.path.join(self.dir, f"dp_{name}.rank{r}.json")
+                    path = os.path.join(self.dir, f"{tag}_{name}.rank{r}.json")
                     if os.path.exists(path):
                         with open(path) as f:
                             reports.append(json.load(f)["launches"])
                 if rc != 0 or len(reports) != 2:
-                    raise AssertionError(f"(e) {name}: exit {rc}, {len(reports)} rank "
+                    raise AssertionError(f"{label} {name}: exit {rc}, {len(reports)} rank "
                                          f"reports:\n{text[-4000:]}")
-                with open(os.path.join(self.dir, f"dp_{name}.jsonl")) as f:
+                with open(os.path.join(self.dir, f"{tag}_{name}.jsonl")) as f:
                     final = [json.loads(line) for line in f if line.strip()][-1]
-                kernel = DP_CLI_PATHS[name][1]
+                flags, kernel = self.paths[name]
                 steps = final["learner_steps"]
                 want = ({"fused_chunk": final["chunks"]} if kernel == "fused_chunk"
                         else {"fused_update": 2 * steps})
                 keys = ("learner_steps", "learner_steps_per_sec", "env_steps_per_sec",
                         "chunks", "route", "replicas_identical", "fused_supersteps",
                         "fused_beats", "devactor_env_steps", "devactor_gather_ms",
-                        "data_axis", "mesh_model_axis", "global_batch")
+                        "data_axis", "mesh_model_axis", "global_batch", "host_replay",
+                        "t_sample_wait_run_ms", "serve_requests", "serve_errors",
+                        "serve_client_fallbacks", "serve_p95_ms", "max_priority")
                 rec = {k: final[k] for k in keys if k in final}
                 rec["env_steps"] = final["step"]
                 ok = (final["kind"] == "final" and steps > 0
@@ -3062,14 +3229,20 @@ class DataplaneCLI:
                         rec[k] = float(got[-1]) if got else None
                     ok = ok and (rec["fused_supersteps"] or 0) >= 1 \
                         and rec["fused_superstep_beats"] == 2.0
-                if name == "device_actors_d2":
+                if name in ("device_actors_d2", "serve_d2"):
                     ok = ok and final.get("route") == "mesh"
-                say(f"  (e) {name}: {card}: exit {rc} in {secs:.1f}s from the phase's start "
+                if "--serve_actors=true" in flags:
+                    ok = ok and final.get("serve_requests", 0) > 0 \
+                        and final.get("serve_errors") == 0 \
+                        and final.get("serve_client_fallbacks") == 0
+                if "--host_replay=true" in flags:
+                    ok = ok and final.get("host_replay") is True
+                say(f"  {label} {name}: {card}: exit {rc} in {secs:.1f}s from the phase's start "
                     f"(torchrun, gloo, two ranks on one card), launches a rank {reports}, "
                     f"learner steps/s a rank {final['learner_steps_per_sec']}, env steps/s "
                     f"{final['env_steps_per_sec']}: " + json.dumps(rec))
                 if not ok:
-                    raise AssertionError(f"(e) {name}: {final}, launches {reports}")
+                    raise AssertionError(f"{label} {name}: {final}, launches {reports}")
                 record[name] = dict(rec, launches=reports[0][kernel], kernel=kernel,
                                     seconds=secs)
         finally:
@@ -3078,9 +3251,7 @@ class DataplaneCLI:
 
     def stop(self) -> None:
         for proc, out in self.procs.values():
-            if proc.poll() is None:
-                proc.kill()
-            proc.wait()
+            end_process(proc)
             out.close()
 
 
@@ -3329,6 +3500,207 @@ def dataplane_phase(group, out_dir: str, card: str, say) -> dict:
     return record
 
 
+# --- 3e. the host replay and serving on the mesh ranks ---
+
+HS_K = 16                 # (a): the chunk's learner steps
+HS_ROWS = 8192            # (a): the replays' rows
+HS_SERVE_ROWS = (1, 7, 32)   # (b): the applies' batch sizes (max_batch 32)
+HS_SERVE_TIMEOUT_S = 60.0    # (b): the serve group's deadline
+HS_CLI_TIMEOUT_S = 300       # (c): the CLI paths, from their start to their end
+# (c): each path two ranks under torchrun (gloo, the one card): its flags and
+# the kernel its main path must launch (and only that kernel). The host
+# replay's paths start before 3d, beside 3d (e)'s; the served ones when 3d
+# has ended, so that no other run's K1 chunks (which hold every SM of the
+# card) stand between a request and its apply. The learner is gated 1:1
+# on the served D = 2 path (free running, its back-to-back K1 chunks
+# starve the actors: 22.56 env steps/s in the first probe).
+HS_HOST_PATHS = {
+    "host_replay_d2": (["--data_axis=2", "--host_replay=true", "--fused_update=true",
+                        "--learner_chunk=50", "--max_ingest_ratio=16",
+                        "--total_env_steps=2000"], "fused_update"),
+    "host_per_d2": (["--data_axis=2", "--host_replay=true", "--prioritized=true",
+                     "--fused_update=true", "--learner_chunk=50", "--max_ingest_ratio=16",
+                     "--total_env_steps=2000"], "fused_update"),
+}
+HS_SERVE = ["--serve_actors=true", "--serve_backend=jax", "--num_actors=2",
+            "--replay_min_size=500", "--total_env_steps=1200"]   # the phase's 45 s
+HS_SERVE_PATHS = {
+    "serve_d2": (["--data_axis=2", *HS_SERVE, "--max_learn_ratio=1"], "fused_chunk"),
+    "serve_tp_1x2": (["--model_axis=2", *HS_SERVE, "--fused_update=true",
+                      "--learner_chunk=50"], "fused_update"),
+}
+
+
+def _from_lead(t, group):
+    """Rank 0's CPU tensor `t` on every rank (the control plane)."""
+    from distributed_ddpg_tpu_torch.parallel.mesh import _broadcast
+
+    _broadcast(t, group, control=True)
+    return t
+
+
+def hs_host_chunk(group, card: str, say) -> dict:
+    """3e (a): at D = 2 with K2 (HS_K steps, Pendulum's 2x256, 64 rows a
+    rank) rank 0's host replay draws a chunk (its ChunkPrefetcher's draw,
+    put_chunk), every rank gets it (share_chunk) and runs it; a second
+    learner from the same state runs run_sample_chunk(idx=) (PER:
+    run_sample_chunk_per(idx=, weights=)) on a device replay of the same
+    rows with the same draw. Every state tensor and the td bit for bit;
+    K2 twice a step on both, no chunk kernel."""
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.learner import train_state_from_numpy
+    from distributed_ddpg_tpu_torch.ops._build import KERNEL_LAUNCHES
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner, state_tensors
+    from distributed_ddpg_tpu_torch.parallel.prefetch import ChunkPrefetcher
+    from distributed_ddpg_tpu_torch.replay import make_replay
+    from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay, DeviceReplay
+    from distributed_ddpg_tpu_torch.types import pack_batch_np
+
+    out = {}
+    fields = host_rows(HS_ROWS, 3, 1, seed=44)
+    rows = pack_batch_np(dict(zip(("obs", "action", "reward", "discount", "next_obs"), fields)))
+    for per in (False, True):
+        name = "per" if per else "uniform"
+        cfg = DDPGConfig(fused_update=True, prioritized=per, replay_capacity=HS_ROWS,
+                         data_axis=2, seed=13)
+        state = random_state_np(cfg, 3, 1, seed=43)
+
+        def learner():
+            return ShardedLearner(cfg, 3, 1, 2.0, 0.0, chunk_size=HS_K, group=group,
+                                  state=train_state_from_numpy(state, "cuda"))
+
+        host, dev = learner(), learner()
+        shape = (HS_K, host.global_batch)
+        idx, weights, chunk = torch.zeros(shape, dtype=torch.int64), torch.ones(shape), None
+        if group.lead:
+            rep = make_replay(cfg, 3, 1)
+            rep.add_batch(*fields)
+            if per:
+                rng = np.random.default_rng(45)
+                rep.update_priorities(np.arange(0, HS_ROWS, 3),
+                                      rng.uniform(0.0, 40.0, len(range(0, HS_ROWS, 3))))
+            drawn = ChunkPrefetcher(rep, host.put_chunk, host.global_batch, HS_K)._sample_chunk()
+            idx = torch.from_numpy(drawn.pop("indices").astype(np.int64))
+            if per:
+                weights = torch.from_numpy(drawn["weight"].astype(np.float32))
+            chunk = host.put_chunk(drawn)
+        idx, weights = _from_lead(idx, group), _from_lead(weights, group)
+        KERNEL_LAUNCHES.clear()
+        t0 = time.monotonic()
+        got = host.run_chunk_async(host.share_chunk(chunk))
+        torch.cuda.synchronize()
+        host_ms = 1000.0 * (time.monotonic() - t0)
+        host_launches = dict(KERNEL_LAUNCHES)
+        ring = (DevicePrioritizedReplay(HS_ROWS, 3, 1, "cuda", block_size=1024) if per
+                else DeviceReplay(HS_ROWS, 3, 1, "cuda", block_size=1024))
+        ring.add_packed(rows)
+        ring.flush()
+        KERNEL_LAUNCHES.clear()
+        want = (dev.run_sample_chunk_per(ring, 0.4, idx=idx, weights=weights) if per
+                else dev.run_sample_chunk(ring, idx=idx))
+        torch.cuda.synchronize()
+        dev_launches = dict(KERNEL_LAUNCHES)
+        same = (torch.equal(got.td_errors, want.td_errors)
+                and all(torch.equal(a, b) for a, b in zip(state_tensors(host.state),
+                                                          state_tensors(dev.state))))
+        gap = (got.td_errors - want.td_errors).abs().max().item()
+        k2 = {"fused_update": 2 * HS_K}
+        say(f"  (a) host-fed chunk at D = 2, {name}, K = {HS_K} with K2: bit for bit the "
+            f"device-replay chunk on the same rows and draw: {same} (td gap {gap:.3e}); "
+            f"launches host-fed {host_launches}, device {dev_launches}; {host_ms:.1f} ms "
+            f"from the share to the chunk's end ({card})")
+        if not same or host_launches != k2 or dev_launches != k2:
+            raise AssertionError(f"(a) the host-fed chunk ({name}) at D = 2: same {same}, "
+                                 f"launches {host_launches} / {dev_launches}")
+        out[name] = dict(same=same, launches=host_launches, host_ms=host_ms)
+    return out
+
+
+def hs_tp_serve(group, card: str, say) -> dict:
+    """3e (b): the tensor-parallel serve apply at D = 1 x M = 2 (rank 0
+    serves with mesh=, rank 1 follows) at Pendulum's 2x256, DDPG's actions
+    and SAC's head rows, HS_SERVE_ROWS rows, against the single-device
+    apply on the card and the numpy oracle, within SERVE_ATOL (4f's);
+    each rank's bytes of policy on the card (its shards) printed beside the
+    whole policy's, and the round trip of a 32-row apply, TP and single."""
+    from distributed_ddpg_tpu_torch.parallel.mesh import all_gather, make_grid, serve_group
+    from distributed_ddpg_tpu_torch.serve import ServeFollower
+    from distributed_ddpg_tpu_torch.tools import serve_checks as sc
+
+    smesh = serve_group(make_grid(group, 2), HS_SERVE_TIMEOUT_S)
+    out = {}
+    for sac in (False, True):
+        name = "sac" if sac else "ddpg"
+        layout = sc.layout_of(3, 1, sac)
+        if smesh.rank != 0:
+            follower = ServeFollower(layout, np.full(1, 2.0, np.float32), mesh=smesh,
+                                     max_batch=sc.MAX_BATCH, sac=sac, device="cuda").start()
+            if not follower.join(120.0) or follower.error is not None:
+                raise AssertionError(f"(b) the follower: {follower.error}")
+            mine = follower.shard_bytes
+        else:
+            flat = sc.flat_params(layout, 21 + sac)
+            tp = sc.make_server(layout, 1, "cuda", mesh=smesh, sac=sac)
+            single = sc.make_server(layout, 1, "cuda", sac=sac)
+            oracle = sc.make_server(layout, 1, backend="numpy", sac=sac)
+            for srv in (tp, single, oracle):
+                srv.refresh(flat)
+            rng = np.random.default_rng(22 + sac)
+            errs = {}
+            for n in HS_SERVE_ROWS:
+                obs = rng.standard_normal((n, 3)).astype(np.float32)
+                got = tp._compute(obs)
+                errs[n] = (float(np.abs(got - single._compute(obs)).max()),
+                           float(np.abs(got - oracle._compute(obs)).max()))
+            obs = rng.standard_normal((sc.MAX_BATCH, 3)).astype(np.float32)
+            tp_ms = time_ms(lambda: tp._compute(obs), 20)
+            single_ms = time_ms(lambda: single._compute(obs), 20)
+            tp.close()
+            worst = max(max(e) for e in errs.values())
+            say(f"  (b) TP serve apply at 1 x 2, {name} (obs 3, 2x256, max_batch "
+                f"{sc.MAX_BATCH}): max_abs_err against the single-device apply / the numpy "
+                f"oracle by rows {errs}; a {sc.MAX_BATCH}-row round trip {tp_ms:.3f} ms TP, "
+                f"{single_ms:.3f} ms single ({card}; gloo ranks on one card)")
+            if not worst <= SERVE_ATOL:
+                raise AssertionError(f"(b) the TP serve apply ({name}): {errs} beyond "
+                                     f"{SERVE_ATOL}")
+            mine = tp.shard_bytes
+            out[name] = dict(errs={str(n): e for n, e in errs.items()}, tp_ms=tp_ms,
+                             single_ms=single_ms, whole_bytes=single.shard_bytes)
+        sizes = all_gather(torch.tensor([mine], dtype=torch.int64), group).reshape(-1).tolist()
+        if group.lead:
+            whole = out[name]["whole_bytes"]
+            say(f"  (b) {name}: bytes of policy on the card a rank {sizes} (the whole policy "
+                f"{whole})")
+            if not all(0 < b < whole for b in sizes):
+                raise AssertionError(f"(b) {name}: a rank holds {sizes} of {whole} bytes")
+            out[name]["rank_bytes"] = sizes
+    return out
+
+
+def hostserve_phase(group, out_dir: str, card: str, say, host_cli) -> dict:
+    """3e (module docstring) on the mesh phase's two ranks; (c)'s host
+    replay paths, `host_cli`, were started on rank 0 before 3d, its served
+    paths start here, and all finish here."""
+    t0 = time.monotonic()
+    serve_cli = (DataplaneCLI(out_dir, HS_SERVE_PATHS, "hs", "3e (c)", HS_CLI_TIMEOUT_S)
+                 if group.lead else None)
+    try:
+        record = {"host_chunk": hs_host_chunk(group, card, say),
+                  "tp_serve": hs_tp_serve(group, card, say)}
+        record["checks_seconds"] = time.monotonic() - t0
+        if group.lead:
+            record["cli"] = {**host_cli.finish(card, say), **serve_cli.finish(card, say)}
+    finally:
+        for cli in (host_cli, serve_cli):
+            if cli is not None:
+                cli.stop()
+    record["seconds"] = time.monotonic() - t0
+    say(f"[hostserve] {card}: phase 3e took {record['seconds']:.1f}s (its checks "
+        f"{record['checks_seconds']:.1f}s) -- gloo ranks time-slicing one card")
+    return record
+
+
 def mesh_rank(rank: int, out_dir: str, card: str) -> int:
     """One rank of the mesh phase (see mesh_phase): joins the gloo group on
     the card; holds the mesh launch against its plain version for DDPG,
@@ -3382,7 +3754,16 @@ def mesh_rank(rank: int, out_dir: str, card: str) -> int:
     say(f"[phase] mesh phase without TP done at {time.monotonic() - t0:.1f}s")
     record["tp"] = tp_phase(group, out_dir, card, say)
     say(f"[phase] mesh phase to 3c done at {time.monotonic() - t0:.1f}s")
-    record["dataplane"] = dataplane_phase(group, out_dir, card, say)
+    # 3e's host replay CLI paths start here, beside 3d's.
+    hs_cli = (DataplaneCLI(out_dir, HS_HOST_PATHS, "hs", "3e (c)", HS_CLI_TIMEOUT_S)
+              if group.lead else None)
+    try:
+        record["dataplane"] = dataplane_phase(group, out_dir, card, say)
+        say(f"[phase] mesh phase to 3d done at {time.monotonic() - t0:.1f}s")
+        record["hostserve"] = hostserve_phase(group, out_dir, card, say, hs_cli)
+    finally:
+        if hs_cli is not None:
+            hs_cli.stop()
     say(f"[phase] mesh phase done at {time.monotonic() - t0:.1f}s")
     if group.lead:
         with open(os.path.join(out_dir, "rank0.json"), "w") as f:
@@ -3527,7 +3908,7 @@ def resume_drill(card: str) -> dict:
         def start(flags, tag):
             paths = [os.path.join(tmp, f"{tag}.{x}") for x in ("out", "err", "jsonl")]
             with open(paths[0], "w") as out, open(paths[1], "w") as err:
-                proc = subprocess.Popen(
+                proc = spawn(
                     [sys.executable, os.path.abspath(__file__), "--resume-drill", *common,
                      *flags, f"--log_path={paths[2]}"], stdout=out, stderr=err)
             return proc, paths[:2], paths[2]
@@ -3536,9 +3917,7 @@ def resume_drill(card: str) -> dict:
             try:
                 proc.wait(timeout=RESUME_WAIT_S)
             finally:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+                end_process(proc)
             out, err = (open(path).read() for path in files)
             with open(log_path) as f:
                 records = [json.loads(line) for line in f]
@@ -4232,7 +4611,7 @@ BEAT_PARITY_K = 16        # the bit-identity checks' learner chunk (the main pat
 # three times that fails.
 FREE_RUNNING_BOUND = 1e-3
 BEAT_PARITY_N = 3         # beats against the separate sequence
-FUSED_BEATS = 3           # the fused beat's main path: beats after the warmup's rollout
+FUSED_BEATS = 2           # the fused beat's main path: beats after the warmup's rollout
 ONDEVICE_ENV_STEPS = 2000
 ONDEVICE_MC_ENV_STEPS = 1500
 DEVACTOR_TIME_REPS = 5
@@ -5175,16 +5554,14 @@ class Child:
     def __init__(self, tmp: str, tag: str, mode: str, args):
         self.files = [open(os.path.join(tmp, f"{tag}.{x}"), "w+") for x in ("out", "err")]
         self.t0 = time.monotonic()
-        self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), mode, *args],
-                                     stdout=self.files[0], stderr=self.files[1])
+        self.proc = spawn([sys.executable, os.path.abspath(__file__), mode, *args],
+                          stdout=self.files[0], stderr=self.files[1])
 
     def finish(self):
         try:
             self.proc.wait(timeout=OPS_DRILL_S)
         finally:
-            if self.proc.poll() is None:
-                self.proc.kill()
-                self.proc.wait()
+            end_process(self.proc)
         ended, secs = time.time(), time.monotonic() - self.t0
         out = []
         for f in self.files:
@@ -5321,9 +5698,7 @@ def operations_phase(card: str) -> dict:
             drills = fault_drills(children)
         finally:
             for child in (*children.values(), prof_child, stall_child):
-                if child.proc.poll() is None:
-                    child.proc.kill()
-                    child.proc.wait()
+                end_process(child.proc)
     secs = time.monotonic() - t0
     log(f"[phase] 4g took {secs:.1f}s")
     return dict(traced=traced, profiled=profiled_run, drills=drills, stall=stall, seconds=secs)
@@ -5476,7 +5851,7 @@ class SupervisedPreemption:
                           f"--checkpoint_dir={self.ckdir}", "--checkpoint_every=800"]
         cmd = supervise_cmd(tmp, "single", 1, flags)
         self.out = open(os.path.join(tmp, "single", "supervisor.out"), "w+")
-        self.sup = subprocess.Popen(cmd, stdout=self.out, stderr=subprocess.STDOUT)
+        self.sup = spawn(cmd, stdout=self.out, stderr=subprocess.STDOUT)
         self.sent = threading.Event()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._watch, name="pod-4h-a", daemon=True)
@@ -5494,9 +5869,7 @@ class SupervisedPreemption:
 
     def stop(self) -> None:
         self._stop.set()
-        if self.sup.poll() is None:
-            self.sup.kill()
-            self.sup.wait()
+        end_process(self.sup)
         self._thread.join(timeout=5)
         self.out.close()
 
@@ -5630,12 +6003,10 @@ class ShardedShrink:
                  "--env-first", f"POD_FAULTS=pod:1:kill@{SHRINK_KILL_BEAT}"]
         cmd = supervise_cmd(tmp, "shrink", 2, flags, extra)
         self.out = open(os.path.join(tmp, "shrink", "supervisor.out"), "w+")
-        self.sup = subprocess.Popen(cmd, stdout=self.out, stderr=subprocess.STDOUT)
+        self.sup = spawn(cmd, stdout=self.out, stderr=subprocess.STDOUT)
 
     def stop(self) -> None:
-        if self.sup.poll() is None:
-            self.sup.kill()
-            self.sup.wait()
+        end_process(self.sup)
         self.out.close()
 
     def finish(self, card: str) -> dict:
@@ -6026,8 +6397,19 @@ def main() -> int:
         dp_cli["device_actors_d2"]["launches"]
     for name in ("superstep_d2", "ondevice_d2", "device_actors_1x2"):
         paths["fused_update"][f"dataplane_{name}"] = dp_cli[name]["launches"]
-    launches["fused_chunk"] = paths["fused_chunk"]["dataplane_device_actors_d2"]
-    update_launches = {"fused_update": paths["fused_update"]["dataplane_superstep_d2"]}
+    # This slice's paths (3e (c), a rank's count through the CLI): K2 on the
+    # host replay at D = 2 (uniform and PER) and on the served 1 x 2 grid,
+    # K1 (a) on the served D = 2 path (the mesh launch), and no K1 on the
+    # host-fed D = 2 paths (the scan route, as the JAX learner's host-fed
+    # chunk on a mesh).
+    hs_cli = mesh_record["hostserve"]["cli"]
+    for name in ("host_replay_d2", "host_per_d2", "serve_tp_1x2"):
+        paths["fused_update"][f"hostserve_{name}"] = hs_cli[name]["launches"]
+    paths["fused_chunk"]["hostserve_serve_d2"] = hs_cli["serve_d2"]["launches"]
+    for name in ("host_replay_d2", "host_per_d2"):
+        paths["fused_chunk"][f"hostserve_{name}"] = 0   # (c) held the report to K2 alone
+    launches["fused_chunk"] = paths["fused_chunk"]["hostserve_serve_d2"]
+    update_launches = {"fused_update": paths["fused_update"]["hostserve_host_replay_d2"]}
 
     # --- 5. timing at the main path's shapes ---
     timing = {
@@ -6093,4 +6475,23 @@ if __name__ == "__main__":
         sys.exit(pod_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--tp-child"]:
         sys.exit(tp_child(sys.argv[2:]))
-    sys.exit(main())
+    # The run's mark (see RUN_MARK) and this process as the subreaper of
+    # every process below it: whatever the outcome, no process that the run
+    # started outlives it, and the script exits only once each one it ends
+    # has died (a killed rank can take seconds to release the card).
+    root_mark = os.environ[RUN_MARK] = f"run-{os.getpid()}-{time.time_ns()}"
+    subreaper = become_subreaper()
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(128 + signal.SIGTERM))
+    try:
+        code = main()
+    finally:
+        ended = kill_marked(root_mark, wait_s=30.0)
+        more, left = end_descendants() if subreaper else ({}, [])
+        ended.update(more)
+        if ended:
+            print(f"chip_smoke: ended {len(ended)} processes still running at the end: "
+                  f"{ended}", file=sys.stderr, flush=True)
+        if left:
+            print(f"chip_smoke: processes {left} outlived 30 s after SIGKILL",
+                  file=sys.stderr, flush=True)
+    sys.exit(code)

@@ -37,8 +37,10 @@ request queue and this worker's response queue, each request bounded by
 serve_timeout_s. The local policy mirror stays loaded as the fallback: a
 full request queue, a timeout or a request the server could not serve
 sends the worker to its local act() for serve_fallback_s, counted in the
-pool's serve_fallbacks (serve_client_fallbacks). A stalled or dead serving
-stack costs latency, never a deadlock.
+pool's serve_fallbacks (serve_client_fallbacks). A wait that the pool's
+stop cuts short also acts locally, uncounted: JAX counts it, so a run
+whose stop lands on a request reports one fallback more there. A stalled
+or dead serving stack costs latency, never a deadlock.
 
 Workers never import torch (policy.py, trace.py and faults.py are numpy or
 stdlib), so they never touch CUDA.
@@ -255,7 +257,11 @@ def run_worker(
                 serve_degrade()   # the server shed or failed this request
                 return policy(o)[0]
             return np.asarray(action, np.float32)
-        serve_degrade()
+        if not stop_flag.value:
+            # A wait that the pool's stop cut short is the run ending, not
+            # the served path failing: its local act is not counted (the
+            # JAX worker counts it; ROADMAP Queue 3).
+            serve_degrade()
         return policy(o)[0]
 
     # --- scripted faults (faults.py; see the module docstring) ---

@@ -43,7 +43,11 @@ package's does: under model_axis > 1 every rank gathers its shards over
 its model group (parallel/learner.ShardedLearner.logical_state) and rank
 0 writes; a restore takes the logical template (state_template) and
 load_state keeps each rank's shards, so a run resumes at another
-model_axis, bit for bit. `pod_dir` is a pod node's own directory for its
+model_axis, bit for bit. The host replay (train.py --host_replay) on more
+than one rank is rank 0's alone: rank 0 writes it into replay.npz with
+the learner state, as the JAX package's process 0 does, and restores it
+on resume and rollback; the other ranks hold no replay and pass none
+(save and restore take replay=None). `pod_dir` is a pod node's own directory for its
 emergency checkpoint after a peer loss (JAX train.py's pod_ckpt_dir):
 node 0 writes into the checkpoint directory, node k into its proc<k>
 subdirectory, so a shared filesystem never has two writers on one step.

@@ -33,12 +33,14 @@ beats into one dispatch (parallel/superstep.py). They, the monolith and
 model) grid, as the JAX package runs them on a mesh (the envs shard over
 the data ranks, the rows are gathered into JAX's global order).
 
-`serve_actors` serves the host workers' mu(s) from one InferenceServer in
-the learner process (serve/); `serve_backend='jax'` (the JAX package's
-flag value) applies the policy on `device`. `front_port` /
-`front_http_port` add the network front (serve/front/). Serving and
-`host_replay` run on one rank: on more than one they come in the next
-slice of item 10's data-plane half (ROADMAP.md Queue 1).
+`serve_actors` serves the host workers' mu(s) from one InferenceServer on
+each actor host (serve/; rank 0, or each node's lead on a pod);
+`serve_backend='jax'` (the JAX package's flag value) applies the policy
+on `device`, and under model_axis > 1 over the server's model group (the
+tensor-parallel apply, serve/server.py `mesh=`). `front_port` /
+`front_http_port` add the network front (serve/front/). `host_replay`
+keeps one host replay and its prefetcher on each actor host, which sends
+each chunk to its node's ranks (train.py).
 
 `replay_sharding='sharded'` splits the device replay over the data-parallel
 ranks (replay/device.py; the JAX package's checks): the learner takes the
@@ -49,9 +51,7 @@ checkpoint.
 (data, model) grid of D x M ranks, each rank holding its shards of the
 params and Adam moments under the Megatron rule tables, with the JAX
 package's checks and messages. The learner takes the scan route (K2
-under fused_update on each rank's shards). What runs on one rank only
-(serving, the host replay) is refused under model_axis > 1 as on D > 1
-ranks.
+under fused_update on each rank's shards).
 
 `sync_ship_background`, `pod_collective_timeout_s` and
 `pod_startup_grace_s` are the JAX package's pod fields, with its defaults
@@ -532,16 +532,6 @@ class DDPGConfig:
             args["faults"] = ";".join(filter(None, [args["faults"], legacy]))
         return cls(**args)
 
-    def _many_ranks(self) -> bool:
-        """More than one rank is asked for: data_axis > 1 or model_axis > 1."""
-        return self.data_axis not in (-1, 1) or self.model_axis > 1
-
-    def _ranks_knob(self) -> str:
-        """The field that asks for more than one rank, as `name=value`."""
-        if self.model_axis > 1:
-            return f"model_axis={self.model_axis}"
-        return f"data_axis={self.data_axis}"
-
     def _check_model_axis(self) -> None:
         """The JAX package's tensor-parallel checks and messages (its
         config.py)."""
@@ -763,13 +753,6 @@ class DDPGConfig:
                     "serve_actors is incompatible with strict_sync: batch "
                     "composition and dispatch timing are wall-clock-driven, "
                     "which breaks the bit-identical-two-runs contract"
-                )
-            if self._many_ranks():
-                raise ValueError(
-                    f"serve_actors=True with {self._ranks_knob()} is not in this "
-                    "slice of the PyTorch port: serving beside a data-parallel learner "
-                    "comes with the next slice of ROADMAP.md Queue 1 item 10 (its "
-                    "data-plane half); serve on one rank"
                 )
         if self.front_port < 0 or self.front_port > 65535:
             raise ValueError("front_port must be in [0, 65535] (0 = off)")
@@ -1037,13 +1020,6 @@ class DDPGConfig:
             raise ValueError("train_every must be >= 1")
         if self.prefetch_depth < 1:
             raise ValueError("prefetch_depth must be >= 1")
-        if self.host_replay and self._many_ranks():
-            raise ValueError(
-                f"host_replay=True with {self._ranks_knob()} is not in this "
-                "slice of the PyTorch port: a host replay a rank under the "
-                "lockstep loop comes with the next slice of ROADMAP.md Queue 1 item "
-                "10 (its data-plane half); run the host replay on one rank"
-            )
         # The JAX package's checks of the breaker, the fault plan and the
         # guardrails (its config.py).
         self.fault_plan()

@@ -127,6 +127,13 @@ logical_state() gathers the shards over the model group (a collective),
 load_state() takes a logical state and keeps this rank's shards, and
 state_template() is the logical state's shape (meta tensors) for
 checkpoint.restore.
+Host-fed chunks (put_chunk, run_chunk_async) on D > 1 ranks or a grid
+come from rank 0, the actor host, whose one host replay draws the global
+[K, B * D] chunk: share_chunk broadcasts it whole and each rank takes its
+data index's columns on the scan route (K2 under fused_update), as the
+JAX learner's scan over a P(None, 'data') chunk; the td comes back
+global as above, so rank 0 updates its host PER's priorities in JAX's
+flat order.
 actor_params_to_host() returns the logical actor, gathered at the end of
 every chunk (so only rank 0 need call it). mode='explicit' (the JAX
 learner's shard_map mode) is data-parallel only: the port's data-
@@ -154,6 +161,7 @@ from distributed_ddpg_tpu_torch.learner import (
 from distributed_ddpg_tpu_torch.ops import fused_chunk
 from distributed_ddpg_tpu_torch.parallel.mesh import (
     DataGroup,
+    _broadcast,
     all_reduce_mean_,
     all_reduce_sum_,
     make_grid,
@@ -875,6 +883,34 @@ class ShardedLearner:
             ready.record(self._copy_stream)
         self._chunk_pool.commit(buf, ready)
         return HostChunk(rows.view(k, b, w), ready)
+
+    def share_chunk(self, device_chunk: Optional["HostChunk"]) -> "HostChunk":
+        """Rank 0's host-fed chunk on every rank (the host replay on D > 1
+        ranks or a grid, train.py): the actor host's one replay and its
+        prefetcher feed rank 0, which broadcasts the whole [K, B * D, W]
+        chunk over the group on the data plane once its copy has landed;
+        every rank then trains on its data index's columns
+        (run_chunk_async), the columns JAX's put_chunk places on that
+        device (P(None, 'data')), and the ranks of a model group on the
+        same ones. Every rank sees every row, so the guarded screen is the
+        global minibatch's. A collective: every rank calls it at the same
+        point, the other ranks with None. On one rank the chunk itself."""
+        group = self.group
+        if group is None or group.world_size == 1:
+            return device_chunk
+        if group.lead:
+            packed, ready = device_chunk
+            if ready is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(ready)
+                packed.record_stream(stream)
+        else:
+            packed = torch.empty(
+                (self.chunk_size, self.global_batch, packed_width(self.obs_dim, self.act_dim)),
+                dtype=torch.float32, device=self.device)
+        with trace.span("chunk_share"):
+            _broadcast(packed, group)
+        return HostChunk(packed, None)
 
     def run_chunk_async(self, device_chunk: "HostChunk") -> StepOutput:
         """run_chunk on a chunk put_chunk has placed (from the prefetch

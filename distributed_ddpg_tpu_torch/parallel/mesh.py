@@ -294,6 +294,31 @@ def make_grid(group: Optional[DataGroup], model_axis: int,
     return grid
 
 
+def serve_group(group: Optional[DataGroup], timeout_s: float) -> Optional[DataGroup]:
+    """The tensor-parallel serve apply's group (serve/server.py `mesh=`):
+    this rank's model group (the same ranks, the model index 0 rank first,
+    the source of its broadcasts) as a gloo group of its own, made for the
+    apply alone, so that its collectives (on the server's thread and the
+    followers') never interleave with the learner's on the model group;
+    each of them raises after `timeout_s` seconds without its peers. A
+    collective: every rank makes every model group's, in one order
+    (torch.distributed.new_group's rule). None without a grid."""
+    if group is None or group.model_axis == 1:
+        return None
+    import torch.distributed as dist
+
+    timeout = datetime.timedelta(seconds=float(timeout_s))
+    m, d = group.model_axis, group.world_size // group.model_axis
+    mine = None
+    for i in range(d):
+        ranks = tuple(i * m + j for j in range(m))
+        pg = dist.new_group(list(ranks), timeout=timeout, backend="gloo")
+        if group.rank in ranks:
+            mine = DataGroup(rank=ranks.index(group.rank), world_size=m, device=group.device,
+                             ctrl=pg, pg=pg, ranks=ranks)
+    return mine
+
+
 def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
 

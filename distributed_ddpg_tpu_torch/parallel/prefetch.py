@@ -8,7 +8,10 @@ them into one [K, B, ...] chunk and hands it to `put_chunk`
 card on a side stream, so the copy overlaps the running chunk). `depth`
 bounds the queue of chunks ready for the learner: 2 is double buffering.
 The sampled indices stay on the host and ride along for PER's priority
-updates after the chunk's td comes back.
+updates after the chunk's td comes back. On D > 1 ranks (or a grid) one
+prefetcher runs, rank 0's, drawing the global batch (B * D rows a step,
+learner.global_batch); the driver sends each chunk to the other ranks
+(ShardedLearner.share_chunk).
 
 With a transfer scheduler (transfer/scheduler.py) the put is submitted as
 a `prefetch`-class item, so its copy shares the scheduler's byte-fair

@@ -10,8 +10,10 @@ processes (actor workers through `ServeFront`, under config.serve_actors).
   - batcher.Batcher: deadline dispatch, bounded queue with typed
     `ServeOverload` backpressure, flush on shutdown.
   - server.InferenceServer: params and compute (the numpy parity oracle,
-    the device apply), the transfer scheduler's `serve` class, the
-    `serve_*` counters (metrics.ServeStats).
+    the device apply, the tensor-parallel apply over a model group with
+    `mesh=` and its `ServeFollower` on the group's other ranks), the
+    transfer scheduler's `serve` class, the `serve_*` counters
+    (metrics.ServeStats).
   - client.ServeClient / client.ServeFront: the blocking local handle and
     the served actors' mp-queue front.
   - front/: the network front (framed TCP and HTTP ingress, versioned
@@ -35,7 +37,11 @@ from distributed_ddpg_tpu_torch.serve.front import (
     FrontServer,
     SnapshotStore,
 )
-from distributed_ddpg_tpu_torch.serve.server import InferenceServer
+from distributed_ddpg_tpu_torch.serve.server import (
+    InferenceServer,
+    ServeFollower,
+    ServeGroupLost,
+)
 
 __all__ = [
     "Batcher",
@@ -46,7 +52,9 @@ __all__ = [
     "ServeClient",
     "ServeClosed",
     "ServeDispatchError",
+    "ServeFollower",
     "ServeFront",
+    "ServeGroupLost",
     "ServeOverload",
     "ServeTimeout",
     "SnapshotStore",

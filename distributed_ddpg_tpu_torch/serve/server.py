@@ -43,11 +43,26 @@ soft clamp), and `sample()` squashes and samples each request with a key
 of its own, sha256(seed, tenant, request_id), drawn with numpy: the same
 request samples the same action on any backend and in any process.
 
-Not here: the tensor-parallel apply (`mesh=`): in the port a model group
-is several processes, so it is serving on more than one rank (the next
-slice of ROADMAP.md Queue 1 item 10, its data-plane half), and the JAX
-package's program_specs hook of
-its program-contract analyzer (item 13).
+The tensor-parallel apply (`mesh=`, the JAX server's mesh under
+model_axis > 1): in the port a model group is M processes, so `mesh` is a
+group of the M ranks of the server's model group (parallel/mesh.serve_group:
+a gloo group made for the apply alone, every collective under its
+deadline), the server at its index 0 and a `ServeFollower` thread on each
+other rank. Each rank keeps only its shards of the policy, cut by the
+learner's rule table (parallel/partition.net_pspec, shard_tree). A refresh
+broadcasts the flat params from the server and every rank keeps its
+shards; a dispatch broadcasts the padded (max_batch, obs_dim) block and
+every rank runs its shards' chain (models/mlp._chain with the group's
+NetTP), the actions coming back whole on every rank. The JAX server
+replicates the apply over the mesh's data axis too; here only the
+server's model group computes it (the same actions). A collective that
+fails (a lost follower, a deadline passed) fails that dispatch with
+ServeGroupLost, so the workers take their local act() (serve_fallbacks),
+and every later one at once: the group is never used again, and the
+apply never gives way to a single-device one.
+
+Not here: the JAX package's program_specs hook of its program-contract
+analyzer (item 13).
 """
 
 from __future__ import annotations
@@ -93,14 +108,19 @@ class InferenceServer:
     ):
         if backend not in ("numpy", "jax"):
             raise ValueError(f"serve backend must be 'numpy' or 'jax', got {backend!r}")
-        if mesh is not None:
+        if mesh is not None and backend != "jax":
+            # The JAX server's message.
             raise ValueError(
-                "mesh= (the tensor-parallel serve apply) is not in this slice of the "
-                "PyTorch port: it shards the apply over a model group of ranks, serving "
-                "on more than one rank, which comes with the next slice of ROADMAP.md "
-                "Queue 1 item 10 (its data-plane half)"
+                "mesh= shards the jitted serve apply; the numpy backend "
+                "is the single-threaded bit-parity oracle — use "
+                "backend='jax' or drop the mesh"
             )
+        if mesh is not None and mesh.rank != 0:
+            raise ValueError("the server is its mesh's rank 0; the other ranks follow "
+                             "(ServeFollower)")
         self.backend = backend
+        self._mesh = mesh
+        self._tp = None
         self.layout = layout
         self.obs_dim = int(layout[0][0][0])  # the first layer's w is (obs, hidden)
         self.head_dim = int(layout[-1][0][1])
@@ -150,8 +170,15 @@ class InferenceServer:
 
     def close(self, timeout: float = 30.0) -> None:
         """Flush on shutdown: the batcher drains every accepted request
-        before its thread exits."""
+        before its thread exits; then the followers of a tensor-parallel
+        apply are told to stop."""
         self.batcher.close(timeout=timeout)
+        if self._tp is not None:
+            with self._param_lock:
+                try:
+                    self._tp.step(_TPApply.STOP)
+                except ServeGroupLost:
+                    pass   # the followers are gone or leave at their deadline
 
     def client(self, timeout_s: float = 1.0):
         from distributed_ddpg_tpu_torch.serve.client import ServeClient
@@ -201,7 +228,8 @@ class InferenceServer:
                 "serve", fn, nbytes=nbytes, label=f"serve_batch_{obs.shape[0]}",
             ).result(timeout=_SCHED_TIMEOUT_S)
 
-        if self.device is None:
+        if self.device is None or self._tp is not None:
+            # The tensor-parallel apply's exchanges run inside the item.
             return submit(lambda: self._compute(obs))
         # The item enqueues; this thread waits on the apply's event.
         with self._param_lock:
@@ -257,6 +285,14 @@ class InferenceServer:
         dev = require_device(device)
         self._torch = torch
         self.device = dev
+        if self._mesh is not None:
+            self._tp = _TPApply(self.layout, self._mesh, dev, self.max_batch,
+                                self._policy.scale, self._policy.offset, self.sac,
+                                self.log_std_min, self.log_std_max)
+            # The followers' first shards, then the warm apply, every rank's.
+            self._ship_device_params(np.zeros(layout_size(self.layout), np.float32))
+            self._compute_device(np.zeros((1, self.obs_dim), np.float32))
+            return
         on_card = dev.type == "cuda"
         b, out_dim = self.max_batch, self.head_dim
         # Host buffers are pinned on the card, so every copy is an
@@ -303,25 +339,31 @@ class InferenceServer:
     def _ship_device_params(self, flat: np.ndarray) -> None:
         """Copy new params into the resident tensors (caller holds the
         param lock, so no apply is running: the last one waited for its
-        event)."""
+        event); under `mesh` every rank of the group keeps its shards."""
+        if self._tp is not None:
+            self._tp.flat.numpy()[:] = flat
+            self._tp.step(_TPApply.PARAMS)
+            return
         self._flat_host.numpy()[:] = flat
         with self._on_serve_stream():
             self._flat_dev.copy_(self._flat_host, non_blocking=self._stream is not None)
             self._wait_done()
 
     def _forward(self, obs):
-        from distributed_ddpg_tpu_torch.models.mlp import actor_apply, actor_gaussian_apply
-
-        if self.sac:
-            mean, log_std = actor_gaussian_apply(self._params, obs, self.log_std_min,
-                                                 self.log_std_max)
-            return self._torch.cat([mean, log_std], dim=-1)
-        return actor_apply(self._params, obs, self._scale, self._offset)
+        return policy_forward(self._params, obs, self._scale, self._offset, self.sac,
+                              self.log_std_min, self.log_std_max)
 
     def _compute_device(self, obs: np.ndarray) -> np.ndarray:
         """Pad the batch to the one (max_batch, obs_dim) shape (the padded
         rows are zeros; their outputs are computed and sliced away), apply,
         and return the first n rows."""
+        if self._tp is not None:
+            n = obs.shape[0]
+            padded = self._tp.obs.numpy()
+            padded[:n] = obs
+            padded[n:] = 0.0
+            _, out = self._tp.step(_TPApply.APPLY)
+            return out[:n].cpu().numpy()
         self._enqueue_device(obs)
         return self._collect_device(obs.shape[0])
 
@@ -347,9 +389,179 @@ class InferenceServer:
             self._done.synchronize()
         return self._out_host.numpy()[:n].copy()
 
+    @property
+    def shard_bytes(self) -> int:
+        """Bytes of policy params this rank holds on its device: its shards
+        under `mesh`, else the whole policy (0 on the numpy backend)."""
+        if self._tp is not None:
+            return self._tp.shard_bytes
+        return 4 * layout_size(self.layout) if self.device is not None else 0
+
     # --- observability ---
 
     def snapshot(self) -> dict:
         """The serve_* family (metrics.ServeStats) with the live queue
         depth as a gauge."""
         return self.stats.snapshot(queue_depth=self.batcher.depth())
+
+
+class ServeGroupLost(RuntimeError):
+    """A collective of the tensor-parallel serve apply failed (a lost
+    follower or server, or its deadline passed): the dispatch fails, and
+    so does every later one, at once (the group is not used again). The
+    original error rides along as __cause__."""
+
+
+def policy_forward(params, obs, scale, offset, sac: bool, log_std_min: float,
+                   log_std_max: float, tp=None):
+    """The served policy's batch apply: actions (the actor's tanh onto the
+    box), or SAC's [mean | log_std] head rows; on a rank's shards with `tp`
+    (a models/mlp.NetTP), the output whole on every rank."""
+    import torch
+
+    from distributed_ddpg_tpu_torch.models.mlp import actor_apply, actor_gaussian_apply
+
+    with torch.no_grad():
+        if sac:
+            mean, log_std = actor_gaussian_apply(params, obs, log_std_min, log_std_max, tp=tp)
+            return torch.cat([mean, log_std], dim=-1)
+        return actor_apply(params, obs, scale, offset, tp=tp)
+
+
+class _TPApply:
+    """One rank's part of the tensor-parallel serve apply over `mesh` (a
+    parallel/mesh.DataGroup of the model group's ranks, the server at its
+    index 0): its shards of the policy on `device` and the buffers the
+    server broadcasts. `step` is one exchange, the same on every rank: the
+    server's op (STOP, PARAMS or APPLY), then for PARAMS the flat params
+    (every rank keeps its shards) and for APPLY the padded observation
+    block (every rank runs its shards' chain; the output is whole)."""
+
+    STOP, PARAMS, APPLY = 0, 1, 2
+
+    def __init__(self, layout, mesh, device, max_batch: int, scale, offset, sac: bool,
+                 log_std_min: float, log_std_max: float):
+        import torch
+
+        from distributed_ddpg_tpu_torch.models.mlp import NetTP
+        from distributed_ddpg_tpu_torch.parallel.partition import layer_kinds, net_pspec
+
+        self.layout, self.mesh, self.device = layout, mesh, device
+        shapes = tuple({"w": torch.empty(w, device="meta"), "b": torch.empty(b, device="meta")}
+                       for w, b in layout)
+        self.specs = net_pspec(shapes, mesh.world_size)
+        self.tp = NetTP(layer_kinds(self.specs), mesh)
+        self.op = torch.zeros(1, dtype=torch.int64)
+        self.flat = torch.zeros(layout_size(layout), dtype=torch.float32)
+        self.obs = torch.zeros((int(max_batch), int(layout[0][0][0])), dtype=torch.float32)
+        self._scale = torch.as_tensor(scale, device=device)
+        self._offset = torch.as_tensor(offset, device=device)
+        self._head = (bool(sac), float(log_std_min), float(log_std_max))
+        self.params = None
+        self.shard_bytes = 0
+        self._broken: Optional[BaseException] = None
+        # On the card the apply runs on a stream of its own, beside the
+        # rank's learner chunks.
+        self._stream = (torch.cuda.Stream(device=device, priority=-1)
+                        if device.type == "cuda" else None)
+
+    def step(self, op: Optional[int] = None):
+        """One exchange; the server passes its op, a follower None.
+        Returns (op, output): the whole [max_batch, out] output for APPLY,
+        else None."""
+        import torch
+
+        from distributed_ddpg_tpu_torch.parallel.mesh import _broadcast
+
+        if self._broken is not None:
+            raise ServeGroupLost("the tensor-parallel serve group failed earlier") \
+                from self._broken
+        try:
+            if op is not None:
+                self.op[0] = op
+            _broadcast(self.op, self.mesh, control=True)
+            op = int(self.op[0])
+            if op == self.PARAMS:
+                _broadcast(self.flat, self.mesh, control=True)
+                self._load()
+            elif op == self.APPLY:
+                _broadcast(self.obs, self.mesh, control=True)
+                ctx = (torch.cuda.stream(self._stream) if self._stream is not None
+                       else contextlib.nullcontext())
+                with ctx:
+                    out = policy_forward(self.params, self.obs.to(self.device), self._scale,
+                                         self._offset, *self._head, tp=self.tp)
+                    if self._stream is not None:
+                        self._stream.synchronize()
+                return op, out
+            return op, None
+        except Exception as e:
+            self._broken = e
+            raise ServeGroupLost(f"tensor-parallel serve exchange failed on model rank "
+                                 f"{self.mesh.rank} of {self.mesh.world_size}: {e!r}") from e
+
+    def _load(self) -> None:
+        """This rank's shards of the flat params, on the device."""
+        from distributed_ddpg_tpu_torch.parallel.partition import shard_tree
+
+        flat, tree, i = self.flat.numpy(), [], 0
+        for w_shape, b_shape in self.layout:
+            nw, nb = int(np.prod(w_shape)), int(np.prod(b_shape))
+            tree.append({"w": flat[i:i + nw].reshape(w_shape),
+                         "b": flat[i + nw:i + nw + nb].reshape(b_shape)})
+            i += nw + nb
+        shards = shard_tree(tuple(tree), self.specs, self.mesh.rank, self.mesh.world_size)
+        self.params = tuple({k: self._torch_of(v) for k, v in layer.items()} for layer in shards)
+        self.shard_bytes = sum(t.numel() * 4 for layer in self.params for t in layer.values())
+
+    def _torch_of(self, a: np.ndarray):
+        import torch
+
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
+
+
+class ServeFollower:
+    """A model rank's side of the tensor-parallel serve apply (the module's
+    docstring): a thread that takes part in every exchange the server on
+    the group's rank 0 starts, holding this rank's shards, until the
+    server's STOP or a failed exchange (`error`)."""
+
+    def __init__(self, layout, action_scale, action_offset=0.0, *, mesh, max_batch: int = 32,
+                 sac: bool = False, log_std_min: float = -5.0, log_std_max: float = 2.0,
+                 device: str = "cuda"):
+        from distributed_ddpg_tpu_torch.actors.policy import NumpyPolicy
+        from distributed_ddpg_tpu_torch.devices import require_device
+
+        if mesh.rank == 0:
+            raise ValueError("rank 0 of the serve mesh is the server")
+        policy = NumpyPolicy(layout, action_scale, action_offset)   # the box, as the server's
+        self._tp = _TPApply(layout, mesh, require_device(device), max_batch, policy.scale,
+                            policy.offset, sac, log_std_min, log_std_max)
+        self.applies = 0
+        self.error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, daemon=True, name="serve_follower")
+
+    def start(self) -> "ServeFollower":
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while True:
+            try:
+                op, _ = self._tp.step()
+            except ServeGroupLost as e:
+                self.error = e
+                return
+            if op == _TPApply.STOP:
+                return
+            if op == _TPApply.APPLY:
+                self.applies += 1
+
+    @property
+    def shard_bytes(self) -> int:
+        return self._tp.shard_bytes
+
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """Wait for the thread's end; False if it is still running."""
+        self._thread.join(timeout)
+        return not self._thread.is_alive()

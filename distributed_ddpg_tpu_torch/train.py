@@ -193,7 +193,8 @@ rank with their actor slots):
   numeric_failed.
 
 The host replay (--host_replay=true; the JAX trainer's path for a replay
-larger than the card's memory), on one rank:
+larger than the card's memory), on one rank, on D ranks and on a grid
+(one node; a pod refuses it, check_pod_config):
 
 - the replay is make_replay's (replay/uniform.py, or with PER
   replay/prioritized.py over the sum tree, whose C++ core
@@ -214,7 +215,18 @@ larger than the card's memory), on one rank:
   and beta anneals, under the lock; chunks the prefetcher drew meanwhile
   keep the priorities they were drawn with, as in the JAX trainer;
 - checkpoints save the host replay's state_dict; the prefetcher stops on
-  every way out.
+  every way out;
+- on more than one rank the one replay and its prefetcher are rank 0's
+  (the actor host's: a replay a rank would fork, its draws racing the
+  driver's inserts). Each ingest shares only rank 0's row count, the
+  warmup reads rank 0's fill (shared), and each dispatch sends rank 0's
+  whole [K, B * D, W] chunk to every rank (ShardedLearner.share_chunk),
+  which trains on its data index's columns on the scan route (K2 under
+  fused_update), as JAX places the chunk P(None, 'data'); the td comes
+  back global, and rank 0 writes it into its sum tree in JAX's order. The
+  C51 auto support is rank 0's replay's, shared; checkpoints, the resume
+  and a rollback carry the replay on rank 0 alone (the other ranks hold
+  none).
 
 Lockstep mode (--strict_sync=true, with both ratio gates): the actors run
 inline on the driver's thread (actors/sync_pool.py), the transfer
@@ -248,7 +260,8 @@ and the whole run's fused_beats, fused_supersteps and
 fused_superstep_beats.
 
 --serve_actors=true serves the host workers' mu(s) from one
-InferenceServer in this process (JAX :1095-1220): the server refreshes
+InferenceServer on each actor host (JAX :1095-1220: rank 0, or each
+node's lead on a pod, for its own workers): the server refreshes
 from the pool's broadcast buffer, its batch applies ride the transfer
 scheduler's `serve` class, a ServeFront thread moves the workers'
 requests into its batcher, and --serve_backend=jax applies the policy on
@@ -258,7 +271,12 @@ start. --front_port / --front_http_port add the network front
 "live-0" at the start. The serve_* fields (and front_* and tenant_*) go
 into every record, and one snapshot into the final record and the
 summary. Teardown: the workers, then the front, then ServeFront, then the
-server flushes (JAX :2582-2595). One rank.
+server flushes (JAX :2582-2595). With --serve_backend=jax and
+--model_axis=M > 1 the apply is tensor-parallel over the server's model
+group (JAX's mesh=learner.mesh, :1136-1138): every rank makes the serve
+groups right after the learner (parallel/mesh.serve_group), and the
+group's other ranks run a ServeFollower from the resume to the teardown
+(serve/server.py). A pod refuses that apply (check_pod_config).
 
 The operations layer (the JAX trainer's train_jax and its telemetry):
 
@@ -522,6 +540,63 @@ def elect_and_resume(config: DDPGConfig, learner, replay, process_index: int, po
     return step, env_steps, meta.get("v_bounds")
 
 
+def host_per_update(replay, lock, indices: np.ndarray, td_errors, beta: float) -> None:
+    """Host PER after a chunk (JAX train.py:2154-2163, _host_per_update):
+    the chunk's td ([K, B * D], every rank's columns, gathered) into the sum
+    tree at the drawn indices in flat K x (B * D) order, then beta, under
+    `lock`, the one the prefetcher draws under. Chunks drawn meanwhile keep
+    the priorities they were drawn with."""
+    tds = td_errors.cpu().numpy().reshape(-1)
+    with lock:
+        replay.update_priorities(indices.reshape(-1), tds)
+        replay.set_beta(beta)
+
+
+# The tensor-parallel serve apply's collectives (parallel/mesh.serve_group):
+# a lost follower's socket fails at once; a live one that stops answering
+# fails the dispatch after this many seconds.
+SERVE_GROUP_TIMEOUT_S = 60.0
+
+
+def check_pod_config(config: DDPGConfig) -> None:
+    """What the JAX trainer cannot run on a pod of more than one node,
+    refused before the learner is built. The C51 auto support with the host
+    replay is the JAX trainer's own refusal (its train.py:597-615, its
+    message). The other two fail in the JAX package at run time, as its
+    two-process CPU harness shows (tests/multihost_child.py's bootstrap):
+    its host replay is each process's own, and put_chunk's
+    jax.device_put (distributed_ddpg_tpu/parallel/learner.py:906) asserts
+    that the chunk is the same on every process; its tensor-parallel serve
+    apply over mesh=learner.mesh (its train.py:1136-1138) is a program
+    over every process's devices that each process's server dispatches
+    alone, and its first dispatch aborts the other process (a gloo
+    collective mismatch). The port refuses them by name."""
+    if config.host_replay and config.distributional and config.v_support_auto:
+        raise ValueError(
+            "v_min/v_max=auto with --host_replay is not supported "
+            "multi-process: per-process replay statistics would fork the "
+            "replicas' compiled programs. Use the device replay path "
+            "(default) or concrete v_min/v_max."
+        )
+    if config.host_replay:
+        raise ValueError(
+            "host_replay=True on a pod of more than one node: the JAX trainer cannot run "
+            "it. Each process's host replay draws its own chunk, and its put_chunk's "
+            "jax.device_put (distributed_ddpg_tpu/parallel/learner.py:906) asserts the "
+            "chunk is the same on every process (AssertionError: ... passed to device_put "
+            "is not the same on each process). On a pod use the device replay (the "
+            "default).")
+    if config.serve_actors and config.serve_backend == "jax" and config.model_axis > 1:
+        raise ValueError(
+            f"serve_actors=True with serve_backend='jax' and model_axis={config.model_axis} "
+            "on a pod of more than one node: the JAX trainer cannot serve there. Its "
+            "tensor-parallel serve apply over mesh=learner.mesh "
+            "(distributed_ddpg_tpu/train.py:1136-1138) is one program over every "
+            "process's devices, which each process's server dispatches alone, and the "
+            "first dispatch aborts the other process (gloo: a collective mismatch). On a "
+            "pod serve with serve_backend='numpy' or model_axis=1.")
+
+
 def pod_env_steps(offset: int, received) -> int:
     """A pod's global env-step count: the resumed checkpoint's env steps
     (`offset`, a global count) once, plus every node's pool's (`received`,
@@ -717,6 +792,7 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
     from distributed_ddpg_tpu_torch.parallel.prefetch import ChunkPrefetcher
     from distributed_ddpg_tpu_torch.parallel.superstep import FusedSuperstep, per_beat_betas
     from distributed_ddpg_tpu_torch.replay.device import DevicePrioritizedReplay, DeviceReplay
+    from distributed_ddpg_tpu_torch.serve import ServeFollower
     from distributed_ddpg_tpu_torch.transfer import TransferScheduler
 
     lead = group is None or group.lead
@@ -725,6 +801,9 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
     is_multi = group is not None and bool(getattr(group, "is_pod", False))
     actor_host = group is None or (group.node_lead if is_multi else group.lead)
     proc_idx = group.process_index if is_multi else 0
+    if is_multi:
+        # Every node refuses the same config at once, before the bootstrap.
+        check_pod_config(config)
     env = make(config.env_id, seed=config.seed)
     spec = spec_of(env)
     chunk = resolve_learner_chunk(config)
@@ -768,24 +847,18 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
             else:
                 multihost.end_grant()
 
+    host_replay, strict = config.host_replay, config.strict_sync
     learner = ShardedLearner(
         config, spec.obs_dim, spec.act_dim, spec.action_scale,
         spec.action_offset, chunk_size=chunk, group=group,
     )
     _beat()   # the learner's construction survived
     device = learner.device
-    host_replay, strict = config.host_replay, config.strict_sync
-    if host_replay and learner.data_size > 1:
-        raise ValueError(
-            f"host_replay=True on {learner.data_size} ranks is not in this slice of the "
-            "PyTorch port: a host replay a rank under the lockstep driver comes with "
-            "the next slice of ROADMAP.md Queue 1 item 10 (its data-plane half); run the "
-            "host replay on one rank")
-    if config.serve_actors and learner.data_size > 1:
-        raise ValueError(
-            f"serve_actors=True on {learner.data_size} ranks is not in this slice of the "
-            "PyTorch port: serving beside a data-parallel learner comes with the next "
-            "slice of ROADMAP.md Queue 1 item 10 (its data-plane half); serve on one rank")
+    # The tensor-parallel serve apply's group (serve/server.py `mesh=`):
+    # made on every rank, in one order, before anything serves.
+    serve_mesh = (mesh.serve_group(learner.group, SERVE_GROUP_TIMEOUT_S)
+                  if config.serve_actors and config.serve_backend == "jax"
+                  and learner.model_axis > 1 else None)
     if (config.replay_sharding == "sharded" and config.distributional
             and config.v_support_auto and learner.data_size > 1):
         # JAX train.py:616-631 (its n_proc > 1: a rank of the port is a
@@ -843,7 +916,9 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
     )
     try:
         if host_replay:
-            replay = make_replay(config, spec.obs_dim, spec.act_dim)
+            # One host replay, on the actor host (rank 0): the other ranks
+            # get its chunks (ShardedLearner.share_chunk) and hold none.
+            replay = make_replay(config, spec.obs_dim, spec.act_dim) if actor_host else None
         elif config.prioritized:
             replay = DevicePrioritizedReplay(
                 config.replay_capacity, spec.obs_dim, spec.act_dim, device,
@@ -946,7 +1021,7 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         if not host_replay:
             return {}
         tree = {}
-        if config.prioritized:
+        if config.prioritized and replay is not None:
             tree = dict(sum_tree="native" if isinstance(replay._tree, NativeSumTree)
                         else "numpy")
         return dict(host_replay=True, prefetch_depth=config.prefetch_depth,
@@ -1076,7 +1151,7 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         return out
 
     pool = None
-    serve_server = serve_front = front_server = None
+    serve_server = serve_front = front_server = serve_follower = None
 
     def received() -> int:
         """Env steps this rank's host pool delivered (none without one)."""
@@ -1204,6 +1279,12 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
             for packed, wid in blocks:
                 insert(packed, source=wid)
                 moved += len(packed)
+        elif host_replay:
+            # Rank 0's host replay takes the rows; the other ranks learn
+            # only how many (their stall clocks and env rates).
+            if rows is not None:
+                insert(rows)
+            moved = int(mesh.share([0 if rows is None else len(rows)], group)[0])
         else:
             if not is_multi:
                 # One node: rank 0's rows on every rank. A pod's rows leave
@@ -1228,6 +1309,13 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         else:
             replay.sync_ship(force=force_ship)
         return moved
+
+    def replay_fill() -> int:
+        """The replay's fill on every rank: the host replay's is rank 0's,
+        shared."""
+        if not host_replay:
+            return len(replay)
+        return int(mesh.share([len(replay) if replay is not None else 0], group)[0])
 
     def evaluate(at_step: int) -> float:
         t0 = time.monotonic()
@@ -1507,13 +1595,24 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                                                             env_steps_offset=env_offset)
             if config.serve_actors:
                 serve_server, serve_front, front_server = start_serving(
-                    config, spec, pool, transfer_sched, learner.actor_params_to_host())
+                    config, spec, pool, transfer_sched, learner.actor_params_to_host(),
+                    device=device, mesh=serve_mesh)
             pool.start(learner.actor_params_to_host())
             _beat()   # the first params d2h survived
             obs_server = start_exporter(config, log, preempt, group)
             if serve_server is not None:
                 # /healthz reads the serve queue as of the scrape.
                 health.get().register_probe("serve_overloaded", serve_server.overloaded)
+        elif serve_mesh is not None and 0 in serve_mesh.ranks:
+            # The other ranks of the server's model group: their side of the
+            # tensor-parallel apply, until the server stops it.
+            serve_follower = ServeFollower(
+                param_layout(spec.obs_dim, actor_head_dim(spec.act_dim, config.sac),
+                             tuple(config.actor_hidden)),
+                spec.action_scale, spec.action_offset, mesh=serve_mesh,
+                max_batch=config.serve_max_batch, sac=config.sac,
+                log_std_min=config.sac_log_std_min, log_std_max=config.sac_log_std_max,
+                device=device).start()
         if device_actors:
             # After the resume, so the uniform warmup nets out the restored
             # env steps (JAX :1011-1041). The pool reads the learner's live
@@ -1555,7 +1654,7 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
 
         last_monitor_t = time.monotonic()
         warm_it = 0
-        while len(replay) < min_fill and not (is_multi and preempt.is_set()):
+        while replay_fill() < min_fill and not (is_multi and preempt.is_set()):
             if is_multi:
                 # The pod's lockstep warmup (JAX :2254-2290): the test above
                 # reads the replicated fill, so every rank takes the same
@@ -1576,7 +1675,7 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
             else:
                 check_actor_stall("warmup")
                 time.sleep(0.01)
-        trace.instant("warmup_done", buffer_fill=len(replay))
+        trace.instant("warmup_done", buffer_fill=replay_fill())
         if is_multi and fault_plan:
             # Armed at the warmup's end, a point every node reaches at the
             # same beat, so `@K` counts steady-state beats (JAX :2295-2302).
@@ -1596,9 +1695,9 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
             n_env = env_steps()
             log.log("support", n_env, reason="warmup", **support_fields())
 
-        if host_replay and not stopping:
+        if replay is not None and host_replay and not stopping:
             # After the warmup (and the support's sizing): the prefetcher
-            # draws from the filled replay, ahead of the learner.
+            # draws from the filled replay, ahead of the learner, on rank 0.
             prefetch = ChunkPrefetcher(
                 replay, learner.put_chunk, learner.global_batch, chunk,
                 depth=config.prefetch_depth, lock=replay_lock, scheduler=transfer_sched,
@@ -1655,12 +1754,16 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                 # rank before this rank's next collective.
                 wait_beat()
                 if host_replay:
-                    t_wait = time.perf_counter()
-                    with phases.phase("sample_wait"):
-                        device_chunk, indices = prefetch.next()
-                    sample_wait_s += time.perf_counter() - t_wait
+                    device_chunk = indices = None
+                    if prefetch is not None:
+                        t_wait = time.perf_counter()
+                        with phases.phase("sample_wait"):
+                            device_chunk, indices = prefetch.next()
+                        sample_wait_s += time.perf_counter() - t_wait
                     with phases.phase("dispatch"):
-                        out = learner.run_chunk_async(device_chunk)
+                        # On more than one rank rank 0's chunk goes to every
+                        # rank (the JAX learner's P(None, 'data') placement).
+                        out = learner.run_chunk_async(learner.share_chunk(device_chunk))
                 elif megastep is not None:
                     # The fused beat: this chunk, the rollout with its updated
                     # params and their scatter in one dispatch (B beats a
@@ -1752,15 +1855,14 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
                 if guard_on and megastep is None and devactor_step():
                     n_env = env_steps()
                 if host_replay and config.prioritized:
-                    # Host PER (JAX :2152-2160): the chunk's td into the sum
+                    # Host PER (JAX :2152-2160): the chunk's global td (every
+                    # rank's columns, JAX's flat order) into rank 0's sum
                     # tree, then beta, under the lock the prefetcher draws under.
-                    with phases.phase("prio_update"):
-                        tds = out.td_errors.cpu().numpy().reshape(-1)
-                        frac = min(1.0, n_env / config.total_env_steps)
-                        beta = config.per_beta + frac * (config.per_beta_final - config.per_beta)
-                        with replay_lock:
-                            replay.update_priorities(indices.reshape(-1), tds)
-                            replay.set_beta(beta)
+                    frac = min(1.0, n_env / config.total_env_steps)
+                    beta = config.per_beta + frac * (config.per_beta_final - config.per_beta)
+                    if replay is not None:
+                        with phases.phase("prio_update"):
+                            host_per_update(replay, replay_lock, indices, out.td_errors, beta)
 
                 # strict_sync ignores the wall-clock floors on the refresh and
                 # the log: they would make which params act and which chunks log
@@ -1941,6 +2043,10 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
             serve_front.stop()
         if serve_server is not None:
             serve_server.close()
+        if serve_follower is not None and not serve_follower.join(SERVE_GROUP_TIMEOUT_S):
+            print("[serve] the tensor-parallel serve follower did not stop within "
+                  f"{SERVE_GROUP_TIMEOUT_S:.0f} s; leaving its thread", file=sys.stderr,
+                  flush=True)
         # The shipper stops (later inserts would ship inline), then the
         # scheduler: its pending tickets fail into their waiters.
         if not host_replay:
@@ -1963,15 +2069,17 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
     _beat()
 
     metrics = learner.metrics_to_host(out) if out is not None else {}
-    if config.prioritized:   # the run's one read of the max priority
-        metrics["max_priority"] = float(replay.max_priority)
+    if config.prioritized:   # the run's one read of the max priority (rank 0's host replay's)
+        metrics["max_priority"] = (float(replay.max_priority) if not host_replay
+                                   else mesh.share([float(replay.max_priority) if lead else 0.0],
+                                                   group)[0])
     replica = {}
     if (learner.data_size > 1 or learner.model_axis > 1) and pod_lost is None:
         # Every rank's state (and PER's priorities) against rank 0's, bit
         # for bit (a rank's shards against its data group's first rank's):
         # the replicas must not have drifted apart.
         held = state_tensors(learner.state)
-        if config.prioritized:
+        if config.prioritized and not host_replay:
             # A sharded ring's priorities are each rank's own slots: only
             # the max priority is a replica.
             held += ([replay.max_priority] if slice_writer
@@ -2099,14 +2207,20 @@ def start_exporter(config: DDPGConfig, log: MetricsLogger, preempt: threading.Ev
     return server
 
 
-def start_serving(config: DDPGConfig, spec, pool, scheduler, flat_params):
-    """The serving stack of --serve_actors (JAX train.py:1095-1220): the
-    InferenceServer (built, and on the card warmed, here, before any
-    worker starts) and its ServeFront over the pool's channels, and with
-    front_port / front_http_port the FrontServer, one engine a version,
-    the learner's params published as "live-0". A bind failure of the
-    front is said on stderr and leaves the run without it (ingress must
-    never kill the run it fronts). Returns (server, serve_front, front)."""
+def start_serving(config: DDPGConfig, spec, pool, scheduler, flat_params, device=None,
+                  mesh=None):
+    """The serving stack of --serve_actors (JAX train.py:1095-1220) on an
+    actor host: the InferenceServer (built, and on the card warmed, here,
+    before any worker starts) on `device` (the learner's; config.device
+    when None), over `mesh` (the tensor-parallel apply's group, whose other
+    ranks run a ServeFollower) when given, and its ServeFront over the
+    pool's channels, and with front_port / front_http_port the
+    FrontServer, one engine a version (each a single-device apply, as the
+    JAX trainer's), the learner's params published as "live-0". On a pod
+    every node's lead serves its own workers and binds the same ports. A
+    bind failure of the front is said on stderr and leaves the run
+    without it (ingress must never kill the run it fronts). Returns
+    (server, serve_front, front)."""
     from distributed_ddpg_tpu_torch.serve import InferenceServer, ServeFront
 
     plan = config.fault_plan()
@@ -2118,9 +2232,10 @@ def start_serving(config: DDPGConfig, spec, pool, scheduler, flat_params):
             max_latency_s=config.serve_max_latency_ms / 1000.0,
             max_queue=config.serve_queue, backend=config.serve_backend,
             seed=config.seed, sac=config.sac, log_std_min=config.sac_log_std_min,
-            log_std_max=config.sac_log_std_max, device=config.device, **kw)
+            log_std_max=config.sac_log_std_max,
+            device=config.device if device is None else str(device), **kw)
 
-    server = engine(param_source=pool.param_source(), scheduler=scheduler,
+    server = engine(param_source=pool.param_source(), scheduler=scheduler, mesh=mesh,
                     fault_batcher=plan.site("serve", "batcher") if plan else None,
                     fault_dispatch=plan.site("serve", "dispatch") if plan else None).start()
     serve_front = ServeFront(server, *pool.serve_channels()).start()

@@ -22,8 +22,10 @@ a small size (obs 3, act 2, nets 32x32, batch 16, K 4).
   rtol 2e-5, atol 1e-6, the metrics within rtol 5e-5
   (tests/fused_parity_util.py's tightest tier, as tests/test_torch_per.py).
 - The new config fields (JAX's names and defaults) and the host-replay
-  refusals with JAX's messages; host_replay on D > 1 ranks raises naming
-  ROADMAP item 10.
+  refusals with JAX's messages; host_replay on D > 1 ranks and grids is
+  accepted as JAX accepts it (it runs there:
+  tests/test_torch_host_replay_ranks.py), and a pod refuses it at startup,
+  naming the JAX trainer's failure there.
 - Short `--host_replay=true` CLI runs in child processes: uniform DDPG on
   the kernel route, and README's D4PG command with PER on the scan route
   with the fused update.
@@ -418,26 +420,31 @@ def test_replay_refusals_match_jax(over, match):
 
 
 def test_the_port_refuses_what_it_does_not_port_yet():
-    # The sharded device replay is ported (replay/device.py); the host
-    # replay on more than one rank is not.
+    # The sharded device replay and the host replay on more than one rank
+    # are ported: the host replay on ranks and grids is taken as JAX takes
+    # it; what the port still refuses is JAX's refusals.
     assert DDPGConfig(replay_sharding="sharded").replay_sharding == "sharded"
-    with pytest.raises(ValueError, match="item 10"):
-        DDPGConfig(host_replay=True, model_axis=2)
-    with pytest.raises(ValueError, match="item 10"):
-        DDPGConfig(host_replay=True, data_axis=2)
+    for over in (dict(host_replay=True, model_axis=2), dict(host_replay=True, data_axis=2)):
+        ours, theirs = DDPGConfig(**over), JaxConfig(**over)
+        assert (ours.host_replay, ours.data_axis, ours.model_axis) == \
+            (theirs.host_replay, theirs.data_axis, theirs.model_axis)
     with pytest.raises(ValueError, match="prefetch_depth"):
         DDPGConfig(prefetch_depth=0)
 
 
 def test_host_replay_on_two_ranks_raises_naming_item_10():
-    """The run-time refusal, when data_axis=-1 resolves to a group of two
-    (a stand-in group: the learner is built, nothing is communicated)."""
+    """The run-time refusal that is left: the host replay on a pod of two
+    nodes (a stand-in group: refused before the pod's bootstrap, nothing
+    is communicated), naming the JAX trainer's failure there (its
+    put_chunk's device_put of a chunk that differs between processes)."""
     from distributed_ddpg_tpu_torch.train import train
 
-    group = types.SimpleNamespace(world_size=2, rank=0, lead=True, device=torch.device("cpu"))
+    group = types.SimpleNamespace(world_size=2, rank=0, lead=True, device=torch.device("cpu"),
+                                  is_pod=True, node_lead=True, process_index=0,
+                                  process_count=2)
     cfg = DDPGConfig(device="cpu", host_replay=True, actor_hidden=(8,), critic_hidden=(8, 8),
                      batch_size=4, learner_chunk=2)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 10"):
+    with pytest.raises(ValueError, match=r"pod .*parallel/learner.py:906"):
         train(cfg, echo=False, group=group)
 
 

@@ -15,10 +15,9 @@ package's parallel/partition.py, config.py and make_mesh, in this process
   messages; the Adam moments and targets take the params' specs; the
   layer kinds the Megatron apply runs; shard_tree's blocks rebuild the
   logical tree.
-- The config: JAX's tensor-parallel checks and messages; the refusals of
-  what still runs on one rank only (serving, the host replay), under
-  model_axis > 1, name item 10, and the device actors, the monolith and
-  the guarded learner are accepted with JAX's fields;
+- The config: JAX's tensor-parallel checks and messages; serving, the
+  host replay, the device actors, the monolith and the guarded learner
+  under model_axis > 1 are accepted with JAX's fields;
   resolve_data_axis on a grid raises as make_mesh does; mode='explicit'
   is data-parallel only, with JAX's message.
 """
@@ -201,13 +200,9 @@ def test_tp_configs_jax_accepts_and_the_port_runs():
 ], ids=["serve", "device-actors", "ondevice", "host-replay", "guardrails"])
 def test_one_rank_paths_are_refused_under_model_axis(over):
     theirs = JaxConfig(model_axis=2, **over)     # legal in the JAX package
-    if "serve_actors" in over or "host_replay" in over:
-        # Serving and the host replay on ranks: the next slice of item 10.
-        with pytest.raises(ValueError, match=r"model_axis=2 is not in this slice.*item 10"):
-            DDPGConfig(model_axis=2, **over)
-        return
-    # The device actors, the monolith and the guarded learner run on a grid
-    # now (tests/test_torch_dataplane_ranks.py): accepted with JAX's fields.
+    # Every one of them runs on a grid now (tests/test_torch_dataplane_ranks.py,
+    # test_torch_host_replay_ranks.py, test_torch_serve_ranks.py; the name is
+    # kept from when they were refused): accepted with JAX's fields.
     ours = DDPGConfig(model_axis=2, **over)
     for f in dataclasses.fields(JaxConfig):
         a, b = getattr(ours, f.name), getattr(theirs, f.name)

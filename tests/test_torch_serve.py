@@ -16,8 +16,13 @@ inputs:
   typed; tools/serve_checks (the on-card checks) on the CPU;
 - the serve fault grammar against JAX's FaultPlan (durations included);
 - the 16 serve and front fields' defaults, and JAX's messages for bad
-  values; serving on more than one rank and mesh= refused (item 10);
+  values; serving on more than one rank accepted as JAX accepts it, and
+  mesh= on a group of one rank against the numpy oracle (the TP apply
+  on ranks: tests/test_torch_serve_ranks.py);
 - serve_bench's digest keys; a served CLI run at tiny width, healthy;
+- the served worker's fallbacks: a missed deadline counted as JAX's
+  worker counts it, a wait cut short by the pool's stop not counted (JAX
+  counts it: a deviation);
 - the repaired device defaults (DeviceReplay, DevicePrioritizedReplay,
   the vector envs, make_vector_env) on the card, raising without one.
 
@@ -553,11 +558,27 @@ def test_bad_serve_and_front_values_raise_jaxs_messages(bad):
 
 
 def test_serving_on_more_ranks_and_the_tp_apply_raise_citing_item_10():
-    jax_config.DDPGConfig(serve_actors=True, data_axis=2)   # the JAX package takes it
-    with pytest.raises(ValueError, match="item 10"):
-        DDPGConfig(serve_actors=True, data_axis=2)
-    with pytest.raises(ValueError, match="item 10"):
-        serve.InferenceServer(LAYOUT, 1.0, backend="jax", device="cpu", mesh=object())
+    """Both are ported (the name is kept from when they raised): serving on
+    more ranks is taken as JAX takes it, and mesh= runs the apply over a
+    model group, here one of a single rank (no process group), which is
+    the whole policy: the numpy oracle's actions to float tolerance."""
+    from distributed_ddpg_tpu_torch.parallel.mesh import DataGroup
+
+    for over in (dict(serve_actors=True, data_axis=2), dict(serve_actors=True, model_axis=2)):
+        theirs, ours = jax_config.DDPGConfig(**over), DDPGConfig(**over)
+        assert (ours.serve_actors, ours.data_axis, ours.model_axis) == \
+            (theirs.serve_actors, theirs.data_axis, theirs.model_axis)
+    one = DataGroup(rank=0, world_size=1, device=torch.device("cpu"))
+    tp = serve.InferenceServer(LAYOUT, 1.0, backend="jax", device="cpu", mesh=one)
+    ref = serve.InferenceServer(LAYOUT, 1.0, backend="numpy")
+    flat = (0.1 * np.random.default_rng(3).standard_normal(layout_size(LAYOUT))).astype(
+        np.float32)
+    obs = np.random.default_rng(4).standard_normal((5, LAYOUT[0][0][0])).astype(np.float32)
+    tp.refresh(flat)
+    ref.refresh(flat)
+    np.testing.assert_allclose(tp._compute(obs), ref._compute(obs), rtol=1e-5, atol=1e-6)
+    assert tp.shard_bytes == 4 * layout_size(LAYOUT)
+    tp.close()
 
 
 # --- serve_bench and the CLI ------------------------------------------------------------
@@ -603,6 +624,55 @@ def test_served_cli_run_at_tiny_width(tmp_path):
         assert key in final, key
         assert final[key] == out[key], key
     assert final["serve_client_fallbacks"] <= 8
+
+
+def _worker_fallbacks(run_worker, stop_on_request: bool) -> int:
+    """One served worker on Pendulum-v1, in this process, beside a
+    stand-in server that takes the first request and never answers it:
+    it sets the stop flag at once (`stop_on_request`), or once the
+    worker's 0.2 s deadline has passed and its local act has run for a
+    while (60 s at most). After a fallback the worker asks no more (its
+    serve_fallback_s is an hour). Returns the worker's counted
+    fallbacks."""
+    import queue
+
+    layout = param_layout(3, 1, (8, 8))
+    stop = mp.Value("b", 0, lock=False)
+    fallbacks = mp.Array("l", 1, lock=False)
+    requests = queue.Queue()
+
+    def server():
+        requests.get(timeout=60)
+        deadline = time.monotonic() + 60.0
+        while not stop_on_request and fallbacks[0] == 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        time.sleep(0.0 if stop_on_request else 0.1)
+        stop.value = 1
+
+    thread = threading.Thread(target=server, daemon=True)
+    thread.start()
+    run_worker(0, "Pendulum-v1", 0, layout, np.array([2.0], np.float32),
+               np.array([0.0], np.float32), np.array([-2.0], np.float32),
+               np.array([2.0], np.float32), mp.Array("f", layout_size(layout), lock=False),
+               mp.Value("l", 0, lock=False), queue.Queue(), mp.Array("d", 1, lock=False),
+               stop, ou_theta=0.15, ou_sigma=0.2, ou_dt=1e-2, n_step=1, gamma=0.99,
+               ring_buf=None, ring_rows=0, serve_request_queue=requests, serve_response_queue=queue.Queue(),
+               serve_fallbacks=fallbacks, serve_timeout_s=0.2, serve_fallback_s=3600.0)
+    thread.join(timeout=60)
+    return fallbacks[0]
+
+
+@pytest.mark.parametrize("stop_on_request", [False, True], ids=["deadline", "stop"])
+def test_a_served_wait_cut_by_the_stop_is_not_a_fallback(stop_on_request):
+    """A request past its deadline is one fallback in both workers. A wait
+    that the pool's stop cuts short is none in the port's and one in
+    JAX's (actors/worker.py:277): the run ending is not the served path
+    failing (a deviation, ROADMAP Queue 3)."""
+    from distributed_ddpg_tpu.actors.worker import run_worker as jax_run_worker
+    from distributed_ddpg_tpu_torch.actors.worker import run_worker
+
+    assert _worker_fallbacks(jax_run_worker, stop_on_request) == 1
+    assert _worker_fallbacks(run_worker, stop_on_request) == (0 if stop_on_request else 1)
 
 
 # --- the repaired device defaults ---------------------------------------------------------

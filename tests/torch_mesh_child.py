@@ -28,6 +28,8 @@ Jobs (`spec["kind"]`):
 - "dataplane" and "beats": the device-side data plane on the ranks (the
   device actors, the guarded chunk, the monolith, the fused beat and
   superstep; the cases in tests/torch_dataplane_child.py);
+- "host_chunk" and "serve_tp": the host replay's chunk on the ranks and
+  the tensor-parallel serve apply (the cases in tests/torch_ranks_child.py);
 - "ckpt": a learner at the job's config (model_axis > 1) restores the
   logical checkpoint in `src`, writes this rank's shards, and rank 0
   writes the gathered logical state to `dst` (checkpoints across
@@ -276,6 +278,10 @@ def main(argv) -> int:
         from torch_dataplane_child import run_beats
 
         out = run_beats(spec, job, group)
+    elif spec["kind"] in ("host_chunk", "serve_tp"):
+        import torch_ranks_child
+
+        out = getattr(torch_ranks_child, f"run_{spec['kind']}")(spec, job, group)
     else:
         from distributed_ddpg_tpu_torch.config import DDPGConfig
         from distributed_ddpg_tpu_torch.train import train
