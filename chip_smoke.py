@@ -388,6 +388,26 @@ Phases (any failure raises; nothing is caught and passed over):
    pod_state_degraded 1), K2 on every step, and finishes (exit 0).
    Printed: the detection latency, each generation's seconds, the
    adopted step and generation 2's launches and rates.
+4j. The analysis and tools layer (analysis_phase, TOOLS_LIMIT_S of its own;
+   "4i" already names the sharded shrink above): (a) the program-contract
+   analyzer on cuda:0, every program spec (analysis/programs.py) run once
+   under the recorder on the fake probe group with its kernels, each
+   collective fingerprint the committed golden's
+   (tests/golden_programs_torch/), the card's host reads the golden's
+   `cuda` entry (printed beside the CPU's) and its moved leaves the
+   golden's list, K1 (a) on the mesh-launch chunk (the unguarded uniform
+   chunk on the 2-rank probe: 1 launch) and K2 on the scan-route specs;
+   then the chunk at 2x256, batch 64, K = TOOLS_FULL_K on the kernel
+   route: no collective, no host read, one launch; (b) tools.lint exits 0
+   over the port's tree under this machine's Python; (c) the ladder's rung
+   1 --smoke (the native learner, platform "cpu") and rungs 2-4 --smoke
+   where gymnasium and the env make (on the card, platform "gpu"), else a
+   skip line naming the import that failed; (d) tools.runs summarize over
+   4g's JSONL (exit 0, its train records more than 0) and merge-trace
+   over 4h (b)'s two node traces from generation 2: exit 0, and the
+   merged events the inputs' sum plus each input's two track metadata
+   events. The lint and the ladder run as
+   children beside (a).
 5. Time each branch of the kernel at the main path's shapes (CUDA events,
    warmed up) beside its plain version (one run, timed where the parity
    phase ran it at these shapes: PLAIN_MS) and its bound; the eager autograd
@@ -5304,7 +5324,11 @@ def serving_phase(card: str) -> dict:
 # --- 4g. the operations layer (trace.py, watchdog.py, obs/, faults.py) -------
 
 OPS_LIMIT_S = 150         # phase 4g's alarm (its budget is ~40 s on a fast host)
-OPS_ENV_STEPS = 3000      # the traced main path, and the same path without the flags
+# The traced main path, and the same path without the flags. Its scraper
+# needs the trainer up for a few of its 250 ms scrapes after the first
+# train record (one a second): 3000 env steps ended in 1.9 s on a fast
+# host, before any scrape saw a train record.
+OPS_ENV_STEPS = 20_000
 # The profiled run: the warmup (1000 rows), then env steps held to the
 # learner's by --max_ingest_ratio=1, so two chunks or three.
 OPS_PROFILE_ENV_STEPS = 2600
@@ -5436,6 +5460,7 @@ def traced_main_path(card: str, common) -> dict:
             seen = scraper.stop()
         with open(log_path) as f:
             records = [json.loads(line) for line in f]
+        keep(log_path, "ops.jsonl")   # 4j (d)'s summarize reads it
         trains = [r for r in records if r["kind"] == "train"]
         want = {f"t_{p}_{s}" for p in ("dispatch", "sync", "ingest")
                 for s in ("ms", "p50", "p95", "max")} | {
@@ -5915,9 +5940,12 @@ def two_node_pod(card: str, tmp: str, common) -> dict:
     every chunk one K1 launch a process, exit 0; the replicas' states
     bit-identical (mesh.replicas_equal), both rings the same bytes, and
     every beat's rows of each node at the JAX package's offsets."""
-    ckdir = os.path.join(tmp, "pod_ckpt")
+    ckdir, tdir = os.path.join(tmp, "pod_ckpt"), os.path.join(tmp, "pod_trace")
+    # Each node's flight recorder (trace.json, trace_rank1.json): 4j (d)
+    # merges generation 2's two traces with tools.runs merge-trace.
     flags = common + [f"--total_env_steps={POD_ENV_STEPS}", f"--checkpoint_dir={ckdir}",
-                      "--checkpoint_every=1600", f"--pod_collective_timeout_s={POD_DEADLINE_S}"]
+                      "--checkpoint_every=1600", f"--pod_collective_timeout_s={POD_DEADLINE_S}",
+                      f"--trace_dir={tdir}"]
     extra = ["--env", "DDPG_DIST_BACKEND=gloo",
              "--env-first", f"POD_FAULTS=pod:1:hang@{POD_HANG_BEAT}"]
     t0 = time.monotonic()
@@ -5960,6 +5988,8 @@ def two_node_pod(card: str, tmp: str, common) -> dict:
             f"{res.stderr[-1500:]}; gen 1 node 0: {g1[0][-2500:]}; gen 1 node 1: "
             f"{g1[1][-2500:]}")
     pod_fields = {k: v for k, v in final.items() if k.startswith("pod_")}
+    for name in ("trace.json", "trace_rank1.json"):
+        keep(os.path.join(tdir, name), f"pod_{name}")
     record = dict(seconds=secs, generations=events[-1]["supervisor_generations"],
                   generation_s=[e["runtime_s"] for e in events if e["event"] == "exit"],
                   gen2_spawned_unix=[e["t_unix"] for e in events
@@ -6089,6 +6119,212 @@ def pod_phase(card: str) -> dict:
         + (" (so (a)'s last seconds ran beside (b)'s relaunch)" if overlap > 0 else ""))
     log(f"[phase] 4h and 4i took {secs:.1f}s")
     return dict(single=single, pod=pod, shrink=shrink, seconds=secs, a_after_b_gen2_s=overlap)
+
+
+TOOLS_LIMIT_S = 90        # phase 4j's alarm (its budget is ~15-25 s on a fast host)
+TOOLS_CHILD_S = 80        # each of its children's time limit
+TOOLS_FULL_K = 16         # the full-width K1 (a) chunk's learner steps
+TOOLS_LADDER_ENVS = {2: "LunarLanderContinuous-v2", 3: "BipedalWalker-v3",
+                     4: "HalfCheetah-v4"}
+_kept: dict = {}          # earlier phases' artifacts that 4j reads (keep())
+
+
+def keep(src: str, name: str) -> str:
+    """Copy an earlier phase's artifact (4g's JSONL, 4h's node traces) out
+    of that phase's temporary directory into one of the run's own, for
+    4j's tools.runs; returns the copy's path."""
+    import shutil
+
+    if "dir" not in _kept:
+        _kept["dir"] = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    dst = os.path.join(_kept["dir"], name)
+    shutil.copyfile(src, dst)
+    _kept[name] = dst
+    return dst
+
+
+def _ladder_env(env_id: str):
+    """None when `env_id` makes here, else the import that failed."""
+    try:
+        import gymnasium  # noqa: F401
+    except ImportError as e:
+        return f"import gymnasium failed: {e!r}"
+    try:
+        from distributed_ddpg_tpu_torch.envs import make
+
+        make(env_id, seed=0)
+    except Exception as e:
+        return f"{env_id} does not make: {e!r}"
+    return None
+
+
+def _tool(args, tmp: str, tag: str):
+    out = open(os.path.join(tmp, f"{tag}.out"), "w+")
+    err = open(os.path.join(tmp, f"{tag}.err"), "w+")
+    proc = spawn([sys.executable, "-m", *args], stdout=out, stderr=err)
+    return proc, out, err
+
+
+def _tool_result(child):
+    proc, out, err = child
+    try:
+        proc.wait(timeout=TOOLS_CHILD_S)
+    finally:
+        end_process(proc)
+    out.seek(0)
+    err.seek(0)
+    text, etext = out.read(), err.read()
+    out.close()
+    err.close()
+    return proc.returncode, text, etext
+
+
+def analyzer_on_card(card: str) -> dict:
+    """4j (a): every program spec (analysis/programs.py) built on cuda:0
+    and run once under the recorder on the fake probe group, against the
+    committed goldens (tests/golden_programs_torch/): each fingerprint the
+    golden's, the card's host reads the golden's `cuda` entry and its
+    moved leaves the golden's list, no finding. Then the learner's chunk on the kernel route at
+    the main path's width (2x256, batch 64, K = TOOLS_FULL_K) on one rank:
+    no collective, no host read, one K1 launch. Counts both kernels."""
+    import torch.distributed as dist
+
+    from distributed_ddpg_tpu_torch.analysis import programs as prog_lib
+    from distributed_ddpg_tpu_torch.config import DDPGConfig
+    from distributed_ddpg_tpu_torch.ops._build import KERNEL_LAUNCHES
+    from distributed_ddpg_tpu_torch.parallel.learner import ShardedLearner
+    from distributed_ddpg_tpu_torch.tools.proganalyze import _DEFAULT_GOLDEN
+
+    if dist.is_initialized():
+        raise AssertionError("4j (a): a process group is initialized in the script's "
+                             "process; the analyzer's probe needs it to itself")
+    KERNEL_LAUNCHES.clear()
+    t0 = time.monotonic()
+    report = prog_lib.analyze(prog_lib.default_specs(), _DEFAULT_GOLDEN, device="cuda")
+    secs = time.monotonic() - t0
+    launches = dict(KERNEL_LAUNCHES)
+    rows, wrong = [], []
+    for p in report.programs:
+        g = prog_lib.load_golden(_DEFAULT_GOLDEN, p["name"])
+        same = g["fingerprint"] == p["fingerprint"]
+        if not same:
+            wrong.append(p["name"])
+        rows.append(f"{p['name']} {p['fingerprint']} {'=' if same else '!='} golden, host "
+                    f"reads {p['host_reads']} (golden cuda {g['host_reads'].get('cuda')}, "
+                    f"cpu {g['host_reads']['cpu']}), moved leaves {len(p['moved'])} (golden "
+                    f"{len(g['moved'])})")
+    log(f"[tools] {card}: 4j (a) the analyzer on cuda:0, {len(report.programs)} programs in "
+        f"{secs:.2f} s, launches {json.dumps(launches)}:\n  " + "\n  ".join(rows))
+    if report.findings or wrong or len(report.programs) != 45:
+        raise AssertionError(
+            f"4j (a): {len(report.programs)} programs, fingerprints off the golden: {wrong}; "
+            "findings: " + "; ".join(f.render()[:600] for f in report.findings))
+    # The unguarded uniform chunk on the replicated ring is the mesh launch,
+    # one K1 launch; every other scan-route program but the unguarded
+    # host-fed and PER chunks (the trainer's default config) updates with K2.
+    if launches.get("fused_chunk") != 1 or not launches.get("fused_update"):
+        raise AssertionError(f"4j (a): kernel launches {launches}")
+
+    cfg = DDPGConfig()
+    learner = ShardedLearner(cfg, 3, 1, np.full(1, 2.0, np.float32), chunk_size=TOOLS_FULL_K)
+    replay = prog_lib.probe_replay(cfg, 3, 1, capacity=8192, fill=4096, block_size=1024)
+    built = prog_lib.BuiltProgram(
+        lambda: learner.run_sample_chunk(replay),
+        lambda: {**prog_lib.learner_leaves(learner), **prog_lib.replay_leaves(replay)})
+    KERNEL_LAUNCHES.clear()
+    collectives, reads, ops, moved = prog_lib.run_program(built)
+    torch.cuda.synchronize()
+    full = dict(KERNEL_LAUNCHES)
+    log(f"[tools] {card}: 4j (a) K1 (a) at 2x256, batch 64, K = {TOOLS_FULL_K} on one rank: "
+        f"collectives {collectives}, host reads {reads}, {ops} dispatched ops, "
+        f"{len(moved)} leaves moved, launches {json.dumps(full)}")
+    if collectives or reads or full.get("fused_chunk") != 1 or not learner.fused_chunk_active:
+        raise AssertionError(f"4j (a) full width: collectives {collectives}, reads {reads}, "
+                             f"launches {full}")
+    return dict(launches=launches, full_width=full, seconds=secs,
+                programs=len(report.programs))
+
+
+def analysis_phase(card: str) -> dict:
+    """4j (see the module docstring), under PhaseLimit(TOOLS_LIMIT_S): the
+    lint and the ladder's rungs as children started first, the analyzer
+    on the card meanwhile, then tools.runs over 4g's JSONL and 4h's two
+    node traces."""
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_4j_") as tmp, \
+            PhaseLimit(TOOLS_LIMIT_S, "phase 4j"):
+        lint = _tool(["distributed_ddpg_tpu_torch.tools.lint", "--quiet"], tmp, "lint")
+        rungs = {1: _tool(["distributed_ddpg_tpu_torch.ladder", "--rungs=1", "--smoke"],
+                          tmp, "rung1")}
+        skipped = {}
+        for rung, env_id in TOOLS_LADDER_ENVS.items():
+            why = _ladder_env(env_id)
+            if why is None:
+                rungs[rung] = _tool(["distributed_ddpg_tpu_torch.ladder", f"--rungs={rung}",
+                                     "--smoke"], tmp, f"rung{rung}")
+            else:
+                skipped[rung] = why
+                log(f"[tools] 4j (c) ladder rung {rung} --smoke skipped: {why}")
+        try:
+            analyzer = analyzer_on_card(card)
+        finally:
+            results = {"lint": _tool_result(lint)}
+            results.update({f"rung{r}": _tool_result(c) for r, c in rungs.items()})
+        rc, out, err = results["lint"]
+        log(f"[tools] {card}: 4j (b) tools.lint under python {sys.version.split()[0]}: exit "
+            f"{rc}, {out.strip()}")
+        if rc != 0 or "0 findings" not in out:
+            raise AssertionError(f"4j (b): tools.lint exit {rc}: {out[-2000:]} {err[-2000:]}")
+        records = {}
+        for r in rungs:
+            rc, out, err = results[f"rung{r}"]
+            recs = [json.loads(line) for line in out.splitlines()
+                    if line.startswith('{"kind": "ladder"')]
+            if rc != 0 or not recs or not math.isfinite(recs[-1]["final_return"]):
+                raise AssertionError(f"4j (c): ladder rung {r} exit {rc}: {err[-3000:]}")
+            records[r] = recs[-1]
+            log(f"[tools] {card}: 4j (c) ladder rung {r} --smoke: " + json.dumps(recs[-1]))
+        if records[1]["platform"] != "cpu" or records[1]["backend"] != "native":
+            raise AssertionError(f"4j (c): rung 1's record {records[1]}")
+        for r in records:
+            if r > 1 and records[r]["platform"] != "gpu":
+                raise AssertionError(f"4j (c): rung {r}'s record {records[r]}")
+
+        # (d) tools.runs over 4g's JSONL and 4h's two node traces.
+        runs = ["distributed_ddpg_tpu_torch.tools.runs"]
+        sum_rc, sum_out, sum_err = _tool_result(
+            _tool(runs + ["summarize", _kept["ops.jsonl"]], tmp, "sum"))
+        trains = re.search(r"records \[[^\]]*\btrain:(\d+)", sum_out)
+        log(f"[tools] {card}: 4j (d) tools.runs summarize over 4g's JSONL: exit {sum_rc}, "
+            f"{len(sum_out.splitlines())} lines, {trains.group(1) if trains else 'no'} train "
+            "records")
+        if sum_rc != 0 or not trains or int(trains.group(1)) == 0:
+            raise AssertionError(f"4j (d): summarize exit {sum_rc}: {sum_out[-2000:]} "
+                                 f"{sum_err[-2000:]}")
+        traces = [_kept["pod_trace.json"], _kept["pod_trace_rank1.json"]]
+        merged = os.path.join(tmp, "merged.json")
+        rc, out, err = _tool_result(_tool(runs + ["merge-trace", *traces, "--out", merged],
+                                          tmp, "merge"))
+        n_in = []
+        for t in traces:
+            with open(t) as f:
+                n_in.append(len(json.load(f)["traceEvents"]))
+        n_out = -1
+        if rc == 0:
+            with open(merged) as f:
+                n_out = len(json.load(f)["traceEvents"])
+        log(f"[tools] {card}: 4j (d) tools.runs merge-trace over 4h's node traces "
+            f"({n_in} events): exit {rc}, {n_out} events (each input's two track "
+            "metadata events added)")
+        if rc != 0 or n_out != sum(n_in) + 2 * len(traces):
+            raise AssertionError(f"4j (d): merge-trace exit {rc}, {n_out} events from {n_in}: "
+                                 f"{out[-2000:]} {err[-2000:]}")
+    import shutil
+
+    shutil.rmtree(_kept.get("dir", ""), ignore_errors=True)
+    secs = time.monotonic() - t0
+    log(f"[phase] 4j took {secs:.1f}s")
+    return dict(analyzer, ladder=records, skipped=skipped, phase_s=secs)
 
 
 def main() -> int:
@@ -6410,6 +6646,18 @@ def main() -> int:
         paths["fused_chunk"][f"hostserve_{name}"] = 0   # (c) held the report to K2 alone
     launches["fused_chunk"] = paths["fused_chunk"]["hostserve_serve_d2"]
     update_launches = {"fused_update": paths["fused_update"]["hostserve_host_replay_d2"]}
+
+    # --- 4j. the analysis and tools layer (this slice) ---
+    tools = analysis_phase(card)
+    log(f"[phase] analysis and tools done at {time.monotonic() - t_start:.1f}s")
+    # This slice's paths: K1 (a) on the analyzer's mesh-launch chunk (the
+    # unguarded uniform chunk on the 2-rank probe) and on the chunk at the
+    # main path's width, K2 on the scan-route program specs.
+    paths["fused_chunk"]["analysis_specs"] = tools["launches"]["fused_chunk"]
+    paths["fused_chunk"]["analysis_full_width"] = tools["full_width"]["fused_chunk"]
+    paths["fused_update"]["analysis_specs"] = tools["launches"]["fused_update"]
+    launches["fused_chunk"] = paths["fused_chunk"]["analysis_full_width"]
+    update_launches = {"fused_update": paths["fused_update"]["analysis_specs"]}
 
     # --- 5. timing at the main path's shapes ---
     timing = {

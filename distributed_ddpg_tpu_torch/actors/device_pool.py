@@ -379,3 +379,40 @@ class DeviceActorPool:
             out["devactor_episode_return"] = round(d_ret / d_eps, 6)
         out["devactor_restarts"] = self._restarts
         return out
+
+
+# ---------------------------------------------------------------------------
+# program-contract analyzer hook (analysis/programs.py)
+# ---------------------------------------------------------------------------
+
+
+def program_specs():
+    """The rollout: 4 probe envs x a chunk of 2 on the 2-rank probe group
+    (the envs sharded, the rows gathered over the data group), and on the
+    (2, 2) grid with the learner's logical actor params (`.tp`)."""
+    from distributed_ddpg_tpu_torch.analysis.programs import (
+        BuiltProgram,
+        ProgramSpec,
+        named_leaves,
+        probe_config,
+        probe_group,
+    )
+    from distributed_ddpg_tpu_torch.learner import init_train_state
+    from distributed_ddpg_tpu_torch.parallel.mesh import make_grid
+
+    def build(tp: bool = False):
+        def _build(device: str) -> BuiltProgram:
+            m = 2 if tp else 1
+            config = probe_config(device, device_actor_envs=4, device_actor_chunk=2,
+                                  model_axis=m)
+            pool = DeviceActorPool(config, group=make_grid(probe_group(device, m), m))
+            params = init_train_state(config, pool.obs_dim, pool.act_dim, config.seed,
+                                      pool.device).actor_params
+            pool.bind(lambda: params)
+            return BuiltProgram(pool.advance, lambda: named_leaves(pool.carry, "carry"))
+        return _build
+
+    return [
+        ProgramSpec("devactor.rollout", "actors/device_pool.py", build()),
+        ProgramSpec("devactor.rollout.tp", "actors/device_pool.py", build(tp=True)),
+    ]

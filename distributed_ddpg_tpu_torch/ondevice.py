@@ -335,3 +335,44 @@ class OnDeviceDDPG:
         self.state = shard_tree(state, self._specs, self._model_rank, self.model_axis)
         self._sync_actor()
         self._step = int(self.state.step)
+
+
+# ---------------------------------------------------------------------------
+# program-contract analyzer hook (analysis/programs.py)
+# ---------------------------------------------------------------------------
+
+
+def program_specs():
+    """The on-device monolith (envs, ring and learner in one loop) on the
+    2-rank probe group: one chunk of 2 iterations over 4 envs, and a
+    superstep of B = 2 chunks, with the ring's minimum fill at one
+    iteration's rows so that the learner steps from the second iteration
+    on. Its state, env carry and ring are watched for moved storage."""
+    from distributed_ddpg_tpu_torch.analysis.programs import (
+        BuiltProgram,
+        ProgramSpec,
+        named_leaves,
+        probe_config,
+        probe_group,
+        replay_leaves,
+    )
+
+    def build(superstep: bool):
+        def _build(device: str) -> BuiltProgram:
+            config = probe_config(device, num_actors=4, warmup_uniform_steps=8,
+                                  batch_size=4, replay_min_size=4,
+                                  superstep_beats=2 if superstep else 1)
+            od = OnDeviceDDPG(config, chunk_size=2, group=probe_group(device))
+
+            def leaves():
+                carry = {"env_state": od.env_state, "obs": od.obs, "ou": od.ou,
+                         "ep_ret": od.ep_ret}
+                return {**named_leaves(od.state, "state"), **replay_leaves(od.replay),
+                        **named_leaves(carry, "carry")}
+            return BuiltProgram(od.run_superstep if superstep else od.run_chunk, leaves)
+        return _build
+
+    return [
+        ProgramSpec("ondevice.chunk", "ondevice.py", build(False)),
+        ProgramSpec("ondevice.superstep", "ondevice.py", build(True)),
+    ]

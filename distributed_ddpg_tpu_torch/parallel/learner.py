@@ -982,3 +982,114 @@ def state_tensors(state: TrainState):
     if state.alpha_opt is not None:
         counts.append(state.alpha_opt.count)
     return float_leaves(state) + counts
+
+
+# ---------------------------------------------------------------------------
+# program-contract analyzer hook (analysis/programs.py)
+# ---------------------------------------------------------------------------
+
+
+def program_specs():
+    """Every hot learner chunk program at the probe sizes (8-wide batch,
+    16-wide hiddens, chunk of 2), under JAX's names, on the 2-rank probe
+    group (the `.tp` ones on the (2, 2) grid), where every collective is
+    the port's own. The unguarded uniform chunk on the replicated ring is
+    the mesh launch (K1 (a) on the card, one all-reduce a chunk); every
+    other chunk takes the scan route with K2 (an all-reduce a step). The
+    guarded and unguarded variants of each chunk shape dispatch at the
+    same lockstep site, so they share a beat_group, except the uniform
+    chunk's: its two routes issue different collectives, so ranks that
+    disagree on `guardrails` fork there, and each variant is a beat group
+    of its own (the catalog, distributed_ddpg_tpu_torch/docs/ANALYSIS.md)."""
+    from distributed_ddpg_tpu_torch.analysis.programs import (
+        BuiltProgram,
+        ProgramSpec,
+        learner_leaves,
+        probe_config,
+        probe_group,
+        probe_replay,
+        replay_leaves,
+    )
+
+    OWNER = "parallel/learner.py"
+    scale = np.full(1, 2.0, np.float32)
+
+    def learner(device: str, guard: bool, sharded: bool = False, tp: bool = False,
+                per: bool = False) -> ShardedLearner:
+        # Unguarded and replicated: the trainer's default config, without
+        # K2 (K2 would take the uniform chunk off the mesh launch).
+        kernel = not (guard or sharded or tp)
+        config = probe_config(
+            device, guardrails=guard, prioritized=per, model_axis=2 if tp else 1,
+            replay_sharding="sharded" if sharded else "replicated",
+            fused_update=not kernel)
+        group = probe_group(device, model_axis=2 if tp else 1)
+        return ShardedLearner(config, 3, 1, scale, chunk_size=2, group=group)
+
+    def hostfed(guard: bool):
+        def build(device: str) -> BuiltProgram:
+            L = learner(device, guard)
+            rng = np.random.default_rng(0)
+            shape = (L.chunk_size, L.global_batch)
+            batches = {
+                "obs": rng.standard_normal(shape + (3,)).astype(np.float32),
+                "action": rng.uniform(-1, 1, shape + (1,)).astype(np.float32),
+                "reward": rng.standard_normal(shape).astype(np.float32),
+                "discount": np.full(shape, 0.99, np.float32),
+                "next_obs": rng.standard_normal(shape + (3,)).astype(np.float32),
+            }
+            return BuiltProgram(lambda: L.run_chunk(batches), lambda: learner_leaves(L))
+        return build
+
+    def sample(guard: bool, sharded: bool, per: bool, tp: bool = False):
+        def build(device: str) -> BuiltProgram:
+            L = learner(device, guard, sharded, tp, per)
+            replay = probe_replay(L.config, 3, 1, L.group, sharded)
+            if per:
+                def fn():
+                    return L.run_sample_chunk_per(replay, 0.4)
+            else:
+                def fn():
+                    return L.run_sample_chunk(replay)
+            return BuiltProgram(fn, lambda: {**learner_leaves(L), **replay_leaves(replay)})
+        return build
+
+    # The mesh launch: on the CPU the chunk kernel's plain version reads the
+    # state's step once (ops/fused_chunk.py fused_chunk_reference,
+    # int(state.step)); on the card the wrapper takes the learner's host
+    # copy of it.
+    kernel_reads = "the chunk kernel's plain version reads state.step"
+
+    specs = []
+    for guard in (False, True):
+        tag = ".guarded" if guard else ""
+        specs.extend([
+            ProgramSpec(f"learner.chunk.hostfed{tag}", OWNER, hostfed(guard),
+                        beat_group="learner-beat-hostfed"),
+            ProgramSpec(f"learner.chunk.uniform{tag}", OWNER,
+                        sample(guard, sharded=False, per=False),
+                        beat_group="learner-beat-uniform" + tag.replace(".", "-"),
+                        host_reads=None if guard else kernel_reads),
+            ProgramSpec(f"learner.chunk.per{tag}", OWNER,
+                        sample(guard, sharded=False, per=True),
+                        beat_group="learner-beat-per"),
+            ProgramSpec(f"learner.chunk.uniform.sharded{tag}", OWNER,
+                        sample(guard, sharded=True, per=False),
+                        beat_group="learner-beat-uniform-sharded"),
+            ProgramSpec(f"learner.chunk.per.sharded{tag}", OWNER,
+                        sample(guard, sharded=True, per=True),
+                        beat_group="learner-beat-per-sharded"),
+        ])
+    # The TP variants: the sharded chunks on the (2, 2) grid, a beat group
+    # of their own: the port's Megatron-split step issues the model group's
+    # activation exchanges itself, where JAX's partitioner inserts them
+    # below the jaxpr, so their order is not the 1-D chunks'.
+    specs.extend([
+        ProgramSpec("learner.chunk.uniform.sharded.tp", OWNER,
+                    sample(False, sharded=True, per=False, tp=True),
+                    beat_group="learner-beat-uniform-sharded-tp"),
+        ProgramSpec("learner.chunk.per.sharded.tp", OWNER,
+                    sample(False, sharded=True, per=True, tp=True),
+                    beat_group="learner-beat-per-sharded-tp"),
+    ])
+    return specs

@@ -128,3 +128,54 @@ class FusedMegastep:
     def totals(self) -> dict:
         """The whole run's fused_beats, fused_supersteps and beats a dispatch."""
         return self._stats.totals()
+
+
+# ---------------------------------------------------------------------------
+# program-contract analyzer hook (analysis/programs.py)
+# ---------------------------------------------------------------------------
+
+
+def program_specs():
+    """The fused beat family at the probe sizes (4 probe envs x rollout
+    chunk 2, learner chunk 2, a 64-row ring) on the 2-rank probe group:
+    uniform and PER x replicated and sharded x guarded and unguarded, and
+    the TP composition on the (2, 2) grid. The guarded and unguarded pair
+    of each shape dispatches at the same lockstep site, so they share a
+    beat_group; the TP beats keep a group of their own (the model group's
+    exchanges are the port's own collectives, parallel/learner.py's hook
+    says why)."""
+    from distributed_ddpg_tpu_torch.analysis.programs import (
+        BuiltProgram,
+        ProgramSpec,
+        learner_leaves,
+        probe_beat_stack,
+        replay_leaves,
+    )
+
+    OWNER = "parallel/megastep.py"
+
+    def build(guard: bool, per: bool, sharded: bool, tp: bool = False):
+        def _build(device: str) -> BuiltProgram:
+            config, learner, pool, replay = probe_beat_stack(device, guard, per, sharded, tp)
+            ms = FusedMegastep(config, learner, pool, replay)
+            return BuiltProgram(lambda: ms.run_beat(0.4 if per else None),
+                                lambda: {**learner_leaves(learner), **replay_leaves(replay)})
+        return _build
+
+    specs = []
+    for per, kind in ((False, "uniform"), (True, "per")):
+        for sharded in (False, True):
+            shard_tag = ".sharded" if sharded else ""
+            for guard in (False, True):
+                tag = ".guarded" if guard else ""
+                specs.append(ProgramSpec(
+                    f"megastep.beat.{kind}{shard_tag}{tag}", OWNER,
+                    build(guard, per, sharded),
+                    beat_group=f"megastep-beat-{kind}{shard_tag}",
+                ))
+        specs.append(ProgramSpec(
+            f"megastep.beat.{kind}.sharded.tp", OWNER,
+            build(False, per, True, tp=True),
+            beat_group=f"megastep-beat-{kind}.sharded.tp",
+        ))
+    return specs

@@ -45,6 +45,9 @@ and the model group a group of one, and nothing changes.
   gather's buffer is -0.0 where a rank has nothing to say: x + (-0.0) is
   x for every float x, -0.0 and +0.0 included, so a gather or an
   owner-masked sum comes out bit for bit, in any summation order.
+- `init_probe_world` and `probe_subgroup` make the program-contract
+  analyzer's probe (analysis/programs.py): a `fake` group of ranks in one
+  process, and rank 0's view of its first n ranks.
 
 A DataGroup can be made without joining anything: with one rank its
 collectives are identities; with more, it serves route decisions alone
@@ -115,6 +118,8 @@ class DataGroup:
         if self.model_axis == 1:
             return self
         if self.data_view is None:
+            # lint: ok(typed-error): caller bug (a grid view read before
+            # make_grid made it), not a failure any recovery path handles
             raise RuntimeError("model_axis > 1 but make_grid has not made the subgroups")
         return self.data_view
 
@@ -125,6 +130,8 @@ class DataGroup:
         if self.model_view is not None:
             return self.model_view
         if self.model_axis > 1:
+            # lint: ok(typed-error): caller bug (a grid view read before
+            # make_grid made it), not a failure any recovery path handles
             raise RuntimeError("model_axis > 1 but make_grid has not made the subgroups")
         return DataGroup(rank=0, world_size=1, device=self.device, ranks=(self.rank,))
 
@@ -206,9 +213,13 @@ def init_data_group(backend: str = "nccl", device=None, init_method: Optional[st
     local_rank = int(os.environ.get("LOCAL_RANK", str(rank)))
     if backend == "nccl":
         if not torch.cuda.is_available():
+            # lint: ok(typed-error): a launch configuration refused before
+            # the group exists; nothing recovers from it, the trainer stops
             raise RuntimeError("backend='nccl' needs CUDA; torch.cuda.is_available() is False")
         cards = torch.cuda.device_count()
         if local_rank >= cards:
+            # lint: ok(typed-error): a launch configuration refused before
+            # the group exists; nothing recovers from it, the trainer stops
             raise RuntimeError(
                 f"NCCL rank {rank} (local rank {local_rank}) has no card of its "
                 f"own: this host has {cards}; NCCL runs one rank a card (gloo can "
@@ -219,6 +230,8 @@ def init_data_group(backend: str = "nccl", device=None, init_method: Optional[st
     else:
         device = torch.device(device if device is not None else "cpu")
         if device.type == "cuda" and not torch.cuda.is_available():
+            # lint: ok(typed-error): a launch configuration refused before
+            # the group exists; nothing recovers from it, the trainer stops
             raise RuntimeError(f"device {device} but torch.cuda.is_available() is False")
     timeout = datetime.timedelta(seconds=float(timeout_s))
     if not dist.is_initialized():
@@ -248,6 +261,8 @@ def _learn_nodes(group: DataGroup, node_rank: int, local_rank: int, timeout) -> 
     for n in nodes:
         here = [r for r, (node, local) in enumerate(pairs) if node == n and local == 0]
         if len(here) != 1:
+            # lint: ok(typed-error): a launch layout refused while the group
+            # forms (torchrun's LOCAL_RANK per node), before any beat runs
             raise RuntimeError(f"node {n} has {len(here)} ranks with LOCAL_RANK 0 "
                                f"(ranks' (GROUP_RANK, LOCAL_RANK): {pairs})")
         leads.append(here[0])
@@ -317,6 +332,30 @@ def serve_group(group: Optional[DataGroup], timeout_s: float) -> Optional[DataGr
             mine = DataGroup(rank=ranks.index(group.rank), world_size=m, device=group.device,
                              ctrl=pg, pg=pg, ranks=ranks)
     return mine
+
+
+def init_probe_world(world_size: int) -> None:
+    """The default group of the program-contract analyzer's probe
+    (analysis/programs.py): the `fake` backend's `world_size` ranks, of
+    which this one process is rank 0. Its collectives return this rank's
+    own values and wait for no peer, so it has no deadline."""
+    import torch.distributed as dist
+    import torch.testing._internal.distributed.fake_pg as fake_pg
+
+    dist.init_process_group("fake", store=fake_pg.FakeStore(), rank=0, world_size=world_size)
+
+
+def probe_subgroup(n: int, device) -> DataGroup:
+    """Rank 0's view of the first `n` ranks of the probe world
+    (init_probe_world): the world itself, or a subgroup of its own."""
+    import torch.distributed as dist
+
+    device = torch.device(device)
+    if n == dist.get_world_size():
+        return DataGroup(rank=0, world_size=n, device=device)
+    pg = dist.new_group(list(range(n)))
+    return DataGroup(rank=0, world_size=n, device=device, ctrl=pg, pg=pg,
+                     ranks=tuple(range(n)))
 
 
 def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -123,3 +123,55 @@ class FusedSuperstep:
     def totals(self) -> dict:
         """The whole run's fused_beats, fused_supersteps and beats a dispatch."""
         return self._stats.totals()
+
+
+# ---------------------------------------------------------------------------
+# program-contract analyzer hook (analysis/programs.py)
+# ---------------------------------------------------------------------------
+
+
+def program_specs():
+    """The superstep family at B = 2 (the smallest loop that iterates), on
+    the fused beat's probe stack (parallel/megastep.py's hook): uniform
+    and PER x replicated and sharded x guarded and unguarded, and the TP
+    composition on the (2, 2) grid. Its collective order is the beat's,
+    twice. It reads the host once, by design: the stacked stats of its B
+    beats in one copy."""
+    from distributed_ddpg_tpu_torch.analysis.programs import (
+        BuiltProgram,
+        ProgramSpec,
+        learner_leaves,
+        probe_beat_stack,
+        replay_leaves,
+    )
+
+    OWNER = "parallel/superstep.py"
+    READS = "the superstep's one copy of its B beats' stacked stats to the host"
+
+    def build(guard: bool, per: bool, sharded: bool, tp: bool = False):
+        def _build(device: str) -> BuiltProgram:
+            config, learner, pool, replay = probe_beat_stack(
+                device, guard, per, sharded, tp, superstep_beats=2)
+            ss = FusedSuperstep(config, learner, pool, replay, beats=2)
+            betas = np.full(2, 0.4, np.float32) if per else None
+            return BuiltProgram(lambda: ss.run_superstep(betas),
+                                lambda: {**learner_leaves(learner), **replay_leaves(replay)})
+        return _build
+
+    specs = []
+    for per, kind in ((False, "uniform"), (True, "per")):
+        for sharded in (False, True):
+            shard_tag = ".sharded" if sharded else ""
+            for guard in (False, True):
+                tag = ".guarded" if guard else ""
+                specs.append(ProgramSpec(
+                    f"superstep.loop.{kind}{shard_tag}{tag}", OWNER,
+                    build(guard, per, sharded),
+                    beat_group=f"superstep-loop-{kind}{shard_tag}", host_reads=READS,
+                ))
+        specs.append(ProgramSpec(
+            f"superstep.loop.{kind}.sharded.tp", OWNER,
+            build(False, per, True, tp=True),
+            beat_group=f"superstep-loop-{kind}.sharded.tp", host_reads=READS,
+        ))
+    return specs

@@ -856,12 +856,17 @@ class DeviceReplay:
         calls it at the same point of its loop. Returns this rank's real
         (unpadded) rows shipped. Under background_sync it goes through the
         scheduler's lane and waits there (multihost.wait_beat_ticket), so
-        its collective keeps its place among the queued beats. A replay
-        without a pod has no beat: its rows move through add_packed and
-        flush."""
+        its collective keeps its place among the queued beats. On one
+        process there is no beat: it degrades to the add_packed/flush fast
+        path (JAX :897-903), every full block shipped and, with `force`,
+        the remainder flushed padded, and returns the rows moved."""
         if self._procs == 1:
-            raise RuntimeError("sync_ship() needs a pod of more than one node; "
-                               "without one, rows move through add_packed and flush")
+            self._check_shipper()
+            moved = self._drain_ring()
+            if force and self.pending_rows:
+                moved += self.pending_rows
+                self.flush()
+            return moved
         if self._bg_sync:
             from distributed_ddpg_tpu_torch.parallel import multihost
 
@@ -876,8 +881,8 @@ class DeviceReplay:
         when it runs, after every earlier beat (FIFO), so no row is claimed
         twice."""
         if not self._bg_sync:
-            raise RuntimeError("sync_ship_begin() needs background_sync=True, a "
-                               "TransferScheduler and a pod of more than one node")
+            raise ReplayUsageError("sync_ship_begin() needs background_sync=True, an "
+                                   "attached TransferScheduler, and a multi-process mesh")
         self._beat += 1
         # A sharded ring's beats ride the shard_exchange class: the same
         # ordered lane and deadline, their own transfer_shard_exchange_*
@@ -1276,3 +1281,79 @@ class DevicePrioritizedReplay(DeviceReplay):
             self.priorities[:len(prios)] = torch.as_tensor(
                 np.ascontiguousarray(prios), device=self.device)
             self.max_priority.fill_(float(state["max_priority"]))
+
+
+# ---------------------------------------------------------------------------
+# program-contract analyzer hook (analysis/programs.py)
+# ---------------------------------------------------------------------------
+
+
+def program_specs():
+    """The ring's insert, stamp and reshard programs over tiny rings
+    (capacity 64, blocks of 8), replicated on one rank and sharded on the
+    2-rank probe group: the host block's insert (`_ship`), the device rows'
+    insert, the PER stamp of a device insert's positions, and the elastic
+    restore's reshard (load_state_dict of a logical ring onto a sharded
+    one). The pod's global inserts (the all-gathering beats) need a real
+    multi-process pod and are drilled by the pod tests instead."""
+    from distributed_ddpg_tpu_torch.analysis.programs import (
+        BuiltProgram,
+        ProgramSpec,
+        probe_group,
+        probe_rows,
+        replay_leaves,
+    )
+
+    OWNER = "replay/device.py"
+    M = 8  # rows per probe ship (one block)
+
+    def replay(device: str, sharded: bool = False, per: bool = False) -> DeviceReplay:
+        kw = (dict(replay_sharding="sharded", group=probe_group(device))
+              if sharded else {})
+        cls = DevicePrioritizedReplay if per else DeviceReplay
+        return cls(64, 3, 1, device, block_size=M, **kw)
+
+    def built(r: DeviceReplay, fn) -> BuiltProgram:
+        def locked():
+            with r.dispatch_lock:
+                return fn()
+        return BuiltProgram(locked, lambda: replay_leaves(r))
+
+    def insert(sharded: bool):
+        def build(device: str) -> BuiltProgram:
+            r = replay(device, sharded)
+            block = probe_rows(M, r.width)
+            return built(r, lambda: r._ship(block))
+        return build
+
+    def insert_devrows_sharded(device: str) -> BuiltProgram:
+        r = replay(device, sharded=True)
+        rows = torch.from_numpy(probe_rows(M, r.width)).to(device)
+        return built(r, lambda: r.insert_device_rows(rows))
+
+    def stamp(sharded: bool):
+        def build(device: str) -> BuiltProgram:
+            r = replay(device, sharded, per=True)
+            return built(r, lambda: r._stamp_device_rows(r._device_positions(M)))
+        return build
+
+    def reshard(per: bool):
+        def build(device: str) -> BuiltProgram:
+            r = replay(device, sharded=True, per=per)
+            state = {"packed": probe_rows(64, r.width), "ptr": np.asarray(0),
+                     "size": np.asarray(64)}
+            if per:
+                state["priorities"] = np.linspace(0.5, 1.5, 64, dtype=np.float32)
+                state["max_priority"] = np.asarray(1.5, np.float32)
+            return built(r, lambda: r.load_state_dict(state))
+        return build
+
+    return [
+        ProgramSpec("replay.insert", OWNER, insert(False)),
+        ProgramSpec("replay.insert.sharded", OWNER, insert(True)),
+        ProgramSpec("replay.insert.devrows.sharded", OWNER, insert_devrows_sharded),
+        ProgramSpec("replay.stamp", OWNER, stamp(False)),
+        ProgramSpec("replay.stamp.sharded", OWNER, stamp(True)),
+        ProgramSpec("replay.reshard.sharded", OWNER, reshard(False)),
+        ProgramSpec("replay.per.reshard.sharded", OWNER, reshard(True)),
+    ]

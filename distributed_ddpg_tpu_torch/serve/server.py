@@ -61,8 +61,8 @@ ServeGroupLost, so the workers take their local act() (serve_fallbacks),
 and every later one at once: the group is never used again, and the
 apply never gives way to a single-device one.
 
-Not here: the JAX package's program_specs hook of its program-contract
-analyzer (item 13).
+`program_specs()` is the hook of the program-contract analyzer
+(analysis/programs.py): the device apply, whole and tensor-parallel.
 """
 
 from __future__ import annotations
@@ -262,6 +262,8 @@ class InferenceServer:
         same action and no two clients share a stream. explore=False is
         the deterministic tanh(mean) squash."""
         if not self.sac:
+            # lint: ok(typed-error): caller bug (sampling a deterministic
+            # head), not a runtime failure any recovery path handles
             raise RuntimeError("sample() is the SAC serve head's API")
         head = np.asarray(head, np.float32).reshape(-1)
         mean, log_std = head[: self.act_dim], head[self.act_dim:]
@@ -565,3 +567,41 @@ class ServeFollower:
         """Wait for the thread's end; False if it is still running."""
         self._thread.join(timeout)
         return not self._thread.is_alive()
+
+
+# ---------------------------------------------------------------------------
+# program-contract analyzer hook (analysis/programs.py)
+# ---------------------------------------------------------------------------
+
+
+def program_specs():
+    """The device serve apply: one padded (max_batch, obs_dim) batch through
+    the resident params, and its tensor-parallel form over the (2, 2)
+    grid's model group (`mesh=`; the followers' side of each broadcast is
+    the fake group's). Serving runs outside the learner's lockstep, so its
+    one-device apply stages no collective; its read of the output rows back
+    to the host is the request's answer."""
+    from distributed_ddpg_tpu_torch.actors.policy import param_layout
+    from distributed_ddpg_tpu_torch.analysis.programs import (
+        BuiltProgram,
+        ProgramSpec,
+        probe_group,
+    )
+    from distributed_ddpg_tpu_torch.parallel.mesh import make_grid
+
+    READS = "the apply's output rows copied back to the host: the requests' answer"
+
+    def build(tp: bool = False):
+        def _build(device: str) -> BuiltProgram:
+            mesh = make_grid(probe_group(device, 2), 2).model if tp else None
+            server = InferenceServer(param_layout(3, 1, (16, 16)), np.ones(1, np.float32),
+                                     backend="jax", max_batch=8, mesh=mesh, device=device)
+            obs = np.zeros((8, 3), np.float32)
+            return BuiltProgram(lambda: server._compute(obs))
+        return _build
+
+    return [
+        ProgramSpec("serve.apply.jax", "serve/server.py", build(), host_reads=READS),
+        ProgramSpec("serve.apply.jax.tp", "serve/server.py", build(tp=True),
+                    host_reads=READS),
+    ]

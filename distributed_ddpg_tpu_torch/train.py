@@ -12,9 +12,9 @@ each (parallel/mesh.py). It covers:
   --transfer_scheduler), coalesced up to an adaptive cap
   (--ingest_coalesce, --ingest_coalesce_adaptive) from pinned pooled
   buffers (--transfer_host_pool), so the insert's copy queues behind the
-  running chunk and the driver only stages rows; on D > 1 ranks the
-  ships stay on the driver's thread (every rank inserts at the same
-  point). Each drain is capped by --max_ingest_ratio. The scheduler is
+  running chunk and the driver only stages rows; on more than one rank
+  (D > 1 or a grid) the ships stay on the driver's thread (every rank
+  inserts at the same point). Each drain is capped by --max_ingest_ratio. The scheduler is
   made with the replay and closed after it;
 - the replay_min_size warmup;
 - chunk dispatch through ShardedLearner.run_sample_chunk (on the card,
@@ -882,11 +882,12 @@ def _train_impl(config: DDPGConfig, echo: bool, group, _beat, _grant) -> Dict[st
         .start() if config.transfer_scheduler and not strict else None)
     # A shipping thread would make the time an insert lands, relative to
     # the next chunk's draw, depend on each rank's host: the replicas would
-    # part, and so would two strict-sync runs. So on D > 1 ranks and under
-    # strict_sync the ships stay inline (the pinned pool's non-blocking
-    # copy still applies where the scheduler runs).
-    ingest_async = (config.ingest_async and learner.data_size == 1 and not strict
-                    and not host_replay)
+    # part, and so would two strict-sync runs. So on more than one rank (D
+    # > 1, or a grid's model group: its ranks draw from rings of their
+    # own) and under strict_sync the ships stay inline (the pinned pool's
+    # non-blocking copy still applies where the scheduler runs).
+    ingest_async = (config.ingest_async and learner.data_size * learner.model_axis == 1
+                    and not strict and not host_replay)
     # Guardrails (see the module docstring): the driver's half of the probe.
     # The host replay keeps no sources (as in the JAX trainer).
     guard_on = config.guardrails

@@ -686,14 +686,39 @@ def test_one_node_keeps_the_share_rows_ring(tmp_path):
     assert [bool(o["node_lead"]) for o in outs] == [True, False]
 
 
-def test_sync_ship_without_a_pod_raises():
-    """A replay without a pod has no beat: sync_ship refuses, and its rows
-    move through add_packed and flush."""
+@pytest.mark.parametrize("force", [False, True])
+def test_sync_ship_on_one_process_matches_jax(force):
+    """Without a pod sync_ship degrades to the add_packed/flush fast path,
+    as JAX's does (distributed_ddpg_tpu/replay/device.py:897-903): every
+    full block ships (add_packed already shipped them inline here) and,
+    with `force`, the remainder is flushed padded. The rows moved, the ring and the rows left staged equal JAX's
+    DeviceReplay.sync_ship on the same rows."""
+    from distributed_ddpg_tpu.replay.device import DeviceReplay as JaxDeviceReplay
     from distributed_ddpg_tpu_torch.replay.device import DeviceReplay
 
+    rows = node_rows(SEED, 0, 0, 2 * BLOCK + 3)
     rep = DeviceReplay(CAPACITY, 3, 1, "cpu", block_size=BLOCK)
-    rep.add_packed(node_rows(SEED, 0, 0, 2 * BLOCK))
-    with pytest.raises(RuntimeError, match="needs a pod of more than one node"):
-        rep.sync_ship(force=True)
-    rep.flush()
-    assert rep.size == 2 * BLOCK
+    ref = JaxDeviceReplay(CAPACITY, 3, 1, block_size=BLOCK, async_ship=False)
+    rep.add_packed(rows)
+    ref.add_packed(rows)
+    moved, ref_moved = rep.sync_ship(force=force), ref.sync_ship(force=force)
+    assert moved == ref_moved == (3 if force else 0)
+    np.testing.assert_array_equal(rep.storage.numpy(), np.asarray(ref.storage))
+    assert (rep.ptr, rep.size) == (int(ref.ptr), int(ref.size))
+    assert rep.pending_rows == ref.pending_rows == (0 if force else 3)
+
+
+def test_sync_ship_begin_without_background_sync_raises_usage_error():
+    """sync_ship_begin without background_sync raises JAX's ReplayUsageError
+    (distributed_ddpg_tpu/replay/device.py:937-941), still a RuntimeError."""
+    from distributed_ddpg_tpu.replay.device import DeviceReplay as JaxDeviceReplay
+    from distributed_ddpg_tpu.replay.device import ReplayUsageError as JaxUsageError
+    from distributed_ddpg_tpu_torch.replay.device import DeviceReplay, ReplayUsageError
+
+    rep = DeviceReplay(CAPACITY, 3, 1, "cpu", block_size=BLOCK)
+    with pytest.raises(ReplayUsageError, match="needs background_sync=True") as ours:
+        rep.sync_ship_begin()
+    with pytest.raises(JaxUsageError) as theirs:
+        JaxDeviceReplay(CAPACITY, 3, 1, block_size=BLOCK, async_ship=False).sync_ship_begin()
+    assert str(ours.value) == str(theirs.value)
+    assert isinstance(ours.value, RuntimeError)

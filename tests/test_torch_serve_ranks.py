@@ -138,6 +138,9 @@ def test_train_serving_on_two_ranks(extra, tmp_path):
     lead, other = (json.loads(str(res["summary"])) for res in results)
     for s in (lead, other):
         assert s["replicas_identical"] is True and s["learner_steps"] > 0
+        # Every rank ships inline, a grid's model group too: ranks that
+        # shipped on threads of their own drew from rings that differed.
+        assert s["ingest_async_active"] is False
     assert lead["serve_requests"] > 0 and lead["serve_errors"] == 0
     assert lead["serve_client_fallbacks"] == 0
     assert "serve_requests" not in other     # one server, on the actor host
